@@ -1,0 +1,139 @@
+"""`xfb-torch-run` — the model run command of the PyTorch / CUDA port.
+
+    python -m xlab_fftbarotropic_torch.cli.run -I input -O output \
+        -i initial_vorticity.bin --nx 4096 --ny 4096 --total-steps 20 \
+        --record-step 10 [--device cuda|cpu]
+
+The flags are those of xlab_fftbarotropic_tpu.cli.run for what the port
+covers: the barotropic family, the -s script / -f fifo forcing, records,
+checkpoints and resume. `--device cuda` (the default) runs the plane
+stepper's hand-written CUDA kernels and stops with an error when no GPU
+is visible; it never carries on on the CPU. `--device cpu` runs the
+kernels' plain torch versions. Flags the port does not cover yet stop
+with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None):
+    import torch
+
+    from ..models.barotropic import resolve_device, resolve_fft_backend_name
+    from ..reused import add_config_args, config_from_args
+
+    p = argparse.ArgumentParser(
+        prog="xfb-torch-run",
+        description="Barotropic vorticity model run (PyTorch / CUDA port)")
+    add_config_args(p)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default): the hand-written CUDA kernels, "
+                        "error if no GPU is visible; cpu: their plain "
+                        "torch versions")
+    p.add_argument("-m", "--model", default="barotropic",
+                   help="model family; the port has barotropic (bt) only")
+    p.add_argument("-s", "--script", default=None, metavar="RECIPE",
+                   help="vorticity-source script file "
+                        "(lines: '<time> <field.bin>')")
+    p.add_argument("-f", "--fifo", default=None, metavar="FIFO",
+                   help="vorticity-source FIFO (per-step flag-byte protocol)")
+    p.add_argument("--resume-from", default=None,
+                   help="checkpoint .npz to resume from (written by either "
+                        "package's runner)")
+    p.add_argument("--no-record", action="store_true",
+                   help="skip field records (benchmarking)")
+    p.add_argument("--record-fields", default=None, metavar="NAMES",
+                   help="comma list of fields to record (subset of vort, "
+                        "psi, u, v; 'vort_src' for the forcing dump). "
+                        "Default: all")
+    p.add_argument("--debug-fields", action="store_true",
+                   help="also dump dvortdx/dvortdy/dvortdt at record steps")
+    p.add_argument("--manifest", default="log",
+                   help="manifest path (the reference's `log` file)")
+    p.add_argument("--step-banners", action="store_true",
+                   help="print the '# Step N' banner for every step")
+    # outside the port so far: accepted only to stop with a clear error
+    p.add_argument("--fast-transforms", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--shard", action="store_true", help="not ported yet")
+    p.add_argument("--ensemble", type=int, default=0, help="not ported yet")
+    args = p.parse_args(argv)
+
+    if args.fast_transforms:
+        p.error("--fast-transforms is not ported yet (ROADMAP.md queue B); "
+                "the port runs the strict float32 mode")
+    if args.shard:
+        p.error("--shard is not ported yet (ROADMAP.md queue A, item 13)")
+    if args.ensemble:
+        p.error("--ensemble is not ported yet (ROADMAP.md queue A, item 11)")
+    if args.model not in ("barotropic", "bt"):
+        p.error(f"-m {args.model}: the port has the barotropic family only "
+                f"so far (ROADMAP.md queue A)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        p.error("--device cuda: no CUDA device is visible; pass --device "
+                "cpu to run the kernels' plain torch versions on the CPU")
+    if args.script and args.fifo:
+        p.error("give at most one of -s / -f")
+
+    record_only = None
+    if args.record_fields is not None:
+        record_only = [s.strip() for s in args.record_fields.split(",")
+                       if s.strip()]
+        if not record_only:
+            p.error("--record-fields got an empty list; name at least one "
+                    "field (e.g. vort,psi) or omit the flag")
+
+    cfg = config_from_args(args)
+    if cfg.time_scheme != "rk4":
+        p.error(f"--time-scheme {cfg.time_scheme} is not ported yet "
+                f"(ROADMAP.md queue A, item 9)")
+    try:
+        backend = resolve_fft_backend_name(cfg.fft_backend, cfg.grid_shape)
+    except (NotImplementedError, ValueError) as e:
+        p.error(str(e))
+    recipe, src_path = "empty", None
+    if args.script:
+        recipe, src_path = "script", args.script
+    if args.fifo:
+        recipe, src_path = "fifo", args.fifo
+
+    device = resolve_device(args.device)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    how = {("pallas", "cuda"): "hand-written CUDA kernels",
+           ("pallas", "cpu"): "plain torch versions of the CUDA kernels",
+           }.get((backend, device.type), "torch.fft library path")
+
+    print("##### Model setting #####", file=sys.stderr)
+    print(f"Initial file          : {cfg.init_file}", file=sys.stderr)
+    print(f"Input folder          : {cfg.input_dir}", file=sys.stderr)
+    print(f"Output folder         : {cfg.output_dir}", file=sys.stderr)
+    print(f"Grid                  : {cfg.nx} x {cfg.ny}", file=sys.stderr)
+    print(f"Length X              : {cfg.lx:.3f} [m]", file=sys.stderr)
+    print(f"Length Y              : {cfg.ly:.3f} [m]", file=sys.stderr)
+    print(f"Time Resolution dt    : {cfg.dt:.3f} [s]", file=sys.stderr)
+    print(f"Steps                 : {cfg.total_steps}", file=sys.stderr)
+    print(f"Device                : {where}", file=sys.stderr)
+    print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
+    print("#########################", file=sys.stderr)
+
+    from ..runner import run
+
+    result = run(cfg, device, recipe=recipe, src_path=src_path,
+                 record=not args.no_record, manifest_path=args.manifest,
+                 progress=True, resume_from=args.resume_from,
+                 model_kind=args.model, debug_fields=args.debug_fields,
+                 step_banners=args.step_banners, record_only=record_only)
+    sps = result.steps_run / max(result.wall_time, 1e-9)
+    print(f"Ran {result.steps_run} steps in {result.wall_time:.2f}s "
+          f"({sps:.1f} steps/s, {sps * cfg.grids:.3e} grid-points/s)",
+          file=sys.stderr)
+    print("Program ends. Congrats!", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+"""Carry data between the JAX package and the port, both ways.
+
+In this system the "weights" are the spectral coefficient tables and the
+state is the complex64 half-spectrum zeta_hat; both cross as numpy
+arrays, so neither side imports the other. Checkpoints need no
+conversion: both runners write and read them through the shared
+xlab_fftbarotropic_tpu/io/checkpoint.py (complex64 zeta_hat + config
+hash), so a checkpoint from either resumes in the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.spectral import SpectralTables
+
+
+def tables_from_numpy(tables: dict, device) -> SpectralTables:
+    """{'kx', 'ky', 'lap', 'inv_lap', 'mask', 'rlap'} numpy arrays (for
+    example np.asarray of each field of the JAX SpectralTables) ->
+    SpectralTables on `device`."""
+    return SpectralTables({n: np.asarray(tables[n], dtype=np.float32)
+                           for n in SpectralTables.NAMES}, device)
+
+
+def tables_to_numpy(t: SpectralTables) -> dict:
+    return {n: getattr(t, n).detach().cpu().numpy()
+            for n in SpectralTables.NAMES}
+
+
+def state_from_numpy(zeta_hat: np.ndarray, device):
+    """complex64 (nx, hny) -> (zr, zi) float32 planes on `device`."""
+    z = np.asarray(zeta_hat)
+    if z.dtype != np.complex64 or z.ndim != 2:
+        raise ValueError(f"expected a complex64 (nx, hny) state, got "
+                         f"{z.dtype} {z.shape}")
+    zr = torch.from_numpy(np.ascontiguousarray(z.real)).to(device)
+    zi = torch.from_numpy(np.ascontiguousarray(z.imag)).to(device)
+    return zr, zi
+
+
+def state_to_numpy(zr: torch.Tensor, zi: torch.Tensor) -> np.ndarray:
+    """(zr, zi) float32 planes -> complex64 (nx, hny) numpy."""
+    return torch.complex(zr, zi).detach().cpu().numpy()

@@ -1,0 +1,306 @@
+"""Barotropic vorticity model: the counterpart of
+xlab_fftbarotropic_tpu/models/barotropic.py.
+
+Equation (main.cpp:225-243):
+    d zeta / dt = -u * zeta_x - v * zeta_y + S + nu * lap(zeta)
+with u = -psi_y, v = +psi_x, lap(psi) = zeta, advanced by classic RK4 on
+the half-spectrum state zeta_hat (complex64, (nx, ny//2+1)); each stage
+tendency is dealiased (main.cpp:296-306), the state never is.
+
+Two stepping paths, chosen by cfg.fft_backend:
+
+* "pallas", the plane stepper (rk4_step_planes): the state moves as
+  float32 (re, im) planes through the four transform kernels of
+  ops/fused_fft.py, five launches per RK stage. On a CUDA device they are
+  the hand-written kernels; on the CPU, their plain torch.fft versions.
+* "xla", the library path (tendency / rk4_step) on torch.fft.
+
+"auto" takes "pallas" for power-of-two square grids the kernels take
+(64..8192), else "xla". The diagnostics always use the library path.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import fft
+from ..ops import fused_fft as ff
+from ..ops import spectral as sp
+from ..ops.spectral import SpectralTables
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device with the index filled in ('cuda' -> the current
+    'cuda:N'), so that it compares equal to the device of the tensors
+    made on it."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def plane_stepper_ok(grid_shape) -> bool:
+    nx, ny = grid_shape
+    return nx == ny and ff.supported_length(nx)
+
+
+def resolve_fft_backend_name(name: str, grid_shape) -> str:
+    """'auto' -> 'pallas' on square power-of-two grids from 64 to 8192,
+    else 'xla': a deterministic shape gate. An explicit 'pallas' on a
+    grid the kernels do not take raises."""
+    if name == "mxu":
+        raise NotImplementedError(
+            "fft_backend='mxu' is not ported (ROADMAP.md queue A, 'Not to "
+            "port': torch.fft fills the library role); use 'xla' or "
+            "'pallas'")
+    if name == "auto":
+        return "pallas" if plane_stepper_ok(grid_shape) else "xla"
+    if name == "pallas" and not plane_stepper_ok(grid_shape):
+        raise ValueError(
+            f"fft_backend='pallas' needs a square power-of-two grid from "
+            f"{ff.MIN_N} to {ff.MAX_N}, got {tuple(grid_shape)}")
+    if name not in ("pallas", "xla"):
+        raise ValueError(f"unknown fft_backend: {name!r}")
+    return name
+
+
+class DiagFields(NamedTuple):
+    """Physical-space fields recorded every record_step (SURVEY.md §5.9)."""
+    vort: torch.Tensor
+    psi: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+
+
+class DebugFields(NamedTuple):
+    """The reference's OUTPUT_GRAD_VORT / OUTPUT_DVORTDT dumps
+    (main.cpp:156-176, 216-222): the first RK stage's zeta gradients and
+    the advective tendency before the forward transform."""
+    dvortdx: torch.Tensor
+    dvortdy: torch.Tensor
+    dvortdt: torch.Tensor
+
+
+class StepStats(NamedTuple):
+    max_abs_vort: torch.Tensor
+    energy: torch.Tensor      # 0.5 * mean(u^2 + v^2)
+    enstrophy: torch.Tensor   # 0.5 * mean(zeta^2)
+    cfl: torch.Tensor         # max(|u|/dx + |v|/dy) * dt
+
+
+def tendency(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
+             nu: float, grid_shape: Tuple[int, int], r_drag: float = 0.0,
+             beta: float = 0.0, nu4: float = 0.0) -> torch.Tensor:
+    """getDvortdt (main.cpp:146-244) on the library path: the
+    un-dealiased spectral tendency, four inverse transforms paired into
+    two complex ones, one forward. Zero r_drag, beta and nu4 skip their
+    terms, leaving the reference expression."""
+    lvort_hat = (sp.laplacian(t, zeta_hat) if nu != 0.0 or nu4 != 0.0
+                 else None)                                # main.cpp:148
+    psi_hat = sp.invert_laplacian(t, zeta_hat)             # main.cpp:179
+    dvdx, dvdy = fft.inverse_pair(sp.gradx(t, zeta_hat),
+                                  sp.grady(t, zeta_hat), grid_shape)
+    u, v = fft.inverse_pair(-sp.grady(t, psi_hat), sp.gradx(t, psi_hat),
+                            grid_shape)
+    if beta != 0.0:
+        # -u*zx - v*zy - beta*v = -u*zx - v*(zy + beta)
+        dvdy = dvdy + beta
+    dvortdt = -u * dvdx - v * dvdy + src                   # main.cpp:225-227
+    out = fft.forward(dvortdt)                             # main.cpp:237
+    if nu != 0.0:
+        out = out + lvort_hat * nu                         # main.cpp:240-243
+    if r_drag != 0.0:
+        out = out - zeta_hat * r_drag
+    if nu4 != 0.0:
+        out = out - sp.laplacian(t, lvort_hat) * nu4
+    return out
+
+
+def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
+             dt: float, nu: float, grid_shape: Tuple[int, int],
+             r_drag: float = 0.0, beta: float = 0.0,
+             nu4: float = 0.0) -> torch.Tensor:
+    """One RK4 step on zeta_hat (main.cpp:286-317); src is held fixed
+    across the four stages."""
+    def d(z):
+        return sp.dealias(t, tendency(t, z, src, nu, grid_shape,
+                                      r_drag=r_drag, beta=beta, nu4=nu4))
+    rk1 = d(zeta_hat)
+    rk2 = d(zeta_hat + rk1 * (dt * 0.5))
+    rk3 = d(zeta_hat + rk2 * (dt * 0.5))
+    rk4 = d(zeta_hat + rk3 * dt)
+    return zeta_hat + (rk1 + 2.0 * rk2 + 2.0 * rk3 + rk4) * (dt / 6.0)
+
+
+def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
+                    src_y: torch.Tensor, dt: float, nu: float,
+                    beta: float = 0.0):
+    """RK4 on the state as float32 (re, im) planes through the transform
+    kernels: per stage derivative_quad_planes (ka_diag + 2 kb_pair) and
+    forward_tendency_yfirst (ky_adv + kx_visc, viscous and dealiased in
+    the epilogue). `src_y` is the forcing y-major (ny, nx). The stage
+    updates and the RK4 tail are elementwise arithmetic on the planes, in
+    the grouping of the JAX plane stepper."""
+    h = dt * 0.5
+
+    def d(sr, si):
+        zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap)
+        return ff.forward_tendency_yfirst(u, zx, v, zy, src_y, t.lap,
+                                          t.mask, sr, si, nu, beta)
+
+    r1r, r1i = d(zr, zi)
+    r2r, r2i = d(zr + r1r * h, zi + r1i * h)
+    r3r, r3i = d(zr + r2r * h, zi + r2i * h)
+    r4r, r4i = d(zr + r3r * dt, zi + r3i * dt)
+    c = dt / 6.0
+    return (zr + (r1r + 2.0 * r2r + 2.0 * r3r + r4r) * c,
+            zi + (r1i + 2.0 * r2i + 2.0 * r3i + r4i) * c)
+
+
+def diag_fields(t: SpectralTables, zeta_hat: torch.Tensor,
+                grid_shape: Tuple[int, int]) -> DiagFields:
+    """Step-start physical fields: the record block (main.cpp:266-282)
+    plus the first stage's psi/u/v dumps (main.cpp:181-222)."""
+    psi_hat = sp.invert_laplacian(t, zeta_hat)
+    u_hat, v_hat = sp.velocities(t, psi_hat)
+    return DiagFields(vort=fft.inverse(zeta_hat, grid_shape),
+                      psi=fft.inverse(psi_hat, grid_shape),
+                      u=fft.inverse(u_hat, grid_shape),
+                      v=fft.inverse(v_hat, grid_shape))
+
+
+def debug_fields(t: SpectralTables, zeta_hat: torch.Tensor,
+                 src: torch.Tensor, grid_shape: Tuple[int, int],
+                 beta: float = 0.0) -> DebugFields:
+    """Step-start debug intermediates (main.cpp:156-176, 216-222)."""
+    dvdx = fft.inverse(sp.gradx(t, zeta_hat), grid_shape)
+    dvdy = fft.inverse(sp.grady(t, zeta_hat), grid_shape)
+    psi_hat = sp.invert_laplacian(t, zeta_hat)
+    u = -fft.inverse(sp.grady(t, psi_hat), grid_shape)
+    v = fft.inverse(sp.gradx(t, psi_hat), grid_shape)
+    adv_y = dvdy + beta if beta != 0.0 else dvdy
+    return DebugFields(dvortdx=dvdx, dvortdy=dvdy,
+                       dvortdt=-u * dvdx - v * adv_y + src)
+
+
+def step_stats(t: SpectralTables, zeta_hat: torch.Tensor, cfg) -> StepStats:
+    g = cfg.grid_shape
+    psi_hat = sp.invert_laplacian(t, zeta_hat)
+    u_hat, v_hat = sp.velocities(t, psi_hat)
+    u = fft.inverse(u_hat, g)
+    v = fft.inverse(v_hat, g)
+    vort = fft.inverse(zeta_hat, g)
+    return StepStats(
+        max_abs_vort=torch.max(torch.abs(vort)),
+        energy=0.5 * torch.mean(u * u + v * v),
+        enstrophy=0.5 * torch.mean(vort * vort),
+        cfl=torch.max(torch.abs(u) / cfg.dx + torch.abs(v) / cfg.dy)
+        * cfg.dt)
+
+
+class BarotropicModel(nn.Module):
+    """The stepper for one configuration on one device.
+
+    `step`:    zeta_hat, src -> zeta_hat after ONE RK4 step.
+    `segment`: zeta_hat, src -> zeta_hat after n RK4 steps, a Python loop
+               with the forcing fixed (and, on the plane stepper,
+               transposed to y-major once).
+    `diags`:   zeta_hat -> DiagFields;  `stats`: zeta_hat -> StepStats;
+    `debug`:   zeta_hat, src -> DebugFields.
+
+    `tables` (buffers) serve the diagnostics; `step_tables` step. On the
+    plane stepper, drag and hyperviscosity fold into the stepping lap:
+    lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
+    only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
+    package); the diagnostics keep the original tables.
+    """
+
+    def __init__(self, cfg, device, tables: SpectralTables = None):
+        super().__init__()
+        if cfg.time_scheme == "etdrk4":
+            raise NotImplementedError(
+                "time_scheme='etdrk4' is not ported yet (ROADMAP.md queue "
+                "A, item 9)")
+        if cfg.time_scheme != "rk4":
+            raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.backend = resolve_fft_backend_name(cfg.fft_backend,
+                                                cfg.grid_shape)
+        t = (tables if tables is not None
+             else SpectralTables.from_config(cfg, self.device))
+        self.tables = t
+        self.dt = float(cfg.dt)
+        self.nu = float(cfg.nu)
+        self.r_drag = float(cfg.r_drag)
+        self.beta = float(cfg.beta)
+        self.nu4 = float(cfg.nu4)
+        self.step_nu = self.nu
+        lap = t.lap
+        if self.backend == "pallas" and (self.r_drag != 0.0
+                                         or self.nu4 != 0.0):
+            lap = t.lap * self.nu - self.r_drag - self.nu4 * t.lap * t.lap
+            self.step_nu = 1.0
+        self.step_tables = SpectralTables({**t.as_dict(), "lap": lap},
+                                          self.device)
+
+    @classmethod
+    def build(cls, cfg, device, tables: SpectralTables = None
+              ) -> "BarotropicModel":
+        return cls(cfg, device, tables)
+
+    def _check_state(self, zeta_hat: torch.Tensor) -> None:
+        if (zeta_hat.dtype != torch.complex64
+                or tuple(zeta_hat.shape) != self.cfg.spectral_shape
+                or zeta_hat.device != self.device):
+            raise ValueError(
+                f"state must be complex64 {self.cfg.spectral_shape} on "
+                f"{self.device}, got {zeta_hat.dtype} "
+                f"{tuple(zeta_hat.shape)} on {zeta_hat.device}")
+
+    def segment(self, zeta_hat: torch.Tensor, src: torch.Tensor,
+                n_steps: int) -> torch.Tensor:
+        self._check_state(zeta_hat)
+        t, g = self.step_tables, self.cfg.grid_shape
+        if self.backend == "pallas":
+            zr = zeta_hat.real.contiguous()
+            zi = zeta_hat.imag.contiguous()
+            src_y = src.t().contiguous()
+            for _ in range(n_steps):
+                zr, zi = rk4_step_planes(t, zr, zi, src_y, self.dt,
+                                         self.step_nu, beta=self.beta)
+            return torch.complex(zr, zi)
+        z = zeta_hat
+        for _ in range(n_steps):
+            z = rk4_step(t, z, src, self.dt, self.nu, g,
+                         r_drag=self.r_drag, beta=self.beta, nu4=self.nu4)
+        return z
+
+    def step(self, zeta_hat: torch.Tensor, src: torch.Tensor
+             ) -> torch.Tensor:
+        return self.segment(zeta_hat, src, 1)
+
+    def diags(self, zeta_hat: torch.Tensor) -> DiagFields:
+        return diag_fields(self.tables, zeta_hat, self.cfg.grid_shape)
+
+    def stats(self, zeta_hat: torch.Tensor) -> StepStats:
+        return step_stats(self.tables, zeta_hat, self.cfg)
+
+    def debug(self, zeta_hat: torch.Tensor, src: torch.Tensor
+              ) -> DebugFields:
+        return debug_fields(self.tables, zeta_hat, src,
+                            self.cfg.grid_shape, beta=self.beta)
+
+    def init_state(self, vort0) -> torch.Tensor:
+        """Physical initial vorticity -> spectral state (main.cpp:256)."""
+        v = torch.as_tensor(vort0, dtype=torch.float32, device=self.device)
+        return fft.forward(v)
+
+    def zero_source(self) -> torch.Tensor:
+        """The reference never initializes vort_src (SURVEY.md §5.10-1);
+        it is zeroed explicitly here."""
+        return torch.zeros(self.cfg.grid_shape, dtype=torch.float32,
+                           device=self.device)

@@ -1,0 +1,255 @@
+"""The plane stepper's transform kernels: the counterpart of the
+plane-stepper part of xlab_fftbarotropic_tpu/ops/pallas_fft.py.
+
+One RK stage of the plane stepper runs five launches of four kernels,
+each a hand-written CUDA kernel (csrc/) around the shared in-shared-memory
+column FFT (csrc/colfft.cuh):
+
+  ka_diag   the four derivative fields' inverse x-stage   (stacked out)
+  kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
+  ky_adv    advection product + real forward y-stage
+  kx_visc   forward x-stage + viscosity/dealias epilogue
+
+Layouts are the TPU kernels' public ones, so the tests compare like with
+like: spectral planes (nx, hny), the stacked x-stage output
+(4, hny, nx), physical fields y-major (ny, nx); every array is float32
+(re, im) planes, C-contiguous.
+
+Each wrapper checks its arguments and then dispatches on the tensors'
+device alone: a CPU tensor takes the plain version beside it (torch.fft
+along one axis), a CUDA tensor launches the kernel on the current stream
+or raises. LAUNCHES counts kernel launches per kernel; the plain versions
+never touch it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0}
+
+# transform lengths the kernels take: powers of two whose column fits
+# one block's shared memory (8192 complex64 = 64 KB)
+MIN_N, MAX_N = 64, 8192
+
+
+def supported_length(n: int) -> bool:
+    return MIN_N <= n <= MAX_N and n & (n - 1) == 0
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_TWIDDLES: dict = {}
+
+
+def _twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """colfft's table exp(-2 pi i k / n), k < n/2, as (n/2, 2) float32
+    (re, im) pairs: computed in float64, rounded once; one per (n,
+    device)."""
+    key = (n, device)
+    if key not in _TWIDDLES:
+        w = np.exp(-2j * np.pi * np.arange(n // 2) / n)
+        host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+        _TWIDDLES[key] = torch.from_numpy(host).to(device)
+    return _TWIDDLES[key]
+
+
+def _check(name: str, shape, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is float32, C-contiguous, of `shape`
+    and on the first tensor's device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+
+
+def _takes_plain(name: str, t: torch.Tensor, *lengths: int) -> bool:
+    """True for a CPU tensor (the plain version runs). For a CUDA tensor,
+    False once the kernel is known to take the transform lengths; any
+    other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    for n in lengths:
+        if not supported_length(n):
+            raise ValueError(f"{name}: the CUDA kernel takes power-of-two "
+                             f"lengths {MIN_N}..{MAX_N}, got {n}")
+    return False
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{torch.cuda.CudaError(rc)}")
+    LAUNCHES[name] += 1
+
+
+def _ptrs(*tensors: torch.Tensor) -> list:
+    return [t.data_ptr() for t in tensors]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------- ka_diag
+
+def ka_diag_plain(zr, zi, rlap, kx, ky):
+    n = zr.shape[0]
+    k = kx.reshape(n, 1)
+    q = ky.reshape(1, -1)
+    re = torch.stack([-(zi * k), -(zi * q), (zi * q) * rlap,
+                      -(zi * k) * rlap])
+    im = torch.stack([zr * k, zr * q, -(zr * q) * rlap, (zr * k) * rlap])
+    y = torch.fft.ifft(torch.complex(re, im), dim=1, norm="forward")
+    y = y.transpose(1, 2)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def ka_diag(zr, zi, rlap, kx, ky):
+    """(i kx Z, i ky Z, -i ky psi, i kx psi) with psi = Z*rlap, inverse
+    x-DFT (unnormalized), written transposed: (wr, wi) (4, hny, nx).
+    Counterpart of pallas_fft.derivative_xstage_planes."""
+    n, hny = zr.shape
+    _check("ka_diag", (n, hny), zr, zi, rlap)
+    _check("ka_diag", (n,), kx)
+    _check("ka_diag", (hny,), ky)
+    if kx.device != zr.device or ky.device != zr.device:
+        raise ValueError("ka_diag: tables and state on different devices")
+    if _takes_plain("ka_diag", zr, n):
+        return ka_diag_plain(zr, zi, rlap, kx, ky)
+    from ._build import lib
+    wr = torch.empty((4, hny, n), dtype=torch.float32, device=zr.device)
+    wi = torch.empty_like(wr)
+    _launch("ka_diag", lib().xfb_ka_diag,
+            *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
+            n, hny, zr.device.index, _stream(zr))
+    return wr, wi
+
+
+# ---------------------------------------------------------------- kb_pair
+
+def kb_pair_plain(wr, wi, fa: int, fb: int, scale: float):
+    hny = wr.shape[1]
+    half = hny - 1
+    re = wr[[fa, fb]]
+    im = wi[[fa, fb]].clone()
+    im[:, 0] = 0.0          # self-conjugate rows: real part only
+    im[:, half] = 0.0
+    out = torch.fft.irfft(torch.complex(re, im), n=2 * half, dim=1,
+                          norm="forward") * scale
+    return out[0].contiguous(), out[1].contiguous()
+
+
+def kb_pair(wr, wi, fa: int, fb: int, scale: float):
+    """Paired c2r y-stage of fields fa, fb of the stacked (4, hny, nx)
+    x-stage output -> a, b y-major (ny, nx), scaled by `scale`
+    (1/(nx*ny) in the stepper). Counterpart of
+    pallas_fft._kb_call_stacked(..., transpose_out=False)."""
+    if wr.dim() != 3 or wr.shape[0] != 4:
+        raise ValueError(f"kb_pair: expected (4, hny, nx), got "
+                         f"{tuple(wr.shape)}")
+    _, hny, nx = wr.shape
+    ny = 2 * (hny - 1)
+    _check("kb_pair", (4, hny, nx), wr, wi)
+    if not (0 <= fa < 4 and 0 <= fb < 4):
+        raise ValueError(f"kb_pair: field indices {fa}, {fb} not in 0..3")
+    if _takes_plain("kb_pair", wr, ny):
+        return kb_pair_plain(wr, wi, fa, fb, scale)
+    from ._build import lib
+    oa = torch.empty((ny, nx), dtype=torch.float32, device=wr.device)
+    ob = torch.empty_like(oa)
+    _launch("kb_pair", lib().xfb_kb_pair, *_ptrs(wr, wi), fa, fb,
+            *_ptrs(_twiddles(ny, wr.device), oa, ob), ny, nx, float(scale),
+            wr.device.index, _stream(wr))
+    return oa, ob
+
+
+# ----------------------------------------------------------------- ky_adv
+
+def ky_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
+    if beta != 0.0:
+        zy = zy + beta
+    adv = -(u * zx) - v * zy + src
+    f = torch.fft.rfft(adv, dim=0).transpose(0, 1)
+    return f.real.contiguous(), f.imag.contiguous()
+
+
+def ky_adv(u, zx, v, zy, src, beta: float = 0.0):
+    """-u*zx - v*(zy + beta) + src on y-major (ny, nx) fields, real
+    forward y-DFT, rows k <= ny/2 -> (nx, hny) planes. Counterpart of
+    the first kernel of pallas_fft.forward_tendency_yfirst."""
+    ny, nx = u.shape
+    _check("ky_adv", (ny, nx), u, zx, v, zy, src)
+    if _takes_plain("ky_adv", u, ny):
+        return ky_adv_plain(u, zx, v, zy, src, beta)
+    from ._build import lib
+    hny = ny // 2 + 1
+    outr = torch.empty((nx, hny), dtype=torch.float32, device=u.device)
+    outi = torch.empty_like(outr)
+    _launch("ky_adv", lib().xfb_ky_adv,
+            *_ptrs(u, zx, v, zy, src, _twiddles(ny, u.device), outr, outi),
+            ny, nx, float(beta), u.device.index, _stream(u))
+    return outr, outi
+
+
+# ---------------------------------------------------------------- kx_visc
+
+def kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu: float):
+    f = torch.fft.fft(torch.complex(fr, fi), dim=0)
+    nulap = nu * lap
+    return mask * (f.real + nulap * zsr), mask * (f.imag + nulap * zsi)
+
+
+def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float):
+    """Forward x-DFT of (fr + i fi) over the hny columns with the epilogue
+    mask * (F + nu*lap*Zs) -> (rr, ri) (nx, hny). Counterpart of
+    pallas_fft.forward_tail with coef=None (_kx_visc_kernel)."""
+    nx, hny = fr.shape
+    _check("kx_visc", (nx, hny), fr, fi, lap, mask, zsr, zsi)
+    if _takes_plain("kx_visc", fr, nx):
+        return kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu)
+    from ._build import lib
+    rr = torch.empty((nx, hny), dtype=torch.float32, device=fr.device)
+    ri = torch.empty_like(rr)
+    _launch("kx_visc", lib().xfb_kx_visc,
+            *_ptrs(fr, fi, lap, mask, zsr, zsi, _twiddles(nx, fr.device),
+                   rr, ri),
+            nx, hny, float(nu), fr.device.index, _stream(fr))
+    return rr, ri
+
+
+# ------------------------------------------------------- stage composites
+
+def derivative_quad_planes(zr, zi, kx, ky, rlap):
+    """(zeta_x, zeta_y, u, v) y-major (ny, nx) from the spectral state
+    planes: ka_diag + two kb_pair. Counterpart of
+    pallas_fft.derivative_quad_planes(..., ymajor=True)."""
+    nx, hny = zr.shape
+    scale = 1.0 / (nx * 2 * (hny - 1))
+    wr, wi = ka_diag(zr, zi, rlap, kx, ky)
+    zx, zy = kb_pair(wr, wi, 0, 1, scale)
+    u, v = kb_pair(wr, wi, 2, 3, scale)
+    return zx, zy, u, v
+
+
+def forward_tendency_yfirst(u, zx, v, zy, src, lap, mask, zr, zi,
+                            nu: float, beta: float = 0.0):
+    """dealias(rfft2(-u*zx - v*(zy+beta) + src) + nu*lap*Z) as (re, im)
+    planes from y-major fields: ky_adv + kx_visc. Counterpart of
+    pallas_fft.forward_tendency_yfirst with axpy=None, tail=None."""
+    fr, fi = ky_adv(u, zx, v, zy, src, beta)
+    return kx_visc(fr, fi, lap, mask, zr, zi, nu)

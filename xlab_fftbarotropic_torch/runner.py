@@ -1,0 +1,249 @@
+"""Run orchestration: the counterpart of xlab_fftbarotropic_tpu/runner.py
+for the barotropic family.
+
+The time loop of main.cpp / main-shallow-water.cpp: the model advances
+in segments between record, checkpoint and forcing-recipe boundaries;
+host work (field records, the `log` manifest, per-record scalars,
+checkpoints, forcing updates) happens only at those boundaries. Records,
+manifest, checkpoints and forcing streams go through the JAX package's
+numpy-only modules, so the output files are byte-compatible with its
+runner's and a checkpoint from either resumes in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import sys
+import time as _time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .models.barotropic import BarotropicModel
+from .reused import (FieldRecorder, Manifest, ModelConfig, SourceReader,
+                     check_finite, load_checkpoint, make_reader, read_field,
+                     save_checkpoint)
+
+# what is not ported yet, by ROADMAP.md queue A item
+_NOT_PORTED = {
+    "shallow-water": 7, "sw": 7, "tracer": 8, "fd": 11, "jacobian": 11,
+}
+
+
+@dataclasses.dataclass
+class RunResult:
+    zeta_hat: torch.Tensor
+    steps_run: int
+    wall_time: float
+    stats_history: list
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _gather_fields(fields: dict, only=None) -> dict:
+    """The requested subset of record fields as host numpy; unknown
+    names are an error so a typo cannot silently drop a record stream."""
+    if only is not None:
+        want = set(only) - {"vort_src"}
+        unknown = want - set(fields)
+        if unknown:
+            raise ValueError(
+                f"--record-fields: unknown field(s) {sorted(unknown)}; "
+                f"this model records {sorted(fields)} (+ vort_src)")
+        fields = {k: v for k, v in fields.items() if k in want}
+    return {k: _host(v) for k, v in fields.items()}
+
+
+class _BarotropicAdapter:
+    """The facade the run loop drives: step/segment/diags/stats and state
+    (de)hydration for checkpoints (complex64 numpy, as in the JAX
+    package)."""
+
+    kind = "barotropic"
+
+    def __init__(self, cfg: ModelConfig, device):
+        self.cfg = cfg
+        self.model = BarotropicModel.build(cfg, device)
+        self.device = self.model.device
+
+    def init_from_physical(self, vort0):
+        return self.model.init_state(vort0)
+
+    def step(self, state, src):
+        return self.model.step(state, src)
+
+    def segment(self, state, src, n):
+        return self.model.segment(state, src, n)
+
+    def record_fields(self, state, only=None):
+        d = self.model.diags(state)
+        return _gather_fields(d._asdict(), only)
+
+    def debug_record_fields(self, state, src):
+        """--debug-fields dumps (main.cpp OUTPUT_GRAD_VORT/OUTPUT_DVORTDT)."""
+        return {k: _host(v) for k, v in
+                self.model.debug(state, src)._asdict().items()}
+
+    def stats(self, state):
+        return {k: float(v) for k, v in
+                self.model.stats(state)._asdict().items()}
+
+    def pack(self, state):
+        return _host(state)
+
+    def unpack(self, packed):
+        return torch.from_numpy(np.asarray(packed, np.complex64)).to(
+            self.device)
+
+
+def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
+                 shard: bool = False, ensemble: int = 0):
+    if ensemble and ensemble > 1:
+        raise NotImplementedError(
+            "ensemble runs are not ported yet (ROADMAP.md queue A, item 11)")
+    if shard:
+        raise NotImplementedError(
+            "sharded runs are not ported yet (ROADMAP.md queue A, item 13)")
+    if model_kind in ("barotropic", "bt"):
+        return _BarotropicAdapter(cfg, device)
+    if model_kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model kind {model_kind!r} is not ported yet (ROADMAP.md "
+            f"queue A, item {_NOT_PORTED[model_kind]})")
+    raise ValueError(f"unknown model kind {model_kind!r}")
+
+
+def run(cfg: ModelConfig,
+        device,
+        vort0: Optional[np.ndarray] = None,
+        recipe: str = "empty",
+        src_path=None,
+        record: bool = True,
+        manifest_path: str = "log",
+        progress: bool = False,
+        resume_from=None,
+        model_kind: str = "barotropic",
+        shard: bool = False,
+        ensemble: int = 0,
+        debug_fields: bool = False,
+        step_banners: bool = False,
+        record_only=None) -> RunResult:
+    """Integrate cfg.total_steps on `device` (runner.py:399 of the JAX
+    package, barotropic family).
+
+    vort0: physical initial vorticity; if None, read from
+    cfg.input_dir/cfg.init_file (main.cpp:143-144). recipe 'empty',
+    'script' (src_path: '<time> <field.bin>' lines) or 'fifo' (the
+    per-step flag-byte protocol). record_only: field names to record
+    (None = all); 'vort_src' gates the forcing dump. debug_fields also
+    dumps dvortdx/dvortdy/dvortdt at record steps. step_banners prints
+    the reference's '# Step N' line for every step (in a burst per
+    segment).
+    """
+    adapter = make_adapter(cfg, device, model_kind, shard=shard,
+                           ensemble=ensemble)
+    device = adapter.device
+
+    start_step = 0
+    if resume_from is not None:
+        state_np, start_step, _ = load_checkpoint(resume_from, cfg,
+                                                  kind=adapter.kind)
+        state = adapter.unpack(state_np)
+    else:
+        if vort0 is None:
+            vort0 = read_field(Path(cfg.input_dir) / cfg.init_file,
+                               cfg.grid_shape)
+        state = adapter.init_from_physical(vort0)
+
+    src_np = np.zeros(cfg.grid_shape, dtype=np.float32)
+    src = torch.tensor(src_np, device=device)
+    reader: SourceReader = make_reader(cfg, recipe, src_path)
+
+    manifest = Manifest(manifest_path) if record else None
+    recorder = FieldRecorder(cfg.output_dir, manifest) if record else None
+
+    stats_history = []
+    t0 = _time.perf_counter()
+    step = start_step
+
+    def do_record(step, state, src_np, src):
+        fields = adapter.record_fields(state, only=record_only)
+        check_finite(step, **fields)
+        want_src = record_only is None or "vort_src" in record_only
+        recorder.record(step, vort_src=src_np if want_src else None,
+                        **fields)
+        if debug_fields:
+            recorder.record(step, **adapter.debug_record_fields(state, src))
+
+    per_step = recipe == "fifo"
+    try:
+        while step < cfg.total_steps:
+            if record and step % cfg.record_step == 0:
+                do_record(step, state, src_np, src)
+                stats_history.append(dict(step=step, **adapter.stats(state)))
+                if progress or step_banners:
+                    print(f"# Step {step}, time = {step * cfg.dt:.2f}, "
+                          f"record now!", file=sys.stderr)
+            elif step_banners:
+                print(f"# Step {step}, time = {step * cfg.dt:.2f}",
+                      file=sys.stderr)
+            if cfg.checkpoint_step and step % cfg.checkpoint_step == 0 and \
+                    step > start_step:
+                save_checkpoint(
+                    Path(cfg.output_dir) / f"ckpt_step_{step}.npz",
+                    cfg, adapter.pack(state), step, kind=adapter.kind)
+
+            if per_step:
+                # main-shallow-water.cpp:304: the source read precedes
+                # the step
+                changed, field = reader.read(step * cfg.dt)
+                if changed:
+                    src_np = np.asarray(field, dtype=np.float32)
+                    src = torch.tensor(src_np, device=device)
+                state = adapter.step(state, src)
+                step += 1
+            else:
+                boundaries = [
+                    cfg.total_steps,
+                    ((step // cfg.record_step) + 1) * cfg.record_step]
+                if cfg.checkpoint_step:
+                    boundaries.append(
+                        ((step // cfg.checkpoint_step) + 1)
+                        * cfg.checkpoint_step)
+                if recipe == "script":
+                    changed, field = reader.read(step * cfg.dt)
+                    if changed:
+                        src_np = np.asarray(field, dtype=np.float32)
+                        src = torch.tensor(src_np, device=device)
+                    nxt = _next_recipe_step(reader, cfg, step)
+                    if nxt is not None:
+                        boundaries.append(nxt)
+                n = max(1, min(boundaries) - step)
+                state = adapter.segment(state, src, n)
+                if step_banners:
+                    for k in range(step + 1, step + n):
+                        print(f"# Step {k}, time = {k * cfg.dt:.2f}",
+                              file=sys.stderr)
+                step += n
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        if manifest is not None:
+            manifest.close()
+        reader.close()
+    wall = _time.perf_counter() - t0
+    return RunResult(zeta_hat=state, steps_run=step - start_step,
+                     wall_time=wall, stats_history=stats_history)
+
+
+def _next_recipe_step(reader, cfg, step):
+    """First future step at which a SCRIPT recipe fires, or None."""
+    if not hasattr(reader, "recipes") or reader._next >= len(reader.recipes):
+        return None
+    t_next = reader.recipes[reader._next][0]
+    return max(step + 1, int(math.ceil(t_next / cfg.dt)))
