@@ -8,25 +8,32 @@ and no jax. Phases, each of which raises on failure (the script then
 exits non-zero and prints no result):
 
 1. Toolchain: the card's name and power limit, the torch, CUDA and nvcc
-   versions; a fresh build of the four kernels from csrc/, timed.
+   versions; a fresh build of every kernel from csrc/, timed.
 2. Kernels: each CUDA kernel against its plain torch version on the card,
    on numpy-seeded inputs at 256^2 and n^2, max error over max |plain|
    <= 1e-5 per output field (radix-2 float32 sums in another order than
    cuFFT's, with an error that grows with log2 n); each timed at n^2
    with CUDA events.
-3. Main path: the gaussian IC at n^2 (bench.py's barotropic config)
-   through the CLI entry point, xlab_fftbarotropic_torch.cli.run.main,
-   for `steps` steps with vort recorded every steps/2. The records exist
-   with n^2 float32 values each and are finite, the launch counters are
-   exactly 4 stages x steps (kb_pair twice that), and no jax module is
-   loaded.
-4. No library transform on the kernel path: torch.fft.* and torch.matmul
-   raise while a segment runs.
-5. Trajectory: `steps` steps with the kernels and with the torch.fft
-   library path on the card; rel-L2 of the physical vorticity <= 1e-5.
-6. Time: ms/step and grid-points/s of both paths from CUDA events after a
-   warm-up, in turns (kernels, library, library, kernels), with the peak
-   device memory of each.
+3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
+   config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
+   .main, for `steps` steps with vort recorded every steps/2, in the
+   fused-RK form. The records exist with n^2 float32 values each and are
+   finite, the launch counters are exactly 4 stages x steps (kb_pair
+   twice that) and one rk4_combine per step, and no jax module is loaded.
+4. Tracer main path: bench.py's tracer config (n^2, kappa = 50, gaussian
+   vorticity and tracer, zero forcing) through the same entry point with
+   -m tracer, vort and q recorded; per step exactly 4 ka6, 8 kb_pair,
+   4 kb_adv_tracer, 4 kx_visc and 1 rk4_combine launches.
+5. No library transform on the kernel paths: torch.fft.* and torch.matmul
+   raise while a barotropic and a tracer segment run.
+6. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
+   unfused forms) and with the torch.fft library path on the card; rel-L2
+   of the physical vorticity <= 1e-5 against the library path and
+   between the two forms.
+7. Tracer trajectory: `steps` steps, kernels against the library path;
+   rel-L2 of the physical vorticity and of q <= 1e-5.
+8. Time: ms/step and grid-points/s of every path from CUDA events after a
+   warm-up, in turns, with the peak device memory of each.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -50,15 +57,39 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 TOL = 1e-5
-KERNELS = {  # name: (source, the TPU kernel it replaces)
+# row name: (source, the TPU kernel it replaces, LAUNCHES key, paths)
+KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
-                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694"),
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
+                "ka_diag", ("barotropic",)),
     "kb_pair": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
-                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049"),
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
+                "kb_pair", ("barotropic", "tracer")),
     "ky_adv": ("xlab_fftbarotropic_torch/csrc/ky_adv.cu",
-               "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1506"),
+               "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1506",
+               "ky_adv", ("barotropic",)),
     "kx_visc": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
-                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654"),
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654",
+                "kx_visc", ("barotropic",)),
+    "kx_visc_tracer": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                       "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:206",
+                       "kx_visc", ("tracer",)),
+    "ka6": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+            "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:57",
+            "ka6", ("tracer",)),
+    "kb_adv_tracer": ("xlab_fftbarotropic_torch/csrc/kb_adv_tracer.cu",
+                      "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:132",
+                      "kb_adv_tracer", ("tracer",)),
+    "rk4_combine": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:971",
+                    "rk4_combine", ("barotropic", "tracer")),
+}
+# expected launches per step on each main path
+PER_STEP = {
+    "barotropic": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4, "kx_visc": 4,
+                   "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 1},
+    "tracer": {"ka_diag": 0, "kb_pair": 8, "ky_adv": 0, "kx_visc": 4,
+               "ka6": 4, "kb_adv_tracer": 4, "rk4_combine": 1},
 }
 
 
@@ -109,8 +140,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def kernel_cases(n: int, dev, seed: int):
     """name -> (kernel call, plain call, output fields) on numpy-seeded
-    inputs at the main path's shapes for an n x n grid."""
+    inputs at the main paths' shapes for an n x n grid. The names of the
+    KERNELS rows are the cases the JSON line reports; the others are
+    variants (no axpy, no forcing, the tracer's stacked planes)."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
     from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
 
     rng = np.random.default_rng(seed)
@@ -122,26 +157,62 @@ def kernel_cases(n: int, dev, seed: int):
 
     t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
     zr, zi = planes((n, hny), 2)
+    sr2, si2 = planes((2, n, hny), 2)
     wr, wi = planes((4, hny, n), 2)
-    u, zx, v, zy, src = planes((n, n), 5)
-    fr, fi, zsr, zsi = planes((n, hny), 4)
+    w6r, w6i = planes((6, hny, n), 2)
+    u, zx, v, zy, src, qx, qy = planes((n, n), 7)
+    fr, fi, zsr, zsi, z0r, z0i = planes((n, hny), 6)
+    f2r, f2i, zs2r, zs2i, z02r, z02i = planes((2, n, hny), 6)
     lap = t.lap / t.lap.abs().max()       # order-one viscous term
+    lap2 = torch.stack([lap, 0.5 * lap])
+    rk = [tuple(planes((n, hny), 2)) for _ in range(5)]
+    rk2 = [tuple(planes((2, n, hny), 2)) for _ in range(5)]
     scale = 1.0 / (n * n)
 
-    def stacked(out):                     # per field of the (4, ...) stack
-        return [p[f] for p in out for f in range(4)]
+    def per_field(out):                   # split stacked outputs by field
+        return [p[f] for p in out for f in range(p.shape[0])]
 
     return {
         "ka_diag": (lambda: ff.ka_diag(zr, zi, t.rlap, t.kx, t.ky),
                     lambda: ff.ka_diag_plain(zr, zi, t.rlap, t.kx, t.ky),
-                    stacked),
+                    per_field),
         "kb_pair": (lambda: ff.kb_pair(wr, wi, 2, 3, scale),
                     lambda: ff.kb_pair_plain(wr, wi, 2, 3, scale), list),
         "ky_adv": (lambda: ff.ky_adv(u, zx, v, zy, src, 0.3),
                    lambda: ff.ky_adv_plain(u, zx, v, zy, src, 0.3), list),
-        "kx_visc": (lambda: ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5),
+        "kx_visc": (lambda: ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5,
+                                       (z0r, z0i, 1.5)),
                     lambda: ff.kx_visc_plain(fr, fi, lap, t.mask, zsr, zsi,
-                                             6.5), list),
+                                             6.5, (z0r, z0i, 1.5)), list),
+        "kx_visc_no_axpy": (
+            lambda: ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5),
+            lambda: ff.kx_visc_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5),
+            list),
+        "kx_visc_tracer": (
+            lambda: ft.forward_tail_tracer(f2r, f2i, lap2, t.mask, zs2r,
+                                           zs2i, (z02r, z02i, 1.5)),
+            lambda: ff.kx_visc_plain(f2r, f2i, lap2, t.mask, zs2r, zs2i,
+                                     1.0, (z02r, z02i, 1.5)), per_field),
+        "ka6": (lambda: ft.tracer_xstage_planes(sr2, si2, t.kx, t.ky,
+                                                t.rlap),
+                lambda: ft.ka6_plain(sr2, si2, t.rlap, t.kx, t.ky),
+                per_field),
+        "kb_pair_six": (lambda: ff.kb_pair(w6r, w6i, 4, 5, scale),
+                        lambda: ff.kb_pair_plain(w6r, w6i, 4, 5, scale),
+                        list),
+        "kb_adv_tracer": (
+            lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, src, 0.3),
+            lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, src,
+                                           0.3), per_field),
+        "kb_adv_tracer_no_src": (
+            lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, None, 0.3),
+            lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, None,
+                                           0.3), per_field),
+        "rk4_combine": (lambda: fs.plane_rk4_combine(*rk, 0.5),
+                        lambda: fs.plane_rk4_combine_plain(*rk, 0.5), list),
+        "rk4_combine_tracer": (
+            lambda: fs.plane_rk4_combine(*rk2, 0.5),
+            lambda: fs.plane_rk4_combine_plain(*rk2, 0.5), per_field),
     }
 
 
@@ -156,21 +227,23 @@ def phase_kernels(n: int, dev) -> dict:
                       for g, w in zip(got, want))
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
-            log(f"kernel {name:8s} {size}^2: max err / max|plain| = "
+            log(f"kernel {name:20s} {size}^2: max err / max|plain| = "
                 f"{rel:.3e} (max abs err {abs_err:.3e})")
             check(rel <= TOL, f"{name} at {size}^2 disagrees with its "
                               f"plain version: {rel:.3e} > {TOL}")
             if size == n:
                 ms = cuda_ms(kern)
                 plain_ms = cuda_ms(plain)
-                log(f"kernel {name:8s} {size}^2: {ms:.4f} ms, plain "
-                    f"torch.fft version {plain_ms:.4f} ms")
+                log(f"kernel {name:20s} {size}^2: {ms:.4f} ms, plain "
+                    f"torch version {plain_ms:.4f} ms")
                 report[name] = dict(max_abs_err=abs_err, rel_err=rel,
                                     ms=ms, plain_ms=plain_ms)
     return report
 
 
-def phase_main_path(n: int, steps: int) -> dict:
+def phase_main_path(family: str, n: int, steps: int) -> dict:
+    """One run of a family's main path through cli.run.main, with the
+    launch counters set to 0 just before it and read just after."""
     from xlab_fftbarotropic_torch.cli import run as cli_run
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.reused import (ModelConfig, makefields,
@@ -178,14 +251,18 @@ def phase_main_path(n: int, steps: int) -> dict:
 
     cfg = ModelConfig(nx=n, ny=n)
     rec = steps // 2
+    fields = ["vort"] if family == "barotropic" else ["vort", "q"]
+    extra = ([] if family == "barotropic" else
+             ["-m", "tracer", "--tracer-kappa", "50", "--tracer-ic",
+              "gaussian"])
     with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
         inp, out = Path(tmp) / "input", Path(tmp) / "output"
         inp.mkdir()
         write_field(inp / cfg.init_file, makefields.gaussian(cfg))
         argv = ["-I", str(inp), "-O", str(out), "--nx", str(n), "--ny",
                 str(n), "--total-steps", str(steps), "--record-step",
-                str(rec), "--record-fields", "vort", "--manifest",
-                str(Path(tmp) / "log"), "--device", "cuda"]
+                str(rec), "--record-fields", ",".join(fields), "--manifest",
+                str(Path(tmp) / "log"), "--device", "cuda"] + extra
         ff.reset_launches()
         t0 = time.perf_counter()
         rc = cli_run.main(argv)
@@ -195,31 +272,50 @@ def phase_main_path(n: int, steps: int) -> dict:
         # the run loop records at the top of each step, so a run of
         # `steps` steps records steps 0 and steps/2 (as the reference)
         for s in (0, rec):
-            f = out / f"vort_step_{s}.bin"
-            check(f.exists() and f.stat().st_size == n * n * 4,
-                  f"record {f.name} missing or of the wrong size")
-            check(bool(np.isfinite(read_field(f, cfg.grid_shape)).all()),
-                  f"record {f.name} is not finite")
+            for name in fields:
+                f = out / f"{name}_step_{s}.bin"
+                check(f.exists() and f.stat().st_size == n * n * 4,
+                      f"record {f.name} missing or of the wrong size")
+                check(bool(np.isfinite(read_field(f, cfg.grid_shape)).all()),
+                      f"record {f.name} is not finite")
         lines = (Path(tmp) / "log").read_text().splitlines()
-        check(len(lines) == 2, f"manifest has {len(lines)} lines, not 2")
-    want = {"ka_diag": 4 * steps, "kb_pair": 8 * steps,
-            "ky_adv": 4 * steps, "kx_visc": 4 * steps}
-    log(f"main path: {steps} steps at {n}^2 through cli.run.main in "
-        f"{wall:.2f} s (set-up and records included); launches {launches}")
+        check(len(lines) == 2 * len(fields),
+              f"manifest has {len(lines)} lines, not {2 * len(fields)}")
+    want = {k: c * steps for k, c in PER_STEP[family].items()}
+    log(f"{family} main path: {steps} steps at {n}^2 through cli.run.main "
+        f"in {wall:.2f} s (set-up and records included); launches "
+        f"{launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     check("jax" not in sys.modules, "a jax module was imported")
     return dict(launches=launches, cli_wall_s=wall)
 
 
-def phase_no_library(n: int, dev) -> None:
+def build_models(n: int, dev) -> dict:
+    """The paths compared and timed, with their initial state and
+    forcing: bench.py's barotropic and tracer configurations."""
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
     from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
 
     cfg = ModelConfig(nx=n, ny=n)
-    m = BarotropicModel.build(cfg, dev)
-    check(m.backend == "pallas", f"backend {m.backend}, not pallas")
-    z0, src = m.init_state(makefields.gaussian(cfg)), m.zero_source()
+    lib = cfg.replace(fft_backend="xla")
+    v0 = makefields.gaussian(cfg)
+    bt = {"kernels": BarotropicModel.build(cfg, dev),
+          "unfused": BarotropicModel.build(cfg, dev, fused_rk=False),
+          "library": BarotropicModel.build(lib, dev)}
+    tr = {"kernels": TracerModel.build(cfg, dev, kappa=50.0),
+          "library": TracerModel.build(lib, dev, kappa=50.0)}
+    for m in (bt["kernels"], bt["unfused"], tr["kernels"]):
+        check(m.backend == "pallas", f"backend {m.backend}, not pallas")
+    check(bt["library"].backend == "xla" and tr["library"].backend == "xla",
+          "library backend selection")
+    k = bt["kernels"]
+    return {"barotropic": (bt, k.init_state(v0), k.zero_source()),
+            "tracer": (tr, tr["kernels"].init_state(
+                v0, tracer_ic(cfg, "gaussian")), k.zero_source())}
 
+
+def phase_no_library(n: int, models: dict) -> None:
     def refuse(*args, **kwargs):
         raise SmokeError("a library transform ran inside the kernel path")
 
@@ -227,69 +323,103 @@ def phase_no_library(n: int, dev) -> None:
              if not k.startswith("_") and callable(getattr(torch.fft, k))]
     saved = {k: getattr(torch.fft, k) for k in names}
     saved_matmul = torch.matmul
+    out = {}
     try:
         for k in names:
             setattr(torch.fft, k, refuse)
         torch.matmul = refuse
-        z = m.segment(z0, src, 2)
+        for family, (paths, s0, src) in models.items():
+            out[family] = paths["kernels"].segment(s0, src, 2)
         torch.cuda.synchronize()
     finally:
         for k, fn in saved.items():
             setattr(torch.fft, k, fn)
         torch.matmul = saved_matmul
-    check(bool(torch.isfinite(torch.view_as_real(z)).all()),
-          "kernel-path state not finite")
-    log(f"no library transform: 2 steps at {n}^2 ran with torch.fft.* and "
-        f"torch.matmul raising")
+    for family, s in out.items():
+        for z in (s if isinstance(s, tuple) else (s,)):
+            check(bool(torch.isfinite(torch.view_as_real(z)).all()),
+                  f"{family} kernel-path state not finite")
+    log(f"no library transform: 2 barotropic and 2 tracer steps at {n}^2 "
+        f"ran with torch.fft.* and torch.matmul raising")
 
 
-def phase_trajectory_and_time(n: int, steps: int, dev) -> dict:
-    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+def rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
 
-    cfg = ModelConfig(nx=n, ny=n)
-    models = {"kernels": BarotropicModel.build(cfg, dev),
-              "library": BarotropicModel.build(
-                  cfg.replace(fft_backend="xla"), dev)}
-    check(models["kernels"].backend == "pallas"
-          and models["library"].backend == "xla", "backend selection")
-    m0 = models["kernels"]
-    z0, src = m0.init_state(makefields.gaussian(cfg)), m0.zero_source()
 
-    vort = {k: m.diags(m.segment(z0, src, steps)).vort
-            for k, m in models.items()}
-    for k, v in vort.items():
-        check(bool(torch.isfinite(v).all()), f"{k} vorticity not finite")
-    rel = float(torch.linalg.vector_norm(vort["kernels"] - vort["library"])
-                / torch.linalg.vector_norm(vort["library"]))
-    log(f"trajectory: {steps} steps at {n}^2, rel-L2 of the vorticity, "
-        f"kernels vs torch.fft library path = {rel:.3e}")
-    check(rel <= TOL, f"trajectory rel-L2 {rel:.3e} > {TOL}")
+def phase_trajectories(n: int, steps: int, models: dict) -> dict:
+    """Physical fields after `steps` steps of every path, held against
+    the library path (and the fused against the unfused form)."""
+    out = {}
+    for family, (paths, s0, src) in models.items():
+        diags = {k: m.diags(m.segment(s0, src, steps))
+                 for k, m in paths.items()}
+        names = ("vort",) if family == "barotropic" else ("vort", "q")
+        for k, d in diags.items():
+            for name in names:
+                check(bool(torch.isfinite(getattr(d, name)).all()),
+                      f"{family} {k} {name} not finite")
+        for k in paths:
+            if k == "library":
+                continue
+            for name in names:
+                rel = rel_l2(getattr(diags[k], name),
+                             getattr(diags["library"], name))
+                log(f"{family} trajectory: {steps} steps at {n}^2, rel-L2 "
+                    f"of {name}, {k} vs torch.fft library path = {rel:.3e}")
+                check(rel <= TOL, f"{family} {k} {name} rel-L2 {rel:.3e} "
+                                  f"> {TOL}")
+                out[f"{family}_{k}_{name}_rel_l2"] = rel
+        if "unfused" in paths:
+            a, b = diags["kernels"].vort, diags["unfused"].vort
+            rel = rel_l2(a, b)
+            same = bool(torch.equal(a, b))
+            log(f"barotropic fused-RK vs unfused form: rel-L2 {rel:.3e}, "
+                f"bit-identical: {same}")
+            check(rel <= TOL, f"fused vs unfused rel-L2 {rel:.3e} > {TOL}")
+            out["barotropic_fused_vs_unfused"] = dict(rel_l2=rel,
+                                                      bit_identical=same)
+    return out
 
-    times = {k: [] for k in models}
-    peak = {}
-    for k in ("kernels", "library", "library", "kernels"):
-        m = models[k]
-        m.segment(z0, src, 2)                  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        m.segment(z0, src, steps)
-        end.record()
-        end.synchronize()
-        times[k].append(start.elapsed_time(end) / steps)
-        peak[k] = torch.cuda.max_memory_allocated(dev)
-    out = dict(trajectory_rel_l2=rel)
-    for k, ts in times.items():
-        ms = sum(ts) / len(ts)
-        out[k] = dict(ms_per_step=ms, runs_ms=ts,
-                      gp_per_s=n * n / (ms * 1e-3), peak_bytes=peak[k])
-        runs = ", ".join(f"{t:.3f}" for t in ts)
-        log(f"time {k:8s}: {ms:.3f} ms/step ({runs}), "
-            f"{n * n / (ms * 1e-3):.4e} grid-points/s, peak device "
-            f"memory {peak[k] / 2**20:.1f} MiB")
+
+def phase_time(n: int, steps: int, models: dict) -> dict:
+    """ms/step of every path from CUDA events over a `steps`-step segment
+    after a 2-step warm-up, in turns (A B C C B A), with the peak device
+    memory (of the whole process: every model built here is resident)
+    and the segment's own part of it (the peak less what was allocated
+    before the segment)."""
+    out = {}
+    for family, (paths, s0, src) in models.items():
+        order = list(paths) + list(reversed(list(paths)))
+        times = {k: [] for k in paths}
+        peak, own = {}, {}
+        for k in order:
+            m = paths[k]
+            m.segment(s0, src, 2)                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m.segment(s0, src, steps)
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / steps)
+            peak[k] = torch.cuda.max_memory_allocated()
+            own[k] = peak[k] - base
+        for k, ts in times.items():
+            ms = sum(ts) / len(ts)
+            out[f"{family}_{k}"] = dict(ms_per_step=ms, runs_ms=ts,
+                                        gp_per_s=n * n / (ms * 1e-3),
+                                        peak_bytes=peak[k],
+                                        segment_bytes=own[k])
+            runs = ", ".join(f"{t:.3f}" for t in ts)
+            log(f"time {family:10s} {k:8s}: {ms:.3f} ms/step ({runs}), "
+                f"{n * n / (ms * 1e-3):.4e} grid-points/s, peak device "
+                f"memory {peak[k] / 2**20:.1f} MiB (the segment's own "
+                f"{own[k] / 2**20:.1f} MiB)")
     return out
 
 
@@ -330,20 +460,26 @@ def main(argv=None) -> int:
                   nvcc=nvcc_version.strip().splitlines()[-1],
                   build_s=build_s, n=args.n, steps=args.steps)
     report["kernels"] = phase_kernels(args.n, dev)
-    report["main_path"] = phase_main_path(args.n, args.steps)
-    phase_no_library(args.n, dev)
-    report["paths"] = phase_trajectory_and_time(args.n, args.steps, dev)
+    report["main_paths"] = {family: phase_main_path(family, args.n,
+                                                    args.steps)
+                            for family in PER_STEP}
+    models = build_models(args.n, dev)
+    phase_no_library(args.n, models)
+    report["trajectories"] = phase_trajectories(args.n, args.steps, models)
+    report["time"] = phase_time(args.n, args.steps, models)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))
 
-    launches = report["main_path"]["launches"]
-    rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[name],
-                 max_abs_err=report["kernels"][name]["max_abs_err"],
-                 ms=report["kernels"][name]["ms"],
-                 plain_ms=report["kernels"][name]["plain_ms"])
-            for name, (src, rep) in KERNELS.items()]
+    rows = []
+    for name, (src, rep, key, paths) in KERNELS.items():
+        launches = sum(report["main_paths"][p]["launches"][key]
+                       for p in paths)
+        check(launches > 0, f"{name} never launched on its main path")
+        k = report["kernels"][name]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         launches=launches, max_abs_err=k["max_abs_err"],
+                         ms=k["ms"], plain_ms=k["plain_ms"]))
     check(all(math.isfinite(r["ms"]) for r in rows), "kernel times")
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -170,3 +170,39 @@ def test_convert_round_trip():
                        m2.segment(zc, m2.zero_source(), 2))
     with pytest.raises(ValueError):
         convert.state_from_numpy(z.astype(np.complex128), CPU)
+
+
+@pytest.mark.parametrize("jax_fused_rk", ["1", "0"])
+@pytest.mark.parametrize("fused_rk", [True, False])
+def test_fused_rk_forms_match_jax(monkeypatch, jax_fused_rk, fused_rk):
+    """The port's two plane-stepper forms against the JAX plane stepper
+    with XFB_BT_FUSED_RK set to 1 (its default: kx_visc axpy epilogue +
+    plane_rk4_combine) and to 0 (elementwise stage updates and tail),
+    with drag, beta, hyperviscosity and forcing, 5 steps at 64^2."""
+    monkeypatch.setenv("XFB_BT_FUSED_RK", jax_fused_rk)
+    cfg = ModelConfig(nx=64, ny=64, fft_backend="pallas", r_drag=2e-3,
+                      beta=1e-8, nu4=2e13)
+    v0 = makefields.kuo2004(cfg)
+    rng = np.random.default_rng(8)
+    src = (1e-8 * rng.standard_normal(cfg.grid_shape)).astype(np.float32)
+    want = _jax_segment(cfg, v0, 5, src)
+    m = tbt.BarotropicModel.build(cfg, CPU, fused_rk=fused_rk)
+    got = m.segment(m.init_state(v0), torch.from_numpy(src), 5).numpy()
+    _close(_vort(want, cfg), _vort(got, cfg))
+
+
+@pytest.mark.parametrize("extra", [{}, dict(r_drag=2e-3, beta=1e-8,
+                                            nu4=2e13)])
+def test_fused_rk_is_bit_identical_to_unfused_on_cpu(extra):
+    """On the CPU the plain versions round the fused axpy and combine
+    exactly as the elementwise form does: 10 steps agree bit for bit."""
+    cfg = ModelConfig(nx=64, ny=64, **extra)
+    v0 = makefields.gaussian(cfg)
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(
+        (1e-8 * rng.standard_normal(cfg.grid_shape)).astype(np.float32))
+    fused = tbt.BarotropicModel.build(cfg, CPU)
+    unfused = tbt.BarotropicModel.build(cfg, CPU, fused_rk=False)
+    assert fused.fused_rk and not unfused.fused_rk
+    z = fused.init_state(v0)
+    assert torch.equal(fused.segment(z, src, 10), unfused.segment(z, src, 10))

@@ -1,5 +1,6 @@
-"""The four hand-written CUDA kernels against their plain torch versions
-on the card, at the transform lengths 64, 256, 4096 and 8192.
+"""The hand-written CUDA kernels against their plain torch versions on
+the card, at the transform lengths 64, 256, 4096 and 8192, plus
+non-square stacks that pin every stride.
 
 Marked `gpu`: each test skips where torch sees no CUDA device. This file
 imports no jax, so on a machine without it run it alone, past the test
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
+from xlab_fftbarotropic_torch.ops import fused_sw as fs
+from xlab_fftbarotropic_torch.ops import fused_tracer as ft
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
 
 pytestmark = pytest.mark.gpu
@@ -41,8 +44,9 @@ def _planes(rng, shape, k, dev):
             .to(dev) for _ in range(k)]
 
 
-def _tables(n, dev):
-    return SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
+def _tables(n, dev, ny=None):
+    return SpectralTables.build(n, ny or n, 600_000.0, 600_000.0,
+                                device=dev)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -117,6 +121,135 @@ def test_kx_visc_matches_plain(cuda, n):
         assert _rel(g, w) < TOL
 
 
+@pytest.mark.parametrize("shape", [(1, 64, 64), (1, 4096, 4096),
+                                   (2, 64, 64), (2, 4096, 4096),
+                                   (2, 8192, 8192), (3, 256, 64)])
+def test_kx_visc_stack_with_axpy_matches_plain(cuda, shape):
+    """The stacked epilogue with the RK stage axpy: F fields with a lap
+    table each, a shared mask, and a non-square stack (nx != ny)."""
+    nf, nx, ny = shape
+    hny = ny // 2 + 1
+    rng = np.random.default_rng(nx + nf)
+    t = _tables(nx, cuda, ny)
+    fr, fi, zsr, zsi, z0r, z0i = _planes(rng, (nf, nx, hny), 6, cuda)
+    lap = torch.stack([t.lap * (f + 1) for f in range(nf)])
+    lap = lap / lap.abs().max()
+    axpy = (z0r, z0i, 0.37)
+    got = ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 1.0, axpy)
+    want = ff.kx_visc_plain(fr, fi, lap, t.mask, zsr, zsi, 1.0, axpy)
+    torch.cuda.synchronize()
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        assert g.shape == (nf, nx, hny)
+        for f in range(nf):
+            assert _rel(g[f], w[f]) < TOL, f
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kx_visc_axpy_uses_the_unfused_roundings(cuda, n):
+    """The axpy outputs equal z0 + coef*r computed by torch from the
+    kernel's own r, bit for bit: no FMA contraction in the epilogue."""
+    rng = np.random.default_rng(n + 5)
+    t = _tables(n, cuda)
+    fr, fi, zsr, zsi, z0r, z0i = _planes(rng, (n, n // 2 + 1), 6, cuda)
+    rr, ri, nr, ni = ff.kx_visc(fr, fi, t.lap, t.mask, zsr, zsi, 6.5e-9,
+                                (z0r, z0i, 1.5))
+    assert torch.equal(nr, z0r + 1.5 * rr)
+    assert torch.equal(ni, z0i + 1.5 * ri)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 2049), (256, 33)])
+@pytest.mark.parametrize("n_planes", [1, 2, 6])
+def test_rk4_combine_matches_plain_bit_for_bit(cuda, shape, n_planes):
+    rng = np.random.default_rng(shape[0] + n_planes)
+    groups = [tuple(_planes(rng, shape, n_planes, cuda)) for _ in range(5)]
+    got = fs.plane_rk4_combine(*groups, 0.5)
+    want = fs.plane_rk4_combine_plain(*groups, 0.5)
+    torch.cuda.synchronize()
+    assert len(got) == n_planes
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128)])
+def test_ka6_matches_plain(cuda, shape):
+    n, ny = shape
+    hny = ny // 2 + 1
+    rng = np.random.default_rng(n + 6)
+    t = _tables(n, cuda, ny)
+    sr2, si2 = _planes(rng, (2, n, hny), 2, cuda)
+    sr2[1] *= 1e4                      # the tracer dwarfs the vorticity
+    si2[1] *= 1e4
+    got = ft.tracer_xstage_planes(sr2, si2, t.kx, t.ky, t.rlap)
+    want = ft.ka6_plain(sr2, si2, t.rlap, t.kx, t.ky)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (6, hny, n)
+        for f in range(6):
+            assert _rel(g[f], w[f]) < TOL, f
+
+
+@pytest.mark.parametrize("shape", [(6, 64, 64), (6, 4096, 4096),
+                                   (6, 8192, 8192), (3, 128, 256),
+                                   (5, 256, 64)])
+def test_kb_pair_on_other_stacks(cuda, shape):
+    """F != 4 stacks (the tracer's six fields), the last pair, and
+    non-square fields (nx != ny)."""
+    nf, ny, nx = shape
+    rng = np.random.default_rng(ny + nf)
+    wr, wi = _planes(rng, (nf, ny // 2 + 1, nx), 2, cuda)
+    scale = 1.0 / (nx * ny)
+    for pair in ((nf - 2, nf - 1), (0, nf - 1)):
+        got = ff.kb_pair(wr, wi, *pair, scale)
+        want = ff.kb_pair_plain(wr, wi, *pair, scale)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == (ny, nx)
+            assert _rel(g, w) < TOL, pair
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128)])
+@pytest.mark.parametrize("with_src", [True, False])
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+def test_kb_adv_tracer_matches_plain(cuda, shape, with_src, beta):
+    ny, nx = shape
+    hny = ny // 2 + 1
+    rng = np.random.default_rng(ny + nx + int(with_src))
+    zx, zy, qx, qy, src = _planes(rng, (ny, nx), 5, cuda)
+    qx *= 1e4                          # tendencies of very different size
+    qy *= 1e4
+    wr, wi = _planes(rng, (6, hny, nx), 2, cuda)
+    s = src if with_src else None
+    got = ft.kb_adv_tracer(zx, zy, qx, qy, wr, wi, s, beta)
+    want = ft.kb_adv_tracer_plain(zx, zy, qx, qy, wr, wi, s, beta)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (2, nx, hny)
+        for f in range(2):
+            assert _rel(g[f], w[f]) < TOL, f
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kb_adv_tracer_leak_guard(cuda, n):
+    """Junk in the imaginary part of the self-conjugate rows of the u and
+    v x-stages is projected out, as in kb_pair."""
+    rng = np.random.default_rng(n + 7)
+    zx, zy, qx, qy = _planes(rng, (n, n), 4, cuda)
+    wr, wi = _planes(rng, (6, n // 2 + 1, n), 2, cuda)
+    clean = wi.clone()
+    clean[:, 0] = 0.0
+    clean[:, n // 2] = 0.0
+    poisoned = clean.clone()
+    poisoned[:, 0] = 10.0 * wi[:, 0]
+    poisoned[:, n // 2] = -7.0 * wi[:, n // 2]
+    a = ft.kb_adv_tracer(zx, zy, qx, qy, wr, clean, None, 0.3)
+    b = ft.kb_adv_tracer(zx, zy, qx, qy, wr, poisoned, None, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_unsupported_length_raises(cuda):
     x = torch.zeros((96, 96), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError):
@@ -125,8 +258,8 @@ def test_unsupported_length_raises(cuda):
 
 def test_launch_counts_of_a_segment(cuda):
     """Two steps of the plane stepper launch 4 stages x (1 ka_diag,
-    2 kb_pair, 1 ky_adv, 1 kx_visc) per step, and nothing else. The
-    model is built on the bare "cuda" device name."""
+    2 kb_pair, 1 ky_adv, 1 kx_visc) and 1 rk4_combine per step, and
+    nothing else. The model is built on the bare "cuda" device name."""
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
     from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
 
@@ -139,5 +272,51 @@ def test_launch_counts_of_a_segment(cuda):
     z = m.segment(z, m.zero_source(), 2)
     torch.cuda.synchronize()
     assert ff.LAUNCHES == {"ka_diag": 8, "kb_pair": 16, "ky_adv": 8,
-                           "kx_visc": 8}
+                           "kx_visc": 8, "ka6": 0, "kb_adv_tracer": 0,
+                           "rk4_combine": 2}
     assert bool(torch.isfinite(torch.view_as_real(z)).all())
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_fused_rk_matches_unfused(cuda, n):
+    """The fused-RK form (kx_visc axpy + rk4_combine) against the
+    unfused one (torch elementwise) on the card: both round every
+    product and sum on its own, so 3 steps agree bit for bit."""
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+
+    cfg = ModelConfig(nx=n, ny=n, beta=1e-11, r_drag=1e-6)
+    fused = BarotropicModel.build(cfg, cuda)
+    unfused = BarotropicModel.build(cfg, cuda, fused_rk=False)
+    z = fused.init_state(makefields.gaussian(cfg))
+    src = fused.zero_source()
+    a = fused.segment(z, src, 3)
+    b = unfused.segment(z, src, 3)
+    assert torch.equal(a, b)
+
+
+def test_tracer_launch_counts_and_library_agreement(cuda):
+    """Two tracer steps launch 4 stages x (1 ka6, 2 kb_pair,
+    1 kb_adv_tracer, 1 kx_visc) and 1 rk4_combine per step, and agree
+    with the torch.fft library path to rel-L2 1e-5 per field."""
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+
+    cfg = ModelConfig(nx=256, ny=256)
+    m = TracerModel.build(cfg, "cuda", kappa=50.0)
+    lib = TracerModel.build(cfg.replace(fft_backend="xla"), cuda,
+                            kappa=50.0)
+    assert m.backend == "pallas" and lib.backend == "xla"
+    v0 = makefields.gaussian(cfg)
+    s0 = m.init_state(v0, tracer_ic(cfg, "gaussian"))
+    ff.reset_launches()
+    s = m.segment(s0, m.zero_source(), 2)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {"ka_diag": 0, "kb_pair": 16, "ky_adv": 0,
+                           "kx_visc": 8, "ka6": 8, "kb_adv_tracer": 8,
+                           "rk4_combine": 2}
+    ref = lib.segment(s0, lib.zero_source(), 2)
+    for got, want in zip(s, ref):
+        rel = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want))
+        assert rel < TOL

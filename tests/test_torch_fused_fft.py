@@ -138,7 +138,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     ff.derivative_quad_planes(tzr, tzi, tt.kx, tt.ky, tt.rlap)
     assert ff.LAUNCHES == {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0,
-                           "kx_visc": 0}
+                           "kx_visc": 0, "ka6": 0, "kb_adv_tracer": 0,
+                           "rk4_combine": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -153,13 +154,81 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ff.ky_adv(x.t(), x, x, x, x)          # not contiguous
     with pytest.raises(ValueError):
-        ff.kb_pair(torch.zeros((3, 33, n)), torch.zeros((3, 33, n)), 0, 1,
-                   1.0)
+        ff.kb_pair(torch.zeros((33, n)), torch.zeros((33, n)), 0, 1, 1.0)
     with pytest.raises(ValueError):
         ff.kb_pair(torch.zeros((4, 33, n)), torch.zeros((4, 33, n)), 0, 4,
+                   1.0)
+    with pytest.raises(ValueError):
+        ff.kb_pair(torch.zeros((6, 33, n)), torch.zeros((6, 33, n)), 4, 6,
                    1.0)
     meta = torch.zeros((n, n), device="meta")
     with pytest.raises(ValueError):
         ff.ky_adv(meta, meta, meta, meta, meta)
     assert ff.supported_length(64) and ff.supported_length(8192)
     assert not any(ff.supported_length(k) for k in (32, 96, 16384))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kx_visc_axpy_matches_forward_tail(n):
+    """The stage-axpy epilogue (the coef form of _kx_visc_kernel)
+    against pallas_fft.forward_tail(axpy=...), and forward_tendency_yfirst
+    passing the axpy through."""
+    cfg, jt, tt, zr, zi, rng = _setup(n, 7)
+    fr, fi = (rng.standard_normal((n, n // 2 + 1)).astype(np.float32) * n
+              for _ in range(2))
+    z0r, z0i = (rng.standard_normal((n, n // 2 + 1)).astype(np.float32)
+                for _ in range(2))
+    nu = 6.5e9
+    want = pf.forward_tail(jnp.asarray(fr), jnp.asarray(fi), jt.lap,
+                           jt.mask, jnp.asarray(zr), jnp.asarray(zi), nu,
+                           cfg.grid_shape,
+                           axpy=(jnp.asarray(z0r), jnp.asarray(z0i), 1.5))
+    got = ff.kx_visc(*_t(fr, fi), tt.lap, tt.mask, *_t(zr, zi), nu,
+                     (*_t(z0r, z0i), 1.5))
+    assert len(want) == len(got) == 4
+    for w, g in zip(want, got):
+        assert _rel(w, g.numpy()) < 2e-5
+    fields = [rng.standard_normal((n, n)).astype(np.float32)
+              for _ in range(5)]
+    tf = _t(*fields)
+    a = ff.forward_tendency_yfirst(*tf, tt.lap, tt.mask, *_t(zr, zi), nu,
+                                   0.5, (*_t(z0r, z0i), 1.5))
+    fr2, fi2 = ff.ky_adv(*tf, 0.5)
+    b = ff.kx_visc(fr2, fi2, tt.lap, tt.mask, *_t(zr, zi), nu,
+                   (*_t(z0r, z0i), 1.5))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kb_pair_on_the_six_field_stack(n):
+    """kb_pair on the tracer's (6, hny, nx) stack, fields (4, 5), against
+    _kb_call_stacked on the same stack."""
+    from xlab_fftbarotropic_tpu.ops import pallas_tracer as pt
+
+    cfg, jt, _, zr, zi, _ = _setup(n, 8)
+    sr2 = np.stack([zr, 2.0 * zi])
+    si2 = np.stack([zi, -zr])
+    wr, wi = pt.tracer_xstage_planes(jnp.asarray(sr2), jnp.asarray(si2),
+                                     jt.kx, jt.ky, jt.rlap, cfg.grid_shape)
+    scale = 1.0 / (n * n)
+    want = pf._kb_call_stacked(wr, wi, 4, 5, n, scale, transpose_out=False)
+    got = ff.kb_pair(*_t(wr, wi), 4, 5, scale)
+    for w, g in zip(want, got):
+        assert _rel(w, g.numpy()) < 2e-6
+
+
+def test_kx_visc_stack_equals_its_fields():
+    """A stacked (F, nx, hny) call is its fields' one-field calls: the
+    per-field tables and the shared mask line up. Bar 1e-6 of max |part|:
+    torch.fft's batched CPU transform rounds apart from its single one."""
+    n = 64
+    _, _, tt, zr, zi, rng = _setup(n, 9)
+    planes = [rng.standard_normal((3, n, n // 2 + 1)).astype(np.float32)
+              for _ in range(6)]
+    fr, fi, lap, zsr, zsi, z0 = _t(*planes)
+    whole = ff.kx_visc(fr, fi, lap, tt.mask, zsr, zsi, 0.7, (z0, z0, 0.3))
+    for f in range(3):
+        part = ff.kx_visc(fr[f], fi[f], lap[f], tt.mask, zsr[f], zsi[f],
+                          0.7, (z0[f], z0[f], 0.3))
+        for w, p in zip(whole, part):
+            assert _rel(p.numpy(), w[f].numpy()) < 1e-6

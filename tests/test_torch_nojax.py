@@ -1,12 +1,14 @@
 """The port runs without jax: in a fresh interpreter (no GPU visible), it
-imports, steps the model twice on the CPU and ends with no jax module
-loaded; and its CLI refuses to run without a GPU unless told
---device cpu."""
+imports, steps the barotropic and the tracer model twice on the CPU and
+ends with no jax module loaded; and its CLI refuses to run without a GPU
+unless told --device cpu."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -17,8 +19,10 @@ import torch
 import xlab_fftbarotropic_torch
 from xlab_fftbarotropic_torch import convert, reused, runner
 from xlab_fftbarotropic_torch.cli import run
-from xlab_fftbarotropic_torch.ops import _build, fft, fused_fft, spectral
+from xlab_fftbarotropic_torch.ops import (_build, fft, fused_fft, fused_sw,
+                                          fused_tracer, spectral)
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
 from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.ic import makefields
 
@@ -27,6 +31,12 @@ m = BarotropicModel.build(cfg, torch.device("cpu"))
 assert m.backend == "pallas"
 z = m.segment(m.init_state(makefields.gaussian(cfg)), m.zero_source(), 2)
 assert bool(torch.isfinite(m.diags(z).vort).all())
+tm = TracerModel.build(cfg, torch.device("cpu"), kappa=50.0)
+assert tm.backend == "pallas"
+s = tm.segment(tm.init_state(makefields.gaussian(cfg),
+                             tracer_ic(cfg, "gaussian")),
+               tm.zero_source(), 2)
+assert bool(torch.isfinite(tm.diags(s).q).all())
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 print("NOJAX-OK")
 """
@@ -48,12 +58,13 @@ def test_port_imports_and_steps_without_jax():
     assert "NOJAX-OK" in proc.stdout
 
 
-def test_cli_without_gpu_stops_unless_told_cpu(tmp_path):
+@pytest.mark.parametrize("family", [[], ["-m", "tracer"]])
+def test_cli_without_gpu_stops_unless_told_cpu(tmp_path, family):
     out = tmp_path / "out"
     proc = subprocess.run(
         [sys.executable, "-m", "xlab_fftbarotropic_torch.cli.run", "-O",
-         str(out), "--nx", "64", "--ny", "64", "--total-steps", "1"],
-        cwd=tmp_path, env=_env(), capture_output=True, text=True,
+         str(out), "--nx", "64", "--ny", "64", "--total-steps", "1"]
+        + family, cwd=tmp_path, env=_env(), capture_output=True, text=True,
         timeout=300)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr

@@ -5,7 +5,8 @@
         --record-step 10 [--device cuda|cpu]
 
 The flags are those of xlab_fftbarotropic_tpu.cli.run for what the port
-covers: the barotropic family, the -s script / -f fifo forcing, records,
+covers: the barotropic and tracer (-m tracer, --tracer-ic,
+--tracer-kappa) families, the -s script / -f fifo forcing, records,
 checkpoints and resume. `--device cuda` (the default) runs the plane
 stepper's hand-written CUDA kernels and stops with an error when no GPU
 is visible; it never carries on on the CPU. `--device cpu` runs the
@@ -24,6 +25,7 @@ def main(argv=None):
 
     from ..models.barotropic import resolve_device, resolve_fft_backend_name
     from ..reused import add_config_args, config_from_args
+    from ..runner import _NOT_PORTED, run
 
     p = argparse.ArgumentParser(
         prog="xfb-torch-run",
@@ -34,7 +36,16 @@ def main(argv=None):
                         "error if no GPU is visible; cpu: their plain "
                         "torch versions")
     p.add_argument("-m", "--model", default="barotropic",
-                   help="model family; the port has barotropic (bt) only")
+                   help="model family: barotropic (bt) or tracer "
+                        "(barotropic + co-advected passive scalar q, "
+                        "recorded as q_step_N.bin)")
+    p.add_argument("--tracer-ic", default="vorticity",
+                   choices=["vorticity", "zonal", "meridional", "gaussian"],
+                   help="tracer initial condition for -m tracer "
+                        "(models/tracer.py:tracer_ic)")
+    p.add_argument("--tracer-kappa", type=float, default=0.0,
+                   help="tracer diffusivity kappa [m^2/s] for -m tracer "
+                        "(0 = purely advective)")
     p.add_argument("-s", "--script", default=None, metavar="RECIPE",
                    help="vorticity-source script file "
                         "(lines: '<time> <field.bin>')")
@@ -69,9 +80,11 @@ def main(argv=None):
         p.error("--shard is not ported yet (ROADMAP.md queue A, item 13)")
     if args.ensemble:
         p.error("--ensemble is not ported yet (ROADMAP.md queue A, item 11)")
-    if args.model not in ("barotropic", "bt"):
-        p.error(f"-m {args.model}: the port has the barotropic family only "
-                f"so far (ROADMAP.md queue A)")
+    if args.model in _NOT_PORTED:
+        p.error(f"-m {args.model} is not ported yet (ROADMAP.md queue A, "
+                f"item {_NOT_PORTED[args.model]})")
+    if args.model not in ("barotropic", "bt", "tracer"):
+        p.error(f"-m {args.model}: unknown model family")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is visible; pass --device "
                 "cpu to run the kernels' plain torch versions on the CPU")
@@ -116,17 +129,20 @@ def main(argv=None):
     print(f"Length Y              : {cfg.ly:.3f} [m]", file=sys.stderr)
     print(f"Time Resolution dt    : {cfg.dt:.3f} [s]", file=sys.stderr)
     print(f"Steps                 : {cfg.total_steps}", file=sys.stderr)
+    family = (f"tracer (kappa = {args.tracer_kappa:g} m^2/s, IC "
+              f"{args.tracer_ic})" if args.model == "tracer"
+              else "barotropic")
+    print(f"Model family          : {family}", file=sys.stderr)
     print(f"Device                : {where}", file=sys.stderr)
     print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
     print("#########################", file=sys.stderr)
-
-    from ..runner import run
 
     result = run(cfg, device, recipe=recipe, src_path=src_path,
                  record=not args.no_record, manifest_path=args.manifest,
                  progress=True, resume_from=args.resume_from,
                  model_kind=args.model, debug_fields=args.debug_fields,
-                 step_banners=args.step_banners, record_only=record_only)
+                 step_banners=args.step_banners, record_only=record_only,
+                 tracer_kappa=args.tracer_kappa, tracer_ic=args.tracer_ic)
     sps = result.steps_run / max(result.wall_time, 1e-9)
     print(f"Ran {result.steps_run} steps in {result.wall_time:.2f}s "
           f"({sps:.1f} steps/s, {sps * cfg.grids:.3e} grid-points/s)",

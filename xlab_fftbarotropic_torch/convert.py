@@ -1,11 +1,12 @@
 """Carry data between the JAX package and the port, both ways.
 
 In this system the "weights" are the spectral coefficient tables and the
-state is the complex64 half-spectrum zeta_hat; both cross as numpy
-arrays, so neither side imports the other. Checkpoints need no
-conversion: both runners write and read them through the shared
-xlab_fftbarotropic_tpu/io/checkpoint.py (complex64 zeta_hat + config
-hash), so a checkpoint from either resumes in the other.
+state is the complex64 half-spectrum zeta_hat (the tracer family: the
+pair zeta_hat, q_hat); both cross as numpy arrays, so neither side
+imports the other. Checkpoints need no conversion: both runners write
+and read them through the shared xlab_fftbarotropic_tpu/io/checkpoint.py
+(the complex64 state as packed below + config hash), so a checkpoint
+from either resumes in the other.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.tracer import TracerState
 from .ops.spectral import SpectralTables
 
 
@@ -43,3 +45,19 @@ def state_from_numpy(zeta_hat: np.ndarray, device):
 def state_to_numpy(zr: torch.Tensor, zi: torch.Tensor) -> np.ndarray:
     """(zr, zi) float32 planes -> complex64 (nx, hny) numpy."""
     return torch.complex(zr, zi).detach().cpu().numpy()
+
+
+def tracer_state_from_numpy(packed: np.ndarray, device) -> TracerState:
+    """complex64 (2, nx, hny) = [zeta_hat, q_hat], as the JAX tracer
+    adapter packs it for checkpoints -> TracerState on `device`."""
+    p = np.asarray(packed)
+    if p.dtype != np.complex64 or p.ndim != 3 or p.shape[0] != 2:
+        raise ValueError(f"expected a complex64 (2, nx, hny) tracer state, "
+                         f"got {p.dtype} {p.shape}")
+    return TracerState(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in p))
+
+
+def tracer_state_to_numpy(state: TracerState) -> np.ndarray:
+    """TracerState -> complex64 (2, nx, hny) numpy [zeta_hat, q_hat]."""
+    return np.stack([z.detach().cpu().numpy() for z in state])

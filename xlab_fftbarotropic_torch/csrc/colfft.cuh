@@ -1,4 +1,4 @@
-// colfft: the one DFT device function the four stepping kernels share.
+// colfft: the one DFT device function the FFT stepping kernels share.
 //
 // A block transforms one column of length n (a power of two, 64..8192)
 // held in shared memory as float2 (re, im): an in-place iterative

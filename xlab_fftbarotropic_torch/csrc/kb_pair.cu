@@ -3,9 +3,11 @@
 // Replaces pallas_fft._kb_call_stacked / _kb_kernel_stacked
 // (xlab_fftbarotropic_tpu/ops/pallas_fft.py) with transpose_out=False.
 // For each physical column x it reads rows 0..ny/2 of fields fa and fb
-// from the stacked (4, hny, nx) x-stage output, zeroes the imaginary part
-// of the self-conjugate rows 0 and ny/2 (the positive-Nyquist leak
-// guard), builds the full Hermitian column c[j] = a[j] + i b[j],
+// from a stacked (F, hny, nx) x-stage output (F = 4 from ka_diag, 6 from
+// ka6; field f starts at f * hny * nx, so F itself is never needed),
+// zeroes the imaginary part of the self-conjugate rows 0 and ny/2 (the
+// positive-Nyquist leak guard), builds the full Hermitian column
+// c[j] = a[j] + i b[j],
 // c[ny-j] = conj(a[j]) + i conj(b[j]) in shared memory, runs the inverse
 // colfft and writes Re * scale -> a[y, x] and Im * scale -> b[y, x]
 // (y-major (ny, nx); scale = 1/(nx*ny)).

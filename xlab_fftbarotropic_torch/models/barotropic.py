@@ -11,8 +11,11 @@ Two stepping paths, chosen by cfg.fft_backend:
 
 * "pallas", the plane stepper (rk4_step_planes): the state moves as
   float32 (re, im) planes through the four transform kernels of
-  ops/fused_fft.py, five launches per RK stage. On a CUDA device they are
-  the hand-written kernels; on the CPU, their plain torch.fft versions.
+  ops/fused_fft.py, five launches per RK stage, with the RK stage update
+  fused into kx_visc's epilogue for stages 1-3 and the RK4 tail one
+  rk4_combine launch (ops/fused_sw.py): 21 launches per step. On a CUDA
+  device they are the hand-written kernels; on the CPU, their plain
+  torch versions.
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 "auto" takes "pallas" for power-of-two square grids the kernels take
@@ -28,6 +31,7 @@ from torch import nn
 
 from ..ops import fft
 from ..ops import fused_fft as ff
+from ..ops import fused_sw as fs
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
 
@@ -137,25 +141,37 @@ def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
 
 def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
                     src_y: torch.Tensor, dt: float, nu: float,
-                    beta: float = 0.0):
+                    beta: float = 0.0, fused_rk: bool = True):
     """RK4 on the state as float32 (re, im) planes through the transform
     kernels: per stage derivative_quad_planes (ka_diag + 2 kb_pair) and
     forward_tendency_yfirst (ky_adv + kx_visc, viscous and dealiased in
-    the epilogue). `src_y` is the forcing y-major (ny, nx). The stage
-    updates and the RK4 tail are elementwise arithmetic on the planes, in
-    the grouping of the JAX plane stepper."""
+    the epilogue). `src_y` is the forcing y-major (ny, nx).
+
+    fused_rk=True (the JAX default, XFB_BT_FUSED_RK=1, with its
+    FUSETAIL off): stages 1-3 return the next stage state from
+    kx_visc's axpy epilogue, and the tail is one plane_rk4_combine.
+    fused_rk=False: the stage updates and the tail are torch elementwise
+    arithmetic in the same grouping; on the CPU both forms give the same
+    bits."""
     h = dt * 0.5
 
-    def d(sr, si):
+    def d(sr, si, axpy=None):
         zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap)
         return ff.forward_tendency_yfirst(u, zx, v, zy, src_y, t.lap,
-                                          t.mask, sr, si, nu, beta)
+                                          t.mask, sr, si, nu, beta, axpy)
 
+    c = dt / 6.0
+    if fused_rk:
+        r1r, r1i, s2r, s2i = d(zr, zi, axpy=(zr, zi, h))
+        r2r, r2i, s3r, s3i = d(s2r, s2i, axpy=(zr, zi, h))
+        r3r, r3i, s4r, s4i = d(s3r, s3i, axpy=(zr, zi, dt))
+        r4r, r4i = d(s4r, s4i)
+        return fs.plane_rk4_combine((zr, zi), (r1r, r1i), (r2r, r2i),
+                                    (r3r, r3i), (r4r, r4i), c)
     r1r, r1i = d(zr, zi)
     r2r, r2i = d(zr + r1r * h, zi + r1i * h)
     r3r, r3i = d(zr + r2r * h, zi + r2i * h)
     r4r, r4i = d(zr + r3r * dt, zi + r3i * dt)
-    c = dt / 6.0
     return (zr + (r1r + 2.0 * r2r + 2.0 * r3r + r4r) * c,
             zi + (r1i + 2.0 * r2i + 2.0 * r3i + r4i) * c)
 
@@ -211,14 +227,17 @@ class BarotropicModel(nn.Module):
     `diags`:   zeta_hat -> DiagFields;  `stats`: zeta_hat -> StepStats;
     `debug`:   zeta_hat, src -> DebugFields.
 
-    `tables` (buffers) serve the diagnostics; `step_tables` step. On the
-    plane stepper, drag and hyperviscosity fold into the stepping lap:
+    `tables` (buffers) serve the diagnostics; `step_tables` step.
+    `fused_rk` picks the plane stepper's form (rk4_step_planes; True is
+    the JAX default, XFB_BT_FUSED_RK=1). On the plane stepper, drag and
+    hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
     package); the diagnostics keep the original tables.
     """
 
-    def __init__(self, cfg, device, tables: SpectralTables = None):
+    def __init__(self, cfg, device, tables: SpectralTables = None,
+                 fused_rk: bool = True):
         super().__init__()
         if cfg.time_scheme == "etdrk4":
             raise NotImplementedError(
@@ -230,6 +249,7 @@ class BarotropicModel(nn.Module):
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
                                                 cfg.grid_shape)
+        self.fused_rk = fused_rk
         t = (tables if tables is not None
              else SpectralTables.from_config(cfg, self.device))
         self.tables = t
@@ -248,9 +268,9 @@ class BarotropicModel(nn.Module):
                                           self.device)
 
     @classmethod
-    def build(cls, cfg, device, tables: SpectralTables = None
-              ) -> "BarotropicModel":
-        return cls(cfg, device, tables)
+    def build(cls, cfg, device, tables: SpectralTables = None,
+              fused_rk: bool = True) -> "BarotropicModel":
+        return cls(cfg, device, tables, fused_rk)
 
     def _check_state(self, zeta_hat: torch.Tensor) -> None:
         if (zeta_hat.dtype != torch.complex64
@@ -271,7 +291,8 @@ class BarotropicModel(nn.Module):
             src_y = src.t().contiguous()
             for _ in range(n_steps):
                 zr, zi = rk4_step_planes(t, zr, zi, src_y, self.dt,
-                                         self.step_nu, beta=self.beta)
+                                         self.step_nu, beta=self.beta,
+                                         fused_rk=self.fused_rk)
             return torch.complex(zr, zi)
         z = zeta_hat
         for _ in range(n_steps):

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels.
 
-The four stepping kernels (csrc/*.cu, sharing csrc/colfft.cuh) compile
+The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh) compile
 with nvcc for Hopper (sm_90a) into one shared library with a plain C
 interface, loaded with ctypes: pointers and the stream pass as
 ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
@@ -28,21 +28,32 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 HEADERS = ("colfft.cuh",)
-SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu")
+SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
+           "kb_adv_tracer.cu", "rk4_combine.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libxfb_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, device, stream
     "xfb_ka_diag": [_P] * 8 + [_I, _I, _I, _P],
+    # sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny, device, stream
+    "xfb_ka6": [_P] * 8 + [_I, _I, _I, _P],
     # wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, device, stream
     "xfb_kb_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P],
     # u, zx, v, zy, src, tw, outr, outi, ny, nx, beta, device, stream
     "xfb_ky_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
-    # fr, fi, lap, mask, zsr, zsi, tw, rr, ri, nx, hny, nu, device, stream
-    "xfb_kx_visc": [_P] * 9 + [_I, _I, _F, _I, _P],
+    # fr, fi, lap, mask, zsr, zsi, z0r, z0i, tw, rr, ri, nr, ni,
+    # nfields, nx, hny, nu, coef, device, stream
+    "xfb_kx_visc": [_P] * 13 + [_I, _I, _I, _F, _F, _I, _P],
+    # zx, zy, qx, qy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta,
+    # device, stream
+    "xfb_kb_adv_tracer": [_P] * 10 + [_I, _I, _F, _F, _I, _P],
+    # host array of 6 * n_planes pointers, n_planes, numel, c, device,
+    # stream
+    "xfb_rk4_combine": [_P, _I, _L, _F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

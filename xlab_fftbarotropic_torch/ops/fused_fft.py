@@ -1,25 +1,30 @@
 """The plane stepper's transform kernels: the counterpart of the
-plane-stepper part of xlab_fftbarotropic_tpu/ops/pallas_fft.py.
+plane-stepper part of xlab_fftbarotropic_tpu/ops/pallas_fft.py, and the
+launch machinery every kernel wrapper of the port shares.
 
-One RK stage of the plane stepper runs five launches of four kernels,
-each a hand-written CUDA kernel (csrc/) around the shared in-shared-memory
-column FFT (csrc/colfft.cuh):
+One RK stage of the barotropic plane stepper runs five launches of four
+kernels, each a hand-written CUDA kernel (csrc/) around the shared
+in-shared-memory column FFT (csrc/colfft.cuh):
 
   ka_diag   the four derivative fields' inverse x-stage   (stacked out)
   kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
   ky_adv    advection product + real forward y-stage
-  kx_visc   forward x-stage + viscosity/dealias epilogue
+  kx_visc   forward x-stage + viscosity/dealias epilogue, with the RK
+            stage axpy fused in for stages 1-3 (stacked over fields:
+            the tracer family runs it on two)
+
+and the RK4 tail is one rk4_combine launch per step (ops/fused_sw.py).
 
 Layouts are the TPU kernels' public ones, so the tests compare like with
-like: spectral planes (nx, hny), the stacked x-stage output
-(4, hny, nx), physical fields y-major (ny, nx); every array is float32
-(re, im) planes, C-contiguous.
+like: spectral planes (nx, hny) or stacks (F, nx, hny), the stacked
+x-stage output (F, hny, nx), physical fields y-major (ny, nx); every
+array is float32 (re, im) planes, C-contiguous.
 
 Each wrapper checks its arguments and then dispatches on the tensors'
 device alone: a CPU tensor takes the plain version beside it (torch.fft
 along one axis), a CUDA tensor launches the kernel on the current stream
-or raises. LAUNCHES counts kernel launches per kernel; the plain versions
-never touch it.
+or raises. LAUNCHES counts kernel launches per kernel, for every kernel
+of the port; the plain versions never touch it.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0}
+LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
+            "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 0}
 
 # transform lengths the kernels take: powers of two whose column fits
 # one block's shared memory (8192 complex64 = 64 KB)
@@ -107,16 +113,32 @@ def _stream(t: torch.Tensor) -> int:
 
 # ---------------------------------------------------------------- ka_diag
 
-def ka_diag_plain(zr, zi, rlap, kx, ky):
-    n = zr.shape[0]
-    k = kx.reshape(n, 1)
+def diagonal_fields(sr, si, rlap, kx, ky, kinds):
+    """The diagonal-scaled fields (re, im lists) of one state plane S:
+    kind 0 i kx S, 1 i ky S, 2 -i ky psi, 3 i kx psi (psi = S*rlap), in
+    the kernels' grouping (diagonal first, then rlap)."""
+    k = kx.reshape(-1, 1)
     q = ky.reshape(1, -1)
-    re = torch.stack([-(zi * k), -(zi * q), (zi * q) * rlap,
-                      -(zi * k) * rlap])
-    im = torch.stack([zr * k, zr * q, -(zr * q) * rlap, (zr * k) * rlap])
-    y = torch.fft.ifft(torch.complex(re, im), dim=1, norm="forward")
+    field = {0: lambda: (-(si * k), sr * k),
+             1: lambda: (-(si * q), sr * q),
+             2: lambda: ((si * q) * rlap, -(sr * q) * rlap),
+             3: lambda: (-(si * k) * rlap, (sr * k) * rlap)}
+    pairs = [field[c]() for c in kinds]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def inverse_xstage_plain(re, im):
+    """Unnormalized inverse x-DFT of the stacked fields, transposed:
+    (F, n, hny) (re, im) -> (F, hny, n) planes."""
+    y = torch.fft.ifft(torch.complex(torch.stack(re), torch.stack(im)),
+                       dim=1, norm="forward")
     y = y.transpose(1, 2)
     return y.real.contiguous(), y.imag.contiguous()
+
+
+def ka_diag_plain(zr, zi, rlap, kx, ky):
+    return inverse_xstage_plain(*diagonal_fields(zr, zi, rlap, kx, ky,
+                                                 range(4)))
 
 
 def ka_diag(zr, zi, rlap, kx, ky):
@@ -155,18 +177,19 @@ def kb_pair_plain(wr, wi, fa: int, fb: int, scale: float):
 
 
 def kb_pair(wr, wi, fa: int, fb: int, scale: float):
-    """Paired c2r y-stage of fields fa, fb of the stacked (4, hny, nx)
-    x-stage output -> a, b y-major (ny, nx), scaled by `scale`
-    (1/(nx*ny) in the stepper). Counterpart of
-    pallas_fft._kb_call_stacked(..., transpose_out=False)."""
-    if wr.dim() != 3 or wr.shape[0] != 4:
-        raise ValueError(f"kb_pair: expected (4, hny, nx), got "
+    """Paired c2r y-stage of fields fa, fb of a stacked (F, hny, nx)
+    x-stage output (F = 4 from ka_diag, 6 from ka6) -> a, b y-major
+    (ny, nx), scaled by `scale` (1/(nx*ny) in the stepper). Counterpart
+    of pallas_fft._kb_call_stacked(..., transpose_out=False)."""
+    if wr.dim() != 3:
+        raise ValueError(f"kb_pair: expected (F, hny, nx), got "
                          f"{tuple(wr.shape)}")
-    _, hny, nx = wr.shape
+    nf, hny, nx = wr.shape
     ny = 2 * (hny - 1)
-    _check("kb_pair", (4, hny, nx), wr, wi)
-    if not (0 <= fa < 4 and 0 <= fb < 4):
-        raise ValueError(f"kb_pair: field indices {fa}, {fb} not in 0..3")
+    _check("kb_pair", (nf, hny, nx), wr, wi)
+    if not (0 <= fa < nf and 0 <= fb < nf):
+        raise ValueError(f"kb_pair: field indices {fa}, {fb} not in "
+                         f"0..{nf - 1}")
     if _takes_plain("kb_pair", wr, ny):
         return kb_pair_plain(wr, wi, fa, fb, scale)
     from ._build import lib
@@ -208,28 +231,51 @@ def ky_adv(u, zx, v, zy, src, beta: float = 0.0):
 
 # ---------------------------------------------------------------- kx_visc
 
-def kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu: float):
-    f = torch.fft.fft(torch.complex(fr, fi), dim=0)
+def kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
+    f = torch.fft.fft(torch.complex(fr, fi), dim=-2)
     nulap = nu * lap
-    return mask * (f.real + nulap * zsr), mask * (f.imag + nulap * zsi)
+    rr = mask * (f.real + nulap * zsr)
+    ri = mask * (f.imag + nulap * zsi)
+    if axpy is None:
+        return rr, ri
+    z0r, z0i, coef = axpy
+    return rr, ri, z0r + coef * rr, z0i + coef * ri
 
 
-def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float):
+def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
     """Forward x-DFT of (fr + i fi) over the hny columns with the epilogue
-    mask * (F + nu*lap*Zs) -> (rr, ri) (nx, hny). Counterpart of
-    pallas_fft.forward_tail with coef=None (_kx_visc_kernel)."""
-    nx, hny = fr.shape
-    _check("kx_visc", (nx, hny), fr, fi, lap, mask, zsr, zsi)
+    mask * (F + nu*lap*Zs) -> (rr, ri); with axpy=(z0r, z0i, coef) also
+    the next RK stage state (z0r + coef*rr, z0i + coef*ri).
+
+    fr, fi, lap, zsr, zsi (and z0r, z0i) are one field (nx, hny) or a
+    stack (F, nx, hny) with a table per field; mask (nx, hny) is shared.
+    Counterpart of pallas_fft.forward_tail (_kx_visc_kernel, with and
+    without coef) and of pallas_tracer.forward_tail_tracer
+    (_kx_visc_tracer_kernel: F = 2, nu = 1, the stacked table)."""
+    shape = tuple(fr.shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"kx_visc: expected (nx, hny) or (F, nx, hny), "
+                         f"got {shape}")
+    nx, hny = shape[-2:]
+    planes = (fr, fi, lap, zsr, zsi) + (() if axpy is None else axpy[:2])
+    _check("kx_visc", shape, *planes)
+    _check("kx_visc", (nx, hny), mask)
+    if mask.device != fr.device:
+        raise ValueError("kx_visc: mask and planes on different devices")
     if _takes_plain("kx_visc", fr, nx):
-        return kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu)
+        return kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu, axpy)
     from ._build import lib
-    rr = torch.empty((nx, hny), dtype=torch.float32, device=fr.device)
-    ri = torch.empty_like(rr)
+    outs = [torch.empty(shape, dtype=torch.float32, device=fr.device)
+            for _ in range(2 if axpy is None else 4)]
+    z0 = (None, None) if axpy is None else _ptrs(*axpy[:2])
+    nr_ni = (None, None) if axpy is None else _ptrs(*outs[2:])
+    coef = 0.0 if axpy is None else float(axpy[2])
     _launch("kx_visc", lib().xfb_kx_visc,
-            *_ptrs(fr, fi, lap, mask, zsr, zsi, _twiddles(nx, fr.device),
-                   rr, ri),
-            nx, hny, float(nu), fr.device.index, _stream(fr))
-    return rr, ri
+            *_ptrs(fr, fi, lap, mask, zsr, zsi), *z0,
+            _twiddles(nx, fr.device).data_ptr(), *_ptrs(*outs[:2]), *nr_ni,
+            1 if len(shape) == 2 else shape[0], nx, hny, float(nu), coef,
+            fr.device.index, _stream(fr))
+    return tuple(outs)
 
 
 # ------------------------------------------------------- stage composites
@@ -247,9 +293,10 @@ def derivative_quad_planes(zr, zi, kx, ky, rlap):
 
 
 def forward_tendency_yfirst(u, zx, v, zy, src, lap, mask, zr, zi,
-                            nu: float, beta: float = 0.0):
+                            nu: float, beta: float = 0.0, axpy=None):
     """dealias(rfft2(-u*zx - v*(zy+beta) + src) + nu*lap*Z) as (re, im)
-    planes from y-major fields: ky_adv + kx_visc. Counterpart of
-    pallas_fft.forward_tendency_yfirst with axpy=None, tail=None."""
+    planes from y-major fields: ky_adv + kx_visc; with axpy=(z0r, z0i,
+    coef) also the next stage state. Counterpart of
+    pallas_fft.forward_tendency_yfirst with tail=None."""
     fr, fi = ky_adv(u, zx, v, zy, src, beta)
-    return kx_visc(fr, fi, lap, mask, zr, zi, nu)
+    return kx_visc(fr, fi, lap, mask, zr, zi, nu, axpy)

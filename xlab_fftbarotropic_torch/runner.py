@@ -1,5 +1,5 @@
 """Run orchestration: the counterpart of xlab_fftbarotropic_tpu/runner.py
-for the barotropic family.
+for the barotropic and tracer families.
 
 The time loop of main.cpp / main-shallow-water.cpp: the model advances
 in segments between record, checkpoint and forcing-recipe boundaries;
@@ -22,20 +22,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import convert
 from .models.barotropic import BarotropicModel
+from .models.tracer import TracerModel, tracer_ic
 from .reused import (FieldRecorder, Manifest, ModelConfig, SourceReader,
                      check_finite, load_checkpoint, make_reader, read_field,
                      save_checkpoint)
 
 # what is not ported yet, by ROADMAP.md queue A item
-_NOT_PORTED = {
-    "shallow-water": 7, "sw": 7, "tracer": 8, "fd": 11, "jacobian": 11,
-}
+_NOT_PORTED = {"shallow-water": 7, "sw": 7, "fd": 11, "jacobian": 11}
 
 
 @dataclasses.dataclass
 class RunResult:
-    zeta_hat: torch.Tensor
+    zeta_hat: torch.Tensor    # the state: tracer runs hold a TracerState
     steps_run: int
     wall_time: float
     stats_history: list
@@ -101,8 +101,49 @@ class _BarotropicAdapter:
             self.device)
 
 
+class _TracerAdapter:
+    """Passive-tracer family (models/tracer.py): barotropic dynamics plus
+    a co-advected scalar q with its own diffusivity; records q_step_N.bin
+    beside the reference field set. The checkpoint state is the stacked
+    complex64 (2, nx, hny) [zeta_hat, q_hat], as in the JAX package."""
+
+    kind = "tracer"
+
+    def __init__(self, cfg: ModelConfig, device, kappa: float = 0.0,
+                 ic: str = "vorticity"):
+        self.cfg = cfg
+        self.ic = ic
+        self.model = TracerModel.build(cfg, device, kappa=kappa)
+        self.device = self.model.device
+
+    def init_from_physical(self, vort0):
+        return self.model.init_state(vort0, tracer_ic(self.cfg, self.ic,
+                                                      vort0))
+
+    def step(self, state, src):
+        return self.model.step(state, src)
+
+    def segment(self, state, src, n):
+        return self.model.segment(state, src, n)
+
+    def record_fields(self, state, only=None):
+        return _gather_fields(self.model.diags(state)._asdict(), only)
+
+    def stats(self, state):
+        return {k: float(v) for k, v in
+                self.model.stats(state)._asdict().items()}
+
+    def pack(self, state):
+        return convert.tracer_state_to_numpy(state)
+
+    def unpack(self, packed):
+        return convert.tracer_state_from_numpy(
+            np.asarray(packed, np.complex64), self.device)
+
+
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
-                 shard: bool = False, ensemble: int = 0):
+                 shard: bool = False, ensemble: int = 0,
+                 tracer_kappa: float = 0.0, tracer_ic: str = "vorticity"):
     if ensemble and ensemble > 1:
         raise NotImplementedError(
             "ensemble runs are not ported yet (ROADMAP.md queue A, item 11)")
@@ -111,6 +152,8 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
             "sharded runs are not ported yet (ROADMAP.md queue A, item 13)")
     if model_kind in ("barotropic", "bt"):
         return _BarotropicAdapter(cfg, device)
+    if model_kind == "tracer":
+        return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
     if model_kind in _NOT_PORTED:
         raise NotImplementedError(
             f"model kind {model_kind!r} is not ported yet (ROADMAP.md "
@@ -132,9 +175,13 @@ def run(cfg: ModelConfig,
         ensemble: int = 0,
         debug_fields: bool = False,
         step_banners: bool = False,
-        record_only=None) -> RunResult:
-    """Integrate cfg.total_steps on `device` (runner.py:399 of the JAX
-    package, barotropic family).
+        record_only=None,
+        tracer_kappa: float = 0.0,
+        tracer_ic: str = "vorticity") -> RunResult:
+    """Integrate cfg.total_steps of the chosen model family on `device`
+    (runner.py:399 of the JAX package): model_kind 'barotropic' or
+    'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
+    condition, models/tracer.py:tracer_ic).
 
     vort0: physical initial vorticity; if None, read from
     cfg.input_dir/cfg.init_file (main.cpp:143-144). recipe 'empty',
@@ -146,7 +193,11 @@ def run(cfg: ModelConfig,
     segment).
     """
     adapter = make_adapter(cfg, device, model_kind, shard=shard,
-                           ensemble=ensemble)
+                           ensemble=ensemble, tracer_kappa=tracer_kappa,
+                           tracer_ic=tracer_ic)
+    if debug_fields and not hasattr(adapter, "debug_record_fields"):
+        raise ValueError(
+            f"--debug-fields is not supported for model kind {model_kind!r}")
     device = adapter.device
 
     start_step = 0
