@@ -24,16 +24,27 @@ exits non-zero and prints no result):
    vorticity and tracer, zero forcing) through the same entry point with
    -m tracer, vort and q recorded; per step exactly 4 ka6, 8 kb_pair,
    4 kb_adv_tracer, 4 kx_visc and 1 rk4_combine launches.
-5. No library transform on the kernel paths: torch.fft.* and torch.matmul
-   raise while a barotropic and a tracer segment run.
-6. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
+5. Shallow-water main path: bench.py's SW config (n^2, the gaussian
+   vortex with zeta0 = 1e-5, geostrophically balanced, dt = the RK4
+   gravity-wave bound) through the same entry point with -m sw, vort,
+   div and h recorded; per step exactly 4 ka_sw, 8 kb_pair, 4 ky_all,
+   4 kx_fwd, 4 sw_combine and 1 rk4_combine launches, and per segment
+   1 ka and 1 kc (the forcing spectrum of the runner's zero forcing).
+6. No library transform on the kernel paths: torch.fft.* and torch.matmul
+   raise while a barotropic, a tracer and a shallow-water segment run.
+7. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
    unfused forms) and with the torch.fft library path on the card; rel-L2
    of the physical vorticity <= 1e-5 against the library path and
    between the two forms.
-7. Tracer trajectory: `steps` steps, kernels against the library path;
+8. Tracer trajectory: `steps` steps, kernels against the library path;
    rel-L2 of the physical vorticity and of q <= 1e-5.
-8. Time: ms/step and grid-points/s of every path from CUDA events after a
-   warm-up, in turns, with the peak device memory of each.
+9. Shallow-water trajectory: kernels against the library path after one
+   step and after `steps` steps; max abs error of vort, div and
+   eta = h - H over the JAX package's norms (div over max(|div|,
+   |vort|)) <= 1e-5 and <= 2e-4, its bars for its two SW paths; the
+   rel-L2 of each field is reported.
+10. Time: ms/step and grid-points/s of every path from CUDA events after
+   a warm-up, in turns, with the peak device memory of each.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}),
 the card's name and power limit as nvidia-smi gives them, and
@@ -64,7 +75,7 @@ KERNELS = {
                 "ka_diag", ("barotropic",)),
     "kb_pair": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
-                "kb_pair", ("barotropic", "tracer")),
+                "kb_pair", ("barotropic", "tracer", "shallow-water")),
     "ky_adv": ("xlab_fftbarotropic_torch/csrc/ky_adv.cu",
                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1506",
                "ky_adv", ("barotropic",)),
@@ -82,15 +93,41 @@ KERNELS = {
                       "kb_adv_tracer", ("tracer",)),
     "rk4_combine": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
                     "xlab_fftbarotropic_tpu/ops/pallas_sw.py:971",
-                    "rk4_combine", ("barotropic", "tracer")),
+                    "rk4_combine", ("barotropic", "tracer", "shallow-water")),
+    "ka_sw": ("xlab_fftbarotropic_torch/csrc/ka_sw.cu",
+              "xlab_fftbarotropic_tpu/ops/pallas_sw.py:217",
+              "ka_sw", ("shallow-water",)),
+    "ky_all": ("xlab_fftbarotropic_torch/csrc/ky_all.cu",
+               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:533",
+               "ky_all", ("shallow-water",)),
+    "kx_fwd": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:565",
+               "kx_fwd", ("shallow-water",)),
+    "sw_combine": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
+                   "xlab_fftbarotropic_tpu/ops/pallas_sw.py:679",
+                   "sw_combine", ("shallow-water",)),
+    "ka": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+           "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
+           "ka", ("shallow-water",)),
+    "kc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+           "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
+           "kc", ("shallow-water",)),
 }
-# expected launches per step on each main path
+# expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
     "barotropic": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4, "kx_visc": 4,
-                   "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 1},
-    "tracer": {"ka_diag": 0, "kb_pair": 8, "ky_adv": 0, "kx_visc": 4,
-               "ka6": 4, "kb_adv_tracer": 4, "rk4_combine": 1},
+                   "rk4_combine": 1},
+    "tracer": {"kb_pair": 8, "kx_visc": 4, "ka6": 4, "kb_adv_tracer": 4,
+               "rk4_combine": 1},
+    "shallow-water": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4, "kx_fwd": 4,
+                      "sw_combine": 4, "rk4_combine": 1},
 }
+# and per segment: the shallow-water forcing spectrum (the runner always
+# passes a forcing field, zero when the run is unforced)
+PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1}}
+# the shallow-water main path's error bars against its library path,
+# the JAX package's for its two SW paths (tests/test_pallas_sw.py)
+SW_TOL_ONE_STEP, SW_TOL = 1e-5, 2e-4
 
 
 class SmokeError(RuntimeError):
@@ -168,9 +205,28 @@ def kernel_cases(n: int, dev, seed: int):
     rk = [tuple(planes((n, hny), 2)) for _ in range(5)]
     rk2 = [tuple(planes((2, n, hny), 2)) for _ in range(5)]
     scale = 1.0 / (n * n)
+    # shallow water at the bench's magnitudes: zeta 1e-4, div 1e-6,
+    # eta 5 m in the state; u, v 3 m/s, zeta 1e-4 and eta_scale * eta
+    # 1e-4 in the y-major fields
+    sw = [a * p for a, p in zip((1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0),
+                                planes((n, hny), 6))]
+    sw0 = [a * p for a, p in zip((1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0),
+                                 planes((n, hny), 6))]
+    es = float(fs.eta_pair_scale(sw))
+    su, sv, szeta, seta = (a * p for a, p in zip((3.0, 3.0, 1e-4, 1e-4),
+                                                 planes((n, n), 4)))
+    ky_args = (su, sv, szeta, seta, 2.0 ** 15, 1e-4, 9.81)
+    pr, pi = planes((5, n, hny), 2)
+    sr, si = planes((n, hny), 2)
+    comb = (pr, pi, tuple(sw), (sr, si), t.kx, t.ky, t.lap, t.mask, 1e-4,
+            9.81, 6.5, 4000.0)
+    xr, xi = planes((n, n), 2)
 
     def per_field(out):                   # split stacked outputs by field
         return [p[f] for p in out for f in range(p.shape[0])]
+
+    def stage(out):                       # (tendency, next stage state)
+        return [*out[0], *out[1]]
 
     return {
         "ka_diag": (lambda: ff.ka_diag(zr, zi, t.rlap, t.kx, t.ky),
@@ -213,6 +269,35 @@ def kernel_cases(n: int, dev, seed: int):
         "rk4_combine_tracer": (
             lambda: fs.plane_rk4_combine(*rk2, 0.5),
             lambda: fs.plane_rk4_combine_plain(*rk2, 0.5), per_field),
+        "ka_sw": (lambda: fs.ka_sw(*sw, t.rlap, t.kx, t.ky, es),
+                  lambda: fs.ka_sw_plain(*sw, t.rlap, t.kx, t.ky, es),
+                  per_field),
+        "ky_all": (lambda: fs.ky_all(*ky_args),
+                   lambda: fs.ky_all_plain(*ky_args), per_field),
+        "ky_all_split": (lambda: fs.ky_all(*ky_args, True),
+                         lambda: fs.ky_all_plain(*ky_args, True),
+                         per_field),
+        "kx_fwd": (lambda: fs.kx_fwd(pr, pi),
+                   lambda: fs.kx_fwd_plain(pr, pi), per_field),
+        "sw_combine": (
+            lambda: fs.sw_combine(*comb, axpy=(tuple(sw0), 0.4235)),
+            lambda: fs.sw_combine_plain(*comb, axpy=(tuple(sw0), 0.4235)),
+            stage),
+        "sw_combine_no_axpy": (lambda: fs.sw_combine(*comb),
+                               lambda: fs.sw_combine_plain(*comb), list),
+        "sw_combine_split_no_src": (
+            lambda: fs.sw_combine(*comb[:3], None, *comb[4:], True),
+            lambda: fs.sw_combine_plain(*comb[:3], None, *comb[4:], True),
+            list),
+        "ka": (lambda: ff.ka(xr, None, True),
+               lambda: ff.ka_plain(xr, None, True), list),
+        "ka_real_inverse": (lambda: ff.ka(xr, None, False, 0.5),
+                            lambda: ff.ka_plain(xr, None, False, 0.5), list),
+        "ka_complex_forward": (lambda: ff.ka(xr, xi, True, 0.5),
+                               lambda: ff.ka_plain(xr, xi, True, 0.5), list),
+        "ka_complex_inverse": (lambda: ff.ka(xr, xi, False),
+                               lambda: ff.ka_plain(xr, xi, False), list),
+        "kc": (lambda: ff.kc(xr, xi), lambda: ff.kc_plain(xr, xi), list),
     }
 
 
@@ -249,16 +334,27 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     from xlab_fftbarotropic_torch.reused import (ModelConfig, makefields,
                                                  read_field, write_field)
 
+    from xlab_fftbarotropic_torch.models.shallow_water import max_stable_dt
+
     cfg = ModelConfig(nx=n, ny=n)
     rec = steps // 2
-    fields = ["vort"] if family == "barotropic" else ["vort", "q"]
-    extra = ([] if family == "barotropic" else
-             ["-m", "tracer", "--tracer-kappa", "50", "--tracer-ic",
-              "gaussian"])
+    vort0 = makefields.gaussian(cfg)
+    fields, extra = {
+        "barotropic": (["vort"], []),
+        "tracer": (["vort", "q"], ["-m", "tracer", "--tracer-kappa", "50",
+                                   "--tracer-ic", "gaussian"]),
+        # bench.py's SW configuration: the weaker vortex, and dt under
+        # the gravity-wave bound (0.847 s at 4096^2, where 3 s NaNs)
+        "shallow-water": (["vort", "div", "h"],
+                          ["-m", "sw", "--dt",
+                           repr(min(3.0, max_stable_dt(cfg)))]),
+    }[family]
+    if family == "shallow-water":
+        vort0 = makefields.gaussian(cfg, zeta0=1e-5)
     with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
         inp, out = Path(tmp) / "input", Path(tmp) / "output"
         inp.mkdir()
-        write_field(inp / cfg.init_file, makefields.gaussian(cfg))
+        write_field(inp / cfg.init_file, vort0)
         argv = ["-I", str(inp), "-O", str(out), "--nx", str(n), "--ny",
                 str(n), "--total-steps", str(steps), "--record-step",
                 str(rec), "--record-fields", ",".join(fields), "--manifest",
@@ -281,7 +377,9 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         lines = (Path(tmp) / "log").read_text().splitlines()
         check(len(lines) == 2 * len(fields),
               f"manifest has {len(lines)} lines, not {2 * len(fields)}")
-    want = {k: c * steps for k, c in PER_STEP[family].items()}
+    per_seg = PER_SEGMENT.get(family, {})
+    want = {k: PER_STEP[family].get(k, 0) * steps
+            + per_seg.get(k, 0) * (steps // rec) for k in ff.LAUNCHES}
     log(f"{family} main path: {steps} steps at {n}^2 through cli.run.main "
         f"in {wall:.2f} s (set-up and records included); launches "
         f"{launches}")
@@ -292,8 +390,11 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
 
 def build_models(n: int, dev) -> dict:
     """The paths compared and timed, with their initial state and
-    forcing: bench.py's barotropic and tracer configurations."""
+    forcing: bench.py's barotropic, tracer and shallow-water
+    configurations."""
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
     from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
     from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
 
@@ -305,14 +406,21 @@ def build_models(n: int, dev) -> dict:
           "library": BarotropicModel.build(lib, dev)}
     tr = {"kernels": TracerModel.build(cfg, dev, kappa=50.0),
           "library": TracerModel.build(lib, dev, kappa=50.0)}
-    for m in (bt["kernels"], bt["unfused"], tr["kernels"]):
+    sw_dt = min(3.0, max_stable_dt(cfg))
+    sw = {"kernels": ShallowWaterModel.build(cfg.replace(dt=sw_dt), dev),
+          "library": ShallowWaterModel.build(lib.replace(dt=sw_dt), dev)}
+    for m in (bt["kernels"], bt["unfused"], tr["kernels"], sw["kernels"]):
         check(m.backend == "pallas", f"backend {m.backend}, not pallas")
-    check(bt["library"].backend == "xla" and tr["library"].backend == "xla",
+    check(all(p["library"].backend == "xla" for p in (bt, tr, sw)),
           "library backend selection")
     k = bt["kernels"]
+    # shallow water as bench.py drives it: the balanced weak vortex, no
+    # forcing (src None: the forcing spectrum is skipped)
     return {"barotropic": (bt, k.init_state(v0), k.zero_source()),
             "tracer": (tr, tr["kernels"].init_state(
-                v0, tracer_ic(cfg, "gaussian")), k.zero_source())}
+                v0, tracer_ic(cfg, "gaussian")), k.zero_source()),
+            "shallow-water": (sw, sw["kernels"].geostrophic_init(
+                makefields.gaussian(cfg, zeta0=1e-5)), None)}
 
 
 def phase_no_library(n: int, models: dict) -> None:
@@ -339,8 +447,9 @@ def phase_no_library(n: int, models: dict) -> None:
         for z in (s if isinstance(s, tuple) else (s,)):
             check(bool(torch.isfinite(torch.view_as_real(z)).all()),
                   f"{family} kernel-path state not finite")
-    log(f"no library transform: 2 barotropic and 2 tracer steps at {n}^2 "
-        f"ran with torch.fft.* and torch.matmul raising")
+    log(f"no library transform: 2 barotropic, 2 tracer and 2 "
+        f"shallow-water steps at {n}^2 ran with torch.fft.* and "
+        f"torch.matmul raising")
 
 
 def rel_l2(a, b) -> float:
@@ -353,6 +462,9 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
     the library path (and the fused against the unfused form)."""
     out = {}
     for family, (paths, s0, src) in models.items():
+        if family == "shallow-water":
+            out.update(sw_trajectory(n, steps, paths, s0, src))
+            continue
         diags = {k: m.diags(m.segment(s0, src, steps))
                  for k, m in paths.items()}
         names = ("vort",) if family == "barotropic" else ("vort", "q")
@@ -380,6 +492,42 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
             check(rel <= TOL, f"fused vs unfused rel-L2 {rel:.3e} > {TOL}")
             out["barotropic_fused_vs_unfused"] = dict(rel_l2=rel,
                                                       bit_identical=same)
+    return out
+
+
+def sw_errors(got, want, n: int) -> dict:
+    """Max abs error of zeta, div and eta = h - H in physical space over
+    the norms of the JAX package's _assert_close_phys (max |zeta|,
+    max(|div|, |zeta|), max |eta| of `want`), and the rel-L2 of each."""
+    a = [torch.fft.irfft2(z, s=(n, n)) for z in got]
+    b = [torch.fft.irfft2(z, s=(n, n)) for z in want]
+    nz = float(b[0].abs().max())
+    norms = (nz, max(float(b[1].abs().max()), nz), float(b[2].abs().max()))
+    out = {}
+    for name, x, y, m in zip(("vort", "div", "eta"), a, b, norms):
+        check(bool(torch.isfinite(x).all()), f"shallow-water {name} not "
+                                             f"finite")
+        out[name] = dict(max_abs_err=float((x - y).abs().max()) / m,
+                         rel_l2=rel_l2(x, y))
+    return out
+
+
+def sw_trajectory(n: int, steps: int, paths: dict, s0, src) -> dict:
+    """The SW kernel path against its library path after one step and
+    after `steps` steps, at the JAX package's bars for its two SW paths."""
+    out = {}
+    for k, bar in ((1, SW_TOL_ONE_STEP), (steps, SW_TOL)):
+        got = paths["kernels"].segment(s0, src, k)
+        want = paths["library"].segment(s0, src, k)
+        errs = sw_errors(got, want, n)
+        for name, e in errs.items():
+            log(f"shallow-water trajectory: {k} steps at {n}^2, {name} "
+                f"kernels vs torch.fft library path: max abs err / norm = "
+                f"{e['max_abs_err']:.3e}, rel-L2 {e['rel_l2']:.3e}")
+            check(e["max_abs_err"] <= bar,
+                  f"shallow-water {name} after {k} steps: "
+                  f"{e['max_abs_err']:.3e} > {bar}")
+        out[f"shallow-water_kernels_{k}_steps"] = errs
     return out
 
 
@@ -416,7 +564,7 @@ def phase_time(n: int, steps: int, models: dict) -> dict:
                                         peak_bytes=peak[k],
                                         segment_bytes=own[k])
             runs = ", ".join(f"{t:.3f}" for t in ts)
-            log(f"time {family:10s} {k:8s}: {ms:.3f} ms/step ({runs}), "
+            log(f"time {family:13s} {k:8s}: {ms:.3f} ms/step ({runs}), "
                 f"{n * n / (ms * 1e-3):.4e} grid-points/s, peak device "
                 f"memory {peak[k] / 2**20:.1f} MiB (the segment's own "
                 f"{own[k] / 2**20:.1f} MiB)")

@@ -1,7 +1,7 @@
 """The port runs without jax: in a fresh interpreter (no GPU visible), it
-imports, steps the barotropic and the tracer model twice on the CPU and
-ends with no jax module loaded; and its CLI refuses to run without a GPU
-unless told --device cpu."""
+imports, steps the barotropic, tracer and shallow-water models twice on
+the CPU and ends with no jax module loaded; and its CLI refuses to run
+without a GPU unless told --device cpu."""
 
 import os
 import subprocess
@@ -22,6 +22,7 @@ from xlab_fftbarotropic_torch.cli import run
 from xlab_fftbarotropic_torch.ops import (_build, fft, fused_fft, fused_sw,
                                           fused_tracer, spectral)
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+from xlab_fftbarotropic_torch.models.shallow_water import ShallowWaterModel
 from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
 from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.ic import makefields
@@ -37,6 +38,11 @@ s = tm.segment(tm.init_state(makefields.gaussian(cfg),
                              tracer_ic(cfg, "gaussian")),
                tm.zero_source(), 2)
 assert bool(torch.isfinite(tm.diags(s).q).all())
+sm = ShallowWaterModel.build(cfg, torch.device("cpu"))
+assert sm.backend == "pallas"
+w = sm.segment(sm.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5)),
+               sm.zero_source(), 2)
+assert bool(torch.isfinite(sm.diags(w).h).all())
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 print("NOJAX-OK")
 """
@@ -58,7 +64,7 @@ def test_port_imports_and_steps_without_jax():
     assert "NOJAX-OK" in proc.stdout
 
 
-@pytest.mark.parametrize("family", [[], ["-m", "tracer"]])
+@pytest.mark.parametrize("family", [[], ["-m", "tracer"], ["-m", "sw"]])
 def test_cli_without_gpu_stops_unless_told_cpu(tmp_path, family):
     out = tmp_path / "out"
     proc = subprocess.run(

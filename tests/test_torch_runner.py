@@ -7,7 +7,9 @@ file): the two packages run different transform paths (the JAX CLI the
 XLA core on the CPU, the port the plane stepper's plain versions) that
 agree to float32 round-off over these short runs. The tracer family's
 records are held to rel-L2 2e-6 per file, its own bar
-(tests/test_pallas_tracer.py:79-80).
+(tests/test_pallas_tracer.py:79-80); the shallow-water family's to 1e-5
+of max |record| (div: of max(|div|, |vort|)), the JAX package's bar for
+its two SW paths after one step (tests/test_pallas_sw.py:141-155).
 """
 
 import os
@@ -174,18 +176,21 @@ def test_debug_fields_and_record_subset(tmp_path):
 def test_runner_refuses_what_is_not_ported(tmp_path):
     cfg = _cfg(tmp_path)
     v0 = makefields.gaussian(cfg)
-    for kw in (dict(model_kind="sw"), dict(model_kind="fd"),
+    for kw in (dict(model_kind="jacobian"), dict(model_kind="fd"),
                dict(shard=True), dict(ensemble=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trunner.run(cfg, CPU, v0, record=False, **kw)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fast-transforms"], ["--shard"], ["--ensemble", "4"], ["-m", "sw"],
-    ["-m", "shallow-water"], ["-m", "fd"], ["-m", "jacobian"],
+    ["--fast-transforms"], ["--shard"], ["--ensemble", "4"],
+    ["-m", "sw", "--time-scheme", "etdrk4"],
+    ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5"],
+    ["-m", "fd"], ["-m", "jacobian"],
     ["-m", "tracer", "--time-scheme", "etdrk4"], ["-m", "climate"],
     ["--time-scheme", "etdrk4"], ["--fft-backend", "mxu"],
-    ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"]])
+    ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"],
+    ["-m", "sw", "--beta", "1e-11"]])
 def test_cli_stops_on_flags_outside_the_slice(tmp_path, flags):
     with pytest.raises(SystemExit) as e:
         tcli.main(["-O", str(tmp_path / "o"), "--device", "cpu",
@@ -292,3 +297,97 @@ def test_debug_fields_refused_for_the_tracer(tmp_path):
         tcli.main(["-O", str(tmp_path / "o"), "-I", str(tmp_path / "i"),
                    "--device", "cpu", "--total-steps", "1", "-m", "tracer",
                    "--debug-fields"])
+
+
+# ---------------------------------------------------------- shallow water
+
+def _sw_close(want, got, bar):
+    """Each record within `bar` of its max |JAX|; div within `bar` of
+    max(|div|, |vort|) of the same step, as the JAX package normalizes
+    it (tests/test_pallas_sw.py:126-138): a balanced flow's divergence is
+    the residual of cancelling zeta-scale terms."""
+    for name, a in want.items():
+        b = got[name]
+        assert b.size == a.size, name
+        if name.startswith("div_"):
+            vort = want[name.replace("div_", "vort_")]
+            scale = max(np.max(np.abs(a)), np.max(np.abs(vort)))
+        else:
+            scale = np.max(np.abs(a))
+        assert np.max(np.abs(a - b)) <= bar * scale, name
+
+
+def test_sw_cli_matches_jax_cli(tmp_path, capsys):
+    """-m sw through both CLIs from bench.py's vortex (zeta0 = 1e-5):
+    identical manifest text (vort, psi, u, v, div, h and the forcing
+    dump, in the JAX runner's order), values within 1e-5."""
+    cfg = ModelConfig(nx=64, ny=64)
+    inp, out = tmp_path / "in", tmp_path / "out"
+    inp.mkdir()
+    write_field(inp / "init.bin", makefields.gaussian(cfg, zeta0=1e-5))
+    common = ["-I", str(inp), "-O", str(out), "-i", "init.bin", "--nx",
+              "64", "--ny", "64", "--total-steps", "20", "--record-step",
+              "10", "-m", "sw"]
+    assert jcli.main(common + ["--cpu", "--manifest",
+                               str(tmp_path / "log_jax")]) == 0
+    want = _records(out)
+    assert tcli.main(common + ["--device", "cpu", "--manifest",
+                               str(tmp_path / "log_torch")]) == 0
+    err = capsys.readouterr().err
+    assert "Model family          : shallow-water (f = " in err
+    assert "FFT backend           : pallas" in err
+    got = _records(out)
+    log = (tmp_path / "log_torch").read_text()
+    assert (tmp_path / "log_jax").read_text() == log
+    assert [p.rsplit("/", 1)[-1] for p in log.splitlines()[:7]] == [
+        f"{k}_step_0.bin" for k in ("vort_src_input", "vort", "psi", "u",
+                                    "v", "div", "h")]
+    assert sorted(want) == sorted(got) and len(got) == 14
+    assert float(np.min(got["h_step_10.bin"])) > 0.9 * cfg.mean_depth
+    _sw_close(want, got, 1e-5)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_sw_checkpoint_resumes_in_the_other_package(tmp_path, writer):
+    cfg = _cfg(tmp_path, checkpoint_step=5, record_step=100)
+    vort0 = makefields.gaussian(cfg, zeta0=1e-5)
+    ck = os.path.join(cfg.output_dir, "ckpt_step_5.npz")
+    if writer == "jax":
+        full = jrunner.run(cfg, vort0, record=False, model_kind="sw")
+        full = [np.asarray(z) for z in full.zeta_hat]
+        resumed = trunner.run(cfg, CPU, record=False, resume_from=ck,
+                              model_kind="sw")
+        got = [z.numpy() for z in resumed.zeta_hat]
+    else:
+        full = trunner.run(cfg, CPU, vort0, record=False, model_kind="sw")
+        full = [z.numpy() for z in full.zeta_hat]
+        resumed = jrunner.run(cfg, record=False, resume_from=ck,
+                              model_kind="sw")
+        got = [np.asarray(z) for z in resumed.zeta_hat]
+    assert resumed.steps_run == 5
+    want = {f"{k}_": np.fft.irfft2(a) for k, a in zip(("vort", "div", "eta"),
+                                                       full)}
+    _sw_close(want, {f"{k}_": np.fft.irfft2(b) for k, b in
+                     zip(("vort", "div", "eta"), got)}, 1e-5)
+
+
+def test_sw_run_records_stats_debug_and_resumes_exactly(tmp_path):
+    cfg = _cfg(tmp_path, checkpoint_step=5)
+    vort0 = makefields.gaussian(cfg, zeta0=1e-5)
+    full = trunner.run(cfg, CPU, vort0, manifest_path=str(tmp_path / "log"),
+                       model_kind="shallow-water", debug_fields=True,
+                       record_only=["vort", "div", "h"])
+    assert list(full.stats_history[0]) == ["step", "mass", "energy",
+                                           "pot_enstrophy", "max_abs_div",
+                                           "cfl"]
+    assert abs(full.stats_history[1]["mass"] - cfg.mean_depth) \
+        < 1e-6 * cfg.mean_depth
+    names = sorted(os.listdir(cfg.output_dir))
+    assert "h_step_5.bin" in names and "dvortdt_step_5.bin" in names
+    assert "psi_step_5.bin" not in names
+    resumed = trunner.run(cfg, CPU, record=False, model_kind="sw",
+                          resume_from=os.path.join(cfg.output_dir,
+                                                   "ckpt_step_5.npz"))
+    assert resumed.steps_run == 5
+    for a, b in zip(full.zeta_hat, resumed.zeta_hat):
+        assert torch.equal(a, b)

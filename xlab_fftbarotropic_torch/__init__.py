@@ -4,8 +4,8 @@ xlab_fftbarotropic_tpu for one NVIDIA H100.
 It imports torch and never jax. The numpy-only modules of the JAX
 package (config, initial conditions, field I/O, checkpoints, forcing
 streams, guards) are reused by import; the spectral tables, the FFT
-path, the barotropic and tracer models, the runner and the run CLI are
-ported, and the plane steppers' TPU kernels are hand-written CUDA
+path, the barotropic, tracer and shallow-water models, the runner and
+the run CLI are ported, and the plane steppers' TPU kernels are hand-written CUDA
 kernels (csrc/, built at first use into _build/).
 """
 

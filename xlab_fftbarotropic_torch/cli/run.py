@@ -5,9 +5,10 @@
         --record-step 10 [--device cuda|cpu]
 
 The flags are those of xlab_fftbarotropic_tpu.cli.run for what the port
-covers: the barotropic and tracer (-m tracer, --tracer-ic,
---tracer-kappa) families, the -s script / -f fifo forcing, records,
-checkpoints and resume. `--device cuda` (the default) runs the plane
+covers: the barotropic, tracer (-m tracer, --tracer-ic, --tracer-kappa)
+and shallow-water (-m sw or -m shallow-water; --coriolis-f, --gravity,
+--mean-depth, and a --dt under the gravity-wave bound) families, the
+-s script / -f fifo forcing, records, checkpoints and resume. `--device cuda` (the default) runs the plane
 stepper's hand-written CUDA kernels and stops with an error when no GPU
 is visible; it never carries on on the CPU. `--device cpu` runs the
 kernels' plain torch versions. Flags the port does not cover yet stop
@@ -24,6 +25,7 @@ def main(argv=None):
     import torch
 
     from ..models.barotropic import resolve_device, resolve_fft_backend_name
+    from ..models.shallow_water import resolve_sw_backend
     from ..reused import add_config_args, config_from_args
     from ..runner import _NOT_PORTED, run
 
@@ -36,9 +38,10 @@ def main(argv=None):
                         "error if no GPU is visible; cpu: their plain "
                         "torch versions")
     p.add_argument("-m", "--model", default="barotropic",
-                   help="model family: barotropic (bt) or tracer "
+                   help="model family: barotropic (bt), tracer "
                         "(barotropic + co-advected passive scalar q, "
-                        "recorded as q_step_N.bin)")
+                        "recorded as q_step_N.bin) or shallow-water (sw; "
+                        "also records div and h)")
     p.add_argument("--tracer-ic", default="vorticity",
                    choices=["vorticity", "zonal", "meridional", "gaussian"],
                    help="tracer initial condition for -m tracer "
@@ -58,8 +61,8 @@ def main(argv=None):
                    help="skip field records (benchmarking)")
     p.add_argument("--record-fields", default=None, metavar="NAMES",
                    help="comma list of fields to record (subset of vort, "
-                        "psi, u, v; 'vort_src' for the forcing dump). "
-                        "Default: all")
+                        "psi, u, v, and div, h for -m sw; 'vort_src' for "
+                        "the forcing dump). Default: all")
     p.add_argument("--debug-fields", action="store_true",
                    help="also dump dvortdx/dvortdy/dvortdt at record steps")
     p.add_argument("--manifest", default="log",
@@ -83,7 +86,8 @@ def main(argv=None):
     if args.model in _NOT_PORTED:
         p.error(f"-m {args.model} is not ported yet (ROADMAP.md queue A, "
                 f"item {_NOT_PORTED[args.model]})")
-    if args.model not in ("barotropic", "bt", "tracer"):
+    if args.model not in ("barotropic", "bt", "tracer", "shallow-water",
+                          "sw"):
         p.error(f"-m {args.model}: unknown model family")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is visible; pass --device "
@@ -103,8 +107,12 @@ def main(argv=None):
     if cfg.time_scheme != "rk4":
         p.error(f"--time-scheme {cfg.time_scheme} is not ported yet "
                 f"(ROADMAP.md queue A, item 9)")
+    sw = args.model in ("shallow-water", "sw")
+    if sw and cfg.beta != 0.0:
+        p.error("--beta: the beta-plane is barotropic/tracer-only")
     try:
-        backend = resolve_fft_backend_name(cfg.fft_backend, cfg.grid_shape)
+        backend = (resolve_sw_backend(cfg, warn=False) if sw else
+                   resolve_fft_backend_name(cfg.fft_backend, cfg.grid_shape))
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     recipe, src_path = "empty", None
@@ -129,9 +137,14 @@ def main(argv=None):
     print(f"Length Y              : {cfg.ly:.3f} [m]", file=sys.stderr)
     print(f"Time Resolution dt    : {cfg.dt:.3f} [s]", file=sys.stderr)
     print(f"Steps                 : {cfg.total_steps}", file=sys.stderr)
-    family = (f"tracer (kappa = {args.tracer_kappa:g} m^2/s, IC "
-              f"{args.tracer_ic})" if args.model == "tracer"
-              else "barotropic")
+    if args.model == "tracer":
+        family = (f"tracer (kappa = {args.tracer_kappa:g} m^2/s, IC "
+                  f"{args.tracer_ic})")
+    elif sw:
+        family = (f"shallow-water (f = {cfg.f:g} 1/s, g = {cfg.gravity:g} "
+                  f"m/s^2, H = {cfg.mean_depth:g} m)")
+    else:
+        family = "barotropic"
     print(f"Model family          : {family}", file=sys.stderr)
     print(f"Device                : {where}", file=sys.stderr)
     print(f"FFT backend           : {backend} ({how})", file=sys.stderr)

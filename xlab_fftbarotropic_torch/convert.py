@@ -2,7 +2,8 @@
 
 In this system the "weights" are the spectral coefficient tables and the
 state is the complex64 half-spectrum zeta_hat (the tracer family: the
-pair zeta_hat, q_hat); both cross as numpy arrays, so neither side
+pair zeta_hat, q_hat; shallow water: zeta_hat, div_hat, eta_hat); both
+cross as numpy arrays, so neither side
 imports the other. Checkpoints need no conversion: both runners write
 and read them through the shared xlab_fftbarotropic_tpu/io/checkpoint.py
 (the complex64 state as packed below + config hash), so a checkpoint
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.shallow_water import SWState
 from .models.tracer import TracerState
 from .ops.spectral import SpectralTables
 
@@ -60,4 +62,22 @@ def tracer_state_from_numpy(packed: np.ndarray, device) -> TracerState:
 
 def tracer_state_to_numpy(state: TracerState) -> np.ndarray:
     """TracerState -> complex64 (2, nx, hny) numpy [zeta_hat, q_hat]."""
+    return np.stack([z.detach().cpu().numpy() for z in state])
+
+
+def sw_state_from_numpy(packed: np.ndarray, device) -> SWState:
+    """complex64 (3, nx, hny) = [zeta_hat, div_hat, eta_hat], as the JAX
+    shallow-water adapter packs it for checkpoints -> SWState on
+    `device`."""
+    p = np.asarray(packed)
+    if p.dtype != np.complex64 or p.ndim != 3 or p.shape[0] != 3:
+        raise ValueError(f"expected a complex64 (3, nx, hny) shallow-water "
+                         f"state, got {p.dtype} {p.shape}")
+    return SWState(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in p))
+
+
+def sw_state_to_numpy(state: SWState) -> np.ndarray:
+    """SWState -> complex64 (3, nx, hny) numpy [zeta_hat, div_hat,
+    eta_hat]."""
     return np.stack([z.detach().cpu().numpy() for z in state])

@@ -6,7 +6,11 @@
 // family (one field) and pallas_tracer.forward_tail_tracer /
 // _kx_visc_tracer_kernel (xlab_fftbarotropic_tpu/ops/pallas_tracer.py:206)
 // for the tracer family (two stacked fields, nu = 1 with the stacked
-// diffusion table). For each field f and spectral column j it runs the
+// diffusion table), and, with no epilogue, pallas_sw.forward_tendencies'
+// KX stage / _kx_fwd_kernel (xlab_fftbarotropic_tpu/ops/pallas_sw.py:565)
+// for the shallow-water family (five stacked product fields, the raw
+// forward transform: about 671 MB per call at 4096^2, 10 half planes in
+// and out). For each field f and spectral column j it runs the
 // forward colfft of (fr + i fi)[f, :, j] and applies the epilogue of
 // _visc_epilogue in its order:
 //   nulap = nu * lap[f];  r = mask * (F + nulap * Zs[f])
@@ -49,6 +53,11 @@ __global__ void kx_visc_kernel(const float* __restrict__ fr,
     const size_t moff = static_cast<size_t>(i) * hny + j;
     const size_t off = plane + moff;
     const float2 f = s[i];
+    if (lap == nullptr) {  // kx_fwd: the raw transform, no epilogue
+      rr[off] = f.x;
+      ri[off] = f.y;
+      continue;
+    }
     const float nulap = nu * lap[off];
     const float m = mask[moff];
     const float r_re = m * (f.x + nulap * zsr[off]);
@@ -65,7 +74,9 @@ __global__ void kx_visc_kernel(const float* __restrict__ fr,
 }  // namespace
 
 // fr, fi, lap, zsr, zsi (and z0r, z0i, rr, ri, nr, ni): (nfields, nx, hny);
-// mask: (nx, hny). z0r = z0i = nr = ni = NULL: no stage axpy.
+// mask: (nx, hny). z0r = z0i = nr = ni = NULL: no stage axpy. lap = NULL
+// (and mask, zsr, zsi, z0r, z0i NULL): no epilogue at all, rr + i ri is
+// the forward x-DFT itself (kx_fwd, the shallow-water forward x-stage).
 extern "C" int xfb_kx_visc(const float* fr, const float* fi,
                            const float* lap, const float* mask,
                            const float* zsr, const float* zsi,

@@ -1,1 +1,2 @@
-"""Model families ported so far: barotropic vorticity."""
+"""Model families ported so far: barotropic vorticity, passive tracer,
+rotating shallow water."""

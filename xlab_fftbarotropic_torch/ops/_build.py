@@ -8,9 +8,10 @@ ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
 The build runs at first use, from the sources in the package only, into
 xlab_fftbarotropic_torch/_build/<hash>/ where the hash covers every
 source and the compiler flags, so a changed source rebuilds and an
-unchanged one loads the library already there. The compiler's output
-(-Xptxas -v: registers and shared memory per kernel) lands in build.log
-beside the library.
+unchanged one loads the library already there. Every source compiles in
+its own nvcc process, all started together, and one more nvcc links the
+objects. The compiler's output (-Xptxas -v: registers and shared memory
+per kernel) lands in build.log beside the library.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 HEADERS = ("colfft.cuh",)
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
-           "kb_adv_tracer.cu", "rk4_combine.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+           "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
+           "sw_combine.cu", "ka_kc.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 LIB_NAME = "libxfb_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -54,6 +57,19 @@ SIGNATURES = {
     # host array of 6 * n_planes pointers, n_planes, numel, c, device,
     # stream
     "xfb_rk4_combine": [_P, _I, _L, _F, _I, _P],
+    # zr, zi, dr, di, er, ei, rlap, kx, ky, tw, wr, wi, n, hny, eta_scale,
+    # device, stream
+    "xfb_ka_sw": [_P] * 12 + [_I, _I, _F, _I, _P],
+    # u, v, zeta, eta_s, tw, outr, outi, ny, nx, ies, f0, grav, split,
+    # device, stream
+    "xfb_ky_all": [_P] * 7 + [_I, _I, _F, _F, _F, _I, _I, _P],
+    # host array of 32 pointers, nx, hny, f0, grav, nu, H, split, coef,
+    # device, stream
+    "xfb_sw_combine": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
+    # xr, xi, tw, yr, yi, n, m, forward, scale, device, stream
+    "xfb_ka": [_P] * 5 + [_I, _I, _I, _F, _I, _P],
+    # xr, xi, tw, yr, yi, ny, nx, device, stream
+    "xfb_kc": [_P] * 5 + [_I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -84,6 +100,17 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds, logs) -> list:
+    """Start every command at once, each writing to its own log file;
+    wait for all and return their exit codes."""
+    procs = []
+    for cmd, path in zip(cmds, logs):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(cmd, stdout=out,
+                                          stderr=subprocess.STDOUT))
+    return [p.wait() for p in procs]
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists;
     returns its path. Raises with the compiler's output on failure."""
@@ -93,20 +120,31 @@ def build() -> Path:
         LAST_BUILD.update(path=str(so), seconds=0.0, compiled=False)
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    # private name, then an atomic rename: concurrent first users
+    # private names, then an atomic rename: concurrent first users
     # (test workers) never load a half-written library
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    logs = [out_dir / f"{Path(s).stem}.{tag}.log" for s in SOURCES]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    rcs = _run_all(cmds, logs)
+    if not any(rcs):
+        link = [nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
+        cmds.append(link)
+        logs.append(out_dir / f"link.{tag}.log")
+        rcs += _run_all([link], logs[-1:])
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    text = "".join(" ".join(c) + "\n" + p.read_text()
+                   for c, p in zip(cmds, logs))
+    (out_dir / "build.log").write_text(text)
+    for p in objs + logs:
+        p.unlink(missing_ok=True)
+    if any(rcs):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed (exit codes {rcs}):\n{text}")
     os.replace(tmp, so)
     LAST_BUILD.update(path=str(so), seconds=seconds, compiled=True)
     return so

@@ -14,6 +14,10 @@ in-shared-memory column FFT (csrc/colfft.cuh):
             the tracer family runs it on two)
 
 and the RK4 tail is one rk4_combine launch per step (ops/fused_sw.py).
+Two per-transform kernels serve the shallow-water family's forcing
+spectrum (ops/fused_sw.py:forward_planes): ka, the x-stage of any mode
+(forward or inverse, real or complex input, scaled) with a transposed
+write, and kc, the forward partial y-stage.
 
 Layouts are the TPU kernels' public ones, so the tests compare like with
 like: spectral planes (nx, hny) or stacks (F, nx, hny), the stacked
@@ -33,7 +37,9 @@ import numpy as np
 import torch
 
 LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
-            "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 0}
+            "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 0,
+            "ka_sw": 0, "ky_all": 0, "kx_fwd": 0, "sw_combine": 0,
+            "ka": 0, "kc": 0}
 
 # transform lengths the kernels take: powers of two whose column fits
 # one block's shared memory (8192 complex64 = 64 KB)
@@ -276,6 +282,68 @@ def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
             1 if len(shape) == 2 else shape[0], nx, hny, float(nu), coef,
             fr.device.index, _stream(fr))
     return tuple(outs)
+
+
+# --------------------------------------------------------------------- ka
+
+def ka_plain(xr, xi, forward: bool, scale: float = 1.0):
+    x = xr.to(torch.complex64) if xi is None else torch.complex(xr, xi)
+    y = (torch.fft.fft(x, dim=0) if forward
+         else torch.fft.ifft(x, dim=0, norm="forward")) * scale
+    y = y.transpose(0, 1)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def ka(xr, xi, forward: bool, scale: float = 1.0):
+    """scale * the unnormalized DFT along axis 0 (exp(-2 pi i jk/n) when
+    `forward`, exp(+...) else) of (n, m) planes xr + i xi, or of the real
+    plane xr when xi is None, written transposed: (m, n) planes (yr, yi).
+    Counterpart of pallas_fft._ka_call (_ka_kernel), every mode."""
+    if xr.dim() != 2:
+        raise ValueError(f"ka: expected (n, m) planes, got {tuple(xr.shape)}")
+    n, m = xr.shape
+    _check("ka", (n, m), *((xr,) if xi is None else (xr, xi)))
+    if _takes_plain("ka", xr, n):
+        return ka_plain(xr, xi, forward, scale)
+    from ._build import lib
+    yr = torch.empty((m, n), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    _launch("ka", lib().xfb_ka, xr.data_ptr(),
+            None if xi is None else xi.data_ptr(),
+            *_ptrs(_twiddles(n, xr.device), yr, yi), n, m,
+            1 if forward else 0, float(scale), xr.device.index,
+            _stream(xr))
+    return yr, yi
+
+
+# --------------------------------------------------------------------- kc
+
+def kc_plain(xr, xi):
+    ny = xr.shape[0]
+    y = torch.fft.fft(torch.complex(xr, xi), dim=0)[:ny // 2 + 1]
+    y = y.transpose(0, 1)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def kc(xr, xi):
+    """Forward DFT along y of the y-major (ny, nx) planes xr + i xi, rows
+    k <= ny/2 kept and written transposed: (nx, hny) planes. Counterpart
+    of pallas_fft._kc_call (_kc_kernel)."""
+    if xr.dim() != 2:
+        raise ValueError(f"kc: expected (ny, nx) planes, got "
+                         f"{tuple(xr.shape)}")
+    ny, nx = xr.shape
+    _check("kc", (ny, nx), xr, xi)
+    if _takes_plain("kc", xr, ny):
+        return kc_plain(xr, xi)
+    from ._build import lib
+    hny = ny // 2 + 1
+    yr = torch.empty((nx, hny), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    _launch("kc", lib().xfb_kc, *_ptrs(xr, xi, _twiddles(ny, xr.device),
+                                       yr, yi),
+            ny, nx, xr.device.index, _stream(xr))
+    return yr, yi
 
 
 # ------------------------------------------------------- stage composites

@@ -1,11 +1,35 @@
-"""RK4 plane arithmetic: the counterpart of the plane-arithmetic part of
-xlab_fftbarotropic_tpu/ops/pallas_sw.py.
+"""The shallow-water plane stepper's kernels and the RK4 plane
+arithmetic: the counterpart of xlab_fftbarotropic_tpu/ops/pallas_sw.py
+in its default form (y-first forward pipeline, fused RK stage axpy,
+float32 stores, the split-linear formulation off in strict mode).
 
-plane_rk4_combine is the RK4 tail of every plane stepper, one launch of
-the hand-written csrc/rk4_combine.cu over all planes of the state. Same
-dispatch rule as ops/fused_fft.py: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise; launches count in
-fused_fft.LAUNCHES["rk4_combine"].
+The state is six float32 planes (nx, hny): zr, zi, dr, di, er, ei of
+(zeta_hat, div_hat, eta_hat). One RK stage runs five launches of four
+kernels (csrc/), the FFT ones around the shared column FFT
+(csrc/colfft.cuh):
+
+  ka_sw       the four fields u, v, zeta, eta_scale*eta, inverse x-stage,
+              written transposed (4, hny, nx)
+  kb_pair x2  paired c2r y-stages (ops/fused_fft.py) -> u, v and
+              zeta, eta_scale*eta y-major (ny, nx)
+  ky_all      the five products q*u, q*v, eta*u, eta*v, phi and their
+              real forward y-stages -> (5, nx, hny)
+  kx_fwd      the forward x-stage of the five stacked products
+              (csrc/kx_visc.cu with no epilogue)
+  sw_combine  the three dealiased tendencies, one elementwise pass, with
+              the RK stage axpy fused in for stages 1-3
+
+and the RK4 tail is one rk4_combine launch over the six planes. The
+forcing spectrum is ka + kc (ops/fused_fft.py), once per segment.
+
+eta_scale is the pairing equalizer: zeta (about 1e-4) and eta (about
+5 m) share one c2r transform in kb_pair, and float32 cross-talk there is
+about eps * max|partner|, so eta is brought to zeta's size by an exact
+power of two first and unscaled in ky_all.
+
+Same dispatch rule as ops/fused_fft.py: CPU tensors take the plain
+version beside each wrapper, CUDA tensors launch the kernel or raise;
+launches count in fused_fft.LAUNCHES.
 """
 
 from __future__ import annotations
@@ -14,10 +38,14 @@ import ctypes
 
 import torch
 
-from .fused_fft import _check, _launch, _ptrs, _stream, _takes_plain
+from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
+                        _twiddles, inverse_xstage_plain, ka, kb_pair, kc)
 
 MAX_PLANES = 8   # csrc/rk4_combine.cu kMaxPlanes
+N_PRODUCTS = 5   # q*u, q*v, eta*u, eta*v, phi
 
+
+# ------------------------------------------------------------ rk4_combine
 
 def plane_rk4_combine_plain(s0, r1, r2, r3, r4, c: float):
     return tuple(s + (a + 2.0 * b + 2.0 * d + e) * c
@@ -45,3 +73,260 @@ def plane_rk4_combine(s0, r1, r2, r3, r4, c: float):
     _launch("rk4_combine", lib().xfb_rk4_combine, ctypes.addressof(table),
             n, s0[0].numel(), float(c), s0[0].device.index, _stream(s0[0]))
     return tuple(outs)
+
+
+# ------------------------------------------------------- pairing equalizer
+
+def eta_pair_scale(planes) -> torch.Tensor:
+    """The power of two nearest max|zeta_hat| / max|eta_hat| (1 when
+    either is zero), a float32 scalar built from the exponent bits, so
+    scaling by it and by its inverse is exact (torch.exp2 can land 1 ulp
+    off). Counterpart of pallas_sw.eta_pair_scale; the model reads it to
+    the host once per segment."""
+    zr, zi, _dr, _di, er, ei = planes
+    m_z = torch.maximum(zr.abs().max(), zi.abs().max())
+    m_e = torch.maximum(er.abs().max(), ei.abs().max())
+    ratio = torch.where((m_z > 0) & (m_e > 0),
+                        m_z / torch.clamp(m_e, min=1e-30),
+                        torch.ones_like(m_z))
+    e = torch.clamp(torch.round(torch.log2(ratio)), -126.0, 126.0)
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+# ------------------------------------------------------------------ ka_sw
+
+def sw_fields(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
+    """The four diagonal-scaled fields (re, im lists) of the SW state:
+    u = -i ky rlap Z + i kx rlap D, v = i kx rlap Z + i ky rlap D,
+    zeta = Z, eta_s = eta_scale * E; in csrc/ka_sw.cu's grouping."""
+    k = kx.reshape(-1, 1)
+    q = ky.reshape(1, -1)
+    r = rlap
+    re = [(zi * q) * r - (di * k) * r, -((zi * k) * r) - (di * q) * r,
+          zr, er * eta_scale]
+    im = [-((zr * q) * r) + (dr * k) * r, (zr * k) * r + (dr * q) * r,
+          zi, ei * eta_scale]
+    return re, im
+
+
+def ka_sw_plain(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
+    return inverse_xstage_plain(*sw_fields(zr, zi, dr, di, er, ei, rlap,
+                                           kx, ky, eta_scale))
+
+
+def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
+    """(u, v, zeta, eta_scale*eta) of the SW state planes (nx, hny),
+    inverse x-DFT (unnormalized), written transposed: (wr, wi)
+    (4, hny, nx). Counterpart of pallas_sw.inverse_quad_planes' KA stage
+    (_ka_sw_kernel, and its two-call split _ka_sw2_kernel)."""
+    n, hny = zr.shape
+    _check("ka_sw", (n, hny), zr, zi, dr, di, er, ei, rlap)
+    _check("ka_sw", (n,), kx)
+    _check("ka_sw", (hny,), ky)
+    if kx.device != zr.device or ky.device != zr.device:
+        raise ValueError("ka_sw: tables and state on different devices")
+    if _takes_plain("ka_sw", zr, n):
+        return ka_sw_plain(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
+    from ._build import lib
+    wr = torch.empty((4, hny, n), dtype=torch.float32, device=zr.device)
+    wi = torch.empty_like(wr)
+    _launch("ka_sw", lib().xfb_ka_sw,
+            *_ptrs(zr, zi, dr, di, er, ei, rlap, kx, ky,
+                   _twiddles(n, zr.device), wr, wi),
+            n, hny, float(eta_scale), zr.device.index, _stream(zr))
+    return wr, wi
+
+
+def inverse_quad_planes(zr, zi, dr, di, er, ei, kx, ky, rlap,
+                        eta_scale: float = 1.0):
+    """(u, v, zeta, eta_scale*eta) y-major (ny, nx) from the SW state
+    planes: ka_sw + two kb_pair. Counterpart of
+    pallas_sw.inverse_quad_planes (XFB_SW_YFIRST=1)."""
+    nx, hny = zr.shape
+    scale = 1.0 / (nx * 2 * (hny - 1))
+    wr, wi = ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
+    u, v = kb_pair(wr, wi, 0, 1, scale)
+    zeta, eta_s = kb_pair(wr, wi, 2, 3, scale)
+    return u, v, zeta, eta_s
+
+
+# ----------------------------------------------------------------- ky_all
+
+def sw_products(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
+                split: bool):
+    """q*u, q*v, eta*u, eta*v, phi with eta = eta_s * ies, q = zeta + f0
+    and phi = g*eta + (u*u + v*v)/2; split leaves out f0 and g*eta (the
+    combine adds those terms exactly)."""
+    eta = eta_s * ies
+    q = zeta if split else zeta + f0
+    ke = 0.5 * (u * u + v * v)
+    phi = ke if split else grav * eta + ke
+    return q * u, q * v, eta * u, eta * v, phi
+
+
+def ky_all_plain(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
+                 split: bool = False):
+    prods = torch.stack(sw_products(u, v, zeta, eta_s, ies, f0, grav,
+                                    split))
+    f = torch.fft.rfft(prods, dim=1).transpose(1, 2)
+    return f.real.contiguous(), f.imag.contiguous()
+
+
+def ky_all(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
+           split: bool = False):
+    """The five SW products of the y-major (ny, nx) fields (eta_s scaled
+    by the pairing equalizer, `ies` its inverse), each through the real
+    forward y-DFT, rows k <= ny/2 -> stacked (5, nx, hny) planes.
+    Counterpart of pallas_sw.forward_tendencies' KY stage
+    (_ky_all_loop_kernel, _ky_all_kernel and _ky_fwd_kernel, which
+    compute the same function)."""
+    ny, nx = u.shape
+    _check("ky_all", (ny, nx), u, v, zeta, eta_s)
+    if _takes_plain("ky_all", u, ny):
+        return ky_all_plain(u, v, zeta, eta_s, ies, f0, grav, split)
+    from ._build import lib
+    hny = ny // 2 + 1
+    outr = torch.empty((N_PRODUCTS, nx, hny), dtype=torch.float32,
+                       device=u.device)
+    outi = torch.empty_like(outr)
+    _launch("ky_all", lib().xfb_ky_all,
+            *_ptrs(u, v, zeta, eta_s, _twiddles(ny, u.device), outr, outi),
+            ny, nx, float(ies), float(f0), float(grav), int(split),
+            u.device.index, _stream(u))
+    return outr, outi
+
+
+# ----------------------------------------------------------------- kx_fwd
+
+def kx_fwd_plain(fr, fi):
+    f = torch.fft.fft(torch.complex(fr, fi), dim=-2)
+    return f.real.contiguous(), f.imag.contiguous()
+
+
+def kx_fwd(fr, fi):
+    """Forward x-DFT of stacked (F, nx, hny) planes over the hny columns,
+    no epilogue: (F, nx, hny) planes in natural orientation. Counterpart
+    of pallas_sw.forward_tendencies' KX stage (_kx_fwd_kernel); the
+    kernel is csrc/kx_visc.cu with a null epilogue."""
+    if fr.dim() != 3:
+        raise ValueError(f"kx_fwd: expected (F, nx, hny), got "
+                         f"{tuple(fr.shape)}")
+    nf, nx, hny = fr.shape
+    _check("kx_fwd", (nf, nx, hny), fr, fi)
+    if _takes_plain("kx_fwd", fr, nx):
+        return kx_fwd_plain(fr, fi)
+    from ._build import lib
+    rr = torch.empty_like(fr)
+    ri = torch.empty_like(fr)
+    _launch("kx_fwd", lib().xfb_kx_visc, fr.data_ptr(), fi.data_ptr(),
+            None, None, None, None, None, None,
+            *_ptrs(_twiddles(nx, fr.device), rr, ri), None, None,
+            nf, nx, hny, 0.0, 0.0, fr.device.index, _stream(fr))
+    return rr, ri
+
+
+# ------------------------------------------------------------- sw_combine
+
+def sw_combine_plain(pr, pi, state, src, kx, ky, lap, mask, f0: float,
+                     grav: float, nu: float, H: float, split: bool = False,
+                     axpy=None):
+    qur, qvr, eur, evr, phr = pr.unbind(0)
+    qui, qvi, eui, evi, phi_ = pi.unbind(0)
+    k = kx.reshape(-1, 1)
+    q = ky.reshape(1, -1)
+    zr, zi, dr, di, er, ei = state
+    nulap = nu * lap
+    dzr = k * qui + q * qvi + nulap * zr
+    dzi = -k * qur - q * qvr + nulap * zi
+    ddr = -k * qvi + q * qui - lap * phr + nulap * dr
+    ddi = k * qvr - q * qur - lap * phi_ + nulap * di
+    if split:
+        fz = f0 * (lap != 0.0).to(lap.dtype)
+        dzr = dzr - fz * dr
+        dzi = dzi - fz * di
+        ddr = ddr + fz * zr - grav * (lap * er)
+        ddi = ddi + fz * zi - grav * (lap * ei)
+    if src is not None:
+        dzr = dzr + src[0]
+        dzi = dzi + src[1]
+    tend = (mask * dzr, mask * dzi, mask * ddr, mask * ddi,
+            mask * (k * eui + q * evi - H * dr),
+            mask * (-k * eur - q * evr - H * di))
+    if axpy is None:
+        return tend
+    z0, coef = axpy
+    return tend, tuple(z + coef * t for z, t in zip(z0, tend))
+
+
+def sw_combine(pr, pi, state, src, kx, ky, lap, mask, f0: float,
+               grav: float, nu: float, H: float, split: bool = False,
+               axpy=None):
+    """The three dealiased SW tendencies as six (nx, hny) planes from the
+    stacked product spectra (pr, pi) (5, nx, hny), the CURRENT stage
+    state planes (viscosity, -H*D and the split terms read it) and the
+    forcing spectrum planes src (or None):
+
+      dzeta = mask * (-(ikx)QU - (iky)QV + nu lap Z (+ S_hat))
+      ddiv  = mask * ( (ikx)QV - (iky)QU - lap PHI + nu lap D)
+      deta  = mask * (-(ikx)EU - (iky)EV - H D)
+
+    split adds -f0 D, f0 Z - g lap E where lap != 0 (the products then
+    left them out). axpy=(z0_planes, coef) also returns the next stage
+    state z0 + coef * tendency from the BASE state z0: (tend, next).
+    Counterpart of pallas_sw.forward_tendencies' COMBINE (_combine_kernel,
+    _combine_axpy_kernel)."""
+    nx, hny = lap.shape
+    _check("sw_combine", (N_PRODUCTS, nx, hny), pr, pi)
+    planes = (*state, lap, mask) + (() if src is None else tuple(src))
+    if len(state) != 6 or (src is not None and len(src) != 2):
+        raise ValueError("sw_combine: expected six state planes and two "
+                         "source planes (or None)")
+    if axpy is not None:
+        if len(axpy[0]) != 6:
+            raise ValueError("sw_combine: expected six base state planes")
+        planes += tuple(axpy[0])
+    _check("sw_combine", (nx, hny), *planes)
+    _check("sw_combine", (nx,), kx)
+    _check("sw_combine", (hny,), ky)
+    if any(t.device != pr.device for t in (kx, ky, lap)):
+        raise ValueError("sw_combine: tables and planes on different "
+                         "devices")
+    if _takes_plain("sw_combine", pr):
+        return sw_combine_plain(pr, pi, state, src, kx, ky, lap, mask, f0,
+                                grav, nu, H, split, axpy)
+    from ._build import lib
+    tend = [torch.empty_like(lap) for _ in range(6)]
+    nxt = [torch.empty_like(lap) for _ in range(6 if axpy else 0)]
+    srcp = [None, None] if src is None else _ptrs(*src)
+    z0p = [None] * 6 if axpy is None else _ptrs(*axpy[0])
+    table = (ctypes.c_void_p * 32)(
+        *_ptrs(pr, pi, *state), *srcp, *_ptrs(kx, ky, lap, mask), *z0p,
+        *_ptrs(*tend), *(_ptrs(*nxt) if axpy else [None] * 6))
+    coef = 0.0 if axpy is None else float(axpy[1])
+    _launch("sw_combine", lib().xfb_sw_combine, ctypes.addressof(table),
+            nx, hny, float(f0), float(grav), float(nu), float(H),
+            int(split), coef, pr.device.index, _stream(pr))
+    return tuple(tend) if axpy is None else (tuple(tend), tuple(nxt))
+
+
+# ------------------------------------------------------- stage composites
+
+def forward_tendencies(u, v, zeta, eta_s, state, src, kx, ky, lap, mask,
+                       f0: float, grav: float, nu: float, H: float,
+                       eta_scale: float = 1.0, axpy=None,
+                       split: bool = False):
+    """The dealiased SW tendency planes from the y-major fields of
+    inverse_quad_planes: ky_all + kx_fwd + sw_combine (with axpy: also
+    the next stage state). Counterpart of pallas_sw.forward_tendencies
+    (XFB_SW_YFIRST=1)."""
+    gr, gi = ky_all(u, v, zeta, eta_s, 1.0 / eta_scale, f0, grav, split)
+    pr, pi = kx_fwd(gr, gi)
+    return sw_combine(pr, pi, state, src, kx, ky, lap, mask, f0, grav, nu,
+                      H, split, axpy)
+
+
+def forward_planes(src):
+    """Forward rfft2 (unnormalized) of the physical (nx, ny) forcing as
+    (re, im) planes (nx, hny): ka (real input) + kc. Counterpart of
+    pallas_sw.forward_planes; computed once per segment."""
+    return kc(*ka(src, None, forward=True))

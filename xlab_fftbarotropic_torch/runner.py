@@ -1,5 +1,5 @@
 """Run orchestration: the counterpart of xlab_fftbarotropic_tpu/runner.py
-for the barotropic and tracer families.
+for the barotropic, tracer and shallow-water families.
 
 The time loop of main.cpp / main-shallow-water.cpp: the model advances
 in segments between record, checkpoint and forcing-recipe boundaries;
@@ -24,13 +24,14 @@ import torch
 
 from . import convert
 from .models.barotropic import BarotropicModel
+from .models.shallow_water import ShallowWaterModel
 from .models.tracer import TracerModel, tracer_ic
 from .reused import (FieldRecorder, Manifest, ModelConfig, SourceReader,
                      check_finite, load_checkpoint, make_reader, read_field,
                      save_checkpoint)
 
 # what is not ported yet, by ROADMAP.md queue A item
-_NOT_PORTED = {"shallow-water": 7, "sw": 7, "fd": 11, "jacobian": 11}
+_NOT_PORTED = {"fd": 11, "jacobian": 11}
 
 
 @dataclasses.dataclass
@@ -141,6 +142,51 @@ class _TracerAdapter:
             np.asarray(packed, np.complex64), self.device)
 
 
+class _ShallowWaterAdapter:
+    """Rotating shallow water (models/shallow_water.py): starts from the
+    geostrophically balanced state, records vort, psi, u, v, div and
+    h = H + eta. The checkpoint state is the stacked complex64
+    (3, nx, hny) [zeta_hat, div_hat, eta_hat], as in the JAX package."""
+
+    kind = "shallow-water"
+
+    def __init__(self, cfg: ModelConfig, device):
+        self.cfg = cfg
+        self.model = ShallowWaterModel.build(cfg, device)
+        self.device = self.model.device
+
+    def init_from_physical(self, vort0):
+        return self.model.geostrophic_init(vort0)
+
+    def step(self, state, src):
+        return self.model.step(state, src)
+
+    def segment(self, state, src, n):
+        return self.model.segment(state, src, n)
+
+    def record_fields(self, state, only=None):
+        d = self.model.diags(state)
+        return _gather_fields(dict(vort=d.vort, psi=d.psi, u=d.u, v=d.v,
+                                   div=d.div, h=d.h), only)
+
+    def debug_record_fields(self, state, src):
+        """--debug-fields dumps: step-start zeta gradients and the full
+        vorticity tendency (models/shallow_water.py:debug)."""
+        return {k: _host(v) for k, v in
+                self.model.debug(state, src)._asdict().items()}
+
+    def stats(self, state):
+        return {k: float(v) for k, v in
+                self.model.stats(state)._asdict().items()}
+
+    def pack(self, state):
+        return convert.sw_state_to_numpy(state)
+
+    def unpack(self, packed):
+        return convert.sw_state_from_numpy(np.asarray(packed, np.complex64),
+                                           self.device)
+
+
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard: bool = False, ensemble: int = 0,
                  tracer_kappa: float = 0.0, tracer_ic: str = "vorticity"):
@@ -154,6 +200,8 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
         return _BarotropicAdapter(cfg, device)
     if model_kind == "tracer":
         return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
+    if model_kind in ("shallow-water", "sw"):
+        return _ShallowWaterAdapter(cfg, device)
     if model_kind in _NOT_PORTED:
         raise NotImplementedError(
             f"model kind {model_kind!r} is not ported yet (ROADMAP.md "
@@ -179,9 +227,9 @@ def run(cfg: ModelConfig,
         tracer_kappa: float = 0.0,
         tracer_ic: str = "vorticity") -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
-    (runner.py:399 of the JAX package): model_kind 'barotropic' or
+    (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
-    condition, models/tracer.py:tracer_ic).
+    condition, models/tracer.py:tracer_ic) or 'shallow-water' ('sw').
 
     vort0: physical initial vorticity; if None, read from
     cfg.input_dir/cfg.init_file (main.cpp:143-144). recipe 'empty',
