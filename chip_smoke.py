@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n 4096] [--steps 20] [--json PATH]
+    python3 chip_smoke.py [--n 4096] [--steps 20] [--json PATH] [--profile]
 
 Run it from the root of a checkout; it needs one CUDA device and nvcc,
 and no jax. Phases, each of which raises on failure (the script then
@@ -30,25 +30,48 @@ exits non-zero and prints no result):
    div and h recorded; per step exactly 4 ka_sw, 8 kb_pair, 4 ky_all,
    4 kx_fwd, 4 sw_combine and 1 rk4_combine launches, and per segment
    1 ka and 1 kc (the forcing spectrum of the runner's zero forcing).
+5b. Shallow-water ETDRK4 main path: bench.py's sw-etdrk4 config (the
+   same vortex, dt = 7.5 s, 8.85 times the RK4 bound at 4096^2) with
+   -m sw --time-scheme etdrk4, the phi-tables built on the card through
+   the disk cache (XFB_ETD_CACHE in a temporary directory); per step
+   exactly 4 ka_sw, 8 kb_pair, 4 ky_all, 4 kx_fwd and 4 sw_combine_mv
+   launches, none of sw_combine or rk4_combine, and per segment 1 ka and
+   1 kc.
+5c. ETD tables: the build time on the card of the SW, barotropic and
+   tracer tables at n^2 with the cache off, and the card-built tables
+   against the CPU-built ones at 256^2 (max |d| <= 1e-6 of each table's
+   max).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
-   raise while a barotropic, a tracer and a shallow-water segment run.
+   raise while a barotropic, a tracer and a shallow-water segment run,
+   and the three families' ETDRK4 segments.
 7. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
    unfused forms) and with the torch.fft library path on the card; rel-L2
    of the physical vorticity <= 1e-5 against the library path and
    between the two forms.
 8. Tracer trajectory: `steps` steps, kernels against the library path;
    rel-L2 of the physical vorticity and of q <= 1e-5.
-9. Shallow-water trajectory: kernels against the library path after one
-   step and after `steps` steps; max abs error of vort, div and
-   eta = h - H over the JAX package's norms (div over max(|div|,
-   |vort|)) <= 1e-5 and <= 2e-4, its bars for its two SW paths; the
-   rel-L2 of each field is reported.
+9. Shallow-water trajectory, RK4 and ETDRK4: kernels against the
+   library path after one step and after `steps` steps; max abs error of
+   vort, div and eta = h - H over the JAX package's norms (div over
+   max(|div|, |vort|)) <= 1e-5 and <= 2e-4, its bars for its two SW
+   paths; the rel-L2 of each field is reported. ETDRK4's fused form
+   against its unfused form at the same bars.
+9b. Barotropic ETDRK4 (dt = 3 s with the hyperviscosity of example 12,
+   three times RK4's viscous bound) and tracer ETDRK4 (kappa = 50):
+   kernels against the library path, rel-L2 <= 1e-5 after `steps`.
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
+11. With --profile: a torch.profiler trace of the SW ETDRK4 kernel path,
+   device time per step by kernel and the device's busy share.
 
-The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}),
-the card's name and power limit as nvidia-smi gives them, and
-{"ok": true, "device": {...}}.
+The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
+with each kernel's launches on the main paths, its max abs error
+against its plain version, its time, its plain version's, its bound (the
+bytes it must move over 3.35 TB/s, or its FFT flops over 67 TFLOP/s
+float32, whichever is larger) and the time of the one torch call that
+computes the same function, where there is one), the card's name and
+power limit as nvidia-smi gives them, and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -56,18 +79,26 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
 TOL = 1e-5
+# the card's published peaks (H100 SXM data sheet, at a 700 W limit):
+# HBM bytes/s and float32 FLOP/s outside the tensor cores
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# bench.py's sw-etdrk4 time step at 4096^2 (8.85 times the RK4 bound)
+SW_ETD_DT = 7.5
 # row name: (source, the TPU kernel it replaces, LAUNCHES key, paths)
 KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
@@ -75,7 +106,8 @@ KERNELS = {
                 "ka_diag", ("barotropic",)),
     "kb_pair": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
-                "kb_pair", ("barotropic", "tracer", "shallow-water")),
+                "kb_pair", ("barotropic", "tracer", "shallow-water",
+                            "sw-etdrk4")),
     "ky_adv": ("xlab_fftbarotropic_torch/csrc/ky_adv.cu",
                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1506",
                "ky_adv", ("barotropic",)),
@@ -96,22 +128,25 @@ KERNELS = {
                     "rk4_combine", ("barotropic", "tracer", "shallow-water")),
     "ka_sw": ("xlab_fftbarotropic_torch/csrc/ka_sw.cu",
               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:217",
-              "ka_sw", ("shallow-water",)),
+              "ka_sw", ("shallow-water", "sw-etdrk4")),
     "ky_all": ("xlab_fftbarotropic_torch/csrc/ky_all.cu",
                "xlab_fftbarotropic_tpu/ops/pallas_sw.py:533",
-               "ky_all", ("shallow-water",)),
+               "ky_all", ("shallow-water", "sw-etdrk4")),
     "kx_fwd": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
                "xlab_fftbarotropic_tpu/ops/pallas_sw.py:565",
-               "kx_fwd", ("shallow-water",)),
+               "kx_fwd", ("shallow-water", "sw-etdrk4")),
     "sw_combine": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:679",
                    "sw_combine", ("shallow-water",)),
+    "sw_combine_mv": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
+                      "xlab_fftbarotropic_tpu/ops/pallas_sw.py:693",
+                      "sw_combine_mv", ("sw-etdrk4",)),
     "ka": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
-           "ka", ("shallow-water",)),
+           "ka", ("shallow-water", "sw-etdrk4")),
     "kc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
-           "kc", ("shallow-water",)),
+           "kc", ("shallow-water", "sw-etdrk4")),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -121,10 +156,13 @@ PER_STEP = {
                "rk4_combine": 1},
     "shallow-water": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4, "kx_fwd": 4,
                       "sw_combine": 4, "rk4_combine": 1},
+    "sw-etdrk4": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4, "kx_fwd": 4,
+                  "sw_combine_mv": 4},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
-PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1}}
+PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
+               "sw-etdrk4": {"ka": 1, "kc": 1}}
 # the shallow-water main path's error bars against its library path,
 # the JAX package's for its two SW paths (tests/test_pallas_sw.py)
 SW_TOL_ONE_STEP, SW_TOL = 1e-5, 2e-4
@@ -132,6 +170,28 @@ SW_TOL_ONE_STEP, SW_TOL = 1e-5, 2e-4
 
 class SmokeError(RuntimeError):
     pass
+
+
+class Case(NamedTuple):
+    """One kernel held against its plain version: the two calls, the
+    output tensors of a result, the tensors the function reads (each
+    counted once for its bound), the complex length-n transforms it
+    computes, and the one torch call that computes the same function,
+    where there is one (timed beside it, used nowhere in the port)."""
+    kern: Callable
+    plain: Callable
+    fields: Callable
+    reads: tuple
+    ffts: float = 0.0
+    library: Optional[Callable] = None
+
+
+def example12_nu4(n: int, lx: float = 600_000.0) -> float:
+    """The hyperviscosity of examples/12-hyperviscous-etd/example.sh:
+    RK4's viscous bound at 1 s for the modes the dealias mask keeps."""
+    kc = math.ceil(n / 3.0)
+    k2cut = (2.0 * math.pi / lx) ** 2 * 2.0 * kc * kc
+    return 2.785 / k2cut ** 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -176,10 +236,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_cases(n: int, dev, seed: int):
-    """name -> (kernel call, plain call, output fields) on numpy-seeded
-    inputs at the main paths' shapes for an n x n grid. The names of the
-    KERNELS rows are the cases the JSON line reports; the others are
-    variants (no axpy, no forcing, the tracer's stacked planes)."""
+    """name -> Case on numpy-seeded inputs at the main paths' shapes for
+    an n x n grid. The names of the KERNELS rows are the cases the JSON
+    line reports; the others are variants (no axpy, no forcing, the
+    tracer's stacked planes, the ETD stage without its tendency or at
+    scale 2)."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.ops import fused_sw as fs
     from xlab_fftbarotropic_torch.ops import fused_tracer as ft
@@ -220,7 +281,16 @@ def kernel_cases(n: int, dev, seed: int):
     sr, si = planes((n, hny), 2)
     comb = (pr, pi, tuple(sw), (sr, si), t.kx, t.ky, t.lap, t.mask, 1e-4,
             9.81, 6.5, 4000.0)
+    # the ETD stage: N's combine has every linear coefficient zero; Q a
+    # per-mode 3x3 table of the size of the SW ETD tables' entries
+    q = torch.stack(planes((3, n, hny), 3)) * 10.0
+    mv = (pr, pi, tuple(sw), (sr, si), t.kx, t.ky, t.lap, t.mask, 0.0, 0.0,
+          0.0, 0.0, tuple(sw0), q)
     xr, xi = planes((n, n), 2)
+    # complex inputs of the library calls, made once here
+    xc = torch.complex(xr, xi)
+    pc = torch.complex(pr, pi)
+    wc = torch.complex(wr[2:4], wi[2:4])
 
     def per_field(out):                   # split stacked outputs by field
         return [p[f] for p in out for f in range(p.shape[0])]
@@ -228,101 +298,154 @@ def kernel_cases(n: int, dev, seed: int):
     def stage(out):                       # (tendency, next stage state)
         return [*out[0], *out[1]]
 
+    combine_reads = (pr, pi, *sw[:4], sr, si, t.lap, t.mask)
     return {
-        "ka_diag": (lambda: ff.ka_diag(zr, zi, t.rlap, t.kx, t.ky),
-                    lambda: ff.ka_diag_plain(zr, zi, t.rlap, t.kx, t.ky),
-                    per_field),
-        "kb_pair": (lambda: ff.kb_pair(wr, wi, 2, 3, scale),
-                    lambda: ff.kb_pair_plain(wr, wi, 2, 3, scale), list),
-        "ky_adv": (lambda: ff.ky_adv(u, zx, v, zy, src, 0.3),
-                   lambda: ff.ky_adv_plain(u, zx, v, zy, src, 0.3), list),
-        "kx_visc": (lambda: ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5,
-                                       (z0r, z0i, 1.5)),
-                    lambda: ff.kx_visc_plain(fr, fi, lap, t.mask, zsr, zsi,
-                                             6.5, (z0r, z0i, 1.5)), list),
-        "kx_visc_no_axpy": (
+        "ka_diag": Case(lambda: ff.ka_diag(zr, zi, t.rlap, t.kx, t.ky),
+                        lambda: ff.ka_diag_plain(zr, zi, t.rlap, t.kx, t.ky),
+                        per_field, (zr, zi, t.rlap), 4 * hny),
+        "kb_pair": Case(lambda: ff.kb_pair(wr, wi, 2, 3, scale),
+                        lambda: ff.kb_pair_plain(wr, wi, 2, 3, scale), list,
+                        (wr[2:4], wi[2:4]), n,
+                        lambda: torch.fft.irfft(wc, n=n, dim=1)),
+        "ky_adv": Case(lambda: ff.ky_adv(u, zx, v, zy, src, 0.3),
+                       lambda: ff.ky_adv_plain(u, zx, v, zy, src, 0.3), list,
+                       (u, zx, v, zy, src), 0.5 * n),
+        "kx_visc": Case(lambda: ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5,
+                                           (z0r, z0i, 1.5)),
+                        lambda: ff.kx_visc_plain(fr, fi, lap, t.mask, zsr,
+                                                 zsi, 6.5, (z0r, z0i, 1.5)),
+                        list, (fr, fi, lap, t.mask, zsr, zsi, z0r, z0i), hny),
+        "kx_visc_no_axpy": Case(
             lambda: ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5),
             lambda: ff.kx_visc_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5),
-            list),
-        "kx_visc_tracer": (
+            list, (fr, fi, lap, t.mask, zsr, zsi), hny),
+        "kx_visc_tracer": Case(
             lambda: ft.forward_tail_tracer(f2r, f2i, lap2, t.mask, zs2r,
                                            zs2i, (z02r, z02i, 1.5)),
             lambda: ff.kx_visc_plain(f2r, f2i, lap2, t.mask, zs2r, zs2i,
-                                     1.0, (z02r, z02i, 1.5)), per_field),
-        "ka6": (lambda: ft.tracer_xstage_planes(sr2, si2, t.kx, t.ky,
-                                                t.rlap),
-                lambda: ft.ka6_plain(sr2, si2, t.rlap, t.kx, t.ky),
-                per_field),
-        "kb_pair_six": (lambda: ff.kb_pair(w6r, w6i, 4, 5, scale),
-                        lambda: ff.kb_pair_plain(w6r, w6i, 4, 5, scale),
-                        list),
-        "kb_adv_tracer": (
+                                     1.0, (z02r, z02i, 1.5)), per_field,
+            (f2r, f2i, lap2, t.mask, zs2r, zs2i, z02r, z02i), 2 * hny),
+        "ka6": Case(lambda: ft.tracer_xstage_planes(sr2, si2, t.kx, t.ky,
+                                                    t.rlap),
+                    lambda: ft.ka6_plain(sr2, si2, t.rlap, t.kx, t.ky),
+                    per_field, (sr2, si2, t.rlap), 6 * hny),
+        "kb_pair_six": Case(lambda: ff.kb_pair(w6r, w6i, 4, 5, scale),
+                            lambda: ff.kb_pair_plain(w6r, w6i, 4, 5, scale),
+                            list, (w6r[4:6], w6i[4:6]), n),
+        "kb_adv_tracer": Case(
             lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, src, 0.3),
             lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, src,
-                                           0.3), per_field),
-        "kb_adv_tracer_no_src": (
+                                           0.3), per_field,
+            (zx, zy, qx, qy, w6r[2:4], w6i[2:4], src), 2 * n),
+        "kb_adv_tracer_no_src": Case(
             lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, None, 0.3),
             lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, None,
-                                           0.3), per_field),
-        "rk4_combine": (lambda: fs.plane_rk4_combine(*rk, 0.5),
-                        lambda: fs.plane_rk4_combine_plain(*rk, 0.5), list),
-        "rk4_combine_tracer": (
+                                           0.3), per_field,
+            (zx, zy, qx, qy, w6r[2:4], w6i[2:4]), 2 * n),
+        "rk4_combine": Case(lambda: fs.plane_rk4_combine(*rk, 0.5),
+                            lambda: fs.plane_rk4_combine_plain(*rk, 0.5),
+                            list, tuple(p for g in rk for p in g)),
+        "rk4_combine_tracer": Case(
             lambda: fs.plane_rk4_combine(*rk2, 0.5),
-            lambda: fs.plane_rk4_combine_plain(*rk2, 0.5), per_field),
-        "ka_sw": (lambda: fs.ka_sw(*sw, t.rlap, t.kx, t.ky, es),
-                  lambda: fs.ka_sw_plain(*sw, t.rlap, t.kx, t.ky, es),
-                  per_field),
-        "ky_all": (lambda: fs.ky_all(*ky_args),
-                   lambda: fs.ky_all_plain(*ky_args), per_field),
-        "ky_all_split": (lambda: fs.ky_all(*ky_args, True),
-                         lambda: fs.ky_all_plain(*ky_args, True),
-                         per_field),
-        "kx_fwd": (lambda: fs.kx_fwd(pr, pi),
-                   lambda: fs.kx_fwd_plain(pr, pi), per_field),
-        "sw_combine": (
+            lambda: fs.plane_rk4_combine_plain(*rk2, 0.5), per_field,
+            tuple(p for g in rk2 for p in g)),
+        "ka_sw": Case(lambda: fs.ka_sw(*sw, t.rlap, t.kx, t.ky, es),
+                      lambda: fs.ka_sw_plain(*sw, t.rlap, t.kx, t.ky, es),
+                      per_field, (*sw, t.rlap), 4 * hny),
+        "ky_all": Case(lambda: fs.ky_all(*ky_args),
+                       lambda: fs.ky_all_plain(*ky_args), per_field,
+                       (su, sv, szeta, seta), 2.5 * n),
+        "ky_all_split": Case(lambda: fs.ky_all(*ky_args, True),
+                             lambda: fs.ky_all_plain(*ky_args, True),
+                             per_field, (su, sv, szeta, seta), 2.5 * n),
+        "kx_fwd": Case(lambda: fs.kx_fwd(pr, pi),
+                       lambda: fs.kx_fwd_plain(pr, pi), per_field, (pr, pi),
+                       5 * hny, lambda: torch.fft.fft(pc, dim=-2)),
+        "sw_combine": Case(
             lambda: fs.sw_combine(*comb, axpy=(tuple(sw0), 0.4235)),
             lambda: fs.sw_combine_plain(*comb, axpy=(tuple(sw0), 0.4235)),
-            stage),
-        "sw_combine_no_axpy": (lambda: fs.sw_combine(*comb),
-                               lambda: fs.sw_combine_plain(*comb), list),
-        "sw_combine_split_no_src": (
+            stage, combine_reads + tuple(sw0)),
+        "sw_combine_no_axpy": Case(lambda: fs.sw_combine(*comb),
+                                   lambda: fs.sw_combine_plain(*comb), list,
+                                   combine_reads),
+        "sw_combine_split_no_src": Case(
             lambda: fs.sw_combine(*comb[:3], None, *comb[4:], True),
             lambda: fs.sw_combine_plain(*comb[:3], None, *comb[4:], True),
-            list),
-        "ka": (lambda: ff.ka(xr, None, True),
-               lambda: ff.ka_plain(xr, None, True), list),
-        "ka_real_inverse": (lambda: ff.ka(xr, None, False, 0.5),
-                            lambda: ff.ka_plain(xr, None, False, 0.5), list),
-        "ka_complex_forward": (lambda: ff.ka(xr, xi, True, 0.5),
-                               lambda: ff.ka_plain(xr, xi, True, 0.5), list),
-        "ka_complex_inverse": (lambda: ff.ka(xr, xi, False),
-                               lambda: ff.ka_plain(xr, xi, False), list),
-        "kc": (lambda: ff.kc(xr, xi), lambda: ff.kc_plain(xr, xi), list),
+            list, (pr, pi, *sw, t.lap, t.mask)),
+        "sw_combine_mv": Case(
+            lambda: fs.sw_combine_mv(*mv, 1.0, True),
+            lambda: fs.sw_combine_mv_plain(*mv, 1.0, True), stage,
+            combine_reads + tuple(sw0) + (q,)),
+        "sw_combine_mv_no_tend": Case(
+            lambda: fs.sw_combine_mv(*mv, 1.0, False),
+            lambda: fs.sw_combine_mv_plain(*mv, 1.0, False),
+            lambda out: list(out[1]), combine_reads + tuple(sw0) + (q,)),
+        "sw_combine_mv_scale2": Case(
+            lambda: fs.sw_combine_mv(*mv, 2.0, True),
+            lambda: fs.sw_combine_mv_plain(*mv, 2.0, True), stage,
+            combine_reads + tuple(sw0) + (q,)),
+        "ka": Case(lambda: ff.ka(xr, None, True),
+                   lambda: ff.ka_plain(xr, None, True), list, (xr,), n,
+                   lambda: torch.fft.fft(xr, dim=0)),
+        "ka_real_inverse": Case(lambda: ff.ka(xr, None, False, 0.5),
+                                lambda: ff.ka_plain(xr, None, False, 0.5),
+                                list, (xr,), n),
+        "ka_complex_forward": Case(lambda: ff.ka(xr, xi, True, 0.5),
+                                   lambda: ff.ka_plain(xr, xi, True, 0.5),
+                                   list, (xr, xi), n),
+        "ka_complex_inverse": Case(lambda: ff.ka(xr, xi, False),
+                                   lambda: ff.ka_plain(xr, xi, False), list,
+                                   (xr, xi), n),
+        "kc": Case(lambda: ff.kc(xr, xi), lambda: ff.kc_plain(xr, xi), list,
+                   (xr, xi), n, lambda: torch.fft.fft(xc, dim=0)),
     }
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(case: Case, outputs, n: int):
+    """The least time the card could take for the case's work, in ms: the
+    bytes it must move (each input read once, each output written once)
+    over the HBM rate, or its transforms' flops (5 n log2 n per complex
+    length-n transform) over the float32 rate, whichever is larger."""
+    t_bytes = (nbytes(case.reads) + nbytes(outputs)) / HBM_BYTES_S
+    t_ops = case.ffts * 5.0 * n * math.log2(n) / FP32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_kernels(n: int, dev) -> dict:
     report = {}
     for size in (256, n):
-        for name, (kern, plain, fields) in kernel_cases(size, dev,
-                                                        size).items():
-            got, want = fields(kern()), fields(plain())
+        for name, case in kernel_cases(size, dev, size).items():
+            got, want = case.fields(case.kern()), case.fields(case.plain())
             torch.cuda.synchronize()
             rel = max(float((g - w).abs().max() / w.abs().max())
                       for g, w in zip(got, want))
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
-            log(f"kernel {name:20s} {size}^2: max err / max|plain| = "
+            log(f"kernel {name:24s} {size}^2: max err / max|plain| = "
                 f"{rel:.3e} (max abs err {abs_err:.3e})")
             check(rel <= TOL, f"{name} at {size}^2 disagrees with its "
                               f"plain version: {rel:.3e} > {TOL}")
             if size == n:
-                ms = cuda_ms(kern)
-                plain_ms = cuda_ms(plain)
-                log(f"kernel {name:20s} {size}^2: {ms:.4f} ms, plain "
-                    f"torch version {plain_ms:.4f} ms")
+                bound_ms, bound_by = bound(case, want, size)
+                ms = cuda_ms(case.kern)
+                plain_ms = cuda_ms(case.plain)
+                library_ms = (None if case.library is None
+                              else cuda_ms(case.library))
+                lib = ("" if library_ms is None
+                       else f", one torch call {library_ms:.4f} ms")
+                log(f"kernel {name:24s} {size}^2: {ms:.4f} ms, plain "
+                    f"torch version {plain_ms:.4f} ms{lib}; bound "
+                    f"{bound_ms:.4f} ms ({bound_by}; "
+                    f"{100.0 * bound_ms / ms:.1f} % of it reached)")
                 report[name] = dict(max_abs_err=abs_err, rel_err=rel,
-                                    ms=ms, plain_ms=plain_ms)
+                                    ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=library_ms)
     return report
 
 
@@ -330,11 +453,11 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     """One run of a family's main path through cli.run.main, with the
     launch counters set to 0 just before it and read just after."""
     from xlab_fftbarotropic_torch.cli import run as cli_run
-    from xlab_fftbarotropic_torch.ops import fused_fft as ff
-    from xlab_fftbarotropic_torch.reused import (ModelConfig, makefields,
-                                                 read_field, write_field)
-
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.io.fieldio import read_field, write_field
     from xlab_fftbarotropic_torch.models.shallow_water import max_stable_dt
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     cfg = ModelConfig(nx=n, ny=n)
     rec = steps // 2
@@ -348,12 +471,19 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         "shallow-water": (["vort", "div", "h"],
                           ["-m", "sw", "--dt",
                            repr(min(3.0, max_stable_dt(cfg)))]),
+        # bench.py's sw-etdrk4 configuration: the same vortex at 8.85
+        # times the RK4 bound
+        "sw-etdrk4": (["vort", "div", "h"],
+                      ["-m", "sw", "--time-scheme", "etdrk4", "--dt",
+                       repr(SW_ETD_DT)]),
     }[family]
-    if family == "shallow-water":
+    if family in ("shallow-water", "sw-etdrk4"):
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
     with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
         inp, out = Path(tmp) / "input", Path(tmp) / "output"
         inp.mkdir()
+        # the phi-table disk cache of an ETD run, in this run's directory
+        os.environ["XFB_ETD_CACHE"] = str(Path(tmp) / "etd_cache")
         write_field(inp / cfg.init_file, vort0)
         argv = ["-I", str(inp), "-O", str(out), "--nx", str(n), "--ny",
                 str(n), "--total-steps", str(steps), "--record-step",
@@ -377,6 +507,11 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         lines = (Path(tmp) / "log").read_text().splitlines()
         check(len(lines) == 2 * len(fields),
               f"manifest has {len(lines)} lines, not {2 * len(fields)}")
+        cached = sorted(p.name for p in (Path(tmp) / "etd_cache").glob("*"))
+        if family == "sw-etdrk4":
+            check(len(cached) == 1 and cached[0].startswith("sw_etd_"),
+                  f"ETD table cache holds {cached}")
+    os.environ["XFB_ETD_CACHE"] = "0"
     per_seg = PER_SEGMENT.get(family, {})
     want = {k: PER_STEP[family].get(k, 0) * steps
             + per_seg.get(k, 0) * (steps // rec) for k in ff.LAUNCHES}
@@ -385,18 +520,23 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         f"{launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     check("jax" not in sys.modules, "a jax module was imported")
+    check(not any(k.startswith("xlab_fftbarotropic_tpu")
+                  for k in sys.modules), "the JAX package was imported")
     return dict(launches=launches, cli_wall_s=wall)
 
 
 def build_models(n: int, dev) -> dict:
     """The paths compared and timed, with their initial state and
-    forcing: bench.py's barotropic, tracer and shallow-water
-    configurations."""
+    forcing: bench.py's barotropic, tracer, shallow-water and
+    sw-etdrk4 configurations, and the barotropic (example 12's
+    hyperviscosity, dt = 3 s) and tracer ETDRK4 paths. The ETD tables
+    are built on the card (the cache is off here)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
     from xlab_fftbarotropic_torch.models.shallow_water import (
         ShallowWaterModel, max_stable_dt)
     from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
-    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
 
     cfg = ModelConfig(nx=n, ny=n)
     lib = cfg.replace(fft_backend="xla")
@@ -409,18 +549,38 @@ def build_models(n: int, dev) -> dict:
     sw_dt = min(3.0, max_stable_dt(cfg))
     sw = {"kernels": ShallowWaterModel.build(cfg.replace(dt=sw_dt), dev),
           "library": ShallowWaterModel.build(lib.replace(dt=sw_dt), dev)}
-    for m in (bt["kernels"], bt["unfused"], tr["kernels"], sw["kernels"]):
+    swe_cfg = cfg.replace(time_scheme="etdrk4", dt=SW_ETD_DT)
+    swe = {"kernels": ShallowWaterModel.build(swe_cfg, dev),
+           "unfused": ShallowWaterModel.build(swe_cfg, dev, etd_fuse=False),
+           "library": ShallowWaterModel.build(
+               swe_cfg.replace(fft_backend="xla"), dev)}
+    bte_cfg = cfg.replace(time_scheme="etdrk4", nu4=example12_nu4(n))
+    bte = {"kernels": BarotropicModel.build(bte_cfg, dev),
+           "library": BarotropicModel.build(
+               bte_cfg.replace(fft_backend="xla"), dev)}
+    tre_cfg = cfg.replace(time_scheme="etdrk4")
+    tre = {"kernels": TracerModel.build(tre_cfg, dev, kappa=50.0),
+           "library": TracerModel.build(tre_cfg.replace(fft_backend="xla"),
+                                        dev, kappa=50.0)}
+    groups = (bt, tr, sw, swe, bte, tre)
+    for m in (p[k] for p in groups for k in p if k != "library"):
         check(m.backend == "pallas", f"backend {m.backend}, not pallas")
-    check(all(p["library"].backend == "xla" for p in (bt, tr, sw)),
+    check(all(p["library"].backend == "xla" for p in groups),
           "library backend selection")
     k = bt["kernels"]
+    q0 = tracer_ic(cfg, "gaussian")
     # shallow water as bench.py drives it: the balanced weak vortex, no
     # forcing (src None: the forcing spectrum is skipped)
+    sw0 = sw["kernels"].geostrophic_init(makefields.gaussian(cfg,
+                                                             zeta0=1e-5))
     return {"barotropic": (bt, k.init_state(v0), k.zero_source()),
-            "tracer": (tr, tr["kernels"].init_state(
-                v0, tracer_ic(cfg, "gaussian")), k.zero_source()),
-            "shallow-water": (sw, sw["kernels"].geostrophic_init(
-                makefields.gaussian(cfg, zeta0=1e-5)), None)}
+            "tracer": (tr, tr["kernels"].init_state(v0, q0),
+                       k.zero_source()),
+            "shallow-water": (sw, sw0, None),
+            "sw-etdrk4": (swe, sw0, None),
+            "barotropic-etdrk4": (bte, k.init_state(v0), k.zero_source()),
+            "tracer-etdrk4": (tre, tr["kernels"].init_state(v0, q0),
+                              k.zero_source())}
 
 
 def phase_no_library(n: int, models: dict) -> None:
@@ -447,9 +607,8 @@ def phase_no_library(n: int, models: dict) -> None:
         for z in (s if isinstance(s, tuple) else (s,)):
             check(bool(torch.isfinite(torch.view_as_real(z)).all()),
                   f"{family} kernel-path state not finite")
-    log(f"no library transform: 2 barotropic, 2 tracer and 2 "
-        f"shallow-water steps at {n}^2 ran with torch.fft.* and "
-        f"torch.matmul raising")
+    log(f"no library transform: 2 steps of each of {sorted(out)} at "
+        f"{n}^2 ran with torch.fft.* and torch.matmul raising")
 
 
 def rel_l2(a, b) -> float:
@@ -462,12 +621,12 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
     the library path (and the fused against the unfused form)."""
     out = {}
     for family, (paths, s0, src) in models.items():
-        if family == "shallow-water":
-            out.update(sw_trajectory(n, steps, paths, s0, src))
+        if family in ("shallow-water", "sw-etdrk4"):
+            out.update(sw_trajectory(family, n, steps, paths, s0, src))
             continue
         diags = {k: m.diags(m.segment(s0, src, steps))
                  for k, m in paths.items()}
-        names = ("vort",) if family == "barotropic" else ("vort", "q")
+        names = ("vort", "q") if family.startswith("tracer") else ("vort",)
         for k, d in diags.items():
             for name in names:
                 check(bool(torch.isfinite(getattr(d, name)).all()),
@@ -512,22 +671,27 @@ def sw_errors(got, want, n: int) -> dict:
     return out
 
 
-def sw_trajectory(n: int, steps: int, paths: dict, s0, src) -> dict:
-    """The SW kernel path against its library path after one step and
-    after `steps` steps, at the JAX package's bars for its two SW paths."""
+def sw_trajectory(family: str, n: int, steps: int, paths: dict, s0,
+                  src) -> dict:
+    """The SW kernel path against its library path (and an unfused form
+    against the kernel path) after one step and after `steps` steps, at
+    the JAX package's bars for its two SW paths."""
     out = {}
     for k, bar in ((1, SW_TOL_ONE_STEP), (steps, SW_TOL)):
         got = paths["kernels"].segment(s0, src, k)
-        want = paths["library"].segment(s0, src, k)
-        errs = sw_errors(got, want, n)
-        for name, e in errs.items():
-            log(f"shallow-water trajectory: {k} steps at {n}^2, {name} "
-                f"kernels vs torch.fft library path: max abs err / norm = "
-                f"{e['max_abs_err']:.3e}, rel-L2 {e['rel_l2']:.3e}")
-            check(e["max_abs_err"] <= bar,
-                  f"shallow-water {name} after {k} steps: "
-                  f"{e['max_abs_err']:.3e} > {bar}")
-        out[f"shallow-water_kernels_{k}_steps"] = errs
+        for other in ("library", "unfused"):
+            if other not in paths:
+                continue
+            errs = sw_errors(got, paths[other].segment(s0, src, k), n)
+            for name, e in errs.items():
+                log(f"{family} trajectory: {k} steps at {n}^2, {name} "
+                    f"kernels vs {other}: max abs err / norm = "
+                    f"{e['max_abs_err']:.3e}, rel-L2 {e['rel_l2']:.3e}")
+                check(e["max_abs_err"] <= bar,
+                      f"{family} {name} after {k} steps, kernels vs "
+                      f"{other}: {e['max_abs_err']:.3e} > {bar}")
+            key = "" if other == "library" else f"_vs_{other}"
+            out[f"{family}_kernels{key}_{k}_steps"] = errs
     return out
 
 
@@ -571,6 +735,93 @@ def phase_time(n: int, steps: int, models: dict) -> dict:
     return out
 
 
+def phase_tables(n: int, dev) -> dict:
+    """The ETD tables: build time on the card at n^2 with the cache off
+    (the SW 3x3 stack at bench.py's dt = 7.5 s, the barotropic one with
+    example 12's hyperviscosity at dt = 3 s, the tracer one at kappa =
+    50), and the card-built tables against the CPU-built ones at 256^2."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.models import etdrk4 as etd
+
+    tables = {
+        "sw": lambda c, d: etd.build_tables_stack(c, SW_ETD_DT, d),
+        "barotropic": lambda c, d: etd.build_scalar_tables_stack(
+            c.replace(nu4=example12_nu4(c.nx)), 3.0, "barotropic", 0.0, d),
+        "tracer": lambda c, d: etd.build_scalar_tables_stack(
+            c, 3.0, "tracer", 50.0, d),
+    }
+    out = {}
+    for kind, build in tables.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stack = build(ModelConfig(nx=n, ny=n), dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        size = nbytes([stack])
+        del stack
+        small = ModelConfig(nx=256, ny=256)
+        got = build(small, dev).cpu()
+        want = build(small, torch.device("cpu"))
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        same = bool(torch.equal(got, want))
+        log(f"ETD tables {kind:10s}: built on the card at {n}^2 in "
+            f"{secs:.3f} s ({size / 2**20:.1f} MiB); at 256^2 card vs CPU "
+            f"max |d| / max = {rel:.3e}, bit-identical: {same}")
+        check(rel <= 1e-6, f"{kind} ETD tables: card vs CPU {rel:.3e}")
+        out[kind] = dict(build_s=secs, bytes=size, card_vs_cpu=rel,
+                         bit_identical=same)
+    return out
+
+
+def kernel_functions() -> list:
+    """The names of the port's __global__ functions, read from csrc/."""
+    from xlab_fftbarotropic_torch.ops import _build
+    return sorted({m for f in _build.CSRC.glob("*.cu") for m in re.findall(
+        r"__global__\s+void\s+(\w+)", f.read_text())})
+
+
+def phase_profile(models: dict, family: str = "sw-etdrk4",
+                  steps: int = 5) -> dict:
+    """Where a kernel path's time goes: a torch.profiler trace of `steps`
+    steps, device time per step by kernel (the port's by name, the rest
+    lumped as torch elementwise), and the device's busy share of the
+    synchronized wall time (profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = kernel_functions()
+    paths, s0, src = models[family]
+    m = paths["kernels"]
+    m.segment(s0, src, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.segment(s0, src, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_step, calls = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        # demangled ("...::ka_kernel(...") or mangled ("...9ka_kernelE...")
+        name = next((k for k in names
+                     if re.search(rf"(\b|\d){k}(\b|E)", e.name)),
+                    "torch elementwise")
+        us = e.time_range.elapsed_us()
+        per_step[name] = per_step.get(name, 0.0) + us / 1e3 / steps
+        calls[name] = calls.get(name, 0) + 1
+    busy = sum(per_step.values()) * steps / (wall * 1e3)
+    for name, ms in sorted(per_step.items(), key=lambda kv: -kv[1]):
+        log(f"profile {family} kernels: {name:22s} {ms:8.3f} ms/step "
+            f"({calls[name] / steps:.0f} launches/step)")
+    log(f"profile {family} kernels: device busy {100.0 * busy:.1f} % of "
+        f"{wall * 1e3 / steps:.3f} ms/step (profiler on)")
+    return dict(ms_per_step=per_step, launches=calls, busy=busy,
+                wall_ms_per_step=wall * 1e3 / steps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=4096,
@@ -579,6 +830,9 @@ def main(argv=None) -> int:
                     help="steps of the main path and trajectory (even)")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write the full report as JSON to PATH")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace the SW ETDRK4 kernel path with "
+                    "torch.profiler (the breakdown of where its time goes)")
     args = ap.parse_args(argv)
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
@@ -587,6 +841,9 @@ def main(argv=None) -> int:
     import_port()
     from xlab_fftbarotropic_torch.ops import _build
 
+    # ETD tables are built on the card; only the ETD main path caches them
+    # (in its own temporary directory)
+    os.environ["XFB_ETD_CACHE"] = "0"
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = nvidia_smi()
     log(f"card: {smi}")
@@ -611,10 +868,13 @@ def main(argv=None) -> int:
     report["main_paths"] = {family: phase_main_path(family, args.n,
                                                     args.steps)
                             for family in PER_STEP}
+    report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)
     report["trajectories"] = phase_trajectories(args.n, args.steps, models)
     report["time"] = phase_time(args.n, args.steps, models)
+    if args.profile:
+        report["profile"] = phase_profile(models)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))
@@ -627,7 +887,9 @@ def main(argv=None) -> int:
         k = report["kernels"][name]
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=launches, max_abs_err=k["max_abs_err"],
-                         ms=k["ms"], plain_ms=k["plain_ms"]))
+                         ms=k["ms"], plain_ms=k["plain_ms"],
+                         bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                         library_ms=k["library_ms"]))
     check(all(math.isfinite(r["ms"]) for r in rows), "kernel times")
     log(json.dumps({"kernels": rows}))
     log(smi)

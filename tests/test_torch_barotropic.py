@@ -75,9 +75,12 @@ def test_auto_picks_plane_stepper_for_square_powers_of_two():
         tbt.resolve_fft_backend_name("pallas", (96, 96))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbt.resolve_fft_backend_name("mxu", (128, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="time_scheme"):
         tbt.BarotropicModel.build(ModelConfig(nx=64, ny=64,
-                                              time_scheme="etdrk4"), CPU)
+                                              time_scheme="rk3"), CPU)
+    etd = tbt.BarotropicModel.build(ModelConfig(nx=64, ny=64,
+                                                time_scheme="etdrk4"), CPU)
+    assert etd.backend == "pallas" and etd.etd_tables.E.shape == (64, 33)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])

@@ -261,7 +261,8 @@ def test_launch_counts_of_a_segment(cuda):
     2 kb_pair, 1 ky_adv, 1 kx_visc) and 1 rk4_combine per step, and
     nothing else. The model is built on the bare "cuda" device name."""
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
 
     cfg = ModelConfig(nx=64, ny=64)
     m = BarotropicModel.build(cfg, "cuda")
@@ -283,7 +284,8 @@ def test_fused_rk_matches_unfused(cuda, n):
     unfused one (torch elementwise) on the card: both round every
     product and sum on its own, so 3 steps agree bit for bit."""
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
-    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
 
     cfg = ModelConfig(nx=n, ny=n, beta=1e-11, r_drag=1e-6)
     fused = BarotropicModel.build(cfg, cuda)
@@ -300,7 +302,8 @@ def test_tracer_launch_counts_and_library_agreement(cuda):
     1 kb_adv_tracer, 1 kx_visc) and 1 rk4_combine per step, and agree
     with the torch.fft library path to rel-L2 1e-5 per field."""
     from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
-    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
 
     cfg = ModelConfig(nx=256, ny=256)
     m = TracerModel.build(cfg, "cuda", kappa=50.0)
@@ -515,7 +518,8 @@ def test_sw_launch_counts_and_library_agreement(cuda):
     paths after one step)."""
     from xlab_fftbarotropic_torch.models.shallow_water import (
         ShallowWaterModel, max_stable_dt)
-    from xlab_fftbarotropic_torch.reused import ModelConfig, makefields
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
 
     cfg = ModelConfig(nx=256, ny=256)
     cfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
@@ -532,3 +536,56 @@ def test_sw_launch_counts_and_library_agreement(cuda):
                            "kc": 1}
     ref = lib.segment(s0, lib.zero_source(), 2)
     assert max(_phys_err(s, ref, 256)) < TOL
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128), (128, 512)])
+@pytest.mark.parametrize("with_src", [True, False])
+@pytest.mark.parametrize("emit_tend", [True, False])
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_sw_combine_mv_matches_plain_bit_for_bit(cuda, shape, with_src,
+                                                 emit_tend, scale):
+    """The ETDRK4 stage z0 + scale (Q @ tendency) in the plain version's
+    grouping, bit for bit, with tendencies that are sw_combine's bits."""
+    nx, ny = shape
+    rng = np.random.default_rng(nx + ny + 21)
+    t, pr, pi, state, src, z0 = _combine_inputs(rng, nx, ny, cuda)
+    q = torch.stack(_planes(rng, (3, nx, ny // 2 + 1), 3, cuda)) * 10.0
+    args = (pr, pi, state, src if with_src else None, t.kx, t.ky, t.lap,
+            t.mask, 0.0, 0.0, 0.0, 0.0, z0, q, scale, emit_tend)
+    got_t, got_s = fs.sw_combine_mv(*args)
+    want_t, want_s = fs.sw_combine_mv_plain(*args)
+    tend = fs.sw_combine(*args[:12])
+    torch.cuda.synchronize()
+    assert (got_t is None) == (not emit_tend)
+    for c in range(6):
+        assert torch.equal(got_s[c], want_s[c]), c
+        if emit_tend:
+            assert torch.equal(got_t[c], tend[c]), c
+
+
+def test_sw_etd_launch_counts_and_library_agreement(cuda):
+    """Two SW ETDRK4 steps launch 4 stages x (1 ka_sw, 2 kb_pair,
+    1 ky_all, 1 kx_fwd, 1 sw_combine_mv) per step and no sw_combine or
+    rk4_combine, 1 ka and 1 kc per segment; fused and unfused forms and
+    the library path agree to 1e-5 over the JAX norms."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+
+    cfg = ModelConfig(nx=256, ny=256, time_scheme="etdrk4")
+    cfg = cfg.replace(dt=8.85 * max_stable_dt(cfg))
+    m = ShallowWaterModel.build(cfg, cuda)
+    unfused = ShallowWaterModel.build(cfg, cuda, etd_fuse=False)
+    lib = ShallowWaterModel.build(cfg.replace(fft_backend="xla"), cuda)
+    s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    ff.reset_launches()
+    s = m.segment(s0, m.zero_source(), 2)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), "ka_sw": 8,
+                           "kb_pair": 16, "ky_all": 8, "kx_fwd": 8,
+                           "sw_combine_mv": 8, "ka": 1, "kc": 1}
+    for other in (unfused, lib):
+        ref = other.segment(s0, other.zero_source(), 2)
+        assert max(_phys_err(s, ref, 256)) < TOL

@@ -1,7 +1,9 @@
-"""The port runs without jax: in a fresh interpreter (no GPU visible), it
-imports, steps the barotropic, tracer and shallow-water models twice on
-the CPU and ends with no jax module loaded; and its CLI refuses to run
-without a GPU unless told --device cpu."""
+"""The port runs without jax and without the JAX package: in a fresh
+interpreter (no GPU visible), it imports every module, steps the
+barotropic, tracer and shallow-water models twice on the CPU in both
+time schemes (RK4 and ETDRK4), on the plane stepper and on the library
+path, and ends with no jax and no xlab_fftbarotropic_tpu module loaded;
+and its CLI refuses to run without a GPU unless told --device cpu."""
 
 import os
 import subprocess
@@ -17,33 +19,45 @@ import sys
 import numpy as np
 import torch
 import xlab_fftbarotropic_torch
-from xlab_fftbarotropic_torch import convert, reused, runner
+from xlab_fftbarotropic_torch import config, convert, runner
 from xlab_fftbarotropic_torch.cli import run
+from xlab_fftbarotropic_torch.forcing import source
+from xlab_fftbarotropic_torch.io import checkpoint, fieldio, native_stream
 from xlab_fftbarotropic_torch.ops import (_build, fft, fused_fft, fused_sw,
                                           fused_tracer, spectral)
+from xlab_fftbarotropic_torch.models import etdrk4
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.models.shallow_water import ShallowWaterModel
 from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
-from xlab_fftbarotropic_tpu.config import ModelConfig
-from xlab_fftbarotropic_tpu.ic import makefields
+from xlab_fftbarotropic_torch.config import ModelConfig
+from xlab_fftbarotropic_torch.ic import makefields
+from xlab_fftbarotropic_torch.utils import guards
 
-cfg = ModelConfig(nx=64, ny=64)
-m = BarotropicModel.build(cfg, torch.device("cpu"))
-assert m.backend == "pallas"
-z = m.segment(m.init_state(makefields.gaussian(cfg)), m.zero_source(), 2)
-assert bool(torch.isfinite(m.diags(z).vort).all())
-tm = TracerModel.build(cfg, torch.device("cpu"), kappa=50.0)
-assert tm.backend == "pallas"
-s = tm.segment(tm.init_state(makefields.gaussian(cfg),
-                             tracer_ic(cfg, "gaussian")),
-               tm.zero_source(), 2)
-assert bool(torch.isfinite(tm.diags(s).q).all())
-sm = ShallowWaterModel.build(cfg, torch.device("cpu"))
-assert sm.backend == "pallas"
-w = sm.segment(sm.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5)),
-               sm.zero_source(), 2)
-assert bool(torch.isfinite(sm.diags(w).h).all())
+cpu = torch.device("cpu")
+for scheme in ("rk4", "etdrk4"):
+    for backend in ("pallas", "xla"):
+        cfg = ModelConfig(nx=64, ny=64, time_scheme=scheme,
+                          fft_backend=backend)
+        m = BarotropicModel.build(cfg, cpu)
+        assert m.backend == backend
+        z = m.segment(m.init_state(makefields.gaussian(cfg)),
+                      m.zero_source(), 2)
+        assert bool(torch.isfinite(m.diags(z).vort).all())
+        tm = TracerModel.build(cfg, cpu, kappa=50.0)
+        assert tm.backend == backend
+        s = tm.segment(tm.init_state(makefields.gaussian(cfg),
+                                     tracer_ic(cfg, "gaussian")),
+                       tm.zero_source(), 2)
+        assert bool(torch.isfinite(tm.diags(s).q).all())
+        sm = ShallowWaterModel.build(cfg, cpu)
+        assert sm.backend == backend
+        w = sm.segment(sm.geostrophic_init(makefields.gaussian(cfg,
+                                                               zeta0=1e-5)),
+                       sm.zero_source(), 2)
+        assert bool(torch.isfinite(sm.diags(w).h).all())
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
+tpu = sorted(k for k in sys.modules if k.startswith("xlab_fftbarotropic_tpu"))
+assert not tpu, tpu
 print("NOJAX-OK")
 """
 

@@ -184,11 +184,11 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--fast-transforms"], ["--shard"], ["--ensemble", "4"],
-    ["-m", "sw", "--time-scheme", "etdrk4"],
+    ["-m", "sw", "--time-scheme", "etdrk4", "--beta", "1e-11"],
     ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5"],
     ["-m", "fd"], ["-m", "jacobian"],
-    ["-m", "tracer", "--time-scheme", "etdrk4"], ["-m", "climate"],
-    ["--time-scheme", "etdrk4"], ["--fft-backend", "mxu"],
+    ["-m", "tracer", "--time-scheme", "etdrk4", "--shard"], ["-m", "climate"],
+    ["--time-scheme", "etdrk4", "--fast-transforms"], ["--fft-backend", "mxu"],
     ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"],
     ["-m", "sw", "--beta", "1e-11"]])
 def test_cli_stops_on_flags_outside_the_slice(tmp_path, flags):
@@ -203,7 +203,7 @@ def test_blowup_guard_fires_and_closes_the_manifest(tmp_path, n):
     """A CFL-violating run fails at a record boundary with BlowUpError,
     on the library path (32^2) and on the plane stepper (64^2), and the
     manifest keeps the records written before."""
-    from xlab_fftbarotropic_tpu.utils.guards import BlowUpError
+    from xlab_fftbarotropic_torch.utils.guards import BlowUpError
 
     cfg = ModelConfig(nx=n, ny=n, dt=1e6, nu=0.0, total_steps=40,
                       record_step=10, output_dir=str(tmp_path / "out"))
@@ -391,3 +391,107 @@ def test_sw_run_records_stats_debug_and_resumes_exactly(tmp_path):
     assert resumed.steps_run == 5
     for a, b in zip(full.zeta_hat, resumed.zeta_hat):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- ETDRK4
+
+@pytest.mark.parametrize("family", [
+    ["-m", "sw", "--dt", "60"],
+    ["--nu4", "1e14"],
+    ["-m", "tracer", "--tracer-kappa", "50", "--tracer-ic", "gaussian",
+     "--beta", "1.6e-11"]])
+def test_etd_cli_matches_jax_cli(tmp_path, capsys, family):
+    """--time-scheme etdrk4 through both CLIs (the port on the CPU plane
+    path, the JAX package on its xla path): identical manifests, records
+    within the port's bars (barotropic 1e-6 of max |record|, tracer
+    rel-L2 2e-6, shallow water 1e-5 as above)."""
+    cfg = ModelConfig(nx=64, ny=64)
+    inp, out = tmp_path / "in", tmp_path / "out"
+    inp.mkdir()
+    sw = family[:2] == ["-m", "sw"]
+    write_field(inp / "init.bin",
+                makefields.gaussian(cfg, zeta0=1e-5 if sw else 1e-3))
+    common = ["-I", str(inp), "-O", str(out), "-i", "init.bin", "--nx",
+              "64", "--ny", "64", "--total-steps", "20", "--record-step",
+              "10", "--time-scheme", "etdrk4"] + family
+    assert jcli.main(common + ["--cpu", "--manifest",
+                               str(tmp_path / "log_jax")]) == 0
+    want = _records(out)
+    assert tcli.main(common + ["--device", "cpu", "--manifest",
+                               str(tmp_path / "log_torch")]) == 0
+    err = capsys.readouterr().err
+    assert "Time scheme           : etdrk4" in err
+    assert "FFT backend           : pallas" in err
+    got = _records(out)
+    assert (tmp_path / "log_jax").read_text() == \
+        (tmp_path / "log_torch").read_text()
+    assert sorted(want) == sorted(got)
+    if sw:
+        _sw_close({k: v for k, v in want.items()
+                   if not k.startswith("vort_src")}, got, 1e-5)
+        return
+    for name in want:
+        if name.startswith("vort_src"):
+            np.testing.assert_array_equal(want[name], got[name])
+        elif family[:2] == ["-m", "tracer"]:
+            assert _rel_l2(want[name], got[name]) < 2e-6, name
+        else:
+            assert _rel(want[name], got[name]) < 1e-6, name
+
+
+def test_etd_cfl_guard_trips_through_the_runner(tmp_path):
+    """An ETDRK4 run over its advective limit warns at the initial record
+    and stops with AdvectiveCflError at the first violating later one
+    (tests/test_etd_scalar.py:429-450)."""
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel)
+    from xlab_fftbarotropic_torch.utils.guards import AdvectiveCflError
+    cfg = _cfg(tmp_path, time_scheme="etdrk4", record_step=1,
+               total_steps=5)
+    base = makefields.gaussian(cfg)
+    m = ShallowWaterModel.build(cfg, CPU)
+    cfl0 = float(m.stats(m.geostrophic_init(base)).cfl)
+    amp = 1.5 * (2.8 / np.pi) / cfl0
+    with pytest.warns(UserWarning, match="advective CFL"), \
+            pytest.raises(AdvectiveCflError):
+        trunner.run(cfg, CPU, amp * base, model_kind="sw",
+                    manifest_path=str(tmp_path / "log"))
+    res = trunner.run(cfg.replace(total_steps=2), CPU, base, model_kind="sw",
+                      manifest_path=str(tmp_path / "log2"))
+    assert all(s["cfl"] < 2.8 / np.pi for s in res.stats_history)
+
+
+@pytest.mark.parametrize("model_kind", ["barotropic", "tracer", "sw"])
+def test_resume_across_schemes_is_refused(tmp_path, model_kind):
+    cfg = _cfg(tmp_path, checkpoint_step=5, record_step=100)
+    vort0 = makefields.gaussian(cfg, zeta0=1e-5)
+    trunner.run(cfg, CPU, vort0, record=False, model_kind=model_kind)
+    ck = os.path.join(cfg.output_dir, "ckpt_step_5.npz")
+    with pytest.raises(ValueError, match="config mismatch"):
+        trunner.run(cfg.replace(time_scheme="etdrk4"), CPU, record=False,
+                    resume_from=ck, model_kind=model_kind)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_sw_etd_checkpoint_resumes_in_the_other_package(tmp_path, writer):
+    cfg = _cfg(tmp_path, checkpoint_step=5, record_step=100,
+               time_scheme="etdrk4", dt=60.0)
+    vort0 = makefields.gaussian(cfg, zeta0=1e-5)
+    ck = os.path.join(cfg.output_dir, "ckpt_step_5.npz")
+    if writer == "jax":
+        full = jrunner.run(cfg, vort0, record=False, model_kind="sw")
+        full = [np.asarray(z) for z in full.zeta_hat]
+        resumed = trunner.run(cfg, CPU, record=False, resume_from=ck,
+                              model_kind="sw")
+        got = [z.numpy() for z in resumed.zeta_hat]
+    else:
+        full = trunner.run(cfg, CPU, vort0, record=False, model_kind="sw")
+        full = [z.numpy() for z in full.zeta_hat]
+        resumed = jrunner.run(cfg, record=False, resume_from=ck,
+                              model_kind="sw")
+        got = [np.asarray(z) for z in resumed.zeta_hat]
+    assert resumed.steps_run == 5
+    want = {f"{k}_": np.fft.irfft2(a) for k, a in zip(("vort", "div", "eta"),
+                                                       full)}
+    _sw_close(want, {f"{k}_": np.fft.irfft2(b) for k, b in
+                     zip(("vort", "div", "eta"), got)}, 1e-5)

@@ -232,8 +232,11 @@ def test_builds_what_is_ported_and_refuses_the_rest():
         _cfg(nx=2048, ny=2048, fft_backend="xla"), CPU).fwd_pair
     with pytest.raises(NotImplementedError, match="beta-plane"):
         tsw.ShallowWaterModel.build(_cfg(beta=1e-11), CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsw.ShallowWaterModel.build(_cfg(time_scheme="etdrk4"), CPU)
+    with pytest.raises(ValueError, match="time_scheme"):
+        tsw.ShallowWaterModel.build(_cfg(time_scheme="rk3"), CPU)
+    etd = tsw.ShallowWaterModel.build(_cfg(nx=64, ny=64,
+                                           time_scheme="etdrk4"), CPU)
+    assert etd.etd_tables.Q.shape == (3, 3, 64, 33)
     with pytest.raises(NotImplementedError, match="row 13"):
         tsw.ShallowWaterModel.build(_cfg(fft_backend="pallas", nu4=1e5),
                                     CPU)

@@ -133,9 +133,12 @@ def test_builds_what_is_ported_and_refuses_the_rest():
     assert "lap2" in dict(m.named_buffers())
     assert ttr.TracerModel.build(ModelConfig(nx=96, ny=96), CPU).backend \
         == "xla"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="time_scheme"):
         ttr.TracerModel.build(ModelConfig(nx=64, ny=64,
-                                          time_scheme="etdrk4"), CPU)
+                                          time_scheme="rk3"), CPU)
+    etd = ttr.TracerModel.build(ModelConfig(nx=64, ny=64,
+                                            time_scheme="etdrk4"), CPU)
+    assert etd.etd_tables.F3.shape == (2, 64, 33)
     with pytest.raises(ValueError):
         m.segment(ttr.TracerState(*(torch.zeros((64, 33)),) * 2),
                   m.zero_source(), 1)

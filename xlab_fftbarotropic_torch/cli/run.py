@@ -7,7 +7,9 @@
 The flags are those of xlab_fftbarotropic_tpu.cli.run for what the port
 covers: the barotropic, tracer (-m tracer, --tracer-ic, --tracer-kappa)
 and shallow-water (-m sw or -m shallow-water; --coriolis-f, --gravity,
---mean-depth, and a --dt under the gravity-wave bound) families, the
+--mean-depth, and under RK4 a --dt under the gravity-wave bound)
+families, each with --time-scheme rk4 (default) or etdrk4 (the linear
+terms integrated exactly from phi-function tables, models/etdrk4.py), the
 -s script / -f fifo forcing, records, checkpoints and resume. `--device cuda` (the default) runs the plane
 stepper's hand-written CUDA kernels and stops with an error when no GPU
 is visible; it never carries on on the CPU. `--device cpu` runs the
@@ -24,9 +26,9 @@ import sys
 def main(argv=None):
     import torch
 
+    from ..config import add_config_args, config_from_args
     from ..models.barotropic import resolve_device, resolve_fft_backend_name
     from ..models.shallow_water import resolve_sw_backend
-    from ..reused import add_config_args, config_from_args
     from ..runner import _NOT_PORTED, run
 
     p = argparse.ArgumentParser(
@@ -104,9 +106,6 @@ def main(argv=None):
                     "field (e.g. vort,psi) or omit the flag")
 
     cfg = config_from_args(args)
-    if cfg.time_scheme != "rk4":
-        p.error(f"--time-scheme {cfg.time_scheme} is not ported yet "
-                f"(ROADMAP.md queue A, item 9)")
     sw = args.model in ("shallow-water", "sw")
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
@@ -146,6 +145,7 @@ def main(argv=None):
     else:
         family = "barotropic"
     print(f"Model family          : {family}", file=sys.stderr)
+    print(f"Time scheme           : {cfg.time_scheme}", file=sys.stderr)
     print(f"Device                : {where}", file=sys.stderr)
     print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
     print("#########################", file=sys.stderr)

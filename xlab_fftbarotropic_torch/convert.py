@@ -5,9 +5,9 @@ state is the complex64 half-spectrum zeta_hat (the tracer family: the
 pair zeta_hat, q_hat; shallow water: zeta_hat, div_hat, eta_hat); both
 cross as numpy arrays, so neither side
 imports the other. Checkpoints need no conversion: both runners write
-and read them through the shared xlab_fftbarotropic_tpu/io/checkpoint.py
-(the complex64 state as packed below + config hash), so a checkpoint
-from either resumes in the other.
+and read them in one format (io/checkpoint.py, the port's copy of the
+JAX package's: the complex64 state as packed below + config hash), so a
+checkpoint from either resumes in the other.
 """
 
 from __future__ import annotations

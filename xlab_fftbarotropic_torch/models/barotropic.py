@@ -20,6 +20,11 @@ Two stepping paths, chosen by cfg.fft_backend:
 
 "auto" takes "pallas" for power-of-two square grids the kernels take
 (64..8192), else "xla". The diagnostics always use the library path.
+
+cfg.time_scheme "etdrk4" swaps RK4 for the exponential scheme of
+models/etdrk4.py: nu lap - r_drag - nu4 lap^2 (and the beta term, in
+complex tables) integrated exactly, N the advection-only tendency on the
+same kernels (or on torch.fft) with nu = 0 and no drag fold.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..ops import fused_fft as ff
 from ..ops import fused_sw as fs
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
+from . import etdrk4 as etd
 
 
 def resolve_device(device) -> torch.device:
@@ -44,6 +50,11 @@ def resolve_device(device) -> torch.device:
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+def check_time_scheme(cfg) -> None:
+    if cfg.time_scheme not in ("rk4", "etdrk4"):
+        raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
 
 
 def plane_stepper_ok(grid_shape) -> bool:
@@ -176,6 +187,30 @@ def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
             zi + (r1i + 2.0 * r2i + 2.0 * r3i + r4i) * c)
 
 
+def etd_step(t: SpectralTables, tabs, zeta_hat: torch.Tensor,
+             src: torch.Tensor, grid_shape: Tuple[int, int]) -> torch.Tensor:
+    """One ETDRK4 step on the library path: N is the dealiased
+    advection-only tendency (every linear coefficient zero)."""
+    def N(z):
+        return sp.dealias(t, tendency(t, z, src, 0.0, grid_shape))
+    return etd.etd_scheme(N, lambda T, z: T * z, tabs, zeta_hat)
+
+
+def etd_step_planes(t: SpectralTables, tabs, zr: torch.Tensor,
+                    zi: torch.Tensor, src_y: torch.Tensor):
+    """One ETDRK4 step on the (re, im) planes through the plane
+    stepper's kernels: N is derivative_quad_planes +
+    forward_tendency_yfirst with nu = 0 and beta = 0 (beta, drag and
+    hyperviscosity live in the tables, nothing folds into lap)."""
+    def N(q):
+        zx, zy, u, v = ff.derivative_quad_planes(q[0], q[1], t.kx, t.ky,
+                                                 t.rlap)
+        return ff.forward_tendency_yfirst(u, zx, v, zy, src_y, t.lap,
+                                          t.mask, q[0], q[1], 0.0)
+    return etd.etd_scheme(N, lambda T, q: etd.smul_planes(T, *q), tabs,
+                          (zr, zi))
+
+
 def diag_fields(t: SpectralTables, zeta_hat: torch.Tensor,
                 grid_shape: Tuple[int, int]) -> DiagFields:
     """Step-start physical fields: the record block (main.cpp:266-282)
@@ -220,8 +255,8 @@ def step_stats(t: SpectralTables, zeta_hat: torch.Tensor, cfg) -> StepStats:
 class BarotropicModel(nn.Module):
     """The stepper for one configuration on one device.
 
-    `step`:    zeta_hat, src -> zeta_hat after ONE RK4 step.
-    `segment`: zeta_hat, src -> zeta_hat after n RK4 steps, a Python loop
+    `step`:    zeta_hat, src -> zeta_hat after ONE step (RK4 or ETDRK4).
+    `segment`: zeta_hat, src -> zeta_hat after n steps, a Python loop
                with the forcing fixed (and, on the plane stepper,
                transposed to y-major once).
     `diags`:   zeta_hat -> DiagFields;  `stats`: zeta_hat -> StepStats;
@@ -229,22 +264,18 @@ class BarotropicModel(nn.Module):
 
     `tables` (buffers) serve the diagnostics; `step_tables` step.
     `fused_rk` picks the plane stepper's form (rk4_step_planes; True is
-    the JAX default, XFB_BT_FUSED_RK=1). On the plane stepper, drag and
-    hyperviscosity fold into the stepping lap:
+    the JAX default, XFB_BT_FUSED_RK=1). On the RK4 plane stepper, drag
+    and hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
-    package); the diagnostics keep the original tables.
+    package); the diagnostics keep the original tables. Under ETDRK4
+    they live in `etd_tables` instead, and nothing folds.
     """
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
                  fused_rk: bool = True):
         super().__init__()
-        if cfg.time_scheme == "etdrk4":
-            raise NotImplementedError(
-                "time_scheme='etdrk4' is not ported yet (ROADMAP.md queue "
-                "A, item 9)")
-        if cfg.time_scheme != "rk4":
-            raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
+        check_time_scheme(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
@@ -260,12 +291,16 @@ class BarotropicModel(nn.Module):
         self.nu4 = float(cfg.nu4)
         self.step_nu = self.nu
         lap = t.lap
-        if self.backend == "pallas" and (self.r_drag != 0.0
-                                         or self.nu4 != 0.0):
+        etd_on = cfg.time_scheme == "etdrk4"
+        if self.backend == "pallas" and not etd_on and (
+                self.r_drag != 0.0 or self.nu4 != 0.0):
             lap = t.lap * self.nu - self.r_drag - self.nu4 * t.lap * t.lap
             self.step_nu = 1.0
         self.step_tables = SpectralTables({**t.as_dict(), "lap": lap},
                                           self.device)
+        self.etd_tables = (etd.build_scalar_tables(
+            cfg, self.dt, kind="barotropic", device=self.device)
+            if etd_on else None)
 
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
@@ -284,20 +319,27 @@ class BarotropicModel(nn.Module):
     def segment(self, zeta_hat: torch.Tensor, src: torch.Tensor,
                 n_steps: int) -> torch.Tensor:
         self._check_state(zeta_hat)
-        t, g = self.step_tables, self.cfg.grid_shape
+        t, g, et = self.step_tables, self.cfg.grid_shape, self.etd_tables
         if self.backend == "pallas":
             zr = zeta_hat.real.contiguous()
             zi = zeta_hat.imag.contiguous()
             src_y = src.t().contiguous()
             for _ in range(n_steps):
-                zr, zi = rk4_step_planes(t, zr, zi, src_y, self.dt,
-                                         self.step_nu, beta=self.beta,
-                                         fused_rk=self.fused_rk)
+                if et is not None:
+                    zr, zi = etd_step_planes(t, et, zr, zi, src_y)
+                else:
+                    zr, zi = rk4_step_planes(t, zr, zi, src_y, self.dt,
+                                             self.step_nu, beta=self.beta,
+                                             fused_rk=self.fused_rk)
             return torch.complex(zr, zi)
         z = zeta_hat
         for _ in range(n_steps):
-            z = rk4_step(t, z, src, self.dt, self.nu, g,
-                         r_drag=self.r_drag, beta=self.beta, nu4=self.nu4)
+            if et is not None:
+                z = etd_step(t, et, z, src, g)
+            else:
+                z = rk4_step(t, z, src, self.dt, self.nu, g,
+                             r_drag=self.r_drag, beta=self.beta,
+                             nu4=self.nu4)
         return z
 
     def step(self, zeta_hat: torch.Tensor, src: torch.Tensor

@@ -1,6 +1,7 @@
 """Rotating shallow-water model: the counterpart of
-xlab_fftbarotropic_tpu/models/shallow_water.py (RK4; ETDRK4 is not
-ported yet).
+xlab_fftbarotropic_tpu/models/shallow_water.py, with its two time
+schemes: classic RK4 and ETDRK4 (models/etdrk4.py), chosen by
+cfg.time_scheme.
 
 Vorticity-divergence-height form on the doubly-periodic f-plane, with
 q = zeta + f, h = H + eta (eta, the depth perturbation, is prognostic)
@@ -28,12 +29,15 @@ Two stepping paths, chosen once when the model is built:
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 "auto" takes "pallas" on the square power-of-two grids the kernels take
-(64..8192), else "xla". The plane stepper carries no drag and no
+(64..8192), else "xla". The RK4 plane stepper carries no drag and no
 hyperviscosity (its lap table also serves the pressure term and the
-mean-mode guard, so the barotropic fold would corrupt it): with
-r_drag or nu4 != 0, "auto" takes "xla" with a warning, and an explicit
-"pallas" raises (the JAX package falls back to its per-transform kernel
-pipeline there, which needs kernel row 13, not ported yet).
+mean-mode guard, so the barotropic fold would corrupt it): under RK4
+with r_drag or nu4 != 0, "auto" takes "xla" with a warning, and an
+explicit "pallas" raises (the JAX package falls back to its
+per-transform kernel pipeline there, which needs kernel row 13, not
+ported yet). Under ETDRK4 both live in the linear tables, so the plane
+path takes them (etdrk4_step_planes: 4 ka_sw, 8 kb_pair, 4 ky_all,
+4 kx_fwd and 4 sw_combine_mv per step in the default fused form).
 """
 
 from __future__ import annotations
@@ -50,7 +54,9 @@ from ..ops import fft
 from ..ops import fused_sw as fs
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
-from .barotropic import DebugFields, resolve_device, resolve_fft_backend_name
+from . import etdrk4 as etd
+from .barotropic import (DebugFields, check_time_scheme, resolve_device,
+                         resolve_fft_backend_name)
 
 # the library path pairs the forward transforms up to this size, as the
 # JAX package does (its XFB_FORWARD_PAIR_MAX default, a TPU measurement)
@@ -211,18 +217,19 @@ def max_stable_dt(cfg) -> float:
 
 def resolve_sw_backend(cfg, warn: bool = True) -> str:
     """The stepping path for a SW configuration, decided once: the
-    barotropic shape gate, then the drag/hyperviscosity gate ("auto"
-    takes "xla" when r_drag or nu4 != 0, with a warning; an explicit
-    "pallas" raises)."""
+    barotropic shape gate, then, under RK4 only, the drag/hyperviscosity
+    gate ("auto" takes "xla" when r_drag or nu4 != 0, with a warning; an
+    explicit "pallas" raises). ETDRK4 carries both in its tables."""
     name = resolve_fft_backend_name(cfg.fft_backend, cfg.grid_shape)
-    if name == "pallas" and (float(cfg.r_drag) != 0.0
-                             or float(cfg.nu4) != 0.0):
+    if name == "pallas" and cfg.time_scheme != "etdrk4" and (
+            float(cfg.r_drag) != 0.0 or float(cfg.nu4) != 0.0):
         if cfg.fft_backend == "pallas":
             raise NotImplementedError(
                 "shallow water with r_drag or nu4 != 0 runs the JAX "
-                "package's per-transform kernel pipeline, which needs TPU "
-                "kernel row 13 (_kb_kernel, ROADMAP.md queue B), not "
-                "ported yet; use fft_backend 'xla' or 'auto'")
+                "package's per-transform kernel pipeline under RK4, which "
+                "needs TPU kernel row 13 (_kb_kernel, ROADMAP.md queue B), "
+                "not ported yet; use fft_backend 'xla' or 'auto', or "
+                "time_scheme 'etdrk4' (drag in its tables)")
         if warn:
             warnings.warn(
                 "r_drag/nu4 != 0: the SW plane stepper does not carry "
@@ -235,8 +242,8 @@ def resolve_sw_backend(cfg, warn: bool = True) -> str:
 class ShallowWaterModel(nn.Module):
     """The SW stepper for one configuration on one device.
 
-    `step`:    state, src -> state after ONE RK4 step.
-    `segment`: state, src -> state after n RK4 steps, a Python loop; on
+    `step`:    state, src -> state after ONE step (RK4 or ETDRK4).
+    `segment`: state, src -> state after n steps, a Python loop; on
                the plane stepper the forcing spectrum (src None: no
                forcing) and the pairing equalizer eta_scale are computed
                once per call, eta_scale read to the host.
@@ -244,19 +251,20 @@ class ShallowWaterModel(nn.Module):
     `debug`:   state, src -> DebugFields.
 
     `tables` (buffers) serve both paths. `backend` is decided once
-    (resolve_sw_backend): with r_drag or nu4 != 0, "auto" takes the
-    library path with a warning. beta != 0 and time_scheme "etdrk4"
-    raise; dt above max_stable_dt warns, as in the JAX package.
+    (resolve_sw_backend): under RK4 with r_drag or nu4 != 0, "auto"
+    takes the library path with a warning. beta != 0 raises; under RK4
+    dt above max_stable_dt warns, as in the JAX package.
+
+    time_scheme "etdrk4": `etd_tables` (models/etdrk4.py, through its
+    disk cache, built on `device`) and a step of etdrk4_step_planes
+    (plane path; `etd_fuse` picks its form, True the JAX default
+    XFB_SW_ETD_FUSE=1) or etdrk4_step (library path).
     """
 
-    def __init__(self, cfg, device, tables: SpectralTables = None):
+    def __init__(self, cfg, device, tables: SpectralTables = None,
+                 etd_fuse: bool = True):
         super().__init__()
-        if cfg.time_scheme == "etdrk4":
-            raise NotImplementedError(
-                "time_scheme='etdrk4' is not ported yet (ROADMAP.md queue "
-                "A, item 9)")
-        if cfg.time_scheme != "rk4":
-            raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
+        check_time_scheme(cfg)
         if float(cfg.beta) != 0.0:
             raise NotImplementedError(
                 "beta-plane is barotropic/tracer-only: the SW equations "
@@ -271,8 +279,9 @@ class ShallowWaterModel(nn.Module):
         self.H = float(cfg.mean_depth)
         self.r_drag = float(cfg.r_drag)
         self.nu4 = float(cfg.nu4)
+        self.etd_fuse = etd_fuse
         dt_max = max_stable_dt(cfg)
-        if self.dt > dt_max:
+        if self.dt > dt_max and cfg.time_scheme != "etdrk4":
             warnings.warn(
                 f"SW gravity-wave CFL violated: dt={self.dt:g} s exceeds the "
                 f"RK4 stability bound {dt_max:.3g} s for c=sqrt(gH)="
@@ -289,11 +298,13 @@ class ShallowWaterModel(nn.Module):
         mean_mask[0, 0] = 0.0
         self.register_buffer("mean_mask",
                              torch.from_numpy(mean_mask).to(self.device))
+        self.etd_tables = (etd.build_tables_cached(cfg, self.dt, self.device)
+                           if cfg.time_scheme == "etdrk4" else None)
 
     @classmethod
-    def build(cls, cfg, device, tables: SpectralTables = None
-              ) -> "ShallowWaterModel":
-        return cls(cfg, device, tables)
+    def build(cls, cfg, device, tables: SpectralTables = None,
+              etd_fuse: bool = True) -> "ShallowWaterModel":
+        return cls(cfg, device, tables, etd_fuse)
 
     def _check_state(self, s: SWState) -> None:
         for z in s:
@@ -307,15 +318,24 @@ class ShallowWaterModel(nn.Module):
 
     def segment(self, s: SWState, src, n_steps: int) -> SWState:
         self._check_state(s)
-        t = self.tables
+        t, et = self.tables, self.etd_tables
         if self.backend == "pallas":
             src_planes = None if src is None else fs.forward_planes(src)
             p = state_to_planes(s)
             eta_scale = float(fs.eta_pair_scale(p))   # once per segment
             for _ in range(n_steps):
-                p = rk4_step_planes(t, p, src_planes, self.dt, self.f,
-                                    self.g, self.nu, self.H, eta_scale)
+                if et is not None:
+                    p = etd.etdrk4_step_planes(t, et, p, src_planes,
+                                               eta_scale, fuse=self.etd_fuse)
+                else:
+                    p = rk4_step_planes(t, p, src_planes, self.dt, self.f,
+                                        self.g, self.nu, self.H, eta_scale)
             return planes_to_state(p)
+        if et is not None:
+            for _ in range(n_steps):
+                s = etd.etdrk4_step(t, et, s, src, self.cfg.grid_shape,
+                                    fwd_pair=self.fwd_pair)
+            return s
         for _ in range(n_steps):
             s = rk4_step(t, s, src, self.dt, self.f, self.g, self.nu,
                          self.H, self.cfg.grid_shape,

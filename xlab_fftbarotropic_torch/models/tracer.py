@@ -22,7 +22,11 @@ family ("auto" takes the same shape gate):
   lap2 = [nu*lap - r_drag - nu4*lap^2 | kappa*lap].
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
-The diagnostics always use the library path.
+The diagnostics always use the library path. cfg.time_scheme "etdrk4"
+integrates the flow operator (nu lap - r_drag - nu4 lap^2, the beta term
+in complex tables) and kappa lap exactly (models/etdrk4.py, stacked
+tables (2, nx, hny)); N is the joint advection-only tendency, on the
+plane stepper's kernels with a zero lap2 or on torch.fft.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ from ..ops import fft
 from ..ops import fused_tracer as ft
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
-from .barotropic import resolve_device, resolve_fft_backend_name
+from . import etdrk4 as etd
+from .barotropic import (check_time_scheme, resolve_device,
+                         resolve_fft_backend_name)
 
 
 class TracerState(NamedTuple):
@@ -125,6 +131,33 @@ def rk4_step(t: SpectralTables, state: TracerState, src: torch.Tensor,
                        + 2 * r3.q_hat + r4.q_hat) * c)
 
 
+def etd_step(t: SpectralTables, tabs, state: TracerState,
+             src: torch.Tensor, grid_shape: Tuple[int, int]) -> TracerState:
+    """One ETDRK4 step on the library path: N is the joint dealiased
+    advection-only tendency, the stacked tables apply per field."""
+    def N(s):
+        d = tendency(t, s, src, 0.0, 0.0, grid_shape)
+        return TracerState(sp.dealias(t, d.zeta_hat), sp.dealias(t, d.q_hat))
+
+    def mul(T, s):
+        return TracerState(T[0] * s.zeta_hat, T[1] * s.q_hat)
+    return etd.etd_scheme(N, mul, tabs, state)
+
+
+def etd_step_planes(t: SpectralTables, tabs, sr2: torch.Tensor,
+                    si2: torch.Tensor, src_y: torch.Tensor):
+    """One ETDRK4 step on the stacked planes (2, nx, hny) through the
+    tracer plane stepper's kernels, with a zero diffusion table (every
+    linear term lives in the ETD tables) and beta = 0."""
+    lap2z = torch.zeros_like(sr2)
+
+    def N(q):
+        return ft.tendency_tracer_planes(q[0], q[1], src_y, t.kx, t.ky,
+                                         t.rlap, lap2z, t.mask)
+    return etd.etd_scheme(N, lambda T, q: etd.smul_planes(T, *q), tabs,
+                          (sr2, si2))
+
+
 def tracer_ic(cfg, kind: str, vort0: Optional[np.ndarray] = None
               ) -> np.ndarray:
     """Built-in tracer initial conditions (smooth and periodic), numpy
@@ -157,8 +190,8 @@ def tracer_ic(cfg, kind: str, vort0: Optional[np.ndarray] = None
 class TracerModel(nn.Module):
     """The joint stepper for one configuration on one device.
 
-    `step`:    state, src -> state after ONE RK4 step.
-    `segment`: state, src -> state after n RK4 steps, a Python loop with
+    `step`:    state, src -> state after ONE step (RK4 or ETDRK4).
+    `segment`: state, src -> state after n steps, a Python loop with
                the forcing fixed (and, on the plane stepper, transposed
                to y-major once).
     `diags`:   state -> TracerDiagFields;  `stats`: state -> TracerStats.
@@ -170,12 +203,7 @@ class TracerModel(nn.Module):
     def __init__(self, cfg, device, kappa: float = 0.0,
                  tables: SpectralTables = None):
         super().__init__()
-        if cfg.time_scheme == "etdrk4":
-            raise NotImplementedError(
-                "time_scheme='etdrk4' is not ported yet (ROADMAP.md queue "
-                "A, item 9)")
-        if cfg.time_scheme != "rk4":
-            raise ValueError(f"unknown time_scheme {cfg.time_scheme!r}")
+        check_time_scheme(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
@@ -192,6 +220,9 @@ class TracerModel(nn.Module):
         self.register_buffer("lap2", torch.stack(
             [lap * self.nu - self.r_drag - self.nu4 * lap * lap,
              lap * self.kappa]))
+        self.etd_tables = (etd.build_scalar_tables(
+            cfg, self.dt, kind="tracer", kappa=self.kappa,
+            device=self.device) if cfg.time_scheme == "etdrk4" else None)
 
     @classmethod
     def build(cls, cfg, device, kappa: float = 0.0,
@@ -211,20 +242,27 @@ class TracerModel(nn.Module):
     def segment(self, state: TracerState, src: torch.Tensor,
                 n_steps: int) -> TracerState:
         self._check_state(state)
-        t = self.tables
+        t, et, g = self.tables, self.etd_tables, self.cfg.grid_shape
         if self.backend == "pallas":
             sr2 = torch.stack([state.zeta_hat.real, state.q_hat.real])
             si2 = torch.stack([state.zeta_hat.imag, state.q_hat.imag])
             src_y = src.t().contiguous()
             for _ in range(n_steps):
-                sr2, si2 = ft.rk4_step_tracer_planes(
-                    t, sr2, si2, src_y, self.dt, self.lap2, beta=self.beta)
+                if et is not None:
+                    sr2, si2 = etd_step_planes(t, et, sr2, si2, src_y)
+                else:
+                    sr2, si2 = ft.rk4_step_tracer_planes(
+                        t, sr2, si2, src_y, self.dt, self.lap2,
+                        beta=self.beta)
             return TracerState(torch.complex(sr2[0], si2[0]),
                                torch.complex(sr2[1], si2[1]))
         for _ in range(n_steps):
-            state = rk4_step(t, state, src, self.dt, self.nu, self.kappa,
-                             self.cfg.grid_shape, r_drag=self.r_drag,
-                             beta=self.beta, nu4=self.nu4)
+            if et is not None:
+                state = etd_step(t, et, state, src, g)
+            else:
+                state = rk4_step(t, state, src, self.dt, self.nu,
+                                 self.kappa, g, r_drag=self.r_drag,
+                                 beta=self.beta, nu4=self.nu4)
         return state
 
     def step(self, state: TracerState, src: torch.Tensor) -> TracerState:

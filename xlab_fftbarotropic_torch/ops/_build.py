@@ -66,6 +66,9 @@ SIGNATURES = {
     # host array of 32 pointers, nx, hny, f0, grav, nu, H, split, coef,
     # device, stream
     "xfb_sw_combine": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
+    # host array of 33 pointers, nx, hny, f0, grav, nu, H, split, scale,
+    # device, stream
+    "xfb_sw_combine_mv": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
     # xr, xi, tw, yr, yi, n, m, forward, scale, device, stream
     "xfb_ka": [_P] * 5 + [_I, _I, _I, _F, _I, _P],
     # xr, xi, tw, yr, yi, ny, nx, device, stream

@@ -39,7 +39,7 @@ import torch
 LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 0,
             "ka_sw": 0, "ky_all": 0, "kx_fwd": 0, "sw_combine": 0,
-            "ka": 0, "kc": 0}
+            "sw_combine_mv": 0, "ka": 0, "kc": 0}
 
 # transform lengths the kernels take: powers of two whose column fits
 # one block's shared memory (8192 complex64 = 64 KB)

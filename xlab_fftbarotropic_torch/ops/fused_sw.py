@@ -20,7 +20,10 @@ kernels (csrc/), the FFT ones around the shared column FFT
               the RK stage axpy fused in for stages 1-3
 
 and the RK4 tail is one rk4_combine launch over the six planes. The
-forcing spectrum is ka + kc (ops/fused_fft.py), once per segment.
+forcing spectrum is ka + kc (ops/fused_fft.py), once per segment. Under
+ETDRK4 (models/etdrk4.py) the combine is sw_combine_mv, which also
+builds the stage z0 + s (Q @ tendency) from the per-mode 3x3 table Q
+(csrc/sw_combine.cu, a second entry point).
 
 eta_scale is the pairing equalizer: zeta (about 1e-4) and eta (about
 5 m) share one c2r transform in kb_pair, and float32 cross-talk there is
@@ -309,18 +312,87 @@ def sw_combine(pr, pi, state, src, kx, ky, lap, mask, f0: float,
     return tuple(tend) if axpy is None else (tuple(tend), tuple(nxt))
 
 
+# ---------------------------------------------------------- sw_combine_mv
+
+def sw_combine_mv_plain(pr, pi, state, src, kx, ky, lap, mask, f0: float,
+                        grav: float, nu: float, H: float, z0, q,
+                        scale: float, emit_tend: bool = True,
+                        split: bool = False):
+    tend = sw_combine_plain(pr, pi, state, src, kx, ky, lap, mask, f0,
+                            grav, nu, H, split)
+    stage = []
+    for i in range(3):
+        qi0, qi1, qi2 = (scale * q[i, j] for j in range(3))
+        stage += [z0[2 * i] + qi0 * tend[0] + qi1 * tend[2] + qi2 * tend[4],
+                  z0[2 * i + 1] + qi0 * tend[1] + qi1 * tend[3]
+                  + qi2 * tend[5]]
+    return (tend if emit_tend else None), tuple(stage)
+
+
+def sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0: float,
+                  grav: float, nu: float, H: float, z0, q, scale: float,
+                  emit_tend: bool = True, split: bool = False):
+    """sw_combine's tendency planes fused with an ETDRK4 stage: also the
+    six planes of stage = z0 + scale * (Q @ tendency), with q the
+    per-mode 3x3 table (3, 3, nx, hny) (models/etdrk4.py), per row i
+    ((z0 + (scale q_i0) t_zeta) + (scale q_i1) t_div) + (scale q_i2) t_eta
+    on the re and the im planes. Returns (tend, stage), tend None when
+    emit_tend is False (the last ETDRK4 stage never reads it).
+    Counterpart of pallas_sw.forward_tendencies' COMBINE with mv_axpy
+    (_combine_mv_kernel)."""
+    nx, hny = lap.shape
+    _check("sw_combine_mv", (N_PRODUCTS, nx, hny), pr, pi)
+    if len(state) != 6 or len(z0) != 6 or (src is not None
+                                           and len(src) != 2):
+        raise ValueError("sw_combine_mv: expected six state planes, six "
+                         "base planes and two source planes (or None)")
+    planes = (*state, lap, mask, *z0) + (() if src is None else tuple(src))
+    _check("sw_combine_mv", (nx, hny), *planes)
+    _check("sw_combine_mv", (3, 3, nx, hny), q)
+    _check("sw_combine_mv", (nx,), kx)
+    _check("sw_combine_mv", (hny,), ky)
+    if any(t.device != pr.device for t in (kx, ky, lap, q)):
+        raise ValueError("sw_combine_mv: tables and planes on different "
+                         "devices")
+    if _takes_plain("sw_combine_mv", pr):
+        return sw_combine_mv_plain(pr, pi, state, src, kx, ky, lap, mask,
+                                   f0, grav, nu, H, z0, q, scale, emit_tend,
+                                   split)
+    from ._build import lib
+    tend = [torch.empty_like(lap) for _ in range(6 if emit_tend else 0)]
+    stage = [torch.empty_like(lap) for _ in range(6)]
+    srcp = [None, None] if src is None else _ptrs(*src)
+    table = (ctypes.c_void_p * 33)(
+        *_ptrs(pr, pi, *state), *srcp, *_ptrs(kx, ky, lap, mask, *z0, q),
+        *(_ptrs(*tend) if emit_tend else [None] * 6), *_ptrs(*stage))
+    _launch("sw_combine_mv", lib().xfb_sw_combine_mv,
+            ctypes.addressof(table), nx, hny, float(f0), float(grav),
+            float(nu), float(H), int(split), float(scale), pr.device.index,
+            _stream(pr))
+    return (tuple(tend) if emit_tend else None), tuple(stage)
+
+
 # ------------------------------------------------------- stage composites
 
 def forward_tendencies(u, v, zeta, eta_s, state, src, kx, ky, lap, mask,
                        f0: float, grav: float, nu: float, H: float,
                        eta_scale: float = 1.0, axpy=None,
-                       split: bool = False):
+                       split: bool = False, mv_axpy=None):
     """The dealiased SW tendency planes from the y-major fields of
     inverse_quad_planes: ky_all + kx_fwd + sw_combine (with axpy: also
-    the next stage state). Counterpart of pallas_sw.forward_tendencies
-    (XFB_SW_YFIRST=1)."""
+    the next stage state). mv_axpy=(z0, q, scale, emit_tend) takes
+    sw_combine_mv instead and returns (tend or None, z0 + scale *
+    (q @ tend)); it does not combine with axpy. Counterpart of
+    pallas_sw.forward_tendencies (XFB_SW_YFIRST=1)."""
+    if axpy is not None and mv_axpy is not None:
+        raise ValueError("forward_tendencies: axpy and mv_axpy are "
+                         "mutually exclusive")
     gr, gi = ky_all(u, v, zeta, eta_s, 1.0 / eta_scale, f0, grav, split)
     pr, pi = kx_fwd(gr, gi)
+    if mv_axpy is not None:
+        z0, q, scale, emit_tend = mv_axpy
+        return sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0,
+                             grav, nu, H, z0, q, scale, emit_tend, split)
     return sw_combine(pr, pi, state, src, kx, ky, lap, mask, f0, grav, nu,
                       H, split, axpy)
 

@@ -5,9 +5,12 @@ The time loop of main.cpp / main-shallow-water.cpp: the model advances
 in segments between record, checkpoint and forcing-recipe boundaries;
 host work (field records, the `log` manifest, per-record scalars,
 checkpoints, forcing updates) happens only at those boundaries. Records,
-manifest, checkpoints and forcing streams go through the JAX package's
-numpy-only modules, so the output files are byte-compatible with its
-runner's and a checkpoint from either resumes in the other.
+manifest, checkpoints and forcing streams go through the port's copies
+of the JAX package's numpy-only modules (io/, forcing/), so the output
+files are byte-compatible with its runner's and a checkpoint from either
+resumes in the other. Under ETDRK4 each record's cfl stat is held to the
+scheme's advective limit (utils/guards.py:check_etd_cfl), as the JAX
+runner does.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ import torch
 from . import convert
 from .models.barotropic import BarotropicModel
 from .models.shallow_water import ShallowWaterModel
+from .config import ModelConfig
+from .forcing.source import SourceReader, make_reader
+from .io.checkpoint import load_checkpoint, save_checkpoint
+from .io.fieldio import FieldRecorder, Manifest, read_field
 from .models.tracer import TracerModel, tracer_ic
-from .reused import (FieldRecorder, Manifest, ModelConfig, SourceReader,
-                     check_finite, load_checkpoint, make_reader, read_field,
-                     save_checkpoint)
+from .utils.guards import check_etd_cfl, check_finite
 
 # what is not ported yet, by ROADMAP.md queue A item
 _NOT_PORTED = {"fd": 11, "jacobian": 11}
@@ -279,12 +284,20 @@ def run(cfg: ModelConfig,
         if debug_fields:
             recorder.record(step, **adapter.debug_record_fields(state, src))
 
+    etd = cfg.time_scheme == "etdrk4"
     per_step = recipe == "fifo"
     try:
         while step < cfg.total_steps:
             if record and step % cfg.record_step == 0:
                 do_record(step, state, src_np, src)
-                stats_history.append(dict(step=step, **adapter.stats(state)))
+                st = adapter.stats(state)
+                stats_history.append(dict(step=step, **st))
+                if etd:
+                    # the big-dt scheme's one stability limit left: a
+                    # warning at the initial record, AdvectiveCflError at
+                    # the first violating later one
+                    check_etd_cfl(step, st["cfl"], cfg,
+                                  at_start=(step == start_step))
                 if progress or step_banners:
                     print(f"# Step {step}, time = {step * cfg.dt:.2f}, "
                           f"record now!", file=sys.stderr)
