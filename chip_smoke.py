@@ -37,32 +37,53 @@ exits non-zero and prints no result):
    exactly 4 ka_sw, 8 kb_pair, 4 ky_all, 4 kx_fwd and 4 sw_combine_mv
    launches, none of sw_combine or rk4_combine, and per segment 1 ka and
    1 kc.
-5c. ETD tables: the build time on the card of the SW, barotropic and
+5c. Shallow-water RK4 with drag and hyperviscosity: the SW configuration
+   with --r-drag 2e-4 --nu4 (example 12's) and dt under both RK4 bounds
+   (the gravity-wave one, 0.847 s at 4096^2, and 0.9 s, under the 1 s
+   viscous bound of that nu4) through the same entry point,
+   on the per-transform kernels; per step exactly 40 ka, 8 kb and 24 kc
+   launches (4 stages x two inverse pairs and six forward transforms,
+   the runner's zero forcing among them) and nothing else.
+5d. Shallow-water unfused RK4 form: ShallowWaterModel.build(...,
+   fused_rk=False).segment for `steps` steps; per step the plane
+   stepper's kernels with sw_combine unfused and 3 plane_axpy launches.
+5e. Adjoint: the 4DVar twin experiment (the gaussian truth rolled out a
+   10-step window, first guess 0.9 x truth) through
+   xlab_fftbarotropic_torch.cli.assimilate.main --device cuda for a few
+   Adam iterations at lr 1e-5: the launch counts of both sweeps exactly
+   (the checkpointed forward runs twice), the cost falling; the
+   kernel-path gradient against the torch.fft path's, rel-L2 <= 5e-4
+   (the JAX package's bar between its pallas and xla gradients), with
+   torch.fft.* and torch.matmul raising during the kernel path's loss
+   and backward(); the forward ms/step, the gradient's ms per window
+   step and its peak device memory on both paths.
+5f. ETD tables: the build time on the card of the SW, barotropic and
    tracer tables at n^2 with the cache off, and the card-built tables
    against the CPU-built ones at 256^2 (max |d| <= 1e-6 of each table's
    max).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
-   and the three families' ETDRK4 segments.
+   the three families' ETDRK4 segments and the SW drag segment.
 7. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
    unfused forms) and with the torch.fft library path on the card; rel-L2
    of the physical vorticity <= 1e-5 against the library path and
    between the two forms.
 8. Tracer trajectory: `steps` steps, kernels against the library path;
    rel-L2 of the physical vorticity and of q <= 1e-5.
-9. Shallow-water trajectory, RK4 and ETDRK4: kernels against the
-   library path after one step and after `steps` steps; max abs error of
+9. Shallow-water trajectory, RK4 (with and without drag) and ETDRK4:
+   kernels against the library path (and the unfused forms against the
+   fused ones) after one step and after `steps` steps; max abs error of
    vort, div and eta = h - H over the JAX package's norms (div over
    max(|div|, |vort|)) <= 1e-5 and <= 2e-4, its bars for its two SW
-   paths; the rel-L2 of each field is reported. ETDRK4's fused form
-   against its unfused form at the same bars.
+   paths; the rel-L2 of each field is reported.
 9b. Barotropic ETDRK4 (dt = 3 s with the hyperviscosity of example 12,
    three times RK4's viscous bound) and tracer ETDRK4 (kappa = 50):
    kernels against the library path, rel-L2 <= 1e-5 after `steps`.
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
-11. With --profile: a torch.profiler trace of the SW ETDRK4 kernel path,
-   device time per step by kernel and the device's busy share.
+11. With --profile: torch.profiler traces of the SW ETDRK4 and the SW
+   drag kernel paths, device time per step by kernel and the device's
+   busy share.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
 with each kernel's launches on the main paths, its max abs error
@@ -77,6 +98,7 @@ power limit as nvidia-smi gives them, and {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -86,6 +108,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
@@ -143,10 +166,16 @@ KERNELS = {
                       "sw_combine_mv", ("sw-etdrk4",)),
     "ka": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
-           "ka", ("shallow-water", "sw-etdrk4")),
+           "ka", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")),
     "kc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
-           "kc", ("shallow-water", "sw-etdrk4")),
+           "kc", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")),
+    "kb": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
+           "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1043",
+           "kb", ("sw-drag", "adjoint")),
+    "plane_axpy": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
+                   "xlab_fftbarotropic_tpu/ops/pallas_sw.py:946",
+                   "plane_axpy", ("sw-unfused",)),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -158,11 +187,41 @@ PER_STEP = {
                       "sw_combine": 4, "rk4_combine": 1},
     "sw-etdrk4": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4, "kx_fwd": 4,
                   "sw_combine_mv": 4},
+    # per stage two inverse_pair (2 ka + kb each) and six rfft2 (ka + kc)
+    "sw-drag": {"ka": 40, "kb": 8, "kc": 24},
+    "sw-unfused": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4, "kx_fwd": 4,
+                   "sw_combine": 4, "plane_axpy": 3, "rk4_combine": 1},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
 PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
-               "sw-etdrk4": {"ka": 1, "kc": 1}}
+               "sw-etdrk4": {"ka": 1, "kc": 1},
+               "sw-unfused": {"ka": 1, "kc": 1}}
+# the main paths driven through cli.run.main
+CLI_FAMILIES = ("barotropic", "tracer", "shallow-water", "sw-etdrk4",
+                "sw-drag")
+SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag")
+# the SW drag path's drag (examples/09-drag-spindown)
+SW_R_DRAG = 2e-4
+# and its time step's cap: 0.9 of the 1 s RK4 viscous bound of example
+# 12's hyperviscosity (0.847 s, the gravity-wave bound, binds at 4096^2)
+SW_DRAG_DT_MAX = 0.9
+# the adjoint main path: the JAX package's 4DVar twin experiment
+# (scripts/assimilate_demo.py: a 10-step window, guess 0.9 x truth, Adam
+# at lr 1e-5), a few iterations of it
+ADJ_WINDOW, ADJ_ITERS, ADJ_LR = 10, 3, 1e-5
+
+
+def adjoint_launches(n: int, gradients: int, forwards: int) -> dict:
+    """ka, kb and kc launches of `forwards` forward-only barotropic
+    rollouts of n steps and `gradients` gradients through them. A
+    forward: 4 stages x (5 ka, 2 kb, 1 kc) per step, plus rfft2 of the
+    IC and irfft2 of the final state. A gradient adds the checkpointed
+    forward's recomputation, the backward's 4 x (5 ka, 1 kb, 4 kc) per
+    step and the adjoints of the two ends."""
+    fwd = {"ka": 20 * n + 2, "kb": 8 * n + 1, "kc": 4 * n + 1}
+    grad = {"ka": 60 * n + 4, "kb": 20 * n + 2, "kc": 24 * n + 2}
+    return {k: forwards * fwd[k] + gradients * grad[k] for k in fwd}
 # the shallow-water main path's error bars against its library path,
 # the JAX package's for its two SW paths (tests/test_pallas_sw.py)
 SW_TOL_ONE_STEP, SW_TOL = 1e-5, 2e-4
@@ -287,10 +346,13 @@ def kernel_cases(n: int, dev, seed: int):
     mv = (pr, pi, tuple(sw), (sr, si), t.kx, t.ky, t.lap, t.mask, 0.0, 0.0,
           0.0, 0.0, tuple(sw0), q)
     xr, xi = planes((n, n), 2)
+    kbw = planes((hny, n), 4)
+    ax_s, ax_r = planes((n, hny), 6), planes((n, hny), 6)
     # complex inputs of the library calls, made once here
     xc = torch.complex(xr, xi)
     pc = torch.complex(pr, pi)
     wc = torch.complex(wr[2:4], wi[2:4])
+    kbc = torch.complex(torch.stack(kbw[0::2]), torch.stack(kbw[1::2]))
 
     def per_field(out):                   # split stacked outputs by field
         return [p[f] for p in out for f in range(p.shape[0])]
@@ -398,6 +460,20 @@ def kernel_cases(n: int, dev, seed: int):
                                    (xr, xi), n),
         "kc": Case(lambda: ff.kc(xr, xi), lambda: ff.kc_plain(xr, xi), list,
                    (xr, xi), n, lambda: torch.fft.fft(xc, dim=0)),
+        "kb": Case(lambda: ff.kb(*kbw, scale), lambda: ff.kb_plain(*kbw, scale),
+                   list, tuple(kbw), n,
+                   lambda: torch.fft.irfft(kbc, n=n, dim=1)),
+        "kb_single": Case(lambda: ff.kb(*kbw[:2], None, None, scale)[:1],
+                          lambda: ff.kb_plain(*kbw[:2], None, None,
+                                              scale)[:1], list,
+                          tuple(kbw[:2]), n),
+        "plane_axpy": Case(lambda: fs.plane_axpy(ax_s, ax_r, 0.4235),
+                           lambda: fs.plane_axpy_plain(ax_s, ax_r, 0.4235),
+                           list, tuple(ax_s + ax_r)),
+        "plane_axpy_two": Case(
+            lambda: fs.plane_axpy(ax_s[:2], ax_r[:2], 0.4235),
+            lambda: fs.plane_axpy_plain(ax_s[:2], ax_r[:2], 0.4235), list,
+            tuple(ax_s[:2] + ax_r[:2])),
     }
 
 
@@ -476,8 +552,15 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         "sw-etdrk4": (["vort", "div", "h"],
                       ["-m", "sw", "--time-scheme", "etdrk4", "--dt",
                        repr(SW_ETD_DT)]),
+        # the SW configuration with drag (examples/09) and example 12's
+        # hyperviscosity: RK4 on the per-transform kernels
+        "sw-drag": (["vort", "div", "h"],
+                    ["-m", "sw", "--dt",
+                     repr(min(SW_DRAG_DT_MAX, max_stable_dt(cfg))),
+                     "--r-drag", repr(SW_R_DRAG), "--nu4",
+                     repr(example12_nu4(n))]),
     }[family]
-    if family in ("shallow-water", "sw-etdrk4"):
+    if family in SW_FAMILIES:
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
     with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
         inp, out = Path(tmp) / "input", Path(tmp) / "output"
@@ -525,11 +608,178 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     return dict(launches=launches, cli_wall_s=wall)
 
 
+def phase_sw_unfused(n: int, steps: int) -> dict:
+    """The SW unfused RK4 form's main path: the model entry point
+    ShallowWaterModel.build(..., fused_rk=False), one segment of `steps`
+    steps from the balanced weak vortex with the runner's zero forcing,
+    the launch counters set to 0 just before it and read just after."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+
+    cfg = ModelConfig(nx=n, ny=n)
+    cfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
+    m = ShallowWaterModel.build(cfg, "cuda", fused_rk=False)
+    s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    ff.reset_launches()
+    s = m.segment(s0, m.zero_source(), steps)
+    torch.cuda.synchronize()
+    launches = dict(ff.LAUNCHES)
+    check(all(bool(torch.isfinite(torch.view_as_real(z)).all()) for z in s),
+          "sw-unfused state not finite")
+    want = {k: PER_STEP["sw-unfused"].get(k, 0) * steps
+            + PER_SEGMENT["sw-unfused"].get(k, 0) for k in ff.LAUNCHES}
+    log(f"sw-unfused main path: {steps} steps at {n}^2 through "
+        f"ShallowWaterModel(fused_rk=False).segment; launches {launches}")
+    check(launches == want, f"launch counts {launches} != {want}")
+    return dict(launches=launches)
+
+
+@contextlib.contextmanager
+def _refusing_library():
+    """torch.fft.* and torch.matmul raise inside the block."""
+    def refuse(*args, **kwargs):
+        raise SmokeError("a library transform ran inside the kernel path")
+
+    names = [k for k in dir(torch.fft)
+             if not k.startswith("_") and callable(getattr(torch.fft, k))]
+    saved = {k: getattr(torch.fft, k) for k in names}
+    saved_matmul = torch.matmul
+    try:
+        for k in names:
+            setattr(torch.fft, k, refuse)
+        torch.matmul = refuse
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(torch.fft, k, fn)
+        torch.matmul = saved_matmul
+
+
+def phase_adjoint(n: int, dev) -> dict:
+    """The adjoint main path and its checks (phase 5e)."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.cli import assimilate
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.io.fieldio import read_field, write_field
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+
+    w = ADJ_WINDOW
+    cfg = ModelConfig(nx=n, ny=n)
+    truth = torch.from_numpy(makefields.gaussian(cfg)).to(dev)
+    src = torch.zeros(cfg.grid_shape, device=dev)
+    with torch.no_grad():
+        target = adjoint.make_rollout(cfg, w, device=dev)(truth, src)
+    guess = 0.9 * truth
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_adj_") as tmp:
+        tmp = Path(tmp)
+        write_field(tmp / "target.bin", target.cpu().numpy())
+        write_field(tmp / "guess.bin", guess.cpu().numpy())
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        rc = assimilate.main([
+            "--nx", str(n), "--ny", str(n), "--target",
+            str(tmp / "target.bin"), "--guess", str(tmp / "guess.bin"),
+            "--out", str(tmp / "rec.bin"), "--steps", str(w), "--iters",
+            str(ADJ_ITERS), "--lr", repr(ADJ_LR), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = dict(ff.LAUNCHES)
+        check(rc == 0, f"cli.assimilate.main returned {rc}")
+        losses = np.loadtxt(tmp / "rec.bin.loss.txt")
+        rec = torch.from_numpy(read_field(tmp / "rec.bin",
+                                          cfg.grid_shape)).to(dev)
+    # the initial cost and the last one are forward-only rollouts
+    want = {**dict.fromkeys(ff.LAUNCHES, 0),
+            **adjoint_launches(w, gradients=ADJ_ITERS, forwards=2)}
+    ratio = float(losses[-1] / losses[0])
+    err = rel_l2(rec, truth) / rel_l2(guess, truth)
+    log(f"adjoint main path: the twin experiment at {n}^2 (window {w}, "
+        f"guess 0.9 x truth), {ADJ_ITERS} Adam iterations at lr {ADJ_LR} "
+        f"through cli.assimilate.main in {wall:.2f} s; cost "
+        f"{losses[0]:.6e} -> {losses[-1]:.6e} (ratio {ratio:.4e}), IC "
+        f"error {err:.4f} of the first guess's; launches {launches}")
+    check(launches == want, f"adjoint launch counts {launches} != {want}")
+    check(bool(np.isfinite(losses).all()) and losses.shape == (
+        ADJ_ITERS + 1,), f"cost history {losses}")
+    check(losses[-1] < losses[0], f"the cost did not fall: {losses}")
+    check(bool(torch.isfinite(rec).all()), "recovered IC not finite")
+    check("jax" not in sys.modules, "a jax module was imported")
+    out.update(launches=launches, cli_wall_s=wall, losses=losses.tolist(),
+               cost_ratio=ratio, ic_error_ratio=err)
+
+    # the gradient at the first guess, kernels against torch.fft
+    losses_fn = {b: adjoint.final_state_misfit(
+        cfg.replace(fft_backend=b), target, w, device=dev)
+        for b in ("pallas", "xla")}
+    vg = {b: adjoint.loss_and_grad(f, device=dev)
+          for b, f in losses_fn.items()}
+    with _refusing_library():
+        val_k, grad_k = vg["pallas"](guess, src)
+        torch.cuda.synchronize()
+    val_l, grad_l = vg["xla"](guess, src)
+    rel = rel_l2(grad_k, grad_l)
+    log(f"adjoint gradient at {n}^2, window {w}: kernels vs torch.fft "
+        f"rel-L2 {rel:.3e} (cost {float(val_k):.6e} vs {float(val_l):.6e});"
+        f" the kernel path's loss and backward() ran with torch.fft.* and "
+        f"torch.matmul raising")
+    check(bool(torch.isfinite(grad_k).all()), "kernel gradient not finite")
+    check(rel <= 5e-4, f"adjoint gradient kernels vs library {rel:.3e}")
+    out["grad_rel_l2"] = rel
+
+    # time: forward ms per step (no graph), gradient ms per window step,
+    # peak memory of a gradient, in turns
+    rolls = {b: adjoint.make_rollout(cfg.replace(fft_backend=b), w,
+                                     device=dev) for b in ("pallas", "xla")}
+    times = {b: {"fwd": [], "grad": []} for b in rolls}
+    peak = {}
+    for b in ("pallas", "xla", "xla", "pallas"):
+        with torch.no_grad():
+            rolls[b](guess, src)                    # warm-up
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rolls[b](guess, src)
+            end.record()
+            end.synchronize()
+        times[b]["fwd"].append(start.elapsed_time(end) / w)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start.record()
+        vg[b](guess, src)
+        end.record()
+        end.synchronize()
+        times[b]["grad"].append(start.elapsed_time(end) / w)
+        peak[b] = torch.cuda.max_memory_allocated() - base
+    names = {"pallas": "kernels", "xla": "library"}
+    for b, ts in times.items():
+        fwd = sum(ts["fwd"]) / len(ts["fwd"])
+        grad = sum(ts["grad"]) / len(ts["grad"])
+        log(f"time adjoint {names[b]:8s}: forward {fwd:.3f} ms/step "
+            f"({', '.join(f'{t:.3f}' for t in ts['fwd'])}), gradient "
+            f"{grad:.3f} ms per window step ("
+            f"{', '.join(f'{t:.3f}' for t in ts['grad'])}; "
+            f"{grad / fwd:.2f}x the forward), peak device memory of a "
+            f"gradient {peak[b] / 2**20:.1f} MiB above what was resident")
+        out[f"time_{names[b]}"] = dict(fwd_ms_per_step=fwd,
+                                       grad_ms_per_step=grad,
+                                       fwd_runs=ts["fwd"],
+                                       grad_runs=ts["grad"],
+                                       peak_bytes=peak[b])
+    return out
+
+
 def build_models(n: int, dev) -> dict:
     """The paths compared and timed, with their initial state and
-    forcing: bench.py's barotropic, tracer, shallow-water and
-    sw-etdrk4 configurations, and the barotropic (example 12's
-    hyperviscosity, dt = 3 s) and tracer ETDRK4 paths. The ETD tables
+    forcing: bench.py's barotropic, tracer, shallow-water (fused and
+    unfused RK4) and sw-etdrk4 configurations, the barotropic (example
+    12's hyperviscosity, dt = 3 s) and tracer ETDRK4 paths, and shallow
+    water with drag and hyperviscosity (the per-transform kernels). The ETD tables
     are built on the card (the cache is off here)."""
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
@@ -548,7 +798,18 @@ def build_models(n: int, dev) -> dict:
           "library": TracerModel.build(lib, dev, kappa=50.0)}
     sw_dt = min(3.0, max_stable_dt(cfg))
     sw = {"kernels": ShallowWaterModel.build(cfg.replace(dt=sw_dt), dev),
+          "unfused": ShallowWaterModel.build(cfg.replace(dt=sw_dt), dev,
+                                             fused_rk=False),
           "library": ShallowWaterModel.build(lib.replace(dt=sw_dt), dev)}
+    swd_cfg = cfg.replace(dt=min(sw_dt, SW_DRAG_DT_MAX), r_drag=SW_R_DRAG,
+                          nu4=example12_nu4(n))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # the per-transform warning
+        swd = {"kernels": ShallowWaterModel.build(swd_cfg, dev),
+               "library": ShallowWaterModel.build(
+                   swd_cfg.replace(fft_backend="xla"), dev)}
+    check(swd["kernels"].per_transform, "SW drag: not the per-transform "
+                                        "path")
     swe_cfg = cfg.replace(time_scheme="etdrk4", dt=SW_ETD_DT)
     swe = {"kernels": ShallowWaterModel.build(swe_cfg, dev),
            "unfused": ShallowWaterModel.build(swe_cfg, dev, etd_fuse=False),
@@ -562,7 +823,7 @@ def build_models(n: int, dev) -> dict:
     tre = {"kernels": TracerModel.build(tre_cfg, dev, kappa=50.0),
            "library": TracerModel.build(tre_cfg.replace(fft_backend="xla"),
                                         dev, kappa=50.0)}
-    groups = (bt, tr, sw, swe, bte, tre)
+    groups = (bt, tr, sw, swe, bte, tre, swd)
     for m in (p[k] for p in groups for k in p if k != "library"):
         check(m.backend == "pallas", f"backend {m.backend}, not pallas")
     check(all(p["library"].backend == "xla" for p in groups),
@@ -578,31 +839,19 @@ def build_models(n: int, dev) -> dict:
                        k.zero_source()),
             "shallow-water": (sw, sw0, None),
             "sw-etdrk4": (swe, sw0, None),
+            # as the runner drives it: the zero forcing field
+            "sw-drag": (swd, sw0, k.zero_source()),
             "barotropic-etdrk4": (bte, k.init_state(v0), k.zero_source()),
             "tracer-etdrk4": (tre, tr["kernels"].init_state(v0, q0),
                               k.zero_source())}
 
 
 def phase_no_library(n: int, models: dict) -> None:
-    def refuse(*args, **kwargs):
-        raise SmokeError("a library transform ran inside the kernel path")
-
-    names = [k for k in dir(torch.fft)
-             if not k.startswith("_") and callable(getattr(torch.fft, k))]
-    saved = {k: getattr(torch.fft, k) for k in names}
-    saved_matmul = torch.matmul
     out = {}
-    try:
-        for k in names:
-            setattr(torch.fft, k, refuse)
-        torch.matmul = refuse
+    with _refusing_library():
         for family, (paths, s0, src) in models.items():
             out[family] = paths["kernels"].segment(s0, src, 2)
         torch.cuda.synchronize()
-    finally:
-        for k, fn in saved.items():
-            setattr(torch.fft, k, fn)
-        torch.matmul = saved_matmul
     for family, s in out.items():
         for z in (s if isinstance(s, tuple) else (s,)):
             check(bool(torch.isfinite(torch.view_as_real(z)).all()),
@@ -621,7 +870,7 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
     the library path (and the fused against the unfused form)."""
     out = {}
     for family, (paths, s0, src) in models.items():
-        if family in ("shallow-water", "sw-etdrk4"):
+        if family in SW_FAMILIES:
             out.update(sw_trajectory(family, n, steps, paths, s0, src))
             continue
         diags = {k: m.diags(m.segment(s0, src, steps))
@@ -831,8 +1080,9 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write the full report as JSON to PATH")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the SW ETDRK4 kernel path with "
-                    "torch.profiler (the breakdown of where its time goes)")
+                    help="also trace the SW ETDRK4 and the SW drag kernel "
+                    "paths with torch.profiler (the breakdown of where "
+                    "their time goes)")
     args = ap.parse_args(argv)
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
@@ -867,14 +1117,18 @@ def main(argv=None) -> int:
     report["kernels"] = phase_kernels(args.n, dev)
     report["main_paths"] = {family: phase_main_path(family, args.n,
                                                     args.steps)
-                            for family in PER_STEP}
+                            for family in CLI_FAMILIES}
+    report["main_paths"]["sw-unfused"] = phase_sw_unfused(args.n,
+                                                          args.steps)
+    report["main_paths"]["adjoint"] = phase_adjoint(args.n, dev)
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)
     report["trajectories"] = phase_trajectories(args.n, args.steps, models)
     report["time"] = phase_time(args.n, args.steps, models)
     if args.profile:
-        report["profile"] = phase_profile(models)
+        report["profile"] = {f: phase_profile(models, f)
+                             for f in ("sw-etdrk4", "sw-drag")}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))

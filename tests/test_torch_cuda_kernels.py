@@ -589,3 +589,132 @@ def test_sw_etd_launch_counts_and_library_agreement(cuda):
     for other in (unfused, lib):
         ref = other.segment(s0, other.zero_source(), 2)
         assert max(_phys_err(s, ref, 256)) < TOL
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("paired", [True, False])
+def test_kb_matches_plain(cuda, n, paired):
+    """The x-major paired c2r y-stage (and its single form, no partner)
+    against its plain version."""
+    rng = np.random.default_rng(n + 31)
+    w = _planes(rng, (n // 2 + 1, n), 4, cuda)
+    if not paired:
+        w[2:] = [None, None]
+    scale = 1.0 / (n * n)
+    got = ff.kb(*w, scale)
+    want = ff.kb_plain(*w, scale)
+    torch.cuda.synchronize()
+    assert got[0].shape == (n, n) and _rel(got[0], want[0]) < TOL
+    if paired:
+        assert _rel(got[1], want[1]) < TOL
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kb_leak_guard(cuda, n):
+    """Junk in the imaginary part of the self-conjugate rows 0 and ny/2
+    is projected out, not leaked into the paired field."""
+    rng = np.random.default_rng(n + 32)
+    war, wai, wbr, wbi = _planes(rng, (n // 2 + 1, n), 4, cuda)
+    for w in (wai, wbi):
+        w[0] = 0.0
+        w[n // 2] = 0.0
+    clean = ff.kb(war, wai, wbr, wbi, 1.0)
+    pai, pbi = wai.clone(), wbi.clone()
+    pai[0] = 10.0
+    pbi[n // 2] = -7.0
+    dirty = ff.kb(war, pai, wbr, pbi, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(clean[0], dirty[0]) and torch.equal(clean[1], dirty[1])
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 2049), (256, 33)])
+@pytest.mark.parametrize("n_planes", [1, 2, 6])
+def test_plane_axpy_matches_plain_bit_for_bit(cuda, shape, n_planes):
+    rng = np.random.default_rng(shape[0] + n_planes + 40)
+    s = tuple(_planes(rng, shape, n_planes, cuda))
+    r = tuple(_planes(rng, shape, n_planes, cuda))
+    got = fs.plane_axpy(s, r, 0.4235)
+    want = fs.plane_axpy_plain(s, r, 0.4235)
+    torch.cuda.synchronize()
+    assert len(got) == n_planes
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_sw_drag_and_unfused_launch_counts_and_agreement(cuda):
+    """Two SW RK4 steps with drag and hyperviscosity on the per-transform
+    kernels launch 4 stages x (10 ka, 2 kb, 6 kc) per step and agree with
+    the library path to 1e-5 over the JAX norms; the unfused plane form
+    launches 3 plane_axpy per step beside the fused form's kernels less
+    its axpy, and gives the fused form's bits."""
+    import warnings
+
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+
+    cfg = ModelConfig(nx=256, ny=256)
+    cfg = cfg.replace(dt=max_stable_dt(cfg))
+    drag = cfg.replace(r_drag=2e-4, nu4=1e9)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = ShallowWaterModel.build(drag, cuda)
+    lib = ShallowWaterModel.build(drag.replace(fft_backend="xla"), cuda)
+    assert m.per_transform and not lib.per_transform
+    s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    ff.reset_launches()
+    s = m.segment(s0, m.zero_source(), 2)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), "ka": 80,
+                           "kb": 16, "kc": 48}
+    assert max(_phys_err(s, lib.segment(s0, lib.zero_source(), 2),
+                         256)) < TOL
+    fused = ShallowWaterModel.build(cfg, cuda)
+    unfused = ShallowWaterModel.build(cfg, cuda, fused_rk=False)
+    ff.reset_launches()
+    b = unfused.segment(s0, unfused.zero_source(), 2)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), "ka_sw": 8,
+                           "kb_pair": 16, "ky_all": 8, "kx_fwd": 8,
+                           "sw_combine": 8, "plane_axpy": 6,
+                           "rk4_combine": 2, "ka": 1, "kc": 1}
+    a = fused.segment(s0, fused.zero_source(), 2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_adjoint_gradient_on_the_kernels(cuda):
+    """A 3-step barotropic rollout gradient at 256² through the
+    per-transform kernels against the torch.fft path's, rel-L2 <= 5e-4,
+    with the launches of both sweeps: the forward 4 stages x (5 ka,
+    2 kb, 1 kc) per step, run twice (once more when the checkpointed
+    segments are recomputed), the backward 4 x (5 ka, 1 kb, 4 kc), and
+    the transforms at the ends (forward of the IC, inverse of the final
+    state) and their adjoints: 60n + 4 ka, 20n + 2 kb, 24n + 2 kc."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+
+    n = 3
+    cfg = ModelConfig(nx=256, ny=256)
+    truth = makefields.gaussian(cfg)
+    src = torch.zeros(cfg.grid_shape, device=cuda)
+    with torch.no_grad():
+        target = adjoint.make_rollout(cfg, n, device=cuda)(truth, src)
+    grads = {}
+    for backend in ("xla", "pallas"):
+        loss = adjoint.final_state_misfit(cfg.replace(fft_backend=backend),
+                                          target, n, device=cuda)
+        ff.reset_launches()
+        _, grads[backend] = adjoint.loss_and_grad(loss, device=cuda)(
+            0.9 * truth, src)
+        torch.cuda.synchronize()
+        if backend == "pallas":
+            assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0),
+                                   "ka": 60 * n + 4, "kb": 20 * n + 2,
+                                   "kc": 24 * n + 2}
+    a, b = grads["pallas"], grads["xla"]
+    assert float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b)) < 5e-4

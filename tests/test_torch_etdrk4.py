@@ -350,9 +350,9 @@ def test_drag_and_hyperviscosity_take_the_plane_path(extra):
         assert m.backend == "pallas"
         assert tsw.resolve_sw_backend(cfg.replace(fft_backend=backend)) \
             == "pallas"
-    with pytest.raises(NotImplementedError, match="row 13"):
-        tsw.resolve_sw_backend(cfg.replace(time_scheme="rk4",
-                                           fft_backend="pallas"))
+    with pytest.warns(UserWarning, match="per-transform pipeline"):
+        assert tsw.resolve_sw_backend(cfg.replace(
+            time_scheme="rk4", fft_backend="pallas")) == "pallas"
     with pytest.warns(UserWarning, match="gravity-wave CFL"):
         tsw.ShallowWaterModel.build(cfg.replace(time_scheme="rk4",
                                                 fft_backend="xla"), CPU)

@@ -2,8 +2,10 @@
 interpreter (no GPU visible), it imports every module, steps the
 barotropic, tracer and shallow-water models twice on the CPU in both
 time schemes (RK4 and ETDRK4), on the plane stepper and on the library
-path, and ends with no jax and no xlab_fftbarotropic_tpu module loaded;
-and its CLI refuses to run without a GPU unless told --device cpu."""
+path, the SW model with drag on the per-transform path, takes a gradient
+through the adjoint rollout on both transform triples, and ends with no
+jax and no xlab_fftbarotropic_tpu module loaded; and its CLIs refuse to
+run without a GPU unless told --device cpu."""
 
 import os
 import subprocess
@@ -19,12 +21,12 @@ import sys
 import numpy as np
 import torch
 import xlab_fftbarotropic_torch
-from xlab_fftbarotropic_torch import config, convert, runner
-from xlab_fftbarotropic_torch.cli import run
+from xlab_fftbarotropic_torch import adjoint, config, convert, runner
+from xlab_fftbarotropic_torch.cli import assimilate, run
 from xlab_fftbarotropic_torch.forcing import source
 from xlab_fftbarotropic_torch.io import checkpoint, fieldio, native_stream
-from xlab_fftbarotropic_torch.ops import (_build, fft, fused_fft, fused_sw,
-                                          fused_tracer, spectral)
+from xlab_fftbarotropic_torch.ops import (_build, fft, fused_diff, fused_fft,
+                                          fused_sw, fused_tracer, spectral)
 from xlab_fftbarotropic_torch.models import etdrk4
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.models.shallow_water import ShallowWaterModel
@@ -55,6 +57,18 @@ for scheme in ("rk4", "etdrk4"):
                                                                zeta0=1e-5)),
                        sm.zero_source(), 2)
         assert bool(torch.isfinite(sm.diags(w).h).all())
+    cfg = ModelConfig(nx=64, ny=64, fft_backend=backend, r_drag=2e-4)
+    sm = ShallowWaterModel.build(cfg, cpu, fused_rk=False)
+    assert sm.per_transform == (backend == "pallas")
+    w = sm.segment(sm.geostrophic_init(makefields.gaussian(cfg,
+                                                           zeta0=1e-5)),
+                   sm.zero_source(), 2)
+    assert bool(torch.isfinite(sm.diags(w).h).all())
+    loss = adjoint.final_state_misfit(cfg, np.zeros((64, 64), np.float32), 2,
+                                      device="cpu")
+    _, g = adjoint.loss_and_grad(loss, device="cpu")(
+        makefields.gaussian(cfg), np.zeros((64, 64), np.float32))
+    assert bool(torch.isfinite(g).all())
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 tpu = sorted(k for k in sys.modules if k.startswith("xlab_fftbarotropic_tpu"))
 assert not tpu, tpu
@@ -86,6 +100,18 @@ def test_cli_without_gpu_stops_unless_told_cpu(tmp_path, family):
          str(out), "--nx", "64", "--ny", "64", "--total-steps", "1"]
         + family, cwd=tmp_path, env=_env(), capture_output=True, text=True,
         timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not out.exists()
+
+
+def test_assimilate_cli_without_gpu_stops(tmp_path):
+    out = tmp_path / "rec.bin"
+    proc = subprocess.run(
+        [sys.executable, "-m", "xlab_fftbarotropic_torch.cli.assimilate",
+         "--nx", "64", "--ny", "64", "--target", "t.bin", "--guess",
+         "g.bin", "--out", str(out), "--steps", "2"], cwd=tmp_path,
+        env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not out.exists()

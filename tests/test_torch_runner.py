@@ -185,7 +185,8 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--fast-transforms"], ["--shard"], ["--ensemble", "4"],
     ["-m", "sw", "--time-scheme", "etdrk4", "--beta", "1e-11"],
-    ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5"],
+    ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5",
+     "--shard"],
     ["-m", "fd"], ["-m", "jacobian"],
     ["-m", "tracer", "--time-scheme", "etdrk4", "--shard"], ["-m", "climate"],
     ["--time-scheme", "etdrk4", "--fast-transforms"], ["--fft-backend", "mxu"],

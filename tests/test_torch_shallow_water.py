@@ -205,15 +205,15 @@ def test_library_split_and_unpaired_forms_agree():
 @pytest.mark.parametrize("drag", [dict(r_drag=1e-5), dict(nu4=1e5),
                                   dict(r_drag=1e-5, nu4=1e5)])
 def test_drag_and_hyperviscosity_on_the_library_path(drag):
-    """r_drag and nu4 run on the library path (auto resolves there) and
-    track the JAX library path."""
-    cfg = _cfg(nx=64, ny=64, **drag)
+    """r_drag and nu4 on the library path (fft_backend "xla") track the
+    JAX library path; "auto" takes the per-transform kernels there
+    (tests/test_torch_per_transform.py)."""
+    cfg = _cfg(nx=64, ny=64, fft_backend="xla", **drag)
     vort = makefields.gaussian(cfg)
-    jm = jsw.ShallowWaterModel.build(cfg.replace(fft_backend="xla"))
+    jm = jsw.ShallowWaterModel.build(cfg)
     want = jm.segment(jm.geostrophic_init(vort), jm.zero_source(), 5)
-    with pytest.warns(UserWarning, match="r_drag/nu4"):
-        m = tsw.ShallowWaterModel.build(cfg, CPU)
-    assert m.backend == "xla"
+    m = tsw.ShallowWaterModel.build(cfg, CPU)
+    assert m.backend == "xla" and not m.per_transform
     got = m.segment(m.geostrophic_init(vort), m.zero_source(), 5)
     assert max(_phys_err(want, got, cfg.grid_shape)) < 1e-5
     plain = tsw.ShallowWaterModel.build(_cfg(nx=64, ny=64), CPU)
@@ -237,9 +237,10 @@ def test_builds_what_is_ported_and_refuses_the_rest():
     etd = tsw.ShallowWaterModel.build(_cfg(nx=64, ny=64,
                                            time_scheme="etdrk4"), CPU)
     assert etd.etd_tables.Q.shape == (3, 3, 64, 33)
-    with pytest.raises(NotImplementedError, match="row 13"):
-        tsw.ShallowWaterModel.build(_cfg(fft_backend="pallas", nu4=1e5),
-                                    CPU)
+    with pytest.warns(UserWarning, match="per-transform"):
+        drag = tsw.ShallowWaterModel.build(_cfg(fft_backend="pallas",
+                                                nu4=1e5), CPU)
+    assert drag.backend == "pallas" and drag.per_transform
     with pytest.raises(ValueError):
         m.segment(tsw.SWState(*(torch.zeros((64, 33)),) * 3), None, 1)
 

@@ -17,34 +17,39 @@ complex64 (nx, ny//2+1); each stage tendency is dealiased, the state
 never; the forcing S feeds the vorticity equation only and is fixed
 across the stages.
 
-Two stepping paths, chosen once when the model is built:
+Three stepping paths, chosen once when the model is built:
 
 * "pallas", the plane stepper (rk4_step_planes): the state moves as six
   float32 planes through ka_sw, two kb_pair, ky_all, kx_fwd and
   sw_combine per stage (ops/fused_sw.py), the stage axpy fused into
   sw_combine for stages 1-3 and the RK4 tail one rk4_combine: 25
   launches per step, plus ka and kc once per segment for the forcing
-  spectrum. On a CUDA device they are the hand-written kernels; on the
-  CPU, their plain torch versions.
+  spectrum. fused_rk=False is the unfused form (the JAX package's
+  XFB_SW_FUSED_RK=0): sw_combine without its axpy and three plane_axpy
+  launches per step. On a CUDA device they are the hand-written
+  kernels; on the CPU, their plain torch versions.
+* "pallas" under RK4 with r_drag or nu4 != 0, the per-transform path:
+  the plane stepper carries neither (its lap table also serves the
+  pressure term and the mean-mode guard, so the barotropic fold would
+  corrupt it), so the library tendency runs on the per-transform
+  kernels (ops/fused_fft.py rfft2, irfft2, inverse_pair: ka, kb, kc),
+  as the JAX package falls back to its per-transform pipeline there,
+  with the same warning: per stage two inverse_pair and six forward
+  transforms (five products and the forcing), 10 ka, 2 kb and 6 kc.
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 "auto" takes "pallas" on the square power-of-two grids the kernels take
-(64..8192), else "xla". The RK4 plane stepper carries no drag and no
-hyperviscosity (its lap table also serves the pressure term and the
-mean-mode guard, so the barotropic fold would corrupt it): under RK4
-with r_drag or nu4 != 0, "auto" takes "xla" with a warning, and an
-explicit "pallas" raises (the JAX package falls back to its
-per-transform kernel pipeline there, which needs kernel row 13, not
-ported yet). Under ETDRK4 both live in the linear tables, so the plane
-path takes them (etdrk4_step_planes: 4 ka_sw, 8 kb_pair, 4 ky_all,
-4 kx_fwd and 4 sw_combine_mv per step in the default fused form).
+(64..8192), else "xla". Under ETDRK4 drag and hyperviscosity live in the
+linear tables, so the plane path takes them (etdrk4_step_planes: 4
+ka_sw, 8 kb_pair, 4 ky_all, 4 kx_fwd and 4 sw_combine_mv per step in the
+default fused form).
 """
 
 from __future__ import annotations
 
 import math
 import warnings
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +60,8 @@ from ..ops import fused_sw as fs
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
 from . import etdrk4 as etd
-from .barotropic import (DebugFields, check_time_scheme, resolve_device,
+from .barotropic import (DebugFields, _paired, check_time_scheme,
+                         resolve_device, resolve_fft_backend,
                          resolve_fft_backend_name)
 
 # the library path pairs the forward transforms up to this size, as the
@@ -99,31 +105,36 @@ def sw_velocities(t: SpectralTables, zeta_hat: torch.Tensor,
 
 def tendency(t: SpectralTables, s: SWState, src, f: float, g: float,
              nu: float, mean_depth: float, grid_shape: Tuple[int, int],
+             fwd: Callable = fft.forward, inv: Callable = fft.inverse,
+             inv_pair: Optional[Callable] = fft.inverse_pair,
              fwd_pair: bool = False, split: bool = False,
              r_drag: float = 0.0, nu4: float = 0.0) -> SWState:
-    """Un-dealiased spectral tendencies of (zeta, delta, eta) on the
-    library path: the four inverse transforms paired into two; with
-    fwd_pair the flux pairs (qu, qv) and (eta u, eta v) go through one
-    complex fft2 each. split applies the exactly linear f0/gravity terms
-    as spectral multiplies instead of through the transforms. Zero
-    r_drag and nu4 skip their terms; src None skips the forcing."""
+    """Un-dealiased spectral tendencies of (zeta, delta, eta): the four
+    inverse transforms paired into two, through `fwd`, `inv`, `inv_pair`
+    (torch.fft by default, or the per-transform kernels); with fwd_pair
+    (torch.fft only) the flux pairs (qu, qv) and (eta u, eta v) go
+    through one complex fft2 each. split applies the exactly linear
+    f0/gravity terms as spectral multiplies instead of through the
+    transforms. Zero r_drag and nu4 skip their terms; src None skips the
+    forcing."""
+    pair = _paired(inv, inv_pair)
     u_hat, v_hat = sw_velocities(t, s.zeta_hat, s.div_hat)
-    u, v = fft.inverse_pair(u_hat, v_hat, grid_shape)
-    zeta, eta = fft.inverse_pair(s.zeta_hat, s.eta_hat, grid_shape)
+    u, v = pair(u_hat, v_hat, grid_shape)
+    zeta, eta = pair(s.zeta_hat, s.eta_hat, grid_shape)
     q = zeta if split else zeta + f
     if fwd_pair:
         qu_hat, qv_hat = fft.forward_pair(q * u, q * v)
         eu_hat, ev_hat = fft.forward_pair(eta * u, eta * v)
     else:
-        qu_hat, qv_hat = fft.forward(q * u), fft.forward(q * v)
-        eu_hat, ev_hat = fft.forward(eta * u), fft.forward(eta * v)
+        qu_hat, qv_hat = fwd(q * u), fwd(q * v)
+        eu_hat, ev_hat = fwd(eta * u), fwd(eta * v)
     ke = 0.5 * (u * u + v * v)
-    phi_hat = fft.forward(ke if split else g * eta + ke)
+    phi_hat = fwd(ke if split else g * eta + ke)
 
     dzeta = -(sp.gradx(t, qu_hat) + sp.grady(t, qv_hat)) \
         + nu * sp.laplacian(t, s.zeta_hat)
     if src is not None:
-        dzeta = dzeta + fft.forward(src)
+        dzeta = dzeta + fwd(src)
     ddiv = (sp.gradx(t, qv_hat) - sp.grady(t, qu_hat)) \
         - sp.laplacian(t, phi_hat) + nu * sp.laplacian(t, s.div_hat)
     deta = -(sp.gradx(t, eu_hat) + sp.grady(t, ev_hat)) \
@@ -153,15 +164,18 @@ def _axpy(s0: SWState, k: SWState, a: float) -> SWState:
 
 def rk4_step(t: SpectralTables, s: SWState, src, dt: float, f: float,
              g: float, nu: float, mean_depth: float,
-             grid_shape: Tuple[int, int], fwd_pair: bool = False,
-             split: bool = False, r_drag: float = 0.0,
-             nu4: float = 0.0) -> SWState:
+             grid_shape: Tuple[int, int], fwd: Callable = fft.forward,
+             inv: Callable = fft.inverse,
+             inv_pair: Optional[Callable] = fft.inverse_pair,
+             fwd_pair: bool = False, split: bool = False,
+             r_drag: float = 0.0, nu4: float = 0.0) -> SWState:
     """Classic RK4 with per-stage dealiased tendencies (main.cpp:286-317)
-    on the library path."""
+    on `tendency`, the library path or the per-transform kernels."""
     def d(x):
         return _dealias_state(t, tendency(
-            t, x, src, f, g, nu, mean_depth, grid_shape, fwd_pair=fwd_pair,
-            split=split, r_drag=r_drag, nu4=nu4))
+            t, x, src, f, g, nu, mean_depth, grid_shape, fwd=fwd, inv=inv,
+            inv_pair=inv_pair, fwd_pair=fwd_pair, split=split,
+            r_drag=r_drag, nu4=nu4))
 
     k1 = d(s)
     k2 = d(_axpy(s, k1, dt * 0.5))
@@ -174,13 +188,14 @@ def rk4_step(t: SpectralTables, s: SWState, src, dt: float, f: float,
 
 def rk4_step_planes(t: SpectralTables, planes, src_planes, dt: float,
                     f: float, g: float, nu: float, mean_depth: float,
-                    eta_scale: float):
+                    eta_scale: float, fused_rk: bool = True):
     """RK4 on the state as six float32 planes (zr, zi, dr, di, er, ei)
-    through the SW kernels, in the JAX default's fused-RK form
+    through the SW kernels. fused_rk=True, the JAX default
     (XFB_SW_FUSED_RK=1): stages 1-3 take the next stage state from
-    sw_combine's axpy, the tail is one plane_rk4_combine. src_planes is
-    the forcing spectrum (or None), eta_scale the pairing equalizer, both
-    fixed across the stages."""
+    sw_combine's axpy; fused_rk=False: from a plane_axpy launch. Either
+    way the tail is one plane_rk4_combine, and the two forms give the
+    same bits. src_planes is the forcing spectrum (or None), eta_scale
+    the pairing equalizer, both fixed across the stages."""
     def d(p, axpy=None):
         u, v, zeta, eta_s = fs.inverse_quad_planes(*p, t.kx, t.ky, t.rlap,
                                                    eta_scale)
@@ -188,9 +203,16 @@ def rk4_step_planes(t: SpectralTables, planes, src_planes, dt: float,
                                      t.kx, t.ky, t.lap, t.mask, f, g, nu,
                                      mean_depth, eta_scale, axpy=axpy)
 
-    r1, s2 = d(planes, axpy=(planes, dt * 0.5))
-    r2, s3 = d(s2, axpy=(planes, dt * 0.5))
-    r3, s4 = d(s3, axpy=(planes, dt))
+    h = dt * 0.5
+    if fused_rk:
+        r1, s2 = d(planes, axpy=(planes, h))
+        r2, s3 = d(s2, axpy=(planes, h))
+        r3, s4 = d(s3, axpy=(planes, dt))
+    else:
+        r1 = d(planes)
+        r2 = d(fs.plane_axpy(planes, r1, h))
+        r3 = d(fs.plane_axpy(planes, r2, h))
+        s4 = fs.plane_axpy(planes, r3, dt)
     r4 = d(s4)
     return fs.plane_rk4_combine(planes, r1, r2, r3, r4, dt / 6.0)
 
@@ -215,27 +237,24 @@ def max_stable_dt(cfg) -> float:
     return 0.9 * 2.0 * math.sqrt(2.0) / (c * k_max)
 
 
+def per_transform(cfg, backend: str) -> bool:
+    """True where the SW kernels run the per-transform path: RK4 with
+    r_drag or nu4 != 0 on the kernel backend."""
+    return backend == "pallas" and cfg.time_scheme != "etdrk4" and (
+        float(cfg.r_drag) != 0.0 or float(cfg.nu4) != 0.0)
+
+
 def resolve_sw_backend(cfg, warn: bool = True) -> str:
-    """The stepping path for a SW configuration, decided once: the
-    barotropic shape gate, then, under RK4 only, the drag/hyperviscosity
-    gate ("auto" takes "xla" when r_drag or nu4 != 0, with a warning; an
-    explicit "pallas" raises). ETDRK4 carries both in its tables."""
+    """The stepping backend for a SW configuration, decided once: the
+    barotropic shape gate. Under RK4 with r_drag or nu4 != 0 the kernel
+    backend takes the per-transform path, with the JAX package's
+    warning."""
     name = resolve_fft_backend_name(cfg.fft_backend, cfg.grid_shape)
-    if name == "pallas" and cfg.time_scheme != "etdrk4" and (
-            float(cfg.r_drag) != 0.0 or float(cfg.nu4) != 0.0):
-        if cfg.fft_backend == "pallas":
-            raise NotImplementedError(
-                "shallow water with r_drag or nu4 != 0 runs the JAX "
-                "package's per-transform kernel pipeline under RK4, which "
-                "needs TPU kernel row 13 (_kb_kernel, ROADMAP.md queue B), "
-                "not ported yet; use fft_backend 'xla' or 'auto', or "
-                "time_scheme 'etdrk4' (drag in its tables)")
-        if warn:
-            warnings.warn(
-                "r_drag/nu4 != 0: the SW plane stepper does not carry "
-                "these terms — this model runs the torch.fft library path",
-                stacklevel=3)
-        return "xla"
+    if warn and per_transform(cfg, name):
+        warnings.warn(
+            "r_drag/nu4 != 0: the fused SW plane stepper does not carry "
+            "these terms — falling back to the per-transform pipeline for "
+            "this run", stacklevel=3)
     return name
 
 
@@ -250,10 +269,13 @@ class ShallowWaterModel(nn.Module):
     `diags`:   state -> SWDiagFields;  `stats`: state -> SWStats;
     `debug`:   state, src -> DebugFields.
 
-    `tables` (buffers) serve both paths. `backend` is decided once
-    (resolve_sw_backend): under RK4 with r_drag or nu4 != 0, "auto"
-    takes the library path with a warning. beta != 0 raises; under RK4
-    dt above max_stable_dt warns, as in the JAX package.
+    `tables` (buffers) serve every path. `backend` is decided once
+    (resolve_sw_backend); on "pallas" under RK4 with r_drag or nu4 != 0
+    `per_transform` is set and the steps run rk4_step on the
+    per-transform kernels, with a warning. `fused_rk` picks the plane
+    stepper's RK4 form (rk4_step_planes; True the JAX default). beta != 0
+    raises; under RK4 dt above max_stable_dt warns, as in the JAX
+    package.
 
     time_scheme "etdrk4": `etd_tables` (models/etdrk4.py, through its
     disk cache, built on `device`) and a step of etdrk4_step_planes
@@ -262,7 +284,7 @@ class ShallowWaterModel(nn.Module):
     """
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
-                 etd_fuse: bool = True):
+                 etd_fuse: bool = True, fused_rk: bool = True):
         super().__init__()
         check_time_scheme(cfg)
         if float(cfg.beta) != 0.0:
@@ -280,6 +302,7 @@ class ShallowWaterModel(nn.Module):
         self.r_drag = float(cfg.r_drag)
         self.nu4 = float(cfg.nu4)
         self.etd_fuse = etd_fuse
+        self.fused_rk = fused_rk
         dt_max = max_stable_dt(cfg)
         if self.dt > dt_max and cfg.time_scheme != "etdrk4":
             warnings.warn(
@@ -290,6 +313,7 @@ class ShallowWaterModel(nn.Module):
                 "with dt=3), or use --time-scheme etdrk4 (exact linear "
                 "waves; only the advective CFL remains)", stacklevel=2)
         self.backend = resolve_sw_backend(cfg)
+        self.per_transform = per_transform(cfg, self.backend)
         self.fwd_pair = (self.backend == "xla"
                          and max(cfg.grid_shape) <= FORWARD_PAIR_MAX)
         self.tables = (tables if tables is not None
@@ -303,8 +327,9 @@ class ShallowWaterModel(nn.Module):
 
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
-              etd_fuse: bool = True) -> "ShallowWaterModel":
-        return cls(cfg, device, tables, etd_fuse)
+              etd_fuse: bool = True,
+              fused_rk: bool = True) -> "ShallowWaterModel":
+        return cls(cfg, device, tables, etd_fuse, fused_rk)
 
     def _check_state(self, s: SWState) -> None:
         for z in s:
@@ -319,6 +344,15 @@ class ShallowWaterModel(nn.Module):
     def segment(self, s: SWState, src, n_steps: int) -> SWState:
         self._check_state(s)
         t, et = self.tables, self.etd_tables
+        if self.per_transform:
+            fwd, inv, inv_pair = resolve_fft_backend("pallas",
+                                                     self.cfg.grid_shape)
+            for _ in range(n_steps):
+                s = rk4_step(t, s, src, self.dt, self.f, self.g, self.nu,
+                             self.H, self.cfg.grid_shape, fwd=fwd, inv=inv,
+                             inv_pair=inv_pair, r_drag=self.r_drag,
+                             nu4=self.nu4)
+            return s
         if self.backend == "pallas":
             src_planes = None if src is None else fs.forward_planes(src)
             p = state_to_planes(s)
@@ -329,7 +363,8 @@ class ShallowWaterModel(nn.Module):
                                                eta_scale, fuse=self.etd_fuse)
                 else:
                     p = rk4_step_planes(t, p, src_planes, self.dt, self.f,
-                                        self.g, self.nu, self.H, eta_scale)
+                                        self.g, self.nu, self.H, eta_scale,
+                                        fused_rk=self.fused_rk)
             return planes_to_state(p)
         if et is not None:
             for _ in range(n_steps):

@@ -46,6 +46,8 @@ SIGNATURES = {
     "xfb_ka6": [_P] * 8 + [_I, _I, _I, _P],
     # wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, device, stream
     "xfb_kb_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P],
+    # war, wai, wbr, wbi, tw, oa, ob, ny, nx, scale, device, stream
+    "xfb_kb": [_P] * 7 + [_I, _I, _F, _I, _P],
     # u, zx, v, zy, src, tw, outr, outi, ny, nx, beta, device, stream
     "xfb_ky_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
     # fr, fi, lap, mask, zsr, zsi, z0r, z0i, tw, rr, ri, nr, ni,
@@ -57,6 +59,9 @@ SIGNATURES = {
     # host array of 6 * n_planes pointers, n_planes, numel, c, device,
     # stream
     "xfb_rk4_combine": [_P, _I, _L, _F, _I, _P],
+    # host array of 3 * n_planes pointers, n_planes, numel, coef, device,
+    # stream
+    "xfb_plane_axpy": [_P, _I, _L, _F, _I, _P],
     # zr, zi, dr, di, er, ei, rlap, kx, ky, tw, wr, wi, n, hny, eta_scale,
     # device, stream
     "xfb_ka_sw": [_P] * 12 + [_I, _I, _F, _I, _P],

@@ -14,10 +14,16 @@ in-shared-memory column FFT (csrc/colfft.cuh):
             the tracer family runs it on two)
 
 and the RK4 tail is one rk4_combine launch per step (ops/fused_sw.py).
-Two per-transform kernels serve the shallow-water family's forcing
-spectrum (ops/fused_sw.py:forward_planes): ka, the x-stage of any mode
+
+The per-transform pipeline, the counterpart of pallas_fft.rfft2,
+inverse_pair and irfft2, is three kernels: ka, the x-stage of any mode
 (forward or inverse, real or complex input, scaled) with a transposed
-write, and kc, the forward partial y-stage.
+write; kc, the forward partial y-stage; kb, the paired c2r y-stage
+written x-major. rfft2 is ka + kc, inverse_pair two ka + one kb, irfft2
+one ka + one kb (the zero partner is left out). They serve the
+shallow-water forcing spectrum (ops/fused_sw.py:forward_planes), the
+shallow-water RK4 step with drag or hyperviscosity, and, with their
+adjoints (ops/fused_diff.py), the differentiable rollout (adjoint.py).
 
 Layouts are the TPU kernels' public ones, so the tests compare like with
 like: spectral planes (nx, hny) or stacks (F, nx, hny), the stacked
@@ -39,7 +45,8 @@ import torch
 LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 0,
             "ka_sw": 0, "ky_all": 0, "kx_fwd": 0, "sw_combine": 0,
-            "sw_combine_mv": 0, "ka": 0, "kc": 0}
+            "sw_combine_mv": 0, "ka": 0, "kc": 0, "kb": 0,
+            "plane_axpy": 0}
 
 # transform lengths the kernels take: powers of two whose column fits
 # one block's shared memory (8192 complex64 = 64 KB)
@@ -344,6 +351,84 @@ def kc(xr, xi):
                                        yr, yi),
             ny, nx, xr.device.index, _stream(xr))
     return yr, yi
+
+
+# --------------------------------------------------------------------- kb
+
+def kb_plain(war, wai, wbr, wbi, scale: float):
+    half = war.shape[0] - 1
+    if wbr is None:
+        wbr, wbi = torch.zeros_like(war), torch.zeros_like(wai)
+    re = torch.stack([war, wbr])
+    im = torch.stack([wai, wbi])
+    im[:, 0] = 0.0          # self-conjugate rows: real part only
+    im[:, half] = 0.0
+    out = torch.fft.irfft(torch.complex(re, im), n=2 * half, dim=1,
+                          norm="forward") * scale
+    return out[0].t().contiguous(), out[1].t().contiguous()
+
+
+def kb(war, wai, wbr, wbi, scale: float):
+    """Paired c2r y-stage of two (hny, nx) x-stage outputs (war + i wai,
+    wbr + i wbi), rows 0..ny/2, the self-conjugate rows 0 and ny/2
+    projected to their real part -> a, b x-major (nx, ny), scaled by
+    `scale`. wbr = wbi = None is a zero partner: b is neither read nor
+    computed, and None is returned in its place. Counterpart of
+    pallas_fft._kb_call (_kb_kernel)."""
+    if war.dim() != 2:
+        raise ValueError(f"kb: expected (hny, nx) planes, got "
+                         f"{tuple(war.shape)}")
+    if (wbr is None) != (wbi is None):
+        raise ValueError("kb: give both b planes or neither")
+    hny, nx = war.shape
+    ny = 2 * (hny - 1)
+    _check("kb", (hny, nx), war, wai, *(() if wbr is None else (wbr, wbi)))
+    if _takes_plain("kb", war, ny):
+        a, b = kb_plain(war, wai, wbr, wbi, scale)
+        return a, (None if wbr is None else b)
+    from ._build import lib
+    oa = torch.empty((nx, ny), dtype=torch.float32, device=war.device)
+    ob = None if wbr is None else torch.empty_like(oa)
+    _launch("kb", lib().xfb_kb, *_ptrs(war, wai),
+            *((None, None) if wbr is None else _ptrs(wbr, wbi)),
+            *_ptrs(_twiddles(ny, war.device), oa),
+            None if ob is None else ob.data_ptr(), ny, nx, float(scale),
+            war.device.index, _stream(war))
+    return oa, ob
+
+
+# --------------------------------------------- per-transform composites
+
+def _planes(spec: torch.Tensor):
+    return spec.real.contiguous(), spec.imag.contiguous()
+
+
+def rfft2(x: torch.Tensor) -> torch.Tensor:
+    """Real (nx, ny) float32 -> half-spectrum (nx, ny//2+1) complex64,
+    unnormalized (ops/fft.py contract): ka (forward, real input) + kc.
+    Counterpart of pallas_fft.rfft2."""
+    return torch.complex(*kc(*ka(x.contiguous(), None, forward=True)))
+
+
+def inverse_pair(spec_a: torch.Tensor, spec_b: torch.Tensor,
+                 grid_shape) -> tuple:
+    """Two half-spectra -> two real (nx, ny) fields, each scaled by
+    1/(nx*ny): two ka (inverse, complex input) + one kb. Counterpart of
+    pallas_fft.inverse_pair."""
+    nx, ny = grid_shape
+    wa = ka(*_planes(spec_a), forward=False)
+    wb = ka(*_planes(spec_b), forward=False)
+    return kb(*wa, *wb, 1.0 / (nx * ny))
+
+
+def irfft2(spec: torch.Tensor, grid_shape) -> torch.Tensor:
+    """One half-spectrum -> real (nx, ny), scaled by 1/(nx*ny): one ka +
+    one kb with no partner. pallas_fft.irfft2 runs inverse_pair with a
+    zero partner (two ka); the port leaves the zero partner's ka out,
+    with the same result."""
+    nx, ny = grid_shape
+    return kb(*ka(*_planes(spec), forward=False), None, None,
+              1.0 / (nx * ny))[0]
 
 
 # ------------------------------------------------------- stage composites

@@ -19,7 +19,9 @@ kernels (csrc/), the FFT ones around the shared column FFT
   sw_combine  the three dealiased tendencies, one elementwise pass, with
               the RK stage axpy fused in for stages 1-3
 
-and the RK4 tail is one rk4_combine launch over the six planes. The
+and the RK4 tail is one rk4_combine launch over the six planes. In the
+unfused form (XFB_SW_FUSED_RK=0 in the JAX package) sw_combine runs
+without its axpy and each stage state is one plane_axpy launch. The
 forcing spectrum is ka + kc (ops/fused_fft.py), once per segment. Under
 ETDRK4 (models/etdrk4.py) the combine is sw_combine_mv, which also
 builds the stage z0 + s (Q @ tendency) from the per-mode 3x3 table Q
@@ -75,6 +77,31 @@ def plane_rk4_combine(s0, r1, r2, r3, r4, c: float):
     table = (ctypes.c_void_p * (6 * n))(*_ptrs(*planes, *outs))
     _launch("rk4_combine", lib().xfb_rk4_combine, ctypes.addressof(table),
             n, s0[0].numel(), float(c), s0[0].device.index, _stream(s0[0]))
+    return tuple(outs)
+
+
+# ------------------------------------------------------------- plane_axpy
+
+def plane_axpy_plain(s, r, coef: float):
+    return tuple(a + coef * b for a, b in zip(s, r))
+
+
+def plane_axpy(s, r, coef: float):
+    """out_p = s_p + coef * r_p over tuples of same-shape float32 planes,
+    coef * r_p rounded first, then the sum. Counterpart of
+    pallas_sw.plane_axpy (_axpy_kernel)."""
+    n = len(s)
+    if not 1 <= n <= MAX_PLANES or len(r) != n:
+        raise ValueError(f"plane_axpy: expected two tuples of 1..{MAX_PLANES}"
+                         f" planes each, got {len(s)} and {len(r)}")
+    _check("plane_axpy", tuple(s[0].shape), *s, *r)
+    if _takes_plain("plane_axpy", s[0]):
+        return plane_axpy_plain(s, r, coef)
+    from ._build import lib
+    outs = [torch.empty_like(p) for p in s]
+    table = (ctypes.c_void_p * (3 * n))(*_ptrs(*s, *r, *outs))
+    _launch("plane_axpy", lib().xfb_plane_axpy, ctypes.addressof(table), n,
+            s[0].numel(), float(coef), s[0].device.index, _stream(s[0]))
     return tuple(outs)
 
 
