@@ -61,29 +61,43 @@ exits non-zero and prints no result):
    tracer tables at n^2 with the cache off, and the card-built tables
    against the CPU-built ones at 256^2 (max |d| <= 1e-6 of each table's
    max).
+5g. The x-first order through the CLI: phase 3 with XFB_BT_YFIRST=0 (per
+   step 4 ka_diag, 8 kb, 4 ka_adv, 4 kc_visc and nothing else: the
+   stage updates are torch), phases 5 and 5b with XFB_SW_YFIRST=0 (two
+   kb, ka_fwd and kc_sw in place of the two kb_pair, ky_all and kx_fwd).
+5h. Barotropic QUAD_MODE "quad" and "split": BarotropicModel.build(...,
+   quad_mode=...).segment for `steps` steps (the x-first order with the
+   psi-first x-stage); per step 4 ka_quad (8 in split), 8 kb, 4 ka_adv
+   and 4 kc_visc launches and nothing else.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
-   the three families' ETDRK4 segments and the SW drag segment.
+   the three families' ETDRK4 segments, the SW drag segment and the
+   x-first paths (barotropic RK4, ETDRK4, quad and split; SW RK4 and
+   ETDRK4).
 7. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
-   unfused forms) and with the torch.fft library path on the card; rel-L2
-   of the physical vorticity <= 1e-5 against the library path and
-   between the two forms.
+   unfused forms, the x-first order, quad and split) and with the
+   torch.fft library path on the card; rel-L2 of the physical vorticity
+   <= 1e-5 against the library path, between the two forms, of each
+   x-first form against the y-first kernel path and of quad and split
+   against the x-first ka_diag form.
 8. Tracer trajectory: `steps` steps, kernels against the library path;
    rel-L2 of the physical vorticity and of q <= 1e-5.
 9. Shallow-water trajectory, RK4 (with and without drag) and ETDRK4:
    kernels against the library path (and the unfused forms against the
-   fused ones) after one step and after `steps` steps; max abs error of
+   fused ones, the x-first order against the y-first one) after one step
+   and after `steps` steps; max abs error of
    vort, div and eta = h - H over the JAX package's norms (div over
    max(|div|, |vort|)) <= 1e-5 and <= 2e-4, its bars for its two SW
    paths; the rel-L2 of each field is reported.
 9b. Barotropic ETDRK4 (dt = 3 s with the hyperviscosity of example 12,
    three times RK4's viscous bound) and tracer ETDRK4 (kappa = 50):
-   kernels against the library path, rel-L2 <= 1e-5 after `steps`.
+   kernels against the library path, rel-L2 <= 1e-5 after `steps`, and
+   barotropic ETDRK4 x-first against it and the y-first kernel path.
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
-11. With --profile: torch.profiler traces of the SW ETDRK4 and the SW
-   drag kernel paths, device time per step by kernel and the device's
-   busy share.
+11. With --profile: torch.profiler traces of the SW ETDRK4, the SW
+   drag and the x-first barotropic and SW RK4 kernel paths, device time
+   per step by kernel and the device's busy share.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
 with each kernel's launches on the main paths, its max abs error
@@ -123,10 +137,12 @@ HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # bench.py's sw-etdrk4 time step at 4096^2 (8.85 times the RK4 bound)
 SW_ETD_DT = 7.5
 # row name: (source, the TPU kernel it replaces, LAUNCHES key, paths)
+XFIRST_BT = ("barotropic-xfirst", "bt-quad", "bt-split")
+XFIRST_SW = ("sw-xfirst", "sw-xfirst-etdrk4")
 KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
-                "ka_diag", ("barotropic",)),
+                "ka_diag", ("barotropic", "barotropic-xfirst")),
     "kb_pair": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
                 "kb_pair", ("barotropic", "tracer", "shallow-water",
@@ -148,10 +164,11 @@ KERNELS = {
                       "kb_adv_tracer", ("tracer",)),
     "rk4_combine": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
                     "xlab_fftbarotropic_tpu/ops/pallas_sw.py:971",
-                    "rk4_combine", ("barotropic", "tracer", "shallow-water")),
+                    "rk4_combine", ("barotropic", "tracer", "shallow-water",
+                                    "sw-xfirst")),
     "ka_sw": ("xlab_fftbarotropic_torch/csrc/ka_sw.cu",
               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:217",
-              "ka_sw", ("shallow-water", "sw-etdrk4")),
+              "ka_sw", ("shallow-water", "sw-etdrk4") + XFIRST_SW),
     "ky_all": ("xlab_fftbarotropic_torch/csrc/ky_all.cu",
                "xlab_fftbarotropic_tpu/ops/pallas_sw.py:533",
                "ky_all", ("shallow-water", "sw-etdrk4")),
@@ -160,22 +177,46 @@ KERNELS = {
                "kx_fwd", ("shallow-water", "sw-etdrk4")),
     "sw_combine": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:679",
-                   "sw_combine", ("shallow-water",)),
+                   "sw_combine", ("shallow-water", "sw-xfirst")),
     "sw_combine_mv": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
                       "xlab_fftbarotropic_tpu/ops/pallas_sw.py:693",
-                      "sw_combine_mv", ("sw-etdrk4",)),
+                      "sw_combine_mv", ("sw-etdrk4", "sw-xfirst-etdrk4")),
     "ka": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
-           "ka", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")),
+           "ka", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")
+           + XFIRST_SW),
     "kc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
-           "kc", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")),
+           "kc", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")
+           + XFIRST_SW),
     "kb": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1043",
            "kb", ("sw-drag", "adjoint")),
     "plane_axpy": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:946",
                    "plane_axpy", ("sw-unfused",)),
+    # the x-first order (row 2's x-major form, rows 11, 15, 17d)
+    "kb_xmajor": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
+                  "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
+                  "kb", XFIRST_BT + XFIRST_SW),
+    "ka_adv": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+               "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1391",
+               "ka_adv", XFIRST_BT),
+    "kc_visc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1412",
+                "kc_visc", XFIRST_BT),
+    "ka_quad": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:605",
+                "ka_quad", ("bt-quad",)),
+    "ka_quad_split": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+                      "xlab_fftbarotropic_tpu/ops/pallas_fft.py:629",
+                      "ka_quad", ("bt-split",)),
+    "ka_fwd": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:450",
+               "ka_fwd", XFIRST_SW),
+    "kc_sw": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+              "xlab_fftbarotropic_tpu/ops/pallas_sw.py:581",
+              "kc_sw", XFIRST_SW),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -191,16 +232,34 @@ PER_STEP = {
     "sw-drag": {"ka": 40, "kb": 8, "kc": 24},
     "sw-unfused": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4, "kx_fwd": 4,
                    "sw_combine": 4, "plane_axpy": 3, "rk4_combine": 1},
+    # the x-first order: the stage updates are torch elementwise
+    "barotropic-xfirst": {"ka_diag": 4, "kb": 8, "ka_adv": 4,
+                          "kc_visc": 4},
+    "bt-quad": {"ka_quad": 4, "kb": 8, "ka_adv": 4, "kc_visc": 4},
+    "bt-split": {"ka_quad": 8, "kb": 8, "ka_adv": 4, "kc_visc": 4},
+    "sw-xfirst": {"ka_sw": 4, "kb": 8, "ka_fwd": 4, "kc_sw": 4,
+                  "sw_combine": 4, "rk4_combine": 1},
+    "sw-xfirst-etdrk4": {"ka_sw": 4, "kb": 8, "ka_fwd": 4, "kc_sw": 4,
+                         "sw_combine_mv": 4},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
 PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
                "sw-etdrk4": {"ka": 1, "kc": 1},
-               "sw-unfused": {"ka": 1, "kc": 1}}
-# the main paths driven through cli.run.main
+               "sw-unfused": {"ka": 1, "kc": 1},
+               "sw-xfirst": {"ka": 1, "kc": 1},
+               "sw-xfirst-etdrk4": {"ka": 1, "kc": 1}}
+# the main paths driven through cli.run.main, and the environment each
+# runs under (the x-first order, as the JAX package reads it)
 CLI_FAMILIES = ("barotropic", "tracer", "shallow-water", "sw-etdrk4",
-                "sw-drag")
-SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag")
+                "sw-drag", "barotropic-xfirst", "sw-xfirst",
+                "sw-xfirst-etdrk4")
+CLI_ENV = {"barotropic-xfirst": {"XFB_BT_YFIRST": "0"},
+           "sw-xfirst": {"XFB_SW_YFIRST": "0"},
+           "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}}
+# the main paths driven through a model's entry point
+MODEL_PATHS = ("sw-unfused", "bt-quad", "bt-split")
+SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag") + XFIRST_SW
 # the SW drag path's drag (examples/09-drag-spindown)
 SW_R_DRAG = 2e-4
 # and its time step's cap: 0.9 of the 1 s RK4 viscous bound of example
@@ -348,9 +407,12 @@ def kernel_cases(n: int, dev, seed: int):
     xr, xi = planes((n, n), 2)
     kbw = planes((hny, n), 4)
     ax_s, ax_r = planes((n, hny), 6), planes((n, hny), 6)
+    # the x-first SW forward stage's (5, ny, nx) product x-stages
+    gr, gi = planes((5, n, n), 2)
     # complex inputs of the library calls, made once here
     xc = torch.complex(xr, xi)
     pc = torch.complex(pr, pi)
+    gc = torch.complex(gr, gi)
     wc = torch.complex(wr[2:4], wi[2:4])
     kbc = torch.complex(torch.stack(kbw[0::2]), torch.stack(kbw[1::2]))
 
@@ -474,6 +536,38 @@ def kernel_cases(n: int, dev, seed: int):
             lambda: fs.plane_axpy(ax_s[:2], ax_r[:2], 0.4235),
             lambda: fs.plane_axpy_plain(ax_s[:2], ax_r[:2], 0.4235), list,
             tuple(ax_s[:2] + ax_r[:2])),
+        "kb_xmajor": Case(lambda: ff.kb_stacked(wr, wi, 2, 3, scale),
+                          lambda: ff.kb_plain(wr[2], wi[2], wr[3], wi[3],
+                                              scale), list,
+                          (wr[2:4], wi[2:4]), n,
+                          lambda: torch.fft.irfft(wc, n=n, dim=1)),
+        "ka_adv": Case(lambda: ff.ka_adv(u, zx, v, zy, src, 0.3),
+                       lambda: ff.ka_adv_plain(u, zx, v, zy, src, 0.3), list,
+                       (u, zx, v, zy, src), 0.5 * n),
+        "kc_visc": Case(lambda: ff.kc_visc(xr, xi, lap, t.mask, zsr, zsi,
+                                           6.5),
+                        lambda: ff.kc_visc_plain(xr, xi, lap, t.mask, zsr,
+                                                 zsi, 6.5), list,
+                        (xr, xi, lap, t.mask, zsr, zsi), n),
+        "ka_quad": Case(lambda: ff.ka_quad(zr, zi, t.rlap, t.kx, t.ky),
+                        lambda: ff.ka_quad_plain(zr, zi, t.rlap, t.kx, t.ky),
+                        per_field, (zr, zi, t.rlap), 4 * hny),
+        # the split form's x-stage of one stage: both of its calls
+        "ka_quad_split": Case(
+            lambda: (*ff.ka_quad(zr, zi, t.rlap, t.kx, t.ky, 0, 2),
+                     *ff.ka_quad(zr, zi, t.rlap, t.kx, t.ky, 2, 2)),
+            lambda: (*ff.ka_quad_plain(zr, zi, t.rlap, t.kx, t.ky, 0, 2),
+                     *ff.ka_quad_plain(zr, zi, t.rlap, t.kx, t.ky, 2, 2)),
+            per_field, (zr, zi, t.rlap), 4 * hny),
+        "ka_fwd": Case(lambda: fs.ka_fwd(*ky_args),
+                       lambda: fs.ka_fwd_plain(*ky_args), per_field,
+                       (su, sv, szeta, seta), 2.5 * n),
+        "ka_fwd_split": Case(lambda: fs.ka_fwd(*ky_args, True),
+                             lambda: fs.ka_fwd_plain(*ky_args, True),
+                             per_field, (su, sv, szeta, seta), 2.5 * n),
+        "kc_sw": Case(lambda: fs.kc_sw(gr, gi), lambda: fs.kc_sw_plain(gr, gi),
+                      per_field, (gr, gi), 5 * n,
+                      lambda: torch.fft.fft(gc, dim=1)),
     }
 
 
@@ -526,8 +620,9 @@ def phase_kernels(n: int, dev) -> dict:
 
 
 def phase_main_path(family: str, n: int, steps: int) -> dict:
-    """One run of a family's main path through cli.run.main, with the
-    launch counters set to 0 just before it and read just after."""
+    """One run of a family's main path through cli.run.main (under its
+    CLI_ENV), with the launch counters set to 0 just before it and read
+    just after."""
     from xlab_fftbarotropic_torch.cli import run as cli_run
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
@@ -538,20 +633,19 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     cfg = ModelConfig(nx=n, ny=n)
     rec = steps // 2
     vort0 = makefields.gaussian(cfg)
+    sw_rk4 = ["-m", "sw", "--dt", repr(min(3.0, max_stable_dt(cfg)))]
+    sw_etd = ["-m", "sw", "--time-scheme", "etdrk4", "--dt",
+              repr(SW_ETD_DT)]
     fields, extra = {
         "barotropic": (["vort"], []),
         "tracer": (["vort", "q"], ["-m", "tracer", "--tracer-kappa", "50",
                                    "--tracer-ic", "gaussian"]),
         # bench.py's SW configuration: the weaker vortex, and dt under
         # the gravity-wave bound (0.847 s at 4096^2, where 3 s NaNs)
-        "shallow-water": (["vort", "div", "h"],
-                          ["-m", "sw", "--dt",
-                           repr(min(3.0, max_stable_dt(cfg)))]),
+        "shallow-water": (["vort", "div", "h"], sw_rk4),
         # bench.py's sw-etdrk4 configuration: the same vortex at 8.85
         # times the RK4 bound
-        "sw-etdrk4": (["vort", "div", "h"],
-                      ["-m", "sw", "--time-scheme", "etdrk4", "--dt",
-                       repr(SW_ETD_DT)]),
+        "sw-etdrk4": (["vort", "div", "h"], sw_etd),
         # the SW configuration with drag (examples/09) and example 12's
         # hyperviscosity: RK4 on the per-transform kernels
         "sw-drag": (["vort", "div", "h"],
@@ -559,6 +653,10 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
                      repr(min(SW_DRAG_DT_MAX, max_stable_dt(cfg))),
                      "--r-drag", repr(SW_R_DRAG), "--nu4",
                      repr(example12_nu4(n))]),
+        # the same configurations in the x-first order
+        "barotropic-xfirst": (["vort"], []),
+        "sw-xfirst": (["vort", "div", "h"], sw_rk4),
+        "sw-xfirst-etdrk4": (["vort", "div", "h"], sw_etd),
     }[family]
     if family in SW_FAMILIES:
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
@@ -572,11 +670,21 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
                 str(n), "--total-steps", str(steps), "--record-step",
                 str(rec), "--record-fields", ",".join(fields), "--manifest",
                 str(Path(tmp) / "log"), "--device", "cuda"] + extra
-        ff.reset_launches()
-        t0 = time.perf_counter()
-        rc = cli_run.main(argv)
-        wall = time.perf_counter() - t0
-        launches = dict(ff.LAUNCHES)
+        env = CLI_ENV.get(family, {})
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            ff.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli_run.main(argv)
+            wall = time.perf_counter() - t0
+            launches = dict(ff.LAUNCHES)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
         check(rc == 0, f"cli.run.main returned {rc}")
         # the run loop records at the top of each step, so a run of
         # `steps` steps records steps 0 and steps/2 (as the reference)
@@ -591,7 +699,7 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         check(len(lines) == 2 * len(fields),
               f"manifest has {len(lines)} lines, not {2 * len(fields)}")
         cached = sorted(p.name for p in (Path(tmp) / "etd_cache").glob("*"))
-        if family == "sw-etdrk4":
+        if "etdrk4" in family:
             check(len(cached) == 1 and cached[0].startswith("sw_etd_"),
                   f"ETD table cache holds {cached}")
     os.environ["XFB_ETD_CACHE"] = "0"
@@ -599,8 +707,8 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     want = {k: PER_STEP[family].get(k, 0) * steps
             + per_seg.get(k, 0) * (steps // rec) for k in ff.LAUNCHES}
     log(f"{family} main path: {steps} steps at {n}^2 through cli.run.main "
-        f"in {wall:.2f} s (set-up and records included); launches "
-        f"{launches}")
+        f"{' '.join(f'{k}={v}' for k, v in env.items())} in {wall:.2f} s "
+        f"(set-up and records included); launches {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     check("jax" not in sys.modules, "a jax module was imported")
     check(not any(k.startswith("xlab_fftbarotropic_tpu")
@@ -608,31 +716,43 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     return dict(launches=launches, cli_wall_s=wall)
 
 
-def phase_sw_unfused(n: int, steps: int) -> dict:
-    """The SW unfused RK4 form's main path: the model entry point
-    ShallowWaterModel.build(..., fused_rk=False), one segment of `steps`
-    steps from the balanced weak vortex with the runner's zero forcing,
-    the launch counters set to 0 just before it and read just after."""
+def phase_model_path(path: str, n: int, steps: int) -> dict:
+    """A main path the CLI does not select, through its model's entry
+    point: the SW unfused RK4 form (ShallowWaterModel.build(...,
+    fused_rk=False), the balanced weak vortex) or the barotropic
+    QUAD_MODE "quad" or "split" (BarotropicModel.build(..., quad_mode=
+    ...), the gaussian IC); one segment of `steps` steps with the
+    runner's zero forcing, the launch counters set to 0 just before it
+    and read just after."""
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
     from xlab_fftbarotropic_torch.models.shallow_water import (
         ShallowWaterModel, max_stable_dt)
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     cfg = ModelConfig(nx=n, ny=n)
-    cfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
-    m = ShallowWaterModel.build(cfg, "cuda", fused_rk=False)
-    s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    if path == "sw-unfused":
+        cfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
+        m = ShallowWaterModel.build(cfg, "cuda", fused_rk=False)
+        s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+        entry = "ShallowWaterModel(fused_rk=False).segment"
+    else:
+        mode = path.split("-")[1]
+        m = BarotropicModel.build(cfg, "cuda", quad_mode=mode)
+        s0 = m.init_state(makefields.gaussian(cfg))
+        entry = f"BarotropicModel(quad_mode={mode!r}).segment"
     ff.reset_launches()
     s = m.segment(s0, m.zero_source(), steps)
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
-    check(all(bool(torch.isfinite(torch.view_as_real(z)).all()) for z in s),
-          "sw-unfused state not finite")
-    want = {k: PER_STEP["sw-unfused"].get(k, 0) * steps
-            + PER_SEGMENT["sw-unfused"].get(k, 0) for k in ff.LAUNCHES}
-    log(f"sw-unfused main path: {steps} steps at {n}^2 through "
-        f"ShallowWaterModel(fused_rk=False).segment; launches {launches}")
+    check(all(bool(torch.isfinite(torch.view_as_real(z)).all())
+              for z in (s if isinstance(s, tuple) else (s,))),
+          f"{path} state not finite")
+    want = {k: PER_STEP[path].get(k, 0) * steps
+            + PER_SEGMENT.get(path, {}).get(k, 0) for k in ff.LAUNCHES}
+    log(f"{path} main path: {steps} steps at {n}^2 through {entry}; "
+        f"launches {launches}")
     check(launches == want, f"launch counts {launches} != {want}")
     return dict(launches=launches)
 
@@ -778,9 +898,13 @@ def build_models(n: int, dev) -> dict:
     """The paths compared and timed, with their initial state and
     forcing: bench.py's barotropic, tracer, shallow-water (fused and
     unfused RK4) and sw-etdrk4 configurations, the barotropic (example
-    12's hyperviscosity, dt = 3 s) and tracer ETDRK4 paths, and shallow
-    water with drag and hyperviscosity (the per-transform kernels). The ETD tables
-    are built on the card (the cache is off here)."""
+    12's hyperviscosity, dt = 3 s) and tracer ETDRK4 paths, shallow
+    water with drag and hyperviscosity (the per-transform kernels), and
+    the x-first order of the barotropic (RK4, ETDRK4, quad and split) and
+    shallow-water (RK4, ETDRK4) paths, each group beside its y-first
+    kernel path ("yfirst"; quad and split also beside the x-first
+    ka_diag form, "xfirst"). The ETD tables are built on the card (the
+    cache is off here)."""
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
@@ -823,9 +947,25 @@ def build_models(n: int, dev) -> dict:
     tre = {"kernels": TracerModel.build(tre_cfg, dev, kappa=50.0),
            "library": TracerModel.build(tre_cfg.replace(fft_backend="xla"),
                                         dev, kappa=50.0)}
-    groups = (bt, tr, sw, swe, bte, tre, swd)
+    xbt = {"kernels": BarotropicModel.build(cfg, dev, yfirst=False),
+           "yfirst": bt["kernels"], "library": bt["library"]}
+    quad = {mode: {"kernels": BarotropicModel.build(cfg, dev,
+                                                    quad_mode=mode),
+                   "xfirst": xbt["kernels"], "yfirst": bt["kernels"],
+                   "library": bt["library"]} for mode in ("quad", "split")}
+    xbte = {"kernels": BarotropicModel.build(bte_cfg, dev, yfirst=False),
+            "yfirst": bte["kernels"], "library": bte["library"]}
+    xsw = {"kernels": ShallowWaterModel.build(cfg.replace(dt=sw_dt), dev,
+                                              yfirst=False),
+           "yfirst": sw["kernels"], "library": sw["library"]}
+    xswe = {"kernels": ShallowWaterModel.build(swe_cfg, dev, yfirst=False),
+            "yfirst": swe["kernels"], "library": swe["library"]}
+    groups = (bt, tr, sw, swe, bte, tre, swd, xbt, *quad.values(), xbte,
+              xsw, xswe)
     for m in (p[k] for p in groups for k in p if k != "library"):
         check(m.backend == "pallas", f"backend {m.backend}, not pallas")
+    for m in (p["kernels"] for p in (xbt, *quad.values(), xbte, xsw, xswe)):
+        check(not m.yfirst, "an x-first path runs the y-first order")
     check(all(p["library"].backend == "xla" for p in groups),
           "library backend selection")
     k = bt["kernels"]
@@ -843,7 +983,14 @@ def build_models(n: int, dev) -> dict:
             "sw-drag": (swd, sw0, k.zero_source()),
             "barotropic-etdrk4": (bte, k.init_state(v0), k.zero_source()),
             "tracer-etdrk4": (tre, tr["kernels"].init_state(v0, q0),
-                              k.zero_source())}
+                              k.zero_source()),
+            "barotropic-xfirst": (xbt, k.init_state(v0), k.zero_source()),
+            "bt-quad": (quad["quad"], k.init_state(v0), k.zero_source()),
+            "bt-split": (quad["split"], k.init_state(v0), k.zero_source()),
+            "barotropic-etdrk4-xfirst": (xbte, k.init_state(v0),
+                                         k.zero_source()),
+            "sw-xfirst": (xsw, sw0, None),
+            "sw-xfirst-etdrk4": (xswe, sw0, None)}
 
 
 def phase_no_library(n: int, models: dict) -> None:
@@ -891,6 +1038,14 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
                 check(rel <= TOL, f"{family} {k} {name} rel-L2 {rel:.3e} "
                                   f"> {TOL}")
                 out[f"{family}_{k}_{name}_rel_l2"] = rel
+        for ref in ("yfirst", "xfirst"):
+            if ref not in paths:
+                continue
+            rel = rel_l2(diags["kernels"].vort, diags[ref].vort)
+            log(f"{family} trajectory: {steps} steps at {n}^2, rel-L2 of "
+                f"vort, kernels vs the {ref} kernel path = {rel:.3e}")
+            check(rel <= TOL, f"{family} vs {ref} rel-L2 {rel:.3e} > {TOL}")
+            out[f"{family}_kernels_vs_{ref}_vort_rel_l2"] = rel
         if "unfused" in paths:
             a, b = diags["kernels"].vort, diags["unfused"].vort
             rel = rel_l2(a, b)
@@ -923,12 +1078,13 @@ def sw_errors(got, want, n: int) -> dict:
 def sw_trajectory(family: str, n: int, steps: int, paths: dict, s0,
                   src) -> dict:
     """The SW kernel path against its library path (and an unfused form
-    against the kernel path) after one step and after `steps` steps, at
-    the JAX package's bars for its two SW paths."""
+    or the y-first order against the kernel path) after one step and
+    after `steps` steps, at the JAX package's bars for its two SW
+    paths."""
     out = {}
     for k, bar in ((1, SW_TOL_ONE_STEP), (steps, SW_TOL)):
         got = paths["kernels"].segment(s0, src, k)
-        for other in ("library", "unfused"):
+        for other in ("library", "unfused", "yfirst"):
             if other not in paths:
                 continue
             errs = sw_errors(got, paths[other].segment(s0, src, k), n)
@@ -1030,8 +1186,7 @@ def kernel_functions() -> list:
         r"__global__\s+void\s+(\w+)", f.read_text())})
 
 
-def phase_profile(models: dict, family: str = "sw-etdrk4",
-                  steps: int = 5) -> dict:
+def phase_profile(models: dict, family: str, steps: int = 5) -> dict:
     """Where a kernel path's time goes: a torch.profiler trace of `steps`
     steps, device time per step by kernel (the port's by name, the rest
     lumped as torch elementwise), and the device's busy share of the
@@ -1080,9 +1235,10 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write the full report as JSON to PATH")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the SW ETDRK4 and the SW drag kernel "
-                    "paths with torch.profiler (the breakdown of where "
-                    "their time goes)")
+                    help="also trace the SW ETDRK4, the SW drag and the "
+                    "x-first barotropic and SW RK4 kernel paths with "
+                    "torch.profiler (the breakdown of where their time "
+                    "goes)")
     args = ap.parse_args(argv)
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
@@ -1118,8 +1274,9 @@ def main(argv=None) -> int:
     report["main_paths"] = {family: phase_main_path(family, args.n,
                                                     args.steps)
                             for family in CLI_FAMILIES}
-    report["main_paths"]["sw-unfused"] = phase_sw_unfused(args.n,
-                                                          args.steps)
+    for path in MODEL_PATHS:
+        report["main_paths"][path] = phase_model_path(path, args.n,
+                                                      args.steps)
     report["main_paths"]["adjoint"] = phase_adjoint(args.n, dev)
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
@@ -1128,7 +1285,8 @@ def main(argv=None) -> int:
     report["time"] = phase_time(args.n, args.steps, models)
     if args.profile:
         report["profile"] = {f: phase_profile(models, f)
-                             for f in ("sw-etdrk4", "sw-drag")}
+                             for f in ("sw-etdrk4", "sw-drag",
+                                       "barotropic-xfirst", "sw-xfirst")}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain torch versions on
 the card, at the transform lengths 64, 256, 4096 and 8192, plus
-non-square stacks that pin every stride.
+non-square stacks that pin every stride, and the launch counts of the
+plane steppers in both transform orders.
 
 Marked `gpu`: each test skips where torch sees no CUDA device. This file
 imports no jax, so on a machine without it run it alone, past the test
@@ -718,3 +719,182 @@ def test_adjoint_gradient_on_the_kernels(cuda):
     a, b = grads["pallas"], grads["xla"]
     assert float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b)) < 5e-4
+
+
+# ------------------------------------------------------- the x-first order
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128), (128, 512)])
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+def test_ka_adv_matches_plain(cuda, shape, beta):
+    nx, ny = shape
+    rng = np.random.default_rng(nx + ny + 50)
+    u, zx, v, zy, src = _planes(rng, (nx, ny), 5, cuda)
+    got = ff.ka_adv(u, zx, v, zy, src, beta)
+    want = ff.ka_adv_plain(u, zx, v, zy, src, beta)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (ny, nx)
+        assert _rel(g, w) < TOL
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128), (64, 512)])
+def test_kc_visc_matches_plain(cuda, shape):
+    ny, nx = shape
+    rng = np.random.default_rng(ny + nx + 51)
+    t = _tables(nx, cuda, ny)
+    xr, xi = _planes(rng, (ny, nx), 2, cuda)
+    zr, zi = _planes(rng, (nx, ny // 2 + 1), 2, cuda)
+    lap = t.lap / t.lap.abs().max()      # order-one viscous term
+    got = ff.kc_visc(xr, xi, lap, t.mask, zr, zi, 6.5)
+    want = ff.kc_visc_plain(xr, xi, lap, t.mask, zr, zi, 6.5)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (nx, ny // 2 + 1)
+        assert _rel(g, w) < TOL
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128)])
+@pytest.mark.parametrize("fields", [(0, 4), (0, 2), (2, 2)])
+def test_ka_quad_matches_plain(cuda, shape, fields):
+    """The psi-first x-stage, quad (four fields) and each split half."""
+    n, ny = shape
+    hny = ny // 2 + 1
+    rng = np.random.default_rng(n + ny + 52)
+    t = _tables(n, cuda, ny)
+    zr, zi = _planes(rng, (n, hny), 2, cuda)
+    got = ff.ka_quad(zr, zi, t.rlap, t.kx, t.ky, *fields)
+    want = ff.ka_quad_plain(zr, zi, t.rlap, t.kx, t.ky, *fields)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (fields[1], hny, n)
+        for f in range(fields[1]):     # the psi fields dwarf the zeta ones
+            assert _rel(g[f], w[f]) < TOL, f
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kb_stacked_matches_plain_and_guards_leaks(cuda, n):
+    """The x-major kb on fields of a (4, hny, nx) stack against its plain
+    version, and junk in the imaginary part of the self-conjugate rows 0
+    and ny/2 projected out, not leaked into the paired field."""
+    rng = np.random.default_rng(n + 53)
+    wr, wi = _planes(rng, (4, n // 2 + 1, n), 2, cuda)
+    clean = wi.clone()
+    clean[:, 0] = 0.0
+    clean[:, n // 2] = 0.0
+    poisoned = clean.clone()
+    poisoned[:, 0] = 10.0 * wi[:, 0] + 1.0
+    poisoned[:, n // 2] = -7.0 * wi[:, n // 2]
+    scale = 1.0 / (n * n)
+    for pair in ((0, 1), (2, 3)):
+        got = ff.kb_stacked(wr, wi, *pair, scale)
+        want = ff.kb_plain(wr[pair[0]], wi[pair[0]], wr[pair[1]],
+                           wi[pair[1]], scale)
+        a = ff.kb_stacked(wr, clean, *pair, scale)
+        b = ff.kb_stacked(wr, poisoned, *pair, scale)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == (n, n) and _rel(g, w) < TOL, pair
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), pair
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (256, 256), (4096, 4096),
+                                   (8192, 8192), (256, 128), (128, 512)])
+@pytest.mark.parametrize("split", [False, True])
+def test_ka_fwd_matches_plain(cuda, shape, split):
+    """Each of the five x-first products to 1e-5 of its own max, at the
+    bench's magnitudes (the ky_all test's)."""
+    nx, ny = shape
+    rng = np.random.default_rng(nx + ny + 54 + int(split))
+    u, v, zeta, eta_s = _planes(rng, (nx, ny), 4, cuda)
+    u *= 3.0
+    v *= 3.0
+    zeta *= 1e-4
+    eta_s *= 1e-4
+    args = (u, v, zeta, eta_s, 2.0 ** 15, 1e-4, 9.81, split)
+    got = fs.ka_fwd(*args)
+    want = fs.ka_fwd_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (5, ny, nx)
+        for p in range(5):
+            assert _rel(g[p], w[p]) < TOL, p
+
+
+@pytest.mark.parametrize("shape", [(5, 64, 64), (5, 4096, 4096),
+                                   (5, 8192, 8192), (5, 256, 128),
+                                   (3, 128, 512), (1, 64, 256)])
+def test_kc_sw_matches_plain(cuda, shape):
+    nf, ny, nx = shape
+    rng = np.random.default_rng(nx + ny + nf + 55)
+    xr, xi = _planes(rng, (nf, ny, nx), 2, cuda)
+    xr[0] *= 1e5                       # fields of very different size
+    got = fs.kc_sw(xr, xi)
+    want = fs.kc_sw_plain(xr, xi)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (nf, nx, ny // 2 + 1)
+        for f in range(nf):
+            assert _rel(g[f], w[f]) < TOL, f
+
+
+@pytest.mark.parametrize("form", ["xfirst", "quad", "split", "etdrk4"])
+def test_xfirst_launch_counts_and_yfirst_agreement(cuda, form):
+    """Two barotropic x-first steps launch per stage the x-stage (ka_diag,
+    or ka_quad once for quad and twice for split), 2 kb, 1 ka_adv and
+    1 kc_visc, and nothing else (the stage updates are torch); they agree
+    with the y-first kernel path to rel-L2 1e-5."""
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+
+    cfg = ModelConfig(nx=256, ny=256, beta=1e-11)
+    if form == "etdrk4":
+        cfg = cfg.replace(beta=0.0, time_scheme="etdrk4")
+    quad_mode = form if form in ("quad", "split") else "grid"
+    m = BarotropicModel.build(cfg, cuda, yfirst=False, quad_mode=quad_mode)
+    ref = BarotropicModel.build(cfg, cuda)
+    z = m.init_state(makefields.gaussian(cfg))
+    src = 1e-9 * torch.randn(cfg.grid_shape, device=cuda)
+    ff.reset_launches()
+    a = m.segment(z, src, 2)
+    torch.cuda.synchronize()
+    xstage = {"grid": {"ka_diag": 8}, "quad": {"ka_quad": 8},
+              "split": {"ka_quad": 16}}[quad_mode]
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **xstage,
+                           "kb": 16, "ka_adv": 8, "kc_visc": 8}
+    b = ref.segment(z, src, 2)
+    assert float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b)) < TOL
+
+
+@pytest.mark.parametrize("scheme", ["rk4", "etdrk4"])
+def test_sw_xfirst_launch_counts_and_yfirst_agreement(cuda, scheme):
+    """Two SW x-first steps launch per stage 1 ka_sw, 2 kb, 1 ka_fwd,
+    1 kc_sw and the combine of the scheme (sw_combine, with 1
+    rk4_combine per step, or sw_combine_mv), and 1 ka and 1 kc per
+    segment; they agree with the y-first kernel path to 1e-5 over the
+    JAX norms."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+
+    cfg = ModelConfig(nx=256, ny=256, time_scheme=scheme)
+    cfg = cfg.replace(dt=(8.85 if scheme == "etdrk4" else 1.0)
+                      * max_stable_dt(cfg))
+    m = ShallowWaterModel.build(cfg, cuda, yfirst=False)
+    ref = ShallowWaterModel.build(cfg, cuda)
+    s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    ff.reset_launches()
+    s = m.segment(s0, m.zero_source(), 2)
+    torch.cuda.synchronize()
+    combine = ({"sw_combine": 8, "rk4_combine": 2} if scheme == "rk4"
+               else {"sw_combine_mv": 8})
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), "ka_sw": 8,
+                           "kb": 16, "ka_fwd": 8, "kc_sw": 8, **combine,
+                           "ka": 1, "kc": 1}
+    assert max(_phys_err(s, ref.segment(s0, ref.zero_source(), 2),
+                         256)) < TOL

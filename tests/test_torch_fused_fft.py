@@ -141,7 +141,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                            "kx_visc": 0, "ka6": 0, "kb_adv_tracer": 0,
                            "rk4_combine": 0, "ka_sw": 0, "ky_all": 0,
                            "kx_fwd": 0, "sw_combine": 0, "sw_combine_mv": 0,
-                           "ka": 0, "kc": 0, "kb": 0, "plane_axpy": 0}
+                           "ka": 0, "kc": 0, "kb": 0, "plane_axpy": 0,
+                           "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
+                           "ka_fwd": 0, "kc_sw": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -10,16 +10,21 @@ and shallow-water (-m sw or -m shallow-water; --coriolis-f, --gravity,
 --mean-depth, and under RK4 a --dt under the gravity-wave bound)
 families, each with --time-scheme rk4 (default) or etdrk4 (the linear
 terms integrated exactly from phi-function tables, models/etdrk4.py), the
--s script / -f fifo forcing, records, checkpoints and resume. `--device cuda` (the default) runs the plane
-stepper's hand-written CUDA kernels and stops with an error when no GPU
-is visible; it never carries on on the CPU. `--device cpu` runs the
-kernels' plain torch versions. Flags the port does not cover yet stop
-with an error.
+-s script / -f fifo forcing, records, checkpoints and resume. `--device
+cuda` (the default) runs the plane stepper's hand-written CUDA kernels
+and stops with an error when no GPU is visible; it never carries on on
+the CPU. `--device cpu` runs the kernels' plain torch versions. Flags
+the port does not cover yet stop with an error.
+
+As in the JAX package, XFB_BT_YFIRST=0 (barotropic) and XFB_SW_YFIRST=0
+(shallow water) in the environment select the plane stepper's x-first
+transform order; y-first is the default.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -107,6 +112,8 @@ def main(argv=None):
 
     cfg = config_from_args(args)
     sw = args.model in ("shallow-water", "sw")
+    yfirst = os.environ.get("XFB_SW_YFIRST" if sw else "XFB_BT_YFIRST",
+                            "1") != "0"
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
     try:
@@ -148,6 +155,9 @@ def main(argv=None):
     print(f"Time scheme           : {cfg.time_scheme}", file=sys.stderr)
     print(f"Device                : {where}", file=sys.stderr)
     print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
+    if backend == "pallas" and args.model != "tracer":
+        print(f"Transform order       : {'y' if yfirst else 'x'}-first",
+              file=sys.stderr)
     print("#########################", file=sys.stderr)
 
     result = run(cfg, device, recipe=recipe, src_path=src_path,
@@ -155,7 +165,8 @@ def main(argv=None):
                  progress=True, resume_from=args.resume_from,
                  model_kind=args.model, debug_fields=args.debug_fields,
                  step_banners=args.step_banners, record_only=record_only,
-                 tracer_kappa=args.tracer_kappa, tracer_ic=args.tracer_ic)
+                 tracer_kappa=args.tracer_kappa, tracer_ic=args.tracer_ic,
+                 yfirst=yfirst)
     sps = result.steps_run / max(result.wall_time, 1e-9)
     print(f"Ran {result.steps_run} steps in {result.wall_time:.2f}s "
           f"({sps:.1f} steps/s, {sps * cfg.grids:.3e} grid-points/s)",

@@ -1,4 +1,5 @@
-// ka, kc: the per-transform x-stage and forward partial y-stage.
+// ka, kc: the per-transform x-stage and forward partial y-stage, and the
+// x-first forward pipelines built on them.
 //
 // ka replaces pallas_fft._ka_call / _ka_kernel
 // (xlab_fftbarotropic_tpu/ops/pallas_fft.py:549) in every mode: for each
@@ -11,15 +12,47 @@
 // kc replaces pallas_fft._kc_call / _kc_kernel (:1349): for each column
 // x of the y-major (ny, nx) complex planes it runs the forward colfft
 // along y and keeps rows k <= ny/2, written as out[x, k] (nx, ny/2 + 1).
+// The same kernel with a field grid axis is kc_sw, the stacked (F, ny, nx)
+// -> (F, nx, ny/2 + 1) form (pallas_sw._kc_sw_kernel, ops/pallas_sw.py:581),
+// and with the viscosity and dealias epilogue of _visc_epilogue (:1536),
+//   nulap = nu * lap;  out = mask * (Y + nulap * Z)
+// on the (nx, ny/2 + 1) tables and current stage state, it is kc_visc
+// (pallas_fft._kc_visc_kernel, :1412).
 //
-// Together they are the shallow-water forcing spectrum
-// (pallas_sw.forward_planes: kc(ka(src, forward, real input))), once per
-// segment. Bound: memory traffic; the column reads are strided, the row
-// writes contiguous. At 4096^2 ka (real input) reads 67 MB and writes
-// 134 MB, kc reads 134 MB and writes 67 MB.
+// The x-first forward pipelines read x-major (nx, ny) physical fields and
+// run the real forward x-DFT of each y column j, written transposed as
+// the row out[j, :] of (ny, nx) planes, with a product prologue:
+//   ka_adv (pallas_fft._ka_adv_kernel, :1391): -(u zx) - v zy + S (zy +
+//     beta for beta != 0), in ky_adv's expression order;
+//   ka_fwd (pallas_sw._ka_fwd_kernel, ops/pallas_sw.py:450): the five
+//     shallow-water products of csrc/ky_all.cu (q u, q v, eta u, eta v,
+//     phi; eta = eta_s * ies unscales the pairing equalizer exactly), one
+//     product per block, written to (5, ny, nx).
+// ka_adv + kc_visc is the barotropic x-first tendency, ka_fwd + kc_sw the
+// shallow-water one (COMBINE follows, csrc/sw_combine.cu).
+//
+// Bound: memory traffic. Every column read is strided (by m, nx or ny),
+// every row write contiguous. At 4096^2 ka (real input) reads 67 MB and
+// writes 134 MB, kc reads 134 MB and writes 67 MB; ka_adv reads 336 MB
+// and writes 134 MB, kc_visc reads 268 MB and writes 67 MB, ka_fwd reads
+// 268 MB and writes 671 MB, kc_sw reads 671 MB and writes 336 MB. Block
+// (p, j) of ka_fwd reads the same four columns for each of the five
+// products; the product index is the fastest grid axis, so all but the
+// first of them find the columns in L2.
 #include "colfft.cuh"
 
 namespace {
+
+// the transformed column in natural order, written as the row at `row`
+__device__ __forceinline__ void store_row(const float2* s, float* yr,
+                                          float* yi, size_t row, int n,
+                                          float scale) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float2 v = s[i];
+    yr[row + i] = v.x * scale;
+    yi[row + i] = v.y * scale;
+  }
+}
 
 template <int SIGN>
 __global__ void ka_kernel(const float* __restrict__ xr,
@@ -35,30 +68,89 @@ __global__ void ka_kernel(const float* __restrict__ xr,
         make_float2(xr[off], xi == nullptr ? 0.f : xi[off]);
   }
   xfb::colfft<SIGN>(s, n, logn, tw);
-  const size_t row = static_cast<size_t>(j) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float2 v = s[i];
-    yr[row + i] = v.x * scale;
-    yi[row + i] = v.y * scale;
-  }
+  store_row(s, yr, yi, static_cast<size_t>(j) * n, n, scale);
 }
 
+__global__ void ka_adv_kernel(const float* __restrict__ u,
+                              const float* __restrict__ zx,
+                              const float* __restrict__ v,
+                              const float* __restrict__ zy,
+                              const float* __restrict__ src,
+                              const float2* __restrict__ tw,
+                              float* __restrict__ yr, float* __restrict__ yi,
+                              int nx, int lognx, int ny, float beta) {
+  extern __shared__ float2 s[];
+  const int j = blockIdx.x;
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+    const size_t off = static_cast<size_t>(i) * ny + j;
+    float zyv = zy[off];
+    if (beta != 0.f) zyv = zyv + beta;  // beta = 0: the f-plane expression
+    const float adv = -(u[off] * zx[off]) - v[off] * zyv + src[off];
+    s[xfb::bitrev(i, lognx)] = make_float2(adv, 0.f);
+  }
+  xfb::colfft<-1>(s, nx, lognx, tw);
+  store_row(s, yr, yi, static_cast<size_t>(j) * nx, nx, 1.f);
+}
+
+__global__ void ka_fwd_kernel(const float* __restrict__ u,
+                              const float* __restrict__ v,
+                              const float* __restrict__ zeta,
+                              const float* __restrict__ eta_s,
+                              const float2* __restrict__ tw,
+                              float* __restrict__ yr, float* __restrict__ yi,
+                              int nx, int lognx, int ny, float ies, float f0,
+                              float grav, int split) {
+  extern __shared__ float2 s[];
+  const int p = blockIdx.x;
+  const int j = blockIdx.y;
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+    const size_t off = static_cast<size_t>(i) * ny + j;
+    const float uu = u[off], vv = v[off];
+    float val;
+    if (p < 2) {
+      const float q = split ? zeta[off] : zeta[off] + f0;
+      val = q * (p == 0 ? uu : vv);
+    } else if (p < 4) {
+      const float eta = eta_s[off] * ies;
+      val = eta * (p == 2 ? uu : vv);
+    } else {
+      const float ke = 0.5f * (uu * uu + vv * vv);
+      val = split ? ke : grav * (eta_s[off] * ies) + ke;
+    }
+    s[xfb::bitrev(i, lognx)] = make_float2(val, 0.f);
+  }
+  xfb::colfft<-1>(s, nx, lognx, tw);
+  store_row(s, yr, yi, (static_cast<size_t>(p) * ny + j) * nx, nx, 1.f);
+}
+
+// block (x, f): column x of field f; lap == NULL: no epilogue
 __global__ void kc_kernel(const float* __restrict__ xr,
                           const float* __restrict__ xi,
                           const float2* __restrict__ tw,
+                          const float* __restrict__ lap,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ zr,
+                          const float* __restrict__ zi, float nu,
                           float* __restrict__ yr, float* __restrict__ yi,
                           int ny, int logny, int nx) {
   extern __shared__ float2 s[];
   const int x = blockIdx.x;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * ny * nx;
   for (int y = threadIdx.x; y < ny; y += blockDim.x) {
-    const size_t off = static_cast<size_t>(y) * nx + x;
+    const size_t off = plane + static_cast<size_t>(y) * nx + x;
     s[xfb::bitrev(y, logny)] = make_float2(xr[off], xi[off]);
   }
   xfb::colfft<-1>(s, ny, logny, tw);
   const int hny = ny / 2 + 1;
-  const size_t row = static_cast<size_t>(x) * hny;
+  const size_t row = (static_cast<size_t>(blockIdx.y) * nx + x) * hny;
   for (int k = threadIdx.x; k < hny; k += blockDim.x) {
-    const float2 v = s[k];
+    float2 v = s[k];
+    if (lap != nullptr) {  // kc_visc, one field: row + k indexes the tables
+      const float nulap = nu * lap[row + k];
+      const float m = mask[row + k];
+      v = make_float2(m * (v.x + nulap * zr[row + k]),
+                      m * (v.y + nulap * zi[row + k]));
+    }
     yr[row + k] = v.x;
     yi[row + k] = v.y;
   }
@@ -79,6 +171,21 @@ int launch_ka(const float* xr, const float* xi, const void* tw, float* yr,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_kc(const float* xr, const float* xi, const void* tw,
+              const float* lap, const float* mask, const float* zr,
+              const float* zi, float nu, float* yr, float* yi, int nfields,
+              int ny, int nx, int device, void* stream) {
+  const size_t smem = static_cast<size_t>(ny) * sizeof(float2);
+  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(kc_kernel),
+                                 device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kc_kernel<<<dim3(nx, nfields), xfb::threads_for(ny), smem,
+              static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, static_cast<const float2*>(tw), lap, mask, zr, zi, nu, yr, yi,
+      ny, xfb::ilog2(ny), nx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // xr, xi (xi NULL: real input): (n, m) -> yr, yi: (m, n)
@@ -95,13 +202,56 @@ extern "C" int xfb_ka(const float* xr, const float* xi, const void* tw,
 extern "C" int xfb_kc(const float* xr, const float* xi, const void* tw,
                       float* yr, float* yi, int ny, int nx, int device,
                       void* stream) {
-  const size_t smem = static_cast<size_t>(ny) * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(kc_kernel),
+  return launch_kc(xr, xi, tw, nullptr, nullptr, nullptr, nullptr, 0.f, yr,
+                   yi, 1, ny, nx, device, stream);
+}
+
+// xr, xi: (nfields, ny, nx) -> yr, yi: (nfields, nx, ny/2 + 1)
+extern "C" int xfb_kc_sw(const float* xr, const float* xi, const void* tw,
+                         float* yr, float* yi, int nfields, int ny, int nx,
+                         int device, void* stream) {
+  return launch_kc(xr, xi, tw, nullptr, nullptr, nullptr, nullptr, 0.f, yr,
+                   yi, nfields, ny, nx, device, stream);
+}
+
+// xr, xi: (ny, nx); lap, mask, zr, zi: (nx, ny/2 + 1) -> yr, yi: the same
+extern "C" int xfb_kc_visc(const float* xr, const float* xi,
+                           const float* lap, const float* mask,
+                           const float* zr, const float* zi, const void* tw,
+                           float* yr, float* yi, int ny, int nx, float nu,
+                           int device, void* stream) {
+  return launch_kc(xr, xi, tw, lap, mask, zr, zi, nu, yr, yi, 1, ny, nx,
+                   device, stream);
+}
+
+// u, zx, v, zy, src: (nx, ny) x-major -> yr, yi: (ny, nx)
+extern "C" int xfb_ka_adv(const float* u, const float* zx, const float* v,
+                          const float* zy, const float* src, const void* tw,
+                          float* yr, float* yi, int nx, int ny, float beta,
+                          int device, void* stream) {
+  const size_t smem = static_cast<size_t>(nx) * sizeof(float2);
+  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(ka_adv_kernel),
                                  device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kc_kernel<<<nx, xfb::threads_for(ny), smem,
-              static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, static_cast<const float2*>(tw), yr, yi, ny, xfb::ilog2(ny),
-      nx);
+  ka_adv_kernel<<<ny, xfb::threads_for(nx), smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      u, zx, v, zy, src, static_cast<const float2*>(tw), yr, yi, nx,
+      xfb::ilog2(nx), ny, beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// u, v, zeta, eta_s: (nx, ny) x-major -> yr, yi: (5, ny, nx)
+extern "C" int xfb_ka_fwd(const float* u, const float* v, const float* zeta,
+                          const float* eta_s, const void* tw, float* yr,
+                          float* yi, int nx, int ny, float ies, float f0,
+                          float grav, int split, int device, void* stream) {
+  const size_t smem = static_cast<size_t>(nx) * sizeof(float2);
+  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(ka_fwd_kernel),
+                                 device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ka_fwd_kernel<<<dim3(5, ny), xfb::threads_for(nx), smem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      u, v, zeta, eta_s, static_cast<const float2*>(tw), yr, yi, nx,
+      xfb::ilog2(nx), ny, ies, f0, grav, split);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,9 +13,12 @@ Two stepping paths, chosen by cfg.fft_backend:
   float32 (re, im) planes through the four transform kernels of
   ops/fused_fft.py, five launches per RK stage, with the RK stage update
   fused into kx_visc's epilogue for stages 1-3 and the RK4 tail one
-  rk4_combine launch (ops/fused_sw.py): 21 launches per step. On a CUDA
-  device they are the hand-written kernels; on the CPU, their plain
-  torch versions.
+  rk4_combine launch (ops/fused_sw.py): 21 launches per step. That is
+  the y-first order; the x-first one (yfirst=False, the JAX package's
+  XFB_BT_YFIRST=0, or quad_mode "quad"/"split") runs ka_diag (or
+  ka_quad) + two kb + ka_adv + kc_visc per stage, with the stage updates
+  in torch. On a CUDA device they are the hand-written kernels; on the
+  CPU, their plain torch versions.
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 tendency / rk4_step also run on the per-transform kernels
@@ -186,29 +189,52 @@ def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
     return zeta_hat + (rk1 + 2.0 * rk2 + 2.0 * rk3 + rk4) * (dt / 6.0)
 
 
+def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
+                   beta: float = 0.0, yfirst: bool = True,
+                   quad_mode: str = "grid") -> Callable:
+    """The plane stepper's dealiased stage tendency, d(sr, si[, axpy]) ->
+    (re, im) planes. y-first: derivative_quad_planes (ka_diag + 2
+    kb_pair) and forward_tendency_yfirst (ky_adv + kx_visc, viscous and
+    dealiased in the epilogue; axpy=(z0r, z0i, coef) also returns the
+    next stage state), `src_l` the forcing y-major (ny, nx). x-first
+    (yfirst False; quad_mode "quad" or "split" requires it): the x-major
+    derivative_quad_planes (ka_diag or ka_quad + 2 kb) and
+    forward_tendency (ka_adv + kc_visc), `src_l` x-major (nx, ny), no
+    axpy."""
+    def d(sr, si, axpy=None):
+        zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap,
+                                                 ymajor=yfirst,
+                                                 quad_mode=quad_mode)
+        if yfirst:
+            return ff.forward_tendency_yfirst(u, zx, v, zy, src_l, t.lap,
+                                              t.mask, sr, si, nu, beta, axpy)
+        if axpy is not None:
+            raise ValueError("the x-first tendency takes no stage axpy")
+        return ff.forward_tendency(u, zx, v, zy, src_l, t.lap, t.mask, sr,
+                                   si, nu, beta)
+    return d
+
+
 def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
-                    src_y: torch.Tensor, dt: float, nu: float,
-                    beta: float = 0.0, fused_rk: bool = True):
+                    src_l: torch.Tensor, dt: float, nu: float,
+                    beta: float = 0.0, fused_rk: bool = True,
+                    yfirst: bool = True, quad_mode: str = "grid"):
     """RK4 on the state as float32 (re, im) planes through the transform
-    kernels: per stage derivative_quad_planes (ka_diag + 2 kb_pair) and
-    forward_tendency_yfirst (ky_adv + kx_visc, viscous and dealiased in
-    the epilogue). `src_y` is the forcing y-major (ny, nx).
+    kernels, a plane_tendency per stage (yfirst and quad_mode pick the
+    order and the x-stage; `src_l` is the forcing in that order's
+    layout).
 
     fused_rk=True (the JAX default, XFB_BT_FUSED_RK=1, with its
-    FUSETAIL off): stages 1-3 return the next stage state from
-    kx_visc's axpy epilogue, and the tail is one plane_rk4_combine.
-    fused_rk=False: the stage updates and the tail are torch elementwise
-    arithmetic in the same grouping; on the CPU both forms give the same
-    bits."""
+    FUSETAIL off), y-first only: stages 1-3 return the next stage state
+    from kx_visc's axpy epilogue, and the tail is one plane_rk4_combine.
+    Otherwise (fused_rk=False, or the x-first order, which the JAX
+    package never fuses): the stage updates and the tail are torch
+    elementwise arithmetic in the same grouping; on the CPU both forms
+    give the same bits."""
     h = dt * 0.5
-
-    def d(sr, si, axpy=None):
-        zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap)
-        return ff.forward_tendency_yfirst(u, zx, v, zy, src_y, t.lap,
-                                          t.mask, sr, si, nu, beta, axpy)
-
+    d = plane_tendency(t, src_l, nu, beta, yfirst, quad_mode)
     c = dt / 6.0
-    if fused_rk:
+    if fused_rk and yfirst:
         r1r, r1i, s2r, s2i = d(zr, zi, axpy=(zr, zi, h))
         r2r, r2i, s3r, s3i = d(s2r, s2i, axpy=(zr, zi, h))
         r3r, r3i, s4r, s4i = d(s3r, s3i, axpy=(zr, zi, dt))
@@ -233,17 +259,15 @@ def etd_step(t: SpectralTables, tabs, zeta_hat: torch.Tensor,
 
 
 def etd_step_planes(t: SpectralTables, tabs, zr: torch.Tensor,
-                    zi: torch.Tensor, src_y: torch.Tensor):
+                    zi: torch.Tensor, src_l: torch.Tensor,
+                    yfirst: bool = True, quad_mode: str = "grid"):
     """One ETDRK4 step on the (re, im) planes through the plane
-    stepper's kernels: N is derivative_quad_planes +
-    forward_tendency_yfirst with nu = 0 and beta = 0 (beta, drag and
-    hyperviscosity live in the tables, nothing folds into lap)."""
-    def N(q):
-        zx, zy, u, v = ff.derivative_quad_planes(q[0], q[1], t.kx, t.ky,
-                                                 t.rlap)
-        return ff.forward_tendency_yfirst(u, zx, v, zy, src_y, t.lap,
-                                          t.mask, q[0], q[1], 0.0)
-    return etd.etd_scheme(N, lambda T, q: etd.smul_planes(T, *q), tabs,
+    stepper's kernels: N is plane_tendency with nu = 0 and beta = 0
+    (beta, drag and hyperviscosity live in the tables, nothing folds
+    into lap), in either order."""
+    d = plane_tendency(t, src_l, 0.0, 0.0, yfirst, quad_mode)
+    return etd.etd_scheme(lambda q: d(*q),
+                          lambda T, q: etd.smul_planes(T, *q), tabs,
                           (zr, zi))
 
 
@@ -300,7 +324,11 @@ class BarotropicModel(nn.Module):
 
     `tables` (buffers) serve the diagnostics; `step_tables` step.
     `fused_rk` picks the plane stepper's form (rk4_step_planes; True is
-    the JAX default, XFB_BT_FUSED_RK=1). On the RK4 plane stepper, drag
+    the JAX default, XFB_BT_FUSED_RK=1; y-first only). `yfirst` its
+    transform order (True the JAX default, XFB_BT_YFIRST=1) and
+    `quad_mode` its derivative x-stage (pallas_fft.QUAD_MODE: "grid",
+    the default, or "quad" or "split", which run the x-first order);
+    `self.yfirst` is the order that runs. On the RK4 plane stepper, drag
     and hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
@@ -309,14 +337,20 @@ class BarotropicModel(nn.Module):
     """
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
-                 fused_rk: bool = True):
+                 fused_rk: bool = True, yfirst: bool = True,
+                 quad_mode: str = "grid"):
         super().__init__()
         check_time_scheme(cfg)
+        if quad_mode not in ff.QUAD_MODES:
+            raise ValueError(f"unknown quad_mode {quad_mode!r}, not one of "
+                             f"{ff.QUAD_MODES}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
                                                 cfg.grid_shape)
         self.fused_rk = fused_rk
+        self.yfirst = yfirst and quad_mode == "grid"
+        self.quad_mode = quad_mode
         t = (tables if tables is not None
              else SpectralTables.from_config(cfg, self.device))
         self.tables = t
@@ -340,8 +374,9 @@ class BarotropicModel(nn.Module):
 
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
-              fused_rk: bool = True) -> "BarotropicModel":
-        return cls(cfg, device, tables, fused_rk)
+              fused_rk: bool = True, yfirst: bool = True,
+              quad_mode: str = "grid") -> "BarotropicModel":
+        return cls(cfg, device, tables, fused_rk, yfirst, quad_mode)
 
     def _check_state(self, zeta_hat: torch.Tensor) -> None:
         if (zeta_hat.dtype != torch.complex64
@@ -359,14 +394,16 @@ class BarotropicModel(nn.Module):
         if self.backend == "pallas":
             zr = zeta_hat.real.contiguous()
             zi = zeta_hat.imag.contiguous()
-            src_y = src.t().contiguous()
+            # the forcing in the order's layout, once per segment
+            src_l = (src.t() if self.yfirst else src).contiguous()
+            order = dict(yfirst=self.yfirst, quad_mode=self.quad_mode)
             for _ in range(n_steps):
                 if et is not None:
-                    zr, zi = etd_step_planes(t, et, zr, zi, src_y)
+                    zr, zi = etd_step_planes(t, et, zr, zi, src_l, **order)
                 else:
-                    zr, zi = rk4_step_planes(t, zr, zi, src_y, self.dt,
+                    zr, zi = rk4_step_planes(t, zr, zi, src_l, self.dt,
                                              self.step_nu, beta=self.beta,
-                                             fused_rk=self.fused_rk)
+                                             fused_rk=self.fused_rk, **order)
             return torch.complex(zr, zi)
         z = zeta_hat
         for _ in range(n_steps):

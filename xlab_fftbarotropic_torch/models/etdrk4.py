@@ -330,11 +330,13 @@ def _addp(a, b):
 
 
 def etdrk4_step_planes(t, tabs: EtdTables, p, src_planes,
-                       eta_scale: float, fuse: bool = True):
+                       eta_scale: float, fuse: bool = True,
+                       yfirst: bool = True):
     """One SW ETDRK4 step on the six float32 state planes through the SW
     plane stepper's kernels (ops/fused_sw.py): N is inverse_quad_planes +
     forward_tendencies with f = g = nu = H = 0, the pairing equalizer
-    eta_scale fixed (once per segment).
+    eta_scale fixed (once per segment), in the y-first order or, yfirst
+    False, the x-first one.
 
     fuse=True (the JAX default, XFB_SW_ETD_FUSE=1) builds each stage
     z0 + s (Q @ N) in the combine kernel (sw_combine_mv): the an, bn and
@@ -343,10 +345,11 @@ def etdrk4_step_planes(t, tabs: EtdTables, p, src_planes,
     combine too. fuse=False: plain combines and elementwise matvecs."""
     def N(q, mv=None):
         u, v, zeta, eta_s = fs.inverse_quad_planes(*q, t.kx, t.ky, t.rlap,
-                                                   eta_scale)
+                                                   eta_scale, yfirst)
         return fs.forward_tendencies(u, v, zeta, eta_s, q, src_planes,
                                      t.kx, t.ky, t.lap, t.mask, 0.0, 0.0,
-                                     0.0, 0.0, eta_scale, mv_axpy=mv)
+                                     0.0, 0.0, eta_scale, mv_axpy=mv,
+                                     yfirst=yfirst)
 
     if fuse:
         e2u = _matvec_planes(tabs.E2, p)

@@ -26,8 +26,11 @@ Three stepping paths, chosen once when the model is built:
   launches per step, plus ka and kc once per segment for the forcing
   spectrum. fused_rk=False is the unfused form (the JAX package's
   XFB_SW_FUSED_RK=0): sw_combine without its axpy and three plane_axpy
-  launches per step. On a CUDA device they are the hand-written
-  kernels; on the CPU, their plain torch versions.
+  launches per step. yfirst=False is the x-first order (the JAX
+  package's XFB_SW_YFIRST=0): two kb (x-major fields), ka_fwd and kc_sw
+  in place of the two kb_pair, ky_all and kx_fwd, in both RK4 forms and
+  under ETDRK4. On a CUDA device they are the hand-written kernels; on
+  the CPU, their plain torch versions.
 * "pallas" under RK4 with r_drag or nu4 != 0, the per-transform path:
   the plane stepper carries neither (its lap table also serves the
   pressure term and the mean-mode guard, so the barotropic fold would
@@ -188,20 +191,23 @@ def rk4_step(t: SpectralTables, s: SWState, src, dt: float, f: float,
 
 def rk4_step_planes(t: SpectralTables, planes, src_planes, dt: float,
                     f: float, g: float, nu: float, mean_depth: float,
-                    eta_scale: float, fused_rk: bool = True):
+                    eta_scale: float, fused_rk: bool = True,
+                    yfirst: bool = True):
     """RK4 on the state as six float32 planes (zr, zi, dr, di, er, ei)
-    through the SW kernels. fused_rk=True, the JAX default
-    (XFB_SW_FUSED_RK=1): stages 1-3 take the next stage state from
-    sw_combine's axpy; fused_rk=False: from a plane_axpy launch. Either
-    way the tail is one plane_rk4_combine, and the two forms give the
-    same bits. src_planes is the forcing spectrum (or None), eta_scale
-    the pairing equalizer, both fixed across the stages."""
+    through the SW kernels, in the y-first order or, yfirst False, the
+    x-first one. fused_rk=True, the JAX default (XFB_SW_FUSED_RK=1):
+    stages 1-3 take the next stage state from sw_combine's axpy;
+    fused_rk=False: from a plane_axpy launch. Either way the tail is one
+    plane_rk4_combine, and the two forms give the same bits. src_planes
+    is the forcing spectrum (or None), eta_scale the pairing equalizer,
+    both fixed across the stages."""
     def d(p, axpy=None):
         u, v, zeta, eta_s = fs.inverse_quad_planes(*p, t.kx, t.ky, t.rlap,
-                                                   eta_scale)
+                                                   eta_scale, yfirst)
         return fs.forward_tendencies(u, v, zeta, eta_s, p, src_planes,
                                      t.kx, t.ky, t.lap, t.mask, f, g, nu,
-                                     mean_depth, eta_scale, axpy=axpy)
+                                     mean_depth, eta_scale, axpy=axpy,
+                                     yfirst=yfirst)
 
     h = dt * 0.5
     if fused_rk:
@@ -273,7 +279,9 @@ class ShallowWaterModel(nn.Module):
     (resolve_sw_backend); on "pallas" under RK4 with r_drag or nu4 != 0
     `per_transform` is set and the steps run rk4_step on the
     per-transform kernels, with a warning. `fused_rk` picks the plane
-    stepper's RK4 form (rk4_step_planes; True the JAX default). beta != 0
+    stepper's RK4 form (rk4_step_planes; True the JAX default), `yfirst`
+    its transform order under both schemes (True the JAX default,
+    XFB_SW_YFIRST=1). beta != 0
     raises; under RK4 dt above max_stable_dt warns, as in the JAX
     package.
 
@@ -284,7 +292,8 @@ class ShallowWaterModel(nn.Module):
     """
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
-                 etd_fuse: bool = True, fused_rk: bool = True):
+                 etd_fuse: bool = True, fused_rk: bool = True,
+                 yfirst: bool = True):
         super().__init__()
         check_time_scheme(cfg)
         if float(cfg.beta) != 0.0:
@@ -303,6 +312,7 @@ class ShallowWaterModel(nn.Module):
         self.nu4 = float(cfg.nu4)
         self.etd_fuse = etd_fuse
         self.fused_rk = fused_rk
+        self.yfirst = yfirst
         dt_max = max_stable_dt(cfg)
         if self.dt > dt_max and cfg.time_scheme != "etdrk4":
             warnings.warn(
@@ -327,9 +337,9 @@ class ShallowWaterModel(nn.Module):
 
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
-              etd_fuse: bool = True,
-              fused_rk: bool = True) -> "ShallowWaterModel":
-        return cls(cfg, device, tables, etd_fuse, fused_rk)
+              etd_fuse: bool = True, fused_rk: bool = True,
+              yfirst: bool = True) -> "ShallowWaterModel":
+        return cls(cfg, device, tables, etd_fuse, fused_rk, yfirst)
 
     def _check_state(self, s: SWState) -> None:
         for z in s:
@@ -360,11 +370,13 @@ class ShallowWaterModel(nn.Module):
             for _ in range(n_steps):
                 if et is not None:
                     p = etd.etdrk4_step_planes(t, et, p, src_planes,
-                                               eta_scale, fuse=self.etd_fuse)
+                                               eta_scale, fuse=self.etd_fuse,
+                                               yfirst=self.yfirst)
                 else:
                     p = rk4_step_planes(t, p, src_planes, self.dt, self.f,
                                         self.g, self.nu, self.H, eta_scale,
-                                        fused_rk=self.fused_rk)
+                                        fused_rk=self.fused_rk,
+                                        yfirst=self.yfirst)
             return planes_to_state(p)
         if et is not None:
             for _ in range(n_steps):

@@ -78,6 +78,17 @@ SIGNATURES = {
     "xfb_ka": [_P] * 5 + [_I, _I, _I, _F, _I, _P],
     # xr, xi, tw, yr, yi, ny, nx, device, stream
     "xfb_kc": [_P] * 5 + [_I, _I, _I, _P],
+    # xr, xi, tw, yr, yi, nfields, ny, nx, device, stream
+    "xfb_kc_sw": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # xr, xi, lap, mask, zr, zi, tw, yr, yi, ny, nx, nu, device, stream
+    "xfb_kc_visc": [_P] * 9 + [_I, _I, _F, _I, _P],
+    # u, zx, v, zy, src, tw, yr, yi, nx, ny, beta, device, stream
+    "xfb_ka_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
+    # u, v, zeta, eta_s, tw, yr, yi, nx, ny, ies, f0, grav, split, device,
+    # stream
+    "xfb_ka_fwd": [_P] * 7 + [_I, _I, _F, _F, _F, _I, _I, _P],
+    # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first, count, device, stream
+    "xfb_ka_quad": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

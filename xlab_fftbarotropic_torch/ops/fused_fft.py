@@ -15,6 +15,16 @@ in-shared-memory column FFT (csrc/colfft.cuh):
 
 and the RK4 tail is one rk4_combine launch per step (ops/fused_sw.py).
 
+That is the y-first order, the JAX package's default. The x-first order
+(XFB_BT_YFIRST=0 there) ends the inverse with two kb writing the fields
+x-major (kb_stacked) and runs the forward pipeline as
+
+  ka_adv    advection product + real forward x-stage, written transposed
+  kc_visc   forward partial y-stage + viscosity/dealias epilogue
+
+and QUAD_MODE "quad" or "split" (x-first only) takes ka_quad, the same
+x-stage as ka_diag in the psi-first grouping of the TPU's _ka4/_ka2.
+
 The per-transform pipeline, the counterpart of pallas_fft.rfft2,
 inverse_pair and irfft2, is three kernels: ka, the x-stage of any mode
 (forward or inverse, real or complex input, scaled) with a transposed
@@ -46,7 +56,12 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "ka6": 0, "kb_adv_tracer": 0, "rk4_combine": 0,
             "ka_sw": 0, "ky_all": 0, "kx_fwd": 0, "sw_combine": 0,
             "sw_combine_mv": 0, "ka": 0, "kc": 0, "kb": 0,
-            "plane_axpy": 0}
+            "plane_axpy": 0, "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
+            "ka_fwd": 0, "kc_sw": 0}
+
+# the derivative x-stage's forms (pallas_fft.QUAD_MODE): "grid" is
+# ka_diag; "quad" one ka_quad of four fields, "split" two of two
+QUAD_MODES = ("grid", "quad", "split")
 
 # transform lengths the kernels take: powers of two whose column fits
 # one block's shared memory (8192 complex64 = 64 KB)
@@ -126,16 +141,21 @@ def _stream(t: torch.Tensor) -> int:
 
 # ---------------------------------------------------------------- ka_diag
 
-def diagonal_fields(sr, si, rlap, kx, ky, kinds):
+def diagonal_fields(sr, si, rlap, kx, ky, kinds, psi_first=False):
     """The diagonal-scaled fields (re, im lists) of one state plane S:
     kind 0 i kx S, 1 i ky S, 2 -i ky psi, 3 i kx psi (psi = S*rlap), in
-    the kernels' grouping (diagonal first, then rlap)."""
+    the kernels' grouping: diagonal first, then rlap (ka_diag, ka6), or
+    with psi_first psi = S*rlap first, then the diagonal (ka_quad)."""
     k = kx.reshape(-1, 1)
     q = ky.reshape(1, -1)
     field = {0: lambda: (-(si * k), sr * k),
              1: lambda: (-(si * q), sr * q),
              2: lambda: ((si * q) * rlap, -(sr * q) * rlap),
              3: lambda: (-(si * k) * rlap, (sr * k) * rlap)}
+    if psi_first:
+        pr, pi = sr * rlap, si * rlap
+        field[2] = lambda: (q * pi, -(q * pr))
+        field[3] = lambda: (-(k * pi), k * pr)
     pairs = [field[c]() for c in kinds]
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
@@ -172,6 +192,39 @@ def ka_diag(zr, zi, rlap, kx, ky):
     _launch("ka_diag", lib().xfb_ka_diag,
             *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
             n, hny, zr.device.index, _stream(zr))
+    return wr, wi
+
+
+# ---------------------------------------------------------------- ka_quad
+
+def ka_quad_plain(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4):
+    return inverse_xstage_plain(*diagonal_fields(
+        zr, zi, rlap, kx, ky, range(first, first + count), psi_first=True))
+
+
+def ka_quad(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4):
+    """Fields first .. first+count-1 of ka_diag's four, in the psi-first
+    grouping, inverse x-DFT (unnormalized), written transposed: (wr, wi)
+    (count, hny, nx). Counterpart of pallas_fft._ka4_kernel (first 0,
+    count 4) and _ka2_kernel ("zderiv": 0, 2; "pderiv": 2, 2), whose
+    (hny, nx) planes are the stack's fields."""
+    n, hny = zr.shape
+    if (first, count) not in ((0, 4), (0, 2), (2, 2)):
+        raise ValueError(f"ka_quad: fields {first}..{first + count - 1} are "
+                         f"not a quad or split call")
+    _check("ka_quad", (n, hny), zr, zi, rlap)
+    _check("ka_quad", (n,), kx)
+    _check("ka_quad", (hny,), ky)
+    if kx.device != zr.device or ky.device != zr.device:
+        raise ValueError("ka_quad: tables and state on different devices")
+    if _takes_plain("ka_quad", zr, n):
+        return ka_quad_plain(zr, zi, rlap, kx, ky, first, count)
+    from ._build import lib
+    wr = torch.empty((count, hny, n), dtype=torch.float32, device=zr.device)
+    wi = torch.empty_like(wr)
+    _launch("ka_quad", lib().xfb_ka_quad,
+            *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
+            n, hny, first, count, zr.device.index, _stream(zr))
     return wr, wi
 
 
@@ -212,6 +265,22 @@ def kb_pair(wr, wi, fa: int, fb: int, scale: float):
             *_ptrs(_twiddles(ny, wr.device), oa, ob), ny, nx, float(scale),
             wr.device.index, _stream(wr))
     return oa, ob
+
+
+def kb_stacked(wr, wi, fa: int, fb: int, scale: float):
+    """kb_pair's function written x-major: fields fa, fb of a stacked
+    (F, hny, nx) x-stage output -> a, b (nx, ny), scaled by `scale`: one
+    kb on the stack's field planes (a launch of kb). Counterpart of
+    pallas_fft._kb_call_stacked(..., transpose_out=True)."""
+    if wr.dim() != 3:
+        raise ValueError(f"kb_stacked: expected (F, hny, nx), got "
+                         f"{tuple(wr.shape)}")
+    nf = wr.shape[0]
+    _check("kb_stacked", tuple(wr.shape), wr, wi)
+    if not (0 <= fa < nf and 0 <= fb < nf):
+        raise ValueError(f"kb_stacked: field indices {fa}, {fb} not in "
+                         f"0..{nf - 1}")
+    return kb(wr[fa], wi[fa], wr[fb], wi[fb], scale)
 
 
 # ----------------------------------------------------------------- ky_adv
@@ -291,6 +360,35 @@ def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
     return tuple(outs)
 
 
+# ----------------------------------------------------------------- ka_adv
+
+def ka_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
+    if beta != 0.0:
+        zy = zy + beta
+    return ka_plain(-(u * zx) - v * zy + src, None, True)
+
+
+def ka_adv(u, zx, v, zy, src, beta: float = 0.0):
+    """-u*zx - v*(zy + beta) + src on x-major (nx, ny) fields, real
+    forward x-DFT of each y column, written transposed: (ny, nx) planes.
+    Counterpart of pallas_fft.forward_tendency's first kernel
+    (_ka_adv_kernel)."""
+    if u.dim() != 2:
+        raise ValueError(f"ka_adv: expected (nx, ny) fields, got "
+                         f"{tuple(u.shape)}")
+    nx, ny = u.shape
+    _check("ka_adv", (nx, ny), u, zx, v, zy, src)
+    if _takes_plain("ka_adv", u, nx):
+        return ka_adv_plain(u, zx, v, zy, src, beta)
+    from ._build import lib
+    yr = torch.empty((ny, nx), dtype=torch.float32, device=u.device)
+    yi = torch.empty_like(yr)
+    _launch("ka_adv", lib().xfb_ka_adv,
+            *_ptrs(u, zx, v, zy, src, _twiddles(nx, u.device), yr, yi),
+            nx, ny, float(beta), u.device.index, _stream(u))
+    return yr, yi
+
+
 # --------------------------------------------------------------------- ka
 
 def ka_plain(xr, xi, forward: bool, scale: float = 1.0):
@@ -350,6 +448,39 @@ def kc(xr, xi):
     _launch("kc", lib().xfb_kc, *_ptrs(xr, xi, _twiddles(ny, xr.device),
                                        yr, yi),
             ny, nx, xr.device.index, _stream(xr))
+    return yr, yi
+
+
+# ---------------------------------------------------------------- kc_visc
+
+def kc_visc_plain(xr, xi, lap, mask, zr, zi, nu: float):
+    yr, yi = kc_plain(xr, xi)
+    nulap = nu * lap
+    return mask * (yr + nulap * zr), mask * (yi + nulap * zi)
+
+
+def kc_visc(xr, xi, lap, mask, zr, zi, nu: float):
+    """kc of the (ny, nx) planes with the epilogue mask * (Y + nu*lap*Z)
+    on the (nx, hny) tables and current stage state -> (nx, hny) planes.
+    Counterpart of pallas_fft.forward_tendency's second kernel
+    (_kc_visc_kernel)."""
+    if xr.dim() != 2:
+        raise ValueError(f"kc_visc: expected (ny, nx) planes, got "
+                         f"{tuple(xr.shape)}")
+    ny, nx = xr.shape
+    hny = ny // 2 + 1
+    _check("kc_visc", (ny, nx), xr, xi)
+    _check("kc_visc", (nx, hny), lap, mask, zr, zi)
+    if lap.device != xr.device:
+        raise ValueError("kc_visc: tables and planes on different devices")
+    if _takes_plain("kc_visc", xr, ny):
+        return kc_visc_plain(xr, xi, lap, mask, zr, zi, nu)
+    from ._build import lib
+    yr = torch.empty((nx, hny), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    _launch("kc_visc", lib().xfb_kc_visc,
+            *_ptrs(xr, xi, lap, mask, zr, zi, _twiddles(ny, xr.device), yr,
+                   yi), ny, nx, float(nu), xr.device.index, _stream(xr))
     return yr, yi
 
 
@@ -433,16 +564,40 @@ def irfft2(spec: torch.Tensor, grid_shape) -> torch.Tensor:
 
 # ------------------------------------------------------- stage composites
 
-def derivative_quad_planes(zr, zi, kx, ky, rlap):
-    """(zeta_x, zeta_y, u, v) y-major (ny, nx) from the spectral state
-    planes: ka_diag + two kb_pair. Counterpart of
-    pallas_fft.derivative_quad_planes(..., ymajor=True)."""
+def derivative_quad_planes(zr, zi, kx, ky, rlap, ymajor: bool = True,
+                           quad_mode: str = "grid"):
+    """(zeta_x, zeta_y, u, v) from the spectral state planes, y-major
+    (ny, nx) with `ymajor` (ka_diag + two kb_pair), else x-major (nx, ny)
+    (the x-stage + two kb_stacked). quad_mode "grid" takes ka_diag for
+    the x-stage; "quad" one ka_quad, "split" two, both x-major only.
+    Counterpart of pallas_fft.derivative_quad_planes with QUAD_MODE =
+    quad_mode."""
+    if quad_mode not in QUAD_MODES:
+        raise ValueError(f"unknown quad_mode {quad_mode!r}, not one of "
+                         f"{QUAD_MODES}")
+    if ymajor and quad_mode != "grid":
+        raise NotImplementedError("ymajor requires quad_mode='grid'")
     nx, hny = zr.shape
     scale = 1.0 / (nx * 2 * (hny - 1))
-    wr, wi = ka_diag(zr, zi, rlap, kx, ky)
-    zx, zy = kb_pair(wr, wi, 0, 1, scale)
-    u, v = kb_pair(wr, wi, 2, 3, scale)
+    if quad_mode == "split":
+        zx, zy = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 0, 2), 0, 1,
+                            scale)
+        u, v = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 2, 2), 0, 1, scale)
+        return zx, zy, u, v
+    wr, wi = (ka_diag(zr, zi, rlap, kx, ky) if quad_mode == "grid"
+              else ka_quad(zr, zi, rlap, kx, ky))
+    pair = kb_pair if ymajor else kb_stacked
+    zx, zy = pair(wr, wi, 0, 1, scale)
+    u, v = pair(wr, wi, 2, 3, scale)
     return zx, zy, u, v
+
+
+def forward_tendency(u, zx, v, zy, src, lap, mask, zr, zi, nu: float,
+                     beta: float = 0.0):
+    """dealias(rfft2(-u*zx - v*(zy+beta) + src) + nu*lap*Z) as (re, im)
+    planes from x-major (nx, ny) fields: ka_adv + kc_visc. Counterpart
+    of pallas_fft.forward_tendency (the x-first order)."""
+    return kc_visc(*ka_adv(u, zx, v, zy, src, beta), lap, mask, zr, zi, nu)
 
 
 def forward_tendency_yfirst(u, zx, v, zy, src, lap, mask, zr, zi,

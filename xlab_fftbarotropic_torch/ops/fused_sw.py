@@ -1,7 +1,8 @@
 """The shallow-water plane stepper's kernels and the RK4 plane
 arithmetic: the counterpart of xlab_fftbarotropic_tpu/ops/pallas_sw.py
 in its default form (y-first forward pipeline, fused RK stage axpy,
-float32 stores, the split-linear formulation off in strict mode).
+float32 stores, the split-linear formulation off in strict mode) and in
+its x-first order.
 
 The state is six float32 planes (nx, hny): zr, zi, dr, di, er, ei of
 (zeta_hat, div_hat, eta_hat). One RK stage runs five launches of four
@@ -19,7 +20,12 @@ kernels (csrc/), the FFT ones around the shared column FFT
   sw_combine  the three dealiased tendencies, one elementwise pass, with
               the RK stage axpy fused in for stages 1-3
 
-and the RK4 tail is one rk4_combine launch over the six planes. In the
+and the RK4 tail is one rk4_combine launch over the six planes. The
+x-first order (XFB_SW_YFIRST=0 in the JAX package) writes the four fields
+x-major with two kb (kb_stacked) and runs ka_fwd (the five products and
+their real forward x-stages, (5, ny, nx)) and kc_sw (their forward
+partial y-stages) in place of ky_all and kx_fwd; the combine is the
+same. In the
 unfused form (XFB_SW_FUSED_RK=0 in the JAX package) sw_combine runs
 without its axpy and each stage state is one plane_axpy launch. The
 forcing spectrum is ka + kc (ops/fused_fft.py), once per segment. Under
@@ -44,7 +50,8 @@ import ctypes
 import torch
 
 from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
-                        _twiddles, inverse_xstage_plain, ka, kb_pair, kc)
+                        _twiddles, inverse_xstage_plain, ka, kb_pair,
+                        kb_stacked, kc)
 
 MAX_PLANES = 8   # csrc/rk4_combine.cu kMaxPlanes
 N_PRODUCTS = 5   # q*u, q*v, eta*u, eta*v, phi
@@ -168,15 +175,17 @@ def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
 
 
 def inverse_quad_planes(zr, zi, dr, di, er, ei, kx, ky, rlap,
-                        eta_scale: float = 1.0):
-    """(u, v, zeta, eta_scale*eta) y-major (ny, nx) from the SW state
-    planes: ka_sw + two kb_pair. Counterpart of
-    pallas_sw.inverse_quad_planes (XFB_SW_YFIRST=1)."""
+                        eta_scale: float = 1.0, yfirst: bool = True):
+    """(u, v, zeta, eta_scale*eta) from the SW state planes: ka_sw + two
+    kb_pair, y-major (ny, nx), or with yfirst False ka_sw + two
+    kb_stacked, x-major (nx, ny). Counterpart of
+    pallas_sw.inverse_quad_planes (YFIRST = yfirst)."""
     nx, hny = zr.shape
     scale = 1.0 / (nx * 2 * (hny - 1))
+    pair = kb_pair if yfirst else kb_stacked
     wr, wi = ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
-    u, v = kb_pair(wr, wi, 0, 1, scale)
-    zeta, eta_s = kb_pair(wr, wi, 2, 3, scale)
+    u, v = pair(wr, wi, 0, 1, scale)
+    zeta, eta_s = pair(wr, wi, 2, 3, scale)
     return u, v, zeta, eta_s
 
 
@@ -253,6 +262,70 @@ def kx_fwd(fr, fi):
             *_ptrs(_twiddles(nx, fr.device), rr, ri), None, None,
             nf, nx, hny, 0.0, 0.0, fr.device.index, _stream(fr))
     return rr, ri
+
+
+# ----------------------------------------------------------------- ka_fwd
+
+def ka_fwd_plain(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
+                 split: bool = False):
+    prods = torch.stack(sw_products(u, v, zeta, eta_s, ies, f0, grav,
+                                    split))
+    f = torch.fft.fft(prods, dim=1).transpose(1, 2)
+    return f.real.contiguous(), f.imag.contiguous()
+
+
+def ka_fwd(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
+           split: bool = False):
+    """The five SW products (ky_all's) of the x-major (nx, ny) fields,
+    each through the real forward x-DFT of every y column, written
+    transposed: stacked (5, ny, nx) planes. Counterpart of
+    pallas_sw.forward_tendencies' KA_FWD stage (_ka_fwd_kernel)."""
+    if u.dim() != 2:
+        raise ValueError(f"ka_fwd: expected (nx, ny) fields, got "
+                         f"{tuple(u.shape)}")
+    nx, ny = u.shape
+    _check("ka_fwd", (nx, ny), u, v, zeta, eta_s)
+    if _takes_plain("ka_fwd", u, nx):
+        return ka_fwd_plain(u, v, zeta, eta_s, ies, f0, grav, split)
+    from ._build import lib
+    yr = torch.empty((N_PRODUCTS, ny, nx), dtype=torch.float32,
+                     device=u.device)
+    yi = torch.empty_like(yr)
+    _launch("ka_fwd", lib().xfb_ka_fwd,
+            *_ptrs(u, v, zeta, eta_s, _twiddles(nx, u.device), yr, yi),
+            nx, ny, float(ies), float(f0), float(grav), int(split),
+            u.device.index, _stream(u))
+    return yr, yi
+
+
+# ------------------------------------------------------------------ kc_sw
+
+def kc_sw_plain(xr, xi):
+    ny = xr.shape[1]
+    y = torch.fft.fft(torch.complex(xr, xi), dim=1)[:, :ny // 2 + 1]
+    y = y.transpose(1, 2)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def kc_sw(xr, xi):
+    """kc over a stack: the forward DFT along y of (F, ny, nx) planes,
+    rows k <= ny/2, written transposed: (F, nx, hny). Counterpart of
+    pallas_sw.forward_tendencies' KC_SW stage (_kc_sw_kernel)."""
+    if xr.dim() != 3:
+        raise ValueError(f"kc_sw: expected (F, ny, nx), got "
+                         f"{tuple(xr.shape)}")
+    nf, ny, nx = xr.shape
+    _check("kc_sw", (nf, ny, nx), xr, xi)
+    if _takes_plain("kc_sw", xr, ny):
+        return kc_sw_plain(xr, xi)
+    from ._build import lib
+    yr = torch.empty((nf, nx, ny // 2 + 1), dtype=torch.float32,
+                     device=xr.device)
+    yi = torch.empty_like(yr)
+    _launch("kc_sw", lib().xfb_kc_sw,
+            *_ptrs(xr, xi, _twiddles(ny, xr.device), yr, yi), nf, ny, nx,
+            xr.device.index, _stream(xr))
+    return yr, yi
 
 
 # ------------------------------------------------------------- sw_combine
@@ -404,18 +477,24 @@ def sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0: float,
 def forward_tendencies(u, v, zeta, eta_s, state, src, kx, ky, lap, mask,
                        f0: float, grav: float, nu: float, H: float,
                        eta_scale: float = 1.0, axpy=None,
-                       split: bool = False, mv_axpy=None):
-    """The dealiased SW tendency planes from the y-major fields of
-    inverse_quad_planes: ky_all + kx_fwd + sw_combine (with axpy: also
+                       split: bool = False, mv_axpy=None,
+                       yfirst: bool = True):
+    """The dealiased SW tendency planes from the fields of
+    inverse_quad_planes: y-major, ky_all + kx_fwd + sw_combine; with
+    yfirst False x-major, ka_fwd + kc_sw + sw_combine (with axpy: also
     the next stage state). mv_axpy=(z0, q, scale, emit_tend) takes
     sw_combine_mv instead and returns (tend or None, z0 + scale *
     (q @ tend)); it does not combine with axpy. Counterpart of
-    pallas_sw.forward_tendencies (XFB_SW_YFIRST=1)."""
+    pallas_sw.forward_tendencies (YFIRST = yfirst)."""
     if axpy is not None and mv_axpy is not None:
         raise ValueError("forward_tendencies: axpy and mv_axpy are "
                          "mutually exclusive")
-    gr, gi = ky_all(u, v, zeta, eta_s, 1.0 / eta_scale, f0, grav, split)
-    pr, pi = kx_fwd(gr, gi)
+    if yfirst:
+        pr, pi = kx_fwd(*ky_all(u, v, zeta, eta_s, 1.0 / eta_scale, f0,
+                                grav, split))
+    else:
+        pr, pi = kc_sw(*ka_fwd(u, v, zeta, eta_s, 1.0 / eta_scale, f0,
+                               grav, split))
     if mv_axpy is not None:
         z0, q, scale, emit_tend = mv_axpy
         return sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0,

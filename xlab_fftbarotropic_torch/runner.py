@@ -72,9 +72,9 @@ class _BarotropicAdapter:
 
     kind = "barotropic"
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, yfirst: bool = True):
         self.cfg = cfg
-        self.model = BarotropicModel.build(cfg, device)
+        self.model = BarotropicModel.build(cfg, device, yfirst=yfirst)
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -155,9 +155,9 @@ class _ShallowWaterAdapter:
 
     kind = "shallow-water"
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, yfirst: bool = True):
         self.cfg = cfg
-        self.model = ShallowWaterModel.build(cfg, device)
+        self.model = ShallowWaterModel.build(cfg, device, yfirst=yfirst)
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -194,7 +194,8 @@ class _ShallowWaterAdapter:
 
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard: bool = False, ensemble: int = 0,
-                 tracer_kappa: float = 0.0, tracer_ic: str = "vorticity"):
+                 tracer_kappa: float = 0.0, tracer_ic: str = "vorticity",
+                 yfirst: bool = True):
     if ensemble and ensemble > 1:
         raise NotImplementedError(
             "ensemble runs are not ported yet (ROADMAP.md queue A, item 11)")
@@ -202,11 +203,11 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
         raise NotImplementedError(
             "sharded runs are not ported yet (ROADMAP.md queue A, item 13)")
     if model_kind in ("barotropic", "bt"):
-        return _BarotropicAdapter(cfg, device)
+        return _BarotropicAdapter(cfg, device, yfirst)
     if model_kind == "tracer":
         return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
     if model_kind in ("shallow-water", "sw"):
-        return _ShallowWaterAdapter(cfg, device)
+        return _ShallowWaterAdapter(cfg, device, yfirst)
     if model_kind in _NOT_PORTED:
         raise NotImplementedError(
             f"model kind {model_kind!r} is not ported yet (ROADMAP.md "
@@ -230,7 +231,8 @@ def run(cfg: ModelConfig,
         step_banners: bool = False,
         record_only=None,
         tracer_kappa: float = 0.0,
-        tracer_ic: str = "vorticity") -> RunResult:
+        tracer_ic: str = "vorticity",
+        yfirst: bool = True) -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -243,11 +245,13 @@ def run(cfg: ModelConfig,
     (None = all); 'vort_src' gates the forcing dump. debug_fields also
     dumps dvortdx/dvortdy/dvortdt at record steps. step_banners prints
     the reference's '# Step N' line for every step (in a burst per
-    segment).
+    segment). yfirst: the plane stepper's transform order of the
+    barotropic and shallow-water families (False: x-first); the tracer
+    family has one.
     """
     adapter = make_adapter(cfg, device, model_kind, shard=shard,
                            ensemble=ensemble, tracer_kappa=tracer_kappa,
-                           tracer_ic=tracer_ic)
+                           tracer_ic=tracer_ic, yfirst=yfirst)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
