@@ -69,17 +69,26 @@ exits non-zero and prints no result):
    quad_mode=...).segment for `steps` steps (the x-first order with the
    psi-first x-stage); per step 4 ka_quad (8 in split), 8 kb, 4 ka_adv
    and 4 kc_visc launches and nothing else.
+5i. The barotropic y-first fusion arms through the CLI, under the JAX
+   package's switches: XFB_BT_FUSEKB=full (kb_adv_full in place of two
+   kb_pair and ky_adv) and =half (one kb_pair and kb_adv_half),
+   XFB_BT_FUSEKX=0 (kx_fwd + visc in place of kx_visc),
+   XFB_BT_FUSETAIL=1 alone and with full (stage 4's kx_visc_tail in
+   place of rk4_combine), XFB_BT_FUSED_RK=0 with FUSEKX=0, and
+   --time-scheme etdrk4 with full and with FUSEKX=0; each with its exact
+   launches per step (PER_STEP).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
-   the three families' ETDRK4 segments, the SW drag segment and the
+   the three families' ETDRK4 segments, the SW drag segment, the
    x-first paths (barotropic RK4, ETDRK4, quad and split; SW RK4 and
-   ETDRK4).
+   ETDRK4) and the barotropic fusion arms (RK4 and ETDRK4).
 7. Barotropic trajectory: `steps` steps with the kernels (fused-RK and
-   unfused forms, the x-first order, quad and split) and with the
-   torch.fft library path on the card; rel-L2 of the physical vorticity
-   <= 1e-5 against the library path, between the two forms, of each
-   x-first form against the y-first kernel path and of quad and split
-   against the x-first ka_diag form.
+   unfused forms, the x-first order, quad and split, the fusion arms)
+   and with the torch.fft library path on the card; rel-L2 of the
+   physical vorticity <= 1e-5 against the library path, between the two
+   forms, of each x-first form against the y-first kernel path and of
+   quad and split against the x-first ka_diag form; each fusion arm's
+   state equal to the default arm's bit for bit.
 8. Tracer trajectory: `steps` steps, kernels against the library path;
    rel-L2 of the physical vorticity and of q <= 1e-5.
 9. Shallow-water trajectory, RK4 (with and without drag) and ETDRK4:
@@ -91,13 +100,16 @@ exits non-zero and prints no result):
    paths; the rel-L2 of each field is reported.
 9b. Barotropic ETDRK4 (dt = 3 s with the hyperviscosity of example 12,
    three times RK4's viscous bound) and tracer ETDRK4 (kappa = 50):
-   kernels against the library path, rel-L2 <= 1e-5 after `steps`, and
-   barotropic ETDRK4 x-first against it and the y-first kernel path.
+   kernels against the library path, rel-L2 <= 1e-5 after `steps`,
+   barotropic ETDRK4 x-first against it and the y-first kernel path, and
+   the ETDRK4 fusion arms (full, FUSEKX=0) bit for bit against the
+   default arm.
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
 11. With --profile: torch.profiler traces of the SW ETDRK4, the SW
-   drag and the x-first barotropic and SW RK4 kernel paths, device time
-   per step by kernel and the device's busy share.
+   drag, the x-first barotropic and SW RK4 and the barotropic FUSEKB=full
+   kernel paths, device time per step by kernel and the device's busy
+   share.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
 with each kernel's launches on the main paths, its max abs error
@@ -139,6 +151,10 @@ SW_ETD_DT = 7.5
 # row name: (source, the TPU kernel it replaces, LAUNCHES key, paths)
 XFIRST_BT = ("barotropic-xfirst", "bt-quad", "bt-split")
 XFIRST_SW = ("sw-xfirst", "sw-xfirst-etdrk4")
+# the barotropic fusion arms' CLI paths, by the kernel they swap in
+BT_FULL = ("bt-fusekb-full", "bt-full-tail", "bt-etdrk4-full")
+BT_FUSEKX0 = ("bt-fusekx0", "bt-unfused-fusekx0", "bt-etdrk4-fusekx0")
+BT_TAIL = ("bt-fusetail", "bt-full-tail")
 KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
@@ -217,6 +233,25 @@ KERNELS = {
     "kc_sw": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:581",
               "kc_sw", XFIRST_SW),
+    # the barotropic fusion arms (rows 5, 6, 9, 10)
+    "kb_adv_full": ("xlab_fftbarotropic_torch/csrc/kb_adv.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1158",
+                    "kb_adv_full", BT_FULL),
+    "kb_adv_half": ("xlab_fftbarotropic_torch/csrc/kb_adv.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1179",
+                    "kb_adv_half", ("bt-fusekb-half",)),
+    "kx_visc_tail": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                     "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1677",
+                     "kx_visc_tail", BT_TAIL),
+    "kx_fwd_bt": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                  "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1521",
+                  "kx_fwd", BT_FUSEKX0),
+    "visc": ("xlab_fftbarotropic_torch/csrc/visc.cu",
+             "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1544",
+             "visc", BT_FUSEKX0),
+    "visc_axpy": ("xlab_fftbarotropic_torch/csrc/visc.cu",
+                  "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1551",
+                  "visc", ("bt-fusekx0",)),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -241,6 +276,23 @@ PER_STEP = {
                   "sw_combine": 4, "rk4_combine": 1},
     "sw-xfirst-etdrk4": {"ka_sw": 4, "kb": 8, "ka_fwd": 4, "kc_sw": 4,
                          "sw_combine_mv": 4},
+    # the barotropic fusion arms (the y-first order)
+    "bt-fusekb-full": {"ka_diag": 4, "kb_adv_full": 4, "kx_visc": 4,
+                       "rk4_combine": 1},
+    "bt-fusekb-half": {"ka_diag": 4, "kb_pair": 4, "kb_adv_half": 4,
+                       "kx_visc": 4, "rk4_combine": 1},
+    "bt-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4, "kx_fwd": 4,
+                   "visc": 4, "rk4_combine": 1},
+    "bt-fusetail": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4, "kx_visc": 3,
+                    "kx_visc_tail": 1},
+    "bt-full-tail": {"ka_diag": 4, "kb_adv_full": 4, "kx_visc": 3,
+                     "kx_visc_tail": 1},
+    # the unfused RK form: torch stage updates and tail
+    "bt-unfused-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4,
+                           "kx_fwd": 4, "visc": 4},
+    "bt-etdrk4-full": {"ka_diag": 4, "kb_adv_full": 4, "kx_visc": 4},
+    "bt-etdrk4-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4,
+                          "kx_fwd": 4, "visc": 4},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
@@ -251,12 +303,32 @@ PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
                "sw-xfirst-etdrk4": {"ka": 1, "kc": 1}}
 # the main paths driven through cli.run.main, and the environment each
 # runs under (the x-first order, as the JAX package reads it)
+BT_ARM_ENV = {"bt-fusekb-full": {"XFB_BT_FUSEKB": "full"},
+              "bt-fusekb-half": {"XFB_BT_FUSEKB": "half"},
+              "bt-fusekx0": {"XFB_BT_FUSEKX": "0"},
+              "bt-fusetail": {"XFB_BT_FUSETAIL": "1"},
+              "bt-full-tail": {"XFB_BT_FUSEKB": "full",
+                               "XFB_BT_FUSETAIL": "1"},
+              "bt-unfused-fusekx0": {"XFB_BT_FUSED_RK": "0",
+                                     "XFB_BT_FUSEKX": "0"},
+              "bt-etdrk4-full": {"XFB_BT_FUSEKB": "full"},
+              "bt-etdrk4-fusekx0": {"XFB_BT_FUSEKX": "0"}}
 CLI_FAMILIES = ("barotropic", "tracer", "shallow-water", "sw-etdrk4",
                 "sw-drag", "barotropic-xfirst", "sw-xfirst",
-                "sw-xfirst-etdrk4")
+                "sw-xfirst-etdrk4") + tuple(BT_ARM_ENV)
 CLI_ENV = {"barotropic-xfirst": {"XFB_BT_YFIRST": "0"},
            "sw-xfirst": {"XFB_SW_YFIRST": "0"},
-           "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}}
+           "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}, **BT_ARM_ENV}
+# the same arms as BarotropicModel.build arguments, in the trajectory,
+# no-library and time phases, each beside the default arm of its form
+# (BT_ARM_REF, else "kernels")
+BT_ARMS = {"full": dict(fusekb="full"), "half": dict(fusekb="half"),
+           "fusekx0": dict(fusekx=False), "tail": dict(fusetail=True),
+           "full-tail": dict(fusekb="full", fusetail=True),
+           "full-fusekx0": dict(fusekb="full", fusekx=False),
+           "unfused-fusekx0": dict(fused_rk=False, fusekx=False)}
+BTE_ARMS = {"full": dict(fusekb="full"), "fusekx0": dict(fusekx=False)}
+BT_ARM_REF = {"unfused-fusekx0": "unfused"}
 # the main paths driven through a model's entry point
 MODEL_PATHS = ("sw-unfused", "bt-quad", "bt-split")
 SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag") + XFIRST_SW
@@ -409,7 +481,12 @@ def kernel_cases(n: int, dev, seed: int):
     ax_s, ax_r = planes((n, hny), 6), planes((n, hny), 6)
     # the x-first SW forward stage's (5, ny, nx) product x-stages
     gr, gi = planes((5, n, n), 2)
+    # ka_diag's stack at the size the stepper gives kb_adv: physical
+    # fields of order one after the 1/n^2 scale, as the product's terms
+    kar, kai = (w * n * math.sqrt(n) for w in (wr, wi))
+    tail = (z0r, z0i, *rk[1], *rk[2], *rk[3], 0.5)
     # complex inputs of the library calls, made once here
+    fc = torch.complex(fr, fi)
     xc = torch.complex(xr, xi)
     pc = torch.complex(pr, pi)
     gc = torch.complex(gr, gi)
@@ -568,6 +645,34 @@ def kernel_cases(n: int, dev, seed: int):
         "kc_sw": Case(lambda: fs.kc_sw(gr, gi), lambda: fs.kc_sw_plain(gr, gi),
                       per_field, (gr, gi), 5 * n,
                       lambda: torch.fft.fft(gc, dim=1)),
+        # the barotropic fusion arms: two inverse and one real forward
+        # transform per column (full), one and one (half)
+        "kb_adv_full": Case(lambda: ff.kb_adv_full(kar, kai, src, 0.3),
+                            lambda: ff.kb_adv_full_plain(kar, kai, src, 0.3),
+                            list, (kar, kai, src), 2.5 * n),
+        "kb_adv_half": Case(
+            lambda: ff.kb_adv_half(zx, zy, kar, kai, src, 0.3),
+            lambda: ff.kb_adv_half_plain(zx, zy, kar, kai, src, 0.3), list,
+            (zx, zy, kar[2:4], kai[2:4], src), 1.5 * n),
+        "kx_visc_tail": Case(
+            lambda: ff.kx_visc_tail(fr, fi, lap, t.mask, zsr, zsi, 6.5, tail),
+            lambda: ff.kx_visc_tail_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5,
+                                          tail), list,
+            (fr, fi, lap, t.mask, zsr, zsi, *tail[:8]), hny),
+        "kx_fwd_bt": Case(lambda: fs.kx_fwd(fr[None], fi[None]),
+                          lambda: fs.kx_fwd_plain(fr[None], fi[None]),
+                          per_field, (fr, fi), hny,
+                          lambda: torch.fft.fft(fc, dim=-2)),
+        "visc": Case(lambda: ff.visc(fr, fi, lap, t.mask, zsr, zsi, 6.5),
+                     lambda: ff.visc_plain(fr, fi, lap, t.mask, zsr, zsi,
+                                           6.5), list,
+                     (fr, fi, lap, t.mask, zsr, zsi)),
+        "visc_axpy": Case(
+            lambda: ff.visc(fr, fi, lap, t.mask, zsr, zsi, 6.5,
+                            (z0r, z0i, 1.5)),
+            lambda: ff.visc_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5,
+                                  (z0r, z0i, 1.5)), list,
+            (fr, fi, lap, t.mask, zsr, zsi, z0r, z0i)),
     }
 
 
@@ -657,6 +762,9 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         "barotropic-xfirst": (["vort"], []),
         "sw-xfirst": (["vort", "div", "h"], sw_rk4),
         "sw-xfirst-etdrk4": (["vort", "div", "h"], sw_etd),
+        # the barotropic fusion arms (under their CLI_ENV)
+        **{f: (["vort"], ["--time-scheme", "etdrk4"] if "etdrk4" in f
+               else []) for f in BT_ARM_ENV},
     }[family]
     if family in SW_FAMILIES:
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
@@ -700,7 +808,8 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
               f"manifest has {len(lines)} lines, not {2 * len(fields)}")
         cached = sorted(p.name for p in (Path(tmp) / "etd_cache").glob("*"))
         if "etdrk4" in family:
-            check(len(cached) == 1 and cached[0].startswith("sw_etd_"),
+            kind = "sw" if family in SW_FAMILIES else "barotropic"
+            check(len(cached) == 1 and cached[0].startswith(f"{kind}_etd_"),
                   f"ETD table cache holds {cached}")
     os.environ["XFB_ETD_CACHE"] = "0"
     per_seg = PER_SEGMENT.get(family, {})
@@ -904,7 +1013,8 @@ def build_models(n: int, dev) -> dict:
     shallow-water (RK4, ETDRK4) paths, each group beside its y-first
     kernel path ("yfirst"; quad and split also beside the x-first
     ka_diag form, "xfirst"). The ETD tables are built on the card (the
-    cache is off here)."""
+    cache is off here). The barotropic RK4 and ETDRK4 groups also hold
+    the fusion arms (BT_ARMS, BTE_ARMS)."""
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
     from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
@@ -947,6 +1057,11 @@ def build_models(n: int, dev) -> dict:
     tre = {"kernels": TracerModel.build(tre_cfg, dev, kappa=50.0),
            "library": TracerModel.build(tre_cfg.replace(fft_backend="xla"),
                                         dev, kappa=50.0)}
+    for name, arm in BT_ARMS.items():
+        bt[name] = BarotropicModel.build(cfg, dev, bt["kernels"].tables, **arm)
+    for name, arm in BTE_ARMS.items():
+        bte[name] = BarotropicModel.build(bte_cfg, dev, bte["kernels"].tables,
+                                          **arm)
     xbt = {"kernels": BarotropicModel.build(cfg, dev, yfirst=False),
            "yfirst": bt["kernels"], "library": bt["library"]}
     quad = {mode: {"kernels": BarotropicModel.build(cfg, dev,
@@ -997,7 +1112,10 @@ def phase_no_library(n: int, models: dict) -> None:
     out = {}
     with _refusing_library():
         for family, (paths, s0, src) in models.items():
-            out[family] = paths["kernels"].segment(s0, src, 2)
+            for k in ("kernels", *BT_ARMS):
+                if k in paths:
+                    name = family if k == "kernels" else f"{family}-{k}"
+                    out[name] = paths[k].segment(s0, src, 2)
         torch.cuda.synchronize()
     for family, s in out.items():
         for z in (s if isinstance(s, tuple) else (s,)):
@@ -1020,8 +1138,8 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
         if family in SW_FAMILIES:
             out.update(sw_trajectory(family, n, steps, paths, s0, src))
             continue
-        diags = {k: m.diags(m.segment(s0, src, steps))
-                 for k, m in paths.items()}
+        states = {k: m.segment(s0, src, steps) for k, m in paths.items()}
+        diags = {k: paths[k].diags(z) for k, z in states.items()}
         names = ("vort", "q") if family.startswith("tracer") else ("vort",)
         for k, d in diags.items():
             for name in names:
@@ -1046,6 +1164,16 @@ def phase_trajectories(n: int, steps: int, models: dict) -> dict:
                 f"vort, kernels vs the {ref} kernel path = {rel:.3e}")
             check(rel <= TOL, f"{family} vs {ref} rel-L2 {rel:.3e} > {TOL}")
             out[f"{family}_kernels_vs_{ref}_vort_rel_l2"] = rel
+        for k in (k for k in BT_ARMS if k in paths):
+            ref = BT_ARM_REF.get(k, "kernels")
+            same = bool(torch.equal(states[k], states[ref]))
+            rel = rel_l2(diags[k].vort, diags[ref].vort)
+            log(f"{family} trajectory: {steps} steps at {n}^2, fusion arm "
+                f"{k} vs the default arm ({ref}): bit-identical {same}, "
+                f"rel-L2 of vort {rel:.3e}")
+            check(same, f"{family} fusion arm {k}: not the bits of {ref} "
+                        f"(rel-L2 {rel:.3e})")
+            out[f"{family}_{k}_bit_identical"] = same
         if "unfused" in paths:
             a, b = diags["kernels"].vort, diags["unfused"].vort
             rel = rel_l2(a, b)
@@ -1186,17 +1314,19 @@ def kernel_functions() -> list:
         r"__global__\s+void\s+(\w+)", f.read_text())})
 
 
-def phase_profile(models: dict, family: str, steps: int = 5) -> dict:
+def phase_profile(models: dict, family: str, path: str = "kernels",
+                  steps: int = 5) -> dict:
     """Where a kernel path's time goes: a torch.profiler trace of `steps`
-    steps, device time per step by kernel (the port's by name, the rest
-    lumped as torch elementwise), and the device's busy share of the
-    synchronized wall time (profiler on)."""
+    steps of a family's path, device time per step by kernel (the port's
+    by name, the rest lumped as torch elementwise), and the device's busy
+    share of the synchronized wall time (profiler on)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = kernel_functions()
     paths, s0, src = models[family]
-    m = paths["kernels"]
+    m = paths[path]
+    family = family if path == "kernels" else f"{family}-{path}"
     m.segment(s0, src, 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1235,10 +1365,10 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write the full report as JSON to PATH")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the SW ETDRK4, the SW drag and the "
-                    "x-first barotropic and SW RK4 kernel paths with "
-                    "torch.profiler (the breakdown of where their time "
-                    "goes)")
+                    help="also trace the SW ETDRK4, the SW drag, the "
+                    "x-first barotropic and SW RK4 and the barotropic "
+                    "FUSEKB=full kernel paths with torch.profiler (the "
+                    "breakdown of where their time goes)")
     args = ap.parse_args(argv)
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
@@ -1287,6 +1417,8 @@ def main(argv=None) -> int:
         report["profile"] = {f: phase_profile(models, f)
                              for f in ("sw-etdrk4", "sw-drag",
                                        "barotropic-xfirst", "sw-xfirst")}
+        report["profile"]["barotropic-full"] = phase_profile(
+            models, "barotropic", "full")
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))

@@ -898,3 +898,172 @@ def test_sw_xfirst_launch_counts_and_yfirst_agreement(cuda, scheme):
                            "ka": 1, "kc": 1}
     assert max(_phys_err(s, ref.segment(s0, ref.zero_source(), 2),
                          256)) < TOL
+
+
+# ------------------------------------------- the barotropic fusion arms
+
+# per step, each arm's kernels of the fused-RK y-first stepper: ka_diag 4
+# and (default) kb_pair 8 + ky_adv 4, kx_visc 4, rk4_combine 1
+_ARM_FIRST = {"": {"kb_pair": 8, "ky_adv": 4}, "full": {"kb_adv_full": 4},
+              "half": {"kb_pair": 4, "kb_adv_half": 4}}
+
+
+def _arm_launches(fusekb="", fusekx=True, fusetail=False, fused_rk=True,
+                  etd=False):
+    """Launches per step of an arm: the first forward stage
+    by fusekb, kx_visc or kx_fwd + visc, and the tail's kernel."""
+    out = {"ka_diag": 4, **_ARM_FIRST[fusekb]}
+    out.update({"kx_visc": 4} if fusekx else {"kx_fwd": 4, "visc": 4})
+    if not etd and fused_rk:
+        if fusetail and fusekx:
+            out.update(kx_visc=3, kx_visc_tail=1)
+        else:
+            out["rk4_combine"] = 1
+    return out
+
+
+def _kb_adv_inputs(rng, ny, nx, dev):
+    """ka_diag's stack at a size that makes the physical fields, after
+    the 1/(nx ny) scale, of order one, as src and the y-major zx, zy."""
+    wr, wi = (w * nx * ny ** 0.5
+              for w in _planes(rng, (4, ny // 2 + 1, nx), 2, dev))
+    zx, zy, src = _planes(rng, (ny, nx), 3, dev)
+    return wr, wi, zx, zy, src
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 128)])
+@pytest.mark.parametrize("mode", ["full", "half"])
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+def test_kb_adv_matches_plain(cuda, shape, mode, beta):
+    """kb_adv_full / kb_adv_half against their plain versions (kb_pair x2
+    or x1 + ky_adv in torch), square and non-square (ny, nx)."""
+    ny, nx = shape
+    rng = np.random.default_rng(ny + nx + int(beta))
+    wr, wi, zx, zy, src = _kb_adv_inputs(rng, ny, nx, cuda)
+    if mode == "full":
+        got = ff.kb_adv_full(wr, wi, src, beta)
+        want = ff.kb_adv_full_plain(wr, wi, src, beta)
+    else:
+        got = ff.kb_adv_half(zx, zy, wr, wi, src, beta)
+        want = ff.kb_adv_half_plain(zx, zy, wr, wi, src, beta)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (nx, ny // 2 + 1)
+        assert _rel(g, w) < TOL
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("mode", ["full", "half"])
+def test_kb_adv_is_kb_pair_and_ky_adv_bit_for_bit(cuda, n, mode):
+    """The fused kernels give the bits of the kernels they replace
+    (kb_pair x2 or x1 + ky_adv on the card), beta on, and junk in the
+    imaginary part of the self-conjugate rows changes nothing."""
+    rng = np.random.default_rng(n + 8)
+    wr, wi, _, _, src = _kb_adv_inputs(rng, n, n, cuda)
+    scale = 1.0 / (n * n)
+    zx, zy = ff.kb_pair(wr, wi, 0, 1, scale)
+    u, v = ff.kb_pair(wr, wi, 2, 3, scale)
+    want = ff.ky_adv(u, zx, v, zy, src, 1.6)
+    fused = (lambda w: ff.kb_adv_full(wr, w, src, 1.6) if mode == "full"
+             else ff.kb_adv_half(zx, zy, wr, w, src, 1.6))
+    got = fused(wi)
+    poisoned = wi.clone()
+    poisoned[:, 0] = 10.0 * wi[:, 0] + 1.0
+    poisoned[:, n // 2] = -7.0 * wi[:, n // 2]
+    dirty = fused(poisoned)
+    torch.cuda.synchronize()
+    for g, d, w in zip(got, dirty, want):
+        assert torch.equal(g, w)
+        assert torch.equal(d, w)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (2, 256, 64)])
+def test_kx_visc_tail_matches_plain_and_the_unfused_kernels(cuda, shape):
+    """kx_visc_tail against its plain version (kx_visc + rk4_combine in
+    torch) to 1e-5, and bit for bit against the kernels it replaces
+    (kx_visc, then rk4_combine over each field's planes)."""
+    nx, ny = shape[-2:]
+    hny = ny // 2 + 1
+    pshape = shape[:-2] + (nx, hny)
+    rng = np.random.default_rng(nx + len(shape))
+    t = _tables(nx, cuda, ny)
+    fr, fi, zsr, zsi = _planes(rng, pshape, 4, cuda)
+    tail = (*_planes(rng, pshape, 8, cuda), 0.5)
+    lap = (t.lap / t.lap.abs().max()).expand(pshape).contiguous()
+    got = ff.kx_visc_tail(fr, fi, lap, t.mask, zsr, zsi, 6.5, tail)
+    want = ff.kx_visc_tail_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5, tail)
+    r4 = ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5)
+    z0, r1, r2, r3 = (tail[k:k + 2] for k in range(0, 8, 2))
+    unfused = fs.plane_rk4_combine(z0, r1, r2, r3, r4, 0.5)
+    torch.cuda.synchronize()
+    for g, w, u in zip(got, want, unfused):
+        assert g.shape == pshape
+        assert _rel(g, w) < TOL
+        assert torch.equal(g, u)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (4096, 4096), (8192, 8192),
+                                   (256, 64)])
+@pytest.mark.parametrize("coef", [None, 0.4235])
+def test_visc_matches_plain_and_kx_visc_bit_for_bit(cuda, shape, coef):
+    """visc against its plain version bit for bit (both round every
+    product and sum), and kx_fwd + visc against kx_visc's fused
+    epilogue bit for bit."""
+    nx, ny = shape
+    hny = ny // 2 + 1
+    rng = np.random.default_rng(nx + ny + (coef is None))
+    t = _tables(nx, cuda, ny)
+    fr, fi, zsr, zsi, z0r, z0i = _planes(rng, (nx, hny), 6, cuda)
+    lap = t.lap / t.lap.abs().max()
+    axpy = None if coef is None else (z0r, z0i, coef)
+    got = ff.visc(fr, fi, lap, t.mask, zsr, zsi, 6.5, axpy)
+    want = ff.visc_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5, axpy)
+    gr, gi = fs.kx_fwd(fr[None], fi[None])
+    split = ff.visc(gr[0], gi[0], lap, t.mask, zsr, zsi, 6.5, axpy)
+    fused = ff.kx_visc(fr, fi, lap, t.mask, zsr, zsi, 6.5, axpy)
+    torch.cuda.synchronize()
+    assert len(got) == (2 if coef is None else 4)
+    for g, w, s, f in zip(got, want, split, fused):
+        assert torch.equal(g, w)
+        assert torch.equal(s, f)
+
+
+def test_fusion_kernels_refuse_what_they_do_not_take(cuda):
+    w = torch.zeros((4, 49, 96), device=cuda)
+    f = torch.zeros((96, 96), device=cuda)
+    with pytest.raises(ValueError):          # ny = 96: not a power of two
+        ff.kb_adv_full(w, w, f)
+    with pytest.raises(ValueError):
+        ff.kb_adv_half(f, f, w, w, f)
+
+
+@pytest.mark.parametrize("arm", [dict(fusekb="full"), dict(fusekb="half"),
+                                 dict(fusekx=False), dict(fusetail=True),
+                                 dict(fusekb="full", fusetail=True),
+                                 dict(fused_rk=False, fusekx=False),
+                                 dict(fusekb="full", etd=True),
+                                 dict(fusekx=False, etd=True)])
+def test_fusion_arm_launch_counts_and_default_bits(cuda, arm):
+    """Three forced steps of each fusion arm (RK4 on the beta-plane, or
+    ETDRK4) launch exactly its kernels, and give the bits of the default
+    arm of the same form."""
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+
+    kw = dict(arm)
+    etd = kw.pop("etd", False)
+    cfg = (ModelConfig(nx=256, ny=256, time_scheme="etdrk4")
+           if etd else ModelConfig(nx=256, ny=256, beta=1e-11))
+    m = BarotropicModel.build(cfg, cuda, **kw)
+    ref = BarotropicModel.build(cfg, cuda, fused_rk=kw.get("fused_rk", True))
+    z = m.init_state(makefields.gaussian(cfg))
+    src = 1e-9 * torch.randn(cfg.grid_shape, device=cuda)
+    ff.reset_launches()
+    a = m.segment(z, src, 3)
+    torch.cuda.synchronize()
+    want = {k: 3 * v for k, v in _arm_launches(etd=etd, **kw).items()}
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+    assert torch.equal(a, ref.segment(z, src, 3))

@@ -143,7 +143,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                            "kx_fwd": 0, "sw_combine": 0, "sw_combine_mv": 0,
                            "ka": 0, "kc": 0, "kb": 0, "plane_axpy": 0,
                            "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
-                           "ka_fwd": 0, "kc_sw": 0}
+                           "ka_fwd": 0, "kc_sw": 0, "kb_adv_full": 0,
+                           "kb_adv_half": 0, "kx_visc_tail": 0, "visc": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

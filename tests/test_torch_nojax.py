@@ -1,9 +1,10 @@
 """The port runs without jax and without the JAX package: in a fresh
 interpreter (no GPU visible), it imports every module, steps the
-barotropic, tracer and shallow-water models twice on the CPU in both
-time schemes (RK4 and ETDRK4), on the plane stepper and on the library
-path, the SW model with drag on the per-transform path, takes a gradient
-through the adjoint rollout on both transform triples, and ends with no
+barotropic (also in a fusion arm), tracer and shallow-water models
+twice on the CPU in both time schemes (RK4 and ETDRK4), on the plane
+stepper and on the library path, the SW model with drag on the
+per-transform path, takes a gradient through the adjoint rollout on
+both transform triples, and ends with no
 jax and no xlab_fftbarotropic_tpu module loaded; and its CLIs refuse to
 run without a GPU unless told --device cpu."""
 
@@ -45,6 +46,10 @@ for scheme in ("rk4", "etdrk4"):
         z = m.segment(m.init_state(makefields.gaussian(cfg)),
                       m.zero_source(), 2)
         assert bool(torch.isfinite(m.diags(z).vort).all())
+        arm = BarotropicModel.build(cfg, cpu, fusekb="full", fusekx=False,
+                                    fusetail=True)
+        assert torch.equal(arm.segment(m.init_state(makefields.gaussian(cfg)),
+                                       m.zero_source(), 2), z)
         tm = TracerModel.build(cfg, cpu, kappa=50.0)
         assert tm.backend == backend
         s = tm.segment(tm.init_state(makefields.gaussian(cfg),

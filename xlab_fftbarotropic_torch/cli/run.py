@@ -18,7 +18,14 @@ the port does not cover yet stop with an error.
 
 As in the JAX package, XFB_BT_YFIRST=0 (barotropic) and XFB_SW_YFIRST=0
 (shallow water) in the environment select the plane stepper's x-first
-transform order; y-first is the default.
+transform order; y-first is the default. The barotropic y-first plane
+stepper reads the JAX package's fusion switches the same way:
+XFB_BT_FUSEKB (auto, 0 or empty: off, as auto is in strict float32;
+half or full: kb_adv_half or kb_adv_full), XFB_BT_FUSEKX (0 or empty:
+kx_fwd + visc instead of kx_visc), XFB_BT_FUSETAIL (on unless auto, 0 or
+empty: the RK4 tail in stage 4's kx_visc_tail) and XFB_BT_FUSED_RK (0:
+the unfused RK form). XFB_FUSEKX_MAX is not read: its 4096 cap is the
+TPU's VMEM limit, and the port keeps the fused kx_visc up to 8192^2.
 """
 
 from __future__ import annotations
@@ -28,11 +35,30 @@ import os
 import sys
 
 
+def bt_fusion_from_env() -> dict:
+    """BarotropicModel.build's fused_rk, fusekb, fusekx and fusetail from
+    the environment, read as the JAX package reads them
+    (models/barotropic.py:_fused_rk, ops/pallas_fft.py:fusekb_mode,
+    fusekx_on, fusetail_on in strict float32). Raises ValueError on an
+    XFB_BT_FUSEKB the package does not know."""
+    fusekb = os.environ.get("XFB_BT_FUSEKB", "auto")
+    if fusekb not in ("auto", "0", "", "half", "full"):
+        raise ValueError(f"XFB_BT_FUSEKB={fusekb!r}: expected auto, 0, half "
+                         f"or full")
+    fusekx = os.environ.get("XFB_BT_FUSEKX", "auto")
+    fusetail = os.environ.get("XFB_BT_FUSETAIL", "auto")
+    return dict(fused_rk=os.environ.get("XFB_BT_FUSED_RK", "1") != "0",
+                fusekb="" if fusekb in ("auto", "0") else fusekb,
+                fusekx=fusekx not in ("", "0"),
+                fusetail=fusetail not in ("auto", "", "0"))
+
+
 def main(argv=None):
     import torch
 
     from ..config import add_config_args, config_from_args
-    from ..models.barotropic import resolve_device, resolve_fft_backend_name
+    from ..models.barotropic import (fusion_arm, resolve_device,
+                                     resolve_fft_backend_name)
     from ..models.shallow_water import resolve_sw_backend
     from ..runner import _NOT_PORTED, run
 
@@ -114,6 +140,12 @@ def main(argv=None):
     sw = args.model in ("shallow-water", "sw")
     yfirst = os.environ.get("XFB_SW_YFIRST" if sw else "XFB_BT_YFIRST",
                             "1") != "0"
+    bt_fusion = None
+    if args.model in ("barotropic", "bt"):
+        try:
+            bt_fusion = bt_fusion_from_env()
+        except ValueError as e:
+            p.error(str(e))
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
     try:
@@ -158,6 +190,9 @@ def main(argv=None):
     if backend == "pallas" and args.model != "tracer":
         print(f"Transform order       : {'y' if yfirst else 'x'}-first",
               file=sys.stderr)
+    if backend == "pallas" and bt_fusion is not None and yfirst:
+        arm = fusion_arm(etd=cfg.time_scheme == "etdrk4", **bt_fusion)
+        print(f"Fusion arm            : {arm}", file=sys.stderr)
     print("#########################", file=sys.stderr)
 
     result = run(cfg, device, recipe=recipe, src_path=src_path,
@@ -166,7 +201,7 @@ def main(argv=None):
                  model_kind=args.model, debug_fields=args.debug_fields,
                  step_banners=args.step_banners, record_only=record_only,
                  tracer_kappa=args.tracer_kappa, tracer_ic=args.tracer_ic,
-                 yfirst=yfirst)
+                 yfirst=yfirst, bt_fusion=bt_fusion)
     sps = result.steps_run / max(result.wall_time, 1e-9)
     print(f"Ran {result.steps_run} steps in {result.wall_time:.2f}s "
           f"({sps:.1f} steps/s, {sps * cfg.grids:.3e} grid-points/s)",

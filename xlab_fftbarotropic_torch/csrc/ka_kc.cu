@@ -40,6 +40,7 @@
 // products; the product index is the fastest grid axis, so all but the
 // first of them find the columns in L2.
 #include "colfft.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -146,10 +147,8 @@ __global__ void kc_kernel(const float* __restrict__ xr,
   for (int k = threadIdx.x; k < hny; k += blockDim.x) {
     float2 v = s[k];
     if (lap != nullptr) {  // kc_visc, one field: row + k indexes the tables
-      const float nulap = nu * lap[row + k];
-      const float m = mask[row + k];
-      v = make_float2(m * (v.x + nulap * zr[row + k]),
-                      m * (v.y + nulap * zi[row + k]));
+      v = xfb::visc(nu, lap[row + k], mask[row + k], v, zr[row + k],
+                    zi[row + k]);
     }
     yr[row + k] = v.x;
     yi[row + k] = v.y;

@@ -24,27 +24,6 @@
 
 namespace {
 
-// The Hermitian column of x-stage column x, stored bit-reversed for
-// colfft; b absent (br_p == nullptr) is a zero partner.
-__device__ __forceinline__ void load_column(
-    float2* s, const float* __restrict__ ar_p, const float* __restrict__ ai_p,
-    const float* __restrict__ br_p, const float* __restrict__ bi_p, int ny,
-    int logny, int nx) {
-  const int half = ny >> 1;
-  for (int j = threadIdx.x; j <= half; j += blockDim.x) {
-    const size_t off = static_cast<size_t>(j) * nx;
-    const bool selfconj = (j == 0) || (j == half);
-    const float ar = ar_p[off];
-    const float ai = selfconj ? 0.f : ai_p[off];
-    const float br = br_p == nullptr ? 0.f : br_p[off];
-    const float bi = (selfconj || bi_p == nullptr) ? 0.f : bi_p[off];
-    s[xfb::bitrev(j, logny)] = make_float2(ar - bi, ai + br);
-    if (!selfconj) {
-      s[xfb::bitrev(ny - j, logny)] = make_float2(ar + bi, br - ai);
-    }
-  }
-}
-
 __global__ void kb_pair_kernel(const float* __restrict__ wr,
                                const float* __restrict__ wi, int fa,
                                int fb, const float2* __restrict__ tw,
@@ -54,8 +33,9 @@ __global__ void kb_pair_kernel(const float* __restrict__ wr,
   extern __shared__ float2 s[];
   const int x = blockIdx.x;
   const size_t plane = static_cast<size_t>((ny >> 1) + 1) * nx;
-  load_column(s, wr + fa * plane + x, wi + fa * plane + x,
-              wr + fb * plane + x, wi + fb * plane + x, ny, logny, nx);
+  xfb::load_hermitian_column(s, wr + fa * plane + x, wi + fa * plane + x,
+                             wr + fb * plane + x, wi + fb * plane + x, ny,
+                             logny, nx);
   xfb::colfft<+1>(s, ny, logny, tw);
   for (int y = threadIdx.x; y < ny; y += blockDim.x) {
     const float2 v = s[y];
@@ -74,8 +54,10 @@ __global__ void kb_kernel(const float* __restrict__ war,
                           int ny, int logny, int nx, float scale) {
   extern __shared__ float2 s[];
   const int x = blockIdx.x;
-  load_column(s, war + x, wai + x, wbr == nullptr ? nullptr : wbr + x,
-              wbi == nullptr ? nullptr : wbi + x, ny, logny, nx);
+  xfb::load_hermitian_column(s, war + x, wai + x,
+                             wbr == nullptr ? nullptr : wbr + x,
+                             wbi == nullptr ? nullptr : wbi + x, ny, logny,
+                             nx);
   xfb::colfft<+1>(s, ny, logny, tw);
   const size_t row = static_cast<size_t>(x) * ny;
   for (int y = threadIdx.x; y < ny; y += blockDim.x) {

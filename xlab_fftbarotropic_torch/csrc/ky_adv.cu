@@ -4,14 +4,16 @@
 // (xlab_fftbarotropic_tpu/ops/pallas_fft.py). For each physical column x
 // of the y-major (ny, nx) fields it forms
 //   adv[y] = -(u zx) - v zy + S            (zy + beta for beta != 0)
-// in the TPU kernel's expression order, runs the forward colfft of the
-// real column (zero imaginary part) and keeps rows k <= ny/2, written as
-// out[x, k] of shape (nx, hny).
+// in the TPU kernel's expression order, each product and sum rounded on
+// its own (xfb::advection, the expression kb_adv shares), runs the
+// forward colfft of the real column (zero imaginary part) and keeps rows
+// k <= ny/2, written as out[x, k] of shape (nx, hny).
 //
 // Bound: memory traffic, about 403 MB per call at 4096^2 (5 planes in,
 // 2 half planes out). The five column reads are strided by nx; the row
 // write is contiguous.
 #include "colfft.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -28,9 +30,8 @@ __global__ void ky_adv_kernel(const float* __restrict__ u,
   const int x = blockIdx.x;
   for (int y = threadIdx.x; y < ny; y += blockDim.x) {
     const size_t off = static_cast<size_t>(y) * nx + x;
-    float zyv = zy[off];
-    if (beta != 0.f) zyv = zyv + beta;  // beta = 0: the f-plane expression
-    const float adv = -(u[off] * zx[off]) - v[off] * zyv + src[off];
+    const float adv =
+        xfb::advection(u[off], zx[off], v[off], zy[off], src[off], beta);
     s[xfb::bitrev(y, logny)] = make_float2(adv, 0.f);
   }
   xfb::colfft<-1>(s, ny, logny, tw);

@@ -18,7 +18,7 @@
 // and writes 6, about 604 MB. One launch covers every plane (grid y =
 // plane), a grid-stride loop with consecutive threads on consecutive
 // elements.
-#include <cuda_runtime.h>
+#include "epilogue.cuh"
 
 namespace {
 
@@ -46,10 +46,7 @@ __global__ void rk4_combine_kernel(Planes p, long long numel, float c) {
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < numel; i += stride) {
-    float t = __fadd_rn(r1[i], __fmul_rn(2.0f, r2[i]));
-    t = __fadd_rn(t, __fmul_rn(2.0f, r3[i]));
-    t = __fadd_rn(t, r4[i]);
-    out[i] = __fadd_rn(s0[i], __fmul_rn(t, c));
+    out[i] = xfb::rk4_tail(s0[i], r1[i], r2[i], r3[i], r4[i], c);
   }
 }
 
@@ -69,7 +66,7 @@ __global__ void plane_axpy_kernel(AxpyPlanes p, long long numel,
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < numel; i += stride) {
-    out[i] = __fadd_rn(s[i], __fmul_rn(coef, r[i]));
+    out[i] = xfb::axpy(s[i], coef, r[i]);
   }
 }
 

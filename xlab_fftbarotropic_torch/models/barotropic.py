@@ -14,11 +14,17 @@ Two stepping paths, chosen by cfg.fft_backend:
   ops/fused_fft.py, five launches per RK stage, with the RK stage update
   fused into kx_visc's epilogue for stages 1-3 and the RK4 tail one
   rk4_combine launch (ops/fused_sw.py): 21 launches per step. That is
-  the y-first order; the x-first one (yfirst=False, the JAX package's
-  XFB_BT_YFIRST=0, or quad_mode "quad"/"split") runs ka_diag (or
-  ka_quad) + two kb + ka_adv + kc_visc per stage, with the stage updates
-  in torch. On a CUDA device they are the hand-written kernels; on the
-  CPU, their plain torch versions.
+  the y-first order in its default fusion arm; the JAX package's other
+  arms are fusekb "full"/"half" (XFB_BT_FUSEKB: kb_adv_full, or kb_pair
+  + kb_adv_half, in place of two kb_pair + ky_adv), fusekx=False
+  (XFB_BT_FUSEKX=0: kx_fwd + visc in place of kx_visc) and fusetail
+  (XFB_BT_FUSETAIL=1: the RK4 tail in stage 4's kx_visc_tail in place
+  of rk4_combine), each giving the default arm's values. The x-first
+  order (yfirst=False, the JAX package's XFB_BT_YFIRST=0, or quad_mode
+  "quad"/"split") runs ka_diag (or ka_quad) + two kb + ka_adv + kc_visc
+  per stage, with the stage updates in torch, and no fusion arm. On a
+  CUDA device they are the hand-written kernels; on the CPU, their plain
+  torch versions.
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 tendency / rk4_step also run on the per-transform kernels
@@ -191,25 +197,35 @@ def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
 
 def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
                    beta: float = 0.0, yfirst: bool = True,
-                   quad_mode: str = "grid") -> Callable:
-    """The plane stepper's dealiased stage tendency, d(sr, si[, axpy]) ->
-    (re, im) planes. y-first: derivative_quad_planes (ka_diag + 2
-    kb_pair) and forward_tendency_yfirst (ky_adv + kx_visc, viscous and
-    dealiased in the epilogue; axpy=(z0r, z0i, coef) also returns the
-    next stage state), `src_l` the forcing y-major (ny, nx). x-first
-    (yfirst False; quad_mode "quad" or "split" requires it): the x-major
-    derivative_quad_planes (ka_diag or ka_quad + 2 kb) and
-    forward_tendency (ka_adv + kc_visc), `src_l` x-major (nx, ny), no
-    axpy."""
-    def d(sr, si, axpy=None):
+                   quad_mode: str = "grid", fusekb: str = "",
+                   fusekx: bool = True) -> Callable:
+    """The plane stepper's dealiased stage tendency, d(sr, si[, axpy,
+    tail]) -> (re, im) planes. y-first: derivative_quad_planes (ka_diag +
+    2 kb_pair) and forward_tendency_yfirst (ky_adv + forward_tail:
+    kx_visc, or with fusekx False kx_fwd + visc, viscous and dealiased in
+    the epilogue; axpy=(z0r, z0i, coef) also returns the next stage
+    state, tail=(z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, c) the stepped
+    state instead), or with fusekb "full"/"half" tendency_yfirst_fusedkb;
+    `src_l` the forcing y-major (ny, nx). x-first (yfirst False; quad_mode
+    "quad" or "split" requires it): the x-major derivative_quad_planes
+    (ka_diag or ka_quad + 2 kb) and forward_tendency (ka_adv + kc_visc),
+    `src_l` x-major (nx, ny), no axpy or tail, fusekb and fusekx
+    ignored (as in the JAX package)."""
+    def d(sr, si, axpy=None, tail=None):
+        if yfirst and fusekb:
+            return ff.tendency_yfirst_fusedkb(
+                sr, si, src_l, t.kx, t.ky, t.rlap, t.lap, t.mask, nu, axpy,
+                fusekb, beta, tail, fusekx)
         zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap,
                                                  ymajor=yfirst,
                                                  quad_mode=quad_mode)
         if yfirst:
             return ff.forward_tendency_yfirst(u, zx, v, zy, src_l, t.lap,
-                                              t.mask, sr, si, nu, beta, axpy)
-        if axpy is not None:
-            raise ValueError("the x-first tendency takes no stage axpy")
+                                              t.mask, sr, si, nu, beta, axpy,
+                                              tail, fusekx)
+        if axpy is not None or tail is not None:
+            raise ValueError("the x-first tendency takes no stage axpy or "
+                             "tail")
         return ff.forward_tendency(u, zx, v, zy, src_l, t.lap, t.mask, sr,
                                    si, nu, beta)
     return d
@@ -218,26 +234,33 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
 def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
                     src_l: torch.Tensor, dt: float, nu: float,
                     beta: float = 0.0, fused_rk: bool = True,
-                    yfirst: bool = True, quad_mode: str = "grid"):
+                    yfirst: bool = True, quad_mode: str = "grid",
+                    fusekb: str = "", fusekx: bool = True,
+                    fusetail: bool = False):
     """RK4 on the state as float32 (re, im) planes through the transform
     kernels, a plane_tendency per stage (yfirst and quad_mode pick the
-    order and the x-stage; `src_l` is the forcing in that order's
-    layout).
+    order and the x-stage, fusekb and fusekx the y-first fusion arm;
+    `src_l` is the forcing in that order's layout).
 
-    fused_rk=True (the JAX default, XFB_BT_FUSED_RK=1, with its
-    FUSETAIL off), y-first only: stages 1-3 return the next stage state
-    from kx_visc's axpy epilogue, and the tail is one plane_rk4_combine.
-    Otherwise (fused_rk=False, or the x-first order, which the JAX
-    package never fuses): the stage updates and the tail are torch
-    elementwise arithmetic in the same grouping; on the CPU both forms
-    give the same bits."""
+    fused_rk=True (the JAX default, XFB_BT_FUSED_RK=1), y-first only:
+    stages 1-3 return the next stage state from the forward tail's axpy
+    epilogue, and the tail is one plane_rk4_combine, or with fusetail
+    (XFB_BT_FUSETAIL=1, which needs fusekx, as the JAX package's :302)
+    stage 4's kx_visc_tail. Otherwise (fused_rk=False, or the x-first
+    order, which the JAX package never fuses): the stage updates and the
+    tail are torch elementwise arithmetic in the same grouping; every
+    form and arm gives the same bits."""
     h = dt * 0.5
-    d = plane_tendency(t, src_l, nu, beta, yfirst, quad_mode)
+    d = plane_tendency(t, src_l, nu, beta, yfirst, quad_mode, fusekb,
+                       fusekx)
     c = dt / 6.0
     if fused_rk and yfirst:
         r1r, r1i, s2r, s2i = d(zr, zi, axpy=(zr, zi, h))
         r2r, r2i, s3r, s3i = d(s2r, s2i, axpy=(zr, zi, h))
         r3r, r3i, s4r, s4i = d(s3r, s3i, axpy=(zr, zi, dt))
+        if fusetail and fusekx:
+            return d(s4r, s4i, tail=(zr, zi, r1r, r1i, r2r, r2i, r3r, r3i,
+                                     c))
         r4r, r4i = d(s4r, s4i)
         return fs.plane_rk4_combine((zr, zi), (r1r, r1i), (r2r, r2i),
                                     (r3r, r3i), (r4r, r4i), c)
@@ -247,6 +270,20 @@ def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
     r4r, r4i = d(zr + r3r * dt, zi + r3i * dt)
     return (zr + (r1r + 2.0 * r2r + 2.0 * r3r + r4r) * c,
             zi + (r1i + 2.0 * r2i + 2.0 * r3i + r4i) * c)
+
+
+def fusion_arm(fused_rk: bool = True, fusekb: str = "", fusekx: bool = True,
+               fusetail: bool = False, etd: bool = False) -> str:
+    """The y-first plane stepper's kernels in a fusion arm, by stage part
+    (the CLI banner's line)."""
+    parts = [{"": "kb_pair x2 + ky_adv", "half": "kb_pair + kb_adv_half",
+              "full": "kb_adv_full"}[fusekb],
+             "kx_visc" if fusekx else "kx_fwd + visc"]
+    if not etd:
+        parts.append("torch stage updates" if not fused_rk
+                     else "kx_visc_tail" if fusetail and fusekx
+                     else "rk4_combine")
+    return ", ".join(parts)
 
 
 def etd_step(t: SpectralTables, tabs, zeta_hat: torch.Tensor,
@@ -260,12 +297,16 @@ def etd_step(t: SpectralTables, tabs, zeta_hat: torch.Tensor,
 
 def etd_step_planes(t: SpectralTables, tabs, zr: torch.Tensor,
                     zi: torch.Tensor, src_l: torch.Tensor,
-                    yfirst: bool = True, quad_mode: str = "grid"):
+                    yfirst: bool = True, quad_mode: str = "grid",
+                    fusekb: str = "", fusekx: bool = True):
     """One ETDRK4 step on the (re, im) planes through the plane
     stepper's kernels: N is plane_tendency with nu = 0 and beta = 0
     (beta, drag and hyperviscosity live in the tables, nothing folds
-    into lap), in either order."""
-    d = plane_tendency(t, src_l, 0.0, 0.0, yfirst, quad_mode)
+    into lap), in either order and any y-first fusion arm (the JAX
+    package's _eplane_step: tendency_yfirst_fusedkb with nu = 0, no
+    beta)."""
+    d = plane_tendency(t, src_l, 0.0, 0.0, yfirst, quad_mode, fusekb,
+                       fusekx)
     return etd.etd_scheme(lambda q: d(*q),
                           lambda T, q: etd.smul_planes(T, *q), tabs,
                           (zr, zi))
@@ -328,7 +369,11 @@ class BarotropicModel(nn.Module):
     transform order (True the JAX default, XFB_BT_YFIRST=1) and
     `quad_mode` its derivative x-stage (pallas_fft.QUAD_MODE: "grid",
     the default, or "quad" or "split", which run the x-first order);
-    `self.yfirst` is the order that runs. On the RK4 plane stepper, drag
+    `self.yfirst` is the order that runs. `fusekb` ("", "half" or
+    "full"; XFB_BT_FUSEKB), `fusekx` (XFB_BT_FUSEKX) and `fusetail`
+    (XFB_BT_FUSETAIL; RK4 with fused_rk and fusekx only) pick the
+    y-first fusion arm, defaults as the JAX package's in strict float32;
+    the x-first order ignores them. On the RK4 plane stepper, drag
     and hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
@@ -338,12 +383,20 @@ class BarotropicModel(nn.Module):
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
                  fused_rk: bool = True, yfirst: bool = True,
-                 quad_mode: str = "grid"):
+                 quad_mode: str = "grid", fusekb: str = "",
+                 fusekx: bool = True, fusetail: bool = False):
         super().__init__()
         check_time_scheme(cfg)
         if quad_mode not in ff.QUAD_MODES:
             raise ValueError(f"unknown quad_mode {quad_mode!r}, not one of "
                              f"{ff.QUAD_MODES}")
+        if fusekb not in ff.FUSEKB_MODES:
+            raise ValueError(f"unknown fusekb {fusekb!r}, not one of "
+                             f"{ff.FUSEKB_MODES}")
+        for name, flag in (("fused_rk", fused_rk), ("fusekx", fusekx),
+                           ("fusetail", fusetail)):
+            if not isinstance(flag, bool):
+                raise TypeError(f"{name} must be a bool, got {flag!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
@@ -351,6 +404,8 @@ class BarotropicModel(nn.Module):
         self.fused_rk = fused_rk
         self.yfirst = yfirst and quad_mode == "grid"
         self.quad_mode = quad_mode
+        self.fusion = dict(fusekb=fusekb, fusekx=fusekx)
+        self.fusetail = fusetail
         t = (tables if tables is not None
              else SpectralTables.from_config(cfg, self.device))
         self.tables = t
@@ -375,8 +430,11 @@ class BarotropicModel(nn.Module):
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
               fused_rk: bool = True, yfirst: bool = True,
-              quad_mode: str = "grid") -> "BarotropicModel":
-        return cls(cfg, device, tables, fused_rk, yfirst, quad_mode)
+              quad_mode: str = "grid", fusekb: str = "",
+              fusekx: bool = True,
+              fusetail: bool = False) -> "BarotropicModel":
+        return cls(cfg, device, tables, fused_rk, yfirst, quad_mode, fusekb,
+                   fusekx, fusetail)
 
     def _check_state(self, zeta_hat: torch.Tensor) -> None:
         if (zeta_hat.dtype != torch.complex64
@@ -396,14 +454,16 @@ class BarotropicModel(nn.Module):
             zi = zeta_hat.imag.contiguous()
             # the forcing in the order's layout, once per segment
             src_l = (src.t() if self.yfirst else src).contiguous()
-            order = dict(yfirst=self.yfirst, quad_mode=self.quad_mode)
+            order = dict(yfirst=self.yfirst, quad_mode=self.quad_mode,
+                         **self.fusion)
             for _ in range(n_steps):
                 if et is not None:
                     zr, zi = etd_step_planes(t, et, zr, zi, src_l, **order)
                 else:
                     zr, zi = rk4_step_planes(t, zr, zi, src_l, self.dt,
                                              self.step_nu, beta=self.beta,
-                                             fused_rk=self.fused_rk, **order)
+                                             fused_rk=self.fused_rk,
+                                             fusetail=self.fusetail, **order)
             return torch.complex(zr, zi)
         z = zeta_hat
         for _ in range(n_steps):

@@ -28,10 +28,10 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-HEADERS = ("colfft.cuh",)
+HEADERS = ("colfft.cuh", "epilogue.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
-           "sw_combine.cu", "ka_kc.cu")
+           "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                      "-v")
@@ -89,6 +89,17 @@ SIGNATURES = {
     "xfb_ka_fwd": [_P] * 7 + [_I, _I, _F, _F, _F, _I, _I, _P],
     # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first, count, device, stream
     "xfb_ka_quad": [_P] * 8 + [_I] * 5 + [_P],
+    # fr, fi, lap, mask, zsr, zsi, z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i,
+    # tw, nr, ni, nfields, nx, hny, nu, c, device, stream
+    "xfb_kx_visc_tail": [_P] * 17 + [_I, _I, _I, _F, _F, _I, _P],
+    # fr, fi, lap, mask, zr, zi, z0r, z0i, rr, ri, nr, ni, numel, nu, coef,
+    # device, stream
+    "xfb_visc": [_P] * 12 + [_L, _F, _F, _I, _P],
+    # wr, wi, src, tw, outr, outi, ny, nx, scale, beta, device, stream
+    "xfb_kb_adv_full": [_P] * 6 + [_I, _I, _F, _F, _I, _P],
+    # zx, zy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta, device,
+    # stream
+    "xfb_kb_adv_half": [_P] * 8 + [_I, _I, _F, _F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -15,7 +15,19 @@ in-shared-memory column FFT (csrc/colfft.cuh):
 
 and the RK4 tail is one rk4_combine launch per step (ops/fused_sw.py).
 
-That is the y-first order, the JAX package's default. The x-first order
+That is the y-first order, the JAX package's default, and its default
+fusion arm. The others (the JAX package's XFB_BT_FUSEKB, XFB_BT_FUSEKX
+and XFB_BT_FUSETAIL) swap kernels in:
+
+  kb_adv_full   both kb_pair and ky_adv in one kernel (FUSEKB=full)
+  kb_adv_half   the (u, v) kb_pair and ky_adv in one kernel (=half)
+  kx_fwd + visc kx_visc unfused: the raw x-stage (ops/fused_sw.py) and
+                an elementwise epilogue pass (FUSEKX=0)
+  kx_visc_tail  stage 4's kx_visc with the RK4 tail in its epilogue, in
+                place of rk4_combine (FUSETAIL=1)
+
+forward_tail picks the forward x-stage's form and
+tendency_yfirst_fusedkb runs a whole stage with FUSEKB. The x-first order
 (XFB_BT_YFIRST=0 there) ends the inverse with two kb writing the fields
 x-major (kb_stacked) and runs the forward pipeline as
 
@@ -57,7 +69,11 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "ka_sw": 0, "ky_all": 0, "kx_fwd": 0, "sw_combine": 0,
             "sw_combine_mv": 0, "ka": 0, "kc": 0, "kb": 0,
             "plane_axpy": 0, "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
-            "ka_fwd": 0, "kc_sw": 0}
+            "ka_fwd": 0, "kc_sw": 0, "kb_adv_full": 0, "kb_adv_half": 0,
+            "kx_visc_tail": 0, "visc": 0}
+
+# the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
+FUSEKB_MODES = ("", "half", "full")
 
 # the derivative x-stage's forms (pallas_fft.QUAD_MODE): "grid" is
 # ka_diag; "quad" one ka_quad of four fields, "split" two of two
@@ -315,13 +331,7 @@ def ky_adv(u, zx, v, zy, src, beta: float = 0.0):
 
 def kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
     f = torch.fft.fft(torch.complex(fr, fi), dim=-2)
-    nulap = nu * lap
-    rr = mask * (f.real + nulap * zsr)
-    ri = mask * (f.imag + nulap * zsi)
-    if axpy is None:
-        return rr, ri
-    z0r, z0i, coef = axpy
-    return rr, ri, z0r + coef * rr, z0i + coef * ri
+    return visc_plain(f.real, f.imag, lap, mask, zsr, zsi, nu, axpy)
 
 
 def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
@@ -358,6 +368,169 @@ def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
             1 if len(shape) == 2 else shape[0], nx, hny, float(nu), coef,
             fr.device.index, _stream(fr))
     return tuple(outs)
+
+
+# ----------------------------------------------------------- kx_visc_tail
+
+def _tail_planes(tail):
+    """(z0, r1, r2, r3) as (re, im) pairs and c from tail=(z0r, z0i, r1r,
+    r1i, r2r, r2i, r3r, r3i, c)."""
+    if len(tail) != 9:
+        raise ValueError(f"tail: expected (z0r, z0i, r1r, r1i, r2r, r2i, "
+                         f"r3r, r3i, c), got {len(tail)} items")
+    *planes, c = tail
+    return [tuple(planes[k:k + 2]) for k in range(0, 8, 2)], float(c)
+
+
+def kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, nu: float, tail):
+    from .fused_sw import plane_rk4_combine_plain
+    (z0, r1, r2, r3), c = _tail_planes(tail)
+    r4 = kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu)
+    return plane_rk4_combine_plain(z0, r1, r2, r3, r4, c)
+
+
+def kx_visc_tail(fr, fi, lap, mask, zsr, zsi, nu: float, tail):
+    """kx_visc with the RK4 tail in its epilogue: the stage-4 tendency
+    r = mask * (F + nu*lap*Zs) stays in the kernel, which writes only
+    z0 + (r1 + 2 r2 + 2 r3 + r) * c, in rk4_combine's grouping, for
+    tail=(z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, c) -> (nr, ni). Shapes
+    as kx_visc's. Counterpart of pallas_fft.forward_tail(tail=...)
+    (_kx_visc_tail_kernel)."""
+    shape = tuple(fr.shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"kx_visc_tail: expected (nx, hny) or (F, nx, "
+                         f"hny), got {shape}")
+    nx, hny = shape[-2:]
+    pairs, c = _tail_planes(tail)
+    _check("kx_visc_tail", shape, fr, fi, lap, zsr, zsi,
+           *(p for pair in pairs for p in pair))
+    _check("kx_visc_tail", (nx, hny), mask)
+    if mask.device != fr.device:
+        raise ValueError("kx_visc_tail: mask and planes on different "
+                         "devices")
+    if _takes_plain("kx_visc_tail", fr, nx):
+        return kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, nu, tail)
+    from ._build import lib
+    nr = torch.empty(shape, dtype=torch.float32, device=fr.device)
+    ni = torch.empty_like(nr)
+    _launch("kx_visc_tail", lib().xfb_kx_visc_tail,
+            *_ptrs(fr, fi, lap, mask, zsr, zsi,
+                   *(p for pair in pairs for p in pair),
+                   _twiddles(nx, fr.device), nr, ni),
+            1 if len(shape) == 2 else shape[0], nx, hny, float(nu), c,
+            fr.device.index, _stream(fr))
+    return nr, ni
+
+
+# ------------------------------------------------------------------- visc
+
+def visc_plain(fr, fi, lap, mask, zr, zi, nu: float, axpy=None):
+    nulap = nu * lap
+    rr = mask * (fr + nulap * zr)
+    ri = mask * (fi + nulap * zi)
+    if axpy is None:
+        return rr, ri
+    z0r, z0i, coef = axpy
+    return rr, ri, z0r + coef * rr, z0i + coef * ri
+
+
+def visc(fr, fi, lap, mask, zr, zi, nu: float, axpy=None):
+    """The viscosity and dealias epilogue mask * (F + nu*lap*Z) as an
+    elementwise pass over (nx, hny) planes -> (rr, ri); with axpy=(z0r,
+    z0i, coef) also the next RK stage state (z0r + coef*rr, z0i +
+    coef*ri). kx_visc's epilogue, rounded alike. Counterpart of
+    pallas_fft._visc_kernel and _visc_axpy_kernel."""
+    if fr.dim() != 2:
+        raise ValueError(f"visc: expected (nx, hny) planes, got "
+                         f"{tuple(fr.shape)}")
+    planes = (fr, fi, lap, mask, zr, zi) + (() if axpy is None
+                                            else tuple(axpy[:2]))
+    _check("visc", tuple(fr.shape), *planes)
+    if _takes_plain("visc", fr):
+        return visc_plain(fr, fi, lap, mask, zr, zi, nu, axpy)
+    from ._build import lib
+    outs = [torch.empty_like(fr) for _ in range(2 if axpy is None else 4)]
+    z0 = (None, None) if axpy is None else _ptrs(*axpy[:2])
+    nr_ni = (None, None) if axpy is None else _ptrs(*outs[2:])
+    coef = 0.0 if axpy is None else float(axpy[2])
+    _launch("visc", lib().xfb_visc, *_ptrs(fr, fi, lap, mask, zr, zi), *z0,
+            *_ptrs(*outs[:2]), *nr_ni, fr.numel(), float(nu), coef,
+            fr.device.index, _stream(fr))
+    return tuple(outs)
+
+
+# ----------------------------------------------------------------- kb_adv
+
+def _kb_adv_scale(wr) -> float:
+    nx = wr.shape[2]
+    return 1.0 / (nx * 2 * (wr.shape[1] - 1))
+
+
+def kb_adv_full_plain(wr, wi, src, beta: float = 0.0):
+    scale = _kb_adv_scale(wr)
+    zx, zy = kb_pair_plain(wr, wi, 0, 1, scale)
+    u, v = kb_pair_plain(wr, wi, 2, 3, scale)
+    return ky_adv_plain(u, zx, v, zy, src, beta)
+
+
+def kb_adv_half_plain(zx, zy, wr, wi, src, beta: float = 0.0):
+    u, v = kb_pair_plain(wr, wi, 2, 3, _kb_adv_scale(wr))
+    return ky_adv_plain(u, zx, v, zy, src, beta)
+
+
+def _kb_adv_check(name, wr, wi, *fields):
+    if wr.dim() != 3 or wr.shape[0] != 4:
+        raise ValueError(f"{name}: expected ka_diag's (4, hny, nx) stack, "
+                         f"got {tuple(wr.shape)}")
+    _, hny, nx = wr.shape
+    ny = 2 * (hny - 1)
+    _check(name, (4, hny, nx), wr, wi)
+    _check(name, (ny, nx), *fields)
+    if fields[0].device != wr.device:
+        raise ValueError(f"{name}: fields and stack on different devices")
+    return ny, nx
+
+
+def kb_adv_full(wr, wi, src, beta: float = 0.0):
+    """Both paired c2r y-stages of ka_diag's (4, hny, nx) stack (zeta_x,
+    zeta_y from fields 0, 1; u, v from 2, 3; scaled by 1/(nx*ny)), then
+    -u*zx - v*(zy + beta) + src with the y-major (ny, nx) src, real
+    forward y-DFT, rows k <= ny/2 -> (nx, hny) planes; the four physical
+    fields never reach memory. kb_pair x2 + ky_adv in one kernel, with
+    their bits. Counterpart of pallas_fft.kb_adv_full
+    (_kb_adv_full_kernel)."""
+    ny, nx = _kb_adv_check("kb_adv_full", wr, wi, src)
+    if _takes_plain("kb_adv_full", wr, ny):
+        return kb_adv_full_plain(wr, wi, src, beta)
+    from ._build import lib
+    outr = torch.empty((nx, ny // 2 + 1), dtype=torch.float32,
+                       device=wr.device)
+    outi = torch.empty_like(outr)
+    _launch("kb_adv_full", lib().xfb_kb_adv_full,
+            *_ptrs(wr, wi, src, _twiddles(ny, wr.device), outr, outi), ny,
+            nx, _kb_adv_scale(wr), float(beta), wr.device.index,
+            _stream(wr))
+    return outr, outi
+
+
+def kb_adv_half(zx, zy, wr, wi, src, beta: float = 0.0):
+    """kb_adv_full with zeta_x, zeta_y given y-major (ny, nx) (one kb_pair
+    of fields 0, 1 made them): the (u, v) c2r y-stage of fields 2, 3,
+    the advection product and the real forward y-DFT -> (nx, hny)
+    planes. kb_pair + ky_adv in one kernel, with their bits. Counterpart
+    of pallas_fft.kb_adv_half (_kb_adv_half_kernel)."""
+    ny, nx = _kb_adv_check("kb_adv_half", wr, wi, zx, zy, src)
+    if _takes_plain("kb_adv_half", wr, ny):
+        return kb_adv_half_plain(zx, zy, wr, wi, src, beta)
+    from ._build import lib
+    outr = torch.empty((nx, ny // 2 + 1), dtype=torch.float32,
+                       device=wr.device)
+    outi = torch.empty_like(outr)
+    _launch("kb_adv_half", lib().xfb_kb_adv_half,
+            *_ptrs(zx, zy, wr, wi, src, _twiddles(ny, wr.device), outr,
+                   outi), ny, nx, _kb_adv_scale(wr), float(beta),
+            wr.device.index, _stream(wr))
+    return outr, outi
 
 
 # ----------------------------------------------------------------- ka_adv
@@ -600,11 +773,54 @@ def forward_tendency(u, zx, v, zy, src, lap, mask, zr, zi, nu: float,
     return kc_visc(*ka_adv(u, zx, v, zy, src, beta), lap, mask, zr, zi, nu)
 
 
+def forward_tail(fr, fi, lap, mask, zr, zi, nu: float, axpy=None,
+                 tail=None, fusekx: bool = True):
+    """The y-first forward x-stage with its epilogue, from the forward
+    y-stage planes (nx, hny): with `fusekx` one kx_visc (axpy=(z0r, z0i,
+    coef): also the next stage state), or with tail=(z0r, z0i, r1r, r1i,
+    r2r, r2i, r3r, r3i, c) one kx_visc_tail returning the stepped state;
+    without `fusekx`, kx_fwd on the one field and a visc pass.
+    Counterpart of pallas_fft.forward_tail with fusekx_on() = fusekx."""
+    if tail is not None:
+        if not fusekx:      # as pallas_fft.forward_tail (:1723)
+            raise ValueError("tail fusion requires the fused kx_visc "
+                             "(fusekx)")
+        if axpy is not None:
+            raise ValueError("give axpy or tail, not both")
+        return kx_visc_tail(fr, fi, lap, mask, zr, zi, nu, tail)
+    if fusekx:
+        return kx_visc(fr, fi, lap, mask, zr, zi, nu, axpy)
+    from .fused_sw import kx_fwd
+    gr, gi = kx_fwd(fr[None], fi[None])
+    return visc(gr[0], gi[0], lap, mask, zr, zi, nu, axpy)
+
+
 def forward_tendency_yfirst(u, zx, v, zy, src, lap, mask, zr, zi,
-                            nu: float, beta: float = 0.0, axpy=None):
+                            nu: float, beta: float = 0.0, axpy=None,
+                            tail=None, fusekx: bool = True):
     """dealias(rfft2(-u*zx - v*(zy+beta) + src) + nu*lap*Z) as (re, im)
-    planes from y-major fields: ky_adv + kx_visc; with axpy=(z0r, z0i,
-    coef) also the next stage state. Counterpart of
-    pallas_fft.forward_tendency_yfirst with tail=None."""
+    planes from y-major fields: ky_adv + forward_tail (axpy, tail and
+    fusekx as there). Counterpart of pallas_fft.forward_tendency_yfirst."""
     fr, fi = ky_adv(u, zx, v, zy, src, beta)
-    return kx_visc(fr, fi, lap, mask, zr, zi, nu, axpy)
+    return forward_tail(fr, fi, lap, mask, zr, zi, nu, axpy, tail, fusekx)
+
+
+def tendency_yfirst_fusedkb(sr, si, src, kx, ky, rlap, lap, mask,
+                            nu: float, axpy=None, mode: str = "full",
+                            beta: float = 0.0, tail=None,
+                            fusekx: bool = True):
+    """One whole y-first stage tendency with the KB + advection fusion:
+    ka_diag, then kb_adv_full ("full"), or kb_pair of (zeta_x, zeta_y)
+    and kb_adv_half ("half"), then forward_tail (axpy, tail and fusekx as
+    there); `src` y-major (ny, nx). The same values as
+    derivative_quad_planes + forward_tendency_yfirst. Counterpart of
+    pallas_fft.tendency_yfirst_fusedkb."""
+    wr, wi = ka_diag(sr, si, rlap, kx, ky)
+    if mode == "full":
+        fr, fi = kb_adv_full(wr, wi, src, beta)
+    elif mode == "half":
+        zx, zy = kb_pair(wr, wi, 0, 1, _kb_adv_scale(wr))
+        fr, fi = kb_adv_half(zx, zy, wr, wi, src, beta)
+    else:
+        raise ValueError(f"unknown fusekb mode {mode!r}")
+    return forward_tail(fr, fi, lap, mask, sr, si, nu, axpy, tail, fusekx)

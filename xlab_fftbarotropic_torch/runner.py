@@ -72,9 +72,11 @@ class _BarotropicAdapter:
 
     kind = "barotropic"
 
-    def __init__(self, cfg: ModelConfig, device, yfirst: bool = True):
+    def __init__(self, cfg: ModelConfig, device, yfirst: bool = True,
+                 **fusion):
         self.cfg = cfg
-        self.model = BarotropicModel.build(cfg, device, yfirst=yfirst)
+        self.model = BarotropicModel.build(cfg, device, yfirst=yfirst,
+                                           **fusion)
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -195,7 +197,7 @@ class _ShallowWaterAdapter:
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard: bool = False, ensemble: int = 0,
                  tracer_kappa: float = 0.0, tracer_ic: str = "vorticity",
-                 yfirst: bool = True):
+                 yfirst: bool = True, bt_fusion: Optional[dict] = None):
     if ensemble and ensemble > 1:
         raise NotImplementedError(
             "ensemble runs are not ported yet (ROADMAP.md queue A, item 11)")
@@ -203,7 +205,7 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
         raise NotImplementedError(
             "sharded runs are not ported yet (ROADMAP.md queue A, item 13)")
     if model_kind in ("barotropic", "bt"):
-        return _BarotropicAdapter(cfg, device, yfirst)
+        return _BarotropicAdapter(cfg, device, yfirst, **(bt_fusion or {}))
     if model_kind == "tracer":
         return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
     if model_kind in ("shallow-water", "sw"):
@@ -232,7 +234,8 @@ def run(cfg: ModelConfig,
         record_only=None,
         tracer_kappa: float = 0.0,
         tracer_ic: str = "vorticity",
-        yfirst: bool = True) -> RunResult:
+        yfirst: bool = True,
+        bt_fusion: Optional[dict] = None) -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -247,11 +250,14 @@ def run(cfg: ModelConfig,
     the reference's '# Step N' line for every step (in a burst per
     segment). yfirst: the plane stepper's transform order of the
     barotropic and shallow-water families (False: x-first); the tracer
-    family has one.
+    family has one. bt_fusion: the barotropic plane stepper's fusion arm
+    and RK form, BarotropicModel.build's fused_rk, fusekb, fusekx and
+    fusetail (None: the defaults).
     """
     adapter = make_adapter(cfg, device, model_kind, shard=shard,
                            ensemble=ensemble, tracer_kappa=tracer_kappa,
-                           tracer_ic=tracer_ic, yfirst=yfirst)
+                           tracer_ic=tracer_ic, yfirst=yfirst,
+                           bt_fusion=bt_fusion)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
