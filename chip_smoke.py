@@ -12,8 +12,9 @@ exits non-zero and prints no result):
 2. Kernels: each CUDA kernel against its plain torch version on the card,
    on numpy-seeded inputs at 256^2 and n^2, max error over max |plain|
    <= 1e-5 per output field (radix-2 float32 sums in another order than
-   cuFFT's, with an error that grows with log2 n); each timed at n^2
-   with CUDA events.
+   cuFFT's, with an error that grows with log2 n; the transposes, copies,
+   exactly), the distributed ones on 4 shards and at 256^2 on 1, 2 and
+   8 too; each timed at n^2 with CUDA events.
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -77,6 +78,21 @@ exits non-zero and prints no result):
    place of rk4_combine), XFB_BT_FUSED_RK=0 with FUSEKX=0, and
    --time-scheme etdrk4 with full and with FUSEKX=0; each with its exact
    launches per step (PER_STEP).
+5j. The sharded barotropic model (parallel/model.py): through the CLI
+   on one shard (--shard, the one card) for --shard-fft pallas and
+   overlap x --decomp slab and xpencil, the gaussian IC, records finite,
+   launches exact per step and per record (SHARD_PER_STEP,
+   SHARD_PER_RECORD: the a2a transposes, xstage, or its gather and
+   scatter halves); and through ShardedBarotropicModel.build(cfg,
+   make_mesh(4, dev), ...) on four shards at n^2 for `steps` steps,
+   every decomp x impl under RK4 and slab/overlap under ETDRK4 (example
+   12's nu4, dt = 3 s), with the library transposes and the kernels'
+   plain twins raising in the pallas and overlap segments (and every
+   torch.fft function but rfft/irfft, and fft/ifft on pallas): exact
+   launches, vorticity within rel-L2 1e-5 of the single-device torch.fft
+   path, pallas equal to xla bit for bit, ms/step of each beside the
+   library path and FUSEKB=full with FUSEKX=0 (and with --profile the
+   four kernel paths' breakdowns).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -155,6 +171,28 @@ XFIRST_SW = ("sw-xfirst", "sw-xfirst-etdrk4")
 BT_FULL = ("bt-fusekb-full", "bt-full-tail", "bt-etdrk4-full")
 BT_FUSEKX0 = ("bt-fusekx0", "bt-unfused-fusekx0", "bt-etdrk4-fusekx0")
 BT_TAIL = ("bt-fusetail", "bt-full-tail")
+# the sharded barotropic paths: through the CLI on one shard
+# (shard-<decomp>-<impl>) and through ShardedBarotropicModel.build on
+# four (shard4-<decomp>-<impl>, and slab/overlap under ETDRK4)
+SHARD_DECOMPS, SHARD_IMPLS = ("slab", "xpencil"), ("xla", "pallas", "overlap")
+SHARD_CLI = tuple(f"shard-{d}-{i}" for d in SHARD_DECOMPS
+                  for i in SHARD_IMPLS[1:])
+SHARD_MODELS = tuple(f"shard4-{d}-{i}" for d in SHARD_DECOMPS
+                     for i in SHARD_IMPLS) + ("shard4-slab-overlap-etdrk4",)
+SHARD_PALLAS = ("shard-slab-pallas", "shard-xpencil-pallas",
+                "shard4-slab-pallas", "shard4-xpencil-pallas")
+# the kernels of each sharded path, per step (4 stages of 4 unpaired
+# inverse transforms and 1 forward) and per record (the 4 inverses of
+# the record's diagnostics)
+SHARD_PER_STEP = {("slab", "pallas"): {"a2a_cols": 20, "a2a_rows": 20},
+                  ("slab", "overlap"): {"xstage": 20},
+                  ("xpencil", "pallas"): {"a2a_cols": 4, "a2a_rows": 16},
+                  ("xpencil", "overlap"): {"xstage_gather": 4,
+                                           "xstage_scatter": 16}}
+SHARD_PER_RECORD = {("slab", "pallas"): {"a2a_cols": 4, "a2a_rows": 4},
+                    ("slab", "overlap"): {"xstage": 4},
+                    ("xpencil", "pallas"): {"a2a_rows": 4},
+                    ("xpencil", "overlap"): {"xstage_scatter": 4}}
 KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
@@ -252,6 +290,26 @@ KERNELS = {
     "visc_axpy": ("xlab_fftbarotropic_torch/csrc/visc.cu",
                   "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1551",
                   "visc", ("bt-fusekx0",)),
+    # the distributed path (rows 21-23): the CLI's one-shard runs and the
+    # four-shard model runs
+    "a2a_cols": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
+                 "xlab_fftbarotropic_tpu/parallel/pallas_transpose.py:39",
+                 "a2a_cols", SHARD_PALLAS),
+    "a2a_rows": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
+                 "xlab_fftbarotropic_tpu/parallel/pallas_transpose.py:78",
+                 "a2a_rows", SHARD_PALLAS),
+    "xstage": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
+               "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:61",
+               "xstage", ("shard-slab-overlap", "shard4-slab-overlap",
+                          "shard4-slab-overlap-etdrk4")),
+    "xstage_gather": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
+                      "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:148",
+                      "xstage_gather", ("shard-xpencil-overlap",
+                                        "shard4-xpencil-overlap")),
+    "xstage_scatter": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
+                       "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:212",
+                       "xstage_scatter", ("shard-xpencil-overlap",
+                                          "shard4-xpencil-overlap")),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -301,6 +359,13 @@ PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
                "sw-unfused": {"ka": 1, "kc": 1},
                "sw-xfirst": {"ka": 1, "kc": 1},
                "sw-xfirst-etdrk4": {"ka": 1, "kc": 1}}
+# the sharded paths; through the CLI, the records' diagnostics add their
+# inverse transforms once per segment
+PER_STEP.update({f"shard{k}-{d}-{i}": v
+                 for (d, i), v in SHARD_PER_STEP.items() for k in ("", "4")})
+PER_STEP["shard4-slab-overlap-etdrk4"] = SHARD_PER_STEP[("slab", "overlap")]
+PER_SEGMENT.update({f"shard-{d}-{i}": v
+                    for (d, i), v in SHARD_PER_RECORD.items()})
 # the main paths driven through cli.run.main, and the environment each
 # runs under (the x-first order, as the JAX package reads it)
 BT_ARM_ENV = {"bt-fusekb-full": {"XFB_BT_FUSEKB": "full"},
@@ -315,7 +380,7 @@ BT_ARM_ENV = {"bt-fusekb-full": {"XFB_BT_FUSEKB": "full"},
               "bt-etdrk4-fusekx0": {"XFB_BT_FUSEKX": "0"}}
 CLI_FAMILIES = ("barotropic", "tracer", "shallow-water", "sw-etdrk4",
                 "sw-drag", "barotropic-xfirst", "sw-xfirst",
-                "sw-xfirst-etdrk4") + tuple(BT_ARM_ENV)
+                "sw-xfirst-etdrk4") + tuple(BT_ARM_ENV) + SHARD_CLI
 CLI_ENV = {"barotropic-xfirst": {"XFB_BT_YFIRST": "0"},
            "sw-xfirst": {"XFB_SW_YFIRST": "0"},
            "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}, **BT_ARM_ENV}
@@ -374,6 +439,7 @@ class Case(NamedTuple):
     reads: tuple
     ffts: float = 0.0
     library: Optional[Callable] = None
+    exact: bool = False             # a copy: equal to its plain version
 
 
 def example12_nu4(n: int, lx: float = 600_000.0) -> float:
@@ -673,6 +739,63 @@ def kernel_cases(n: int, dev, seed: int):
             lambda: ff.visc_plain(fr, fi, lap, t.mask, zsr, zsi, 6.5,
                                   (z0r, z0i, 1.5)), list,
             (fr, fi, lap, t.mask, zsr, zsi, z0r, z0i)),
+        **shard_cases(n, 4, dev, seed),
+    }
+
+
+def shard_cases(n: int, p: int, dev, seed: int) -> dict:
+    """name -> Case of the distributed path's kernels (rows 21-23) on p
+    shards of an n x n grid's half-spectrum, numpy-seeded: the transposes
+    (copies, held to their plain versions exactly; the library figure the
+    one .contiguous() of the permuted view) and the x-stages (the inverse
+    with its 1/n, the form 16 of a step's 20 take; the library figure
+    torch.fft.fft of the gathered (n, hpad) array)."""
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    w = -(-hny // p)
+
+    def shards(shape):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    rows, cols = shards((p, n // p, hny)), shards((p, n, w))
+    padded = torch.cat([rows, rows.new_zeros((p, n // p, p * w - hny))], -1)
+    gathered = padded.reshape(n, p * w)
+    s = 1.0 / n
+
+    def one(out):
+        return [out]
+
+    def dft():
+        return torch.fft.fft(gathered, dim=0)
+
+    return {
+        "a2a_cols": Case(
+            lambda: ftr.a2a_cols(rows), lambda: ftr.a2a_cols_plain(rows), one,
+            (rows,), library=lambda: padded.reshape(
+                p, n // p, p, w).permute(2, 0, 1, 3).contiguous(),
+            exact=True),
+        "a2a_rows": Case(
+            lambda: ftr.a2a_rows(cols, hny),
+            lambda: ftr.a2a_rows_plain(cols, hny), one, (cols,),
+            library=lambda: cols.reshape(p, p, n // p, w).permute(
+                1, 2, 0, 3).contiguous(), exact=True),
+        "xstage": Case(lambda: fo.xstage(rows, False, s),
+                       lambda: fo.xstage_plain(rows, False, s), one, (rows,),
+                       hny, dft),
+        "xstage_forward": Case(lambda: fo.xstage(rows, True),
+                               lambda: fo.xstage_plain(rows, True), one,
+                               (rows,), hny, dft),
+        "xstage_gather": Case(lambda: fo.xstage_gather(rows),
+                              lambda: fo.xstage_gather_plain(rows), one,
+                              (rows,), hny, dft),
+        "xstage_scatter": Case(
+            lambda: fo.xstage_scatter(cols, hny, False, s),
+            lambda: fo.xstage_scatter_plain(cols, hny, False, s), one,
+            (cols,), hny, dft),
     }
 
 
@@ -691,20 +814,32 @@ def bound(case: Case, outputs, n: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def compare(name: str, case: Case, where: str):
+    """A case's kernel against its plain version: (max err over max
+    |plain|, max abs err, the plain version's outputs); raises past TOL,
+    or past 0 for a copy."""
+    got, want = case.fields(case.kern()), case.fields(case.plain())
+    torch.cuda.synchronize()
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    log(f"kernel {name:24s} {where}: max err / max|plain| = {rel:.3e} "
+        f"(max abs err {abs_err:.3e})")
+    bar = 0.0 if case.exact else TOL
+    check(rel <= bar, f"{name} at {where} disagrees with its plain "
+                      f"version: {rel:.3e} > {bar}")
+    return rel, abs_err, want
+
+
 def phase_kernels(n: int, dev) -> dict:
     report = {}
+    # the distributed kernels at other shard counts (4 comes below)
+    for p in (1, 2, 8):
+        for name, case in shard_cases(256, p, dev, p).items():
+            compare(name, case, f"256^2 P={p}")
     for size in (256, n):
         for name, case in kernel_cases(size, dev, size).items():
-            got, want = case.fields(case.kern()), case.fields(case.plain())
-            torch.cuda.synchronize()
-            rel = max(float((g - w).abs().max() / w.abs().max())
-                      for g, w in zip(got, want))
-            abs_err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
-            log(f"kernel {name:24s} {size}^2: max err / max|plain| = "
-                f"{rel:.3e} (max abs err {abs_err:.3e})")
-            check(rel <= TOL, f"{name} at {size}^2 disagrees with its "
-                              f"plain version: {rel:.3e} > {TOL}")
+            rel, abs_err, want = compare(name, case, f"{size}^2")
             if size == n:
                 bound_ms, bound_by = bound(case, want, size)
                 ms = cuda_ms(case.kern)
@@ -765,6 +900,10 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         # the barotropic fusion arms (under their CLI_ENV)
         **{f: (["vort"], ["--time-scheme", "etdrk4"] if "etdrk4" in f
                else []) for f in BT_ARM_ENV},
+        # the sharded model on one shard: shard-<decomp>-<impl>
+        **{f: (["vort"], ["--shard", "--decomp", f.split("-")[1],
+                          "--shard-fft", f.split("-")[2]])
+           for f in SHARD_CLI},
     }[family]
     if family in SW_FAMILIES:
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
@@ -867,24 +1006,146 @@ def phase_model_path(path: str, n: int, steps: int) -> dict:
 
 
 @contextlib.contextmanager
-def _refusing_library():
-    """torch.fft.* and torch.matmul raise inside the block."""
+def _refusing(targets):
+    """Each (module, name) of `targets` raises inside the block."""
     def refuse(*args, **kwargs):
-        raise SmokeError("a library transform ran inside the kernel path")
+        raise SmokeError("a refused function (a library transform or a "
+                         "kernel's plain twin) ran inside a kernel path")
 
-    names = [k for k in dir(torch.fft)
-             if not k.startswith("_") and callable(getattr(torch.fft, k))]
-    saved = {k: getattr(torch.fft, k) for k in names}
-    saved_matmul = torch.matmul
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     try:
-        for k in names:
-            setattr(torch.fft, k, refuse)
-        torch.matmul = refuse
+        for mod, name, _ in saved:
+            setattr(mod, name, refuse)
         yield
     finally:
-        for k, fn in saved.items():
-            setattr(torch.fft, k, fn)
-        torch.matmul = saved_matmul
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _library_functions(keep=()) -> list:
+    """(module, name) of every torch.fft function not in `keep`, and
+    torch.matmul."""
+    return [(torch.fft, k) for k in dir(torch.fft)
+            if not k.startswith("_") and callable(getattr(torch.fft, k))
+            and k not in keep] + [(torch, "matmul")]
+
+
+def _refusing_library():
+    """torch.fft.* and torch.matmul raise inside the block."""
+    return _refusing(_library_functions())
+
+
+def shard_refused(fft_impl: str) -> list:
+    """What must not run in a sharded kernel path's segment: the library
+    transposes and every plain twin of the distributed kernels; every
+    torch.fft function but rfft/irfft (the y-stage) and, on 'pallas',
+    fft/ifft (its x-stage); torch.matmul."""
+    from xlab_fftbarotropic_torch.parallel import dfft
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    if fft_impl == "xla":
+        return []
+    keep = {"rfft", "irfft"} | ({"fft", "ifft"} if fft_impl == "pallas"
+                                else set())
+    return [(dfft, "transpose_to_columns"), (dfft, "transpose_to_rows"),
+            (ftr, "a2a_cols_plain"), (ftr, "a2a_rows_plain"),
+            (fo, "xstage_plain"), (fo, "xstage_gather_plain"),
+            (fo, "xstage_scatter_plain")] + _library_functions(keep)
+
+
+def phase_sharded(n: int, steps: int, dev, profile: bool) -> dict:
+    """Phase 5j's four-shard half: every decomp x impl of
+    ShardedBarotropicModel.build(cfg, make_mesh(4, dev), ...) under RK4
+    and slab/overlap under ETDRK4 (example 12's nu4, dt = 3 s) at n^2
+    for `steps` steps, each segment with the launch counters set to 0
+    just before it and read just after, and with shard_refused raising;
+    the vorticity against the single-device torch.fft path (rel-L2 <=
+    TOL); pallas against xla bit for bit; ms/step of each, in turns with
+    the single-device library path and FUSEKB=full with FUSEKX=0; with
+    `profile`, torch.profiler breakdowns of the four kernel paths."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
+                                                   make_mesh)
+
+    cfg = ModelConfig(nx=n, ny=n)
+    ecfg = cfg.replace(time_scheme="etdrk4", nu4=example12_nu4(n))
+    v0 = makefields.gaussian(cfg)
+    lib = BarotropicModel.build(cfg.replace(fft_backend="xla"), dev)
+    elib = BarotropicModel.build(ecfg.replace(fft_backend="xla"), dev)
+    z0, src0 = lib.init_state(v0), lib.zero_source()
+    ref = {"rk4": lib.diags(lib.segment(z0, src0, steps)).vort,
+           "etdrk4": elib.diags(elib.segment(z0, src0, steps)).vort}
+    mesh = make_mesh(4, dev)
+    runs = {"library": (lib, z0, src0),
+            "full-fusekx0": (BarotropicModel.build(cfg, dev, fusekb="full",
+                                                   fusekx=False), z0, src0)}
+    out = {"main_paths": {}, "trajectories": {}, "time": {}}
+    states = {}
+    for name in SHARD_MODELS:
+        _, decomp, impl, *etd = name.split("-")
+        scheme = "etdrk4" if etd else "rk4"
+        m = ShardedBarotropicModel.build(ecfg if etd else cfg, mesh, impl,
+                                         decomp)
+        s0, src = m.init_state(v0), m.zero_source()
+        torch.cuda.synchronize()
+        ff.reset_launches()
+        with _refusing(shard_refused(impl)):
+            z = m.segment(s0, src, steps)
+            torch.cuda.synchronize()
+        launches = dict(ff.LAUNCHES)
+        want = {k: PER_STEP.get(name, {}).get(k, 0) * steps
+                for k in ff.LAUNCHES}
+        log(f"{name} main path: {steps} steps at {n}^2 on 4 shards "
+            f"through ShardedBarotropicModel.build(..., {impl!r}, "
+            f"{decomp!r}).segment ({scheme}); launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check(launches == want, f"{name} launch counts {launches} != {want}")
+        vort = m.unshard_physical(m.diags(z).vort)
+        check(bool(torch.isfinite(vort).all()), f"{name} vort not finite")
+        rel = rel_l2(vort, ref[scheme])
+        log(f"{name} trajectory: {steps} steps at {n}^2, rel-L2 of vort vs "
+            f"the single-device torch.fft library path = {rel:.3e}")
+        check(rel <= TOL, f"{name} rel-L2 {rel:.3e} > {TOL}")
+        out["main_paths"][name] = dict(launches=launches)
+        out["trajectories"][f"{name}_vort_rel_l2"] = rel
+        states[name] = z
+        runs[name] = (m, s0, src)
+    for decomp in SHARD_DECOMPS:
+        a, b = (states[f"shard4-{decomp}-{i}"] for i in ("pallas", "xla"))
+        same = bool(torch.equal(a, b))
+        log(f"shard4-{decomp}: pallas vs xla state after {steps} steps "
+            f"bit-identical: {same}")
+        check(same, f"shard4-{decomp}: pallas is not xla's bits")
+        out["trajectories"][f"shard4-{decomp}_pallas_bit_identical"] = same
+    order = list(runs) + list(reversed(list(runs)))
+    times = {k: [] for k in runs}
+    for k in order:
+        m, s0, src = runs[k]
+        m.segment(s0, src, 2)                      # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m.segment(s0, src, steps)
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end) / steps)
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out["time"][k] = dict(ms_per_step=ms, runs_ms=ts)
+        log(f"time sharded {k:27s}: {ms:.3f} ms/step "
+            f"({', '.join(f'{t:.3f}' for t in ts)})")
+    if profile:
+        out["profile"] = {
+            name: phase_profile({name: ({"kernels": runs[name][0]},
+                                        *runs[name][1:])}, name)
+            for name in SHARD_MODELS if "xla" not in name
+            and "etdrk4" not in name}
+    return out
 
 
 def phase_adjoint(n: int, dev) -> dict:
@@ -1342,7 +1603,8 @@ def phase_profile(models: dict, family: str, path: str = "kernels",
         # demangled ("...::ka_kernel(...") or mangled ("...9ka_kernelE...")
         name = next((k for k in names
                      if re.search(rf"(\b|\d){k}(\b|E)", e.name)),
-                    "torch elementwise")
+                    "cuFFT" if re.search("fft|radix", e.name, re.I)
+                    else "torch elementwise")
         us = e.time_range.elapsed_us()
         per_step[name] = per_step.get(name, 0.0) + us / 1e3 / steps
         calls[name] = calls.get(name, 0) + 1
@@ -1408,6 +1670,8 @@ def main(argv=None) -> int:
         report["main_paths"][path] = phase_model_path(path, args.n,
                                                       args.steps)
     report["main_paths"]["adjoint"] = phase_adjoint(args.n, dev)
+    report["sharded"] = phase_sharded(args.n, args.steps, dev, args.profile)
+    report["main_paths"].update(report["sharded"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

@@ -275,7 +275,7 @@ def test_assimilate_cli_on_the_cpu(tmp_path):
 def test_what_is_not_ported_raises(tmp_path):
     from xlab_fftbarotropic_torch.cli import assimilate
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tadj.make_sharded_rollout(_cfg(), 3, None)
     with pytest.raises(NotImplementedError, match="beta-plane"):
         tadj.make_rollout(_cfg(beta=1e-11), 3, "sw", device=CPU)

@@ -144,7 +144,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                            "ka": 0, "kc": 0, "kb": 0, "plane_axpy": 0,
                            "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
                            "ka_fwd": 0, "kc_sw": 0, "kb_adv_full": 0,
-                           "kb_adv_half": 0, "kx_visc_tail": 0, "visc": 0}
+                           "kb_adv_half": 0, "kx_visc_tail": 0, "visc": 0,
+                           "a2a_cols": 0, "a2a_rows": 0, "xstage": 0,
+                           "xstage_gather": 0, "xstage_scatter": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -4,7 +4,8 @@ barotropic (also in a fusion arm), tracer and shallow-water models
 twice on the CPU in both time schemes (RK4 and ETDRK4), on the plane
 stepper and on the library path, the SW model with drag on the
 per-transform path, takes a gradient through the adjoint rollout on
-both transform triples, and ends with no
+both transform triples, steps the sharded barotropic model in every
+decomposition and transform impl, and ends with no
 jax and no xlab_fftbarotropic_tpu module loaded; and its CLIs refuse to
 run without a GPU unless told --device cpu."""
 
@@ -32,6 +33,9 @@ from xlab_fftbarotropic_torch.models import etdrk4
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.models.shallow_water import ShallowWaterModel
 from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+from xlab_fftbarotropic_torch.parallel import (dfft, fused_overlap,
+                                               fused_transpose, model,
+                                               pencil, xpencil)
 from xlab_fftbarotropic_torch.config import ModelConfig
 from xlab_fftbarotropic_torch.ic import makefields
 from xlab_fftbarotropic_torch.utils import guards
@@ -74,6 +78,15 @@ for scheme in ("rk4", "etdrk4"):
     _, g = adjoint.loss_and_grad(loss, device="cpu")(
         makefields.gaussian(cfg), np.zeros((64, 64), np.float32))
     assert bool(torch.isfinite(g).all())
+for scheme in ("rk4", "etdrk4"):
+    cfg = ModelConfig(nx=64, ny=64, time_scheme=scheme)
+    for decomp in ("slab", "xpencil"):
+        for impl in ("xla", "pallas", "overlap"):
+            m = model.ShardedBarotropicModel.build(
+                cfg, model.make_mesh(4, cpu), impl, decomp)
+            z = m.segment(m.init_state(makefields.gaussian(cfg)),
+                          m.zero_source(), 2)
+            assert bool(torch.isfinite(m.diags(z).vort).all())
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 tpu = sorted(k for k in sys.modules if k.startswith("xlab_fftbarotropic_tpu"))
 assert not tpu, tpu

@@ -177,13 +177,15 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     cfg = _cfg(tmp_path)
     v0 = makefields.gaussian(cfg)
     for kw in (dict(model_kind="jacobian"), dict(model_kind="fd"),
-               dict(shard=True), dict(ensemble=4)):
+               dict(shard=True, decomp="pencil"),
+               dict(shard=True, model_kind="sw"), dict(ensemble=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trunner.run(cfg, CPU, v0, record=False, **kw)
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fast-transforms"], ["--shard"], ["--ensemble", "4"],
+    ["--fast-transforms"], ["--shard", "--decomp", "pencil"],
+    ["--ensemble", "4"],
     ["-m", "sw", "--time-scheme", "etdrk4", "--beta", "1e-11"],
     ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5",
      "--shard"],

@@ -150,7 +150,7 @@ def make_sharded_rollout(*args, **kwargs):
     """The multi-device rollout waits for the distributed path."""
     raise NotImplementedError(
         "make_sharded_rollout is not ported yet: it needs the distributed "
-        "path (ROADMAP.md queue A, item 13)")
+        "path (ROADMAP.md queue A, item 5)")
 
 
 def _leaves(x) -> list:

@@ -59,9 +59,8 @@ def main(argv=None):
                     help="not ported yet")
     args = ap.parse_args(argv)
     if args.fast_transforms:
-        ap.error("--fast-transforms is not ported yet: fast mode needs "
-                 "TPU kernel row 9 (ROADMAP.md queue B); the port runs "
-                 "the strict float32 mode")
+        ap.error("--fast-transforms is not ported yet (ROADMAP.md queue A, "
+                 "item 4); the port runs the strict float32 mode")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is visible; pass --device "
                  "cpu to run the kernels' plain torch versions on the CPU")

@@ -10,7 +10,9 @@ and shallow-water (-m sw or -m shallow-water; --coriolis-f, --gravity,
 --mean-depth, and under RK4 a --dt under the gravity-wave bound)
 families, each with --time-scheme rk4 (default) or etdrk4 (the linear
 terms integrated exactly from phi-function tables, models/etdrk4.py), the
--s script / -f fifo forcing, records, checkpoints and resume. `--device
+-s script / -f fifo forcing, records, checkpoints and resume, and for
+the barotropic family the sharded model (--shard, with --shard-fft and
+--decomp slab or xpencil; every shard on the one visible card). `--device
 cuda` (the default) runs the plane stepper's hand-written CUDA kernels
 and stops with an error when no GPU is visible; it never carries on on
 the CPU. `--device cpu` runs the kernels' plain torch versions. Flags
@@ -60,6 +62,7 @@ def main(argv=None):
     from ..models.barotropic import (fusion_arm, resolve_device,
                                      resolve_fft_backend_name)
     from ..models.shallow_water import resolve_sw_backend
+    from ..parallel import make_mesh
     from ..runner import _NOT_PORTED, run
 
     p = argparse.ArgumentParser(
@@ -102,20 +105,45 @@ def main(argv=None):
                    help="manifest path (the reference's `log` file)")
     p.add_argument("--step-banners", action="store_true",
                    help="print the '# Step N' banner for every step")
+    p.add_argument("--shard", action="store_true",
+                   help="run the sharded model (barotropic only): the "
+                        "grid's shards stacked on the one visible card "
+                        "(or the CPU with --device cpu), one shard")
+    p.add_argument("--shard-fft", default="xla",
+                   choices=["xla", "pallas", "overlap"],
+                   help="distributed-FFT implementation for --shard runs: "
+                        "library transposes (default), the all-to-all "
+                        "transpose kernels, or the fused transpose + "
+                        "x-DFT kernels")
+    p.add_argument("--decomp", default="slab",
+                   choices=["slab", "xpencil", "pencil"],
+                   help="domain decomposition for --shard runs: slab "
+                        "(rows, default), xpencil (row-sharded physical + "
+                        "column-sharded x-pencil spectral state: one "
+                        "transpose per transform instead of two), or 2-D "
+                        "pencil (not ported yet)")
+    p.add_argument("--mesh-shape", default=None, metavar="PxQ",
+                   help="2-D mesh shape for --decomp pencil (not ported "
+                        "yet)")
     # outside the port so far: accepted only to stop with a clear error
     p.add_argument("--fast-transforms", action="store_true",
                    help="not ported yet")
-    p.add_argument("--shard", action="store_true", help="not ported yet")
     p.add_argument("--ensemble", type=int, default=0, help="not ported yet")
     args = p.parse_args(argv)
 
     if args.fast_transforms:
-        p.error("--fast-transforms is not ported yet (ROADMAP.md queue B); "
-                "the port runs the strict float32 mode")
-    if args.shard:
-        p.error("--shard is not ported yet (ROADMAP.md queue A, item 13)")
+        p.error("--fast-transforms is not ported yet (ROADMAP.md queue A, "
+                "item 4); the port runs the strict float32 mode")
     if args.ensemble:
-        p.error("--ensemble is not ported yet (ROADMAP.md queue A, item 11)")
+        p.error("--ensemble is not ported yet (ROADMAP.md queue A, item 3)")
+    if args.decomp == "pencil" or args.mesh_shape:
+        p.error("--decomp pencil and --mesh-shape (the 2-D pencil "
+                "decomposition) are not ported yet (ROADMAP.md queue A, "
+                "item 5)")
+    if args.shard and args.model not in ("barotropic", "bt"):
+        p.error(f"--shard with -m {args.model} is not ported yet "
+                f"(ROADMAP.md queue A, item 5): the barotropic family "
+                f"shards")
     if args.model in _NOT_PORTED:
         p.error(f"-m {args.model} is not ported yet (ROADMAP.md queue A, "
                 f"item {_NOT_PORTED[args.model]})")
@@ -160,11 +188,21 @@ def main(argv=None):
         recipe, src_path = "fifo", args.fifo
 
     device = resolve_device(args.device)
+    if args.shard:
+        try:
+            n_shards = make_mesh(None, device).n_shards
+        except NotImplementedError as e:
+            p.error(str(e))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     how = {("pallas", "cuda"): "hand-written CUDA kernels",
            ("pallas", "cpu"): "plain torch versions of the CUDA kernels",
            }.get((backend, device.type), "torch.fft library path")
+    shard_how = {"xla": "library transposes",
+                 "pallas": "all-to-all transpose kernels",
+                 "overlap": "fused transpose + x-DFT kernels"}[args.shard_fft]
+    if args.shard_fft != "xla" and device.type == "cpu":
+        shard_how = f"plain torch versions of the {shard_how}"
 
     print("##### Model setting #####", file=sys.stderr)
     print(f"Initial file          : {cfg.init_file}", file=sys.stderr)
@@ -186,13 +224,18 @@ def main(argv=None):
     print(f"Model family          : {family}", file=sys.stderr)
     print(f"Time scheme           : {cfg.time_scheme}", file=sys.stderr)
     print(f"Device                : {where}", file=sys.stderr)
-    print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
-    if backend == "pallas" and args.model != "tracer":
-        print(f"Transform order       : {'y' if yfirst else 'x'}-first",
+    if args.shard:
+        print(f"Sharding              : {n_shards} shard(s), decomp "
+              f"{args.decomp}, shard-fft {args.shard_fft} ({shard_how})",
               file=sys.stderr)
-    if backend == "pallas" and bt_fusion is not None and yfirst:
-        arm = fusion_arm(etd=cfg.time_scheme == "etdrk4", **bt_fusion)
-        print(f"Fusion arm            : {arm}", file=sys.stderr)
+    else:
+        print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
+        if backend == "pallas" and args.model != "tracer":
+            print(f"Transform order       : {'y' if yfirst else 'x'}-first",
+                  file=sys.stderr)
+        if backend == "pallas" and bt_fusion is not None and yfirst:
+            arm = fusion_arm(etd=cfg.time_scheme == "etdrk4", **bt_fusion)
+            print(f"Fusion arm            : {arm}", file=sys.stderr)
     print("#########################", file=sys.stderr)
 
     result = run(cfg, device, recipe=recipe, src_path=src_path,
@@ -201,7 +244,8 @@ def main(argv=None):
                  model_kind=args.model, debug_fields=args.debug_fields,
                  step_banners=args.step_banners, record_only=record_only,
                  tracer_kappa=args.tracer_kappa, tracer_ic=args.tracer_ic,
-                 yfirst=yfirst, bt_fusion=bt_fusion)
+                 yfirst=yfirst, bt_fusion=bt_fusion, shard=args.shard,
+                 shard_fft=args.shard_fft, decomp=args.decomp)
     sps = result.steps_run / max(result.wall_time, 1e-9)
     print(f"Ran {result.steps_run} steps in {result.wall_time:.2f}s "
           f"({sps:.1f} steps/s, {sps * cfg.grids:.3e} grid-points/s)",

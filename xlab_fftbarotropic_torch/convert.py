@@ -4,7 +4,8 @@ In this system the "weights" are the spectral coefficient tables and the
 state is the complex64 half-spectrum zeta_hat (the tracer family: the
 pair zeta_hat, q_hat; shallow water: zeta_hat, div_hat, eta_hat); both
 cross as numpy arrays, so neither side
-imports the other. Checkpoints need no conversion: both runners write
+imports the other. A sharded model's state crosses as the global array,
+each package's pad stripped and its own put back. Checkpoints need no conversion: both runners write
 and read them in one format (io/checkpoint.py, the port's copy of the
 JAX package's: the complex64 state as packed below + config hash), so a
 checkpoint from either resumes in the other.
@@ -81,3 +82,25 @@ def sw_state_to_numpy(state: SWState) -> np.ndarray:
     """SWState -> complex64 (3, nx, hny) numpy [zeta_hat, div_hat,
     eta_hat]."""
     return np.stack([z.detach().cpu().numpy() for z in state])
+
+
+def sharded_state_from_numpy(zeta_hat: np.ndarray, model) -> torch.Tensor:
+    """The JAX sharded model's global state (np.asarray of its sharded
+    array: (nx, hny), or for x-pencil (nx, hpad) padded to the JAX pad)
+    -> the port's stacked shards for `model` (a ShardedBarotropicModel),
+    the pad stripped and re-padded to the port's."""
+    z = np.asarray(zeta_hat)
+    if z.dtype != np.complex64 or z.ndim != 2:
+        raise ValueError(f"expected a complex64 (nx, hny[pad]) state, got "
+                         f"{z.dtype} {z.shape}")
+    return model.shard_spectral(z)
+
+
+def sharded_state_to_numpy(zeta_hat: torch.Tensor, model,
+                           hpad: int = 0) -> np.ndarray:
+    """The port's stacked shards -> the global complex64 (nx, hny) numpy,
+    or (nx, hpad) zero-padded for a JAX x-pencil model of that pad."""
+    z = model.unshard_spectral(zeta_hat).detach().cpu().numpy()
+    if hpad > z.shape[1]:
+        z = np.pad(z, ((0, 0), (0, hpad - z.shape[1])))
+    return z

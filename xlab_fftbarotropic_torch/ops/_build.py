@@ -31,7 +31,8 @@ BUILD_ROOT = PKG / "_build"
 HEADERS = ("colfft.cuh", "epilogue.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
-           "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu")
+           "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu", "a2a.cu",
+           "xstage.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                      "-v")
@@ -100,6 +101,11 @@ SIGNATURES = {
     # zx, zy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta, device,
     # stream
     "xfb_kb_adv_half": [_P] * 8 + [_I, _I, _F, _F, _I, _P],
+    # src table, dst table, p, rows_l, hrow, w, to_cols, device, stream
+    "xfb_a2a": [_P, _P] + [_I] * 6 + [_P],
+    # src table, dst table, tw, p, rows_l, hrow, w, mode, forward, scale,
+    # device, stream
+    "xfb_xstage": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

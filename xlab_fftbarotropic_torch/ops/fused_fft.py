@@ -56,7 +56,8 @@ Each wrapper checks its arguments and then dispatches on the tensors'
 device alone: a CPU tensor takes the plain version beside it (torch.fft
 along one axis), a CUDA tensor launches the kernel on the current stream
 or raises. LAUNCHES counts kernel launches per kernel, for every kernel
-of the port; the plain versions never touch it.
+of the port (the distributed path's in parallel/fused_transpose.py and
+parallel/fused_overlap.py too); the plain versions never touch it.
 """
 
 from __future__ import annotations
@@ -70,7 +71,8 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "sw_combine_mv": 0, "ka": 0, "kc": 0, "kb": 0,
             "plane_axpy": 0, "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
             "ka_fwd": 0, "kc_sw": 0, "kb_adv_full": 0, "kb_adv_half": 0,
-            "kx_visc_tail": 0, "visc": 0}
+            "kx_visc_tail": 0, "visc": 0, "a2a_cols": 0, "a2a_rows": 0,
+            "xstage": 0, "xstage_gather": 0, "xstage_scatter": 0}
 
 # the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
 FUSEKB_MODES = ("", "half", "full")

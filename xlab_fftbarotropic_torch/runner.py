@@ -10,7 +10,9 @@ of the JAX package's numpy-only modules (io/, forcing/), so the output
 files are byte-compatible with its runner's and a checkpoint from either
 resumes in the other. Under ETDRK4 each record's cfl stat is held to the
 scheme's advective limit (utils/guards.py:check_etd_cfl), as the JAX
-runner does.
+runner does. A --shard run steps the barotropic family on the sharded
+model (parallel/model.py), whose records and checkpoints are the global
+fields; it has no per-record stats, as in the JAX runner.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from .models.tracer import TracerModel, tracer_ic
 from .utils.guards import check_etd_cfl, check_finite
 
 # what is not ported yet, by ROADMAP.md queue A item
-_NOT_PORTED = {"fd": 11, "jacobian": 11}
+_NOT_PORTED = {"fd": 3, "jacobian": 3}
 
 
 @dataclasses.dataclass
@@ -68,15 +70,20 @@ def _gather_fields(fields: dict, only=None) -> dict:
 class _BarotropicAdapter:
     """The facade the run loop drives: step/segment/diags/stats and state
     (de)hydration for checkpoints (complex64 numpy, as in the JAX
-    package)."""
+    package). `model` a ShardedBarotropicModel in place of the
+    single-device one: records, checkpoints and stats then go through
+    its unsharded global fields, and it has no debug fields or stats
+    (as the JAX runner's sharded models)."""
 
     kind = "barotropic"
 
     def __init__(self, cfg: ModelConfig, device, yfirst: bool = True,
-                 **fusion):
+                 model=None, **fusion):
         self.cfg = cfg
-        self.model = BarotropicModel.build(cfg, device, yfirst=yfirst,
-                                           **fusion)
+        self.model = (model if model is not None else
+                      BarotropicModel.build(cfg, device, yfirst=yfirst,
+                                            **fusion))
+        self.sharded = hasattr(self.model, "unshard_spectral")
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -89,22 +96,34 @@ class _BarotropicAdapter:
         return self.model.segment(state, src, n)
 
     def record_fields(self, state, only=None):
-        d = self.model.diags(state)
-        return _gather_fields(d._asdict(), only)
+        d = self.model.diags(state)._asdict()
+        if self.sharded:
+            d = {k: self.model.unshard_physical(v) for k, v in d.items()}
+        return _gather_fields(d, only)
 
     def debug_record_fields(self, state, src):
         """--debug-fields dumps (main.cpp OUTPUT_GRAD_VORT/OUTPUT_DVORTDT)."""
+        if self.sharded:
+            raise ValueError("--debug-fields is not supported with --shard "
+                             "(the sharded model has no debug diagnostics)")
         return {k: _host(v) for k, v in
                 self.model.debug(state, src)._asdict().items()}
 
     def stats(self, state):
+        if self.sharded:
+            return {}
         return {k: float(v) for k, v in
                 self.model.stats(state)._asdict().items()}
 
     def pack(self, state):
+        if self.sharded:
+            state = self.model.unshard_spectral(state)
         return _host(state)
 
     def unpack(self, packed):
+        if self.sharded:
+            return self.model.shard_spectral(np.asarray(packed,
+                                                        np.complex64))
         return torch.from_numpy(np.asarray(packed, np.complex64)).to(
             self.device)
 
@@ -197,13 +216,23 @@ class _ShallowWaterAdapter:
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard: bool = False, ensemble: int = 0,
                  tracer_kappa: float = 0.0, tracer_ic: str = "vorticity",
-                 yfirst: bool = True, bt_fusion: Optional[dict] = None):
+                 yfirst: bool = True, bt_fusion: Optional[dict] = None,
+                 shard_fft: str = "xla", decomp: str = "slab"):
     if ensemble and ensemble > 1:
         raise NotImplementedError(
-            "ensemble runs are not ported yet (ROADMAP.md queue A, item 11)")
+            "ensemble runs are not ported yet (ROADMAP.md queue A, item 3)")
     if shard:
-        raise NotImplementedError(
-            "sharded runs are not ported yet (ROADMAP.md queue A, item 13)")
+        # the barotropic family over the visible card (one shard; the CPU
+        # too); make_mesh and build refuse what waits (item 5)
+        from .parallel import ShardedBarotropicModel, make_mesh
+        if model_kind not in ("barotropic", "bt"):
+            raise NotImplementedError(
+                f"--shard for model kind {model_kind!r} is not ported yet "
+                f"(ROADMAP.md queue A, item 5): the barotropic family "
+                f"shards")
+        return _BarotropicAdapter(cfg, device, model=(
+            ShardedBarotropicModel.build(cfg, make_mesh(None, device),
+                                         fft_impl=shard_fft, decomp=decomp)))
     if model_kind in ("barotropic", "bt"):
         return _BarotropicAdapter(cfg, device, yfirst, **(bt_fusion or {}))
     if model_kind == "tracer":
@@ -235,7 +264,9 @@ def run(cfg: ModelConfig,
         tracer_kappa: float = 0.0,
         tracer_ic: str = "vorticity",
         yfirst: bool = True,
-        bt_fusion: Optional[dict] = None) -> RunResult:
+        bt_fusion: Optional[dict] = None,
+        shard_fft: str = "xla",
+        decomp: str = "slab") -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -252,12 +283,16 @@ def run(cfg: ModelConfig,
     barotropic and shallow-water families (False: x-first); the tracer
     family has one. bt_fusion: the barotropic plane stepper's fusion arm
     and RK form, BarotropicModel.build's fused_rk, fusekb, fusekx and
-    fusetail (None: the defaults).
+    fusetail (None: the defaults). shard: the barotropic family on the
+    sharded model (parallel/model.py) over the visible card, with
+    shard_fft its transform impl ('xla', 'pallas', 'overlap') and decomp
+    its decomposition ('slab', 'xpencil').
     """
     adapter = make_adapter(cfg, device, model_kind, shard=shard,
                            ensemble=ensemble, tracer_kappa=tracer_kappa,
                            tracer_ic=tracer_ic, yfirst=yfirst,
-                           bt_fusion=bt_fusion)
+                           bt_fusion=bt_fusion, shard_fft=shard_fft,
+                           decomp=decomp)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
@@ -302,7 +337,7 @@ def run(cfg: ModelConfig,
                 do_record(step, state, src_np, src)
                 st = adapter.stats(state)
                 stats_history.append(dict(step=step, **st))
-                if etd:
+                if etd and "cfl" in st:
                     # the big-dt scheme's one stability limit left: a
                     # warning at the initial record, AdvectiveCflError at
                     # the first violating later one
