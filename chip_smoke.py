@@ -14,7 +14,10 @@ exits non-zero and prints no result):
    <= 1e-5 per output field (radix-2 float32 sums in another order than
    cuFFT's, with an error that grows with log2 n; the transposes, copies,
    exactly), the distributed ones on 4 shards and at 256^2 on 1, 2 and
-   8 too; each timed at n^2 with CUDA events.
+   8 too; each timed at n^2 with CUDA events. First the column-tile
+   plan (ops/xtile.py: columns per tile C, blocks per cluster K,
+   threads, shared bytes) of kx_visc.cu and xstage.cu at 256^2 and n^2,
+   and every kernel's registers and spills from the build's -Xptxas -v.
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -122,10 +125,12 @@ exits non-zero and prints no result):
    default arm.
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
-11. With --profile: torch.profiler traces of the SW ETDRK4, the SW
-   drag, the x-first barotropic and SW RK4 and the barotropic FUSEKB=full
-   kernel paths, device time per step by kernel and the device's busy
-   share.
+11. With --profile: torch.profiler traces of the barotropic (default
+   and FUSEKB=full), tracer, SW RK4 and SW ETDRK4 y-first kernel paths
+   (the column-tile kx_visc and kx_fwd), the SW drag, the x-first
+   barotropic and SW RK4 paths, and (phase 5j) the four sharded kernel
+   paths (xstage on the overlap ones), device time per step by kernel
+   and the device's busy share.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
 with each kernel's launches on the main paths, its max abs error
@@ -829,6 +834,44 @@ def compare(name: str, case: Case, where: str):
     check(rel <= bar, f"{name} at {where} disagrees with its plain "
                       f"version: {rel:.3e} > {bar}")
     return rel, abs_err, want
+
+
+def phase_xtile(n: int) -> dict:
+    """The column-tile plans of kx_visc.cu and xstage.cu at 256^2 and
+    n^2, and every kernel's registers and spills from the build log."""
+    from xlab_fftbarotropic_torch.ops import _build
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    out = {"plans": {}, "ptxas": {}}
+    for size in (256, n):
+        hny = size // 2 + 1
+        for name, columns, elem in (("kx_visc", hny, 4),
+                                    ("xstage", hny, 8),
+                                    ("xstage_gather P=4",
+                                     4 * -(-hny // 4), 8)):
+            p = xtile_plan(size, columns, elem)
+            log(f"xtile plan {name:17s} {size}^2: C = {p.c} columns, K = "
+                f"{p.k} blocks per cluster, {p.threads} threads, {p.smem} "
+                f"shared bytes per block, {p.tiles} tiles, passes "
+                f"{p.radices}")
+            out["plans"][f"{name} {size}"] = p._asdict()
+    text = (Path(_build.LAST_BUILD["path"]).parent / "build.log").read_text()
+    for fn, body in re.findall(r"Compiling entry function '(\w+)'"
+                               r"(.*?)Compile time", text, re.S):
+        name = next((k for k in kernel_functions()
+                     if re.search(rf"\d{k}(E|I)", fn)), fn)
+        regs = int(re.search(r"Used (\d+) registers", body).group(1))
+        st, ld = (int(v) for v in re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            body).groups())
+        tag = name
+        while tag in out["ptxas"]:              # template instances
+            tag += "'"
+        out["ptxas"][tag] = dict(registers=regs, spill_stores=st,
+                                 spill_loads=ld)
+        log(f"ptxas {tag:36s}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+    return out
 
 
 def phase_kernels(n: int, dev) -> dict:
@@ -1572,7 +1615,8 @@ def kernel_functions() -> list:
     """The names of the port's __global__ functions, read from csrc/."""
     from xlab_fftbarotropic_torch.ops import _build
     return sorted({m for f in _build.CSRC.glob("*.cu") for m in re.findall(
-        r"__global__\s+void\s+(\w+)", f.read_text())})
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        f.read_text())})
 
 
 def phase_profile(models: dict, family: str, path: str = "kernels",
@@ -1627,10 +1671,11 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also write the full report as JSON to PATH")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the SW ETDRK4, the SW drag, the "
-                    "x-first barotropic and SW RK4 and the barotropic "
-                    "FUSEKB=full kernel paths with torch.profiler (the "
-                    "breakdown of where their time goes)")
+                    help="also trace the y-first barotropic (default and "
+                    "FUSEKB=full), tracer, SW RK4 and ETDRK4, the SW drag, "
+                    "the x-first barotropic and SW RK4 and the sharded "
+                    "kernel paths with torch.profiler (the breakdown of "
+                    "where their time goes)")
     args = ap.parse_args(argv)
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
@@ -1662,6 +1707,7 @@ def main(argv=None) -> int:
     report = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   nvcc=nvcc_version.strip().splitlines()[-1],
                   build_s=build_s, n=args.n, steps=args.steps)
+    report["xtile"] = phase_xtile(args.n)
     report["kernels"] = phase_kernels(args.n, dev)
     report["main_paths"] = {family: phase_main_path(family, args.n,
                                                     args.steps)
@@ -1679,8 +1725,10 @@ def main(argv=None) -> int:
     report["time"] = phase_time(args.n, args.steps, models)
     if args.profile:
         report["profile"] = {f: phase_profile(models, f)
-                             for f in ("sw-etdrk4", "sw-drag",
-                                       "barotropic-xfirst", "sw-xfirst")}
+                             for f in ("barotropic", "tracer",
+                                       "shallow-water", "sw-etdrk4",
+                                       "sw-drag", "barotropic-xfirst",
+                                       "sw-xfirst")}
         report["profile"]["barotropic-full"] = phase_profile(
             models, "barotropic", "full")
     if args.json:

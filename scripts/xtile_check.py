@@ -1,0 +1,174 @@
+#!/usr/bin/env python3
+"""Check and time the x-stage kernels of csrc/kx_visc.cu and csrc/xstage.cu
+on one CUDA card: every form against its plain torch version and against
+torch.fft.fft, at each grid size asked for.
+
+    python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
+
+--root takes the port from another checkout (an unpacked older commit,
+for a comparison in the same run: its kernels build in its own tree).
+Prints one line per form: max |kernel - plain| / max |plain|, the
+kernel's ms (CUDA events, mean of --iters back-to-back calls after a
+warm-up), the bytes bound at 3.35 TB/s and the share of it reached, and
+the ms of torch.fft.fft of the same complex input along x; then the
+card's name and power limit, and the registers and spills of the two
+kernels from the build's -Xptxas -v output. Exits non-zero past 1e-5.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_S = 3.35e12
+TOL = 1e-5
+
+
+def cuda_ms(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def cases(n: int, dev):
+    """name -> (kernel, plain, inputs read, complex input of the library
+    call) at an n x n grid's shapes, numpy-seeded."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+
+    rng = np.random.default_rng(n)
+    hny = n // 2 + 1
+
+    def planes(shape, k):
+        return [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for _ in range(k)]
+
+    fr, fi, lap, zsr, zsi, z0r, z0i = planes((n, hny), 7)
+    mask = (torch.rand((n, hny), generator=torch.Generator().manual_seed(n))
+            > 0.3).float().to(dev)
+    f2 = planes((2, n, hny), 7)
+    p5r, p5i = planes((5, n, hny), 2)
+    rk = planes((n, hny), 6)
+    tail = (z0r, z0i, *rk, 0.5)
+    p, w = 4, -(-hny // 4)
+
+    def shards(shape):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+    rows, cols = shards((p, n // p, hny)), shards((p, n, w))
+    fc, f5c = torch.complex(fr, fi), torch.complex(p5r, p5i)
+    f2c = torch.complex(f2[0], f2[1])
+    gathered = torch.zeros((n, p * w), dtype=torch.complex64, device=dev)
+    axpy = (z0r, z0i, 1.5)
+    ax2 = (f2[5], f2[6], 1.5)
+    return {
+        "kx_fwd F=1": (lambda: fs.kx_fwd(fr[None], fi[None]),
+                       lambda: fs.kx_fwd_plain(fr[None], fi[None]),
+                       (fr, fi), fc),
+        "kx_fwd F=5": (lambda: fs.kx_fwd(p5r, p5i),
+                       lambda: fs.kx_fwd_plain(p5r, p5i), (p5r, p5i), f5c),
+        "kx_visc": (lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5),
+                    lambda: ff.kx_visc_plain(fr, fi, lap, mask, zsr, zsi,
+                                             6.5),
+                    (fr, fi, lap, mask, zsr, zsi), fc),
+        "kx_visc coef": (
+            lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5, axpy),
+            lambda: ff.kx_visc_plain(fr, fi, lap, mask, zsr, zsi, 6.5, axpy),
+            (fr, fi, lap, mask, zsr, zsi, z0r, z0i), fc),
+        "kx_visc tracer F=2": (
+            lambda: ff.kx_visc(*f2[:3], mask, *f2[3:5], 1.0, ax2),
+            lambda: ff.kx_visc_plain(*f2[:3], mask, *f2[3:5], 1.0, ax2),
+            (*f2, mask), f2c),
+        "kx_visc_tail": (
+            lambda: ff.kx_visc_tail(fr, fi, lap, mask, zsr, zsi, 6.5, tail),
+            lambda: ff.kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, 6.5,
+                                          tail),
+            (fr, fi, lap, mask, zsr, zsi, *tail[:8]), fc),
+        "xstage": (lambda: fo.xstage(rows, False, 1.0 / n),
+                   lambda: fo.xstage_plain(rows, False, 1.0 / n), (rows,),
+                   gathered),
+        "xstage forward": (lambda: fo.xstage(rows, True),
+                           lambda: fo.xstage_plain(rows, True), (rows,),
+                           gathered),
+        "xstage_gather": (lambda: fo.xstage_gather(rows),
+                          lambda: fo.xstage_gather_plain(rows), (rows,),
+                          gathered),
+        "xstage_scatter": (lambda: fo.xstage_scatter(cols, hny, False,
+                                                     1.0 / n),
+                           lambda: fo.xstage_scatter_plain(cols, hny, False,
+                                                           1.0 / n),
+                           (cols,), gathered),
+    }
+
+
+def as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--n", type=int, nargs="+", default=[256, 4096])
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("xtile_check: no CUDA device visible")
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    from xlab_fftbarotropic_torch.ops import _build
+    _build.lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    worst = 0.0
+    for n in args.n:
+        for name, (kern, plain, reads, lib_in) in cases(n, dev).items():
+            got, want = as_list(kern()), as_list(plain())
+            rel = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(got, want))
+            worst = max(worst, rel)
+            ms = cuda_ms(kern, args.iters)
+            lib_ms = cuda_ms(lambda: torch.fft.fft(lib_in, dim=-2),
+                             args.iters)
+            bound = (nbytes(reads) + nbytes(want)) / HBM_BYTES_S * 1e3
+            print(f"{args.root} {n}^2 {name:20s} err {rel:.2e}  "
+                  f"{ms:.4f} ms  bound {bound:.4f} ms "
+                  f"({100 * bound / ms:.1f} %)  torch.fft.fft "
+                  f"{lib_ms:.4f} ms", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    log = Path(_build.LAST_BUILD["path"]).parent / "build.log"
+    text = log.read_text() if log.exists() else ""
+    for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage)"
+                         r"\w*)'.*?\n(.*?Used \d+ registers[^\n]*)", text,
+                         re.S):
+        spill = re.search(r"(\d+) bytes spill stores", m.group(2))
+        regs = re.search(r"Used (\d+) registers", m.group(2))
+        print(f"ptxas {m.group(1)}: {regs.group(1)} registers, "
+              f"{spill.group(1) if spill else '?'} bytes spill stores")
+    if worst > TOL:
+        print(f"xtile_check: worst error {worst:.2e} > {TOL}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

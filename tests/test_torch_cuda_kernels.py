@@ -12,7 +12,8 @@ directory's jax-pinning conftest:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Tolerance: max |kernel - plain| / max |plain| <= 1e-5. The kernels' radix-2
-float32 sums run in another order than cuFFT's, and the rounding error
+float32 sums (radix 8 in the column-tile x-stages of kx_visc and xstage,
+csrc/xtile.cuh) run in another order than cuFFT's, and the rounding error
 grows with log2(n); 1e-5 is float32 epsilon times a margin for n = 4096.
 """
 
@@ -1171,3 +1172,150 @@ def test_sharded_segment_matches_the_library_path(cuda, decomp, impl):
     assert float((vort - ref.vort).norm() / ref.vort.norm()) <= TOL
     if impl == "pallas":
         assert torch.equal(z, run("xla")[1])
+
+
+# ----- the column-tile x-stages (csrc/xtile.cuh: kx_visc.cu, xstage.cu) -----
+
+XTILE_LENGTHS = [64, 128, 256, 512, 1024, 2048, 4096, 8192]
+KX_FORMS = ["kx_fwd", "kx_fwd_stack", "visc", "coef", "tail", "tracer"]
+
+
+def _randn(seed, shape, k, dev):
+    """Seeded planes made on the card (the 8192 stacks are gigabytes)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(k)]
+
+
+def _kx_form(form, n, hny, dev, seed, transform_only=False):
+    """(kernel call, plain call, (fr, fi)) of a kx_visc.cu form on (nx,
+    hny) planes; transform_only: lap 0, mask 1 and a zero stage state, so that every
+    form's output is the forward x-DFT itself, bit for bit."""
+    nf = {"kx_fwd_stack": 5, "tracer": 2}.get(form, 1)
+    shape = (nf, n, hny) if form in ("kx_fwd_stack", "tracer") else (n, hny)
+    fr, fi, lap, zsr, zsi, *rest = _randn(seed, shape, 13, dev)
+    mask = (_randn(seed + 1, (n, hny), 1, dev)[0] > -0.5).float()
+    if transform_only:
+        lap, mask = torch.zeros_like(lap), torch.ones_like(mask)
+        rest = [torch.zeros_like(r) for r in rest]
+    axpy = (rest[0], rest[1], 1.0 if transform_only else 0.37)
+    tail = (*rest[:8], 1.0 if transform_only else 0.5)
+    if form in ("kx_fwd", "kx_fwd_stack"):
+        a, b = (fr, fi) if form == "kx_fwd_stack" else (fr[None], fi[None])
+        return (lambda: fs.kx_fwd(a, b)), (lambda: fs.kx_fwd_plain(a, b)), \
+            (fr, fi)
+    if form == "tail":
+        return (lambda: ff.kx_visc_tail(fr, fi, lap, mask, zsr, zsi, 6.5,
+                                        tail),
+                lambda: ff.kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi,
+                                              6.5, tail), (fr, fi))
+    ax = None if form == "visc" else axpy
+    return (lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5, ax),
+            lambda: ff.kx_visc_plain(fr, fi, lap, mask, zsr, zsi, 6.5, ax),
+            (fr, fi))
+
+
+def _assert_close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w) < TOL
+
+
+@pytest.mark.parametrize("form", KX_FORMS)
+@pytest.mark.parametrize("n", XTILE_LENGTHS)
+def test_kx_visc_forms_at_every_length(cuda, n, form):
+    """Every form of kx_visc.cu (no epilogue on one and five fields, visc,
+    the stage axpy, the RK4 tail, the tracer's two fields) against its
+    plain version at every length the column-tile plan takes."""
+    kern, plain, _ = _kx_form(form, n, n // 2 + 1, cuda, n)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("form", ["kx_fwd_stack", "coef", "tail"])
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_kx_visc_ragged_last_tile(cuda, n, form):
+    """A last tile of one column: hny = n/2 + 1, and one column past a
+    whole number of tiles on a narrower plane."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    c = xtile_plan(n, 1, 4).c
+    for hny in (n // 2 + 1, 3 * c + 1):
+        assert hny % c == 1
+        kern, plain, _ = _kx_form(form, n, hny, cuda, n + hny)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        _assert_close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["xstage", "gather", "scatter"])
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_xstage_tiles_straddling_shards(cuda, n, p, mode):
+    """The three xstage modes at P = 1, 2, 4, 8 where the x-pencil width
+    w is no multiple of the tile (w = 513 at 4096, P = 4): a tile's
+    columns then live in two shards, each reached through the pointer
+    tables."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+
+    hny = n // 2 + 1
+    w = -(-hny // p)
+    assert p == 1 or w % xtile_plan(n, p * w, 8).c
+    rng = np.random.default_rng(n + 7 * p)
+    rows = _shards(rng, (p, n // p, hny), cuda)
+    cols = _shards(rng, (p, n, w), cuda)
+    if mode == "scatter":
+        got = fo.xstage_scatter(cols, hny, False, 1.0 / n)
+        want = fo.xstage_scatter_plain(cols, hny, False, 1.0 / n)
+    elif mode == "gather":
+        got = fo.xstage_gather(rows)
+        want = fo.xstage_gather_plain(rows)
+    else:
+        got = fo.xstage(rows, True)
+        want = fo.xstage_plain(rows, True)
+    torch.cuda.synchronize()
+    _assert_close([got], [want])
+    if mode == "gather":            # the pad columns written as zeros
+        assert not got.permute(1, 0, 2).reshape(n, p * w)[:, hny:].any()
+
+
+@pytest.mark.parametrize("form", KX_FORMS + ["xstage", "xstage_inverse",
+                                             "gather", "scatter"])
+def test_xtile_kernels_against_torch_fft_at_4096(cuda, form):
+    """Each redesigned form against torch.fft.fft (cuFFT) itself at 4096:
+    kx_visc's epilogues with lap 0, mask 1 and a zero stage state hand the
+    transform through unchanged; the x-stages of the shards against the
+    DFT of the gathered half spectrum."""
+    n, hny = 4096, 2049
+    if form in KX_FORMS:
+        kern, _, (fr, fi) = _kx_form(form, n, hny, cuda, 11,
+                                     transform_only=True)
+        want = torch.fft.fft(torch.complex(fr, fi), dim=-2)
+        got = kern()
+        torch.cuda.synchronize()
+        g = torch.complex(got[-2 if form in ("coef", "tail") else 0],
+                          got[-1 if form in ("coef", "tail") else 1])
+        assert _rel(g.reshape(want.shape), want) < TOL
+        return
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    p = 4
+    rng = np.random.default_rng(12)
+    rows = _shards(rng, (p, n // p, hny), cuda)
+    gathered = rows.reshape(n, hny)
+    if form == "scatter":
+        cols = ftr.a2a_cols_plain(rows)
+        got = fo.xstage_scatter(cols, hny, True).reshape(n, hny)
+        want = torch.fft.fft(gathered, dim=0)
+    elif form == "gather":
+        got = fo.xstage_gather(rows).permute(1, 0, 2).reshape(n, -1)[:, :hny]
+        want = torch.fft.fft(gathered, dim=0)
+    else:
+        fwd = form == "xstage"
+        got = fo.xstage(rows, fwd).reshape(n, hny)
+        want = (torch.fft.fft(gathered, dim=0) if fwd
+                else torch.fft.ifft(gathered, dim=0, norm="forward"))
+    torch.cuda.synchronize()
+    assert _rel(got, want) < TOL

@@ -12,8 +12,8 @@
 // forward transform: about 671 MB per call at 4096^2, 10 half planes in
 // and out) and for the barotropic XFB_BT_FUSEKX=0 form
 // (pallas_fft._kx_fwd_bt_kernel, :1521, one field; visc.cu applies its
-// epilogue). For each field f and spectral column j it runs the
-// forward colfft of (fr + i fi)[f, :, j] and applies the epilogue of
+// epilogue). For each field f and spectral column j it runs the forward
+// length-nx DFT of (fr + i fi)[f, :, j] and applies the epilogue of
 // _visc_epilogue in its order:
 //   nulap = nu * lap[f];  r = mask * (F + nulap * Zs[f])
 // writing rr, ri of shape (F, nx, hny); with z0 given (the stage axpy)
@@ -28,10 +28,16 @@
 //
 // Bound: memory traffic, per field about 268 MB at 4096^2 (6 half
 // planes in, 2 out), 403 MB with the axpy (2 more in, 2 more out), 537
-// MB with the tail (14 in, 2 out). Every plane is read and written along
-// column j, strided by hny, in this simple form.
-#include "colfft.cuh"
+// MB with the tail (14 in, 2 out). The transform is the column-tile
+// x-stage of csrc/xtile.cuh: a cluster owns C adjacent columns, so every
+// plane, the epilogue's too, is read and written in row segments of C
+// floats (a block per column would move one float per 32-byte sector,
+// its planes strided by hny along the column). Every
+// form (no epilogue, visc, axpy, tail; any number of fields) runs the
+// one kernel below with the plan of nx alone, so the transform's bits
+// never depend on the form.
 #include "epilogue.cuh"
+#include "xtile.cuh"
 
 namespace {
 
@@ -47,70 +53,104 @@ struct Tail {
   float c;
 };
 
-__global__ void kx_visc_kernel(const float* __restrict__ fr,
-                               const float* __restrict__ fi,
-                               const float* __restrict__ lap,
-                               const float* __restrict__ mask,
-                               const float* __restrict__ zsr,
-                               const float* __restrict__ zsi,
-                               const float* __restrict__ z0r,
-                               const float* __restrict__ z0i, Tail tail,
-                               const float2* __restrict__ tw,
-                               float* __restrict__ rr,
-                               float* __restrict__ ri,
-                               float* __restrict__ nr,
-                               float* __restrict__ ni, int nx, int lognx,
-                               int hny, float nu, float coef) {
-  extern __shared__ float2 s[];
-  const int j = blockIdx.x;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * nx * hny;
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    const size_t off = plane + static_cast<size_t>(i) * hny + j;
-    s[xfb::bitrev(i, lognx)] = make_float2(fr[off], fi[off]);
-  }
-  xfb::colfft<-1>(s, nx, lognx, tw);
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+struct Planes {
+  const float* lap;
+  const float* mask;
+  const float* zsr;
+  const float* zsi;
+  const float* z0r;
+  const float* z0i;
+  float* rr;
+  float* ri;
+  float* nr;
+  float* ni;
+};
+
+// The epilogue of output row i, tile column c. Its operands are read
+// through the read-only path (no output aliases an input: the wrappers
+// allocate them), so the loads of one row need not wait for the stores
+// of the row before.
+struct Epilogue {
+  Planes p;
+  Tail tail;
+  size_t plane;
+  int j0, hny;
+  float nu, coef;
+
+  __device__ __forceinline__ void operator()(int i, int c, float2 f) const {
+    const int j = j0 + c;
+    if (j >= hny) return;  // the ragged last tile
     const size_t moff = static_cast<size_t>(i) * hny + j;
     const size_t off = plane + moff;
-    const float2 f = s[i];
-    if (lap == nullptr) {  // kx_fwd: the raw transform, no epilogue
-      rr[off] = f.x;
-      ri[off] = f.y;
-      continue;
+    if (p.lap == nullptr) {  // kx_fwd: the raw transform, no epilogue
+      p.rr[off] = f.x;
+      p.ri[off] = f.y;
+      return;
     }
-    const float2 r = xfb::visc(nu, lap[off], mask[moff], f, zsr[off],
-                               zsi[off]);
+    const float2 r = xfb::visc(nu, __ldg(p.lap + off), __ldg(p.mask + moff),
+                               f, __ldg(p.zsr + off), __ldg(p.zsi + off));
     if (tail.r1r != nullptr) {  // the RK4 tail: n only, r stays here
-      nr[off] = xfb::rk4_tail(z0r[off], tail.r1r[off], tail.r2r[off],
-                              tail.r3r[off], r.x, tail.c);
-      ni[off] = xfb::rk4_tail(z0i[off], tail.r1i[off], tail.r2i[off],
-                              tail.r3i[off], r.y, tail.c);
-      continue;
+      p.nr[off] = xfb::rk4_tail(__ldg(p.z0r + off), __ldg(tail.r1r + off),
+                                __ldg(tail.r2r + off), __ldg(tail.r3r + off),
+                                r.x, tail.c);
+      p.ni[off] = xfb::rk4_tail(__ldg(p.z0i + off), __ldg(tail.r1i + off),
+                                __ldg(tail.r2i + off), __ldg(tail.r3i + off),
+                                r.y, tail.c);
+      return;
     }
-    rr[off] = r.x;
-    ri[off] = r.y;
-    if (z0r != nullptr) {
-      nr[off] = xfb::axpy(z0r[off], coef, r.x);
-      ni[off] = xfb::axpy(z0i[off], coef, r.y);
+    p.rr[off] = r.x;
+    p.ri[off] = r.y;
+    if (p.z0r != nullptr) {
+      p.nr[off] = xfb::axpy(__ldg(p.z0r + off), coef, r.x);
+      p.ni[off] = xfb::axpy(__ldg(p.z0i + off), coef, r.y);
     }
   }
+};
+
+__global__ void __launch_bounds__(512, 2)
+    kx_visc_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
+                   Planes p, Tail tail, const float2* __restrict__ tw,
+                   int nx, int hny, int k, int logc, float nu, float coef) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, nx, k, logc);
+  const int j0 = (blockIdx.x / k) << logc;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * nx * hny;
+  const int cmask = (1 << logc) - 1;
+  // rows rank + k * jj, consecutive lanes on consecutive columns
+#pragma unroll
+  for (int b = 0; b < xt::kElems; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int j = j0 + (u & cmask);
+    float2* d = t.s + u;
+    if (j < hny) {
+      const size_t off =
+          plane + static_cast<size_t>(t.rank + k * (u >> logc)) * hny + j;
+      xt::cp_async4(&d->x, fr + off);
+      xt::cp_async4(&d->y, fi + off);
+    } else {
+      *d = make_float2(0.f, 0.f);
+    }
+  }
+  xt::cp_async_wait_all();
+  __syncthreads();
+  Epilogue out{p, tail, plane, j0, hny, nu, coef};
+  xt::finish<-1>(t, tw, out);
 }
 
-int launch(const float* fr, const float* fi, const float* lap,
-           const float* mask, const float* zsr, const float* zsi,
-           const float* z0r, const float* z0i, Tail tail, const void* tw,
-           float* rr, float* ri, float* nr, float* ni, int nfields, int nx,
-           int hny, float nu, float coef, int device, void* stream) {
-  const size_t smem = static_cast<size_t>(nx) * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(kx_visc_kernel),
-                                 device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kx_visc_kernel<<<dim3(hny, nfields), xfb::threads_for(nx), smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      fr, fi, lap, mask, zsr, zsi, z0r, z0i, tail,
-      static_cast<const float2*>(tw), rr, ri, nr, ni, nx, xfb::ilog2(nx),
-      hny, nu, coef);
-  return static_cast<int>(cudaGetLastError());
+int launch(const float* fr, const float* fi, const Planes& p, Tail tail,
+           const void* tw, int nfields, int nx, int hny, float nu,
+           float coef, int tile_c, int cluster_k, int threads, int smem,
+           int device, void* stream) {
+  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (hny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      kx_visc_kernel, tiles, nfields, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), fr, fi, p, tail,
+      static_cast<const float2*>(tw), nx, hny, cluster_k,
+      xfb::xtile::log2i(tile_c), nu, coef));
 }
 
 }  // namespace
@@ -119,15 +159,18 @@ int launch(const float* fr, const float* fi, const float* lap,
 // mask: (nx, hny). z0r = z0i = nr = ni = NULL: no stage axpy. lap = NULL
 // (and mask, zsr, zsi, z0r, z0i NULL): no epilogue at all, rr + i ri is
 // the forward x-DFT itself (kx_fwd, the shallow-water forward x-stage).
+// tile_c, cluster_k, threads, smem: the plan of ops/xtile.py for nx.
 extern "C" int xfb_kx_visc(const float* fr, const float* fi,
                            const float* lap, const float* mask,
                            const float* zsr, const float* zsi,
                            const float* z0r, const float* z0i,
                            const void* tw, float* rr, float* ri, float* nr,
                            float* ni, int nfields, int nx, int hny,
-                           float nu, float coef, int device, void* stream) {
-  return launch(fr, fi, lap, mask, zsr, zsi, z0r, z0i, Tail{}, tw, rr, ri,
-                nr, ni, nfields, nx, hny, nu, coef, device, stream);
+                           float nu, float coef, int tile_c, int cluster_k,
+                           int threads, int smem, int device, void* stream) {
+  return launch(fr, fi, Planes{lap, mask, zsr, zsi, z0r, z0i, rr, ri, nr, ni},
+                Tail{}, tw, nfields, nx, hny, nu, coef, tile_c, cluster_k,
+                threads, smem, device, stream);
 }
 
 // The tail form: every plane (nfields, nx, hny) but mask (nx, hny); writes
@@ -142,8 +185,12 @@ extern "C" int xfb_kx_visc_tail(const float* fr, const float* fi,
                                 const float* r3r, const float* r3i,
                                 const void* tw, float* nr, float* ni,
                                 int nfields, int nx, int hny, float nu,
-                                float c, int device, void* stream) {
-  return launch(fr, fi, lap, mask, zsr, zsi, z0r, z0i,
-                Tail{r1r, r1i, r2r, r2i, r3r, r3i, c}, tw, nullptr, nullptr,
-                nr, ni, nfields, nx, hny, nu, 0.f, device, stream);
+                                float c, int tile_c, int cluster_k,
+                                int threads, int smem, int device,
+                                void* stream) {
+  return launch(fr, fi,
+                Planes{lap, mask, zsr, zsi, z0r, z0i, nullptr, nullptr, nr,
+                       ni},
+                Tail{r1r, r1i, r2r, r2i, r3r, r3i, c}, tw, nfields, nx, hny,
+                nu, 0.f, tile_c, cluster_k, threads, smem, device, stream);
 }

@@ -13,15 +13,17 @@
 // ceil(hrow / P)), element (g, c) lives
 //   in the row layout at      shard g / rows_l, offset (g % rows_l) hrow + c;
 //   in the x-pencil layout at shard c / w,      offset g w + c % w.
-// Block c pulls column c's nx values from the P source shards, runs the
-// shared colfft (csrc/colfft.cuh) forward or inverse, unnormalized, times
-// `scale`, and pushes the column to the P row owners (xstage, scatter) or
-// into its owner's x-pencil (gather; a pad column c >= hrow is written as
-// zeros). Columns are independent, so one launch needs no semaphores: the
-// many resident blocks overlap one column's loads with another's
-// butterflies, which the TPU kernel arranged by hand with its chunk
-// pipeline (n_chunks 128-lane chunks, a TPU tiling rule not carried
-// over).
+// A cluster of blocks owns a tile of C adjacent columns (the column-tile
+// x-stage of csrc/xtile.cuh): it pulls the tile's nx rows from the P
+// source shards, runs the length-nx DFT forward or inverse, unnormalized,
+// times `scale`, and pushes the tile to the P row owners (xstage,
+// scatter) or into its owners' x-pencils (gather; a pad column c >= hrow
+// is written as zeros). A tile may straddle x-pencil shards: every
+// element is addressed through the pointer tables on its own. Tiles are
+// independent, so one launch needs no semaphores: the many resident
+// clusters overlap one tile's loads with another's butterflies, which the
+// TPU kernel arranged by hand with its chunk pipeline (n_chunks 128-lane
+// chunks, a TPU tiling rule not carried over).
 //
 // The shards are reached through two tables of P base pointers on the
 // card (sources, destinations), never through one tensor's strides: here
@@ -31,103 +33,128 @@
 // after it, and each card launches the blocks of its own w columns.
 //
 // Bound: bytes (at 4096^2, P = 4: 67 MB read, 67 MB written; the DFT's
-// 0.5 GFLOP are under a tenth of that time at the float32 rate). The
-// row-layout side is read or written along columns, strided by hrow, as
-// the per-transform ka reads its columns (csrc/ka_kc.cu).
-#include "colfft.cuh"
+// 0.5 GFLOP are under a tenth of that time at the float32 rate). Both
+// sides are read and written in row segments of C complex64 values (128
+// bytes at C = 16; a block per column would move 8 bytes per 32-byte
+// sector).
+#include "xtile.cuh"
 
 namespace {
 
 constexpr int kRows = 0;    // row shards (rows_l, hrow)
 constexpr int kPencil = 1;  // x-pencil column shards (nx, w)
 
+// Element (g, c) of the global (nx, hrow) half spectrum in LAYOUT, through
+// the table of shard base pointers.
 template <int LAYOUT>
-__device__ __forceinline__ size_t element(const long long* __restrict__ ptr,
-                                          int g, int c, int rows_l, int hrow,
-                                          int w, long long* base) {
+__device__ __forceinline__ float2* element(const long long* __restrict__ ptr,
+                                           int g, int c, int rows_l,
+                                           int hrow, int w) {
   if (LAYOUT == kRows) {
     const int s = g / rows_l;
-    *base = __ldg(&ptr[s]);
-    return static_cast<size_t>(g - s * rows_l) * hrow + c;
+    return reinterpret_cast<float2*>(__ldg(&ptr[s])) +
+           static_cast<size_t>(g - s * rows_l) * hrow + c;
   }
   const int t = c / w;
-  *base = __ldg(&ptr[t]);
-  return static_cast<size_t>(g) * w + (c - t * w);
+  return reinterpret_cast<float2*>(__ldg(&ptr[t])) +
+         static_cast<size_t>(g) * w + (c - t * w);
 }
 
+// The store of output row g, tile column c: times scale, or zeros in a
+// pad column (hrow <= j < columns).
+template <int DST>
+struct Store {
+  const long long* dst;
+  int j0, rows_l, hrow, w, columns;
+  float scale;
+
+  __device__ __forceinline__ void operator()(int g, int c, float2 v) const {
+    const int j = j0 + c;
+    if (j >= columns) return;  // the ragged last tile
+    *element<DST>(dst, g, j, rows_l, hrow, w) =
+        j < hrow ? make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, scale))
+                 : make_float2(0.f, 0.f);
+  }
+};
+
 template <int SIGN, int SRC, int DST>
-__global__ void xstage_kernel(const long long* __restrict__ src,
-                              const long long* __restrict__ dst,
-                              const float2* __restrict__ tw, int nx,
-                              int lognx, int rows_l, int hrow, int w,
-                              float scale) {
-  extern __shared__ float2 s[];
-  const int c = blockIdx.x;
-  long long base;
-  if (c >= hrow) {  // a pad column of the x-pencil: zeros, no transform
-    for (int g = threadIdx.x; g < nx; g += blockDim.x) {
-      const size_t off = element<DST>(dst, g, c, rows_l, hrow, w, &base);
-      reinterpret_cast<float2*>(base)[off] = make_float2(0.f, 0.f);
+__global__ void __launch_bounds__(512, 2)
+    xstage_kernel(const long long* __restrict__ src,
+                  const long long* __restrict__ dst,
+                  const float2* __restrict__ tw, int nx, int k, int logc,
+                  int rows_l, int hrow, int w, int columns, float scale) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, nx, k, logc);
+  const int j0 = (blockIdx.x / k) << logc;
+  const int cmask = (1 << logc) - 1;
+  // rows rank + k * gg, consecutive lanes on consecutive columns
+#pragma unroll
+  for (int b = 0; b < xt::kElems; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int j = j0 + (u & cmask);
+    float2* d = t.s + u;
+    if (j < hrow) {
+      xt::cp_async8(d, element<SRC>(src, t.rank + k * (u >> logc), j,
+                                    rows_l, hrow, w));
+    } else {
+      *d = make_float2(0.f, 0.f);
     }
-    return;
   }
-  for (int g = threadIdx.x; g < nx; g += blockDim.x) {
-    const size_t off = element<SRC>(src, g, c, rows_l, hrow, w, &base);
-    s[xfb::bitrev(g, lognx)] = reinterpret_cast<const float2*>(base)[off];
-  }
-  xfb::colfft<SIGN>(s, nx, lognx, tw);
-  for (int g = threadIdx.x; g < nx; g += blockDim.x) {
-    const size_t off = element<DST>(dst, g, c, rows_l, hrow, w, &base);
-    const float2 v = s[g];
-    reinterpret_cast<float2*>(base)[off] = make_float2(v.x * scale,
-                                                       v.y * scale);
-  }
+  xt::cp_async_wait_all();
+  __syncthreads();
+  Store<DST> out{dst, j0, rows_l, hrow, w, columns, scale};
+  xt::finish<SIGN>(t, tw, out);
 }
 
 template <int SRC, int DST>
 cudaError_t launch(const long long* src, const long long* dst,
                    const float2* tw, int nx, int rows_l, int hrow, int w,
-                   int columns, int forward, float scale, int device,
+                   int columns, int forward, float scale, int tile_c,
+                   int cluster_k, int threads, int smem, int device,
                    cudaStream_t stream) {
-  const void* kernel =
-      forward ? reinterpret_cast<const void*>(&xstage_kernel<-1, SRC, DST>)
-              : reinterpret_cast<const void*>(&xstage_kernel<1, SRC, DST>);
-  const size_t smem = static_cast<size_t>(nx) * sizeof(float2);
-  cudaError_t err = xfb::prepare(kernel, device, smem);
-  if (err != cudaSuccess) return err;
-  const int lognx = xfb::ilog2(nx);
-  const int threads = xfb::threads_for(nx);
-  if (forward) {
-    xstage_kernel<-1, SRC, DST><<<columns, threads, smem, stream>>>(
-        src, dst, tw, nx, lognx, rows_l, hrow, w, scale);
-  } else {
-    xstage_kernel<1, SRC, DST><<<columns, threads, smem, stream>>>(
-        src, dst, tw, nx, lognx, rows_l, hrow, w, scale);
+  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
+    return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+  const int tiles = (columns + tile_c - 1) / tile_c;
+  const int logc = xfb::xtile::log2i(tile_c);
+  return forward
+             ? xfb::xtile::launch(xstage_kernel<-1, SRC, DST>, tiles, 1,
+                                  cluster_k, threads, smem, device, stream,
+                                  src, dst, tw, nx, cluster_k, logc, rows_l,
+                                  hrow, w, columns, scale)
+             : xfb::xtile::launch(xstage_kernel<1, SRC, DST>, tiles, 1,
+                                  cluster_k, threads, smem, device, stream,
+                                  src, dst, tw, nx, cluster_k, logc, rows_l,
+                                  hrow, w, columns, scale);
 }
 
 }  // namespace
 
-// src, dst: device tables of p base pointers (int64); tw: colfft's
-// (nx/2) twiddles; mode 0 xstage (rows -> rows), 1 gather (rows ->
-// x-pencil), 2 scatter (x-pencil -> rows); p shards of rows_l rows, hrow
-// the half axis, w the x-pencil width.
+// src, dst: device tables of p base pointers (int64); tw: the (nx/2)
+// twiddles exp(-2 pi i k / nx); mode 0 xstage (rows -> rows), 1 gather
+// (rows -> x-pencil), 2 scatter (x-pencil -> rows); p shards of rows_l
+// rows, hrow the half axis, w the x-pencil width; tile_c, cluster_k,
+// threads, smem: the plan of ops/xtile.py for nx and the mode's columns.
 extern "C" int xfb_xstage(const long long* src, const long long* dst,
                           const float2* tw, int p, int rows_l, int hrow,
                           int w, int mode, int forward, float scale,
+                          int tile_c, int cluster_k, int threads, int smem,
                           int device, cudaStream_t stream) {
   const int nx = p * rows_l;
   switch (mode) {
     case 0:
       return launch<kRows, kRows>(src, dst, tw, nx, rows_l, hrow, w, hrow,
-                                  forward, scale, device, stream);
+                                  forward, scale, tile_c, cluster_k, threads,
+                                  smem, device, stream);
     case 1:
       return launch<kRows, kPencil>(src, dst, tw, nx, rows_l, hrow, w, p * w,
-                                    forward, scale, device, stream);
+                                    forward, scale, tile_c, cluster_k,
+                                    threads, smem, device, stream);
     case 2:
       return launch<kPencil, kRows>(src, dst, tw, nx, rows_l, hrow, w, hrow,
-                                    forward, scale, device, stream);
+                                    forward, scale, tile_c, cluster_k,
+                                    threads, smem, device, stream);
     default:
       return cudaErrorInvalidValue;
   }

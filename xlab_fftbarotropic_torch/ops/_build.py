@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh) compile
+The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh, and
+kx_visc.cu and xstage.cu sharing csrc/xtile.cuh) compile
 with nvcc for Hopper (sm_90a) into one shared library with a plain C
 interface, loaded with ctypes: pointers and the stream pass as
 ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
@@ -28,7 +29,7 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-HEADERS = ("colfft.cuh", "epilogue.cuh")
+HEADERS = ("colfft.cuh", "epilogue.cuh", "xtile.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
            "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu", "a2a.cu",
@@ -52,8 +53,9 @@ SIGNATURES = {
     # u, zx, v, zy, src, tw, outr, outi, ny, nx, beta, device, stream
     "xfb_ky_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
     # fr, fi, lap, mask, zsr, zsi, z0r, z0i, tw, rr, ri, nr, ni,
-    # nfields, nx, hny, nu, coef, device, stream
-    "xfb_kx_visc": [_P] * 13 + [_I, _I, _I, _F, _F, _I, _P],
+    # nfields, nx, hny, nu, coef, tile_c, cluster_k, threads, smem (the
+    # ops/xtile.py plan), device, stream
+    "xfb_kx_visc": [_P] * 13 + [_I, _I, _I, _F, _F] + [_I] * 5 + [_P],
     # zx, zy, qx, qy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta,
     # device, stream
     "xfb_kb_adv_tracer": [_P] * 10 + [_I, _I, _F, _F, _I, _P],
@@ -91,8 +93,9 @@ SIGNATURES = {
     # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first, count, device, stream
     "xfb_ka_quad": [_P] * 8 + [_I] * 5 + [_P],
     # fr, fi, lap, mask, zsr, zsi, z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i,
-    # tw, nr, ni, nfields, nx, hny, nu, c, device, stream
-    "xfb_kx_visc_tail": [_P] * 17 + [_I, _I, _I, _F, _F, _I, _P],
+    # tw, nr, ni, nfields, nx, hny, nu, c, tile_c, cluster_k, threads,
+    # smem, device, stream
+    "xfb_kx_visc_tail": [_P] * 17 + [_I, _I, _I, _F, _F] + [_I] * 5 + [_P],
     # fr, fi, lap, mask, zr, zi, z0r, z0i, rr, ri, nr, ni, numel, nu, coef,
     # device, stream
     "xfb_visc": [_P] * 12 + [_L, _F, _F, _I, _P],
@@ -104,8 +107,8 @@ SIGNATURES = {
     # src table, dst table, p, rows_l, hrow, w, to_cols, device, stream
     "xfb_a2a": [_P, _P] + [_I] * 6 + [_P],
     # src table, dst table, tw, p, rows_l, hrow, w, mode, forward, scale,
-    # device, stream
-    "xfb_xstage": [_P] * 3 + [_I] * 6 + [_F, _I, _P],
+    # tile_c, cluster_k, threads, smem, device, stream
+    "xfb_xstage": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -4,7 +4,8 @@ launch machinery every kernel wrapper of the port shares.
 
 One RK stage of the barotropic plane stepper runs five launches of four
 kernels, each a hand-written CUDA kernel (csrc/) around the shared
-in-shared-memory column FFT (csrc/colfft.cuh):
+in-shared-memory column FFT (csrc/colfft.cuh; kx_visc around the
+column-tile x-stage of csrc/xtile.cuh, planned by ops/xtile.py):
 
   ka_diag   the four derivative fields' inverse x-stage   (stacked out)
   kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
@@ -139,6 +140,14 @@ def _takes_plain(name: str, t: torch.Tensor, *lengths: int) -> bool:
             raise ValueError(f"{name}: the CUDA kernel takes power-of-two "
                              f"lengths {MIN_N}..{MAX_N}, got {n}")
     return False
+
+
+def _xtile_args(n: int, columns: int, elem_bytes: int) -> tuple:
+    """The column-tile plan's launch arguments (tile_c, cluster_k,
+    threads, smem) of csrc/xtile.cuh (ops/xtile.py)."""
+    from .xtile import xtile_plan
+    p = xtile_plan(n, columns, elem_bytes)
+    return p.c, p.k, p.threads, p.smem
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -368,7 +377,7 @@ def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
             *_ptrs(fr, fi, lap, mask, zsr, zsi), *z0,
             _twiddles(nx, fr.device).data_ptr(), *_ptrs(*outs[:2]), *nr_ni,
             1 if len(shape) == 2 else shape[0], nx, hny, float(nu), coef,
-            fr.device.index, _stream(fr))
+            *_xtile_args(nx, hny, 4), fr.device.index, _stream(fr))
     return tuple(outs)
 
 
@@ -420,7 +429,7 @@ def kx_visc_tail(fr, fi, lap, mask, zsr, zsi, nu: float, tail):
                    *(p for pair in pairs for p in pair),
                    _twiddles(nx, fr.device), nr, ni),
             1 if len(shape) == 2 else shape[0], nx, hny, float(nu), c,
-            fr.device.index, _stream(fr))
+            *_xtile_args(nx, hny, 4), fr.device.index, _stream(fr))
     return nr, ni
 
 

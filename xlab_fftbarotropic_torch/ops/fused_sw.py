@@ -50,8 +50,8 @@ import ctypes
 import torch
 
 from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
-                        _twiddles, inverse_xstage_plain, ka, kb_pair,
-                        kb_stacked, kc)
+                        _twiddles, _xtile_args, inverse_xstage_plain, ka,
+                        kb_pair, kb_stacked, kc)
 
 MAX_PLANES = 8   # csrc/rk4_combine.cu kMaxPlanes
 N_PRODUCTS = 5   # q*u, q*v, eta*u, eta*v, phi
@@ -260,7 +260,8 @@ def kx_fwd(fr, fi):
     _launch("kx_fwd", lib().xfb_kx_visc, fr.data_ptr(), fi.data_ptr(),
             None, None, None, None, None, None,
             *_ptrs(_twiddles(nx, fr.device), rr, ri), None, None,
-            nf, nx, hny, 0.0, 0.0, fr.device.index, _stream(fr))
+            nf, nx, hny, 0.0, 0.0, *_xtile_args(nx, hny, 4),
+            fr.device.index, _stream(fr))
     return rr, ri
 
 

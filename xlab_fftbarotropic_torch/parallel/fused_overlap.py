@@ -15,7 +15,8 @@ Each takes the sign (`forward`) and a `scale` of its output; the inverse
 is unnormalized before it. Beside each wrapper is its plain version, the
 composition above of the plain transposes (parallel/fused_transpose.py)
 and torch.fft; a CPU tensor takes it, a CUDA tensor launches the kernel
-(nx a power of two from 64 to 8192) or raises. rfft2_local, irfft2_local
+(nx a power of two from 64 to 8192, the column-tile plan of ops/xtile.py)
+or raises. rfft2_local, irfft2_local
 and make_fft_pair are the slab transform pair on `xstage` (the JAX
 package's fft_impl="overlap"); the x-pencil pair on the halves is in
 parallel/xpencil.py. The kernels take no chunk plan: the pad is the
@@ -47,10 +48,12 @@ def _launch(name: str, x: torch.Tensor, out: torch.Tensor, nx: int,
             hny: int, w: int, forward: bool, scale: float) -> None:
     p = x.shape[0]
     src, dst = ft._pointer_table(x), ft._pointer_table(out)
+    columns = p * w if name == "xstage_gather" else hny
     from ..ops._build import lib
     ff._launch(name, lib().xfb_xstage, src.data_ptr(), dst.data_ptr(),
                ff._twiddles(nx, x.device).data_ptr(), p, nx // p, hny, w,
-               _MODES[name], int(forward), float(scale), x.device.index,
+               _MODES[name], int(forward), float(scale),
+               *ff._xtile_args(nx, columns, 8), x.device.index,
                ff._stream(x))
 
 
