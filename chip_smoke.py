@@ -16,8 +16,10 @@ exits non-zero and prints no result):
    exactly), the distributed ones on 4 shards and at 256^2 on 1, 2 and
    8 too; each timed at n^2 with CUDA events. First the column-tile
    plan (ops/xtile.py: columns per tile C, blocks per cluster K,
-   threads, shared bytes) of kx_visc.cu and xstage.cu at 256^2 and n^2,
-   and every kernel's registers and spills from the build's -Xptxas -v.
+   threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu
+   and of the y-stages kc_kernel (ka_kc.cu: kc, kc_sw, kc_visc) and
+   kb_kernel (kb_pair.cu: kb, the x-major kb) at 256^2 and n^2, and
+   every kernel's registers and spills from the build's -Xptxas -v.
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -128,9 +130,10 @@ exits non-zero and prints no result):
 11. With --profile: torch.profiler traces of the barotropic (default
    and FUSEKB=full), tracer, SW RK4 and SW ETDRK4 y-first kernel paths
    (the column-tile kx_visc and kx_fwd), the SW drag, the x-first
-   barotropic and SW RK4 paths, and (phase 5j) the four sharded kernel
-   paths (xstage on the overlap ones), device time per step by kernel
-   and the device's busy share.
+   barotropic and SW RK4 paths (the column-tile kc, kc_visc, kc_sw and
+   kb), the adjoint gradient (per window step, phase 5e), and (phase 5j)
+   the four sharded kernel paths (xstage on the overlap ones), device
+   time per step by kernel and the device's busy share.
 
 The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
 with each kernel's launches on the main paths, its max abs error
@@ -837,8 +840,10 @@ def compare(name: str, case: Case, where: str):
 
 
 def phase_xtile(n: int) -> dict:
-    """The column-tile plans of kx_visc.cu and xstage.cu at 256^2 and
-    n^2, and every kernel's registers and spills from the build log."""
+    """The column-tile plans of the x-stages (kx_visc.cu, xstage.cu) and
+    the y-stages (kc_kernel, kb_kernel: the nx columns of float planes)
+    at 256^2 and n^2, and every kernel's registers and spills from the
+    build log."""
     from xlab_fftbarotropic_torch.ops import _build
     from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
 
@@ -848,7 +853,9 @@ def phase_xtile(n: int) -> dict:
         for name, columns, elem in (("kx_visc", hny, 4),
                                     ("xstage", hny, 8),
                                     ("xstage_gather P=4",
-                                     4 * -(-hny // 4), 8)):
+                                     4 * -(-hny // 4), 8),
+                                    ("kc_kernel", size, 4),
+                                    ("kb_kernel", size, 4)):
             p = xtile_plan(size, columns, elem)
             log(f"xtile plan {name:17s} {size}^2: C = {p.c} columns, K = "
                 f"{p.k} blocks per cluster, {p.threads} threads, {p.smem} "
@@ -1191,8 +1198,9 @@ def phase_sharded(n: int, steps: int, dev, profile: bool) -> dict:
     return out
 
 
-def phase_adjoint(n: int, dev) -> dict:
-    """The adjoint main path and its checks (phase 5e)."""
+def phase_adjoint(n: int, dev, profile: bool = False) -> dict:
+    """The adjoint main path and its checks (phase 5e); with `profile`
+    also the breakdown of a kernel-path gradient per window step."""
     from xlab_fftbarotropic_torch import adjoint
     from xlab_fftbarotropic_torch.cli import assimilate
     from xlab_fftbarotropic_torch.config import ModelConfig
@@ -1304,6 +1312,9 @@ def phase_adjoint(n: int, dev) -> dict:
                                        fwd_runs=ts["fwd"],
                                        grad_runs=ts["grad"],
                                        peak_bytes=peak[b])
+    if profile:
+        out["profile"] = profile_run("adjoint-gradient",
+                                     lambda: vg["pallas"](guess, src), w)
     return out
 
 
@@ -1625,19 +1636,25 @@ def phase_profile(models: dict, family: str, path: str = "kernels",
     steps of a family's path, device time per step by kernel (the port's
     by name, the rest lumped as torch elementwise), and the device's busy
     share of the synchronized wall time (profiler on)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    names = kernel_functions()
     paths, s0, src = models[family]
     m = paths[path]
     family = family if path == "kernels" else f"{family}-{path}"
     m.segment(s0, src, 1)
     torch.cuda.synchronize()
+    return profile_run(family, lambda: m.segment(s0, src, steps), steps)
+
+
+def profile_run(family: str, run, steps: int) -> dict:
+    """The breakdown of phase_profile for any work: run() traced once,
+    device time per step (of `steps`) by kernel and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = kernel_functions()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        m.segment(s0, src, steps)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_step, calls = {}, {}
@@ -1673,9 +1690,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace the y-first barotropic (default and "
                     "FUSEKB=full), tracer, SW RK4 and ETDRK4, the SW drag, "
-                    "the x-first barotropic and SW RK4 and the sharded "
-                    "kernel paths with torch.profiler (the breakdown of "
-                    "where their time goes)")
+                    "the x-first barotropic and SW RK4, the adjoint "
+                    "gradient and the sharded kernel paths with "
+                    "torch.profiler (the breakdown of where their time "
+                    "goes)")
     args = ap.parse_args(argv)
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
@@ -1715,7 +1733,8 @@ def main(argv=None) -> int:
     for path in MODEL_PATHS:
         report["main_paths"][path] = phase_model_path(path, args.n,
                                                       args.steps)
-    report["main_paths"]["adjoint"] = phase_adjoint(args.n, dev)
+    report["main_paths"]["adjoint"] = phase_adjoint(args.n, dev,
+                                                    args.profile)
     report["sharded"] = phase_sharded(args.n, args.steps, dev, args.profile)
     report["main_paths"].update(report["sharded"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
@@ -1731,6 +1750,8 @@ def main(argv=None) -> int:
                                        "sw-xfirst")}
         report["profile"]["barotropic-full"] = phase_profile(
             models, "barotropic", "full")
+        report["profile"]["adjoint-gradient"] = (
+            report["main_paths"]["adjoint"]["profile"])
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(report, indent=1))

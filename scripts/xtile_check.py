@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Check and time the x-stage kernels of csrc/kx_visc.cu and csrc/xstage.cu
-on one CUDA card: every form against its plain torch version and against
-torch.fft.fft, at each grid size asked for.
+"""Check and time the column-tile kernels on one CUDA card: the x-stages of
+csrc/kx_visc.cu and csrc/xstage.cu and the y-stages kc_kernel (csrc/
+ka_kc.cu: kc, kc_sw, kc_visc) and kb_kernel (csrc/kb_pair.cu: kb paired
+and single, the x-major kb), every form against its plain torch version
+and against the one torch.fft call of the same transform, at each grid
+size asked for.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
 
 --root takes the port from another checkout (an unpacked older commit,
 for a comparison in the same run: its kernels build in its own tree).
-Prints one line per form: max |kernel - plain| / max |plain|, the
-kernel's ms (CUDA events, mean of --iters back-to-back calls after a
-warm-up), the bytes bound at 3.35 TB/s and the share of it reached, and
-the ms of torch.fft.fft of the same complex input along x; then the
-card's name and power limit, and the registers and spills of the two
-kernels from the build's -Xptxas -v output. Exits non-zero past 1e-5.
+Prints one line per form: max |kernel - plain| / max |plain|, a digest
+of the output bits (the same seeded inputs in every run, so two
+checkouts' lines show whether a kernel's bits moved), the kernel's ms
+(CUDA events, mean of --iters back-to-back calls after a warm-up), the
+plain version's ms, the bytes bound at 3.35 TB/s and the share of it
+reached, and the ms of the torch.fft call: fft along x for the x-stages,
+fft along y for kc and kc_sw, irfft along y for kb; then the card's
+name and power limit, and the registers and spills of the tile kernels
+from the build's -Xptxas -v output. Exits non-zero past 1e-5.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import re
 import subprocess
 import sys
@@ -49,8 +56,8 @@ def nbytes(ts) -> int:
 
 
 def cases(n: int, dev):
-    """name -> (kernel, plain, inputs read, complex input of the library
-    call) at an n x n grid's shapes, numpy-seeded."""
+    """name -> (kernel, plain, inputs read, the torch.fft call) at an n x
+    n grid's shapes, numpy-seeded."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.ops import fused_sw as fs
     from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
@@ -81,44 +88,85 @@ def cases(n: int, dev):
     gathered = torch.zeros((n, p * w), dtype=torch.complex64, device=dev)
     axpy = (z0r, z0i, 1.5)
     ax2 = (f2[5], f2[6], 1.5)
+    # the y-stages: y-major (ny, nx) planes into kc, (hny, nx) into kb
+    yr, yi = planes((n, n), 2)
+    g5r, g5i = planes((5, n, n), 2)
+    hs = list(planes((4, hny, n), 2))
+    kbw = [hs[0][0], hs[1][0], hs[0][1], hs[1][1]]
+    s = 1.0 / (n * n)
+
+    def fft(x):
+        return lambda: torch.fft.fft(x, dim=-2)
+
+    yc, y5c = torch.complex(yr, yi), torch.complex(g5r, g5i)
+    kbc = torch.complex(hs[0][:2], hs[1][:2])
     return {
         "kx_fwd F=1": (lambda: fs.kx_fwd(fr[None], fi[None]),
                        lambda: fs.kx_fwd_plain(fr[None], fi[None]),
-                       (fr, fi), fc),
+                       (fr, fi), fft(fc)),
         "kx_fwd F=5": (lambda: fs.kx_fwd(p5r, p5i),
-                       lambda: fs.kx_fwd_plain(p5r, p5i), (p5r, p5i), f5c),
+                       lambda: fs.kx_fwd_plain(p5r, p5i), (p5r, p5i),
+                       fft(f5c)),
         "kx_visc": (lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5),
                     lambda: ff.kx_visc_plain(fr, fi, lap, mask, zsr, zsi,
                                              6.5),
-                    (fr, fi, lap, mask, zsr, zsi), fc),
+                    (fr, fi, lap, mask, zsr, zsi), fft(fc)),
         "kx_visc coef": (
             lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5, axpy),
             lambda: ff.kx_visc_plain(fr, fi, lap, mask, zsr, zsi, 6.5, axpy),
-            (fr, fi, lap, mask, zsr, zsi, z0r, z0i), fc),
+            (fr, fi, lap, mask, zsr, zsi, z0r, z0i), fft(fc)),
         "kx_visc tracer F=2": (
             lambda: ff.kx_visc(*f2[:3], mask, *f2[3:5], 1.0, ax2),
             lambda: ff.kx_visc_plain(*f2[:3], mask, *f2[3:5], 1.0, ax2),
-            (*f2, mask), f2c),
+            (*f2, mask), fft(f2c)),
         "kx_visc_tail": (
             lambda: ff.kx_visc_tail(fr, fi, lap, mask, zsr, zsi, 6.5, tail),
             lambda: ff.kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, 6.5,
                                           tail),
-            (fr, fi, lap, mask, zsr, zsi, *tail[:8]), fc),
+            (fr, fi, lap, mask, zsr, zsi, *tail[:8]), fft(fc)),
         "xstage": (lambda: fo.xstage(rows, False, 1.0 / n),
                    lambda: fo.xstage_plain(rows, False, 1.0 / n), (rows,),
-                   gathered),
+                   fft(gathered)),
         "xstage forward": (lambda: fo.xstage(rows, True),
                            lambda: fo.xstage_plain(rows, True), (rows,),
-                           gathered),
+                           fft(gathered)),
         "xstage_gather": (lambda: fo.xstage_gather(rows),
                           lambda: fo.xstage_gather_plain(rows), (rows,),
-                          gathered),
+                          fft(gathered)),
         "xstage_scatter": (lambda: fo.xstage_scatter(cols, hny, False,
                                                      1.0 / n),
                            lambda: fo.xstage_scatter_plain(cols, hny, False,
                                                            1.0 / n),
-                           (cols,), gathered),
+                           (cols,), fft(gathered)),
+        "kc": (lambda: ff.kc(yr, yi), lambda: ff.kc_plain(yr, yi),
+               (yr, yi), fft(yc)),
+        "kc_sw F=5": (lambda: fs.kc_sw(g5r, g5i),
+                      lambda: fs.kc_sw_plain(g5r, g5i), (g5r, g5i),
+                      fft(y5c)),
+        "kc_visc": (lambda: ff.kc_visc(yr, yi, lap, mask, zsr, zsi, 6.5),
+                    lambda: ff.kc_visc_plain(yr, yi, lap, mask, zsr, zsi,
+                                             6.5),
+                    (yr, yi, lap, mask, zsr, zsi), fft(yc)),
+        "kb paired": (lambda: ff.kb(*kbw, s), lambda: ff.kb_plain(*kbw, s),
+                      tuple(kbw),
+                      lambda: torch.fft.irfft(kbc, n=n, dim=1)),
+        "kb single": (lambda: ff.kb(*kbw[:2], None, None, s)[:1],
+                      lambda: ff.kb_plain(*kbw[:2], None, None, s)[:1],
+                      tuple(kbw[:2]),
+                      lambda: torch.fft.irfft(kbc[0], n=n, dim=0)),
+        "kb x-major": (lambda: ff.kb_stacked(hs[0], hs[1], 2, 3, s),
+                       lambda: ff.kb_plain(hs[0][2], hs[1][2], hs[0][3],
+                                           hs[1][3], s),
+                       (hs[0][2:], hs[1][2:]),
+                       lambda: torch.fft.irfft(kbc, n=n, dim=1)),
     }
+
+
+def digest(outs) -> str:
+    h = hashlib.sha1()
+    for t in outs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 def as_list(out):
@@ -139,27 +187,28 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     worst = 0.0
     for n in args.n:
-        for name, (kern, plain, reads, lib_in) in cases(n, dev).items():
+        for name, (kern, plain, reads, lib) in cases(n, dev).items():
             got, want = as_list(kern()), as_list(plain())
             rel = max(float((g - w).abs().max() / w.abs().max())
                       for g, w in zip(got, want))
             worst = max(worst, rel)
+            bits = digest(got)
             ms = cuda_ms(kern, args.iters)
-            lib_ms = cuda_ms(lambda: torch.fft.fft(lib_in, dim=-2),
-                             args.iters)
+            plain_ms = cuda_ms(plain, args.iters)
+            lib_ms = cuda_ms(lib, args.iters)
             bound = (nbytes(reads) + nbytes(want)) / HBM_BYTES_S * 1e3
-            print(f"{args.root} {n}^2 {name:20s} err {rel:.2e}  "
-                  f"{ms:.4f} ms  bound {bound:.4f} ms "
-                  f"({100 * bound / ms:.1f} %)  torch.fft.fft "
+            print(f"{args.root} {n}^2 {name:20s} err {rel:.2e} bits {bits} "
+                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                  f"{bound:.4f} ms ({100 * bound / ms:.1f} %)  torch.fft "
                   f"{lib_ms:.4f} ms", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     log = Path(_build.LAST_BUILD["path"]).parent / "build.log"
     text = log.read_text() if log.exists() else ""
-    for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage)"
-                         r"\w*)'.*?\n(.*?Used \d+ registers[^\n]*)", text,
-                         re.S):
+    for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage|"
+                         r"kc_kernel|kb_kernel)\w*)'.*?\n(.*?Used \d+ "
+                         r"registers[^\n]*)", text, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         regs = re.search(r"Used (\d+) registers", m.group(2))
         print(f"ptxas {m.group(1)}: {regs.group(1)} registers, "

@@ -1319,3 +1319,129 @@ def test_xtile_kernels_against_torch_fft_at_4096(cuda, form):
                 else torch.fft.ifft(gathered, dim=0, norm="forward"))
     torch.cuda.synchronize()
     assert _rel(got, want) < TOL
+
+
+# ----- the column-tile y-stages (csrc/xtile.cuh's transposed store:
+# kc_kernel for kc, kc_sw, kc_visc; kb_kernel for kb and the x-major kb) -----
+
+KCKB_FORMS = ["kc", "kc_sw", "kc_visc", "kb", "kb_single", "kb_xmajor"]
+
+
+def _kckb_form(form, ny, nx, dev, seed, transform_only=False):
+    """(kernel call, plain call, torch.fft call) of a y-stage form on a
+    (ny, nx) grid, each a list of planes: kc forms (nx, ny/2 + 1) (five
+    fields for kc_sw), kb forms x-major (nx, ny) (a alone for the single
+    inverse). transform_only: kc_visc with lap 0, mask 1 and a zero
+    stage state, which hands the transform through unchanged."""
+    hny = ny // 2 + 1
+    if form.startswith("kc"):
+        shape = (5, ny, nx) if form == "kc_sw" else (ny, nx)
+        xr, xi = _randn(seed, shape, 2, dev)
+
+        def lib():
+            y = torch.fft.fft(torch.complex(xr, xi), dim=-2)[..., :hny, :]
+            y = y.transpose(-1, -2)
+            return [y.real, y.imag]
+        if form == "kc":
+            return ((lambda: ff.kc(xr, xi)), (lambda: ff.kc_plain(xr, xi)),
+                    lib)
+        if form == "kc_sw":
+            return ((lambda: fs.kc_sw(xr, xi)),
+                    (lambda: fs.kc_sw_plain(xr, xi)), lib)
+        lap, zr, zi = _randn(seed + 1, (nx, hny), 3, dev)
+        mask = (_randn(seed + 2, (nx, hny), 1, dev)[0] > -0.5).float()
+        if transform_only:
+            lap, zr, zi = (torch.zeros_like(t) for t in (lap, zr, zi))
+            mask = torch.ones_like(mask)
+        args = (xr, xi, lap, mask, zr, zi, 6.5)
+        return ((lambda: ff.kc_visc(*args)),
+                (lambda: ff.kc_visc_plain(*args)), lib)
+    scale = 1.0 / (nx * ny)
+    k = 1 if form == "kb_single" else 2
+    if form == "kb_xmajor":
+        wr, wi = _randn(seed, (4, hny, nx), 2, dev)
+        w = [wr[2], wi[2], wr[3], wi[3]]
+
+        def kern():
+            return ff.kb_stacked(wr, wi, 2, 3, scale)
+    else:
+        w = _randn(seed, (hny, nx), 4, dev)
+        if form == "kb_single":
+            w[2:] = [None, None]
+
+        def kern():
+            return ff.kb(*w, scale)[:k]
+
+    def lib():
+        out = []
+        for re_, im in ((w[0], w[1]), (w[2], w[3]))[:k]:
+            im = im.clone()
+            im[0] = 0.0
+            im[ny // 2] = 0.0
+            spec = torch.complex(re_, im)
+            out.append(torch.fft.irfft(spec, n=ny, dim=0, norm="forward")
+                       .t() * scale)
+        return out
+    return kern, (lambda: ff.kb_plain(*w, scale)[:k]), lib
+
+
+@pytest.mark.parametrize("form", KCKB_FORMS)
+@pytest.mark.parametrize("n", XTILE_LENGTHS)
+def test_kc_kb_forms_at_every_length(cuda, n, form):
+    """Every form of kc_kernel (kc, the five stacked fields of kc_sw,
+    kc_visc's epilogue) and of kb_kernel (paired, the single inverse, the
+    x-major kb on a stack) against its plain version at every length the
+    column-tile plan takes."""
+    kern, plain, _ = _kckb_form(form, n, n, cuda, n)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("form", KCKB_FORMS)
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_kc_kb_ragged_last_tile(cuda, n, form):
+    """nx no multiple of the tile: one column past three whole tiles, and
+    a single tile with one dead column."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    c = xtile_plan(n, 1, 4).c
+    for nx in (3 * c + 1, c - 1):
+        kern, plain, _ = _kckb_form(form, n, nx, cuda, n + nx)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got[0].shape[-2] == nx          # (F,) nx, hny or nx, ny
+        _assert_close(got, want)
+
+
+@pytest.mark.parametrize("form", KCKB_FORMS)
+def test_kc_kb_against_torch_fft_at_4096(cuda, form):
+    """Each redesigned y-stage form against torch.fft (cuFFT) itself at
+    4096: kc's against torch.fft.fft along y, rows k <= ny/2, transposed;
+    kb's against torch.fft.irfft of the half spectrum with the
+    self-conjugate rows' imaginary parts dropped, transposed."""
+    kern, _, lib = _kckb_form(form, 4096, 4096, cuda, 13,
+                              transform_only=True)
+    got, want = kern(), lib()
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+
+
+def test_kc_kb_refuse_a_plan_they_do_not_take(cuda):
+    """The tile kernels check the plan they are handed: one that is not
+    ops/xtile.py's for the length fails the launch (no other path)."""
+    from xlab_fftbarotropic_torch.ops._build import lib
+
+    n = 256
+    x = torch.zeros((n, n), device=cuda)
+    y = torch.empty((n, n // 2 + 1), device=cuda)
+    tw = ff._twiddles(n, cuda)
+    c, k, threads, smem = ff._xtile_args(n, n, 4)
+    stream = ff._stream(x)
+    for plan in ((c, k, threads + 32, smem), (c, k, threads, smem - 8),
+                 (c, 3, threads, smem)):
+        assert lib().xfb_kc(*ff._ptrs(x, x, tw, y, y), n, n, *plan,
+                            cuda.index, stream) != 0
+        assert lib().xfb_kb(*ff._ptrs(y, y), None, None,
+                            *ff._ptrs(tw, x), None, n, n, 1.0, *plan,
+                            cuda.index, stream) != 0

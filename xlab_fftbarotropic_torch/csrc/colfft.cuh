@@ -62,7 +62,8 @@ __device__ __forceinline__ void colfft(float2* s, int n, int logn,
 // nx), the imaginary part of the self-conjugate rows 0 and ny/2 zeroed
 // (the positive-Nyquist leak guard), c[j] = a[j] + i b[j] and
 // c[ny-j] = conj(a[j]) + i conj(b[j]). b absent (br_p == nullptr) is a
-// zero partner. Shared by kb_pair, kb and kb_adv.
+// zero partner. Shared by kb_pair and kb_adv; kb's column-tile load
+// (kb_pair.cu) builds the same values row by row.
 __device__ __forceinline__ void load_hermitian_column(
     float2* s, const float* __restrict__ ar_p, const float* __restrict__ ai_p,
     const float* __restrict__ br_p, const float* __restrict__ bi_p, int ny,

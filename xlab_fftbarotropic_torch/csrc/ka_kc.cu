@@ -10,8 +10,8 @@
 // (m, n) planes.
 //
 // kc replaces pallas_fft._kc_call / _kc_kernel (:1349): for each column
-// x of the y-major (ny, nx) complex planes it runs the forward colfft
-// along y and keeps rows k <= ny/2, written as out[x, k] (nx, ny/2 + 1).
+// x of the y-major (ny, nx) complex planes it runs the forward DFT along
+// y and keeps rows k <= ny/2, written as out[x, k] (nx, ny/2 + 1).
 // The same kernel with a field grid axis is kc_sw, the stacked (F, ny, nx)
 // -> (F, nx, ny/2 + 1) form (pallas_sw._kc_sw_kernel, ops/pallas_sw.py:581),
 // and with the viscosity and dealias epilogue of _visc_epilogue (:1536),
@@ -31,16 +31,26 @@
 // ka_adv + kc_visc is the barotropic x-first tendency, ka_fwd + kc_sw the
 // shallow-water one (COMBINE follows, csrc/sw_combine.cu).
 //
-// Bound: memory traffic. Every column read is strided (by m, nx or ny),
-// every row write contiguous. At 4096^2 ka (real input) reads 67 MB and
-// writes 134 MB, kc reads 134 MB and writes 67 MB; ka_adv reads 336 MB
-// and writes 134 MB, kc_visc reads 268 MB and writes 67 MB, ka_fwd reads
-// 268 MB and writes 671 MB, kc_sw reads 671 MB and writes 336 MB. Block
+// Bound: memory traffic. ka, ka_adv and ka_fwd run one column per block
+// around colfft.cuh: every column read is strided (by m or ny), every
+// row write contiguous. kc, kc_sw and kc_visc are one kernel on the
+// column-tile transform of csrc/xtile.cuh: a cluster of K blocks owns C
+// adjacent x columns, so the y-major planes are read in row segments of
+// C floats (64 bytes at C = 16, where a block per column used 4 bytes of
+// each 32-byte sector), and the transposed store hands each output row
+// x to the epilogue in runs of contiguous k, so the (nx, ny/2 + 1)
+// outputs and kc_visc's tables move in whole sectors too; every form
+// runs the plan of ny alone (ops/xtile.py), so one transform's bits.
+// At 4096^2 ka (real input) reads 67 MB and writes 134 MB, kc reads 134
+// MB and writes 67 MB; ka_adv reads 336 MB and writes 134 MB, kc_visc
+// reads 268 MB and writes 67 MB, ka_fwd reads 268 MB and writes 671 MB,
+// kc_sw reads 671 MB and writes 336 MB. Block
 // (p, j) of ka_fwd reads the same four columns for each of the five
 // products; the product index is the fastest grid axis, so all but the
 // first of them find the columns in L2.
 #include "colfft.cuh"
 #include "epilogue.cuh"
+#include "xtile.cuh"
 
 namespace {
 
@@ -124,35 +134,66 @@ __global__ void ka_fwd_kernel(const float* __restrict__ u,
   store_row(s, yr, yi, (static_cast<size_t>(p) * ny + j) * nx, nx, 1.f);
 }
 
-// block (x, f): column x of field f; lap == NULL: no epilogue
-__global__ void kc_kernel(const float* __restrict__ xr,
-                          const float* __restrict__ xi,
-                          const float2* __restrict__ tw,
-                          const float* __restrict__ lap,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ zr,
-                          const float* __restrict__ zi, float nu,
-                          float* __restrict__ yr, float* __restrict__ yi,
-                          int ny, int logny, int nx) {
-  extern __shared__ float2 s[];
-  const int x = blockIdx.x;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * ny * nx;
-  for (int y = threadIdx.x; y < ny; y += blockDim.x) {
-    const size_t off = plane + static_cast<size_t>(y) * nx + x;
-    s[xfb::bitrev(y, logny)] = make_float2(xr[off], xi[off]);
-  }
-  xfb::colfft<-1>(s, ny, logny, tw);
-  const int hny = ny / 2 + 1;
-  const size_t row = (static_cast<size_t>(blockIdx.y) * nx + x) * hny;
-  for (int k = threadIdx.x; k < hny; k += blockDim.x) {
-    float2 v = s[k];
-    if (lap != nullptr) {  // kc_visc, one field: row + k indexes the tables
-      v = xfb::visc(nu, lap[row + k], mask[row + k], v, zr[row + k],
-                    zi[row + k]);
+// The store of kc's output k of tile column c (field plane `plane` of
+// the (F, nx, hny) outputs); lap == NULL: no epilogue, else kc_visc's
+// on the (nx, hny) tables and stage state (one field), read in k order.
+struct KcOut {
+  const float* lap;
+  const float* mask;
+  const float* zr;
+  const float* zi;
+  float* yr;
+  float* yi;
+  size_t plane;
+  int j0, nx, hny;
+  float nu;
+
+  __device__ __forceinline__ void operator()(int k, int c, float2 v) const {
+    const int x = j0 + c;
+    if (x >= nx) return;  // the ragged last tile
+    const size_t off = plane + static_cast<size_t>(x) * hny + k;
+    if (lap != nullptr) {
+      v = xfb::visc(nu, __ldg(lap + off), __ldg(mask + off), v,
+                    __ldg(zr + off), __ldg(zi + off));
     }
-    yr[row + k] = v.x;
-    yi[row + k] = v.y;
+    yr[off] = v.x;
+    yi[off] = v.y;
   }
+};
+
+// cluster (tile, f): columns j0 .. j0 + C of field f; block r of it loads
+// rows r + k jj of the tile, consecutive lanes on consecutive columns
+__global__ void __launch_bounds__(512, 2)
+    kc_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+              const float2* __restrict__ tw, KcOut out, int ny, int k,
+              int logc) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
+  const int nx = out.nx;
+  const int j0 = (blockIdx.x / k) << logc;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * ny * nx;
+  const int cmask = (1 << logc) - 1;
+#pragma unroll
+  for (int b = 0; b < xt::kElems; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int x = j0 + (u & cmask);
+    float2* d = t.s + u;
+    if (x < nx) {
+      const size_t off =
+          plane + static_cast<size_t>(t.rank + k * (u >> logc)) * nx + x;
+      xt::cp_async4(&d->x, xr + off);
+      xt::cp_async4(&d->y, xi + off);
+    } else {
+      *d = make_float2(0.f, 0.f);
+    }
+  }
+  xt::cp_async_wait_all();
+  __syncthreads();
+  KcOut o = out;
+  o.plane = static_cast<size_t>(blockIdx.y) * nx * out.hny;
+  o.j0 = j0;
+  xt::finish_transposed<-1>(t, tw, true, o);
 }
 
 template <int SIGN>
@@ -170,19 +211,18 @@ int launch_ka(const float* xr, const float* xi, const void* tw, float* yr,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_kc(const float* xr, const float* xi, const void* tw,
-              const float* lap, const float* mask, const float* zr,
-              const float* zi, float nu, float* yr, float* yi, int nfields,
-              int ny, int nx, int device, void* stream) {
-  const size_t smem = static_cast<size_t>(ny) * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(kc_kernel),
-                                 device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kc_kernel<<<dim3(nx, nfields), xfb::threads_for(ny), smem,
-              static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, static_cast<const float2*>(tw), lap, mask, zr, zi, nu, yr, yi,
-      ny, xfb::ilog2(ny), nx);
-  return static_cast<int>(cudaGetLastError());
+int launch_kc(const float* xr, const float* xi, const void* tw, KcOut out,
+              int nfields, int ny, int tile_c, int cluster_k, int threads,
+              int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (out.nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      kc_kernel, tiles, nfields, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), xr, xi,
+      static_cast<const float2*>(tw), out, ny, cluster_k,
+      xfb::xtile::log2i(tile_c)));
 }
 
 }  // namespace
@@ -197,20 +237,28 @@ extern "C" int xfb_ka(const float* xr, const float* xi, const void* tw,
                                  stream);
 }
 
-// xr, xi: (ny, nx) -> yr, yi: (nx, ny/2 + 1)
+// xr, xi: (ny, nx) -> yr, yi: (nx, ny/2 + 1). tile_c, cluster_k,
+// threads, smem: the plan of ops/xtile.py for ny (and of every kc form).
 extern "C" int xfb_kc(const float* xr, const float* xi, const void* tw,
-                      float* yr, float* yi, int ny, int nx, int device,
+                      float* yr, float* yi, int ny, int nx, int tile_c,
+                      int cluster_k, int threads, int smem, int device,
                       void* stream) {
-  return launch_kc(xr, xi, tw, nullptr, nullptr, nullptr, nullptr, 0.f, yr,
-                   yi, 1, ny, nx, device, stream);
+  return launch_kc(xr, xi, tw,
+                   KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi, 0, 0,
+                         nx, ny / 2 + 1, 0.f},
+                   1, ny, tile_c, cluster_k, threads, smem, device, stream);
 }
 
 // xr, xi: (nfields, ny, nx) -> yr, yi: (nfields, nx, ny/2 + 1)
 extern "C" int xfb_kc_sw(const float* xr, const float* xi, const void* tw,
                          float* yr, float* yi, int nfields, int ny, int nx,
+                         int tile_c, int cluster_k, int threads, int smem,
                          int device, void* stream) {
-  return launch_kc(xr, xi, tw, nullptr, nullptr, nullptr, nullptr, 0.f, yr,
-                   yi, nfields, ny, nx, device, stream);
+  return launch_kc(xr, xi, tw,
+                   KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi, 0, 0,
+                         nx, ny / 2 + 1, 0.f},
+                   nfields, ny, tile_c, cluster_k, threads, smem, device,
+                   stream);
 }
 
 // xr, xi: (ny, nx); lap, mask, zr, zi: (nx, ny/2 + 1) -> yr, yi: the same
@@ -218,9 +266,12 @@ extern "C" int xfb_kc_visc(const float* xr, const float* xi,
                            const float* lap, const float* mask,
                            const float* zr, const float* zi, const void* tw,
                            float* yr, float* yi, int ny, int nx, float nu,
+                           int tile_c, int cluster_k, int threads, int smem,
                            int device, void* stream) {
-  return launch_kc(xr, xi, tw, lap, mask, zr, zi, nu, yr, yi, 1, ny, nx,
-                   device, stream);
+  return launch_kc(xr, xi, tw,
+                   KcOut{lap, mask, zr, zi, yr, yi, 0, 0, nx, ny / 2 + 1,
+                         nu},
+                   1, ny, tile_c, cluster_k, threads, smem, device, stream);
 }
 
 // u, zx, v, zy, src: (nx, ny) x-major -> yr, yi: (ny, nx)

@@ -1,13 +1,16 @@
-// xtile: the x-stage of a column tile, shared by kx_visc.cu and xstage.cu.
+// xtile: the transform of a column tile, shared by the x-stages of
+// kx_visc.cu and xstage.cu and the y-stages kc (ka_kc.cu) and kb
+// (kb_pair.cu).
 //
-// Both transform along the x axis (length n, a power of two 64..8192)
-// of a half spectrum whose column axis is contiguous in memory. A tile
-// of C adjacent columns belongs to a thread block cluster of K blocks
+// Each transforms along an axis of length n (a power of two 64..8192)
+// whose column axis is contiguous in memory. A tile of C adjacent
+// columns belongs to a thread block cluster of K blocks
 // (ops/xtile.py:xtile_plan picks C, K, the threads and the shared bytes
 // from n alone, so every form of a kernel runs the same transform):
 //
 //   1. block r loads rows r, r + K, r + 2K, ... (m = n/K of them) of the
-//      tile with cp.async, consecutive lanes on consecutive columns, so
+//      tile (cp.async, or plain loads where the load computes, as kb's
+//      Hermitian one), consecutive lanes on consecutive columns, so
 //      every row segment is C contiguous elements (64 or 128 bytes at
 //      C = 16): whole 32-byte sectors, where a block per column would
 //      use 4 or 8 bytes of each;
@@ -19,7 +22,14 @@
 //      it reads Y_r[k2] of every block r through distributed shared
 //      memory, twiddles it by W_n^(r k2), runs the length-K DFT over r
 //      and hands X[k2 + m k1] (k1 < K) to the caller's epilogue, which
-//      stores full row segments again.
+//      stores full row segments again (finish); or
+//   3'. the transposed store (finish_transposed), for the y-stages, whose
+//      output rows are the tile's columns: after a second cluster barrier
+//      block q stages its m C outputs column-major in its own tile (a
+//      column of m + 16/C values, so a half warp's 16 stores hit 16
+//      banks) and hands them to the epilogue column by column,
+//      consecutive lanes on consecutive k: each column's outputs are K
+//      runs of m/K contiguous k (64 at 4096, 256 bytes per plane).
 //
 // X[k2 + m k1] = sum_r W_K^(r k1) W_n^(r k2) sum_j x[r + K j] W_m^(j k2):
 // one pass over device memory whatever n. Each thread holds kElems
@@ -299,6 +309,96 @@ __device__ __forceinline__ void finish(const Tile& t,
     default:
       combine<8, SIGN>(t, tw, out);
       break;
+  }
+}
+
+// The staged column's stride: m + 16 / C values, so the 16 lanes of a
+// half warp, on C columns and 16 / C rows, store to 16 bank pairs.
+__device__ __forceinline__ int staged_stride(const Tile& t) {
+  return t.m + (16 >> t.logc);
+}
+
+// Step 3' up to the epilogue: combine's twiddles and length-K DFT, its
+// outputs kept in registers; a cluster barrier (every block has read this
+// block's tile), then X[k2 + m k1] of tile column c staged at
+// s[c stride + k1 m/K + k2 - q m/K]. The W_m table behind the tile is
+// dead by now: the padding of the C columns (16 values) takes part of it.
+template <int K, int SIGN>
+__device__ __forceinline__ void combine_staged(const Tile& t,
+                                               const float2* __restrict__ tw) {
+  constexpr int B = kElems / K;
+  const int mk = t.m / K;
+  const int cmask = (1 << t.logc) - 1;
+  float2 v[kElems];
+  cluster_sync();
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int c = u & cmask;
+    const int k2 = t.rank * mk + (u >> t.logc);
+    float2* x = v + b * K;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      x[r] = map_rank(t.s, r)[(k2 << t.logc) + c];
+    }
+    if (b == B - 1) cluster_arrive();
+#pragma unroll
+    for (int r = 1; r < K; ++r) {
+      x[r] = mul(x[r], twiddle<SIGN>(tw, r * k2, t.n));
+    }
+    dft<K, SIGN>(x);
+  }
+  cluster_wait();
+  const int stride = staged_stride(t);
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int c = u & cmask, kk = u >> t.logc;
+#pragma unroll
+    for (int k1 = 0; k1 < K; ++k1) {
+      t.s[c * stride + k1 * mk + kk] = v[b * K + k1];
+    }
+  }
+  __syncthreads();
+}
+
+// Steps 2 and 3' once the caller's loads have landed: out(k, column in
+// tile, value) for every output k of the block's slice, consecutive lanes
+// on consecutive k of one column. half: only k <= n/2 (the forward half
+// spectrum), which are the first m/2 staged values of each column and,
+// on rank 0, the one at m/2 (k = n/2).
+template <int SIGN, class Out>
+__device__ __forceinline__ void finish_transposed(
+    const Tile& t, const float2* __restrict__ tw, bool half, Out& out) {
+  subdft<SIGN>(t);
+  switch (t.k) {
+    case 1:
+      combine_staged<1, SIGN>(t, tw);
+      break;
+    case 2:
+      combine_staged<2, SIGN>(t, tw);
+      break;
+    case 4:
+      combine_staged<4, SIGN>(t, tw);
+      break;
+    default:
+      combine_staged<8, SIGN>(t, tw);
+      break;
+  }
+  const int stride = staged_stride(t);
+  const int logmk = (__ffs(t.m) - 1) - (__ffs(t.k) - 1);
+  const int len = half ? t.m >> 1 : t.m;
+  const int loglen = __ffs(len) - 1;
+  for (int u = threadIdx.x; u < (len << t.logc); u += blockDim.x) {
+    const int c = u >> loglen, i = u & (len - 1);
+    const int k = t.rank * (t.m / t.k) + (i & ((1 << logmk) - 1)) +
+                  t.m * (i >> logmk);
+    out(k, c, t.s[c * stride + i]);
+  }
+  if (half && t.rank == 0) {
+    for (int c = threadIdx.x; c < (1 << t.logc); c += blockDim.x) {
+      out(t.n >> 1, c, t.s[c * stride + (t.m >> 1)]);
+    }
   }
 }
 

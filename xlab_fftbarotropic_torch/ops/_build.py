@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh, and
-kx_visc.cu and xstage.cu sharing csrc/xtile.cuh) compile
+kx_visc.cu, xstage.cu, kc (ka_kc.cu) and kb (kb_pair.cu) sharing
+csrc/xtile.cuh) compile
 with nvcc for Hopper (sm_90a) into one shared library with a plain C
 interface, loaded with ctypes: pointers and the stream pass as
 ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
@@ -48,8 +49,9 @@ SIGNATURES = {
     "xfb_ka6": [_P] * 8 + [_I, _I, _I, _P],
     # wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, device, stream
     "xfb_kb_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P],
-    # war, wai, wbr, wbi, tw, oa, ob, ny, nx, scale, device, stream
-    "xfb_kb": [_P] * 7 + [_I, _I, _F, _I, _P],
+    # war, wai, wbr, wbi, tw, oa, ob, ny, nx, scale, tile_c, cluster_k,
+    # threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_kb": [_P] * 7 + [_I, _I, _F] + [_I] * 5 + [_P],
     # u, zx, v, zy, src, tw, outr, outi, ny, nx, beta, device, stream
     "xfb_ky_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
     # fr, fi, lap, mask, zsr, zsi, z0r, z0i, tw, rr, ri, nr, ni,
@@ -79,12 +81,15 @@ SIGNATURES = {
     "xfb_sw_combine_mv": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
     # xr, xi, tw, yr, yi, n, m, forward, scale, device, stream
     "xfb_ka": [_P] * 5 + [_I, _I, _I, _F, _I, _P],
-    # xr, xi, tw, yr, yi, ny, nx, device, stream
-    "xfb_kc": [_P] * 5 + [_I, _I, _I, _P],
-    # xr, xi, tw, yr, yi, nfields, ny, nx, device, stream
-    "xfb_kc_sw": [_P] * 5 + [_I, _I, _I, _I, _P],
-    # xr, xi, lap, mask, zr, zi, tw, yr, yi, ny, nx, nu, device, stream
-    "xfb_kc_visc": [_P] * 9 + [_I, _I, _F, _I, _P],
+    # xr, xi, tw, yr, yi, ny, nx, tile_c, cluster_k, threads, smem,
+    # device, stream
+    "xfb_kc": [_P] * 5 + [_I] * 7 + [_P],
+    # xr, xi, tw, yr, yi, nfields, ny, nx, tile_c, cluster_k, threads,
+    # smem, device, stream
+    "xfb_kc_sw": [_P] * 5 + [_I] * 8 + [_P],
+    # xr, xi, lap, mask, zr, zi, tw, yr, yi, ny, nx, nu, tile_c,
+    # cluster_k, threads, smem, device, stream
+    "xfb_kc_visc": [_P] * 9 + [_I, _I, _F] + [_I] * 5 + [_P],
     # u, zx, v, zy, src, tw, yr, yi, nx, ny, beta, device, stream
     "xfb_ka_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
     # u, v, zeta, eta_s, tw, yr, yi, nx, ny, ies, f0, grav, split, device,

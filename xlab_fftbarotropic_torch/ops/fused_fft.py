@@ -4,8 +4,9 @@ launch machinery every kernel wrapper of the port shares.
 
 One RK stage of the barotropic plane stepper runs five launches of four
 kernels, each a hand-written CUDA kernel (csrc/) around the shared
-in-shared-memory column FFT (csrc/colfft.cuh; kx_visc around the
-column-tile x-stage of csrc/xtile.cuh, planned by ops/xtile.py):
+in-shared-memory column FFT (csrc/colfft.cuh; kx_visc, kc, kc_visc and
+kb around the column-tile transform of csrc/xtile.cuh, planned by
+ops/xtile.py):
 
   ka_diag   the four derivative fields' inverse x-stage   (stacked out)
   kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
@@ -631,7 +632,7 @@ def kc(xr, xi):
     yi = torch.empty_like(yr)
     _launch("kc", lib().xfb_kc, *_ptrs(xr, xi, _twiddles(ny, xr.device),
                                        yr, yi),
-            ny, nx, xr.device.index, _stream(xr))
+            ny, nx, *_xtile_args(ny, nx, 4), xr.device.index, _stream(xr))
     return yr, yi
 
 
@@ -664,7 +665,8 @@ def kc_visc(xr, xi, lap, mask, zr, zi, nu: float):
     yi = torch.empty_like(yr)
     _launch("kc_visc", lib().xfb_kc_visc,
             *_ptrs(xr, xi, lap, mask, zr, zi, _twiddles(ny, xr.device), yr,
-                   yi), ny, nx, float(nu), xr.device.index, _stream(xr))
+                   yi), ny, nx, float(nu), *_xtile_args(ny, nx, 4),
+            xr.device.index, _stream(xr))
     return yr, yi
 
 
@@ -708,7 +710,7 @@ def kb(war, wai, wbr, wbi, scale: float):
             *((None, None) if wbr is None else _ptrs(wbr, wbi)),
             *_ptrs(_twiddles(ny, war.device), oa),
             None if ob is None else ob.data_ptr(), ny, nx, float(scale),
-            war.device.index, _stream(war))
+            *_xtile_args(ny, nx, 4), war.device.index, _stream(war))
     return oa, ob
 
 

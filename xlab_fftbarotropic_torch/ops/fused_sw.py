@@ -7,7 +7,8 @@ its x-first order.
 The state is six float32 planes (nx, hny): zr, zi, dr, di, er, ei of
 (zeta_hat, div_hat, eta_hat). One RK stage runs five launches of four
 kernels (csrc/), the FFT ones around the shared column FFT
-(csrc/colfft.cuh):
+(csrc/colfft.cuh; kx_fwd, and kc_sw of the x-first order, on the
+column-tile transform of csrc/xtile.cuh):
 
   ka_sw       the four fields u, v, zeta, eta_scale*eta, inverse x-stage,
               written transposed (4, hny, nx)
@@ -325,7 +326,7 @@ def kc_sw(xr, xi):
     yi = torch.empty_like(yr)
     _launch("kc_sw", lib().xfb_kc_sw,
             *_ptrs(xr, xi, _twiddles(ny, xr.device), yr, yi), nf, ny, nx,
-            xr.device.index, _stream(xr))
+            *_xtile_args(ny, nx, 4), xr.device.index, _stream(xr))
     return yr, yi
 
 

@@ -1,7 +1,10 @@
-"""The launch plan of the column-tile x-stage (csrc/xtile.cuh).
+"""The launch plan of the column-tile transform (csrc/xtile.cuh).
 
 kx_visc.cu and xstage.cu transform along the x axis of a half spectrum
-whose column axis is the contiguous one. Both give a tile of C adjacent
+whose column axis is the contiguous one; kc (ka_kc.cu: kc, kc_sw,
+kc_visc) and kb (kb_pair.cu) along the y axis of (ny, nx) or (hny, nx)
+planes, whose nx columns are contiguous, with a transposed store (their
+output rows are the tile's columns). Each gives a tile of C adjacent
 columns to a thread block cluster of K blocks: block r of the cluster
 loads rows r, r + K, r + 2K, ... of the tile (row segments of C
 elements, consecutive lanes on consecutive columns), runs the length
@@ -71,10 +74,10 @@ def sub_radices(m: int) -> Tuple[int, ...]:
 
 @lru_cache(maxsize=None)
 def xtile_plan(n: int, columns: int, elem_bytes: int) -> XTilePlan:
-    """The tile plan of a length-n x-stage over `columns` columns whose
+    """The tile plan of a length-n transform over `columns` columns whose
     elements in device memory are `elem_bytes` wide (4: float planes of
-    kx_visc, 8: the complex64 shards of xstage). Raises on a shape the
-    kernels do not take."""
+    kx_visc, kc and kb, 8: the complex64 shards of xstage). Raises on a
+    shape the kernels do not take."""
     if not supported_length(n):
         raise ValueError(f"xtile: the kernels take power-of-two lengths "
                          f"{MIN_N}..{MAX_N}, got {n}")
