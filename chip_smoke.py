@@ -17,9 +17,13 @@ exits non-zero and prints no result):
    8 too; each timed at n^2 with CUDA events. First the column-tile
    plan (ops/xtile.py: columns per tile C, blocks per cluster K,
    threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu
-   and of the y-stages kc_kernel (ka_kc.cu: kc, kc_sw, kc_visc) and
-   kb_kernel (kb_pair.cu: kb, the x-major kb) at 256^2 and n^2, and
-   every kernel's registers and spills from the build's -Xptxas -v.
+   and of the y-stages kc_kernel (ka_kc.cu: kc, kc_sw, kc_visc),
+   kb_kernel (kb_pair.cu: kb, the x-major kb), kb_pair_kernel,
+   ky_adv_kernel and kb_adv_kernel (half and full, in tiles of C/2
+   columns) at 256^2 and n^2, and every kernel's registers and spills
+   from the build's -Xptxas -v; then the y-first pair's pins at 256^2
+   and n^2: kb_pair equal to kb_stacked transposed and ky_adv to kc of
+   (adv, 0), bit for bit.
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -841,9 +845,10 @@ def compare(name: str, case: Case, where: str):
 
 def phase_xtile(n: int) -> dict:
     """The column-tile plans of the x-stages (kx_visc.cu, xstage.cu) and
-    the y-stages (kc_kernel, kb_kernel: the nx columns of float planes)
-    at 256^2 and n^2, and every kernel's registers and spills from the
-    build log."""
+    the y-stages (kc_kernel, kb_kernel, kb_pair_kernel, ky_adv_kernel,
+    kb_adv_kernel: the nx columns of float planes; kb_adv in tiles of
+    C/2 columns, two of them in full) at 256^2 and n^2, and every
+    kernel's registers and spills from the build log."""
     from xlab_fftbarotropic_torch.ops import _build
     from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
 
@@ -855,9 +860,19 @@ def phase_xtile(n: int) -> dict:
                                     ("xstage_gather P=4",
                                      4 * -(-hny // 4), 8),
                                     ("kc_kernel", size, 4),
-                                    ("kb_kernel", size, 4)):
+                                    ("kb_kernel", size, 4),
+                                    ("kb_pair_kernel", size, 4),
+                                    ("ky_adv_kernel", size, 4),
+                                    ("kb_adv_kernel half", size, 4),
+                                    ("kb_adv_kernel full", size, 4)):
             p = xtile_plan(size, columns, elem)
-            log(f"xtile plan {name:17s} {size}^2: C = {p.c} columns, K = "
+            if name.startswith("kb_adv"):   # tiles of C/2 columns
+                tile = p.m * p.c // 2 * 8
+                p = p._replace(c=p.c // 2, threads=p.threads // 2,
+                               tiles=-(-columns // (p.c // 2)),
+                               smem=p.smem - (tile if "half" in name
+                                              else 0))
+            log(f"xtile plan {name:18s} {size}^2: C = {p.c} columns, K = "
                 f"{p.k} blocks per cluster, {p.threads} threads, {p.smem} "
                 f"shared bytes per block, {p.tiles} tiles, passes "
                 f"{p.radices}")
@@ -881,8 +896,42 @@ def phase_xtile(n: int) -> dict:
     return out
 
 
+def phase_pins(n: int, dev) -> dict:
+    """The y-first pair's transforms at n^2, bit for bit: kb_pair (the
+    natural store) equals kb_stacked (the transposed one) transposed, on
+    ka_diag's and ka6's stacks, and ky_adv equals kc of (adv, 0), adv
+    formed by torch on the card in xfb::advection's order."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+
+    rng = np.random.default_rng(n + 11)
+    hny = n // 2 + 1
+
+    def planes(shape, k):
+        return [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for _ in range(k)]
+
+    out = {}
+    for f, fa, fb in ((4, 2, 3), (6, 4, 5)):
+        wr, wi = planes((f, hny, n), 2)
+        got = ff.kb_pair(wr, wi, fa, fb, 1.0 / (n * n))
+        want = ff.kb_stacked(wr, wi, fa, fb, 1.0 / (n * n))
+        out[f"kb_pair F={f}"] = all(bool(torch.equal(g, w.t()))
+                                    for g, w in zip(got, want))
+    u, zx, v, zy, src = planes((n, n), 5)
+    adv = -(u * zx) - v * (zy + 0.3) + src
+    out["ky_adv"] = all(bool(torch.equal(g, w)) for g, w in zip(
+        ff.ky_adv(u, zx, v, zy, src, 0.3),
+        ff.kc(adv, torch.zeros_like(adv))))
+    for name, same in out.items():
+        twin = "kc of (adv, 0)" if name == "ky_adv" else "kb_stacked^T"
+        log(f"pin {name:12s} {n}^2: {twin} "
+            f"{'bit for bit' if same else 'DIFFERS'}")
+        check(same, f"{name} at {n}^2 is not {twin} bit for bit")
+    return out
+
+
 def phase_kernels(n: int, dev) -> dict:
-    report = {}
+    report = {"pins": {size: phase_pins(size, dev) for size in (256, n)}}
     # the distributed kernels at other shard counts (4 comes below)
     for p in (1, 2, 8):
         for name, case in shard_cases(256, p, dev, p).items():

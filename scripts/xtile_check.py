@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Check and time the column-tile kernels on one CUDA card: the x-stages of
 csrc/kx_visc.cu and csrc/xstage.cu and the y-stages kc_kernel (csrc/
-ka_kc.cu: kc, kc_sw, kc_visc) and kb_kernel (csrc/kb_pair.cu: kb paired
-and single, the x-major kb), every form against its plain torch version
-and against the one torch.fft call of the same transform, at each grid
-size asked for.
+ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (csrc/kb_pair.cu: kb paired
+and single, the x-major kb), kb_pair_kernel (csrc/kb_pair.cu),
+ky_adv_kernel (csrc/ky_adv.cu) and kb_adv_kernel (csrc/kb_adv.cu: full
+and half), every form against its plain torch version and against the
+one torch.fft call of the same transform, at each grid size asked for.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
 
@@ -16,7 +17,9 @@ checkouts' lines show whether a kernel's bits moved), the kernel's ms
 (CUDA events, mean of --iters back-to-back calls after a warm-up), the
 plain version's ms, the bytes bound at 3.35 TB/s and the share of it
 reached, and the ms of the torch.fft call: fft along x for the x-stages,
-fft along y for kc and kc_sw, irfft along y for kb; then the card's
+fft along y for kc and kc_sw, irfft along y for kb and kb_pair, rfft
+along y of one plane for ky_adv and kb_adv (the forward transform
+alone; no torch call computes their whole function); then the card's
 name and power limit, and the registers and spills of the tile kernels
 from the build's -Xptxas -v output. Exits non-zero past 1e-5.
 """
@@ -100,6 +103,11 @@ def cases(n: int, dev):
 
     yc, y5c = torch.complex(yr, yi), torch.complex(g5r, g5i)
     kbc = torch.complex(hs[0][:2], hs[1][:2])
+    # the y-first pair: ka_diag's stack at the stepper's magnitudes (the
+    # fields of order one after the 1/n^2 scale) and five y-major fields
+    kar, kai = (h * n * n ** 0.5 for h in hs)
+    u, zx, v, zy, src = planes((n, n), 5)
+    kpc = torch.complex(kar[2:], kai[2:])
     return {
         "kx_fwd F=1": (lambda: fs.kx_fwd(fr[None], fi[None]),
                        lambda: fs.kx_fwd_plain(fr[None], fi[None]),
@@ -159,6 +167,23 @@ def cases(n: int, dev):
                                            hs[1][3], s),
                        (hs[0][2:], hs[1][2:]),
                        lambda: torch.fft.irfft(kbc, n=n, dim=1)),
+        "kb_pair": (lambda: ff.kb_pair(kar, kai, 2, 3, s),
+                    lambda: ff.kb_pair_plain(kar, kai, 2, 3, s),
+                    (kar[2:], kai[2:]),
+                    lambda: torch.fft.irfft(kpc, n=n, dim=1)),
+        "ky_adv": (lambda: ff.ky_adv(u, zx, v, zy, src, 0.3),
+                   lambda: ff.ky_adv_plain(u, zx, v, zy, src, 0.3),
+                   (u, zx, v, zy, src),
+                   lambda: torch.fft.rfft(src, dim=0)),
+        "kb_adv_full": (lambda: ff.kb_adv_full(kar, kai, src, 0.3),
+                        lambda: ff.kb_adv_full_plain(kar, kai, src, 0.3),
+                        (kar, kai, src),
+                        lambda: torch.fft.rfft(src, dim=0)),
+        "kb_adv_half": (lambda: ff.kb_adv_half(zx, zy, kar, kai, src, 0.3),
+                        lambda: ff.kb_adv_half_plain(zx, zy, kar, kai, src,
+                                                     0.3),
+                        (zx, zy, kar[2:], kai[2:], src),
+                        lambda: torch.fft.rfft(src, dim=0)),
     }
 
 
@@ -207,7 +232,8 @@ def main(argv=None) -> int:
     log = Path(_build.LAST_BUILD["path"]).parent / "build.log"
     text = log.read_text() if log.exists() else ""
     for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage|"
-                         r"kc_kernel|kb_kernel)\w*)'.*?\n(.*?Used \d+ "
+                         r"kc_kernel|kb_kernel|kb_pair_kernel|ky_adv_kernel"
+                         r"|kb_adv_kernel)\w*)'.*?\n(.*?Used \d+ "
                          r"registers[^\n]*)", text, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         regs = re.search(r"Used (\d+) registers", m.group(2))

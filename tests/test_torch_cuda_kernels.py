@@ -1445,3 +1445,97 @@ def test_kc_kb_refuse_a_plan_they_do_not_take(cuda):
         assert lib().xfb_kb(*ff._ptrs(y, y), None, None,
                             *ff._ptrs(tw, x), None, n, n, 1.0, *plan,
                             cuda.index, stream) != 0
+
+
+# ----- the y-first pair on the column tile: kb_pair_kernel (the natural
+# store), ky_adv_kernel and kb_adv_kernel (the transposed half store) -----
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("stack", [(4, 2, 3), (6, 4, 5)],
+                         ids=["ka_diag", "ka6"])
+def test_kb_pair_is_kb_stacked_transposed_bit_for_bit(cuda, n, stack):
+    """kb_pair (the y-major store) and kb_stacked (the x-major store of
+    the same load and transform) give the same values bit for bit."""
+    f, fa, fb = stack
+    rng = np.random.default_rng(n + f)
+    wr, wi = _planes(rng, (f, n // 2 + 1, n), 2, cuda)
+    scale = 1.0 / (n * n)
+    got = ff.kb_pair(wr, wi, fa, fb, scale)
+    want = ff.kb_stacked(wr, wi, fa, fb, scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.t())
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+def test_ky_adv_is_kc_of_the_advection_bit_for_bit(cuda, n, beta):
+    """ky_adv equals kc of (adv, 0) bit for bit, adv formed by torch on
+    the card in xfb::advection's order (each op rounded apart): the same
+    transform behind another load."""
+    rng = np.random.default_rng(n + 11)
+    u, zx, v, zy, src = _planes(rng, (n, n), 5, cuda)
+    adv = -(u * zx) - v * (zy + beta if beta != 0.0 else zy) + src
+    got = ff.ky_adv(u, zx, v, zy, src, beta)
+    want = ff.kc(adv, torch.zeros_like(adv))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(256, 200), (64, 15), (4096, 49),
+                                   (1024, 33)])
+def test_y_first_pair_ragged_last_tile(cuda, shape):
+    """(ny, nx) with nx no multiple of the tile's C: kb_pair, ky_adv,
+    kb_adv_full and kb_adv_half against their plain versions, and the
+    fused forms bit for bit against kb_pair + ky_adv."""
+    ny, nx = shape
+    rng = np.random.default_rng(ny + nx)
+    wr, wi, _, _, src = _kb_adv_inputs(rng, ny, nx, cuda)
+    u, zx, v, zy = _planes(rng, (ny, nx), 4, cuda)
+    scale = 1.0 / (nx * ny)
+    pairs = [(ff.kb_pair(wr, wi, fa, fb, scale),
+              ff.kb_pair_plain(wr, wi, fa, fb, scale))
+             for fa, fb in ((0, 1), (2, 3))]
+    adv = (ff.ky_adv(u, zx, v, zy, src, 1.6),
+           ff.ky_adv_plain(u, zx, v, zy, src, 1.6))
+    full = (ff.kb_adv_full(wr, wi, src, 1.6),
+            ff.kb_adv_full_plain(wr, wi, src, 1.6))
+    (kzx, kzy), (ku, kv) = pairs[0][0], pairs[1][0]
+    half = (ff.kb_adv_half(kzx, kzy, wr, wi, src, 1.6),
+            ff.kb_adv_half_plain(kzx, kzy, wr, wi, src, 1.6))
+    unfused = ff.ky_adv(ku, kzx, kv, kzy, src, 1.6)
+    torch.cuda.synchronize()
+    for got, want in pairs + [adv, full, half]:
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert _rel(g, w) < TOL
+    for g, w in zip(full[0] + half[0], unfused + unfused):
+        assert torch.equal(g, w)
+
+
+def test_y_first_pair_refuses_a_plan_it_does_not_take(cuda):
+    """kb_pair, ky_adv and kb_adv check the plan they are handed: one that
+    is not ops/xtile.py's for the length fails the launch."""
+    from xlab_fftbarotropic_torch.ops._build import lib
+
+    n = 256
+    x = torch.zeros((n, n), device=cuda)
+    w = torch.zeros((4, n // 2 + 1, n), device=cuda)
+    y = torch.empty((n, n // 2 + 1), device=cuda)
+    tw = ff._twiddles(n, cuda)
+    c, k, threads, smem = ff._xtile_args(n, n, 4)
+    stream = ff._stream(x)
+    for plan in ((c, k, threads + 32, smem), (c, k, threads, smem - 8),
+                 (c, 3, threads, smem)):
+        assert lib().xfb_kb_pair(*ff._ptrs(w, w), 0, 1,
+                                 *ff._ptrs(tw, x, x), n, n, 1.0, *plan,
+                                 cuda.index, stream) != 0
+        assert lib().xfb_ky_adv(*ff._ptrs(x, x, x, x, x, tw, y, y), n, n,
+                                0.0, *plan, cuda.index, stream) != 0
+        assert lib().xfb_kb_adv_full(*ff._ptrs(w, w, x, tw, y, y), n, n,
+                                     1.0, 0.0, *plan, cuda.index,
+                                     stream) != 0
+        assert lib().xfb_kb_adv_half(*ff._ptrs(x, x, w, w, x, tw, y, y), n,
+                                     n, 1.0, 0.0, *plan, cuda.index,
+                                     stream) != 0

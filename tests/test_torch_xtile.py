@@ -20,6 +20,15 @@ imaginary parts of rows 0 and n/2 dropped). The emulated kc and kb are
 held to kc_plain and kb_plain within 1e-5 of max |plain|, and every
 output they keep is written exactly once.
 
+The y-first pair: kb_pair (kb's load, the natural store of row
+segments), ky_adv (the advection product computed as the tile loads,
+kc's half store) and kb_adv (the inverse of kb_pair, the advection at
+the rows block q holds after the combine, each value handed to block
+y mod K at slot (y div K) C + c of its tile, every slot written exactly
+once, then ky_adv's forward transform; in tiles of C/2 columns), held
+to their plain versions, and kb_adv exactly the emulated ky_adv of the
+emulated kb_pair's outputs.
+
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
 gather at P = 1, 2, 4, 8, nx for kc and kb), every column is covered
@@ -67,6 +76,11 @@ def test_plan_covers_every_column_once_within_the_card(n):
         assert p.grid % p.k == 0 and p.grid == p.tiles * p.k
         assert p.smem <= xtile.MAX_SMEM
         assert p.smem == (p.m * p.c + p.m) * 8
+        # kb_adv_full's two tiles of C/2 columns: the plan's bytes, and
+        # half the threads, a whole number of warps
+        assert (2 * p.m * (p.c // 2) + p.m) * 8 == p.smem
+        assert p.threads // 2 * xtile.ELEMS == p.m * (p.c // 2)
+        assert p.threads // 2 % 32 == 0
         assert p.threads * xtile.ELEMS == p.m * p.c
         assert p.threads % 32 == 0 and p.threads <= 1024
         assert p.c * elem >= xtile.SECTOR
@@ -103,17 +117,25 @@ def test_plan_refuses_what_the_kernels_do_not_take():
         xtile.xtile_plan(256, 5, 2)
 
 
-# __global__ functions on the column tile, and those still around colfft
-TILE_KERNELS = {"kx_visc.cu": ("kx_visc_kernel",),
-                "xstage.cu": ("xstage_kernel",),
-                "ka_kc.cu": ("kc_kernel",), "kb_pair.cu": ("kb_kernel",)}
+# __global__ functions on the column tile, each with the store it ends in
+# (the natural finish, or the transposed one of the y-stages), and those
+# still around colfft
+TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
+                "xstage.cu": {"xstage_kernel": "xt::finish<"},
+                "ka_kc.cu": {"kc_kernel": "xt::finish_transposed<"},
+                "kb_pair.cu": {"kb_pair_kernel": "xt::finish<",
+                               "kb_kernel": "xt::finish_transposed<"},
+                "ky_adv.cu": {"ky_adv_kernel": "xt::finish_transposed<"},
+                "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"}}
 COLFFT_KERNELS = {"ka_kc.cu": ("ka_kernel", "ka_adv_kernel",
-                               "ka_fwd_kernel"),
-                  "kb_pair.cu": ("kb_pair_kernel",)}
+                               "ka_fwd_kernel")}
 PLAN_ENTRIES = {"kx_visc.cu": ("xfb_kx_visc", "xfb_kx_visc_tail"),
                 "xstage.cu": ("xfb_xstage",),
                 "ka_kc.cu": ("xfb_kc", "xfb_kc_sw", "xfb_kc_visc"),
-                "kb_pair.cu": ("xfb_kb",)}
+                "kb_pair.cu": ("xfb_kb", "xfb_kb_pair"),
+                "ky_adv.cu": ("xfb_ky_adv",),
+                "kb_adv.cu": ("xfb_kb_adv_full", "xfb_kb_adv_half")}
+STORES = ("xt::finish<", "xt::finish_transposed<")
 
 
 def _body(text: str, opener: str) -> str:
@@ -135,9 +157,11 @@ def _source(name: str) -> str:
 def test_plan_agrees_with_the_kernel_source():
     """The CUDA side's constants and its check of a plan are the ones the
     Python plan uses; per __global__ function, the tile kernels run the
-    column tile and no colfft (the y-stages through the transposed
-    store), the others still colfft; every tile entry point takes the
-    plan."""
+    column tile and no colfft, each ending in its own store (kb_pair's
+    natural one, the transposed one of kb, kc, ky_adv and kb_adv), the
+    others still colfft; every tile entry point takes the plan; the
+    paired c2r y-stages share the tile's Hermitian load, and colfft.cuh
+    no longer has the column one."""
     src = (_build.CSRC / "xtile.cuh").read_text()
     assert f"constexpr int kElems = {xtile.ELEMS};" in src
     assert "smem == (m * c + m) * static_cast<int>(sizeof(float2))" in src
@@ -148,14 +172,16 @@ def test_plan_agrees_with_the_kernel_source():
     for name, kernels in TILE_KERNELS.items():
         text = _source(name)
         assert '#include "xtile.cuh"' in text
-        for fn in kernels:
+        assert '#include "colfft.cuh"' not in text or name == "ka_kc.cu"
+        for fn, store in kernels.items():
             body = _body(text, rf"__global__\s+void\s+(__launch_bounds__"
                                rf"\([^)]*\)\s+)?{fn}\s*\(")
             assert "xt::begin(" in body and "colfft" not in body, fn
-            store = ("xt::finish_transposed<" if name in ("ka_kc.cu",
-                                                          "kb_pair.cu")
-                     else "xt::finish<")
             assert store in body, fn
+            assert all(other not in body for other in STORES
+                       if other != store), fn
+            if fn in ("kb_pair_kernel", "kb_kernel", "kb_adv_kernel"):
+                assert "xt::load_hermitian(" in body, fn
         for entry in PLAN_ENTRIES[name]:
             sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
             assert "int tile_c, int cluster_k" in " ".join(
@@ -166,6 +192,7 @@ def test_plan_agrees_with_the_kernel_source():
         for fn in kernels:
             body = _body(text, rf"__global__\s+void\s+{fn}\s*\(")
             assert "colfft<" in body and "xt::" not in body, fn
+    assert "load_hermitian_column" not in _source("colfft.cuh")
 
 
 # ----- the emulation -----
@@ -183,11 +210,11 @@ def _dense(x: torch.Tensor):
 
 
 def _hermitian(war, wai, wbr, wbi):
-    """kb's Hermitian tile load (csrc/kb_pair.cu kb_kernel): row y of
-    the tile from input row h = min(y, n - y) of the (n/2 + 1, columns)
-    planes, the imaginary parts of the self-conjugate rows 0 and n/2
-    never read; c = a + i b for y <= n/2, conj(a) + i conj(b) past it;
-    wbr = wbi = None: a zero partner."""
+    """The Hermitian tile load of kb, kb_pair and kb_adv (csrc/xtile.cuh
+    load_hermitian): row y of the tile from input row h = min(y, n - y)
+    of the (n/2 + 1, columns) planes, the imaginary parts of the
+    self-conjugate rows 0 and n/2 never read; c = a + i b for y <= n/2,
+    conj(a) + i conj(b) past it; wbr = wbi = None: a zero partner."""
     n = 2 * (war.shape[0] - 1)
     half = n // 2
 
@@ -205,88 +232,218 @@ def _hermitian(war, wai, wbr, wbi):
     return load
 
 
-def emulate(load, n: int, columns: int, forward: bool,
-            transposed: bool = False, half: bool = False) -> torch.Tensor:
-    """The column-tile transform along the length-n axis of `columns`
-    columns whose tile rows come from load(rows, columns), unnormalized,
-    as csrc/xtile.cuh computes it (index for index). Direct store
-    (finish): (n, columns). Transposed store (finish_transposed): (columns,
-    n), or (columns, n/2 + 1) with `half`; an output the store never
-    writes stays NaN."""
-    p = xtile.xtile_plan(n, columns, 4 if transposed else 8)
-    c, k, m = p.c, p.k, p.m
-    mk = m // k
-    logc = c.bit_length() - 1
-    sign = -1 if forward else 1
-    half_tw = torch.view_as_complex(ff._twiddles(n, torch.device("cpu")))
+class _Cluster:
+    """The plan and tables of a length-n transform over `columns`
+    columns of `elem`-byte elements, and the steps of csrc/xtile.cuh for
+    one block of one tile, index for index; `narrow`: tiles of half the
+    plan's columns, the same K (kb_adv's)."""
 
-    def twiddle(idx, fwd):           # W_n^idx, idx < n (xtile.cuh twiddle)
-        w = half_tw[idx % (n // 2)]
-        w = torch.where(idx >= n // 2, -w, w)
+    def __init__(self, n: int, columns: int, elem: int,
+                 narrow: bool = False):
+        p = xtile.xtile_plan(n, columns, elem)
+        self.c = p.c // 2 if narrow else p.c
+        self.n, self.columns, self.tiles = n, columns, -(-columns // self.c)
+        self.k, self.m, self.radices = p.k, p.m, p.radices
+        self.mk = p.m // p.k
+        self.logc = self.c.bit_length() - 1
+        self.half_tw = torch.view_as_complex(
+            ff._twiddles(n, torch.device("cpu")))
+        self.sw = self.twiddle(torch.arange(p.m) * p.k, True)  # W_m^x
+
+    def twiddle(self, idx, fwd):         # W_n^idx, idx < n (twiddle())
+        w = self.half_tw[idx % (self.n // 2)]
+        w = torch.where(idx >= self.n // 2, -w, w)
         return w if fwd else w.conj()
 
-    sw = twiddle(torch.arange(m) * k, True)          # begin(): W_m^x
+    def load(self, load, tile: int, rank: int) -> torch.Tensor:
+        """Block `rank`'s tile: slot u holds row rank + K (u >> log C) of
+        column j0 + (u mod C), from load(rows, columns); 0 past the
+        columns (the ragged tile)."""
+        u = torch.arange(self.m * self.c)
+        rows = rank + self.k * (u >> self.logc)
+        cols = tile * self.c + (u & (self.c - 1))
+        return torch.where(cols < self.columns,
+                           load(rows, cols.clamp(max=self.columns - 1)),
+                           torch.zeros((), dtype=torch.complex64))
+
+    def subdft(self, s: torch.Tensor, forward: bool) -> torch.Tensor:
+        """subdft(): the self-sorting radix passes over the block's tile."""
+        c, m = self.c, self.m
+        q = 1
+        for r in self.radices:                        # pass<R>()
+            ub = torch.arange(m * c // r)
+            col, i = ub & (c - 1), ub >> self.logc
+            kk = i & (q - 1)
+            v = torch.stack([s[(i + t * (m // r)) * c + col]
+                             for t in range(r)])
+            if q > 1:
+                for t in range(1, r):
+                    w = self.sw[t * kk * (m // (q * r))]
+                    v[t] = v[t] * (w if forward else w.conj())
+            v = _dft_matrix(r, -1 if forward else 1) @ v
+            j = (i - kk) * r + kk
+            s = torch.empty_like(s)
+            for t in range(r):
+                s[(j + t * q) * c + col] = v[t]
+            q *= r
+        return s
+
+    def combine(self, blocks: torch.Tensor, rank: int, forward: bool):
+        """gather() and twiddle_dft() of block `rank` over the K blocks'
+        Y_r (blocks: (K, m C)): (k2, column in tile, z) with z[k1] =
+        X[k2 + m k1]."""
+        ub = torch.arange(self.mk * self.c)
+        col = ub & (self.c - 1)
+        k2 = rank * self.mk + (ub >> self.logc)
+        z = blocks[:, k2 * self.c + col].clone()
+        for r in range(1, self.k):
+            z[r] = z[r] * self.twiddle(r * k2, forward)
+        return k2, col, _dft_matrix(self.k, -1 if forward else 1) @ z
+
+    def transform(self, load, tile: int, forward: bool) -> torch.Tensor:
+        """Every block's loaded tile after its sub-DFT: (K, m C)."""
+        return torch.stack([self.subdft(self.load(load, tile, r), forward)
+                            for r in range(self.k)])
+
+    def store_transposed(self, k2, col, z, tile: int, rank: int,
+                         half: bool, out, writes) -> None:
+        """combine_staged() and finish_transposed(): block `rank` stages
+        its outputs column-major (stride m + 16/C) in its own tile and
+        hands column c's values out in k order into out[j0 + c, k]; with
+        `half` only k <= n/2."""
+        c, m, mk, j0 = self.c, self.m, self.mk, tile * self.c
+        stride = m + 16 // c
+        assert c * stride <= m * c + m               # the tile + W_m table
+        nan = complex(float("nan"), float("nan"))
+        staged = torch.full((m * c + m,), nan, dtype=torch.complex64)
+        for k1 in range(self.k):
+            staged[col * stride + k1 * mk + k2 - rank * mk] = z[k1]
+        length = m // 2 if half else m
+        uo = torch.arange(length * c)
+        co, i = uo // length, uo % length
+        kout = rank * mk + i % mk + m * (i // mk)
+        _put(out, writes, (j0 + co, kout), staged[co * stride + i])
+        if half and rank == 0:
+            co = torch.arange(c)
+            _put(out, writes, (j0 + co, torch.full_like(co, self.n // 2)),
+                 staged[co * stride + m // 2])
+
+
+def _put(out, writes, idx, values) -> None:
+    """out[idx] = values, counting the writes of each output."""
+    out[idx] = values
+    writes.index_put_(idx, torch.ones(values.shape, dtype=torch.int64),
+                      accumulate=True)
+
+
+def _outputs(rows: int, cols: int):
+    """Every output NaN and unwritten."""
     nan = complex(float("nan"), float("nan"))
-    out = torch.full((n, p.tiles * c), nan, dtype=torch.complex64)
-    out_t = torch.full((p.tiles * c, n), nan, dtype=torch.complex64)
-    for tile in range(p.tiles):
-        j0 = tile * c
-        blocks = []
-        for rank in range(k):
-            u = torch.arange(m * c)
-            rows, cols = rank + k * (u >> logc), j0 + (u & (c - 1))
-            live = cols < columns                    # the ragged tile
-            s = torch.where(live, load(rows, cols.clamp(max=columns - 1)),
-                            torch.zeros((), dtype=torch.complex64))
-            q = 1
-            for r in p.radices:                      # pass<R>()
-                ub = torch.arange(m * c // r)
-                col, i = ub & (c - 1), ub >> logc
-                kk = i & (q - 1)
-                v = torch.stack([s[(i + t * (m // r)) * c + col]
-                                 for t in range(r)])
-                if q > 1:
-                    for t in range(1, r):
-                        w = sw[t * kk * (m // (q * r))]
-                        v[t] = v[t] * (w if forward else w.conj())
-                v = _dft_matrix(r, sign) @ v
-                j = (i - kk) * r + kk
-                s = torch.empty_like(s)
-                for t in range(r):
-                    s[(j + t * q) * c + col] = v[t]
-                q *= r
-            blocks.append(s)
-        y = torch.stack(blocks)                      # (k, m c) Y_r
-        for rank in range(k):                        # combine<K>()
-            ub = torch.arange(mk * c)
-            col = ub & (c - 1)
-            k2 = rank * mk + (ub >> logc)
-            z = y[:, k2 * c + col].clone()
-            for r in range(1, k):
-                z[r] = z[r] * twiddle(r * k2, forward)
-            z = _dft_matrix(k, sign) @ z
-            if not transposed:
-                for k1 in range(k):
-                    out[k2 + m * k1, j0 + col] = z[k1]
+    return (torch.full((rows, cols), nan, dtype=torch.complex64),
+            torch.zeros((rows, cols), dtype=torch.int64))
+
+
+def _written_once(out, writes, rows: int, cols: int) -> torch.Tensor:
+    """The outputs kept, each of which the store wrote exactly once."""
+    assert (writes[:rows, :cols] == 1).all()
+    return out[:rows, :cols]
+
+
+def emulate(load, n: int, columns: int, forward: bool,
+            transposed: bool = False, half: bool = False,
+            elem: int = 0) -> torch.Tensor:
+    """The column-tile transform along the length-n axis of `columns`
+    columns whose tile rows come from load(rows, columns), unnormalized,
+    as csrc/xtile.cuh computes it (index for index), with the plan of
+    `elem`-byte elements (default: 4 for the transposed store, 8 else).
+    Natural store (finish): (n, columns). Transposed store
+    (finish_transposed): (columns, n), or (columns, n/2 + 1) with
+    `half`. Every output kept is written exactly once."""
+    e = _Cluster(n, columns, elem or (4 if transposed else 8))
+    width = e.tiles * e.c
+    out, writes = _outputs(width, n) if transposed else _outputs(n, width)
+    for tile in range(e.tiles):
+        blocks = e.transform(load, tile, forward)
+        for rank in range(e.k):
+            k2, col, z = e.combine(blocks, rank, forward)
+            if transposed:
+                e.store_transposed(k2, col, z, tile, rank, half, out, writes)
                 continue
-            # combine_staged<K>(): column-major in the block's own tile
-            stride = m + 16 // c
-            assert c * stride <= m * c + m           # the tile + W_m table
-            staged = torch.full((m * c + m,), nan, dtype=torch.complex64)
-            for k1 in range(k):
-                staged[col * stride + k1 * mk + (ub >> logc)] = z[k1]
-            # finish_transposed(): column by column, in k order
-            length = m // 2 if half else m
-            uo = torch.arange(length * c)
-            co, i = uo // length, uo % length
-            kout = rank * mk + i % mk + m * (i // mk)
-            out_t[j0 + co, kout] = staged[co * stride + i]
-            if half and rank == 0:
-                co = torch.arange(c)
-                out_t[j0 + co, n // 2] = staged[co * stride + m // 2]
+            for k1 in range(e.k):                    # finish()
+                _put(out, writes, (k2 + e.m * k1, tile * e.c + col), z[k1])
     if transposed:
-        return out_t[:columns, :n // 2 + 1 if half else n]
-    return out[:, :columns]
+        return _written_once(out, writes, columns,
+                             n // 2 + 1 if half else n)
+    return _written_once(out, writes, n, columns)
+
+
+def _advection(u, zx, v, zy, src, beta: float):
+    """xfb::advection: -(u zx) - v (zy + beta) + src, each product and sum
+    rounded on its own in float32, ky_adv_plain's order."""
+    if beta != 0.0:
+        zy = zy + beta
+    return -(u * zx) - v * zy + src
+
+
+def _scaled(z: torch.Tensor, scale: float):
+    """kb_pair's store: Re * scale and Im * scale."""
+    return z.real * scale, z.imag * scale
+
+
+def _advection_load(u, zx, v, zy, src, beta: float):
+    """ky_adv's tile load (csrc/ky_adv.cu): (adv, 0) at each row and
+    column of the y-major planes."""
+    def load(y, x):
+        adv = _advection(u[y, x], zx[y, x], v[y, x], zy[y, x], src[y, x],
+                         beta)
+        return torch.complex(adv, torch.zeros_like(adv))
+    return load
+
+
+def emulate_kb_adv(wr, wi, zx, zy, src, beta: float) -> torch.Tensor:
+    """kb_adv_kernel (csrc/kb_adv.cu) on ka_diag's (4, ny/2 + 1, nx)
+    stack, in tiles of half the plan's columns: full when zx is None (a
+    second tile of fields 0, 1), else half with the y-major zeta planes.
+    The Hermitian tiles' inverse
+    sub-DFTs and combine; u, v (and zx, zy) times 1/(nx ny); the
+    advection at each (y, c) block q holds; every value to block y mod K,
+    slot (y div K) C + c of its tile, which must each be written exactly
+    once; the forward sub-DFT and the transposed half store: (nx, ny/2 +
+    1)."""
+    _, hny, nx = wr.shape
+    ny = 2 * (hny - 1)
+    scale = ff._kb_adv_scale(wr)
+    e = _Cluster(ny, nx, 4, narrow=True)
+    uv_load = _hermitian(wr[2], wi[2], wr[3], wi[3])
+    zz_load = _hermitian(wr[0], wi[0], wr[1], wi[1])
+    out, writes = _outputs(e.tiles * e.c, ny)
+    for tile in range(e.tiles):
+        uv = e.transform(uv_load, tile, False)
+        zz = e.transform(zz_load, tile, False) if zx is None else None
+        fwd, slots = _outputs(e.k, e.m * e.c)
+        for rank in range(e.k):
+            k2, col, p = e.combine(uv, rank, False)
+            q = None if zz is None else e.combine(zz, rank, False)[2]
+            x = tile * e.c + col
+            live, xc = x < nx, x.clamp(max=nx - 1)
+            for k1 in range(e.k):
+                y = k2 + e.m * k1
+                u, v = _scaled(p[k1], scale)
+                if q is None:
+                    zxv, zyv = zx[y, xc], zy[y, xc]
+                else:
+                    zxv, zyv = _scaled(q[k1], scale)
+                adv = torch.where(live, _advection(u, zxv, v, zyv,
+                                                   src[y, xc], beta),
+                                  torch.zeros(()))
+                _put(fwd, slots, (y % e.k, (y // e.k) * e.c + col),
+                     torch.complex(adv, torch.zeros_like(adv)))
+        assert (slots == 1).all()          # every slot written, once
+        blocks = torch.stack([e.subdft(fwd[r], True) for r in range(e.k)])
+        for rank in range(e.k):
+            k2, col, z = e.combine(blocks, rank, True)
+            e.store_transposed(k2, col, z, tile, rank, True, out, writes)
+    return _written_once(out, writes, nx, ny // 2 + 1)
 
 
 def _rel(got, want) -> float:
@@ -358,3 +515,98 @@ def test_emulated_kb_is_kb_plain(n, paired):
         dirty[3][n // 2] = 3.0
     assert torch.equal(emulate(_hermitian(*dirty), n, nx, False,
                                transposed=True), got)
+
+
+# the fused y-stages at the plan's own C and K: K = 1 up to 512, 2 at
+# 1024, and one case at 4096 (K = 8)
+FUSED_LENGTHS = [64, 128, 256, 512, 1024]
+
+
+def _stack(rng, n, nx, fields, size=1.0):
+    return [size * t for t in _float_planes(rng, (fields, n // 2 + 1, nx),
+                                            2)]
+
+
+def _emulated_kb_pair(wr, wi, fa: int, fb: int, scale: float):
+    """kb_pair_kernel: the Hermitian tile of fields fa, fb, the inverse
+    transform and the natural store, Re * scale and Im * scale: y-major
+    (ny, nx)."""
+    ny = 2 * (wr.shape[1] - 1)
+    got = emulate(_hermitian(wr[fa], wi[fa], wr[fb], wi[fb]), ny,
+                  wr.shape[2], False, elem=4)
+    return _scaled(got, scale)
+
+
+@pytest.mark.parametrize("stack", [(4, 0, 1), (6, 4, 5)],
+                         ids=["ka_diag", "ka6"])
+@pytest.mark.parametrize("n", FUSED_LENGTHS)
+def test_emulated_kb_pair_is_kb_pair_plain(n, stack):
+    """kb_pair's tile kernel (kb's Hermitian load of fields fa, fb of the
+    stacked planes, the inverse, the natural store of row segments) on a
+    (F, n/2 + 1, nx) stack, nx one column past a tile: kb_pair_plain's
+    y-major (n, nx) planes, every output written once; junk in the
+    imaginary parts of rows 0 and n/2 changes no bit."""
+    f, fa, fb = stack
+    nx = xtile.xtile_plan(n, 1, 4).c + 1
+    wr, wi = _stack(np.random.default_rng(n + f), n, nx, f)
+    scale = 1.0 / (n * nx)
+    a, b = _emulated_kb_pair(wr, wi, fa, fb, scale)
+    want = ff.kb_pair_plain(wr, wi, fa, fb, scale)
+    assert a.shape == (n, nx)
+    assert _rel(a, want[0]) < TOL and _rel(b, want[1]) < TOL
+    dirty = wi.clone()
+    dirty[:, 0] = 10.0 * wi[:, 0] + 1.0
+    dirty[:, n // 2] = -7.0
+    da, db = _emulated_kb_pair(wr, dirty, fa, fb, scale)
+    assert torch.equal(da, a) and torch.equal(db, b)
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+@pytest.mark.parametrize("n", FUSED_LENGTHS)
+def test_emulated_ky_adv_is_ky_adv_plain(n, beta):
+    """ky_adv's tile kernel (the advection load of five y-major (n, nx)
+    planes, the forward transform, kc's transposed half store), nx one
+    column past a tile: ky_adv_plain's (nx, n/2 + 1) planes, every
+    output written once."""
+    nx = xtile.xtile_plan(n, 1, 4).c + 1
+    f = _float_planes(np.random.default_rng(n + 5), (n, nx), 5)
+    got = emulate(_advection_load(*f, beta), n, nx, True, transposed=True,
+                  half=True)
+    assert got.shape == (nx, n // 2 + 1)
+    assert _rel(got, torch.complex(*ff.ky_adv_plain(*f, beta))) < TOL
+
+
+@pytest.mark.parametrize("n, mode", [(n, mode) for n in FUSED_LENGTHS
+                                     for mode in ("full", "half")]
+                         + [(4096, "full")])
+def test_emulated_kb_adv_is_plain_and_kb_pair_then_ky_adv(n, mode):
+    """kb_adv's tile kernel (the Hermitian tiles' inverse, the advection
+    at the combine's rows, the redistribution to block y mod K at slot
+    (y div K) C + c, the forward transform and half store), nx one column
+    past a tile, beta on: kb_adv_full_plain / kb_adv_half_plain within
+    1e-5, and exactly the emulated ky_adv of the emulated kb_pair's
+    outputs (the same float32 ops in the same order); junk in the
+    self-conjugate rows' imaginary parts changes no bit."""
+    nx = xtile.xtile_plan(n, 1, 4).c + 1
+    rng = np.random.default_rng(n + 7)
+    wr, wi = _stack(rng, n, nx, 4, nx * n ** 0.5)    # fields of order one
+    zx, zy, src = _float_planes(rng, (n, nx), 3)
+    scale = ff._kb_adv_scale(wr)
+    u, v = _emulated_kb_pair(wr, wi, 2, 3, scale)
+    if mode == "full":
+        zx, zy = _emulated_kb_pair(wr, wi, 0, 1, scale)
+        got = emulate_kb_adv(wr, wi, None, None, src, 1.6)
+        want = ff.kb_adv_full_plain(wr, wi, src, 1.6)
+    else:
+        got = emulate_kb_adv(wr, wi, zx, zy, src, 1.6)
+        want = ff.kb_adv_half_plain(zx, zy, wr, wi, src, 1.6)
+    assert got.shape == (nx, n // 2 + 1)
+    assert _rel(got, torch.complex(*want)) < TOL
+    unfused = emulate(_advection_load(u, zx, v, zy, src, 1.6), n, nx, True,
+                      transposed=True, half=True)
+    assert torch.equal(got, unfused)
+    dirty = wi.clone()
+    dirty[:, 0] = 10.0 * wi[:, 0] + 1.0
+    dirty[:, n // 2] = -7.0 * wi[:, n // 2]
+    zeta = (None, None) if mode == "full" else (zx, zy)
+    assert torch.equal(emulate_kb_adv(wr, dirty, *zeta, src, 1.6), got)

@@ -57,32 +57,6 @@ __device__ __forceinline__ void colfft(float2* s, int n, int logn,
   }
 }
 
-// The Hermitian column of x-stage column x for a paired c2r y-stage,
-// stored bit-reversed for colfft: rows 0..ny/2 of a and b (strided by
-// nx), the imaginary part of the self-conjugate rows 0 and ny/2 zeroed
-// (the positive-Nyquist leak guard), c[j] = a[j] + i b[j] and
-// c[ny-j] = conj(a[j]) + i conj(b[j]). b absent (br_p == nullptr) is a
-// zero partner. Shared by kb_pair and kb_adv; kb's column-tile load
-// (kb_pair.cu) builds the same values row by row.
-__device__ __forceinline__ void load_hermitian_column(
-    float2* s, const float* __restrict__ ar_p, const float* __restrict__ ai_p,
-    const float* __restrict__ br_p, const float* __restrict__ bi_p, int ny,
-    int logny, int nx) {
-  const int half = ny >> 1;
-  for (int j = threadIdx.x; j <= half; j += blockDim.x) {
-    const size_t off = static_cast<size_t>(j) * nx;
-    const bool selfconj = (j == 0) || (j == half);
-    const float ar = ar_p[off];
-    const float ai = selfconj ? 0.f : ai_p[off];
-    const float br = br_p == nullptr ? 0.f : br_p[off];
-    const float bi = (selfconj || bi_p == nullptr) ? 0.f : bi_p[off];
-    s[bitrev(j, logny)] = make_float2(ar - bi, ai + br);
-    if (!selfconj) {
-      s[bitrev(ny - j, logny)] = make_float2(ar + bi, br - ai);
-    }
-  }
-}
-
 inline int ilog2(int n) {
   int l = 0;
   while ((1 << l) < n) ++l;

@@ -18,42 +18,59 @@
 // (ny, nx); kb x-major, a[x, y] (nx, ny).
 //
 // Bound: memory traffic, about 268 MB per call at 4096^2 (4 half planes
-// in, 2 planes out). kb_pair runs one column per block around colfft.cuh:
-// block x reads column x of each input plane (strided by nx) and writes
-// column x of each output (strided too, neighbouring blocks share the
-// sectors in L2); its bits are those of ky_adv and kb_adv (the fusion
-// arms), so it stays there until they move with it. kb runs the
-// column-tile transform of csrc/xtile.cuh: a cluster of K blocks owns C
-// adjacent x columns; block r builds rows y = r + K j of the Hermitian
-// tile from input row h = min(y, ny - y), read in row segments of C
-// floats (64 bytes at C = 16; rows h and ny - h go to blocks r and K - r
-// of the same cluster at about the same time, so L2 serves the second
-// read), and the transposed store writes each output row x in runs of
-// contiguous y. One plan of ny alone for the paired and single forms.
-#include "colfft.cuh"
+// in, 2 planes out). Both run the column-tile transform of
+// csrc/xtile.cuh: a cluster of K blocks owns C adjacent x columns; block
+// r builds rows y = r + K j of the Hermitian tile from input row
+// h = min(y, ny - y) (xtile.cuh load_hermitian), read in row segments of
+// C floats (64 bytes at C = 16; rows h and ny - h go to blocks r and
+// K - r of the same cluster at about the same time, so L2 serves the
+// second read). kb_pair takes the natural store (finish): the combine
+// hands out X[k2 + m k1] for the tile's C columns, written as row
+// segments of C contiguous floats of a[y, :] and b[y, :]. kb takes the
+// transposed store (finish_transposed), which writes each output row x
+// in runs of contiguous y. One plan of ny alone for every form, and the
+// same arithmetic up to the store, so kb_pair's output is kb's
+// transposed bit for bit; ky_adv and kb_adv (the fusion arms) share the
+// load and the transform, so they keep kb_pair's bits.
 #include "xtile.cuh"
 
 namespace {
 
-__global__ void kb_pair_kernel(const float* __restrict__ wr,
-                               const float* __restrict__ wi, int fa,
-                               int fb, const float2* __restrict__ tw,
-                               float* __restrict__ oa,
-                               float* __restrict__ ob, int ny, int logny,
-                               int nx, float scale) {
-  extern __shared__ float2 s[];
-  const int x = blockIdx.x;
-  const size_t plane = static_cast<size_t>((ny >> 1) + 1) * nx;
-  xfb::load_hermitian_column(s, wr + fa * plane + x, wi + fa * plane + x,
-                             wr + fb * plane + x, wi + fb * plane + x, ny,
-                             logny, nx);
-  xfb::colfft<+1>(s, ny, logny, tw);
-  for (int y = threadIdx.x; y < ny; y += blockDim.x) {
-    const float2 v = s[y];
+// The store of kb_pair's output y of tile column c: Re * scale to
+// oa[y, x], Im * scale to ob[y, x].
+struct KbPairOut {
+  float* oa;
+  float* ob;
+  int j0, nx;
+  float scale;
+
+  __device__ __forceinline__ void operator()(int y, int c, float2 v) const {
+    const int x = j0 + c;
+    if (x >= nx) return;  // the ragged last tile
     const size_t off = static_cast<size_t>(y) * nx + x;
-    oa[off] = v.x * scale;
-    ob[off] = v.y * scale;
+    oa[off] = __fmul_rn(v.x, scale);
+    ob[off] = __fmul_rn(v.y, scale);
   }
+};
+
+// cluster tile: columns j0 .. j0 + C of fields fa, fb of the stacked
+// (F, ny/2 + 1, nx) planes
+__global__ void __launch_bounds__(512, 2)
+    kb_pair_kernel(const float* __restrict__ wr,
+                   const float* __restrict__ wi, int fa, int fb,
+                   const float2* __restrict__ tw, KbPairOut out, int ny,
+                   int k, int logc) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
+  const int j0 = (blockIdx.x / k) << logc;
+  const size_t plane = static_cast<size_t>((ny >> 1) + 1) * out.nx;
+  xt::load_hermitian(t, t.s, wr + fa * plane, wi + fa * plane,
+                     wr + fb * plane, wi + fb * plane, j0, out.nx);
+  __syncthreads();
+  KbPairOut o = out;
+  o.j0 = j0;
+  xt::finish<+1>(t, tw, o);
 }
 
 // The store of kb's output y of tile column c: Re * scale to oa[x, y],
@@ -73,39 +90,17 @@ struct KbOut {
   }
 };
 
-// cluster tile: columns j0 .. j0 + C; block r of it builds rows r + k jj
-// of the Hermitian tile (colfft.cuh load_hermitian_column's formulas,
-// from input row h = min(y, ny - y)), consecutive lanes on consecutive
-// columns. wbr == NULL: a zero partner.
+// cluster tile: columns j0 .. j0 + C of the two (ny/2 + 1, nx) plane
+// pairs. wbr == NULL: a zero partner.
 __global__ void __launch_bounds__(512, 2)
     kb_kernel(const float* __restrict__ war, const float* __restrict__ wai,
               const float* __restrict__ wbr, const float* __restrict__ wbi,
               const float2* __restrict__ tw, KbOut out, int k, int logc) {
   extern __shared__ float2 smem[];
   namespace xt = xfb::xtile;
-  const int ny = out.ny, nx = out.nx, half = ny >> 1;
-  const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
+  const xt::Tile t = xt::begin(smem, tw, out.ny, k, logc);
   const int j0 = (blockIdx.x / k) << logc;
-  const int cmask = (1 << logc) - 1;
-#pragma unroll
-  for (int b = 0; b < xt::kElems; ++b) {
-    const int u = b * blockDim.x + threadIdx.x;
-    const int x = j0 + (u & cmask);
-    const int y = t.rank + k * (u >> logc);
-    float2 v = make_float2(0.f, 0.f);
-    if (x < nx) {
-      const int h = y <= half ? y : ny - y;
-      const size_t off = static_cast<size_t>(h) * nx + x;
-      const bool selfconj = (h == 0) || (h == half);
-      const float ar = __ldg(war + off);
-      const float ai = selfconj ? 0.f : __ldg(wai + off);
-      const float br = wbr == nullptr ? 0.f : __ldg(wbr + off);
-      const float bi = (selfconj || wbi == nullptr) ? 0.f : __ldg(wbi + off);
-      v = y <= half ? make_float2(ar - bi, ai + br)
-                    : make_float2(ar + bi, br - ai);
-    }
-    t.s[u] = v;
-  }
+  xt::load_hermitian(t, t.s, war, wai, wbr, wbi, j0, out.nx);
   __syncthreads();
   KbOut o = out;
   o.j0 = j0;
@@ -114,18 +109,22 @@ __global__ void __launch_bounds__(512, 2)
 
 }  // namespace
 
+// wr, wi: the stacked (F, ny/2 + 1, nx) planes, of which fields fa and
+// fb are read -> oa, ob: (ny, nx). tile_c, cluster_k, threads, smem: the
+// plan of ops/xtile.py for ny.
 extern "C" int xfb_kb_pair(const float* wr, const float* wi, int fa, int fb,
                            const void* tw, float* oa, float* ob, int ny,
-                           int nx, float scale, int device, void* stream) {
-  const size_t smem = static_cast<size_t>(ny) * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(kb_pair_kernel),
-                                 device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kb_pair_kernel<<<nx, xfb::threads_for(ny), smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      wr, wi, fa, fb, static_cast<const float2*>(tw), oa, ob, ny,
-      xfb::ilog2(ny), nx, scale);
-  return static_cast<int>(cudaGetLastError());
+                           int nx, float scale, int tile_c, int cluster_k,
+                           int threads, int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      kb_pair_kernel, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), wr, wi, fa, fb,
+      static_cast<const float2*>(tw), KbPairOut{oa, ob, 0, nx, scale}, ny,
+      cluster_k, xfb::xtile::log2i(tile_c)));
 }
 
 // war, wai, wbr, wbi: (ny/2 + 1, nx) -> oa, ob: (nx, ny). wbr, wbi and ob

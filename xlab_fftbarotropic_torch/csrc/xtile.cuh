@@ -1,6 +1,6 @@
 // xtile: the transform of a column tile, shared by the x-stages of
-// kx_visc.cu and xstage.cu and the y-stages kc (ka_kc.cu) and kb
-// (kb_pair.cu).
+// kx_visc.cu and xstage.cu and the y-stages kc (ka_kc.cu), kb and
+// kb_pair (kb_pair.cu), ky_adv (ky_adv.cu) and kb_adv (kb_adv.cu).
 //
 // Each transforms along an axis of length n (a power of two 64..8192)
 // whose column axis is contiguous in memory. A tile of C adjacent
@@ -9,11 +9,12 @@
 // from n alone, so every form of a kernel runs the same transform):
 //
 //   1. block r loads rows r, r + K, r + 2K, ... (m = n/K of them) of the
-//      tile (cp.async, or plain loads where the load computes, as kb's
-//      Hermitian one), consecutive lanes on consecutive columns, so
-//      every row segment is C contiguous elements (64 or 128 bytes at
-//      C = 16): whole 32-byte sectors, where a block per column would
-//      use 4 or 8 bytes of each;
+//      tile (cp.async, or plain loads where the load computes, as the
+//      Hermitian one of the paired c2r y-stages, load_hermitian, and
+//      ky_adv's advection product), consecutive lanes on consecutive
+//      columns, so every row segment is C contiguous elements (64 or
+//      128 bytes at C = 16): whole 32-byte sectors, where a block per
+//      column would use 4 or 8 bytes of each;
 //   2. it runs the length-m sub-DFT of each of its C columns in shared
 //      memory: self-sorting (Stockham) radix-8, -4, -2 passes with the
 //      butterflies in registers, the twiddles W_m^x staged in shared
@@ -22,7 +23,8 @@
 //      it reads Y_r[k2] of every block r through distributed shared
 //      memory, twiddles it by W_n^(r k2), runs the length-K DFT over r
 //      and hands X[k2 + m k1] (k1 < K) to the caller's epilogue, which
-//      stores full row segments again (finish); or
+//      stores full row segments again (finish; gather and twiddle_dft
+//      are its steps, which kb_adv runs on two tiles at once); or
 //   3'. the transposed store (finish_transposed), for the y-stages, whose
 //      output rows are the tile's columns: after a second cluster barrier
 //      block q stages its m C outputs column-major in its own tile (a
@@ -158,12 +160,12 @@ __device__ __forceinline__ void cluster_sync() {
   cluster_wait();
 }
 
-__device__ __forceinline__ const float2* map_rank(const float2* p, int rank) {
+__device__ __forceinline__ float2* map_rank(float2* p, int rank) {
   unsigned long long out;
   asm volatile("mapa.u64 %0, %1, %2;\n"
                : "=l"(out)
                : "l"(p), "r"(static_cast<unsigned>(rank)));
-  return reinterpret_cast<const float2*>(out);
+  return reinterpret_cast<float2*>(out);
 }
 
 // The block's view of its tile: s[j * C + c] holds row r + K j of column
@@ -254,6 +256,29 @@ __device__ __forceinline__ void subdft(const Tile& t) {
   }
 }
 
+// Y_r[k2] of tile column c from every block r of the cluster, through
+// distributed shared memory (s: the tile at the same offset in every
+// block).
+template <int K>
+__device__ __forceinline__ void gather(const Tile& t, float2* s, int k2,
+                                       int c, float2* x) {
+#pragma unroll
+  for (int r = 0; r < K; ++r) x[r] = map_rank(s, r)[(k2 << t.logc) + c];
+}
+
+// X[k2 + m k1] (k1 < K) in x from the gathered Y_r[k2]: each twiddled by
+// W_n^(r k2), then the length-K DFT over r.
+template <int K, int SIGN>
+__device__ __forceinline__ void twiddle_dft(const Tile& t,
+                                            const float2* __restrict__ tw,
+                                            int k2, float2* x) {
+#pragma unroll
+  for (int r = 1; r < K; ++r) {
+    x[r] = mul(x[r], twiddle<SIGN>(tw, r * k2, t.n));
+  }
+  dft<K, SIGN>(x);
+}
+
 // Block q's slice of the outputs from every block's sub-DFT: out(row,
 // column in tile, value) for each of its rows k2 + m k1. Reads the other
 // blocks' shared memory between two cluster barriers: the arrival after
@@ -273,16 +298,9 @@ __device__ __forceinline__ void combine(const Tile& t,
     const int c = u & cmask;
     const int k2 = t.rank * mk + (u >> t.logc);
     float2 x[K];
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      x[r] = map_rank(t.s, r)[(k2 << t.logc) + c];
-    }
+    gather<K>(t, t.s, k2, c, x);
     if (b == B - 1) cluster_arrive();
-#pragma unroll
-    for (int r = 1; r < K; ++r) {
-      x[r] = mul(x[r], twiddle<SIGN>(tw, r * k2, t.n));
-    }
-    dft<K, SIGN>(x);
+    twiddle_dft<K, SIGN>(t, tw, k2, x);
 #pragma unroll
     for (int k1 = 0; k1 < K; ++k1) out(k2 + t.m * k1, c, x[k1]);
   }
@@ -337,16 +355,9 @@ __device__ __forceinline__ void combine_staged(const Tile& t,
     const int c = u & cmask;
     const int k2 = t.rank * mk + (u >> t.logc);
     float2* x = v + b * K;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      x[r] = map_rank(t.s, r)[(k2 << t.logc) + c];
-    }
+    gather<K>(t, t.s, k2, c, x);
     if (b == B - 1) cluster_arrive();
-#pragma unroll
-    for (int r = 1; r < K; ++r) {
-      x[r] = mul(x[r], twiddle<SIGN>(tw, r * k2, t.n));
-    }
-    dft<K, SIGN>(x);
+    twiddle_dft<K, SIGN>(t, tw, k2, x);
   }
   cluster_wait();
   const int stride = staged_stride(t);
@@ -401,6 +412,56 @@ __device__ __forceinline__ void finish_transposed(
     }
   }
 }
+
+// The Hermitian load of the paired c2r y-stages (kb_pair.cu, kb_adv.cu):
+// block r's rows y = r + K j of the tile of columns j0 .. j0 + C into s,
+// from the two half spectra a = ar + i ai and b = br + i bi, (n/2 + 1,
+// nx) planes, at input row h = min(y, n - y): a + i b up to n/2,
+// conj(a) + i conj(b) past it. The imaginary parts of the self-conjugate
+// rows 0 and n/2 are never read (the positive-Nyquist leak guard);
+// br == NULL is a zero partner; columns past nx load 0.
+__device__ __forceinline__ void load_hermitian(
+    const Tile& t, float2* s, const float* __restrict__ ar,
+    const float* __restrict__ ai, const float* __restrict__ br,
+    const float* __restrict__ bi, int j0, int nx) {
+  const int half = t.n >> 1;
+  const int cmask = (1 << t.logc) - 1;
+#pragma unroll
+  for (int b = 0; b < kElems; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int x = j0 + (u & cmask);
+    const int y = t.rank + t.k * (u >> t.logc);
+    float2 v = make_float2(0.f, 0.f);
+    if (x < nx) {
+      const int h = y <= half ? y : t.n - y;
+      const size_t off = static_cast<size_t>(h) * nx + x;
+      const bool selfconj = (h == 0) || (h == half);
+      const float a_r = __ldg(ar + off);
+      const float a_i = selfconj ? 0.f : __ldg(ai + off);
+      const float b_r = br == nullptr ? 0.f : __ldg(br + off);
+      const float b_i = (selfconj || bi == nullptr) ? 0.f : __ldg(bi + off);
+      v = y <= half ? make_float2(a_r - b_i, a_i + b_r)
+                    : make_float2(a_r + b_i, b_r - a_i);
+    }
+    s[u] = v;
+  }
+}
+
+// The store of a forward y-stage's half spectrum (ky_adv.cu, kb_adv.cu):
+// X[k] of tile column c to yr, yi at [j0 + c, k] of (nx, n/2 + 1) planes.
+struct HalfOut {
+  float* yr;
+  float* yi;
+  int j0, nx, hny;
+
+  __device__ __forceinline__ void operator()(int k, int c, float2 v) const {
+    const int x = j0 + c;
+    if (x >= nx) return;  // the ragged last tile
+    const size_t off = static_cast<size_t>(x) * hny + k;
+    yr[off] = v.x;
+    yi[off] = v.y;
+  }
+};
 
 // Host side: check the plan's numbers (ops/xtile.py) and launch `kernel`
 // on a grid of (tiles K, fields) blocks in clusters of K.

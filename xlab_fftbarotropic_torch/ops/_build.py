@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh, and
-kx_visc.cu, xstage.cu, kc (ka_kc.cu) and kb (kb_pair.cu) sharing
-csrc/xtile.cuh) compile
+kx_visc.cu, xstage.cu, kc (ka_kc.cu), kb_pair.cu, ky_adv.cu and kb_adv.cu
+sharing csrc/xtile.cuh) compile
 with nvcc for Hopper (sm_90a) into one shared library with a plain C
 interface, loaded with ctypes: pointers and the stream pass as
 ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
@@ -47,13 +47,16 @@ SIGNATURES = {
     "xfb_ka_diag": [_P] * 8 + [_I, _I, _I, _P],
     # sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny, device, stream
     "xfb_ka6": [_P] * 8 + [_I, _I, _I, _P],
-    # wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, device, stream
-    "xfb_kb_pair": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P],
+    # wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, tile_c, cluster_k,
+    # threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_kb_pair": [_P, _P, _I, _I] + [_P] * 3 + [_I, _I, _F] + [_I] * 5
+    + [_P],
     # war, wai, wbr, wbi, tw, oa, ob, ny, nx, scale, tile_c, cluster_k,
     # threads, smem (the ops/xtile.py plan), device, stream
     "xfb_kb": [_P] * 7 + [_I, _I, _F] + [_I] * 5 + [_P],
-    # u, zx, v, zy, src, tw, outr, outi, ny, nx, beta, device, stream
-    "xfb_ky_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
+    # u, zx, v, zy, src, tw, outr, outi, ny, nx, beta, tile_c,
+    # cluster_k, threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_ky_adv": [_P] * 8 + [_I, _I, _F] + [_I] * 5 + [_P],
     # fr, fi, lap, mask, zsr, zsi, z0r, z0i, tw, rr, ri, nr, ni,
     # nfields, nx, hny, nu, coef, tile_c, cluster_k, threads, smem (the
     # ops/xtile.py plan), device, stream
@@ -104,11 +107,12 @@ SIGNATURES = {
     # fr, fi, lap, mask, zr, zi, z0r, z0i, rr, ri, nr, ni, numel, nu, coef,
     # device, stream
     "xfb_visc": [_P] * 12 + [_L, _F, _F, _I, _P],
-    # wr, wi, src, tw, outr, outi, ny, nx, scale, beta, device, stream
-    "xfb_kb_adv_full": [_P] * 6 + [_I, _I, _F, _F, _I, _P],
-    # zx, zy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta, device,
-    # stream
-    "xfb_kb_adv_half": [_P] * 8 + [_I, _I, _F, _F, _I, _P],
+    # wr, wi, src, tw, outr, outi, ny, nx, scale, beta, tile_c,
+    # cluster_k, threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_kb_adv_full": [_P] * 6 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
+    # zx, zy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta, tile_c,
+    # cluster_k, threads, smem, device, stream
+    "xfb_kb_adv_half": [_P] * 8 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
     # src table, dst table, p, rows_l, hrow, w, to_cols, device, stream
     "xfb_a2a": [_P, _P] + [_I] * 6 + [_P],
     # src table, dst table, tw, p, rows_l, hrow, w, mode, forward, scale,

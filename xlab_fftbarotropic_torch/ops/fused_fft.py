@@ -4,9 +4,9 @@ launch machinery every kernel wrapper of the port shares.
 
 One RK stage of the barotropic plane stepper runs five launches of four
 kernels, each a hand-written CUDA kernel (csrc/) around the shared
-in-shared-memory column FFT (csrc/colfft.cuh; kx_visc, kc, kc_visc and
-kb around the column-tile transform of csrc/xtile.cuh, planned by
-ops/xtile.py):
+in-shared-memory column FFT (csrc/colfft.cuh; kb_pair, ky_adv, kx_visc,
+kb_adv, kc, kc_visc and kb around the column-tile transform of
+csrc/xtile.cuh, planned by ops/xtile.py):
 
   ka_diag   the four derivative fields' inverse x-stage   (stacked out)
   kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
@@ -291,7 +291,7 @@ def kb_pair(wr, wi, fa: int, fb: int, scale: float):
     ob = torch.empty_like(oa)
     _launch("kb_pair", lib().xfb_kb_pair, *_ptrs(wr, wi), fa, fb,
             *_ptrs(_twiddles(ny, wr.device), oa, ob), ny, nx, float(scale),
-            wr.device.index, _stream(wr))
+            *_xtile_args(ny, nx, 4), wr.device.index, _stream(wr))
     return oa, ob
 
 
@@ -335,7 +335,8 @@ def ky_adv(u, zx, v, zy, src, beta: float = 0.0):
     outi = torch.empty_like(outr)
     _launch("ky_adv", lib().xfb_ky_adv,
             *_ptrs(u, zx, v, zy, src, _twiddles(ny, u.device), outr, outi),
-            ny, nx, float(beta), u.device.index, _stream(u))
+            ny, nx, float(beta), *_xtile_args(ny, nx, 4), u.device.index,
+            _stream(u))
     return outr, outi
 
 
@@ -520,8 +521,8 @@ def kb_adv_full(wr, wi, src, beta: float = 0.0):
     outi = torch.empty_like(outr)
     _launch("kb_adv_full", lib().xfb_kb_adv_full,
             *_ptrs(wr, wi, src, _twiddles(ny, wr.device), outr, outi), ny,
-            nx, _kb_adv_scale(wr), float(beta), wr.device.index,
-            _stream(wr))
+            nx, _kb_adv_scale(wr), float(beta), *_xtile_args(ny, nx, 4),
+            wr.device.index, _stream(wr))
     return outr, outi
 
 
@@ -541,7 +542,7 @@ def kb_adv_half(zx, zy, wr, wi, src, beta: float = 0.0):
     _launch("kb_adv_half", lib().xfb_kb_adv_half,
             *_ptrs(zx, zy, wr, wi, src, _twiddles(ny, wr.device), outr,
                    outi), ny, nx, _kb_adv_scale(wr), float(beta),
-            wr.device.index, _stream(wr))
+            *_xtile_args(ny, nx, 4), wr.device.index, _stream(wr))
     return outr, outi
 
 

@@ -2,9 +2,12 @@
 
 kx_visc.cu and xstage.cu transform along the x axis of a half spectrum
 whose column axis is the contiguous one; kc (ka_kc.cu: kc, kc_sw,
-kc_visc) and kb (kb_pair.cu) along the y axis of (ny, nx) or (hny, nx)
-planes, whose nx columns are contiguous, with a transposed store (their
-output rows are the tile's columns). Each gives a tile of C adjacent
+kc_visc), kb_pair and kb (kb_pair.cu), ky_adv (ky_adv.cu) and kb_adv
+(kb_adv.cu: its inverse, then its forward transform, in tiles of C/2
+columns and half the threads) along the y axis of
+(ny, nx) or (hny, nx) planes, whose nx columns are contiguous, kb_pair
+with the natural store, the others with a transposed one (their output
+rows are the tile's columns). Each gives a tile of C adjacent
 columns to a thread block cluster of K blocks: block r of the cluster
 loads rows r, r + K, r + 2K, ... of the tile (row segments of C
 elements, consecutive lanes on consecutive columns), runs the length
