@@ -16,14 +16,19 @@ exits non-zero and prints no result):
    exactly), the distributed ones on 4 shards and at 256^2 on 1, 2 and
    8 too; each timed at n^2 with CUDA events. First the column-tile
    plan (ops/xtile.py: columns per tile C, blocks per cluster K,
-   threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu
-   and of the y-stages kc_kernel (ka_kc.cu: kc, kc_sw, kc_visc),
-   kb_kernel (kb_pair.cu: kb, the x-major kb), kb_pair_kernel,
-   ky_adv_kernel and kb_adv_kernel (half and full, in tiles of C/2
-   columns) at 256^2 and n^2, and every kernel's registers and spills
-   from the build's -Xptxas -v; then the y-first pair's pins at 256^2
-   and n^2: kb_pair equal to kb_stacked transposed and ky_adv to kc of
-   (adv, 0), bit for bit.
+   threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu,
+   ka_kernel (ka_kc.cu, on ny and hny columns) and ka_fields_kernel
+   (ka_diag.cu: ka_diag, ka6, ka_quad) and of the y-stages kc_kernel
+   (ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (kb_pair.cu: kb, the
+   x-major kb), kb_pair_kernel, ky_adv_kernel and kb_adv_kernel (half
+   and full, in tiles of C/2 columns) at 256^2 and n^2, and every
+   kernel's registers and spills from the build's -Xptxas -v; then the
+   pins at 256^2 and n^2, bit for bit: the y-first pair's (kb_pair equal
+   to kb_stacked transposed and ky_adv to kc of (adv, 0)) and the ka
+   x-stages' (ka_quad's fields 0-1 equal to ka_diag's, split to quad,
+   ka6 to ka_diag of each state, ka of (-(zi kx), zr kx) at scale 1 to
+   ka_diag's field 0, and the fields-on-y grid order to the
+   field-fastest one).
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -566,6 +571,7 @@ def kernel_cases(n: int, dev, seed: int):
     # complex inputs of the library calls, made once here
     fc = torch.complex(fr, fi)
     xc = torch.complex(xr, xi)
+    zc = torch.complex(zr, zi)
     pc = torch.complex(pr, pi)
     gc = torch.complex(gr, gi)
     wc = torch.complex(wr[2:4], wi[2:4])
@@ -672,9 +678,11 @@ def kernel_cases(n: int, dev, seed: int):
         "ka_complex_forward": Case(lambda: ff.ka(xr, xi, True, 0.5),
                                    lambda: ff.ka_plain(xr, xi, True, 0.5),
                                    list, (xr, xi), n),
-        "ka_complex_inverse": Case(lambda: ff.ka(xr, xi, False),
-                                   lambda: ff.ka_plain(xr, xi, False), list,
-                                   (xr, xi), n),
+        # the complex inverse on the hny columns of irfft2 / inverse_pair
+        "ka_complex_inverse": Case(lambda: ff.ka(zr, zi, False),
+                                   lambda: ff.ka_plain(zr, zi, False), list,
+                                   (zr, zi), hny,
+                                   lambda: torch.fft.ifft(zc, dim=0)),
         "kc": Case(lambda: ff.kc(xr, xi), lambda: ff.kc_plain(xr, xi), list,
                    (xr, xi), n, lambda: torch.fft.fft(xc, dim=0)),
         "kb": Case(lambda: ff.kb(*kbw, scale), lambda: ff.kb_plain(*kbw, scale),
@@ -844,11 +852,13 @@ def compare(name: str, case: Case, where: str):
 
 
 def phase_xtile(n: int) -> dict:
-    """The column-tile plans of the x-stages (kx_visc.cu, xstage.cu) and
-    the y-stages (kc_kernel, kb_kernel, kb_pair_kernel, ky_adv_kernel,
-    kb_adv_kernel: the nx columns of float planes; kb_adv in tiles of
-    C/2 columns, two of them in full) at 256^2 and n^2, and every
-    kernel's registers and spills from the build log."""
+    """The column-tile plans of the x-stages (kx_visc.cu, xstage.cu,
+    ka_kernel on the ny columns of rfft2's real forward and the hny of
+    the complex inverse, ka_fields_kernel on hny) and the y-stages
+    (kc_kernel, kb_kernel, kb_pair_kernel, ky_adv_kernel, kb_adv_kernel:
+    the nx columns of float planes; kb_adv in tiles of C/2 columns, two
+    of them in full) at 256^2 and n^2, and every kernel's registers and
+    spills from the build log."""
     from xlab_fftbarotropic_torch.ops import _build
     from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
 
@@ -859,6 +869,9 @@ def phase_xtile(n: int) -> dict:
                                     ("xstage", hny, 8),
                                     ("xstage_gather P=4",
                                      4 * -(-hny // 4), 8),
+                                    ("ka_kernel ny", size, 4),
+                                    ("ka_kernel hny", hny, 4),
+                                    ("ka_fields_kernel", hny, 4),
                                     ("kc_kernel", size, 4),
                                     ("kb_kernel", size, 4),
                                     ("kb_pair_kernel", size, 4),
@@ -896,11 +909,44 @@ def phase_xtile(n: int) -> dict:
     return out
 
 
+def ka_pins(n: int, dev, rng) -> dict:
+    """The ka x-stages' pins at n^2: name -> (got, want) planes that must
+    be equal bit for bit (one plan and one rounded arithmetic in
+    ka_kernel and ka_fields_kernel). The one list of these pins: tests/
+    test_torch_cuda_kernels.py checks the same pairs."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+
+    hny = n // 2 + 1
+    t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
+    sr, si = (torch.from_numpy(rng.standard_normal((2, n, hny)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    tab = (t.rlap, t.kx, t.ky)
+    diag0 = ff.ka_diag(sr[0], si[0], *tab)
+    diag1 = ff.ka_diag(sr[1], si[1], *tab)
+    quad = ff.ka_quad(sr[0], si[0], *tab)
+    split = [torch.cat(p) for p in zip(ff.ka_quad(sr[0], si[0], *tab, 0, 2),
+                                       ff.ka_quad(sr[0], si[0], *tab, 2, 2))]
+    six = ft.tracer_xstage_planes(sr, si, t.kx, t.ky, t.rlap)
+    k = t.kx.reshape(-1, 1)
+    ka = ff.ka(-(si[0] * k), sr[0] * k, False, 1.0)
+    return {"ka_quad 0-1 = ka_diag 0-1": ([q[:2] for q in quad],
+                                          [d[:2] for d in diag0]),
+            "split = quad": (split, quad),
+            "ka6 0-3 = ka_diag S[0]": ([x[:4] for x in six], diag0),
+            "ka6 4-5 = ka_diag S[1] 0-1": ([x[4:] for x in six],
+                                           [d[:2] for d in diag1]),
+            "ka(-(zi kx), zr kx) = ka_diag 0": (list(ka),
+                                                [d[0] for d in diag0])}
+
+
 def phase_pins(n: int, dev) -> dict:
-    """The y-first pair's transforms at n^2, bit for bit: kb_pair (the
-    natural store) equals kb_stacked (the transposed one) transposed, on
-    ka_diag's and ka6's stacks, and ky_adv equals kc of (adv, 0), adv
-    formed by torch on the card in xfb::advection's order."""
+    """The pins at n^2, bit for bit: the y-first pair's transforms,
+    kb_pair (the natural store) equals kb_stacked (the transposed one)
+    transposed, on ka_diag's and ka6's stacks, and ky_adv equals kc of
+    (adv, 0), adv formed by torch on the card in xfb::advection's order;
+    and the ka x-stages' (ka_pins)."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     rng = np.random.default_rng(n + 11)
@@ -910,23 +956,24 @@ def phase_pins(n: int, dev) -> dict:
         return [torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev) for _ in range(k)]
 
-    out = {}
+    pairs = {}
     for f, fa, fb in ((4, 2, 3), (6, 4, 5)):
         wr, wi = planes((f, hny, n), 2)
         got = ff.kb_pair(wr, wi, fa, fb, 1.0 / (n * n))
         want = ff.kb_stacked(wr, wi, fa, fb, 1.0 / (n * n))
-        out[f"kb_pair F={f}"] = all(bool(torch.equal(g, w.t()))
-                                    for g, w in zip(got, want))
+        pairs[f"kb_pair F={f} = kb_stacked^T"] = (got, [w.t() for w in want])
     u, zx, v, zy, src = planes((n, n), 5)
     adv = -(u * zx) - v * (zy + 0.3) + src
-    out["ky_adv"] = all(bool(torch.equal(g, w)) for g, w in zip(
-        ff.ky_adv(u, zx, v, zy, src, 0.3),
-        ff.kc(adv, torch.zeros_like(adv))))
-    for name, same in out.items():
-        twin = "kc of (adv, 0)" if name == "ky_adv" else "kb_stacked^T"
-        log(f"pin {name:12s} {n}^2: {twin} "
+    pairs["ky_adv = kc of (adv, 0)"] = (ff.ky_adv(u, zx, v, zy, src, 0.3),
+                                        ff.kc(adv, torch.zeros_like(adv)))
+    pairs.update(ka_pins(n, dev, rng))
+    out = {}
+    for name, (got, want) in pairs.items():
+        same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        out[name] = same
+        log(f"pin {name:34s} {n}^2: "
             f"{'bit for bit' if same else 'DIFFERS'}")
-        check(same, f"{name} at {n}^2 is not {twin} bit for bit")
+        check(same, f"pin {name} at {n}^2 does not hold bit for bit")
     return out
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Check and time the column-tile kernels on one CUDA card: the x-stages of
-csrc/kx_visc.cu and csrc/xstage.cu and the y-stages kc_kernel (csrc/
-ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (csrc/kb_pair.cu: kb paired
-and single, the x-major kb), kb_pair_kernel (csrc/kb_pair.cu),
-ky_adv_kernel (csrc/ky_adv.cu) and kb_adv_kernel (csrc/kb_adv.cu: full
-and half), every form against its plain torch version and against the
+csrc/kx_visc.cu and csrc/xstage.cu, ka_kernel (csrc/ka_kc.cu: ka in its
+four modes) and ka_fields_kernel (csrc/ka_diag.cu: ka_diag, ka6, ka_quad
+and split) and the y-stages kc_kernel (csrc/ka_kc.cu: kc, kc_sw,
+kc_visc), kb_kernel (csrc/kb_pair.cu: kb paired and single, the x-major
+kb), kb_pair_kernel (csrc/kb_pair.cu), ky_adv_kernel (csrc/ky_adv.cu)
+and kb_adv_kernel (csrc/kb_adv.cu: full and half), every form against its plain torch version and against the
 one torch.fft call of the same transform, at each grid size asked for.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
@@ -17,11 +18,14 @@ checkouts' lines show whether a kernel's bits moved), the kernel's ms
 (CUDA events, mean of --iters back-to-back calls after a warm-up), the
 plain version's ms, the bytes bound at 3.35 TB/s and the share of it
 reached, and the ms of the torch.fft call: fft along x for the x-stages,
-fft along y for kc and kc_sw, irfft along y for kb and kb_pair, rfft
-along y of one plane for ky_adv and kb_adv (the forward transform
-alone; no torch call computes their whole function); then the card's
-name and power limit, and the registers and spills of the tile kernels
-from the build's -Xptxas -v output. Exits non-zero past 1e-5.
+fft or ifft along axis 0 for ka's modes, ifft along x of the stacked
+fields for ka_diag, ka6 and ka_quad (the transform alone: the fields
+formed beforehand), fft along y for kc and kc_sw, irfft along y for kb
+and kb_pair, rfft along y of one plane for ky_adv and kb_adv (the
+forward transform alone; no torch call computes their whole function).
+Then the card's name and power limit, and the registers and spills of
+the tile kernels from the build's -Xptxas -v output. Exits non-zero past
+1e-5.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ def cases(n: int, dev):
     n grid's shapes, numpy-seeded."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
     from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
 
     rng = np.random.default_rng(n)
@@ -108,7 +114,61 @@ def cases(n: int, dev):
     kar, kai = (h * n * n ** 0.5 for h in hs)
     u, zx, v, zy, src = planes((n, n), 5)
     kpc = torch.complex(kar[2:], kai[2:])
+    # the ka x-stages: rfft2's real forward on ny = n columns, the other
+    # modes on hny; the field x-stages on one and two states
+    t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
+    tab = (t.rlap, t.kx, t.ky)
+    sr, si = planes((2, n, hny), 2)
+    cr, ci = planes((n, hny), 2)
+    cc = torch.complex(cr, ci)
+
+    def fields(states, kinds, psi_first=False):
+        re_, im = [], []
+        for s_ in range(states):
+            a, b = ff.diagonal_fields(sr[s_], si[s_], *tab, kinds[s_],
+                                      psi_first)
+            re_ += a
+            im += b
+        return torch.complex(torch.stack(re_), torch.stack(im))
+
+    f4, f6 = fields(1, [range(4)]), fields(2, [range(4), range(2)])
+    fq = fields(1, [range(4)], True)
+
+    def ifft_fields(x):
+        return lambda: torch.fft.ifft(x, dim=1)
+
+    def split():                          # the two calls of one stage
+        return [*ff.ka_quad(sr[0], si[0], *tab, 0, 2),
+                *ff.ka_quad(sr[0], si[0], *tab, 2, 2)]
+
+    def split_plain():
+        return [*ff.ka_quad_plain(sr[0], si[0], *tab, 0, 2),
+                *ff.ka_quad_plain(sr[0], si[0], *tab, 2, 2)]
+
     return {
+        "ka": (lambda: ff.ka(yr, None, True),
+               lambda: ff.ka_plain(yr, None, True), (yr,),
+               lambda: torch.fft.fft(yr, dim=0)),
+        "ka real inverse": (lambda: ff.ka(cr, None, False, 0.5),
+                            lambda: ff.ka_plain(cr, None, False, 0.5), (cr,),
+                            lambda: torch.fft.ifft(cr, dim=0)),
+        "ka complex forward": (lambda: ff.ka(cr, ci, True, 0.5),
+                               lambda: ff.ka_plain(cr, ci, True, 0.5),
+                               (cr, ci), lambda: torch.fft.fft(cc, dim=0)),
+        "ka complex inverse": (lambda: ff.ka(cr, ci, False),
+                               lambda: ff.ka_plain(cr, ci, False), (cr, ci),
+                               lambda: torch.fft.ifft(cc, dim=0)),
+        "ka_diag": (lambda: ff.ka_diag(sr[0], si[0], *tab),
+                    lambda: ff.ka_diag_plain(sr[0], si[0], *tab),
+                    (sr[0], si[0], t.rlap), ifft_fields(f4)),
+        "ka6": (lambda: ft.tracer_xstage_planes(sr, si, t.kx, t.ky, t.rlap),
+                lambda: ft.ka6_plain(sr, si, *tab), (sr, si, t.rlap),
+                ifft_fields(f6)),
+        "ka_quad": (lambda: ff.ka_quad(sr[0], si[0], *tab),
+                    lambda: ff.ka_quad_plain(sr[0], si[0], *tab),
+                    (sr[0], si[0], t.rlap), ifft_fields(fq)),
+        "ka_quad split": (split, split_plain, (sr[0], si[0], t.rlap),
+                          ifft_fields(fq)),
         "kx_fwd F=1": (lambda: fs.kx_fwd(fr[None], fi[None]),
                        lambda: fs.kx_fwd_plain(fr[None], fi[None]),
                        (fr, fi), fft(fc)),
@@ -232,9 +292,9 @@ def main(argv=None) -> int:
     log = Path(_build.LAST_BUILD["path"]).parent / "build.log"
     text = log.read_text() if log.exists() else ""
     for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage|"
-                         r"kc_kernel|kb_kernel|kb_pair_kernel|ky_adv_kernel"
-                         r"|kb_adv_kernel)\w*)'.*?\n(.*?Used \d+ "
-                         r"registers[^\n]*)", text, re.S):
+                         r"ka_kernel|ka_fields_kernel|kc_kernel|kb_kernel|"
+                         r"kb_pair_kernel|ky_adv_kernel|kb_adv_kernel)\w*)'"
+                         r".*?\n(.*?Used \d+ registers[^\n]*)", text, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         regs = re.search(r"Used (\d+) registers", m.group(2))
         print(f"ptxas {m.group(1)}: {regs.group(1)} registers, "

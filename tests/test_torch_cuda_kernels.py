@@ -1539,3 +1539,171 @@ def test_y_first_pair_refuses_a_plan_it_does_not_take(cuda):
         assert lib().xfb_kb_adv_half(*ff._ptrs(x, x, w, w, x, tw, y, y), n,
                                      n, 1.0, 0.0, *plan, cuda.index,
                                      stream) != 0
+
+
+# ----- the ka x-stages on the column tile: ka_kernel (ka, every mode)
+# and ka_fields_kernel (ka_diag, ka6, ka_quad), the full transposed store -----
+
+KA_FORMS = ["ka", "ka_real_inverse", "ka_complex_forward",
+            "ka_complex_inverse", "ka_diag", "ka6", "ka_quad",
+            "ka_quad_split"]
+# ka's modes (forward, real input) at scale 0.37
+_KA_MODES = {"ka": (True, True), "ka_real_inverse": (False, True),
+             "ka_complex_forward": (True, False),
+             "ka_complex_inverse": (False, False)}
+# the field forms: states, (first, count) of each call, and each output
+# field's (state, diagonal kind)
+_FIELD_FORMS = {"ka_diag": (1, [(0, 4)]), "ka6": (2, [(0, 6)]),
+                "ka_quad": (1, [(0, 4)]),
+                "ka_quad_split": (1, [(0, 2), (2, 2)])}
+
+
+def _per_field(out):
+    """(re, im) stacks (F, m, n) or planes (m, n) -> [re_0, im_0, ...]."""
+    re_, im = out
+    if re_.dim() == 2:
+        return [re_, im]
+    return [p[f] for f in range(re_.shape[0]) for p in (re_, im)]
+
+
+def _ka_form(form, n, m, dev, seed):
+    """(kernel call, plain call, torch.fft call) of a ka x-stage form on
+    (n, m) planes, each a list of (m, n) planes, re and im of each field:
+    ka at scale 0.37; the field forms on states (F, n, m) with the kx, ky
+    and rlap tables of an n x 2(m - 1) grid (m = its hny). The torch.fft
+    call runs the transform along the last axis of the transposed input
+    (ifft times n for the inverse)."""
+    if form in _KA_MODES:
+        forward, real = _KA_MODES[form]
+        xr, xi = _randn(seed, (n, m), 2, dev)
+        xi = None if real else xi
+
+        def lib():
+            x = (xr if xi is None else torch.complex(xr, xi)).t()
+            y = (torch.fft.fft(x, dim=1) * 0.37 if forward
+                 else torch.fft.ifft(x, dim=1) * (n * 0.37))
+            return [y.real, y.imag]
+        return (lambda: _per_field(ff.ka(xr, xi, forward, 0.37)),
+                lambda: _per_field(ff.ka_plain(xr, xi, forward, 0.37)), lib)
+    states, calls = _FIELD_FORMS[form]
+    t = _tables(n, dev, 2 * (m - 1))
+    sr, si = _randn(seed, (states, n, m), 2, dev)
+    if states == 2:
+        sr[1] *= 1e4                      # the tracer dwarfs the vorticity
+        si[1] *= 1e4
+    tab = (t.rlap, t.kx, t.ky)
+    if form == "ka6":
+        kern = [lambda: ft.tracer_xstage_planes(sr, si, t.kx, t.ky, t.rlap)]
+        plain = [lambda: ft.ka6_plain(sr, si, *tab)]
+        kinds = [(0, 0), (0, 1), (0, 2), (0, 3), (1, 0), (1, 1)]
+        psi_first = False
+    elif form == "ka_diag":
+        kern = [lambda: ff.ka_diag(sr[0], si[0], *tab)]
+        plain = [lambda: ff.ka_diag_plain(sr[0], si[0], *tab)]
+        kinds, psi_first = [(0, k) for k in range(4)], False
+    else:
+        kern = [lambda a=a, b=b: ff.ka_quad(sr[0], si[0], *tab, a, b)
+                for a, b in calls]
+        plain = [lambda a=a, b=b: ff.ka_quad_plain(sr[0], si[0], *tab, a, b)
+                 for a, b in calls]
+        kinds, psi_first = [(0, k) for k in range(4)], True
+
+    def lib():
+        out = []
+        for s, k in kinds:
+            re_, im = ff.diagonal_fields(sr[s], si[s], *tab, [k], psi_first)
+            y = torch.fft.ifft(torch.complex(re_[0], im[0]).t(), dim=1) * n
+            out += [y.real, y.imag]
+        return out
+    return (lambda: [p for c in kern for p in _per_field(c())],
+            lambda: [p for c in plain for p in _per_field(c())], lib)
+
+
+def _assert_fields_close(got, want):
+    """Each output plane on its own (the psi fields dwarf the others)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w) < TOL
+
+
+@pytest.mark.parametrize("form", KA_FORMS)
+@pytest.mark.parametrize("n", XTILE_LENGTHS)
+def test_ka_forms_at_every_length(cuda, n, form):
+    """Every form of ka_kernel (real forward on ny = n columns, the other
+    modes on hny) and of ka_fields_kernel (ka_diag, ka6, ka_quad, split
+    on hny) against its plain version at every length the column-tile
+    plan takes."""
+    m = n if form == "ka" else n // 2 + 1
+    kern, plain, _ = _ka_form(form, n, m, cuda, n)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    _assert_fields_close(got, want)
+
+
+@pytest.mark.parametrize("form", KA_FORMS)
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_ka_ragged_last_tile(cuda, n, form):
+    """m no multiple of the tile: one column past three whole tiles (as
+    hny), and a single tile with one dead column; no store lands past the
+    m rows of a field (the next field's plane stays the plain one's)."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    c = xtile_plan(n, 1, 4).c
+    for m in (3 * c + 1, c - 1):
+        kern, plain, _ = _ka_form(form, n, m, cuda, n + m)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got[0].shape == (m, n)
+        _assert_fields_close(got, want)
+
+
+@pytest.mark.parametrize("form", KA_FORMS)
+def test_ka_forms_against_torch_fft_at_4096(cuda, form):
+    """Each redesigned ka form against torch.fft (cuFFT) itself at 4096:
+    ka's modes against torch.fft.fft / ifft along the rows of the
+    transposed planes, the field forms against torch.fft.ifft of each
+    field formed in torch."""
+    n = 4096
+    kern, _, lib = _ka_form(form, n, n if form == "ka" else n // 2 + 1,
+                            cuda, 17)
+    got, want = kern(), lib()
+    torch.cuda.synchronize()
+    _assert_fields_close(got, want)
+
+
+def test_ka_forms_refuse_a_plan_they_do_not_take(cuda):
+    """ka, ka_diag, ka6 and ka_quad check the plan they are handed: one
+    that is not ops/xtile.py's for the length fails the launch."""
+    from xlab_fftbarotropic_torch.ops._build import lib
+
+    n = 256
+    hny = n // 2 + 1
+    x = torch.zeros((2, n, hny), device=cuda)
+    y = torch.empty((6, hny, n), device=cuda)
+    tw = ff._twiddles(n, cuda)
+    c, k, threads, smem = ff._xtile_args(n, hny, 4)
+    stream = ff._stream(x)
+    for plan in ((c, k, threads + 32, smem), (c, k, threads, smem - 8),
+                 (c, 3, threads, smem)):
+        assert lib().xfb_ka(*ff._ptrs(x, x, tw, y, y), n, hny, 1, 1.0,
+                            *plan, cuda.index, stream) != 0
+        assert lib().xfb_ka_diag(*ff._ptrs(x, x, x, x, x, tw, y, y), n, hny,
+                                 *plan, cuda.index, stream) != 0
+        assert lib().xfb_ka6(*ff._ptrs(x, x, x, x, x, tw, y, y), n, hny,
+                             *plan, cuda.index, stream) != 0
+        assert lib().xfb_ka_quad(*ff._ptrs(x, x, x, x, x, tw, y, y), n, hny,
+                                 0, 4, *plan, cuda.index, stream) != 0
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_ka_pins_bit_for_bit(cuda, n):
+    """Both ka kernels run one plan and one rounded arithmetic, so the
+    pins between their forms hold bit for bit: chip_smoke.py's ka_pins,
+    the one list of them."""
+    from chip_smoke import ka_pins
+
+    pins = ka_pins(n, cuda, np.random.default_rng(n + 19))
+    for name, (got, want) in pins.items():
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name

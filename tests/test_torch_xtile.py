@@ -53,10 +53,22 @@ SHARDS = [1, 2, 4, 8]
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulation runs many small torch ops: one intra-op thread for
+    them (test workers share the cores), the count restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _column_counts(n):
-    """(columns, bytes per element) of every launch at length n: kx_visc's
-    float planes, the three xstage modes' complex64 at each P, and the
-    nx float columns of kc and kb (square, and half and twice as wide)."""
+    """(columns, bytes per element) of every launch at length n: the hny
+    float columns of kx_visc, ka's complex inverse and the field
+    x-stages, the three xstage modes' complex64 at each P, and the nx
+    float columns of kc and kb and ny of ka's real forward (square, and
+    half and twice as wide)."""
     hny = n // 2 + 1
     out = [(hny, 4), (n, 4), (n // 2, 4), (2 * n, 4)]
     for p in SHARDS:
@@ -122,16 +134,18 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 # still around colfft
 TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "xstage.cu": {"xstage_kernel": "xt::finish<"},
-                "ka_kc.cu": {"kc_kernel": "xt::finish_transposed<"},
+                "ka_kc.cu": {"ka_kernel": "xt::finish_transposed<",
+                             "kc_kernel": "xt::finish_transposed<"},
+                "ka_diag.cu": {"ka_fields_kernel": "xt::finish_transposed<"},
                 "kb_pair.cu": {"kb_pair_kernel": "xt::finish<",
                                "kb_kernel": "xt::finish_transposed<"},
                 "ky_adv.cu": {"ky_adv_kernel": "xt::finish_transposed<"},
                 "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"}}
-COLFFT_KERNELS = {"ka_kc.cu": ("ka_kernel", "ka_adv_kernel",
-                               "ka_fwd_kernel")}
+COLFFT_KERNELS = {"ka_kc.cu": ("ka_adv_kernel", "ka_fwd_kernel")}
 PLAN_ENTRIES = {"kx_visc.cu": ("xfb_kx_visc", "xfb_kx_visc_tail"),
                 "xstage.cu": ("xfb_xstage",),
-                "ka_kc.cu": ("xfb_kc", "xfb_kc_sw", "xfb_kc_visc"),
+                "ka_kc.cu": ("xfb_ka", "xfb_kc", "xfb_kc_sw", "xfb_kc_visc"),
+                "ka_diag.cu": ("xfb_ka_diag", "xfb_ka6", "xfb_ka_quad"),
                 "kb_pair.cu": ("xfb_kb", "xfb_kb_pair"),
                 "ky_adv.cu": ("xfb_ky_adv",),
                 "kb_adv.cu": ("xfb_kb_adv_full", "xfb_kb_adv_half")}
@@ -158,8 +172,9 @@ def test_plan_agrees_with_the_kernel_source():
     """The CUDA side's constants and its check of a plan are the ones the
     Python plan uses; per __global__ function, the tile kernels run the
     column tile and no colfft, each ending in its own store (kb_pair's
-    natural one, the transposed one of kb, kc, ky_adv and kb_adv), the
-    others still colfft; every tile entry point takes the plan; the
+    natural one, the transposed one of ka, the field x-stages, kb, kc,
+    ky_adv and kb_adv), the others still colfft; every tile entry point
+    takes the plan; the
     paired c2r y-stages share the tile's Hermitian load, and colfft.cuh
     no longer has the column one."""
     src = (_build.CSRC / "xtile.cuh").read_text()
@@ -610,3 +625,160 @@ def test_emulated_kb_adv_is_plain_and_kb_pair_then_ky_adv(n, mode):
     dirty[:, n // 2] = -7.0 * wi[:, n // 2]
     zeta = (None, None) if mode == "full" else (zx, zy)
     assert torch.equal(emulate_kb_adv(wr, dirty, *zeta, src, 1.6), got)
+
+
+# ----- the ka x-stages: ka_kernel (csrc/ka_kc.cu) and ka_fields_kernel
+# (csrc/ka_diag.cu), the full transposed store -----
+
+KA_LENGTHS = [64, 128, 256, 512, 1024]
+# ka's modes: (forward, real input, columns) with the columns of their
+# calls: ny for the real forward of rfft2, hny for the others
+KA_MODES = {"real_forward": (True, True, "n"),
+            "real_inverse": (False, True, "hny"),
+            "complex_forward": (True, False, "hny"),
+            "complex_inverse": (False, False, "hny")}
+
+
+def _cut(n: int, columns: int) -> int:
+    """A call's columns cut to two whole tiles and its last one (hny's
+    one column; none for ny): the plan and each tile's steps are those of
+    n whatever the columns, so three tiles show them all."""
+    c = xtile.xtile_plan(n, 1, 4).c
+    return min(columns, 2 * c + columns % c)
+
+
+def emulate_ka(xr, xi, forward: bool, scale: float):
+    """ka_kernel: the tile of the (n, m) planes (xi None: zero imaginary
+    parts), the transform, the full transposed store of Re * scale and
+    Im * scale: (m, n) planes."""
+    n, m = xr.shape
+    x = torch.complex(xr, torch.zeros_like(xr) if xi is None else xi)
+    got = emulate(_dense(x), n, m, forward, transposed=True)
+    return _scaled(got, scale)
+
+
+@pytest.mark.parametrize("mode", list(KA_MODES))
+@pytest.mark.parametrize("n", KA_LENGTHS)
+def test_emulated_ka_is_ka_plain(n, mode):
+    """ka's tile kernel in each mode at scale 0.37 on (n, m) planes, m =
+    n or hny cut to three tiles (the last of hny one column): ka_plain's
+    (m, n) planes, every output written once."""
+    forward, real, cols = KA_MODES[mode]
+    m = _cut(n, n if cols == "n" else n // 2 + 1)
+    xr, xi = _float_planes(np.random.default_rng(n + 13), (n, m), 2)
+    xi = None if real else xi
+    got = torch.complex(*emulate_ka(xr, xi, forward, 0.37))
+    assert got.shape == (m, n)
+    assert _rel(got, torch.complex(*ff.ka_plain(xr, xi, forward, 0.37))) \
+        < TOL
+
+
+def _field_load(sr, si, rlap, kx, ky, kind: int, psi_first: bool):
+    """ka_fields_kernel's tile load (csrc/ka_diag.cu): field `kind` of the
+    state plane S = sr + i si at row i, column j, each product rounded on
+    its own in the kernel's order: i kx S, i ky S, then -i ky psi and
+    i kx psi with the diagonal first, or psi = S rlap first (psi_first)."""
+    def load(i, j):
+        a, b = sr[i, j], si[i, j]
+        q = kx[i] if kind in (0, 3) else ky[j]
+        if kind < 2:
+            return torch.complex(-(b * q), a * q)
+        r = rlap[i, j]
+        sign = 1.0 if kind == 2 else -1.0
+        if psi_first:
+            re, im = q * (b * r), -(q * (a * r))
+        else:
+            re, im = (b * q) * r, -(a * q) * r
+        return torch.complex(sign * re, sign * im)
+    return load
+
+
+def emulate_fields(sr, si, rlap, kx, ky, first: int, count: int,
+                   psi_first: bool):
+    """ka_fields_kernel on the states (nstate, n, hny): fields first ..
+    first + count - 1 (field g reads state g div 4, kind g mod 4), the
+    cluster index decoded as (tile, field) with the field fastest; the
+    inverse transform and the full transposed store at scale 1: (count,
+    hny, n), every output written exactly once."""
+    _, n, hny = sr.shape
+    e = _Cluster(n, hny, 4)
+    out, writes = _outputs(count * e.tiles * e.c, n)
+    out = out.reshape(count, e.tiles * e.c, n)
+    writes = writes.reshape(count, e.tiles * e.c, n)
+    for cluster in range(e.tiles * count):               # grid x / K
+        f, tile = cluster % count, cluster // count
+        g = f + first
+        load = _field_load(sr[g // 4], si[g // 4], rlap, kx, ky, g % 4,
+                           psi_first)
+        blocks = e.transform(load, tile, False)
+        for rank in range(e.k):
+            k2, col, z = e.combine(blocks, rank, False)
+            e.store_transposed(k2, col, z, tile, rank, False, out[f],
+                               writes[f])
+    assert (writes[:, :hny] == 1).all()
+    return out[:, :hny]
+
+
+def _field_inputs(n, states: int):
+    """States (states, n, h), rlap and the kx, ky tables of an n x n
+    grid (the spectral tables' own, numpy-seeded states), the hny columns
+    cut to h = _cut(n, hny) (the last tile one column)."""
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+
+    t = SpectralTables.build(n, n, 600_000.0, 600_000.0,
+                             device=torch.device("cpu"))
+    h = _cut(n, n // 2 + 1)
+    sr, si = _float_planes(np.random.default_rng(n + 17), (states, n, h), 2)
+    return sr, si, t.rlap[:, :h].contiguous(), t.kx, t.ky[:h].contiguous()
+
+
+FIELD_FORMS = {"ka_diag": (1, [(0, 4)], False),
+               "ka6": (2, [(0, 6)], False),
+               "ka_quad": (1, [(0, 4)], True),
+               "ka_quad_split": (1, [(0, 2), (2, 2)], True)}
+
+
+@pytest.mark.parametrize("form", list(FIELD_FORMS))
+@pytest.mark.parametrize("n", KA_LENGTHS)
+def test_emulated_field_xstages_are_plain(n, form):
+    """ka_fields_kernel as ka_diag, ka6, ka_quad and the split's two
+    calls on the states at the plan's own C and K (the hny columns cut to
+    three tiles, the last one column): their plain versions' (F, h, n)
+    stacks, every output written once."""
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    states, calls, psi_first = FIELD_FORMS[form]
+    sr, si, rlap, kx, ky = _field_inputs(n, states)
+    got = torch.cat([emulate_fields(sr, si, rlap, kx, ky, first, count,
+                                    psi_first) for first, count in calls])
+    if form == "ka6":
+        want = ft.ka6_plain(sr, si, rlap, kx, ky)
+    elif form == "ka_diag":
+        want = ff.ka_diag_plain(sr[0], si[0], rlap, kx, ky)
+    else:
+        want = [torch.cat(p) for p in zip(*(
+            ff.ka_quad_plain(sr[0], si[0], rlap, kx, ky, first, count)
+            for first, count in calls))]
+    assert got.shape == (sum(c for _, c in calls), sr.shape[-1], n)
+    assert _rel(got, torch.complex(*want)) < TOL
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_emulated_field_pins(n):
+    """The pins of one transform: ka_quad's fields 0-1 are ka_diag's,
+    split is quad, ka6's fields 0-3 are ka_diag of S[0] and 4-5 ka_diag's
+    fields 0-1 of S[1], and ka of (-(si kx), sr kx) formed in torch, as
+    a complex inverse at scale 1, is ka_diag's field 0, all bit for bit."""
+    sr, si, rlap, kx, ky = _field_inputs(n, 2)
+    diag0 = emulate_fields(sr[:1], si[:1], rlap, kx, ky, 0, 4, False)
+    diag1 = emulate_fields(sr[1:], si[1:], rlap, kx, ky, 0, 4, False)
+    quad = emulate_fields(sr[:1], si[:1], rlap, kx, ky, 0, 4, True)
+    split = torch.cat([emulate_fields(sr[:1], si[:1], rlap, kx, ky, first,
+                                      2, True) for first in (0, 2)])
+    six = emulate_fields(sr, si, rlap, kx, ky, 0, 6, False)
+    k = kx.reshape(-1, 1)
+    ka = torch.complex(*emulate_ka(-(si[0] * k), sr[0] * k, False, 1.0))
+    assert torch.equal(quad[:2], diag0[:2])
+    assert torch.equal(split, quad)
+    assert torch.equal(six[:4], diag0) and torch.equal(six[4:], diag1[:2])
+    assert torch.equal(ka, diag0[0])

@@ -24,99 +24,126 @@
 //
 // Bound: memory traffic. At 4096^2 ka_diag reads 3 planes of 33.6 MB and
 // writes 8 (about 369 MB), ka6 reads 5 and writes 12 (about 571 MB).
-// Block (f, j) transforms column j of field f; the column read is
-// strided by hny, the row write is contiguous. The field index is the
-// fastest grid axis, so the blocks that read column j run together and
-// all but the first of each state find it in L2.
-#include "colfft.cuh"
+// The column-tile transform of csrc/xtile.cuh, as ka (ka_kc.cu ka_kernel)
+// runs it, with ka's plan for n (ops/xtile.py): a cluster of K blocks
+// owns C adjacent columns j of one field; block r forms rows i = r + K jj
+// of the field's tile from the state, rlap and the kx/ky tables, read in
+// row segments of C floats (plain loads: cp.async cannot compute the
+// diagonal), and the transposed store writes each output row j in runs
+// of contiguous x, through ka's store at scale 1 (exact), so ka of the
+// fields formed in torch gives the same bits. The last of the
+// ceil(hny / C) tiles holds one column (hny = n/2 + 1 is odd): its loads
+// read 0 and its stores are skipped. The cluster index decodes as (tile,
+// field), field fastest, so the clusters that read a tile's columns run
+// together and all but the first of each state find them in L2 (the
+// state, rlap and tables exceed L2 at 4096^2; with the fields on grid y,
+// each one's tiles in turn, ka_diag took 0.495 ms against 0.457 on an
+// H100, PERF.md).
+#include "xtile.cuh"
 
 namespace {
 
+// cluster (tile, f) of field f = cluster mod nfields: columns j0 .. j0 + C;
+// block r of it forms rows r + k jj of the tile, consecutive lanes on
+// consecutive columns
 template <bool PSI_FIRST>
-__global__ void ka_fields_kernel(const float* __restrict__ sr,
-                                 const float* __restrict__ si,
-                                 const float* __restrict__ rlap,
-                                 const float* __restrict__ kx,
-                                 const float* __restrict__ ky,
-                                 const float2* __restrict__ tw,
-                                 float* __restrict__ wr,
-                                 float* __restrict__ wi,
-                                 int n, int logn, int hny, int first) {
-  extern __shared__ float2 s[];
-  const int f = blockIdx.x;           // output field
-  const int g = f + first;            // which of the fields it is
+__global__ void __launch_bounds__(512, 2)
+    ka_fields_kernel(const float* __restrict__ sr,
+                     const float* __restrict__ si,
+                     const float* __restrict__ rlap,
+                     const float* __restrict__ kx,
+                     const float* __restrict__ ky,
+                     const float2* __restrict__ tw, xfb::xtile::RowOut out,
+                     int n, int k, int logc, int first, int nfields) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, n, k, logc);
+  const int hny = out.m;
+  const int cluster = blockIdx.x / k;
+  const int f = cluster % nfields;  // output field
+  const int j0 = (cluster / nfields) << logc;
+  const int g = f + first;          // which of the fields
   const int kind = g & 3;
   const size_t state = static_cast<size_t>(g >> 2) * n * hny;
-  const int j = blockIdx.y;
-  const float kyj = ky[j];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t off = static_cast<size_t>(i) * hny + j;
-    const float a = sr[state + off];
-    const float b = si[state + off];
-    float xr, xi;
-    if (kind == 0) {          // i kx S
-      const float k = kx[i];
-      xr = -(b * k);
-      xi = a * k;
-    } else if (kind == 1) {   // i ky S
-      xr = -(b * kyj);
-      xi = a * kyj;
-    } else if (kind == 2) {   // -i ky psi
-      const float r = rlap[off];
-      xr = PSI_FIRST ? kyj * (b * r) : (b * kyj) * r;
-      xi = PSI_FIRST ? -(kyj * (a * r)) : -(a * kyj) * r;
-    } else {                  // i kx psi
-      const float k = kx[i];
-      const float r = rlap[off];
-      xr = PSI_FIRST ? -(k * (b * r)) : -(b * k) * r;
-      xi = PSI_FIRST ? k * (a * r) : (a * k) * r;
+  const int cmask = (1 << logc) - 1;
+#pragma unroll
+  for (int e = 0; e < xt::kElems; ++e) {
+    const int u = e * blockDim.x + threadIdx.x;
+    const int j = j0 + (u & cmask);
+    const int i = t.rank + k * (u >> logc);
+    float xr = 0.f, xi = 0.f;
+    if (j < hny) {
+      const size_t off = static_cast<size_t>(i) * hny + j;
+      const float a = __ldg(sr + state + off);
+      const float b = __ldg(si + state + off);
+      if (kind == 0) {          // i kx S
+        const float q = __ldg(kx + i);
+        xr = -(b * q);
+        xi = a * q;
+      } else if (kind == 1) {   // i ky S
+        const float q = __ldg(ky + j);
+        xr = -(b * q);
+        xi = a * q;
+      } else if (kind == 2) {   // -i ky psi
+        const float q = __ldg(ky + j);
+        const float r = __ldg(rlap + off);
+        xr = PSI_FIRST ? q * (b * r) : (b * q) * r;
+        xi = PSI_FIRST ? -(q * (a * r)) : -(a * q) * r;
+      } else {                  // i kx psi
+        const float q = __ldg(kx + i);
+        const float r = __ldg(rlap + off);
+        xr = PSI_FIRST ? -(q * (b * r)) : -(b * q) * r;
+        xi = PSI_FIRST ? q * (a * r) : (a * q) * r;
+      }
     }
-    s[xfb::bitrev(i, logn)] = make_float2(xr, xi);
+    t.s[u] = make_float2(xr, xi);
   }
-  xfb::colfft<+1>(s, n, logn, tw);
-  const size_t row = (static_cast<size_t>(f) * hny + j) * n;
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const float2 v = s[x];
-    wr[row + x] = v.x;
-    wi[row + x] = v.y;
-  }
+  __syncthreads();
+  xt::RowOut o = out;
+  o.j0 = j0;
+  o.plane = static_cast<size_t>(f) * hny * n;
+  xt::finish_transposed<+1>(t, tw, false, o);
 }
 
 template <bool PSI_FIRST>
 int launch(int nfields, const float* sr, const float* si, const float* rlap,
            const float* kx, const float* ky, const void* tw, float* wr,
-           float* wi, int n, int hny, int first, int device, void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float2);
-  cudaError_t err = xfb::prepare(
-      reinterpret_cast<const void*>(ka_fields_kernel<PSI_FIRST>), device,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ka_fields_kernel<PSI_FIRST><<<dim3(nfields, hny), xfb::threads_for(n),
-                                smem, static_cast<cudaStream_t>(stream)>>>(
-      sr, si, rlap, kx, ky, static_cast<const float2*>(tw), wr, wi, n,
-      xfb::ilog2(n), hny, first);
-  return static_cast<int>(cudaGetLastError());
+           float* wi, int n, int hny, int first, int tile_c, int cluster_k,
+           int threads, int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(n, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (hny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_fields_kernel<PSI_FIRST>, tiles * nfields, 1, cluster_k,
+      threads, smem, device, static_cast<cudaStream_t>(stream), sr, si, rlap,
+      kx, ky, static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{wr, wi, 0, 0, hny, n, 1.f}, n, cluster_k,
+      xfb::xtile::log2i(tile_c), first, nfields));
 }
 
 }  // namespace
 
-// zr, zi: (n, hny) -> wr, wi: (4, hny, n)
+// zr, zi: (n, hny) -> wr, wi: (4, hny, n). tile_c, cluster_k, threads,
+// smem: the plan of ops/xtile.py for n
 extern "C" int xfb_ka_diag(const float* zr, const float* zi,
                            const float* rlap, const float* kx,
                            const float* ky, const void* tw, float* wr,
-                           float* wi, int n, int hny, int device,
-                           void* stream) {
+                           float* wi, int n, int hny, int tile_c,
+                           int cluster_k, int threads, int smem,
+                           int device, void* stream) {
   return launch<false>(4, zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, 0,
-                       device, stream);
+                       tile_c, cluster_k, threads, smem, device, stream);
 }
 
 // sr2, si2: (2, n, hny) -> wr, wi: (6, hny, n)
 extern "C" int xfb_ka6(const float* sr2, const float* si2, const float* rlap,
                        const float* kx, const float* ky, const void* tw,
-                       float* wr, float* wi, int n, int hny, int device,
-                       void* stream) {
+                       float* wr, float* wi, int n, int hny, int tile_c,
+                       int cluster_k, int threads, int smem,
+                       int device, void* stream) {
   return launch<false>(6, sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny, 0,
-                       device, stream);
+                       tile_c, cluster_k, threads, smem, device, stream);
 }
 
 // zr, zi: (n, hny) -> wr, wi: (count, hny, n), fields first..first+count-1
@@ -125,7 +152,8 @@ extern "C" int xfb_ka_quad(const float* zr, const float* zi,
                            const float* rlap, const float* kx,
                            const float* ky, const void* tw, float* wr,
                            float* wi, int n, int hny, int first, int count,
+                           int tile_c, int cluster_k, int threads, int smem,
                            int device, void* stream) {
   return launch<true>(count, zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first,
-                      device, stream);
+                      tile_c, cluster_k, threads, smem, device, stream);
 }

@@ -4,10 +4,10 @@
 // ka replaces pallas_fft._ka_call / _ka_kernel
 // (xlab_fftbarotropic_tpu/ops/pallas_fft.py:549) in every mode: for each
 // column j of the (n, m) planes x = xr + i xi (xi NULL: real input) it
-// runs the colfft along the n rows, forward (exp(-...)) or inverse
+// runs the DFT along the n rows, forward (exp(-...)) or inverse
 // (exp(+...)), unnormalized, multiplies by `scale` (the TPU kernel folds
-// it into its DFT matrix) and writes the row out[j, :] of the transposed
-// (m, n) planes.
+// it into its DFT matrix; here one rounded product after the DFT) and
+// writes the row out[j, :] of the transposed (m, n) planes.
 //
 // kc replaces pallas_fft._kc_call / _kc_kernel (:1349): for each column
 // x of the y-major (ny, nx) complex planes it runs the forward DFT along
@@ -31,16 +31,19 @@
 // ka_adv + kc_visc is the barotropic x-first tendency, ka_fwd + kc_sw the
 // shallow-water one (COMBINE follows, csrc/sw_combine.cu).
 //
-// Bound: memory traffic. ka, ka_adv and ka_fwd run one column per block
-// around colfft.cuh: every column read is strided (by m or ny), every
-// row write contiguous. kc, kc_sw and kc_visc are one kernel on the
-// column-tile transform of csrc/xtile.cuh: a cluster of K blocks owns C
-// adjacent x columns, so the y-major planes are read in row segments of
-// C floats (64 bytes at C = 16, where a block per column used 4 bytes of
-// each 32-byte sector), and the transposed store hands each output row
-// x to the epilogue in runs of contiguous k, so the (nx, ny/2 + 1)
-// outputs and kc_visc's tables move in whole sectors too; every form
-// runs the plan of ny alone (ops/xtile.py), so one transform's bits.
+// Bound: memory traffic. ka_adv and ka_fwd run one column per block
+// around colfft.cuh: every column read is strided (by ny), every row
+// write contiguous. ka and kc are on the column-tile transform of
+// csrc/xtile.cuh: a cluster of K blocks owns C adjacent columns, so the
+// planes are read in row segments of C floats (64 bytes at C = 16, where
+// a block per column used 4 bytes of each 32-byte sector), and the
+// transposed store hands each output row to the epilogue in runs of
+// contiguous k, so the outputs (and kc_visc's tables) move in whole
+// sectors too. ka runs the plan of n alone, and kc, kc_sw and kc_visc
+// are one kernel on an epilogue with the plan of ny alone (ops/xtile.py),
+// so every form runs one transform's bits. At hny = n/2 + 1 columns (the
+// complex inverse of irfft2 and inverse_pair) the last tile holds one
+// column: its loads read 0 and its stores are skipped past m.
 // At 4096^2 ka (real input) reads 67 MB and writes 134 MB, kc reads 134
 // MB and writes 67 MB; ka_adv reads 336 MB and writes 134 MB, kc_visc
 // reads 268 MB and writes 67 MB, ka_fwd reads 268 MB and writes 671 MB,
@@ -56,30 +59,51 @@ namespace {
 
 // the transformed column in natural order, written as the row at `row`
 __device__ __forceinline__ void store_row(const float2* s, float* yr,
-                                          float* yi, size_t row, int n,
-                                          float scale) {
+                                          float* yi, size_t row, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const float2 v = s[i];
-    yr[row + i] = v.x * scale;
-    yi[row + i] = v.y * scale;
+    yr[row + i] = v.x;
+    yi[row + i] = v.y;
   }
 }
 
+// cluster tile: columns j0 .. j0 + C of the (n, m) planes; block r of it
+// loads rows r + k jj of the tile (xi NULL: zero imaginary parts),
+// consecutive lanes on consecutive columns
 template <int SIGN>
-__global__ void ka_kernel(const float* __restrict__ xr,
-                          const float* __restrict__ xi,
-                          const float2* __restrict__ tw,
-                          float* __restrict__ yr, float* __restrict__ yi,
-                          int n, int logn, int m, float scale) {
-  extern __shared__ float2 s[];
-  const int j = blockIdx.x;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t off = static_cast<size_t>(i) * m + j;
-    s[xfb::bitrev(i, logn)] =
-        make_float2(xr[off], xi == nullptr ? 0.f : xi[off]);
+__global__ void __launch_bounds__(512, 2)
+    ka_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+              const float2* __restrict__ tw, xfb::xtile::RowOut out, int n,
+              int k, int logc) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, n, k, logc);
+  const int m = out.m;
+  const int j0 = (blockIdx.x / k) << logc;
+  const int cmask = (1 << logc) - 1;
+#pragma unroll
+  for (int b = 0; b < xt::kElems; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int x = j0 + (u & cmask);
+    float2* d = t.s + u;
+    if (x < m) {
+      const size_t off =
+          static_cast<size_t>(t.rank + k * (u >> logc)) * m + x;
+      xt::cp_async4(&d->x, xr + off);
+      if (xi != nullptr) {
+        xt::cp_async4(&d->y, xi + off);
+      } else {
+        d->y = 0.f;
+      }
+    } else {
+      *d = make_float2(0.f, 0.f);
+    }
   }
-  xfb::colfft<SIGN>(s, n, logn, tw);
-  store_row(s, yr, yi, static_cast<size_t>(j) * n, n, scale);
+  xt::cp_async_wait_all();
+  __syncthreads();
+  xt::RowOut o = out;
+  o.j0 = j0;
+  xt::finish_transposed<SIGN>(t, tw, false, o);
 }
 
 __global__ void ka_adv_kernel(const float* __restrict__ u,
@@ -100,7 +124,7 @@ __global__ void ka_adv_kernel(const float* __restrict__ u,
     s[xfb::bitrev(i, lognx)] = make_float2(adv, 0.f);
   }
   xfb::colfft<-1>(s, nx, lognx, tw);
-  store_row(s, yr, yi, static_cast<size_t>(j) * nx, nx, 1.f);
+  store_row(s, yr, yi, static_cast<size_t>(j) * nx, nx);
 }
 
 __global__ void ka_fwd_kernel(const float* __restrict__ u,
@@ -131,7 +155,7 @@ __global__ void ka_fwd_kernel(const float* __restrict__ u,
     s[xfb::bitrev(i, lognx)] = make_float2(val, 0.f);
   }
   xfb::colfft<-1>(s, nx, lognx, tw);
-  store_row(s, yr, yi, (static_cast<size_t>(p) * ny + j) * nx, nx, 1.f);
+  store_row(s, yr, yi, (static_cast<size_t>(p) * ny + j) * nx, nx);
 }
 
 // The store of kc's output k of tile column c (field plane `plane` of
@@ -198,17 +222,19 @@ __global__ void __launch_bounds__(512, 2)
 
 template <int SIGN>
 int launch_ka(const float* xr, const float* xi, const void* tw, float* yr,
-              float* yi, int n, int m, float scale, int device,
+              float* yi, int n, int m, float scale, int tile_c,
+              int cluster_k, int threads, int smem, int device,
               void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float2);
-  cudaError_t err = xfb::prepare(
-      reinterpret_cast<const void*>(ka_kernel<SIGN>), device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ka_kernel<SIGN><<<m, xfb::threads_for(n), smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, static_cast<const float2*>(tw), yr, yi, n, xfb::ilog2(n), m,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!xfb::xtile::plan_ok(n, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (m + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_kernel<SIGN>, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), xr, xi,
+      static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{yr, yi, 0, 0, m, n, scale}, n, cluster_k,
+      xfb::xtile::log2i(tile_c)));
 }
 
 int launch_kc(const float* xr, const float* xi, const void* tw, KcOut out,
@@ -227,14 +253,16 @@ int launch_kc(const float* xr, const float* xi, const void* tw, KcOut out,
 
 }  // namespace
 
-// xr, xi (xi NULL: real input): (n, m) -> yr, yi: (m, n)
+// xr, xi (xi NULL: real input): (n, m) -> yr, yi: (m, n). tile_c,
+// cluster_k, threads, smem: the plan of ops/xtile.py for n.
 extern "C" int xfb_ka(const float* xr, const float* xi, const void* tw,
                       float* yr, float* yi, int n, int m, int forward,
-                      float scale, int device, void* stream) {
-  return forward ? launch_ka<-1>(xr, xi, tw, yr, yi, n, m, scale, device,
-                                 stream)
-                 : launch_ka<+1>(xr, xi, tw, yr, yi, n, m, scale, device,
-                                 stream);
+                      float scale, int tile_c, int cluster_k, int threads,
+                      int smem, int device, void* stream) {
+  return forward ? launch_ka<-1>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream)
+                 : launch_ka<+1>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream);
 }
 
 // xr, xi: (ny, nx) -> yr, yi: (nx, ny/2 + 1). tile_c, cluster_k,

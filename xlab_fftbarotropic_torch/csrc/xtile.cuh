@@ -1,6 +1,7 @@
 // xtile: the transform of a column tile, shared by the x-stages of
-// kx_visc.cu and xstage.cu and the y-stages kc (ka_kc.cu), kb and
-// kb_pair (kb_pair.cu), ky_adv (ky_adv.cu) and kb_adv (kb_adv.cu).
+// kx_visc.cu, xstage.cu, ka (ka_kc.cu) and ka_diag.cu and the y-stages
+// kc (ka_kc.cu), kb and kb_pair (kb_pair.cu), ky_adv (ky_adv.cu) and
+// kb_adv (kb_adv.cu).
 //
 // Each transforms along an axis of length n (a power of two 64..8192)
 // whose column axis is contiguous in memory. A tile of C adjacent
@@ -25,8 +26,9 @@
 //      and hands X[k2 + m k1] (k1 < K) to the caller's epilogue, which
 //      stores full row segments again (finish; gather and twiddle_dft
 //      are its steps, which kb_adv runs on two tiles at once); or
-//   3'. the transposed store (finish_transposed), for the y-stages, whose
-//      output rows are the tile's columns: after a second cluster barrier
+//   3'. the transposed store (finish_transposed), for the y-stages and
+//      the ka x-stages, whose output rows are the tile's columns: after a
+//      second cluster barrier
 //      block q stages its m C outputs column-major in its own tile (a
 //      column of m + 16/C values, so a half warp's 16 stores hit 16
 //      banks) and hands them to the epilogue column by column,
@@ -460,6 +462,26 @@ struct HalfOut {
     const size_t off = static_cast<size_t>(x) * hny + k;
     yr[off] = v.x;
     yi[off] = v.y;
+  }
+};
+
+// The store of a full-length transposed x-stage (ka_kc.cu ka_kernel,
+// ka_diag.cu ka_fields_kernel): scale * X[k] of tile column c to yr, yi
+// at [j0 + c, k] of the (m, n) planes from `plane` on, one rounded
+// product (scale = 1 is exact).
+struct RowOut {
+  float* yr;
+  float* yi;
+  size_t plane;
+  int j0, m, n;
+  float scale;
+
+  __device__ __forceinline__ void operator()(int k, int c, float2 v) const {
+    const int x = j0 + c;
+    if (x >= m) return;  // the ragged last tile
+    const size_t off = plane + static_cast<size_t>(x) * n + k;
+    yr[off] = __fmul_rn(v.x, scale);
+    yi[off] = __fmul_rn(v.y, scale);
   }
 };
 

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh, and
-kx_visc.cu, xstage.cu, kc (ka_kc.cu), kb_pair.cu, ky_adv.cu and kb_adv.cu
-sharing csrc/xtile.cuh) compile
+kx_visc.cu, xstage.cu, ka_diag.cu, ka and kc (ka_kc.cu), kb_pair.cu,
+ky_adv.cu and kb_adv.cu sharing csrc/xtile.cuh) compile
 with nvcc for Hopper (sm_90a) into one shared library with a plain C
 interface, loaded with ctypes: pointers and the stream pass as
 ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
@@ -43,10 +43,12 @@ LIB_NAME = "libxfb_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
-    # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, device, stream
-    "xfb_ka_diag": [_P] * 8 + [_I, _I, _I, _P],
-    # sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny, device, stream
-    "xfb_ka6": [_P] * 8 + [_I, _I, _I, _P],
+    # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, tile_c, cluster_k,
+    # threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_ka_diag": [_P] * 8 + [_I] * 7 + [_P],
+    # sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny, tile_c, cluster_k,
+    # threads, smem, device, stream
+    "xfb_ka6": [_P] * 8 + [_I] * 7 + [_P],
     # wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, tile_c, cluster_k,
     # threads, smem (the ops/xtile.py plan), device, stream
     "xfb_kb_pair": [_P, _P, _I, _I] + [_P] * 3 + [_I, _I, _F] + [_I] * 5
@@ -82,8 +84,9 @@ SIGNATURES = {
     # host array of 33 pointers, nx, hny, f0, grav, nu, H, split, scale,
     # device, stream
     "xfb_sw_combine_mv": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
-    # xr, xi, tw, yr, yi, n, m, forward, scale, device, stream
-    "xfb_ka": [_P] * 5 + [_I, _I, _I, _F, _I, _P],
+    # xr, xi, tw, yr, yi, n, m, forward, scale, tile_c, cluster_k,
+    # threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_ka": [_P] * 5 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
     # xr, xi, tw, yr, yi, ny, nx, tile_c, cluster_k, threads, smem,
     # device, stream
     "xfb_kc": [_P] * 5 + [_I] * 7 + [_P],
@@ -98,8 +101,9 @@ SIGNATURES = {
     # u, v, zeta, eta_s, tw, yr, yi, nx, ny, ies, f0, grav, split, device,
     # stream
     "xfb_ka_fwd": [_P] * 7 + [_I, _I, _F, _F, _F, _I, _I, _P],
-    # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first, count, device, stream
-    "xfb_ka_quad": [_P] * 8 + [_I] * 5 + [_P],
+    # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first, count, tile_c,
+    # cluster_k, threads, smem, device, stream
+    "xfb_ka_quad": [_P] * 8 + [_I] * 9 + [_P],
     # fr, fi, lap, mask, zsr, zsi, z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i,
     # tw, nr, ni, nfields, nx, hny, nu, c, tile_c, cluster_k, threads,
     # smem, device, stream

@@ -3,10 +3,10 @@ plane-stepper part of xlab_fftbarotropic_tpu/ops/pallas_fft.py, and the
 launch machinery every kernel wrapper of the port shares.
 
 One RK stage of the barotropic plane stepper runs five launches of four
-kernels, each a hand-written CUDA kernel (csrc/) around the shared
-in-shared-memory column FFT (csrc/colfft.cuh; kb_pair, ky_adv, kx_visc,
-kb_adv, kc, kc_visc and kb around the column-tile transform of
-csrc/xtile.cuh, planned by ops/xtile.py):
+kernels, each a hand-written CUDA kernel (csrc/) around the column-tile
+transform of csrc/xtile.cuh, planned by ops/xtile.py (ka_adv alone of
+this module's kernels is still around the in-shared-memory column FFT
+of csrc/colfft.cuh):
 
   ka_diag   the four derivative fields' inverse x-stage   (stacked out)
   kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
@@ -219,7 +219,7 @@ def ka_diag(zr, zi, rlap, kx, ky):
     wi = torch.empty_like(wr)
     _launch("ka_diag", lib().xfb_ka_diag,
             *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
-            n, hny, zr.device.index, _stream(zr))
+            n, hny, *_xtile_args(n, hny, 4), zr.device.index, _stream(zr))
     return wr, wi
 
 
@@ -252,7 +252,8 @@ def ka_quad(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4):
     wi = torch.empty_like(wr)
     _launch("ka_quad", lib().xfb_ka_quad,
             *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
-            n, hny, first, count, zr.device.index, _stream(zr))
+            n, hny, first, count, *_xtile_args(n, hny, 4), zr.device.index,
+            _stream(zr))
     return wr, wi
 
 
@@ -602,8 +603,8 @@ def ka(xr, xi, forward: bool, scale: float = 1.0):
     _launch("ka", lib().xfb_ka, xr.data_ptr(),
             None if xi is None else xi.data_ptr(),
             *_ptrs(_twiddles(n, xr.device), yr, yi), n, m,
-            1 if forward else 0, float(scale), xr.device.index,
-            _stream(xr))
+            1 if forward else 0, float(scale), *_xtile_args(n, m, 4),
+            xr.device.index, _stream(xr))
     return yr, yi
 
 

@@ -27,8 +27,8 @@ from __future__ import annotations
 import torch
 
 from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
-                        _twiddles, diagonal_fields, inverse_xstage_plain,
-                        kb_pair, kb_pair_plain, kx_visc)
+                        _twiddles, _xtile_args, diagonal_fields,
+                        inverse_xstage_plain, kb_pair, kb_pair_plain, kx_visc)
 from .fused_sw import plane_rk4_combine
 
 # field f of the six reads state f // 4 and takes diagonal kind f % 4
@@ -64,7 +64,7 @@ def tracer_xstage_planes(sr2, si2, kx, ky, rlap):
     wi = torch.empty_like(wr)
     _launch("ka6", lib().xfb_ka6,
             *_ptrs(sr2, si2, rlap, kx, ky, _twiddles(n, sr2.device), wr, wi),
-            n, hny, sr2.device.index, _stream(sr2))
+            n, hny, *_xtile_args(n, hny, 4), sr2.device.index, _stream(sr2))
     return wr, wi
 
 

@@ -1,7 +1,9 @@
 """The launch plan of the column-tile transform (csrc/xtile.cuh).
 
 kx_visc.cu and xstage.cu transform along the x axis of a half spectrum
-whose column axis is the contiguous one; kc (ka_kc.cu: kc, kc_sw,
+whose column axis is the contiguous one, and so do ka (ka_kc.cu) and the
+field x-stages ka_diag, ka6 and ka_quad (ka_diag.cu: one field per
+cluster), each with a transposed store; kc (ka_kc.cu: kc, kc_sw,
 kc_visc), kb_pair and kb (kb_pair.cu), ky_adv (ky_adv.cu) and kb_adv
 (kb_adv.cu: its inverse, then its forward transform, in tiles of C/2
 columns and half the threads) along the y axis of
@@ -79,7 +81,7 @@ def sub_radices(m: int) -> Tuple[int, ...]:
 def xtile_plan(n: int, columns: int, elem_bytes: int) -> XTilePlan:
     """The tile plan of a length-n transform over `columns` columns whose
     elements in device memory are `elem_bytes` wide (4: float planes of
-    kx_visc, kc and kb, 8: the complex64 shards of xstage). Raises on a
+    kx_visc, ka, kc and kb, 8: the complex64 shards of xstage). Raises on a
     shape the kernels do not take."""
     if not supported_length(n):
         raise ValueError(f"xtile: the kernels take power-of-two lengths "
