@@ -17,8 +17,9 @@ exits non-zero and prints no result):
    8 too; each timed at n^2 with CUDA events. First the column-tile
    plan (ops/xtile.py: columns per tile C, blocks per cluster K,
    threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu,
-   ka_kernel (ka_kc.cu, on ny and hny columns) and ka_fields_kernel
-   (ka_diag.cu: ka_diag, ka6, ka_quad) and of the y-stages kc_kernel
+   ka_kernel (ka_kc.cu, on ny and hny columns), ka_fields_kernel
+   (ka_diag.cu: ka_diag, ka6, ka_quad), ka_sw_kernel (ka_sw.cu, on hny)
+   and ka_fwd_kernel (ka_kc.cu, on ny) and of the y-stages kc_kernel
    (ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (kb_pair.cu: kb, the
    x-major kb), kb_pair_kernel, ky_adv_kernel and kb_adv_kernel (half
    and full, in tiles of C/2 columns) at 256^2 and n^2, and every
@@ -27,8 +28,10 @@ exits non-zero and prints no result):
    to kb_stacked transposed and ky_adv to kc of (adv, 0)) and the ka
    x-stages' (ka_quad's fields 0-1 equal to ka_diag's, split to quad,
    ka6 to ka_diag of each state, ka of (-(zi kx), zr kx) at scale 1 to
-   ka_diag's field 0, and the fields-on-y grid order to the
-   field-fastest one).
+   ka_diag's field 0) and the SW x-stages' (ka_sw's four fields equal
+   to ka of sw_fields formed in torch, zeta to ka of (zr, zi), eta_s to
+   ka of (er, ei) at scale eta_scale; ka_fwd's five products, split off
+   and on, to ka's real forward of sw_products formed in torch).
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -854,7 +857,8 @@ def compare(name: str, case: Case, where: str):
 def phase_xtile(n: int) -> dict:
     """The column-tile plans of the x-stages (kx_visc.cu, xstage.cu,
     ka_kernel on the ny columns of rfft2's real forward and the hny of
-    the complex inverse, ka_fields_kernel on hny) and the y-stages
+    the complex inverse, ka_fields_kernel and ka_sw_kernel on hny,
+    ka_fwd_kernel on ny) and the y-stages
     (kc_kernel, kb_kernel, kb_pair_kernel, ky_adv_kernel, kb_adv_kernel:
     the nx columns of float planes; kb_adv in tiles of C/2 columns, two
     of them in full) at 256^2 and n^2, and every kernel's registers and
@@ -872,6 +876,8 @@ def phase_xtile(n: int) -> dict:
                                     ("ka_kernel ny", size, 4),
                                     ("ka_kernel hny", hny, 4),
                                     ("ka_fields_kernel", hny, 4),
+                                    ("ka_sw_kernel", hny, 4),
+                                    ("ka_fwd_kernel", size, 4),
                                     ("kc_kernel", size, 4),
                                     ("kb_kernel", size, 4),
                                     ("kb_pair_kernel", size, 4),
@@ -941,12 +947,54 @@ def ka_pins(n: int, dev, rng) -> dict:
                                                 [d[0] for d in diag0])}
 
 
+def sw_pins(n: int, dev, rng) -> dict:
+    """The shallow-water x-stages' pins at n^2: name -> (got, want)
+    planes that must be equal bit for bit (ka_sw and ka_fwd run ka's plan
+    and transform behind their loads, which round as sw_fields and
+    sw_products do): ka_sw's field f against ka (complex inverse, scale
+    1) of sw_fields' field f formed in torch, field 2 against ka of (zr,
+    zi) and field 3 against ka of (er, ei) at scale eta_scale (a power of
+    two); ka_fwd's product p against ka (real forward, scale 1) of
+    sw_products' product p, split off and on. The one list of these
+    pins: tests/test_torch_cuda_kernels.py checks the same pairs."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+
+    def planes(shape, amps):
+        return [a * torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for a in amps]
+
+    t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
+    state = planes((n, n // 2 + 1), (1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0))
+    es = float(fs.eta_pair_scale(state))
+    wr, wi = fs.ka_sw(*state, t.rlap, t.kx, t.ky, es)
+    re_, im = fs.sw_fields(*state, t.rlap, t.kx, t.ky, es)
+    pins = {f"ka_sw {name} = ka of sw_fields": (
+        [wr[f], wi[f]], list(ff.ka(re_[f], im[f], False)))
+        for f, name in enumerate(("u", "v", "zeta", "eta_s"))}
+    zr, zi, _, _, er, ei = state
+    pins["ka_sw zeta = ka(zr, zi)"] = ([wr[2], wi[2]],
+                                       list(ff.ka(zr, zi, False)))
+    pins["ka_sw eta_s = ka(er, ei) x es"] = ([wr[3], wi[3]],
+                                             list(ff.ka(er, ei, False, es)))
+    fields = planes((n, n), (3.0, 3.0, 1e-4, 1e-4))
+    for split in (False, True):
+        yr, yi = fs.ka_fwd(*fields, 2.0 ** 15, 1e-4, 9.81, split)
+        prods = fs.sw_products(*fields, 2.0 ** 15, 1e-4, 9.81, split)
+        for p in range(len(prods)):
+            pins[f"ka_fwd{' split' if split else ''} {p} = ka of "
+                 f"sw_products"] = ([yr[p], yi[p]],
+                                    list(ff.ka(prods[p], None, True)))
+    return pins
+
+
 def phase_pins(n: int, dev) -> dict:
     """The pins at n^2, bit for bit: the y-first pair's transforms,
     kb_pair (the natural store) equals kb_stacked (the transposed one)
     transposed, on ka_diag's and ka6's stacks, and ky_adv equals kc of
     (adv, 0), adv formed by torch on the card in xfb::advection's order;
-    and the ka x-stages' (ka_pins)."""
+    and the ka x-stages' (ka_pins) and the SW x-stages' (sw_pins)."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     rng = np.random.default_rng(n + 11)
@@ -967,6 +1015,7 @@ def phase_pins(n: int, dev) -> dict:
     pairs["ky_adv = kc of (adv, 0)"] = (ff.ky_adv(u, zx, v, zy, src, 0.3),
                                         ff.kc(adv, torch.zeros_like(adv)))
     pairs.update(ka_pins(n, dev, rng))
+    pairs.update(sw_pins(n, dev, rng))
     out = {}
     for name, (got, want) in pairs.items():
         same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))

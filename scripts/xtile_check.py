@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Check and time the column-tile kernels on one CUDA card: the x-stages of
 csrc/kx_visc.cu and csrc/xstage.cu, ka_kernel (csrc/ka_kc.cu: ka in its
-four modes) and ka_fields_kernel (csrc/ka_diag.cu: ka_diag, ka6, ka_quad
-and split) and the y-stages kc_kernel (csrc/ka_kc.cu: kc, kc_sw,
-kc_visc), kb_kernel (csrc/kb_pair.cu: kb paired and single, the x-major
-kb), kb_pair_kernel (csrc/kb_pair.cu), ky_adv_kernel (csrc/ky_adv.cu)
-and kb_adv_kernel (csrc/kb_adv.cu: full and half), every form against its plain torch version and against the
+four modes), ka_fields_kernel (csrc/ka_diag.cu: ka_diag, ka6, ka_quad
+and split), ka_sw_kernel (csrc/ka_sw.cu) and ka_fwd_kernel
+(csrc/ka_kc.cu: split off and on) and the y-stages kc_kernel
+(csrc/ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (csrc/kb_pair.cu: kb
+paired and single, the x-major kb), kb_pair_kernel (csrc/kb_pair.cu),
+ky_adv_kernel (csrc/ky_adv.cu) and kb_adv_kernel (csrc/kb_adv.cu: full
+and half), every form against its plain torch version and against the
 one torch.fft call of the same transform, at each grid size asked for.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
@@ -19,9 +21,10 @@ checkouts' lines show whether a kernel's bits moved), the kernel's ms
 plain version's ms, the bytes bound at 3.35 TB/s and the share of it
 reached, and the ms of the torch.fft call: fft along x for the x-stages,
 fft or ifft along axis 0 for ka's modes, ifft along x of the stacked
-fields for ka_diag, ka6 and ka_quad (the transform alone: the fields
-formed beforehand), fft along y for kc and kc_sw, irfft along y for kb
-and kb_pair, rfft along y of one plane for ky_adv and kb_adv (the
+fields for ka_diag, ka6, ka_quad and ka_sw and fft along x of the
+stacked products for ka_fwd (the transform alone: the fields and
+products formed beforehand), fft along y for kc and kc_sw, irfft along
+y for kb and kb_pair, rfft along y of one plane for ky_adv and kb_adv (the
 forward transform alone; no torch call computes their whole function).
 Then the card's name and power limit, and the registers and spills of
 the tile kernels from the build's -Xptxas -v output. Exits non-zero past
@@ -121,6 +124,18 @@ def cases(n: int, dev):
     sr, si = planes((2, n, hny), 2)
     cr, ci = planes((n, hny), 2)
     cc = torch.complex(cr, ci)
+    # the SW x-stages at the bench's magnitudes: ka_sw on the state (zeta
+    # 1e-4, div 1e-6, eta 5 m), ka_fwd on x-major fields (u, v 3 m/s, zeta
+    # and eta_s 1e-4); drawn last, so every other form's inputs (and
+    # digest) stay those of the checkouts without them
+    sw = [a * x for a, x in zip((1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0),
+                                planes((n, hny), 6))]
+    sw_args = (*sw, *tab, float(fs.eta_pair_scale(sw)))
+    swc = torch.complex(*(torch.stack(x) for x in fs.sw_fields(*sw_args)))
+    xf = [a * x for a, x in zip((3.0, 3.0, 1e-4, 1e-4), planes((n, n), 4))]
+    fwd = (*xf, 2.0 ** 15, 1e-4, 9.81)
+    prods = {split: torch.stack(fs.sw_products(*fwd, split))
+             for split in (False, True)}
 
     def fields(states, kinds, psi_first=False):
         re_, im = [], []
@@ -169,6 +184,14 @@ def cases(n: int, dev):
                     (sr[0], si[0], t.rlap), ifft_fields(fq)),
         "ka_quad split": (split, split_plain, (sr[0], si[0], t.rlap),
                           ifft_fields(fq)),
+        "ka_sw": (lambda: fs.ka_sw(*sw_args),
+                  lambda: fs.ka_sw_plain(*sw_args), (*sw, t.rlap),
+                  ifft_fields(swc)),
+        "ka_fwd": (lambda: fs.ka_fwd(*fwd), lambda: fs.ka_fwd_plain(*fwd),
+                   tuple(xf), lambda: torch.fft.fft(prods[False], dim=1)),
+        "ka_fwd split": (lambda: fs.ka_fwd(*fwd, True),
+                         lambda: fs.ka_fwd_plain(*fwd, True), tuple(xf),
+                         lambda: torch.fft.fft(prods[True], dim=1)),
         "kx_fwd F=1": (lambda: fs.kx_fwd(fr[None], fi[None]),
                        lambda: fs.kx_fwd_plain(fr[None], fi[None]),
                        (fr, fi), fft(fc)),
@@ -292,7 +315,8 @@ def main(argv=None) -> int:
     log = Path(_build.LAST_BUILD["path"]).parent / "build.log"
     text = log.read_text() if log.exists() else ""
     for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage|"
-                         r"ka_kernel|ka_fields_kernel|kc_kernel|kb_kernel|"
+                         r"ka_kernel|ka_fields_kernel|ka_sw_kernel|"
+                         r"ka_fwd_kernel|kc_kernel|kb_kernel|"
                          r"kb_pair_kernel|ky_adv_kernel|kb_adv_kernel)\w*)'"
                          r".*?\n(.*?Used \d+ registers[^\n]*)", text, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))

@@ -1707,3 +1707,83 @@ def test_ka_pins_bit_for_bit(cuda, n):
     for name, (got, want) in pins.items():
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+# ----- the shallow-water x-stages on the column tile: ka_sw_kernel
+# (csrc/ka_sw.cu) and ka_fwd_kernel (csrc/ka_kc.cu), the full transposed
+# store -----
+
+SW_XSTAGES = ["ka_sw", "ka_fwd", "ka_fwd_split"]
+
+
+def _sw_xstage(form, n, m, dev, seed):
+    """(kernel call, plain call) of a SW x-stage on n-long columns, m of
+    them, at the bench's magnitudes: ka_sw on the state (n, m) with the
+    tables of an n x 2(m - 1) grid, ka_fwd (split off or on) on x-major
+    (n, m) fields; each a list of (m, n) planes, re and im of each field
+    or product."""
+    rng = np.random.default_rng(seed)
+    if form == "ka_sw":
+        t = _tables(n, dev, 2 * (m - 1))
+        amps = (1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0)
+        state = [a * p for a, p in zip(amps, _planes(rng, (n, m), 6, dev))]
+        args = (*state, t.rlap, t.kx, t.ky, float(fs.eta_pair_scale(state)))
+        return (lambda: _per_field(fs.ka_sw(*args)),
+                lambda: _per_field(fs.ka_sw_plain(*args)))
+    u, v, zeta, eta_s = (a * p for a, p in zip(
+        (3.0, 3.0, 1e-4, 1e-4), _planes(rng, (n, m), 4, dev)))
+    args = (u, v, zeta, eta_s, 2.0 ** 15, 1e-4, 9.81, form == "ka_fwd_split")
+    return (lambda: _per_field(fs.ka_fwd(*args)),
+            lambda: _per_field(fs.ka_fwd_plain(*args)))
+
+
+@pytest.mark.parametrize("form", SW_XSTAGES)
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_sw_xstages_ragged_last_tile(cuda, n, form):
+    """m no multiple of the tile: one column past three whole tiles (as
+    ka_sw's hny, whose last tile always holds one column), and a single
+    tile with one dead column; no store lands past the m rows of a field
+    or product (the next one's plane stays the plain one's)."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    c = xtile_plan(n, 1, 4).c
+    for m in (3 * c + 1, c - 1):
+        kern, plain = _sw_xstage(form, n, m, cuda, n + m)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got[0].shape == (m, n)
+        _assert_fields_close(got, want)
+
+
+def test_sw_xstages_refuse_a_plan_they_do_not_take(cuda):
+    """ka_sw and ka_fwd check the plan they are handed: one that is not
+    ops/xtile.py's for the length fails the launch."""
+    from xlab_fftbarotropic_torch.ops._build import lib
+
+    n = 256
+    hny = n // 2 + 1
+    x = torch.zeros((n, n), device=cuda)
+    y = torch.empty((5, n, n), device=cuda)
+    tw = ff._twiddles(n, cuda)
+    c, k, threads, smem = ff._xtile_args(n, n, 4)
+    stream = ff._stream(x)
+    for plan in ((c, k, threads + 32, smem), (c, k, threads, smem - 8),
+                 (c, 3, threads, smem)):
+        assert lib().xfb_ka_sw(*ff._ptrs(*[x] * 9, tw, y, y), n, hny, 1.0,
+                               *plan, cuda.index, stream) != 0
+        assert lib().xfb_ka_fwd(*ff._ptrs(x, x, x, x, tw, y, y), n, n, 1.0,
+                                1e-4, 9.81, 0, *plan, cuda.index,
+                                stream) != 0
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_sw_pins_bit_for_bit(cuda, n):
+    """ka_sw and ka_fwd run ka's plan and transform behind their loads, so
+    ka of the fields and products formed in torch gives their bits:
+    chip_smoke.py's sw_pins, the one list of them."""
+    from chip_smoke import sw_pins
+
+    pins = sw_pins(n, cuda, np.random.default_rng(n + 23))
+    for name, (got, want) in pins.items():
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name

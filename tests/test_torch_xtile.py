@@ -29,6 +29,16 @@ once, then ky_adv's forward transform; in tiles of C/2 columns), held
 to their plain versions, and kb_adv exactly the emulated ky_adv of the
 emulated kb_pair's outputs.
 
+The full-length x-stages with the transposed store: ka (every mode) and
+the stacked ones, whose cluster index decodes as (tile, field) with the
+field fastest and whose load forms each field as the tile loads: the
+derivative fields (ka_diag, ka6, ka_quad), the shallow-water fields
+(ka_sw, on hny columns: the last tile one column) and products (ka_fwd,
+split off and on). Stored as RowOut does into flat (F columns, n)
+planes, dead columns skipped, every output written exactly once; held to
+their plain versions, and the pins (the stacked kernels equal ka of the
+fields and products formed in torch) bit for bit.
+
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
 gather at P = 1, 2, 4, 8, nx for kc and kb), every column is covered
@@ -135,17 +145,21 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "xstage.cu": {"xstage_kernel": "xt::finish<"},
                 "ka_kc.cu": {"ka_kernel": "xt::finish_transposed<",
+                             "ka_fwd_kernel": "xt::finish_transposed<",
                              "kc_kernel": "xt::finish_transposed<"},
                 "ka_diag.cu": {"ka_fields_kernel": "xt::finish_transposed<"},
+                "ka_sw.cu": {"ka_sw_kernel": "xt::finish_transposed<"},
                 "kb_pair.cu": {"kb_pair_kernel": "xt::finish<",
                                "kb_kernel": "xt::finish_transposed<"},
                 "ky_adv.cu": {"ky_adv_kernel": "xt::finish_transposed<"},
                 "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"}}
-COLFFT_KERNELS = {"ka_kc.cu": ("ka_adv_kernel", "ka_fwd_kernel")}
+COLFFT_KERNELS = {"ka_kc.cu": ("ka_adv_kernel",)}
 PLAN_ENTRIES = {"kx_visc.cu": ("xfb_kx_visc", "xfb_kx_visc_tail"),
                 "xstage.cu": ("xfb_xstage",),
-                "ka_kc.cu": ("xfb_ka", "xfb_kc", "xfb_kc_sw", "xfb_kc_visc"),
+                "ka_kc.cu": ("xfb_ka", "xfb_ka_fwd", "xfb_kc", "xfb_kc_sw",
+                             "xfb_kc_visc"),
                 "ka_diag.cu": ("xfb_ka_diag", "xfb_ka6", "xfb_ka_quad"),
+                "ka_sw.cu": ("xfb_ka_sw",),
                 "kb_pair.cu": ("xfb_kb", "xfb_kb_pair"),
                 "ky_adv.cu": ("xfb_ky_adv",),
                 "kb_adv.cu": ("xfb_kb_adv_full", "xfb_kb_adv_half")}
@@ -172,8 +186,9 @@ def test_plan_agrees_with_the_kernel_source():
     """The CUDA side's constants and its check of a plan are the ones the
     Python plan uses; per __global__ function, the tile kernels run the
     column tile and no colfft, each ending in its own store (kb_pair's
-    natural one, the transposed one of ka, the field x-stages, kb, kc,
-    ky_adv and kb_adv), the others still colfft; every tile entry point
+    natural one, the transposed one of ka, ka_fwd, the field x-stages,
+    ka_sw, kb, kc, ky_adv and kb_adv), the others still colfft; every
+    tile entry point
     takes the plan; the
     paired c2r y-stages share the tile's Hermitian load, and colfft.cuh
     no longer has the column one."""
@@ -321,11 +336,12 @@ class _Cluster:
                             for r in range(self.k)])
 
     def store_transposed(self, k2, col, z, tile: int, rank: int,
-                         half: bool, out, writes) -> None:
+                         half: bool, out, writes, plane: int = 0) -> None:
         """combine_staged() and finish_transposed(): block `rank` stages
         its outputs column-major (stride m + 16/C) in its own tile and
-        hands column c's values out in k order into out[j0 + c, k]; with
-        `half` only k <= n/2."""
+        hands column c's values out in k order into out[plane + j0 + c,
+        k]; with `half` only k <= n/2. Columns past the last are skipped,
+        as the kernels' stores skip them."""
         c, m, mk, j0 = self.c, self.m, self.mk, tile * self.c
         stride = m + 16 // c
         assert c * stride <= m * c + m               # the tile + W_m table
@@ -337,10 +353,14 @@ class _Cluster:
         uo = torch.arange(length * c)
         co, i = uo // length, uo % length
         kout = rank * mk + i % mk + m * (i // mk)
-        _put(out, writes, (j0 + co, kout), staged[co * stride + i])
+        live = j0 + co < self.columns
+        _put(out, writes, (plane + j0 + co[live], kout[live]),
+             staged[(co * stride + i)[live]])
         if half and rank == 0:
             co = torch.arange(c)
-            _put(out, writes, (j0 + co, torch.full_like(co, self.n // 2)),
+            co = co[j0 + co < self.columns]
+            _put(out, writes,
+                 (plane + j0 + co, torch.full_like(co, self.n // 2)),
                  staged[co * stride + m // 2])
 
 
@@ -693,30 +713,38 @@ def _field_load(sr, si, rlap, kx, ky, kind: int, psi_first: bool):
     return load
 
 
+def _emulate_stack(loads, n: int, columns: int, forward: bool):
+    """A stacked full-length x-stage (ka_fields_kernel, ka_sw_kernel,
+    ka_fwd_kernel): field f of F = len(loads) from loads[f](rows,
+    columns), the cluster index decoded as (tile, field) with the field
+    fastest, the transform and the full transposed store at scale 1
+    (RowOut: field f's column x to row f columns + x of the flat (F
+    columns, n) planes, so a store past the ragged edge would land in
+    the next field's): (F, columns, n), every output written exactly
+    once."""
+    count = len(loads)
+    e = _Cluster(n, columns, 4)
+    out, writes = _outputs(count * columns, n)
+    for cluster in range(e.tiles * count):               # grid x / K
+        f, tile = cluster % count, cluster // count
+        blocks = e.transform(loads[f], tile, forward)
+        for rank in range(e.k):
+            k2, col, z = e.combine(blocks, rank, forward)
+            e.store_transposed(k2, col, z, tile, rank, False, out, writes,
+                               plane=f * columns)
+    return _written_once(out, writes, count * columns, n).reshape(
+        count, columns, n)
+
+
 def emulate_fields(sr, si, rlap, kx, ky, first: int, count: int,
                    psi_first: bool):
     """ka_fields_kernel on the states (nstate, n, hny): fields first ..
     first + count - 1 (field g reads state g div 4, kind g mod 4), the
-    cluster index decoded as (tile, field) with the field fastest; the
-    inverse transform and the full transposed store at scale 1: (count,
-    hny, n), every output written exactly once."""
+    inverse transform: (count, hny, n)."""
     _, n, hny = sr.shape
-    e = _Cluster(n, hny, 4)
-    out, writes = _outputs(count * e.tiles * e.c, n)
-    out = out.reshape(count, e.tiles * e.c, n)
-    writes = writes.reshape(count, e.tiles * e.c, n)
-    for cluster in range(e.tiles * count):               # grid x / K
-        f, tile = cluster % count, cluster // count
-        g = f + first
-        load = _field_load(sr[g // 4], si[g // 4], rlap, kx, ky, g % 4,
-                           psi_first)
-        blocks = e.transform(load, tile, False)
-        for rank in range(e.k):
-            k2, col, z = e.combine(blocks, rank, False)
-            e.store_transposed(k2, col, z, tile, rank, False, out[f],
-                               writes[f])
-    assert (writes[:, :hny] == 1).all()
-    return out[:, :hny]
+    loads = [_field_load(sr[g // 4], si[g // 4], rlap, kx, ky, g % 4,
+                         psi_first) for g in range(first, first + count)]
+    return _emulate_stack(loads, n, hny, False)
 
 
 def _field_inputs(n, states: int):
@@ -782,3 +810,148 @@ def test_emulated_field_pins(n):
     assert torch.equal(split, quad)
     assert torch.equal(six[:4], diag0) and torch.equal(six[4:], diag1[:2])
     assert torch.equal(ka, diag0[0])
+
+
+# ----- the shallow-water x-stages: ka_sw_kernel (csrc/ka_sw.cu) and
+# ka_fwd_kernel (csrc/ka_kc.cu), the full transposed store -----
+
+def _sw_load(f: int, zr, zi, dr, di, er, ei, rlap, kx, ky, es: float):
+    """ka_sw_kernel's tile load (csrc/ka_sw.cu sw_field): field f of the
+    SW state at row i, column j, each product and sum rounded on its own
+    in the kernel's order: u, v, zeta, eta_scale * eta."""
+    def load(i, j):
+        if f == 2:
+            return torch.complex(zr[i, j], zi[i, j])
+        if f == 3:
+            return torch.complex(er[i, j] * es, ei[i, j] * es)
+        k, q, r = kx[i], ky[j], rlap[i, j]
+        a, b, c, d = zr[i, j], zi[i, j], dr[i, j], di[i, j]
+        if f == 0:
+            return torch.complex((b * q) * r - (d * k) * r,
+                                 -((a * q) * r) + (c * k) * r)
+        return torch.complex(-((b * k) * r) - (d * q) * r,
+                             (a * k) * r + (c * q) * r)
+    return load
+
+
+def emulate_sw_fields(state, rlap, kx, ky, es: float):
+    """ka_sw_kernel on the six state planes (n, hny): the four fields,
+    field fastest, the inverse transform: (4, hny, n)."""
+    n, hny = state[0].shape
+    loads = [_sw_load(f, *state, rlap, kx, ky, es) for f in range(4)]
+    return _emulate_stack(loads, n, hny, False)
+
+
+def _product_load(p: int, u, v, zeta, eta_s, ies: float, f0: float,
+                  grav: float, split: bool):
+    """ka_fwd_kernel's tile load (csrc/epilogue.cuh sw_product): product
+    p of the x-major fields at row i, column j, zero imaginary part, each
+    product and sum rounded on its own in the kernel's order."""
+    def load(i, j):
+        a, b = u[i, j], v[i, j]
+        if p < 2:
+            q = zeta[i, j] if split else zeta[i, j] + f0
+            val = q * (a if p == 0 else b)
+        elif p < 4:
+            val = (eta_s[i, j] * ies) * (a if p == 2 else b)
+        else:
+            ke = 0.5 * (a * a + b * b)
+            val = ke if split else grav * (eta_s[i, j] * ies) + ke
+        return torch.complex(val, torch.zeros_like(val))
+    return load
+
+
+def emulate_ka_fwd(fields, ies: float, f0: float, grav: float,
+                   split: bool):
+    """ka_fwd_kernel on the x-major (nx, ny) u, v, zeta, eta_s: the five
+    products, product fastest, the forward transform: (5, ny, nx)."""
+    nx, ny = fields[0].shape
+    loads = [_product_load(p, *fields, ies, f0, grav, split)
+             for p in range(5)]
+    return _emulate_stack(loads, nx, ny, True)
+
+
+def _sw_inputs(n):
+    """The six SW state planes at the bench's magnitudes (zeta 1e-4, div
+    1e-6, eta 5 m), the hny columns cut to h = _cut(n, hny) (the last
+    tile one column), rlap, kx, ky of an n x n grid and the pairing
+    equalizer."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    _, _, rlap, kx, ky = _field_inputs(n, 1)
+    amps = (1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0)
+    state = [a * p for a, p in zip(amps, _float_planes(
+        np.random.default_rng(n + 23), (n, rlap.shape[1]), 6))]
+    return state, rlap, kx, ky, float(fs.eta_pair_scale(state))
+
+
+def _x_fields(n):
+    """u, v (3 m/s), zeta and eta_s (1e-4) x-major (n, ny), the ny = n
+    columns cut to _cut(n, n), and ies, f0, g of the bench."""
+    u, v, zeta, eta_s = _float_planes(np.random.default_rng(n + 29),
+                                      (n, _cut(n, n)), 4)
+    return [3.0 * u, 3.0 * v, 1e-4 * zeta, 1e-4 * eta_s], 2.0 ** 15, 1e-4, 9.81
+
+
+def _assert_each_close(got, want):
+    """Each field or product on its own (their sizes differ by 1e5)."""
+    assert got.shape == want.shape
+    for g, w in zip(got, want):
+        assert _rel(g, w) < TOL
+
+
+@pytest.mark.parametrize("n", KA_LENGTHS)
+def test_emulated_ka_sw_is_ka_sw_plain(n):
+    """ka_sw's tile kernel on the SW state at the plan's own C and K (the
+    hny columns cut to three tiles, the last one column): ka_sw_plain's
+    (4, h, n) stack, every output written once."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    state, rlap, kx, ky, es = _sw_inputs(n)
+    got = emulate_sw_fields(state, rlap, kx, ky, es)
+    want = torch.complex(*fs.ka_sw_plain(*state, rlap, kx, ky, es))
+    assert got.shape == (4, rlap.shape[1], n)
+    _assert_each_close(got, want)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["full", "split"])
+@pytest.mark.parametrize("n", KA_LENGTHS)
+def test_emulated_ka_fwd_is_ka_fwd_plain(n, split):
+    """ka_fwd's tile kernel on x-major (n, ny) fields at the plan's own C
+    and K (ny cut to two tiles), split off and on: ka_fwd_plain's (5, ny,
+    n) stack, every output written once."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    fields, ies, f0, grav = _x_fields(n)
+    got = emulate_ka_fwd(fields, ies, f0, grav, split)
+    want = torch.complex(*fs.ka_fwd_plain(*fields, ies, f0, grav, split))
+    assert got.shape == (5, fields[0].shape[1], n)
+    _assert_each_close(got, want)
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_emulated_sw_pins(n):
+    """The pins of one transform: ka_sw's field f is ka (complex inverse,
+    scale 1) of sw_fields' field f formed in torch, so field 2 is ka of
+    (zr, zi) and field 3 ka of (er, ei) at scale eta_scale (a power of
+    two); ka_fwd's product p is ka (real forward, scale 1) of
+    sw_products' product p, split off and on; all bit for bit."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    state, rlap, kx, ky, es = _sw_inputs(n)
+    got = emulate_sw_fields(state, rlap, kx, ky, es)
+    re_, im = fs.sw_fields(*state, rlap, kx, ky, es)
+    for f in range(4):
+        ka = torch.complex(*emulate_ka(re_[f], im[f], False, 1.0))
+        assert torch.equal(got[f], ka), f
+    zr, zi, _, _, er, ei = state
+    assert torch.equal(got[2], torch.complex(*emulate_ka(zr, zi, False,
+                                                         1.0)))
+    assert torch.equal(got[3], torch.complex(*emulate_ka(er, ei, False, es)))
+    fields, ies, f0, grav = _x_fields(n)
+    for split in (False, True):
+        got = emulate_ka_fwd(fields, ies, f0, grav, split)
+        prods = fs.sw_products(*fields, ies, f0, grav, split)
+        for p in range(5):
+            ka = torch.complex(*emulate_ka(prods[p], None, True, 1.0))
+            assert torch.equal(got[p], ka), (split, p)

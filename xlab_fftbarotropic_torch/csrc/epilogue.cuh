@@ -5,7 +5,9 @@
 // torch plain versions. A fused kernel and the unfused pair it replaces
 // then give the same bits: kb_adv and ky_adv (advection), kx_visc, visc
 // and kc_visc (the viscosity epilogue), kx_visc's tail and rk4_combine
-// (the RK4 tail).
+// (the RK4 tail). ka_fwd's products (sw_product) round in the order of
+// ops/fused_sw.py sw_products, so ka of the products formed in torch gives
+// ka_fwd's bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,6 +44,33 @@ __device__ __forceinline__ float rk4_tail(float z0, float r1, float r2,
   t = __fadd_rn(t, __fmul_rn(2.0f, r3));
   t = __fadd_rn(t, r4);
   return __fadd_rn(z0, __fmul_rn(t, c));
+}
+
+// Product p of the shallow-water forward stage at `off` of the (nx, ny)
+// u, v, zeta, eta_s planes: q u, q v, eta u, eta v, phi, with eta = eta_s
+// ies (exact: ies is a power of two), q = zeta + f0 and phi = g eta +
+// (u u + v v) / 2; split leaves out f0 and g eta. Reads only the planes
+// product p needs: pallas_sw._ka_fwd_kernel (:450), in sw_products' order.
+__device__ __forceinline__ float sw_product(int p, const float* __restrict__ u,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ zeta,
+                                            const float* __restrict__ eta_s,
+                                            size_t off, float ies, float f0,
+                                            float grav, bool split) {
+  if (p < 2) {
+    const float z = __ldg(zeta + off);
+    const float q = split ? z : __fadd_rn(z, f0);
+    return __fmul_rn(q, __ldg((p == 0 ? u : v) + off));
+  }
+  if (p < 4) {
+    const float eta = __fmul_rn(__ldg(eta_s + off), ies);
+    return __fmul_rn(eta, __ldg((p == 2 ? u : v) + off));
+  }
+  const float a = __ldg(u + off), b = __ldg(v + off);
+  const float ke =
+      __fmul_rn(0.5f, __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
+  if (split) return ke;
+  return __fadd_rn(__fmul_rn(grav, __fmul_rn(__ldg(eta_s + off), ies)), ke);
 }
 
 }  // namespace xfb

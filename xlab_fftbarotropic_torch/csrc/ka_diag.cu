@@ -28,8 +28,8 @@
 // runs it, with ka's plan for n (ops/xtile.py): a cluster of K blocks
 // owns C adjacent columns j of one field; block r forms rows i = r + K jj
 // of the field's tile from the state, rlap and the kx/ky tables, read in
-// row segments of C floats (plain loads: cp.async cannot compute the
-// diagonal), and the transposed store writes each output row j in runs
+// row segments of C floats (xtile.cuh load_rows: plain loads, since
+// cp.async cannot compute the diagonal), and the transposed store writes each output row j in runs
 // of contiguous x, through ka's store at scale 1 (exact), so ka of the
 // fields formed in torch gives the same bits. The last of the
 // ceil(hny / C) tiles holds one column (hny = n/2 + 1 is odd): its loads
@@ -65,39 +65,27 @@ __global__ void __launch_bounds__(512, 2)
   const int g = f + first;          // which of the fields
   const int kind = g & 3;
   const size_t state = static_cast<size_t>(g >> 2) * n * hny;
-  const int cmask = (1 << logc) - 1;
-#pragma unroll
-  for (int e = 0; e < xt::kElems; ++e) {
-    const int u = e * blockDim.x + threadIdx.x;
-    const int j = j0 + (u & cmask);
-    const int i = t.rank + k * (u >> logc);
-    float xr = 0.f, xi = 0.f;
-    if (j < hny) {
-      const size_t off = static_cast<size_t>(i) * hny + j;
-      const float a = __ldg(sr + state + off);
-      const float b = __ldg(si + state + off);
-      if (kind == 0) {          // i kx S
-        const float q = __ldg(kx + i);
-        xr = -(b * q);
-        xi = a * q;
-      } else if (kind == 1) {   // i ky S
-        const float q = __ldg(ky + j);
-        xr = -(b * q);
-        xi = a * q;
-      } else if (kind == 2) {   // -i ky psi
-        const float q = __ldg(ky + j);
-        const float r = __ldg(rlap + off);
-        xr = PSI_FIRST ? q * (b * r) : (b * q) * r;
-        xi = PSI_FIRST ? -(q * (a * r)) : -(a * q) * r;
-      } else {                  // i kx psi
-        const float q = __ldg(kx + i);
-        const float r = __ldg(rlap + off);
-        xr = PSI_FIRST ? -(q * (b * r)) : -(b * q) * r;
-        xi = PSI_FIRST ? q * (a * r) : (a * q) * r;
-      }
+  xt::load_rows(t, j0, hny, [&](int i, int j, size_t off) {
+    const float a = __ldg(sr + state + off);
+    const float b = __ldg(si + state + off);
+    if (kind == 0) {          // i kx S
+      const float q = __ldg(kx + i);
+      return make_float2(-(b * q), a * q);
     }
-    t.s[u] = make_float2(xr, xi);
-  }
+    if (kind == 1) {          // i ky S
+      const float q = __ldg(ky + j);
+      return make_float2(-(b * q), a * q);
+    }
+    const float r = __ldg(rlap + off);
+    if (kind == 2) {          // -i ky psi
+      const float q = __ldg(ky + j);
+      return PSI_FIRST ? make_float2(q * (b * r), -(q * (a * r)))
+                       : make_float2((b * q) * r, -(a * q) * r);
+    }
+    const float q = __ldg(kx + i);   // i kx psi
+    return PSI_FIRST ? make_float2(-(q * (b * r)), q * (a * r))
+                     : make_float2(-(b * q) * r, (a * q) * r);
+  });
   __syncthreads();
   xt::RowOut o = out;
   o.j0 = j0;

@@ -26,36 +26,41 @@
 //     beta for beta != 0), in ky_adv's expression order;
 //   ka_fwd (pallas_sw._ka_fwd_kernel, ops/pallas_sw.py:450): the five
 //     shallow-water products of csrc/ky_all.cu (q u, q v, eta u, eta v,
-//     phi; eta = eta_s * ies unscales the pairing equalizer exactly), one
-//     product per block, written to (5, ny, nx).
+//     phi; eta = eta_s * ies unscales the pairing equalizer exactly), each
+//     rounded as ops/fused_sw.py sw_products (epilogue.cuh sw_product),
+//     one product per cluster, written to (5, ny, nx).
 // ka_adv + kc_visc is the barotropic x-first tendency, ka_fwd + kc_sw the
 // shallow-water one (COMBINE follows, csrc/sw_combine.cu).
 //
-// Bound: memory traffic. ka_adv and ka_fwd run one column per block
-// around colfft.cuh: every column read is strided (by ny), every row
-// write contiguous. ka and kc are on the column-tile transform of
+// Bound: memory traffic. ka_adv runs one column per block around
+// colfft.cuh: every column read is strided (by ny), every row write
+// contiguous. ka, ka_fwd and kc are on the column-tile transform of
 // csrc/xtile.cuh: a cluster of K blocks owns C adjacent columns, so the
 // planes are read in row segments of C floats (64 bytes at C = 16, where
 // a block per column used 4 bytes of each 32-byte sector), and the
 // transposed store hands each output row to the epilogue in runs of
 // contiguous k, so the outputs (and kc_visc's tables) move in whole
-// sectors too. ka runs the plan of n alone, and kc, kc_sw and kc_visc
-// are one kernel on an epilogue with the plan of ny alone (ops/xtile.py),
-// so every form runs one transform's bits. At hny = n/2 + 1 columns (the
+// sectors too. ka and ka_fwd run the plan of n alone (ka_fwd: ka's real
+// forward behind a load that forms the product, so ka of the products
+// formed in torch gives its bits), and kc, kc_sw and kc_visc are one
+// kernel on an epilogue with the plan of ny alone (ops/xtile.py), so
+// every form runs one transform's bits. At hny = n/2 + 1 columns (the
 // complex inverse of irfft2 and inverse_pair) the last tile holds one
 // column: its loads read 0 and its stores are skipped past m.
 // At 4096^2 ka (real input) reads 67 MB and writes 134 MB, kc reads 134
 // MB and writes 67 MB; ka_adv reads 336 MB and writes 134 MB, kc_visc
 // reads 268 MB and writes 67 MB, ka_fwd reads 268 MB and writes 671 MB,
-// kc_sw reads 671 MB and writes 336 MB. Block
-// (p, j) of ka_fwd reads the same four columns for each of the five
-// products; the product index is the fastest grid axis, so all but the
-// first of them find the columns in L2.
+// kc_sw reads 671 MB and writes 336 MB. ka_fwd's cluster index decodes
+// as (tile, product), product fastest, so the five clusters of a tile
+// run together and all but the first to read a plane's columns find
+// them in L2; each reads only the planes its product needs.
 #include "colfft.cuh"
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
 namespace {
+
+constexpr int kProducts = 5;  // ka_fwd's q u, q v, eta u, eta v, phi
 
 // the transformed column in natural order, written as the row at `row`
 __device__ __forceinline__ void store_row(const float2* s, float* yr,
@@ -127,35 +132,33 @@ __global__ void ka_adv_kernel(const float* __restrict__ u,
   store_row(s, yr, yi, static_cast<size_t>(j) * nx, nx);
 }
 
-__global__ void ka_fwd_kernel(const float* __restrict__ u,
-                              const float* __restrict__ v,
-                              const float* __restrict__ zeta,
-                              const float* __restrict__ eta_s,
-                              const float2* __restrict__ tw,
-                              float* __restrict__ yr, float* __restrict__ yi,
-                              int nx, int lognx, int ny, float ies, float f0,
-                              float grav, int split) {
-  extern __shared__ float2 s[];
-  const int p = blockIdx.x;
-  const int j = blockIdx.y;
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    const size_t off = static_cast<size_t>(i) * ny + j;
-    const float uu = u[off], vv = v[off];
-    float val;
-    if (p < 2) {
-      const float q = split ? zeta[off] : zeta[off] + f0;
-      val = q * (p == 0 ? uu : vv);
-    } else if (p < 4) {
-      const float eta = eta_s[off] * ies;
-      val = eta * (p == 2 ? uu : vv);
-    } else {
-      const float ke = 0.5f * (uu * uu + vv * vv);
-      val = split ? ke : grav * (eta_s[off] * ies) + ke;
-    }
-    s[xfb::bitrev(i, lognx)] = make_float2(val, 0.f);
-  }
-  xfb::colfft<-1>(s, nx, lognx, tw);
-  store_row(s, yr, yi, (static_cast<size_t>(p) * ny + j) * nx, nx);
+// cluster (tile, p) of product p = cluster mod 5: columns j0 .. j0 + C of
+// the x-major (nx, ny) fields; block r of it forms rows r + k jj of the
+// tile (zero imaginary parts), consecutive lanes on consecutive columns
+__global__ void __launch_bounds__(512, 2)
+    ka_fwd_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                  const float* __restrict__ zeta,
+                  const float* __restrict__ eta_s,
+                  const float2* __restrict__ tw, xfb::xtile::RowOut out,
+                  int nx, int k, int logc, float ies, float f0, float grav,
+                  int split) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, nx, k, logc);
+  const int ny = out.m;
+  const int cluster = blockIdx.x / k;
+  const int p = cluster % kProducts;
+  const int j0 = (cluster / kProducts) << logc;
+  xt::load_rows(t, j0, ny, [&](int, int, size_t off) {
+    return make_float2(
+        xfb::sw_product(p, u, v, zeta, eta_s, off, ies, f0, grav, split != 0),
+        0.f);
+  });
+  __syncthreads();
+  xt::RowOut o = out;
+  o.j0 = j0;
+  o.plane = static_cast<size_t>(p) * ny * nx;
+  xt::finish_transposed<-1>(t, tw, false, o);
 }
 
 // The store of kc's output k of tile column c (field plane `plane` of
@@ -318,18 +321,21 @@ extern "C" int xfb_ka_adv(const float* u, const float* zx, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// u, v, zeta, eta_s: (nx, ny) x-major -> yr, yi: (5, ny, nx)
+// u, v, zeta, eta_s: (nx, ny) x-major -> yr, yi: (5, ny, nx). tile_c,
+// cluster_k, threads, smem: the plan of ops/xtile.py for nx
 extern "C" int xfb_ka_fwd(const float* u, const float* v, const float* zeta,
                           const float* eta_s, const void* tw, float* yr,
                           float* yi, int nx, int ny, float ies, float f0,
-                          float grav, int split, int device, void* stream) {
-  const size_t smem = static_cast<size_t>(nx) * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(ka_fwd_kernel),
-                                 device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ka_fwd_kernel<<<dim3(5, ny), xfb::threads_for(nx), smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      u, v, zeta, eta_s, static_cast<const float2*>(tw), yr, yi, nx,
-      xfb::ilog2(nx), ny, ies, f0, grav, split);
-  return static_cast<int>(cudaGetLastError());
+                          float grav, int split, int tile_c, int cluster_k,
+                          int threads, int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (ny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_fwd_kernel, tiles * kProducts, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
+      static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
+      xfb::xtile::log2i(tile_c), ies, f0, grav, split));
 }

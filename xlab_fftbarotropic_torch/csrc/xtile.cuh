@@ -1,7 +1,7 @@
 // xtile: the transform of a column tile, shared by the x-stages of
-// kx_visc.cu, xstage.cu, ka (ka_kc.cu) and ka_diag.cu and the y-stages
-// kc (ka_kc.cu), kb and kb_pair (kb_pair.cu), ky_adv (ky_adv.cu) and
-// kb_adv (kb_adv.cu).
+// kx_visc.cu, xstage.cu, ka and ka_fwd (ka_kc.cu), ka_diag.cu and
+// ka_sw.cu and the y-stages kc (ka_kc.cu), kb and kb_pair (kb_pair.cu),
+// ky_adv (ky_adv.cu) and kb_adv (kb_adv.cu).
 //
 // Each transforms along an axis of length n (a power of two 64..8192)
 // whose column axis is contiguous in memory. A tile of C adjacent
@@ -11,8 +11,9 @@
 //
 //   1. block r loads rows r, r + K, r + 2K, ... (m = n/K of them) of the
 //      tile (cp.async, or plain loads where the load computes, as the
-//      Hermitian one of the paired c2r y-stages, load_hermitian, and
-//      ky_adv's advection product), consecutive lanes on consecutive
+//      Hermitian one of the paired c2r y-stages, load_hermitian,
+//      ky_adv's advection product and the fields and products of the
+//      x-stages, load_rows), consecutive lanes on consecutive
 //      columns, so every row segment is C contiguous elements (64 or
 //      128 bytes at C = 16): whole 32-byte sectors, where a block per
 //      column would use 4 or 8 bytes of each;
@@ -27,7 +28,8 @@
 //      stores full row segments again (finish; gather and twiddle_dft
 //      are its steps, which kb_adv runs on two tiles at once); or
 //   3'. the transposed store (finish_transposed), for the y-stages and
-//      the ka x-stages, whose output rows are the tile's columns: after a
+//      the full-length x-stages (ka, ka_fwd, the field x-stages of
+//      ka_diag.cu, ka_sw), whose output rows are the tile's columns: after a
 //      second cluster barrier
 //      block q stages its m C outputs column-major in its own tile (a
 //      column of m + 16/C values, so a half warp's 16 stores hit 16
@@ -449,6 +451,25 @@ __device__ __forceinline__ void load_hermitian(
   }
 }
 
+// The computing load of a full-length x-stage (ka_diag.cu, ka_sw.cu,
+// ka_kc.cu ka_fwd_kernel): block r's rows i = r + K jj of the tile of
+// columns j0 .. j0 + C of (n, m) planes into its tile, value(i, j, off)
+// at off = i m + j, consecutive lanes on consecutive columns; 0 past m
+// (the ragged last tile).
+template <class Value>
+__device__ __forceinline__ void load_rows(const Tile& t, int j0, int m,
+                                          Value value) {
+  const int cmask = (1 << t.logc) - 1;
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) {
+    const int u = e * blockDim.x + threadIdx.x;
+    const int j = j0 + (u & cmask);
+    const int i = t.rank + t.k * (u >> t.logc);
+    t.s[u] = j < m ? value(i, j, static_cast<size_t>(i) * m + j)
+                   : make_float2(0.f, 0.f);
+  }
+}
+
 // The store of a forward y-stage's half spectrum (ky_adv.cu, kb_adv.cu):
 // X[k] of tile column c to yr, yi at [j0 + c, k] of (nx, n/2 + 1) planes.
 struct HalfOut {
@@ -465,8 +486,9 @@ struct HalfOut {
   }
 };
 
-// The store of a full-length transposed x-stage (ka_kc.cu ka_kernel,
-// ka_diag.cu ka_fields_kernel): scale * X[k] of tile column c to yr, yi
+// The store of a full-length transposed x-stage (ka_kc.cu ka_kernel and
+// ka_fwd_kernel, ka_diag.cu ka_fields_kernel, ka_sw.cu ka_sw_kernel):
+// scale * X[k] of tile column c to yr, yi
 // at [j0 + c, k] of the (m, n) planes from `plane` on, one rounded
 // product (scale = 1 is exact).
 struct RowOut {

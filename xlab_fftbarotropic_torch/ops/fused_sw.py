@@ -6,9 +6,10 @@ its x-first order.
 
 The state is six float32 planes (nx, hny): zr, zi, dr, di, er, ei of
 (zeta_hat, div_hat, eta_hat). One RK stage runs five launches of four
-kernels (csrc/), the FFT ones around the shared column FFT
-(csrc/colfft.cuh; kx_fwd, and kc_sw of the x-first order, on the
-column-tile transform of csrc/xtile.cuh):
+kernels (csrc/), the FFT ones on the column-tile transform of
+csrc/xtile.cuh (ka_sw, kb_pair, kx_fwd, and the x-first order's kb,
+ka_fwd and kc_sw) but ky_all, which runs the shared column FFT
+(csrc/colfft.cuh, one column per block):
 
   ka_sw       the four fields u, v, zeta, eta_scale*eta, inverse x-stage,
               written transposed (4, hny, nx)
@@ -136,7 +137,8 @@ def eta_pair_scale(planes) -> torch.Tensor:
 def sw_fields(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
     """The four diagonal-scaled fields (re, im lists) of the SW state:
     u = -i ky rlap Z + i kx rlap D, v = i kx rlap Z + i ky rlap D,
-    zeta = Z, eta_s = eta_scale * E; in csrc/ka_sw.cu's grouping."""
+    zeta = Z, eta_s = eta_scale * E; in csrc/ka_sw.cu's grouping, so ka
+    (complex inverse, scale 1) of these fields is ka_sw bit for bit."""
     k = kx.reshape(-1, 1)
     q = ky.reshape(1, -1)
     r = rlap
@@ -171,7 +173,8 @@ def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
     _launch("ka_sw", lib().xfb_ka_sw,
             *_ptrs(zr, zi, dr, di, er, ei, rlap, kx, ky,
                    _twiddles(n, zr.device), wr, wi),
-            n, hny, float(eta_scale), zr.device.index, _stream(zr))
+            n, hny, float(eta_scale), *_xtile_args(n, hny, 4),
+            zr.device.index, _stream(zr))
     return wr, wi
 
 
@@ -196,7 +199,9 @@ def sw_products(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
                 split: bool):
     """q*u, q*v, eta*u, eta*v, phi with eta = eta_s * ies, q = zeta + f0
     and phi = g*eta + (u*u + v*v)/2; split leaves out f0 and g*eta (the
-    combine adds those terms exactly)."""
+    combine adds those terms exactly). csrc/epilogue.cuh sw_product
+    rounds in this order, so ka (real forward, scale 1) of product p is
+    ka_fwd's bit for bit."""
     eta = eta_s * ies
     q = zeta if split else zeta + f0
     ke = 0.5 * (u * u + v * v)
@@ -296,7 +301,7 @@ def ka_fwd(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
     _launch("ka_fwd", lib().xfb_ka_fwd,
             *_ptrs(u, v, zeta, eta_s, _twiddles(nx, u.device), yr, yi),
             nx, ny, float(ies), float(f0), float(grav), int(split),
-            u.device.index, _stream(u))
+            *_xtile_args(nx, ny, 4), u.device.index, _stream(u))
     return yr, yi
 
 
