@@ -18,20 +18,23 @@ exits non-zero and prints no result):
    plan (ops/xtile.py: columns per tile C, blocks per cluster K,
    threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu,
    ka_kernel (ka_kc.cu, on ny and hny columns), ka_fields_kernel
-   (ka_diag.cu: ka_diag, ka6, ka_quad), ka_sw_kernel (ka_sw.cu, on hny)
-   and ka_fwd_kernel (ka_kc.cu, on ny) and of the y-stages kc_kernel
-   (ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (kb_pair.cu: kb, the
-   x-major kb), kb_pair_kernel, ky_adv_kernel and kb_adv_kernel (half
-   and full, in tiles of C/2 columns) at 256^2 and n^2, and every
-   kernel's registers and spills from the build's -Xptxas -v; then the
-   pins at 256^2 and n^2, bit for bit: the y-first pair's (kb_pair equal
-   to kb_stacked transposed and ky_adv to kc of (adv, 0)) and the ka
-   x-stages' (ka_quad's fields 0-1 equal to ka_diag's, split to quad,
-   ka6 to ka_diag of each state, ka of (-(zi kx), zr kx) at scale 1 to
-   ka_diag's field 0) and the SW x-stages' (ka_sw's four fields equal
-   to ka of sw_fields formed in torch, zeta to ka of (zr, zi), eta_s to
-   ka of (er, ei) at scale eta_scale; ka_fwd's five products, split off
-   and on, to ka's real forward of sw_products formed in torch).
+   (ka_diag.cu: ka_diag, ka6, ka_quad), ka_sw_kernel (ka_sw.cu, on hny),
+   ka_adv_kernel and ka_fwd_kernel (ka_kc.cu, on ny) and of the y-stages
+   kc_kernel (ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (kb_pair.cu: kb,
+   the x-major kb), kb_pair_kernel, ky_adv_kernel, ky_all_kernel and
+   kb_adv_kernel (half and full, in tiles of C/2 columns) at 256^2 and
+   n^2, and every kernel's registers and spills from the build's
+   -Xptxas -v; then the pins at 256^2 and n^2, bit for bit: the y-first
+   pair's (kb_pair equal to kb_stacked transposed and ky_adv to kc of
+   (adv, 0)) and the ka x-stages' (ka_quad's fields 0-1 equal to
+   ka_diag's, split to quad, ka6 to ka_diag of each state, ka of (-(zi
+   kx), zr kx) at scale 1 to ka_diag's field 0, ka_adv to ka's real
+   forward of the advection formed in torch, beta 0 and not) and the SW
+   stages' (ka_sw's four fields equal to ka of sw_fields formed in
+   torch, zeta to ka of (zr, zi), eta_s to ka of (er, ei) at scale
+   eta_scale; ka_fwd's five products, split off and on, to ka's real
+   forward of sw_products formed in torch, and ky_all's to kc of
+   (sw_products, 0)).
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -710,6 +713,9 @@ def kernel_cases(n: int, dev, seed: int):
         "ka_adv": Case(lambda: ff.ka_adv(u, zx, v, zy, src, 0.3),
                        lambda: ff.ka_adv_plain(u, zx, v, zy, src, 0.3), list,
                        (u, zx, v, zy, src), 0.5 * n),
+        "ka_adv_f_plane": Case(lambda: ff.ka_adv(u, zx, v, zy, src),
+                               lambda: ff.ka_adv_plain(u, zx, v, zy, src),
+                               list, (u, zx, v, zy, src), 0.5 * n),
         "kc_visc": Case(lambda: ff.kc_visc(xr, xi, lap, t.mask, zsr, zsi,
                                            6.5),
                         lambda: ff.kc_visc_plain(xr, xi, lap, t.mask, zsr,
@@ -858,11 +864,11 @@ def phase_xtile(n: int) -> dict:
     """The column-tile plans of the x-stages (kx_visc.cu, xstage.cu,
     ka_kernel on the ny columns of rfft2's real forward and the hny of
     the complex inverse, ka_fields_kernel and ka_sw_kernel on hny,
-    ka_fwd_kernel on ny) and the y-stages
-    (kc_kernel, kb_kernel, kb_pair_kernel, ky_adv_kernel, kb_adv_kernel:
-    the nx columns of float planes; kb_adv in tiles of C/2 columns, two
-    of them in full) at 256^2 and n^2, and every kernel's registers and
-    spills from the build log."""
+    ka_adv_kernel and ka_fwd_kernel on ny) and the y-stages (kc_kernel,
+    kb_kernel, kb_pair_kernel, ky_adv_kernel, ky_all_kernel,
+    kb_adv_kernel: the nx columns of float planes; kb_adv in tiles of
+    C/2 columns, two of them in full) at 256^2 and n^2, and every
+    kernel's registers and spills from the build log."""
     from xlab_fftbarotropic_torch.ops import _build
     from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
 
@@ -877,11 +883,13 @@ def phase_xtile(n: int) -> dict:
                                     ("ka_kernel hny", hny, 4),
                                     ("ka_fields_kernel", hny, 4),
                                     ("ka_sw_kernel", hny, 4),
+                                    ("ka_adv_kernel", size, 4),
                                     ("ka_fwd_kernel", size, 4),
                                     ("kc_kernel", size, 4),
                                     ("kb_kernel", size, 4),
                                     ("kb_pair_kernel", size, 4),
                                     ("ky_adv_kernel", size, 4),
+                                    ("ky_all_kernel", size, 4),
                                     ("kb_adv_kernel half", size, 4),
                                     ("kb_adv_kernel full", size, 4)):
             p = xtile_plan(size, columns, elem)
@@ -918,8 +926,9 @@ def phase_xtile(n: int) -> dict:
 def ka_pins(n: int, dev, rng) -> dict:
     """The ka x-stages' pins at n^2: name -> (got, want) planes that must
     be equal bit for bit (one plan and one rounded arithmetic in
-    ka_kernel and ka_fields_kernel). The one list of these pins: tests/
-    test_torch_cuda_kernels.py checks the same pairs."""
+    ka_kernel, ka_fields_kernel and ka_adv_kernel, whose load rounds the
+    advection as fused_fft.advection forms it in torch). The one list of
+    these pins: tests/test_torch_cuda_kernels.py checks the same pairs."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.ops import fused_tracer as ft
     from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
@@ -937,7 +946,7 @@ def ka_pins(n: int, dev, rng) -> dict:
     six = ft.tracer_xstage_planes(sr, si, t.kx, t.ky, t.rlap)
     k = t.kx.reshape(-1, 1)
     ka = ff.ka(-(si[0] * k), sr[0] * k, False, 1.0)
-    return {"ka_quad 0-1 = ka_diag 0-1": ([q[:2] for q in quad],
+    pins = {"ka_quad 0-1 = ka_diag 0-1": ([q[:2] for q in quad],
                                           [d[:2] for d in diag0]),
             "split = quad": (split, quad),
             "ka6 0-3 = ka_diag S[0]": ([x[:4] for x in six], diag0),
@@ -945,18 +954,27 @@ def ka_pins(n: int, dev, rng) -> dict:
                                            [d[:2] for d in diag1]),
             "ka(-(zi kx), zr kx) = ka_diag 0": (list(ka),
                                                 [d[0] for d in diag0])}
+    u, zx, v, zy, src = (torch.from_numpy(rng.standard_normal((n, n)).astype(
+        np.float32)).to(dev) for _ in range(5))
+    for beta in (0.0, 0.3):
+        adv = ff.advection(u, zx, v, zy, src, beta)
+        pins[f"ka_adv beta={beta} = ka of adv"] = (
+            list(ff.ka_adv(u, zx, v, zy, src, beta)),
+            list(ff.ka(adv, None, True)))
+    return pins
 
 
 def sw_pins(n: int, dev, rng) -> dict:
-    """The shallow-water x-stages' pins at n^2: name -> (got, want)
-    planes that must be equal bit for bit (ka_sw and ka_fwd run ka's plan
-    and transform behind their loads, which round as sw_fields and
-    sw_products do): ka_sw's field f against ka (complex inverse, scale
-    1) of sw_fields' field f formed in torch, field 2 against ka of (zr,
-    zi) and field 3 against ka of (er, ei) at scale eta_scale (a power of
-    two); ka_fwd's product p against ka (real forward, scale 1) of
-    sw_products' product p, split off and on. The one list of these
-    pins: tests/test_torch_cuda_kernels.py checks the same pairs."""
+    """The shallow-water stages' pins at n^2: name -> (got, want) planes
+    that must be equal bit for bit (ka_sw and ka_fwd run ka's plan and
+    transform behind their loads, ky_all kc's, and the loads round as
+    sw_fields and sw_products do): ka_sw's field f against ka (complex
+    inverse, scale 1) of sw_fields' field f formed in torch, field 2
+    against ka of (zr, zi) and field 3 against ka of (er, ei) at scale
+    eta_scale (a power of two); ka_fwd's product p against ka (real
+    forward, scale 1) of sw_products' product p, and ky_all's against kc
+    of (product p, 0), split off and on. The one list of these pins:
+    tests/test_torch_cuda_kernels.py checks the same pairs."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.ops import fused_sw as fs
     from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
@@ -980,12 +998,17 @@ def sw_pins(n: int, dev, rng) -> dict:
                                              list(ff.ka(er, ei, False, es)))
     fields = planes((n, n), (3.0, 3.0, 1e-4, 1e-4))
     for split in (False, True):
+        tag = " split" if split else ""
         yr, yi = fs.ka_fwd(*fields, 2.0 ** 15, 1e-4, 9.81, split)
+        # the same planes as y-major (ny, nx) fields
+        kr, ki = fs.ky_all(*fields, 2.0 ** 15, 1e-4, 9.81, split)
         prods = fs.sw_products(*fields, 2.0 ** 15, 1e-4, 9.81, split)
         for p in range(len(prods)):
-            pins[f"ka_fwd{' split' if split else ''} {p} = ka of "
-                 f"sw_products"] = ([yr[p], yi[p]],
-                                    list(ff.ka(prods[p], None, True)))
+            pins[f"ka_fwd{tag} {p} = ka of sw_products"] = (
+                [yr[p], yi[p]], list(ff.ka(prods[p], None, True)))
+            pins[f"ky_all{tag} {p} = kc of sw_products"] = (
+                [kr[p], ki[p]],
+                list(ff.kc(prods[p], torch.zeros_like(prods[p]))))
     return pins
 
 
@@ -994,7 +1017,8 @@ def phase_pins(n: int, dev) -> dict:
     kb_pair (the natural store) equals kb_stacked (the transposed one)
     transposed, on ka_diag's and ka6's stacks, and ky_adv equals kc of
     (adv, 0), adv formed by torch on the card in xfb::advection's order;
-    and the ka x-stages' (ka_pins) and the SW x-stages' (sw_pins)."""
+    and the ka x-stages' (ka_pins, ka_adv's among them) and the SW
+    stages' (sw_pins: ka_sw, ka_fwd, ky_all)."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     rng = np.random.default_rng(n + 11)

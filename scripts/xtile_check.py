@@ -2,13 +2,15 @@
 """Check and time the column-tile kernels on one CUDA card: the x-stages of
 csrc/kx_visc.cu and csrc/xstage.cu, ka_kernel (csrc/ka_kc.cu: ka in its
 four modes), ka_fields_kernel (csrc/ka_diag.cu: ka_diag, ka6, ka_quad
-and split), ka_sw_kernel (csrc/ka_sw.cu) and ka_fwd_kernel
-(csrc/ka_kc.cu: split off and on) and the y-stages kc_kernel
-(csrc/ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (csrc/kb_pair.cu: kb
-paired and single, the x-major kb), kb_pair_kernel (csrc/kb_pair.cu),
-ky_adv_kernel (csrc/ky_adv.cu) and kb_adv_kernel (csrc/kb_adv.cu: full
-and half), every form against its plain torch version and against the
-one torch.fft call of the same transform, at each grid size asked for.
+and split), ka_sw_kernel (csrc/ka_sw.cu), ka_fwd_kernel (csrc/ka_kc.cu:
+split off and on) and ka_adv_kernel (csrc/ka_kc.cu: beta on and off)
+and the y-stages kc_kernel (csrc/ka_kc.cu: kc, kc_sw, kc_visc),
+kb_kernel (csrc/kb_pair.cu: kb paired and single, the x-major kb),
+kb_pair_kernel (csrc/kb_pair.cu), ky_adv_kernel (csrc/ky_adv.cu),
+ky_all_kernel (csrc/ky_all.cu: split off and on) and kb_adv_kernel
+(csrc/kb_adv.cu: full and half), every form against its plain torch
+version and against the one torch.fft call of the same transform, at
+each grid size asked for.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
 
@@ -21,11 +23,13 @@ checkouts' lines show whether a kernel's bits moved), the kernel's ms
 plain version's ms, the bytes bound at 3.35 TB/s and the share of it
 reached, and the ms of the torch.fft call: fft along x for the x-stages,
 fft or ifft along axis 0 for ka's modes, ifft along x of the stacked
-fields for ka_diag, ka6, ka_quad and ka_sw and fft along x of the
-stacked products for ka_fwd (the transform alone: the fields and
-products formed beforehand), fft along y for kc and kc_sw, irfft along
-y for kb and kb_pair, rfft along y of one plane for ky_adv and kb_adv (the
-forward transform alone; no torch call computes their whole function).
+fields for ka_diag, ka6, ka_quad and ka_sw, fft along x of the stacked
+products for ka_fwd and of the advection for ka_adv, and rfft along y of
+the stacked products for ky_all (the transform alone: the fields,
+products and advection formed beforehand), fft along y for kc and
+kc_sw, irfft along y for kb and kb_pair, rfft along y of one plane for
+ky_adv and kb_adv (the forward transform alone; no torch call computes
+their whole function).
 Then the card's name and power limit, and the registers and spills of
 the tile kernels from the build's -Xptxas -v output. Exits non-zero past
 1e-5.
@@ -136,6 +140,12 @@ def cases(n: int, dev):
     fwd = (*xf, 2.0 ** 15, 1e-4, 9.81)
     prods = {split: torch.stack(fs.sw_products(*fwd, split))
              for split in (False, True)}
+    # ky_all on the same planes as y-major fields, ka_adv on the y-first
+    # pair's five as x-major ones (no new draws: every other form's inputs
+    # and digest stay those of the checkouts without them); the advection
+    # written out here, as a --root checkout may predate ff.advection
+    advs = {beta: -(u * zx) - v * (zy + beta if beta else zy) + src
+            for beta in (0.0, 0.3)}
 
     def fields(states, kinds, psi_first=False):
         re_, im = [], []
@@ -192,6 +202,19 @@ def cases(n: int, dev):
         "ka_fwd split": (lambda: fs.ka_fwd(*fwd, True),
                          lambda: fs.ka_fwd_plain(*fwd, True), tuple(xf),
                          lambda: torch.fft.fft(prods[True], dim=1)),
+        "ky_all": (lambda: fs.ky_all(*fwd), lambda: fs.ky_all_plain(*fwd),
+                   tuple(xf), lambda: torch.fft.rfft(prods[False], dim=1)),
+        "ky_all split": (lambda: fs.ky_all(*fwd, True),
+                         lambda: fs.ky_all_plain(*fwd, True), tuple(xf),
+                         lambda: torch.fft.rfft(prods[True], dim=1)),
+        "ka_adv": (lambda: ff.ka_adv(u, zx, v, zy, src, 0.3),
+                   lambda: ff.ka_adv_plain(u, zx, v, zy, src, 0.3),
+                   (u, zx, v, zy, src),
+                   lambda: torch.fft.fft(advs[0.3], dim=0)),
+        "ka_adv beta=0": (lambda: ff.ka_adv(u, zx, v, zy, src),
+                          lambda: ff.ka_adv_plain(u, zx, v, zy, src),
+                          (u, zx, v, zy, src),
+                          lambda: torch.fft.fft(advs[0.0], dim=0)),
         "kx_fwd F=1": (lambda: fs.kx_fwd(fr[None], fi[None]),
                        lambda: fs.kx_fwd_plain(fr[None], fi[None]),
                        (fr, fi), fft(fc)),
@@ -316,8 +339,9 @@ def main(argv=None) -> int:
     text = log.read_text() if log.exists() else ""
     for m in re.finditer(r"Compiling entry function '(\w*(?:kx_visc|xstage|"
                          r"ka_kernel|ka_fields_kernel|ka_sw_kernel|"
-                         r"ka_fwd_kernel|kc_kernel|kb_kernel|"
-                         r"kb_pair_kernel|ky_adv_kernel|kb_adv_kernel)\w*)'"
+                         r"ka_adv_kernel|ka_fwd_kernel|kc_kernel|kb_kernel|"
+                         r"kb_pair_kernel|ky_adv_kernel|ky_all_kernel|"
+                         r"kb_adv_kernel)\w*)'"
                          r".*?\n(.*?Used \d+ registers[^\n]*)", text, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         regs = re.search(r"Used (\d+) registers", m.group(2))

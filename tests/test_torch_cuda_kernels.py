@@ -384,7 +384,7 @@ def test_ka_sw_then_kb_pair_leak_guard(cuda, n):
 def test_ky_all_matches_plain(cuda, shape, split):
     """Each of the five products to 1e-5 of its own max, at the bench's
     magnitudes (q u about 1e-3, phi about 50): no product may take
-    another's round-off. 8192: the block's one 64 KB column."""
+    another's round-off. 8192: the column tile's C = 8, K = 8 plan."""
     ny, nx = shape
     rng = np.random.default_rng(ny + nx + int(split))
     u, v, zeta, eta_s = _planes(rng, (ny, nx), 4, cuda)
@@ -1698,9 +1698,10 @@ def test_ka_forms_refuse_a_plan_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_ka_pins_bit_for_bit(cuda, n):
-    """Both ka kernels run one plan and one rounded arithmetic, so the
-    pins between their forms hold bit for bit: chip_smoke.py's ka_pins,
-    the one list of them."""
+    """The ka kernels (ka_kernel, ka_fields_kernel, ka_adv_kernel) run
+    one plan and one rounded arithmetic, so the pins between their forms
+    hold bit for bit, ka_adv = ka of the advection formed in torch among
+    them: chip_smoke.py's ka_pins, the one list of them."""
     from chip_smoke import ka_pins
 
     pins = ka_pins(n, cuda, np.random.default_rng(n + 19))
@@ -1778,12 +1779,76 @@ def test_sw_xstages_refuse_a_plan_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_sw_pins_bit_for_bit(cuda, n):
-    """ka_sw and ka_fwd run ka's plan and transform behind their loads, so
-    ka of the fields and products formed in torch gives their bits:
-    chip_smoke.py's sw_pins, the one list of them."""
+    """ka_sw and ka_fwd run ka's plan and transform behind their loads,
+    ky_all kc's, so ka (kc for ky_all) of the fields and products formed
+    in torch gives their bits: chip_smoke.py's sw_pins, the one list of
+    them."""
     from chip_smoke import sw_pins
 
     pins = sw_pins(n, cuda, np.random.default_rng(n + 23))
     for name, (got, want) in pins.items():
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+# ----- the last one-column forward stages on the column tile:
+# ky_all_kernel (csrc/ky_all.cu, the transposed half store) and
+# ka_adv_kernel (csrc/ka_kc.cu, the full transposed store) -----
+
+def _ky_all_ka_adv(shape, dev, seed):
+    """(kernel, plain) call pairs of ky_all (split off and on) on y-major
+    (ny, nx) fields at the bench's magnitudes and ka_adv (beta 0 and 1.6)
+    on x-major (nx, ny) fields, shape = (transform length, columns); each
+    call a list of re and im planes per product."""
+    n, m = shape
+    rng = np.random.default_rng(seed)
+    u, v, zeta, eta_s = (a * p for a, p in zip(
+        (3.0, 3.0, 1e-4, 1e-4), _planes(rng, (n, m), 4, dev)))
+    adv = _planes(rng, (n, m), 5, dev)
+    calls = []
+    for split in (False, True):
+        args = (u, v, zeta, eta_s, 2.0 ** 15, 1e-4, 9.81, split)
+        calls.append((lambda a=args: _per_field(fs.ky_all(*a)),
+                      lambda a=args: _per_field(fs.ky_all_plain(*a))))
+    for beta in (0.0, 1.6):
+        calls.append((lambda b=beta: _per_field(ff.ka_adv(*adv, b)),
+                      lambda b=beta: _per_field(ff.ka_adv_plain(*adv, b))))
+    return calls
+
+
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_ky_all_and_ka_adv_ragged_last_tile(cuda, n):
+    """Columns no multiple of the tile: one past three whole tiles and a
+    single tile with one dead column, at a transform length n other than
+    the column count (ky_all plans on ny and tiles nx, ka_adv plans on nx
+    and tiles ny); no store lands past the last column of a product's
+    plane (the next product's plane stays the plain one's)."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    c = xtile_plan(n, 1, 4).c
+    for m in (3 * c + 1, c - 1):
+        for kern, plain in _ky_all_ka_adv((n, m), cuda, n + m):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            assert got[0].shape[0] == m
+            _assert_fields_close(got, want)
+
+
+def test_ky_all_and_ka_adv_refuse_a_plan_they_do_not_take(cuda):
+    """ky_all and ka_adv check the plan they are handed: one that is not
+    ops/xtile.py's for the length fails the launch."""
+    from xlab_fftbarotropic_torch.ops._build import lib
+
+    n = 256
+    x = torch.zeros((n, n), device=cuda)
+    y = torch.empty((5, n, n), device=cuda)
+    tw = ff._twiddles(n, cuda)
+    c, k, threads, smem = ff._xtile_args(n, n, 4)
+    stream = ff._stream(x)
+    for plan in ((c, k, threads + 32, smem), (c, k, threads, smem - 8),
+                 (c, 3, threads, smem)):
+        assert lib().xfb_ky_all(*ff._ptrs(x, x, x, x, tw, y, y), n, n, 1.0,
+                                1e-4, 9.81, 0, *plan, cuda.index,
+                                stream) != 0
+        assert lib().xfb_ka_adv(*ff._ptrs(x, x, x, x, x, tw, y, y), n, n,
+                                0.0, *plan, cuda.index, stream) != 0

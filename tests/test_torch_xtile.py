@@ -39,6 +39,15 @@ planes, dead columns skipped, every output written exactly once; held to
 their plain versions, and the pins (the stacked kernels equal ka of the
 fields and products formed in torch) bit for bit.
 
+The last forward stages moved onto the tile: ky_all (ka_fwd's five
+products on ky_adv's y-stage: the plan of ny over nx columns, the half
+store into flat (5 nx, ny/2 + 1) planes) and ka_adv (ky_adv's advection
+on ka's real forward x-stage: the plan of nx over ny columns), on
+non-square grids whose last tile is ragged, held to ky_all_plain and
+ka_adv_plain, and pinned bit for bit: ky_all's product p is kc of
+(sw_products' product p, 0), ka_adv is ka of the advection formed in
+torch.
+
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
 gather at P = 1, 2, 4, 8, nx for kc and kb), every column is covered
@@ -140,11 +149,12 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 
 
 # __global__ functions on the column tile, each with the store it ends in
-# (the natural finish, or the transposed one of the y-stages), and those
+# (the natural finish, or the transposed one of the y-stages), and the one
 # still around colfft
 TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "xstage.cu": {"xstage_kernel": "xt::finish<"},
                 "ka_kc.cu": {"ka_kernel": "xt::finish_transposed<",
+                             "ka_adv_kernel": "xt::finish_transposed<",
                              "ka_fwd_kernel": "xt::finish_transposed<",
                              "kc_kernel": "xt::finish_transposed<"},
                 "ka_diag.cu": {"ka_fields_kernel": "xt::finish_transposed<"},
@@ -152,17 +162,22 @@ TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "kb_pair.cu": {"kb_pair_kernel": "xt::finish<",
                                "kb_kernel": "xt::finish_transposed<"},
                 "ky_adv.cu": {"ky_adv_kernel": "xt::finish_transposed<"},
+                "ky_all.cu": {"ky_all_kernel": "xt::finish_transposed<"},
                 "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"}}
-COLFFT_KERNELS = {"ka_kc.cu": ("ka_adv_kernel",)}
+COLFFT_KERNELS = {"kb_adv_tracer.cu": ("kb_adv_tracer_kernel",)}
 PLAN_ENTRIES = {"kx_visc.cu": ("xfb_kx_visc", "xfb_kx_visc_tail"),
                 "xstage.cu": ("xfb_xstage",),
-                "ka_kc.cu": ("xfb_ka", "xfb_ka_fwd", "xfb_kc", "xfb_kc_sw",
-                             "xfb_kc_visc"),
+                "ka_kc.cu": ("xfb_ka", "xfb_ka_adv", "xfb_ka_fwd", "xfb_kc",
+                             "xfb_kc_sw", "xfb_kc_visc"),
                 "ka_diag.cu": ("xfb_ka_diag", "xfb_ka6", "xfb_ka_quad"),
                 "ka_sw.cu": ("xfb_ka_sw",),
                 "kb_pair.cu": ("xfb_kb", "xfb_kb_pair"),
                 "ky_adv.cu": ("xfb_ky_adv",),
+                "ky_all.cu": ("xfb_ky_all",),
                 "kb_adv.cu": ("xfb_kb_adv_full", "xfb_kb_adv_half")}
+# the kernels whose tile is formed by the computing load of load_rows
+LOAD_ROWS_KERNELS = ("ka_fields_kernel", "ka_sw_kernel", "ka_adv_kernel",
+                     "ka_fwd_kernel", "ky_all_kernel")
 STORES = ("xt::finish<", "xt::finish_transposed<")
 
 
@@ -186,12 +201,12 @@ def test_plan_agrees_with_the_kernel_source():
     """The CUDA side's constants and its check of a plan are the ones the
     Python plan uses; per __global__ function, the tile kernels run the
     column tile and no colfft, each ending in its own store (kb_pair's
-    natural one, the transposed one of ka, ka_fwd, the field x-stages,
-    ka_sw, kb, kc, ky_adv and kb_adv), the others still colfft; every
-    tile entry point
-    takes the plan; the
-    paired c2r y-stages share the tile's Hermitian load, and colfft.cuh
-    no longer has the column one."""
+    natural one, the transposed one of ka, ka_adv, ka_fwd, the field
+    x-stages, ka_sw, kb, kc, ky_adv, ky_all and kb_adv), and only
+    kb_adv_tracer still colfft (no other source includes it); every tile
+    entry point takes the plan; the paired c2r y-stages share the tile's
+    Hermitian load, the computing x-stages and ky_all load_rows, and
+    colfft.cuh no longer has the column one."""
     src = (_build.CSRC / "xtile.cuh").read_text()
     assert f"constexpr int kElems = {xtile.ELEMS};" in src
     assert "smem == (m * c + m) * static_cast<int>(sizeof(float2))" in src
@@ -202,7 +217,6 @@ def test_plan_agrees_with_the_kernel_source():
     for name, kernels in TILE_KERNELS.items():
         text = _source(name)
         assert '#include "xtile.cuh"' in text
-        assert '#include "colfft.cuh"' not in text or name == "ka_kc.cu"
         for fn, store in kernels.items():
             body = _body(text, rf"__global__\s+void\s+(__launch_bounds__"
                                rf"\([^)]*\)\s+)?{fn}\s*\(")
@@ -212,6 +226,8 @@ def test_plan_agrees_with_the_kernel_source():
                        if other != store), fn
             if fn in ("kb_pair_kernel", "kb_kernel", "kb_adv_kernel"):
                 assert "xt::load_hermitian(" in body, fn
+            if fn in LOAD_ROWS_KERNELS:
+                assert "xt::load_rows(" in body, fn
         for entry in PLAN_ENTRIES[name]:
             sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
             assert "int tile_c, int cluster_k" in " ".join(
@@ -222,6 +238,9 @@ def test_plan_agrees_with_the_kernel_source():
         for fn in kernels:
             body = _body(text, rf"__global__\s+void\s+{fn}\s*\(")
             assert "colfft<" in body and "xt::" not in body, fn
+    assert [name for name in _build.SOURCES
+            if '#include "colfft.cuh"' in _source(name)] \
+        == list(COLFFT_KERNELS)
     assert "load_hermitian_column" not in _source("colfft.cuh")
 
 
@@ -713,27 +732,30 @@ def _field_load(sr, si, rlap, kx, ky, kind: int, psi_first: bool):
     return load
 
 
-def _emulate_stack(loads, n: int, columns: int, forward: bool):
-    """A stacked full-length x-stage (ka_fields_kernel, ka_sw_kernel,
-    ka_fwd_kernel): field f of F = len(loads) from loads[f](rows,
+def _emulate_stack(loads, n: int, columns: int, forward: bool,
+                   half: bool = False):
+    """A stacked transform with the transposed store (ka_fields_kernel,
+    ka_sw_kernel, ka_fwd_kernel, ka_adv_kernel at F = 1; with `half`
+    ky_all_kernel): field f of F = len(loads) from loads[f](rows,
     columns), the cluster index decoded as (tile, field) with the field
-    fastest, the transform and the full transposed store at scale 1
-    (RowOut: field f's column x to row f columns + x of the flat (F
-    columns, n) planes, so a store past the ragged edge would land in
-    the next field's): (F, columns, n), every output written exactly
-    once."""
+    fastest, the transform and the transposed store at scale 1 (RowOut,
+    or HalfOut's k <= n/2: field f's column x to row f columns + x of the
+    flat (F columns, n or n/2 + 1) planes, so a store past the ragged
+    edge would land in the next field's): (F, columns, n or n/2 + 1),
+    every output written exactly once."""
     count = len(loads)
+    width = n // 2 + 1 if half else n
     e = _Cluster(n, columns, 4)
-    out, writes = _outputs(count * columns, n)
+    out, writes = _outputs(count * columns, width)
     for cluster in range(e.tiles * count):               # grid x / K
         f, tile = cluster % count, cluster // count
         blocks = e.transform(loads[f], tile, forward)
         for rank in range(e.k):
             k2, col, z = e.combine(blocks, rank, forward)
-            e.store_transposed(k2, col, z, tile, rank, False, out, writes,
+            e.store_transposed(k2, col, z, tile, rank, half, out, writes,
                                plane=f * columns)
-    return _written_once(out, writes, count * columns, n).reshape(
-        count, columns, n)
+    return _written_once(out, writes, count * columns, width).reshape(
+        count, columns, width)
 
 
 def emulate_fields(sr, si, rlap, kx, ky, first: int, count: int,
@@ -844,9 +866,10 @@ def emulate_sw_fields(state, rlap, kx, ky, es: float):
 
 def _product_load(p: int, u, v, zeta, eta_s, ies: float, f0: float,
                   grav: float, split: bool):
-    """ka_fwd_kernel's tile load (csrc/epilogue.cuh sw_product): product
-    p of the x-major fields at row i, column j, zero imaginary part, each
-    product and sum rounded on its own in the kernel's order."""
+    """ka_fwd_kernel's and ky_all_kernel's tile load (csrc/epilogue.cuh
+    sw_product): product p of the fields at row i, column j (x-major for
+    ka_fwd, y-major for ky_all), zero imaginary part, each product and
+    sum rounded on its own in the kernel's order."""
     def load(i, j):
         a, b = u[i, j], v[i, j]
         if p < 2:
@@ -955,3 +978,94 @@ def test_emulated_sw_pins(n):
         for p in range(5):
             ka = torch.complex(*emulate_ka(prods[p], None, True, 1.0))
             assert torch.equal(got[p], ka), (split, p)
+
+
+# ----- the last one-column forward stages on the column tile:
+# ky_all_kernel (csrc/ky_all.cu, the transposed half store of five
+# products) and ka_adv_kernel (csrc/ka_kc.cu, the full transposed store)
+# -----
+
+def emulate_ky_all(fields, ies: float, f0: float, grav: float,
+                   split: bool):
+    """ky_all_kernel on the y-major (ny, nx) u, v, zeta, eta_s: the five
+    products (sw_product's rounding), product fastest, the forward
+    transform and the half store into flat (5 nx, ny/2 + 1) planes:
+    (5, nx, ny/2 + 1)."""
+    ny, nx = fields[0].shape
+    loads = [_product_load(p, *fields, ies, f0, grav, split)
+             for p in range(5)]
+    return _emulate_stack(loads, ny, nx, True, half=True)
+
+
+def emulate_ka_adv(u, zx, v, zy, src, beta: float):
+    """ka_adv_kernel on the x-major (nx, ny) fields: the advection
+    (xfb::advection's rounding), the forward transform along x and the
+    full transposed store: (ny, nx)."""
+    nx, ny = u.shape
+    return _emulate_stack([_advection_load(u, zx, v, zy, src, beta)], nx,
+                          ny, True)[0]
+
+
+# (transform length, columns): columns cut to two whole tiles and a ragged
+# third (three live columns), and one grid with more columns than the length
+FORWARD_SHAPES = [(n, _cut(n, n + 3)) for n in KA_LENGTHS] + [(64, 133)]
+
+
+def _sw_fields_at(shape, seed):
+    """u, v (3 m/s), zeta and eta_s (1e-4) planes of `shape`, and ies,
+    f0, g of the bench."""
+    u, v, zeta, eta_s = _float_planes(np.random.default_rng(seed), shape, 4)
+    return [3.0 * u, 3.0 * v, 1e-4 * zeta, 1e-4 * eta_s], 2.0 ** 15, 1e-4, 9.81
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["full", "split"])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES, ids=str)
+def test_emulated_ky_all_is_ky_all_plain(shape, split):
+    """ky_all's tile kernel on y-major (ny, nx) fields at the plan of ny
+    over the nx columns (the last tile ragged), split off and on:
+    ky_all_plain's (5, nx, ny/2 + 1) stack, every output written once
+    (a store past nx would land in the next product's plane)."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    ny, nx = shape
+    fields, ies, f0, grav = _sw_fields_at(shape, ny + nx + 31)
+    got = emulate_ky_all(fields, ies, f0, grav, split)
+    want = torch.complex(*fs.ky_all_plain(*fields, ies, f0, grav, split))
+    assert got.shape == (5, nx, ny // 2 + 1)
+    _assert_each_close(got, want)
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES, ids=str)
+def test_emulated_ka_adv_is_ka_adv_plain(shape, beta):
+    """ka_adv's tile kernel on x-major (nx, ny) fields at the plan of nx
+    over the ny columns (the last tile ragged), beta off and on:
+    ka_adv_plain's (ny, nx) planes, every output written once."""
+    nx, ny = shape
+    f = _float_planes(np.random.default_rng(nx + ny + 37), shape, 5)
+    got = emulate_ka_adv(*f, beta)
+    assert got.shape == (ny, nx)
+    assert _rel(got, torch.complex(*ff.ka_adv_plain(*f, beta))) < TOL
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_emulated_ky_all_and_ka_adv_pins(n):
+    """The pins of one transform: ky_all's product p is kc (the emulated
+    forward y-stage with the half store) of (sw_products' product p, 0),
+    split off and on; ka_adv is ka (real forward, scale 1) of the
+    advection formed in torch, beta 0 and 1.6; all bit for bit."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    fields, ies, f0, grav = _sw_fields_at((n, n), n + 41)
+    for split in (False, True):
+        got = emulate_ky_all(fields, ies, f0, grav, split)
+        prods = fs.sw_products(*fields, ies, f0, grav, split)
+        for p in range(5):
+            x = torch.complex(prods[p], torch.zeros_like(prods[p]))
+            kc = emulate(_dense(x), n, n, True, transposed=True, half=True)
+            assert torch.equal(got[p], kc), (split, p)
+    f = _float_planes(np.random.default_rng(n + 43), (n, n), 5)
+    for beta in (0.0, 1.6):
+        adv = _advection(*f, beta)
+        ka = torch.complex(*emulate_ka(adv, None, True, 1.0))
+        assert torch.equal(emulate_ka_adv(*f, beta), ka), beta

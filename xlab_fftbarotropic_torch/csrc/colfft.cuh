@@ -1,4 +1,6 @@
-// colfft: the one DFT device function the FFT stepping kernels share.
+// colfft: the DFT device function of kb_adv_tracer.cu, the one FFT
+// stepping kernel left that transforms one column per block (the others
+// run the column tile of xtile.cuh).
 //
 // A block transforms one column of length n (a power of two, 64..8192)
 // held in shared memory as float2 (re, im): an in-place iterative

@@ -5,9 +5,10 @@
 // torch plain versions. A fused kernel and the unfused pair it replaces
 // then give the same bits: kb_adv and ky_adv (advection), kx_visc, visc
 // and kc_visc (the viscosity epilogue), kx_visc's tail and rk4_combine
-// (the RK4 tail). ka_fwd's products (sw_product) round in the order of
-// ops/fused_sw.py sw_products, so ka of the products formed in torch gives
-// ka_fwd's bits.
+// (the RK4 tail). ka_adv's advection rounds as ops/fused_fft.py
+// advection, and ka_fwd's and ky_all's products (sw_product) in the
+// order of ops/fused_sw.py sw_products, so ka (kc for ky_all) of the
+// advection or products formed in torch gives their bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,11 +47,14 @@ __device__ __forceinline__ float rk4_tail(float z0, float r1, float r2,
   return __fadd_rn(z0, __fmul_rn(t, c));
 }
 
-// Product p of the shallow-water forward stage at `off` of the (nx, ny)
-// u, v, zeta, eta_s planes: q u, q v, eta u, eta v, phi, with eta = eta_s
+constexpr int kSwProducts = 5;  // q u, q v, eta u, eta v, phi
+
+// Product p of the shallow-water forward stage at `off` of the u, v,
+// zeta, eta_s planes: q u, q v, eta u, eta v, phi, with eta = eta_s
 // ies (exact: ies is a power of two), q = zeta + f0 and phi = g eta +
 // (u u + v v) / 2; split leaves out f0 and g eta. Reads only the planes
-// product p needs: pallas_sw._ka_fwd_kernel (:450), in sw_products' order.
+// product p needs: pallas_sw._ka_fwd_kernel (:450) and _ky_all_kernel
+// (:513), in sw_products' order.
 __device__ __forceinline__ float sw_product(int p, const float* __restrict__ u,
                                             const float* __restrict__ v,
                                             const float* __restrict__ zeta,

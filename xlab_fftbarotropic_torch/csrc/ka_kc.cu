@@ -23,7 +23,8 @@
 // run the real forward x-DFT of each y column j, written transposed as
 // the row out[j, :] of (ny, nx) planes, with a product prologue:
 //   ka_adv (pallas_fft._ka_adv_kernel, :1391): -(u zx) - v zy + S (zy +
-//     beta for beta != 0), in ky_adv's expression order;
+//     beta for beta != 0), each product and sum rounded on its own in
+//     ky_adv's expression order (epilogue.cuh advection);
 //   ka_fwd (pallas_sw._ka_fwd_kernel, ops/pallas_sw.py:450): the five
 //     shallow-water products of csrc/ky_all.cu (q u, q v, eta u, eta v,
 //     phi; eta = eta_s * ies unscales the pairing equalizer exactly), each
@@ -32,17 +33,16 @@
 // ka_adv + kc_visc is the barotropic x-first tendency, ka_fwd + kc_sw the
 // shallow-water one (COMBINE follows, csrc/sw_combine.cu).
 //
-// Bound: memory traffic. ka_adv runs one column per block around
-// colfft.cuh: every column read is strided (by ny), every row write
-// contiguous. ka, ka_fwd and kc are on the column-tile transform of
-// csrc/xtile.cuh: a cluster of K blocks owns C adjacent columns, so the
-// planes are read in row segments of C floats (64 bytes at C = 16, where
-// a block per column used 4 bytes of each 32-byte sector), and the
-// transposed store hands each output row to the epilogue in runs of
-// contiguous k, so the outputs (and kc_visc's tables) move in whole
-// sectors too. ka and ka_fwd run the plan of n alone (ka_fwd: ka's real
-// forward behind a load that forms the product, so ka of the products
-// formed in torch gives its bits), and kc, kc_sw and kc_visc are one
+// Bound: memory traffic. Every kernel here is on the column-tile
+// transform of csrc/xtile.cuh: a cluster of K blocks owns C adjacent
+// columns, so the planes are read in row segments of C floats (64 bytes
+// at C = 16, where a block per column used 4 bytes of each 32-byte
+// sector), and the transposed store hands each output row to the
+// epilogue in runs of contiguous k, so the outputs (and kc_visc's tables)
+// move in whole sectors too. ka, ka_adv and ka_fwd run the plan of n
+// alone (ka_adv and ka_fwd: ka's real forward behind a load that forms
+// the advection or the product, so ka of the advection or products
+// formed in torch gives their bits), and kc, kc_sw and kc_visc are one
 // kernel on an epilogue with the plan of ny alone (ops/xtile.py), so
 // every form runs one transform's bits. At hny = n/2 + 1 columns (the
 // complex inverse of irfft2 and inverse_pair) the last tile holds one
@@ -54,23 +54,10 @@
 // as (tile, product), product fastest, so the five clusters of a tile
 // run together and all but the first to read a plane's columns find
 // them in L2; each reads only the planes its product needs.
-#include "colfft.cuh"
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
 namespace {
-
-constexpr int kProducts = 5;  // ka_fwd's q u, q v, eta u, eta v, phi
-
-// the transformed column in natural order, written as the row at `row`
-__device__ __forceinline__ void store_row(const float2* s, float* yr,
-                                          float* yi, size_t row, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float2 v = s[i];
-    yr[row + i] = v.x;
-    yi[row + i] = v.y;
-  }
-}
 
 // cluster tile: columns j0 .. j0 + C of the (n, m) planes; block r of it
 // loads rows r + k jj of the tile (xi NULL: zero imaginary parts),
@@ -111,25 +98,29 @@ __global__ void __launch_bounds__(512, 2)
   xt::finish_transposed<SIGN>(t, tw, false, o);
 }
 
-__global__ void ka_adv_kernel(const float* __restrict__ u,
-                              const float* __restrict__ zx,
-                              const float* __restrict__ v,
-                              const float* __restrict__ zy,
-                              const float* __restrict__ src,
-                              const float2* __restrict__ tw,
-                              float* __restrict__ yr, float* __restrict__ yi,
-                              int nx, int lognx, int ny, float beta) {
-  extern __shared__ float2 s[];
-  const int j = blockIdx.x;
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
-    const size_t off = static_cast<size_t>(i) * ny + j;
-    float zyv = zy[off];
-    if (beta != 0.f) zyv = zyv + beta;  // beta = 0: the f-plane expression
-    const float adv = -(u[off] * zx[off]) - v[off] * zyv + src[off];
-    s[xfb::bitrev(i, lognx)] = make_float2(adv, 0.f);
-  }
-  xfb::colfft<-1>(s, nx, lognx, tw);
-  store_row(s, yr, yi, static_cast<size_t>(j) * nx, nx);
+// cluster tile: columns j0 .. j0 + C of the x-major (nx, ny) fields;
+// block r of it forms rows r + k jj of the tile (zero imaginary parts),
+// consecutive lanes on consecutive columns
+__global__ void __launch_bounds__(512, 2)
+    ka_adv_kernel(const float* __restrict__ u, const float* __restrict__ zx,
+                  const float* __restrict__ v, const float* __restrict__ zy,
+                  const float* __restrict__ src,
+                  const float2* __restrict__ tw, xfb::xtile::RowOut out,
+                  int nx, int k, int logc, float beta) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, nx, k, logc);
+  const int j0 = (blockIdx.x / k) << logc;
+  xt::load_rows(t, j0, out.m, [&](int, int, size_t off) {
+    return make_float2(
+        xfb::advection(__ldg(u + off), __ldg(zx + off), __ldg(v + off),
+                       __ldg(zy + off), __ldg(src + off), beta),
+        0.f);
+  });
+  __syncthreads();
+  xt::RowOut o = out;
+  o.j0 = j0;
+  xt::finish_transposed<-1>(t, tw, false, o);
 }
 
 // cluster (tile, p) of product p = cluster mod 5: columns j0 .. j0 + C of
@@ -147,8 +138,8 @@ __global__ void __launch_bounds__(512, 2)
   const xt::Tile t = xt::begin(smem, tw, nx, k, logc);
   const int ny = out.m;
   const int cluster = blockIdx.x / k;
-  const int p = cluster % kProducts;
-  const int j0 = (cluster / kProducts) << logc;
+  const int p = cluster % xfb::kSwProducts;
+  const int j0 = (cluster / xfb::kSwProducts) << logc;
   xt::load_rows(t, j0, ny, [&](int, int, size_t off) {
     return make_float2(
         xfb::sw_product(p, u, v, zeta, eta_s, off, ies, f0, grav, split != 0),
@@ -305,20 +296,23 @@ extern "C" int xfb_kc_visc(const float* xr, const float* xi,
                    1, ny, tile_c, cluster_k, threads, smem, device, stream);
 }
 
-// u, zx, v, zy, src: (nx, ny) x-major -> yr, yi: (ny, nx)
+// u, zx, v, zy, src: (nx, ny) x-major -> yr, yi: (ny, nx). tile_c,
+// cluster_k, threads, smem: the plan of ops/xtile.py for nx
 extern "C" int xfb_ka_adv(const float* u, const float* zx, const float* v,
                           const float* zy, const float* src, const void* tw,
                           float* yr, float* yi, int nx, int ny, float beta,
+                          int tile_c, int cluster_k, int threads, int smem,
                           int device, void* stream) {
-  const size_t smem = static_cast<size_t>(nx) * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(ka_adv_kernel),
-                                 device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ka_adv_kernel<<<ny, xfb::threads_for(nx), smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      u, zx, v, zy, src, static_cast<const float2*>(tw), yr, yi, nx,
-      xfb::ilog2(nx), ny, beta);
-  return static_cast<int>(cudaGetLastError());
+  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (ny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_adv_kernel, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), u, zx, v, zy, src,
+      static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
+      xfb::xtile::log2i(tile_c), beta));
 }
 
 // u, v, zeta, eta_s: (nx, ny) x-major -> yr, yi: (5, ny, nx). tile_c,
@@ -333,8 +327,8 @@ extern "C" int xfb_ka_fwd(const float* u, const float* v, const float* zeta,
   }
   const int tiles = (ny + tile_c - 1) / tile_c;
   return static_cast<int>(xfb::xtile::launch(
-      ka_fwd_kernel, tiles * kProducts, 1, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
+      ka_fwd_kernel, tiles * xfb::kSwProducts, 1, cluster_k, threads, smem,
+      device, static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
       static_cast<const float2*>(tw),
       xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
       xfb::xtile::log2i(tile_c), ies, f0, grav, split));

@@ -172,7 +172,7 @@ int launch(const float* wr, const float* wi, const float* zx,
       FULL ? smem : smem - tile_bytes, device,
       static_cast<cudaStream_t>(stream), wr, wi, zx, zy, src,
       static_cast<const float2*>(tw),
-      xt::HalfOut{outr, outi, 0, nx, ny / 2 + 1}, ny, cluster_k,
+      xt::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
       xt::log2i(c), scale, beta));
 }
 

@@ -72,6 +72,6 @@ extern "C" int xfb_ky_adv(const float* u, const float* zx, const float* v,
       ky_adv_kernel, tiles, 1, cluster_k, threads, smem, device,
       static_cast<cudaStream_t>(stream), u, zx, v, zy, src,
       static_cast<const float2*>(tw),
-      xfb::xtile::HalfOut{outr, outi, 0, nx, ny / 2 + 1}, ny, cluster_k,
+      xfb::xtile::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
       xfb::xtile::log2i(tile_c), beta));
 }

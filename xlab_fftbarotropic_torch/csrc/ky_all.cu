@@ -5,97 +5,83 @@
 // _ky_all_kernel (:513, the default up to 2048^2) and _ky_fwd_kernel
 // (:489, XFB_SW_KYALL=0), three TPU schedules of one function. For each
 // physical column x of the y-major (ny, nx) fields u, v, zeta, eta_s it
-// forms, in the TPU kernels' expressions,
+// forms the five products q u, q v, eta u, eta v, phi with
 //   eta = eta_s * ies          (ies = 1 / eta_scale, exact)
 //   q   = zeta + f0            (zeta alone when split)
 //   phi = g * eta + ke         (ke alone when split), ke = 0.5 (u u + v v)
-// and the five products q u, q v, eta u, eta v, phi one after another;
-// each goes through the forward colfft of the real column, and rows
-// k <= ny/2 are written to out[p, x, k] (5, nx, hny).
+// each product and sum rounded on its own in the order of
+// ops/fused_sw.py sw_products (epilogue.cuh sw_product, ka_fwd's load),
+// runs the forward DFT of each real product column along y and keeps
+// rows k <= ny/2, written as out[p, x, k] of shape (5, nx, ny/2 + 1).
 //
 // Each product gets its own transform: packing two real products into
 // one complex FFT would give the smaller one the larger one's round-off,
 // and the products differ by orders (q u about 1e-3, phi about 50 in the
-// bench configuration). The block reads its four input columns once and
-// keeps them in shared memory beside the one ny-point work column:
-// 24 * ny bytes, 96 KB at 4096 and 192 KB at 8192. (Re-reading them from
-// L2 for each product instead took 3.76 against 2.48 ms at 4096^2 on an
-// H100, with the same bits.)
+// bench configuration).
 //
 // Bound: memory traffic, about 604 MB per call at 4096^2 (4 planes in,
-// 10 half planes out). The column reads are strided by nx; the row
-// writes are contiguous.
-#include "colfft.cuh"
+// 10 half planes out). ky_adv's y-stage (csrc/ky_adv.cu) with ka_fwd's
+// load and cluster order (csrc/ka_kc.cu): the column-tile transform of
+// csrc/xtile.cuh, planned for ny alone; a cluster of K blocks owns C
+// adjacent x columns of one product, block r computes rows y = r + K j of
+// the tile from the planes that product reads (row segments of C floats),
+// and the transposed half store writes each output row x in runs of
+// contiguous k. The cluster index decodes as (tile, product), product
+// fastest, so the five clusters of a tile run together and all but the
+// first to read a plane's columns find them in L2. The tile holds
+// (product, 0), so product p is kc of (sw_products(...)[p], 0) bit for
+// bit.
+#include "epilogue.cuh"
+#include "xtile.cuh"
 
 namespace {
 
-__global__ void ky_all_kernel(const float* __restrict__ u,
-                              const float* __restrict__ v,
-                              const float* __restrict__ zeta,
-                              const float* __restrict__ eta_s,
-                              const float2* __restrict__ tw,
-                              float* __restrict__ outr,
-                              float* __restrict__ outi, int ny, int logny,
-                              int nx, float ies, float f0, float grav,
-                              int split) {
-  extern __shared__ float2 s[];
-  // the four input columns after the work column; each thread reads back
-  // only the rows it stored itself, so no barrier is needed between
-  float* const cu = reinterpret_cast<float*>(s + ny);
-  float* const cv = cu + ny;
-  float* const cz = cv + ny;
-  float* const ce = cz + ny;
-  const int x = blockIdx.x;
-  const int hny = ny / 2 + 1;
-  for (int y = threadIdx.x; y < ny; y += blockDim.x) {
-    const size_t off = static_cast<size_t>(y) * nx + x;
-    cu[y] = u[off];
-    cv[y] = v[off];
-    cz[y] = zeta[off];
-    ce[y] = eta_s[off];
-  }
-  for (int p = 0; p < 5; ++p) {
-    for (int y = threadIdx.x; y < ny; y += blockDim.x) {
-      const float uu = cu[y], vv = cv[y];
-      float val;
-      if (p < 2) {
-        const float q = split ? cz[y] : cz[y] + f0;
-        val = q * (p == 0 ? uu : vv);
-      } else if (p < 4) {
-        const float eta = ce[y] * ies;
-        val = eta * (p == 2 ? uu : vv);
-      } else {
-        const float ke = 0.5f * (uu * uu + vv * vv);
-        val = split ? ke : grav * (ce[y] * ies) + ke;
-      }
-      s[xfb::bitrev(y, logny)] = make_float2(val, 0.f);
-    }
-    xfb::colfft<-1>(s, ny, logny, tw);
-    const size_t row = (static_cast<size_t>(p) * nx + x) * hny;
-    for (int k = threadIdx.x; k < hny; k += blockDim.x) {
-      const float2 val = s[k];
-      outr[row + k] = val.x;
-      outi[row + k] = val.y;
-    }
-    __syncthreads();  // the next product overwrites the column
-  }
+// cluster (tile, p) of product p = cluster mod 5: columns j0 .. j0 + C of
+// the y-major (ny, nx) fields; block r of it forms rows r + k jj of the
+// tile (zero imaginary parts), consecutive lanes on consecutive columns
+__global__ void __launch_bounds__(512, 2)
+    ky_all_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                  const float* __restrict__ zeta,
+                  const float* __restrict__ eta_s,
+                  const float2* __restrict__ tw, xfb::xtile::HalfOut out,
+                  int ny, int k, int logc, float ies, float f0, float grav,
+                  int split) {
+  extern __shared__ float2 smem[];
+  namespace xt = xfb::xtile;
+  const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
+  const int nx = out.nx;
+  const int cluster = blockIdx.x / k;
+  const int p = cluster % xfb::kSwProducts;
+  const int j0 = (cluster / xfb::kSwProducts) << logc;
+  xt::load_rows(t, j0, nx, [&](int, int, size_t off) {
+    return make_float2(
+        xfb::sw_product(p, u, v, zeta, eta_s, off, ies, f0, grav, split != 0),
+        0.f);
+  });
+  __syncthreads();
+  xt::HalfOut o = out;
+  o.j0 = j0;
+  o.plane = static_cast<size_t>(p) * nx * out.hny;
+  xt::finish_transposed<-1>(t, tw, true, o);
 }
 
 }  // namespace
 
-// u, v, zeta, eta_s: (ny, nx) -> outr, outi: (5, nx, ny/2 + 1)
+// u, v, zeta, eta_s: (ny, nx) y-major -> outr, outi: (5, nx, ny/2 + 1).
+// tile_c, cluster_k, threads, smem: the plan of ops/xtile.py for ny.
 extern "C" int xfb_ky_all(const float* u, const float* v, const float* zeta,
                           const float* eta_s, const void* tw, float* outr,
                           float* outi, int ny, int nx, float ies, float f0,
-                          float grav, int split, int device, void* stream) {
-  // the work column (float2) and the four input columns (float)
-  const size_t smem = static_cast<size_t>(ny) * 3 * sizeof(float2);
-  cudaError_t err = xfb::prepare(reinterpret_cast<const void*>(ky_all_kernel),
-                                 device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ky_all_kernel<<<nx, xfb::threads_for(ny), smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      u, v, zeta, eta_s, static_cast<const float2*>(tw), outr, outi, ny,
-      xfb::ilog2(ny), nx, ies, f0, grav, split);
-  return static_cast<int>(cudaGetLastError());
+                          float grav, int split, int tile_c, int cluster_k,
+                          int threads, int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ky_all_kernel, tiles * xfb::kSwProducts, 1, cluster_k, threads, smem,
+      device, static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
+      static_cast<const float2*>(tw),
+      xfb::xtile::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
+      xfb::xtile::log2i(tile_c), ies, f0, grav, split));
 }

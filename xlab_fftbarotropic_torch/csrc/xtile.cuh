@@ -1,7 +1,8 @@
 // xtile: the transform of a column tile, shared by the x-stages of
-// kx_visc.cu, xstage.cu, ka and ka_fwd (ka_kc.cu), ka_diag.cu and
-// ka_sw.cu and the y-stages kc (ka_kc.cu), kb and kb_pair (kb_pair.cu),
-// ky_adv (ky_adv.cu) and kb_adv (kb_adv.cu).
+// kx_visc.cu, xstage.cu, ka, ka_adv and ka_fwd (ka_kc.cu), ka_diag.cu
+// and ka_sw.cu and the y-stages kc (ka_kc.cu), kb and kb_pair
+// (kb_pair.cu), ky_adv (ky_adv.cu), ky_all (ky_all.cu) and kb_adv
+// (kb_adv.cu).
 //
 // Each transforms along an axis of length n (a power of two 64..8192)
 // whose column axis is contiguous in memory. A tile of C adjacent
@@ -13,7 +14,7 @@
 //      tile (cp.async, or plain loads where the load computes, as the
 //      Hermitian one of the paired c2r y-stages, load_hermitian,
 //      ky_adv's advection product and the fields and products of the
-//      x-stages, load_rows), consecutive lanes on consecutive
+//      x-stages and ky_all, load_rows), consecutive lanes on consecutive
 //      columns, so every row segment is C contiguous elements (64 or
 //      128 bytes at C = 16): whole 32-byte sectors, where a block per
 //      column would use 4 or 8 bytes of each;
@@ -28,14 +29,14 @@
 //      stores full row segments again (finish; gather and twiddle_dft
 //      are its steps, which kb_adv runs on two tiles at once); or
 //   3'. the transposed store (finish_transposed), for the y-stages and
-//      the full-length x-stages (ka, ka_fwd, the field x-stages of
-//      ka_diag.cu, ka_sw), whose output rows are the tile's columns: after a
-//      second cluster barrier
-//      block q stages its m C outputs column-major in its own tile (a
-//      column of m + 16/C values, so a half warp's 16 stores hit 16
-//      banks) and hands them to the epilogue column by column,
-//      consecutive lanes on consecutive k: each column's outputs are K
-//      runs of m/K contiguous k (64 at 4096, 256 bytes per plane).
+//      the full-length x-stages (ka, ka_adv, ka_fwd, the field x-stages
+//      of ka_diag.cu, ka_sw), whose output rows are the tile's columns:
+//      after a second cluster barrier block q stages its m C outputs
+//      column-major in its own tile (a column of m + 16/C values, so a
+//      half warp's 16 stores hit 16 banks) and hands them to the
+//      epilogue column by column, consecutive lanes on consecutive k:
+//      each column's outputs are K runs of m/K contiguous k (64 at 4096,
+//      256 bytes per plane).
 //
 // X[k2 + m k1] = sum_r W_K^(r k1) W_n^(r k2) sum_j x[r + K j] W_m^(j k2):
 // one pass over device memory whatever n. Each thread holds kElems
@@ -451,11 +452,12 @@ __device__ __forceinline__ void load_hermitian(
   }
 }
 
-// The computing load of a full-length x-stage (ka_diag.cu, ka_sw.cu,
-// ka_kc.cu ka_fwd_kernel): block r's rows i = r + K jj of the tile of
-// columns j0 .. j0 + C of (n, m) planes into its tile, value(i, j, off)
-// at off = i m + j, consecutive lanes on consecutive columns; 0 past m
-// (the ragged last tile).
+// The computing load of a tile (the x-stages of ka_diag.cu, ka_sw.cu
+// and ka_kc.cu ka_adv_kernel, ka_fwd_kernel; the y-stage ky_all.cu):
+// block r's rows i = r + K jj of the tile of columns j0 .. j0 + C of
+// (n, m) planes into its tile, value(i, j, off) at off = i m + j,
+// consecutive lanes on consecutive columns; 0 past m (the ragged last
+// tile).
 template <class Value>
 __device__ __forceinline__ void load_rows(const Tile& t, int j0, int m,
                                           Value value) {
@@ -470,27 +472,29 @@ __device__ __forceinline__ void load_rows(const Tile& t, int j0, int m,
   }
 }
 
-// The store of a forward y-stage's half spectrum (ky_adv.cu, kb_adv.cu):
-// X[k] of tile column c to yr, yi at [j0 + c, k] of (nx, n/2 + 1) planes.
+// The store of a forward y-stage's half spectrum (ky_adv.cu, kb_adv.cu,
+// ky_all.cu): X[k] of tile column c to yr, yi at [j0 + c, k] of the
+// (nx, n/2 + 1) planes from `plane` on.
 struct HalfOut {
   float* yr;
   float* yi;
+  size_t plane;
   int j0, nx, hny;
 
   __device__ __forceinline__ void operator()(int k, int c, float2 v) const {
     const int x = j0 + c;
     if (x >= nx) return;  // the ragged last tile
-    const size_t off = static_cast<size_t>(x) * hny + k;
+    const size_t off = plane + static_cast<size_t>(x) * hny + k;
     yr[off] = v.x;
     yi[off] = v.y;
   }
 };
 
-// The store of a full-length transposed x-stage (ka_kc.cu ka_kernel and
-// ka_fwd_kernel, ka_diag.cu ka_fields_kernel, ka_sw.cu ka_sw_kernel):
-// scale * X[k] of tile column c to yr, yi
-// at [j0 + c, k] of the (m, n) planes from `plane` on, one rounded
-// product (scale = 1 is exact).
+// The store of a full-length transposed x-stage (ka_kc.cu ka_kernel,
+// ka_adv_kernel and ka_fwd_kernel, ka_diag.cu ka_fields_kernel, ka_sw.cu
+// ka_sw_kernel): scale * X[k] of tile column c to yr, yi at [j0 + c, k]
+// of the (m, n) planes from `plane` on, one rounded product (scale = 1
+// is exact).
 struct RowOut {
   float* yr;
   float* yi;

@@ -1,10 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/colfft.cuh, and
-kx_visc.cu, xstage.cu, ka_diag.cu, ka_sw.cu, ka, ka_fwd and kc
-(ka_kc.cu), kb_pair.cu, ky_adv.cu and kb_adv.cu sharing csrc/xtile.cuh)
-compile with nvcc for Hopper (sm_90a) into one shared library with a
-plain C interface, loaded with ctypes: pointers and the stream pass as
+The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/xtile.cuh
+but kb_adv_tracer.cu, the one left on csrc/colfft.cuh) compile with
+nvcc for Hopper (sm_90a) into one shared library with a plain C
+interface, loaded with ctypes: pointers and the stream pass as
 ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
 
 The build runs at first use, from the sources in the package only, into
@@ -77,8 +76,9 @@ SIGNATURES = {
     # stream
     "xfb_ka_sw": [_P] * 12 + [_I, _I, _F] + [_I] * 5 + [_P],
     # u, v, zeta, eta_s, tw, outr, outi, ny, nx, ies, f0, grav, split,
-    # device, stream
-    "xfb_ky_all": [_P] * 7 + [_I, _I, _F, _F, _F, _I, _I, _P],
+    # tile_c, cluster_k, threads, smem (the ops/xtile.py plan), device,
+    # stream
+    "xfb_ky_all": [_P] * 7 + [_I, _I, _F, _F, _F, _I] + [_I] * 5 + [_P],
     # host array of 32 pointers, nx, hny, f0, grav, nu, H, split, coef,
     # device, stream
     "xfb_sw_combine": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
@@ -97,8 +97,9 @@ SIGNATURES = {
     # xr, xi, lap, mask, zr, zi, tw, yr, yi, ny, nx, nu, tile_c,
     # cluster_k, threads, smem, device, stream
     "xfb_kc_visc": [_P] * 9 + [_I, _I, _F] + [_I] * 5 + [_P],
-    # u, zx, v, zy, src, tw, yr, yi, nx, ny, beta, device, stream
-    "xfb_ka_adv": [_P] * 8 + [_I, _I, _F, _I, _P],
+    # u, zx, v, zy, src, tw, yr, yi, nx, ny, beta, tile_c, cluster_k,
+    # threads, smem (the ops/xtile.py plan), device, stream
+    "xfb_ka_adv": [_P] * 8 + [_I, _I, _F] + [_I] * 5 + [_P],
     # u, v, zeta, eta_s, tw, yr, yi, nx, ny, ies, f0, grav, split, tile_c,
     # cluster_k, threads, smem (the ops/xtile.py plan), device, stream
     "xfb_ka_fwd": [_P] * 7 + [_I, _I, _F, _F, _F, _I] + [_I] * 5 + [_P],

@@ -4,9 +4,8 @@ launch machinery every kernel wrapper of the port shares.
 
 One RK stage of the barotropic plane stepper runs five launches of four
 kernels, each a hand-written CUDA kernel (csrc/) around the column-tile
-transform of csrc/xtile.cuh, planned by ops/xtile.py (ka_adv alone of
-this module's kernels is still around the in-shared-memory column FFT
-of csrc/colfft.cuh):
+transform of csrc/xtile.cuh, planned by ops/xtile.py, as is every
+other kernel of this module:
 
   ka_diag   the four derivative fields' inverse x-stage   (stacked out)
   kb_pair   paired c2r y-stage, called for (0, 1) and (2, 3)
@@ -314,11 +313,18 @@ def kb_stacked(wr, wi, fa: int, fb: int, scale: float):
 
 # ----------------------------------------------------------------- ky_adv
 
-def ky_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
+def advection(u, zx, v, zy, src, beta: float = 0.0):
+    """-u*zx - v*(zy + beta) + src, each product and sum rounded on its
+    own in csrc/epilogue.cuh advection's order (zy + beta first, and only
+    for beta != 0), so kc (ka) of it gives ky_adv's (ka_adv's) bits."""
     if beta != 0.0:
         zy = zy + beta
-    adv = -(u * zx) - v * zy + src
-    f = torch.fft.rfft(adv, dim=0).transpose(0, 1)
+    return -(u * zx) - v * zy + src
+
+
+def ky_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
+    f = torch.fft.rfft(advection(u, zx, v, zy, src, beta),
+                       dim=0).transpose(0, 1)
     return f.real.contiguous(), f.imag.contiguous()
 
 
@@ -550,16 +556,16 @@ def kb_adv_half(zx, zy, wr, wi, src, beta: float = 0.0):
 # ----------------------------------------------------------------- ka_adv
 
 def ka_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
-    if beta != 0.0:
-        zy = zy + beta
-    return ka_plain(-(u * zx) - v * zy + src, None, True)
+    return ka_plain(advection(u, zx, v, zy, src, beta), None, True)
 
 
 def ka_adv(u, zx, v, zy, src, beta: float = 0.0):
     """-u*zx - v*(zy + beta) + src on x-major (nx, ny) fields, real
     forward x-DFT of each y column, written transposed: (ny, nx) planes.
     Counterpart of pallas_fft.forward_tendency's first kernel
-    (_ka_adv_kernel)."""
+    (_ka_adv_kernel). The kernel rounds the advection as `advection`
+    does, so it is ka (real forward, scale 1) of the advection formed in
+    torch, bit for bit."""
     if u.dim() != 2:
         raise ValueError(f"ka_adv: expected (nx, ny) fields, got "
                          f"{tuple(u.shape)}")
@@ -572,7 +578,8 @@ def ka_adv(u, zx, v, zy, src, beta: float = 0.0):
     yi = torch.empty_like(yr)
     _launch("ka_adv", lib().xfb_ka_adv,
             *_ptrs(u, zx, v, zy, src, _twiddles(nx, u.device), yr, yi),
-            nx, ny, float(beta), u.device.index, _stream(u))
+            nx, ny, float(beta), *_xtile_args(nx, ny, 4), u.device.index,
+            _stream(u))
     return yr, yi
 
 

@@ -7,9 +7,8 @@ its x-first order.
 The state is six float32 planes (nx, hny): zr, zi, dr, di, er, ei of
 (zeta_hat, div_hat, eta_hat). One RK stage runs five launches of four
 kernels (csrc/), the FFT ones on the column-tile transform of
-csrc/xtile.cuh (ka_sw, kb_pair, kx_fwd, and the x-first order's kb,
-ka_fwd and kc_sw) but ky_all, which runs the shared column FFT
-(csrc/colfft.cuh, one column per block):
+csrc/xtile.cuh (ka_sw, kb_pair, ky_all, kx_fwd, and the x-first order's
+kb, ka_fwd and kc_sw):
 
   ka_sw       the four fields u, v, zeta, eta_scale*eta, inverse x-stage,
               written transposed (4, hny, nx)
@@ -201,7 +200,7 @@ def sw_products(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
     and phi = g*eta + (u*u + v*v)/2; split leaves out f0 and g*eta (the
     combine adds those terms exactly). csrc/epilogue.cuh sw_product
     rounds in this order, so ka (real forward, scale 1) of product p is
-    ka_fwd's bit for bit."""
+    ka_fwd's and kc of (product p, 0) is ky_all's, bit for bit."""
     eta = eta_s * ies
     q = zeta if split else zeta + f0
     ke = 0.5 * (u * u + v * v)
@@ -237,7 +236,7 @@ def ky_all(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
     _launch("ky_all", lib().xfb_ky_all,
             *_ptrs(u, v, zeta, eta_s, _twiddles(ny, u.device), outr, outi),
             ny, nx, float(ies), float(f0), float(grav), int(split),
-            u.device.index, _stream(u))
+            *_xtile_args(ny, nx, 4), u.device.index, _stream(u))
     return outr, outi
 
 

@@ -1,10 +1,11 @@
 """The launch plan of the column-tile transform (csrc/xtile.cuh).
 
 kx_visc.cu and xstage.cu transform along the x axis of a half spectrum
-whose column axis is the contiguous one, and so do ka (ka_kc.cu) and the
-field x-stages ka_diag, ka6 and ka_quad (ka_diag.cu: one field per
-cluster), each with a transposed store; kc (ka_kc.cu: kc, kc_sw,
-kc_visc), kb_pair and kb (kb_pair.cu), ky_adv (ky_adv.cu) and kb_adv
+whose column axis is the contiguous one, and so do ka, ka_adv and ka_fwd
+(ka_kc.cu), the field x-stages ka_diag, ka6 and ka_quad (ka_diag.cu: one
+field per cluster) and ka_sw (ka_sw.cu), each with a transposed store;
+kc (ka_kc.cu: kc, kc_sw, kc_visc), kb_pair and kb (kb_pair.cu), ky_adv
+(ky_adv.cu), ky_all (ky_all.cu: one product per cluster) and kb_adv
 (kb_adv.cu: its inverse, then its forward transform, in tiles of C/2
 columns and half the threads) along the y axis of
 (ny, nx) or (hny, nx) planes, whose nx columns are contiguous, kb_pair
