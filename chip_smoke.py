@@ -21,9 +21,10 @@ exits non-zero and prints no result):
    (ka_diag.cu: ka_diag, ka6, ka_quad), ka_sw_kernel (ka_sw.cu, on hny),
    ka_adv_kernel and ka_fwd_kernel (ka_kc.cu, on ny) and of the y-stages
    kc_kernel (ka_kc.cu: kc, kc_sw, kc_visc), kb_kernel (kb_pair.cu: kb,
-   the x-major kb), kb_pair_kernel, ky_adv_kernel, ky_all_kernel and
-   kb_adv_kernel (half and full, in tiles of C/2 columns) at 256^2 and
-   n^2, and every kernel's registers and spills from the build's
+   the x-major kb), kb_pair_kernel, ky_adv_kernel, ky_all_kernel,
+   kb_adv_kernel (half and full) and kb_adv_tracer_kernel (in tiles of
+   C/2 columns) at 256^2 and n^2, and every kernel's registers and
+   spills from the build's
    -Xptxas -v; then the pins at 256^2 and n^2, bit for bit: the y-first
    pair's (kb_pair equal to kb_stacked transposed and ky_adv to kc of
    (adv, 0)) and the ka x-stages' (ka_quad's fields 0-1 equal to
@@ -34,7 +35,9 @@ exits non-zero and prints no result):
    torch, zeta to ka of (zr, zi), eta_s to ka of (er, ei) at scale
    eta_scale; ka_fwd's five products, split off and on, to ka's real
    forward of sw_products formed in torch, and ky_all's to kc of
-   (sw_products, 0)).
+   (sw_products, 0)) and kb_adv_tracer's (its zeta plane equal to ky_adv
+   of kb_pair's u, v and the zeta gradients, src given and not, its q
+   plane to ky_adv of the q gradients and a zero src).
 3. Barotropic main path: the gaussian IC at n^2 (bench.py's barotropic
    config) through the CLI entry point, xlab_fftbarotropic_torch.cli.run
    .main, for `steps` steps with vort recorded every steps/2, in the
@@ -143,7 +146,8 @@ exits non-zero and prints no result):
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
 11. With --profile: torch.profiler traces of the barotropic (default
-   and FUSEKB=full), tracer, SW RK4 and SW ETDRK4 y-first kernel paths
+   and FUSEKB=full), tracer (RK4 and ETDRK4), SW RK4 and SW ETDRK4
+   y-first kernel paths
    (the column-tile kx_visc and kx_fwd), the SW drag, the x-first
    barotropic and SW RK4 paths (the column-tile kc, kc_visc, kc_sw and
    kb), the adjoint gradient (per window step, phase 5e), and (phase 5j)
@@ -633,6 +637,14 @@ def kernel_cases(n: int, dev, seed: int):
             lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, None,
                                            0.3), per_field,
             (zx, zy, qx, qy, w6r[2:4], w6i[2:4]), 2 * n),
+        "kb_adv_tracer_beta0": Case(
+            lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, src),
+            lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, src),
+            per_field, (zx, zy, qx, qy, w6r[2:4], w6i[2:4], src), 2 * n),
+        "kb_adv_tracer_beta0_no_src": Case(
+            lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, None),
+            lambda: ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r, w6i, None),
+            per_field, (zx, zy, qx, qy, w6r[2:4], w6i[2:4]), 2 * n),
         "rk4_combine": Case(lambda: fs.plane_rk4_combine(*rk, 0.5),
                             lambda: fs.plane_rk4_combine_plain(*rk, 0.5),
                             list, tuple(p for g in rk for p in g)),
@@ -866,9 +878,10 @@ def phase_xtile(n: int) -> dict:
     the complex inverse, ka_fields_kernel and ka_sw_kernel on hny,
     ka_adv_kernel and ka_fwd_kernel on ny) and the y-stages (kc_kernel,
     kb_kernel, kb_pair_kernel, ky_adv_kernel, ky_all_kernel,
-    kb_adv_kernel: the nx columns of float planes; kb_adv in tiles of
-    C/2 columns, two of them in full) at 256^2 and n^2, and every
-    kernel's registers and spills from the build log."""
+    kb_adv_kernel, kb_adv_tracer_kernel: the nx columns of float planes;
+    kb_adv and kb_adv_tracer in tiles of C/2 columns, two of them in
+    full and in the tracer's) at 256^2 and n^2, and every kernel's
+    registers and spills from the build log."""
     from xlab_fftbarotropic_torch.ops import _build
     from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
 
@@ -891,14 +904,18 @@ def phase_xtile(n: int) -> dict:
                                     ("ky_adv_kernel", size, 4),
                                     ("ky_all_kernel", size, 4),
                                     ("kb_adv_kernel half", size, 4),
-                                    ("kb_adv_kernel full", size, 4)):
+                                    ("kb_adv_kernel full", size, 4),
+                                    ("kb_adv_tracer_kernel", size, 4)):
             p = xtile_plan(size, columns, elem)
             if name.startswith("kb_adv"):   # tiles of C/2 columns
                 tile = p.m * p.c // 2 * 8
+                # half holds one tile less; the tracer's second tile has
+                # 16 values of padding behind it
+                extra = {"kb_adv_kernel half": -tile,
+                         "kb_adv_tracer_kernel": 16 * 8}.get(name, 0)
                 p = p._replace(c=p.c // 2, threads=p.threads // 2,
                                tiles=-(-columns // (p.c // 2)),
-                               smem=p.smem - (tile if "half" in name
-                                              else 0))
+                               smem=p.smem + extra)
             log(f"xtile plan {name:18s} {size}^2: C = {p.c} columns, K = "
                 f"{p.k} blocks per cluster, {p.threads} threads, {p.smem} "
                 f"shared bytes per block, {p.tiles} tiles, passes "
@@ -1012,13 +1029,44 @@ def sw_pins(n: int, dev, rng) -> dict:
     return pins
 
 
+def tracer_pins(ny: int, nx: int, dev, rng) -> dict:
+    """kb_adv_tracer's pins on an (ny, nx) grid: name -> (got, want) planes
+    that must be equal bit for bit. With (u, v) = kb_pair of fields 2, 3
+    of ka6's stack (at the stepper's size: velocities of order one) at
+    1/(nx ny), plane 0 = ky_adv(u, zx, v, zy, src, beta) and plane 1 =
+    ky_adv(u, qx, v, qy, 0, 0), src given and None (ky_adv of a zero
+    plane); beta 0.3 is zeta's alone. The one list of these pins:
+    tests/test_torch_cuda_kernels.py checks the same pairs."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    def planes(shape, k, size=1.0):
+        return [size * torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for _ in range(k)]
+
+    wr, wi = planes((6, ny // 2 + 1, nx), 2, nx * math.sqrt(ny))
+    zx, zy, qx, qy, src = planes((ny, nx), 5)
+    zero = torch.zeros_like(zx)
+    u, v = ff.kb_pair(wr, wi, 2, 3, 1.0 / (nx * ny))
+    q = list(ff.ky_adv(u, qx, v, qy, zero, 0.0))
+    pins = {}
+    for tag, s in (("", src), (" no src", None)):
+        fr, fi = ft.kb_adv_tracer(zx, zy, qx, qy, wr, wi, s, 0.3)
+        z = ff.ky_adv(u, zx, v, zy, zero if s is None else s, 0.3)
+        pins[f"kb_adv_tracer{tag} zeta = kb_pair, ky_adv"] = (
+            [fr[0], fi[0]], list(z))
+        pins[f"kb_adv_tracer{tag} q = kb_pair, ky_adv"] = ([fr[1], fi[1]], q)
+    return pins
+
+
 def phase_pins(n: int, dev) -> dict:
     """The pins at n^2, bit for bit: the y-first pair's transforms,
     kb_pair (the natural store) equals kb_stacked (the transposed one)
     transposed, on ka_diag's and ka6's stacks, and ky_adv equals kc of
     (adv, 0), adv formed by torch on the card in xfb::advection's order;
-    and the ka x-stages' (ka_pins, ka_adv's among them) and the SW
-    stages' (sw_pins: ka_sw, ka_fwd, ky_all)."""
+    and the ka x-stages' (ka_pins, ka_adv's among them), the SW stages'
+    (sw_pins: ka_sw, ka_fwd, ky_all) and kb_adv_tracer's (tracer_pins:
+    kb_pair, then ky_adv of each product)."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     rng = np.random.default_rng(n + 11)
@@ -1040,6 +1088,7 @@ def phase_pins(n: int, dev) -> dict:
                                         ff.kc(adv, torch.zeros_like(adv)))
     pairs.update(ka_pins(n, dev, rng))
     pairs.update(sw_pins(n, dev, rng))
+    pairs.update(tracer_pins(n, n, dev, rng))
     out = {}
     for name, (got, want) in pairs.items():
         same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
@@ -1858,7 +1907,8 @@ def main(argv=None) -> int:
                     help="also write the full report as JSON to PATH")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the y-first barotropic (default and "
-                    "FUSEKB=full), tracer, SW RK4 and ETDRK4, the SW drag, "
+                    "FUSEKB=full), tracer (RK4 and ETDRK4), SW RK4 and "
+                    "ETDRK4, the SW drag, "
                     "the x-first barotropic and SW RK4, the adjoint "
                     "gradient and the sharded kernel paths with "
                     "torch.profiler (the breakdown of where their time "
@@ -1914,6 +1964,7 @@ def main(argv=None) -> int:
     if args.profile:
         report["profile"] = {f: phase_profile(models, f)
                              for f in ("barotropic", "tracer",
+                                       "tracer-etdrk4",
                                        "shallow-water", "sw-etdrk4",
                                        "sw-drag", "barotropic-xfirst",
                                        "sw-xfirst")}

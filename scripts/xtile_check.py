@@ -7,10 +7,14 @@ split off and on) and ka_adv_kernel (csrc/ka_kc.cu: beta on and off)
 and the y-stages kc_kernel (csrc/ka_kc.cu: kc, kc_sw, kc_visc),
 kb_kernel (csrc/kb_pair.cu: kb paired and single, the x-major kb),
 kb_pair_kernel (csrc/kb_pair.cu), ky_adv_kernel (csrc/ky_adv.cu),
-ky_all_kernel (csrc/ky_all.cu: split off and on) and kb_adv_kernel
-(csrc/kb_adv.cu: full and half), every form against its plain torch
-version and against the one torch.fft call of the same transform, at
-each grid size asked for.
+ky_all_kernel (csrc/ky_all.cu: split off and on), kb_adv_kernel
+(csrc/kb_adv.cu: full and half) and kb_adv_tracer_kernel
+(csrc/kb_adv_tracer.cu: src on and off, beta on and off), every form
+against its plain torch version and against the one torch.fft call of
+the same transform, at each grid size asked for; beside them the
+unfused composition kb_adv_tracer replaces (kb_pair, then ky_adv of
+each product) and the a2a transposes (csrc/a2a.cu, P = 4) against the
+library's .contiguous() copies of the same move.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
 
@@ -29,7 +33,13 @@ the stacked products for ky_all (the transform alone: the fields,
 products and advection formed beforehand), fft along y for kc and
 kc_sw, irfft along y for kb and kb_pair, rfft along y of one plane for
 ky_adv and kb_adv (the forward transform alone; no torch call computes
-their whole function).
+their whole function), rfft along y of the two advections stacked for
+kb_adv_tracer and its unfused composition (formed beforehand: the
+transform alone), and for a2a_cols / a2a_rows the library transposes
+(parallel/dfft.py transpose_to_columns / transpose_to_rows: the pad or
+the strip, then the .contiguous() copy); "a2a_cols launch" / "a2a_rows
+launch" time the kernel launch alone, its pointer tables made once,
+where the wrappers make them per call.
 Then the card's name and power limit, and the registers and spills of
 the tile kernels from the build's -Xptxas -v output. Exits non-zero past
 1e-5.
@@ -76,7 +86,9 @@ def cases(n: int, dev):
     from xlab_fftbarotropic_torch.ops import fused_sw as fs
     from xlab_fftbarotropic_torch.ops import fused_tracer as ft
     from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+    from xlab_fftbarotropic_torch.parallel import dfft
     from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
 
     rng = np.random.default_rng(n)
     hny = n // 2 + 1
@@ -146,6 +158,55 @@ def cases(n: int, dev):
     # written out here, as a --root checkout may predate ff.advection
     advs = {beta: -(u * zx) - v * (zy + beta if beta else zy) + src
             for beta in (0.0, 0.3)}
+    # kb_adv_tracer: ka6's stack with kb_adv's fields 2, 3 (u and v at
+    # order one after the scale), the y-first pair's zeta gradients and
+    # src, and two more planes drawn last for the tracer's gradients
+    w6r, w6i = (torch.cat([w, w[:2]]) for w in (kar, kai))
+    qx, qy = planes((n, n), 2)
+    zero = torch.zeros_like(src)
+    uv = ff.kb_pair_plain(w6r, w6i, 2, 3, s)
+    tracer_reads = (zx, zy, qx, qy, w6r[2:4], w6i[2:4])
+
+    def tracer(src_, beta):
+        def kern():
+            return planes_of(ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i,
+                                              src_, beta))
+
+        def plain():
+            return planes_of(ft.kb_adv_tracer_plain(zx, zy, qx, qy, w6r,
+                                                    w6i, src_, beta))
+
+        az = -(uv[0] * zx) - uv[1] * (zy + beta if beta else zy)
+        advq = torch.stack([az if src_ is None else az + src_,
+                            -(uv[0] * qx) - uv[1] * qy])
+        reads = tracer_reads + (() if src_ is None else (src_,))
+        return kern, plain, reads, lambda: torch.fft.rfft(advq, dim=1)
+
+    fused = tracer(src, 0.3)
+
+    def unfused():                        # kb_pair, then ky_adv twice
+        a, b = ff.kb_pair(w6r, w6i, 2, 3, s)
+        z = ff.ky_adv(a, zx, b, zy, src, 0.3)
+        q = ff.ky_adv(a, qx, b, qy, zero, 0.0)
+        return [z[0], q[0], z[1], q[1]]   # the bits of kb_adv_tracer's
+
+    # the a2a transposes at P = 4 on xstage's shards; "launch": the
+    # kernel alone, its device pointer tables made once
+    from xlab_fftbarotropic_torch.ops._build import lib
+    a2a_out = (torch.empty((p, n, w), dtype=rows.dtype, device=dev),
+               torch.empty((p, n // p, hny), dtype=rows.dtype, device=dev))
+    tables = [ftr._pointer_table(x) for x in (rows, a2a_out[0], cols,
+                                               a2a_out[1])]
+
+    def a2a_launch(to_cols):
+        src_t, dst_t = tables[:2] if to_cols else tables[2:]
+        out = a2a_out[0] if to_cols else a2a_out[1]
+
+        def kern():
+            lib().xfb_a2a(src_t.data_ptr(), dst_t.data_ptr(), p, n // p,
+                          hny, w, int(to_cols), dev.index, ff._stream(out))
+            return out
+        return kern
 
     def fields(states, kinds, psi_first=False):
         re_, im = [], []
@@ -290,7 +351,31 @@ def cases(n: int, dev):
                                                      0.3),
                         (zx, zy, kar[2:], kai[2:], src),
                         lambda: torch.fft.rfft(src, dim=0)),
+        "kb_adv_tracer": fused,
+        "kb_adv_tracer no src": tracer(None, 0.3),
+        "kb_adv_tracer beta=0": tracer(src, 0.0),
+        "kb_adv_tracer b=0 no src": tracer(None, 0.0),
+        "kb_pair + 2 ky_adv": (unfused, *fused[1:]),
+        "a2a_cols": (lambda: ftr.a2a_cols(rows),
+                     lambda: ftr.a2a_cols_plain(rows), (rows,),
+                     lambda: dfft.transpose_to_columns(rows)),
+        "a2a_cols launch": (a2a_launch(True),
+                            lambda: ftr.a2a_cols_plain(rows), (rows,),
+                            lambda: dfft.transpose_to_columns(rows)),
+        "a2a_rows": (lambda: ftr.a2a_rows(cols, hny),
+                     lambda: ftr.a2a_rows_plain(cols, hny), (cols,),
+                     lambda: dfft.transpose_to_rows(cols, hny)),
+        "a2a_rows launch": (a2a_launch(False),
+                            lambda: ftr.a2a_rows_plain(cols, hny), (cols,),
+                            lambda: dfft.transpose_to_rows(cols, hny)),
     }
+
+
+def planes_of(out):
+    """kb_adv_tracer's stacked (re, im) (2, nx, hny) planes as [zeta re,
+    q re, zeta im, q im]: each plane held to its own plain one (their
+    sizes differ), in the byte order of the stack (the same digest)."""
+    return [out[0][0], out[0][1], out[1][0], out[1][1]]
 
 
 def digest(outs) -> str:
@@ -341,7 +426,7 @@ def main(argv=None) -> int:
                          r"ka_kernel|ka_fields_kernel|ka_sw_kernel|"
                          r"ka_adv_kernel|ka_fwd_kernel|kc_kernel|kb_kernel|"
                          r"kb_pair_kernel|ky_adv_kernel|ky_all_kernel|"
-                         r"kb_adv_kernel)\w*)'"
+                         r"kb_adv_kernel|kb_adv_tracer_kernel)\w*)'"
                          r".*?\n(.*?Used \d+ registers[^\n]*)", text, re.S):
         spill = re.search(r"(\d+) bytes spill stores", m.group(2))
         regs = re.search(r"Used (\d+) registers", m.group(2))

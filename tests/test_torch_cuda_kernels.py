@@ -29,7 +29,7 @@ from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
-SIZES = [64, 256, 4096, 8192]   # 8192: 64 KB of shared memory per column
+SIZES = [64, 256, 4096, 8192]   # 8192: the column tile narrows to C = 8
 
 
 @pytest.fixture
@@ -252,6 +252,42 @@ def test_kb_adv_tracer_leak_guard(cuda, n):
     b = ft.kb_adv_tracer(zx, zy, qx, qy, wr, poisoned, None, 0.3)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (4096, 4096), (256, 200),
+                                   (1024, 33), (64, 15)])
+def test_kb_adv_tracer_is_kb_pair_and_ky_adv_bit_for_bit(cuda, shape):
+    """kb_adv_tracer runs kb_pair's inverse and ky_adv's forward transform
+    in one cluster, so its zeta plane is ky_adv of kb_pair's u, v and the
+    zeta gradients (src given and not) and its q plane ky_adv of the q
+    gradients and a zero src, bit for bit, square and on (ny, nx) grids
+    whose last tile of C/2 columns is ragged: chip_smoke.py's
+    tracer_pins, the one list of them."""
+    from chip_smoke import tracer_pins
+
+    ny, nx = shape
+    pins = tracer_pins(ny, nx, cuda, np.random.default_rng(ny + nx + 29))
+    for name, (got, want) in pins.items():
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+def test_kb_adv_tracer_refuses_a_plan_it_does_not_take(cuda):
+    """kb_adv_tracer checks the plan it is handed: one that is not
+    ops/xtile.py's for the length fails the launch."""
+    from xlab_fftbarotropic_torch.ops._build import lib
+
+    n = 256
+    x = torch.zeros((n, n), device=cuda)
+    w = torch.zeros((6, n // 2 + 1, n), device=cuda)
+    y = torch.empty((2, n, n // 2 + 1), device=cuda)
+    tw = ff._twiddles(n, cuda)
+    c, k, threads, smem = ff._xtile_args(n, n, 4)
+    for plan in ((c, k, threads + 32, smem), (c, k, threads, smem - 8),
+                 (c, 3, threads, smem)):
+        assert lib().xfb_kb_adv_tracer(*ff._ptrs(x, x, x, x, w, w, x, tw, y,
+                                                 y), n, n, 1.0, 0.0, *plan,
+                                       cuda.index, ff._stream(x)) != 0
 
 
 def test_unsupported_length_raises(cuda):

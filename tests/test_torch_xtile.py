@@ -27,7 +27,12 @@ the rows block q holds after the combine, each value handed to block
 y mod K at slot (y div K) C + c of its tile, every slot written exactly
 once, then ky_adv's forward transform; in tiles of C/2 columns), held
 to their plain versions, and kb_adv exactly the emulated ky_adv of the
-emulated kb_pair's outputs.
+emulated kb_pair's outputs. kb_adv_tracer runs kb_adv's inverse and
+exchange with two products, adv_z into the first tile and adv_q into a
+second one, and two forward transforms into flat (2 nx, ny/2 + 1)
+planes; held to kb_adv_tracer_plain on non-square grids with a ragged
+last tile, and exactly the emulated kb_pair followed by the emulated
+ky_adv of each product.
 
 The full-length x-stages with the transposed store: ka (every mode) and
 the stacked ones, whose cluster index decodes as (tile, field) with the
@@ -149,8 +154,7 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 
 
 # __global__ functions on the column tile, each with the store it ends in
-# (the natural finish, or the transposed one of the y-stages), and the one
-# still around colfft
+# (the natural finish, or the transposed one of the y-stages)
 TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "xstage.cu": {"xstage_kernel": "xt::finish<"},
                 "ka_kc.cu": {"ka_kernel": "xt::finish_transposed<",
@@ -163,8 +167,9 @@ TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                                "kb_kernel": "xt::finish_transposed<"},
                 "ky_adv.cu": {"ky_adv_kernel": "xt::finish_transposed<"},
                 "ky_all.cu": {"ky_all_kernel": "xt::finish_transposed<"},
-                "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"}}
-COLFFT_KERNELS = {"kb_adv_tracer.cu": ("kb_adv_tracer_kernel",)}
+                "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"},
+                "kb_adv_tracer.cu": {
+                    "kb_adv_tracer_kernel": "xt::finish_transposed<"}}
 PLAN_ENTRIES = {"kx_visc.cu": ("xfb_kx_visc", "xfb_kx_visc_tail"),
                 "xstage.cu": ("xfb_xstage",),
                 "ka_kc.cu": ("xfb_ka", "xfb_ka_adv", "xfb_ka_fwd", "xfb_kc",
@@ -174,7 +179,11 @@ PLAN_ENTRIES = {"kx_visc.cu": ("xfb_kx_visc", "xfb_kx_visc_tail"),
                 "kb_pair.cu": ("xfb_kb", "xfb_kb_pair"),
                 "ky_adv.cu": ("xfb_ky_adv",),
                 "ky_all.cu": ("xfb_ky_all",),
-                "kb_adv.cu": ("xfb_kb_adv_full", "xfb_kb_adv_half")}
+                "kb_adv.cu": ("xfb_kb_adv_full", "xfb_kb_adv_half"),
+                "kb_adv_tracer.cu": ("xfb_kb_adv_tracer",)}
+# the paired c2r y-stages, whose tile is the Hermitian load
+HERMITIAN_KERNELS = ("kb_pair_kernel", "kb_kernel", "kb_adv_kernel",
+                     "kb_adv_tracer_kernel")
 # the kernels whose tile is formed by the computing load of load_rows
 LOAD_ROWS_KERNELS = ("ka_fields_kernel", "ka_sw_kernel", "ka_adv_kernel",
                      "ka_fwd_kernel", "ky_all_kernel")
@@ -199,14 +208,14 @@ def _source(name: str) -> str:
 
 def test_plan_agrees_with_the_kernel_source():
     """The CUDA side's constants and its check of a plan are the ones the
-    Python plan uses; per __global__ function, the tile kernels run the
-    column tile and no colfft, each ending in its own store (kb_pair's
-    natural one, the transposed one of ka, ka_adv, ka_fwd, the field
-    x-stages, ka_sw, kb, kc, ky_adv, ky_all and kb_adv), and only
-    kb_adv_tracer still colfft (no other source includes it); every tile
-    entry point takes the plan; the paired c2r y-stages share the tile's
-    Hermitian load, the computing x-stages and ky_all load_rows, and
-    colfft.cuh no longer has the column one."""
+    Python plan uses; per __global__ function, the FFT kernels run the
+    column tile, each ending in its own store (kb_pair's natural one, the
+    transposed one of ka, ka_adv, ka_fwd, the field x-stages, ka_sw, kb,
+    kc, ky_adv, ky_all, kb_adv and kb_adv_tracer); every tile entry point
+    takes the plan; the paired c2r y-stages share the tile's Hermitian
+    load, the computing x-stages and ky_all load_rows; the one-column
+    transform colfft.cuh is gone: not built, not on disk, included by no
+    source."""
     src = (_build.CSRC / "xtile.cuh").read_text()
     assert f"constexpr int kElems = {xtile.ELEMS};" in src
     assert "smem == (m * c + m) * static_cast<int>(sizeof(float2))" in src
@@ -224,7 +233,7 @@ def test_plan_agrees_with_the_kernel_source():
             assert store in body, fn
             assert all(other not in body for other in STORES
                        if other != store), fn
-            if fn in ("kb_pair_kernel", "kb_kernel", "kb_adv_kernel"):
+            if fn in HERMITIAN_KERNELS:
                 assert "xt::load_hermitian(" in body, fn
             if fn in LOAD_ROWS_KERNELS:
                 assert "xt::load_rows(" in body, fn
@@ -233,15 +242,10 @@ def test_plan_agrees_with_the_kernel_source():
             assert "int tile_c, int cluster_k" in " ".join(
                 sig.group(1).split()), entry
             assert "plan_ok" in text
-    for name, kernels in COLFFT_KERNELS.items():
-        text = _source(name)
-        for fn in kernels:
-            body = _body(text, rf"__global__\s+void\s+{fn}\s*\(")
-            assert "colfft<" in body and "xt::" not in body, fn
-    assert [name for name in _build.SOURCES
-            if '#include "colfft.cuh"' in _source(name)] \
-        == list(COLFFT_KERNELS)
-    assert "load_hermitian_column" not in _source("colfft.cuh")
+    assert "colfft.cuh" not in _build.HEADERS
+    assert not (_build.CSRC / "colfft.cuh").exists()
+    assert not any("colfft" in _source(name)
+                   for name in _build.SOURCES + _build.HEADERS)
 
 
 # ----- the emulation -----
@@ -664,6 +668,147 @@ def test_emulated_kb_adv_is_plain_and_kb_pair_then_ky_adv(n, mode):
     dirty[:, n // 2] = -7.0 * wi[:, n // 2]
     zeta = (None, None) if mode == "full" else (zx, zy)
     assert torch.equal(emulate_kb_adv(wr, dirty, *zeta, src, 1.6), got)
+
+
+# ----- kb_adv_tracer_kernel (csrc/kb_adv_tracer.cu): kb_adv's inverse
+# and exchange with two products and two forward transforms -----
+
+def emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src,
+                          beta: float) -> torch.Tensor:
+    """kb_adv_tracer_kernel on ka6's (6, ny/2 + 1, nx) stack, in tiles of
+    half the plan's columns: the Hermitian tile of fields 2, 3, its
+    inverse sub-DFT and combine; u, v times 1/(nx ny); adv_z with src (0
+    for None) and beta, adv_q with 0 and no beta, at each (y, c) block q
+    holds; each product to block y mod K, slot (y div K) C + c of its own
+    tile, every slot written exactly once; the forward transform of each
+    tile and the half store into flat (2 nx, ny/2 + 1) planes, adv_z at
+    row x, adv_q at row nx + x (a store past nx would land in the next
+    plane): (2, nx, ny/2 + 1)."""
+    _, hny, nx = wr.shape
+    ny = 2 * (hny - 1)
+    scale = 1.0 / (nx * ny)
+    e = _Cluster(ny, nx, 4, narrow=True)
+    # the second tile's staged columns fit it and the 16-value pad
+    assert e.c * (e.m + 16 // e.c) <= e.m * e.c + 16
+    uv_load = _hermitian(wr[2], wi[2], wr[3], wi[3])
+    zero = torch.zeros((ny, nx), dtype=torch.float32)
+    src = zero if src is None else src
+    out, writes = _outputs(2 * nx, ny)
+    for tile in range(e.tiles):
+        uv = e.transform(uv_load, tile, False)
+        tiles = [_outputs(e.k, e.m * e.c) for _ in range(2)]
+        for rank in range(e.k):
+            k2, col, p = e.combine(uv, rank, False)
+            x = tile * e.c + col
+            live, xc = x < nx, x.clamp(max=nx - 1)
+            for k1 in range(e.k):
+                y = k2 + e.m * k1
+                u, v = _scaled(p[k1], scale)
+                advs = (_advection(u, zx[y, xc], v, zy[y, xc], src[y, xc],
+                                   beta),
+                        _advection(u, qx[y, xc], v, qy[y, xc], zero[y, xc],
+                                   0.0))
+                for (fwd, slots), adv in zip(tiles, advs):
+                    adv = torch.where(live, adv, torch.zeros(()))
+                    _put(fwd, slots, (y % e.k, (y // e.k) * e.c + col),
+                         torch.complex(adv, torch.zeros_like(adv)))
+        for plane, (fwd, slots) in zip((0, nx), tiles):
+            assert (slots == 1).all()      # every slot written, once
+            blocks = torch.stack([e.subdft(fwd[r], True)
+                                  for r in range(e.k)])
+            for rank in range(e.k):
+                k2, col, z = e.combine(blocks, rank, True)
+                e.store_transposed(k2, col, z, tile, rank, True, out, writes,
+                                   plane=plane)
+    return _written_once(out, writes, 2 * nx, hny).reshape(2, nx, hny)
+
+
+# (ny, nx): the tile of C/2 columns ragged, nx over and under ny, K = 1
+# and K = 2
+TRACER_SHAPES = [(64, 44), (128, 37), (1024, 13)]
+
+
+def _tracer_inputs(ny, nx, seed):
+    """ka6's stack at the stepper's size (the velocities of order one
+    after the 1/(nx ny) scale), the y-major gradients zx, zy, qx, qy and
+    src."""
+    rng = np.random.default_rng(seed)
+    wr, wi = (w * nx * ny ** 0.5 for w in _float_planes(
+        rng, (6, ny // 2 + 1, nx), 2))
+    return [wr, wi] + _float_planes(rng, (ny, nx), 5)
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.6])
+@pytest.mark.parametrize("with_src", [True, False], ids=["src", "no_src"])
+@pytest.mark.parametrize("shape", TRACER_SHAPES, ids=str)
+def test_emulated_kb_adv_tracer_is_plain(shape, with_src, beta):
+    """kb_adv_tracer's tile kernel on non-square (ny, nx) grids with a
+    ragged last tile, src given and None, beta 0 and 1.6:
+    kb_adv_tracer_plain's (2, nx, ny/2 + 1) planes within 2e-6 of each
+    plane's max |plain|."""
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    ny, nx = shape
+    wr, wi, zx, zy, qx, qy, src = _tracer_inputs(ny, nx, ny + nx + 47)
+    src = src if with_src else None
+    got = emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, beta)
+    want = torch.complex(*ft.kb_adv_tracer_plain(zx, zy, qx, qy, wr, wi,
+                                                 src, beta))
+    assert got.shape == (2, nx, ny // 2 + 1)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 2e-6
+
+
+@pytest.mark.parametrize("with_src", [True, False], ids=["src", "no_src"])
+@pytest.mark.parametrize("shape", TRACER_SHAPES[:2], ids=str)
+def test_emulated_kb_adv_tracer_is_kb_pair_then_ky_adv(shape, with_src):
+    """The pin: plane 0 is exactly the emulated ky_adv(u, zx, v, zy, src,
+    beta) and plane 1 the emulated ky_adv(u, qx, v, qy, 0, 0), with (u,
+    v) the emulated kb_pair of fields 2, 3 at 1/(nx ny) (a None src adds
+    a zero plane; beta belongs to zeta alone)."""
+    ny, nx = shape
+    wr, wi, zx, zy, qx, qy, src = _tracer_inputs(ny, nx, ny + nx + 53)
+    zero = torch.zeros_like(zx)
+    src = src if with_src else None
+    got = emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, 1.6)
+    u, v = _emulated_kb_pair(wr, wi, 2, 3, 1.0 / (nx * ny))
+    for plane, load in ((0, _advection_load(u, zx, v, zy,
+                                            zero if src is None else src,
+                                            1.6)),
+                        (1, _advection_load(u, qx, v, qy, zero, 0.0))):
+        want = emulate(load, ny, nx, True, transposed=True, half=True)
+        assert torch.equal(got[plane], want), plane
+
+
+@pytest.mark.parametrize("shape", [(64, 44), (256, 9)], ids=str)
+def test_emulated_kb_adv_tracer_writes_each_output_once(shape):
+    """Into flat (2 nx, ny/2 + 1) planes on a non-square grid whose last
+    tile is ragged (one live column at 256 x 9): every output of both
+    planes is written exactly once, none past nx into the next plane's
+    first rows, and every product slot of both tiles exactly once
+    (emulate_kb_adv_tracer asserts both)."""
+    ny, nx = shape
+    wr, wi, zx, zy, qx, qy, src = _tracer_inputs(ny, nx, ny + nx + 59)
+    c = xtile.xtile_plan(ny, nx, 4).c // 2
+    assert nx % c                                     # the ragged tile
+    got = emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, 0.0)
+    assert got.shape == (2, nx, ny // 2 + 1)
+    assert not torch.isnan(got).any()
+
+
+@pytest.mark.parametrize("shape", [(64, 44), (1024, 13)], ids=str)
+def test_emulated_kb_adv_tracer_leak_guard(shape):
+    """Dirty imaginary parts of the self-conjugate rows 0 and ny/2 of
+    every field (u's and v's among them) change no bit: the Hermitian
+    load never reads them."""
+    ny, nx = shape
+    wr, wi, zx, zy, qx, qy, src = _tracer_inputs(ny, nx, ny + nx + 61)
+    clean = emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, 1.6)
+    dirty = wi.clone()
+    dirty[:, 0] = 10.0 * wi[:, 0] + 1.0
+    dirty[:, ny // 2] = -7.0 * wi[:, ny // 2]
+    assert torch.equal(emulate_kb_adv_tracer(zx, zy, qx, qy, wr, dirty, src,
+                                             1.6), clean)
 
 
 # ----- the ka x-stages: ka_kernel (csrc/ka_kc.cu) and ka_fields_kernel

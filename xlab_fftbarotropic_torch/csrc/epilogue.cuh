@@ -3,9 +3,9 @@
 // Every product and sum is rounded on its own (__fmul_rn, __fadd_rn,
 // __fsub_rn: nvcc never contracts them into an FMA), in the order of the
 // torch plain versions. A fused kernel and the unfused pair it replaces
-// then give the same bits: kb_adv and ky_adv (advection), kx_visc, visc
-// and kc_visc (the viscosity epilogue), kx_visc's tail and rk4_combine
-// (the RK4 tail). ka_adv's advection rounds as ops/fused_fft.py
+// then give the same bits: kb_adv, kb_adv_tracer and ky_adv (advection),
+// kx_visc, visc and kc_visc (the viscosity epilogue), kx_visc's tail and
+// rk4_combine (the RK4 tail). ka_adv's advection rounds as ops/fused_fft.py
 // advection, and ka_fwd's and ky_all's products (sw_product) in the
 // order of ops/fused_sw.py sw_products, so ka (kc for ky_all) of the
 // advection or products formed in torch gives their bits.

@@ -1,8 +1,8 @@
 // xtile: the transform of a column tile, shared by the x-stages of
 // kx_visc.cu, xstage.cu, ka, ka_adv and ka_fwd (ka_kc.cu), ka_diag.cu
 // and ka_sw.cu and the y-stages kc (ka_kc.cu), kb and kb_pair
-// (kb_pair.cu), ky_adv (ky_adv.cu), ky_all (ky_all.cu) and kb_adv
-// (kb_adv.cu).
+// (kb_pair.cu), ky_adv (ky_adv.cu), ky_all (ky_all.cu), kb_adv
+// (kb_adv.cu) and kb_adv_tracer (kb_adv_tracer.cu).
 //
 // Each transforms along an axis of length n (a power of two 64..8192)
 // whose column axis is contiguous in memory. A tile of C adjacent
@@ -418,7 +418,8 @@ __device__ __forceinline__ void finish_transposed(
   }
 }
 
-// The Hermitian load of the paired c2r y-stages (kb_pair.cu, kb_adv.cu):
+// The Hermitian load of the paired c2r y-stages (kb_pair.cu, kb_adv.cu,
+// kb_adv_tracer.cu):
 // block r's rows y = r + K j of the tile of columns j0 .. j0 + C into s,
 // from the two half spectra a = ar + i ai and b = br + i bi, (n/2 + 1,
 // nx) planes, at input row h = min(y, n - y): a + i b up to n/2,
@@ -473,7 +474,7 @@ __device__ __forceinline__ void load_rows(const Tile& t, int j0, int m,
 }
 
 // The store of a forward y-stage's half spectrum (ky_adv.cu, kb_adv.cu,
-// ky_all.cu): X[k] of tile column c to yr, yi at [j0 + c, k] of the
+// kb_adv_tracer.cu, ky_all.cu): X[k] of tile column c to yr, yi at [j0 + c, k] of the
 // (nx, n/2 + 1) planes from `plane` on.
 struct HalfOut {
   float* yr;

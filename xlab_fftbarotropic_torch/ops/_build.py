@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-The stepping kernels (csrc/*.cu, the FFT ones sharing csrc/xtile.cuh
-but kb_adv_tracer.cu, the one left on csrc/colfft.cuh) compile with
-nvcc for Hopper (sm_90a) into one shared library with a plain C
-interface, loaded with ctypes: pointers and the stream pass as
-ctypes.c_void_p, each launcher returns cudaGetLastError() as an int.
+The stepping kernels (csrc/*.cu, the FFT ones sharing the column-tile
+transform of csrc/xtile.cuh) compile with nvcc for Hopper (sm_90a) into
+one shared library with a plain C interface, loaded with ctypes:
+pointers and the stream pass as ctypes.c_void_p, each launcher returns
+cudaGetLastError() as an int.
 
 The build runs at first use, from the sources in the package only, into
 xlab_fftbarotropic_torch/_build/<hash>/ where the hash covers every
@@ -29,7 +29,7 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-HEADERS = ("colfft.cuh", "epilogue.cuh", "xtile.cuh")
+HEADERS = ("epilogue.cuh", "xtile.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
            "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu", "a2a.cu",
@@ -63,8 +63,9 @@ SIGNATURES = {
     # ops/xtile.py plan), device, stream
     "xfb_kx_visc": [_P] * 13 + [_I, _I, _I, _F, _F] + [_I] * 5 + [_P],
     # zx, zy, qx, qy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta,
-    # device, stream
-    "xfb_kb_adv_tracer": [_P] * 10 + [_I, _I, _F, _F, _I, _P],
+    # tile_c, cluster_k, threads, smem (the ops/xtile.py plan), device,
+    # stream
+    "xfb_kb_adv_tracer": [_P] * 10 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
     # host array of 6 * n_planes pointers, n_planes, numel, c, device,
     # stream
     "xfb_rk4_combine": [_P, _I, _L, _F, _I, _P],

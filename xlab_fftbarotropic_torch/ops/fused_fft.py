@@ -100,9 +100,9 @@ _TWIDDLES: dict = {}
 
 
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """colfft's table exp(-2 pi i k / n), k < n/2, as (n/2, 2) float32
-    (re, im) pairs: computed in float64, rounded once; one per (n,
-    device)."""
+    """The column-tile kernels' twiddle table exp(-2 pi i k / n), k < n/2,
+    as (n/2, 2) float32 (re, im) pairs: computed in float64, rounded once;
+    one per (n, device)."""
     key = (n, device)
     if key not in _TWIDDLES:
         w = np.exp(-2j * np.pi * np.arange(n // 2) / n)

@@ -87,8 +87,10 @@ def kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, beta: float = 0.0):
     """y-major (ny, nx) gradients zx, zy, qx, qy (+ forcing src, or None)
     and the stacked (6, hny, nx) x-stages, whose fields 2 and 3 are the u
     and v x-stages -> stacked (2, nx, hny) forward y-stage planes of
-    -u zx - v (zy + beta) [+ src] and -u qx - v qy. Counterpart of
-    pallas_tracer.kb_adv_tracer (_kb_adv_tracer_kernel)."""
+    -u zx - v (zy + beta) [+ src] and -u qx - v qy. kb_pair of fields 2,
+    3 and ky_adv of each product (a zero src for q) in one kernel, with
+    their bits. Counterpart of pallas_tracer.kb_adv_tracer
+    (_kb_adv_tracer_kernel)."""
     ny, nx = zx.shape
     hny = ny // 2 + 1
     fields = (zx, zy, qx, qy) + (() if src is None else (src,))
@@ -106,7 +108,8 @@ def kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, beta: float = 0.0):
             *_ptrs(zx, zy, qx, qy, wr, wi),
             None if src is None else src.data_ptr(),
             *_ptrs(_twiddles(ny, zx.device), outr, outi), ny, nx,
-            1.0 / (nx * ny), float(beta), zx.device.index, _stream(zx))
+            1.0 / (nx * ny), float(beta), *_xtile_args(ny, nx, 4),
+            zx.device.index, _stream(zx))
     return outr, outi
 
 

@@ -5,9 +5,10 @@ whose column axis is the contiguous one, and so do ka, ka_adv and ka_fwd
 (ka_kc.cu), the field x-stages ka_diag, ka6 and ka_quad (ka_diag.cu: one
 field per cluster) and ka_sw (ka_sw.cu), each with a transposed store;
 kc (ka_kc.cu: kc, kc_sw, kc_visc), kb_pair and kb (kb_pair.cu), ky_adv
-(ky_adv.cu), ky_all (ky_all.cu: one product per cluster) and kb_adv
+(ky_adv.cu), ky_all (ky_all.cu: one product per cluster), kb_adv
 (kb_adv.cu: its inverse, then its forward transform, in tiles of C/2
-columns and half the threads) along the y axis of
+columns and half the threads) and kb_adv_tracer (kb_adv_tracer.cu:
+kb_adv's launch shape, two forward transforms) along the y axis of
 (ny, nx) or (hny, nx) planes, whose nx columns are contiguous, kb_pair
 with the natural store, the others with a transposed one (their output
 rows are the tile's columns). Each gives a tile of C adjacent
