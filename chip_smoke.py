@@ -14,7 +14,9 @@ exits non-zero and prints no result):
    <= 1e-5 per output field (radix-2 float32 sums in another order than
    cuFFT's, with an error that grows with log2 n; the transposes, copies,
    exactly), the distributed ones on 4 shards and at 256^2 on 1, 2 and
-   8 too; each timed at n^2 with CUDA events. First the column-tile
+   8 too; each timed at n^2 with CUDA events (the a2a transposes also
+   as the bare launch, into an output and shard pointers made once,
+   beside the timing through the wrapper). First the column-tile
    plan (ops/xtile.py: columns per tile C, blocks per cluster K,
    threads, shared bytes) of the x-stages of kx_visc.cu and xstage.cu,
    ka_kernel (ka_kc.cu, on ny and hny columns), ka_fields_kernel
@@ -116,6 +118,18 @@ exits non-zero and prints no result):
    path, pallas equal to xla bit for bit, ms/step of each beside the
    library path and FUSEKB=full with FUSEKX=0 (and with --profile the
    four kernel paths' breakdowns).
+5k. Example 02's post-processing pipeline at n^2 through the commands'
+   main functions: cli.makefield (kuo2004); cli.vort_src_input in its
+   own process (jax unimportable in it) writing the forcing protocol
+   into a FIFO that cli.run reads (-f) for 20 steps at half the RK4
+   advective bound of the Kuo2004 core (printed), psi recorded every
+   10 steps, with the barotropic launches exact; cli.invert_pres on the
+   psi records with torch.fft.* and torch.matmul raising and exactly 6
+   ka, 3 kb and 2 kc launches per inverted field; cli.find_min --tracks
+   on the pressure files (30 minima lines each, at least one track);
+   the pressure within rel-L2 1e-5 of the torch.fft path's on the same
+   psi with the same deepest minimum; ms per inverted field on both
+   paths and of find_min_n; no jax module loaded.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -264,15 +278,15 @@ KERNELS = {
                       "sw_combine_mv", ("sw-etdrk4", "sw-xfirst-etdrk4")),
     "ka": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
-           "ka", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")
-           + XFIRST_SW),
+           "ka", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint",
+                  "postproc") + XFIRST_SW),
     "kc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
-           "kc", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint")
-           + XFIRST_SW),
+           "kc", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint",
+                  "postproc") + XFIRST_SW),
     "kb": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1043",
-           "kb", ("sw-drag", "adjoint")),
+           "kb", ("sw-drag", "adjoint", "postproc")),
     "plane_axpy": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:946",
                    "plane_axpy", ("sw-unfused",)),
@@ -433,6 +447,9 @@ SW_DRAG_DT_MAX = 0.9
 # (scripts/assimilate_demo.py: a 10-step window, guess 0.9 x truth, Adam
 # at lr 1e-5), a few iterations of it
 ADJ_WINDOW, ADJ_ITERS, ADJ_LR = 10, 3, 1e-5
+# phase 5k: example 02's pipeline (the forced run's steps and record
+# interval) and the Kuo2004 core's speed, m/s, for its time step
+POSTPROC_STEPS, POSTPROC_REC, KUO_U_MAX = 20, 10, 75.0
 
 
 def adjoint_launches(n: int, gradients: int, forwards: int) -> dict:
@@ -467,6 +484,7 @@ class Case(NamedTuple):
     ffts: float = 0.0
     library: Optional[Callable] = None
     exact: bool = False             # a copy: equal to its plain version
+    launch: Optional[Callable] = None   # the bare launch (a2a), timed too
 
 
 def example12_nu4(n: int, lx: float = 600_000.0) -> float:
@@ -791,6 +809,8 @@ def shard_cases(n: int, p: int, dev, seed: int) -> dict:
     one .contiguous() of the permuted view) and the x-stages (the inverse
     with its 1/n, the form 16 of a step's 20 take; the library figure
     torch.fft.fft of the gathered (n, hpad) array)."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops._build import lib
     from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
     from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
 
@@ -813,17 +833,31 @@ def shard_cases(n: int, p: int, dev, seed: int) -> dict:
     def dft():
         return torch.fft.fft(gathered, dim=0)
 
+    def launch(x, out, to_cols):
+        """xfb_a2a alone, into an output and a host array of shard
+        pointers made once (the wrapper makes both per call); it counts
+        no launch."""
+        ptrs = ftr.shard_pointers("a2a", x, out)
+
+        def kern():
+            rc = lib().xfb_a2a(ptrs, p, n // p, hny, w, int(to_cols),
+                               dev.index, ff._stream(out))
+            check(rc == 0, f"xfb_a2a returned {rc}")
+            return out
+        return kern
+
     return {
         "a2a_cols": Case(
             lambda: ftr.a2a_cols(rows), lambda: ftr.a2a_cols_plain(rows), one,
             (rows,), library=lambda: padded.reshape(
                 p, n // p, p, w).permute(2, 0, 1, 3).contiguous(),
-            exact=True),
+            exact=True, launch=launch(rows, torch.empty_like(cols), True)),
         "a2a_rows": Case(
             lambda: ftr.a2a_rows(cols, hny),
             lambda: ftr.a2a_rows_plain(cols, hny), one, (cols,),
             library=lambda: cols.reshape(p, p, n // p, w).permute(
-                1, 2, 0, 3).contiguous(), exact=True),
+                1, 2, 0, 3).contiguous(), exact=True,
+            launch=launch(cols, torch.empty_like(rows), False)),
         "xstage": Case(lambda: fo.xstage(rows, False, s),
                        lambda: fo.xstage_plain(rows, False, s), one, (rows,),
                        hny, dft),
@@ -1124,6 +1158,18 @@ def phase_kernels(n: int, dev) -> dict:
                                     ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=library_ms)
+                if case.launch is not None:
+                    out = case.launch()
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, want[0]), f"{name}: the bare "
+                          f"launch is not its plain version's bits")
+                    launch_ms = cuda_ms(case.launch)
+                    log(f"kernel {name:24s} {size}^2: the bare launch "
+                        f"{launch_ms:.4f} ms, through the wrapper "
+                        f"{ms:.4f} ms; bound {bound_ms:.4f} ms "
+                        f"({100.0 * bound_ms / launch_ms:.1f} % of it "
+                        f"reached alone)")
+                    report[name]["launch_ms"] = launch_ms
     return report
 
 
@@ -1413,6 +1459,175 @@ def phase_sharded(n: int, steps: int, dev, profile: bool) -> dict:
                                         *runs[name][1:])}, name)
             for name in SHARD_MODELS if "xla" not in name
             and "etdrk4" not in name}
+    return out
+
+
+def postproc_dt(cfg) -> float:
+    """Phase 5k's time step: half the RK4 advective bound
+    (utils/guards.py max_advective_dt) at the Kuo2004 core's speed."""
+    from xlab_fftbarotropic_torch.utils.guards import max_advective_dt
+    return 0.5 * max_advective_dt(cfg, KUO_U_MAX)
+
+
+def _producer(argv, fifo: Path) -> subprocess.Popen:
+    """cli.vort_src_input as its own process writing into `fifo`, with jax
+    and the JAX package unimportable in it (an import raises)."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = sys.modules['xlab_fftbarotropic_tpu'] = "
+            "None\n"
+            f"sys.argv = ['vort_src_input'] + {list(argv)!r}\n"
+            "runpy.run_module('xlab_fftbarotropic_torch.cli.vort_src_input',"
+            " run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(HERE), XFB_FIFO=str(fifo))
+    return subprocess.Popen(["sh", "-c", 'exec "$@" > "$XFB_FIFO"', "sh",
+                             sys.executable, "-c", code], cwd=HERE, env=env)
+
+
+def phase_postproc(n: int, dev) -> dict:
+    """Phase 5k, example 02's pipeline at n^2 through the port's commands'
+    main functions: cli.makefield (kuo2004); cli.vort_src_input in its own
+    process, writing the forcing protocol into a FIFO that cli.run reads
+    (-f) for POSTPROC_STEPS steps at postproc_dt, psi recorded every
+    POSTPROC_REC; cli.invert_pres on the psi records (the launch counters
+    set to 0 just before it and read just after: LAUNCHES_PER_FIELD of ka,
+    kb and kc per field exactly, with torch.fft.* and torch.matmul
+    raising); cli.find_min --tracks on the pressure files. Then the
+    kernel-path pressure against the torch.fft path's on the same psi
+    (rel-L2 <= TOL, the same deepest minimum), and the ms per inverted
+    field on both paths and of find_min_n."""
+    import io
+
+    from xlab_fftbarotropic_torch.cli import find_min as cli_find_min
+    from xlab_fftbarotropic_torch.cli import invert_pres as cli_invert
+    from xlab_fftbarotropic_torch.cli import makefield as cli_makefield
+    from xlab_fftbarotropic_torch.cli import run as cli_run
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.diagnostics.find_min import find_min_n
+    from xlab_fftbarotropic_torch.diagnostics.invert_pres import (
+        LAUNCHES_PER_FIELD, PressureInverter)
+    from xlab_fftbarotropic_torch.io.fieldio import read_field
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+
+    cfg = ModelConfig(nx=n, ny=n)
+    dt = postproc_dt(cfg)
+    steps, rec = POSTPROC_STEPS, POSTPROC_REC
+    records = steps // rec
+    grid = ["--nx", str(n), "--ny", str(n)]
+    log(f"postproc: dt = {dt!r} s, half the RK4 advective bound at "
+        f"{KUO_U_MAX} m/s (the Kuo2004 core) on {n}^2")
+    out = {"dt": dt}
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        tmp = Path(tmp)
+        inp, odir, manifest = tmp / "input", tmp / "output", tmp / "log"
+        check(cli_makefield.main(["kuo2004", "-I", str(inp)] + grid) == 0,
+              "cli.makefield.main failed")
+        fifo = tmp / "vort_src_fifo"
+        os.mkfifo(fifo)
+        producer = _producer(grid + ["--dt", repr(dt), "--total-steps",
+                                     str(steps)], fifo)
+        try:
+            ff.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli_run.main(["-I", str(inp), "-O", str(odir), "--dt",
+                               repr(dt), "--total-steps", str(steps),
+                               "--record-step", str(rec), "-f", str(fifo),
+                               "--record-fields", "vort,psi", "--manifest",
+                               str(manifest), "--device", "cuda"] + grid)
+            wall = time.perf_counter() - t0
+            run_launches = dict(ff.LAUNCHES)
+        finally:
+            try:
+                producer_rc = producer.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                producer.kill()
+                producer.wait()
+                raise SmokeError("cli.vort_src_input did not end")
+        check(rc == 0, f"cli.run.main returned {rc}")
+        check(producer_rc == 0, f"cli.vort_src_input exited {producer_rc}")
+        want = {k: PER_STEP["barotropic"].get(k, 0) * steps
+                for k in ff.LAUNCHES}
+        check(run_launches == want, f"the forced run's launches "
+                                    f"{run_launches} != {want}")
+        log(f"postproc run: {steps} steps at {n}^2 through cli.run.main -f "
+            f"(the FIFO fed by cli.vort_src_input) in {wall:.2f} s")
+        psi_files = [line for line in manifest.read_text().split()
+                     if "psi_step" in line]
+        check(len(psi_files) == records, f"psi records {psi_files}")
+        lines = "\n".join(f"{f}=>{f.replace('psi_step', 'pres_step')}"
+                          for f in psi_files)
+        saved = sys.stdin
+        sys.stdin = io.StringIO(lines)
+        try:
+            ff.reset_launches()
+            with _refusing_library():
+                rc = cli_invert.main(grid + ["--device", "cuda"])
+                torch.cuda.synchronize()
+            launches = dict(ff.LAUNCHES)
+        finally:
+            sys.stdin = saved
+        check(rc == 0, f"cli.invert_pres.main returned {rc}")
+        want = {k: LAUNCHES_PER_FIELD.get(k, 0) * records
+                for k in ff.LAUNCHES}
+        log(f"postproc invert: {records} fields at {n}^2 through "
+            f"cli.invert_pres.main; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check(launches == want, f"invert launches {launches} != {want}")
+        out["launches"] = launches
+        pres_files = [f.replace("psi_step", "pres_step") for f in psi_files]
+        for f in pres_files:
+            check(Path(f).stat().st_size == n * n * 4, f"{f} size")
+            check(bool(np.isfinite(read_field(f, cfg.grid_shape)).all()),
+                  f"{f} is not finite")
+        tracks_file = tmp / "tracks.txt"
+        saved = sys.stdin
+        sys.stdin = io.StringIO("\n".join(pres_files))
+        stdout = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                rc = cli_find_min.main(grid + ["--device", "cuda",
+                                               "--tracks", str(tracks_file)])
+        finally:
+            sys.stdin = saved
+        check(rc == 0, f"cli.find_min.main returned {rc}")
+        minima = stdout.getvalue().splitlines()
+        check(len(minima) == 30 * records, f"{len(minima)} minima lines")
+        n_tracks = len(tracks_file.read_text().splitlines())
+        check(n_tracks >= 1, "no track written")
+        log(f"postproc find_min: {len(minima)} minima lines, {n_tracks} "
+            f"track lines; deepest of the last record: {minima[-30]}")
+        out["track_lines"] = n_tracks
+        kern = PressureInverter(cfg, dev)
+        lib = PressureInverter(cfg.replace(fft_backend="xla"), dev)
+        out["rel_l2"] = []
+        for f, g in zip(psi_files, pres_files):
+            psi = torch.from_numpy(read_field(f, cfg.grid_shape)).to(dev)
+            got = torch.from_numpy(read_field(g, cfg.grid_shape)).to(dev)
+            ref = lib(psi)
+            rel = rel_l2(got, ref)
+            deep_k = find_min_n(got, 1)
+            deep_l = find_min_n(ref, 1)
+            log(f"postproc {Path(g).name}: rel-L2 vs the torch.fft path "
+                f"{rel:.3e}; deepest minimum kernels {deep_k[0][0]} "
+                f"{deep_k[1][0]} {deep_k[2][0]:.6e}, torch.fft "
+                f"{deep_l[0][0]} {deep_l[1][0]} {deep_l[2][0]:.6e}")
+            check(rel <= TOL, f"{g}: rel-L2 {rel:.3e} > {TOL}")
+            check((deep_k[0][0], deep_k[1][0]) == (deep_l[0][0],
+                                                   deep_l[1][0]),
+                  f"{g}: the deepest minimum moved between the paths")
+            out["rel_l2"].append(rel)
+        check(bool(torch.equal(kern(psi), got)),
+              "the inverter is not the CLI's bits")
+        p_k, p_l = kern(psi), lib(psi)
+        for name, inv, p in (("kernels", kern, p_k), ("library", lib, p_l)):
+            ms = cuda_ms(lambda: inv(psi))
+            ms_min = cuda_ms(lambda: find_min_n(p, 30))
+            log(f"time postproc {name:8s}: {ms:.3f} ms per inverted field, "
+                f"find_min_n {ms_min:.3f} ms per field")
+            out[f"{name}_ms_per_field"] = ms
+            out[f"{name}_find_min_ms"] = ms_min
+    check("jax" not in sys.modules, "a jax module was imported")
+    check(not any(k.startswith("xlab_fftbarotropic_tpu")
+                  for k in sys.modules), "the JAX package was imported")
     return out
 
 
@@ -1956,6 +2171,7 @@ def main(argv=None) -> int:
                                                     args.profile)
     report["sharded"] = phase_sharded(args.n, args.steps, dev, args.profile)
     report["main_paths"].update(report["sharded"]["main_paths"])
+    report["main_paths"]["postproc"] = phase_postproc(args.n, dev)
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)
@@ -1987,6 +2203,8 @@ def main(argv=None) -> int:
                          ms=k["ms"], plain_ms=k["plain_ms"],
                          bound_ms=k["bound_ms"], bound_by=k["bound_by"],
                          library_ms=k["library_ms"]))
+        if "launch_ms" in k:
+            rows[-1]["launch_ms"] = k["launch_ms"]
     check(all(math.isfinite(r["ms"]) for r in rows), "kernel times")
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -17,6 +17,7 @@ each product) and the a2a transposes (csrc/a2a.cu, P = 4) against the
 library's .contiguous() copies of the same move.
 
     python3 scripts/xtile_check.py [--root DIR] [--n 256 4096] [--iters 20]
+        [--only a2a,xstage]
 
 --root takes the port from another checkout (an unpacked older commit,
 for a comparison in the same run: its kernels build in its own tree).
@@ -38,8 +39,9 @@ kb_adv_tracer and its unfused composition (formed beforehand: the
 transform alone), and for a2a_cols / a2a_rows the library transposes
 (parallel/dfft.py transpose_to_columns / transpose_to_rows: the pad or
 the strip, then the .contiguous() copy); "a2a_cols launch" / "a2a_rows
-launch" time the kernel launch alone, its pointer tables made once,
-where the wrappers make them per call.
+launch" time the kernel launch alone, into an output and a host
+array of shard pointers made once, where the wrappers make both per
+call.
 Then the card's name and power limit, and the registers and spills of
 the tile kernels from the build's -Xptxas -v output. Exits non-zero past
 1e-5.
@@ -191,20 +193,18 @@ def cases(n: int, dev):
         return [z[0], q[0], z[1], q[1]]   # the bits of kb_adv_tracer's
 
     # the a2a transposes at P = 4 on xstage's shards; "launch": the
-    # kernel alone, its device pointer tables made once
+    # kernel alone, into an output and a host pointer array made once
     from xlab_fftbarotropic_torch.ops._build import lib
     a2a_out = (torch.empty((p, n, w), dtype=rows.dtype, device=dev),
                torch.empty((p, n // p, hny), dtype=rows.dtype, device=dev))
-    tables = [ftr._pointer_table(x) for x in (rows, a2a_out[0], cols,
-                                               a2a_out[1])]
 
     def a2a_launch(to_cols):
-        src_t, dst_t = tables[:2] if to_cols else tables[2:]
-        out = a2a_out[0] if to_cols else a2a_out[1]
+        x, out = (rows, a2a_out[0]) if to_cols else (cols, a2a_out[1])
+        ptrs = ftr.shard_pointers("a2a launch", x, out)
 
         def kern():
-            lib().xfb_a2a(src_t.data_ptr(), dst_t.data_ptr(), p, n // p,
-                          hny, w, int(to_cols), dev.index, ff._stream(out))
+            lib().xfb_a2a(ptrs, p, n // p, hny, w, int(to_cols), dev.index,
+                          ff._stream(out))
             return out
         return kern
 
@@ -394,6 +394,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--n", type=int, nargs="+", default=[256, 4096])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", default=None, metavar="WORDS",
+                    help="comma list: check only the forms whose name "
+                         "holds one of the words (e.g. a2a,xstage)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("xtile_check: no CUDA device visible")
@@ -404,6 +407,9 @@ def main(argv=None) -> int:
     worst = 0.0
     for n in args.n:
         for name, (kern, plain, reads, lib) in cases(n, dev).items():
+            if args.only and not any(w in name
+                                     for w in args.only.split(",")):
+                continue
             got, want = as_list(kern()), as_list(plain())
             rel = max(float((g - w).abs().max() / w.abs().max())
                       for g, w in zip(got, want))

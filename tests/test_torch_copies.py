@@ -1,10 +1,11 @@
 """The port's own copies of the JAX package's numpy-only modules (config,
 ic/makefields, io/fieldio, io/checkpoint, io/native_stream,
-forcing/source, utils/guards) against the originals, on the CPU: the
-same configuration fields, defaults, JSON and hash; bit-identical
-initial conditions; byte-identical records and manifests; checkpoints
-that load in either package; the same forcing streams and guards; and
-the native libraries found at the same paths.
+forcing/source with its producer side, utils/guards) against the
+originals, on the CPU: the same configuration fields, defaults, JSON and
+hash; bit-identical initial conditions; byte-identical records and
+manifests; checkpoints that load in either package; the same forcing
+streams (read and written) and guards; and the native libraries found
+at the same paths.
 """
 
 import dataclasses
@@ -149,6 +150,32 @@ def test_forcing_streams_are_the_jax_ones(tmp_path):
             np.testing.assert_array_equal(ft, fj)
     rt.close()
     rj.close()
+
+
+@pytest.mark.parametrize("dt, steps", [(900.0, 24), (600.0, 40),
+                                       (3.0, 6)])
+def test_forcing_producer_streams_are_the_jax_ones(tmp_path, dt, steps):
+    """The port's producer side (write_step, kuo2004_pulse_stream) writes
+    the JAX package's bytes: at dt = 900 s the pulse starts at step 8 and
+    stops at 20, at 600 s at 12 and 30, at 3 s not within 6 steps."""
+    kw = dict(nx=32, ny=48, dt=dt, total_steps=steps)
+    streams = []
+    for src, cfg in ((tsource, tconfig.ModelConfig(**kw)),
+                     (jsource, jconfig.ModelConfig(**kw))):
+        path = tmp_path / f"{src.__name__.split('.')[0]}.bin"
+        with open(path, "wb") as fh:
+            for field in src.kuo2004_pulse_stream(cfg):
+                src.write_step(fh, field)
+        streams.append(path.read_bytes())
+    assert streams[0] == streams[1]
+    fields = 2 if dt > 3.0 else 0
+    assert len(streams[0]) == steps - 1 + fields * 4 * 32 * 48
+    # and the port's FIFO reader reads it back
+    rt = tsource.FifoSourceReader(tconfig.ModelConfig(**kw),
+                                  tmp_path / "xlab_fftbarotropic_torch.bin")
+    flags = [rt.read(0.0)[0] for _ in range(steps - 1)]
+    rt.close()
+    assert sum(flags) == fields
 
 
 def test_native_libraries_are_found_where_the_jax_package_finds_them():

@@ -1133,6 +1133,84 @@ def test_a2a_transposes_equal_plain_bit_for_bit(cuda, p, n):
     assert torch.equal(ftr.a2a_rows(got_c, hny), rows)
 
 
+@pytest.mark.parametrize("p, nx, hny", [(4, 4096, 2049), (8, 256, 129),
+                                        (8, 64, 17), (3, 48, 7),
+                                        (32, 64, 33)])
+def test_a2a_ragged_half_axes_equal_plain_bit_for_bit(cuda, p, nx, hny):
+    """Half axes that P does not divide (the pad P w - hny of 3, 7, 7, 2
+    and 31 columns; at (8, 64, 17) and (32, 64, 33) whole runs are pad),
+    up to the cap of 32 shards."""
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    rng = np.random.default_rng(nx + hny + p)
+    w = -(-hny // p)
+    rows = _shards(rng, (p, nx // p, hny), cuda)
+    cols = _shards(rng, (p, nx, w), cuda)
+    got_c, got_r = ftr.a2a_cols(rows), ftr.a2a_rows(cols, hny)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, ftr.a2a_cols_plain(rows))
+    assert torch.equal(got_r, ftr.a2a_rows_plain(cols, hny))
+    assert torch.equal(ftr.a2a_rows(got_c, hny), rows)
+
+
+@pytest.mark.parametrize("to_cols", [True, False])
+def test_a2a_call_allocates_its_output_and_launches_once(cuda, to_cols):
+    """A call makes one allocation on the card (the output) and queues one
+    kernel: the shard pointers go to the kernel by value."""
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    p, n = 4, 256
+    hny = n // 2 + 1
+    rng = np.random.default_rng(11)
+    x = (_shards(rng, (p, n // p, hny), cuda) if to_cols
+         else _shards(rng, (p, n, -(-hny // p)), cuda))
+
+    def call():
+        return ftr.a2a_cols(x) if to_cols else ftr.a2a_rows(x, hny)
+
+    call()                                  # the build, the first launch
+    torch.cuda.synchronize()
+    ff.reset_launches()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = call()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after - before == 1
+    name = "a2a_cols" if to_cols else "a2a_rows"
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), name: 1}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "a2a_kernel" in kernels[0], kernels
+    assert torch.equal(again, out)
+
+
+def test_a2a_refuses_more_shards_than_its_cap(cuda):
+    """P above csrc/shards.cuh kMaxShards (32) is refused by the wrapper
+    with a clear error, and by the launcher itself (cudaErrorInvalidValue)
+    when called past the wrapper."""
+    import ctypes
+
+    from xlab_fftbarotropic_torch.ops._build import lib
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    p = ftr.MAX_SHARDS + 1
+    x = torch.zeros((p, 1, 40), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="1..32 shards"):
+        ftr.a2a_cols(x)
+    with pytest.raises(ValueError, match="1..32 shards"):
+        ftr.a2a_rows(torch.zeros((p, p, 2), dtype=torch.complex64,
+                                 device=cuda), 40)
+    ff.reset_launches()
+    ptrs = (ctypes.c_void_p * (2 * p))(*[x.data_ptr()] * (2 * p))
+    assert lib().xfb_a2a(ptrs, p, 1, 40, 2, 1, cuda.index,
+                         ff._stream(x)) == 1   # cudaErrorInvalidValue
+    assert ff.LAUNCHES["a2a_cols"] == ff.LAUNCHES["a2a_rows"] == 0
+
+
 @pytest.mark.parametrize("p", [1, 2, 4, 8])
 @pytest.mark.parametrize("n", [64, 256])
 @pytest.mark.parametrize("kind", ["xstage", "xstage_inverse", "gather",

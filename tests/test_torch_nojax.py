@@ -5,9 +5,10 @@ twice on the CPU in both time schemes (RK4 and ETDRK4), on the plane
 stepper and on the library path, the SW model with drag on the
 per-transform path, takes a gradient through the adjoint rollout on
 both transform triples, steps the sharded barotropic model in every
-decomposition and transform impl, and ends with no
-jax and no xlab_fftbarotropic_tpu module loaded; and its CLIs refuse to
-run without a GPU unless told --device cpu."""
+decomposition and transform impl, runs the post-processing pipeline's
+four commands (makefield, vort_src_input, invert_pres, find_min), and
+ends with no jax and no xlab_fftbarotropic_tpu module loaded; and its
+CLIs refuse to run without a GPU unless told --device cpu."""
 
 import os
 import subprocess
@@ -87,6 +88,29 @@ for scheme in ("rk4", "etdrk4"):
             z = m.segment(m.init_state(makefields.gaussian(cfg)),
                           m.zero_source(), 2)
             assert bool(torch.isfinite(m.diags(z).vort).all())
+# the post-processing pipeline through its four commands
+import io, os, tempfile
+from xlab_fftbarotropic_torch.cli import (find_min, invert_pres, makefield,
+                                          vort_src_input)
+from xlab_fftbarotropic_torch.diagnostics import invert_pres as dinv, tracks
+tmp = tempfile.mkdtemp()
+grid = ["--nx", "64", "--ny", "64"]
+assert makefield.main(["kuo2004", "-I", tmp] + grid) == 0
+saved = sys.stdout
+sys.stdout = io.TextIOWrapper(io.BytesIO())
+assert vort_src_input.main(grid + ["--dt", "900", "--total-steps", "24"]) == 0
+sys.stdout.flush()
+stream = sys.stdout.buffer.getvalue()
+sys.stdout = saved
+assert len(stream) == 23 + 2 * 4 * 64 * 64
+psi = os.path.join(tmp, "initial_vorticity.bin")
+pres = os.path.join(tmp, "pres_step_0.bin")
+sys.stdin = io.StringIO(f"{psi}=>{pres}")
+assert invert_pres.main(grid + ["--device", "cpu"]) == 0
+sys.stdin = io.StringIO(pres)
+assert find_min.main(grid + ["--device", "cpu", "--tracks",
+                             os.path.join(tmp, "tracks.txt")]) == 0
+assert os.path.getsize(os.path.join(tmp, "tracks.txt")) > 0
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 tpu = sorted(k for k in sys.modules if k.startswith("xlab_fftbarotropic_tpu"))
 assert not tpu, tpu
@@ -121,6 +145,26 @@ def test_cli_without_gpu_stops_unless_told_cpu(tmp_path, family):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not out.exists()
+
+
+@pytest.mark.parametrize("cli", ["invert_pres", "find_min"])
+def test_postproc_clis_without_gpu_stop_unless_told_cpu(tmp_path, cli):
+    """Neither post-processing command falls back to the CPU: without a
+    card and without --device cpu each stops before reading its input."""
+    field = tmp_path / "f.bin"
+    field.write_bytes(bytes(4 * 64 * 64))
+    line = f"{field}=>{tmp_path / 'p.bin'}" if cli == "invert_pres" \
+        else str(field)
+    for device, rc in (([], 2), (["--device", "cpu"], 0)):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"xlab_fftbarotropic_torch.cli.{cli}",
+             "--nx", "64", "--ny", "64"] + device, input=line + "\n",
+            cwd=tmp_path, env=_env(), capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == rc, proc.stderr
+        assert ("no CUDA device" in proc.stderr) == (rc != 0)
+        assert (tmp_path / "p.bin").exists() == (cli == "invert_pres"
+                                                  and rc == 0)
 
 
 def test_assimilate_cli_without_gpu_stops(tmp_path):

@@ -188,3 +188,61 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                lambda a: fo.xstage(a, True)):
         with pytest.raises(ValueError, match="no kernel for device"):
             fn(meta)
+
+
+def _c_declaration(source: str, fn: str) -> list:
+    """The ctypes types of the parameters of `extern "C" int fn(...)` in a
+    csrc source: a pointer or cudaStream_t is c_void_p, int c_int, float
+    c_float, long long c_longlong."""
+    import ctypes
+    import re
+
+    from xlab_fftbarotropic_torch.ops import _build
+
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{",
+                  (_build.CSRC / source).read_text(), re.S)
+    assert m, f"no extern \"C\" {fn} in {source}"
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        if "*" in words or words[0] == "cudaStream_t":
+            kinds.append(ctypes.c_void_p)
+        elif words[:2] == ["long", "long"]:
+            kinds.append(ctypes.c_longlong)
+        else:
+            kinds.append({"int": ctypes.c_int,
+                          "float": ctypes.c_float}[words[-2]])
+    return kinds
+
+
+@pytest.mark.parametrize("source, fn", [("a2a.cu", "xfb_a2a"),
+                                        ("xstage.cu", "xfb_xstage")])
+def test_ctypes_signatures_agree_with_the_sources(source, fn):
+    """ops/_build.py's ctypes argtypes of the distributed launchers are the
+    extern "C" declarations' parameters, one for one: a host array of
+    shard pointers first, then the scalars, the device and the stream."""
+    from xlab_fftbarotropic_torch.ops import _build
+
+    assert _build.SIGNATURES[fn] == _c_declaration(source, fn)
+
+
+def test_shard_cap_is_the_sources_and_the_wrappers_refuse_past_it():
+    """csrc/shards.cuh kMaxShards is fused_transpose.MAX_SHARDS, and the
+    host array of 2 P pointers is made up to it and refused past it."""
+    import re
+
+    from xlab_fftbarotropic_torch.ops import _build
+
+    text = (_build.CSRC / "shards.cuh").read_text()
+    cap = int(re.search(r"constexpr int kMaxShards = (\d+);", text).group(1))
+    assert cap == ftr.MAX_SHARDS >= 16
+    for p in (1, cap):
+        x = torch.zeros((p, 2, 3), dtype=torch.complex64)
+        out = torch.zeros((p, 2 * p, 1), dtype=torch.complex64)
+        ptrs = ftr.shard_pointers("a2a_cols", x, out)
+        assert len(ptrs) == 2 * p
+        assert ptrs[p - 1] == x[p - 1].data_ptr()
+        assert ptrs[2 * p - 1] == out[p - 1].data_ptr()
+    x = torch.zeros((cap + 1, 1, 3), dtype=torch.complex64)
+    with pytest.raises(ValueError, match=f"1..{cap} shards"):
+        ftr.shard_pointers("a2a_cols", x, x)

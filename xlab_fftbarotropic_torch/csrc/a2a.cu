@@ -12,69 +12,90 @@
 //   to rows:    out[s][r][t w + j] = in[t][s rows_l + r][j] for
 //               t w + j < hrow (the pad is dropped).
 //
-// The shards are reached through two tables of P base pointers on the
-// card, one for the sources and one for the destinations, never through
-// one tensor's strides: here every pointer points into one stacked
-// tensor on one card. A later executor with one process per card passes
-// peer-mapped pointers to the same kernel, with a barrier across the
+// The shards are reached through their P source and P destination base
+// pointers, passed by value in the kernel's __grid_constant__ parameter
+// (shards.cuh), never through one tensor's strides: here every pointer
+// points into one stacked tensor on one card, and a call queues this
+// kernel and nothing else. A later executor with one process per card
+// passes peer-mapped pointers the same way, with a barrier across the
 // cards before the launch (the sources are written) and after it (the
 // destinations are complete); each card then launches only the blocks
 // whose destination rows (to columns) or source rows (to rows) are its
 // own.
 //
-// Block g moves global row g = s rows_l + r: the row side's contiguous
-// hpad values (row r of shard s) against the P column shards' contiguous
-// runs of w (row g of each), so reads and writes coalesce. Bound: bytes,
-// each value read and written once (at 4096^2 and P = 4, 67 MB each
-// way). A copy: the result is the plain version's bit for bit.
-#include <cuda_runtime.h>
+// Block g P + t moves one run: global row g = s rows_l + r, columns
+// [t w, t w + w) of the row side (row r of shard s), against row g of
+// column shard t, both contiguous, so reads and writes coalesce. The P
+// runs of a row are blocks of their own (no division by w per element),
+// launched next to each other, so that the 32-byte sectors two runs share
+// (a run of 513 values ends inside one) are written while in L2, not
+// twice to memory. Each thread issues kUnroll independent 8-byte loads
+// before its stores, to keep enough bytes in flight for the HBM rate.
+// Rows of 2049 values and runs of 513 are only 8-byte aligned, so the
+// move stays in float2.
+// Bound: bytes, each value read and written once (at 4096^2 and P = 4,
+// 67 MB each way). A copy: the result is the plain version's bit for bit.
+#include "shards.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+constexpr int kMaxThreads = 256;
 
 template <bool TO_COLS>
-__global__ void a2a_kernel(const long long* __restrict__ src,
-                           const long long* __restrict__ dst, int rows_l,
-                           int hrow, int w, int p) {
-  const int g = blockIdx.x;
+__global__ void __launch_bounds__(kMaxThreads)
+    a2a_kernel(const __grid_constant__ xfb::Shards sh, int p, int rows_l,
+               int hrow, int w) {
+  const int g = blockIdx.x / p;
+  const int t = blockIdx.x - g * p;
   const int s = g / rows_l;
-  const int r = g - s * rows_l;
-  const size_t row = static_cast<size_t>(r) * hrow;
+  const size_t row = static_cast<size_t>(g - s * rows_l) * hrow + t * w;
   const size_t col = static_cast<size_t>(g) * w;
-  if (TO_COLS) {
-    const float2* in = reinterpret_cast<const float2*>(src[s]) + row;
-    for (int c = threadIdx.x; c < p * w; c += blockDim.x) {
-      const int t = c / w;
-      float2* out = reinterpret_cast<float2*>(dst[t]) + col;
-      out[c - t * w] = c < hrow ? in[c] : make_float2(0.f, 0.f);
+  // the run's values on the row side; the rest of it (c >= hrow) is pad
+  const int valid = min(w, hrow - t * w);
+  const float2* __restrict__ in =
+      TO_COLS ? sh.src[s] + row : sh.src[t] + col;
+  float2* __restrict__ out = TO_COLS ? sh.dst[t] + col : sh.dst[s] + row;
+  const int last = TO_COLS ? w : valid;
+  for (int j0 = threadIdx.x; j0 < last; j0 += kUnroll * blockDim.x) {
+    float2 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * blockDim.x;
+      v[u] = j < valid ? in[j] : make_float2(0.f, 0.f);
     }
-  } else {
-    float2* out = reinterpret_cast<float2*>(dst[s]) + row;
-    for (int c = threadIdx.x; c < hrow; c += blockDim.x) {
-      const int t = c / w;
-      const float2* in = reinterpret_cast<const float2*>(src[t]) + col;
-      out[c] = in[c - t * w];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j < last) out[j] = v[u];
     }
   }
 }
 
 }  // namespace
 
-// src, dst: device tables of p base pointers (int64); p shards of rows_l
-// rows; hrow the row side's width, w the column side's; to_cols picks the
-// direction.
-extern "C" int xfb_a2a(const long long* src, const long long* dst, int p,
-                       int rows_l, int hrow, int w, int to_cols, int device,
-                       cudaStream_t stream) {
+// ptrs: host array of 2 p device pointers (the p source shards, then the
+// p destination shards); p shards of rows_l rows; hrow the row side's
+// width, w the column side's; to_cols picks the direction. p outside [1,
+// kMaxShards] is refused (cudaErrorInvalidValue).
+extern "C" int xfb_a2a(const void* const* ptrs, int p, int rows_l, int hrow,
+                       int w, int to_cols, int device, cudaStream_t stream) {
+  xfb::Shards sh;
+  if (!xfb::load_shards(ptrs, p, &sh) || rows_l < 1 || w < 1 ||
+      hrow > p * w) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  // one thread per kUnroll values of a run, in whole warps
+  int threads = ((w + kUnroll - 1) / kUnroll + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const unsigned blocks = static_cast<unsigned>(p) * p * rows_l;
   if (to_cols) {
-    a2a_kernel<true><<<p * rows_l, kThreads, 0, stream>>>(src, dst, rows_l,
-                                                          hrow, w, p);
+    a2a_kernel<true><<<blocks, threads, 0, stream>>>(sh, p, rows_l, hrow, w);
   } else {
-    a2a_kernel<false><<<p * rows_l, kThreads, 0, stream>>>(src, dst, rows_l,
-                                                           hrow, w, p);
+    a2a_kernel<false><<<blocks, threads, 0, stream>>>(sh, p, rows_l, hrow,
+                                                      w);
   }
   return cudaGetLastError();
 }

@@ -25,18 +25,20 @@
 // TPU kernel arranged by hand with its chunk pipeline (n_chunks 128-lane
 // chunks, a TPU tiling rule not carried over).
 //
-// The shards are reached through two tables of P base pointers on the
-// card (sources, destinations), never through one tensor's strides: here
-// every pointer points into one stacked tensor on one card. A later
-// executor with one process per card passes peer-mapped pointers to the
-// same kernel, with a barrier across the cards before the launch and
-// after it, and each card launches the blocks of its own w columns.
+// The shards are reached through their P source and P destination base
+// pointers, passed by value in the kernel's __grid_constant__ parameter
+// (shards.cuh), never through one tensor's strides: here every pointer
+// points into one stacked tensor on one card. A later executor with one
+// process per card passes peer-mapped pointers to the same kernel, with a
+// barrier across the cards before the launch and after it, and each card
+// launches the blocks of its own w columns.
 //
 // Bound: bytes (at 4096^2, P = 4: 67 MB read, 67 MB written; the DFT's
 // 0.5 GFLOP are under a tenth of that time at the float32 rate). Both
 // sides are read and written in row segments of C complex64 values (128
 // bytes at C = 16; a block per column would move 8 bytes per 32-byte
 // sector).
+#include "shards.cuh"
 #include "xtile.cuh"
 
 namespace {
@@ -45,26 +47,23 @@ constexpr int kRows = 0;    // row shards (rows_l, hrow)
 constexpr int kPencil = 1;  // x-pencil column shards (nx, w)
 
 // Element (g, c) of the global (nx, hrow) half spectrum in LAYOUT, through
-// the table of shard base pointers.
-template <int LAYOUT>
-__device__ __forceinline__ float2* element(const long long* __restrict__ ptr,
-                                           int g, int c, int rows_l,
-                                           int hrow, int w) {
+// the shard base pointers (an array of the kernel's parameter).
+template <int LAYOUT, class T>
+__device__ __forceinline__ T* element(T* const* ptr, int g, int c,
+                                      int rows_l, int hrow, int w) {
   if (LAYOUT == kRows) {
     const int s = g / rows_l;
-    return reinterpret_cast<float2*>(__ldg(&ptr[s])) +
-           static_cast<size_t>(g - s * rows_l) * hrow + c;
+    return ptr[s] + static_cast<size_t>(g - s * rows_l) * hrow + c;
   }
   const int t = c / w;
-  return reinterpret_cast<float2*>(__ldg(&ptr[t])) +
-         static_cast<size_t>(g) * w + (c - t * w);
+  return ptr[t] + static_cast<size_t>(g) * w + (c - t * w);
 }
 
 // The store of output row g, tile column c: times scale, or zeros in a
 // pad column (hrow <= j < columns).
 template <int DST>
 struct Store {
-  const long long* dst;
+  float2* const* dst;
   int j0, rows_l, hrow, w, columns;
   float scale;
 
@@ -79,8 +78,7 @@ struct Store {
 
 template <int SIGN, int SRC, int DST>
 __global__ void __launch_bounds__(512, 2)
-    xstage_kernel(const long long* __restrict__ src,
-                  const long long* __restrict__ dst,
+    xstage_kernel(const __grid_constant__ xfb::Shards sh,
                   const float2* __restrict__ tw, int nx, int k, int logc,
                   int rows_l, int hrow, int w, int columns, float scale) {
   extern __shared__ float2 smem[];
@@ -95,7 +93,7 @@ __global__ void __launch_bounds__(512, 2)
     const int j = j0 + (u & cmask);
     float2* d = t.s + u;
     if (j < hrow) {
-      xt::cp_async8(d, element<SRC>(src, t.rank + k * (u >> logc), j,
+      xt::cp_async8(d, element<SRC>(sh.src, t.rank + k * (u >> logc), j,
                                     rows_l, hrow, w));
     } else {
       *d = make_float2(0.f, 0.f);
@@ -103,14 +101,14 @@ __global__ void __launch_bounds__(512, 2)
   }
   xt::cp_async_wait_all();
   __syncthreads();
-  Store<DST> out{dst, j0, rows_l, hrow, w, columns, scale};
+  Store<DST> out{sh.dst, j0, rows_l, hrow, w, columns, scale};
   xt::finish<SIGN>(t, tw, out);
 }
 
 template <int SRC, int DST>
-cudaError_t launch(const long long* src, const long long* dst,
-                   const float2* tw, int nx, int rows_l, int hrow, int w,
-                   int columns, int forward, float scale, int tile_c,
+cudaError_t launch(const xfb::Shards& sh, const float2* tw, int nx,
+                   int rows_l, int hrow, int w, int columns, int forward,
+                   float scale, int tile_c,
                    int cluster_k, int threads, int smem, int device,
                    cudaStream_t stream) {
   if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
@@ -121,38 +119,41 @@ cudaError_t launch(const long long* src, const long long* dst,
   return forward
              ? xfb::xtile::launch(xstage_kernel<-1, SRC, DST>, tiles, 1,
                                   cluster_k, threads, smem, device, stream,
-                                  src, dst, tw, nx, cluster_k, logc, rows_l,
+                                  sh, tw, nx, cluster_k, logc, rows_l,
                                   hrow, w, columns, scale)
              : xfb::xtile::launch(xstage_kernel<1, SRC, DST>, tiles, 1,
                                   cluster_k, threads, smem, device, stream,
-                                  src, dst, tw, nx, cluster_k, logc, rows_l,
+                                  sh, tw, nx, cluster_k, logc, rows_l,
                                   hrow, w, columns, scale);
 }
 
 }  // namespace
 
-// src, dst: device tables of p base pointers (int64); tw: the (nx/2)
-// twiddles exp(-2 pi i k / nx); mode 0 xstage (rows -> rows), 1 gather
-// (rows -> x-pencil), 2 scatter (x-pencil -> rows); p shards of rows_l
-// rows, hrow the half axis, w the x-pencil width; tile_c, cluster_k,
-// threads, smem: the plan of ops/xtile.py for nx and the mode's columns.
-extern "C" int xfb_xstage(const long long* src, const long long* dst,
-                          const float2* tw, int p, int rows_l, int hrow,
-                          int w, int mode, int forward, float scale,
-                          int tile_c, int cluster_k, int threads, int smem,
-                          int device, cudaStream_t stream) {
+// ptrs: host array of 2 p device pointers (the p source shards, then the
+// p destination shards; p outside [1, kMaxShards] is refused); tw: the
+// (nx/2) twiddles exp(-2 pi i k / nx); mode 0 xstage (rows -> rows), 1
+// gather (rows -> x-pencil), 2 scatter (x-pencil -> rows); p shards of
+// rows_l rows, hrow the half axis, w the x-pencil width; tile_c,
+// cluster_k, threads, smem: the plan of ops/xtile.py for nx and the mode's
+// columns.
+extern "C" int xfb_xstage(const void* const* ptrs, const float2* tw, int p,
+                          int rows_l, int hrow, int w, int mode, int forward,
+                          float scale, int tile_c, int cluster_k, int threads,
+                          int smem, int device, cudaStream_t stream) {
+  xfb::Shards sh;
+  if (!xfb::load_shards(ptrs, p, &sh)) return cudaErrorInvalidValue;
   const int nx = p * rows_l;
   switch (mode) {
     case 0:
-      return launch<kRows, kRows>(src, dst, tw, nx, rows_l, hrow, w, hrow,
+      return launch<kRows, kRows>(sh, tw, nx, rows_l, hrow, w, hrow,
                                   forward, scale, tile_c, cluster_k, threads,
                                   smem, device, stream);
     case 1:
-      return launch<kRows, kPencil>(src, dst, tw, nx, rows_l, hrow, w, p * w,
+      return launch<kRows, kPencil>(sh, tw, nx, rows_l, hrow, w, p * w,
                                     forward, scale, tile_c, cluster_k,
                                     threads, smem, device, stream);
     case 2:
-      return launch<kPencil, kRows>(src, dst, tw, nx, rows_l, hrow, w, hrow,
+      return launch<kPencil, kRows>(sh, tw, nx, rows_l, hrow, w, hrow,
                                     forward, scale, tile_c, cluster_k,
                                     threads, smem, device, stream);
     default:

@@ -22,15 +22,17 @@ Device interaction: the source field changes at most once per step, so the
 reader returns (changed, np.ndarray); the run loop uploads to device only on
 change, keeping the hot path free of host transfers (SURVEY.md hard-part 4).
 
-Only the reading side is copied: the producer (the flag-byte writer and
-the Kuo2004 pulse scenario) stays in the JAX package, which speaks the
-same protocol.
+The producer side (reference C8) is `write_step`, the flag-byte writer,
+and `kuo2004_pulse_stream`, vort_src_input.out's Kuo2004 cake-pulse
+scenario (vort_src_input.cpp:32-61), which cli/vort_src_input.py writes
+to stdout; the streams are byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
 
+import io
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -210,3 +212,44 @@ def make_reader(cfg: ModelConfig, recipe: str = "empty",
         return ScriptSourceReader(cfg, path)
     raise ValueError(f"unknown recipe type {recipe!r}")
 
+
+# ---------------- producer side (reference C8) ----------------
+
+def write_step(stream: io.RawIOBase, field: Optional[np.ndarray]) -> None:
+    """Write one protocol step: flag byte + optional field
+    (vort_src_input.cpp:43-61)."""
+    if field is None:
+        stream.write(b"\x00")
+    else:
+        stream.write(b"\x01")
+        stream.write(np.ascontiguousarray(field, dtype="<f4").tobytes())
+    stream.flush()
+
+
+def kuo2004_pulse_stream(cfg: ModelConfig) -> Iterator[Optional[np.ndarray]]:
+    """The reference producer's scenario (vort_src_input.cpp:32-61): steps in
+    [1, total_steps); at step beg=2h/dt inject a Kuo2004 cake source of
+    amplitude 3e-3/duration at (lx/2 + 50 km, ly/2), scale 30 km; at step
+    end=(2h+3h)/dt zero it; otherwise no new input.
+
+    The reference never zero-initializes its accumulation buffer (malloc
+    at vort_src_input.cpp:33); this starts from zeros, which is what fresh
+    pages give it in practice.
+    """
+    from ..ic.makefields import cake_kuo2004
+    duration = 3600.0 * 3.0
+    beg_time = 3600.0 * 2.0
+    beg_step = int(beg_time / cfg.dt)
+    end_step = int((beg_time + duration) / cfg.dt)
+    field = np.zeros(cfg.grid_shape, dtype=np.float32)
+    for step in range(1, cfg.total_steps):
+        if step == beg_step:
+            field = field + cake_kuo2004(
+                cfg, cfg.lx / 2.0 + 50_000.0, cfg.ly / 2.0,
+                3e-3 / duration, 30_000.0)
+            yield field
+        elif step == end_step:
+            field = np.zeros(cfg.grid_shape, dtype=np.float32)
+            yield field
+        else:
+            yield None

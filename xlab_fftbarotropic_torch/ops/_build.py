@@ -29,7 +29,7 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-HEADERS = ("epilogue.cuh", "xtile.cuh")
+HEADERS = ("epilogue.cuh", "shards.cuh", "xtile.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
            "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu", "a2a.cu",
@@ -120,11 +120,13 @@ SIGNATURES = {
     # zx, zy, wr, wi, src, tw, outr, outi, ny, nx, scale, beta, tile_c,
     # cluster_k, threads, smem, device, stream
     "xfb_kb_adv_half": [_P] * 8 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
-    # src table, dst table, p, rows_l, hrow, w, to_cols, device, stream
-    "xfb_a2a": [_P, _P] + [_I] * 6 + [_P],
-    # src table, dst table, tw, p, rows_l, hrow, w, mode, forward, scale,
-    # tile_c, cluster_k, threads, smem, device, stream
-    "xfb_xstage": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # host array of 2 p pointers (sources, destinations), p, rows_l, hrow,
+    # w, to_cols, device, stream
+    "xfb_a2a": [_P] + [_I] * 6 + [_P],
+    # host array of 2 p pointers (sources, destinations), tw, p, rows_l,
+    # hrow, w, mode, forward, scale, tile_c, cluster_k, threads, smem,
+    # device, stream
+    "xfb_xstage": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

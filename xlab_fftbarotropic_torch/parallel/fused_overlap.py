@@ -47,10 +47,10 @@ def _dft(x: torch.Tensor, forward: bool, scale: float) -> torch.Tensor:
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor, nx: int,
             hny: int, w: int, forward: bool, scale: float) -> None:
     p = x.shape[0]
-    src, dst = ft._pointer_table(x), ft._pointer_table(out)
+    ptrs = ft.shard_pointers(name, x, out)
     columns = p * w if name == "xstage_gather" else hny
     from ..ops._build import lib
-    ff._launch(name, lib().xfb_xstage, src.data_ptr(), dst.data_ptr(),
+    ff._launch(name, lib().xfb_xstage, ptrs,
                ff._twiddles(nx, x.device).data_ptr(), p, nx // p, hny, w,
                _MODES[name], int(forward), float(scale),
                *ff._xtile_args(nx, columns, 8), x.device.index,

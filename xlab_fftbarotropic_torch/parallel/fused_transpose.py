@@ -6,11 +6,14 @@ Same contract as the library transposes of parallel/dfft.py on the
 stacked shards: a2a_cols (P, nx/P, hny) -> (P, nx, hpad/P) zero-padded,
 a2a_rows the inverse with the pad stripped. Complex64 moves as float2.
 A CPU tensor takes the plain version beside each wrapper; a CUDA tensor
-launches the kernel, which reaches the shards through tables of their
-base pointers (_pointer_table).
+launches the kernel, which reaches the shards through their base
+pointers, passed to it by value (shard_pointers): a call allocates its
+output and queues the kernel, nothing else.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,15 +32,20 @@ def _check(name: str, x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _pointer_table(x: torch.Tensor) -> torch.Tensor:
-    """The base pointers of x's P shards (its leading axis) as an int64
-    tensor on x's card, made there (one arange launch, no copy from the
-    host that would wait for the stream); the caller holds it until the
-    launch is queued."""
-    step = x.stride(0) * x.element_size()
-    base = x.data_ptr()
-    return torch.arange(base, base + x.shape[0] * step, step,
-                        dtype=torch.int64, device=x.device)
+# csrc/shards.cuh kMaxShards: the shard pointers the kernels take by value
+MAX_SHARDS = 32
+
+
+def shard_pointers(name: str, src: torch.Tensor, dst: torch.Tensor):
+    """The host array of the kernels' 2 P shard base pointers: src's P
+    shards (its leading axis), then dst's. Raises past MAX_SHARDS."""
+    p = src.shape[0]
+    if not 1 <= p <= MAX_SHARDS:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_SHARDS} shards "
+                         f"(csrc/shards.cuh kMaxShards), got {p}")
+    ptrs = [t.data_ptr() + k * t.stride(0) * t.element_size()
+            for t in (src, dst) for k in range(p)]
+    return (ctypes.c_void_p * (2 * p))(*ptrs)
 
 
 def a2a_cols_plain(x: torch.Tensor) -> torch.Tensor:
@@ -60,10 +68,10 @@ def a2a_cols(x: torch.Tensor) -> torch.Tensor:
     p, rows_l, hny = x.shape
     w = padded_half(hny, p) // p
     out = torch.empty((p, p * rows_l, w), dtype=x.dtype, device=x.device)
-    src, dst = _pointer_table(x), _pointer_table(out)
+    ptrs = shard_pointers("a2a_cols", x, out)
     from ..ops._build import lib
-    ff._launch("a2a_cols", lib().xfb_a2a, src.data_ptr(), dst.data_ptr(), p,
-               rows_l, hny, w, 1, x.device.index, ff._stream(x))
+    ff._launch("a2a_cols", lib().xfb_a2a, ptrs, p, rows_l, hny, w, 1,
+               x.device.index, ff._stream(x))
     return out
 
 
@@ -87,8 +95,8 @@ def a2a_rows(x: torch.Tensor, hny: int) -> torch.Tensor:
     if ff._takes_plain("a2a_rows", x):
         return a2a_rows_plain(x, hny)
     out = torch.empty((p, nx // p, hny), dtype=x.dtype, device=x.device)
-    src, dst = _pointer_table(x), _pointer_table(out)
+    ptrs = shard_pointers("a2a_rows", x, out)
     from ..ops._build import lib
-    ff._launch("a2a_rows", lib().xfb_a2a, src.data_ptr(), dst.data_ptr(), p,
-               nx // p, hny, w, 0, x.device.index, ff._stream(x))
+    ff._launch("a2a_rows", lib().xfb_a2a, ptrs, p, nx // p, hny, w, 0,
+               x.device.index, ff._stream(x))
     return out
