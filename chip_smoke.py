@@ -130,6 +130,33 @@ exits non-zero and prints no result):
    the pressure within rel-L2 1e-5 of the torch.fft path's on the same
    psi with the same deepest minimum; ms per inverted field on both
    paths and of find_min_n; no jax module loaded.
+5l. The diagnostics at n^2: phase 3's run once more with its vort
+   records kept (its launches exact), the records through
+   cli.diagnose.main with all five -d, on the kernels with torch.fft.*
+   and torch.matmul raising (exactly 16 ka, 7 kb and 2 kc per field)
+   and with --fft-backend xla (none); the kernels' outputs against the
+   library's: Okubo-Weiss rel-L2 <= 1e-5; the deformation factor and the
+   filamentation time where they are conditioned (their first-order
+   round-off bounds in the largest velocity gradient, DIAG_COND); E(k),
+   Z(k) per shell and in sum; the kappa_ratio profile per bin; the
+   filamentation medians within DIAG_MEDIAN_TOL, the share of cells
+   whose finite mask flips printed; ms per diagnosed field on both
+   paths (with --profile their breakdowns).
+5m. The finite-difference core: cli.run.main -m fd at n^2 for `steps`
+   steps from the same IC (no kernel launch: its Poisson solve is
+   torch.fft by design), records finite, its rel-L2 against the spectral
+   run printed (an O(dx^2) difference, no bound), ms per FD step; at
+   256^2 the card's state after 2 steps against the CPU's for both
+   solvers, rel-L2 <= 1e-5, and the Jacobi sweep counts (per solve, and
+   of the relaxation alone on a wave's Laplacian at three tolerances)
+   within one of the CPU's.
+5n. The ensemble: cli.run.main --ensemble 4 --ensemble-amp 0
+   --ensemble-width 1 at n^2, every member's records byte-identical to
+   the solo run's and the plane stepper's launches exactly 4 times its
+   per step; --ensemble-amp 0.02, records in m00..m03 and a nonzero
+   spread at each record; at 256^2 one batched chunk of 8 on torch.fft,
+   member 0 within rel-L2 1e-6 of the solo library run; a --profile-dir
+   run at 256^2 for 4 steps whose trace names ka_diag.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -237,17 +264,17 @@ SHARD_PER_RECORD = {("slab", "pallas"): {"a2a_cols": 4, "a2a_rows": 4},
 KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
-                "ka_diag", ("barotropic", "barotropic-xfirst")),
+                "ka_diag", ("barotropic", "barotropic-xfirst", "ensemble")),
     "kb_pair": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
                 "kb_pair", ("barotropic", "tracer", "shallow-water",
-                            "sw-etdrk4")),
+                            "sw-etdrk4", "ensemble")),
     "ky_adv": ("xlab_fftbarotropic_torch/csrc/ky_adv.cu",
                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1506",
-               "ky_adv", ("barotropic",)),
+               "ky_adv", ("barotropic", "ensemble")),
     "kx_visc": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654",
-                "kx_visc", ("barotropic",)),
+                "kx_visc", ("barotropic", "ensemble")),
     "kx_visc_tracer": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
                        "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:206",
                        "kx_visc", ("tracer",)),
@@ -260,7 +287,7 @@ KERNELS = {
     "rk4_combine": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
                     "xlab_fftbarotropic_tpu/ops/pallas_sw.py:971",
                     "rk4_combine", ("barotropic", "tracer", "shallow-water",
-                                    "sw-xfirst")),
+                                    "sw-xfirst", "ensemble")),
     "ka_sw": ("xlab_fftbarotropic_torch/csrc/ka_sw.cu",
               "xlab_fftbarotropic_tpu/ops/pallas_sw.py:217",
               "ka_sw", ("shallow-water", "sw-etdrk4") + XFIRST_SW),
@@ -279,14 +306,14 @@ KERNELS = {
     "ka": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
            "ka", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint",
-                  "postproc") + XFIRST_SW),
+                  "postproc", "diagnose") + XFIRST_SW),
     "kc": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
            "kc", ("shallow-water", "sw-etdrk4", "sw-drag", "adjoint",
-                  "postproc") + XFIRST_SW),
+                  "postproc", "diagnose") + XFIRST_SW),
     "kb": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
            "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1043",
-           "kb", ("sw-drag", "adjoint", "postproc")),
+           "kb", ("sw-drag", "adjoint", "postproc", "diagnose")),
     "plane_axpy": ("xlab_fftbarotropic_torch/csrc/rk4_combine.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:946",
                    "plane_axpy", ("sw-unfused",)),
@@ -450,6 +477,20 @@ ADJ_WINDOW, ADJ_ITERS, ADJ_LR = 10, 3, 1e-5
 # phase 5k: example 02's pipeline (the forced run's steps and record
 # interval) and the Kuo2004 core's speed, m/s, for its time step
 POSTPROC_STEPS, POSTPROC_REC, KUO_U_MAX = 20, 10, 75.0
+# phases 5l-5n: the filamentation medians' bound (the finite sets of
+# the two paths differ where OW ~ 0); the FD core's card-vs-CPU grid,
+# steps and Jacobi stopping rule (the tolerance sits above float32's
+# floor for the 5-point residual at 256^2, so a solve warm-started at
+# the exact solution stops); the ensemble's members through the CLI, its
+# batched chunk's width and that chunk's bar against the solo library
+# run (a batched transform may round otherwise than a single one)
+DIAG_MEDIAN_TOL = 1e-4
+# and the cells where D and tau are held (S, |zeta| > DIAG_COND G; OW >
+# DIAG_COND G^2; G the largest velocity gradient): their first-order
+# round-off bounds hold there
+DIAG_COND = 1e-3
+FD_CHECK_N, FD_CHECK_STEPS, JACOBI_TOL, JACOBI_MAX = 256, 2, 1e-3, 1000
+ENS_MEMBERS, ENS_BATCH, ENS_BATCH_TOL = 4, 8, 1e-6
 
 
 def adjoint_launches(n: int, gradients: int, forwards: int) -> dict:
@@ -1631,6 +1672,432 @@ def phase_postproc(n: int, dev) -> dict:
     return out
 
 
+def _cli_main(main, argv, stdin: str = "", refuse: bool = False):
+    """main(argv) with `stdin` as its standard input, the launch counters
+    set to 0 just before it and read just after, torch.fft.* and
+    torch.matmul raising inside when `refuse`; returns (rc, stdout,
+    stderr, launches)."""
+    import io
+
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        ff.reset_launches()
+        with contextlib.ExitStack() as stack:
+            if refuse:
+                stack.enter_context(_refusing_library())
+            stack.enter_context(contextlib.redirect_stdout(out))
+            stack.enter_context(contextlib.redirect_stderr(err))
+            rc = main(argv)
+            torch.cuda.synchronize()
+        launches = dict(ff.LAUNCHES)
+    finally:
+        sys.stdin = saved
+    return rc, out.getvalue(), err.getvalue(), launches
+
+
+def _bt_argv(n: int, steps: int, inp: Path, out: Path, manifest: Path,
+             *extra) -> list:
+    """cli.run.main's arguments for phase 3's barotropic run: `steps`
+    steps at n^2, vort recorded every steps/2."""
+    return ["-I", str(inp), "-O", str(out), "--nx", str(n), "--ny", str(n),
+            "--total-steps", str(steps), "--record-step", str(steps // 2),
+            "--record-fields", "vort", "--manifest", str(manifest),
+            "--device", "cuda", *extra]
+
+
+def spectral_run(n: int, steps: int, tmp: Path) -> Path:
+    """Phase 3's barotropic main path once more, its vort records kept in
+    tmp/spectral for phases 5l-5n (the diagnostics' input, the FD core's
+    spectral reference, the ensemble members' solo run); launches
+    exact."""
+    from xlab_fftbarotropic_torch.cli import run as cli_run
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.io.fieldio import write_field
+
+    cfg = ModelConfig(nx=n, ny=n)
+    (tmp / "input").mkdir()
+    write_field(tmp / "input" / cfg.init_file, makefields.gaussian(cfg))
+    out = tmp / "spectral"
+    rc, _, _, launches = _cli_main(cli_run.main, _bt_argv(
+        n, steps, tmp / "input", out, tmp / "log-spectral"))
+    check(rc == 0, f"cli.run.main returned {rc}")
+    want = {k: PER_STEP["barotropic"].get(k, 0) * steps for k in launches}
+    check(launches == want, f"spectral run launches {launches} != {want}")
+    return out
+
+
+def _summaries(stdout: str) -> dict:
+    """{(diagnostic, input file name): (output file name, summary)} of
+    cli.diagnose's stdout lines."""
+    out = {}
+    for line in stdout.splitlines():
+        d, src, _, dest, summary = line.split()
+        out[(d, Path(src).name)] = (Path(dest).name,
+                                    float(summary.split("=", 1)[1]))
+    return out
+
+
+def phase_diagnose(n: int, steps: int, dev, spectral: Path,
+                   profile: bool = False) -> dict:
+    """Phase 5l: the vort records of the spectral run through
+    cli.diagnose.main with all five -d, on the kernels (torch.fft.* and
+    torch.matmul raising; launches_per_field exactly per file) and with
+    --fft-backend xla (no kernel launch); the kernels' outputs held to
+    the library's: OW by rel-L2 <= TOL; the deformation factor D = S /
+    |zeta| where S and |zeta| exceed DIAG_COND G (S the strain
+    magnitude, G the largest velocity gradient, from the library path):
+    |dD| / D <= TOL G (1/S + 1/|zeta|), the round-off of its numerator
+    and denominator, with its raw rel-L2 and the share of cells left out
+    reported; E(k), Z(k) per shell within TOL of the largest shell and
+    in sum; the kappa_ratio profile (the same bins on both paths) per
+    bin within TOL max |grad q|^2 / the bin's mean |grad q|^2 of its
+    value, its largest error over its largest value reported; the
+    filamentation time where OW > DIAG_COND G^2 (|dtau| / tau * OW <=
+    TOL G^2), no cell with |OW| > DIAG_COND G^2 finite on one path only,
+    the share of cells whose finite/inf mask differs reported (it flips
+    where OW ~ 0), the median summaries within DIAG_MEDIAN_TOL. Then ms
+    per diagnosed field on both paths (Diagnoser, all five, no file
+    I/O), and with `profile` their breakdowns."""
+    from xlab_fftbarotropic_torch.cli import diagnose as cli_diagnose
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.diagnostics import kinematics as kin
+    from xlab_fftbarotropic_torch.io.fieldio import read_field
+    from xlab_fftbarotropic_torch.ops import fft
+    from xlab_fftbarotropic_torch.ops import spectral as sp
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+
+    cfg = ModelConfig(nx=n, ny=n)
+    files = [spectral / f"vort_step_{s}.bin" for s in (0, steps // 2)]
+    every = [a for d in cli_diagnose.DIAGNOSTICS for a in ("-d", d)]
+    grid = ["--nx", str(n), "--ny", str(n), "--device", "cuda"]
+    per_field = cli_diagnose.launches_per_field(cli_diagnose.DIAGNOSTICS)
+    report = {"launches_per_field": per_field}
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        runs = {}
+        for path, extra in (("kernels", []),
+                            ("library", ["--fft-backend", "xla"])):
+            out = Path(tmp) / path
+            t0 = time.perf_counter()
+            rc, stdout, _, launches = _cli_main(
+                cli_diagnose.main, grid + ["-O", str(out)] + every + extra,
+                "\n".join(map(str, files)), refuse=path == "kernels")
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"cli.diagnose.main ({path}) returned {rc}")
+            runs[path] = (out, _summaries(stdout))
+            want = {k: (per_field.get(k, 0) * len(files)
+                        if path == "kernels" else 0) for k in launches}
+            log(f"diagnose {path}: {len(files)} fields at {n}^2 through "
+                f"cli.diagnose.main, all five -d, in {wall:.2f} s; "
+                f"launches { {k: v for k, v in launches.items() if v} }")
+            check(launches == want, f"diagnose {path} launches {launches} "
+                                    f"!= {want}")
+            if path == "kernels":
+                report["launches"] = launches
+        (kout, ksum), (lout, lsum) = runs["kernels"], runs["library"]
+        check(ksum.keys() == lsum.keys() and len(ksum) == 5 * len(files),
+              "diagnose: the two paths wrote different outputs")
+        t = SpectralTables.from_config(cfg, dev)
+        worst = {}
+
+        def note(name, value):
+            worst[name] = max(worst.get(name, 0.0), value)
+
+        for f in files:
+            vort = torch.from_numpy(read_field(f, cfg.grid_shape)).to(dev)
+            g = kin.velocity_gradients(t, fft.forward(vort), cfg.grid_shape)
+            s1, s2, zeta = kin.strain_vorticity(g)
+            strain, zeta = torch.hypot(s1, s2), zeta.abs()
+            big_g = max(float(a.abs().max()) for a in g)
+
+            def both(d):
+                dest = ksum[(d, f.name)][0]
+                return [torch.from_numpy(read_field(o / dest,
+                                                    cfg.grid_shape)).to(dev)
+                        for o in (kout, lout)]
+            ow_k, ow_l = both("okubo-weiss")
+            note("okubo-weiss rel-L2", rel_l2(ow_k, ow_l))
+            d_k, d_l = both("deformation")
+            note("deformation rel-L2 (raw)", rel_l2(d_k, d_l))
+            m = (strain > DIAG_COND * big_g) & (zeta > DIAG_COND * big_g)
+            note("deformation cells left out", 1.0 - float(
+                m.double().mean()))
+            note("deformation err / G", float(
+                ((d_k - d_l).abs() / d_l / (big_g * (
+                    1.0 / strain + 1.0 / zeta)))[m].max()))
+            f_k, f_l = both("filamentation")      # inf written as 0
+            fin_k, fin_l = f_k != 0, f_l != 0
+            note("filamentation mask flips", float(
+                (fin_k != fin_l).double().mean()))
+            decided = ow_l.abs() > DIAG_COND * big_g ** 2
+            note("filamentation decided flips", float(
+                (fin_k != fin_l)[decided].double().sum()))
+            m = ow_l > DIAG_COND * big_g ** 2
+            note("filamentation err / G^2", float(
+                ((f_k - f_l).abs() / f_l * ow_l)[m].max()) / big_g ** 2)
+            k_k, k_l = (torch.from_numpy(read_field(o / ksum[
+                ("eddy-diffusivity", f.name)][0])).to(dev)
+                for o in (kout, lout))
+            note("kappa_ratio max err", float((k_k - k_l).abs().max()
+                                              / k_l.abs().max()))
+            # the paths bin alike and differ in |grad q|^2 alone, by a few
+            # float32 epsilons of max |grad q|^2 per cell: a bin's ratio
+            # moves by its share of the bin's mean |grad q|^2
+            gq = fft.inverse_pair(*(op(t, fft.forward(vort))
+                                    for op in (sp.gradx, sp.grady)),
+                                  cfg.grid_shape)
+            grad2 = gq[0] ** 2 + gq[1] ** 2
+            qmin = vort.min()
+            span = torch.clamp(vort.max() - qmin, min=1e-30)
+            ib = torch.clamp(((vort - qmin) / span * k_l.numel()).to(
+                torch.int32), 0, k_l.numel() - 1).reshape(-1).long()
+            count = torch.bincount(ib, minlength=k_l.numel())
+            mean_g2 = (torch.bincount(ib, weights=grad2.reshape(-1).double(),
+                                      minlength=k_l.numel())
+                       / count.clamp(min=1)).float()
+            full = count > 0
+            note("kappa_ratio err / G_q^2", float(
+                ((k_k - k_l).abs() / k_l * mean_g2)[full].max()
+                / grad2.max()))
+            dest = ksum[("spectrum", f.name)][0]
+            s_k, s_l = (np.loadtxt(o / dest) for o in (kout, lout))
+            for col, name in ((1, "E(k)"), (2, "Z(k)")):
+                note(f"{name} per shell", float(
+                    np.abs(s_k[:, col] - s_l[:, col]).max()
+                    / np.abs(s_l[:, col]).max()))
+                note(f"{name} sum", abs(s_k[:, col].sum() - s_l[:, col].sum())
+                     / s_l[:, col].sum())
+            note("filamentation median", abs(
+                ksum[("filamentation", f.name)][1]
+                - lsum[("filamentation", f.name)][1])
+                / lsum[("filamentation", f.name)][1])
+        for name, v in worst.items():
+            log(f"diagnose kernels vs torch.fft: {name} {v:.3e}")
+        report["vs_library"] = worst
+        for name in ("okubo-weiss rel-L2", "deformation err / G",
+                     "filamentation err / G^2", "kappa_ratio err / G_q^2",
+                     "E(k) per shell", "Z(k) per shell", "E(k) sum",
+                     "Z(k) sum"):
+            check(worst[name] <= TOL, f"diagnose: {name} {worst[name]:.3e} "
+                                      f"> {TOL}")
+        check(worst["filamentation decided flips"] == 0,
+              "diagnose: a cell with |OW| > DIAG_COND G^2 is finite on "
+              "one path only")
+        check(worst["filamentation median"] <= DIAG_MEDIAN_TOL,
+              f"diagnose: filamentation median moved by "
+              f"{worst['filamentation median']:.3e}")
+        vort = torch.from_numpy(read_field(files[-1], cfg.grid_shape)).to(dev)
+        for path, c in (("kernels", cfg), ("library",
+                                          cfg.replace(fft_backend="xla"))):
+            d = cli_diagnose.Diagnoser(c, dev)
+            ms = cuda_ms(lambda: d(vort, cli_diagnose.DIAGNOSTICS), iters=5,
+                         warmup=1)
+            log(f"time diagnose {path:8s}: {ms:.3f} ms per field (all five "
+                f"diagnostics) at {n}^2")
+            report[f"{path}_ms_per_field"] = ms
+            if profile:
+                report[f"{path}_profile"] = profile_run(
+                    f"diagnose-{path} (per field)",
+                    lambda: d(vort, cli_diagnose.DIAGNOSTICS), 1)
+    return report
+
+
+def phase_fd(n: int, steps: int, dev, spectral: Path) -> dict:
+    """Phase 5m: cli.run.main -m fd at n^2 for `steps` steps from the
+    spectral run's IC (no kernel launch: the FD core is torch, its
+    Poisson solve torch.fft by design), records finite, its vorticity's
+    rel-L2 against the spectral kernel path's (an O(dx^2) difference,
+    printed, no bound); the ms per FD step; and at FD_CHECK_N^2 the card's
+    state after FD_CHECK_STEPS steps (warm-started at the IC's FD
+    streamfunction) against the same model on the CPU, rel-L2 <= TOL for
+    both solvers, each Jacobi solve's sweep count on the card within one
+    of the CPU's; and poisson_jacobi alone from zero on a wave's
+    Laplacian at three tolerances, the same."""
+    from xlab_fftbarotropic_torch.cli import run as cli_run
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.io.fieldio import read_field
+    from xlab_fftbarotropic_torch.models.fd_core import (FDBarotropicModel,
+                                                         laplacian5,
+                                                         poisson_fft,
+                                                         poisson_jacobi)
+
+    cfg = ModelConfig(nx=n, ny=n)
+    rec = steps // 2
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        out = Path(tmp) / "fd"
+        t0 = time.perf_counter()
+        rc, _, _, launches = _cli_main(cli_run.main, _bt_argv(
+            n, steps, spectral.parent / "input", out, Path(tmp) / "log",
+            "-m", "fd"))
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"cli.run.main -m fd returned {rc}")
+        check(not any(launches.values()), f"-m fd launched {launches}")
+        report["launches"] = launches
+        for s in (0, rec):
+            f = out / f"vort_step_{s}.bin"
+            check(f.exists() and f.stat().st_size == n * n * 4,
+                  f"FD record {f.name} missing or of the wrong size")
+            check(bool(np.isfinite(read_field(f, cfg.grid_shape)).all()),
+                  f"FD record {f.name} is not finite")
+        fd_v, sp_v = (torch.from_numpy(read_field(
+            d / f"vort_step_{rec}.bin", cfg.grid_shape)) for d in (out,
+                                                                 spectral))
+        report["fd_vs_spectral_rel_l2"] = rel_l2(fd_v, sp_v)
+        log(f"fd: {steps} steps at {n}^2 through cli.run.main -m fd in "
+            f"{wall:.2f} s; vorticity at step {rec} against the spectral "
+            f"kernel path: rel-L2 {report['fd_vs_spectral_rel_l2']:.3e} "
+            f"(the O(dx^2) difference of the two discretizations)")
+    m = FDBarotropicModel.build(cfg, dev)
+    z0 = torch.from_numpy(makefields.gaussian(cfg)).to(dev)
+    p0, src = m.init_psi(z0), m.zero_source()
+    report["ms_per_step"] = cuda_ms(lambda: m.step(z0, p0, src), iters=5,
+                                    warmup=1)
+    log(f"time fd: {report['ms_per_step']:.3f} ms per step at {n}^2 (FFT "
+        f"Poisson solve)")
+    small = ModelConfig(nx=FD_CHECK_N, ny=FD_CHECK_N)
+    v0 = makefields.gaussian(small)
+    cpu = torch.device("cpu")
+    for solver in ("fft", "jacobi"):
+        states, sweeps = [], []
+        for where in (dev, cpu):
+            fm = FDBarotropicModel.build(small, where, tol=JACOBI_TOL,
+                                         max_iter=JACOBI_MAX, solver=solver)
+            z = torch.from_numpy(v0).to(where)
+            # warm-started at the IC's FD streamfunction: from zero the
+            # relaxation needs more than 20000 sweeps at 256^2
+            states.append(fm.segment(z, poisson_fft(z, small.dx, small.dy),
+                                     fm.zero_source(), FD_CHECK_STEPS))
+            sweeps.append([int(s) for s in fm.sweeps])
+        rel = [rel_l2(a.cpu(), b) for a, b in zip(*states)]
+        log(f"fd {solver} at {FD_CHECK_N}^2, {FD_CHECK_STEPS} steps: card "
+            f"vs CPU rel-L2 zeta {rel[0]:.3e}, psi {rel[1]:.3e}"
+            + (f"; Jacobi sweeps card {sweeps[0]}, CPU {sweeps[1]}"
+               if solver == "jacobi" else ""))
+        check(rel[0] <= TOL, f"fd {solver}: card vs CPU zeta rel-L2 "
+                             f"{rel[0]:.3e} > {TOL}")
+        check(len(sweeps[0]) == len(sweeps[1]) and all(
+            abs(a - b) <= 1 for a, b in zip(*sweeps)),
+            f"fd jacobi sweeps card {sweeps[0]} vs CPU {sweeps[1]}")
+        report[f"{solver}_card_vs_cpu"] = dict(rel_l2=rel,
+                                               sweeps=sweeps)
+    # the relaxation alone from zero, on the 5-point Laplacian of a
+    # (16, 8) wave: a stopping sweep of order a hundred
+    x, y = small.coords()
+    wave = torch.from_numpy((np.sin(2 * np.pi * 16 * x / small.lx)[:, None]
+                             * np.cos(2 * np.pi * 8 * y[None, :] / small.ly)
+                             ).astype(np.float32))
+    rhs = laplacian5(wave, small.dx, small.dy)
+    for tol in (1e-3, 1e-4, 1e-5):
+        (xd, kd), (xc, kc) = (poisson_jacobi(rhs.to(w), small.dx, small.dy,
+                                             tol=tol) for w in (dev, cpu))
+        rel = rel_l2(xd.cpu(), xc)
+        log(f"fd jacobi alone at {FD_CHECK_N}^2, tol {tol:g}: sweeps card "
+            f"{int(kd)}, CPU {int(kc)}; solution rel-L2 {rel:.3e}")
+        check(abs(int(kd) - int(kc)) <= 1 and 1 < int(kc) < 10_000,
+              f"jacobi sweeps card {int(kd)} vs CPU {int(kc)}")
+        check(rel <= TOL, f"jacobi card vs CPU rel-L2 {rel:.3e}")
+        report[f"jacobi_wave_{tol:g}"] = dict(sweeps=[int(kd), int(kc)],
+                                              rel_l2=rel)
+    return report
+
+
+def phase_ensemble(n: int, steps: int, dev, spectral: Path) -> dict:
+    """Phase 5n: cli.run.main --ensemble ENS_MEMBERS --ensemble-amp 0
+    --ensemble-width 1 at n^2 from the spectral run's IC: every member's
+    records byte-identical to the solo run's and the plane stepper's
+    launches exactly ENS_MEMBERS times its per step; then
+    --ensemble-amp 0.02: every member's records, a nonzero spread at
+    every record of the log; at FD_CHECK_N^2 EnsembleModel.build with
+    width ENS_BATCH (one batched chunk on torch.fft) at amplitude 0:
+    member 0 within rel-L2 ENS_BATCH_TOL of the solo library run; and a
+    --profile-dir run at FD_CHECK_N^2 for 4 steps whose trace names
+    ka_diag."""
+    from xlab_fftbarotropic_torch.cli import run as cli_run
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.ensemble import EnsembleModel
+
+    rec = steps // 2
+    members = [f"m{k:02d}" for k in range(ENS_MEMBERS)]
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        for amp in ("0", "0.02"):
+            out = Path(tmp) / f"amp{amp}"
+            t0 = time.perf_counter()
+            rc, _, err, launches = _cli_main(cli_run.main, _bt_argv(
+                n, steps, spectral.parent / "input", out,
+                Path(tmp) / f"log{amp}", "--ensemble", str(ENS_MEMBERS),
+                "--ensemble-amp", amp, "--ensemble-width", "1"))
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"cli.run.main --ensemble returned {rc}")
+            want = {k: ENS_MEMBERS * PER_STEP["barotropic"].get(k, 0)
+                    * steps for k in launches}
+            check(launches == want, f"ensemble launches {launches} != "
+                                    f"{want}")
+            spread = [float(line.rsplit("=", 1)[1])
+                      for line in err.splitlines()
+                      if line.startswith("# Ensemble spread")]
+            log(f"ensemble amp {amp}: {ENS_MEMBERS} members x {steps} "
+                f"steps at {n}^2 through cli.run.main, width 1, in "
+                f"{wall:.2f} s; spread per record {spread}")
+            check(len(spread) == 2, f"spread lines {spread}")
+            for k in members:
+                for s in (0, rec):
+                    got = (out / k / f"vort_step_{s}.bin").read_bytes()
+                    check(len(got) == n * n * 4, f"{k} record size")
+                    if amp == "0":
+                        check(got == (spectral / f"vort_step_{s}.bin"
+                                      ).read_bytes(),
+                              f"{k}/vort_step_{s}.bin is not the solo "
+                              f"run's bit for bit")
+            if amp == "0":
+                check(spread == [0.0, 0.0], f"zero-amp spread {spread}")
+                report["launches"] = launches
+            else:
+                check(all(s > 0 for s in spread), f"spread {spread}")
+                report["spread"] = spread
+    small = ModelConfig(nx=FD_CHECK_N, ny=FD_CHECK_N)
+    v0 = makefields.gaussian(small)
+    e = EnsembleModel.build(small, dev, ENS_BATCH, vmap_width=ENS_BATCH)
+    check(e.batched and e.inner.backend == "xla", "the batched chunk is "
+                                                  "not on the library path")
+    solo = BarotropicModel.build(small.replace(fft_backend="xla"), dev)
+    src = solo.zero_source()
+    got = e.segment(e.init_from_physical(v0, amplitude=0.0), src, steps)
+    want = solo.segment(solo.init_state(v0), src, steps)
+    report["batched_rel_l2"] = [rel_l2(torch.view_as_real(g),
+                                       torch.view_as_real(want))
+                                for g in got]
+    log(f"ensemble width {ENS_BATCH} at {FD_CHECK_N}^2 (one batched chunk "
+        f"on torch.fft), amplitude 0: members vs the solo library run "
+        f"rel-L2 {max(report['batched_rel_l2']):.3e} (member 0 "
+        f"{report['batched_rel_l2'][0]:.3e})")
+    check(report["batched_rel_l2"][0] <= ENS_BATCH_TOL,
+          f"batched member 0 rel-L2 {report['batched_rel_l2'][0]:.3e}")
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        from xlab_fftbarotropic_torch.io.fieldio import write_field
+        tmp = Path(tmp)
+        (tmp / "input").mkdir()
+        write_field(tmp / "input" / small.init_file, v0)
+        rc, _, _, _ = _cli_main(cli_run.main, _bt_argv(
+            FD_CHECK_N, 4, tmp / "input", tmp / "out", tmp / "log",
+            "--profile-dir", str(tmp / "prof")))
+        check(rc == 0, f"cli.run.main --profile-dir returned {rc}")
+        trace = tmp / "prof" / cli_run.TRACE_NAME
+        check(trace.exists() and "ka_diag" in trace.read_text(),
+              "the --profile-dir trace is missing or names no ka_diag")
+        report["trace_bytes"] = trace.stat().st_size
+        log(f"profile-dir: {trace.name} {report['trace_bytes']} bytes, "
+            f"names ka_diag")
+    return report
+
+
 def phase_adjoint(n: int, dev, profile: bool = False) -> dict:
     """The adjoint main path and its checks (phase 5e); with `profile`
     also the breakdown of a kernel-path gradient per window step."""
@@ -2083,6 +2550,7 @@ def profile_run(family: str, run, steps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
     names = kernel_functions()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2092,7 +2560,11 @@ def profile_run(family: str, run, steps: int) -> dict:
         wall = time.perf_counter() - t0
     per_step, calls = {}, {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # the wrappers' launch spans (ops/fused_fft.py _launch) mirror on
+        # the device's timeline as user annotations: not device work
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name in ff.LAUNCHES):
             continue
         # demangled ("...::ka_kernel(...") or mangled ("...9ka_kernelE...")
         name = next((k for k in names
@@ -2172,6 +2644,14 @@ def main(argv=None) -> int:
     report["sharded"] = phase_sharded(args.n, args.steps, dev, args.profile)
     report["main_paths"].update(report["sharded"]["main_paths"])
     report["main_paths"]["postproc"] = phase_postproc(args.n, dev)
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        spectral = spectral_run(args.n, args.steps, Path(tmp))
+        report["main_paths"]["diagnose"] = phase_diagnose(
+            args.n, args.steps, dev, spectral, args.profile)
+        report["main_paths"]["fd"] = phase_fd(args.n, args.steps, dev,
+                                              spectral)
+        report["main_paths"]["ensemble"] = phase_ensemble(
+            args.n, args.steps, dev, spectral)
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

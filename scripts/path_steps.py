@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Time the single-card main paths of one or more checkouts of the port,
+in turns, in one call: ms/step at n^2 of the barotropic, tracer and
+shallow-water plane steppers' kernel paths and of the barotropic and
+shallow-water torch.fft library paths (bench.py's configurations, as
+chip_smoke.py's build_models makes them).
+
+    python3 scripts/path_steps.py [--root DIR ...] [--n 4096]
+        [--steps 20] [--rounds 2]
+
+Each --root (default: this checkout; give an unpacked parent commit and
+this checkout as, for example, --root P --root . --root . --root P) runs
+in a process of its own, so each imports its own port; per path one
+warm-up segment of --steps steps, then --rounds segments timed with CUDA
+events, every run printed with its mean. Ends with the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+PATHS = ("barotropic", "barotropic-library", "tracer", "shallow-water",
+         "shallow-water-library")
+
+
+def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
+    """ms/step of every path of the port under `root`."""
+    import torch
+    sys.path.insert(0, str(Path(root).resolve()))
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+    from xlab_fftbarotropic_torch.ops import _build
+
+    _build.lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = ModelConfig(nx=n, ny=n)
+    lib = cfg.replace(fft_backend="xla")
+    sw_dt = min(3.0, max_stable_dt(cfg))
+    v0 = makefields.gaussian(cfg)
+    bt = BarotropicModel.build(cfg, dev)
+    zero = bt.zero_source()
+    tr = TracerModel.build(cfg, dev, kappa=50.0)
+    sw = ShallowWaterModel.build(cfg.replace(dt=sw_dt), dev)
+    swl = ShallowWaterModel.build(lib.replace(dt=sw_dt), dev)
+    sw0 = sw.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    models = {
+        "barotropic": (bt, bt.init_state(v0), zero),
+        "barotropic-library": (BarotropicModel.build(lib, dev),
+                               bt.init_state(v0), zero),
+        "tracer": (tr, tr.init_state(v0, tracer_ic(cfg, "gaussian")), zero),
+        "shallow-water": (sw, sw0, None),
+        "shallow-water-library": (swl, sw0, None)}
+    out = {}
+    for name in PATHS:
+        m, s0, src = models[name]
+        m.segment(s0, src, steps)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m.segment(s0, src, steps)
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end) / steps)
+        out[name] = runs
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append", default=None)
+    ap.add_argument("--n", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(one_root(args.one, args.n, args.steps,
+                                  args.rounds)))
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("path_steps: no CUDA device visible")
+    roots = args.root or [str(HERE)]
+    results = []
+    for root in roots:
+        proc = subprocess.run(
+            [sys.executable, __file__, "--one", str(Path(root).resolve()),
+             "--n", str(args.n), "--steps", str(args.steps), "--rounds",
+             str(args.rounds)],
+            capture_output=True, text=True, check=True, cwd=HERE)
+        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"ran {root}", flush=True)
+    for name in PATHS:
+        cells = [f"{sum(r[name]) / len(r[name]):.3f} ("
+                 + ", ".join(f"{v:.3f}" for v in r[name]) + ")"
+                 for r in results]
+        print(f"{name:22s} ms/step at {args.n}^2: " + " | ".join(
+            f"{root}: {c}" for root, c in zip(roots, cells)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1966,3 +1966,106 @@ def test_ky_all_and_ka_adv_refuse_a_plan_they_do_not_take(cuda):
                                 stream) != 0
         assert lib().xfb_ka_adv(*ff._ptrs(x, x, x, x, x, tw, y, y), n, n,
                                 0.0, *plan, cuda.index, stream) != 0
+
+
+# ---------------------------------------- the diagnostics, ensemble, FD
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_diagnose_launches_and_matches_the_library_path(cuda, n):
+    """One field through the Diagnoser, all five diagnostics: exactly
+    launches_per_field on the kernels, none on torch.fft; OW within TOL
+    of max |OW| and E(k), Z(k) within TOL of their largest shells."""
+    from xlab_fftbarotropic_torch.cli import diagnose
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+
+    cfg = ModelConfig(nx=n, ny=n)
+    vort = makefields.gaussian(cfg)
+    out = {}
+    for backend in ("pallas", "xla"):
+        ff.reset_launches()
+        out[backend] = diagnose.Diagnoser(cfg.replace(fft_backend=backend),
+                                          cuda)(vort, diagnose.DIAGNOSTICS)
+        torch.cuda.synchronize()
+        want = (diagnose.launches_per_field(diagnose.DIAGNOSTICS)
+                if backend == "pallas" else {})
+        assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
+            k: v for k, v in want.items() if v}
+    got, lib = out["pallas"], out["xla"]
+    assert _rel(got["okubo-weiss"], lib["okubo-weiss"]) < TOL
+    for a, b in zip(got["spectrum"][1:], lib["spectrum"][1:]):
+        assert _rel(a, b) < TOL
+
+
+def test_ensemble_width_one_members_are_solo_bit_for_bit(cuda):
+    """Width-1 chunks on the plane stepper's kernels: each zero-amplitude
+    member's state is the solo model's bit for bit, at 4 times its
+    launches."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.ensemble import EnsembleModel
+
+    cfg = ModelConfig(nx=256, ny=256)
+    v0 = makefields.gaussian(cfg)
+    solo = BarotropicModel.build(cfg, cuda)
+    ff.reset_launches()
+    want = solo.segment(solo.init_state(v0), solo.zero_source(), 4)
+    per_solo = dict(ff.LAUNCHES)
+    e = EnsembleModel.build(cfg, cuda, 4, vmap_width=1)
+    s0 = e.init_from_physical(v0, amplitude=0.0)
+    ff.reset_launches()
+    got = e.segment(s0, solo.zero_source(), 4)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {k: 4 * v for k, v in per_solo.items()}
+    for k in range(4):
+        assert torch.equal(got[k], want)
+
+
+@pytest.mark.parametrize("solver", ["fft", "jacobi"])
+def test_fd_core_on_the_card_matches_the_cpu(cuda, solver):
+    """The FD core's torch ops on the card against the CPU at 64^2 after
+    3 steps, warm-started at the IC's FD streamfunction, rel-L2 <= TOL,
+    the Jacobi sweep counts within one (chip_smoke.py phase 5m: near
+    float32's residual floor a cold start's counts are round-off's)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.fd_core import (FDBarotropicModel,
+                                                         poisson_fft)
+
+    cfg = ModelConfig(nx=64, ny=64)
+    v0 = makefields.gaussian(cfg)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        m = FDBarotropicModel.build(cfg, dev, tol=1e-3, max_iter=2000,
+                                    solver=solver)
+        z = torch.from_numpy(v0).to(dev)
+        runs.append((m.segment(z, poisson_fft(z, cfg.dx, cfg.dy),
+                               m.zero_source(), 3)[0],
+                     [int(s) for s in m.sweeps]))
+    (zd, kd), (zc, kc) = runs
+    assert float((zd.cpu() - zc).norm() / zc.norm()) <= TOL
+    assert len(kd) == len(kc) and all(abs(a - b) <= 1
+                                      for a, b in zip(kd, kc))
+
+
+@pytest.mark.parametrize("tol", [1e-3, 1e-4, 1e-5])
+def test_jacobi_stops_at_the_cpus_sweep(cuda, tol):
+    """poisson_jacobi from zero on the 5-point Laplacian of a (4, 2) wave
+    at 64^2: the card's stopping sweep within one of the CPU's, the
+    solutions within TOL."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.models.fd_core import (laplacian5,
+                                                         poisson_jacobi)
+
+    cfg = ModelConfig(nx=64, ny=64)
+    x, y = cfg.coords()
+    wave = torch.from_numpy((np.sin(2 * np.pi * 4 * x / cfg.lx)[:, None]
+                             * np.cos(2 * np.pi * 2 * y[None, :] / cfg.ly)
+                             ).astype(np.float32))
+    rhs = laplacian5(wave, cfg.dx, cfg.dy)
+    (xd, kd), (xc, kc) = (poisson_jacobi(rhs.to(d), cfg.dx, cfg.dy, tol=tol)
+                          for d in (cuda, torch.device("cpu")))
+    assert 1 < int(kc) < 10_000 and abs(int(kd) - int(kc)) <= 1
+    assert _rel(xd.cpu(), xc) <= TOL

@@ -6,9 +6,12 @@ stepper and on the library path, the SW model with drag on the
 per-transform path, takes a gradient through the adjoint rollout on
 both transform triples, steps the sharded barotropic model in every
 decomposition and transform impl, runs the post-processing pipeline's
-four commands (makefield, vort_src_input, invert_pres, find_min), and
-ends with no jax and no xlab_fftbarotropic_tpu module loaded; and its
-CLIs refuse to run without a GPU unless told --device cpu."""
+four commands (makefield, vort_src_input, invert_pres, find_min), the
+diagnose and draw commands, -m fd, two ensembles and a --profile-dir
+run through the run command, and ends with no jax and no
+xlab_fftbarotropic_tpu module loaded; and its CLIs refuse to run
+without a GPU unless told --device cpu (draw has no device: it draws
+with numpy and matplotlib)."""
 
 import os
 import subprocess
@@ -111,6 +114,29 @@ sys.stdin = io.StringIO(pres)
 assert find_min.main(grid + ["--device", "cpu", "--tracks",
                              os.path.join(tmp, "tracks.txt")]) == 0
 assert os.path.getsize(os.path.join(tmp, "tracks.txt")) > 0
+# the diagnostics and plots, the FD core, the ensemble, a profiled run
+from xlab_fftbarotropic_torch.cli import diagnose, draw
+from xlab_fftbarotropic_torch.diagnostics import (eddy_diffusivity,
+                                                  kinematics, spectra)
+from xlab_fftbarotropic_torch.models import ensemble, fd_core
+from xlab_fftbarotropic_torch.viz import plots
+vort = os.path.join(tmp, "vort_step_0.bin")
+fieldio.write_field(vort, makefields.gaussian(ModelConfig(nx=64, ny=64)))
+sys.stdin = io.StringIO(vort)
+assert diagnose.main(grid + ["--device", "cpu", "-O", tmp] + [
+    a for d in diagnose.DIAGNOSTICS for a in ("-d", d)]) == 0
+assert os.path.exists(os.path.join(tmp, "spectrum_step_0.txt"))
+assert draw.main(grid + ["-O", tmp, "--fig-dir", os.path.join(tmp, "fig"),
+                         "--spectra"]) == 0
+for extra in (["-m", "fd"], ["--ensemble", "2", "--ensemble-width", "1"],
+              ["--ensemble", "2", "-m", "sw"],
+              ["--profile-dir", os.path.join(tmp, "prof")]):
+    assert run.main(grid + ["-I", tmp, "-O", os.path.join(tmp, "o"),
+                            "-i", "vort_step_0.bin", "--total-steps", "2",
+                            "--record-step", "1", "--device", "cpu",
+                            "--manifest", os.path.join(tmp, "log")]
+                    + extra) == 0
+assert os.path.exists(os.path.join(tmp, "prof", run.TRACE_NAME))
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 tpu = sorted(k for k in sys.modules if k.startswith("xlab_fftbarotropic_tpu"))
 assert not tpu, tpu
@@ -134,7 +160,8 @@ def test_port_imports_and_steps_without_jax():
     assert "NOJAX-OK" in proc.stdout
 
 
-@pytest.mark.parametrize("family", [[], ["-m", "tracer"], ["-m", "sw"]])
+@pytest.mark.parametrize("family", [[], ["-m", "tracer"], ["-m", "sw"],
+                                    ["-m", "fd"], ["--ensemble", "2"]])
 def test_cli_without_gpu_stops_unless_told_cpu(tmp_path, family):
     out = tmp_path / "out"
     proc = subprocess.run(
@@ -165,6 +192,23 @@ def test_postproc_clis_without_gpu_stop_unless_told_cpu(tmp_path, cli):
         assert ("no CUDA device" in proc.stderr) == (rc != 0)
         assert (tmp_path / "p.bin").exists() == (cli == "invert_pres"
                                                   and rc == 0)
+
+
+def test_diagnose_cli_without_gpu_stops_unless_told_cpu(tmp_path):
+    """xfb-torch-diagnose falls back to the CPU neither: without a card
+    and without --device cpu it stops before writing anything."""
+    field = tmp_path / "vort_step_0.bin"
+    field.write_bytes(bytes(4 * 64 * 64))
+    out = tmp_path / "okuboweiss_step_0.bin"
+    for device, rc in (([], 2), (["--device", "cpu"], 0)):
+        proc = subprocess.run(
+            [sys.executable, "-m", "xlab_fftbarotropic_torch.cli.diagnose",
+             "--nx", "64", "--ny", "64", "-O", str(tmp_path), "-d",
+             "okubo-weiss"] + device, input=f"{field}\n", cwd=tmp_path,
+            env=_env(), capture_output=True, text=True, timeout=300)
+        assert proc.returncode == rc, proc.stderr
+        assert ("no CUDA device" in proc.stderr) == (rc != 0)
+        assert out.exists() == (rc == 0)
 
 
 def test_assimilate_cli_without_gpu_stops(tmp_path):

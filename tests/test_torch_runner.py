@@ -176,20 +176,26 @@ def test_debug_fields_and_record_subset(tmp_path):
 def test_runner_refuses_what_is_not_ported(tmp_path):
     cfg = _cfg(tmp_path)
     v0 = makefields.gaussian(cfg)
-    for kw in (dict(model_kind="jacobian"), dict(model_kind="fd"),
-               dict(shard=True, decomp="pencil"),
-               dict(shard=True, model_kind="sw"), dict(ensemble=4)):
+    for kw in (dict(shard=True, decomp="pencil"),
+               dict(shard=True, model_kind="sw")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trunner.run(cfg, CPU, v0, record=False, **kw)
+    # what the JAX runner refuses too (runner.py:348-352 there)
+    for kw, match in ((dict(ensemble=4, shard=True), "mutually exclusive"),
+                      (dict(ensemble=4, model_kind="fd"), "not supported"),
+                      (dict(ensemble=4, model_kind="jacobian"),
+                       "not supported")):
+        with pytest.raises(ValueError, match=match):
             trunner.run(cfg, CPU, v0, record=False, **kw)
 
 
 @pytest.mark.parametrize("flags", [
     ["--fast-transforms"], ["--shard", "--decomp", "pencil"],
-    ["--ensemble", "4"],
+    ["--ensemble", "4", "--shard"],
     ["-m", "sw", "--time-scheme", "etdrk4", "--beta", "1e-11"],
     ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5",
      "--shard"],
-    ["-m", "fd"], ["-m", "jacobian"],
+    ["-m", "fd", "--ensemble", "2"], ["-m", "jacobian", "--shard"],
     ["-m", "tracer", "--time-scheme", "etdrk4", "--shard"], ["-m", "climate"],
     ["--time-scheme", "etdrk4", "--fast-transforms"], ["--fft-backend", "mxu"],
     ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"],

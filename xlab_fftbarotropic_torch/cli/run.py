@@ -10,9 +10,13 @@ and shallow-water (-m sw or -m shallow-water; --coriolis-f, --gravity,
 --mean-depth, and under RK4 a --dt under the gravity-wave bound)
 families, each with --time-scheme rk4 (default) or etdrk4 (the linear
 terms integrated exactly from phi-function tables, models/etdrk4.py), the
--s script / -f fifo forcing, records, checkpoints and resume, and for
+-s script / -f fifo forcing, records, checkpoints and resume, for
 the barotropic family the sharded model (--shard, with --shard-fft and
---decomp slab or xpencil; every shard on the one visible card). `--device
+--decomp slab or xpencil; every shard on the one visible card), the
+perturbed-IC ensemble (--ensemble M, --ensemble-amp, --ensemble-seed,
+--ensemble-width; each member's records in output/mNN/), the
+finite-difference core (-m fd, or -m jacobian) and a torch.profiler
+trace of the run (--profile-dir). `--device
 cuda` (the default) runs the plane stepper's hand-written CUDA kernels
 and stops with an error when no GPU is visible; it never carries on on
 the CPU. `--device cpu` runs the kernels' plain torch versions. Flags
@@ -33,8 +37,13 @@ TPU's VMEM limit, and the port keeps the fused kx_visc up to 8192^2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
+from pathlib import Path
+
+# the file --profile-dir writes the run's torch.profiler trace into
+TRACE_NAME = "xfb-torch-run.trace.json"
 
 
 def bt_fusion_from_env() -> dict:
@@ -61,9 +70,10 @@ def main(argv=None):
     from ..config import add_config_args, config_from_args
     from ..models.barotropic import (fusion_arm, resolve_device,
                                      resolve_fft_backend_name)
+    from ..models.ensemble import _resolve_member_backend, auto_vmap_width
     from ..models.shallow_water import resolve_sw_backend
     from ..parallel import make_mesh
-    from ..runner import _NOT_PORTED, run
+    from ..runner import run
 
     p = argparse.ArgumentParser(
         prog="xfb-torch-run",
@@ -76,8 +86,10 @@ def main(argv=None):
     p.add_argument("-m", "--model", default="barotropic",
                    help="model family: barotropic (bt), tracer "
                         "(barotropic + co-advected passive scalar q, "
-                        "recorded as q_step_N.bin) or shallow-water (sw; "
-                        "also records div and h)")
+                        "recorded as q_step_N.bin), shallow-water (sw; "
+                        "also records div and h) or fd (jacobian: the "
+                        "finite-difference core, Arakawa Jacobian and FFT "
+                        "Poisson solve)")
     p.add_argument("--tracer-ic", default="vorticity",
                    choices=["vorticity", "zonal", "meridional", "gaussian"],
                    help="tracer initial condition for -m tracer "
@@ -125,30 +137,55 @@ def main(argv=None):
     p.add_argument("--mesh-shape", default=None, metavar="PxQ",
                    help="2-D mesh shape for --decomp pencil (not ported "
                         "yet)")
+    p.add_argument("--ensemble", type=int, default=0, metavar="M",
+                   help="run an M-member perturbed-IC ensemble "
+                        "(barotropic, tracer or sw): member 0 is the "
+                        "unperturbed control; each member records into "
+                        "output/mNN/ with the reference file layout")
+    p.add_argument("--ensemble-amp", type=float, default=0.05,
+                   help="IC perturbation amplitude relative to rms(vort0) "
+                        "(band-limited spectral noise; 0 = identical "
+                        "members)")
+    p.add_argument("--ensemble-seed", type=int, default=0,
+                   help="seed of the ensemble IC perturbations "
+                        "(deterministic member set)")
+    p.add_argument("--ensemble-width", type=int, default=None,
+                   help="members advanced per chunk: 1 steps each member "
+                        "on its own (the plane stepper's kernels), more "
+                        "steps a chunk as one batched state on torch.fft. "
+                        "Default: models/ensemble.py:auto_vmap_width (the "
+                        "H100 sweep); must divide M")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="trace the whole run with torch.profiler (CPU "
+                        "and, on the card, CUDA activity) into "
+                        "DIR/xfb-torch-run.trace.json (a Chrome trace)")
     # outside the port so far: accepted only to stop with a clear error
     p.add_argument("--fast-transforms", action="store_true",
                    help="not ported yet")
-    p.add_argument("--ensemble", type=int, default=0, help="not ported yet")
     args = p.parse_args(argv)
 
     if args.fast_transforms:
         p.error("--fast-transforms is not ported yet (ROADMAP.md queue A, "
                 "item 4); the port runs the strict float32 mode")
-    if args.ensemble:
-        p.error("--ensemble is not ported yet (ROADMAP.md queue A, item 3)")
+    fd = args.model in ("fd", "jacobian")
+    if args.ensemble > 1 and (args.shard or fd):
+        p.error(f"--ensemble does not combine with "
+                f"{'--shard' if args.shard else '-m ' + args.model}: "
+                f"ensembles batch members on one card (barotropic, "
+                f"tracer or sw)")
     if args.decomp == "pencil" or args.mesh_shape:
         p.error("--decomp pencil and --mesh-shape (the 2-D pencil "
                 "decomposition) are not ported yet (ROADMAP.md queue A, "
                 "item 5)")
+    if args.shard and fd:
+        p.error(f"--shard with -m {args.model}: the FD core runs on one "
+                f"device")
     if args.shard and args.model not in ("barotropic", "bt"):
         p.error(f"--shard with -m {args.model} is not ported yet "
                 f"(ROADMAP.md queue A, item 5): the barotropic family "
                 f"shards")
-    if args.model in _NOT_PORTED:
-        p.error(f"-m {args.model} is not ported yet (ROADMAP.md queue A, "
-                f"item {_NOT_PORTED[args.model]})")
     if args.model not in ("barotropic", "bt", "tracer", "shallow-water",
-                          "sw"):
+                          "sw", "fd", "jacobian"):
         p.error(f"-m {args.model}: unknown model family")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is visible; pass --device "
@@ -176,9 +213,18 @@ def main(argv=None):
             p.error(str(e))
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
+    member_cfg, width = cfg, None
+    if args.ensemble > 1:
+        width = (auto_vmap_width(cfg, args.ensemble)
+                 if args.ensemble_width is None else args.ensemble_width)
+        if width < 1 or args.ensemble % width:
+            p.error(f"--ensemble-width {width} must divide --ensemble "
+                    f"{args.ensemble}")
+        member_cfg = _resolve_member_backend(cfg, width)
     try:
-        backend = (resolve_sw_backend(cfg, warn=False) if sw else
-                   resolve_fft_backend_name(cfg.fft_backend, cfg.grid_shape))
+        backend = (resolve_sw_backend(member_cfg, warn=False) if sw else
+                   resolve_fft_backend_name(member_cfg.fft_backend,
+                                            cfg.grid_shape))
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     recipe, src_path = "empty", None
@@ -219,16 +265,25 @@ def main(argv=None):
     elif sw:
         family = (f"shallow-water (f = {cfg.f:g} 1/s, g = {cfg.gravity:g} "
                   f"m/s^2, H = {cfg.mean_depth:g} m)")
+    elif fd:
+        family = ("finite-difference (Arakawa Jacobian, FFT Poisson solve "
+                  "on torch.fft)")
     else:
         family = "barotropic"
     print(f"Model family          : {family}", file=sys.stderr)
     print(f"Time scheme           : {cfg.time_scheme}", file=sys.stderr)
     print(f"Device                : {where}", file=sys.stderr)
+    if width is not None:
+        chunks = ("one batched state each" if width > 1
+                  and backend == "xla" else "member by member")
+        print(f"Ensemble              : {args.ensemble} members, chunks of "
+              f"{width} ({chunks}), amplitude {args.ensemble_amp:g}, "
+              f"seed {args.ensemble_seed}", file=sys.stderr)
     if args.shard:
         print(f"Sharding              : {n_shards} shard(s), decomp "
               f"{args.decomp}, shard-fft {args.shard_fft} ({shard_how})",
               file=sys.stderr)
-    else:
+    elif not fd:
         print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
         if backend == "pallas" and args.model != "tracer":
             print(f"Transform order       : {'y' if yfirst else 'x'}-first",
@@ -238,14 +293,31 @@ def main(argv=None):
             print(f"Fusion arm            : {arm}", file=sys.stderr)
     print("#########################", file=sys.stderr)
 
-    result = run(cfg, device, recipe=recipe, src_path=src_path,
-                 record=not args.no_record, manifest_path=args.manifest,
-                 progress=True, resume_from=args.resume_from,
-                 model_kind=args.model, debug_fields=args.debug_fields,
-                 step_banners=args.step_banners, record_only=record_only,
-                 tracer_kappa=args.tracer_kappa, tracer_ic=args.tracer_ic,
-                 yfirst=yfirst, bt_fusion=bt_fusion, shard=args.shard,
-                 shard_fft=args.shard_fft, decomp=args.decomp)
+    scope = contextlib.nullcontext()
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        scope = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+    with scope as prof:
+        result = run(cfg, device, recipe=recipe, src_path=src_path,
+                     record=not args.no_record, manifest_path=args.manifest,
+                     progress=True, resume_from=args.resume_from,
+                     model_kind=args.model, debug_fields=args.debug_fields,
+                     step_banners=args.step_banners,
+                     record_only=record_only,
+                     tracer_kappa=args.tracer_kappa,
+                     tracer_ic=args.tracer_ic, yfirst=yfirst,
+                     bt_fusion=bt_fusion, shard=args.shard,
+                     shard_fft=args.shard_fft, decomp=args.decomp,
+                     ensemble=args.ensemble,
+                     ensemble_amp=args.ensemble_amp,
+                     ensemble_seed=args.ensemble_seed,
+                     ensemble_width=width)
+    if args.profile_dir:
+        trace = Path(args.profile_dir) / TRACE_NAME
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        print(f"Profile trace         : {trace}", file=sys.stderr)
     sps = result.steps_run / max(result.wall_time, 1e-9)
     print(f"Ran {result.steps_run} steps in {result.wall_time:.2f}s "
           f"({sps:.1f} steps/s, {sps * cfg.grids:.3e} grid-points/s)",

@@ -95,6 +95,16 @@ def resolve_fft_backend_name(name: str, grid_shape) -> str:
     return name
 
 
+def state_shape_ok(z: torch.Tensor, cfg, backend: str) -> bool:
+    """A state field's shape: the half-spectrum, or on the library path
+    ("xla") a stack of them along a leading member axis (the ensemble's
+    batched chunks; ops/fft.py takes leading axes)."""
+    shape = tuple(z.shape)
+    return shape == tuple(cfg.spectral_shape) or (
+        backend == "xla" and len(shape) == 3
+        and shape[1:] == tuple(cfg.spectral_shape))
+
+
 def resolve_fft_backend(name: str, grid_shape, differentiable: bool = False):
     """The transform triple (forward, inverse, inverse_pair) of the
     library tendencies for a fft_backend name: 'xla' is torch.fft
@@ -440,11 +450,12 @@ class BarotropicModel(nn.Module):
 
     def _check_state(self, zeta_hat: torch.Tensor) -> None:
         if (zeta_hat.dtype != torch.complex64
-                or tuple(zeta_hat.shape) != self.cfg.spectral_shape
+                or not state_shape_ok(zeta_hat, self.cfg, self.backend)
                 or zeta_hat.device != self.device):
             raise ValueError(
                 f"state must be complex64 {self.cfg.spectral_shape} on "
-                f"{self.device}, got {zeta_hat.dtype} "
+                f"{self.device} (with a leading member axis on the "
+                f"library path), got {zeta_hat.dtype} "
                 f"{tuple(zeta_hat.shape)} on {zeta_hat.device}")
 
     def segment(self, zeta_hat: torch.Tensor, src: torch.Tensor,

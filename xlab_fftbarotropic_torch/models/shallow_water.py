@@ -65,7 +65,7 @@ from ..ops.spectral import SpectralTables
 from . import etdrk4 as etd
 from .barotropic import (DebugFields, _paired, check_time_scheme,
                          resolve_device, resolve_fft_backend,
-                         resolve_fft_backend_name)
+                         resolve_fft_backend_name, state_shape_ok)
 
 # the library path pairs the forward transforms up to this size, as the
 # JAX package does (its XFB_FORWARD_PAIR_MAX default, a TPU measurement)
@@ -344,11 +344,12 @@ class ShallowWaterModel(nn.Module):
     def _check_state(self, s: SWState) -> None:
         for z in s:
             if (z.dtype != torch.complex64
-                    or tuple(z.shape) != self.cfg.spectral_shape
+                    or not state_shape_ok(z, self.cfg, self.backend)
                     or z.device != self.device):
                 raise ValueError(
                     f"state fields must be complex64 "
-                    f"{self.cfg.spectral_shape} on {self.device}, got "
+                    f"{self.cfg.spectral_shape} on {self.device} (with "
+                    f"a leading member axis on the library path), got "
                     f"{z.dtype} {tuple(z.shape)} on {z.device}")
 
     def segment(self, s: SWState, src, n_steps: int) -> SWState:

@@ -43,7 +43,7 @@ from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
 from . import etdrk4 as etd
 from .barotropic import (_paired, check_time_scheme, resolve_device,
-                         resolve_fft_backend_name)
+                         resolve_fft_backend_name, state_shape_ok)
 
 
 class TracerState(NamedTuple):
@@ -238,11 +238,12 @@ class TracerModel(nn.Module):
     def _check_state(self, state: TracerState) -> None:
         for z in state:
             if (z.dtype != torch.complex64
-                    or tuple(z.shape) != self.cfg.spectral_shape
+                    or not state_shape_ok(z, self.cfg, self.backend)
                     or z.device != self.device):
                 raise ValueError(
                     f"state fields must be complex64 "
-                    f"{self.cfg.spectral_shape} on {self.device}, got "
+                    f"{self.cfg.spectral_shape} on {self.device} (with "
+                    f"a leading member axis on the library path), got "
                     f"{z.dtype} {tuple(z.shape)} on {z.device}")
 
     def segment(self, state: TracerState, src: torch.Tensor,

@@ -5,6 +5,10 @@ Normalization contract (SURVEY.md §5.2): forward unnormalized, inverse
 scaled by 1/(nx*ny), exactly torch.fft's rfft2/irfft2 defaults. Layout:
 physical (nx, ny) x-major, half-spectrum (nx, ny//2+1) complex64.
 
+Every function takes leading batch axes (an ensemble's members) before
+the two grid axes; on one field the operations, and so the bits, are
+those of the unbatched form.
+
 Before every c2r transform the self-conjugate columns j = 0 and j = ny/2
 are symmetrized explicitly (S[i, j] <- (S[i, j] + conj(S[-i, j]))/2, as
 _hermitian_full does in the JAX package). The positive-Nyquist gradient
@@ -25,16 +29,16 @@ def forward(field: torch.Tensor) -> torch.Tensor:
 
 
 def _sym(col: torch.Tensor) -> torch.Tensor:
-    """(col[i] + conj(col[-i mod n]))/2 along the first axis."""
-    mirror = torch.conj(torch.roll(torch.flip(col, [0]), 1, 0))
+    """(col[i] + conj(col[-i mod n]))/2 along the last axis."""
+    mirror = torch.conj(torch.roll(torch.flip(col, [-1]), 1, -1))
     return 0.5 * (col + mirror)
 
 
 def symmetrize(spec: torch.Tensor, ny: int) -> torch.Tensor:
     """A copy of the half-spectrum with columns 0 and ny/2 symmetrized."""
     s = spec.clone()
-    s[:, 0] = _sym(spec[:, 0])
-    s[:, ny // 2] = _sym(spec[:, ny // 2])
+    s[..., 0] = _sym(spec[..., 0])
+    s[..., ny // 2] = _sym(spec[..., ny // 2])
     return s
 
 
@@ -53,9 +57,10 @@ def _hermitian_full(s: torch.Tensor, ny: int) -> torch.Tensor:
     spectrum by S[-i, -j] = conj(S[i, j]), self-conjugate columns
     symmetrized first (ops/fft.py:52-76 of the JAX package)."""
     s = symmetrize(s, ny)
-    body = torch.conj(s[:, 1:ny // 2]).flip(1)     # columns ny/2-1 .. 1
-    body = torch.cat([body[:1], body[1:].flip(0)], dim=0)   # row -i mod nx
-    return torch.cat([s, body], dim=1)
+    body = torch.conj(s[..., 1:ny // 2]).flip(-1)  # columns ny/2-1 .. 1
+    body = torch.cat([body[..., :1, :], body[..., 1:, :].flip(-2)],
+                     dim=-2)                        # row -i mod nx
+    return torch.cat([s, body], dim=-1)
 
 
 def inverse_pair(spec_a: torch.Tensor, spec_b: torch.Tensor,
@@ -74,16 +79,17 @@ def forward_pair(a: torch.Tensor, b: torch.Tensor) -> tuple:
     with C = fft2(a + ib), the half-spectra are A = (C(k) + conj(C(-k)))/2
     and B = (C(k) - conj(C(-k)))/(2i) on the half axis. Unnormalized, as
     `forward` (ops/fft.py:96 of the JAX package, same index map)."""
-    nx, ny = a.shape
+    ny = a.shape[-1]
     hny = ny // 2 + 1
     c = torch.fft.fft2(torch.complex(a, b))
 
     def negk(x):
         # row k -> row (nx - k) mod nx, col j -> col (ny - j) mod ny,
         # keeping the half axis
-        x = torch.cat([x[:1], x[1:].flip(0)], dim=0)
-        return torch.cat([x[:, :1], x[:, ny - hny + 1:].flip(1)], dim=1)
+        x = torch.cat([x[..., :1, :], x[..., 1:, :].flip(-2)], dim=-2)
+        return torch.cat([x[..., :1], x[..., ny - hny + 1:].flip(-1)],
+                         dim=-1)
 
     c_neg = torch.complex(negk(c.real), -negk(c.imag))
-    c = c[:, :hny]
+    c = c[..., :hny]
     return 0.5 * (c + c_neg), -0.5j * (c - c_neg)

@@ -151,7 +151,12 @@ def _xtile_args(n: int, columns: int, elem_bytes: int) -> tuple:
 
 
 def _launch(name: str, fn, *args) -> None:
-    rc = fn(*args)
+    if torch._C._autograd._profiler_enabled():
+        # under torch.profiler the launch is a span named for its kernel
+        with torch.profiler.record_function(name):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{torch.cuda.CudaError(rc)}")

@@ -12,7 +12,10 @@ resumes in the other. Under ETDRK4 each record's cfl stat is held to the
 scheme's advective limit (utils/guards.py:check_etd_cfl), as the JAX
 runner does. A --shard run steps the barotropic family on the sharded
 model (parallel/model.py), whose records and checkpoints are the global
-fields; it has no per-record stats, as in the JAX runner.
+fields; it has no per-record stats, as in the JAX runner. An --ensemble
+run steps M perturbed members (models/ensemble.py) and records each
+into its own tree (output/m00/...); -m fd (or jacobian) steps the
+finite-difference core (models/fd_core.py).
 """
 
 from __future__ import annotations
@@ -29,16 +32,14 @@ import torch
 
 from . import convert
 from .models.barotropic import BarotropicModel
-from .models.shallow_water import ShallowWaterModel
+from .models.shallow_water import ShallowWaterModel, SWState
 from .config import ModelConfig
 from .forcing.source import SourceReader, make_reader
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.fieldio import FieldRecorder, Manifest, read_field
-from .models.tracer import TracerModel, tracer_ic
+from .models.tracer import TracerModel, TracerState, tracer_ic
 from .utils.guards import check_etd_cfl, check_finite
 
-# what is not ported yet, by ROADMAP.md queue A item
-_NOT_PORTED = {"fd": 3, "jacobian": 3}
 
 
 @dataclasses.dataclass
@@ -213,14 +214,145 @@ class _ShallowWaterAdapter:
                                            self.device)
 
 
+class _EnsembleAdapter:
+    """An M-member perturbed-IC ensemble (models/ensemble.py). Each
+    member's fields record into a per-member subdirectory
+    (output/m00/vort_step_N.bin, ...), so every member tree keeps the
+    reference output contract; forcing is shared across members. The
+    stats are each family scalar's member mean and standard deviation,
+    and the spread. The checkpoint state is the member-stacked complex64
+    (M, nx, hny) of the barotropic family, (3, M, nx, hny) of the
+    shallow-water and (2, M, nx, hny) of the tracer family, as in the
+    JAX package."""
+
+    def __init__(self, cfg: ModelConfig, device, model_kind: str,
+                 n_members: int, amplitude: float = 0.05, seed: int = 0,
+                 tracer_kappa: float = 0.0, vmap_width=None, **build_kw):
+        from .models.ensemble import EnsembleModel
+        self.cfg = cfg
+        self.amplitude = amplitude
+        self.seed = seed
+        self.model = EnsembleModel.build(cfg, device, n_members,
+                                         model_kind=model_kind,
+                                         tracer_kappa=tracer_kappa,
+                                         vmap_width=vmap_width, **build_kw)
+        self.device = self.model.device
+        self._w = max(2, len(str(n_members - 1)))
+        self.kind = f"ensemble-{type(self.model.inner).__name__}"
+
+    def _prefix(self, k: int) -> str:
+        return f"m{k:0{self._w}d}"
+
+    def init_from_physical(self, vort0):
+        return self.model.init_from_physical(vort0,
+                                             amplitude=self.amplitude,
+                                             seed=self.seed)
+
+    def step(self, state, src):
+        return self.model.step(state, src)
+
+    def segment(self, state, src, n):
+        return self.model.segment(state, src, n)
+
+    def record_fields(self, state, only=None):
+        batched = _gather_fields(self.model.diags(state)._asdict(), only)
+        return {f"{self._prefix(k)}/{name}": batched[name][k]
+                for k in range(self.model.n_members) for name in batched}
+
+    def stats(self, state):
+        d = {}
+        for name, arr in self.model.stats(state)._asdict().items():
+            vals = _host(arr).astype(np.float64)
+            d[f"{name}_mean"] = float(vals.mean())
+            d[f"{name}_std"] = float(vals.std())
+        d["spread"] = float(self.model.spread(state))
+        return d
+
+    def pack(self, state):
+        if isinstance(state, torch.Tensor):
+            return _host(state)
+        return np.stack([_host(a) for a in state])
+
+    def unpack(self, packed):
+        packed = np.asarray(packed, np.complex64)
+        fields = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                  for a in (packed if packed.ndim == 4 else [packed])]
+        kind = self.model.model_kind
+        if kind in ("shallow-water", "sw"):
+            return SWState(*fields)
+        if kind == "tracer":
+            return TracerState(*fields)
+        return fields[0]
+
+
+class _FDAdapter:
+    """The finite-difference cross-check core (models/fd_core.py): the
+    state is (physical zeta, carried psi), recorded as vort, psi, u and v
+    with psi from poisson_fft, as in the JAX package; the checkpoint
+    state is the stacked float32 (2, nx, ny)."""
+
+    kind = "fd"
+
+    def __init__(self, cfg: ModelConfig, device):
+        from .models.fd_core import FDBarotropicModel
+        self.cfg = cfg
+        self.model = FDBarotropicModel.build(cfg, device)
+        self.device = self.model.device
+
+    def init_from_physical(self, vort0):
+        z = torch.as_tensor(vort0, dtype=torch.float32, device=self.device)
+        return (z, self.model.init_psi(z))
+
+    def step(self, state, src):
+        return self.model.step(state[0], state[1], src)
+
+    def segment(self, state, src, n):
+        return self.model.segment(state[0], state[1], src, n)
+
+    def record_fields(self, state, only=None):
+        from .models.fd_core import gradients, poisson_fft
+        z = state[0]
+        psi = poisson_fft(z, self.cfg.dx, self.cfg.dy)
+        u, v = gradients(psi, self.cfg.dx, self.cfg.dy)
+        return _gather_fields(dict(vort=z, psi=psi, u=u, v=v), only)
+
+    def stats(self, state):
+        z = _host(state[0])
+        return dict(max_abs_vort=float(np.abs(z).max()),
+                    enstrophy=float(0.5 * np.mean(z * z)))
+
+    def pack(self, state):
+        return np.stack([_host(a) for a in state])
+
+    def unpack(self, packed):
+        packed = np.asarray(packed, np.float32)
+        return tuple(torch.from_numpy(a).to(self.device) for a in packed)
+
+
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard: bool = False, ensemble: int = 0,
                  tracer_kappa: float = 0.0, tracer_ic: str = "vorticity",
                  yfirst: bool = True, bt_fusion: Optional[dict] = None,
-                 shard_fft: str = "xla", decomp: str = "slab"):
+                 shard_fft: str = "xla", decomp: str = "slab",
+                 ensemble_amp: float = 0.05, ensemble_seed: int = 0,
+                 ensemble_width=None):
     if ensemble and ensemble > 1:
-        raise NotImplementedError(
-            "ensemble runs are not ported yet (ROADMAP.md queue A, item 3)")
+        if shard:
+            raise ValueError("--ensemble and --shard are mutually "
+                             "exclusive (batch within a card, shard "
+                             "across cards)")
+        build_kw = {}
+        if model_kind in ("barotropic", "bt"):
+            build_kw = dict(yfirst=yfirst, **(bt_fusion or {}))
+        elif model_kind in ("shallow-water", "sw"):
+            build_kw = dict(yfirst=yfirst)
+        elif model_kind != "tracer":
+            raise ValueError(f"ensemble is not supported for model kind "
+                             f"{model_kind!r}")
+        return _EnsembleAdapter(cfg, device, model_kind, ensemble,
+                                amplitude=ensemble_amp, seed=ensemble_seed,
+                                tracer_kappa=tracer_kappa,
+                                vmap_width=ensemble_width, **build_kw)
     if shard:
         # the barotropic family over the visible card (one shard; the CPU
         # too); make_mesh and build refuse what waits (item 5)
@@ -239,10 +371,8 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
         return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
     if model_kind in ("shallow-water", "sw"):
         return _ShallowWaterAdapter(cfg, device, yfirst)
-    if model_kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model kind {model_kind!r} is not ported yet (ROADMAP.md "
-            f"queue A, item {_NOT_PORTED[model_kind]})")
+    if model_kind in ("fd", "jacobian"):
+        return _FDAdapter(cfg, device)
     raise ValueError(f"unknown model kind {model_kind!r}")
 
 
@@ -266,7 +396,10 @@ def run(cfg: ModelConfig,
         yfirst: bool = True,
         bt_fusion: Optional[dict] = None,
         shard_fft: str = "xla",
-        decomp: str = "slab") -> RunResult:
+        decomp: str = "slab",
+        ensemble_amp: float = 0.05,
+        ensemble_seed: int = 0,
+        ensemble_width=None) -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -286,13 +419,20 @@ def run(cfg: ModelConfig,
     fusetail (None: the defaults). shard: the barotropic family on the
     sharded model (parallel/model.py) over the visible card, with
     shard_fft its transform impl ('xla', 'pallas', 'overlap') and decomp
-    its decomposition ('slab', 'xpencil').
+    its decomposition ('slab', 'xpencil'). model_kind 'fd' (or
+    'jacobian'): the finite-difference core. ensemble M > 1: M members
+    (barotropic, tracer or shallow-water; not with shard) from vort0
+    perturbed by ensemble_amp * rms(vort0) of band-limited noise drawn
+    from ensemble_seed, member 0 the control, ensemble_width members per
+    chunk (None: models/ensemble.py:auto_vmap_width).
     """
     adapter = make_adapter(cfg, device, model_kind, shard=shard,
                            ensemble=ensemble, tracer_kappa=tracer_kappa,
                            tracer_ic=tracer_ic, yfirst=yfirst,
                            bt_fusion=bt_fusion, shard_fft=shard_fft,
-                           decomp=decomp)
+                           decomp=decomp, ensemble_amp=ensemble_amp,
+                           ensemble_seed=ensemble_seed,
+                           ensemble_width=ensemble_width)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
@@ -346,6 +486,9 @@ def run(cfg: ModelConfig,
                 if progress or step_banners:
                     print(f"# Step {step}, time = {step * cfg.dt:.2f}, "
                           f"record now!", file=sys.stderr)
+                if progress and "spread" in st:
+                    print(f"# Ensemble spread = {st['spread']:.6e}",
+                          file=sys.stderr)
             elif step_banners:
                 print(f"# Step {step}, time = {step * cfg.dt:.2f}",
                       file=sys.stderr)
