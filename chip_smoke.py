@@ -157,6 +157,22 @@ exits non-zero and prints no result):
    spread at each record; at 256^2 one batched chunk of 8 on torch.fft,
    member 0 within rel-L2 1e-6 of the solo library run; a --profile-dir
    run at 256^2 for 4 steps whose trace names ka_diag.
+5o. Fast mode (--fast-transforms): the fast forms of ka_diag, kb_pair,
+   kb_adv_half and kx_visc (csrc/xtile.cuh FAST: bf16 tensor-core
+   radix-16 sub-DFT passes) against their plain versions, bit for bit
+   on exact-arithmetic inputs (small integers whose tensor-core sums are
+   exact) and within rel-L2 1e-4 on random ones, and against the strict
+   kernels within rel-L2 1e-4 .. 1e-2, at 64^2, 256^2, n^2, 256 x 200
+   and 1024 x 33; each timed at n^2 beside its bound (its float32 bytes,
+   or its bf16 products over 989 TFLOP/s plus its float32 rest), its
+   plain version, the strict kernel and one torch.fft call; the CLI's
+   --fast-transforms run (exactly 4 of each fast form and 1 rk4_combine
+   per step); bench.py's barotropic configuration through
+   BarotropicModel.build(..., fast=True) with torch.fft.* and
+   torch.matmul raising, its vorticity within rel-L2 1e-4 (and above
+   1e-7) of the strict kernel path after 30 steps and within 1e-3 after
+   200, finite; ms/step beside the strict FUSEKB=half arm and the strict
+   default, in turns.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -199,8 +215,9 @@ The last three lines of stdout: the per-kernel JSON ({"kernels": [...]}
 with each kernel's launches on the main paths, its max abs error
 against its plain version, its time, its plain version's, its bound (the
 bytes it must move over 3.35 TB/s, or its FFT flops over 67 TFLOP/s
-float32, whichever is larger) and the time of the one torch call that
-computes the same function, where there is one), the card's name and
+float32, whichever is larger; for the fast forms their bf16 products
+over 989 TFLOP/s plus their float32 rest) and the time of the one torch
+call that computes the same function, where there is one), the card's name and
 power limit as nvidia-smi gives them, and {"ok": true, "device":
 {...}}.
 """
@@ -230,6 +247,8 @@ TOL = 1e-5
 # the card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # HBM bytes/s and float32 FLOP/s outside the tensor cores
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# and the dense bf16 tensor-core rate (fast mode's DFT-16 products)
+BF16_FLOP_S = 989e12
 # bench.py's sw-etdrk4 time step at 4096^2 (8.85 times the RK4 bound)
 SW_ETD_DT = 7.5
 # row name: (source, the TPU kernel it replaces, LAUNCHES key, paths)
@@ -358,6 +377,20 @@ KERNELS = {
     "visc_axpy": ("xlab_fftbarotropic_torch/csrc/visc.cu",
                   "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1551",
                   "visc", ("bt-fusekx0",)),
+    # fast mode (rows 1, 2, 9, 4 on the fast column tile): the CLI's
+    # --fast-transforms run
+    "ka_diag_fast": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+                     "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
+                     "ka_diag_fast", ("barotropic-fast",)),
+    "kb_pair_fast": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
+                     "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
+                     "kb_pair_fast", ("barotropic-fast",)),
+    "kb_adv_half_fast": ("xlab_fftbarotropic_torch/csrc/kb_adv.cu",
+                         "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1179",
+                         "kb_adv_half_fast", ("barotropic-fast",)),
+    "kx_visc_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                     "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654",
+                     "kx_visc_fast", ("barotropic-fast",)),
     # the distributed path (rows 21-23): the CLI's one-shard runs and the
     # four-shard model runs
     "a2a_cols": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
@@ -417,6 +450,10 @@ PER_STEP = {
     "bt-unfused-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4,
                            "kx_fwd": 4, "visc": 4},
     "bt-etdrk4-full": {"ka_diag": 4, "kb_adv_full": 4, "kx_visc": 4},
+    # fast mode: the FUSEKB=half arm on the fast column tile
+    "barotropic-fast": {"ka_diag_fast": 4, "kb_pair_fast": 4,
+                        "kb_adv_half_fast": 4, "kx_visc_fast": 4,
+                        "rk4_combine": 1},
     "bt-etdrk4-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4,
                           "kx_fwd": 4, "visc": 4},
 }
@@ -915,6 +952,334 @@ def shard_cases(n: int, p: int, dev, seed: int) -> dict:
     }
 
 
+# the fast mode's kernels (rows 1, 2, 9, 4 on the fast column tile) and
+# the strict rows they are held against; the shapes of their card checks,
+# (transform length n, columns): None is the n x n grid's (hny for the
+# x-stages, n for the y-stages), else that many columns (ragged tiles)
+FAST_KERNELS = {"ka_diag_fast": "ka_diag", "kb_pair_fast": "kb_pair",
+                "kb_adv_half_fast": "kb_adv_half",
+                "kx_visc_fast": "kx_visc"}
+FAST_SHAPES = ((64, None), (256, None), (4096, None), (256, 200),
+               (1024, 33))
+# the __global__ templates whose last flag is FAST (phase_xtile's tags)
+FAST_TEMPLATES = ("ka_fields_kernel", "kb_pair_kernel", "kb_adv_kernel",
+                  "kx_visc_kernel")
+# the fast path's bars: a fast kernel against its plain version on random
+# inputs (the tensor core's float32 sums run in an order of their own,
+# and a sum a rounding apart can round to the neighbouring bf16 in the
+# next pass), and a fast kernel's error class against the strict one
+FAST_TOL = 1e-4
+FAST_CLASS = (1e-4, 1e-2)
+
+
+class FastCase(NamedTuple):
+    """A fast kernel on random inputs (kern, plain, and the strict kernel
+    on the same inputs) and on exact-arithmetic ones (exact_kern,
+    exact_plain: every tensor-core sum exact, so the two agree bit for
+    bit), the outputs of a result, the tensors it reads and its complex
+    transforms (for its bound)."""
+    kern: Callable
+    plain: Callable
+    strict: Callable
+    exact_kern: Callable
+    exact_plain: Callable
+    fields: Callable
+    reads: tuple
+    ffts: float
+
+
+def exact_rows(n: int) -> np.ndarray:
+    """The rows y of a length-n transform whose small-integer values the
+    fast tile sums exactly: block r = y mod K's row j = y div K feeds
+    butterfly i = j mod (m/16) of the first radix-16 pass, whose outputs
+    reach the second one (m >= 256) as its input t = 0 alone (no twiddle,
+    one product per sum) only for i < m/256; the float32 passes around
+    them round alike in the plain version."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+    p = xtile_plan(n, 1, 4)
+    j = np.arange(n) // p.k
+    lim = max(1, p.m // 256) if p.m >= 256 else p.m // 16
+    return (j % (p.m // 16)) < lim
+
+
+def fast_cases(n: int, cols, dev, seed: int) -> dict:
+    """name -> FastCase of the four fast kernels for a length-n transform
+    over `cols` columns (None: the n x n grid's), numpy-seeded: ka_diag
+    (the x-stage of (n, hny) planes), kb_pair and kb_adv_half (the
+    y-stages of (4, n/2 + 1, nx) stacks), kx_visc (with the stage axpy).
+    The exact inputs are small integers on exact_rows (the Hermitian
+    stacks on rows 0, n/16, .., n/2, which keep their mirrors there too)
+    with integer tables; kb_adv_half's exact case has zeta_x = zeta_y = 0
+    and beta = 0, so the advection is src, and u, v constants."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    cx, cy = (hny, n) if cols is None else (cols, cols)
+
+    def planes(shape, k, size=1.0):
+        return [torch.from_numpy((size * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev) for _ in range(k)]
+
+    def ints(shape, k, lo=-4, hi=4, rows=None):
+        out = []
+        for _ in range(k):
+            a = rng.integers(lo, hi + 1, shape).astype(np.float32)
+            if rows is not None:
+                a[..., ~rows, :] = 0.0
+            out.append(torch.from_numpy(a).to(dev))
+        return out
+
+    if cols is None:
+        t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
+        kx, ky, rlap = t.kx, t.ky, t.rlap
+        lap, mask = t.lap / t.lap.abs().max(), t.mask
+    else:
+        kx, = planes((n,), 1, 1e-4)
+        ky, = planes((cx,), 1, 1e-4)
+        rlap = -1.0 / (1.0 + planes((n, cx), 1)[0] ** 2)
+        lap, = planes((n, cx), 1)
+        mask = (planes((n, cx), 1)[0] > -1.0).float()
+    rows = exact_rows(n)
+    herm = np.zeros(hny, bool)
+    herm[::n // 16] = True
+
+    # ka_diag
+    zr, zi = planes((n, cx), 2)
+    ezr, ezi = ints((n, cx), 2, rows=rows)
+    ekx, = ints((n,), 1)
+    eky, = ints((cx,), 1)
+    erl, = ints((n, cx), 1, 1, 2)
+    erl = erl * torch.where(ints((n, cx), 1, 0, 1)[0] > 0, 1.0, -1.0)
+    # kb_pair and kb_adv_half: the stack at the size the stepper gives
+    # kb_adv (physical fields of order one after the 1/(nx ny) scale)
+    wr, wi = planes((4, hny, cy), 2, n * math.sqrt(cy))
+    ewr, ewi = ints((4, hny, cy), 2, rows=herm)
+    scale = 1.0 / (n * cy)
+    zx, zy, src = planes((n, cy), 3)
+    escale = 1.0 / (n * cy)
+    dc = torch.zeros((4, hny, cy), device=dev)
+    dc[2:, 0] = torch.stack(ints((cy,), 2)) * float(n * cy)
+    ezero = torch.zeros((n, cy), device=dev)
+    esrc, = ints((n, cy), 1, rows=rows)
+    # kx_visc with the stage axpy
+    fr, fi, zsr, zsi, z0r, z0i = planes((n, cx), 6)
+    efr, efi = ints((n, cx), 2, rows=rows)
+    elap, ezsr, ezsi, ez0r, ez0i = ints((n, cx), 5, -2, 2)
+    emask, = ints((n, cx), 1, 0, 1)
+    return {
+        "ka_diag_fast": FastCase(
+            lambda: ff.ka_diag(zr, zi, rlap, kx, ky, fast=True),
+            lambda: ff.ka_diag_fast_plain(zr, zi, rlap, kx, ky),
+            lambda: ff.ka_diag(zr, zi, rlap, kx, ky),
+            lambda: ff.ka_diag(ezr, ezi, erl, ekx, eky, fast=True),
+            lambda: ff.ka_diag_fast_plain(ezr, ezi, erl, ekx, eky),
+            lambda out: [p[f] for p in out for f in range(4)],
+            (zr, zi, rlap), 4 * cx),
+        "kb_pair_fast": FastCase(
+            lambda: ff.kb_pair(wr, wi, 2, 3, scale, fast=True),
+            lambda: ff.kb_pair_fast_plain(wr, wi, 2, 3, scale),
+            lambda: ff.kb_pair(wr, wi, 2, 3, scale),
+            lambda: ff.kb_pair(ewr, ewi, 0, 1, escale, fast=True),
+            lambda: ff.kb_pair_fast_plain(ewr, ewi, 0, 1, escale),
+            list, (wr[2:4], wi[2:4]), cy),
+        "kb_adv_half_fast": FastCase(
+            lambda: ff.kb_adv_half(zx, zy, wr, wi, src, 0.3, fast=True),
+            lambda: ff.kb_adv_half_fast_plain(zx, zy, wr, wi, src, 0.3),
+            lambda: ff.kb_adv_half(zx, zy, wr, wi, src, 0.3),
+            lambda: ff.kb_adv_half(ezero, ezero, dc, dc, esrc, fast=True),
+            lambda: ff.kb_adv_half_fast_plain(ezero, ezero, dc, dc, esrc),
+            list, (zx, zy, wr[2:4], wi[2:4], src), 1.5 * cy),
+        "kx_visc_fast": FastCase(
+            lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5,
+                               (z0r, z0i, 1.5), fast=True),
+            lambda: ff.kx_visc_fast_plain(fr, fi, lap, mask, zsr, zsi, 6.5,
+                                          (z0r, z0i, 1.5)),
+            lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5,
+                               (z0r, z0i, 1.5)),
+            lambda: ff.kx_visc(efr, efi, elap, emask, ezsr, ezsi, 1.0,
+                               (ez0r, ez0i, 0.5), fast=True),
+            lambda: ff.kx_visc_fast_plain(efr, efi, elap, emask, ezsr, ezsi,
+                                          1.0, (ez0r, ez0i, 0.5)),
+            list, (fr, fi, lap, mask, zsr, zsi, z0r, z0i), cx),
+    }
+
+
+def fast_check(name: str, case: FastCase, where: str) -> dict:
+    """A fast kernel against its plain version, bit for bit on the exact
+    inputs and within FAST_TOL (rel-L2 per output field) on the random
+    ones, and against the strict kernel within FAST_CLASS; raises past
+    either."""
+    got = case.fields(case.exact_kern())
+    want = case.fields(case.exact_plain())
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    nonzero = all(bool(w.abs().max() > 0) for w in want)
+    got = case.fields(case.kern())
+    plain = case.fields(case.plain())
+    strict = case.fields(case.strict())
+    torch.cuda.synchronize()
+    fields = [rel_l2(g, w) for g, w in zip(got, plain)]
+    rel = max(fields)
+    flips = max(float((g != w).float().mean()) for g, w in zip(got, plain))
+    cls = [rel_l2(g, w) for g, w in zip(got, strict)]
+    log(f"fast {name:18s} {where}: exact inputs bit for bit {same}; random "
+        f"rel-L2 vs plain {rel:.3e} (output {fields.index(rel)} of "
+        f"{len(fields)}; {100 * flips:.3f} % of values differ), vs the "
+        f"strict kernel {min(cls):.3e} .. {max(cls):.3e}")
+    check(same and nonzero, f"{name} at {where}: not its plain version's "
+                            f"bits on exact inputs")
+    check(rel <= FAST_TOL, f"{name} at {where}: rel-L2 {rel:.3e} against "
+                           f"its plain version > {FAST_TOL}")
+    check(FAST_CLASS[0] <= min(cls) and max(cls) <= FAST_CLASS[1],
+          f"{name} at {where}: rel-L2 against the strict kernel "
+          f"{min(cls):.3e} .. {max(cls):.3e} outside {FAST_CLASS}")
+    return dict(exact_bits=same, rel_l2_plain=rel, differ=flips,
+                rel_l2_strict=max(cls), rel_l2_strict_min=min(cls),
+                rel_l2_plain_fields=fields)
+
+
+def fast_bound(case: FastCase, outputs, n: int):
+    """A fast kernel's least time in ms and what bounds it: its bytes
+    (float32 loads and stores, as the strict row's) over the HBM rate, or
+    its operations: the radix-16 passes' bf16 products (a 32 x 32 real
+    block per 16 points) over the bf16 tensor-core rate plus the float32
+    rest (twiddles, the float32 pass and the K-point step, 5 n log2 n of
+    the length they cover) over the float32 rate. Also both parts."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+    p = xtile_plan(n, 1, 4)
+    r16 = p.fast_radices.count(16)
+    bf16_flops = case.ffts * r16 * (n // 16) * 2 * 32 * 32
+    rest = math.log2(n) - 4 * r16
+    fp32_flops = case.ffts * (5.0 * n * rest + 6.0 * n * r16)
+    t_bytes = (nbytes(case.reads) + nbytes(outputs)) / HBM_BYTES_S
+    t_ops = bf16_flops / BF16_FLOP_S + fp32_flops / FP32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            dict(bytes_ms=t_bytes * 1e3, bf16_ms=bf16_flops / BF16_FLOP_S
+                 * 1e3, fp32_ms=fp32_flops / FP32_FLOP_S * 1e3))
+
+
+def fast_library(name: str, case: FastCase, n: int):
+    """The one torch.fft call on the kernel's transform shape (complex64,
+    its inputs' size), or None where no one call computes it."""
+    if name == "kb_adv_half_fast":
+        return None
+    x = torch.complex(*case.reads[:2])
+    if name == "ka_diag_fast":
+        x = torch.stack([x] * 4)
+        return lambda: torch.fft.ifft(x, dim=1)
+    if name == "kx_visc_fast":
+        return lambda: torch.fft.fft(x, dim=0)
+    return lambda: torch.fft.irfft(x, n=n, dim=1)
+
+
+def phase_fast(n: int, steps: int, dev, profile: bool = False) -> dict:
+    """Phase 5o, fast mode: each fast kernel against its plain version
+    (bit for bit on exact inputs, FAST_TOL on random ones) and the strict
+    kernel (FAST_CLASS) at FAST_SHAPES, timed at n^2 beside its bound,
+    its plain version, the strict kernel and one torch.fft call; the
+    CLI's --fast-transforms run (phase_main_path); bench.py's barotropic
+    configuration through BarotropicModel.build(..., fast=True): with
+    torch.fft.* and torch.matmul raising, its vorticity against the
+    strict kernel path after 30 and 200 steps, every value finite; and
+    ms/step of the fast path beside the strict FUSEKB=half arm and the
+    strict default, in turns; with `profile` the fast path's breakdown
+    (profile_run)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+
+    out = {"checks": {}, "kernels": {}}
+    shapes = [(64, None), (256, None), (n, None)] + [
+        s for s in FAST_SHAPES if s[1] is not None]
+    for size, cols in dict.fromkeys(shapes):
+        cases = fast_cases(size, cols, dev, size + (cols or 0))
+        for name, case in cases.items():
+            where = f"{size}^2" if cols is None else f"{size} x {cols}"
+            out["checks"][f"{name} {where}"] = fast_check(name, case, where)
+            if (size, cols) != (n, None):
+                continue
+            got = case.fields(case.kern())
+            want = case.fields(case.plain())
+            bound_ms, bound_by, parts = fast_bound(case, want, size)
+            ms, plain_ms = cuda_ms(case.kern), cuda_ms(case.plain)
+            strict_ms = cuda_ms(case.strict)
+            library = fast_library(name, case, size)
+            library_ms = None if library is None else cuda_ms(library)
+            abs_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            lib = ("" if library_ms is None
+                   else f", one torch.fft call {library_ms:.4f} ms")
+            log(f"kernel {name:24s} {size}^2: {ms:.4f} ms, the strict "
+                f"kernel {strict_ms:.4f} ms, plain torch version "
+                f"{plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+                f"({bound_by}: bytes {parts['bytes_ms']:.4f} ms, bf16 "
+                f"products {parts['bf16_ms']:.5f} ms + float32 rest "
+                f"{parts['fp32_ms']:.5f} ms; {100.0 * bound_ms / ms:.1f} % "
+                f"of it reached)")
+            out["kernels"][name] = dict(
+                max_abs_err=abs_err,
+                rel_l2=out["checks"][f"{name} {where}"]["rel_l2_plain"],
+                ms=ms, plain_ms=plain_ms, strict_ms=strict_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                **parts)
+    out["main_path"] = phase_main_path("barotropic-fast", n, steps)
+    # bench.py's barotropic configuration (the gaussian IC, dt = 3 s,
+    # nu = 6.5 m^2/s)
+    cfg = ModelConfig(nx=n, ny=n)
+    fast = BarotropicModel.build(cfg, dev, fast=True)
+    strict = BarotropicModel.build(cfg, dev, fast.tables)
+    half = BarotropicModel.build(cfg, dev, fast.tables, fusekb="half")
+    check(fast.fast and fast.fusion["fusekb"] == "half", "fast model arm")
+    z0 = fast.init_state(makefields.gaussian(cfg))
+    src = fast.zero_source()
+    with _refusing_library():
+        z = fast.segment(z0, src, 2)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(torch.view_as_real(z)).all()),
+          "fast path state not finite")
+    log(f"no library transform: 2 steps of the fast path at {n}^2 ran with "
+        f"torch.fft.* and torch.matmul raising")
+    for k, bar in ((30, 1e-4), (200, 1e-3)):
+        a = fast.diags(fast.segment(z0, src, k)).vort
+        b = fast.diags(strict.segment(z0, src, k)).vort
+        check(bool(torch.isfinite(a).all()), f"fast vort after {k} steps "
+                                             f"not finite")
+        rel = rel_l2(a, b)
+        log(f"fast trajectory: {k} steps at {n}^2, rel-L2 of vort, fast "
+            f"vs the strict kernel path = {rel:.3e} (bar {bar:g})")
+        check(1e-7 < rel <= bar, f"fast path after {k} steps: rel-L2 "
+                                 f"{rel:.3e} outside (1e-7, {bar:g}]")
+        out[f"vort_rel_l2_{k}_steps"] = rel
+    paths = {"fast": fast, "strict-half": half, "strict": strict}
+    times = {k: [] for k in paths}
+    for k in list(paths) + list(reversed(list(paths))):
+        m = paths[k]
+        m.segment(z0, src, 2)                      # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m.segment(z0, src, steps)
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end) / steps)
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[f"ms_per_step_{k}"] = ms
+        log(f"time barotropic {k:11s}: {ms:.3f} ms/step "
+            f"({', '.join(f'{t:.3f}' for t in ts)}), "
+            f"{n * n / (ms * 1e-3):.4e} grid-points/s")
+    if profile:
+        fast.segment(z0, src, 1)
+        torch.cuda.synchronize()
+        out["profile"] = profile_run("barotropic-fast",
+                                     lambda: fast.segment(z0, src, 5), 5)
+    return out
+
+
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -996,6 +1361,8 @@ def phase_xtile(n: int) -> dict:
                 f"shared bytes per block, {p.tiles} tiles, passes "
                 f"{p.radices}")
             out["plans"][f"{name} {size}"] = p._asdict()
+        log(f"xtile fast passes {size}^2: {p.fast_radices} (radix 16 on the "
+            f"tensor cores, then float32)")
     text = (Path(_build.LAST_BUILD["path"]).parent / "build.log").read_text()
     for fn, body in re.findall(r"Compiling entry function '(\w+)'"
                                r"(.*?)Compile time", text, re.S):
@@ -1005,7 +1372,9 @@ def phase_xtile(n: int) -> dict:
         st, ld = (int(v) for v in re.search(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads",
             body).groups())
-        tag = name
+        # the fast column tile's instances: the last template flag set
+        fast = re.search(rf"\d{name}I(Lb[01]E)?Lb1EE", fn) is not None
+        tag = f"{name} fast" if fast and name in FAST_TEMPLATES else name
         while tag in out["ptxas"]:              # template instances
             tag += "'"
         out["ptxas"][tag] = dict(registers=regs, spill_stores=st,
@@ -1255,6 +1624,8 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         # the barotropic fusion arms (under their CLI_ENV)
         **{f: (["vort"], ["--time-scheme", "etdrk4"] if "etdrk4" in f
                else []) for f in BT_ARM_ENV},
+        # fast mode (phase 5o)
+        "barotropic-fast": (["vort"], ["--fast-transforms"]),
         # the sharded model on one shard: shard-<decomp>-<impl>
         **{f: (["vort"], ["--shard", "--decomp", f.split("-")[1],
                           "--shard-fft", f.split("-")[2]])
@@ -2652,6 +3023,9 @@ def main(argv=None) -> int:
                                               spectral)
         report["main_paths"]["ensemble"] = phase_ensemble(
             args.n, args.steps, dev, spectral)
+    report["fast"] = phase_fast(args.n, args.steps, dev, args.profile)
+    report["kernels"].update(report["fast"]["kernels"])
+    report["main_paths"]["barotropic-fast"] = report["fast"]["main_path"]
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

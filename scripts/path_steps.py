@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the single-card main paths of one or more checkouts of the port,
 in turns, in one call: ms/step at n^2 of the barotropic, tracer and
-shallow-water plane steppers' kernel paths and of the barotropic and
-shallow-water torch.fft library paths (bench.py's configurations, as
-chip_smoke.py's build_models makes them).
+shallow-water plane steppers' kernel paths (the barotropic one also in
+its FUSEKB=half arm, and in fast mode where the checkout has it) and of
+the barotropic and shallow-water torch.fft library paths (bench.py's
+configurations, as chip_smoke.py's build_models makes them).
 
     python3 scripts/path_steps.py [--root DIR ...] [--n 4096]
         [--steps 20] [--rounds 2]
@@ -19,13 +20,15 @@ power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-PATHS = ("barotropic", "barotropic-library", "tracer", "shallow-water",
+PATHS = ("barotropic", "barotropic-half", "barotropic-fast",
+         "barotropic-library", "tracer", "shallow-water",
          "shallow-water-library")
 
 
@@ -55,13 +58,19 @@ def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
     sw0 = sw.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
     models = {
         "barotropic": (bt, bt.init_state(v0), zero),
+        "barotropic-half": (BarotropicModel.build(cfg, dev, fusekb="half"),
+                            bt.init_state(v0), zero),
         "barotropic-library": (BarotropicModel.build(lib, dev),
                                bt.init_state(v0), zero),
         "tracer": (tr, tr.init_state(v0, tracer_ic(cfg, "gaussian")), zero),
         "shallow-water": (sw, sw0, None),
         "shallow-water-library": (swl, sw0, None)}
+    if "fast" in inspect.signature(BarotropicModel.build).parameters:
+        models["barotropic-fast"] = (BarotropicModel.build(cfg, dev,
+                                                           fast=True),
+                                     bt.init_state(v0), zero)
     out = {}
-    for name in PATHS:
+    for name in (p for p in PATHS if p in models):
         m, s0, src = models[name]
         m.segment(s0, src, steps)
         torch.cuda.synchronize()
@@ -106,7 +115,7 @@ def main(argv=None) -> int:
     for name in PATHS:
         cells = [f"{sum(r[name]) / len(r[name]):.3f} ("
                  + ", ".join(f"{v:.3f}" for v in r[name]) + ")"
-                 for r in results]
+                 if name in r else "not in this checkout" for r in results]
         print(f"{name:22s} ms/step at {args.n}^2: " + " | ".join(
             f"{root}: {c}" for root, c in zip(roots, cells)))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

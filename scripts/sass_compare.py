@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Compare the machine code (SASS) of the port's kernels between two
+checkouts: whether a change to a shared header left the kernels it was
+not meant to touch compiled to the same instructions.
+
+    python3 scripts/sass_compare.py --root _parent --root .
+
+Each --root builds its own kernel library (ops/_build.py, in its own
+tree) in a process of its own; `cuobjdump -sass` lists every __global__
+function. A function is keyed by its name and template arguments, with
+the last flag of the templates that gained a FAST flag (csrc/xtile.cuh:
+ka_fields_kernel, kb_pair_kernel, kb_adv_kernel, kx_visc_kernel) taken
+off, and FAST = true instances (no counterpart in a checkout without
+them) left out. Prints, per key, whether the instructions (encodings
+included) are identical in the two checkouts; exits non-zero if any
+differs or is missing in one. --dump DIR writes the two SASS listings of
+each function that differs. Needs the CUDA toolkit (nvcc, cuobjdump).
+"""
+
+from __future__ import annotations
+
+import argparse
+import difflib
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+# the templates whose last flag is FAST in a checkout that has fast mode
+FAST_TEMPLATES = ("ka_fields_kernel", "kb_pair_kernel", "kb_adv_kernel",
+                  "kx_visc_kernel")
+
+
+def library(root: str) -> str:
+    """The kernel library of the port under `root`, built in its tree."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from xlab_fftbarotropic_torch.ops import _build; "
+            "print(_build.build())")
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(Path(root).resolve())], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def cuobjdump() -> str:
+    for p in ("/usr/local/cuda/bin/cuobjdump", shutil.which("cuobjdump")):
+        if p and Path(p).exists():
+            return p
+    sys.exit("sass_compare: cuobjdump not found")
+
+
+def key(name: str):
+    """(kernel, template arguments) of a mangled name, the FAST flag
+    taken off; None for a FAST = true instance."""
+    # the length prefix of the kernel's name may follow the digits of a
+    # file hash: try every tail of every run of digits
+    for m in re.finditer(r"\d+", name):
+        for i in range(len(m.group())):
+            base = name[m.end():m.end() + int(m.group()[i:])]
+            if base[:1].isalpha() and base.endswith("_kernel"):
+                break
+        else:
+            continue
+        break
+    else:
+        return (name, "")
+    rest = name[m.end() + len(base):]
+    t = re.match(r"I((?:L[a-z]+n?\d+E)+)E", rest)
+    flags = re.findall(r"L[a-z]+n?\d+E", t.group(1)) if t else []
+    own = {"ka_fields_kernel": 1, "kb_adv_kernel": 1}.get(base, 0)
+    if base in FAST_TEMPLATES and len(flags) > own:
+        if flags[-1] == "Lb1E":
+            return None
+        flags = flags[:-1]
+    return (base, "".join(flags))
+
+
+def functions(lib: str) -> dict:
+    """key -> the function's SASS lines: instructions with their
+    encodings (the lines that hold one), white space collapsed (its
+    column widths depend on the other functions), the offset comments
+    dropped and the branch labels (numbered across the whole library)
+    renumbered within the function."""
+    text = subprocess.run([cuobjdump(), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = block.partition("\n")
+        k = key(name.strip())
+        if k is None:
+            continue
+        labels = {}
+        lines = []
+        for ln in body.splitlines():
+            if "/* 0x" not in ln:
+                continue
+            ln = re.sub(r"\s+", " ", re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln))
+            lines.append(re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
+                m.group(), f"L{len(labels)}"), ln.strip()))
+        out[k] = lines
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append", required=True)
+    ap.add_argument("--dump", default=None, metavar="DIR",
+                    help="write the SASS of each function that differs, "
+                         "one file per checkout, into DIR")
+    args = ap.parse_args(argv)
+    if len(args.root) != 2:
+        sys.exit("sass_compare: give two --root")
+    a, b = (functions(library(r)) for r in args.root)
+    bad = 0
+    for k in sorted(set(a) | set(b)):
+        if k not in a or k not in b:
+            state = f"only in {args.root[0] if k in a else args.root[1]}"
+            bad += 1
+        elif a[k] == b[k]:
+            state = f"identical ({len(a[k])} lines)"
+        else:
+            sm = difflib.SequenceMatcher(None, a[k], b[k], autojunk=False)
+            same = sum(blk.size for blk in sm.get_matching_blocks())
+            state = (f"DIFFERS ({len(a[k]) - same} of {len(a[k])} lines "
+                     f"not in the other, {len(b[k]) - same} of "
+                     f"{len(b[k])} the other way)")
+            bad += 1
+            if args.dump:
+                Path(args.dump).mkdir(parents=True, exist_ok=True)
+                for root, code in zip(args.root, (a[k], b[k])):
+                    tag = Path(root).resolve().name
+                    (Path(args.dump) / f"{k[0]}{k[1]}.{tag}.sass").write_text(
+                        "\n".join(code) + "\n")
+        print(f"{k[0]}{'<' + k[1] + '>' if k[1] else ''}: {state}")
+    print(f"{len(set(a) & set(b)) - bad} of {len(set(a) | set(b))} "
+          f"functions identical")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1108,6 +1108,57 @@ def test_fusion_arm_launch_counts_and_default_bits(cuda, arm):
     assert torch.equal(a, ref.segment(z, src, 3))
 
 
+# ----- fast mode: rows 1, 2, 9, 4 on the fast column tile -----
+
+FAST_NAMES = ["ka_diag_fast", "kb_pair_fast", "kb_adv_half_fast",
+              "kx_visc_fast"]
+# (transform length, columns): None the n x n grid's (chip_smoke.py
+# FAST_SHAPES); 200 and 33 columns end in ragged tiles
+FAST_SHAPES = [(64, None), (256, None), (4096, None), (256, 200),
+               (1024, 33)]
+
+
+@pytest.mark.parametrize("shape", FAST_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1] or 'grid'}")
+@pytest.mark.parametrize("name", FAST_NAMES)
+def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
+    """Each fast kernel equals its plain version bit for bit on
+    exact-arithmetic inputs (small integers whose tensor-core sums are
+    exact: the fragment layouts), lies within rel-L2 1e-4 of it on random
+    inputs, and within rel-L2 1e-4 .. 1e-2 of the strict kernel (it
+    really rounds to bf16, and stays in class): chip_smoke.py's
+    fast_check on its fast_cases."""
+    from chip_smoke import fast_cases, fast_check
+
+    n, cols = shape
+    fast_check(name, fast_cases(n, cols, cuda, n)[name], f"{shape}")
+
+
+def test_fast_path_launches_and_error_class(cuda):
+    """Three forced steps of fast mode at 256^2 launch exactly the four
+    fast forms and rk4_combine per step, and stay within rel-L2 1e-7 ..
+    1e-3 of the strict kernel path's vorticity."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+
+    cfg = ModelConfig(nx=256, ny=256, beta=1e-11)
+    fast = BarotropicModel.build(cfg, cuda, fast=True)
+    strict = BarotropicModel.build(cfg, cuda)
+    z = fast.init_state(makefields.gaussian(cfg))
+    src = 1e-9 * torch.randn(cfg.grid_shape, device=cuda)
+    ff.reset_launches()
+    a = fast.segment(z, src, 3)
+    torch.cuda.synchronize()
+    want = {"ka_diag_fast": 12, "kb_pair_fast": 12, "kb_adv_half_fast": 12,
+            "kx_visc_fast": 12, "rk4_combine": 3}
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+    va, vb = fast.diags(a).vort, strict.diags(strict.segment(z, src, 3)).vort
+    rel = float(torch.linalg.vector_norm(va - vb)
+                / torch.linalg.vector_norm(vb))
+    assert 1e-7 < rel < 1e-3, rel
+
+
 # ----- the distributed path's kernels (TPU rows 21-23) -----
 
 def _shards(rng, shape, dev):

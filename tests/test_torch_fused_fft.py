@@ -146,7 +146,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                            "ka_fwd": 0, "kc_sw": 0, "kb_adv_full": 0,
                            "kb_adv_half": 0, "kx_visc_tail": 0, "visc": 0,
                            "a2a_cols": 0, "a2a_rows": 0, "xstage": 0,
-                           "xstage_gather": 0, "xstage_scatter": 0}
+                           "xstage_gather": 0, "xstage_scatter": 0,
+                           "ka_diag_fast": 0, "kb_pair_fast": 0,
+                           "kb_adv_half_fast": 0, "kx_visc_fast": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -7,11 +7,11 @@ per-transform path, takes a gradient through the adjoint rollout on
 both transform triples, steps the sharded barotropic model in every
 decomposition and transform impl, runs the post-processing pipeline's
 four commands (makefield, vort_src_input, invert_pres, find_min), the
-diagnose and draw commands, -m fd, two ensembles and a --profile-dir
-run through the run command, and ends with no jax and no
-xlab_fftbarotropic_tpu module loaded; and its CLIs refuse to run
-without a GPU unless told --device cpu (draw has no device: it draws
-with numpy and matplotlib)."""
+diagnose and draw commands, -m fd, two ensembles, fast mode (also
+through the model) and a --profile-dir run through the run command, and
+ends with no jax and no xlab_fftbarotropic_tpu module loaded; and its
+CLIs refuse to run without a GPU unless told --device cpu (draw has no
+device: it draws with numpy and matplotlib)."""
 
 import os
 import subprocess
@@ -31,8 +31,9 @@ from xlab_fftbarotropic_torch import adjoint, config, convert, runner
 from xlab_fftbarotropic_torch.cli import assimilate, run
 from xlab_fftbarotropic_torch.forcing import source
 from xlab_fftbarotropic_torch.io import checkpoint, fieldio, native_stream
-from xlab_fftbarotropic_torch.ops import (_build, fft, fused_diff, fused_fft,
-                                          fused_sw, fused_tracer, spectral)
+from xlab_fftbarotropic_torch.ops import (_build, fast_tile, fft, fused_diff,
+                                          fused_fft, fused_sw, fused_tracer,
+                                          spectral, xtile)
 from xlab_fftbarotropic_torch.models import etdrk4
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.models.shallow_water import ShallowWaterModel
@@ -82,6 +83,12 @@ for scheme in ("rk4", "etdrk4"):
     _, g = adjoint.loss_and_grad(loss, device="cpu")(
         makefields.gaussian(cfg), np.zeros((64, 64), np.float32))
     assert bool(torch.isfinite(g).all())
+# fast mode (the fast column tile's plain versions), through the model
+# and the run command
+cfg = ModelConfig(nx=64, ny=64, beta=1e-11)
+fm = BarotropicModel.build(cfg, cpu, fast=True)
+z = fm.segment(fm.init_state(makefields.gaussian(cfg)), fm.zero_source(), 2)
+assert fm.fast and bool(torch.isfinite(fm.diags(z).vort).all())
 for scheme in ("rk4", "etdrk4"):
     cfg = ModelConfig(nx=64, ny=64, time_scheme=scheme)
     for decomp in ("slab", "xpencil"):
@@ -129,7 +136,7 @@ assert os.path.exists(os.path.join(tmp, "spectrum_step_0.txt"))
 assert draw.main(grid + ["-O", tmp, "--fig-dir", os.path.join(tmp, "fig"),
                          "--spectra"]) == 0
 for extra in (["-m", "fd"], ["--ensemble", "2", "--ensemble-width", "1"],
-              ["--ensemble", "2", "-m", "sw"],
+              ["--ensemble", "2", "-m", "sw"], ["--fast-transforms"],
               ["--profile-dir", os.path.join(tmp, "prof")]):
     assert run.main(grid + ["-I", tmp, "-O", os.path.join(tmp, "o"),
                             "-i", "vort_step_0.bin", "--total-steps", "2",
@@ -161,7 +168,8 @@ def test_port_imports_and_steps_without_jax():
 
 
 @pytest.mark.parametrize("family", [[], ["-m", "tracer"], ["-m", "sw"],
-                                    ["-m", "fd"], ["--ensemble", "2"]])
+                                    ["-m", "fd"], ["--ensemble", "2"],
+                                    ["--fast-transforms"]])
 def test_cli_without_gpu_stops_unless_told_cpu(tmp_path, family):
     out = tmp_path / "out"
     proc = subprocess.run(

@@ -53,6 +53,13 @@ ka_adv_plain, and pinned bit for bit: ky_all's product p is kc of
 (sw_products' product p, 0), ka_adv is ka of the advection formed in
 torch.
 
+The fast tile (csrc/xtile.cuh FAST, fast mode): pass16 emulated lane
+for lane, its A, B and D fragments placed by the PTX ISA's m16n8k16
+layouts, on NaN-started tiles whose every slot must be written once and
+none past the tile; bit for bit ops/fast_tile.py's fast_dft and the fast
+plain versions of ka_diag, kb_pair, kb_adv_half and kx_visc on
+non-square grids with ragged last tiles.
+
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
 gather at P = 1, 2, 4, 8, nx for kc and kb), every column is covered
@@ -68,6 +75,7 @@ import pytest
 import torch
 
 from xlab_fftbarotropic_torch.ops import _build
+from xlab_fftbarotropic_torch.ops import fast_tile as fst
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops import xtile
 from xlab_fftbarotropic_torch.parallel.pencil import padded_half
@@ -292,8 +300,9 @@ class _Cluster:
     plan's columns, the same K (kb_adv's)."""
 
     def __init__(self, n: int, columns: int, elem: int,
-                 narrow: bool = False):
+                 narrow: bool = False, fast: bool = False):
         p = xtile.xtile_plan(n, columns, elem)
+        self.fast = fast
         self.c = p.c // 2 if narrow else p.c
         self.n, self.columns, self.tiles = n, columns, -(-columns // self.c)
         self.k, self.m, self.radices = p.k, p.m, p.radices
@@ -321,6 +330,8 @@ class _Cluster:
 
     def subdft(self, s: torch.Tensor, forward: bool) -> torch.Tensor:
         """subdft(): the self-sorting radix passes over the block's tile."""
+        if self.fast:
+            return self.subdft_fast(s, forward)
         c, m = self.c, self.m
         q = 1
         for r in self.radices:                        # pass<R>()
@@ -344,14 +355,106 @@ class _Cluster:
     def combine(self, blocks: torch.Tensor, rank: int, forward: bool):
         """gather() and twiddle_dft() of block `rank` over the K blocks'
         Y_r (blocks: (K, m C)): (k2, column in tile, z) with z[k1] =
-        X[k2 + m k1]."""
+        X[k2 + m k1]; the fast tile's op for op (its plain version's
+        ops/fast_tile.py mul and dft)."""
         ub = torch.arange(self.mk * self.c)
         col = ub & (self.c - 1)
         k2 = rank * self.mk + (ub >> self.logc)
         z = blocks[:, k2 * self.c + col].clone()
+        if self.fast:
+            v = [(z[r].real, z[r].imag) for r in range(self.k)]
+            for r in range(1, self.k):
+                w = self.twiddle(r * k2, forward)
+                v[r] = fst.mul(v[r], (w.real, w.imag))
+            return k2, col, torch.stack([torch.complex(*x) for x in
+                                         fst.dft(v, -1 if forward else 1)])
         for r in range(1, self.k):
             z[r] = z[r] * self.twiddle(r * k2, forward)
         return k2, col, _dft_matrix(self.k, -1 if forward else 1) @ z
+
+    def subdft_fast(self, s: torch.Tensor, forward: bool) -> torch.Tensor:
+        """subdft<SIGN, true>(): pass16() while 16 divides what is left,
+        lane for lane (warp w, group h: butterflies 32 w + 8 h + 0..7; the
+        kernel's A, B and D fragments placed where the PTX ISA's
+        m16n8k16 layouts put them, each product exact and summed in
+        float64 as the plain version does), every slot of the new tile
+        written exactly once and none past the tile; then the float32
+        pass of the rest, op for op."""
+        c, m, logc = self.c, self.m, self.logc
+        sign = -1 if forward else 1
+        lane = torch.arange(32)
+        g, q = lane >> 2, lane & 3
+        mats = [_lane_matrix(g, q, 0, False), _lane_matrix(g, q, 4, False),
+                _lane_matrix(g, q, 4, True)]        # C, S, -S (dft16())
+        cm, wi, mwi = ((mats[0], mats[2], mats[1]) if sign < 0
+                       else (mats[0], mats[1], mats[2]))
+        x = (s.real.clone(), s.imag.clone())
+        warps = m * c // 16 // 32
+        w = torch.arange(warps).view(-1, 1, 1)
+        h = torch.arange(4).view(1, -1, 1)
+        nan = float("nan")
+        p = 1
+        while m // p >= 16:
+            stride, twstep = m // 16, m // (p * 16)
+            u = 32 * w + 8 * h + g                  # (warp, group, lane)
+            col, i = u & (c - 1), u >> logc
+            k = i & (p - 1)
+            br, bi = (torch.full((16, warps, 4, 8), nan, dtype=torch.float64)
+                      for _ in range(2))
+            for e in range(4):
+                tt = 2 * q + (e & 1) + 8 * (e >> 1)
+                idx = ((i + tt * stride) << logc) + col
+                v = (x[0][idx], x[1][idx])
+                if p > 1:
+                    tw = self.sw[tt * k * twstep]
+                    tw = tw if forward else tw.conj()
+                    t = fst.mul(v, (tw.real, tw.imag))
+                    v = tuple(torch.where(tt > 0, a, b) for a, b in zip(t, v))
+                row, cl = _frag_b(g, q, e >> 1, e & 1)
+                br[row, w, h, cl] = v[0].to(torch.bfloat16).double()
+                bi[row, w, h, cl] = v[1].to(torch.bfloat16).double()
+            assert not (br.isnan().any() or bi.isnan().any())
+            yr = fst.dot16(cm, br.view(16, -1), mwi,
+                           bi.view(16, -1)).view(16, warps, 4, 8)
+            yi = fst.dot16(wi, br.view(16, -1), cm,
+                           bi.view(16, -1)).view(16, warps, 4, 8)
+            new = torch.full((2, m * c), nan)
+            writes = torch.zeros(m * c, dtype=torch.int64)
+            for e in range(4):
+                f = g + 8 * (e >> 1)
+                uo = 32 * w + 8 * h + 2 * q + (e & 1)
+                co, io = uo & (c - 1), uo >> logc
+                ko = io & (p - 1)
+                idx = ((((io - ko) * 16 + ko) + f * p) << logc) + co
+                assert (idx < m * c).all()         # nothing past the tile
+                row, cl = _frag_d(g, q, e)
+                new[0, idx] = yr[row, w, h, cl]
+                new[1, idx] = yi[row, w, h, cl]
+                writes.index_put_((idx.flatten(),),
+                                  torch.ones(idx.numel(), dtype=torch.int64),
+                                  accumulate=True)
+            assert (writes == 1).all()
+            x = (new[0], new[1])
+            p *= 16
+        if p < m:                                   # the float32 pass
+            r = m // p
+            ub = torch.arange(m * c // r)
+            col, i = ub & (c - 1), ub >> logc
+            kk = i & (p - 1)
+            v = [(x[0][(i + t * (m // r)) * c + col],
+                  x[1][(i + t * (m // r)) * c + col]) for t in range(r)]
+            for t in range(1, r):
+                tw = self.sw[t * kk * (m // (p * r))]
+                tw = tw if forward else tw.conj()
+                v[t] = fst.mul(v[t], (tw.real, tw.imag))
+            v = fst.dft(v, sign)
+            j = (i - kk) * r + kk
+            new = torch.full((2, m * c), float("nan"))
+            for t in range(r):
+                new[0, (j + t * p) * c + col] = v[t][0]
+                new[1, (j + t * p) * c + col] = v[t][1]
+            x = (new[0], new[1])
+        return torch.complex(*x)
 
     def transform(self, load, tile: int, forward: bool) -> torch.Tensor:
         """Every block's loaded tile after its sub-DFT: (K, m C)."""
@@ -387,6 +490,48 @@ class _Cluster:
                  staged[co * stride + m // 2])
 
 
+# The fragment layouts of mma.sync.m16n8k16 with bf16 operands (PTX ISA,
+# "Matrix Fragments for mma.m16n8k16"): the (row, column) of register j,
+# half h (0 the lower) of lane g * 4 + q in A (16 x 16), B (16 x 8), and
+# of accumulator e in C/D (16 x 8).
+def _frag_a(g, q, j: int, h: int):
+    return g + 8 * (j & 1), 2 * q + h + 8 * (j >> 1)
+
+
+def _frag_b(g, q, j: int, h: int):
+    return 2 * q + h + 8 * j, g
+
+
+def _frag_d(g, q, e: int):
+    return g + 8 * (e >> 1), 2 * q + (e & 1)
+
+
+def _cos16(x) -> torch.Tensor:
+    """csrc/xtile.cuh cos16: cos(2 pi x / 16) as its bf16 literal."""
+    x = x & 15
+    x = torch.where(x > 8, 16 - x, x)
+    neg = x > 4
+    x = torch.where(neg, 8 - x, x)
+    bits = torch.tensor(xtile.DFT16_COS_BF16, dtype=torch.int32)[x]
+    val = (bits << 16).view(torch.float32).double()
+    return torch.where(neg, -val, val)
+
+
+def _lane_matrix(g, q, shift: int, negate: bool) -> torch.Tensor:
+    """The 16 x 16 matrix that dft16()'s registers hold across the warp
+    (lane g, q, register r: f = g + 8 (r & 1), t = 2q + 8 (r >> 1), the
+    values cos16(f t - shift) and cos16(f (t + 1) - shift), negated for
+    -S), each placed by _frag_a; every entry held by exactly one lane."""
+    a = torch.full((16, 16), float("nan"), dtype=torch.float64)
+    for r in range(4):
+        f, t = g + 8 * (r & 1), 2 * q + 8 * (r >> 1)
+        for h in (0, 1):
+            v = _cos16(f * (t + h) - shift)
+            a[_frag_a(g, q, r, h)] = -v if negate else v
+    assert not a.isnan().any()
+    return a
+
+
 def _put(out, writes, idx, values) -> None:
     """out[idx] = values, counting the writes of each output."""
     out[idx] = values
@@ -409,15 +554,16 @@ def _written_once(out, writes, rows: int, cols: int) -> torch.Tensor:
 
 def emulate(load, n: int, columns: int, forward: bool,
             transposed: bool = False, half: bool = False,
-            elem: int = 0) -> torch.Tensor:
+            elem: int = 0, fast: bool = False) -> torch.Tensor:
     """The column-tile transform along the length-n axis of `columns`
     columns whose tile rows come from load(rows, columns), unnormalized,
     as csrc/xtile.cuh computes it (index for index), with the plan of
     `elem`-byte elements (default: 4 for the transposed store, 8 else).
     Natural store (finish): (n, columns). Transposed store
     (finish_transposed): (columns, n), or (columns, n/2 + 1) with
-    `half`. Every output kept is written exactly once."""
-    e = _Cluster(n, columns, elem or (4 if transposed else 8))
+    `half`. Every output kept is written exactly once. `fast`: the fast
+    tile (subdft_fast)."""
+    e = _Cluster(n, columns, elem or (4 if transposed else 8), fast=fast)
     width = e.tiles * e.c
     out, writes = _outputs(width, n) if transposed else _outputs(n, width)
     for tile in range(e.tiles):
@@ -458,7 +604,8 @@ def _advection_load(u, zx, v, zy, src, beta: float):
     return load
 
 
-def emulate_kb_adv(wr, wi, zx, zy, src, beta: float) -> torch.Tensor:
+def emulate_kb_adv(wr, wi, zx, zy, src, beta: float,
+                   fast: bool = False) -> torch.Tensor:
     """kb_adv_kernel (csrc/kb_adv.cu) on ka_diag's (4, ny/2 + 1, nx)
     stack, in tiles of half the plan's columns: full when zx is None (a
     second tile of fields 0, 1), else half with the y-major zeta planes.
@@ -471,7 +618,7 @@ def emulate_kb_adv(wr, wi, zx, zy, src, beta: float) -> torch.Tensor:
     _, hny, nx = wr.shape
     ny = 2 * (hny - 1)
     scale = ff._kb_adv_scale(wr)
-    e = _Cluster(ny, nx, 4, narrow=True)
+    e = _Cluster(ny, nx, 4, narrow=True, fast=fast)
     uv_load = _hermitian(wr[2], wi[2], wr[3], wi[3])
     zz_load = _hermitian(wr[0], wi[0], wr[1], wi[1])
     out, writes = _outputs(e.tiles * e.c, ny)
@@ -585,13 +732,14 @@ def _stack(rng, n, nx, fields, size=1.0):
                                             2)]
 
 
-def _emulated_kb_pair(wr, wi, fa: int, fb: int, scale: float):
+def _emulated_kb_pair(wr, wi, fa: int, fb: int, scale: float,
+                      fast: bool = False):
     """kb_pair_kernel: the Hermitian tile of fields fa, fb, the inverse
     transform and the natural store, Re * scale and Im * scale: y-major
     (ny, nx)."""
     ny = 2 * (wr.shape[1] - 1)
     got = emulate(_hermitian(wr[fa], wi[fa], wr[fb], wi[fb]), ny,
-                  wr.shape[2], False, elem=4)
+                  wr.shape[2], False, elem=4, fast=fast)
     return _scaled(got, scale)
 
 
@@ -878,7 +1026,7 @@ def _field_load(sr, si, rlap, kx, ky, kind: int, psi_first: bool):
 
 
 def _emulate_stack(loads, n: int, columns: int, forward: bool,
-                   half: bool = False):
+                   half: bool = False, fast: bool = False):
     """A stacked transform with the transposed store (ka_fields_kernel,
     ka_sw_kernel, ka_fwd_kernel, ka_adv_kernel at F = 1; with `half`
     ky_all_kernel): field f of F = len(loads) from loads[f](rows,
@@ -890,7 +1038,7 @@ def _emulate_stack(loads, n: int, columns: int, forward: bool,
     every output written exactly once."""
     count = len(loads)
     width = n // 2 + 1 if half else n
-    e = _Cluster(n, columns, 4)
+    e = _Cluster(n, columns, 4, fast=fast)
     out, writes = _outputs(count * columns, width)
     for cluster in range(e.tiles * count):               # grid x / K
         f, tile = cluster % count, cluster // count
@@ -904,14 +1052,14 @@ def _emulate_stack(loads, n: int, columns: int, forward: bool,
 
 
 def emulate_fields(sr, si, rlap, kx, ky, first: int, count: int,
-                   psi_first: bool):
+                   psi_first: bool, fast: bool = False):
     """ka_fields_kernel on the states (nstate, n, hny): fields first ..
     first + count - 1 (field g reads state g div 4, kind g mod 4), the
     inverse transform: (count, hny, n)."""
     _, n, hny = sr.shape
     loads = [_field_load(sr[g // 4], si[g // 4], rlap, kx, ky, g % 4,
                          psi_first) for g in range(first, first + count)]
-    return _emulate_stack(loads, n, hny, False)
+    return _emulate_stack(loads, n, hny, False, fast=fast)
 
 
 def _field_inputs(n, states: int):
@@ -1214,3 +1362,112 @@ def test_emulated_ky_all_and_ka_adv_pins(n):
         adv = _advection(*f, beta)
         ka = torch.complex(*emulate_ka(adv, None, True, 1.0))
         assert torch.equal(emulate_ka_adv(*f, beta), ka), beta
+
+
+# ----- the fast column tile (csrc/xtile.cuh FAST: pass16 on the tensor
+# cores), emulated lane for lane: rows 1, 2, 9, 4 of fast mode -----
+
+# (transform length, columns): ragged last tiles, non-square grids
+FAST_SHAPES = [(64, 44), (256, 200), (1024, 33)]
+
+
+def test_fast_plan_and_dft16_agree_with_the_kernel_source():
+    """The fast passes are radix 16 while 16 divides what is left, then
+    one float32 pass of the rest, from m alone; the DFT-16 matrix's bf16
+    literals in csrc/xtile.cuh are cos(2 pi x / 16), x = 0..4, rounded
+    once from float64 (the zero exact); the four fast entries exist and
+    take the plan."""
+    for n in LENGTHS:
+        p = xtile.xtile_plan(n, 1, 4)
+        r = xtile.fast_radices(p.m)
+        assert p.fast_radices == r and int(np.prod(r)) == p.m
+        assert all(x == 16 for x in r[:-1]) and r[-1] in (2, 4, 8, 16)
+        assert r.count(16) == int(np.log2(p.m)) // 4
+    assert xtile.DFT16_COS_BF16 == (0x3F80, 0x3F6D, 0x3F35, 0x3EC4, 0)
+    src = _source("xtile.cuh")
+    for bits in xtile.DFT16_COS_BF16[:4]:
+        assert f"0x{bits:04X}u" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "__floats2bfloat162_rn" in src
+    for name, entry in (("ka_diag.cu", "xfb_ka_diag_fast"),
+                        ("kb_pair.cu", "xfb_kb_pair_fast"),
+                        ("kb_adv.cu", "xfb_kb_adv_half_fast"),
+                        ("kx_visc.cu", "xfb_kx_visc_fast")):
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                        _source(name))
+        assert "int tile_c, int cluster_k" in " ".join(sig.group(1).split())
+        assert entry in _build.SIGNATURES
+
+
+def test_fast_fragments_hold_the_dft16_matrix():
+    """dft16()'s registers, placed by the PTX fragment layout, hold C =
+    cos and S = sin of 2 pi f t / 16 rounded to bf16 (f the row), and
+    every matrix entry is held by exactly one lane."""
+    lane = torch.arange(32)
+    g, q = lane >> 2, lane & 3
+    c, s = fst.dft16_matrices(torch.device("cpu"))
+    assert torch.equal(_lane_matrix(g, q, 0, False), c)
+    assert torch.equal(_lane_matrix(g, q, 4, False), s)
+    assert torch.equal(_lane_matrix(g, q, 4, True), -s)
+    f = np.arange(16)
+    exact = np.exp(-2j * np.pi * np.outer(f, f) / 16)
+    assert np.abs(c.numpy() - exact.real).max() < 2 ** -8
+    assert np.abs(s.numpy() + exact.imag).max() < 2 ** -8
+    assert (c.numpy()[np.abs(exact.real) < 1e-12] == 0).all()
+
+
+@pytest.mark.parametrize("forward", [True, False],
+                         ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", LENGTHS[:5] + [4096])
+def test_emulated_fast_transform_is_the_fast_plain_transform(n, forward):
+    """The fast tile, lane for lane (every slot of each radix-16 pass
+    written once, none past the tile), on a ragged tile: ops/fast_tile.py
+    fast_dft's bits, and within the bf16 class of the float64 DFT."""
+    p = xtile.xtile_plan(n, 1, 8)
+    columns = p.c + 1 if n < 4096 else 1
+    rng = np.random.default_rng(n + 40 + forward)
+    x = rng.standard_normal((n, columns)) + 1j * rng.standard_normal(
+        (n, columns))
+    xt = torch.from_numpy(x.astype(np.complex64))
+    got = emulate(_dense(xt), n, columns, forward, fast=True)
+    want = torch.complex(*fst.fast_dft(xt.real.contiguous(),
+                                       xt.imag.contiguous(),
+                                       -1 if forward else 1))
+    assert torch.equal(got, want)
+    ref = np.fft.fft(x, axis=0) if forward else np.fft.ifft(x, axis=0) * n
+    rel = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
+    assert 1e-4 < rel < 1e-2, rel
+
+
+@pytest.mark.parametrize("shape", FAST_SHAPES, ids=str)
+def test_emulated_fast_kernels_are_their_plain_versions(shape):
+    """ka_diag, kb_pair, kb_adv_half and kx_visc's transform on the fast
+    tile, emulated lane for lane on non-square grids whose last tile is
+    ragged (every output written exactly once): their fast plain
+    versions' bits."""
+    n, cols = shape
+    rng = np.random.default_rng(n + cols)
+    # ka_diag: the fields' inverse x-stage on (n, cols) planes
+    sr, si = _float_planes(rng, (1, n, cols), 2)
+    kx, = _float_planes(rng, (n,), 1)
+    ky, = _float_planes(rng, (cols,), 1)
+    rlap = -1.0 / (1.0 + _float_planes(rng, (n, cols), 1)[0] ** 2)
+    got = emulate_fields(sr, si, rlap, kx, ky, 0, 4, False, fast=True)
+    want = ff.ka_diag(sr[0], si[0], rlap, kx, ky, fast=True)
+    assert torch.equal(got, torch.complex(*want))
+    # kb_pair and kb_adv_half on a (4, n/2 + 1, cols) stack
+    wr, wi = _stack(rng, n, cols, 4, cols * n ** 0.5)
+    scale = ff._kb_adv_scale(wr)
+    a, b = _emulated_kb_pair(wr, wi, 0, 1, scale, fast=True)
+    want = ff.kb_pair(wr, wi, 0, 1, scale, fast=True)
+    assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+    zx, zy, src = _float_planes(rng, (n, cols), 3)
+    got = emulate_kb_adv(wr, wi, zx, zy, src, 1.6, fast=True)
+    want = ff.kb_adv_half(zx, zy, wr, wi, src, 1.6, fast=True)
+    assert torch.equal(got, torch.complex(*want))
+    # kx_visc: the forward x-stage (its epilogue is visc_plain's)
+    fr, fi = _float_planes(rng, (n, cols), 2)
+    got = emulate(_dense(torch.complex(fr, fi)), n, cols, True, elem=4,
+                  fast=True)
+    want = fst.fast_dft(fr, fi, -1)
+    assert torch.equal(got, torch.complex(*want))

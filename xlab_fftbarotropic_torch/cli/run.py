@@ -32,6 +32,14 @@ kx_fwd + visc instead of kx_visc), XFB_BT_FUSETAIL (on unless auto, 0 or
 empty: the RK4 tail in stage 4's kx_visc_tail) and XFB_BT_FUSED_RK (0:
 the unfused RK form). XFB_FUSEKX_MAX is not read: its 4096 cap is the
 TPU's VMEM limit, and the port keeps the fused kx_visc up to 8192^2.
+
+--fast-transforms is the JAX package's fast mode for the barotropic
+family: XFB_BT_FUSEKB=auto resolves to half, and the y-first RK4 plane
+stepper runs ka_diag, kb_pair, kb_adv_half and kx_visc with their
+sub-DFTs as bf16 tensor-core products (BarotropicModel.build(...,
+fast=True)); --fft-backend xla keeps its float32 library path. The
+other families, --shard, --ensemble, --time-scheme etdrk4 and the other
+fusion arms stop with an error naming ROADMAP.md queue A, item 4.
 """
 
 from __future__ import annotations
@@ -44,31 +52,47 @@ from pathlib import Path
 
 # the file --profile-dir writes the run's torch.profiler trace into
 TRACE_NAME = "xfb-torch-run.trace.json"
+# the fast mode's banner: the JAX CLI's (xlab_fftbarotropic_tpu/cli/
+# run.py), with the port's kernels and its error on an H100 (chip_smoke.py
+# phase 5o: 30 steps of the 4096^2 gaussian, dt 3 s, vorticity against
+# the strict kernel path)
+FAST_BANNER = ("# fast transforms: bf16 tensor-core sub-DFTs (mma.sync "
+               "m16n8k16, float32 accumulate) in ka_diag, kb_pair, "
+               "kb_adv_half and kx_visc (barotropic 30-step vorticity "
+               "rel-L2 3.2e-5 at 4096^2 on an H100; reference parity "
+               "needs the float32 default)")
 
 
-def bt_fusion_from_env() -> dict:
-    """BarotropicModel.build's fused_rk, fusekb, fusekx and fusetail from
-    the environment, read as the JAX package reads them
+def bt_fusion_from_env(fast: bool = False) -> dict:
+    """BarotropicModel.build's fused_rk, fusekb, fusekx, fusetail and
+    fast from the environment, read as the JAX package reads them
     (models/barotropic.py:_fused_rk, ops/pallas_fft.py:fusekb_mode,
-    fusekx_on, fusetail_on in strict float32). Raises ValueError on an
+    fusekx_on, fusetail_on), XFB_BT_FUSEKB=auto off in strict float32 and
+    half in fast mode (fast: True only then). Raises ValueError on an
     XFB_BT_FUSEKB the package does not know."""
     fusekb = os.environ.get("XFB_BT_FUSEKB", "auto")
     if fusekb not in ("auto", "0", "", "half", "full"):
         raise ValueError(f"XFB_BT_FUSEKB={fusekb!r}: expected auto, 0, half "
                          f"or full")
+    if fusekb == "auto":
+        fusekb = "half" if fast else ""
     fusekx = os.environ.get("XFB_BT_FUSEKX", "auto")
     fusetail = os.environ.get("XFB_BT_FUSETAIL", "auto")
-    return dict(fused_rk=os.environ.get("XFB_BT_FUSED_RK", "1") != "0",
-                fusekb="" if fusekb in ("auto", "0") else fusekb,
-                fusekx=fusekx not in ("", "0"),
-                fusetail=fusetail not in ("auto", "", "0"))
+    out = dict(fused_rk=os.environ.get("XFB_BT_FUSED_RK", "1") != "0",
+               fusekb="" if fusekb == "0" else fusekb,
+               fusekx=fusekx not in ("", "0"),
+               fusetail=fusetail not in ("auto", "", "0"))
+    if fast:
+        out["fast"] = True
+    return out
 
 
 def main(argv=None):
     import torch
 
     from ..config import add_config_args, config_from_args
-    from ..models.barotropic import (fusion_arm, resolve_device,
+    from ..models.barotropic import (FAST_ITEM, fast_refusal, fusion_arm,
+                                     resolve_device,
                                      resolve_fft_backend_name)
     from ..models.ensemble import _resolve_member_backend, auto_vmap_width
     from ..models.shallow_water import resolve_sw_backend
@@ -159,14 +183,15 @@ def main(argv=None):
                    help="trace the whole run with torch.profiler (CPU "
                         "and, on the card, CUDA activity) into "
                         "DIR/xfb-torch-run.trace.json (a Chrome trace)")
-    # outside the port so far: accepted only to stop with a clear error
     p.add_argument("--fast-transforms", action="store_true",
-                   help="not ported yet")
+                   help="the barotropic plane stepper's sub-DFTs as bf16 "
+                        "tensor-core products, float32 accumulate (the "
+                        "JAX package's fast mode; XFB_BT_FUSEKB=auto "
+                        "resolves to half). Not with other families, "
+                        "--shard, --ensemble or --time-scheme etdrk4 "
+                        "(ROADMAP.md queue A, item 4)")
     args = p.parse_args(argv)
 
-    if args.fast_transforms:
-        p.error("--fast-transforms is not ported yet (ROADMAP.md queue A, "
-                "item 4); the port runs the strict float32 mode")
     fd = args.model in ("fd", "jacobian")
     if args.ensemble > 1 and (args.shard or fd):
         p.error(f"--ensemble does not combine with "
@@ -202,15 +227,30 @@ def main(argv=None):
                     "field (e.g. vort,psi) or omit the flag")
 
     cfg = config_from_args(args)
+    if args.fast_transforms:
+        what = (f"-m {args.model}" if args.model not in ("barotropic", "bt")
+                else "--shard" if args.shard
+                else "--ensemble" if args.ensemble > 1
+                else "--time-scheme etdrk4" if cfg.time_scheme == "etdrk4"
+                else None)
+        if what:
+            p.error(f"--fast-transforms with {what} is not ported yet "
+                    f"({FAST_ITEM}): fast mode runs the barotropic y-first "
+                    f"RK4 plane stepper")
     sw = args.model in ("shallow-water", "sw")
     yfirst = os.environ.get("XFB_SW_YFIRST" if sw else "XFB_BT_YFIRST",
                             "1") != "0"
     bt_fusion = None
     if args.model in ("barotropic", "bt"):
         try:
-            bt_fusion = bt_fusion_from_env()
+            bt_fusion = bt_fusion_from_env(args.fast_transforms)
         except ValueError as e:
             p.error(str(e))
+        if args.fast_transforms:
+            fusion = {k: v for k, v in bt_fusion.items() if k != "fast"}
+            why = fast_refusal(yfirst, **fusion)
+            if why:
+                p.error(f"--fast-transforms: {why}")
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
     member_cfg, width = cfg, None
@@ -233,6 +273,11 @@ def main(argv=None):
     if args.fifo:
         recipe, src_path = "fifo", args.fifo
 
+    if args.fast_transforms:
+        print(FAST_BANNER if backend == "pallas"
+              else "# fast transforms: --fft-backend xla keeps the torch.fft "
+                   "library path in float32, as the JAX package's XLA path",
+              file=sys.stderr)
     device = resolve_device(args.device)
     if args.shard:
         try:

@@ -39,6 +39,11 @@
 // state, rlap and tables exceed L2 at 4096^2; with the fields on grid y,
 // each one's tiles in turn, ka_diag took 0.495 ms against 0.457 on an
 // H100, PERF.md).
+//
+// xfb_ka_diag_fast is ka_diag on the fast column tile (xtile.cuh FAST:
+// the radix-16 sub-DFT passes as bf16 tensor-core products, the JAX
+// package's --fast-transforms), for the barotropic fast mode; the same
+// load, plan and store.
 #include "xtile.cuh"
 
 namespace {
@@ -46,7 +51,7 @@ namespace {
 // cluster (tile, f) of field f = cluster mod nfields: columns j0 .. j0 + C;
 // block r of it forms rows r + k jj of the tile, consecutive lanes on
 // consecutive columns
-template <bool PSI_FIRST>
+template <bool PSI_FIRST, bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ka_fields_kernel(const float* __restrict__ sr,
                      const float* __restrict__ si,
@@ -90,10 +95,10 @@ __global__ void __launch_bounds__(512, 2)
   xt::RowOut o = out;
   o.j0 = j0;
   o.plane = static_cast<size_t>(f) * hny * n;
-  xt::finish_transposed<+1>(t, tw, false, o);
+  xt::finish_transposed<+1, FAST>(t, tw, false, o);
 }
 
-template <bool PSI_FIRST>
+template <bool PSI_FIRST, bool FAST = false>
 int launch(int nfields, const float* sr, const float* si, const float* rlap,
            const float* kx, const float* ky, const void* tw, float* wr,
            float* wi, int n, int hny, int first, int tile_c, int cluster_k,
@@ -103,7 +108,7 @@ int launch(int nfields, const float* sr, const float* si, const float* rlap,
   }
   const int tiles = (hny + tile_c - 1) / tile_c;
   return static_cast<int>(xfb::xtile::launch(
-      ka_fields_kernel<PSI_FIRST>, tiles * nfields, 1, cluster_k,
+      ka_fields_kernel<PSI_FIRST, FAST>, tiles * nfields, 1, cluster_k,
       threads, smem, device, static_cast<cudaStream_t>(stream), sr, si, rlap,
       kx, ky, static_cast<const float2*>(tw),
       xfb::xtile::RowOut{wr, wi, 0, 0, hny, n, 1.f}, n, cluster_k,
@@ -144,4 +149,16 @@ extern "C" int xfb_ka_quad(const float* zr, const float* zi,
                            int device, void* stream) {
   return launch<true>(count, zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, first,
                       tile_c, cluster_k, threads, smem, device, stream);
+}
+
+// ka_diag on the fast column tile: arguments as xfb_ka_diag's
+extern "C" int xfb_ka_diag_fast(const float* zr, const float* zi,
+                                const float* rlap, const float* kx,
+                                const float* ky, const void* tw, float* wr,
+                                float* wi, int n, int hny, int tile_c,
+                                int cluster_k, int threads, int smem,
+                                int device, void* stream) {
+  return launch<false, true>(4, zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, 0,
+                             tile_c, cluster_k, threads, smem, device,
+                             stream);
 }

@@ -36,6 +36,13 @@
 // table (68 KB, three blocks per SM, where two tiles of C columns, 132
 // KB, would leave one), half one tile (36 KB, four blocks per SM); the
 // plan's C ran kb_adv_full 1.4x and kb_adv_half 1.1x slower on the H100.
+//
+// xfb_kb_adv_half_fast is kb_adv_half on the fast column tile (xtile.cuh
+// FAST: both the inverse and the forward sub-DFTs in bf16 tensor-core
+// radix-16 passes), the barotropic fast mode's arm (the JAX package's
+// XFB_BT_FUSEKB=auto resolves to half in fast mode); every other step
+// unchanged, so it gives the bits of kb_pair's fast form followed by the
+// advection and the fast forward transform.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -108,7 +115,7 @@ __device__ __forceinline__ void advect(const xt::Tile& t, float2* zz,
 }
 
 // cluster tile: columns j0 .. j0 + C
-template <bool FULL>
+template <bool FULL, bool FAST>
 __global__ void __launch_bounds__(256, FULL ? 3 : 4)
     kb_adv_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
                   const float* __restrict__ zx, const float* __restrict__ zy,
@@ -127,11 +134,11 @@ __global__ void __launch_bounds__(256, FULL ? 3 : 4)
     xt::load_hermitian(t, zz, wr, wi, wr + plane, wi + plane, j0, nx);
   }
   __syncthreads();
-  xt::subdft<+1>(t);
+  xt::subdft<+1, FAST>(t);
   if constexpr (FULL) {
     xt::Tile tz = t;
     tz.s = zz;
-    xt::subdft<+1>(tz);
+    xt::subdft<+1, FAST>(tz);
   }
   switch (k) {
     case 1:
@@ -149,10 +156,10 @@ __global__ void __launch_bounds__(256, FULL ? 3 : 4)
   }
   xt::HalfOut o = out;
   o.j0 = j0;
-  xt::finish_transposed<-1>(t, tw, true, o);
+  xt::finish_transposed<-1, FAST>(t, tw, true, o);
 }
 
-template <bool FULL>
+template <bool FULL, bool FAST = false>
 int launch(const float* wr, const float* wi, const float* zx,
            const float* zy, const float* src, const void* tw, float* outr,
            float* outi, int ny, int nx, float scale, float beta, int tile_c,
@@ -168,7 +175,7 @@ int launch(const float* wr, const float* wi, const float* zx,
       ny / cluster_k * c * static_cast<int>(sizeof(float2));
   const int tiles = (nx + c - 1) / c;
   return static_cast<int>(xt::launch(
-      kb_adv_kernel<FULL>, tiles, 1, cluster_k, threads / 2,
+      kb_adv_kernel<FULL, FAST>, tiles, 1, cluster_k, threads / 2,
       FULL ? smem : smem - tile_bytes, device,
       static_cast<cudaStream_t>(stream), wr, wi, zx, zy, src,
       static_cast<const float2*>(tw),
@@ -206,4 +213,17 @@ extern "C" int xfb_kb_adv_half(const float* zx, const float* zy,
   return launch<false>(wr, wi, zx, zy, src, tw, outr, outi, ny, nx, scale,
                        beta, tile_c, cluster_k, threads, smem, device,
                        stream);
+}
+
+// kb_adv_half on the fast column tile: arguments as xfb_kb_adv_half's
+extern "C" int xfb_kb_adv_half_fast(const float* zx, const float* zy,
+                                    const float* wr, const float* wi,
+                                    const float* src, const void* tw,
+                                    float* outr, float* outi, int ny, int nx,
+                                    float scale, float beta, int tile_c,
+                                    int cluster_k, int threads, int smem,
+                                    int device, void* stream) {
+  return launch<false, true>(wr, wi, zx, zy, src, tw, outr, outi, ny, nx,
+                             scale, beta, tile_c, cluster_k, threads, smem,
+                             device, stream);
 }

@@ -31,7 +31,10 @@
 // in runs of contiguous y. One plan of ny alone for every form, and the
 // same arithmetic up to the store, so kb_pair's output is kb's
 // transposed bit for bit; ky_adv and kb_adv (the fusion arms) share the
-// load and the transform, so they keep kb_pair's bits.
+// load and the transform, so they keep kb_pair's bits. xfb_kb_pair_fast
+// is kb_pair on the fast column tile (xtile.cuh FAST: bf16 tensor-core
+// radix-16 passes, the barotropic fast mode), load and store unchanged;
+// kb_adv_half's fast form shares its inverse.
 #include "xtile.cuh"
 
 namespace {
@@ -55,6 +58,7 @@ struct KbPairOut {
 
 // cluster tile: columns j0 .. j0 + C of fields fa, fb of the stacked
 // (F, ny/2 + 1, nx) planes
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     kb_pair_kernel(const float* __restrict__ wr,
                    const float* __restrict__ wi, int fa, int fb,
@@ -70,7 +74,7 @@ __global__ void __launch_bounds__(512, 2)
   __syncthreads();
   KbPairOut o = out;
   o.j0 = j0;
-  xt::finish<+1>(t, tw, o);
+  xt::finish<+1, FAST>(t, tw, o);
 }
 
 // The store of kb's output y of tile column c: Re * scale to oa[x, y],
@@ -107,6 +111,22 @@ __global__ void __launch_bounds__(512, 2)
   xt::finish_transposed<+1>(t, tw, false, o);
 }
 
+template <bool FAST>
+int launch_pair(const float* wr, const float* wi, int fa, int fb,
+                const void* tw, float* oa, float* ob, int ny, int nx,
+                float scale, int tile_c, int cluster_k, int threads,
+                int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      kb_pair_kernel<FAST>, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), wr, wi, fa, fb,
+      static_cast<const float2*>(tw), KbPairOut{oa, ob, 0, nx, scale}, ny,
+      cluster_k, xfb::xtile::log2i(tile_c)));
+}
+
 }  // namespace
 
 // wr, wi: the stacked (F, ny/2 + 1, nx) planes, of which fields fa and
@@ -116,15 +136,19 @@ extern "C" int xfb_kb_pair(const float* wr, const float* wi, int fa, int fb,
                            const void* tw, float* oa, float* ob, int ny,
                            int nx, float scale, int tile_c, int cluster_k,
                            int threads, int smem, int device, void* stream) {
-  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (nx + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      kb_pair_kernel, tiles, 1, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), wr, wi, fa, fb,
-      static_cast<const float2*>(tw), KbPairOut{oa, ob, 0, nx, scale}, ny,
-      cluster_k, xfb::xtile::log2i(tile_c)));
+  return launch_pair<false>(wr, wi, fa, fb, tw, oa, ob, ny, nx, scale,
+                            tile_c, cluster_k, threads, smem, device,
+                            stream);
+}
+
+// kb_pair on the fast column tile: arguments as xfb_kb_pair's
+extern "C" int xfb_kb_pair_fast(const float* wr, const float* wi, int fa,
+                                int fb, const void* tw, float* oa, float* ob,
+                                int ny, int nx, float scale, int tile_c,
+                                int cluster_k, int threads, int smem,
+                                int device, void* stream) {
+  return launch_pair<true>(wr, wi, fa, fb, tw, oa, ob, ny, nx, scale, tile_c,
+                           cluster_k, threads, smem, device, stream);
 }
 
 // war, wai, wbr, wbi: (ny/2 + 1, nx) -> oa, ob: (nx, ny). wbr, wbi and ob

@@ -35,7 +35,10 @@
 // its planes strided by hny along the column). Every
 // form (no epilogue, visc, axpy, tail; any number of fields) runs the
 // one kernel below with the plan of nx alone, so the transform's bits
-// never depend on the form.
+// never depend on the form. xfb_kx_visc_fast is kx_visc (visc, and the
+// stage axpy) on the fast column tile (xtile.cuh FAST: bf16 tensor-core
+// radix-16 passes), the barotropic fast mode's forward x-stage; the
+// epilogue unchanged.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -107,6 +110,7 @@ struct Epilogue {
   }
 };
 
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     kx_visc_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
                    Planes p, Tail tail, const float2* __restrict__ tw,
@@ -135,9 +139,10 @@ __global__ void __launch_bounds__(512, 2)
   xt::cp_async_wait_all();
   __syncthreads();
   Epilogue out{p, tail, plane, j0, hny, nu, coef};
-  xt::finish<-1>(t, tw, out);
+  xt::finish<-1, FAST>(t, tw, out);
 }
 
+template <bool FAST = false>
 int launch(const float* fr, const float* fi, const Planes& p, Tail tail,
            const void* tw, int nfields, int nx, int hny, float nu,
            float coef, int tile_c, int cluster_k, int threads, int smem,
@@ -147,7 +152,7 @@ int launch(const float* fr, const float* fi, const Planes& p, Tail tail,
   }
   const int tiles = (hny + tile_c - 1) / tile_c;
   return static_cast<int>(xfb::xtile::launch(
-      kx_visc_kernel, tiles, nfields, cluster_k, threads, smem, device,
+      kx_visc_kernel<FAST>, tiles, nfields, cluster_k, threads, smem, device,
       static_cast<cudaStream_t>(stream), fr, fi, p, tail,
       static_cast<const float2*>(tw), nx, hny, cluster_k,
       xfb::xtile::log2i(tile_c), nu, coef));
@@ -193,4 +198,21 @@ extern "C" int xfb_kx_visc_tail(const float* fr, const float* fi,
                        ni},
                 Tail{r1r, r1i, r2r, r2i, r3r, r3i, c}, tw, nfields, nx, hny,
                 nu, 0.f, tile_c, cluster_k, threads, smem, device, stream);
+}
+
+// kx_visc on the fast column tile: arguments as xfb_kx_visc's (an
+// epilogue is required: lap, mask, zsr, zsi given)
+extern "C" int xfb_kx_visc_fast(const float* fr, const float* fi,
+                                const float* lap, const float* mask,
+                                const float* zsr, const float* zsi,
+                                const float* z0r, const float* z0i,
+                                const void* tw, float* rr, float* ri,
+                                float* nr, float* ni, int nfields, int nx,
+                                int hny, float nu, float coef, int tile_c,
+                                int cluster_k, int threads, int smem,
+                                int device, void* stream) {
+  return launch<true>(fr, fi,
+                      Planes{lap, mask, zsr, zsi, z0r, z0i, rr, ri, nr, ni},
+                      Tail{}, tw, nfields, nx, hny, nu, coef, tile_c,
+                      cluster_k, threads, smem, device, stream);
 }

@@ -44,8 +44,35 @@
 // are the block's dynamic shared memory. Every product and sum is
 // rounded on its own (no contraction left to the compiler), so the same
 // inputs give the same bits in every kernel that includes this.
+//
+// The fast form (FAST = true on subdft, finish and finish_transposed;
+// the JAX package's --fast-transforms, pallas_fft.MM_MODE "default":
+// one bf16 product per stage, float32 accumulate) runs step 2 as
+// radix-16 passes on the tensor cores while 16 divides what is left
+// (ops/xtile.py fast_radices), then the float32 radix-8/4/2 pass of the
+// rest. A radix-16 pass twiddles its inputs in float32 (mul, as the
+// strict pass), rounds each to bf16 (round to nearest even), and forms
+// the 16-point DFT as the real block product
+//   [Yr; Yi] = [[C, -Wi], [Wi, C]] [xr; xi]
+// (C = cos, Wi = -SIGN sin of 2 pi f t / 16, each rounded once to bf16
+// from float64 with the zeros exact, negation exact), four
+// mma.sync.m16n8k16 bf16 products per 8 butterflies, each output summed
+// in float32 by the tensor core. So the multiplications that round to
+// bf16 are exactly those of the radix-16 DFT matrices: their data
+// operand (the twiddled tile value) and their matrix entry. The
+// twiddles between passes, the float32 pass, the K-point step
+// (twiddle_dft) and every load and epilogue stay float32: at n = 4096
+// (K = 8, m = 512: passes 16, 16, 2) two bf16-rounded stages per
+// transform, as the JAX fast mode's two bf16 matmul stages there.
+// The fast pass reads and writes only the tile's m C slots, and takes
+// no more shared memory than the strict one. Its kernels stay bound by
+// their float32 bytes (the DFT-16 products are under 0.01 ms of bf16
+// work per call at 4096^2); its B loads meet a 4-way bank conflict (a
+// butterfly's four q lanes read rows m/16 apart), and the fast kernels
+// ran 1.06-1.21x their strict forms on an H100 (PERF.md).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace xfb {
@@ -243,21 +270,152 @@ __device__ __forceinline__ void pass(const Tile& t, int p) {
   __syncthreads();
 }
 
+// ---- the fast radix-16 pass (FAST) ----
+
+// bf16 bits of cos(2 pi x / 16), rounded once from float64 (the zeros
+// exact): the magnitudes at x = 0..4 (ops/xtile.py DFT16_COS_BF16), and
+// the rest by symmetry.
+__device__ __forceinline__ unsigned cos16(int x) {
+  x &= 15;
+  if (x > 8) x = 16 - x;          // cos is even
+  const bool neg = x > 4;         // cos(pi - a) = -cos(a)
+  if (neg) x = 8 - x;
+  const unsigned mag = x == 0   ? 0x3F80u
+                       : x == 1 ? 0x3F6Du
+                       : x == 2 ? 0x3F35u
+                       : x == 3 ? 0x3EC4u
+                                : 0x0000u;
+  return neg ? mag | 0x8000u : mag;
+}
+
+// The A fragments (16 x 16, row-major, of mma m16n8k16) of C = cos and
+// S = sin of 2 pi f t / 16 and of -S, f the row: this lane holds rows
+// g, g + 8 and columns 2q, 2q + 1, 2q + 8, 2q + 9 (g = lane / 4,
+// q = lane mod 4), the lower column in the lower half of each register.
+struct Dft16 {
+  unsigned c[4], s[4], ns[4];
+};
+
+__device__ __forceinline__ Dft16 dft16() {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  Dft16 a;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int f = g + 8 * (r & 1), t = 2 * q + 8 * (r >> 1);
+    a.c[r] = cos16(f * t) | cos16(f * (t + 1)) << 16;
+    a.s[r] = cos16(f * t - 4) | cos16(f * (t + 1) - 4) << 16;
+    a.ns[r] = a.s[r] ^ 0x80008000u;
+  }
+  return a;
+}
+
+// lo, hi rounded to bf16 (nearest even), lo in the lower half
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// d += a b: one m16n8k16 bf16 product, float32 accumulate
+__device__ __forceinline__ void mma16(float* d, const unsigned* a,
+                                      const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One self-sorting radix-16 pass on the tensor cores, pass<16>'s
+// indices: warp w takes butterflies u = 32 w .. 32 w + 31 (column
+// u mod C, i = u / C), as four groups of 8 (the B and D columns). For
+// group h this lane loads butterfly 32 w + 8 h + g's inputs t = 2q,
+// 2q + 1, 2q + 8, 2q + 9 (the B fragment's rows), twiddled in float32,
+// and after the four products holds outputs f = g, g + 8 of butterflies
+// 2q, 2q + 1 of the group (the D fragment).
+template <int SIGN>
+__device__ __forceinline__ void pass16(const Tile& t, int p,
+                                       const Dft16& a) {
+  const int stride = t.m >> 4;
+  const int cmask = (1 << t.logc) - 1;
+  const int twstep = t.m / (p * 16);
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int warp0 = threadIdx.x - lane;
+  unsigned br[4][2], bi[4][2];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int u = warp0 + 8 * h + g;
+    const int c = u & cmask, i = u >> t.logc;
+    const int k = i & (p - 1);
+    float2 x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tt = 2 * q + (e & 1) + 8 * (e >> 1);
+      x[e] = t.s[((i + tt * stride) << t.logc) + c];
+      if (p > 1 && tt > 0) {
+        float2 w = t.sw[tt * k * twstep];
+        if (SIGN > 0) w.y = -w.y;
+        x[e] = mul(x[e], w);
+      }
+    }
+    br[h][0] = bf16x2(x[0].x, x[1].x);
+    br[h][1] = bf16x2(x[2].x, x[3].x);
+    bi[h][0] = bf16x2(x[0].y, x[1].y);
+    bi[h][1] = bf16x2(x[2].y, x[3].y);
+  }
+  __syncthreads();
+  // Yr = C xr - Wi xi, Yi = Wi xr + C xi with Wi = -SIGN S
+  const unsigned* wi = SIGN < 0 ? a.ns : a.s;
+  const unsigned* mwi = SIGN < 0 ? a.s : a.ns;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    float yr[4] = {0.f, 0.f, 0.f, 0.f}, yi[4] = {0.f, 0.f, 0.f, 0.f};
+    mma16(yr, a.c, br[h]);
+    mma16(yr, mwi, bi[h]);
+    mma16(yi, wi, br[h]);
+    mma16(yi, a.c, bi[h]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = g + 8 * (e >> 1);
+      const int u = warp0 + 8 * h + 2 * q + (e & 1);
+      const int c = u & cmask, i = u >> t.logc;
+      const int k = i & (p - 1);
+      const int j = (i - k) * 16 + k;
+      t.s[((j + f * p) << t.logc) + c] = make_float2(yr[e], yi[e]);
+    }
+  }
+  __syncthreads();
+}
+
 // The length-m sub-DFT of every column of the tile, in place, natural
 // order out: radix 8 while 8 divides what is left, then 4 or 2
-// (ops/xtile.py sub_radices).
-template <int SIGN>
+// (ops/xtile.py sub_radices); FAST: radix 16 on the tensor cores while
+// 16 divides what is left, then one float32 pass of the rest
+// (fast_radices).
+template <int SIGN, bool FAST = false>
 __device__ __forceinline__ void subdft(const Tile& t) {
-  for (int p = 1; p < t.m;) {
-    const int r = t.m / p >= 8 ? 8 : t.m / p;
-    if (r == 8) {
+  if constexpr (FAST) {
+    const Dft16 a = dft16();
+    int p = 1;
+    for (; t.m / p >= 16; p *= 16) pass16<SIGN>(t, p, a);
+    if (t.m / p == 8) {
       pass<8, SIGN>(t, p);
-    } else if (r == 4) {
+    } else if (t.m / p == 4) {
       pass<4, SIGN>(t, p);
-    } else {
+    } else if (t.m / p == 2) {
       pass<2, SIGN>(t, p);
     }
-    p *= r;
+  } else {
+    for (int p = 1; p < t.m;) {
+      const int r = t.m / p >= 8 ? 8 : t.m / p;
+      if (r == 8) {
+        pass<8, SIGN>(t, p);
+      } else if (r == 4) {
+        pass<4, SIGN>(t, p);
+      } else {
+        pass<2, SIGN>(t, p);
+      }
+      p *= r;
+    }
   }
 }
 
@@ -314,11 +472,11 @@ __device__ __forceinline__ void combine(const Tile& t,
 
 // Steps 2 and 3 once the caller's loads have landed (after
 // cp_async_wait_all and __syncthreads).
-template <int SIGN, class Out>
+template <int SIGN, bool FAST = false, class Out>
 __device__ __forceinline__ void finish(const Tile& t,
                                        const float2* __restrict__ tw,
                                        Out& out) {
-  subdft<SIGN>(t);
+  subdft<SIGN, FAST>(t);
   switch (t.k) {
     case 1:
       combine<1, SIGN>(t, tw, out);
@@ -383,10 +541,10 @@ __device__ __forceinline__ void combine_staged(const Tile& t,
 // on consecutive k of one column. half: only k <= n/2 (the forward half
 // spectrum), which are the first m/2 staged values of each column and,
 // on rank 0, the one at m/2 (k = n/2).
-template <int SIGN, class Out>
+template <int SIGN, bool FAST = false, class Out>
 __device__ __forceinline__ void finish_transposed(
     const Tile& t, const float2* __restrict__ tw, bool half, Out& out) {
-  subdft<SIGN>(t);
+  subdft<SIGN, FAST>(t);
   switch (t.k) {
     case 1:
       combine_staged<1, SIGN>(t, tw);

@@ -34,6 +34,16 @@ them there.
 "auto" takes "pallas" for power-of-two square grids the kernels take
 (64..8192), else "xla". The diagnostics always use the library path.
 
+fast=True is the JAX package's fast mode (--fast-transforms,
+pallas_fft.MM_MODE "default"), an argument of the model here, never a
+process-wide switch: the plane stepper runs the y-first RK4 fused-RK
+form in its fusekb "half" arm (as pallas_fft.fusekb_mode resolves
+"auto" in fast mode) on the fast forms of ka_diag, kb_pair, kb_adv_half
+and kx_visc (bf16 tensor-core sub-DFTs, float32 accumulate), and
+rk4_combine. Every other combination waits (ROADMAP.md queue A, item 4)
+and raises; the library path ("xla") stays float32 under fast=True, as
+in the JAX package.
+
 cfg.time_scheme "etdrk4" swaps RK4 for the exponential scheme of
 models/etdrk4.py: nu lap - r_drag - nu4 lap^2 (and the beta term, in
 complex tables) integrated exactly, N the advection-only tendency on the
@@ -205,10 +215,36 @@ def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
     return zeta_hat + (rk1 + 2.0 * rk2 + 2.0 * rk3 + rk4) * (dt / 6.0)
 
 
+# what fast mode runs so far; the refusal of everything else names this
+FAST_ITEM = "ROADMAP.md queue A, item 4"
+
+
+def fast_refusal(yfirst: bool = True, quad_mode: str = "grid",
+                 fusekb: str = "half", fusekx: bool = True,
+                 fusetail: bool = False, fused_rk: bool = True,
+                 time_scheme: str = "rk4") -> Optional[str]:
+    """Why fast mode does not run this combination yet, or None: it runs
+    the y-first RK4 fused-RK form in the fusekb "half" arm with kx_visc
+    and rk4_combine only."""
+    for bad, what in ((not yfirst or quad_mode != "grid",
+                       "the x-first order"),
+                      (fusekb != "half", f"fusekb {fusekb!r} (fast mode "
+                                         f"runs 'half')"),
+                      (not fusekx, "fusekx=False (kx_fwd + visc)"),
+                      (fusetail, "fusetail (kx_visc_tail)"),
+                      (not fused_rk, "the unfused RK form"),
+                      (time_scheme != "rk4", f"time scheme {time_scheme}")):
+        if bad:
+            return (f"fast mode does not run {what} yet ({FAST_ITEM}); it "
+                    f"runs the barotropic y-first RK4 fused-RK form in the "
+                    f"fusekb 'half' arm")
+    return None
+
+
 def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
                    beta: float = 0.0, yfirst: bool = True,
                    quad_mode: str = "grid", fusekb: str = "",
-                   fusekx: bool = True) -> Callable:
+                   fusekx: bool = True, fast: bool = False) -> Callable:
     """The plane stepper's dealiased stage tendency, d(sr, si[, axpy,
     tail]) -> (re, im) planes. y-first: derivative_quad_planes (ka_diag +
     2 kb_pair) and forward_tendency_yfirst (ky_adv + forward_tail:
@@ -220,12 +256,18 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
     "quad" or "split" requires it): the x-major derivative_quad_planes
     (ka_diag or ka_quad + 2 kb) and forward_tendency (ka_adv + kc_visc),
     `src_l` x-major (nx, ny), no axpy or tail, fusekb and fusekx
-    ignored (as in the JAX package)."""
+    ignored (as in the JAX package). `fast`: the y-first fusekb "half"
+    stage on the fast kernels (fast_refusal names what else raises)."""
+    if fast:
+        why = fast_refusal(yfirst, quad_mode, fusekb, fusekx)
+        if why:
+            raise ValueError(why)
+
     def d(sr, si, axpy=None, tail=None):
         if yfirst and fusekb:
             return ff.tendency_yfirst_fusedkb(
                 sr, si, src_l, t.kx, t.ky, t.rlap, t.lap, t.mask, nu, axpy,
-                fusekb, beta, tail, fusekx)
+                fusekb, beta, tail, fusekx, fast)
         zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap,
                                                  ymajor=yfirst,
                                                  quad_mode=quad_mode)
@@ -246,11 +288,11 @@ def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
                     beta: float = 0.0, fused_rk: bool = True,
                     yfirst: bool = True, quad_mode: str = "grid",
                     fusekb: str = "", fusekx: bool = True,
-                    fusetail: bool = False):
+                    fusetail: bool = False, fast: bool = False):
     """RK4 on the state as float32 (re, im) planes through the transform
     kernels, a plane_tendency per stage (yfirst and quad_mode pick the
-    order and the x-stage, fusekb and fusekx the y-first fusion arm;
-    `src_l` is the forcing in that order's layout).
+    order and the x-stage, fusekb and fusekx the y-first fusion arm, fast
+    the fast kernels; `src_l` is the forcing in that order's layout).
 
     fused_rk=True (the JAX default, XFB_BT_FUSED_RK=1), y-first only:
     stages 1-3 return the next stage state from the forward tail's axpy
@@ -262,7 +304,7 @@ def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
     form and arm gives the same bits."""
     h = dt * 0.5
     d = plane_tendency(t, src_l, nu, beta, yfirst, quad_mode, fusekb,
-                       fusekx)
+                       fusekx, fast)
     c = dt / 6.0
     if fused_rk and yfirst:
         r1r, r1i, s2r, s2i = d(zr, zi, axpy=(zr, zi, h))
@@ -283,7 +325,8 @@ def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
 
 
 def fusion_arm(fused_rk: bool = True, fusekb: str = "", fusekx: bool = True,
-               fusetail: bool = False, etd: bool = False) -> str:
+               fusetail: bool = False, etd: bool = False,
+               fast: bool = False) -> str:
     """The y-first plane stepper's kernels in a fusion arm, by stage part
     (the CLI banner's line)."""
     parts = [{"": "kb_pair x2 + ky_adv", "half": "kb_pair + kb_adv_half",
@@ -293,6 +336,9 @@ def fusion_arm(fused_rk: bool = True, fusekb: str = "", fusekx: bool = True,
         parts.append("torch stage updates" if not fused_rk
                      else "kx_visc_tail" if fusetail and fusekx
                      else "rk4_combine")
+    if fast:
+        return ("fast: ka_diag, " + ", ".join(parts)
+                + " (bf16 tensor-core sub-DFTs, float32 accumulate)")
     return ", ".join(parts)
 
 
@@ -385,7 +431,11 @@ class BarotropicModel(nn.Module):
     "full"; XFB_BT_FUSEKB), `fusekx` (XFB_BT_FUSEKX) and `fusetail`
     (XFB_BT_FUSETAIL; RK4 with fused_rk and fusekx only) pick the
     y-first fusion arm, defaults as the JAX package's in strict float32;
-    the x-first order ignores them. On the RK4 plane stepper, drag
+    the x-first order ignores them. `fast` is the JAX package's fast mode
+    on the plane stepper (fusekb None, the default, then resolves to
+    "half"; fast_refusal names the combinations that raise); None
+    resolves to "" in strict float32, and on the library path fast
+    changes nothing. On the RK4 plane stepper, drag
     and hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
@@ -395,10 +445,15 @@ class BarotropicModel(nn.Module):
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
                  fused_rk: bool = True, yfirst: bool = True,
-                 quad_mode: str = "grid", fusekb: str = "",
-                 fusekx: bool = True, fusetail: bool = False):
+                 quad_mode: str = "grid", fusekb: Optional[str] = None,
+                 fusekx: bool = True, fusetail: bool = False,
+                 fast: bool = False):
         super().__init__()
         check_time_scheme(cfg)
+        if not isinstance(fast, bool):
+            raise TypeError(f"fast must be a bool, got {fast!r}")
+        if fusekb is None:          # pallas_fft.fusekb_mode's "auto"
+            fusekb = "half" if fast else ""
         if quad_mode not in ff.QUAD_MODES:
             raise ValueError(f"unknown quad_mode {quad_mode!r}, not one of "
                              f"{ff.QUAD_MODES}")
@@ -413,6 +468,14 @@ class BarotropicModel(nn.Module):
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
                                                 cfg.grid_shape)
+        # fast mode lives on the plane stepper; the library path stays
+        # float32 (the JAX package's torch.fft counterpart, XLA's FFT)
+        self.fast = fast and self.backend == "pallas"
+        if self.fast:
+            why = fast_refusal(yfirst, quad_mode, fusekb, fusekx, fusetail,
+                               fused_rk, cfg.time_scheme)
+            if why:
+                raise ValueError(why)
         self.fused_rk = fused_rk
         self.yfirst = yfirst and quad_mode == "grid"
         self.quad_mode = quad_mode
@@ -442,11 +505,11 @@ class BarotropicModel(nn.Module):
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
               fused_rk: bool = True, yfirst: bool = True,
-              quad_mode: str = "grid", fusekb: str = "",
-              fusekx: bool = True,
-              fusetail: bool = False) -> "BarotropicModel":
+              quad_mode: str = "grid", fusekb: Optional[str] = None,
+              fusekx: bool = True, fusetail: bool = False,
+              fast: bool = False) -> "BarotropicModel":
         return cls(cfg, device, tables, fused_rk, yfirst, quad_mode, fusekb,
-                   fusekx, fusetail)
+                   fusekx, fusetail, fast)
 
     def _check_state(self, zeta_hat: torch.Tensor) -> None:
         if (zeta_hat.dtype != torch.complex64
@@ -476,7 +539,8 @@ class BarotropicModel(nn.Module):
                     zr, zi = rk4_step_planes(t, zr, zi, src_l, self.dt,
                                              self.step_nu, beta=self.beta,
                                              fused_rk=self.fused_rk,
-                                             fusetail=self.fusetail, **order)
+                                             fusetail=self.fusetail,
+                                             fast=self.fast, **order)
             return torch.complex(zr, zi)
         z = zeta_hat
         for _ in range(n_steps):

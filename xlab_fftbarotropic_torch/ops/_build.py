@@ -86,6 +86,13 @@ SIGNATURES = {
     # host array of 33 pointers, nx, hny, f0, grav, nu, H, split, scale,
     # device, stream
     "xfb_sw_combine_mv": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
+    # the fast forms (csrc/xtile.cuh FAST): arguments as their strict
+    # entries'
+    "xfb_ka_diag_fast": [_P] * 8 + [_I] * 7 + [_P],
+    "xfb_kb_pair_fast": [_P, _P, _I, _I] + [_P] * 3 + [_I, _I, _F]
+    + [_I] * 5 + [_P],
+    "xfb_kb_adv_half_fast": [_P] * 8 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
+    "xfb_kx_visc_fast": [_P] * 13 + [_I, _I, _I, _F, _F] + [_I] * 5 + [_P],
     # xr, xi, tw, yr, yi, n, m, forward, scale, tile_c, cluster_k,
     # threads, smem (the ops/xtile.py plan), device, stream
     "xfb_ka": [_P] * 5 + [_I, _I, _I, _F] + [_I] * 5 + [_P],

@@ -38,6 +38,14 @@ x-major (kb_stacked) and runs the forward pipeline as
 and QUAD_MODE "quad" or "split" (x-first only) takes ka_quad, the same
 x-stage as ka_diag in the psi-first grouping of the TPU's _ka4/_ka2.
 
+Fast mode (the JAX package's --fast-transforms) runs the FUSEKB=half
+stage, ka_diag, kb_pair, kb_adv_half and kx_visc, on the fast column
+tile (csrc/xtile.cuh FAST: the radix-16 sub-DFT passes as bf16
+tensor-core products, float32 accumulate): each wrapper's `fast=True`
+launches that form, counted under its own name (ka_diag_fast, ...), and
+on the CPU takes its plain version, the strict plain version's load and
+epilogue around ops/fast_tile.py's emulation of the fast transform.
+
 The per-transform pipeline, the counterpart of pallas_fft.rfft2,
 inverse_pair and irfft2, is three kernels: ka, the x-stage of any mode
 (forward or inverse, real or complex input, scaled) with a transposed
@@ -73,7 +81,9 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "plane_axpy": 0, "ka_adv": 0, "kc_visc": 0, "ka_quad": 0,
             "ka_fwd": 0, "kc_sw": 0, "kb_adv_full": 0, "kb_adv_half": 0,
             "kx_visc_tail": 0, "visc": 0, "a2a_cols": 0, "a2a_rows": 0,
-            "xstage": 0, "xstage_gather": 0, "xstage_scatter": 0}
+            "xstage": 0, "xstage_gather": 0, "xstage_scatter": 0,
+            "ka_diag_fast": 0, "kb_pair_fast": 0, "kb_adv_half_fast": 0,
+            "kx_visc_fast": 0}
 
 # the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
 FUSEKB_MODES = ("", "half", "full")
@@ -206,10 +216,19 @@ def ka_diag_plain(zr, zi, rlap, kx, ky):
                                                  range(4)))
 
 
-def ka_diag(zr, zi, rlap, kx, ky):
+def ka_diag_fast_plain(zr, zi, rlap, kx, ky):
+    """ka_diag_plain's fields through the fast tile's inverse x-DFT."""
+    from .fast_tile import fast_dft
+    re, im = diagonal_fields(zr, zi, rlap, kx, ky, range(4))
+    yr, yi = fast_dft(torch.stack(re), torch.stack(im), +1, dim=1)
+    return yr.transpose(1, 2).contiguous(), yi.transpose(1, 2).contiguous()
+
+
+def ka_diag(zr, zi, rlap, kx, ky, fast: bool = False):
     """(i kx Z, i ky Z, -i ky psi, i kx psi) with psi = Z*rlap, inverse
-    x-DFT (unnormalized), written transposed: (wr, wi) (4, hny, nx).
-    Counterpart of pallas_fft.derivative_xstage_planes."""
+    x-DFT (unnormalized), written transposed: (wr, wi) (4, hny, nx);
+    `fast`: on the fast column tile. Counterpart of
+    pallas_fft.derivative_xstage_planes."""
     n, hny = zr.shape
     _check("ka_diag", (n, hny), zr, zi, rlap)
     _check("ka_diag", (n,), kx)
@@ -217,11 +236,13 @@ def ka_diag(zr, zi, rlap, kx, ky):
     if kx.device != zr.device or ky.device != zr.device:
         raise ValueError("ka_diag: tables and state on different devices")
     if _takes_plain("ka_diag", zr, n):
-        return ka_diag_plain(zr, zi, rlap, kx, ky)
+        return (ka_diag_fast_plain if fast else ka_diag_plain)(
+            zr, zi, rlap, kx, ky)
     from ._build import lib
     wr = torch.empty((4, hny, n), dtype=torch.float32, device=zr.device)
     wi = torch.empty_like(wr)
-    _launch("ka_diag", lib().xfb_ka_diag,
+    name = "ka_diag_fast" if fast else "ka_diag"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
             n, hny, *_xtile_args(n, hny, 4), zr.device.index, _stream(zr))
     return wr, wi
@@ -275,11 +296,39 @@ def kb_pair_plain(wr, wi, fa: int, fb: int, scale: float):
     return out[0].contiguous(), out[1].contiguous()
 
 
-def kb_pair(wr, wi, fa: int, fb: int, scale: float):
+def hermitian_planes(ar, ai, br, bi):
+    """The Hermitian column of the paired c2r y-stages as the kernels load
+    it (csrc/xtile.cuh load_hermitian): row y of the (ny, nx) pair from
+    input row h = min(y, ny - y) of the (ny/2 + 1, nx) planes, the
+    imaginary parts of rows 0 and ny/2 read as 0; a + i b up to ny/2,
+    conj(a) + i conj(b) past it."""
+    half = ar.shape[0] - 1
+    y = torch.arange(2 * half, device=ar.device)
+    h = torch.where(y <= half, y, 2 * half - y)
+    selfconj = ((h == 0) | (h == half)).unsqueeze(1)
+    a_r, b_r = ar[h], br[h]
+    a_i = torch.where(selfconj, 0.0, ai[h])
+    b_i = torch.where(selfconj, 0.0, bi[h])
+    low = (y <= half).unsqueeze(1)
+    return (torch.where(low, a_r - b_i, a_r + b_i),
+            torch.where(low, a_i + b_r, b_r - a_i))
+
+
+def kb_pair_fast_plain(wr, wi, fa: int, fb: int, scale: float):
+    """kb_pair's Hermitian load, the fast tile's inverse y-DFT, and
+    Re * scale, Im * scale (each one rounded product)."""
+    from .fast_tile import fast_dft
+    yr, yi = fast_dft(*hermitian_planes(wr[fa], wi[fa], wr[fb], wi[fb]), +1)
+    s = torch.tensor(scale, dtype=torch.float32, device=wr.device)
+    return (yr * s).contiguous(), (yi * s).contiguous()
+
+
+def kb_pair(wr, wi, fa: int, fb: int, scale: float, fast: bool = False):
     """Paired c2r y-stage of fields fa, fb of a stacked (F, hny, nx)
     x-stage output (F = 4 from ka_diag, 6 from ka6) -> a, b y-major
-    (ny, nx), scaled by `scale` (1/(nx*ny) in the stepper). Counterpart
-    of pallas_fft._kb_call_stacked(..., transpose_out=False)."""
+    (ny, nx), scaled by `scale` (1/(nx*ny) in the stepper); `fast`: on
+    the fast column tile. Counterpart of
+    pallas_fft._kb_call_stacked(..., transpose_out=False)."""
     if wr.dim() != 3:
         raise ValueError(f"kb_pair: expected (F, hny, nx), got "
                          f"{tuple(wr.shape)}")
@@ -290,11 +339,13 @@ def kb_pair(wr, wi, fa: int, fb: int, scale: float):
         raise ValueError(f"kb_pair: field indices {fa}, {fb} not in "
                          f"0..{nf - 1}")
     if _takes_plain("kb_pair", wr, ny):
-        return kb_pair_plain(wr, wi, fa, fb, scale)
+        return (kb_pair_fast_plain if fast else kb_pair_plain)(
+            wr, wi, fa, fb, scale)
     from ._build import lib
     oa = torch.empty((ny, nx), dtype=torch.float32, device=wr.device)
     ob = torch.empty_like(oa)
-    _launch("kb_pair", lib().xfb_kb_pair, *_ptrs(wr, wi), fa, fb,
+    name = "kb_pair_fast" if fast else "kb_pair"
+    _launch(name, getattr(lib(), "xfb_" + name), *_ptrs(wr, wi), fa, fb,
             *_ptrs(_twiddles(ny, wr.device), oa, ob), ny, nx, float(scale),
             *_xtile_args(ny, nx, 4), wr.device.index, _stream(wr))
     return oa, ob
@@ -359,10 +410,19 @@ def kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
     return visc_plain(f.real, f.imag, lap, mask, zsr, zsi, nu, axpy)
 
 
-def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
+def kx_visc_fast_plain(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
+    """The fast tile's forward x-DFT, then kx_visc's epilogue."""
+    from .fast_tile import fast_dft
+    gr, gi = fast_dft(fr, fi, -1, dim=-2)
+    return visc_plain(gr, gi, lap, mask, zsr, zsi, nu, axpy)
+
+
+def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None,
+            fast: bool = False):
     """Forward x-DFT of (fr + i fi) over the hny columns with the epilogue
     mask * (F + nu*lap*Zs) -> (rr, ri); with axpy=(z0r, z0i, coef) also
-    the next RK stage state (z0r + coef*rr, z0i + coef*ri).
+    the next RK stage state (z0r + coef*rr, z0i + coef*ri); `fast`: on
+    the fast column tile.
 
     fr, fi, lap, zsr, zsi (and z0r, z0i) are one field (nx, hny) or a
     stack (F, nx, hny) with a table per field; mask (nx, hny) is shared.
@@ -380,14 +440,16 @@ def kx_visc(fr, fi, lap, mask, zsr, zsi, nu: float, axpy=None):
     if mask.device != fr.device:
         raise ValueError("kx_visc: mask and planes on different devices")
     if _takes_plain("kx_visc", fr, nx):
-        return kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu, axpy)
+        return (kx_visc_fast_plain if fast else kx_visc_plain)(
+            fr, fi, lap, mask, zsr, zsi, nu, axpy)
     from ._build import lib
     outs = [torch.empty(shape, dtype=torch.float32, device=fr.device)
             for _ in range(2 if axpy is None else 4)]
     z0 = (None, None) if axpy is None else _ptrs(*axpy[:2])
     nr_ni = (None, None) if axpy is None else _ptrs(*outs[2:])
     coef = 0.0 if axpy is None else float(axpy[2])
-    _launch("kx_visc", lib().xfb_kx_visc,
+    name = "kx_visc_fast" if fast else "kx_visc"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(fr, fi, lap, mask, zsr, zsi), *z0,
             _twiddles(nx, fr.device).data_ptr(), *_ptrs(*outs[:2]), *nr_ni,
             1 if len(shape) == 2 else shape[0], nx, hny, float(nu), coef,
@@ -503,6 +565,17 @@ def kb_adv_half_plain(zx, zy, wr, wi, src, beta: float = 0.0):
     return ky_adv_plain(u, zx, v, zy, src, beta)
 
 
+def kb_adv_half_fast_plain(zx, zy, wr, wi, src, beta: float = 0.0):
+    """kb_pair_fast_plain's u, v, the advection, and the fast tile's real
+    forward y-DFT, rows k <= ny/2 written transposed."""
+    from .fast_tile import fast_dft
+    u, v = kb_pair_fast_plain(wr, wi, 2, 3, _kb_adv_scale(wr))
+    adv = advection(u, zx, v, zy, src, beta)
+    fr, fi = fast_dft(adv, torch.zeros_like(adv), -1)
+    hny = adv.shape[0] // 2 + 1
+    return fr[:hny].t().contiguous(), fi[:hny].t().contiguous()
+
+
 def _kb_adv_check(name, wr, wi, *fields):
     if wr.dim() != 3 or wr.shape[0] != 4:
         raise ValueError(f"{name}: expected ka_diag's (4, hny, nx) stack, "
@@ -538,20 +611,24 @@ def kb_adv_full(wr, wi, src, beta: float = 0.0):
     return outr, outi
 
 
-def kb_adv_half(zx, zy, wr, wi, src, beta: float = 0.0):
+def kb_adv_half(zx, zy, wr, wi, src, beta: float = 0.0,
+                fast: bool = False):
     """kb_adv_full with zeta_x, zeta_y given y-major (ny, nx) (one kb_pair
     of fields 0, 1 made them): the (u, v) c2r y-stage of fields 2, 3,
     the advection product and the real forward y-DFT -> (nx, hny)
-    planes. kb_pair + ky_adv in one kernel, with their bits. Counterpart
-    of pallas_fft.kb_adv_half (_kb_adv_half_kernel)."""
+    planes. kb_pair + ky_adv in one kernel, with their bits; `fast`: on
+    the fast column tile. Counterpart of pallas_fft.kb_adv_half
+    (_kb_adv_half_kernel)."""
     ny, nx = _kb_adv_check("kb_adv_half", wr, wi, zx, zy, src)
     if _takes_plain("kb_adv_half", wr, ny):
-        return kb_adv_half_plain(zx, zy, wr, wi, src, beta)
+        return (kb_adv_half_fast_plain if fast else kb_adv_half_plain)(
+            zx, zy, wr, wi, src, beta)
     from ._build import lib
     outr = torch.empty((nx, ny // 2 + 1), dtype=torch.float32,
                        device=wr.device)
     outi = torch.empty_like(outr)
-    _launch("kb_adv_half", lib().xfb_kb_adv_half,
+    name = "kb_adv_half_fast" if fast else "kb_adv_half"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(zx, zy, wr, wi, src, _twiddles(ny, wr.device), outr,
                    outi), ny, nx, _kb_adv_scale(wr), float(beta),
             *_xtile_args(ny, nx, 4), wr.device.index, _stream(wr))
@@ -801,13 +878,18 @@ def forward_tendency(u, zx, v, zy, src, lap, mask, zr, zi, nu: float,
 
 
 def forward_tail(fr, fi, lap, mask, zr, zi, nu: float, axpy=None,
-                 tail=None, fusekx: bool = True):
+                 tail=None, fusekx: bool = True, fast: bool = False):
     """The y-first forward x-stage with its epilogue, from the forward
     y-stage planes (nx, hny): with `fusekx` one kx_visc (axpy=(z0r, z0i,
-    coef): also the next stage state), or with tail=(z0r, z0i, r1r, r1i,
-    r2r, r2i, r3r, r3i, c) one kx_visc_tail returning the stepped state;
-    without `fusekx`, kx_fwd on the one field and a visc pass.
-    Counterpart of pallas_fft.forward_tail with fusekx_on() = fusekx."""
+    coef): also the next stage state; `fast`: its fast form), or with
+    tail=(z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, c) one kx_visc_tail
+    returning the stepped state; without `fusekx`, kx_fwd on the one
+    field and a visc pass. Counterpart of pallas_fft.forward_tail with
+    fusekx_on() = fusekx."""
+    if fast and (tail is not None or not fusekx):
+        raise ValueError("fast mode's forward tail is kx_visc alone (the "
+                         "tail and the unfused forms: ROADMAP.md queue A, "
+                         "item 4)")
     if tail is not None:
         if not fusekx:      # as pallas_fft.forward_tail (:1723)
             raise ValueError("tail fusion requires the fused kx_visc "
@@ -816,7 +898,7 @@ def forward_tail(fr, fi, lap, mask, zr, zi, nu: float, axpy=None,
             raise ValueError("give axpy or tail, not both")
         return kx_visc_tail(fr, fi, lap, mask, zr, zi, nu, tail)
     if fusekx:
-        return kx_visc(fr, fi, lap, mask, zr, zi, nu, axpy)
+        return kx_visc(fr, fi, lap, mask, zr, zi, nu, axpy, fast=fast)
     from .fused_sw import kx_fwd
     gr, gi = kx_fwd(fr[None], fi[None])
     return visc(gr[0], gi[0], lap, mask, zr, zi, nu, axpy)
@@ -835,19 +917,25 @@ def forward_tendency_yfirst(u, zx, v, zy, src, lap, mask, zr, zi,
 def tendency_yfirst_fusedkb(sr, si, src, kx, ky, rlap, lap, mask,
                             nu: float, axpy=None, mode: str = "full",
                             beta: float = 0.0, tail=None,
-                            fusekx: bool = True):
+                            fusekx: bool = True, fast: bool = False):
     """One whole y-first stage tendency with the KB + advection fusion:
     ka_diag, then kb_adv_full ("full"), or kb_pair of (zeta_x, zeta_y)
     and kb_adv_half ("half"), then forward_tail (axpy, tail and fusekx as
     there); `src` y-major (ny, nx). The same values as
-    derivative_quad_planes + forward_tendency_yfirst. Counterpart of
+    derivative_quad_planes + forward_tendency_yfirst. `fast` (mode "half"
+    and kx_visc only): every kernel on the fast column tile, the JAX
+    package's fast mode. Counterpart of
     pallas_fft.tendency_yfirst_fusedkb."""
-    wr, wi = ka_diag(sr, si, rlap, kx, ky)
+    if fast and mode != "half":
+        raise ValueError(f"fast mode runs fusekb 'half', not {mode!r} "
+                         f"(ROADMAP.md queue A, item 4)")
+    wr, wi = ka_diag(sr, si, rlap, kx, ky, fast=fast)
     if mode == "full":
         fr, fi = kb_adv_full(wr, wi, src, beta)
     elif mode == "half":
-        zx, zy = kb_pair(wr, wi, 0, 1, _kb_adv_scale(wr))
-        fr, fi = kb_adv_half(zx, zy, wr, wi, src, beta)
+        zx, zy = kb_pair(wr, wi, 0, 1, _kb_adv_scale(wr), fast=fast)
+        fr, fi = kb_adv_half(zx, zy, wr, wi, src, beta, fast=fast)
     else:
         raise ValueError(f"unknown fusekb mode {mode!r}")
-    return forward_tail(fr, fi, lap, mask, sr, si, nu, axpy, tail, fusekx)
+    return forward_tail(fr, fi, lap, mask, sr, si, nu, axpy, tail, fusekx,
+                        fast)

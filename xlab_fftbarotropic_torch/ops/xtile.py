@@ -23,12 +23,24 @@ distributed shared memory, twiddled by W_n^(r k2) on the way in.
 The plan depends on the transform length alone (the column count only
 sets the grid), so every form of a kernel (any epilogue, any number of
 stacked fields) runs the same transform and gives the same bits.
+
+The fast form of the tile (csrc/xtile.cuh FAST, the barotropic fast
+mode) keeps the plan (C, K, threads, shared bytes: its tensor-core
+operands go from the float32 tile straight into registers) and runs the
+sub-DFT as `fast_radices`: radix-16 passes on the tensor cores (bf16
+operands, the DFT-16 matrix's entries DFT16_COS_BF16 by symmetry) while
+16 divides what is left, then one float32 pass of the rest; so it too
+depends on the length alone, and every fast form of a kernel runs the
+same transform.
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import NamedTuple, Tuple
+
+import numpy as np
 
 from .fused_fft import MAX_N, MIN_N, supported_length
 
@@ -66,6 +78,11 @@ class XTilePlan(NamedTuple):
         """Blocks along x: k per tile (times the stacked fields along y)."""
         return self.tiles * self.k
 
+    @property
+    def fast_radices(self) -> Tuple[int, ...]:
+        """The fast tile's sub-DFT passes, first to last."""
+        return fast_radices(self.m)
+
 
 def sub_radices(m: int) -> Tuple[int, ...]:
     """The radix of each pass of a length-m sub-DFT: radix 8 while 8
@@ -77,6 +94,49 @@ def sub_radices(m: int) -> Tuple[int, ...]:
         out.append(r)
         p *= r
     return tuple(out)
+
+
+def fast_radices(m: int) -> Tuple[int, ...]:
+    """The passes of the fast tile's length-m sub-DFT (csrc/xtile.cuh
+    subdft<SIGN, true>): radix 16 on the tensor cores while 16 divides
+    what is left, then one float32 pass of the rest (8, 4 or 2)."""
+    out, p = [], 1
+    while m // p >= 16:
+        out.append(16)
+        p *= 16
+    if p < m:
+        out.append(m // p)
+    return tuple(out)
+
+
+def bf16_bits(x: float) -> int:
+    """The bf16 bit pattern of the float64 x rounded once to 8
+    significant bits, to nearest even (no float32 step between)."""
+    if x == 0.0:
+        return 0x8000 if math.copysign(1.0, x) < 0 else 0
+    m, e = math.frexp(abs(x))              # |x| = m 2^e, 1/2 <= m < 1
+    r = round(m * 256.0)                   # exact product; ties to even
+    v = math.ldexp(r, e - 8)
+    bits = np.array(v, dtype=np.float32).view(np.uint32) >> 16
+    return int(bits) | (0x8000 if x < 0 else 0)
+
+
+def dft16_cos(x: int) -> float:
+    """cos(2 pi x / 16) in float64 with the zeros and the ones exact (the
+    octant's symmetry: |cos| from x mod 16 folded into 0..4)."""
+    x %= 16
+    if x > 8:
+        x = 16 - x
+    sign = -1.0 if x > 4 else 1.0
+    if x > 4:
+        x = 8 - x
+    return sign * (0.0 if x == 4 else 1.0 if x == 0
+                   else math.cos(2.0 * math.pi * x / 16.0))
+
+
+# the bf16 magnitudes of cos(2 pi x / 16), x = 0..4, that csrc/xtile.cuh
+# cos16 holds as literals: the DFT-16 matrix of the fast tile
+DFT16_COS_BF16 = tuple(bf16_bits(dft16_cos(x)) for x in range(5))
 
 
 @lru_cache(maxsize=None)
