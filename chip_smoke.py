@@ -172,7 +172,26 @@ exits non-zero and prints no result):
    torch.matmul raising, its vorticity within rel-L2 1e-4 (and above
    1e-7) of the strict kernel path after 30 steps and within 1e-3 after
    200, finite; ms/step beside the strict FUSEKB=half arm and the strict
-   default, in turns.
+   default, in turns. Shallow water (phase_fast_sw): the fast forms of
+   ka_sw, ky_all and kx_fwd (its bf16 and float32 product stores) held
+   as above, the bf16 store the rounding of the float32 store's bits;
+   the strict tile's bf16 store and sw_combine and sw_combine_mv on
+   bf16 product spectra bit for bit their float32 forms (on the upcast
+   products), each timed at n^2 beside its bound, plain version, strict
+   form and torch call; the CLI's -m sw --fast-transforms runs, RK4 and
+   --time-scheme etdrk4 (exactly 4 ka_sw_fast, 8 kb_pair_fast, 4
+   ky_all_fast, 4 kx_fwd_fast and 4 sw_combine_bf16 with 1 rk4_combine,
+   or 4 sw_combine_mv_bf16, per step), the fast float32 store and the
+   strict bf16 store through ShallowWaterModel.build; bench.py's SW
+   configuration through ShallowWaterModel.build(..., fast=True) with
+   torch.fft.* and torch.matmul raising: zeta and eta within rel-L2
+   2e-4 and 2e-3 of the strict kernel path after 20 RK4 steps, 2e-3
+   and 5e-3 after 200, 1e-3 and 5e-3 after 20 ETDRK4 steps at dt
+   7.5 s, each above 1e-7, div's printed; eta's error larger without
+   the split-linear formulation; the float32 store within the 20-step
+   bars; the unfused RK form bit for bit; ms/step of the fast and strict
+   RK4 and ETDRK4 paths, in turns. The script's total wall time is
+   printed before the JSON lines.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -254,6 +273,9 @@ SW_ETD_DT = 7.5
 # row name: (source, the TPU kernel it replaces, LAUNCHES key, paths)
 XFIRST_BT = ("barotropic-xfirst", "bt-quad", "bt-split")
 XFIRST_SW = ("sw-xfirst", "sw-xfirst-etdrk4")
+# the shallow-water fast paths (phase 5o): through the CLI, RK4 and
+# ETDRK4, and the fast float32 store through ShallowWaterModel.build
+FAST_SW = ("sw-fast", "sw-fast-etdrk4", "sw-fast-f32")
 # the barotropic fusion arms' CLI paths, by the kernel they swap in
 BT_FULL = ("bt-fusekb-full", "bt-full-tail", "bt-etdrk4-full")
 BT_FUSEKX0 = ("bt-fusekx0", "bt-unfused-fusekx0", "bt-etdrk4-fusekx0")
@@ -384,13 +406,38 @@ KERNELS = {
                      "ka_diag_fast", ("barotropic-fast",)),
     "kb_pair_fast": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
                      "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
-                     "kb_pair_fast", ("barotropic-fast",)),
+                     "kb_pair_fast", ("barotropic-fast",) + FAST_SW),
     "kb_adv_half_fast": ("xlab_fftbarotropic_torch/csrc/kb_adv.cu",
                          "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1179",
                          "kb_adv_half_fast", ("barotropic-fast",)),
     "kx_visc_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
                      "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654",
                      "kx_visc_fast", ("barotropic-fast",)),
+    # shallow-water fast mode (rows 16, 17a, 17b on the fast column tile,
+    # 17b's bf16 product store, 17c and 17e on bf16 products): the CLI's
+    # -m sw --fast-transforms runs (RK4, ETDRK4) and the two model paths
+    # of the stores the modes do not default to
+    "ka_sw_fast": ("xlab_fftbarotropic_torch/csrc/ka_sw.cu",
+                   "xlab_fftbarotropic_tpu/ops/pallas_sw.py:217",
+                   "ka_sw_fast", FAST_SW),
+    "ky_all_fast": ("xlab_fftbarotropic_torch/csrc/ky_all.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:513",
+                    "ky_all_fast", FAST_SW),
+    "kx_fwd_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:565",
+                    "kx_fwd_fast", ("sw-fast", "sw-fast-etdrk4")),
+    "kx_fwd_fast_f32": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                        "xlab_fftbarotropic_tpu/ops/pallas_sw.py:565",
+                        "kx_fwd_fast_f32", ("sw-fast-f32",)),
+    "kx_fwd_bf16": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:565",
+                    "kx_fwd_bf16", ("sw-pstore-bf16",)),
+    "sw_combine_bf16": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
+                        "xlab_fftbarotropic_tpu/ops/pallas_sw.py:679",
+                        "sw_combine_bf16", ("sw-fast", "sw-pstore-bf16")),
+    "sw_combine_mv_bf16": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
+                           "xlab_fftbarotropic_tpu/ops/pallas_sw.py:693",
+                           "sw_combine_mv_bf16", ("sw-fast-etdrk4",)),
     # the distributed path (rows 21-23): the CLI's one-shard runs and the
     # four-shard model runs
     "a2a_cols": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
@@ -456,6 +503,19 @@ PER_STEP = {
                         "rk4_combine": 1},
     "bt-etdrk4-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4,
                           "kx_fwd": 4, "visc": 4},
+    # shallow-water fast mode: the fast tile, split-linear, the bf16
+    # product store (and the two stores the modes do not default to)
+    "sw-fast": {"ka_sw_fast": 4, "kb_pair_fast": 8, "ky_all_fast": 4,
+                "kx_fwd_fast": 4, "sw_combine_bf16": 4, "rk4_combine": 1},
+    "sw-fast-etdrk4": {"ka_sw_fast": 4, "kb_pair_fast": 8,
+                       "ky_all_fast": 4, "kx_fwd_fast": 4,
+                       "sw_combine_mv_bf16": 4},
+    "sw-fast-f32": {"ka_sw_fast": 4, "kb_pair_fast": 8, "ky_all_fast": 4,
+                    "kx_fwd_fast_f32": 4, "sw_combine": 4,
+                    "rk4_combine": 1},
+    "sw-pstore-bf16": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4,
+                       "kx_fwd_bf16": 4, "sw_combine_bf16": 4,
+                       "rk4_combine": 1},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
@@ -463,7 +523,10 @@ PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
                "sw-etdrk4": {"ka": 1, "kc": 1},
                "sw-unfused": {"ka": 1, "kc": 1},
                "sw-xfirst": {"ka": 1, "kc": 1},
-               "sw-xfirst-etdrk4": {"ka": 1, "kc": 1}}
+               "sw-xfirst-etdrk4": {"ka": 1, "kc": 1},
+               **{k: {"ka": 1, "kc": 1} for k in (
+                   "sw-fast", "sw-fast-etdrk4", "sw-fast-f32",
+                   "sw-pstore-bf16")}}
 # the sharded paths; through the CLI, the records' diagnostics add their
 # inverse transforms once per segment
 PER_STEP.update({f"shard{k}-{d}-{i}": v
@@ -501,7 +564,16 @@ BTE_ARMS = {"full": dict(fusekb="full"), "fusekx0": dict(fusekx=False)}
 BT_ARM_REF = {"unfused-fusekx0": "unfused"}
 # the main paths driven through a model's entry point
 MODEL_PATHS = ("sw-unfused", "bt-quad", "bt-split")
-SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag") + XFIRST_SW
+# the SW model paths' ShallowWaterModel.build arguments (phase 5o runs
+# the last two: the product stores fast mode and strict mode do not
+# default to)
+SW_MODEL_PATHS = {"sw-unfused": dict(fused_rk=False),
+                  "sw-fast-f32": dict(fast=True, pstore="f32"),
+                  "sw-pstore-bf16": dict(pstore="bf16")}
+# the SW fast mode through the CLI (phase 5o)
+FAST_SW_CLI = ("sw-fast", "sw-fast-etdrk4")
+SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag") + XFIRST_SW + (
+    FAST_SW_CLI)
 # the SW drag path's drag (examples/09-drag-spindown)
 SW_R_DRAG = 2e-4
 # and its time step's cap: 0.9 of the 1 s RK4 viscous bound of example
@@ -961,15 +1033,33 @@ FAST_KERNELS = {"ka_diag_fast": "ka_diag", "kb_pair_fast": "kb_pair",
                 "kx_visc_fast": "kx_visc"}
 FAST_SHAPES = ((64, None), (256, None), (4096, None), (256, 200),
                (1024, 33))
-# the __global__ templates whose last flag is FAST (phase_xtile's tags)
-FAST_TEMPLATES = ("ka_fields_kernel", "kb_pair_kernel", "kb_adv_kernel",
-                  "kx_visc_kernel")
+# the __global__ templates' flags in order (phase_xtile's tags name the
+# fast and bf16 ones set; the combines' product type bf16 tags "bf16")
+TEMPLATE_FLAGS = {"ka_fields_kernel": ("psi_first", "fast"),
+                  "kb_pair_kernel": ("fast",),
+                  "kb_adv_kernel": ("full", "fast"),
+                  "kx_visc_kernel": ("fast", "bf16"),
+                  "ka_sw_kernel": ("fast",), "ky_all_kernel": ("fast",)}
 # the fast path's bars: a fast kernel against its plain version on random
 # inputs (the tensor core's float32 sums run in an order of their own,
 # and a sum a rounding apart can round to the neighbouring bf16 in the
 # next pass), and a fast kernel's error class against the strict one
 FAST_TOL = 1e-4
 FAST_CLASS = (1e-4, 1e-2)
+# the shallow-water fast mode (rows 16, 17a, 17b on the fast column tile,
+# 17b with the bf16 product store; 17c, 17e on bf16 products): its fast
+# FFT forms and the strict rows they are held against, the strict tile's
+# bf16 store and the bf16-product combines beside their float32 forms
+FAST_SW_KERNELS = {"ka_sw_fast": "ka_sw", "ky_all_fast": "ky_all_split",
+                   "kx_fwd_fast": "kx_fwd", "kx_fwd_fast_f32": "kx_fwd"}
+BF16_KERNELS = {"kx_fwd_bf16": "kx_fwd", "sw_combine_bf16": "sw_combine",
+                "sw_combine_mv_bf16": "sw_combine_mv"}
+# the fast SW paths' bars against the strict kernel path (rel-L2 of the
+# physical zeta and eta): (steps, scheme) -> (zeta, eta); every error
+# above FAST_FLOOR (fast mode is not quietly strict)
+FAST_SW_BARS = {(20, "rk4"): (2e-4, 2e-3), (200, "rk4"): (2e-3, 5e-3),
+                (20, "etdrk4"): (1e-3, 5e-3)}
+FAST_FLOOR = 1e-7
 
 
 class FastCase(NamedTuple):
@@ -1002,22 +1092,11 @@ def exact_rows(n: int) -> np.ndarray:
     return (j % (p.m // 16)) < lim
 
 
-def fast_cases(n: int, cols, dev, seed: int) -> dict:
-    """name -> FastCase of the four fast kernels for a length-n transform
-    over `cols` columns (None: the n x n grid's), numpy-seeded: ka_diag
-    (the x-stage of (n, hny) planes), kb_pair and kb_adv_half (the
-    y-stages of (4, n/2 + 1, nx) stacks), kx_visc (with the stage axpy).
-    The exact inputs are small integers on exact_rows (the Hermitian
-    stacks on rows 0, n/16, .., n/2, which keep their mirrors there too)
-    with integer tables; kb_adv_half's exact case has zeta_x = zeta_y = 0
-    and beta = 0, so the advection is src, and u, v constants."""
-    from xlab_fftbarotropic_torch.ops import fused_fft as ff
-    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
-
-    rng = np.random.default_rng(seed)
-    hny = n // 2 + 1
-    cx, cy = (hny, n) if cols is None else (cols, cols)
-
+def _makers(rng, dev):
+    """planes(shape, k, size) -> k float32 planes of normal values times
+    size; ints(shape, k, lo, hi, rows) -> k planes of integers in [lo,
+    hi], zero off `rows` (a mask of the second-last axis): numpy-seeded,
+    on `dev`."""
     def planes(shape, k, size=1.0):
         return [torch.from_numpy((size * rng.standard_normal(shape)).astype(
             np.float32)).to(dev) for _ in range(k)]
@@ -1030,17 +1109,40 @@ def fast_cases(n: int, cols, dev, seed: int) -> dict:
                 a[..., ~rows, :] = 0.0
             out.append(torch.from_numpy(a).to(dev))
         return out
+    return planes, ints
 
+
+def _fast_tables(n: int, cols, dev, planes):
+    """kx, ky, rlap, lap (order one) and mask of the n x n grid (cols
+    None), or random ones of (n, cols)."""
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
     if cols is None:
         t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
-        kx, ky, rlap = t.kx, t.ky, t.rlap
-        lap, mask = t.lap / t.lap.abs().max(), t.mask
-    else:
-        kx, = planes((n,), 1, 1e-4)
-        ky, = planes((cx,), 1, 1e-4)
-        rlap = -1.0 / (1.0 + planes((n, cx), 1)[0] ** 2)
-        lap, = planes((n, cx), 1)
-        mask = (planes((n, cx), 1)[0] > -1.0).float()
+        return t.kx, t.ky, t.rlap, t.lap / t.lap.abs().max(), t.mask
+    kx, = planes((n,), 1, 1e-4)
+    ky, = planes((cols,), 1, 1e-4)
+    rlap = -1.0 / (1.0 + planes((n, cols), 1)[0] ** 2)
+    lap, = planes((n, cols), 1)
+    mask = (planes((n, cols), 1)[0] > -1.0).float()
+    return kx, ky, rlap, lap, mask
+
+
+def fast_cases(n: int, cols, dev, seed: int) -> dict:
+    """name -> FastCase of the four fast kernels for a length-n transform
+    over `cols` columns (None: the n x n grid's), numpy-seeded: ka_diag
+    (the x-stage of (n, hny) planes), kb_pair and kb_adv_half (the
+    y-stages of (4, n/2 + 1, nx) stacks), kx_visc (with the stage axpy).
+    The exact inputs are small integers on exact_rows (the Hermitian
+    stacks on rows 0, n/16, .., n/2, which keep their mirrors there too)
+    with integer tables; kb_adv_half's exact case has zeta_x = zeta_y = 0
+    and beta = 0, so the advection is src, and u, v constants."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    cx, cy = (hny, n) if cols is None else (cols, cols)
+    planes, ints = _makers(rng, dev)
+    kx, ky, rlap, lap, mask = _fast_tables(n, cols, dev, planes)
     rows = exact_rows(n)
     herm = np.zeros(hny, bool)
     herm[::n // 16] = True
@@ -1103,6 +1205,76 @@ def fast_cases(n: int, cols, dev, seed: int) -> dict:
             lambda: ff.kx_visc_fast_plain(efr, efi, elap, emask, ezsr, ezsi,
                                           1.0, (ez0r, ez0i, 0.5)),
             list, (fr, fi, lap, mask, zsr, zsi, z0r, z0i), cx),
+    }
+
+
+def _fields_f32(out):
+    """A stacked result's per-field planes, bf16 ones widened (exactly)
+    for the norms."""
+    return [p[f].float() for p in out for f in range(p.shape[0])]
+
+
+def fast_sw_cases(n: int, cols, dev, seed: int) -> dict:
+    """name -> FastCase of the shallow-water fast FFT forms for a length-n
+    transform over `cols` columns (None: the n x n grid's), numpy-seeded:
+    ka_sw (the x-stage of (n, hny) state planes at the bench's
+    magnitudes: zeta 1e-4, div 1e-6, eta 5 m), ky_all (the y-stage of
+    (n, nx) fields u, v 3 m/s, zeta, eta_s 1e-4, split as fast mode runs
+    it), kx_fwd with the bf16 and with the float32 product store (the
+    x-stage of (5, n, hny) planes). The exact inputs are small integers
+    on exact_rows with integer tables, eta_scale 2 and ies 0.5 (exact
+    powers of two)."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    cx, cy = (hny, n) if cols is None else (cols, cols)
+    planes, ints = _makers(rng, dev)
+    kx, ky, rlap, _, _ = _fast_tables(n, cols, dev, planes)
+    rows = exact_rows(n)
+    # ka_sw
+    sw = [a * p for a, p in zip((1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0),
+                                planes((n, cx), 6))]
+    es = float(fs.eta_pair_scale(sw))
+    esw = ints((n, cx), 6, rows=rows)
+    ekx, = ints((n,), 1)
+    eky, = ints((cx,), 1)
+    erl, = ints((n, cx), 1, 1, 2)
+    erl = erl * torch.where(ints((n, cx), 1, 0, 1)[0] > 0, 1.0, -1.0)
+    # ky_all, split on (fast mode's default)
+    fields = [a * p for a, p in zip((3.0, 3.0, 1e-4, 1e-4),
+                                    planes((n, cy), 4))]
+    ky_args = (*fields, 2.0 ** 15, 1e-4, 9.81, True)
+    eky_args = (*ints((n, cy), 4, rows=rows), 0.5, 1e-4, 9.81, True)
+    # kx_fwd of the five stacked product spectra
+    pr, pi = planes((5, n, cx), 2)
+    epr, epi = ints((5, n, cx), 2, rows=rows)
+
+    def kx_case(store):
+        return FastCase(
+            lambda: fs.kx_fwd(pr, pi, fast=True, pstore=store),
+            lambda: fs.kx_fwd_fast_plain(pr, pi, store),
+            lambda: fs.kx_fwd(pr, pi),
+            lambda: fs.kx_fwd(epr, epi, fast=True, pstore=store),
+            lambda: fs.kx_fwd_fast_plain(epr, epi, store),
+            _fields_f32, (pr, pi), 5 * cx)
+    return {
+        "ka_sw_fast": FastCase(
+            lambda: fs.ka_sw(*sw, rlap, kx, ky, es, fast=True),
+            lambda: fs.ka_sw_fast_plain(*sw, rlap, kx, ky, es),
+            lambda: fs.ka_sw(*sw, rlap, kx, ky, es),
+            lambda: fs.ka_sw(*esw, erl, ekx, eky, 2.0, fast=True),
+            lambda: fs.ka_sw_fast_plain(*esw, erl, ekx, eky, 2.0),
+            _fields_f32, (*sw, rlap), 4 * cx),
+        "ky_all_fast": FastCase(
+            lambda: fs.ky_all(*ky_args, fast=True),
+            lambda: fs.ky_all_fast_plain(*ky_args),
+            lambda: fs.ky_all(*ky_args),
+            lambda: fs.ky_all(*eky_args, fast=True),
+            lambda: fs.ky_all_fast_plain(*eky_args),
+            _fields_f32, tuple(fields), 2.5 * cy),
+        "kx_fwd_fast": kx_case("bf16"),
+        "kx_fwd_fast_f32": kx_case("f32"),
     }
 
 
@@ -1280,6 +1452,339 @@ def phase_fast(n: int, steps: int, dev, profile: bool = False) -> dict:
     return out
 
 
+class Bf16Case(NamedTuple):
+    """A bf16 form (kx_fwd's bf16 store, a combine on bf16 products) on
+    random inputs: the kernel, its plain version, the float32 form whose
+    bits it must give (rounded to bf16 for the store; on the upcast
+    products for a combine), the strict float32 kernel on float32
+    inputs (timed beside it), the outputs of a result, the tensors it
+    reads, its complex transforms and the one torch call that computes
+    the same function, where there is one."""
+    kern: Callable
+    plain: Callable
+    ref: Callable
+    strict: Callable
+    fields: Callable
+    reads: tuple
+    ffts: float = 0.0
+    library: Optional[Callable] = None
+
+
+def bf16_cases(n: int, dev, seed: int) -> dict:
+    """name -> Bf16Case at the n x n grid's shapes: kx_fwd's bf16 store
+    on the strict tile, and sw_combine (with the axpy and the forcing;
+    without the axpy; split with no forcing) and sw_combine_mv (with and
+    without the tendency) on bf16 product spectra, the state at the
+    bench's magnitudes. The names of BF16_KERNELS are the rows the JSON
+    line reports; the others are variants."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    planes, _ = _makers(rng, dev)
+    t = SpectralTables.build(n, n, 600_000.0, 600_000.0, device=dev)
+    pr, pi = planes((5, n, hny), 2)
+    pc = torch.complex(pr, pi)
+    p16 = (pr.to(torch.bfloat16), pi.to(torch.bfloat16))
+    up = tuple(p.float() for p in p16)
+    amps = (1e-4, 1e-4, 1e-6, 1e-6, 5.0, 5.0)
+    sw = tuple(a * p for a, p in zip(amps, planes((n, hny), 6)))
+    sw0 = tuple(a * p for a, p in zip(amps, planes((n, hny), 6)))
+    src = tuple(planes((n, hny), 2))
+    q = torch.stack(planes((3, n, hny), 3)) * 10.0
+    rest = (sw, src, t.kx, t.ky, t.lap, t.mask, 1e-4, 9.81, 6.5, 4000.0)
+    mv = (sw, src, t.kx, t.ky, t.lap, t.mask, 0.0, 0.0, 0.0, 0.0, sw0, q)
+    reads = (*sw[:4], *src, t.lap, t.mask)
+    axpy = dict(axpy=(sw0, 0.4235))
+
+    def stage(out):                       # (tendency, next stage state)
+        return [*(out[0] or ()), *out[1]]
+
+    def comb(kw, fields, extra=()):
+        def on(p):
+            return lambda: fs.sw_combine(*p, *rest, **kw)
+        return Bf16Case(on(p16), lambda: fs.sw_combine_plain(*p16, *rest,
+                                                             **kw),
+                        on(up), on((pr, pi)), fields, (*p16, *reads, *extra))
+
+    def comb_mv(emit, scale=1.0):
+        def on(p):
+            return lambda: fs.sw_combine_mv(*p, *mv, scale, emit)
+        return Bf16Case(on(p16), lambda: fs.sw_combine_mv_plain(
+            *p16, *mv, scale, emit), on(up), on((pr, pi)), stage,
+            (*p16, *reads, *sw0, q))
+
+    def split_no_src(p):
+        return lambda: fs.sw_combine(*p, sw, None, *rest[2:], True)
+    return {
+        "kx_fwd_bf16": Bf16Case(
+            lambda: fs.kx_fwd(pr, pi, pstore="bf16"),
+            lambda: fs.kx_fwd_plain(pr, pi, "bf16"),
+            lambda: tuple(x.to(torch.bfloat16) for x in fs.kx_fwd(pr, pi)),
+            lambda: fs.kx_fwd(pr, pi), _fields_f32, (pr, pi), 5 * hny,
+            lambda: torch.fft.fft(pc, dim=-2)),
+        "sw_combine_bf16": comb(axpy, stage, sw0),
+        "sw_combine_bf16_no_axpy": comb({}, list),
+        "sw_combine_bf16_split_no_src": Bf16Case(
+            split_no_src(p16), lambda: fs.sw_combine_plain(
+                *p16, sw, None, *rest[2:], True), split_no_src(up),
+            split_no_src((pr, pi)), list, (*p16, *sw, t.lap, t.mask)),
+        "sw_combine_mv_bf16": comb_mv(True),
+        "sw_combine_mv_bf16_no_tend": comb_mv(False),
+        "sw_combine_mv_bf16_scale2": comb_mv(True, 2.0),
+    }
+
+
+def _flat(out) -> list:
+    """The tensors of a result: tuples of them, or of tuples (a stage's
+    (tendency, next state)), None left out."""
+    return [x for o in out if o is not None
+            for x in (o if isinstance(o, tuple) else (o,))]
+
+
+def bf16_check(name: str, case: Bf16Case, where: str) -> dict:
+    """A bf16 form against the float32 form it rounds or widens (bit for
+    bit) and its plain version: a combine within TOL (max err over max
+    |plain|), kx_fwd's store within FAST_TOL rel-L2 (bf16 neighbours
+    where the kernel and the torch call round a float32 apart); raises
+    past either."""
+    got, ref = case.fields(case.kern()), case.fields(case.ref())
+    plain = case.fields(case.plain())
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
+    if name.startswith("kx_fwd"):
+        err, bar, what = (max(rel_l2(g, w) for g, w in zip(got, plain)),
+                          FAST_TOL, "rel-L2")
+    else:
+        err, bar, what = (max(float((g - w).abs().max() / w.abs().max())
+                              for g, w in zip(got, plain)), TOL,
+                          "max err / max|plain|")
+    log(f"bf16 {name:28s} {where}: bit for bit its float32 form "
+        f"({'rounded' if name.startswith('kx_fwd') else 'on the upcast'}"
+        f") {same}; {what} vs plain {err:.3e}")
+    check(same, f"{name} at {where}: not the bits of its float32 form")
+    check(err <= bar, f"{name} at {where}: {what} {err:.3e} against its "
+                      f"plain version > {bar}")
+    return dict(bits_of_f32_form=same, err_plain=err)
+
+
+def time_row(name: str, kern, plain, strict, library, bound_ms: float,
+             bound_by: str, n: int, abs_err: float, plain_iters: int = 20,
+             parts: Optional[dict] = None) -> dict:
+    """A kernel's JSON-line numbers at n^2: its time, its plain
+    version's (plain_iters calls), the strict kernel's and the torch
+    call's (where there is one), beside its bound; logged."""
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
+    strict_ms = cuda_ms(strict)
+    library_ms = None if library is None else cuda_ms(library)
+    lib = ("" if library_ms is None
+           else f", one torch call {library_ms:.4f} ms")
+    extra = "" if not parts else (
+        f": bytes {parts['bytes_ms']:.4f} ms, bf16 products "
+        f"{parts['bf16_ms']:.5f} ms + float32 rest {parts['fp32_ms']:.5f} ms")
+    log(f"kernel {name:24s} {n}^2: {ms:.4f} ms, the strict form "
+        f"{strict_ms:.4f} ms, plain torch version {plain_ms:.4f} ms{lib}; "
+        f"bound {bound_ms:.4f} ms ({bound_by}{extra}; "
+        f"{100.0 * bound_ms / ms:.1f} % of it reached)")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                strict_ms=strict_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, **(parts or {}))
+
+
+def fast_sw_library(name: str, n: int, dev):
+    """The one torch.fft call of a fast SW form's transform on its
+    formed input at n^2 (complex64): ka_sw's ifft of the four formed
+    fields, ky_all's rfft of the five formed products, kx_fwd's fft."""
+    hny = n // 2 + 1
+    if name == "ka_sw_fast":
+        x = torch.complex(*(torch.randn((2, 4, n, hny), device=dev)))
+        return lambda: torch.fft.ifft(x, dim=1)
+    if name == "ky_all_fast":
+        x = torch.randn((5, n, n), device=dev)
+        return lambda: torch.fft.rfft(x, dim=1)
+    x = torch.complex(*(torch.randn((2, 5, n, hny), device=dev)))
+    return lambda: torch.fft.fft(x, dim=-2)
+
+
+def sw_fields_of(state, n: int) -> dict:
+    """The physical zeta, div and eta of a SW state."""
+    return {k: torch.fft.irfft2(z, s=(n, n))
+            for k, z in zip(("zeta", "div", "eta"), state)}
+
+
+def phase_fast_sw(n: int, steps: int, dev, profile: bool = False) -> dict:
+    """Phase 5o, shallow water: each fast SW form against its plain
+    version (bit for bit on exact inputs, FAST_TOL on random ones) and
+    its strict kernel (FAST_CLASS) at FAST_SHAPES, kx_fwd's bf16 store
+    the rounding of its float32 form bit for bit; the bf16 store of the
+    strict tile and the bf16-product combines bit for bit their float32
+    forms at 256^2 and n^2; each timed at n^2 beside its bound, its
+    plain version, its strict form and one torch call where there is
+    one. The CLI's -m sw --fast-transforms runs (RK4 and ETDRK4, exact
+    launches), the fast run with the float32 store and the strict run
+    with the bf16 store through ShallowWaterModel.build (exact
+    launches); bench.py's SW configuration through
+    ShallowWaterModel.build(..., fast=True) with torch.fft.* and
+    torch.matmul raising, held to the strict kernel path at
+    FAST_SW_BARS (RK4 after 20 and 200 steps, ETDRK4 at dt 7.5 s after
+    20), div's error printed, the split-linear formulation's eta gain,
+    the float32 store within the 20-step bars, the unfused RK form bit
+    for bit; ms/step of the fast and strict RK4 and ETDRK4 paths (and
+    the float32 store), in turns; with `profile` the fast RK4 path's
+    breakdown (profile_run)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+
+    t_phase = time.perf_counter()
+    out = {"checks": {}, "kernels": {}, "main_paths": {}}
+    shapes = [(64, None), (256, None), (n, None)] + [
+        s for s in FAST_SHAPES if s[1] is not None]
+    for size, cols in dict.fromkeys(shapes):
+        cases = fast_sw_cases(size, cols, dev, size + (cols or 0) + 1)
+        where = f"{size}^2" if cols is None else f"{size} x {cols}"
+        for name, case in cases.items():
+            out["checks"][f"{name} {where}"] = fast_check(name, case, where)
+        # the bf16 store is the rounding of the float32 store's bits
+        a = cases["kx_fwd_fast"].kern()
+        b = cases["kx_fwd_fast_f32"].kern()
+        same = all(bool(torch.equal(x, y.to(torch.bfloat16)))
+                   for x, y in zip(a, b))
+        log(f"fast kx_fwd_fast {where}: the bf16 store is the float32 "
+            f"store rounded, bit for bit: {same}")
+        check(same, f"kx_fwd_fast at {where}: not its float32 store "
+                    f"rounded")
+        if (size, cols) != (n, None):
+            continue
+        for name, case in cases.items():
+            raw = case.plain()
+            got, want = case.fields(case.kern()), case.fields(raw)
+            bound_ms, bound_by, parts = fast_bound(case, raw, size)
+            out["kernels"][name] = time_row(
+                name, case.kern, case.plain, case.strict,
+                fast_sw_library(name, size, dev), bound_ms, bound_by, size,
+                max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                plain_iters=3, parts=parts)
+            out["kernels"][name]["rel_l2"] = \
+                out["checks"][f"{name} {where}"]["rel_l2_plain"]
+    for size in dict.fromkeys((256, n)):
+        for name, case in bf16_cases(size, dev, size + 5).items():
+            out["checks"][f"{name} {size}^2"] = bf16_check(name, case,
+                                                           f"{size}^2")
+            if size != n or name not in BF16_KERNELS:
+                continue
+            raw = case.plain()
+            got, want = case.fields(case.kern()), case.fields(raw)
+            bound_ms, bound_by = bound(case, _flat(raw), n)
+            out["kernels"][name] = time_row(
+                name, case.kern, case.plain, case.strict, case.library,
+                bound_ms, bound_by, n,
+                max(float((g - w).abs().max()) for g, w in zip(got, want)))
+    log(f"phase 5o (shallow water) kernel checks: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for family in ("sw-fast", "sw-fast-etdrk4"):
+        out["main_paths"][family] = phase_main_path(family, n, steps)
+    for path in ("sw-fast-f32", "sw-pstore-bf16"):
+        out["main_paths"][path] = phase_model_path(path, n, steps)
+    # bench.py's SW configurations: the balanced weak vortex, dt the RK4
+    # gravity-wave bound (0.847 s at 4096^2), and ETDRK4 at 7.5 s
+    cfg = ModelConfig(nx=n, ny=n)
+    cfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
+    ecfg = cfg.replace(time_scheme="etdrk4", dt=SW_ETD_DT)
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        os.environ["XFB_ETD_CACHE"] = tmp    # built once, then loaded
+        fast = ShallowWaterModel.build(cfg, dev, fast=True)
+        t = fast.tables
+        models = {
+            "fast": fast, "strict": ShallowWaterModel.build(cfg, dev, t),
+            "fast-no-split": ShallowWaterModel.build(cfg, dev, t, fast=True,
+                                                     split=False),
+            "fast-f32": ShallowWaterModel.build(cfg, dev, t, fast=True,
+                                                pstore="f32"),
+            "fast-unfused": ShallowWaterModel.build(cfg, dev, t, fast=True,
+                                                    fused_rk=False),
+            "fast-etdrk4": ShallowWaterModel.build(ecfg, dev, t, fast=True),
+            "strict-etdrk4": ShallowWaterModel.build(ecfg, dev, t)}
+        os.environ["XFB_ETD_CACHE"] = "0"
+    check(fast.fast and fast.split and fast.pstore == "bf16",
+          "fast SW model form")
+    s0 = fast.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    src = fast.zero_source()
+    for k in ("fast", "fast-etdrk4"):
+        with _refusing_library():
+            z = models[k].segment(s0, src, 2)
+            torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(torch.view_as_real(x)).all())
+                  for x in z), f"{k} state not finite")
+        log(f"no library transform: 2 steps of the SW {k} path at {n}^2 "
+            f"ran with torch.fft.* and torch.matmul raising")
+
+    def errors(k, ref, steps_):
+        a = sw_fields_of(models[k].segment(s0, src, steps_), n)
+        b = sw_fields_of(models[ref].segment(s0, src, steps_), n)
+        for f, x in a.items():
+            check(bool(torch.isfinite(x).all()), f"{k} {f} not finite")
+        e = {f: rel_l2(a[f], b[f]) for f in a}
+        log(f"fast SW trajectory: {k} vs {ref}, {steps_} steps at {n}^2, "
+            f"rel-L2 zeta {e['zeta']:.3e}, eta {e['eta']:.3e}, div "
+            f"{e['div']:.3e} (div: no bar)")
+        out[f"{k}_{steps_}_steps"] = e
+        return e
+
+    for (k_steps, scheme), (bz, be) in FAST_SW_BARS.items():
+        etd = scheme == "etdrk4"
+        e = errors("fast-etdrk4" if etd else "fast",
+                   "strict-etdrk4" if etd else "strict", k_steps)
+        for f, bar in (("zeta", bz), ("eta", be)):
+            check(FAST_FLOOR < e[f] <= bar,
+                  f"fast SW {scheme} after {k_steps} steps: {f} rel-L2 "
+                  f"{e[f]:.3e} outside ({FAST_FLOOR:g}, {bar:g}]")
+    e20 = out["fast_20_steps"]
+    ens = errors("fast-no-split", "strict", 20)
+    check(ens["eta"] > e20["eta"], f"split-linear did not cut eta's "
+                                   f"error: {ens['eta']:.3e} without, "
+                                   f"{e20['eta']:.3e} with")
+    ef = errors("fast-f32", "strict", 20)
+    for f, bar in zip(("zeta", "eta"), FAST_SW_BARS[(20, "rk4")]):
+        check(FAST_FLOOR < ef[f] <= bar, f"fast SW float32 store: {f} "
+                                         f"rel-L2 {ef[f]:.3e}")
+    a = models["fast"].segment(s0, src, steps)
+    b = models["fast-unfused"].segment(s0, src, steps)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    log(f"fast SW fused-RK vs unfused form, {steps} steps: bit for bit "
+        f"{same}")
+    check(same, "fast SW fused and unfused RK forms differ")
+    out["fused_vs_unfused_bit_identical"] = same
+    order = ("fast", "strict", "fast-etdrk4", "strict-etdrk4", "fast-f32")
+    times = {k: [] for k in order}
+    for k in order + order[::-1]:
+        m = models[k]
+        m.segment(s0, src, 2)                      # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m.segment(s0, src, steps)
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end) / steps)
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[f"ms_per_step_{k}"] = ms
+        log(f"time shallow-water {k:13s}: {ms:.3f} ms/step "
+            f"({', '.join(f'{x:.3f}' for x in ts)}), "
+            f"{n * n / (ms * 1e-3):.4e} grid-points/s")
+    if profile:
+        out["profile"] = profile_run(
+            "sw-fast", lambda: models["fast"].segment(s0, src, 5), 5)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5o (shallow water): {out['wall_s']:.1f} s")
+    return out
+
+
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1372,9 +1877,7 @@ def phase_xtile(n: int) -> dict:
         st, ld = (int(v) for v in re.search(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads",
             body).groups())
-        # the fast column tile's instances: the last template flag set
-        fast = re.search(rf"\d{name}I(Lb[01]E)?Lb1EE", fn) is not None
-        tag = f"{name} fast" if fast and name in FAST_TEMPLATES else name
+        tag = ptxas_tag(name, fn)
         while tag in out["ptxas"]:              # template instances
             tag += "'"
         out["ptxas"][tag] = dict(registers=regs, spill_stores=st,
@@ -1382,6 +1885,19 @@ def phase_xtile(n: int) -> dict:
         log(f"ptxas {tag:36s}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B")
     return out
+
+
+def ptxas_tag(name: str, fn: str) -> str:
+    """A kernel instance's name in the ptxas lines: the kernel's, and
+    "fast" and "bf16" where those template flags are set (the combines:
+    "bf16" for the bf16 product type)."""
+    flags = re.search(rf"\d{name}I((?:Lb[01]E)+)E", fn)
+    bits = re.findall(r"Lb([01])E", flags.group(1)) if flags else []
+    set_ = [f for f, b in zip(TEMPLATE_FLAGS.get(name, ()), bits)
+            if b == "1" and f in ("fast", "bf16")]
+    if re.search(rf"\d{name}I\d+__nv_bfloat16E", fn):
+        set_.append("bf16")
+    return " ".join([name] + set_)
 
 
 def ka_pins(n: int, dev, rng) -> dict:
@@ -1626,6 +2142,9 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
                else []) for f in BT_ARM_ENV},
         # fast mode (phase 5o)
         "barotropic-fast": (["vort"], ["--fast-transforms"]),
+        "sw-fast": (["vort", "div", "h"], sw_rk4 + ["--fast-transforms"]),
+        "sw-fast-etdrk4": (["vort", "div", "h"],
+                           sw_etd + ["--fast-transforms"]),
         # the sharded model on one shard: shard-<decomp>-<impl>
         **{f: (["vort"], ["--shard", "--decomp", f.split("-")[1],
                           "--shard-fft", f.split("-")[2]])
@@ -1693,7 +2212,9 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
 def phase_model_path(path: str, n: int, steps: int) -> dict:
     """A main path the CLI does not select, through its model's entry
     point: the SW unfused RK4 form (ShallowWaterModel.build(...,
-    fused_rk=False), the balanced weak vortex) or the barotropic
+    fused_rk=False), the balanced weak vortex), the SW fast mode with the
+    float32 product store and the strict SW path with the bf16 one
+    (SW_MODEL_PATHS), or the barotropic
     QUAD_MODE "quad" or "split" (BarotropicModel.build(..., quad_mode=
     ...), the gaussian IC); one segment of `steps` steps with the
     runner's zero forcing, the launch counters set to 0 just before it
@@ -1706,11 +2227,14 @@ def phase_model_path(path: str, n: int, steps: int) -> dict:
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
 
     cfg = ModelConfig(nx=n, ny=n)
-    if path == "sw-unfused":
+    if path in SW_MODEL_PATHS:
         cfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
-        m = ShallowWaterModel.build(cfg, "cuda", fused_rk=False)
+        kw = SW_MODEL_PATHS[path]
+        m = ShallowWaterModel.build(cfg, "cuda", **kw)
         s0 = m.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
-        entry = "ShallowWaterModel(fused_rk=False).segment"
+        entry = (f"ShallowWaterModel("
+                 f"{', '.join(f'{k}={v!r}' for k, v in kw.items())})"
+                 f".segment")
     else:
         mode = path.split("-")[1]
         m = BarotropicModel.build(cfg, "cuda", quad_mode=mode)
@@ -2972,6 +3496,7 @@ def main(argv=None) -> int:
                     "torch.profiler (the breakdown of where their time "
                     "goes)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible (torch.cuda."
@@ -3026,6 +3551,9 @@ def main(argv=None) -> int:
     report["fast"] = phase_fast(args.n, args.steps, dev, args.profile)
     report["kernels"].update(report["fast"]["kernels"])
     report["main_paths"]["barotropic-fast"] = report["fast"]["main_path"]
+    report["fast_sw"] = phase_fast_sw(args.n, args.steps, dev, args.profile)
+    report["kernels"].update(report["fast_sw"]["kernels"])
+    report["main_paths"].update(report["fast_sw"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)
@@ -3060,6 +3588,8 @@ def main(argv=None) -> int:
         if "launch_ms" in k:
             rows[-1]["launch_ms"] = k["launch_ms"]
     check(all(math.isfinite(r["ms"]) for r in rows), "kernel times")
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all "
+        f"(the build included)")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 """Time the single-card main paths of one or more checkouts of the port,
 in turns, in one call: ms/step at n^2 of the barotropic, tracer and
 shallow-water plane steppers' kernel paths (the barotropic one also in
-its FUSEKB=half arm, and in fast mode where the checkout has it) and of
-the barotropic and shallow-water torch.fft library paths (bench.py's
+its FUSEKB=half arm, the shallow-water one also under ETDRK4 at dt 7.5
+s, and each in fast mode where the checkout has it) and of the
+barotropic and shallow-water torch.fft library paths (bench.py's
 configurations, as chip_smoke.py's build_models makes them).
 
     python3 scripts/path_steps.py [--root DIR ...] [--n 4096]
@@ -29,12 +30,16 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 PATHS = ("barotropic", "barotropic-half", "barotropic-fast",
          "barotropic-library", "tracer", "shallow-water",
-         "shallow-water-library")
+         "shallow-water-fast", "shallow-water-etdrk4",
+         "shallow-water-fast-etdrk4", "shallow-water-library")
 
 
 def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
     """ms/step of every path of the port under `root`."""
+    import os
+
     import torch
+    os.environ["XFB_ETD_CACHE"] = "0"       # the ETD tables built here
     sys.path.insert(0, str(Path(root).resolve()))
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
@@ -65,10 +70,18 @@ def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
         "tracer": (tr, tr.init_state(v0, tracer_ic(cfg, "gaussian")), zero),
         "shallow-water": (sw, sw0, None),
         "shallow-water-library": (swl, sw0, None)}
+    etd = cfg.replace(time_scheme="etdrk4", dt=7.5)
+    models["shallow-water-etdrk4"] = (ShallowWaterModel.build(etd, dev),
+                                      sw0, None)
     if "fast" in inspect.signature(BarotropicModel.build).parameters:
         models["barotropic-fast"] = (BarotropicModel.build(cfg, dev,
                                                            fast=True),
                                      bt.init_state(v0), zero)
+    if "fast" in inspect.signature(ShallowWaterModel.build).parameters:
+        models["shallow-water-fast"] = (ShallowWaterModel.build(
+            cfg.replace(dt=sw_dt), dev, fast=True), sw0, None)
+        models["shallow-water-fast-etdrk4"] = (ShallowWaterModel.build(
+            etd, dev, fast=True), sw0, None)
     out = {}
     for name in (p for p in PATHS if p in models):
         m, s0, src = models[name]
@@ -116,7 +129,7 @@ def main(argv=None) -> int:
         cells = [f"{sum(r[name]) / len(r[name]):.3f} ("
                  + ", ".join(f"{v:.3f}" for v in r[name]) + ")"
                  if name in r else "not in this checkout" for r in results]
-        print(f"{name:22s} ms/step at {args.n}^2: " + " | ".join(
+        print(f"{name:26s} ms/step at {args.n}^2: " + " | ".join(
             f"{root}: {c}" for root, c in zip(roots, cells)))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -8,10 +8,13 @@ not meant to touch compiled to the same instructions.
 Each --root builds its own kernel library (ops/_build.py, in its own
 tree) in a process of its own; `cuobjdump -sass` lists every __global__
 function. A function is keyed by its name and template arguments, with
-the last flag of the templates that gained a FAST flag (csrc/xtile.cuh:
-ka_fields_kernel, kb_pair_kernel, kb_adv_kernel, kx_visc_kernel) taken
-off, and FAST = true instances (no counterpart in a checkout without
-them) left out. Prints, per key, whether the instructions (encodings
+the flags its template gained for fast mode and the shallow-water bf16
+product store taken off (FAST on ka_fields_kernel, kb_pair_kernel,
+kb_adv_kernel, kx_visc_kernel, ka_sw_kernel and ky_all_kernel; BF16 on
+kx_visc_kernel; the product type of sw_combine_kernel and
+sw_combine_mv_kernel), and the instances with a gained flag set or a
+bf16 product type (no counterpart in a checkout without them) left out.
+Prints, per key, whether the instructions (encodings
 included) are identical in the two checkouts; exits non-zero if any
 differs or is missing in one. --dump DIR writes the two SASS listings of
 each function that differs. Needs the CUDA toolkit (nvcc, cuobjdump).
@@ -27,9 +30,13 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the templates whose last flag is FAST in a checkout that has fast mode
-FAST_TEMPLATES = ("ka_fields_kernel", "kb_pair_kernel", "kb_adv_kernel",
-                  "kx_visc_kernel")
+# the templates that gained flags (FAST, BF16) after their first form:
+# the number of flags each had before (ka_fields_kernel's PSI_FIRST,
+# kb_adv_kernel's FULL); every later flag is a gained one
+OWN_FLAGS = {"ka_fields_kernel": 1, "kb_pair_kernel": 0, "kb_adv_kernel": 1,
+             "kx_visc_kernel": 0, "ka_sw_kernel": 0, "ky_all_kernel": 0}
+# the templates on the product type: float (the first form) or bf16
+PRODUCT_TEMPLATES = ("sw_combine_kernel", "sw_combine_mv_kernel")
 
 
 def library(root: str) -> str:
@@ -51,8 +58,9 @@ def cuobjdump() -> str:
 
 
 def key(name: str):
-    """(kernel, template arguments) of a mangled name, the FAST flag
-    taken off; None for a FAST = true instance."""
+    """(kernel, template arguments) of a mangled name, the gained flags
+    and the float product type taken off; None for an instance with a
+    gained flag set or a bf16 product type."""
     # the length prefix of the kernel's name may follow the digits of a
     # file hash: try every tail of every run of digits
     for m in re.finditer(r"\d+", name):
@@ -66,14 +74,14 @@ def key(name: str):
     else:
         return (name, "")
     rest = name[m.end() + len(base):]
+    if base in PRODUCT_TEMPLATES:
+        return None if "bfloat16" in rest[:24] else (base, "")
     t = re.match(r"I((?:L[a-z]+n?\d+E)+)E", rest)
     flags = re.findall(r"L[a-z]+n?\d+E", t.group(1)) if t else []
-    own = {"ka_fields_kernel": 1, "kb_adv_kernel": 1}.get(base, 0)
-    if base in FAST_TEMPLATES and len(flags) > own:
-        if flags[-1] == "Lb1E":
-            return None
-        flags = flags[:-1]
-    return (base, "".join(flags))
+    own = OWN_FLAGS.get(base, len(flags))
+    if "Lb1E" in flags[own:]:
+        return None
+    return (base, "".join(flags[:own]))
 
 
 def functions(lib: str) -> dict:

@@ -1111,7 +1111,8 @@ def test_fusion_arm_launch_counts_and_default_bits(cuda, arm):
 # ----- fast mode: rows 1, 2, 9, 4 on the fast column tile -----
 
 FAST_NAMES = ["ka_diag_fast", "kb_pair_fast", "kb_adv_half_fast",
-              "kx_visc_fast"]
+              "kx_visc_fast", "ka_sw_fast", "ky_all_fast", "kx_fwd_fast",
+              "kx_fwd_fast_f32"]
 # (transform length, columns): None the n x n grid's (chip_smoke.py
 # FAST_SHAPES); 200 and 33 columns end in ragged tiles
 FAST_SHAPES = [(64, None), (256, None), (4096, None), (256, 200),
@@ -1128,10 +1129,91 @@ def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
     inputs, and within rel-L2 1e-4 .. 1e-2 of the strict kernel (it
     really rounds to bf16, and stays in class): chip_smoke.py's
     fast_check on its fast_cases."""
-    from chip_smoke import fast_cases, fast_check
+    from chip_smoke import FAST_SW_KERNELS, fast_cases, fast_check
+    from chip_smoke import fast_sw_cases
 
     n, cols = shape
-    fast_check(name, fast_cases(n, cols, cuda, n)[name], f"{shape}")
+    cases = fast_sw_cases if name in FAST_SW_KERNELS else fast_cases
+    fast_check(name, cases(n, cols, cuda, n)[name], f"{shape}")
+
+
+@pytest.mark.parametrize("shape", FAST_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1] or 'grid'}")
+def test_fast_kx_fwd_bf16_store_is_its_float32_store_rounded(cuda, shape):
+    """kx_fwd's bf16 product store on the fast tile gives the bits of
+    its float32 store rounded once to bf16 (.to(torch.bfloat16)), ragged
+    tiles included."""
+    from chip_smoke import fast_sw_cases
+
+    n, cols = shape
+    cases = fast_sw_cases(n, cols, cuda, n)
+    a = cases["kx_fwd_fast"].kern()
+    b = cases["kx_fwd_fast_f32"].kern()
+    assert all(torch.equal(x, y.to(torch.bfloat16)) for x, y in zip(a, b))
+
+
+BF16_NAMES = ["kx_fwd_bf16", "sw_combine_bf16", "sw_combine_bf16_no_axpy",
+              "sw_combine_bf16_split_no_src", "sw_combine_mv_bf16",
+              "sw_combine_mv_bf16_no_tend", "sw_combine_mv_bf16_scale2"]
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("name", BF16_NAMES)
+def test_bf16_forms_are_their_float32_forms(cuda, name, n):
+    """The strict tile's bf16 product store is its float32 store rounded,
+    and the combines on bf16 product spectra are their float32 forms on
+    the upcast products, bit for bit, every form: chip_smoke.py's
+    bf16_check on its bf16_cases."""
+    from chip_smoke import bf16_cases, bf16_check
+
+    bf16_check(name, bf16_cases(n, cuda, n)[name], f"{n}^2")
+
+
+@pytest.mark.parametrize("scheme", ["rk4", "etdrk4"])
+def test_fast_sw_launches_and_error_class(cuda, scheme):
+    """Three steps of shallow-water fast mode at 256^2 (the balanced
+    vortex, zero forcing) launch exactly the fast forms and the
+    bf16-product combine per step (and ka, kc once for the forcing
+    spectrum); the unfused RK form gives the fused one's bits (ETDRK4's
+    unfused form, which reorders its stage sums, is within rel-L2 1e-5);
+    zeta and eta stay within rel-L2 1e-7 .. 1e-2 of the strict kernel
+    path (div has no bar)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel)
+
+    etd = scheme == "etdrk4"
+    cfg = ModelConfig(nx=256, ny=256, time_scheme=scheme,
+                      dt=7.5 if etd else 3.0)
+    fast = ShallowWaterModel.build(cfg, cuda, fast=True)
+    other = ShallowWaterModel.build(cfg, cuda, fast.tables, fast=True,
+                                    **({"etd_fuse": False} if etd
+                                       else {"fused_rk": False}))
+    strict = ShallowWaterModel.build(cfg, cuda, fast.tables)
+    s0 = fast.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    src = fast.zero_source()
+    ff.reset_launches()
+    a = fast.segment(s0, src, 3)
+    torch.cuda.synchronize()
+    comb = ({"sw_combine_mv_bf16": 12} if etd
+            else {"sw_combine_bf16": 12, "rk4_combine": 3})
+    want = {"ka_sw_fast": 12, "kb_pair_fast": 24, "ky_all_fast": 12,
+            "kx_fwd_fast": 12, "ka": 1, "kc": 1, **comb}
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+    def rel(x, y):
+        fx, fy = (torch.fft.irfft2(z, s=(256, 256)) for z in (x, y))
+        return float(torch.linalg.vector_norm(fx - fy)
+                     / torch.linalg.vector_norm(fy))
+
+    b = other.segment(s0, src, 3)
+    if etd:
+        assert rel(a.zeta_hat, b.zeta_hat) < 1e-5
+    else:
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = strict.segment(s0, src, 3)
+    for x, y in ((a.zeta_hat, ref.zeta_hat), (a.eta_hat, ref.eta_hat)):
+        assert 1e-7 < rel(x, y) < 1e-2
 
 
 def test_fast_path_launches_and_error_class(cuda):

@@ -305,7 +305,8 @@ def test_cli_fast_mode_on_the_library_path_stays_float32(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,env", [
-    (["-m", "sw"], {}), (["-m", "tracer"], {}), (["-m", "fd"], {}),
+    (["-m", "sw"], {"XFB_SW_YFIRST": "0"}), (["-m", "tracer"], {}),
+    (["-m", "fd"], {}),
     (["--shard"], {}), (["--ensemble", "2"], {}),
     (["--time-scheme", "etdrk4"], {}),
     ([], {"XFB_BT_FUSEKB": "0"}), ([], {"XFB_BT_FUSEKB": "full"}),

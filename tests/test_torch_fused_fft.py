@@ -148,7 +148,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                            "a2a_cols": 0, "a2a_rows": 0, "xstage": 0,
                            "xstage_gather": 0, "xstage_scatter": 0,
                            "ka_diag_fast": 0, "kb_pair_fast": 0,
-                           "kb_adv_half_fast": 0, "kx_visc_fast": 0}
+                           "kb_adv_half_fast": 0, "kx_visc_fast": 0,
+                           "ka_sw_fast": 0, "ky_all_fast": 0,
+                           "kx_fwd_fast": 0, "kx_fwd_fast_f32": 0,
+                           "kx_fwd_bf16": 0, "sw_combine_bf16": 0,
+                           "sw_combine_mv_bf16": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

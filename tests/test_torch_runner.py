@@ -190,7 +190,9 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fast-transforms", "-m", "sw"], ["--shard", "--decomp", "pencil"],
+    ["--fast-transforms", "-m", "sw", "--r-drag", "2e-4", "--nx", "64",
+     "--ny", "64"],
+    ["--shard", "--decomp", "pencil"],
     ["--ensemble", "4", "--shard"],
     ["-m", "sw", "--time-scheme", "etdrk4", "--beta", "1e-11"],
     ["-m", "shallow-water", "--fft-backend", "pallas", "--nu4", "1e5",

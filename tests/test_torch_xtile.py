@@ -1471,3 +1471,87 @@ def test_emulated_fast_kernels_are_their_plain_versions(shape):
                   fast=True)
     want = fst.fast_dft(fr, fi, -1)
     assert torch.equal(got, torch.complex(*want))
+
+
+# ----- the bf16 product store (csrc/xtile.cuh Bf16Out: kx_visc_kernel
+# with BF16, the shallow-water kx_fwd under XFB_SW_PSTORE=bf16), emulated
+# on flat planes: rows 17b fast and strict -----
+
+def emulate_bf16_store(fr, fi, fast: bool):
+    """kx_visc_kernel<FAST, true> on a (F, n, m) stack: each field's
+    forward x-stage (the fast tile or the strict one) and Bf16Out's
+    stores, X[k] of tile column c rounded once to bf16 at plane + k m +
+    j0 + c of the flat re and im planes, plane = f n m, skipped past m.
+    The planes start NaN with one field's slots more behind the last,
+    and every store is counted: (re, im, writes)."""
+    nf, n, m = fr.shape
+    size = nf * n * m
+    nan = torch.full((size + n * m,), float("nan"), dtype=torch.bfloat16)
+    out_r, out_i = nan.clone(), nan.clone()
+    writes = torch.zeros(size + n * m, dtype=torch.int64)
+    e = _Cluster(n, m, 4, fast=fast)
+    for f in range(nf):
+        load = _dense(torch.complex(fr[f], fi[f]))
+        for tile in range(e.tiles):
+            blocks = e.transform(load, tile, True)
+            for rank in range(e.k):
+                k2, col, z = e.combine(blocks, rank, True)
+                j = tile * e.c + col
+                live = j < m                      # the ragged last tile
+                for k1 in range(e.k):
+                    off = (f * n * m + (k2 + e.m * k1) * m + j)[live]
+                    out_r[off] = z[k1].real[live].to(torch.bfloat16)
+                    out_i[off] = z[k1].imag[live].to(torch.bfloat16)
+                    writes.index_put_((off,), torch.ones_like(off),
+                                      accumulate=True)
+    return out_r, out_i, writes
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "strict"])
+@pytest.mark.parametrize("shape", [(2, 64, 33), (2, 256, 129),
+                                   (1, 1024, 21)], ids=str)
+def test_emulated_bf16_store_writes_each_value_once(shape, fast):
+    """kx_fwd's bf16 store over F planes of (n, m) with m columns ending
+    in a ragged tile: every value of every plane written exactly once,
+    nothing behind the last plane, each the float32 result of its tile
+    rounded once to bf16 (the fast tile's: kx_fwd_fast_plain's bf16
+    bits)."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    nf, n, m = shape
+    fr, fi = _float_planes(np.random.default_rng(n + m + fast), shape, 2)
+    out_r, out_i, writes = emulate_bf16_store(fr, fi, fast)
+    size = nf * n * m
+    assert (writes[:size] == 1).all() and (writes[size:] == 0).all()
+    assert out_r[size:].isnan().all() and out_i[size:].isnan().all()
+    got = (out_r[:size].view(shape), out_i[:size].view(shape))
+    x = torch.stack([emulate(_dense(torch.complex(fr[f], fi[f])), n, m,
+                             True, elem=4, fast=fast) for f in range(nf)])
+    assert torch.equal(got[0], x.real.to(torch.bfloat16))
+    assert torch.equal(got[1], x.imag.to(torch.bfloat16))
+    if fast:
+        want = fs.kx_fwd_fast_plain(fr, fi, "bf16")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fast_sw_entries_agree_with_the_kernel_source():
+    """The shallow-water fast entries and the bf16 forms exist with the
+    plan's arguments and their ctypes signatures; Bf16Out rounds with
+    __float2bfloat16_rn (round to nearest even) and stores 2-byte
+    values one by one (a bf16 half-spectrum row is not 4-byte aligned on
+    every row)."""
+    for name, entry in (("ka_sw.cu", "xfb_ka_sw_fast"),
+                        ("ky_all.cu", "xfb_ky_all_fast"),
+                        ("kx_visc.cu", "xfb_kx_fwd_fast"),
+                        ("kx_visc.cu", "xfb_kx_fwd_bf16")):
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                        _source(name))
+        assert "int tile_c, int cluster_k" in " ".join(sig.group(1).split())
+        assert entry in _build.SIGNATURES
+    for entry in ("xfb_sw_combine_bf16", "xfb_sw_combine_mv_bf16"):
+        assert f'extern "C" int {entry}(' in _source("sw_combine.cu")
+        assert entry in _build.SIGNATURES
+    body = _body(_source("xtile.cuh"), "struct Bf16Out")
+    assert "__float2bfloat16_rn(v.x)" in body and "j >= m" in body
+    assert "__nv_bfloat162" not in body
+    assert "__bfloat162float" in _source("sw_combine.cu")

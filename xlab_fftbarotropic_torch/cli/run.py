@@ -34,12 +34,21 @@ the unfused RK form). XFB_FUSEKX_MAX is not read: its 4096 cap is the
 TPU's VMEM limit, and the port keeps the fused kx_visc up to 8192^2.
 
 --fast-transforms is the JAX package's fast mode for the barotropic
-family: XFB_BT_FUSEKB=auto resolves to half, and the y-first RK4 plane
-stepper runs ka_diag, kb_pair, kb_adv_half and kx_visc with their
-sub-DFTs as bf16 tensor-core products (BarotropicModel.build(...,
-fast=True)); --fft-backend xla keeps its float32 library path. The
-other families, --shard, --ensemble, --time-scheme etdrk4 and the other
-fusion arms stop with an error naming ROADMAP.md queue A, item 4.
+and shallow-water families. Barotropic: XFB_BT_FUSEKB=auto resolves to
+half, and the y-first RK4 plane stepper runs ka_diag, kb_pair,
+kb_adv_half and kx_visc with their sub-DFTs as bf16 tensor-core products
+(BarotropicModel.build(..., fast=True)). Shallow water (-m sw, RK4 or
+--time-scheme etdrk4): the y-first plane stepper runs ka_sw, kb_pair,
+ky_all and kx_fwd on the fast tile (ShallowWaterModel.build(...,
+fast=True)), and XFB_SW_SPLIT=auto and XFB_SW_PSTORE=auto resolve to
+the split-linear formulation and the bf16 product store; the CLI reads
+XFB_SW_SPLIT (auto, or 0, off or empty: off; anything else on) and
+XFB_SW_PSTORE (auto, bf16 or bfloat16; anything else f32) as
+pallas_sw.py does, in strict mode too. --fft-backend xla keeps the
+float32 library path. The tracer, -m fd, --shard, --ensemble, the
+barotropic --time-scheme etdrk4 and other fusion arms, XFB_SW_YFIRST=0
+and shallow-water RK4 with --r-drag or --nu4 stop with an error naming
+ROADMAP.md queue A, item 4.
 """
 
 from __future__ import annotations
@@ -61,6 +70,36 @@ FAST_BANNER = ("# fast transforms: bf16 tensor-core sub-DFTs (mma.sync "
                "kb_adv_half and kx_visc (barotropic 30-step vorticity "
                "rel-L2 3.2e-5 at 4096^2 on an H100; reference parity "
                "needs the float32 default)")
+# and its shallow-water note: the JAX CLI's, with the port's kernels and
+# its figures on an H100 (chip_smoke.py phase 5o: bench.py's SW
+# configuration at 4096^2, 20 RK4 steps at dt 0.847 s, against the
+# strict kernel path)
+SW_FAST_BANNER = (
+    "# fast transforms: bf16 tensor-core sub-DFTs (mma.sync m16n8k16, "
+    "float32 accumulate) in ka_sw, kb_pair, ky_all and kx_fwd, the "
+    "product spectra stored in bf16 (XFB_SW_PSTORE=auto)\n"
+    "# NOTE: shallow-water fast mode runs the split-linear formulation "
+    "(XFB_SW_SPLIT=auto): the f0/gravity balance terms stay exact "
+    "float32, only the nonlinear fluxes ride the bf16 transforms. "
+    "Measured at 4096^2/20 steps on an H100: 13.63 ms/step (strict "
+    "float32 12.45), zeta rel-L2 7.5e-5, eta 4.5e-4 against the strict "
+    "kernels. The recorded div field is noise-dominated RELATIVE to a "
+    "balanced flow's near-zero divergence: use the float32 default if "
+    "div itself is the diagnostic of interest.")
+
+
+def sw_form_from_env(fast: bool = False) -> dict:
+    """ShallowWaterModel.build's fast, split and pstore from the
+    environment, read as the JAX package reads XFB_SW_SPLIT and
+    XFB_SW_PSTORE (ops/pallas_sw.py split_linear, pstore_dtype): "auto"
+    (the default) is None, which the model resolves by `fast`."""
+    split = os.environ.get("XFB_SW_SPLIT", "auto")
+    pstore = os.environ.get("XFB_SW_PSTORE", "auto")
+    return dict(fast=fast,
+                split=None if split == "auto"
+                else split not in ("0", "off", ""),
+                pstore=None if pstore == "auto"
+                else "bf16" if pstore in ("bf16", "bfloat16") else "f32")
 
 
 def bt_fusion_from_env(fast: bool = False) -> dict:
@@ -95,7 +134,9 @@ def main(argv=None):
                                      resolve_device,
                                      resolve_fft_backend_name)
     from ..models.ensemble import _resolve_member_backend, auto_vmap_width
-    from ..models.shallow_water import resolve_sw_backend
+    from ..models.shallow_water import (per_transform, resolve_pstore,
+                                        resolve_split, resolve_sw_backend,
+                                        sw_fast_refusal)
     from ..parallel import make_mesh
     from ..runner import run
 
@@ -184,15 +225,30 @@ def main(argv=None):
                         "and, on the card, CUDA activity) into "
                         "DIR/xfb-torch-run.trace.json (a Chrome trace)")
     p.add_argument("--fast-transforms", action="store_true",
-                   help="the barotropic plane stepper's sub-DFTs as bf16 "
-                        "tensor-core products, float32 accumulate (the "
-                        "JAX package's fast mode; XFB_BT_FUSEKB=auto "
-                        "resolves to half). Not with other families, "
-                        "--shard, --ensemble or --time-scheme etdrk4 "
-                        "(ROADMAP.md queue A, item 4)")
+                   help="the barotropic and shallow-water plane "
+                        "steppers' sub-DFTs as bf16 tensor-core products, "
+                        "float32 accumulate (the JAX package's fast mode; "
+                        "XFB_BT_FUSEKB=auto resolves to half; shallow "
+                        "water: split-linear, bf16 product store). Not "
+                        "with the tracer, -m fd, --shard, --ensemble or "
+                        "the barotropic --time-scheme etdrk4 (ROADMAP.md "
+                        "queue A, item 4)")
     args = p.parse_args(argv)
 
     fd = args.model in ("fd", "jacobian")
+    sw = args.model in ("shallow-water", "sw")
+    if args.fast_transforms:
+        what = (f"-m {args.model}"
+                if args.model not in ("barotropic", "bt") and not sw
+                else "--shard" if args.shard
+                else "--ensemble" if args.ensemble > 1
+                else "--time-scheme etdrk4"
+                if args.time_scheme == "etdrk4" and not sw
+                else None)
+        if what:
+            p.error(f"--fast-transforms with {what} is not ported yet "
+                    f"({FAST_ITEM}): fast mode runs the barotropic y-first "
+                    f"RK4 and the shallow-water y-first plane steppers")
     if args.ensemble > 1 and (args.shard or fd):
         p.error(f"--ensemble does not combine with "
                 f"{'--shard' if args.shard else '-m ' + args.model}: "
@@ -227,17 +283,6 @@ def main(argv=None):
                     "field (e.g. vort,psi) or omit the flag")
 
     cfg = config_from_args(args)
-    if args.fast_transforms:
-        what = (f"-m {args.model}" if args.model not in ("barotropic", "bt")
-                else "--shard" if args.shard
-                else "--ensemble" if args.ensemble > 1
-                else "--time-scheme etdrk4" if cfg.time_scheme == "etdrk4"
-                else None)
-        if what:
-            p.error(f"--fast-transforms with {what} is not ported yet "
-                    f"({FAST_ITEM}): fast mode runs the barotropic y-first "
-                    f"RK4 plane stepper")
-    sw = args.model in ("shallow-water", "sw")
     yfirst = os.environ.get("XFB_SW_YFIRST" if sw else "XFB_BT_YFIRST",
                             "1") != "0"
     bt_fusion = None
@@ -253,6 +298,7 @@ def main(argv=None):
                 p.error(f"--fast-transforms: {why}")
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
+    sw_form = sw_form_from_env(args.fast_transforms) if sw else None
     member_cfg, width = cfg, None
     if args.ensemble > 1:
         width = (auto_vmap_width(cfg, args.ensemble)
@@ -267,6 +313,10 @@ def main(argv=None):
                                             cfg.grid_shape))
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
+    if sw and args.fast_transforms and backend == "pallas":
+        why = sw_fast_refusal(yfirst, per_transform(member_cfg, backend))
+        if why:
+            p.error(f"--fast-transforms: {why}")
     recipe, src_path = "empty", None
     if args.script:
         recipe, src_path = "script", args.script
@@ -274,7 +324,7 @@ def main(argv=None):
         recipe, src_path = "fifo", args.fifo
 
     if args.fast_transforms:
-        print(FAST_BANNER if backend == "pallas"
+        print((SW_FAST_BANNER if sw else FAST_BANNER) if backend == "pallas"
               else "# fast transforms: --fft-backend xla keeps the torch.fft "
                    "library path in float32, as the JAX package's XLA path",
               file=sys.stderr)
@@ -336,6 +386,16 @@ def main(argv=None):
         if backend == "pallas" and bt_fusion is not None and yfirst:
             arm = fusion_arm(etd=cfg.time_scheme == "etdrk4", **bt_fusion)
             print(f"Fusion arm            : {arm}", file=sys.stderr)
+        if backend == "pallas" and sw_form is not None:
+            fast = sw_form["fast"]
+            split = resolve_split(sw_form["split"], fast)
+            parts = (["fast (bf16 tensor-core sub-DFTs)"] if fast else []) + [
+                f"split-linear {'on' if split else 'off'}"]
+            if yfirst and not per_transform(member_cfg, backend):
+                parts.append(f"product store "
+                             f"{resolve_pstore(sw_form['pstore'], fast)}")
+            print(f"SW formulation        : {', '.join(parts)}",
+                  file=sys.stderr)
     print("#########################", file=sys.stderr)
 
     scope = contextlib.nullcontext()
@@ -357,7 +417,7 @@ def main(argv=None):
                      ensemble=args.ensemble,
                      ensemble_amp=args.ensemble_amp,
                      ensemble_seed=args.ensemble_seed,
-                     ensemble_width=width)
+                     ensemble_width=width, sw_form=sw_form)
     if args.profile_dir:
         trace = Path(args.profile_dir) / TRACE_NAME
         trace.parent.mkdir(parents=True, exist_ok=True)

@@ -27,6 +27,15 @@
 // its columns of zr, zi, dr, di and rlap in L2. The last of the ceil(hny
 // / C) tiles holds one column (hny = n/2 + 1 is odd): its loads read 0 and
 // its stores are skipped, so no row lands in the next field's plane.
+//
+// xfb_ka_sw_fast is ka_sw on the fast column tile (xtile.cuh FAST: the
+// radix-16 sub-DFT passes as bf16 tensor-core products, float32
+// accumulate), the shallow-water fast mode's inverse x-stage (the JAX
+// package's --fast-transforms, the same _ka_sw_kernel under MM_MODE
+// "default"). Its bound is the strict form's, 504 MB (0.150 ms at 3.35
+// TB/s), plus the bf16 products (under 0.01 ms at 4096^2); the loads,
+// sw_field, the plan and the store are the strict form's, whose code is
+// unchanged (ka_sw_kernel<false>).
 #include "xtile.cuh"
 
 namespace {
@@ -64,6 +73,7 @@ __device__ __forceinline__ float2 sw_field(
 // cluster (tile, f) of field f = cluster mod 4: columns j0 .. j0 + C;
 // block r of it forms rows r + k jj of the tile, consecutive lanes on
 // consecutive columns
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ka_sw_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                  const float* __restrict__ dr, const float* __restrict__ di,
@@ -87,7 +97,26 @@ __global__ void __launch_bounds__(512, 2)
   xt::RowOut o = out;
   o.j0 = j0;
   o.plane = static_cast<size_t>(f) * hny * n;
-  xt::finish_transposed<+1>(t, tw, false, o);
+  xt::finish_transposed<+1, FAST>(t, tw, false, o);
+}
+
+template <bool FAST>
+int launch(const float* zr, const float* zi, const float* dr,
+           const float* di, const float* er, const float* ei,
+           const float* rlap, const float* kx, const float* ky,
+           const void* tw, float* wr, float* wi, int n, int hny,
+           float eta_scale, int tile_c, int cluster_k, int threads,
+           int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(n, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (hny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_sw_kernel<FAST>, tiles * 4, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), zr, zi, dr, di, er, ei, rlap, kx,
+      ky, static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{wr, wi, 0, 0, hny, n, 1.f}, n, cluster_k,
+      xfb::xtile::log2i(tile_c), eta_scale));
 }
 
 }  // namespace
@@ -100,14 +129,21 @@ extern "C" int xfb_ka_sw(const float* zr, const float* zi, const float* dr,
                          const void* tw, float* wr, float* wi, int n, int hny,
                          float eta_scale, int tile_c, int cluster_k,
                          int threads, int smem, int device, void* stream) {
-  if (!xfb::xtile::plan_ok(n, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (hny + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      ka_sw_kernel, tiles * 4, 1, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), zr, zi, dr, di, er, ei, rlap, kx,
-      ky, static_cast<const float2*>(tw),
-      xfb::xtile::RowOut{wr, wi, 0, 0, hny, n, 1.f}, n, cluster_k,
-      xfb::xtile::log2i(tile_c), eta_scale));
+  return launch<false>(zr, zi, dr, di, er, ei, rlap, kx, ky, tw, wr, wi, n,
+                       hny, eta_scale, tile_c, cluster_k, threads, smem,
+                       device, stream);
+}
+
+// ka_sw on the fast column tile: arguments as xfb_ka_sw's
+extern "C" int xfb_ka_sw_fast(const float* zr, const float* zi,
+                              const float* dr, const float* di,
+                              const float* er, const float* ei,
+                              const float* rlap, const float* kx,
+                              const float* ky, const void* tw, float* wr,
+                              float* wi, int n, int hny, float eta_scale,
+                              int tile_c, int cluster_k, int threads,
+                              int smem, int device, void* stream) {
+  return launch<true>(zr, zi, dr, di, er, ei, rlap, kx, ky, tw, wr, wi, n,
+                      hny, eta_scale, tile_c, cluster_k, threads, smem,
+                      device, stream);
 }

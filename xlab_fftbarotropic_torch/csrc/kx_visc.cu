@@ -39,6 +39,21 @@
 // stage axpy) on the fast column tile (xtile.cuh FAST: bf16 tensor-core
 // radix-16 passes), the barotropic fast mode's forward x-stage; the
 // epilogue unchanged.
+//
+// The shallow-water fast mode's kx_fwd (_kx_fwd_kernel, pallas_sw.py:565,
+// under the JAX package's --fast-transforms) stores its product spectra
+// as pallas_sw.pstore_dtype (:190-197) resolves: bf16 in fast mode
+// (XFB_SW_PSTORE=auto), float32 with XFB_SW_PSTORE=f32, and bf16 also in
+// strict mode with XFB_SW_PSTORE=bf16. Its second template flag BF16
+// picks xtile.cuh's Bf16Out (each value rounded once to bf16, round to
+// nearest even) in place of the epilogue: xfb_kx_fwd_fast (fast tile,
+// bf16 store), xfb_kx_fwd_bf16 (strict tile, bf16 store), and the fast
+// float32 store is xfb_kx_visc_fast with the null epilogue. Its bound:
+// 10 float32 half planes in, 10 bf16 half planes out, 504 MB at 4096^2
+// (0.150 ms at 3.35 TB/s; the float32 store's 671 MB, 0.200 ms); the
+// transform is its float32 form's, so the bf16 planes are the rounding
+// of that form's bits. The float32 forms' code is unchanged
+// (kx_visc_kernel<false, false>, <true, false>).
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -110,7 +125,7 @@ struct Epilogue {
   }
 };
 
-template <bool FAST>
+template <bool FAST, bool BF16>
 __global__ void __launch_bounds__(512, 2)
     kx_visc_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
                    Planes p, Tail tail, const float2* __restrict__ tw,
@@ -138,11 +153,17 @@ __global__ void __launch_bounds__(512, 2)
   }
   xt::cp_async_wait_all();
   __syncthreads();
-  Epilogue out{p, tail, plane, j0, hny, nu, coef};
-  xt::finish<-1, FAST>(t, tw, out);
+  if constexpr (BF16) {  // kx_fwd with the bf16 product store
+    xt::Bf16Out out{reinterpret_cast<__nv_bfloat16*>(p.rr),
+                    reinterpret_cast<__nv_bfloat16*>(p.ri), plane, j0, hny};
+    xt::finish<-1, FAST>(t, tw, out);
+  } else {
+    Epilogue out{p, tail, plane, j0, hny, nu, coef};
+    xt::finish<-1, FAST>(t, tw, out);
+  }
 }
 
-template <bool FAST = false>
+template <bool FAST = false, bool BF16 = false>
 int launch(const float* fr, const float* fi, const Planes& p, Tail tail,
            const void* tw, int nfields, int nx, int hny, float nu,
            float coef, int tile_c, int cluster_k, int threads, int smem,
@@ -152,8 +173,8 @@ int launch(const float* fr, const float* fi, const Planes& p, Tail tail,
   }
   const int tiles = (hny + tile_c - 1) / tile_c;
   return static_cast<int>(xfb::xtile::launch(
-      kx_visc_kernel<FAST>, tiles, nfields, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), fr, fi, p, tail,
+      kx_visc_kernel<FAST, BF16>, tiles, nfields, cluster_k, threads, smem,
+      device, static_cast<cudaStream_t>(stream), fr, fi, p, tail,
       static_cast<const float2*>(tw), nx, hny, cluster_k,
       xfb::xtile::log2i(tile_c), nu, coef));
 }
@@ -200,8 +221,9 @@ extern "C" int xfb_kx_visc_tail(const float* fr, const float* fi,
                 nu, 0.f, tile_c, cluster_k, threads, smem, device, stream);
 }
 
-// kx_visc on the fast column tile: arguments as xfb_kx_visc's (an
-// epilogue is required: lap, mask, zsr, zsi given)
+// kx_visc on the fast column tile: arguments as xfb_kx_visc's; lap =
+// NULL (and mask, zsr, zsi, z0r, z0i NULL): kx_fwd on the fast tile with
+// the float32 store
 extern "C" int xfb_kx_visc_fast(const float* fr, const float* fi,
                                 const float* lap, const float* mask,
                                 const float* zsr, const float* zsi,
@@ -215,4 +237,36 @@ extern "C" int xfb_kx_visc_fast(const float* fr, const float* fi,
                       Planes{lap, mask, zsr, zsi, z0r, z0i, rr, ri, nr, ni},
                       Tail{}, tw, nfields, nx, hny, nu, coef, tile_c,
                       cluster_k, threads, smem, device, stream);
+}
+
+// kx_fwd with the bf16 product store: fr, fi: (nfields, nx, hny) float32
+// -> rr, ri: (nfields, nx, hny) bf16, on the fast column tile
+// (xfb_kx_fwd_fast) or the strict one (xfb_kx_fwd_bf16). tile_c,
+// cluster_k, threads, smem: the plan of ops/xtile.py for nx.
+extern "C" int xfb_kx_fwd_fast(const float* fr, const float* fi,
+                               const void* tw, void* rr, void* ri,
+                               int nfields, int nx, int hny, int tile_c,
+                               int cluster_k, int threads, int smem,
+                               int device, void* stream) {
+  return launch<true, true>(
+      fr, fi,
+      Planes{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             static_cast<float*>(rr), static_cast<float*>(ri), nullptr,
+             nullptr},
+      Tail{}, tw, nfields, nx, hny, 0.f, 0.f, tile_c, cluster_k, threads,
+      smem, device, stream);
+}
+
+extern "C" int xfb_kx_fwd_bf16(const float* fr, const float* fi,
+                               const void* tw, void* rr, void* ri,
+                               int nfields, int nx, int hny, int tile_c,
+                               int cluster_k, int threads, int smem,
+                               int device, void* stream) {
+  return launch<false, true>(
+      fr, fi,
+      Planes{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             static_cast<float*>(rr), static_cast<float*>(ri), nullptr,
+             nullptr},
+      Tail{}, tw, nfields, nx, hny, 0.f, 0.f, tile_c, cluster_k, threads,
+      smem, device, stream);
 }

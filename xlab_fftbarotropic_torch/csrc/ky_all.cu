@@ -31,6 +31,15 @@
 // first to read a plane's columns find them in L2. The tile holds
 // (product, 0), so product p is kc of (sw_products(...)[p], 0) bit for
 // bit.
+//
+// xfb_ky_all_fast is ky_all on the fast column tile (xtile.cuh FAST: the
+// radix-16 sub-DFT passes as bf16 tensor-core products, float32
+// accumulate), the shallow-water fast mode's forward y-stage (the same
+// _ky_all_kernel, :513, under the JAX package's MM_MODE "default"), with
+// `split` passed as in the strict form. Its bound is the strict form's,
+// 604 MB (0.180 ms at 3.35 TB/s), plus the bf16 products (under 0.01 ms
+// at 4096^2); the product load, the plan and the half store are the
+// strict form's, whose code is unchanged (ky_all_kernel<false>).
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -39,6 +48,7 @@ namespace {
 // cluster (tile, p) of product p = cluster mod 5: columns j0 .. j0 + C of
 // the y-major (ny, nx) fields; block r of it forms rows r + k jj of the
 // tile (zero imaginary parts), consecutive lanes on consecutive columns
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ky_all_kernel(const float* __restrict__ u, const float* __restrict__ v,
                   const float* __restrict__ zeta,
@@ -62,7 +72,25 @@ __global__ void __launch_bounds__(512, 2)
   xt::HalfOut o = out;
   o.j0 = j0;
   o.plane = static_cast<size_t>(p) * nx * out.hny;
-  xt::finish_transposed<-1>(t, tw, true, o);
+  xt::finish_transposed<-1, FAST>(t, tw, true, o);
+}
+
+template <bool FAST>
+int launch(const float* u, const float* v, const float* zeta,
+           const float* eta_s, const void* tw, float* outr, float* outi,
+           int ny, int nx, float ies, float f0, float grav, int split,
+           int tile_c, int cluster_k, int threads, int smem, int device,
+           void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ky_all_kernel<FAST>, tiles * xfb::kSwProducts, 1, cluster_k, threads,
+      smem, device, static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
+      static_cast<const float2*>(tw),
+      xfb::xtile::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
+      xfb::xtile::log2i(tile_c), ies, f0, grav, split));
 }
 
 }  // namespace
@@ -74,14 +102,20 @@ extern "C" int xfb_ky_all(const float* u, const float* v, const float* zeta,
                           float* outi, int ny, int nx, float ies, float f0,
                           float grav, int split, int tile_c, int cluster_k,
                           int threads, int smem, int device, void* stream) {
-  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (nx + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      ky_all_kernel, tiles * xfb::kSwProducts, 1, cluster_k, threads, smem,
-      device, static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
-      static_cast<const float2*>(tw),
-      xfb::xtile::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
-      xfb::xtile::log2i(tile_c), ies, f0, grav, split));
+  return launch<false>(u, v, zeta, eta_s, tw, outr, outi, ny, nx, ies, f0,
+                       grav, split, tile_c, cluster_k, threads, smem, device,
+                       stream);
+}
+
+// ky_all on the fast column tile: arguments as xfb_ky_all's
+extern "C" int xfb_ky_all_fast(const float* u, const float* v,
+                               const float* zeta, const float* eta_s,
+                               const void* tw, float* outr, float* outi,
+                               int ny, int nx, float ies, float f0,
+                               float grav, int split, int tile_c,
+                               int cluster_k, int threads, int smem,
+                               int device, void* stream) {
+  return launch<true>(u, v, zeta, eta_s, tw, outr, outi, ny, nx, ies, f0,
+                      grav, split, tile_c, cluster_k, threads, smem, device,
+                      stream);
 }

@@ -33,7 +33,23 @@
 // axpy) and writes 6 (12). sw_combine_mv reads those 18, the 9 of Q and
 // the 6 of z0 and writes 12 (6 without the tendency): 45 planes, 1.51 GB,
 // 0.45 ms at 3.35 TB/s (39 planes, 1.31 GB, 0.39 ms).
+//
+// The bf16 product forms (xfb_sw_combine_bf16, xfb_sw_combine_mv_bf16:
+// the same _combine_axpy_kernel and _combine_mv_kernel reading the
+// product spectra kx_fwd stores in bf16 under the JAX package's
+// XFB_SW_PSTORE, pallas_sw.py:152-197, the shallow-water fast mode's
+// default) read kPr and kPi as bf16 and widen each value exactly
+// (__bfloat162float) before the unchanged float32 arithmetic, so a bf16
+// form gives the bits of its float32 form run on the upcast products.
+// The 10 product planes cost half their float32 bytes: sw_combine with
+// the axpy and the forcing 31 float32-plane equivalents, 1.04 GB, 0.311
+// ms at 3.35 TB/s (float32 36 planes, 0.361 ms); sw_combine_mv with the
+// tendency 40, 1.34 GB, 0.401 ms (45 planes, 0.451 ms). The float32
+// forms' code is unchanged (the kernels' <float> instances).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -63,8 +79,21 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// value i of the product planes in[k] of type P (float; or bf16,
+// widened exactly)
+template <class P>
+__device__ __forceinline__ float product(const float* const* in, int k,
+                                         long long i) {
+  if constexpr (std::is_same_v<P, float>) {
+    return in[k][i];
+  } else {
+    return __bfloat162float(reinterpret_cast<const P*>(in[k])[i]);
+  }
+}
+
 // the six dealiased tendency values (dzr, dzi, ddr, ddi, der, dei) at
-// point i of the planes
+// point i of the planes, the product spectra of type P
+template <class P>
 __device__ __forceinline__ void tendency(const float* const* in, long long i,
                                          long long plane, int hny, float f0,
                                          float grav, float nu, float H,
@@ -73,11 +102,15 @@ __device__ __forceinline__ void tendency(const float* const* in, long long i,
   const float q = in[kKy][i % hny];
   const float lap = in[kLap][i];
   const float mask = in[kMask][i];
-  const float qur = in[kPr][i], qui = in[kPi][i];
-  const float qvr = in[kPr][plane + i], qvi = in[kPi][plane + i];
-  const float eur = in[kPr][2 * plane + i], eui = in[kPi][2 * plane + i];
-  const float evr = in[kPr][3 * plane + i], evi = in[kPi][3 * plane + i];
-  const float phr = in[kPr][4 * plane + i], phi = in[kPi][4 * plane + i];
+  const float qur = product<P>(in, kPr, i), qui = product<P>(in, kPi, i);
+  const float qvr = product<P>(in, kPr, plane + i),
+              qvi = product<P>(in, kPi, plane + i);
+  const float eur = product<P>(in, kPr, 2 * plane + i),
+              eui = product<P>(in, kPi, 2 * plane + i);
+  const float evr = product<P>(in, kPr, 3 * plane + i),
+              evi = product<P>(in, kPi, 3 * plane + i);
+  const float phr = product<P>(in, kPr, 4 * plane + i),
+              phi = product<P>(in, kPi, 4 * plane + i);
   const float zr = in[kZr][i], zi = in[kZi][i];
   const float dr = in[kDr][i], di = in[kDi][i];
   const float nulap = mul(nu, lap);
@@ -107,6 +140,7 @@ __device__ __forceinline__ void tendency(const float* const* in, long long i,
   t[5] = mul(mask, sub(sub(mul(-k, eur), mul(q, evr)), mul(H, di)));
 }
 
+template <class P>
 __global__ void sw_combine_kernel(Ptrs p, int nx, int hny, float f0,
                                   float grav, float nu, float H, int split,
                                   float coef) {
@@ -116,7 +150,7 @@ __global__ void sw_combine_kernel(Ptrs p, int nx, int hny, float f0,
                      threadIdx.x;
        i < plane; i += stride) {
     float t[6];
-    tendency(p.in, i, plane, hny, f0, grav, nu, H, split, t);
+    tendency<P>(p.in, i, plane, hny, f0, grav, nu, H, split, t);
 #pragma unroll
     for (int c = 0; c < 6; ++c) {
       p.out[c][i] = t[c];
@@ -127,6 +161,7 @@ __global__ void sw_combine_kernel(Ptrs p, int nx, int hny, float f0,
   }
 }
 
+template <class P>
 __global__ void sw_combine_mv_kernel(MvPtrs p, int nx, int hny, float f0,
                                      float grav, float nu, float H,
                                      int split, float scale) {
@@ -137,7 +172,7 @@ __global__ void sw_combine_mv_kernel(MvPtrs p, int nx, int hny, float f0,
                      threadIdx.x;
        i < plane; i += stride) {
     float t[6];
-    tendency(p.in, i, plane, hny, f0, grav, nu, H, split, t);
+    tendency<P>(p.in, i, plane, hny, f0, grav, nu, H, split, t);
     if (p.out[0] != nullptr) {
 #pragma unroll
       for (int c = 0; c < 6; ++c) p.out[c][i] = t[c];
@@ -166,16 +201,10 @@ unsigned grid_blocks(int nx, int hny) {
   return static_cast<unsigned>(blocks);
 }
 
-}  // namespace
-
-// ptrs: host array of 32 device pointers: pr, pi (5, nx, hny); zr, zi,
-// dr, di, er, ei; sr, si (NULL: no forcing); kx (nx,), ky (hny,); lap,
-// mask; z0 x 6 (NULL: no axpy); tend x 6; next x 6 (NULL: no axpy). Every
-// plane (nx, hny). er, ei are read only when split is set.
-extern "C" int xfb_sw_combine(const void* const* ptrs, int nx, int hny,
-                              float f0, float grav, float nu, float H,
-                              int split, float coef, int device,
-                              void* stream) {
+template <class P>
+int combine(const void* const* ptrs, int nx, int hny, float f0, float grav,
+            float nu, float H, int split, float coef, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Ptrs p = {};
@@ -183,20 +212,16 @@ extern "C" int xfb_sw_combine(const void* const* ptrs, int nx, int hny,
   for (int c = 0; c < 12; ++c) {
     p.out[c] = const_cast<float*>(static_cast<const float*>(ptrs[kTend + c]));
   }
-  sw_combine_kernel<<<grid_blocks(nx, hny), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  sw_combine_kernel<P><<<grid_blocks(nx, hny), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       p, nx, hny, f0, grav, nu, H, split, coef);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: host array of 33 device pointers: pr, pi (5, nx, hny); zr, zi,
-// dr, di, er, ei; sr, si (NULL: no forcing); kx (nx,), ky (hny,); lap,
-// mask; z0 x 6; Q (3, 3, nx, hny); tend x 6 (all NULL: not written);
-// stage x 6. Every plane (nx, hny).
-extern "C" int xfb_sw_combine_mv(const void* const* ptrs, int nx, int hny,
-                                 float f0, float grav, float nu, float H,
-                                 int split, float scale, int device,
-                                 void* stream) {
+template <class P>
+int combine_mv(const void* const* ptrs, int nx, int hny, float f0,
+               float grav, float nu, float H, int split, float scale,
+               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   MvPtrs p = {};
@@ -207,8 +232,53 @@ extern "C" int xfb_sw_combine_mv(const void* const* ptrs, int nx, int hny,
     p.out[c] =
         const_cast<float*>(static_cast<const float*>(ptrs[kMvTend + c]));
   }
-  sw_combine_mv_kernel<<<grid_blocks(nx, hny), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  sw_combine_mv_kernel<P><<<grid_blocks(nx, hny), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       p, nx, hny, f0, grav, nu, H, split, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ptrs: host array of 32 device pointers: pr, pi (5, nx, hny); zr, zi,
+// dr, di, er, ei; sr, si (NULL: no forcing); kx (nx,), ky (hny,); lap,
+// mask; z0 x 6 (NULL: no axpy); tend x 6; next x 6 (NULL: no axpy). Every
+// plane (nx, hny). er, ei are read only when split is set.
+extern "C" int xfb_sw_combine(const void* const* ptrs, int nx, int hny,
+                              float f0, float grav, float nu, float H,
+                              int split, float coef, int device,
+                              void* stream) {
+  return combine<float>(ptrs, nx, hny, f0, grav, nu, H, split, coef, device,
+                        stream);
+}
+
+// ptrs: host array of 33 device pointers: pr, pi (5, nx, hny); zr, zi,
+// dr, di, er, ei; sr, si (NULL: no forcing); kx (nx,), ky (hny,); lap,
+// mask; z0 x 6; Q (3, 3, nx, hny); tend x 6 (all NULL: not written);
+// stage x 6. Every plane (nx, hny).
+extern "C" int xfb_sw_combine_mv(const void* const* ptrs, int nx, int hny,
+                                 float f0, float grav, float nu, float H,
+                                 int split, float scale, int device,
+                                 void* stream) {
+  return combine_mv<float>(ptrs, nx, hny, f0, grav, nu, H, split, scale,
+                           device, stream);
+}
+
+// The bf16 product forms: arguments as xfb_sw_combine's and
+// xfb_sw_combine_mv's, with pr, pi bf16 (5, nx, hny) planes
+extern "C" int xfb_sw_combine_bf16(const void* const* ptrs, int nx, int hny,
+                                   float f0, float grav, float nu, float H,
+                                   int split, float coef, int device,
+                                   void* stream) {
+  return combine<__nv_bfloat16>(ptrs, nx, hny, f0, grav, nu, H, split, coef,
+                                device, stream);
+}
+
+extern "C" int xfb_sw_combine_mv_bf16(const void* const* ptrs, int nx,
+                                      int hny, float f0, float grav,
+                                      float nu, float H, int split,
+                                      float scale, int device,
+                                      void* stream) {
+  return combine_mv<__nv_bfloat16>(ptrs, nx, hny, f0, grav, nu, H, split,
+                                   scale, device, stream);
 }

@@ -649,6 +649,29 @@ struct HalfOut {
   }
 };
 
+// The bf16 store of a natural x-stage's planes (kx_visc.cu's kx_fwd with
+// the shallow-water product store, the JAX package's XFB_SW_PSTORE=bf16,
+// pallas_sw.py:152-197): X[k] of tile column c rounded once to bf16
+// (__float2bfloat16_rn, round to nearest even: torch's
+// .to(torch.bfloat16) of the float32 value) to yr, yi at [k, j0 + c] of
+// the (n, m) planes from `plane` on. One 2-byte store per value: a bf16
+// row of m = n/2 + 1 values is 2 m bytes, so no column pair starts
+// 4-byte aligned on every row.
+struct Bf16Out {
+  __nv_bfloat16* yr;
+  __nv_bfloat16* yi;
+  size_t plane;
+  int j0, m;
+
+  __device__ __forceinline__ void operator()(int k, int c, float2 v) const {
+    const int j = j0 + c;
+    if (j >= m) return;  // the ragged last tile
+    const size_t off = plane + static_cast<size_t>(k) * m + j;
+    yr[off] = __float2bfloat16_rn(v.x);
+    yi[off] = __float2bfloat16_rn(v.y);
+  }
+};
+
 // The store of a full-length transposed x-stage (ka_kc.cu ka_kernel,
 // ka_adv_kernel and ka_fwd_kernel, ka_diag.cu ka_fields_kernel, ka_sw.cu
 // ka_sw_kernel): scale * X[k] of tile column c to yr, yi at [j0 + c, k]

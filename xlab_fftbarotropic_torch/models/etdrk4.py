@@ -331,7 +331,8 @@ def _addp(a, b):
 
 def etdrk4_step_planes(t, tabs: EtdTables, p, src_planes,
                        eta_scale: float, fuse: bool = True,
-                       yfirst: bool = True):
+                       yfirst: bool = True, fast: bool = False,
+                       split: bool = False, pstore: str = "f32"):
     """One SW ETDRK4 step on the six float32 state planes through the SW
     plane stepper's kernels (ops/fused_sw.py): N is inverse_quad_planes +
     forward_tendencies with f = g = nu = H = 0, the pairing equalizer
@@ -342,14 +343,18 @@ def etdrk4_step_planes(t, tabs: EtdTables, p, src_planes,
     z0 + s (Q @ N) in the combine kernel (sw_combine_mv): the an, bn and
     cn stages and, with no tendency written, the final one. The cn stage
     takes Q n1 as an - e2u, so cn = (E2 an - an + e2u) + 2 Q n3 rides one
-    combine too. fuse=False: plain combines and elementwise matvecs."""
+    combine too. fuse=False: plain combines and elementwise matvecs.
+    `fast`, `split` and `pstore` as the RK4 plane stepper's
+    (models/shallow_water.py rk4_step_planes); with f = g = 0, split
+    changes no product and adds only zero terms."""
     def N(q, mv=None):
         u, v, zeta, eta_s = fs.inverse_quad_planes(*q, t.kx, t.ky, t.rlap,
-                                                   eta_scale, yfirst)
+                                                   eta_scale, yfirst, fast)
         return fs.forward_tendencies(u, v, zeta, eta_s, q, src_planes,
                                      t.kx, t.ky, t.lap, t.mask, 0.0, 0.0,
                                      0.0, 0.0, eta_scale, mv_axpy=mv,
-                                     yfirst=yfirst)
+                                     split=split, yfirst=yfirst, fast=fast,
+                                     pstore=pstore)
 
     if fuse:
         e2u = _matvec_planes(tabs.E2, p)

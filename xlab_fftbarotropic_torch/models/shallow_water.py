@@ -46,6 +46,21 @@ Three stepping paths, chosen once when the model is built:
 linear tables, so the plane path takes them (etdrk4_step_planes: 4
 ka_sw, 8 kb_pair, 4 ky_all, 4 kx_fwd and 4 sw_combine_mv per step in the
 default fused form).
+
+fast=True is the JAX package's fast mode (--fast-transforms,
+pallas_fft.MM_MODE "default") on the y-first plane stepper, under RK4
+(both RK forms) and ETDRK4 (both etd_fuse forms): ka_sw, kb_pair, ky_all
+and kx_fwd on the fast column tile (bf16 tensor-core sub-DFTs, float32
+accumulate). `split` is pallas_sw.split_linear and `pstore`
+pallas_sw.pstore_dtype: None (auto) resolves to the split-linear
+formulation and the bf16 product store exactly in fast mode; explicit
+values win, in strict mode too. split reaches the plane stepper and the
+per-transform path, never the library path; pstore is the y-first
+kx_fwd's store. sw_fast_refusal names what fast mode does not run yet
+(ROADMAP.md queue A, item 4): the x-first order and RK4 with drag or
+hyperviscosity (the per-transform kernels); the library path stays
+float32 under fast=True, as in the barotropic model. The forcing
+spectrum stays on the strict ka and kc (item 4.5).
 """
 
 from __future__ import annotations
@@ -63,9 +78,10 @@ from ..ops import fused_sw as fs
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
 from . import etdrk4 as etd
-from .barotropic import (DebugFields, _paired, check_time_scheme,
-                         resolve_device, resolve_fft_backend,
-                         resolve_fft_backend_name, state_shape_ok)
+from .barotropic import (FAST_ITEM, DebugFields, _paired,
+                         check_time_scheme, resolve_device,
+                         resolve_fft_backend, resolve_fft_backend_name,
+                         state_shape_ok)
 
 # the library path pairs the forward transforms up to this size, as the
 # JAX package does (its XFB_FORWARD_PAIR_MAX default, a TPU measurement)
@@ -192,7 +208,8 @@ def rk4_step(t: SpectralTables, s: SWState, src, dt: float, f: float,
 def rk4_step_planes(t: SpectralTables, planes, src_planes, dt: float,
                     f: float, g: float, nu: float, mean_depth: float,
                     eta_scale: float, fused_rk: bool = True,
-                    yfirst: bool = True):
+                    yfirst: bool = True, fast: bool = False,
+                    split: bool = False, pstore: str = "f32"):
     """RK4 on the state as six float32 planes (zr, zi, dr, di, er, ei)
     through the SW kernels, in the y-first order or, yfirst False, the
     x-first one. fused_rk=True, the JAX default (XFB_SW_FUSED_RK=1):
@@ -200,14 +217,17 @@ def rk4_step_planes(t: SpectralTables, planes, src_planes, dt: float,
     fused_rk=False: from a plane_axpy launch. Either way the tail is one
     plane_rk4_combine, and the two forms give the same bits. src_planes
     is the forcing spectrum (or None), eta_scale the pairing equalizer,
-    both fixed across the stages."""
+    both fixed across the stages. `fast` (y-first only): the transforms
+    on the fast column tile; `split`: the split-linear formulation;
+    `pstore`: kx_fwd's product store (ops/fused_sw.py)."""
     def d(p, axpy=None):
         u, v, zeta, eta_s = fs.inverse_quad_planes(*p, t.kx, t.ky, t.rlap,
-                                                   eta_scale, yfirst)
+                                                   eta_scale, yfirst, fast)
         return fs.forward_tendencies(u, v, zeta, eta_s, p, src_planes,
                                      t.kx, t.ky, t.lap, t.mask, f, g, nu,
                                      mean_depth, eta_scale, axpy=axpy,
-                                     yfirst=yfirst)
+                                     split=split, yfirst=yfirst, fast=fast,
+                                     pstore=pstore)
 
     h = dt * 0.5
     if fused_rk:
@@ -250,6 +270,40 @@ def per_transform(cfg, backend: str) -> bool:
         float(cfg.r_drag) != 0.0 or float(cfg.nu4) != 0.0)
 
 
+def resolve_split(split: Optional[bool], fast: bool) -> bool:
+    """pallas_sw.split_linear: None (XFB_SW_SPLIT=auto) is on exactly in
+    fast mode; an explicit value wins."""
+    return fast if split is None else bool(split)
+
+
+def resolve_pstore(pstore: Optional[str], fast: bool) -> str:
+    """pallas_sw.pstore_dtype by name: None (XFB_SW_PSTORE=auto) is
+    "bf16" exactly in fast mode, else "f32"; an explicit value wins."""
+    if pstore is None:
+        return "bf16" if fast else "f32"
+    if pstore not in fs.PSTORES:
+        raise ValueError(f"unknown pstore {pstore!r}, not one of "
+                         f"{tuple(fs.PSTORES)}")
+    return pstore
+
+
+def sw_fast_refusal(yfirst: bool = True,
+                    per_transform_path: bool = False) -> Optional[str]:
+    """Why shallow-water fast mode does not run this combination yet, or
+    None: it runs the y-first plane stepper (RK4 in both forms, ETDRK4
+    in both etd_fuse forms); the x-first order and the per-transform
+    path (RK4 with r_drag or nu4) wait."""
+    for bad, what in ((not yfirst, "the x-first order"),
+                      (per_transform_path,
+                       "RK4 with r_drag or nu4 (the per-transform "
+                       "kernels)")):
+        if bad:
+            return (f"shallow-water fast mode does not run {what} yet "
+                    f"({FAST_ITEM}); it runs the y-first plane stepper "
+                    f"under RK4 and ETDRK4")
+    return None
+
+
 def resolve_sw_backend(cfg, warn: bool = True) -> str:
     """The stepping backend for a SW configuration, decided once: the
     barotropic shape gate. Under RK4 with r_drag or nu4 != 0 the kernel
@@ -281,7 +335,10 @@ class ShallowWaterModel(nn.Module):
     per-transform kernels, with a warning. `fused_rk` picks the plane
     stepper's RK4 form (rk4_step_planes; True the JAX default), `yfirst`
     its transform order under both schemes (True the JAX default,
-    XFB_SW_YFIRST=1). beta != 0
+    XFB_SW_YFIRST=1). `fast`, `split` and `pstore` are the fast mode,
+    the split-linear formulation and the product store (module note;
+    on "pallas" only, `self.fast`, `self.split` and `self.pstore` what
+    runs; sw_fast_refusal's combinations raise). beta != 0
     raises; under RK4 dt above max_stable_dt warns, as in the JAX
     package.
 
@@ -293,9 +350,13 @@ class ShallowWaterModel(nn.Module):
 
     def __init__(self, cfg, device, tables: SpectralTables = None,
                  etd_fuse: bool = True, fused_rk: bool = True,
-                 yfirst: bool = True):
+                 yfirst: bool = True, fast: bool = False,
+                 split: Optional[bool] = None,
+                 pstore: Optional[str] = None):
         super().__init__()
         check_time_scheme(cfg)
+        if not isinstance(fast, bool):
+            raise TypeError(f"fast must be a bool, got {fast!r}")
         if float(cfg.beta) != 0.0:
             raise NotImplementedError(
                 "beta-plane is barotropic/tracer-only: the SW equations "
@@ -322,8 +383,18 @@ class ShallowWaterModel(nn.Module):
                 "the run will blow up; reduce dt (verified NaN at 4096^2 "
                 "with dt=3), or use --time-scheme etdrk4 (exact linear "
                 "waves; only the advective CFL remains)", stacklevel=2)
-        self.backend = resolve_sw_backend(cfg)
+        self.backend = resolve_sw_backend(cfg, warn=not fast)
         self.per_transform = per_transform(cfg, self.backend)
+        # fast mode, split and the product store live on the kernels; the
+        # library path stays the float32 default formulation
+        kernels = self.backend == "pallas"
+        self.fast = fast and kernels
+        if self.fast:
+            why = sw_fast_refusal(yfirst, self.per_transform)
+            if why:
+                raise ValueError(why)
+        self.split = resolve_split(split, self.fast) and kernels
+        self.pstore = resolve_pstore(pstore, self.fast) if kernels else "f32"
         self.fwd_pair = (self.backend == "xla"
                          and max(cfg.grid_shape) <= FORWARD_PAIR_MAX)
         self.tables = (tables if tables is not None
@@ -338,8 +409,11 @@ class ShallowWaterModel(nn.Module):
     @classmethod
     def build(cls, cfg, device, tables: SpectralTables = None,
               etd_fuse: bool = True, fused_rk: bool = True,
-              yfirst: bool = True) -> "ShallowWaterModel":
-        return cls(cfg, device, tables, etd_fuse, fused_rk, yfirst)
+              yfirst: bool = True, fast: bool = False,
+              split: Optional[bool] = None,
+              pstore: Optional[str] = None) -> "ShallowWaterModel":
+        return cls(cfg, device, tables, etd_fuse, fused_rk, yfirst, fast,
+                   split, pstore)
 
     def _check_state(self, s: SWState) -> None:
         for z in s:
@@ -361,23 +435,24 @@ class ShallowWaterModel(nn.Module):
             for _ in range(n_steps):
                 s = rk4_step(t, s, src, self.dt, self.f, self.g, self.nu,
                              self.H, self.cfg.grid_shape, fwd=fwd, inv=inv,
-                             inv_pair=inv_pair, r_drag=self.r_drag,
-                             nu4=self.nu4)
+                             inv_pair=inv_pair, split=self.split,
+                             r_drag=self.r_drag, nu4=self.nu4)
             return s
         if self.backend == "pallas":
             src_planes = None if src is None else fs.forward_planes(src)
             p = state_to_planes(s)
             eta_scale = float(fs.eta_pair_scale(p))   # once per segment
+            form = dict(yfirst=self.yfirst, fast=self.fast,
+                        split=self.split, pstore=self.pstore)
             for _ in range(n_steps):
                 if et is not None:
                     p = etd.etdrk4_step_planes(t, et, p, src_planes,
                                                eta_scale, fuse=self.etd_fuse,
-                                               yfirst=self.yfirst)
+                                               **form)
                 else:
                     p = rk4_step_planes(t, p, src_planes, self.dt, self.f,
                                         self.g, self.nu, self.H, eta_scale,
-                                        fused_rk=self.fused_rk,
-                                        yfirst=self.yfirst)
+                                        fused_rk=self.fused_rk, **form)
             return planes_to_state(p)
         if et is not None:
             for _ in range(n_steps):

@@ -93,6 +93,18 @@ SIGNATURES = {
     + [_I] * 5 + [_P],
     "xfb_kb_adv_half_fast": [_P] * 8 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
     "xfb_kx_visc_fast": [_P] * 13 + [_I, _I, _I, _F, _F] + [_I] * 5 + [_P],
+    "xfb_ka_sw_fast": [_P] * 12 + [_I, _I, _F] + [_I] * 5 + [_P],
+    "xfb_ky_all_fast": [_P] * 7 + [_I, _I, _F, _F, _F, _I] + [_I] * 5
+    + [_P],
+    # kx_fwd with the bf16 product store (csrc/kx_visc.cu), fast and
+    # strict tile: fr, fi, tw, rr, ri, nfields, nx, hny, tile_c,
+    # cluster_k, threads, smem, device, stream
+    "xfb_kx_fwd_fast": [_P] * 5 + [_I] * 8 + [_P],
+    "xfb_kx_fwd_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    # the combines on bf16 product planes: arguments as their float32
+    # entries'
+    "xfb_sw_combine_bf16": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
+    "xfb_sw_combine_mv_bf16": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _I, _P],
     # xr, xi, tw, yr, yi, n, m, forward, scale, tile_c, cluster_k,
     # threads, smem (the ops/xtile.py plan), device, stream
     "xfb_ka": [_P] * 5 + [_I, _I, _I, _F] + [_I] * 5 + [_P],

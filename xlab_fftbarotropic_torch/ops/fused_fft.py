@@ -83,7 +83,9 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "kx_visc_tail": 0, "visc": 0, "a2a_cols": 0, "a2a_rows": 0,
             "xstage": 0, "xstage_gather": 0, "xstage_scatter": 0,
             "ka_diag_fast": 0, "kb_pair_fast": 0, "kb_adv_half_fast": 0,
-            "kx_visc_fast": 0}
+            "kx_visc_fast": 0, "ka_sw_fast": 0, "ky_all_fast": 0,
+            "kx_fwd_fast": 0, "kx_fwd_fast_f32": 0, "kx_fwd_bf16": 0,
+            "sw_combine_bf16": 0, "sw_combine_mv_bf16": 0}
 
 # the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
 FUSEKB_MODES = ("", "half", "full")

@@ -39,6 +39,18 @@ eta_scale is the pairing equalizer: zeta (about 1e-4) and eta (about
 about eps * max|partner|, so eta is brought to zeta's size by an exact
 power of two first and unscaled in ky_all.
 
+Fast mode (the JAX package's --fast-transforms for shallow water) runs
+ka_sw, the two kb_pair, ky_all and kx_fwd on the fast column tile
+(csrc/xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
+products, float32 accumulate), each wrapper's `fast=True`, counted under
+its own name (ka_sw_fast, ...), with the split-linear formulation and
+the product store `pstore` (pallas_sw.pstore_dtype): "bf16", kx_fwd
+rounds its five product spectra once to bf16 and sw_combine and
+sw_combine_mv read them widened exactly (their _bf16 forms), or "f32".
+On the CPU each fast form takes its plain version: the strict plain
+version's load and store around ops/fast_tile.py's emulation of the
+fast transform, and `.to(torch.bfloat16)` for the bf16 store.
+
 Same dispatch rule as ops/fused_fft.py: CPU tensors take the plain
 version beside each wrapper, CUDA tensors launch the kernel or raise;
 launches count in fused_fft.LAUNCHES.
@@ -47,6 +59,7 @@ launches count in fused_fft.LAUNCHES.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,6 +69,8 @@ from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
 
 MAX_PLANES = 8   # csrc/rk4_combine.cu kMaxPlanes
 N_PRODUCTS = 5   # q*u, q*v, eta*u, eta*v, phi
+# kx_fwd's product store (pallas_sw.pstore_dtype): its dtype by name
+PSTORES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 # ------------------------------------------------------------ rk4_combine
@@ -153,11 +168,22 @@ def ka_sw_plain(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
                                            kx, ky, eta_scale))
 
 
-def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
+def ka_sw_fast_plain(zr, zi, dr, di, er, ei, rlap, kx, ky,
+                     eta_scale: float):
+    """ka_sw_plain's fields through the fast tile's inverse x-DFT."""
+    from .fast_tile import fast_dft
+    re, im = sw_fields(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
+    yr, yi = fast_dft(torch.stack(re), torch.stack(im), +1, dim=1)
+    return yr.transpose(1, 2).contiguous(), yi.transpose(1, 2).contiguous()
+
+
+def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float,
+          fast: bool = False):
     """(u, v, zeta, eta_scale*eta) of the SW state planes (nx, hny),
     inverse x-DFT (unnormalized), written transposed: (wr, wi)
-    (4, hny, nx). Counterpart of pallas_sw.inverse_quad_planes' KA stage
-    (_ka_sw_kernel, and its two-call split _ka_sw2_kernel)."""
+    (4, hny, nx); `fast`: on the fast column tile. Counterpart of
+    pallas_sw.inverse_quad_planes' KA stage (_ka_sw_kernel, and its
+    two-call split _ka_sw2_kernel)."""
     n, hny = zr.shape
     _check("ka_sw", (n, hny), zr, zi, dr, di, er, ei, rlap)
     _check("ka_sw", (n,), kx)
@@ -165,11 +191,13 @@ def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
     if kx.device != zr.device or ky.device != zr.device:
         raise ValueError("ka_sw: tables and state on different devices")
     if _takes_plain("ka_sw", zr, n):
-        return ka_sw_plain(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
+        return (ka_sw_fast_plain if fast else ka_sw_plain)(
+            zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
     from ._build import lib
     wr = torch.empty((4, hny, n), dtype=torch.float32, device=zr.device)
     wi = torch.empty_like(wr)
-    _launch("ka_sw", lib().xfb_ka_sw,
+    name = "ka_sw_fast" if fast else "ka_sw"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(zr, zi, dr, di, er, ei, rlap, kx, ky,
                    _twiddles(n, zr.device), wr, wi),
             n, hny, float(eta_scale), *_xtile_args(n, hny, 4),
@@ -178,15 +206,21 @@ def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
 
 
 def inverse_quad_planes(zr, zi, dr, di, er, ei, kx, ky, rlap,
-                        eta_scale: float = 1.0, yfirst: bool = True):
+                        eta_scale: float = 1.0, yfirst: bool = True,
+                        fast: bool = False):
     """(u, v, zeta, eta_scale*eta) from the SW state planes: ka_sw + two
     kb_pair, y-major (ny, nx), or with yfirst False ka_sw + two
-    kb_stacked, x-major (nx, ny). Counterpart of
+    kb_stacked, x-major (nx, ny); `fast` (y-first only): ka_sw and
+    kb_pair on the fast column tile. Counterpart of
     pallas_sw.inverse_quad_planes (YFIRST = yfirst)."""
+    if fast and not yfirst:
+        raise ValueError("fast mode runs the y-first order (the x-first "
+                         "one: ROADMAP.md queue A, item 4)")
     nx, hny = zr.shape
     scale = 1.0 / (nx * 2 * (hny - 1))
-    pair = kb_pair if yfirst else kb_stacked
-    wr, wi = ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
+    pair = functools.partial(kb_pair, fast=fast) if yfirst else kb_stacked
+    wr, wi = ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale,
+                   fast=fast)
     u, v = pair(wr, wi, 0, 1, scale)
     zeta, eta_s = pair(wr, wi, 2, 3, scale)
     return u, v, zeta, eta_s
@@ -216,24 +250,40 @@ def ky_all_plain(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
     return f.real.contiguous(), f.imag.contiguous()
 
 
+def ky_all_fast_plain(u, v, zeta, eta_s, ies: float, f0: float,
+                      grav: float, split: bool = False):
+    """ky_all_plain's products through the fast tile's forward y-DFT,
+    rows k <= ny/2 written transposed."""
+    from .fast_tile import fast_dft
+    prods = torch.stack(sw_products(u, v, zeta, eta_s, ies, f0, grav,
+                                    split))
+    fr, fi = fast_dft(prods, torch.zeros_like(prods), -1, dim=1)
+    hny = u.shape[0] // 2 + 1
+    return (fr[:, :hny].transpose(1, 2).contiguous(),
+            fi[:, :hny].transpose(1, 2).contiguous())
+
+
 def ky_all(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
-           split: bool = False):
+           split: bool = False, fast: bool = False):
     """The five SW products of the y-major (ny, nx) fields (eta_s scaled
     by the pairing equalizer, `ies` its inverse), each through the real
-    forward y-DFT, rows k <= ny/2 -> stacked (5, nx, hny) planes.
-    Counterpart of pallas_sw.forward_tendencies' KY stage
-    (_ky_all_loop_kernel, _ky_all_kernel and _ky_fwd_kernel, which
-    compute the same function)."""
+    forward y-DFT, rows k <= ny/2 -> stacked (5, nx, hny) planes;
+    `fast`: on the fast column tile. Counterpart of
+    pallas_sw.forward_tendencies' KY stage (_ky_all_loop_kernel,
+    _ky_all_kernel and _ky_fwd_kernel, which compute the same
+    function)."""
     ny, nx = u.shape
     _check("ky_all", (ny, nx), u, v, zeta, eta_s)
     if _takes_plain("ky_all", u, ny):
-        return ky_all_plain(u, v, zeta, eta_s, ies, f0, grav, split)
+        return (ky_all_fast_plain if fast else ky_all_plain)(
+            u, v, zeta, eta_s, ies, f0, grav, split)
     from ._build import lib
     hny = ny // 2 + 1
     outr = torch.empty((N_PRODUCTS, nx, hny), dtype=torch.float32,
                        device=u.device)
     outi = torch.empty_like(outr)
-    _launch("ky_all", lib().xfb_ky_all,
+    name = "ky_all_fast" if fast else "ky_all"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(u, v, zeta, eta_s, _twiddles(ny, u.device), outr, outi),
             ny, nx, float(ies), float(f0), float(grav), int(split),
             *_xtile_args(ny, nx, 4), u.device.index, _stream(u))
@@ -242,29 +292,55 @@ def ky_all(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
 
 # ----------------------------------------------------------------- kx_fwd
 
-def kx_fwd_plain(fr, fi):
+def kx_fwd_plain(fr, fi, pstore: str = "f32"):
     f = torch.fft.fft(torch.complex(fr, fi), dim=-2)
-    return f.real.contiguous(), f.imag.contiguous()
+    d = PSTORES[pstore]
+    return f.real.to(d).contiguous(), f.imag.to(d).contiguous()
 
 
-def kx_fwd(fr, fi):
+def kx_fwd_fast_plain(fr, fi, pstore: str = "f32"):
+    """The fast tile's forward x-DFT, stored as `pstore` (bf16: each
+    value rounded once, to nearest even)."""
+    from .fast_tile import fast_dft
+    d = PSTORES[pstore]
+    return tuple(x.to(d).contiguous() for x in fast_dft(fr, fi, -1, dim=-2))
+
+
+def kx_fwd(fr, fi, fast: bool = False, pstore: str = "f32"):
     """Forward x-DFT of stacked (F, nx, hny) planes over the hny columns,
-    no epilogue: (F, nx, hny) planes in natural orientation. Counterpart
-    of pallas_sw.forward_tendencies' KX stage (_kx_fwd_kernel); the
-    kernel is csrc/kx_visc.cu with a null epilogue."""
+    no epilogue: (F, nx, hny) planes in natural orientation, stored as
+    `pstore` ("f32", or "bf16": each value of the float32 result rounded
+    once to bf16); `fast`: on the fast column tile. Counterpart of
+    pallas_sw.forward_tendencies' KX stage (_kx_fwd_kernel, its output
+    dtype pallas_sw.pstore_dtype); the kernel is csrc/kx_visc.cu with a
+    null epilogue, or its bf16 store."""
     if fr.dim() != 3:
         raise ValueError(f"kx_fwd: expected (F, nx, hny), got "
                          f"{tuple(fr.shape)}")
+    if pstore not in PSTORES:
+        raise ValueError(f"kx_fwd: pstore {pstore!r}, not one of "
+                         f"{tuple(PSTORES)}")
     nf, nx, hny = fr.shape
     _check("kx_fwd", (nf, nx, hny), fr, fi)
     if _takes_plain("kx_fwd", fr, nx):
-        return kx_fwd_plain(fr, fi)
+        return (kx_fwd_fast_plain if fast else kx_fwd_plain)(fr, fi, pstore)
     from ._build import lib
-    rr = torch.empty_like(fr)
-    ri = torch.empty_like(fr)
-    _launch("kx_fwd", lib().xfb_kx_visc, fr.data_ptr(), fi.data_ptr(),
+    rr = torch.empty_like(fr, dtype=PSTORES[pstore])
+    ri = torch.empty_like(rr)
+    # the LAUNCHES key; the bf16 stores' entry is xfb_<key>
+    name = {(False, "f32"): "kx_fwd", (True, "f32"): "kx_fwd_fast_f32",
+            (False, "bf16"): "kx_fwd_bf16",
+            (True, "bf16"): "kx_fwd_fast"}[(fast, pstore)]
+    tw = _twiddles(nx, fr.device)
+    if pstore == "bf16":
+        _launch(name, getattr(lib(), "xfb_" + name),
+                *_ptrs(fr, fi, tw, rr, ri), nf, nx, hny,
+                *_xtile_args(nx, hny, 4), fr.device.index, _stream(fr))
+        return rr, ri
+    entry = lib().xfb_kx_visc_fast if fast else lib().xfb_kx_visc
+    _launch(name, entry, fr.data_ptr(), fi.data_ptr(),
             None, None, None, None, None, None,
-            *_ptrs(_twiddles(nx, fr.device), rr, ri), None, None,
+            *_ptrs(tw, rr, ri), None, None,
             nf, nx, hny, 0.0, 0.0, *_xtile_args(nx, hny, 4),
             fr.device.index, _stream(fr))
     return rr, ri
@@ -336,11 +412,30 @@ def kc_sw(xr, xi):
 
 # ------------------------------------------------------------- sw_combine
 
+def _products(name: str, pr, pi, nx: int, hny: int) -> str:
+    """The product spectra's store ("f32" or "bf16") after checking them:
+    (5, nx, hny), contiguous, of one dtype on one device."""
+    store = {v: k for k, v in PSTORES.items()}.get(pr.dtype)
+    if store is None or pi.dtype != pr.dtype:
+        raise TypeError(f"{name}: expected float32 or bfloat16 product "
+                        f"planes, got {pr.dtype} and {pi.dtype}")
+    for t in (pr, pi):
+        if tuple(t.shape) != (N_PRODUCTS, nx, hny):
+            raise ValueError(f"{name}: expected shape "
+                             f"{(N_PRODUCTS, nx, hny)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != pr.device:
+            raise ValueError(f"{name}: product planes must be contiguous "
+                             f"and on one device")
+    return store
+
+
 def sw_combine_plain(pr, pi, state, src, kx, ky, lap, mask, f0: float,
                      grav: float, nu: float, H: float, split: bool = False,
                      axpy=None):
-    qur, qvr, eur, evr, phr = pr.unbind(0)
-    qui, qvi, eui, evi, phi_ = pi.unbind(0)
+    # bf16 product spectra (the bf16 store) widen exactly first
+    qur, qvr, eur, evr, phr = pr.float().unbind(0)
+    qui, qvi, eui, evi, phi_ = pi.float().unbind(0)
     k = kx.reshape(-1, 1)
     q = ky.reshape(1, -1)
     zr, zi, dr, di, er, ei = state
@@ -381,11 +476,13 @@ def sw_combine(pr, pi, state, src, kx, ky, lap, mask, f0: float,
 
     split adds -f0 D, f0 Z - g lap E where lap != 0 (the products then
     left them out). axpy=(z0_planes, coef) also returns the next stage
-    state z0 + coef * tendency from the BASE state z0: (tend, next).
+    state z0 + coef * tendency from the BASE state z0: (tend, next). The
+    product planes may be bf16 (kx_fwd's bf16 store): each value widens
+    exactly, then the float32 arithmetic (the sw_combine_bf16 form).
     Counterpart of pallas_sw.forward_tendencies' COMBINE (_combine_kernel,
     _combine_axpy_kernel)."""
     nx, hny = lap.shape
-    _check("sw_combine", (N_PRODUCTS, nx, hny), pr, pi)
+    store = _products("sw_combine", pr, pi, nx, hny)
     planes = (*state, lap, mask) + (() if src is None else tuple(src))
     if len(state) != 6 or (src is not None and len(src) != 2):
         raise ValueError("sw_combine: expected six state planes and two "
@@ -412,7 +509,8 @@ def sw_combine(pr, pi, state, src, kx, ky, lap, mask, f0: float,
         *_ptrs(pr, pi, *state), *srcp, *_ptrs(kx, ky, lap, mask), *z0p,
         *_ptrs(*tend), *(_ptrs(*nxt) if axpy else [None] * 6))
     coef = 0.0 if axpy is None else float(axpy[1])
-    _launch("sw_combine", lib().xfb_sw_combine, ctypes.addressof(table),
+    name = "sw_combine_bf16" if store == "bf16" else "sw_combine"
+    _launch(name, getattr(lib(), "xfb_" + name), ctypes.addressof(table),
             nx, hny, float(f0), float(grav), float(nu), float(H),
             int(split), coef, pr.device.index, _stream(pr))
     return tuple(tend) if axpy is None else (tuple(tend), tuple(nxt))
@@ -443,11 +541,12 @@ def sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0: float,
     per-mode 3x3 table (3, 3, nx, hny) (models/etdrk4.py), per row i
     ((z0 + (scale q_i0) t_zeta) + (scale q_i1) t_div) + (scale q_i2) t_eta
     on the re and the im planes. Returns (tend, stage), tend None when
-    emit_tend is False (the last ETDRK4 stage never reads it).
-    Counterpart of pallas_sw.forward_tendencies' COMBINE with mv_axpy
-    (_combine_mv_kernel)."""
+    emit_tend is False (the last ETDRK4 stage never reads it). The
+    product planes may be bf16, as sw_combine's (the sw_combine_mv_bf16
+    form). Counterpart of pallas_sw.forward_tendencies' COMBINE with
+    mv_axpy (_combine_mv_kernel)."""
     nx, hny = lap.shape
-    _check("sw_combine_mv", (N_PRODUCTS, nx, hny), pr, pi)
+    store = _products("sw_combine_mv", pr, pi, nx, hny)
     if len(state) != 6 or len(z0) != 6 or (src is not None
                                            and len(src) != 2):
         raise ValueError("sw_combine_mv: expected six state planes, six "
@@ -471,8 +570,8 @@ def sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0: float,
     table = (ctypes.c_void_p * 33)(
         *_ptrs(pr, pi, *state), *srcp, *_ptrs(kx, ky, lap, mask, *z0, q),
         *(_ptrs(*tend) if emit_tend else [None] * 6), *_ptrs(*stage))
-    _launch("sw_combine_mv", lib().xfb_sw_combine_mv,
-            ctypes.addressof(table), nx, hny, float(f0), float(grav),
+    name = "sw_combine_mv_bf16" if store == "bf16" else "sw_combine_mv"
+    _launch(name, getattr(lib(), "xfb_" + name), ctypes.addressof(table), nx, hny, float(f0), float(grav),
             float(nu), float(H), int(split), float(scale), pr.device.index,
             _stream(pr))
     return (tuple(tend) if emit_tend else None), tuple(stage)
@@ -484,20 +583,28 @@ def forward_tendencies(u, v, zeta, eta_s, state, src, kx, ky, lap, mask,
                        f0: float, grav: float, nu: float, H: float,
                        eta_scale: float = 1.0, axpy=None,
                        split: bool = False, mv_axpy=None,
-                       yfirst: bool = True):
+                       yfirst: bool = True, fast: bool = False,
+                       pstore: str = "f32"):
     """The dealiased SW tendency planes from the fields of
     inverse_quad_planes: y-major, ky_all + kx_fwd + sw_combine; with
     yfirst False x-major, ka_fwd + kc_sw + sw_combine (with axpy: also
     the next stage state). mv_axpy=(z0, q, scale, emit_tend) takes
     sw_combine_mv instead and returns (tend or None, z0 + scale *
-    (q @ tend)); it does not combine with axpy. Counterpart of
-    pallas_sw.forward_tendencies (YFIRST = yfirst)."""
+    (q @ tend)); it does not combine with axpy. y-first only: `fast`
+    runs ky_all and kx_fwd on the fast column tile, and `pstore` is
+    kx_fwd's product store (the x-first kc_sw stores float32, as in the
+    JAX package). Counterpart of pallas_sw.forward_tendencies (YFIRST =
+    yfirst)."""
     if axpy is not None and mv_axpy is not None:
         raise ValueError("forward_tendencies: axpy and mv_axpy are "
                          "mutually exclusive")
+    if fast and not yfirst:
+        raise ValueError("fast mode runs the y-first order (the x-first "
+                         "one: ROADMAP.md queue A, item 4)")
     if yfirst:
         pr, pi = kx_fwd(*ky_all(u, v, zeta, eta_s, 1.0 / eta_scale, f0,
-                                grav, split))
+                                grav, split, fast=fast),
+                        fast=fast, pstore=pstore)
     else:
         pr, pi = kc_sw(*ka_fwd(u, v, zeta, eta_s, 1.0 / eta_scale, f0,
                                grav, split))

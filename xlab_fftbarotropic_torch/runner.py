@@ -177,9 +177,11 @@ class _ShallowWaterAdapter:
 
     kind = "shallow-water"
 
-    def __init__(self, cfg: ModelConfig, device, yfirst: bool = True):
+    def __init__(self, cfg: ModelConfig, device, yfirst: bool = True,
+                 **form):
         self.cfg = cfg
-        self.model = ShallowWaterModel.build(cfg, device, yfirst=yfirst)
+        self.model = ShallowWaterModel.build(cfg, device, yfirst=yfirst,
+                                             **form)
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -335,7 +337,7 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  yfirst: bool = True, bt_fusion: Optional[dict] = None,
                  shard_fft: str = "xla", decomp: str = "slab",
                  ensemble_amp: float = 0.05, ensemble_seed: int = 0,
-                 ensemble_width=None):
+                 ensemble_width=None, sw_form: Optional[dict] = None):
     if ensemble and ensemble > 1:
         if shard:
             raise ValueError("--ensemble and --shard are mutually "
@@ -345,7 +347,7 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
         if model_kind in ("barotropic", "bt"):
             build_kw = dict(yfirst=yfirst, **(bt_fusion or {}))
         elif model_kind in ("shallow-water", "sw"):
-            build_kw = dict(yfirst=yfirst)
+            build_kw = dict(yfirst=yfirst, **(sw_form or {}))
         elif model_kind != "tracer":
             raise ValueError(f"ensemble is not supported for model kind "
                              f"{model_kind!r}")
@@ -370,7 +372,7 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
     if model_kind == "tracer":
         return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
     if model_kind in ("shallow-water", "sw"):
-        return _ShallowWaterAdapter(cfg, device, yfirst)
+        return _ShallowWaterAdapter(cfg, device, yfirst, **(sw_form or {}))
     if model_kind in ("fd", "jacobian"):
         return _FDAdapter(cfg, device)
     raise ValueError(f"unknown model kind {model_kind!r}")
@@ -399,7 +401,8 @@ def run(cfg: ModelConfig,
         decomp: str = "slab",
         ensemble_amp: float = 0.05,
         ensemble_seed: int = 0,
-        ensemble_width=None) -> RunResult:
+        ensemble_width=None,
+        sw_form: Optional[dict] = None) -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -416,7 +419,9 @@ def run(cfg: ModelConfig,
     barotropic and shallow-water families (False: x-first); the tracer
     family has one. bt_fusion: the barotropic plane stepper's fusion arm
     and RK form, BarotropicModel.build's fused_rk, fusekb, fusekx and
-    fusetail (None: the defaults). shard: the barotropic family on the
+    fusetail (None: the defaults). sw_form: the shallow-water plane
+    stepper's fast, split and pstore (ShallowWaterModel.build's; None:
+    the defaults). shard: the barotropic family on the
     sharded model (parallel/model.py) over the visible card, with
     shard_fft its transform impl ('xla', 'pallas', 'overlap') and decomp
     its decomposition ('slab', 'xpencil'). model_kind 'fd' (or
@@ -432,7 +437,7 @@ def run(cfg: ModelConfig,
                            bt_fusion=bt_fusion, shard_fft=shard_fft,
                            decomp=decomp, ensemble_amp=ensemble_amp,
                            ensemble_seed=ensemble_seed,
-                           ensemble_width=ensemble_width)
+                           ensemble_width=ensemble_width, sw_form=sw_form)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
