@@ -190,8 +190,25 @@ exits non-zero and prints no result):
    7.5 s, each above 1e-7, div's printed; eta's error larger without
    the split-linear formulation; the float32 store within the 20-step
    bars; the unfused RK form bit for bit; ms/step of the fast and strict
-   RK4 and ETDRK4 paths, in turns. The script's total wall time is
-   printed before the JSON lines.
+   RK4 and ETDRK4 paths, in turns. The tracer and the other barotropic
+   arms (phase_fast_arms): the fast forms of ka6, kb_adv_tracer, the
+   stacked kx_visc, ky_adv, kb_adv_full, kx_visc_tail, the one-field
+   kx_fwd and kx_visc's "none" form (nu = 0, ETDRK4's N) held and timed
+   as above; the CLI's -m tracer --fast-transforms runs (RK4 and
+   ETDRK4: exactly 4 ka6_fast, 8 kb_pair_fast, 4 kb_adv_tracer_fast and
+   4 kx_visc_fast per step, and 1 rk4_combine under RK4), the
+   barotropic fast ETDRK4 run and the five arm runs (XFB_BT_FUSEKB=0,
+   full, XFB_BT_FUSEKX=0, XFB_BT_FUSETAIL=1, XFB_BT_FUSED_RK=0), exact
+   launches; bench.py's tracer configuration through
+   TracerModel.build(..., fast=True) with torch.fft.* and torch.matmul
+   raising, zeta and q each within rel-L2 1e-4 of the strict kernel
+   path after 30 RK4 steps, 1e-3 after 200 and 1e-3 after 20 ETDRK4
+   steps, each above 1e-7; barotropic fast ETDRK4 within 1e-3 after 20
+   steps; every barotropic fast arm (RK4: FUSEKB "" and full,
+   FUSEKX=0, FUSETAIL, unfused; ETDRK4: FUSEKB "" and full) bit for bit
+   the fast half arm of its scheme after 3 steps; ms/step of each new
+   path beside its strict counterpart, in turns. The script's total
+   wall time is printed before the JSON lines.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -222,7 +239,8 @@ exits non-zero and prints no result):
 10. Time: ms/step and grid-points/s of every path from CUDA events after
    a warm-up, in turns, with the peak device memory of each.
 11. With --profile: torch.profiler traces of the barotropic (default
-   and FUSEKB=full), tracer (RK4 and ETDRK4), SW RK4 and SW ETDRK4
+   and FUSEKB=full), tracer (RK4 and ETDRK4; phase 5o: fast RK4), SW
+   RK4 and SW ETDRK4
    y-first kernel paths
    (the column-tile kx_visc and kx_fwd), the SW drag, the x-first
    barotropic and SW RK4 paths (the column-tile kc, kc_visc, kc_sw and
@@ -280,6 +298,16 @@ FAST_SW = ("sw-fast", "sw-fast-etdrk4", "sw-fast-f32")
 BT_FULL = ("bt-fusekb-full", "bt-full-tail", "bt-etdrk4-full")
 BT_FUSEKX0 = ("bt-fusekx0", "bt-unfused-fusekx0", "bt-etdrk4-fusekx0")
 BT_TAIL = ("bt-fusetail", "bt-full-tail")
+# the tracer's fast paths and the other barotropic fast arms through the
+# CLI (phase 5o): the environment each runs under, as the JAX package
+# reads it
+FAST_TRACER = ("tracer-fast", "tracer-fast-etdrk4")
+BT_FAST_ENV = {"barotropic-fast-etdrk4": {},
+               "bt-fast-fusekb0": {"XFB_BT_FUSEKB": "0"},
+               "bt-fast-full": {"XFB_BT_FUSEKB": "full"},
+               "bt-fast-fusekx0": {"XFB_BT_FUSEKX": "0"},
+               "bt-fast-fusetail": {"XFB_BT_FUSETAIL": "1"},
+               "bt-fast-unfused": {"XFB_BT_FUSED_RK": "0"}}
 # the sharded barotropic paths: through the CLI on one shard
 # (shard-<decomp>-<impl>) and through ShardedBarotropicModel.build on
 # four (shard4-<decomp>-<impl>, and slab/overlap under ETDRK4)
@@ -413,6 +441,33 @@ KERNELS = {
     "kx_visc_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
                      "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654",
                      "kx_visc_fast", ("barotropic-fast",)),
+    # the tracer's fast mode (rows 18, 19, 20 on the fast column tile) and
+    # the other barotropic fast arms (rows 3, 5, 6, 10; row 4's "none"
+    # form under ETDRK4): the CLI's runs
+    "ka6_fast": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+                 "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:57",
+                 "ka6_fast", FAST_TRACER),
+    "kb_adv_tracer_fast": ("xlab_fftbarotropic_torch/csrc/kb_adv_tracer.cu",
+                           "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:132",
+                           "kb_adv_tracer_fast", FAST_TRACER),
+    "kx_visc_tracer_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                            "xlab_fftbarotropic_tpu/ops/pallas_tracer.py:206",
+                            "kx_visc_fast", FAST_TRACER),
+    "ky_adv_fast": ("xlab_fftbarotropic_torch/csrc/ky_adv.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1506",
+                    "ky_adv_fast", ("bt-fast-fusekb0",)),
+    "kb_adv_full_fast": ("xlab_fftbarotropic_torch/csrc/kb_adv.cu",
+                         "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1158",
+                         "kb_adv_full_fast", ("bt-fast-full",)),
+    "kx_visc_tail_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                          "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1677",
+                          "kx_visc_tail_fast", ("bt-fast-fusetail",)),
+    "kx_fwd_bt_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                       "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1521",
+                       "kx_fwd_fast_f32", ("bt-fast-fusekx0",)),
+    "kx_visc_none_fast": ("xlab_fftbarotropic_torch/csrc/kx_visc.cu",
+                          "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1654",
+                          "kx_visc_fast", ("barotropic-fast-etdrk4",)),
     # shallow-water fast mode (rows 16, 17a, 17b on the fast column tile,
     # 17b's bf16 product store, 17c and 17e on bf16 products): the CLI's
     # -m sw --fast-transforms runs (RK4, ETDRK4) and the two model paths
@@ -503,6 +558,28 @@ PER_STEP = {
                         "rk4_combine": 1},
     "bt-etdrk4-fusekx0": {"ka_diag": 4, "kb_pair": 8, "ky_adv": 4,
                           "kx_fwd": 4, "visc": 4},
+    # the tracer's fast mode (RK4, ETDRK4) and the other barotropic fast
+    # arms
+    "tracer-fast": {"ka6_fast": 4, "kb_pair_fast": 8,
+                    "kb_adv_tracer_fast": 4, "kx_visc_fast": 4,
+                    "rk4_combine": 1},
+    "tracer-fast-etdrk4": {"ka6_fast": 4, "kb_pair_fast": 8,
+                           "kb_adv_tracer_fast": 4, "kx_visc_fast": 4},
+    "barotropic-fast-etdrk4": {"ka_diag_fast": 4, "kb_pair_fast": 4,
+                               "kb_adv_half_fast": 4, "kx_visc_fast": 4},
+    "bt-fast-fusekb0": {"ka_diag_fast": 4, "kb_pair_fast": 8,
+                        "ky_adv_fast": 4, "kx_visc_fast": 4,
+                        "rk4_combine": 1},
+    "bt-fast-full": {"ka_diag_fast": 4, "kb_adv_full_fast": 4,
+                     "kx_visc_fast": 4, "rk4_combine": 1},
+    "bt-fast-fusekx0": {"ka_diag_fast": 4, "kb_pair_fast": 4,
+                        "kb_adv_half_fast": 4, "kx_fwd_fast_f32": 4,
+                        "visc": 4, "rk4_combine": 1},
+    "bt-fast-fusetail": {"ka_diag_fast": 4, "kb_pair_fast": 4,
+                         "kb_adv_half_fast": 4, "kx_visc_fast": 3,
+                         "kx_visc_tail_fast": 1},
+    "bt-fast-unfused": {"ka_diag_fast": 4, "kb_pair_fast": 4,
+                        "kb_adv_half_fast": 4, "kx_visc_fast": 4},
     # shallow-water fast mode: the fast tile, split-linear, the bf16
     # product store (and the two stores the modes do not default to)
     "sw-fast": {"ka_sw_fast": 4, "kb_pair_fast": 8, "ky_all_fast": 4,
@@ -551,7 +628,8 @@ CLI_FAMILIES = ("barotropic", "tracer", "shallow-water", "sw-etdrk4",
                 "sw-xfirst-etdrk4") + tuple(BT_ARM_ENV) + SHARD_CLI
 CLI_ENV = {"barotropic-xfirst": {"XFB_BT_YFIRST": "0"},
            "sw-xfirst": {"XFB_SW_YFIRST": "0"},
-           "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}, **BT_ARM_ENV}
+           "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}, **BT_ARM_ENV,
+           **BT_FAST_ENV}
 # the same arms as BarotropicModel.build arguments, in the trajectory,
 # no-library and time phases, each beside the default arm of its form
 # (BT_ARM_REF, else "kernels")
@@ -1039,11 +1117,14 @@ TEMPLATE_FLAGS = {"ka_fields_kernel": ("psi_first", "fast"),
                   "kb_pair_kernel": ("fast",),
                   "kb_adv_kernel": ("full", "fast"),
                   "kx_visc_kernel": ("fast", "bf16"),
-                  "ka_sw_kernel": ("fast",), "ky_all_kernel": ("fast",)}
+                  "ka_sw_kernel": ("fast",), "ky_all_kernel": ("fast",),
+                  "ky_adv_kernel": ("fast",),
+                  "kb_adv_tracer_kernel": ("fast",)}
 # the fast path's bars: a fast kernel against its plain version on random
-# inputs (the tensor core's float32 sums run in an order of their own,
-# and a sum a rounding apart can round to the neighbouring bf16 in the
-# next pass), and a fast kernel's error class against the strict one
+# inputs (the plain versions form the tensor cores' measured sum,
+# ops/fast_tile.py dot16, for all but 0.01-0.1 % of the outputs, and a
+# sum a rounding apart can round to the neighbouring bf16 in the next
+# pass), and a fast kernel's error class against the strict one
 FAST_TOL = 1e-4
 FAST_CLASS = (1e-4, 1e-2)
 # the shallow-water fast mode (rows 16, 17a, 17b on the fast column tile,
@@ -1060,6 +1141,28 @@ BF16_KERNELS = {"kx_fwd_bf16": "kx_fwd", "sw_combine_bf16": "sw_combine",
 FAST_SW_BARS = {(20, "rk4"): (2e-4, 2e-3), (200, "rk4"): (2e-3, 5e-3),
                 (20, "etdrk4"): (1e-3, 5e-3)}
 FAST_FLOOR = 1e-7
+# the tracer's fast forms (rows 18, 19, 20) and the other barotropic
+# arms' (rows 3, 5, 6, 10, and row 4's "none" form, ETDRK4's N), with the
+# strict rows they are held against
+FAST_ARM_KERNELS = {"ka6_fast": "ka6", "kb_adv_tracer_fast": "kb_adv_tracer",
+                    "kx_visc_tracer_fast": "kx_visc_tracer",
+                    "ky_adv_fast": "ky_adv", "kb_adv_full_fast": "kb_adv_full",
+                    "kx_visc_tail_fast": "kx_visc_tail",
+                    "kx_fwd_bt_fast": "kx_fwd_bt",
+                    "kx_visc_none_fast": "kx_visc"}
+# the tracer's and barotropic ETDRK4's fast paths against the strict
+# kernel path (rel-L2 of zeta and q, of vorticity): (steps, scheme) ->
+# bar; every error above FAST_FLOOR
+FAST_TRACER_BARS = {(30, "rk4"): 1e-4, (200, "rk4"): 1e-3,
+                    (20, "etdrk4"): 1e-3}
+FAST_BTE_BAR = 1e-3
+# the barotropic fast arms (BarotropicModel.build arguments), each held
+# bit for bit to the fast FUSEKB=half arm of its scheme after 3 steps
+FAST_ARMS = {"fusekb0": dict(fusekb=""), "full": dict(fusekb="full"),
+             "fusekx0": dict(fusekx=False), "tail": dict(fusetail=True),
+             "unfused": dict(fused_rk=False)}
+FAST_ETD_ARMS = {"etd-fusekb0": dict(fusekb=""),
+                 "etd-full": dict(fusekb="full")}
 
 
 class FastCase(NamedTuple):
@@ -1347,6 +1450,25 @@ def fast_library(name: str, case: FastCase, n: int):
     return lambda: torch.fft.irfft(x, n=n, dim=1)
 
 
+def _timed_turns(paths: dict, s0: dict, src, steps: int) -> dict:
+    """ms/step of each path (name -> model), from its state in s0, in
+    turns (each path, then each again in the reverse order): CUDA events
+    over a `steps`-step segment after a 2-step warm-up."""
+    times = {k: [] for k in paths}
+    for k in list(paths) + list(reversed(list(paths))):
+        m = paths[k]
+        m.segment(s0[k], src, 2)                    # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m.segment(s0[k], src, steps)
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end) / steps)
+    return times
+
+
 def phase_fast(n: int, steps: int, dev, profile: bool = False) -> dict:
     """Phase 5o, fast mode: each fast kernel against its plain version
     (bit for bit on exact inputs, FAST_TOL on random ones) and the strict
@@ -1426,18 +1548,7 @@ def phase_fast(n: int, steps: int, dev, profile: bool = False) -> dict:
                                  f"{rel:.3e} outside (1e-7, {bar:g}]")
         out[f"vort_rel_l2_{k}_steps"] = rel
     paths = {"fast": fast, "strict-half": half, "strict": strict}
-    times = {k: [] for k in paths}
-    for k in list(paths) + list(reversed(list(paths))):
-        m = paths[k]
-        m.segment(z0, src, 2)                      # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        m.segment(z0, src, steps)
-        end.record()
-        end.synchronize()
-        times[k].append(start.elapsed_time(end) / steps)
+    times = _timed_turns(paths, dict.fromkeys(paths, z0), src, steps)
     for k, ts in times.items():
         ms = sum(ts) / len(ts)
         out[f"ms_per_step_{k}"] = ms
@@ -1449,6 +1560,387 @@ def phase_fast(n: int, steps: int, dev, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         out["profile"] = profile_run("barotropic-fast",
                                      lambda: fast.segment(z0, src, 5), 5)
+    return out
+
+
+def fast_arm_cases(n: int, cols, dev, seed: int) -> dict:
+    """name -> FastCase of the tracer's fast forms and the other
+    barotropic arms' (FAST_ARM_KERNELS) for a length-n transform over
+    `cols` columns (None: the n x n grid's), numpy-seeded: ka6 (the
+    x-stage of (2, n, hny) states), kb_adv_tracer (the y-stage of a (6,
+    n/2 + 1, nx) stack and four (n, nx) gradients), the stacked kx_visc
+    (two fields, nu = 1, the stage axpy), ky_adv, kb_adv_full (of a (4,
+    n/2 + 1, nx) stack), kx_visc_tail, the one-field kx_fwd and kx_visc's
+    "none" form (nu = 0, no axpy: ETDRK4's N). The exact inputs are small
+    integers on exact_rows with integer tables, as fast_cases makes them:
+    the inverse y-stages' stacks hold constants (row 0 of fields 2, 3)
+    and zero zeta gradients, so each advection is an integer plane on
+    exact_rows (kb_adv_tracer's q product -u q_x)."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    cx, cy = (hny, n) if cols is None else (cols, cols)
+    planes, ints = _makers(rng, dev)
+    kx, ky, rlap, lap, mask = _fast_tables(n, cols, dev, planes)
+    rows = exact_rows(n)
+    ekx, = ints((n,), 1)
+    eky, = ints((cx,), 1)
+    erl, = ints((n, cx), 1, 1, 2)
+    erl = erl * torch.where(ints((n, cx), 1, 0, 1)[0] > 0, 1.0, -1.0)
+    # ka6
+    sr2, si2 = planes((2, n, cx), 2)
+    esr2, esi2 = ints((2, n, cx), 2, rows=rows)
+    # the y-stages: stacks at the size the stepper gives them, and the
+    # constant (u, v) stacks of the exact cases
+    w6r, w6i = planes((6, hny, cy), 2, n * math.sqrt(cy))
+    w4r, w4i = planes((4, hny, cy), 2, n * math.sqrt(cy))
+    zx, zy, qx, qy, src, u, v = planes((n, cy), 7)
+    ew6 = torch.zeros((6, hny, cy), device=dev)
+    ew6[2:4, 0] = torch.stack(ints((cy,), 2)) * float(n * cy)
+    ew4 = ew6[:4].contiguous()
+    ezero = torch.zeros((n, cy), device=dev)
+    eqx, esrc, ezx, ezy = ints((n, cy), 4, rows=rows)
+    eu, ev = ints((n, cy), 2, -2, 2)
+    # the x-stages: one field (tail, kx_fwd, none) and two (the tracer's)
+    fr, fi, zsr, zsi, z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i = planes(
+        (n, cx), 12)
+    efr, efi = ints((n, cx), 2, rows=rows)
+    elap, ezsr, ezsi, ez0r, ez0i, er1r, er1i, er2r, er2i, er3r, er3i = ints(
+        (n, cx), 11, -2, 2)
+    emask, = ints((n, cx), 1, 0, 1)
+    f2r, f2i, l2, z2r, z2i, a2r, a2i = planes((2, n, cx), 7)
+    ef2r, ef2i = ints((2, n, cx), 2, rows=rows)
+    el2, ez2r, ez2i, ea2r, ea2i = ints((2, n, cx), 5, -2, 2)
+    tail = (z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, 1.5)
+    etail = (ez0r, ez0i, er1r, er1i, er2r, er2i, er3r, er3i, 0.5)
+    return {
+        "ka6_fast": FastCase(
+            lambda: ft.tracer_xstage_planes(sr2, si2, kx, ky, rlap,
+                                            fast=True),
+            lambda: ft.ka6_fast_plain(sr2, si2, rlap, kx, ky),
+            lambda: ft.tracer_xstage_planes(sr2, si2, kx, ky, rlap),
+            lambda: ft.tracer_xstage_planes(esr2, esi2, ekx, eky, erl,
+                                            fast=True),
+            lambda: ft.ka6_fast_plain(esr2, esi2, erl, ekx, eky),
+            _fields_f32, (sr2, si2, rlap), 6 * cx),
+        "kb_adv_tracer_fast": FastCase(
+            lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, src, 0.3,
+                                     fast=True),
+            lambda: ft.kb_adv_tracer_fast_plain(zx, zy, qx, qy, w6r, w6i,
+                                                src, 0.3),
+            lambda: ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, src, 0.3),
+            lambda: ft.kb_adv_tracer(ezero, ezero, eqx, ezero, ew6, ew6,
+                                     esrc, fast=True),
+            lambda: ft.kb_adv_tracer_fast_plain(ezero, ezero, eqx, ezero,
+                                                ew6, ew6, esrc),
+            _fields_f32, (zx, zy, qx, qy, w6r[2:4], w6i[2:4], src), 2 * cy),
+        "kx_visc_tracer_fast": FastCase(
+            lambda: ff.kx_visc(f2r, f2i, l2, mask, z2r, z2i, 1.0,
+                               (a2r, a2i, 1.5), fast=True),
+            lambda: ff.kx_visc_fast_plain(f2r, f2i, l2, mask, z2r, z2i, 1.0,
+                                          (a2r, a2i, 1.5)),
+            lambda: ff.kx_visc(f2r, f2i, l2, mask, z2r, z2i, 1.0,
+                               (a2r, a2i, 1.5)),
+            lambda: ff.kx_visc(ef2r, ef2i, el2, emask, ez2r, ez2i, 1.0,
+                               (ea2r, ea2i, 0.5), fast=True),
+            lambda: ff.kx_visc_fast_plain(ef2r, ef2i, el2, emask, ez2r,
+                                          ez2i, 1.0, (ea2r, ea2i, 0.5)),
+            _fields_f32, (f2r, f2i, l2, mask, z2r, z2i, a2r, a2i), 2 * cx),
+        "ky_adv_fast": FastCase(
+            lambda: ff.ky_adv(u, zx, v, zy, src, 0.3, fast=True),
+            lambda: ff.ky_adv_fast_plain(u, zx, v, zy, src, 0.3),
+            lambda: ff.ky_adv(u, zx, v, zy, src, 0.3),
+            lambda: ff.ky_adv(eu, ezx, ev, ezy, esrc, fast=True),
+            lambda: ff.ky_adv_fast_plain(eu, ezx, ev, ezy, esrc),
+            list, (u, zx, v, zy, src), 0.5 * cy),
+        "kb_adv_full_fast": FastCase(
+            lambda: ff.kb_adv_full(w4r, w4i, src, 0.3, fast=True),
+            lambda: ff.kb_adv_full_fast_plain(w4r, w4i, src, 0.3),
+            lambda: ff.kb_adv_full(w4r, w4i, src, 0.3),
+            lambda: ff.kb_adv_full(ew4, ew4, esrc, fast=True),
+            lambda: ff.kb_adv_full_fast_plain(ew4, ew4, esrc),
+            list, (w4r, w4i, src), 2.5 * cy),
+        "kx_visc_tail_fast": FastCase(
+            lambda: ff.kx_visc_tail(fr, fi, lap, mask, zsr, zsi, 6.5, tail,
+                                    fast=True),
+            lambda: ff.kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, 6.5,
+                                          tail, fast=True),
+            lambda: ff.kx_visc_tail(fr, fi, lap, mask, zsr, zsi, 6.5, tail),
+            lambda: ff.kx_visc_tail(efr, efi, elap, emask, ezsr, ezsi, 1.0,
+                                    etail, fast=True),
+            lambda: ff.kx_visc_tail_plain(efr, efi, elap, emask, ezsr, ezsi,
+                                          1.0, etail, fast=True),
+            list, (fr, fi, lap, mask, zsr, zsi) + tail[:-1], cx),
+        "kx_fwd_bt_fast": FastCase(
+            lambda: fs.kx_fwd(fr[None], fi[None], fast=True),
+            lambda: fs.kx_fwd_fast_plain(fr[None], fi[None]),
+            lambda: fs.kx_fwd(fr[None], fi[None]),
+            lambda: fs.kx_fwd(efr[None], efi[None], fast=True),
+            lambda: fs.kx_fwd_fast_plain(efr[None], efi[None]),
+            _fields_f32, (fr, fi), cx),
+        "kx_visc_none_fast": FastCase(
+            lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 0.0, fast=True),
+            lambda: ff.kx_visc_fast_plain(fr, fi, lap, mask, zsr, zsi, 0.0),
+            lambda: ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 0.0),
+            lambda: ff.kx_visc(efr, efi, elap, emask, ezsr, ezsi, 0.0,
+                               fast=True),
+            lambda: ff.kx_visc_fast_plain(efr, efi, elap, emask, ezsr, ezsi,
+                                          0.0),
+            list, (fr, fi, lap, mask, zsr, zsi), cx),
+    }
+
+
+def fast_arm_library(name: str, case: FastCase):
+    """The one torch.fft call that computes a fast arm form's function on
+    its inputs (complex64): ka6's ifft of the six formed fields' size
+    (the states stacked three times), the stacked kx_visc's and the
+    one-field kx_fwd's fft; None where no one call computes it (the
+    advections, the epilogues)."""
+    x = torch.complex(*case.reads[:2])
+    if name == "ka6_fast":
+        x = torch.cat([x] * 3)
+        return lambda: torch.fft.ifft(x, dim=-2)
+    if name in ("kx_visc_tracer_fast", "kx_fwd_bt_fast"):
+        return lambda: torch.fft.fft(x, dim=-2)
+    return None
+
+
+def fast_pins(n: int, dev, seed: int) -> dict:
+    """The fast forms' pins at n^2: name -> (got, want) lists of planes
+    that must be equal bit for bit, the fast forms sharing their
+    transforms' and epilogues' arithmetic as the strict ones do (the
+    bits depend on K and the passes, not on C): kb_adv_tracer's planes
+    and kb_adv_half's and kb_adv_full's output against kb_pair's fast
+    form then ky_adv's fast form of each product (a zero src for q), ka6
+    against ka_diag's fast form of each state, kx_visc_tail against
+    kx_visc's fast form then rk4_combine, the one-field kx_fwd's fast
+    form then visc against kx_visc's fast form (with and without the
+    stage axpy), and the stacked kx_visc against one call per field."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    planes, _ = _makers(rng, dev)
+    kx, ky, rlap, lap, mask = _fast_tables(n, None, dev, planes)
+    scale = 1.0 / (n * n)
+    w6r, w6i = planes((6, hny, n), 2, n * math.sqrt(n))
+    zx, zy, qx, qy, src = planes((n, n), 5)
+    zero = torch.zeros_like(zx)
+    sr2, si2 = planes((2, n, hny), 2)
+    f2r, f2i, l2, z2r, z2i, a2r, a2i = planes((2, n, hny), 7)
+    fr, fi, zsr, zsi, z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i = planes(
+        (n, hny), 12)
+    out = {}
+    u, v = ff.kb_pair(w6r, w6i, 2, 3, scale, fast=True)
+    got = ft.kb_adv_tracer(zx, zy, qx, qy, w6r, w6i, src, 0.3, fast=True)
+    out["kb_adv_tracer_fast"] = (
+        [got[0][0], got[1][0], got[0][1], got[1][1]],
+        list(ff.ky_adv(u, zx, v, zy, src, 0.3, fast=True))
+        + list(ff.ky_adv(u, qx, v, qy, zero, 0.0, fast=True)))
+    w4r, w4i = w6r[:4].contiguous(), w6i[:4].contiguous()
+    out["kb_adv_half_fast"] = (
+        list(ff.kb_adv_half(zx, zy, w4r, w4i, src, 0.3, fast=True)),
+        list(ff.ky_adv(u, zx, v, zy, src, 0.3, fast=True)))
+    gx, gy = ff.kb_pair(w4r, w4i, 0, 1, scale, fast=True)
+    out["kb_adv_full_fast"] = (
+        list(ff.kb_adv_full(w4r, w4i, src, 0.3, fast=True)),
+        list(ff.ky_adv(u, gx, v, gy, src, 0.3, fast=True)))
+    got = ft.tracer_xstage_planes(sr2, si2, kx, ky, rlap, fast=True)
+    z = ff.ka_diag(sr2[0], si2[0], rlap, kx, ky, fast=True)
+    q = ff.ka_diag(sr2[1], si2[1], rlap, kx, ky, fast=True)
+    out["ka6_fast"] = ([p[f] for p in got for f in range(6)],
+                       [x for p, pq in zip(z, q)
+                        for x in (*p, pq[0], pq[1])])
+    tail = (z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, 1.5)
+    r4 = ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5, fast=True)
+    out["kx_visc_tail_fast"] = (
+        list(ff.kx_visc_tail(fr, fi, lap, mask, zsr, zsi, 6.5, tail,
+                             fast=True)),
+        list(fs.plane_rk4_combine((z0r, z0i), (r1r, r1i), (r2r, r2i),
+                                  (r3r, r3i), r4, 1.5)))
+    gr, gi = fs.kx_fwd(fr[None], fi[None], fast=True)
+    out["kx_fwd_bt_fast"] = (
+        list(ff.visc(gr[0], gi[0], lap, mask, zsr, zsi, 6.5,
+                     (z0r, z0i, 0.5))) + list(ff.visc(
+                         gr[0], gi[0], lap, mask, zsr, zsi, 6.5)),
+        list(ff.kx_visc(fr, fi, lap, mask, zsr, zsi, 6.5, (z0r, z0i, 0.5),
+                        fast=True)) + list(r4))
+    got = ff.kx_visc(f2r, f2i, l2, mask, z2r, z2i, 1.0, (a2r, a2i, 1.5),
+                     fast=True)
+    per = [ff.kx_visc(f2r[f], f2i[f], l2[f], mask, z2r[f],
+                      z2i[f], 1.0, (a2r[f], a2i[f], 1.5), fast=True)
+           for f in range(2)]
+    out["kx_visc_tracer_fast"] = ([p[f] for p in got for f in range(2)],
+                                  [x[i] for i in range(4) for x in per])
+    return out
+
+
+def phase_fast_arms(n: int, steps: int, dev, profile: bool = False) -> dict:
+    """Phase 5o, the tracer and the other barotropic arms: each form of
+    FAST_ARM_KERNELS against its plain version (bit for bit on exact
+    inputs, FAST_TOL on random ones) and its strict kernel (FAST_CLASS)
+    at FAST_SHAPES, timed at n^2 beside its bound, its plain version, its
+    strict form and one torch call where there is one; the CLI's
+    -m tracer --fast-transforms runs (RK4 and ETDRK4) and the barotropic
+    fast ETDRK4 and arm runs (BT_FAST_ENV), exact launches; bench.py's
+    tracer configuration through TracerModel.build(..., fast=True) with
+    torch.fft.* and torch.matmul raising, zeta and q each within
+    FAST_TRACER_BARS of the strict kernel path (and above FAST_FLOOR);
+    barotropic fast ETDRK4 (bench.py's configuration at dt 3 s) within
+    FAST_BTE_BAR after 20 steps; every fast arm (FAST_ARMS; ETDRK4's
+    FAST_ETD_ARMS) bit for bit the fast FUSEKB=half arm of its scheme
+    after 3 steps; ms/step of each new path beside its strict
+    counterpart, in turns; with `profile` the tracer fast path's
+    breakdown (profile_run)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+
+    t_phase = time.perf_counter()
+    out = {"checks": {}, "kernels": {}, "main_paths": {}}
+    for family in FAST_TRACER + tuple(BT_FAST_ENV):
+        out["main_paths"][family] = phase_main_path(family, n, steps)
+    # bench.py's tracer configuration (gaussian flow and tracer, kappa =
+    # 50, dt = 3 s) and its barotropic one, RK4 and ETDRK4
+    cfg = ModelConfig(nx=n, ny=n)
+    ecfg = cfg.replace(time_scheme="etdrk4")
+    tr = TracerModel.build(cfg, dev, kappa=50.0, fast=True)
+    t = tr.tables
+    tmp = tempfile.TemporaryDirectory(prefix="xfb_smoke_")
+    os.environ["XFB_ETD_CACHE"] = tmp.name    # built once, then loaded
+    paths = {
+        "tracer-fast": tr,
+        "tracer": TracerModel.build(cfg, dev, 50.0, t),
+        "tracer-fast-etdrk4": TracerModel.build(ecfg, dev, 50.0, t,
+                                                fast=True),
+        "tracer-etdrk4": TracerModel.build(ecfg, dev, 50.0, t),
+        "barotropic-fast-etdrk4": BarotropicModel.build(ecfg, dev, t,
+                                                        fast=True),
+        "barotropic-etdrk4-half": BarotropicModel.build(ecfg, dev, t,
+                                                        fusekb="half"),
+        "barotropic-etdrk4": BarotropicModel.build(ecfg, dev, t),
+        "barotropic-fast": BarotropicModel.build(cfg, dev, t, fast=True)}
+    for name, arm in FAST_ARMS.items():
+        paths[f"barotropic-fast-{name}"] = BarotropicModel.build(
+            cfg, dev, t, fast=True, **arm)
+    for name, arm in FAST_ETD_ARMS.items():
+        paths[f"barotropic-fast-{name}"] = BarotropicModel.build(
+            ecfg, dev, t, fast=True, **arm)
+    os.environ["XFB_ETD_CACHE"] = "0"
+    tmp.cleanup()
+    check(tr.fast and all(m.fast for k, m in paths.items() if "fast" in k),
+          "fast models' selection")
+    v0 = makefields.gaussian(cfg)
+    ts0 = tr.init_state(v0, tracer_ic(cfg, "gaussian"))
+    bs0 = paths["barotropic-fast"].init_state(v0)
+    s0 = {k: ts0 if k.startswith("tracer") else bs0 for k in paths}
+    src = tr.zero_source()
+    for k in ("tracer-fast", "tracer-fast-etdrk4", "barotropic-fast-etdrk4"):
+        with _refusing_library():
+            z = paths[k].segment(s0[k], src, 2)
+            torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(torch.view_as_real(x)).all())
+                  for x in (z if isinstance(z, tuple) else (z,))),
+              f"{k} state not finite")
+        log(f"no library transform: 2 steps of the {k} path at {n}^2 ran "
+            f"with torch.fft.* and torch.matmul raising")
+    for (k_steps, scheme), bar in FAST_TRACER_BARS.items():
+        etd = "-etdrk4" if scheme == "etdrk4" else ""
+        a = paths["tracer-fast" + etd].diags(
+            paths["tracer-fast" + etd].segment(ts0, src, k_steps))
+        b = paths["tracer" + etd].diags(
+            paths["tracer" + etd].segment(ts0, src, k_steps))
+        e = {}
+        for f in ("vort", "q"):
+            check(bool(torch.isfinite(getattr(a, f)).all()),
+                  f"tracer fast {f} not finite")
+            e[f] = rel_l2(getattr(a, f), getattr(b, f))
+        log(f"fast tracer trajectory: {scheme}, {k_steps} steps at {n}^2, "
+            f"rel-L2 against the strict kernel path: zeta {e['vort']:.3e}, "
+            f"q {e['q']:.3e} (bar {bar:g})")
+        for f, x in e.items():
+            check(FAST_FLOOR < x <= bar, f"fast tracer {scheme} after "
+                                         f"{k_steps} steps: {f} rel-L2 "
+                                         f"{x:.3e} outside ({FAST_FLOOR:g}, "
+                                         f"{bar:g}]")
+        out[f"tracer_{scheme}_{k_steps}_steps"] = e
+    m = paths["barotropic-fast-etdrk4"]
+    a = m.diags(m.segment(bs0, src, 20)).vort
+    b = m.diags(paths["barotropic-etdrk4"].segment(bs0, src, 20)).vort
+    check(bool(torch.isfinite(a).all()), "fast barotropic ETDRK4 not finite")
+    rel = rel_l2(a, b)
+    log(f"fast barotropic ETDRK4 trajectory: 20 steps at {n}^2, rel-L2 of "
+        f"vort against the strict kernel path {rel:.3e} (bar "
+        f"{FAST_BTE_BAR:g})")
+    check(FAST_FLOOR < rel <= FAST_BTE_BAR, f"fast barotropic ETDRK4: "
+                                            f"rel-L2 {rel:.3e}")
+    out["bt_etdrk4_20_steps"] = rel
+    ref = {s: paths[k].segment(bs0, src, 3) for s, k in (
+        ("rk4", "barotropic-fast"), ("etd", "barotropic-fast-etdrk4"))}
+    same = {}
+    for name in list(FAST_ARMS) + list(FAST_ETD_ARMS):
+        z = paths[f"barotropic-fast-{name}"].segment(bs0, src, 3)
+        same[name] = bool(torch.equal(
+            z, ref["etd" if name.startswith("etd") else "rk4"]))
+    log(f"fast barotropic arms, 3 steps at {n}^2, bit for bit the fast "
+        f"FUSEKB=half arm of their scheme: {same}")
+    check(all(same.values()), f"a fast arm differs from the half arm: "
+                              f"{same}")
+    out["arms_bit_identical"] = same
+    order = ("tracer-fast", "tracer", "tracer-fast-etdrk4", "tracer-etdrk4",
+             "barotropic-fast-etdrk4", "barotropic-etdrk4-half",
+             "barotropic-etdrk4", "barotropic-fast",
+             *(f"barotropic-fast-{a}" for a in FAST_ARMS))
+    times = _timed_turns({k: paths[k] for k in order}, s0, src, steps)
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[f"ms_per_step_{k}"] = ms
+        log(f"time {k:30s}: {ms:.3f} ms/step "
+            f"({', '.join(f'{x:.3f}' for x in ts)}), "
+            f"{n * n / (ms * 1e-3):.4e} grid-points/s")
+    if profile:
+        out["profile"] = profile_run(
+            "tracer-fast", lambda: tr.segment(ts0, src, 5), 5)
+    log(f"phase 5o (tracer and arms): paths done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    shapes = [(64, None), (256, None), (n, None)] + [
+        s for s in FAST_SHAPES if s[1] is not None]
+    for size, cols in dict.fromkeys(shapes):
+        cases = fast_arm_cases(size, cols, dev, size + (cols or 0) + 2)
+        where = f"{size}^2" if cols is None else f"{size} x {cols}"
+        for name, case in cases.items():
+            out["checks"][f"{name} {where}"] = fast_check(name, case, where)
+            if (size, cols) != (n, None):
+                continue
+            raw = case.plain()
+            got, want = case.fields(case.kern()), case.fields(raw)
+            bound_ms, bound_by, parts = fast_bound(case, raw, size)
+            out["kernels"][name] = time_row(
+                name, case.kern, case.plain, case.strict,
+                fast_arm_library(name, case), bound_ms, bound_by, size,
+                max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                plain_iters=3, parts=parts)
+            out["kernels"][name]["rel_l2"] = \
+                out["checks"][f"{name} {where}"]["rel_l2_plain"]
+    for size in dict.fromkeys((256, n)):
+        for name, (got, want) in fast_pins(size, dev, size + 3).items():
+            same = (len(got) == len(want)
+                    and all(bool(torch.equal(g, w)) for g, w in zip(got,
+                                                                  want)))
+            log(f"fast pin {name:20s} {size}^2: bit for bit its fast "
+                f"constituents: {same}")
+            check(same, f"fast pin {name} at {size}^2")
+            out["checks"][f"pin {name} {size}^2"] = same
+    log(f"phase 5o (tracer and arms): kernel checks done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5o (tracer and arms): {out['wall_s']:.1f} s")
     return out
 
 
@@ -1759,18 +2251,8 @@ def phase_fast_sw(n: int, steps: int, dev, profile: bool = False) -> dict:
     check(same, "fast SW fused and unfused RK forms differ")
     out["fused_vs_unfused_bit_identical"] = same
     order = ("fast", "strict", "fast-etdrk4", "strict-etdrk4", "fast-f32")
-    times = {k: [] for k in order}
-    for k in order + order[::-1]:
-        m = models[k]
-        m.segment(s0, src, 2)                      # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        m.segment(s0, src, steps)
-        end.record()
-        end.synchronize()
-        times[k].append(start.elapsed_time(end) / steps)
+    times = _timed_turns({k: models[k] for k in order},
+                         dict.fromkeys(order, s0), src, steps)
     for k, ts in times.items():
         ms = sum(ts) / len(ts)
         out[f"ms_per_step_{k}"] = ms
@@ -2116,10 +2598,11 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
     sw_rk4 = ["-m", "sw", "--dt", repr(min(3.0, max_stable_dt(cfg)))]
     sw_etd = ["-m", "sw", "--time-scheme", "etdrk4", "--dt",
               repr(SW_ETD_DT)]
+    tracer = ["-m", "tracer", "--tracer-kappa", "50", "--tracer-ic",
+              "gaussian"]
     fields, extra = {
         "barotropic": (["vort"], []),
-        "tracer": (["vort", "q"], ["-m", "tracer", "--tracer-kappa", "50",
-                                   "--tracer-ic", "gaussian"]),
+        "tracer": (["vort", "q"], tracer),
         # bench.py's SW configuration: the weaker vortex, and dt under
         # the gravity-wave bound (0.847 s at 4096^2, where 3 s NaNs)
         "shallow-water": (["vort", "div", "h"], sw_rk4),
@@ -2145,6 +2628,12 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         "sw-fast": (["vort", "div", "h"], sw_rk4 + ["--fast-transforms"]),
         "sw-fast-etdrk4": (["vort", "div", "h"],
                            sw_etd + ["--fast-transforms"]),
+        "tracer-fast": (["vort", "q"], tracer + ["--fast-transforms"]),
+        "tracer-fast-etdrk4": (["vort", "q"], tracer + [
+            "--time-scheme", "etdrk4", "--fast-transforms"]),
+        **{f: (["vort"], ["--fast-transforms"] + (
+            ["--time-scheme", "etdrk4"] if "etdrk4" in f else []))
+           for f in BT_FAST_ENV},
         # the sharded model on one shard: shard-<decomp>-<impl>
         **{f: (["vort"], ["--shard", "--decomp", f.split("-")[1],
                           "--shard-fft", f.split("-")[2]])
@@ -2192,7 +2681,8 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
               f"manifest has {len(lines)} lines, not {2 * len(fields)}")
         cached = sorted(p.name for p in (Path(tmp) / "etd_cache").glob("*"))
         if "etdrk4" in family:
-            kind = "sw" if family in SW_FAMILIES else "barotropic"
+            kind = ("sw" if family in SW_FAMILIES else "tracer"
+                    if family.startswith("tracer") else "barotropic")
             check(len(cached) == 1 and cached[0].startswith(f"{kind}_etd_"),
                   f"ETD table cache holds {cached}")
     os.environ["XFB_ETD_CACHE"] = "0"
@@ -3554,6 +4044,10 @@ def main(argv=None) -> int:
     report["fast_sw"] = phase_fast_sw(args.n, args.steps, dev, args.profile)
     report["kernels"].update(report["fast_sw"]["kernels"])
     report["main_paths"].update(report["fast_sw"]["main_paths"])
+    report["fast_arms"] = phase_fast_arms(args.n, args.steps, dev,
+                                          args.profile)
+    report["kernels"].update(report["fast_arms"]["kernels"])
+    report["main_paths"].update(report["fast_arms"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

@@ -2,8 +2,8 @@
 """Time the single-card main paths of one or more checkouts of the port,
 in turns, in one call: ms/step at n^2 of the barotropic, tracer and
 shallow-water plane steppers' kernel paths (the barotropic one also in
-its FUSEKB=half arm, the shallow-water one also under ETDRK4 at dt 7.5
-s, and each in fast mode where the checkout has it) and of the
+its FUSEKB=half arm, each also under ETDRK4, the shallow-water one at
+dt 7.5 s, and each in fast mode where the checkout has it) and of the
 barotropic and shallow-water torch.fft library paths (bench.py's
 configurations, as chip_smoke.py's build_models makes them).
 
@@ -29,9 +29,11 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 PATHS = ("barotropic", "barotropic-half", "barotropic-fast",
-         "barotropic-library", "tracer", "shallow-water",
-         "shallow-water-fast", "shallow-water-etdrk4",
-         "shallow-water-fast-etdrk4", "shallow-water-library")
+         "barotropic-etdrk4", "barotropic-fast-etdrk4",
+         "barotropic-library", "tracer", "tracer-fast", "tracer-etdrk4",
+         "tracer-fast-etdrk4", "shallow-water", "shallow-water-fast",
+         "shallow-water-etdrk4", "shallow-water-fast-etdrk4",
+         "shallow-water-library")
 
 
 def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
@@ -73,10 +75,24 @@ def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
     etd = cfg.replace(time_scheme="etdrk4", dt=7.5)
     models["shallow-water-etdrk4"] = (ShallowWaterModel.build(etd, dev),
                                       sw0, None)
+    # bench.py's barotropic and tracer configurations under ETDRK4 (dt 3 s)
+    bte = cfg.replace(time_scheme="etdrk4")
+    tr0 = tr.init_state(v0, tracer_ic(cfg, "gaussian"))
+    models["barotropic-etdrk4"] = (BarotropicModel.build(bte, dev),
+                                   bt.init_state(v0), zero)
+    models["tracer-etdrk4"] = (TracerModel.build(bte, dev, kappa=50.0),
+                               tr0, zero)
     if "fast" in inspect.signature(BarotropicModel.build).parameters:
         models["barotropic-fast"] = (BarotropicModel.build(cfg, dev,
                                                            fast=True),
                                      bt.init_state(v0), zero)
+    if "fast" in inspect.signature(TracerModel.build).parameters:
+        models["barotropic-fast-etdrk4"] = (BarotropicModel.build(
+            bte, dev, fast=True), bt.init_state(v0), zero)
+        models["tracer-fast"] = (TracerModel.build(cfg, dev, kappa=50.0,
+                                                   fast=True), tr0, zero)
+        models["tracer-fast-etdrk4"] = (TracerModel.build(
+            bte, dev, kappa=50.0, fast=True), tr0, zero)
     if "fast" in inspect.signature(ShallowWaterModel.build).parameters:
         models["shallow-water-fast"] = (ShallowWaterModel.build(
             cfg.replace(dt=sw_dt), dev, fast=True), sw0, None)

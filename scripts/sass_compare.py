@@ -10,7 +10,8 @@ tree) in a process of its own; `cuobjdump -sass` lists every __global__
 function. A function is keyed by its name and template arguments, with
 the flags its template gained for fast mode and the shallow-water bf16
 product store taken off (FAST on ka_fields_kernel, kb_pair_kernel,
-kb_adv_kernel, kx_visc_kernel, ka_sw_kernel and ky_all_kernel; BF16 on
+kb_adv_kernel, kx_visc_kernel, ka_sw_kernel, ky_all_kernel,
+ky_adv_kernel and kb_adv_tracer_kernel; BF16 on
 kx_visc_kernel; the product type of sw_combine_kernel and
 sw_combine_mv_kernel), and the instances with a gained flag set or a
 bf16 product type (no counterpart in a checkout without them) left out.
@@ -34,7 +35,8 @@ from pathlib import Path
 # the number of flags each had before (ka_fields_kernel's PSI_FIRST,
 # kb_adv_kernel's FULL); every later flag is a gained one
 OWN_FLAGS = {"ka_fields_kernel": 1, "kb_pair_kernel": 0, "kb_adv_kernel": 1,
-             "kx_visc_kernel": 0, "ka_sw_kernel": 0, "ky_all_kernel": 0}
+             "kx_visc_kernel": 0, "ka_sw_kernel": 0, "ky_all_kernel": 0,
+             "ky_adv_kernel": 0, "kb_adv_tracer_kernel": 0}
 # the templates on the product type: float (the first form) or bf16
 PRODUCT_TEMPLATES = ("sw_combine_kernel", "sw_combine_mv_kernel")
 

@@ -1112,7 +1112,9 @@ def test_fusion_arm_launch_counts_and_default_bits(cuda, arm):
 
 FAST_NAMES = ["ka_diag_fast", "kb_pair_fast", "kb_adv_half_fast",
               "kx_visc_fast", "ka_sw_fast", "ky_all_fast", "kx_fwd_fast",
-              "kx_fwd_fast_f32"]
+              "kx_fwd_fast_f32", "ka6_fast", "kb_adv_tracer_fast",
+              "kx_visc_tracer_fast", "ky_adv_fast", "kb_adv_full_fast",
+              "kx_visc_tail_fast", "kx_fwd_bt_fast", "kx_visc_none_fast"]
 # (transform length, columns): None the n x n grid's (chip_smoke.py
 # FAST_SHAPES); 200 and 33 columns end in ragged tiles
 FAST_SHAPES = [(64, None), (256, None), (4096, None), (256, 200),
@@ -1129,11 +1131,13 @@ def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
     inputs, and within rel-L2 1e-4 .. 1e-2 of the strict kernel (it
     really rounds to bf16, and stays in class): chip_smoke.py's
     fast_check on its fast_cases."""
-    from chip_smoke import FAST_SW_KERNELS, fast_cases, fast_check
-    from chip_smoke import fast_sw_cases
+    from chip_smoke import FAST_ARM_KERNELS, FAST_SW_KERNELS, fast_cases
+    from chip_smoke import fast_arm_cases, fast_check, fast_sw_cases
 
     n, cols = shape
-    cases = fast_sw_cases if name in FAST_SW_KERNELS else fast_cases
+    cases = (fast_sw_cases if name in FAST_SW_KERNELS
+             else fast_arm_cases if name in FAST_ARM_KERNELS
+             else fast_cases)
     fast_check(name, cases(n, cols, cuda, n)[name], f"{shape}")
 
 
@@ -1239,6 +1243,97 @@ def test_fast_path_launches_and_error_class(cuda):
     rel = float(torch.linalg.vector_norm(va - vb)
                 / torch.linalg.vector_norm(vb))
     assert 1e-7 < rel < 1e-3, rel
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_fast_pins_bit_for_bit(cuda, n):
+    """Each fast form gives the bits of its fast constituents
+    (chip_smoke.py fast_pins): kb_adv_tracer, kb_adv_half and kb_adv_full
+    of kb_pair then ky_adv, ka6 of ka_diag per state, kx_visc_tail of
+    kx_visc then rk4_combine, kx_fwd then visc of kx_visc, the stacked
+    kx_visc of one call per field."""
+    from chip_smoke import fast_pins
+
+    for name, (got, want) in fast_pins(n, cuda, n + 3).items():
+        torch.cuda.synchronize()
+        assert len(got) == len(want), name
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (name, i)
+
+
+@pytest.mark.parametrize("scheme", ["rk4", "etdrk4"])
+def test_fast_tracer_launches_and_error_class(cuda, scheme):
+    """Three steps of the tracer's fast mode at 256^2 (bench.py's tracer
+    configuration: gaussian flow and tracer, kappa 50) launch exactly 4
+    ka6_fast, 8 kb_pair_fast, 4 kb_adv_tracer_fast and 4 kx_visc_fast per
+    step, and 1 rk4_combine under RK4; zeta and q each stay within rel-L2
+    1e-7 .. 1e-3 of the strict kernel path."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+
+    cfg = ModelConfig(nx=256, ny=256, time_scheme=scheme)
+    fast = TracerModel.build(cfg, cuda, kappa=50.0, fast=True)
+    strict = TracerModel.build(cfg, cuda, 50.0, fast.tables)
+    s0 = fast.init_state(makefields.gaussian(cfg),
+                         tracer_ic(cfg, "gaussian"))
+    src = fast.zero_source()
+    ff.reset_launches()
+    a = fast.segment(s0, src, 3)
+    torch.cuda.synchronize()
+    want = {"ka6_fast": 12, "kb_pair_fast": 24, "kb_adv_tracer_fast": 12,
+            "kx_visc_fast": 12}
+    if scheme == "rk4":
+        want["rk4_combine"] = 3
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+    da, db = fast.diags(a), strict.diags(strict.segment(s0, src, 3))
+    for f in ("vort", "q"):
+        x, y = getattr(da, f), getattr(db, f)
+        rel = float(torch.linalg.vector_norm(x - y)
+                    / torch.linalg.vector_norm(y))
+        assert 1e-7 < rel < 1e-3, (f, rel)
+
+
+@pytest.mark.parametrize("arm", [dict(fusekb=""), dict(fusekb="full"),
+                                 dict(fusekx=False), dict(fusetail=True),
+                                 dict(fused_rk=False),
+                                 dict(etd=True, fusekb=""),
+                                 dict(etd=True, fusekb="half"),
+                                 dict(etd=True, fusekb="full")], ids=str)
+def test_fast_arm_is_the_half_arm_bit_for_bit(cuda, arm):
+    """Three forced beta-plane steps of every barotropic fast arm at 256^2
+    give the fast FUSEKB=half arm's bits (ETDRK4's arms: the fast half
+    arm's under ETDRK4, the half arm itself against fusekb None), with
+    exactly their fast forms' launches."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+
+    kw = dict(arm)
+    etd = kw.pop("etd", False)
+    cfg = ModelConfig(nx=256, ny=256, beta=1e-11,
+                      time_scheme="etdrk4" if etd else "rk4")
+    ref = BarotropicModel.build(cfg, cuda, fast=True)
+    m = BarotropicModel.build(cfg, cuda, ref.tables, fast=True, **kw)
+    z = ref.init_state(makefields.gaussian(cfg))
+    src = 1e-9 * torch.randn(cfg.grid_shape, device=cuda)
+    ff.reset_launches()
+    a = m.segment(z, src, 3)
+    torch.cuda.synchronize()
+    first = {"": {"kb_pair_fast": 8, "ky_adv_fast": 4},
+             "full": {"kb_adv_full_fast": 4},
+             "half": {"kb_pair_fast": 4, "kb_adv_half_fast": 4}}[
+        kw.get("fusekb", "half")]
+    second = ({"kx_fwd_fast_f32": 4, "visc": 4}
+              if not kw.get("fusekx", True)
+              else {"kx_visc_fast": 3, "kx_visc_tail_fast": 1}
+              if kw.get("fusetail") else {"kx_visc_fast": 4})
+    tail = ({} if etd or not kw.get("fused_rk", True) or kw.get("fusetail")
+            else {"rk4_combine": 1})
+    want = {k: 3 * v for k, v in {"ka_diag_fast": 4, **first, **second,
+                                  **tail}.items()}
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+    assert torch.equal(a, ref.segment(z, src, 3))
 
 
 # ----- the distributed path's kernels (TPU rows 21-23) -----

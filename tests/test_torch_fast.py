@@ -1,13 +1,17 @@
 """Fast mode in the port (the JAX package's --fast-transforms): the fast
-plain versions of ka_diag, kb_pair, kb_adv_half and kx_visc (the strict
-plain versions' loads and epilogues around ops/fast_tile.py's emulation
-of the fast column tile: bf16 radix-16 sub-DFT passes, float32 between)
-against float64 DFTs and against the JAX package's own bf16 rounding
-(pallas_fft.MM_MODE = "bf16" in interpret mode, set by monkeypatch, as
-tests/test_pallas_sw.py:339 does); a 64^2 barotropic segment of each
-package's fast mode against its own strict run; the converters carrying
-a JAX state into the port's fast run; the model's and the CLI's fast
-selection and their refusals of what waits (ROADMAP.md queue A, item 4).
+plain versions of ka_diag, kb_pair, kb_adv_half, kx_visc, ky_adv,
+kb_adv_full and kx_visc_tail (the strict plain versions' loads and
+epilogues around ops/fast_tile.py's emulation of the fast column tile:
+bf16 radix-16 sub-DFT passes, float32 between) against float64 DFTs and
+against the JAX package's own bf16 rounding (pallas_fft.MM_MODE = "bf16"
+in interpret mode, set by monkeypatch, as tests/test_pallas_sw.py:339
+does); a 64^2 barotropic segment of each package's fast mode against its
+own strict run; every other y-first arm (FUSEKB "" and full, FUSEKX=0,
+FUSETAIL, the unfused RK form) bit for bit the fast half arm, and
+ETDRK4's fast error against the JAX package's; the converters carrying a
+JAX state into the port's fast run; the model's and the CLI's fast
+selection, each arm's banner, and the refusals of what waits (ROADMAP.md
+queue A, item 4).
 
 Bars: a fast transform's rel-L2 against float64 lies in 1e-4 .. 1e-2
 (it rounds to bf16, and stays in class), within a factor of 5 either way
@@ -38,6 +42,17 @@ ITEM = "queue A, item 4"
 FACTOR = 5.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The fast plain versions run many small torch ops: one intra-op
+    thread for them (test workers share the cores), the count restored
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
@@ -65,7 +80,9 @@ def _inputs(seed):
                 wi=f(4, HNY, N, size=N * 8.0), zx=f(N, N), zy=f(N, N),
                 src=f(N, N), fr=f(N, HNY), fi=f(N, HNY), lap=f(N, HNY),
                 mask=(f(N, HNY) > -0.5).astype(np.float32), zsr=f(N, HNY),
-                zsi=f(N, HNY), z0r=f(N, HNY), z0i=f(N, HNY))
+                zsi=f(N, HNY), z0r=f(N, HNY), z0i=f(N, HNY), u=f(N, N),
+                v=f(N, N), r1r=f(N, HNY), r1i=f(N, HNY), r2r=f(N, HNY),
+                r2i=f(N, HNY), r3r=f(N, HNY), r3i=f(N, HNY))
 
 
 def _hermitian64(ar, ai, br, bi):
@@ -80,8 +97,20 @@ def _hermitian64(ar, ai, br, bi):
     return full + 1j * np.concatenate([b, np.conj(b[-2:0:-1])])
 
 
+def _c64(d, re, im):
+    return d[re].astype(np.float64) + 1j * d[im]
+
+
+def _ky_adv64(u, zx, v, zy, src, beta):
+    adv = -u.astype(np.float64) * zx - v * (zy + beta) + src
+    f = np.fft.rfft(adv, axis=0).T
+    return [f.real, f.imag]
+
+
 def _reference(name, d):
     """The float64 function each fast kernel computes."""
+    if name == "ky_adv":
+        return _ky_adv64(d["u"], d["zx"], d["v"], d["zy"], d["src"], 0.3)
     if name == "ka_diag":
         z = d["zr"].astype(np.float64) + 1j * d["zi"]
         k = d["kx"].astype(np.float64)[:, None]
@@ -95,21 +124,40 @@ def _reference(name, d):
         c = _hermitian64(d["wr"][2], d["wi"][2], d["wr"][3], d["wi"][3])
         y = np.fft.ifft(c, axis=0) * N * scale
         return [y.real, y.imag]
-    if name == "kb_adv_half":
+    if name in ("kb_adv_half", "kb_adv_full"):
         c = _hermitian64(d["wr"][2], d["wi"][2], d["wr"][3], d["wi"][3])
         y = np.fft.ifft(c, axis=0) * N * scale
-        adv = -y.real * d["zx"] - y.imag * (d["zy"] + 0.3) + d["src"]
-        f = np.fft.rfft(adv, axis=0).T
-        return [f.real, f.imag]
-    f = np.fft.fft(d["fr"].astype(np.float64) + 1j * d["fi"], axis=0)
-    r = d["mask"] * (f + 6.5 * d["lap"] * (d["zsr"] + 1j * d["zsi"]))
-    z0 = d["z0r"] + 1j * d["z0i"].astype(np.float64)
+        zx, zy = d["zx"], d["zy"]
+        if name == "kb_adv_full":
+            g = _hermitian64(d["wr"][0], d["wi"][0], d["wr"][1], d["wi"][1])
+            g = np.fft.ifft(g, axis=0) * N * scale
+            zx, zy = g.real, g.imag
+        return _ky_adv64(y.real, zx, y.imag, zy, d["src"], 0.3)
+    f = np.fft.fft(_c64(d, "fr", "fi"), axis=0)
+    r = d["mask"] * (f + 6.5 * d["lap"] * _c64(d, "zsr", "zsi"))
+    z0 = _c64(d, "z0r", "z0i")
+    if name == "kx_visc_tail":
+        n = z0 + (_c64(d, "r1r", "r1i") + 2.0 * _c64(d, "r2r", "r2i")
+                  + 2.0 * _c64(d, "r3r", "r3i") + r) * 1.5
+        return [n.real, n.imag]
     n = z0 + 1.5 * r
     return [r.real, r.imag, n.real, n.imag]
 
 
+TAIL = ("z0r", "z0i", "r1r", "r1i", "r2r", "r2i", "r3r", "r3i")
+
+
 def _port(name, d, fast):
     t = dict(zip(d, _t(*d.values())))
+    if name == "ky_adv":
+        return ff.ky_adv(t["u"], t["zx"], t["v"], t["zy"], t["src"], 0.3,
+                         fast=fast)
+    if name == "kb_adv_full":
+        return ff.kb_adv_full(t["wr"], t["wi"], t["src"], 0.3, fast=fast)
+    if name == "kx_visc_tail":
+        return ff.kx_visc_tail(t["fr"], t["fi"], t["lap"], t["mask"],
+                               t["zsr"], t["zsi"], 6.5,
+                               (*(t[k] for k in TAIL), 1.5), fast=fast)
     if name == "ka_diag":
         return ff.ka_diag(t["zr"], t["zi"], t["rlap"], t["kx"], t["ky"],
                           fast=fast)
@@ -124,6 +172,17 @@ def _port(name, d, fast):
 
 def _jax(name, d):
     j = {k: jnp.asarray(v) for k, v in d.items()}
+    if name == "ky_adv":
+        # the JAX ky_adv kernel's transform is _kc_body of (adv, 0): kc
+        adv = ff.advection(*_t(d["u"], d["zx"], d["v"], d["zy"], d["src"]),
+                           0.3).numpy()
+        return pf._kc_call((jnp.asarray(adv), jnp.zeros_like(adv)), N)
+    if name == "kb_adv_full":
+        return pf.kb_adv_full(j["wr"], j["wi"], j["src"], (N, N), 0.3)
+    if name == "kx_visc_tail":
+        return pf.forward_tail(j["fr"], j["fi"], j["lap"], j["mask"],
+                               j["zsr"], j["zsi"], 6.5, (N, N),
+                               tail=(*(j[k] for k in TAIL), 1.5))
     if name == "ka_diag":
         return pf.derivative_xstage_planes(j["zr"], j["zi"], j["kx"],
                                            j["ky"], j["rlap"], (N, N))
@@ -145,7 +204,8 @@ def _error(out, want) -> float:
 
 
 @pytest.mark.parametrize("name", ["ka_diag", "kb_pair", "kb_adv_half",
-                                  "kx_visc"])
+                                  "kx_visc", "ky_adv", "kb_adv_full",
+                                  "kx_visc_tail"])
 def test_fast_transform_rounds_in_the_jax_bf16_class(bf16, name):
     """Each fast plain version against float64: rel-L2 in 1e-4 .. 1e-2,
     within a factor of 5 of the JAX kernel's under MM_MODE = "bf16" on
@@ -243,16 +303,63 @@ def test_fast_model_selects_the_half_arm_and_counts_nothing_on_the_cpu():
     assert "fast" in tbt.fusion_arm(fusekb="half", fast=True)
 
 
-@pytest.mark.parametrize("kw", [dict(yfirst=False), dict(quad_mode="quad"),
-                                dict(fusekb=""), dict(fusekb="full"),
+@pytest.mark.parametrize("kw", [dict(yfirst=False), dict(quad_mode="quad")],
+                         ids=str)
+def test_fast_model_refuses_what_waits(kw):
+    """The x-first order (item 4.4) waits."""
+    with pytest.raises(ValueError, match=ITEM):
+        tbt.BarotropicModel.build(CFG, CPU, fast=True, **kw)
+
+
+ARM_CFG = CFG.replace(beta=1e-11)
+
+
+def _arm_state(cfg, steps=2, **kw):
+    m = tbt.BarotropicModel.build(cfg, CPU, fast=True, **kw)
+    src = torch.from_numpy((1e-9 * np.random.default_rng(5).standard_normal(
+        cfg.grid_shape)).astype(np.float32))
+    return m.segment(m.init_state(makefields.gaussian(cfg)), src, steps)
+
+
+@pytest.fixture(scope="module")
+def fast_half():
+    """The fast FUSEKB=half arm's 2-step 64^2 state (forced, beta-plane),
+    RK4 and ETDRK4."""
+    return {"rk4": _arm_state(ARM_CFG),
+            "etdrk4": _arm_state(ARM_CFG.replace(time_scheme="etdrk4"))}
+
+
+@pytest.mark.parametrize("kw", [dict(fusekb=""), dict(fusekb="full"),
                                 dict(fusekx=False), dict(fusetail=True),
                                 dict(fused_rk=False), dict(etd=True)],
                          ids=str)
-def test_fast_model_refuses_what_waits(kw):
+def test_fast_arm_is_the_half_arm_bit_for_bit(fast_half, monkeypatch, kw):
+    """Every other y-first arm in fast mode gives the fast half arm's bits
+    after 2 steps at 64^2, as every strict arm gives the strict default's
+    (each fast form shares its transform and rounding with the half
+    arm's). ETDRK4 (its "" and full arms the half arm's bits too): the
+    port's fast run against its strict run within a factor of 5 of the
+    JAX package's fast ETDRK4 (MM_MODE = "bf16") against its strict one,
+    and above 1e-7."""
     kw = dict(kw)
-    cfg = CFG.replace(time_scheme="etdrk4") if kw.pop("etd", False) else CFG
-    with pytest.raises(ValueError, match=ITEM):
-        tbt.BarotropicModel.build(cfg, CPU, fast=True, **kw)
+    if not kw.pop("etd", False):
+        assert torch.equal(_arm_state(ARM_CFG, **kw), fast_half["rk4"])
+        return
+    cfg = ARM_CFG.replace(time_scheme="etdrk4")
+    for arm in ("", "full"):
+        assert torch.equal(_arm_state(cfg, fusekb=arm), fast_half["etdrk4"])
+    v0 = makefields.gaussian(cfg)
+    src = (1e-9 * np.random.default_rng(5).standard_normal(
+        cfg.grid_shape)).astype(np.float32)
+    monkeypatch.setattr(pf, "FUSEKB", "auto")
+    j_strict = _jax_segment(cfg, v0, src, 2)
+    monkeypatch.setattr(pf, "MM_MODE", "bf16")
+    j_fast = _jax_segment(cfg, v0, src, 2)
+    p_fast = np.fft.irfft2(fast_half["etdrk4"].numpy(), s=cfg.grid_shape)
+    p_strict = _port_segment(cfg, v0, src, 2)
+    jax, port = _rel(j_fast, j_strict), _rel(p_fast, p_strict)
+    assert port > 1e-7, port
+    assert 1.0 / FACTOR < port / jax < FACTOR, (port, jax)
 
 
 def _run_cli(tmp_path, *extra):
@@ -304,14 +411,56 @@ def test_cli_fast_mode_on_the_library_path_stays_float32(tmp_path, capsys):
     assert "library path in float32" in capsys.readouterr().err
 
 
+# each arm's CLI run, its environment and the banner line it prints
+CLI_ARMS = [
+    (["-m", "tracer"], {}, "# tracer fast mode: ka6, kb_pair, "
+                           "kb_adv_tracer and kx_visc on the fast tile"),
+    (["--time-scheme", "etdrk4"], {},
+     "Fusion arm            : fast: ka_diag, kb_pair + kb_adv_half, "
+     "kx_visc (bf16"),
+    ([], {"XFB_BT_FUSEKB": "0"},
+     "Fusion arm            : fast: ka_diag, kb_pair x2 + ky_adv, kx_visc, "
+     "rk4_combine"),
+    ([], {"XFB_BT_FUSEKB": "full"},
+     "Fusion arm            : fast: ka_diag, kb_adv_full, kx_visc, "
+     "rk4_combine"),
+    ([], {"XFB_BT_FUSEKX": "0"},
+     "Fusion arm            : fast: ka_diag, kb_pair + kb_adv_half, "
+     "kx_fwd + visc, rk4_combine"),
+    ([], {"XFB_BT_FUSETAIL": "1"},
+     "Fusion arm            : fast: ka_diag, kb_pair + kb_adv_half, "
+     "kx_visc, kx_visc_tail"),
+    ([], {"XFB_BT_FUSED_RK": "0"},
+     "Fusion arm            : fast: ka_diag, kb_pair + kb_adv_half, "
+     "kx_visc, torch stage updates")]
+
+
+@pytest.mark.parametrize("extra,env,line", CLI_ARMS,
+                         ids=lambda v: " ".join(v) if isinstance(v, list)
+                         else str(v) if isinstance(v, dict) else "")
+def test_cli_fast_mode_runs_every_arm(tmp_path, monkeypatch, capsys, extra,
+                                      env, line):
+    """-m tracer, --time-scheme etdrk4 and the five XFB_BT_* arms run in
+    fast mode through the CLI, write their records and print their arm's
+    banner line."""
+    for k in ("XFB_BT_FUSEKB", "XFB_BT_FUSEKX", "XFB_BT_FUSETAIL",
+              "XFB_BT_FUSED_RK", "XFB_BT_YFIRST"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert _run_cli(tmp_path, *extra) == 0
+    err = capsys.readouterr().err
+    assert line in err
+    assert "# fast transforms: bf16 tensor-core sub-DFTs" in err
+    f = tmp_path / "out" / "vort_step_0.bin"
+    assert f.stat().st_size == N * N * 4
+
+
 @pytest.mark.parametrize("extra,env", [
-    (["-m", "sw"], {"XFB_SW_YFIRST": "0"}), (["-m", "tracer"], {}),
-    (["-m", "fd"], {}),
+    (["-m", "sw"], {"XFB_SW_YFIRST": "0"}), (["-m", "fd"], {}),
     (["--shard"], {}), (["--ensemble", "2"], {}),
-    (["--time-scheme", "etdrk4"], {}),
-    ([], {"XFB_BT_FUSEKB": "0"}), ([], {"XFB_BT_FUSEKB": "full"}),
-    ([], {"XFB_BT_FUSEKX": "0"}), ([], {"XFB_BT_FUSETAIL": "1"}),
-    ([], {"XFB_BT_FUSED_RK": "0"}), ([], {"XFB_BT_YFIRST": "0"})],
+    ([], {"XFB_BT_YFIRST": "0"}), (["-m", "tracer", "--ensemble", "2"], {}),
+    (["-m", "tracer", "--shard"], {})],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_cli_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
                                           extra, env):

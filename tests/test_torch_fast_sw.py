@@ -49,6 +49,17 @@ FACTOR = 5.0
 RK4_STEPS, ETD_STEPS = 3, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The fast plain versions run many small torch ops: one intra-op
+    thread for them (test workers share the cores), the count restored
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel(got, want) -> float:
     got, want = np.asarray(got, np.complex128), np.asarray(want,
                                                            np.complex128)
@@ -418,7 +429,7 @@ def test_cli_runs_sw_fast_mode_and_prints_its_banner(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("extra,env", [
-    (["-m", "tracer"], {}), (["--shard"], {}), (["--ensemble", "2"], {}),
+    (["-m", "fd"], {}), (["--shard"], {}), (["--ensemble", "2"], {}),
     ([], {"XFB_SW_YFIRST": "0"}), (["--r-drag", "2e-4"], {}),
     (["--nu4", "1e-10"], {})],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))

@@ -199,7 +199,8 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
      "--shard"],
     ["-m", "fd", "--ensemble", "2"], ["-m", "jacobian", "--shard"],
     ["-m", "tracer", "--time-scheme", "etdrk4", "--shard"], ["-m", "climate"],
-    ["--time-scheme", "etdrk4", "--fast-transforms"], ["--fft-backend", "mxu"],
+    ["-m", "tracer", "--fast-transforms", "--ensemble", "2"],
+    ["--fft-backend", "mxu"],
     ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"],
     ["-m", "sw", "--beta", "1e-11"]])
 def test_cli_stops_on_flags_outside_the_slice(tmp_path, flags):

@@ -376,8 +376,8 @@ class _Cluster:
         """subdft<SIGN, true>(): pass16() while 16 divides what is left,
         lane for lane (warp w, group h: butterflies 32 w + 8 h + 0..7; the
         kernel's A, B and D fragments placed where the PTX ISA's
-        m16n8k16 layouts put them, each product exact and summed in
-        float64 as the plain version does), every slot of the new tile
+        m16n8k16 layouts put them, each product exact and summed as the
+        plain version's dot16 sums it), every slot of the new tile
         written exactly once and none past the tile; then the float32
         pass of the rest, op for op."""
         c, m, logc = self.c, self.m, self.logc
@@ -821,8 +821,8 @@ def test_emulated_kb_adv_is_plain_and_kb_pair_then_ky_adv(n, mode):
 # ----- kb_adv_tracer_kernel (csrc/kb_adv_tracer.cu): kb_adv's inverse
 # and exchange with two products and two forward transforms -----
 
-def emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src,
-                          beta: float) -> torch.Tensor:
+def emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, beta: float,
+                          fast: bool = False) -> torch.Tensor:
     """kb_adv_tracer_kernel on ka6's (6, ny/2 + 1, nx) stack, in tiles of
     half the plan's columns: the Hermitian tile of fields 2, 3, its
     inverse sub-DFT and combine; u, v times 1/(nx ny); adv_z with src (0
@@ -831,11 +831,12 @@ def emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src,
     tile, every slot written exactly once; the forward transform of each
     tile and the half store into flat (2 nx, ny/2 + 1) planes, adv_z at
     row x, adv_q at row nx + x (a store past nx would land in the next
-    plane): (2, nx, ny/2 + 1)."""
+    plane): (2, nx, ny/2 + 1). `fast`: kb_adv_tracer_kernel<true>, every
+    sub-DFT on the fast tile (subdft_fast)."""
     _, hny, nx = wr.shape
     ny = 2 * (hny - 1)
     scale = 1.0 / (nx * ny)
-    e = _Cluster(ny, nx, 4, narrow=True)
+    e = _Cluster(ny, nx, 4, narrow=True, fast=fast)
     # the second tile's staged columns fit it and the 16-value pad
     assert e.c * (e.m + 16 // e.c) <= e.m * e.c + 16
     uv_load = _hermitian(wr[2], wi[2], wr[3], wi[3])
@@ -1392,7 +1393,12 @@ def test_fast_plan_and_dft16_agree_with_the_kernel_source():
     for name, entry in (("ka_diag.cu", "xfb_ka_diag_fast"),
                         ("kb_pair.cu", "xfb_kb_pair_fast"),
                         ("kb_adv.cu", "xfb_kb_adv_half_fast"),
-                        ("kx_visc.cu", "xfb_kx_visc_fast")):
+                        ("kx_visc.cu", "xfb_kx_visc_fast"),
+                        ("ka_diag.cu", "xfb_ka6_fast"),
+                        ("kb_adv_tracer.cu", "xfb_kb_adv_tracer_fast"),
+                        ("ky_adv.cu", "xfb_ky_adv_fast"),
+                        ("kb_adv.cu", "xfb_kb_adv_full_fast"),
+                        ("kx_visc.cu", "xfb_kx_visc_tail_fast")):
         sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
                         _source(name))
         assert "int tile_c, int cluster_k" in " ".join(sig.group(1).split())
@@ -1470,6 +1476,92 @@ def test_emulated_fast_kernels_are_their_plain_versions(shape):
     got = emulate(_dense(torch.complex(fr, fi)), n, cols, True, elem=4,
                   fast=True)
     want = fst.fast_dft(fr, fi, -1)
+    assert torch.equal(got, torch.complex(*want))
+
+
+# (ny, nx) of the tracer's fast checks: ragged tiles of C/2 columns, K
+# from 1 to 8 (one live column in the last tile at 64 x 15)
+FAST_TRACER_SHAPES = [(256, 200), (1024, 33), (64, 15)]
+
+
+@pytest.mark.parametrize("shape", FAST_TRACER_SHAPES, ids=str)
+def test_emulated_fast_kb_adv_tracer_is_its_plain_version(shape):
+    """kb_adv_tracer_kernel<true> emulated lane for lane on a ragged grid,
+    every output of both planes starting NaN and written exactly once,
+    every exchanged product slot of both tiles exactly once
+    (emulate_kb_adv_tracer asserts both): kb_adv_tracer_fast_plain's
+    bits, src given, beta 1.6; and plane 0 the emulated fast kb_pair of
+    fields 2, 3 followed by the emulated fast ky_adv, bit for bit."""
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    ny, nx = shape
+    wr, wi, zx, zy, qx, qy, src = _tracer_inputs(ny, nx, ny + nx + 67)
+    got = emulate_kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, 1.6, fast=True)
+    assert not torch.isnan(got).any()
+    want = ft.kb_adv_tracer_fast_plain(zx, zy, qx, qy, wr, wi, src, 1.6)
+    assert torch.equal(got, torch.complex(*want))
+    if ny > 256:
+        return
+    u, v = _emulated_kb_pair(wr, wi, 2, 3, 1.0 / (nx * ny), fast=True)
+    pin = emulate(_advection_load(u, zx, v, zy, src, 1.6), ny, nx, True,
+                  transposed=True, half=True, fast=True)
+    assert torch.equal(got[0], pin)
+
+
+def test_fast_kb_adv_tracer_keeps_its_shared_memory_order():
+    """kb_adv_tracer_kernel's FAST instance keeps the strict one's order:
+    the second tile's sub-DFT and staged store first, then the first
+    tile's sub-DFT, then its staged store, which alone runs into the W_m
+    table (16 values, dead by then); the fast pass touches only a tile's
+    m C slots (subdft_fast asserts it) and reads the table whole. The
+    staged columns fit their tile plus 16 values at every length, and the
+    second tile's the pad behind it."""
+    body = _body(_source("kb_adv_tracer.cu"), r"kb_adv_tracer_kernel\(")
+    order = [body.index(k) for k in (
+        "xt::subdft<+1, FAST>(t)", "advect<",
+        "xt::finish_transposed<-1, FAST>(tq,",
+        "xt::finish_transposed<-1, FAST>(t,")]
+    assert order == sorted(order)
+    for n in LENGTHS:
+        for nx in (n, 33):
+            p = xtile.xtile_plan(n, nx, 4)
+            c = p.c // 2
+            staged = c * (p.m + 16 // c)
+            assert staged <= p.m * c + 16 <= p.m * c + p.m
+
+
+@pytest.mark.parametrize("shape", FAST_SHAPES, ids=str)
+def test_emulated_fast_arms_are_their_plain_versions(shape):
+    """The other barotropic arms' y-stages on the fast tile, emulated
+    lane for lane on ragged grids (every output written once): ky_adv's
+    (ky_adv_fast_plain's bits) and kb_adv_full's (kb_adv_full_fast_plain's,
+    and the emulated fast ky_adv of the emulated fast kb_pairs' outputs,
+    bit for bit); ka6's (the six fields, state f // 4) ka6_fast_plain's."""
+    from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+
+    n, cols = shape
+    rng = np.random.default_rng(n + cols + 1)
+    u, zx, v, zy, src = _float_planes(rng, (n, cols), 5)
+    got = emulate(_advection_load(u, zx, v, zy, src, 1.6), n, cols, True,
+                  transposed=True, half=True, fast=True)
+    want = ff.ky_adv(u, zx, v, zy, src, 1.6, fast=True)
+    assert torch.equal(got, torch.complex(*want))
+    wr, wi = _stack(rng, n, cols, 4, cols * n ** 0.5)
+    scale = ff._kb_adv_scale(wr)
+    got = emulate_kb_adv(wr, wi, None, None, src, 1.6, fast=True)
+    want = ff.kb_adv_full(wr, wi, src, 1.6, fast=True)
+    assert torch.equal(got, torch.complex(*want))
+    u, v = _emulated_kb_pair(wr, wi, 2, 3, scale, fast=True)
+    zx, zy = _emulated_kb_pair(wr, wi, 0, 1, scale, fast=True)
+    pin = emulate(_advection_load(u, zx, v, zy, src, 1.6), n, cols, True,
+                  transposed=True, half=True, fast=True)
+    assert torch.equal(got, pin)
+    sr, si = _float_planes(rng, (2, n, cols), 2)
+    kx, = _float_planes(rng, (n,), 1)
+    ky, = _float_planes(rng, (cols,), 1)
+    rlap = -1.0 / (1.0 + _float_planes(rng, (n, cols), 1)[0] ** 2)
+    got = emulate_fields(sr, si, rlap, kx, ky, 0, 6, False, fast=True)
+    want = ft.tracer_xstage_planes(sr, si, kx, ky, rlap, fast=True)
     assert torch.equal(got, torch.complex(*want))
 
 

@@ -33,11 +33,15 @@ empty: the RK4 tail in stage 4's kx_visc_tail) and XFB_BT_FUSED_RK (0:
 the unfused RK form). XFB_FUSEKX_MAX is not read: its 4096 cap is the
 TPU's VMEM limit, and the port keeps the fused kx_visc up to 8192^2.
 
---fast-transforms is the JAX package's fast mode for the barotropic
-and shallow-water families. Barotropic: XFB_BT_FUSEKB=auto resolves to
-half, and the y-first RK4 plane stepper runs ka_diag, kb_pair,
-kb_adv_half and kx_visc with their sub-DFTs as bf16 tensor-core products
-(BarotropicModel.build(..., fast=True)). Shallow water (-m sw, RK4 or
+--fast-transforms is the JAX package's fast mode for the barotropic,
+tracer and shallow-water families. Barotropic (RK4 or --time-scheme
+etdrk4): XFB_BT_FUSEKB=auto resolves to half, and the y-first plane
+stepper runs every fusion arm the XFB_BT_* switches pick with the
+sub-DFTs of its FFT kernels (ka_diag, kb_pair, ky_adv, kb_adv_half,
+kb_adv_full, kx_visc, kx_visc_tail, kx_fwd) as bf16 tensor-core
+products (BarotropicModel.build(..., fast=True)). Tracer (-m tracer, RK4
+or --time-scheme etdrk4): ka6, kb_pair, kb_adv_tracer and kx_visc on the
+fast tile (TracerModel.build(..., fast=True)). Shallow water (-m sw, RK4 or
 --time-scheme etdrk4): the y-first plane stepper runs ka_sw, kb_pair,
 ky_all and kx_fwd on the fast tile (ShallowWaterModel.build(...,
 fast=True)), and XFB_SW_SPLIT=auto and XFB_SW_PSTORE=auto resolve to
@@ -45,10 +49,9 @@ the split-linear formulation and the bf16 product store; the CLI reads
 XFB_SW_SPLIT (auto, or 0, off or empty: off; anything else on) and
 XFB_SW_PSTORE (auto, bf16 or bfloat16; anything else f32) as
 pallas_sw.py does, in strict mode too. --fft-backend xla keeps the
-float32 library path. The tracer, -m fd, --shard, --ensemble, the
-barotropic --time-scheme etdrk4 and other fusion arms, XFB_SW_YFIRST=0
-and shallow-water RK4 with --r-drag or --nu4 stop with an error naming
-ROADMAP.md queue A, item 4.
+float32 library path. -m fd, --shard, --ensemble, XFB_BT_YFIRST=0,
+XFB_SW_YFIRST=0 and shallow-water RK4 with --r-drag or --nu4 stop with
+an error naming ROADMAP.md queue A, item 4.
 """
 
 from __future__ import annotations
@@ -66,10 +69,16 @@ TRACE_NAME = "xfb-torch-run.trace.json"
 # phase 5o: 30 steps of the 4096^2 gaussian, dt 3 s, vorticity against
 # the strict kernel path)
 FAST_BANNER = ("# fast transforms: bf16 tensor-core sub-DFTs (mma.sync "
-               "m16n8k16, float32 accumulate) in ka_diag, kb_pair, "
-               "kb_adv_half and kx_visc (barotropic 30-step vorticity "
-               "rel-L2 3.2e-5 at 4096^2 on an H100; reference parity "
-               "needs the float32 default)")
+               "m16n8k16, float32 accumulate) in every FFT kernel of the "
+               "plane stepper (barotropic 30-step vorticity rel-L2 3.2e-5 "
+               "at 4096^2 on an H100; reference parity needs the float32 "
+               "default)")
+# and its tracer line (chip_smoke.py phase 5o: bench.py's tracer
+# configuration, 30 RK4 steps at 4096^2 against the strict kernel path)
+TRACER_FAST_BANNER = (
+    "# tracer fast mode: ka6, kb_pair, kb_adv_tracer and kx_visc on the "
+    "fast tile; zeta and q are held apart (q's tendency is about 1e4 "
+    "smaller): 30-step rel-L2 zeta 3.2e-5, q 2.9e-5 at 4096^2 on an H100")
 # and its shallow-water note: the JAX CLI's, with the port's kernels and
 # its figures on an H100 (chip_smoke.py phase 5o: bench.py's SW
 # configuration at 4096^2, 20 RK4 steps at dt 0.847 s, against the
@@ -225,30 +234,26 @@ def main(argv=None):
                         "and, on the card, CUDA activity) into "
                         "DIR/xfb-torch-run.trace.json (a Chrome trace)")
     p.add_argument("--fast-transforms", action="store_true",
-                   help="the barotropic and shallow-water plane "
+                   help="the barotropic, tracer and shallow-water plane "
                         "steppers' sub-DFTs as bf16 tensor-core products, "
                         "float32 accumulate (the JAX package's fast mode; "
                         "XFB_BT_FUSEKB=auto resolves to half; shallow "
                         "water: split-linear, bf16 product store). Not "
-                        "with the tracer, -m fd, --shard, --ensemble or "
-                        "the barotropic --time-scheme etdrk4 (ROADMAP.md "
-                        "queue A, item 4)")
+                        "with -m fd, --shard, --ensemble or the x-first "
+                        "order (ROADMAP.md queue A, item 4)")
     args = p.parse_args(argv)
 
     fd = args.model in ("fd", "jacobian")
     sw = args.model in ("shallow-water", "sw")
     if args.fast_transforms:
-        what = (f"-m {args.model}"
-                if args.model not in ("barotropic", "bt") and not sw
-                else "--shard" if args.shard
-                else "--ensemble" if args.ensemble > 1
-                else "--time-scheme etdrk4"
-                if args.time_scheme == "etdrk4" and not sw
+        what = (f"-m {args.model} ({FAST_ITEM})" if fd
+                else f"--shard ({FAST_ITEM}.6)" if args.shard
+                else f"--ensemble ({FAST_ITEM}.6)" if args.ensemble > 1
                 else None)
         if what:
-            p.error(f"--fast-transforms with {what} is not ported yet "
-                    f"({FAST_ITEM}): fast mode runs the barotropic y-first "
-                    f"RK4 and the shallow-water y-first plane steppers")
+            p.error(f"--fast-transforms with {what} is not ported yet: "
+                    f"fast mode runs the barotropic, tracer and "
+                    f"shallow-water y-first plane steppers")
     if args.ensemble > 1 and (args.shard or fd):
         p.error(f"--ensemble does not combine with "
                 f"{'--shard' if args.shard else '-m ' + args.model}: "
@@ -292,8 +297,7 @@ def main(argv=None):
         except ValueError as e:
             p.error(str(e))
         if args.fast_transforms:
-            fusion = {k: v for k, v in bt_fusion.items() if k != "fast"}
-            why = fast_refusal(yfirst, **fusion)
+            why = fast_refusal(yfirst)
             if why:
                 p.error(f"--fast-transforms: {why}")
     if sw and cfg.beta != 0.0:
@@ -328,6 +332,8 @@ def main(argv=None):
               else "# fast transforms: --fft-backend xla keeps the torch.fft "
                    "library path in float32, as the JAX package's XLA path",
               file=sys.stderr)
+        if args.model == "tracer" and backend == "pallas":
+            print(TRACER_FAST_BANNER, file=sys.stderr)
     device = resolve_device(args.device)
     if args.shard:
         try:
@@ -417,7 +423,9 @@ def main(argv=None):
                      ensemble=args.ensemble,
                      ensemble_amp=args.ensemble_amp,
                      ensemble_seed=args.ensemble_seed,
-                     ensemble_width=width, sw_form=sw_form)
+                     ensemble_width=width, sw_form=sw_form,
+                     tracer_fast=(args.model == "tracer"
+                                  and args.fast_transforms))
     if args.profile_dir:
         trace = Path(args.profile_dir) / TRACE_NAME
         trace.parent.mkdir(parents=True, exist_ok=True)

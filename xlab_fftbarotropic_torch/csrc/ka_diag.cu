@@ -40,10 +40,11 @@
 // each one's tiles in turn, ka_diag took 0.495 ms against 0.457 on an
 // H100, PERF.md).
 //
-// xfb_ka_diag_fast is ka_diag on the fast column tile (xtile.cuh FAST:
-// the radix-16 sub-DFT passes as bf16 tensor-core products, the JAX
-// package's --fast-transforms), for the barotropic fast mode; the same
-// load, plan and store.
+// xfb_ka_diag_fast is ka_diag and xfb_ka6_fast ka6 on the fast column
+// tile (xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
+// products, the JAX package's --fast-transforms), for the barotropic and
+// tracer fast modes: ka_fields_kernel<false, true> at F = 4 and F = 6,
+// the same load, plan and store.
 #include "xtile.cuh"
 
 namespace {
@@ -160,5 +161,17 @@ extern "C" int xfb_ka_diag_fast(const float* zr, const float* zi,
                                 int device, void* stream) {
   return launch<false, true>(4, zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, 0,
                              tile_c, cluster_k, threads, smem, device,
+                             stream);
+}
+
+// ka6 on the fast column tile: arguments as xfb_ka6's
+extern "C" int xfb_ka6_fast(const float* sr2, const float* si2,
+                            const float* rlap, const float* kx,
+                            const float* ky, const void* tw, float* wr,
+                            float* wi, int n, int hny, int tile_c,
+                            int cluster_k, int threads, int smem,
+                            int device, void* stream) {
+  return launch<false, true>(6, sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny,
+                             0, tile_c, cluster_k, threads, smem, device,
                              stream);
 }

@@ -37,12 +37,13 @@
 // KB, would leave one), half one tile (36 KB, four blocks per SM); the
 // plan's C ran kb_adv_full 1.4x and kb_adv_half 1.1x slower on the H100.
 //
-// xfb_kb_adv_half_fast is kb_adv_half on the fast column tile (xtile.cuh
-// FAST: both the inverse and the forward sub-DFTs in bf16 tensor-core
-// radix-16 passes), the barotropic fast mode's arm (the JAX package's
-// XFB_BT_FUSEKB=auto resolves to half in fast mode); every other step
-// unchanged, so it gives the bits of kb_pair's fast form followed by the
-// advection and the fast forward transform.
+// xfb_kb_adv_half_fast and xfb_kb_adv_full_fast are kb_adv_half and
+// kb_adv_full on the fast column tile (xtile.cuh FAST: the inverse and
+// the forward sub-DFTs in bf16 tensor-core radix-16 passes), the
+// barotropic fast mode's arms (the JAX package's XFB_BT_FUSEKB=auto
+// resolves to half in fast mode, =full picks full); every other step
+// unchanged, so they give the bits of kb_pair's fast form (once or
+// twice) followed by ky_adv's fast form.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -226,4 +227,16 @@ extern "C" int xfb_kb_adv_half_fast(const float* zx, const float* zy,
   return launch<false, true>(wr, wi, zx, zy, src, tw, outr, outi, ny, nx,
                              scale, beta, tile_c, cluster_k, threads, smem,
                              device, stream);
+}
+
+// kb_adv_full on the fast column tile: arguments as xfb_kb_adv_full's
+extern "C" int xfb_kb_adv_full_fast(const float* wr, const float* wi,
+                                    const float* src, const void* tw,
+                                    float* outr, float* outi, int ny, int nx,
+                                    float scale, float beta, int tile_c,
+                                    int cluster_k, int threads, int smem,
+                                    int device, void* stream) {
+  return launch<true, true>(wr, wi, nullptr, nullptr, src, tw, outr, outi,
+                            ny, nx, scale, beta, tile_c, cluster_k, threads,
+                            smem, device, stream);
 }

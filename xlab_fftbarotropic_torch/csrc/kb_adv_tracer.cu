@@ -46,6 +46,15 @@
 // first tile's into the W_m table, dead once both sub-DFTs have read it,
 // the second tile's into the pad; so the second tile is transformed and
 // stored first, while the table is whole.
+//
+// xfb_kb_adv_tracer_fast is kb_adv_tracer on the fast column tile
+// (xtile.cuh FAST: the inverse and both forward sub-DFTs as bf16
+// tensor-core radix-16 passes), the tracer fast mode's. The fast pass
+// twiddles in float32 from the same W_m table and reads and writes only
+// a tile's m C slots, so the order above holds unchanged: the second
+// tile first, the first tile's staging into the dead table last. It
+// gives the bits of kb_pair's fast form of fields 2, 3 followed by
+// ky_adv's fast form of each product.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -116,6 +125,7 @@ __device__ __forceinline__ void advect(
 }
 
 // cluster tile: columns j0 .. j0 + C
+template <bool FAST>
 __global__ void __launch_bounds__(256, 3)
     kb_adv_tracer_kernel(const float* __restrict__ zx,
                          const float* __restrict__ zy,
@@ -135,7 +145,7 @@ __global__ void __launch_bounds__(256, 3)
   xt::load_hermitian(t, t.s, wr + 2 * plane, wi + 2 * plane, wr + 3 * plane,
                      wi + 3 * plane, j0, nx);
   __syncthreads();
-  xt::subdft<+1>(t);
+  xt::subdft<+1, FAST>(t);
   switch (k) {
     case 1:
       advect<1>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
@@ -155,9 +165,29 @@ __global__ void __launch_bounds__(256, 3)
   xt::HalfOut o = out;
   o.j0 = j0;
   o.plane = plane;  // adv_q: the second (nx, ny/2 + 1) plane
-  xt::finish_transposed<-1>(tq, tw, true, o);
+  xt::finish_transposed<-1, FAST>(tq, tw, true, o);
   o.plane = 0;
-  xt::finish_transposed<-1>(t, tw, true, o);
+  xt::finish_transposed<-1, FAST>(t, tw, true, o);
+}
+
+template <bool FAST>
+int launch(const float* zx, const float* zy, const float* qx,
+           const float* qy, const float* wr, const float* wi,
+           const float* src, const void* tw, float* outr, float* outi,
+           int ny, int nx, float scale, float beta, int tile_c,
+           int cluster_k, int threads, int smem, int device, void* stream) {
+  if (!xt::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int c = tile_c / 2;
+  const int tiles = (nx + c - 1) / c;
+  return static_cast<int>(xt::launch(
+      kb_adv_tracer_kernel<FAST>, tiles, 1, cluster_k, threads / 2,
+      smem + kPad * static_cast<int>(sizeof(float2)), device,
+      static_cast<cudaStream_t>(stream), zx, zy, qx, qy, wr, wi, src,
+      static_cast<const float2*>(tw),
+      xt::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
+      xt::log2i(c), scale, beta));
 }
 
 }  // namespace
@@ -175,16 +205,21 @@ extern "C" int xfb_kb_adv_tracer(const float* zx, const float* zy,
                                  float scale, float beta, int tile_c,
                                  int cluster_k, int threads, int smem,
                                  int device, void* stream) {
-  if (!xt::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int c = tile_c / 2;
-  const int tiles = (nx + c - 1) / c;
-  return static_cast<int>(xt::launch(
-      kb_adv_tracer_kernel, tiles, 1, cluster_k, threads / 2,
-      smem + kPad * static_cast<int>(sizeof(float2)), device,
-      static_cast<cudaStream_t>(stream), zx, zy, qx, qy, wr, wi, src,
-      static_cast<const float2*>(tw),
-      xt::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
-      xt::log2i(c), scale, beta));
+  return launch<false>(zx, zy, qx, qy, wr, wi, src, tw, outr, outi, ny, nx,
+                       scale, beta, tile_c, cluster_k, threads, smem, device,
+                       stream);
+}
+
+// kb_adv_tracer on the fast column tile: arguments as xfb_kb_adv_tracer's
+extern "C" int xfb_kb_adv_tracer_fast(const float* zx, const float* zy,
+                                      const float* qx, const float* qy,
+                                      const float* wr, const float* wi,
+                                      const float* src, const void* tw,
+                                      float* outr, float* outi, int ny,
+                                      int nx, float scale, float beta,
+                                      int tile_c, int cluster_k, int threads,
+                                      int smem, int device, void* stream) {
+  return launch<true>(zx, zy, qx, qy, wr, wi, src, tw, outr, outi, ny, nx,
+                      scale, beta, tile_c, cluster_k, threads, smem, device,
+                      stream);
 }

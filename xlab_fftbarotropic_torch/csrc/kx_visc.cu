@@ -36,9 +36,10 @@
 // form (no epilogue, visc, axpy, tail; any number of fields) runs the
 // one kernel below with the plan of nx alone, so the transform's bits
 // never depend on the form. xfb_kx_visc_fast is kx_visc (visc, and the
-// stage axpy) on the fast column tile (xtile.cuh FAST: bf16 tensor-core
-// radix-16 passes), the barotropic fast mode's forward x-stage; the
-// epilogue unchanged.
+// stage axpy; any number of fields, no epilogue too) on the fast column
+// tile (xtile.cuh FAST: bf16 tensor-core radix-16 passes), the forward
+// x-stage of the barotropic and tracer fast modes, and
+// xfb_kx_visc_tail_fast the tail form on it; the epilogue unchanged.
 //
 // The shallow-water fast mode's kx_fwd (_kx_fwd_kernel, pallas_sw.py:565,
 // under the JAX package's --fast-transforms) stores its product spectra
@@ -237,6 +238,27 @@ extern "C" int xfb_kx_visc_fast(const float* fr, const float* fi,
                       Planes{lap, mask, zsr, zsi, z0r, z0i, rr, ri, nr, ni},
                       Tail{}, tw, nfields, nx, hny, nu, coef, tile_c,
                       cluster_k, threads, smem, device, stream);
+}
+
+// kx_visc_tail on the fast column tile: arguments as xfb_kx_visc_tail's
+extern "C" int xfb_kx_visc_tail_fast(const float* fr, const float* fi,
+                                     const float* lap, const float* mask,
+                                     const float* zsr, const float* zsi,
+                                     const float* z0r, const float* z0i,
+                                     const float* r1r, const float* r1i,
+                                     const float* r2r, const float* r2i,
+                                     const float* r3r, const float* r3i,
+                                     const void* tw, float* nr, float* ni,
+                                     int nfields, int nx, int hny, float nu,
+                                     float c, int tile_c, int cluster_k,
+                                     int threads, int smem, int device,
+                                     void* stream) {
+  return launch<true>(fr, fi,
+                      Planes{lap, mask, zsr, zsi, z0r, z0i, nullptr, nullptr,
+                             nr, ni},
+                      Tail{r1r, r1i, r2r, r2i, r3r, r3i, c}, tw, nfields, nx,
+                      hny, nu, 0.f, tile_c, cluster_k, threads, smem, device,
+                      stream);
 }
 
 // kx_fwd with the bf16 product store: fr, fi: (nfields, nx, hny) float32

@@ -17,6 +17,12 @@
 // compute the product), and the transposed half store writes each output
 // row x in runs of contiguous k. The tile holds (adv, 0), so ky_adv is
 // kc of (adv, 0) bit for bit.
+//
+// xfb_ky_adv_fast is ky_adv on the fast column tile (xtile.cuh FAST: the
+// radix-16 sub-DFT passes as bf16 tensor-core products), the barotropic
+// fast mode's FUSEKB=0 arm: the same load, plan and store, so it gives
+// the bits of kb_adv_half's fast forward transform of the same
+// advection.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -24,6 +30,7 @@ namespace {
 
 // cluster tile: columns j0 .. j0 + C; block r of it computes rows r + k jj
 // of the tile, consecutive lanes on consecutive columns
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ky_adv_kernel(const float* __restrict__ u, const float* __restrict__ zx,
                   const float* __restrict__ v, const float* __restrict__ zy,
@@ -52,7 +59,24 @@ __global__ void __launch_bounds__(512, 2)
   __syncthreads();
   xt::HalfOut o = out;
   o.j0 = j0;
-  xt::finish_transposed<-1>(t, tw, true, o);
+  xt::finish_transposed<-1, FAST>(t, tw, true, o);
+}
+
+template <bool FAST>
+int launch(const float* u, const float* zx, const float* v, const float* zy,
+           const float* src, const void* tw, float* outr, float* outi,
+           int ny, int nx, float beta, int tile_c, int cluster_k,
+           int threads, int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ky_adv_kernel<FAST>, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), u, zx, v, zy, src,
+      static_cast<const float2*>(tw),
+      xfb::xtile::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
+      xfb::xtile::log2i(tile_c), beta));
 }
 
 }  // namespace
@@ -64,14 +88,17 @@ extern "C" int xfb_ky_adv(const float* u, const float* zx, const float* v,
                           float* outr, float* outi, int ny, int nx,
                           float beta, int tile_c, int cluster_k, int threads,
                           int smem, int device, void* stream) {
-  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (nx + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      ky_adv_kernel, tiles, 1, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), u, zx, v, zy, src,
-      static_cast<const float2*>(tw),
-      xfb::xtile::HalfOut{outr, outi, 0, 0, nx, ny / 2 + 1}, ny, cluster_k,
-      xfb::xtile::log2i(tile_c), beta));
+  return launch<false>(u, zx, v, zy, src, tw, outr, outi, ny, nx, beta,
+                       tile_c, cluster_k, threads, smem, device, stream);
+}
+
+// ky_adv on the fast column tile: arguments as xfb_ky_adv's
+extern "C" int xfb_ky_adv_fast(const float* u, const float* zx,
+                               const float* v, const float* zy,
+                               const float* src, const void* tw, float* outr,
+                               float* outi, int ny, int nx, float beta,
+                               int tile_c, int cluster_k, int threads,
+                               int smem, int device, void* stream) {
+  return launch<true>(u, zx, v, zy, src, tw, outr, outi, ny, nx, beta,
+                      tile_c, cluster_k, threads, smem, device, stream);
 }

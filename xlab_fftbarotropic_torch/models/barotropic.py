@@ -36,13 +36,15 @@ them there.
 
 fast=True is the JAX package's fast mode (--fast-transforms,
 pallas_fft.MM_MODE "default"), an argument of the model here, never a
-process-wide switch: the plane stepper runs the y-first RK4 fused-RK
-form in its fusekb "half" arm (as pallas_fft.fusekb_mode resolves
-"auto" in fast mode) on the fast forms of ka_diag, kb_pair, kb_adv_half
-and kx_visc (bf16 tensor-core sub-DFTs, float32 accumulate), and
-rk4_combine. Every other combination waits (ROADMAP.md queue A, item 4)
-and raises; the library path ("xla") stays float32 under fast=True, as
-in the JAX package.
+process-wide switch: the y-first plane stepper, RK4 (both forms) and
+ETDRK4, runs every fusion arm (fusekb defaults to "half", as
+pallas_fft.fusekb_mode resolves "auto" in fast mode) on the fast forms
+of its FFT kernels (ka_diag, kb_pair, ky_adv, kb_adv_half, kb_adv_full,
+kx_visc, kx_visc_tail, kx_fwd: bf16 tensor-core sub-DFTs, float32
+accumulate), with visc and rk4_combine unchanged; each arm gives the
+fast "half" arm's bits. The x-first order waits (ROADMAP.md queue A,
+item 4) and raises; the library path ("xla") stays float32 under
+fast=True, as in the JAX package.
 
 cfg.time_scheme "etdrk4" swaps RK4 for the exponential scheme of
 models/etdrk4.py: nu lap - r_drag - nu4 lap^2 (and the beta term, in
@@ -219,25 +221,15 @@ def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
 FAST_ITEM = "ROADMAP.md queue A, item 4"
 
 
-def fast_refusal(yfirst: bool = True, quad_mode: str = "grid",
-                 fusekb: str = "half", fusekx: bool = True,
-                 fusetail: bool = False, fused_rk: bool = True,
-                 time_scheme: str = "rk4") -> Optional[str]:
+def fast_refusal(yfirst: bool = True,
+                 quad_mode: str = "grid") -> Optional[str]:
     """Why fast mode does not run this combination yet, or None: it runs
-    the y-first RK4 fused-RK form in the fusekb "half" arm with kx_visc
-    and rk4_combine only."""
-    for bad, what in ((not yfirst or quad_mode != "grid",
-                       "the x-first order"),
-                      (fusekb != "half", f"fusekb {fusekb!r} (fast mode "
-                                         f"runs 'half')"),
-                      (not fusekx, "fusekx=False (kx_fwd + visc)"),
-                      (fusetail, "fusetail (kx_visc_tail)"),
-                      (not fused_rk, "the unfused RK form"),
-                      (time_scheme != "rk4", f"time scheme {time_scheme}")):
-        if bad:
-            return (f"fast mode does not run {what} yet ({FAST_ITEM}); it "
-                    f"runs the barotropic y-first RK4 fused-RK form in the "
-                    f"fusekb 'half' arm")
+    the y-first order (every fusion arm, RK4 and ETDRK4), not the x-first
+    order nor QUAD_MODE quad or split (item 4.4)."""
+    if not yfirst or quad_mode != "grid":
+        return (f"fast mode does not run the x-first order yet "
+                f"({FAST_ITEM}.4); it runs the barotropic y-first plane "
+                f"stepper")
     return None
 
 
@@ -256,10 +248,10 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
     "quad" or "split" requires it): the x-major derivative_quad_planes
     (ka_diag or ka_quad + 2 kb) and forward_tendency (ka_adv + kc_visc),
     `src_l` x-major (nx, ny), no axpy or tail, fusekb and fusekx
-    ignored (as in the JAX package). `fast`: the y-first fusekb "half"
-    stage on the fast kernels (fast_refusal names what else raises)."""
+    ignored (as in the JAX package). `fast`: the y-first stage on the
+    fast kernels, any arm (fast_refusal names what raises)."""
     if fast:
-        why = fast_refusal(yfirst, quad_mode, fusekb, fusekx)
+        why = fast_refusal(yfirst, quad_mode)
         if why:
             raise ValueError(why)
 
@@ -270,11 +262,12 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
                 fusekb, beta, tail, fusekx, fast)
         zx, zy, u, v = ff.derivative_quad_planes(sr, si, t.kx, t.ky, t.rlap,
                                                  ymajor=yfirst,
-                                                 quad_mode=quad_mode)
+                                                 quad_mode=quad_mode,
+                                                 fast=fast)
         if yfirst:
             return ff.forward_tendency_yfirst(u, zx, v, zy, src_l, t.lap,
                                               t.mask, sr, si, nu, beta, axpy,
-                                              tail, fusekx)
+                                              tail, fusekx, fast)
         if axpy is not None or tail is not None:
             raise ValueError("the x-first tendency takes no stage axpy or "
                              "tail")
@@ -338,7 +331,8 @@ def fusion_arm(fused_rk: bool = True, fusekb: str = "", fusekx: bool = True,
                      else "rk4_combine")
     if fast:
         return ("fast: ka_diag, " + ", ".join(parts)
-                + " (bf16 tensor-core sub-DFTs, float32 accumulate)")
+                + " (bf16 tensor-core sub-DFTs in every transform, float32 "
+                  "accumulate)")
     return ", ".join(parts)
 
 
@@ -354,15 +348,16 @@ def etd_step(t: SpectralTables, tabs, zeta_hat: torch.Tensor,
 def etd_step_planes(t: SpectralTables, tabs, zr: torch.Tensor,
                     zi: torch.Tensor, src_l: torch.Tensor,
                     yfirst: bool = True, quad_mode: str = "grid",
-                    fusekb: str = "", fusekx: bool = True):
+                    fusekb: str = "", fusekx: bool = True,
+                    fast: bool = False):
     """One ETDRK4 step on the (re, im) planes through the plane
     stepper's kernels: N is plane_tendency with nu = 0 and beta = 0
     (beta, drag and hyperviscosity live in the tables, nothing folds
     into lap), in either order and any y-first fusion arm (the JAX
     package's _eplane_step: tendency_yfirst_fusedkb with nu = 0, no
-    beta)."""
+    beta); `fast`: the y-first N on the fast kernels."""
     d = plane_tendency(t, src_l, 0.0, 0.0, yfirst, quad_mode, fusekb,
-                       fusekx)
+                       fusekx, fast)
     return etd.etd_scheme(lambda q: d(*q),
                           lambda T, q: etd.smul_planes(T, *q), tabs,
                           (zr, zi))
@@ -432,11 +427,11 @@ class BarotropicModel(nn.Module):
     (XFB_BT_FUSETAIL; RK4 with fused_rk and fusekx only) pick the
     y-first fusion arm, defaults as the JAX package's in strict float32;
     the x-first order ignores them. `fast` is the JAX package's fast mode
-    on the plane stepper (fusekb None, the default, then resolves to
-    "half"; fast_refusal names the combinations that raise); None
-    resolves to "" in strict float32, and on the library path fast
-    changes nothing. On the RK4 plane stepper, drag
-    and hyperviscosity fold into the stepping lap:
+    on the plane stepper, RK4 and ETDRK4, any y-first arm (fusekb None,
+    the default, then resolves to "half"; fast_refusal names the
+    combinations that raise); None resolves to "" in strict float32,
+    and on the library path fast changes nothing. On the RK4 plane
+    stepper, drag and hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
     package); the diagnostics keep the original tables. Under ETDRK4
@@ -472,8 +467,7 @@ class BarotropicModel(nn.Module):
         # float32 (the JAX package's torch.fft counterpart, XLA's FFT)
         self.fast = fast and self.backend == "pallas"
         if self.fast:
-            why = fast_refusal(yfirst, quad_mode, fusekb, fusekx, fusetail,
-                               fused_rk, cfg.time_scheme)
+            why = fast_refusal(yfirst, quad_mode)
             if why:
                 raise ValueError(why)
         self.fused_rk = fused_rk
@@ -531,7 +525,7 @@ class BarotropicModel(nn.Module):
             # the forcing in the order's layout, once per segment
             src_l = (src.t() if self.yfirst else src).contiguous()
             order = dict(yfirst=self.yfirst, quad_mode=self.quad_mode,
-                         **self.fusion)
+                         fast=self.fast, **self.fusion)
             for _ in range(n_steps):
                 if et is not None:
                     zr, zi = etd_step_planes(t, et, zr, zi, src_l, **order)
@@ -540,7 +534,7 @@ class BarotropicModel(nn.Module):
                                              self.step_nu, beta=self.beta,
                                              fused_rk=self.fused_rk,
                                              fusetail=self.fusetail,
-                                             fast=self.fast, **order)
+                                             **order)
             return torch.complex(zr, zi)
         z = zeta_hat
         for _ in range(n_steps):

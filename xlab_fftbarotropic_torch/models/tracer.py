@@ -27,6 +27,12 @@ integrates the flow operator (nu lap - r_drag - nu4 lap^2, the beta term
 in complex tables) and kappa lap exactly (models/etdrk4.py, stacked
 tables (2, nx, hny)); N is the joint advection-only tendency, on the
 plane stepper's kernels with a zero lap2 or on torch.fft.
+
+fast=True is the JAX package's fast mode (--fast-transforms): the plane
+stepper, RK4 and ETDRK4, runs ka6, kb_pair, kb_adv_tracer and kx_visc on
+the fast column tile (bf16 tensor-core sub-DFTs, float32 accumulate;
+ops/fused_tracer.py), rk4_combine and the ETD combines unchanged; on the
+library path fast changes nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -151,15 +157,17 @@ def etd_step(t: SpectralTables, tabs, state: TracerState,
 
 
 def etd_step_planes(t: SpectralTables, tabs, sr2: torch.Tensor,
-                    si2: torch.Tensor, src_y: torch.Tensor):
+                    si2: torch.Tensor, src_y: torch.Tensor,
+                    fast: bool = False):
     """One ETDRK4 step on the stacked planes (2, nx, hny) through the
-    tracer plane stepper's kernels, with a zero diffusion table (every
-    linear term lives in the ETD tables) and beta = 0."""
+    tracer plane stepper's kernels (`fast`: their fast forms), with a
+    zero diffusion table (every linear term lives in the ETD tables) and
+    beta = 0."""
     lap2z = torch.zeros_like(sr2)
 
     def N(q):
         return ft.tendency_tracer_planes(q[0], q[1], src_y, t.kx, t.ky,
-                                         t.rlap, lap2z, t.mask)
+                                         t.rlap, lap2z, t.mask, fast=fast)
     return etd.etd_scheme(N, lambda T, q: etd.smul_planes(T, *q), tabs,
                           (sr2, si2))
 
@@ -203,17 +211,22 @@ class TracerModel(nn.Module):
     `diags`:   state -> TracerDiagFields;  `stats`: state -> TracerStats.
 
     `tables` (buffers) serve both paths; `lap2` (a buffer, (2, nx, hny))
-    is the plane stepper's stacked diffusion table.
+    is the plane stepper's stacked diffusion table. `fast` runs the plane
+    stepper in the JAX package's fast mode (the fast column tile); on
+    the library path it changes nothing (`self.fast` is what runs).
     """
 
     def __init__(self, cfg, device, kappa: float = 0.0,
-                 tables: SpectralTables = None):
+                 tables: SpectralTables = None, fast: bool = False):
         super().__init__()
         check_time_scheme(cfg)
+        if not isinstance(fast, bool):
+            raise TypeError(f"fast must be a bool, got {fast!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_fft_backend_name(cfg.fft_backend,
                                                 cfg.grid_shape)
+        self.fast = fast and self.backend == "pallas"
         self.tables = (tables if tables is not None
                        else SpectralTables.from_config(cfg, self.device))
         self.dt = float(cfg.dt)
@@ -232,8 +245,9 @@ class TracerModel(nn.Module):
 
     @classmethod
     def build(cls, cfg, device, kappa: float = 0.0,
-              tables: SpectralTables = None) -> "TracerModel":
-        return cls(cfg, device, kappa, tables)
+              tables: SpectralTables = None,
+              fast: bool = False) -> "TracerModel":
+        return cls(cfg, device, kappa, tables, fast)
 
     def _check_state(self, state: TracerState) -> None:
         for z in state:
@@ -256,11 +270,12 @@ class TracerModel(nn.Module):
             src_y = src.t().contiguous()
             for _ in range(n_steps):
                 if et is not None:
-                    sr2, si2 = etd_step_planes(t, et, sr2, si2, src_y)
+                    sr2, si2 = etd_step_planes(t, et, sr2, si2, src_y,
+                                               fast=self.fast)
                 else:
                     sr2, si2 = ft.rk4_step_tracer_planes(
                         t, sr2, si2, src_y, self.dt, self.lap2,
-                        beta=self.beta)
+                        beta=self.beta, fast=self.fast)
             return TracerState(torch.complex(sr2[0], si2[0]),
                                torch.complex(sr2[1], si2[1]))
         for _ in range(n_steps):

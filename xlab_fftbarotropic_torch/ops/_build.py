@@ -96,6 +96,13 @@ SIGNATURES = {
     "xfb_ka_sw_fast": [_P] * 12 + [_I, _I, _F] + [_I] * 5 + [_P],
     "xfb_ky_all_fast": [_P] * 7 + [_I, _I, _F, _F, _F, _I] + [_I] * 5
     + [_P],
+    "xfb_ka6_fast": [_P] * 8 + [_I] * 7 + [_P],
+    "xfb_kb_adv_tracer_fast": [_P] * 10 + [_I, _I, _F, _F] + [_I] * 5
+    + [_P],
+    "xfb_ky_adv_fast": [_P] * 8 + [_I, _I, _F] + [_I] * 5 + [_P],
+    "xfb_kb_adv_full_fast": [_P] * 6 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
+    "xfb_kx_visc_tail_fast": [_P] * 17 + [_I, _I, _I, _F, _F] + [_I] * 5
+    + [_P],
     # kx_fwd with the bf16 product store (csrc/kx_visc.cu), fast and
     # strict tile: fr, fi, tw, rr, ri, nfields, nx, hny, tile_c,
     # cluster_k, threads, smem, device, stream

@@ -10,11 +10,14 @@ tile computes, with the same rounding points:
     by W_(16p)^(t k) in float32 (the tile's `mul`: fmaf of a product,
     here rounded once through float64), rounds each input and the DFT-16
     matrix to bf16 (round to nearest even; the matrix from float64 with
-    the zeros exact, ops/xtile.py DFT16_COS_BF16), sums the 32 exact
-    products of each output in float64 in a fixed order (dot16) and
-    rounds that to float32 (the tensor core sums in float32 in an order
-    of its own: where the sum is exact, as for small integers, the two
-    agree bit for bit);
+    the zeros exact, ops/xtile.py DFT16_COS_BF16) and forms each output
+    as the kernel's two mma.sync products do (dot16): each product's 16
+    exact terms and its float32 accumulator aligned to the largest
+    term's leading bit and cut toward zero 25 bits below it, summed, the
+    sum cut toward zero to float32 (the sum the H100's tensor cores form
+    for 99.93-99.98 % of the outputs, bit for bit, and within 1e-9 rel-L2
+    for the rest: scripts/fast_sum_order.py; where every sum is exact,
+    as for small integers, the two agree bit for bit);
   * the float32 radix-8/4/2 pass of the rest and the cross-block K-point
     step (twiddle by W_n^(r k2), then the K-point DFT), op for op as the
     kernel's dft<R>, rot4 and rot8.
@@ -113,18 +116,57 @@ def dft16_matrices(device):
     return c, s
 
 
+# the tensor core's alignment of an mma's terms: bits kept below the
+# largest term's leading bit (scripts/fast_sum_order.py)
+MMA_ALIGN_BITS = 25
+
+
+def _to_f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mma(acc: torch.Tensor, m: torch.Tensor, v: torch.Tensor):
+    """One m16n8k16 product's float32 result acc + m v (acc (16, N)
+    float32, m (16, 16) and v (16, N) of bf16 values in float32, every
+    product exact there): each term (the accumulator and the 16
+    products) cut toward zero to a multiple of 2^(e - MMA_ALIGN_BITS), e
+    the largest term's exponent, their exact sum (float64: the cut terms
+    are integers times that power of two, below 2^31 in sum) cut toward
+    zero to float32."""
+    p = m.t().unsqueeze(-1) * v.unsqueeze(1)        # p[t, f] = m[f, t] v[t]
+    mag = torch.maximum(torch.maximum(p.amax(0), -p.amin(0)), acc.abs())
+    _, e = torch.frexp(mag)                 # mag = frac 2^e, 0.5 <= frac < 1
+    # 2^(bits - floor(log2 mag)), capped below float32's overflow (a
+    # term under 2^-100 is cut at 2^-126, still exactly)
+    scale = torch.ldexp(torch.ones_like(mag),
+                        (MMA_ALIGN_BITS + 1 - e).clamp(max=126))
+    p.mul_(scale).trunc_()
+    cut = p.sum(0, dtype=torch.float64) + torch.trunc(acc * scale).double()
+    return _to_f32_toward_zero(cut / scale.double())
+
+
 def dot16(a, x, b, y) -> torch.Tensor:
     """sum_t a[f, t] x[t] + b[f, t] y[t] for (16, 16) matrices and (16, N)
-    operands of bf16 values held in float64: each product exact, summed
-    in float64 in one fixed order (t = 0..15 of a x, then of b y; exact
-    unless the terms span more than 53 bits) and rounded once to
-    float32: (16, N)."""
-    acc = a[:, :1] * x[0]
-    for t in range(1, 16):
-        acc = acc + a[:, t:t + 1] * x[t]
-    for t in range(16):
-        acc = acc + b[:, t:t + 1] * y[t]
-    return acc.float()
+    operands of bf16 values (held in any float dtype), as the kernel's two
+    m16n8k16 products form it: the 16 exact products a x into a zero
+    accumulator, then b y into that float32 result, each as _mma forms
+    it: (16, N) float32."""
+    a, x, b, y = (t.float() for t in (a, x, b, y))
+    acc = torch.zeros((16,) + tuple(x.shape[1:]), device=x.device)
+    return _mma(_mma(acc, a, x), b, y)
+
+
+def dot16(a, x, b, y) -> torch.Tensor:
+    """sum_t a[f, t] x[t] + b[f, t] y[t] for (16, 16) matrices and (16, N)
+    operands of bf16 values held in float64, as the kernel's two
+    m16n8k16 products form it: the 16 exact products a x into a zero
+    accumulator, then b y into that float32 result, each as _mma forms
+    it: (16, N) float32."""
+    acc = torch.zeros((16,) + tuple(x.shape[1:]), dtype=torch.float64,
+                      device=x.device)
+    return _mma(_mma(acc, a, x), b, y).float()
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -38,13 +38,15 @@ x-major (kb_stacked) and runs the forward pipeline as
 and QUAD_MODE "quad" or "split" (x-first only) takes ka_quad, the same
 x-stage as ka_diag in the psi-first grouping of the TPU's _ka4/_ka2.
 
-Fast mode (the JAX package's --fast-transforms) runs the FUSEKB=half
-stage, ka_diag, kb_pair, kb_adv_half and kx_visc, on the fast column
-tile (csrc/xtile.cuh FAST: the radix-16 sub-DFT passes as bf16
-tensor-core products, float32 accumulate): each wrapper's `fast=True`
-launches that form, counted under its own name (ka_diag_fast, ...), and
-on the CPU takes its plain version, the strict plain version's load and
-epilogue around ops/fast_tile.py's emulation of the fast transform.
+Fast mode (the JAX package's --fast-transforms) runs every y-first
+stage and arm, ka_diag, kb_pair, ky_adv, kb_adv_half, kb_adv_full,
+kx_visc, kx_visc_tail and kx_fwd (+ visc), on the fast column tile
+(csrc/xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
+products, float32 accumulate): each wrapper's `fast=True` launches that
+form, counted under its own name (ka_diag_fast, ...), and on the CPU
+takes its plain version, the strict plain version's load and epilogue
+around ops/fast_tile.py's emulation of the fast transform. Every arm of
+it gives the FUSEKB=half arm's bits, as in strict float32.
 
 The per-transform pipeline, the counterpart of pallas_fft.rfft2,
 inverse_pair and irfft2, is three kernels: ka, the x-stage of any mode
@@ -71,6 +73,8 @@ parallel/fused_overlap.py too); the plain versions never touch it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -85,7 +89,9 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "ka_diag_fast": 0, "kb_pair_fast": 0, "kb_adv_half_fast": 0,
             "kx_visc_fast": 0, "ka_sw_fast": 0, "ky_all_fast": 0,
             "kx_fwd_fast": 0, "kx_fwd_fast_f32": 0, "kx_fwd_bf16": 0,
-            "sw_combine_bf16": 0, "sw_combine_mv_bf16": 0}
+            "sw_combine_bf16": 0, "sw_combine_mv_bf16": 0,
+            "ka6_fast": 0, "kb_adv_tracer_fast": 0, "ky_adv_fast": 0,
+            "kb_adv_full_fast": 0, "kx_visc_tail_fast": 0}
 
 # the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
 FUSEKB_MODES = ("", "half", "full")
@@ -386,19 +392,32 @@ def ky_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
     return f.real.contiguous(), f.imag.contiguous()
 
 
-def ky_adv(u, zx, v, zy, src, beta: float = 0.0):
+def ky_adv_fast_plain(u, zx, v, zy, src, beta: float = 0.0):
+    """The advection, then the fast tile's real forward y-DFT, rows
+    k <= ny/2 written transposed."""
+    from .fast_tile import fast_dft
+    adv = advection(u, zx, v, zy, src, beta)
+    fr, fi = fast_dft(adv, torch.zeros_like(adv), -1)
+    hny = adv.shape[0] // 2 + 1
+    return fr[:hny].t().contiguous(), fi[:hny].t().contiguous()
+
+
+def ky_adv(u, zx, v, zy, src, beta: float = 0.0, fast: bool = False):
     """-u*zx - v*(zy + beta) + src on y-major (ny, nx) fields, real
-    forward y-DFT, rows k <= ny/2 -> (nx, hny) planes. Counterpart of
-    the first kernel of pallas_fft.forward_tendency_yfirst."""
+    forward y-DFT, rows k <= ny/2 -> (nx, hny) planes; `fast`: on the
+    fast column tile. Counterpart of the first kernel of
+    pallas_fft.forward_tendency_yfirst."""
     ny, nx = u.shape
     _check("ky_adv", (ny, nx), u, zx, v, zy, src)
     if _takes_plain("ky_adv", u, ny):
-        return ky_adv_plain(u, zx, v, zy, src, beta)
+        return (ky_adv_fast_plain if fast else ky_adv_plain)(
+            u, zx, v, zy, src, beta)
     from ._build import lib
     hny = ny // 2 + 1
     outr = torch.empty((nx, hny), dtype=torch.float32, device=u.device)
     outi = torch.empty_like(outr)
-    _launch("ky_adv", lib().xfb_ky_adv,
+    name = "ky_adv_fast" if fast else "ky_adv"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(u, zx, v, zy, src, _twiddles(ny, u.device), outr, outi),
             ny, nx, float(beta), *_xtile_args(ny, nx, 4), u.device.index,
             _stream(u))
@@ -471,20 +490,25 @@ def _tail_planes(tail):
     return [tuple(planes[k:k + 2]) for k in range(0, 8, 2)], float(c)
 
 
-def kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, nu: float, tail):
+def kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, nu: float, tail,
+                       fast: bool = False):
+    """kx_visc's plain version (`fast`: its fast form's), then the RK4
+    tail as rk4_combine's plain version rounds it."""
     from .fused_sw import plane_rk4_combine_plain
     (z0, r1, r2, r3), c = _tail_planes(tail)
-    r4 = kx_visc_plain(fr, fi, lap, mask, zsr, zsi, nu)
+    r4 = (kx_visc_fast_plain if fast else kx_visc_plain)(
+        fr, fi, lap, mask, zsr, zsi, nu)
     return plane_rk4_combine_plain(z0, r1, r2, r3, r4, c)
 
 
-def kx_visc_tail(fr, fi, lap, mask, zsr, zsi, nu: float, tail):
+def kx_visc_tail(fr, fi, lap, mask, zsr, zsi, nu: float, tail,
+                 fast: bool = False):
     """kx_visc with the RK4 tail in its epilogue: the stage-4 tendency
     r = mask * (F + nu*lap*Zs) stays in the kernel, which writes only
     z0 + (r1 + 2 r2 + 2 r3 + r) * c, in rk4_combine's grouping, for
-    tail=(z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, c) -> (nr, ni). Shapes
-    as kx_visc's. Counterpart of pallas_fft.forward_tail(tail=...)
-    (_kx_visc_tail_kernel)."""
+    tail=(z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, c) -> (nr, ni); `fast`:
+    on the fast column tile. Shapes as kx_visc's. Counterpart of
+    pallas_fft.forward_tail(tail=...) (_kx_visc_tail_kernel)."""
     shape = tuple(fr.shape)
     if len(shape) not in (2, 3):
         raise ValueError(f"kx_visc_tail: expected (nx, hny) or (F, nx, "
@@ -498,11 +522,13 @@ def kx_visc_tail(fr, fi, lap, mask, zsr, zsi, nu: float, tail):
         raise ValueError("kx_visc_tail: mask and planes on different "
                          "devices")
     if _takes_plain("kx_visc_tail", fr, nx):
-        return kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, nu, tail)
+        return kx_visc_tail_plain(fr, fi, lap, mask, zsr, zsi, nu, tail,
+                                  fast)
     from ._build import lib
     nr = torch.empty(shape, dtype=torch.float32, device=fr.device)
     ni = torch.empty_like(nr)
-    _launch("kx_visc_tail", lib().xfb_kx_visc_tail,
+    name = "kx_visc_tail_fast" if fast else "kx_visc_tail"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(fr, fi, lap, mask, zsr, zsi,
                    *(p for pair in pairs for p in pair),
                    _twiddles(nx, fr.device), nr, ni),
@@ -568,14 +594,18 @@ def kb_adv_half_plain(zx, zy, wr, wi, src, beta: float = 0.0):
 
 
 def kb_adv_half_fast_plain(zx, zy, wr, wi, src, beta: float = 0.0):
-    """kb_pair_fast_plain's u, v, the advection, and the fast tile's real
-    forward y-DFT, rows k <= ny/2 written transposed."""
-    from .fast_tile import fast_dft
+    """kb_pair_fast_plain's u, v, then ky_adv_fast_plain."""
     u, v = kb_pair_fast_plain(wr, wi, 2, 3, _kb_adv_scale(wr))
-    adv = advection(u, zx, v, zy, src, beta)
-    fr, fi = fast_dft(adv, torch.zeros_like(adv), -1)
-    hny = adv.shape[0] // 2 + 1
-    return fr[:hny].t().contiguous(), fi[:hny].t().contiguous()
+    return ky_adv_fast_plain(u, zx, v, zy, src, beta)
+
+
+def kb_adv_full_fast_plain(wr, wi, src, beta: float = 0.0):
+    """kb_pair_fast_plain's zeta_x, zeta_y and u, v, then
+    ky_adv_fast_plain."""
+    scale = _kb_adv_scale(wr)
+    zx, zy = kb_pair_fast_plain(wr, wi, 0, 1, scale)
+    u, v = kb_pair_fast_plain(wr, wi, 2, 3, scale)
+    return ky_adv_fast_plain(u, zx, v, zy, src, beta)
 
 
 def _kb_adv_check(name, wr, wi, *fields):
@@ -591,22 +621,24 @@ def _kb_adv_check(name, wr, wi, *fields):
     return ny, nx
 
 
-def kb_adv_full(wr, wi, src, beta: float = 0.0):
+def kb_adv_full(wr, wi, src, beta: float = 0.0, fast: bool = False):
     """Both paired c2r y-stages of ka_diag's (4, hny, nx) stack (zeta_x,
     zeta_y from fields 0, 1; u, v from 2, 3; scaled by 1/(nx*ny)), then
     -u*zx - v*(zy + beta) + src with the y-major (ny, nx) src, real
     forward y-DFT, rows k <= ny/2 -> (nx, hny) planes; the four physical
     fields never reach memory. kb_pair x2 + ky_adv in one kernel, with
-    their bits. Counterpart of pallas_fft.kb_adv_full
-    (_kb_adv_full_kernel)."""
+    their bits; `fast`: on the fast column tile. Counterpart of
+    pallas_fft.kb_adv_full (_kb_adv_full_kernel)."""
     ny, nx = _kb_adv_check("kb_adv_full", wr, wi, src)
     if _takes_plain("kb_adv_full", wr, ny):
-        return kb_adv_full_plain(wr, wi, src, beta)
+        return (kb_adv_full_fast_plain if fast else kb_adv_full_plain)(
+            wr, wi, src, beta)
     from ._build import lib
     outr = torch.empty((nx, ny // 2 + 1), dtype=torch.float32,
                        device=wr.device)
     outi = torch.empty_like(outr)
-    _launch("kb_adv_full", lib().xfb_kb_adv_full,
+    name = "kb_adv_full_fast" if fast else "kb_adv_full"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(wr, wi, src, _twiddles(ny, wr.device), outr, outi), ny,
             nx, _kb_adv_scale(wr), float(beta), *_xtile_args(ny, nx, 4),
             wr.device.index, _stream(wr))
@@ -844,18 +876,21 @@ def irfft2(spec: torch.Tensor, grid_shape) -> torch.Tensor:
 # ------------------------------------------------------- stage composites
 
 def derivative_quad_planes(zr, zi, kx, ky, rlap, ymajor: bool = True,
-                           quad_mode: str = "grid"):
+                           quad_mode: str = "grid", fast: bool = False):
     """(zeta_x, zeta_y, u, v) from the spectral state planes, y-major
-    (ny, nx) with `ymajor` (ka_diag + two kb_pair), else x-major (nx, ny)
-    (the x-stage + two kb_stacked). quad_mode "grid" takes ka_diag for
-    the x-stage; "quad" one ka_quad, "split" two, both x-major only.
-    Counterpart of pallas_fft.derivative_quad_planes with QUAD_MODE =
-    quad_mode."""
+    (ny, nx) with `ymajor` (ka_diag + two kb_pair; `fast`: their fast
+    forms), else x-major (nx, ny) (the x-stage + two kb_stacked).
+    quad_mode "grid" takes ka_diag for the x-stage; "quad" one ka_quad,
+    "split" two, both x-major only. Counterpart of
+    pallas_fft.derivative_quad_planes with QUAD_MODE = quad_mode."""
     if quad_mode not in QUAD_MODES:
         raise ValueError(f"unknown quad_mode {quad_mode!r}, not one of "
                          f"{QUAD_MODES}")
     if ymajor and quad_mode != "grid":
         raise NotImplementedError("ymajor requires quad_mode='grid'")
+    if fast and not ymajor:
+        raise ValueError("fast mode's derivative planes are y-major (the "
+                         "x-first order: ROADMAP.md queue A, item 4.4)")
     nx, hny = zr.shape
     scale = 1.0 / (nx * 2 * (hny - 1))
     if quad_mode == "split":
@@ -863,9 +898,9 @@ def derivative_quad_planes(zr, zi, kx, ky, rlap, ymajor: bool = True,
                             scale)
         u, v = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 2, 2), 0, 1, scale)
         return zx, zy, u, v
-    wr, wi = (ka_diag(zr, zi, rlap, kx, ky) if quad_mode == "grid"
+    wr, wi = (ka_diag(zr, zi, rlap, kx, ky, fast=fast) if quad_mode == "grid"
               else ka_quad(zr, zi, rlap, kx, ky))
-    pair = kb_pair if ymajor else kb_stacked
+    pair = functools.partial(kb_pair, fast=fast) if ymajor else kb_stacked
     zx, zy = pair(wr, wi, 0, 1, scale)
     u, v = pair(wr, wi, 2, 3, scale)
     return zx, zy, u, v
@@ -883,37 +918,38 @@ def forward_tail(fr, fi, lap, mask, zr, zi, nu: float, axpy=None,
                  tail=None, fusekx: bool = True, fast: bool = False):
     """The y-first forward x-stage with its epilogue, from the forward
     y-stage planes (nx, hny): with `fusekx` one kx_visc (axpy=(z0r, z0i,
-    coef): also the next stage state; `fast`: its fast form), or with
+    coef): also the next stage state), or with
     tail=(z0r, z0i, r1r, r1i, r2r, r2i, r3r, r3i, c) one kx_visc_tail
     returning the stepped state; without `fusekx`, kx_fwd on the one
-    field and a visc pass. Counterpart of pallas_fft.forward_tail with
+    field and a visc pass; `fast`: each transform on the fast column
+    tile (kx_visc_fast, kx_visc_tail_fast, kx_fwd_fast_f32), every
+    epilogue unchanged. Counterpart of pallas_fft.forward_tail with
     fusekx_on() = fusekx."""
-    if fast and (tail is not None or not fusekx):
-        raise ValueError("fast mode's forward tail is kx_visc alone (the "
-                         "tail and the unfused forms: ROADMAP.md queue A, "
-                         "item 4)")
     if tail is not None:
         if not fusekx:      # as pallas_fft.forward_tail (:1723)
             raise ValueError("tail fusion requires the fused kx_visc "
                              "(fusekx)")
         if axpy is not None:
             raise ValueError("give axpy or tail, not both")
-        return kx_visc_tail(fr, fi, lap, mask, zr, zi, nu, tail)
+        return kx_visc_tail(fr, fi, lap, mask, zr, zi, nu, tail, fast=fast)
     if fusekx:
         return kx_visc(fr, fi, lap, mask, zr, zi, nu, axpy, fast=fast)
     from .fused_sw import kx_fwd
-    gr, gi = kx_fwd(fr[None], fi[None])
+    gr, gi = kx_fwd(fr[None], fi[None], fast=fast)
     return visc(gr[0], gi[0], lap, mask, zr, zi, nu, axpy)
 
 
 def forward_tendency_yfirst(u, zx, v, zy, src, lap, mask, zr, zi,
                             nu: float, beta: float = 0.0, axpy=None,
-                            tail=None, fusekx: bool = True):
+                            tail=None, fusekx: bool = True,
+                            fast: bool = False):
     """dealias(rfft2(-u*zx - v*(zy+beta) + src) + nu*lap*Z) as (re, im)
-    planes from y-major fields: ky_adv + forward_tail (axpy, tail and
-    fusekx as there). Counterpart of pallas_fft.forward_tendency_yfirst."""
-    fr, fi = ky_adv(u, zx, v, zy, src, beta)
-    return forward_tail(fr, fi, lap, mask, zr, zi, nu, axpy, tail, fusekx)
+    planes from y-major fields: ky_adv + forward_tail (axpy, tail,
+    fusekx and fast as there). Counterpart of
+    pallas_fft.forward_tendency_yfirst."""
+    fr, fi = ky_adv(u, zx, v, zy, src, beta, fast=fast)
+    return forward_tail(fr, fi, lap, mask, zr, zi, nu, axpy, tail, fusekx,
+                        fast)
 
 
 def tendency_yfirst_fusedkb(sr, si, src, kx, ky, rlap, lap, mask,
@@ -924,16 +960,12 @@ def tendency_yfirst_fusedkb(sr, si, src, kx, ky, rlap, lap, mask,
     ka_diag, then kb_adv_full ("full"), or kb_pair of (zeta_x, zeta_y)
     and kb_adv_half ("half"), then forward_tail (axpy, tail and fusekx as
     there); `src` y-major (ny, nx). The same values as
-    derivative_quad_planes + forward_tendency_yfirst. `fast` (mode "half"
-    and kx_visc only): every kernel on the fast column tile, the JAX
-    package's fast mode. Counterpart of
-    pallas_fft.tendency_yfirst_fusedkb."""
-    if fast and mode != "half":
-        raise ValueError(f"fast mode runs fusekb 'half', not {mode!r} "
-                         f"(ROADMAP.md queue A, item 4)")
+    derivative_quad_planes + forward_tendency_yfirst. `fast`: every
+    kernel on the fast column tile, the JAX package's fast mode.
+    Counterpart of pallas_fft.tendency_yfirst_fusedkb."""
     wr, wi = ka_diag(sr, si, rlap, kx, ky, fast=fast)
     if mode == "full":
-        fr, fi = kb_adv_full(wr, wi, src, beta)
+        fr, fi = kb_adv_full(wr, wi, src, beta, fast=fast)
     elif mode == "half":
         zx, zy = kb_pair(wr, wi, 0, 1, _kb_adv_scale(wr), fast=fast)
         fr, fi = kb_adv_half(zx, zy, wr, wi, src, beta, fast=fast)

@@ -138,10 +138,10 @@ class _TracerAdapter:
     kind = "tracer"
 
     def __init__(self, cfg: ModelConfig, device, kappa: float = 0.0,
-                 ic: str = "vorticity"):
+                 ic: str = "vorticity", fast: bool = False):
         self.cfg = cfg
         self.ic = ic
-        self.model = TracerModel.build(cfg, device, kappa=kappa)
+        self.model = TracerModel.build(cfg, device, kappa=kappa, fast=fast)
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -337,7 +337,12 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  yfirst: bool = True, bt_fusion: Optional[dict] = None,
                  shard_fft: str = "xla", decomp: str = "slab",
                  ensemble_amp: float = 0.05, ensemble_seed: int = 0,
-                 ensemble_width=None, sw_form: Optional[dict] = None):
+                 ensemble_width=None, sw_form: Optional[dict] = None,
+                 tracer_fast: bool = False):
+    if tracer_fast and ((ensemble and ensemble > 1) or shard):
+        raise NotImplementedError(
+            "the tracer's fast mode with an ensemble or shards is not "
+            "ported yet (ROADMAP.md queue A, item 4.6)")
     if ensemble and ensemble > 1:
         if shard:
             raise ValueError("--ensemble and --shard are mutually "
@@ -370,7 +375,8 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
     if model_kind in ("barotropic", "bt"):
         return _BarotropicAdapter(cfg, device, yfirst, **(bt_fusion or {}))
     if model_kind == "tracer":
-        return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic)
+        return _TracerAdapter(cfg, device, kappa=tracer_kappa, ic=tracer_ic,
+                              fast=tracer_fast)
     if model_kind in ("shallow-water", "sw"):
         return _ShallowWaterAdapter(cfg, device, yfirst, **(sw_form or {}))
     if model_kind in ("fd", "jacobian"):
@@ -402,7 +408,8 @@ def run(cfg: ModelConfig,
         ensemble_amp: float = 0.05,
         ensemble_seed: int = 0,
         ensemble_width=None,
-        sw_form: Optional[dict] = None) -> RunResult:
+        sw_form: Optional[dict] = None,
+        tracer_fast: bool = False) -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -421,7 +428,8 @@ def run(cfg: ModelConfig,
     and RK form, BarotropicModel.build's fused_rk, fusekb, fusekx and
     fusetail (None: the defaults). sw_form: the shallow-water plane
     stepper's fast, split and pstore (ShallowWaterModel.build's; None:
-    the defaults). shard: the barotropic family on the
+    the defaults). tracer_fast: the tracer plane stepper in fast mode
+    (TracerModel.build's fast). shard: the barotropic family on the
     sharded model (parallel/model.py) over the visible card, with
     shard_fft its transform impl ('xla', 'pallas', 'overlap') and decomp
     its decomposition ('slab', 'xpencil'). model_kind 'fd' (or
@@ -437,7 +445,8 @@ def run(cfg: ModelConfig,
                            bt_fusion=bt_fusion, shard_fft=shard_fft,
                            decomp=decomp, ensemble_amp=ensemble_amp,
                            ensemble_seed=ensemble_seed,
-                           ensemble_width=ensemble_width, sw_form=sw_form)
+                           ensemble_width=ensemble_width, sw_form=sw_form,
+                           tracer_fast=tracer_fast)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
