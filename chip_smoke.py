@@ -207,8 +207,27 @@ exits non-zero and prints no result):
    steps; every barotropic fast arm (RK4: FUSEKB "" and full,
    FUSEKX=0, FUSETAIL, unfused; ETDRK4: FUSEKB "" and full) bit for bit
    the fast half arm of its scheme after 3 steps; ms/step of each new
-   path beside its strict counterpart, in turns. The script's total
-   wall time is printed before the JSON lines.
+   path beside its strict counterpart, in turns.
+5p. Fast mode on the x-first order (phase_fast_xfirst): the CLI's
+   --fast-transforms runs with XFB_BT_YFIRST=0 (RK4 and ETDRK4: exactly
+   4 ka_diag_fast, 8 kb_fast, 4 ka_adv_fast and 4 kc_visc_fast per
+   step) and XFB_SW_YFIRST=0 (4 ka_sw_fast, 8 kb_fast, 4 ka_fwd_fast, 4
+   kc_sw_fast and the float32 sw_combine with 1 rk4_combine, or
+   sw_combine_mv, per step), QUAD_MODE quad and split through
+   BarotropicModel.build(..., fast=True) (4 or 8 ka_quad_fast); with
+   torch.fft.* and torch.matmul raising, bench.py's barotropic
+   configuration x-first in fast mode (ka_diag and quad) within rel-L2
+   1e-4 after 30 RK4 steps, 1e-3 after 200 and 1e-3 after 20 ETDRK4
+   steps of the strict x-first kernel path (quad: strict quad; above
+   1e-7) and of the y-first fast path, split bit for bit quad; the
+   SW configurations x-first in fast mode (split-linear, the float32
+   product store) within FAST_SW_BARS' 20-step RK4 and ETDRK4 bars of
+   the strict x-first kernel path and of the y-first fast path; ms/step
+   of each beside its strict x-first path, in turns; the fast forms of
+   ka_quad (quad and split), the x-major kb, ka_adv, kc_visc, ka_fwd and
+   kc_sw held to their plain versions and strict kernels as in 5o and
+   timed at n^2. The script's total wall time is printed before the
+   JSON lines.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -294,6 +313,14 @@ XFIRST_SW = ("sw-xfirst", "sw-xfirst-etdrk4")
 # the shallow-water fast paths (phase 5o): through the CLI, RK4 and
 # ETDRK4, and the fast float32 store through ShallowWaterModel.build
 FAST_SW = ("sw-fast", "sw-fast-etdrk4", "sw-fast-f32")
+# the x-first order's fast paths (phase 5p): barotropic and SW through the
+# CLI, RK4 and ETDRK4 (XFB_BT_YFIRST=0 / XFB_SW_YFIRST=0), and QUAD_MODE
+# quad and split through BarotropicModel.build
+XFIRST_FAST_CLI = ("bt-xfirst-fast", "bt-xfirst-fast-etdrk4",
+                   "sw-xfirst-fast", "sw-xfirst-fast-etdrk4")
+XFIRST_FAST_BT = ("bt-xfirst-fast", "bt-xfirst-fast-etdrk4", "bt-quad-fast",
+                  "bt-split-fast")
+XFIRST_FAST_SW = ("sw-xfirst-fast", "sw-xfirst-fast-etdrk4")
 # the barotropic fusion arms' CLI paths, by the kernel they swap in
 BT_FULL = ("bt-fusekb-full", "bt-full-tail", "bt-etdrk4-full")
 BT_FUSEKX0 = ("bt-fusekx0", "bt-unfused-fusekx0", "bt-etdrk4-fusekx0")
@@ -431,7 +458,8 @@ KERNELS = {
     # --fast-transforms run
     "ka_diag_fast": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
                      "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
-                     "ka_diag_fast", ("barotropic-fast",)),
+                     "ka_diag_fast", ("barotropic-fast", "bt-xfirst-fast",
+                                      "bt-xfirst-fast-etdrk4")),
     "kb_pair_fast": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
                      "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
                      "kb_pair_fast", ("barotropic-fast",) + FAST_SW),
@@ -474,7 +502,7 @@ KERNELS = {
     # of the stores the modes do not default to
     "ka_sw_fast": ("xlab_fftbarotropic_torch/csrc/ka_sw.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:217",
-                   "ka_sw_fast", FAST_SW),
+                   "ka_sw_fast", FAST_SW + XFIRST_FAST_SW),
     "ky_all_fast": ("xlab_fftbarotropic_torch/csrc/ky_all.cu",
                     "xlab_fftbarotropic_tpu/ops/pallas_sw.py:513",
                     "ky_all_fast", FAST_SW),
@@ -493,6 +521,29 @@ KERNELS = {
     "sw_combine_mv_bf16": ("xlab_fftbarotropic_torch/csrc/sw_combine.cu",
                            "xlab_fftbarotropic_tpu/ops/pallas_sw.py:693",
                            "sw_combine_mv_bf16", ("sw-fast-etdrk4",)),
+    # the x-first order's fast mode (rows 11, 2's x-major form, 15, 17d on
+    # the fast column tile): the CLI's runs and QUAD_MODE quad and split
+    "ka_quad_fast": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+                     "xlab_fftbarotropic_tpu/ops/pallas_fft.py:605",
+                     "ka_quad_fast", ("bt-quad-fast",)),
+    "ka_quad_split_fast": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
+                           "xlab_fftbarotropic_tpu/ops/pallas_fft.py:629",
+                           "ka_quad_fast", ("bt-split-fast",)),
+    "kb_xmajor_fast": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
+                       "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1049",
+                       "kb_fast", XFIRST_FAST_BT + XFIRST_FAST_SW),
+    "ka_adv_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1391",
+                    "ka_adv_fast", XFIRST_FAST_BT),
+    "kc_visc_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                     "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1412",
+                     "kc_visc_fast", XFIRST_FAST_BT),
+    "ka_fwd_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:450",
+                    "ka_fwd_fast", XFIRST_FAST_SW),
+    "kc_sw_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                   "xlab_fftbarotropic_tpu/ops/pallas_sw.py:581",
+                   "kc_sw_fast", XFIRST_FAST_SW),
     # the distributed path (rows 21-23): the CLI's one-shard runs and the
     # four-shard model runs
     "a2a_cols": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
@@ -593,6 +644,21 @@ PER_STEP = {
     "sw-pstore-bf16": {"ka_sw": 4, "kb_pair": 8, "ky_all": 4,
                        "kx_fwd_bf16": 4, "sw_combine_bf16": 4,
                        "rk4_combine": 1},
+    # the x-first order's fast mode: torch stage updates (barotropic),
+    # the float32 product store and combines (shallow water)
+    "bt-xfirst-fast": {"ka_diag_fast": 4, "kb_fast": 8, "ka_adv_fast": 4,
+                       "kc_visc_fast": 4},
+    "bt-xfirst-fast-etdrk4": {"ka_diag_fast": 4, "kb_fast": 8,
+                              "ka_adv_fast": 4, "kc_visc_fast": 4},
+    "bt-quad-fast": {"ka_quad_fast": 4, "kb_fast": 8, "ka_adv_fast": 4,
+                     "kc_visc_fast": 4},
+    "bt-split-fast": {"ka_quad_fast": 8, "kb_fast": 8, "ka_adv_fast": 4,
+                      "kc_visc_fast": 4},
+    "sw-xfirst-fast": {"ka_sw_fast": 4, "kb_fast": 8, "ka_fwd_fast": 4,
+                       "kc_sw_fast": 4, "sw_combine": 4, "rk4_combine": 1},
+    "sw-xfirst-fast-etdrk4": {"ka_sw_fast": 4, "kb_fast": 8,
+                              "ka_fwd_fast": 4, "kc_sw_fast": 4,
+                              "sw_combine_mv": 4},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
@@ -603,7 +669,7 @@ PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
                "sw-xfirst-etdrk4": {"ka": 1, "kc": 1},
                **{k: {"ka": 1, "kc": 1} for k in (
                    "sw-fast", "sw-fast-etdrk4", "sw-fast-f32",
-                   "sw-pstore-bf16")}}
+                   "sw-pstore-bf16") + XFIRST_FAST_SW}}
 # the sharded paths; through the CLI, the records' diagnostics add their
 # inverse transforms once per segment
 PER_STEP.update({f"shard{k}-{d}-{i}": v
@@ -629,7 +695,9 @@ CLI_FAMILIES = ("barotropic", "tracer", "shallow-water", "sw-etdrk4",
 CLI_ENV = {"barotropic-xfirst": {"XFB_BT_YFIRST": "0"},
            "sw-xfirst": {"XFB_SW_YFIRST": "0"},
            "sw-xfirst-etdrk4": {"XFB_SW_YFIRST": "0"}, **BT_ARM_ENV,
-           **BT_FAST_ENV}
+           **BT_FAST_ENV,
+           **{f: {"XFB_BT_YFIRST" if f.startswith("bt") else
+                  "XFB_SW_YFIRST": "0"} for f in XFIRST_FAST_CLI}}
 # the same arms as BarotropicModel.build arguments, in the trajectory,
 # no-library and time phases, each beside the default arm of its form
 # (BT_ARM_REF, else "kernels")
@@ -651,7 +719,7 @@ SW_MODEL_PATHS = {"sw-unfused": dict(fused_rk=False),
 # the SW fast mode through the CLI (phase 5o)
 FAST_SW_CLI = ("sw-fast", "sw-fast-etdrk4")
 SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag") + XFIRST_SW + (
-    FAST_SW_CLI)
+    FAST_SW_CLI) + XFIRST_FAST_SW
 # the SW drag path's drag (examples/09-drag-spindown)
 SW_R_DRAG = 2e-4
 # and its time step's cap: 0.9 of the 1 s RK4 viscous bound of example
@@ -1119,7 +1187,9 @@ TEMPLATE_FLAGS = {"ka_fields_kernel": ("psi_first", "fast"),
                   "kx_visc_kernel": ("fast", "bf16"),
                   "ka_sw_kernel": ("fast",), "ky_all_kernel": ("fast",),
                   "ky_adv_kernel": ("fast",),
-                  "kb_adv_tracer_kernel": ("fast",)}
+                  "kb_adv_tracer_kernel": ("fast",), "kb_kernel": ("fast",),
+                  "kc_kernel": ("fast",), "ka_adv_kernel": ("fast",),
+                  "ka_fwd_kernel": ("fast",)}
 # the fast path's bars: a fast kernel against its plain version on random
 # inputs (the plain versions form the tensor cores' measured sum,
 # ops/fast_tile.py dot16, for all but 0.01-0.1 % of the outputs, and a
@@ -1718,7 +1788,10 @@ def fast_pins(n: int, dev, seed: int) -> dict:
     against ka_diag's fast form of each state, kx_visc_tail against
     kx_visc's fast form then rk4_combine, the one-field kx_fwd's fast
     form then visc against kx_visc's fast form (with and without the
-    stage axpy), and the stacked kx_visc against one call per field."""
+    stage axpy), and the stacked kx_visc against one call per field; the
+    x-first order's: the x-major kb (kb_stacked) of each pair against
+    kb_pair's fast form transposed, split's two ka_quad calls against
+    quad's fields, and quad's fields 0-1 against ka_diag's fast form's."""
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.ops import fused_sw as fs
     from xlab_fftbarotropic_torch.ops import fused_tracer as ft
@@ -1777,6 +1850,24 @@ def fast_pins(n: int, dev, seed: int) -> dict:
            for f in range(2)]
     out["kx_visc_tracer_fast"] = ([p[f] for p in got for f in range(2)],
                                   [x[i] for i in range(4) for x in per])
+    # the x-first order's: the fast kb_stacked of each pair is the fast
+    # kb_pair's output transposed; split's two calls are quad's fields,
+    # whose first two are ka_diag's
+    w4r, w4i = planes((4, hny, n), 2, n * math.sqrt(n))
+    got, want = [], []
+    for fa, fb in ((0, 1), (2, 3)):
+        got += list(ff.kb_stacked(w4r, w4i, fa, fb, scale, fast=True))
+        want += [x.t() for x in ff.kb_pair(w4r, w4i, fa, fb, scale,
+                                           fast=True)]
+    out["kb_xmajor_fast"] = (got, want)
+    zr, zi = sr2[0], si2[0]
+    quad = ff.ka_quad(zr, zi, rlap, kx, ky, fast=True)
+    split = [torch.cat(p) for p in zip(
+        ff.ka_quad(zr, zi, rlap, kx, ky, 0, 2, fast=True),
+        ff.ka_quad(zr, zi, rlap, kx, ky, 2, 2, fast=True))]
+    diag = ff.ka_diag(zr, zi, rlap, kx, ky, fast=True)
+    out["ka_quad_split_fast"] = (split, list(quad))
+    out["ka_quad_fast"] = ([q[:2] for q in quad], [d[:2] for d in diag])
     return out
 
 
@@ -2267,6 +2358,326 @@ def phase_fast_sw(n: int, steps: int, dev, profile: bool = False) -> dict:
     return out
 
 
+# the x-first order's fast forms (rows 11, 2's x-major form, 15, 17d on
+# the fast column tile) and the strict rows they are held against
+FAST_XFIRST_KERNELS = {"ka_quad_fast": "ka_quad",
+                       "ka_quad_split_fast": "ka_quad_split",
+                       "kb_xmajor_fast": "kb_xmajor",
+                       "ka_adv_fast": "ka_adv", "kc_visc_fast": "kc_visc",
+                       "ka_fwd_fast": "ka_fwd_split", "kc_sw_fast": "kc_sw"}
+# the x-first fast paths' bars (the fast mode's, PERF.md section 2):
+# barotropic vorticity after (steps, scheme), each path against the strict
+# x-first kernel path and against the y-first fast path; the SW ones are
+# FAST_SW_BARS' 20-step bars
+FAST_XFIRST_BARS = {(30, "rk4"): 1e-4, (200, "rk4"): 1e-3,
+                    (20, "etdrk4"): 1e-3}
+
+
+def fast_xfirst_cases(n: int, cols, dev, seed: int) -> dict:
+    """name -> FastCase of the x-first order's fast forms
+    (FAST_XFIRST_KERNELS) for a length-n transform over `cols` columns
+    (None: the n x n grid's), numpy-seeded: ka_quad, quad and split's two
+    calls (the x-stage of (n, hny) planes), the x-major kb (kb_stacked of
+    fields 2, 3 of a (4, n/2 + 1, nx) stack at the stepper's size),
+    ka_adv (the x-stage of (n, ny) x-major fields), kc_visc (the y-stage
+    of (n, nx) planes, its epilogue on (nx, n/2 + 1) tables), ka_fwd
+    (u, v 3 m/s, zeta, eta_s 1e-4, split as fast mode runs it) and kc_sw
+    (the y-stages of (5, n, nx) planes). The exact inputs are small
+    integers on exact_rows with integer tables (the Hermitian stack on
+    rows 0, n/16, .., n/2, ies 0.5), as fast_cases makes them."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    cx, cy = (hny, n) if cols is None else (cols, cols)
+    planes, ints = _makers(rng, dev)
+    kx, ky, rlap, _, _ = _fast_tables(n, cols, dev, planes)
+    rows = exact_rows(n)
+    herm = np.zeros(hny, bool)
+    herm[::n // 16] = True
+    # ka_quad
+    zr, zi = planes((n, cx), 2)
+    ezr, ezi = ints((n, cx), 2, rows=rows)
+    ekx, = ints((n,), 1)
+    eky, = ints((cx,), 1)
+    erl, = ints((n, cx), 1, 1, 2)
+    erl = erl * torch.where(ints((n, cx), 1, 0, 1)[0] > 0, 1.0, -1.0)
+    tab, etab = (rlap, kx, ky), (erl, ekx, eky)
+    # the x-major kb
+    wr, wi = planes((4, hny, cy), 2, n * math.sqrt(cy))
+    ewr, ewi = ints((4, hny, cy), 2, rows=herm)
+    scale = 1.0 / (n * cy)
+    # ka_adv: x-major (n, cy) fields
+    u, zx, v, zy, src = planes((n, cy), 5)
+    eu, ev = ints((n, cy), 2, -2, 2)
+    ezx, ezy, esrc = ints((n, cy), 3, rows=rows)
+    # kc_visc: (n, cy) planes, (cy, hny) tables and stage state
+    xr, xi = planes((n, cy), 2)
+    exr, exi = ints((n, cy), 2, rows=rows)
+    lap, zsr, zsi = planes((cy, hny), 3)
+    mask = (planes((cy, hny), 1)[0] > -1.0).float()
+    elap, ezsr, ezsi = ints((cy, hny), 3, -2, 2)
+    emask, = ints((cy, hny), 1, 0, 1)
+    # ka_fwd, split on (fast mode's default)
+    fields = [a * p for a, p in zip((3.0, 3.0, 1e-4, 1e-4),
+                                    planes((n, cy), 4))]
+    fwd_args = (*fields, 2.0 ** 15, 1e-4, 9.81, True)
+    efwd_args = (*ints((n, cy), 4, rows=rows), 0.5, 1e-4, 9.81, True)
+    # kc_sw of the five stacked products' x-stages
+    gr, gi = planes((5, n, cy), 2)
+    egr, egi = ints((5, n, cy), 2, rows=rows)
+
+    def split_call(*a, fast=True):
+        return (*ff.ka_quad(*a, 0, 2, fast=fast),
+                *ff.ka_quad(*a, 2, 2, fast=fast))
+
+    def split_plain(*a):
+        return (*ff.ka_quad_fast_plain(*a, 0, 2),
+                *ff.ka_quad_fast_plain(*a, 2, 2))
+    return {
+        "ka_quad_fast": FastCase(
+            lambda: ff.ka_quad(zr, zi, *tab, fast=True),
+            lambda: ff.ka_quad_fast_plain(zr, zi, *tab),
+            lambda: ff.ka_quad(zr, zi, *tab),
+            lambda: ff.ka_quad(ezr, ezi, *etab, fast=True),
+            lambda: ff.ka_quad_fast_plain(ezr, ezi, *etab),
+            _fields_f32, (zr, zi, rlap), 4 * cx),
+        "ka_quad_split_fast": FastCase(
+            lambda: split_call(zr, zi, *tab),
+            lambda: split_plain(zr, zi, *tab),
+            lambda: split_call(zr, zi, *tab, fast=False),
+            lambda: split_call(ezr, ezi, *etab),
+            lambda: split_plain(ezr, ezi, *etab),
+            _fields_f32, (zr, zi, rlap), 4 * cx),
+        "kb_xmajor_fast": FastCase(
+            lambda: ff.kb_stacked(wr, wi, 2, 3, scale, fast=True),
+            lambda: ff.kb_fast_plain(wr[2], wi[2], wr[3], wi[3], scale),
+            lambda: ff.kb_stacked(wr, wi, 2, 3, scale),
+            lambda: ff.kb_stacked(ewr, ewi, 0, 1, scale, fast=True),
+            lambda: ff.kb_fast_plain(ewr[0], ewi[0], ewr[1], ewi[1], scale),
+            list, (wr[2:4], wi[2:4]), cy),
+        "ka_adv_fast": FastCase(
+            lambda: ff.ka_adv(u, zx, v, zy, src, 0.3, fast=True),
+            lambda: ff.ka_adv_fast_plain(u, zx, v, zy, src, 0.3),
+            lambda: ff.ka_adv(u, zx, v, zy, src, 0.3),
+            lambda: ff.ka_adv(eu, ezx, ev, ezy, esrc, fast=True),
+            lambda: ff.ka_adv_fast_plain(eu, ezx, ev, ezy, esrc),
+            list, (u, zx, v, zy, src), 0.5 * cy),
+        "kc_visc_fast": FastCase(
+            lambda: ff.kc_visc(xr, xi, lap, mask, zsr, zsi, 6.5, fast=True),
+            lambda: ff.kc_visc_fast_plain(xr, xi, lap, mask, zsr, zsi, 6.5),
+            lambda: ff.kc_visc(xr, xi, lap, mask, zsr, zsi, 6.5),
+            lambda: ff.kc_visc(exr, exi, elap, emask, ezsr, ezsi, 1.0,
+                               fast=True),
+            lambda: ff.kc_visc_fast_plain(exr, exi, elap, emask, ezsr, ezsi,
+                                          1.0),
+            list, (xr, xi, lap, mask, zsr, zsi), cy),
+        "ka_fwd_fast": FastCase(
+            lambda: fs.ka_fwd(*fwd_args, fast=True),
+            lambda: fs.ka_fwd_fast_plain(*fwd_args),
+            lambda: fs.ka_fwd(*fwd_args),
+            lambda: fs.ka_fwd(*efwd_args, fast=True),
+            lambda: fs.ka_fwd_fast_plain(*efwd_args),
+            _fields_f32, tuple(fields), 2.5 * cy),
+        "kc_sw_fast": FastCase(
+            lambda: fs.kc_sw(gr, gi, fast=True),
+            lambda: ff.kc_fast_plain(gr, gi),
+            lambda: fs.kc_sw(gr, gi),
+            lambda: fs.kc_sw(egr, egi, fast=True),
+            lambda: ff.kc_fast_plain(egr, egi),
+            _fields_f32, (gr, gi), 5 * cy),
+    }
+
+
+def fast_xfirst_library(name: str, case: FastCase, n: int):
+    """The one torch.fft call that computes an x-first fast form's
+    function on its inputs (complex64): the x-major kb's irfft of the
+    pair's half spectra, kc_sw's fft of the five planes (its rows k <=
+    n/2 and the transpose aside, as the strict row); None where no one
+    call computes it (the formed fields, the advection and products, the
+    epilogue)."""
+    if name == "kb_xmajor_fast":
+        x = torch.complex(*case.reads[:2])
+        return lambda: torch.fft.irfft(x, n=n, dim=1)
+    if name == "kc_sw_fast":
+        x = torch.complex(*case.reads[:2])
+        return lambda: torch.fft.fft(x, dim=1)
+    return None
+
+
+def phase_fast_xfirst(n: int, steps: int, dev, profile: bool = False) -> dict:
+    """Phase 5p, fast mode on the x-first order: the CLI's runs with
+    XFB_BT_YFIRST=0 / XFB_SW_YFIRST=0 and --fast-transforms (barotropic
+    and SW, RK4 and ETDRK4) and QUAD_MODE quad and split through
+    BarotropicModel.build(..., fast=True), exact launches (the SW x-first
+    fast path on the float32 product store and combines); bench.py's
+    barotropic configuration in fast mode, x-first with ka_diag and with
+    quad, with torch.fft.* and torch.matmul raising, its vorticity within
+    FAST_XFIRST_BARS of the strict x-first kernel path (quad: the strict
+    quad path; above FAST_FLOOR) and of the y-first fast path, split bit
+    for bit quad after 3 steps; bench.py's SW configurations (RK4 at the
+    gravity-wave bound, ETDRK4 at 7.5 s) x-first in fast mode, zeta and
+    eta within FAST_SW_BARS' 20-step bars of the strict x-first kernel
+    path and of the y-first fast path; ms/step of each fast path beside
+    its strict x-first one, in turns; each fast form of
+    FAST_XFIRST_KERNELS against its plain version (bit for bit on exact
+    inputs, FAST_TOL on random ones) and its strict kernel (FAST_CLASS)
+    at FAST_SHAPES, timed at n^2 beside its bound, its plain version,
+    its strict form and one torch call where there is one; with
+    `profile` the barotropic and SW x-first fast paths' breakdowns
+    (profile_run)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+
+    t_phase = time.perf_counter()
+    out = {"checks": {}, "kernels": {}, "main_paths": {}}
+    for family in XFIRST_FAST_CLI:
+        out["main_paths"][family] = phase_main_path(family, n, steps)
+    for path in ("bt-quad-fast", "bt-split-fast"):
+        out["main_paths"][path] = phase_model_path(path, n, steps)
+    # bench.py's barotropic configuration (dt 3 s) and its SW ones (the
+    # balanced weak vortex; RK4 at the gravity-wave bound, ETDRK4 at 7.5 s)
+    cfg = ModelConfig(nx=n, ny=n)
+    ecfg = cfg.replace(time_scheme="etdrk4")
+    scfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
+    secfg = scfg.replace(time_scheme="etdrk4", dt=SW_ETD_DT)
+    bt, sw = BarotropicModel.build, ShallowWaterModel.build
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        os.environ["XFB_ETD_CACHE"] = tmp    # built once, then loaded
+        xf = bt(cfg, dev, yfirst=False, fast=True)
+        t = xf.tables
+        models = {
+            "bt-xfirst-fast": xf, "bt-xfirst": bt(cfg, dev, t, yfirst=False),
+            "bt-yfirst-fast": bt(cfg, dev, t, fast=True),
+            "bt-quad-fast": bt(cfg, dev, t, quad_mode="quad", fast=True),
+            "bt-quad": bt(cfg, dev, t, quad_mode="quad"),
+            "bt-split-fast": bt(cfg, dev, t, quad_mode="split", fast=True),
+            "bt-xfirst-fast-etdrk4": bt(ecfg, dev, t, yfirst=False,
+                                        fast=True),
+            "bt-xfirst-etdrk4": bt(ecfg, dev, t, yfirst=False),
+            "bt-yfirst-fast-etdrk4": bt(ecfg, dev, t, fast=True),
+            "bt-quad-fast-etdrk4": bt(ecfg, dev, t, quad_mode="quad",
+                                      fast=True),
+            "bt-quad-etdrk4": bt(ecfg, dev, t, quad_mode="quad"),
+            "sw-xfirst-fast": sw(scfg, dev, t, yfirst=False, fast=True),
+            "sw-xfirst": sw(scfg, dev, t, yfirst=False),
+            "sw-yfirst-fast": sw(scfg, dev, t, fast=True),
+            "sw-xfirst-fast-etdrk4": sw(secfg, dev, t, yfirst=False,
+                                        fast=True),
+            "sw-xfirst-etdrk4": sw(secfg, dev, t, yfirst=False),
+            "sw-yfirst-fast-etdrk4": sw(secfg, dev, t, fast=True)}
+        os.environ["XFB_ETD_CACHE"] = "0"
+    check(all(m.fast for k, m in models.items() if "fast" in k)
+          and not any(m.yfirst for k, m in models.items()
+                      if "xfirst" in k or "quad" in k or "split" in k),
+          "x-first fast models' selection")
+    for k in ("sw-xfirst-fast", "sw-xfirst-fast-etdrk4"):
+        m = models[k]
+        check(m.split and m.pstore == "f32", f"{k}: split-linear on, the "
+                                             f"float32 product store")
+    bs0 = xf.init_state(makefields.gaussian(cfg))
+    ss0 = models["sw-xfirst-fast"].geostrophic_init(
+        makefields.gaussian(scfg, zeta0=1e-5))
+    s0 = {k: ss0 if k.startswith("sw") else bs0 for k in models}
+    src = xf.zero_source()
+    for k in ("bt-xfirst-fast", "bt-quad-fast", "bt-xfirst-fast-etdrk4",
+              "sw-xfirst-fast", "sw-xfirst-fast-etdrk4"):
+        with _refusing_library():
+            z = models[k].segment(s0[k], src, 2)
+            torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(torch.view_as_real(x)).all())
+                  for x in (z if isinstance(z, tuple) else (z,))),
+              f"{k} state not finite")
+        log(f"no library transform: 2 steps of the {k} path at {n}^2 ran "
+            f"with torch.fft.* and torch.matmul raising")
+
+    def vort_rel(a, b, k_steps):
+        x = models[a].diags(models[a].segment(bs0, src, k_steps)).vort
+        y = models[b].diags(models[b].segment(bs0, src, k_steps)).vort
+        check(bool(torch.isfinite(x).all()), f"{a} vort not finite")
+        return rel_l2(x, y)
+
+    for (k_steps, scheme), bar in FAST_XFIRST_BARS.items():
+        etd = "-etdrk4" if scheme == "etdrk4" else ""
+        for a, b in ((f"bt-xfirst-fast{etd}", f"bt-xfirst{etd}"),
+                     (f"bt-xfirst-fast{etd}", f"bt-yfirst-fast{etd}"),
+                     (f"bt-quad-fast{etd}", f"bt-quad{etd}")):
+            rel = vort_rel(a, b, k_steps)
+            log(f"fast x-first trajectory: {a} vs {b}, {k_steps} steps at "
+                f"{n}^2, rel-L2 of vort {rel:.3e} (bar {bar:g})")
+            # the floor holds fast mode off strict; two fast paths may
+            # share most of their rounding (the bf16 DFT-16 matrix)
+            floor = 0.0 if "fast" in b else FAST_FLOOR
+            check(floor < rel <= bar, f"{a} vs {b} after {k_steps} "
+                                      f"steps: rel-L2 {rel:.3e}")
+            out[f"{a}_vs_{b}_{k_steps}_steps"] = rel
+    same = bool(torch.equal(models["bt-split-fast"].segment(bs0, src, 3),
+                            models["bt-quad-fast"].segment(bs0, src, 3)))
+    log(f"fast split vs quad, 3 steps at {n}^2: bit for bit {same}")
+    check(same, "fast split differs from fast quad")
+    out["split_vs_quad_bit_identical"] = same
+    for scheme in ("rk4", "etdrk4"):
+        etd = "-etdrk4" if scheme == "etdrk4" else ""
+        bz, be = FAST_SW_BARS[(20, scheme)]
+        a = sw_fields_of(models[f"sw-xfirst-fast{etd}"].segment(ss0, src,
+                                                                20), n)
+        for ref in (f"sw-xfirst{etd}", f"sw-yfirst-fast{etd}"):
+            b = sw_fields_of(models[ref].segment(ss0, src, 20), n)
+            e = {f: rel_l2(a[f], b[f]) for f in a}
+            log(f"fast x-first SW trajectory: sw-xfirst-fast{etd} vs {ref}, "
+                f"20 steps at {n}^2, rel-L2 zeta {e['zeta']:.3e}, eta "
+                f"{e['eta']:.3e}, div {e['div']:.3e} (div: no bar)")
+            floor = 0.0 if "fast" in ref else FAST_FLOOR
+            for f, bar in (("zeta", bz), ("eta", be)):
+                check(bool(torch.isfinite(a[f]).all()), f"SW {f} not finite")
+                check(floor < e[f] <= bar,
+                      f"sw-xfirst-fast{etd} vs {ref}: {f} rel-L2 "
+                      f"{e[f]:.3e} outside ({floor:g}, {bar:g}]")
+            out[f"sw-xfirst-fast{etd}_vs_{ref}_20_steps"] = e
+    order = ("bt-xfirst-fast", "bt-xfirst", "bt-quad-fast", "bt-quad",
+             "bt-xfirst-fast-etdrk4", "bt-xfirst-etdrk4", "sw-xfirst-fast",
+             "sw-xfirst", "sw-xfirst-fast-etdrk4", "sw-xfirst-etdrk4")
+    times = _timed_turns({k: models[k] for k in order}, s0, src, steps)
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[f"ms_per_step_{k}"] = ms
+        log(f"time {k:22s}: {ms:.3f} ms/step "
+            f"({', '.join(f'{x:.3f}' for x in ts)}), "
+            f"{n * n / (ms * 1e-3):.4e} grid-points/s")
+    if profile:
+        out["profile"] = {k: profile_run(
+            k, lambda k=k: models[k].segment(s0[k], src, 5), 5)
+            for k in ("bt-xfirst-fast", "sw-xfirst-fast")}
+    log(f"phase 5p: paths done at {time.perf_counter() - t_phase:.1f} s")
+    shapes = [(64, None), (256, None), (n, None)] + [
+        s for s in FAST_SHAPES if s[1] is not None]
+    for size, cols in dict.fromkeys(shapes):
+        cases = fast_xfirst_cases(size, cols, dev, size + (cols or 0) + 4)
+        where = f"{size}^2" if cols is None else f"{size} x {cols}"
+        for name, case in cases.items():
+            out["checks"][f"{name} {where}"] = fast_check(name, case, where)
+            if (size, cols) != (n, None):
+                continue
+            raw = case.plain()
+            got, want = case.fields(case.kern()), case.fields(raw)
+            bound_ms, bound_by, parts = fast_bound(case, raw, size)
+            out["kernels"][name] = time_row(
+                name, case.kern, case.plain, case.strict,
+                fast_xfirst_library(name, case, size), bound_ms, bound_by,
+                size, max(float((g - w).abs().max())
+                          for g, w in zip(got, want)),
+                plain_iters=3, parts=parts)
+            out["kernels"][name]["rel_l2"] = \
+                out["checks"][f"{name} {where}"]["rel_l2_plain"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5p: {out['wall_s']:.1f} s")
+    return out
+
+
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -2634,6 +3045,14 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
         **{f: (["vort"], ["--fast-transforms"] + (
             ["--time-scheme", "etdrk4"] if "etdrk4" in f else []))
            for f in BT_FAST_ENV},
+        # the x-first order's fast mode (phase 5p)
+        "bt-xfirst-fast": (["vort"], ["--fast-transforms"]),
+        "bt-xfirst-fast-etdrk4": (["vort"], ["--fast-transforms",
+                                             "--time-scheme", "etdrk4"]),
+        "sw-xfirst-fast": (["vort", "div", "h"],
+                           sw_rk4 + ["--fast-transforms"]),
+        "sw-xfirst-fast-etdrk4": (["vort", "div", "h"],
+                                  sw_etd + ["--fast-transforms"]),
         # the sharded model on one shard: shard-<decomp>-<impl>
         **{f: (["vort"], ["--shard", "--decomp", f.split("-")[1],
                           "--shard-fft", f.split("-")[2]])
@@ -2706,7 +3125,7 @@ def phase_model_path(path: str, n: int, steps: int) -> dict:
     float32 product store and the strict SW path with the bf16 one
     (SW_MODEL_PATHS), or the barotropic
     QUAD_MODE "quad" or "split" (BarotropicModel.build(..., quad_mode=
-    ...), the gaussian IC); one segment of `steps` steps with the
+    ...), the gaussian IC; a "-fast" suffix: in fast mode); one segment of `steps` steps with the
     runner's zero forcing, the launch counters set to 0 just before it
     and read just after."""
     from xlab_fftbarotropic_torch.config import ModelConfig
@@ -2727,9 +3146,10 @@ def phase_model_path(path: str, n: int, steps: int) -> dict:
                  f".segment")
     else:
         mode = path.split("-")[1]
-        m = BarotropicModel.build(cfg, "cuda", quad_mode=mode)
+        fast = path.endswith("-fast")
+        m = BarotropicModel.build(cfg, "cuda", quad_mode=mode, fast=fast)
         s0 = m.init_state(makefields.gaussian(cfg))
-        entry = f"BarotropicModel(quad_mode={mode!r}).segment"
+        entry = f"BarotropicModel(quad_mode={mode!r}, fast={fast}).segment"
     ff.reset_launches()
     s = m.segment(s0, m.zero_source(), steps)
     torch.cuda.synchronize()
@@ -4048,6 +4468,10 @@ def main(argv=None) -> int:
                                           args.profile)
     report["kernels"].update(report["fast_arms"]["kernels"])
     report["main_paths"].update(report["fast_arms"]["main_paths"])
+    report["fast_xfirst"] = phase_fast_xfirst(args.n, args.steps, dev,
+                                              args.profile)
+    report["kernels"].update(report["fast_xfirst"]["kernels"])
+    report["main_paths"].update(report["fast_xfirst"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

@@ -3,7 +3,9 @@
 in turns, in one call: ms/step at n^2 of the barotropic, tracer and
 shallow-water plane steppers' kernel paths (the barotropic one also in
 its FUSEKB=half arm, each also under ETDRK4, the shallow-water one at
-dt 7.5 s, and each in fast mode where the checkout has it) and of the
+dt 7.5 s, and each in fast mode where the checkout has it), of the
+barotropic (also QUAD_MODE quad) and shallow-water x-first order (RK4,
+SW ETDRK4 too, and in fast mode where the checkout has it) and of the
 barotropic and shallow-water torch.fft library paths (bench.py's
 configurations, as chip_smoke.py's build_models makes them).
 
@@ -33,7 +35,10 @@ PATHS = ("barotropic", "barotropic-half", "barotropic-fast",
          "barotropic-library", "tracer", "tracer-fast", "tracer-etdrk4",
          "tracer-fast-etdrk4", "shallow-water", "shallow-water-fast",
          "shallow-water-etdrk4", "shallow-water-fast-etdrk4",
-         "shallow-water-library")
+         "shallow-water-library", "barotropic-xfirst",
+         "barotropic-xfirst-fast", "barotropic-quad", "barotropic-quad-fast",
+         "shallow-water-xfirst", "shallow-water-xfirst-fast",
+         "shallow-water-xfirst-etdrk4", "shallow-water-xfirst-fast-etdrk4")
 
 
 def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
@@ -98,6 +103,27 @@ def one_root(root: str, n: int, steps: int, rounds: int) -> dict:
             cfg.replace(dt=sw_dt), dev, fast=True), sw0, None)
         models["shallow-water-fast-etdrk4"] = (ShallowWaterModel.build(
             etd, dev, fast=True), sw0, None)
+    # the x-first order, strict and (where the checkout runs it) fast
+    xfirst = {"barotropic-xfirst": (BarotropicModel, cfg,
+                                    dict(yfirst=False), bt.init_state(v0),
+                                    zero),
+              "barotropic-quad": (BarotropicModel, cfg,
+                                  dict(quad_mode="quad"), bt.init_state(v0),
+                                  zero),
+              "shallow-water-xfirst": (ShallowWaterModel,
+                                       cfg.replace(dt=sw_dt),
+                                       dict(yfirst=False), sw0, None),
+              "shallow-water-xfirst-etdrk4": (ShallowWaterModel, etd,
+                                              dict(yfirst=False), sw0,
+                                              None)}
+    for name, (cls, c, kw, s0, src) in xfirst.items():
+        models[name] = (cls.build(c, dev, **kw), s0, src)
+        fast = name.replace("-etdrk4", "") + "-fast" + (
+            "-etdrk4" if name.endswith("etdrk4") else "")
+        try:
+            models[fast] = (cls.build(c, dev, fast=True, **kw), s0, src)
+        except (TypeError, ValueError):     # not in this checkout
+            pass
     out = {}
     for name in (p for p in PATHS if p in models):
         m, s0, src = models[name]

@@ -36,7 +36,8 @@ from pathlib import Path
 # kb_adv_kernel's FULL); every later flag is a gained one
 OWN_FLAGS = {"ka_fields_kernel": 1, "kb_pair_kernel": 0, "kb_adv_kernel": 1,
              "kx_visc_kernel": 0, "ka_sw_kernel": 0, "ky_all_kernel": 0,
-             "ky_adv_kernel": 0, "kb_adv_tracer_kernel": 0}
+             "ky_adv_kernel": 0, "kb_adv_tracer_kernel": 0, "kb_kernel": 0,
+             "kc_kernel": 0, "ka_adv_kernel": 0, "ka_fwd_kernel": 0}
 # the templates on the product type: float (the first form) or bf16
 PRODUCT_TEMPLATES = ("sw_combine_kernel", "sw_combine_mv_kernel")
 

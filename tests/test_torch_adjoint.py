@@ -32,7 +32,7 @@ from xlab_fftbarotropic_torch import adjoint as tadj
 
 CPU = "cpu"
 N = 64
-STEPS = 3
+STEPS = 2
 # the cases the gradients are held on: family, config changes, kappa
 # (drag and hyperviscosity on shallow water, all three terms on the
 # tracer family's flow)
@@ -84,16 +84,22 @@ def _jax_value_and_grad(kind, cfg, kappa, ic, src):
 
 @pytest.fixture(scope="module")
 def jax_refs():
-    """The JAX xla rollout's final fields and jax.grad of the half mean
-    square of them with respect to the IC, for every case."""
+    """case -> the JAX xla rollout's final fields and jax.grad of the
+    half mean square of them with respect to the IC, each case computed
+    once, when a test first asks for it (its JAX compile is most of a
+    case's time)."""
     out = {}
-    for name, (kind, kw, kappa) in CASES.items():
-        cfg = _cfg(**kw)
-        ic = _ic(kind, cfg)
-        src = np.zeros(cfg.grid_shape, np.float32)
-        out[name] = (ic, src) + _jax_value_and_grad(kind, cfg, kappa, ic,
-                                                    src)
-    return out
+
+    def refs(name):
+        if name not in out:
+            kind, kw, kappa = CASES[name]
+            cfg = _cfg(**kw)
+            ic = _ic(kind, cfg)
+            src = np.zeros(cfg.grid_shape, np.float32)
+            out[name] = (ic, src) + _jax_value_and_grad(kind, cfg, kappa,
+                                                        ic, src)
+        return out[name]
+    return refs
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
@@ -101,7 +107,7 @@ def jax_refs():
 def test_rollout_and_gradient_match_jax(jax_refs, case, backend):
     kind, kw, kappa = CASES[case]
     cfg = _cfg(fft_backend=backend, **kw)
-    ic, src, want_out, want_grad = jax_refs[case]
+    ic, src, want_out, want_grad = jax_refs(case)
     roll = tadj.make_rollout(cfg, STEPS, model_kind=kind,
                              tracer_kappa=kappa, device=CPU)
     with torch.no_grad():

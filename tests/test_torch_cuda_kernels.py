@@ -1114,7 +1114,9 @@ FAST_NAMES = ["ka_diag_fast", "kb_pair_fast", "kb_adv_half_fast",
               "kx_visc_fast", "ka_sw_fast", "ky_all_fast", "kx_fwd_fast",
               "kx_fwd_fast_f32", "ka6_fast", "kb_adv_tracer_fast",
               "kx_visc_tracer_fast", "ky_adv_fast", "kb_adv_full_fast",
-              "kx_visc_tail_fast", "kx_fwd_bt_fast", "kx_visc_none_fast"]
+              "kx_visc_tail_fast", "kx_fwd_bt_fast", "kx_visc_none_fast",
+              "ka_quad_fast", "ka_quad_split_fast", "kb_xmajor_fast",
+              "ka_adv_fast", "kc_visc_fast", "ka_fwd_fast", "kc_sw_fast"]
 # (transform length, columns): None the n x n grid's (chip_smoke.py
 # FAST_SHAPES); 200 and 33 columns end in ragged tiles
 FAST_SHAPES = [(64, None), (256, None), (4096, None), (256, 200),
@@ -1132,11 +1134,13 @@ def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
     really rounds to bf16, and stays in class): chip_smoke.py's
     fast_check on its fast_cases."""
     from chip_smoke import FAST_ARM_KERNELS, FAST_SW_KERNELS, fast_cases
+    from chip_smoke import FAST_XFIRST_KERNELS, fast_xfirst_cases
     from chip_smoke import fast_arm_cases, fast_check, fast_sw_cases
 
     n, cols = shape
     cases = (fast_sw_cases if name in FAST_SW_KERNELS
              else fast_arm_cases if name in FAST_ARM_KERNELS
+             else fast_xfirst_cases if name in FAST_XFIRST_KERNELS
              else fast_cases)
     fast_check(name, cases(n, cols, cuda, n)[name], f"{shape}")
 
@@ -1292,6 +1296,144 @@ def test_fast_tracer_launches_and_error_class(cuda, scheme):
         rel = float(torch.linalg.vector_norm(x - y)
                     / torch.linalg.vector_norm(y))
         assert 1e-7 < rel < 1e-3, (f, rel)
+
+
+def _poisoned(rng, shape, dev):
+    """A stack of x-stage planes (wr, clean wi, poisoned wi): the
+    imaginary parts of the self-conjugate rows 0 and ny/2 zero in clean,
+    junk in poisoned."""
+    wr, wi = _planes(rng, shape, 2, dev)
+    half = shape[-2] - 1
+    clean = wi.clone()
+    clean[..., 0, :] = 0.0
+    clean[..., half, :] = 0.0
+    poisoned = clean.clone()
+    poisoned[..., 0, :] = 10.0 * wi[..., 0, :] + 1.0
+    poisoned[..., half, :] = -7.0 * wi[..., half, :]
+    return wr, clean, poisoned
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("name", ["kb_pair", "kb", "kb_stacked",
+                                  "kb_adv_half", "kb_adv_full",
+                                  "kb_adv_tracer"])
+def test_fast_leak_guard(cuda, name, n):
+    """The fast forms of the paired c2r y-stages project the junk in the
+    imaginary parts of the self-conjugate rows 0 and ny/2 out, as the
+    strict ones do: the poisoned stack gives the clean stack's bits."""
+    rng = np.random.default_rng(n + 71)
+    fields = 6 if name == "kb_adv_tracer" else 4
+    wr, clean, poisoned = _poisoned(rng, (fields, n // 2 + 1, n), cuda)
+    zx, zy, qx, qy, src = _planes(rng, (n, n), 5, cuda)
+    scale = 1.0 / (n * n)
+    run = {
+        "kb_pair": lambda w: ff.kb_pair(wr, w, 0, 1, scale, fast=True),
+        "kb": lambda w: ff.kb(wr[2], w[2], wr[3], w[3], scale, fast=True),
+        "kb_stacked": lambda w: ff.kb_stacked(wr, w, 2, 3, scale,
+                                              fast=True),
+        "kb_adv_half": lambda w: ff.kb_adv_half(zx, zy, wr, w, src, 0.3,
+                                                fast=True),
+        "kb_adv_full": lambda w: ff.kb_adv_full(wr, w, src, 0.3, fast=True),
+        "kb_adv_tracer": lambda w: ft.kb_adv_tracer(zx, zy, qx, qy, wr, w,
+                                                    src, 0.3, fast=True),
+    }[name]
+    a, b = run(clean), run(poisoned)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the single inverse (no partner) too
+    if name == "kb":
+        a = ff.kb(wr[2], clean[2], None, None, scale, fast=True)[0]
+        b = ff.kb(wr[2], poisoned[2], None, None, scale, fast=True)[0]
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["xfirst", "quad", "split", "etdrk4",
+                                  "quad-etdrk4"])
+def test_fast_xfirst_launches_and_error_class(cuda, form):
+    """Three forced beta-plane steps of the barotropic x-first order in
+    fast mode at 256^2 launch per stage the x-stage's fast form (ka_diag,
+    or ka_quad once for quad and twice for split), 2 kb, 1 ka_adv and
+    1 kc_visc, all fast, and nothing else (the stage updates are torch);
+    the vorticity stays within rel-L2 1e-7 .. 1e-3 of the strict x-first
+    kernel path of its quad_mode and within 1e-3 of the y-first fast
+    path; split gives quad's bits."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+
+    etd = form.endswith("etdrk4")
+    quad_mode = form.split("-")[0] if form.startswith(("quad", "split")) \
+        else "grid"
+    cfg = ModelConfig(nx=256, ny=256, beta=0.0 if etd else 1e-11,
+                      time_scheme="etdrk4" if etd else "rk4")
+    kw = dict(yfirst=False, quad_mode=quad_mode)
+    fast = BarotropicModel.build(cfg, cuda, fast=True, **kw)
+    strict = BarotropicModel.build(cfg, cuda, fast.tables, **kw)
+    yfast = BarotropicModel.build(cfg, cuda, fast.tables, fast=True)
+    z = fast.init_state(makefields.gaussian(cfg))
+    src = 1e-9 * torch.randn(cfg.grid_shape, device=cuda)
+    ff.reset_launches()
+    a = fast.segment(z, src, 3)
+    torch.cuda.synchronize()
+    xstage = {"grid": {"ka_diag_fast": 12}, "quad": {"ka_quad_fast": 12},
+              "split": {"ka_quad_fast": 24}}[quad_mode]
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **xstage,
+                           "kb_fast": 24, "ka_adv_fast": 12,
+                           "kc_visc_fast": 12}
+
+    def rel(m):
+        x, y = fast.diags(a).vort, m.diags(m.segment(z, src, 3)).vort
+        return float(torch.linalg.vector_norm(x - y)
+                     / torch.linalg.vector_norm(y))
+    assert 1e-7 < rel(strict) < 1e-3
+    assert rel(yfast) < 1e-3
+    if quad_mode == "split":
+        quad = BarotropicModel.build(cfg, cuda, fast.tables, fast=True,
+                                     yfirst=False, quad_mode="quad")
+        assert torch.equal(a, quad.segment(z, src, 3))
+
+
+@pytest.mark.parametrize("scheme", ["rk4", "etdrk4"])
+def test_fast_sw_xfirst_launches_and_error_class(cuda, scheme):
+    """Three steps of shallow-water fast mode in the x-first order at
+    256^2 launch per stage 1 ka_sw, 2 kb, 1 ka_fwd and 1 kc_sw, all fast,
+    and the float32 combine of the scheme (the product store is float32,
+    as in the JAX package), and ka, kc once for the forcing spectrum;
+    zeta and eta stay within rel-L2 1e-7 .. 1e-2 of the strict x-first
+    kernel path and within 1e-2 of the y-first fast path."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel)
+
+    etd = scheme == "etdrk4"
+    cfg = ModelConfig(nx=256, ny=256, time_scheme=scheme,
+                      dt=7.5 if etd else 3.0)
+    fast = ShallowWaterModel.build(cfg, cuda, fast=True, yfirst=False)
+    strict = ShallowWaterModel.build(cfg, cuda, fast.tables, yfirst=False)
+    yfast = ShallowWaterModel.build(cfg, cuda, fast.tables, fast=True)
+    assert fast.split and fast.pstore == "f32" and yfast.pstore == "bf16"
+    s0 = fast.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    src = fast.zero_source()
+    ff.reset_launches()
+    a = fast.segment(s0, src, 3)
+    torch.cuda.synchronize()
+    comb = ({"sw_combine_mv": 12} if etd
+            else {"sw_combine": 12, "rk4_combine": 3})
+    want = {"ka_sw_fast": 12, "kb_fast": 24, "ka_fwd_fast": 12,
+            "kc_sw_fast": 12, "ka": 1, "kc": 1, **comb}
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+
+    def rel(x, y):
+        fx, fy = (torch.fft.irfft2(z, s=(256, 256)) for z in (x, y))
+        return float(torch.linalg.vector_norm(fx - fy)
+                     / torch.linalg.vector_norm(fy))
+    ref = strict.segment(s0, src, 3)
+    other = yfast.segment(s0, src, 3)
+    for x, y, w in ((a.zeta_hat, ref.zeta_hat, other.zeta_hat),
+                    (a.eta_hat, ref.eta_hat, other.eta_hat)):
+        assert 1e-7 < rel(x, y) < 1e-2
+        assert rel(x, w) < 1e-2
 
 
 @pytest.mark.parametrize("arm", [dict(fusekb=""), dict(fusekb="full"),

@@ -25,11 +25,14 @@ against the JAX package, on the CPU.
   < 1e-5, tests/test_etdrk4.py:272), a mode outside the mask frozen over
   10 steps, drag and hyperviscosity on the plane path.
 
-Each JAX interpret-mode call runs once, in a module-scoped fixture.
+Each JAX interpret-mode call runs once, in one of two module-scoped
+fixtures: the combines' (jax_etd) and the plane steps' (jax_steps, each
+step under jax.jit: one trace and compile of its kernels).
 """
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,8 +108,7 @@ def _balanced_planes(cfg):
 
 @pytest.fixture(scope="module")
 def jax_etd():
-    """Every JAX interpret-mode call the tests hold the port against,
-    once: the stage-matvec combines and one plane step in both forms."""
+    """The stage-matvec combines' JAX interpret-mode calls, once."""
     jt = JT.from_config(CFG)
     jtabs = jetd.build_tables(CFG, DT)
     planes = _random_planes(0)
@@ -131,15 +133,23 @@ def jax_etd():
         out["mv", emit, scale, with_src] = (
             None if tend is None else tuple(np.asarray(x) for x in tend),
             tuple(np.asarray(x) for x in stage))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """One JAX plane step (interpret mode) in both forms from the
+    balanced state, each under jax.jit."""
+    jt = JT.from_config(CFG)
+    jtabs = jetd.build_tables(CFG, DT)
     bal = _balanced_planes(CFG)
     jb = tuple(jnp.asarray(p) for p in bal)
-    ebal = psw.eta_pair_scale(jb)
-    out["bal"], out["bal_es"] = bal, float(ebal)
+    ebal = float(psw.eta_pair_scale(jb))
+    out = {"bal": bal, "bal_es": ebal}
     for fuse in (True, False):
-        out["step", fuse] = tuple(np.asarray(x) for x in
-                                  jetd.etdrk4_step_planes(
-                                      jt, jtabs, jb, None, CFG.grid_shape,
-                                      ebal, fuse=fuse))
+        step = jax.jit(lambda p, fuse=fuse: jetd.etdrk4_step_planes(
+            jt, jtabs, p, None, CFG.grid_shape, ebal, fuse=fuse))
+        out["step", fuse] = tuple(np.asarray(x) for x in step(jb))
     return out
 
 
@@ -269,11 +279,11 @@ def test_sw_combine_mv_wrapper_checks_and_counts_nothing(port):
 # ----------------------------------------------------------- one step
 
 @pytest.mark.parametrize("fuse", [True, False])
-def test_one_plane_step_matches_jax(jax_etd, port, fuse):
+def test_one_plane_step_matches_jax(jax_steps, port, fuse):
     tt, tabs = port
-    got = tetd.etdrk4_step_planes(tt, tabs, tuple(_t(*jax_etd["bal"])),
-                                  None, jax_etd["bal_es"], fuse=fuse)
-    err = _state_rel_l2(jax_etd["step", fuse], [x.numpy() for x in got])
+    got = tetd.etdrk4_step_planes(tt, tabs, tuple(_t(*jax_steps["bal"])),
+                                  None, jax_steps["bal_es"], fuse=fuse)
+    err = _state_rel_l2(jax_steps["step", fuse], [x.numpy() for x in got])
     print(f"one plane step, fuse={fuse}: whole-state rel-L2 {err:.3e}")
     assert err < 1e-5
 

@@ -306,9 +306,18 @@ def test_fast_model_selects_the_half_arm_and_counts_nothing_on_the_cpu():
 @pytest.mark.parametrize("kw", [dict(yfirst=False), dict(quad_mode="quad")],
                          ids=str)
 def test_fast_model_refuses_what_waits(kw):
-    """The x-first order (item 4.4) waits."""
-    with pytest.raises(ValueError, match=ITEM):
-        tbt.BarotropicModel.build(CFG, CPU, fast=True, **kw)
+    """The x-first order and QUAD_MODE quad, which waited for item 4.4,
+    now build in fast mode and step once on the x-first fast forms (their
+    plain versions on the CPU), apart from the strict x-first run."""
+    m = tbt.BarotropicModel.build(CFG, CPU, fast=True, **kw)
+    assert m.fast and not m.yfirst
+    assert "fast: " in tbt.fusion_arm(fast=True, yfirst=m.yfirst,
+                                      quad_mode=m.quad_mode)
+    z = m.init_state(makefields.gaussian(CFG))
+    a = m.segment(z, m.zero_source(), 1)
+    assert bool(torch.isfinite(m.diags(a).vort).all())
+    strict = tbt.BarotropicModel.build(CFG, CPU, **kw)
+    assert not torch.equal(a, strict.segment(z, m.zero_source(), 1))
 
 
 ARM_CFG = CFG.replace(beta=1e-11)
@@ -464,8 +473,24 @@ def test_cli_fast_mode_runs_every_arm(tmp_path, monkeypatch, capsys, extra,
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_cli_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
                                           extra, env):
+    """What waits stops with the item named; the x-first order of either
+    family (XFB_BT_YFIRST=0, -m sw XFB_SW_YFIRST=0), which waited for item
+    4.4, now runs, with the fast banner and the x-first kernels named."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "0" in (env.get("XFB_BT_YFIRST"), env.get("XFB_SW_YFIRST")):
+        sw = "XFB_SW_YFIRST" in env
+        assert _run_cli(tmp_path, *extra, *(["--dt", "1"] if sw else [])) \
+            == 0
+        err = capsys.readouterr().err
+        assert "# fast transforms: bf16 tensor-core sub-DFTs" in err
+        assert "Transform order       : x-first" in err
+        assert ("SW formulation        : fast" if sw else
+                "Fusion arm            : fast: ka_diag, kb x2, ka_adv, "
+                "kc_visc, torch stage updates") in err
+        assert (tmp_path / "out" / "vort_step_0.bin").stat().st_size \
+            == N * N * 4
+        return
     with pytest.raises(SystemExit) as e:
         _run_cli(tmp_path, *extra)
     assert e.value.code == 2

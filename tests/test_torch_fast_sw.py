@@ -221,27 +221,36 @@ def _port_segment(cfg, v0, steps, **kw):
 
 @pytest.fixture(scope="module")
 def jax_segments():
-    """Each package's strict and fast run of both schemes (the gaussian
-    vortex, balanced, zero forcing), once; the strict RK4 runs with the
-    split-linear formulation (the JAX package's SPLIT_LINEAR="1", the
-    port's split=True), which strict float32 takes at round-off (one
-    JAX compile fewer: each takes seconds in interpret mode)."""
+    """scheme -> each package's strict and fast run of that scheme (the
+    gaussian vortex, balanced, zero forcing), computed once, when a test
+    first asks for the scheme (its four JAX compiles are most of the
+    time); the strict RK4 runs with the split-linear formulation (the
+    JAX package's SPLIT_LINEAR="1", the port's split=True), which strict
+    float32 takes at round-off (one JAX compile fewer: each takes
+    seconds in interpret mode), beside the port's RK4 run without it."""
     v0 = makefields.gaussian(CFG)
     out = {}
-    for cfg, steps in ((CFG, RK4_STEPS), (ETD, ETD_STEPS)):
-        scheme = cfg.time_scheme
+
+    def segments(scheme):
+        if scheme in out:
+            return out[scheme]
+        cfg, steps = (CFG, RK4_STEPS) if scheme == "rk4" else (ETD,
+                                                              ETD_STEPS)
         split = scheme == "rk4"
+        runs = {}
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(psw, "SPLIT_LINEAR", "1" if split else "auto")
-            out["jax", scheme, False] = _jax_segment(cfg, v0, steps)
+            runs["jax", False] = _jax_segment(cfg, v0, steps)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(pf, "MM_MODE", "bf16")
-            out["jax", scheme, True] = _jax_segment(cfg, v0, steps)
-        out["port", scheme, False] = _port_segment(cfg, v0, steps,
-                                                   split=split)
-        out["port", scheme, True] = _port_segment(cfg, v0, steps, fast=True)
-    out["port-no-split"] = _port_segment(CFG, v0, RK4_STEPS)
-    return out
+            runs["jax", True] = _jax_segment(cfg, v0, steps)
+        runs["port", False] = _port_segment(cfg, v0, steps, split=split)
+        runs["port", True] = _port_segment(cfg, v0, steps, fast=True)
+        if split:
+            runs["port-no-split"] = _port_segment(cfg, v0, steps)
+        out[scheme] = runs
+        return runs
+    return segments
 
 
 @pytest.mark.parametrize("scheme", ["rk4", "etdrk4"])
@@ -253,11 +262,10 @@ def test_fast_segment_error_matches_the_jax_fast_mode(jax_segments,
     of 5 of the JAX package's fast run against its strict one, and above
     1e-7 (fast is not quietly strict)."""
     monkeypatch.setenv("XFB_ETD_CACHE", str(tmp_path))
+    runs = jax_segments(scheme)
     for i, name in ((0, "zeta"), (2, "eta")):
-        jax = _rel(jax_segments["jax", scheme, True][i],
-                   jax_segments["jax", scheme, False][i])
-        port = _rel(jax_segments["port", scheme, True][i],
-                    jax_segments["port", scheme, False][i])
+        jax = _rel(runs["jax", True][i], runs["jax", False][i])
+        port = _rel(runs["port", True][i], runs["port", False][i])
         assert port > 1e-7, (name, port)
         assert 1.0 / FACTOR < port / jax < FACTOR, (name, port, jax)
 
@@ -308,9 +316,10 @@ def test_strict_split_matches_the_jax_split_linear_formulation(
     """Strict float32 with split=True tracks split=False and the JAX
     package's SPLIT_LINEAR="1" run at float32 round-off over 3 steps
     (tests/test_pallas_sw.py:208): a reformulation, not a new scheme."""
-    split = jax_segments["port", "rk4", False]
-    plain = jax_segments["port-no-split"]
-    jax = jax_segments["jax", "rk4", False]
+    runs = jax_segments("rk4")
+    split = runs["port", False]
+    plain = runs["port-no-split"]
+    jax = runs["jax", False]
     for i in (0, 2):
         scale = np.abs(plain[i]).max()
         assert np.abs(split[i] - plain[i]).max() / scale < 1e-5, i
@@ -369,14 +378,24 @@ def test_converters_carry_a_jax_state_into_the_fast_run():
 @pytest.mark.parametrize("kw", [dict(yfirst=False), dict(r_drag=2e-4),
                                 dict(nu4=1e-10)], ids=str)
 def test_fast_model_refuses_what_waits(kw):
-    """The x-first order (item 4.4) and RK4 with drag or hyperviscosity
-    (the per-transform kernels, item 4.5)."""
+    """RK4 with drag or hyperviscosity (the per-transform kernels, item
+    4.5) waits; the x-first order, which waited for item 4.4, now runs:
+    one step, fast, split-linear, the float32 product store."""
     kw = dict(kw)
     yfirst = kw.pop("yfirst", True)
+    if not yfirst:
+        m = _port_model(CFG, fast=True, yfirst=False)
+        assert (m.fast, m.yfirst, m.split, m.pstore) == (True, False, True,
+                                                         "f32")
+        s = m.segment(m.geostrophic_init(makefields.gaussian(CFG)),
+                      m.zero_source(), 1)
+        assert all(bool(torch.isfinite(torch.view_as_real(z)).all())
+                   for z in s)
+        return
     with pytest.raises(ValueError, match=ITEM):
         _port_model(CFG.replace(**kw), fast=True, yfirst=yfirst)
-    if kw:      # ETDRK4 carries drag and nu4 in its tables: fast runs
-        assert _port_model(ETD.replace(**kw), fast=True).fast
+    # ETDRK4 carries drag and nu4 in its tables: fast runs
+    assert _port_model(ETD.replace(**kw), fast=True).fast
 
 
 def _run_cli(tmp_path, *extra):
@@ -435,8 +454,20 @@ def test_cli_runs_sw_fast_mode_and_prints_its_banner(tmp_path, monkeypatch,
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_cli_sw_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
                                              extra, env):
+    """What waits stops with the item named; XFB_SW_YFIRST=0 (item 4.4)
+    now runs, with the x-first banner and the float32 product store."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if env.get("XFB_SW_YFIRST") == "0":
+        monkeypatch.setenv("XFB_ETD_CACHE", "0")
+        assert _run_cli(tmp_path, *extra) == 0
+        err = capsys.readouterr().err
+        assert "in ka_sw, kb, ka_fwd and kc_sw (the x-first order)" in err
+        assert "Transform order       : x-first" in err
+        assert "SW formulation        : fast" in err
+        assert "product store" not in err
+        assert (tmp_path / "out" / "h_step_0.bin").stat().st_size == N * N * 4
+        return
     with pytest.raises(SystemExit) as e:
         _run_cli(tmp_path, *extra)
     assert e.value.code == 2

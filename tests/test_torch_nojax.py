@@ -26,6 +26,9 @@ _SCRIPT = """
 import sys
 import numpy as np
 import torch
+# one intra-op thread: the 64^2 work is many small ops, and a test
+# worker's subprocess shares the cores with the other workers
+torch.set_num_threads(1)
 import xlab_fftbarotropic_torch
 from xlab_fftbarotropic_torch import adjoint, config, convert, runner
 from xlab_fftbarotropic_torch.cli import assimilate, run

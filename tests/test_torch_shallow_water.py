@@ -102,16 +102,23 @@ def test_max_stable_dt_is_the_jax_bound(kw):
 
 
 @pytest.fixture(scope="module")
-def jax_runs():
+def jax_segments():
     """The JAX SW model on both of its backends: a 20-step segment from
-    the balanced gaussian vortex, and one forced plane step and one
-    library step from a random state."""
+    the balanced gaussian vortex."""
     out = {}
     vort = makefields.gaussian(_cfg())
     for backend in ("pallas", "xla"):
         m = jsw.ShallowWaterModel.build(_cfg(fft_backend=backend))
-        out["seg", backend] = _np_state(
+        out[backend] = _np_state(
             m.segment(m.geostrophic_init(vort), m.zero_source(), STEPS))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """One forced plane step and one library step of the JAX SW model
+    from a random state."""
+    out = {}
     cfg = _cfg()
     jt = JT.from_config(cfg)
     s = _random_state(2)
@@ -132,7 +139,7 @@ def jax_runs():
 
 @pytest.mark.parametrize("backend", ["pallas", "xla"])
 @pytest.mark.parametrize("jax_backend", ["pallas", "xla"])
-def test_segment_matches_jax(jax_runs, backend, jax_backend):
+def test_segment_matches_jax(jax_segments, backend, jax_backend):
     """20 steps of each port path against each JAX path, from the
     balanced vortex the runner starts from."""
     cfg = _cfg(fft_backend=backend)
@@ -140,7 +147,7 @@ def test_segment_matches_jax(jax_runs, backend, jax_backend):
     assert m.backend == backend
     got = m.segment(m.geostrophic_init(makefields.gaussian(cfg)),
                     m.zero_source(), STEPS)
-    assert max(_phys_err(jax_runs["seg", jax_backend], got,
+    assert max(_phys_err(jax_segments[jax_backend], got,
                          cfg.grid_shape)) < 2e-4
 
 

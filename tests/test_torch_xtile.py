@@ -58,7 +58,9 @@ for lane, its A, B and D fragments placed by the PTX ISA's m16n8k16
 layouts, on NaN-started tiles whose every slot must be written once and
 none past the tile; bit for bit ops/fast_tile.py's fast_dft and the fast
 plain versions of ka_diag, kb_pair, kb_adv_half and kx_visc on
-non-square grids with ragged last tiles.
+non-square grids with ragged last tiles, and of the x-first order's
+ka_quad, x-major kb, ka_adv, kc (its transposed half store, under
+kc_visc's epilogue and over kc_sw's stack) and ka_fwd.
 
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
@@ -1179,13 +1181,14 @@ def _product_load(p: int, u, v, zeta, eta_s, ies: float, f0: float,
 
 
 def emulate_ka_fwd(fields, ies: float, f0: float, grav: float,
-                   split: bool):
+                   split: bool, fast: bool = False):
     """ka_fwd_kernel on the x-major (nx, ny) u, v, zeta, eta_s: the five
-    products, product fastest, the forward transform: (5, ny, nx)."""
+    products, product fastest, the forward transform: (5, ny, nx).
+    `fast`: ka_fwd_kernel<true>."""
     nx, ny = fields[0].shape
     loads = [_product_load(p, *fields, ies, f0, grav, split)
              for p in range(5)]
-    return _emulate_stack(loads, nx, ny, True)
+    return _emulate_stack(loads, nx, ny, True, fast=fast)
 
 
 def _sw_inputs(n):
@@ -1291,13 +1294,13 @@ def emulate_ky_all(fields, ies: float, f0: float, grav: float,
     return _emulate_stack(loads, ny, nx, True, half=True)
 
 
-def emulate_ka_adv(u, zx, v, zy, src, beta: float):
+def emulate_ka_adv(u, zx, v, zy, src, beta: float, fast: bool = False):
     """ka_adv_kernel on the x-major (nx, ny) fields: the advection
     (xfb::advection's rounding), the forward transform along x and the
-    full transposed store: (ny, nx)."""
+    full transposed store: (ny, nx). `fast`: ka_adv_kernel<true>."""
     nx, ny = u.shape
     return _emulate_stack([_advection_load(u, zx, v, zy, src, beta)], nx,
-                          ny, True)[0]
+                          ny, True, fast=fast)[0]
 
 
 # (transform length, columns): columns cut to two whole tiles and a ragged
@@ -1647,3 +1650,101 @@ def test_fast_sw_entries_agree_with_the_kernel_source():
     assert "__float2bfloat16_rn(v.x)" in body and "j >= m" in body
     assert "__nv_bfloat162" not in body
     assert "__bfloat162float" in _source("sw_combine.cu")
+
+
+# ----- the x-first order on the fast tile: rows 11, 2 (x-major), 15, 17d
+# (ka_fields_kernel<true, true>, kb_kernel<true>, ka_adv_kernel<true>,
+# kc_kernel<true>, ka_fwd_kernel<true>) -----
+
+@pytest.mark.parametrize("shape", FAST_SHAPES, ids=str)
+def test_emulated_fast_xfirst_kernels_are_their_plain_versions(shape):
+    """The x-first order's kernels on the fast tile, emulated lane for
+    lane on non-square grids whose last tile is ragged, every output
+    starting NaN and written exactly once (emulate, _emulate_stack): their
+    fast plain versions' bits. ka_quad (the psi-first fields, quad and
+    split's two calls); the x-major kb (the Hermitian load, the
+    transposed full store, Re and Im scaled; paired and single, junk in
+    the self-conjugate rows' imaginary parts changing no bit); ka_adv
+    (beta 1.6); kc's transposed half store (k <= n/2, rank 0's k = n/2
+    write) under kc_visc's epilogue and stacked over kc_sw's five planes;
+    ka_fwd (split, as fast mode runs it)."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    n, cols = shape
+    rng = np.random.default_rng(n + cols + 5)
+    # ka_quad on (n, cols) planes: quad, and split's two calls
+    sr, si = _float_planes(rng, (1, n, cols), 2)
+    kx, = _float_planes(rng, (n,), 1)
+    ky, = _float_planes(rng, (cols,), 1)
+    rlap = -1.0 / (1.0 + _float_planes(rng, (n, cols), 1)[0] ** 2)
+    tab = (rlap, kx, ky)
+    got = emulate_fields(sr, si, *tab, 0, 4, True, fast=True)
+    assert torch.equal(got, torch.complex(*ff.ka_quad(sr[0], si[0], *tab,
+                                                      fast=True)))
+    for first in (0, 2):
+        got = emulate_fields(sr, si, *tab, first, 2, True, fast=True)
+        want = ff.ka_quad(sr[0], si[0], *tab, first, 2, fast=True)
+        assert torch.equal(got, torch.complex(*want))
+    # the x-major kb on a (n/2 + 1, cols) pair, and a single inverse
+    w = [cols * n ** 0.5 * t for t in _float_planes(rng,
+                                                    (n // 2 + 1, cols), 4)]
+    scale = 1.0 / (n * cols)
+    for part in (w, w[:2] + [None, None]):
+        z = emulate(_hermitian(*part), n, cols, False, transposed=True,
+                    fast=True)
+        a, b = _scaled(z, scale)
+        want = ff.kb(*part, scale, fast=True)
+        assert torch.equal(a, want[0])
+        if part[2] is not None:
+            assert torch.equal(b, want[1])
+    dirty = list(w)
+    dirty[1], dirty[3] = w[1].clone(), w[3].clone()
+    dirty[1][0], dirty[3][n // 2] = 10.0, -7.0
+    assert torch.equal(emulate(_hermitian(*dirty), n, cols, False,
+                               transposed=True, fast=True),
+                       emulate(_hermitian(*w), n, cols, False,
+                               transposed=True, fast=True))
+    # ka_adv: the x-major (n, cols) fields, forward along x
+    u, zx, v, zy, src = _float_planes(rng, (n, cols), 5)
+    got = emulate_ka_adv(u, zx, v, zy, src, 1.6, fast=True)
+    want = ff.ka_adv(u, zx, v, zy, src, 1.6, fast=True)
+    assert torch.equal(got, torch.complex(*want))
+    # kc's half store on y-major (n, cols) planes, under kc_visc's
+    # epilogue, and over kc_sw's stack of five
+    xr, xi = _float_planes(rng, (n, cols), 2)
+    got = _emulate_stack([_dense(torch.complex(xr, xi))], n, cols, True,
+                         half=True, fast=True)[0]
+    assert got.shape == (cols, n // 2 + 1)
+    lap, mask, zr, zi = _float_planes(rng, (cols, n // 2 + 1), 4)
+    want = ff.kc_visc(xr, xi, lap, mask, zr, zi, 6.5, fast=True)
+    visc = ff.visc_plain(got.real, got.imag, lap, mask, zr, zi, 6.5)
+    assert torch.equal(visc[0], want[0]) and torch.equal(visc[1], want[1])
+    gr, gi = _float_planes(rng, (5, n, cols), 2)
+    got = _emulate_stack([_dense(torch.complex(gr[f], gi[f]))
+                          for f in range(5)], n, cols, True, half=True,
+                         fast=True)
+    assert torch.equal(got, torch.complex(*fs.kc_sw(gr, gi, fast=True)))
+    # ka_fwd: the five products of x-major (n, cols) fields
+    fields = [a * p for a, p in zip((3.0, 3.0, 1e-4, 1e-4),
+                                    _float_planes(rng, (n, cols), 4))]
+    got = emulate_ka_fwd(fields, 2.0 ** 15, 1e-4, 9.81, True, fast=True)
+    want = fs.ka_fwd(*fields, 2.0 ** 15, 1e-4, 9.81, True, fast=True)
+    assert torch.equal(got, torch.complex(*want))
+
+
+def test_fast_xfirst_entries_agree_with_the_kernel_source():
+    """The x-first order's fast entries exist with the plan's arguments
+    and their ctypes signatures, each an instance of its strict form's
+    kernel with FAST set (kc_sw and kc_visc one kernel, kc_kernel<true>)."""
+    for name, entry, kernel in (
+            ("ka_diag.cu", "xfb_ka_quad_fast", "launch<true, true>"),
+            ("kb_pair.cu", "xfb_kb_fast", "launch_kb<true>"),
+            ("ka_kc.cu", "xfb_ka_adv_fast", "launch_ka_adv<true>"),
+            ("ka_kc.cu", "xfb_kc_visc_fast", "launch_kc<true>"),
+            ("ka_kc.cu", "xfb_ka_fwd_fast", "launch_ka_fwd<true>"),
+            ("ka_kc.cu", "xfb_kc_sw_fast", "launch_kc<true>")):
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                        _source(name))
+        assert "int tile_c, int cluster_k" in " ".join(sig.group(1).split())
+        assert entry in _build.SIGNATURES
+        assert kernel in _body(_source(name), rf'extern "C" int {entry}\(')

@@ -39,19 +39,22 @@ etdrk4): XFB_BT_FUSEKB=auto resolves to half, and the y-first plane
 stepper runs every fusion arm the XFB_BT_* switches pick with the
 sub-DFTs of its FFT kernels (ka_diag, kb_pair, ky_adv, kb_adv_half,
 kb_adv_full, kx_visc, kx_visc_tail, kx_fwd) as bf16 tensor-core
-products (BarotropicModel.build(..., fast=True)). Tracer (-m tracer, RK4
-or --time-scheme etdrk4): ka6, kb_pair, kb_adv_tracer and kx_visc on the
-fast tile (TracerModel.build(..., fast=True)). Shallow water (-m sw, RK4 or
---time-scheme etdrk4): the y-first plane stepper runs ka_sw, kb_pair,
-ky_all and kx_fwd on the fast tile (ShallowWaterModel.build(...,
-fast=True)), and XFB_SW_SPLIT=auto and XFB_SW_PSTORE=auto resolve to
-the split-linear formulation and the bf16 product store; the CLI reads
-XFB_SW_SPLIT (auto, or 0, off or empty: off; anything else on) and
-XFB_SW_PSTORE (auto, bf16 or bfloat16; anything else f32) as
-pallas_sw.py does, in strict mode too. --fft-backend xla keeps the
-float32 library path. -m fd, --shard, --ensemble, XFB_BT_YFIRST=0,
-XFB_SW_YFIRST=0 and shallow-water RK4 with --r-drag or --nu4 stop with
-an error naming ROADMAP.md queue A, item 4.
+products (BarotropicModel.build(..., fast=True)); with XFB_BT_YFIRST=0
+the x-first one runs ka_diag, kb, ka_adv and kc_visc so. Tracer (-m
+tracer, RK4 or --time-scheme etdrk4): ka6, kb_pair, kb_adv_tracer and
+kx_visc on the fast tile (TracerModel.build(..., fast=True)). Shallow
+water (-m sw, RK4 or --time-scheme etdrk4): the y-first plane stepper
+runs ka_sw, kb_pair, ky_all and kx_fwd on the fast tile
+(ShallowWaterModel.build(..., fast=True)), with XFB_SW_YFIRST=0 the
+x-first one ka_sw, kb, ka_fwd and kc_sw, and XFB_SW_SPLIT=auto and
+XFB_SW_PSTORE=auto resolve to the split-linear formulation and the bf16
+product store (the y-first kx_fwd's: the x-first kc_sw stores float32,
+as in the JAX package); the CLI reads XFB_SW_SPLIT (auto, or 0, off or
+empty: off; anything else on) and XFB_SW_PSTORE (auto, bf16 or
+bfloat16; anything else f32) as pallas_sw.py does, in strict mode too.
+--fft-backend xla keeps the float32 library path. -m fd, --shard,
+--ensemble and shallow-water RK4 with --r-drag or --nu4 stop with an
+error naming ROADMAP.md queue A, item 4.
 """
 
 from __future__ import annotations
@@ -80,21 +83,29 @@ TRACER_FAST_BANNER = (
     "fast tile; zeta and q are held apart (q's tendency is about 1e4 "
     "smaller): 30-step rel-L2 zeta 3.2e-5, q 2.9e-5 at 4096^2 on an H100")
 # and its shallow-water note: the JAX CLI's, with the port's kernels and
-# its figures on an H100 (chip_smoke.py phase 5o: bench.py's SW
-# configuration at 4096^2, 20 RK4 steps at dt 0.847 s, against the
-# strict kernel path)
+# its figures on an H100 in each transform order (chip_smoke.py phases 5o
+# and 5p: bench.py's SW configuration at 4096^2, 20 RK4 steps at dt
+# 0.847 s, against the strict kernel path of the same order; the x-first
+# order's kc_sw stores float32, as the JAX package's x-first branch does)
+SW_FAST_NOTE = (
+    "# NOTE: shallow-water fast mode runs the split-linear formulation "
+    "(XFB_SW_SPLIT=auto): the f0/gravity balance terms stay exact "
+    "float32, only the nonlinear fluxes ride the bf16 transforms. "
+    "Measured at 4096^2/20 steps on an H100: {} ms/step (strict float32 "
+    "{}), zeta rel-L2 {}, eta {} against the strict kernels. The "
+    "recorded div field is noise-dominated RELATIVE to a balanced flow's "
+    "near-zero divergence: use the float32 default if div itself is the "
+    "diagnostic of interest.")
 SW_FAST_BANNER = (
     "# fast transforms: bf16 tensor-core sub-DFTs (mma.sync m16n8k16, "
     "float32 accumulate) in ka_sw, kb_pair, ky_all and kx_fwd, the "
     "product spectra stored in bf16 (XFB_SW_PSTORE=auto)\n"
-    "# NOTE: shallow-water fast mode runs the split-linear formulation "
-    "(XFB_SW_SPLIT=auto): the f0/gravity balance terms stay exact "
-    "float32, only the nonlinear fluxes ride the bf16 transforms. "
-    "Measured at 4096^2/20 steps on an H100: 13.63 ms/step (strict "
-    "float32 12.45), zeta rel-L2 7.5e-5, eta 4.5e-4 against the strict "
-    "kernels. The recorded div field is noise-dominated RELATIVE to a "
-    "balanced flow's near-zero divergence: use the float32 default if "
-    "div itself is the diagnostic of interest.")
+    + SW_FAST_NOTE.format("13.63", "12.45", "7.5e-5", "4.5e-4"))
+SW_XFIRST_FAST_BANNER = (
+    "# fast transforms: bf16 tensor-core sub-DFTs (mma.sync m16n8k16, "
+    "float32 accumulate) in ka_sw, kb, ka_fwd and kc_sw (the x-first "
+    "order), the product spectra stored in float32\n"
+    + SW_FAST_NOTE.format("16.35", "13.64", "7.4e-5", "4.5e-4"))
 
 
 def sw_form_from_env(fast: bool = False) -> dict:
@@ -236,11 +247,15 @@ def main(argv=None):
     p.add_argument("--fast-transforms", action="store_true",
                    help="the barotropic, tracer and shallow-water plane "
                         "steppers' sub-DFTs as bf16 tensor-core products, "
-                        "float32 accumulate (the JAX package's fast mode; "
+                        "float32 accumulate (the JAX package's fast mode), "
+                        "in both transform orders (XFB_BT_YFIRST=0 / "
+                        "XFB_SW_YFIRST=0: the x-first one); "
                         "XFB_BT_FUSEKB=auto resolves to half; shallow "
-                        "water: split-linear, bf16 product store). Not "
-                        "with -m fd, --shard, --ensemble or the x-first "
-                        "order (ROADMAP.md queue A, item 4)")
+                        "water: split-linear, and the bf16 product store "
+                        "on the y-first order (the x-first one stores "
+                        "float32). Not with -m fd, --shard, --ensemble or "
+                        "shallow-water RK4 with --r-drag/--nu4 (ROADMAP.md "
+                        "queue A, item 4)")
     args = p.parse_args(argv)
 
     fd = args.model in ("fd", "jacobian")
@@ -253,7 +268,7 @@ def main(argv=None):
         if what:
             p.error(f"--fast-transforms with {what} is not ported yet: "
                     f"fast mode runs the barotropic, tracer and "
-                    f"shallow-water y-first plane steppers")
+                    f"shallow-water plane steppers")
     if args.ensemble > 1 and (args.shard or fd):
         p.error(f"--ensemble does not combine with "
                 f"{'--shard' if args.shard else '-m ' + args.model}: "
@@ -318,7 +333,7 @@ def main(argv=None):
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
     if sw and args.fast_transforms and backend == "pallas":
-        why = sw_fast_refusal(yfirst, per_transform(member_cfg, backend))
+        why = sw_fast_refusal(per_transform(member_cfg, backend))
         if why:
             p.error(f"--fast-transforms: {why}")
     recipe, src_path = "empty", None
@@ -328,7 +343,8 @@ def main(argv=None):
         recipe, src_path = "fifo", args.fifo
 
     if args.fast_transforms:
-        print((SW_FAST_BANNER if sw else FAST_BANNER) if backend == "pallas"
+        sw_banner = SW_FAST_BANNER if yfirst else SW_XFIRST_FAST_BANNER
+        print((sw_banner if sw else FAST_BANNER) if backend == "pallas"
               else "# fast transforms: --fft-backend xla keeps the torch.fft "
                    "library path in float32, as the JAX package's XLA path",
               file=sys.stderr)
@@ -389,8 +405,9 @@ def main(argv=None):
         if backend == "pallas" and args.model != "tracer":
             print(f"Transform order       : {'y' if yfirst else 'x'}-first",
                   file=sys.stderr)
-        if backend == "pallas" and bt_fusion is not None and yfirst:
-            arm = fusion_arm(etd=cfg.time_scheme == "etdrk4", **bt_fusion)
+        if backend == "pallas" and bt_fusion is not None:
+            arm = fusion_arm(etd=cfg.time_scheme == "etdrk4", yfirst=yfirst,
+                             **bt_fusion)
             print(f"Fusion arm            : {arm}", file=sys.stderr)
         if backend == "pallas" and sw_form is not None:
             fast = sw_form["fast"]

@@ -44,7 +44,9 @@
 // tile (xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
 // products, the JAX package's --fast-transforms), for the barotropic and
 // tracer fast modes: ka_fields_kernel<false, true> at F = 4 and F = 6,
-// the same load, plan and store.
+// the same load, plan and store; xfb_ka_quad_fast is ka_quad there
+// (ka_fields_kernel<true, true>), the x-first order's QUAD_MODE quad and
+// split in fast mode.
 #include "xtile.cuh"
 
 namespace {
@@ -174,4 +176,17 @@ extern "C" int xfb_ka6_fast(const float* sr2, const float* si2,
   return launch<false, true>(6, sr2, si2, rlap, kx, ky, tw, wr, wi, n, hny,
                              0, tile_c, cluster_k, threads, smem, device,
                              stream);
+}
+
+// ka_quad on the fast column tile: arguments as xfb_ka_quad's
+extern "C" int xfb_ka_quad_fast(const float* zr, const float* zi,
+                                const float* rlap, const float* kx,
+                                const float* ky, const void* tw, float* wr,
+                                float* wi, int n, int hny, int first,
+                                int count, int tile_c, int cluster_k,
+                                int threads, int smem, int device,
+                                void* stream) {
+  return launch<true, true>(count, zr, zi, rlap, kx, ky, tw, wr, wi, n, hny,
+                            first, tile_c, cluster_k, threads, smem, device,
+                            stream);
 }

@@ -54,6 +54,15 @@
 // as (tile, product), product fastest, so the five clusters of a tile
 // run together and all but the first to read a plane's columns find
 // them in L2; each reads only the planes its product needs.
+//
+// The x-first order's fast mode (the JAX package's --fast-transforms)
+// runs ka_adv, kc_visc, ka_fwd and kc_sw on the fast column tile
+// (xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
+// products, float32 accumulate): ka_adv_kernel<true>, ka_fwd_kernel<true>
+// and kc_kernel<true> (xfb_ka_adv_fast, xfb_ka_fwd_fast, xfb_kc_visc_fast,
+// xfb_kc_sw_fast), loads, stores and epilogues unchanged. kc_kernel<true>
+// is the first fast form of the transposed half store (k <= n/2, rank
+// 0's k = n/2); the per-transform ka and kc keep their strict forms.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -101,6 +110,7 @@ __global__ void __launch_bounds__(512, 2)
 // cluster tile: columns j0 .. j0 + C of the x-major (nx, ny) fields;
 // block r of it forms rows r + k jj of the tile (zero imaginary parts),
 // consecutive lanes on consecutive columns
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ka_adv_kernel(const float* __restrict__ u, const float* __restrict__ zx,
                   const float* __restrict__ v, const float* __restrict__ zy,
@@ -120,12 +130,13 @@ __global__ void __launch_bounds__(512, 2)
   __syncthreads();
   xt::RowOut o = out;
   o.j0 = j0;
-  xt::finish_transposed<-1>(t, tw, false, o);
+  xt::finish_transposed<-1, FAST>(t, tw, false, o);
 }
 
 // cluster (tile, p) of product p = cluster mod 5: columns j0 .. j0 + C of
 // the x-major (nx, ny) fields; block r of it forms rows r + k jj of the
 // tile (zero imaginary parts), consecutive lanes on consecutive columns
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ka_fwd_kernel(const float* __restrict__ u, const float* __restrict__ v,
                   const float* __restrict__ zeta,
@@ -149,7 +160,7 @@ __global__ void __launch_bounds__(512, 2)
   xt::RowOut o = out;
   o.j0 = j0;
   o.plane = static_cast<size_t>(p) * ny * nx;
-  xt::finish_transposed<-1>(t, tw, false, o);
+  xt::finish_transposed<-1, FAST>(t, tw, false, o);
 }
 
 // The store of kc's output k of tile column c (field plane `plane` of
@@ -181,6 +192,7 @@ struct KcOut {
 
 // cluster (tile, f): columns j0 .. j0 + C of field f; block r of it loads
 // rows r + k jj of the tile, consecutive lanes on consecutive columns
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     kc_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
               const float2* __restrict__ tw, KcOut out, int ny, int k,
@@ -211,7 +223,7 @@ __global__ void __launch_bounds__(512, 2)
   KcOut o = out;
   o.plane = static_cast<size_t>(blockIdx.y) * nx * out.hny;
   o.j0 = j0;
-  xt::finish_transposed<-1>(t, tw, true, o);
+  xt::finish_transposed<-1, FAST>(t, tw, true, o);
 }
 
 template <int SIGN>
@@ -231,6 +243,7 @@ int launch_ka(const float* xr, const float* xi, const void* tw, float* yr,
       xfb::xtile::log2i(tile_c)));
 }
 
+template <bool FAST>
 int launch_kc(const float* xr, const float* xi, const void* tw, KcOut out,
               int nfields, int ny, int tile_c, int cluster_k, int threads,
               int smem, int device, void* stream) {
@@ -239,10 +252,46 @@ int launch_kc(const float* xr, const float* xi, const void* tw, KcOut out,
   }
   const int tiles = (out.nx + tile_c - 1) / tile_c;
   return static_cast<int>(xfb::xtile::launch(
-      kc_kernel, tiles, nfields, cluster_k, threads, smem, device,
+      kc_kernel<FAST>, tiles, nfields, cluster_k, threads, smem, device,
       static_cast<cudaStream_t>(stream), xr, xi,
       static_cast<const float2*>(tw), out, ny, cluster_k,
       xfb::xtile::log2i(tile_c)));
+}
+
+template <bool FAST>
+int launch_ka_adv(const float* u, const float* zx, const float* v,
+                  const float* zy, const float* src, const void* tw,
+                  float* yr, float* yi, int nx, int ny, float beta,
+                  int tile_c, int cluster_k, int threads, int smem,
+                  int device, void* stream) {
+  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (ny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_adv_kernel<FAST>, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), u, zx, v, zy, src,
+      static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
+      xfb::xtile::log2i(tile_c), beta));
+}
+
+template <bool FAST>
+int launch_ka_fwd(const float* u, const float* v, const float* zeta,
+                  const float* eta_s, const void* tw, float* yr, float* yi,
+                  int nx, int ny, float ies, float f0, float grav, int split,
+                  int tile_c, int cluster_k, int threads, int smem,
+                  int device, void* stream) {
+  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (ny + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      ka_fwd_kernel<FAST>, tiles * xfb::kSwProducts, 1, cluster_k, threads,
+      smem, device, static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
+      static_cast<const float2*>(tw),
+      xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
+      xfb::xtile::log2i(tile_c), ies, f0, grav, split));
 }
 
 }  // namespace
@@ -265,10 +314,11 @@ extern "C" int xfb_kc(const float* xr, const float* xi, const void* tw,
                       float* yr, float* yi, int ny, int nx, int tile_c,
                       int cluster_k, int threads, int smem, int device,
                       void* stream) {
-  return launch_kc(xr, xi, tw,
-                   KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi, 0, 0,
-                         nx, ny / 2 + 1, 0.f},
-                   1, ny, tile_c, cluster_k, threads, smem, device, stream);
+  return launch_kc<false>(xr, xi, tw,
+                          KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi,
+                                0, 0, nx, ny / 2 + 1, 0.f},
+                          1, ny, tile_c, cluster_k, threads, smem, device,
+                          stream);
 }
 
 // xr, xi: (nfields, ny, nx) -> yr, yi: (nfields, nx, ny/2 + 1)
@@ -276,11 +326,24 @@ extern "C" int xfb_kc_sw(const float* xr, const float* xi, const void* tw,
                          float* yr, float* yi, int nfields, int ny, int nx,
                          int tile_c, int cluster_k, int threads, int smem,
                          int device, void* stream) {
-  return launch_kc(xr, xi, tw,
-                   KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi, 0, 0,
-                         nx, ny / 2 + 1, 0.f},
-                   nfields, ny, tile_c, cluster_k, threads, smem, device,
-                   stream);
+  return launch_kc<false>(xr, xi, tw,
+                          KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi,
+                                0, 0, nx, ny / 2 + 1, 0.f},
+                          nfields, ny, tile_c, cluster_k, threads, smem,
+                          device, stream);
+}
+
+// kc_sw on the fast column tile: arguments as xfb_kc_sw's
+extern "C" int xfb_kc_sw_fast(const float* xr, const float* xi,
+                              const void* tw, float* yr, float* yi,
+                              int nfields, int ny, int nx, int tile_c,
+                              int cluster_k, int threads, int smem,
+                              int device, void* stream) {
+  return launch_kc<true>(xr, xi, tw,
+                         KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi,
+                               0, 0, nx, ny / 2 + 1, 0.f},
+                         nfields, ny, tile_c, cluster_k, threads, smem,
+                         device, stream);
 }
 
 // xr, xi: (ny, nx); lap, mask, zr, zi: (nx, ny/2 + 1) -> yr, yi: the same
@@ -290,10 +353,26 @@ extern "C" int xfb_kc_visc(const float* xr, const float* xi,
                            float* yr, float* yi, int ny, int nx, float nu,
                            int tile_c, int cluster_k, int threads, int smem,
                            int device, void* stream) {
-  return launch_kc(xr, xi, tw,
-                   KcOut{lap, mask, zr, zi, yr, yi, 0, 0, nx, ny / 2 + 1,
-                         nu},
-                   1, ny, tile_c, cluster_k, threads, smem, device, stream);
+  return launch_kc<false>(xr, xi, tw,
+                          KcOut{lap, mask, zr, zi, yr, yi, 0, 0, nx,
+                                ny / 2 + 1, nu},
+                          1, ny, tile_c, cluster_k, threads, smem, device,
+                          stream);
+}
+
+// kc_visc on the fast column tile: arguments as xfb_kc_visc's
+extern "C" int xfb_kc_visc_fast(const float* xr, const float* xi,
+                                const float* lap, const float* mask,
+                                const float* zr, const float* zi,
+                                const void* tw, float* yr, float* yi, int ny,
+                                int nx, float nu, int tile_c, int cluster_k,
+                                int threads, int smem, int device,
+                                void* stream) {
+  return launch_kc<true>(xr, xi, tw,
+                         KcOut{lap, mask, zr, zi, yr, yi, 0, 0, nx,
+                               ny / 2 + 1, nu},
+                         1, ny, tile_c, cluster_k, threads, smem, device,
+                         stream);
 }
 
 // u, zx, v, zy, src: (nx, ny) x-major -> yr, yi: (ny, nx). tile_c,
@@ -303,16 +382,21 @@ extern "C" int xfb_ka_adv(const float* u, const float* zx, const float* v,
                           float* yr, float* yi, int nx, int ny, float beta,
                           int tile_c, int cluster_k, int threads, int smem,
                           int device, void* stream) {
-  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (ny + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      ka_adv_kernel, tiles, 1, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), u, zx, v, zy, src,
-      static_cast<const float2*>(tw),
-      xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
-      xfb::xtile::log2i(tile_c), beta));
+  return launch_ka_adv<false>(u, zx, v, zy, src, tw, yr, yi, nx, ny, beta,
+                              tile_c, cluster_k, threads, smem, device,
+                              stream);
+}
+
+// ka_adv on the fast column tile: arguments as xfb_ka_adv's
+extern "C" int xfb_ka_adv_fast(const float* u, const float* zx,
+                               const float* v, const float* zy,
+                               const float* src, const void* tw, float* yr,
+                               float* yi, int nx, int ny, float beta,
+                               int tile_c, int cluster_k, int threads,
+                               int smem, int device, void* stream) {
+  return launch_ka_adv<true>(u, zx, v, zy, src, tw, yr, yi, nx, ny, beta,
+                             tile_c, cluster_k, threads, smem, device,
+                             stream);
 }
 
 // u, v, zeta, eta_s: (nx, ny) x-major -> yr, yi: (5, ny, nx). tile_c,
@@ -322,14 +406,20 @@ extern "C" int xfb_ka_fwd(const float* u, const float* v, const float* zeta,
                           float* yi, int nx, int ny, float ies, float f0,
                           float grav, int split, int tile_c, int cluster_k,
                           int threads, int smem, int device, void* stream) {
-  if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (ny + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      ka_fwd_kernel, tiles * xfb::kSwProducts, 1, cluster_k, threads, smem,
-      device, static_cast<cudaStream_t>(stream), u, v, zeta, eta_s,
-      static_cast<const float2*>(tw),
-      xfb::xtile::RowOut{yr, yi, 0, 0, ny, nx, 1.f}, nx, cluster_k,
-      xfb::xtile::log2i(tile_c), ies, f0, grav, split));
+  return launch_ka_fwd<false>(u, v, zeta, eta_s, tw, yr, yi, nx, ny, ies, f0,
+                              grav, split, tile_c, cluster_k, threads, smem,
+                              device, stream);
+}
+
+// ka_fwd on the fast column tile: arguments as xfb_ka_fwd's
+extern "C" int xfb_ka_fwd_fast(const float* u, const float* v,
+                               const float* zeta, const float* eta_s,
+                               const void* tw, float* yr, float* yi, int nx,
+                               int ny, float ies, float f0, float grav,
+                               int split, int tile_c, int cluster_k,
+                               int threads, int smem, int device,
+                               void* stream) {
+  return launch_ka_fwd<true>(u, v, zeta, eta_s, tw, yr, yi, nx, ny, ies, f0,
+                             grav, split, tile_c, cluster_k, threads, smem,
+                             device, stream);
 }

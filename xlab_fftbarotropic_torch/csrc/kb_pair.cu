@@ -34,7 +34,9 @@
 // load and the transform, so they keep kb_pair's bits. xfb_kb_pair_fast
 // is kb_pair on the fast column tile (xtile.cuh FAST: bf16 tensor-core
 // radix-16 passes, the barotropic fast mode), load and store unchanged;
-// kb_adv_half's fast form shares its inverse.
+// kb_adv_half's fast form shares its inverse. xfb_kb_fast is kb on the
+// fast tile (kb_kernel<true>), the x-first order's fast mode, whose
+// output is kb_pair's fast form's transposed bit for bit.
 #include "xtile.cuh"
 
 namespace {
@@ -96,6 +98,7 @@ struct KbOut {
 
 // cluster tile: columns j0 .. j0 + C of the two (ny/2 + 1, nx) plane
 // pairs. wbr == NULL: a zero partner.
+template <bool FAST>
 __global__ void __launch_bounds__(512, 2)
     kb_kernel(const float* __restrict__ war, const float* __restrict__ wai,
               const float* __restrict__ wbr, const float* __restrict__ wbi,
@@ -108,7 +111,7 @@ __global__ void __launch_bounds__(512, 2)
   __syncthreads();
   KbOut o = out;
   o.j0 = j0;
-  xt::finish_transposed<+1>(t, tw, false, o);
+  xt::finish_transposed<+1, FAST>(t, tw, false, o);
 }
 
 template <bool FAST>
@@ -124,6 +127,22 @@ int launch_pair(const float* wr, const float* wi, int fa, int fb,
       kb_pair_kernel<FAST>, tiles, 1, cluster_k, threads, smem, device,
       static_cast<cudaStream_t>(stream), wr, wi, fa, fb,
       static_cast<const float2*>(tw), KbPairOut{oa, ob, 0, nx, scale}, ny,
+      cluster_k, xfb::xtile::log2i(tile_c)));
+}
+
+template <bool FAST>
+int launch_kb(const float* war, const float* wai, const float* wbr,
+              const float* wbi, const void* tw, float* oa, float* ob, int ny,
+              int nx, float scale, int tile_c, int cluster_k, int threads,
+              int smem, int device, void* stream) {
+  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (nx + tile_c - 1) / tile_c;
+  return static_cast<int>(xfb::xtile::launch(
+      kb_kernel<FAST>, tiles, 1, cluster_k, threads, smem, device,
+      static_cast<cudaStream_t>(stream), war, wai, wbr, wbi,
+      static_cast<const float2*>(tw), KbOut{oa, ob, 0, nx, ny, scale},
       cluster_k, xfb::xtile::log2i(tile_c)));
 }
 
@@ -158,13 +177,16 @@ extern "C" int xfb_kb(const float* war, const float* wai, const float* wbr,
                       const float* wbi, const void* tw, float* oa, float* ob,
                       int ny, int nx, float scale, int tile_c, int cluster_k,
                       int threads, int smem, int device, void* stream) {
-  if (!xfb::xtile::plan_ok(ny, tile_c, cluster_k, threads, smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (nx + tile_c - 1) / tile_c;
-  return static_cast<int>(xfb::xtile::launch(
-      kb_kernel, tiles, 1, cluster_k, threads, smem, device,
-      static_cast<cudaStream_t>(stream), war, wai, wbr, wbi,
-      static_cast<const float2*>(tw), KbOut{oa, ob, 0, nx, ny, scale},
-      cluster_k, xfb::xtile::log2i(tile_c)));
+  return launch_kb<false>(war, wai, wbr, wbi, tw, oa, ob, ny, nx, scale,
+                          tile_c, cluster_k, threads, smem, device, stream);
+}
+
+// kb on the fast column tile: arguments as xfb_kb's
+extern "C" int xfb_kb_fast(const float* war, const float* wai,
+                           const float* wbr, const float* wbi, const void* tw,
+                           float* oa, float* ob, int ny, int nx, float scale,
+                           int tile_c, int cluster_k, int threads, int smem,
+                           int device, void* stream) {
+  return launch_kb<true>(war, wai, wbr, wbi, tw, oa, ob, ny, nx, scale,
+                         tile_c, cluster_k, threads, smem, device, stream);
 }

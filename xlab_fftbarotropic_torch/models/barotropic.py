@@ -36,14 +36,14 @@ them there.
 
 fast=True is the JAX package's fast mode (--fast-transforms,
 pallas_fft.MM_MODE "default"), an argument of the model here, never a
-process-wide switch: the y-first plane stepper, RK4 (both forms) and
-ETDRK4, runs every fusion arm (fusekb defaults to "half", as
-pallas_fft.fusekb_mode resolves "auto" in fast mode) on the fast forms
-of its FFT kernels (ka_diag, kb_pair, ky_adv, kb_adv_half, kb_adv_full,
-kx_visc, kx_visc_tail, kx_fwd: bf16 tensor-core sub-DFTs, float32
-accumulate), with visc and rk4_combine unchanged; each arm gives the
-fast "half" arm's bits. The x-first order waits (ROADMAP.md queue A,
-item 4) and raises; the library path ("xla") stays float32 under
+process-wide switch: the plane stepper, RK4 (both forms) and ETDRK4,
+runs on the fast forms of its FFT kernels (bf16 tensor-core sub-DFTs,
+float32 accumulate), with visc and rk4_combine unchanged. y-first, in
+every fusion arm (fusekb defaults to "half", as pallas_fft.fusekb_mode
+resolves "auto" in fast mode): ka_diag, kb_pair, ky_adv, kb_adv_half,
+kb_adv_full, kx_visc, kx_visc_tail, kx_fwd, each arm giving the fast
+"half" arm's bits; x-first, in each quad_mode: ka_diag or ka_quad, kb,
+ka_adv, kc_visc. The library path ("xla") stays float32 under
 fast=True, as in the JAX package.
 
 cfg.time_scheme "etdrk4" swaps RK4 for the exponential scheme of
@@ -223,13 +223,11 @@ FAST_ITEM = "ROADMAP.md queue A, item 4"
 
 def fast_refusal(yfirst: bool = True,
                  quad_mode: str = "grid") -> Optional[str]:
-    """Why fast mode does not run this combination yet, or None: it runs
-    the y-first order (every fusion arm, RK4 and ETDRK4), not the x-first
-    order nor QUAD_MODE quad or split (item 4.4)."""
-    if not yfirst or quad_mode != "grid":
-        return (f"fast mode does not run the x-first order yet "
-                f"({FAST_ITEM}.4); it runs the barotropic y-first plane "
-                f"stepper")
+    """Why fast mode does not run this plane-stepper combination yet, or
+    None: it runs both orders (every y-first fusion arm, every x-first
+    quad_mode; RK4 and ETDRK4), so nothing here waits. What still waits
+    (the sharded model, ensembles, the adjoint: FAST_ITEM's 4.5-4.6) is
+    refused where those are built (cli/run.py, cli/assimilate.py)."""
     return None
 
 
@@ -248,8 +246,9 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
     "quad" or "split" requires it): the x-major derivative_quad_planes
     (ka_diag or ka_quad + 2 kb) and forward_tendency (ka_adv + kc_visc),
     `src_l` x-major (nx, ny), no axpy or tail, fusekb and fusekx
-    ignored (as in the JAX package). `fast`: the y-first stage on the
-    fast kernels, any arm (fast_refusal names what raises)."""
+    ignored (as in the JAX package). `fast`: the stage on the fast
+    kernels, either order, any arm or quad_mode (fast_refusal names what
+    raises)."""
     if fast:
         why = fast_refusal(yfirst, quad_mode)
         if why:
@@ -272,7 +271,7 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
             raise ValueError("the x-first tendency takes no stage axpy or "
                              "tail")
         return ff.forward_tendency(u, zx, v, zy, src_l, t.lap, t.mask, sr,
-                                   si, nu, beta)
+                                   si, nu, beta, fast)
     return d
 
 
@@ -319,9 +318,19 @@ def rk4_step_planes(t: SpectralTables, zr: torch.Tensor, zi: torch.Tensor,
 
 def fusion_arm(fused_rk: bool = True, fusekb: str = "", fusekx: bool = True,
                fusetail: bool = False, etd: bool = False,
-               fast: bool = False) -> str:
-    """The y-first plane stepper's kernels in a fusion arm, by stage part
-    (the CLI banner's line)."""
+               fast: bool = False, yfirst: bool = True,
+               quad_mode: str = "grid") -> str:
+    """The plane stepper's kernels by stage part (the CLI banner's line):
+    y-first, those of a fusion arm; x-first (yfirst False, or quad_mode
+    "quad"/"split"), those of the quad_mode, the fusion arm ignored."""
+    if not yfirst or quad_mode != "grid":
+        xstage = {"grid": "ka_diag", "quad": "ka_quad",
+                  "split": "ka_quad x2"}[quad_mode]
+        parts = [xstage, "kb x2", "ka_adv", "kc_visc"] + (
+            [] if etd else ["torch stage updates"])
+        return (("fast: " if fast else "") + ", ".join(parts)
+                + (" (bf16 tensor-core sub-DFTs in every transform, "
+                   "float32 accumulate)" if fast else ""))
     parts = [{"": "kb_pair x2 + ky_adv", "half": "kb_pair + kb_adv_half",
               "full": "kb_adv_full"}[fusekb],
              "kx_visc" if fusekx else "kx_fwd + visc"]
@@ -355,7 +364,7 @@ def etd_step_planes(t: SpectralTables, tabs, zr: torch.Tensor,
     (beta, drag and hyperviscosity live in the tables, nothing folds
     into lap), in either order and any y-first fusion arm (the JAX
     package's _eplane_step: tendency_yfirst_fusedkb with nu = 0, no
-    beta); `fast`: the y-first N on the fast kernels."""
+    beta); `fast`: N on the fast kernels, either order."""
     d = plane_tendency(t, src_l, 0.0, 0.0, yfirst, quad_mode, fusekb,
                        fusekx, fast)
     return etd.etd_scheme(lambda q: d(*q),
@@ -427,10 +436,10 @@ class BarotropicModel(nn.Module):
     (XFB_BT_FUSETAIL; RK4 with fused_rk and fusekx only) pick the
     y-first fusion arm, defaults as the JAX package's in strict float32;
     the x-first order ignores them. `fast` is the JAX package's fast mode
-    on the plane stepper, RK4 and ETDRK4, any y-first arm (fusekb None,
-    the default, then resolves to "half"; fast_refusal names the
-    combinations that raise); None resolves to "" in strict float32,
-    and on the library path fast changes nothing. On the RK4 plane
+    on the plane stepper, RK4 and ETDRK4, either order, any y-first arm
+    or quad_mode (fusekb None, the default, then resolves to "half";
+    fast_refusal names the combinations that raise); None resolves to ""
+    in strict float32, and on the library path fast changes nothing. On the RK4 plane
     stepper, drag and hyperviscosity fold into the stepping lap:
     lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX

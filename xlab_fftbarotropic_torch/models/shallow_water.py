@@ -48,19 +48,21 @@ ka_sw, 8 kb_pair, 4 ky_all, 4 kx_fwd and 4 sw_combine_mv per step in the
 default fused form).
 
 fast=True is the JAX package's fast mode (--fast-transforms,
-pallas_fft.MM_MODE "default") on the y-first plane stepper, under RK4
-(both RK forms) and ETDRK4 (both etd_fuse forms): ka_sw, kb_pair, ky_all
+pallas_fft.MM_MODE "default") on the plane stepper, under RK4 (both RK
+forms) and ETDRK4 (both etd_fuse forms): y-first, ka_sw, kb_pair, ky_all
 and kx_fwd on the fast column tile (bf16 tensor-core sub-DFTs, float32
-accumulate). `split` is pallas_sw.split_linear and `pstore`
-pallas_sw.pstore_dtype: None (auto) resolves to the split-linear
-formulation and the bf16 product store exactly in fast mode; explicit
-values win, in strict mode too. split reaches the plane stepper and the
-per-transform path, never the library path; pstore is the y-first
-kx_fwd's store. sw_fast_refusal names what fast mode does not run yet
-(ROADMAP.md queue A, item 4): the x-first order and RK4 with drag or
-hyperviscosity (the per-transform kernels); the library path stays
-float32 under fast=True, as in the barotropic model. The forcing
-spectrum stays on the strict ka and kc (item 4.5).
+accumulate); x-first, ka_sw, kb, ka_fwd and kc_sw. `split` is
+pallas_sw.split_linear and `pstore` pallas_sw.pstore_dtype: None (auto)
+resolves to the split-linear formulation and the bf16 product store
+exactly in fast mode; explicit values win, in strict mode too. split
+reaches the plane stepper and the per-transform path, never the library
+path; pstore is the y-first kx_fwd's store (the x-first kc_sw stores
+float32 in either mode, as in the JAX package, so `self.pstore` is "f32"
+there). sw_fast_refusal names what fast mode does not run yet
+(ROADMAP.md queue A, item 4): RK4 with drag or hyperviscosity (the
+per-transform kernels); the library path stays float32 under
+fast=True, as in the barotropic model. The forcing spectrum stays on
+the strict ka and kc (item 4.5).
 """
 
 from __future__ import annotations
@@ -287,20 +289,15 @@ def resolve_pstore(pstore: Optional[str], fast: bool) -> str:
     return pstore
 
 
-def sw_fast_refusal(yfirst: bool = True,
-                    per_transform_path: bool = False) -> Optional[str]:
+def sw_fast_refusal(per_transform_path: bool = False) -> Optional[str]:
     """Why shallow-water fast mode does not run this combination yet, or
-    None: it runs the y-first plane stepper (RK4 in both forms, ETDRK4
-    in both etd_fuse forms); the x-first order and the per-transform
-    path (RK4 with r_drag or nu4) wait."""
-    for bad, what in ((not yfirst, "the x-first order"),
-                      (per_transform_path,
-                       "RK4 with r_drag or nu4 (the per-transform "
-                       "kernels)")):
-        if bad:
-            return (f"shallow-water fast mode does not run {what} yet "
-                    f"({FAST_ITEM}); it runs the y-first plane stepper "
-                    f"under RK4 and ETDRK4")
+    None: it runs the plane stepper in both orders (RK4 in both forms,
+    ETDRK4 in both etd_fuse forms); the per-transform path (RK4 with
+    r_drag or nu4) waits (item 4.5)."""
+    if per_transform_path:
+        return (f"shallow-water fast mode does not run RK4 with r_drag or "
+                f"nu4 (the per-transform kernels) yet ({FAST_ITEM}.5); it "
+                f"runs the plane stepper under RK4 and ETDRK4")
     return None
 
 
@@ -390,11 +387,13 @@ class ShallowWaterModel(nn.Module):
         kernels = self.backend == "pallas"
         self.fast = fast and kernels
         if self.fast:
-            why = sw_fast_refusal(yfirst, self.per_transform)
+            why = sw_fast_refusal(self.per_transform)
             if why:
                 raise ValueError(why)
         self.split = resolve_split(split, self.fast) and kernels
-        self.pstore = resolve_pstore(pstore, self.fast) if kernels else "f32"
+        # the product store runs on the y-first kx_fwd alone
+        self.pstore = (resolve_pstore(pstore, self.fast)
+                       if kernels and yfirst else "f32")
         self.fwd_pair = (self.backend == "xla"
                          and max(cfg.grid_shape) <= FORWARD_PAIR_MAX)
         self.tables = (tables if tables is not None

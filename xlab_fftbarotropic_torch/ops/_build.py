@@ -103,6 +103,14 @@ SIGNATURES = {
     "xfb_kb_adv_full_fast": [_P] * 6 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
     "xfb_kx_visc_tail_fast": [_P] * 17 + [_I, _I, _I, _F, _F] + [_I] * 5
     + [_P],
+    # the x-first order's fast forms
+    "xfb_ka_quad_fast": [_P] * 8 + [_I] * 9 + [_P],
+    "xfb_kb_fast": [_P] * 7 + [_I, _I, _F] + [_I] * 5 + [_P],
+    "xfb_ka_adv_fast": [_P] * 8 + [_I, _I, _F] + [_I] * 5 + [_P],
+    "xfb_kc_visc_fast": [_P] * 9 + [_I, _I, _F] + [_I] * 5 + [_P],
+    "xfb_ka_fwd_fast": [_P] * 7 + [_I, _I, _F, _F, _F, _I] + [_I] * 5
+    + [_P],
+    "xfb_kc_sw_fast": [_P] * 5 + [_I] * 8 + [_P],
     # kx_fwd with the bf16 product store (csrc/kx_visc.cu), fast and
     # strict tile: fr, fi, tw, rr, ri, nfields, nx, hny, tile_c,
     # cluster_k, threads, smem, device, stream

@@ -149,17 +149,6 @@ def _mma(acc: torch.Tensor, m: torch.Tensor, v: torch.Tensor):
 
 def dot16(a, x, b, y) -> torch.Tensor:
     """sum_t a[f, t] x[t] + b[f, t] y[t] for (16, 16) matrices and (16, N)
-    operands of bf16 values (held in any float dtype), as the kernel's two
-    m16n8k16 products form it: the 16 exact products a x into a zero
-    accumulator, then b y into that float32 result, each as _mma forms
-    it: (16, N) float32."""
-    a, x, b, y = (t.float() for t in (a, x, b, y))
-    acc = torch.zeros((16,) + tuple(x.shape[1:]), device=x.device)
-    return _mma(_mma(acc, a, x), b, y)
-
-
-def dot16(a, x, b, y) -> torch.Tensor:
-    """sum_t a[f, t] x[t] + b[f, t] y[t] for (16, 16) matrices and (16, N)
     operands of bf16 values held in float64, as the kernel's two
     m16n8k16 products form it: the 16 exact products a x into a zero
     accumulator, then b y into that float32 result, each as _mma forms

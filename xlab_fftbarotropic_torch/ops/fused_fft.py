@@ -40,13 +40,14 @@ x-stage as ka_diag in the psi-first grouping of the TPU's _ka4/_ka2.
 
 Fast mode (the JAX package's --fast-transforms) runs every y-first
 stage and arm, ka_diag, kb_pair, ky_adv, kb_adv_half, kb_adv_full,
-kx_visc, kx_visc_tail and kx_fwd (+ visc), on the fast column tile
+kx_visc, kx_visc_tail and kx_fwd (+ visc), and the x-first order, ka_diag
+or ka_quad, kb (kb_stacked), ka_adv and kc_visc, on the fast column tile
 (csrc/xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
 products, float32 accumulate): each wrapper's `fast=True` launches that
 form, counted under its own name (ka_diag_fast, ...), and on the CPU
 takes its plain version, the strict plain version's load and epilogue
-around ops/fast_tile.py's emulation of the fast transform. Every arm of
-it gives the FUSEKB=half arm's bits, as in strict float32.
+around ops/fast_tile.py's emulation of the fast transform. Every y-first
+arm of it gives the FUSEKB=half arm's bits, as in strict float32.
 
 The per-transform pipeline, the counterpart of pallas_fft.rfft2,
 inverse_pair and irfft2, is three kernels: ka, the x-stage of any mode
@@ -73,8 +74,6 @@ parallel/fused_overlap.py too); the plain versions never touch it.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -91,7 +90,9 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "kx_fwd_fast": 0, "kx_fwd_fast_f32": 0, "kx_fwd_bf16": 0,
             "sw_combine_bf16": 0, "sw_combine_mv_bf16": 0,
             "ka6_fast": 0, "kb_adv_tracer_fast": 0, "ky_adv_fast": 0,
-            "kb_adv_full_fast": 0, "kx_visc_tail_fast": 0}
+            "kb_adv_full_fast": 0, "kx_visc_tail_fast": 0,
+            "ka_quad_fast": 0, "kb_fast": 0, "ka_adv_fast": 0,
+            "kc_visc_fast": 0, "ka_fwd_fast": 0, "kc_sw_fast": 0}
 
 # the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
 FUSEKB_MODES = ("", "half", "full")
@@ -224,12 +225,18 @@ def ka_diag_plain(zr, zi, rlap, kx, ky):
                                                  range(4)))
 
 
-def ka_diag_fast_plain(zr, zi, rlap, kx, ky):
-    """ka_diag_plain's fields through the fast tile's inverse x-DFT."""
+def inverse_xstage_fast_plain(re, im):
+    """inverse_xstage_plain on the fast tile: the stacked fields' inverse
+    x-DFT through ops/fast_tile.py, transposed."""
     from .fast_tile import fast_dft
-    re, im = diagonal_fields(zr, zi, rlap, kx, ky, range(4))
     yr, yi = fast_dft(torch.stack(re), torch.stack(im), +1, dim=1)
     return yr.transpose(1, 2).contiguous(), yi.transpose(1, 2).contiguous()
+
+
+def ka_diag_fast_plain(zr, zi, rlap, kx, ky):
+    """ka_diag_plain's fields through the fast tile's inverse x-DFT."""
+    return inverse_xstage_fast_plain(*diagonal_fields(zr, zi, rlap, kx, ky,
+                                                      range(4)))
 
 
 def ka_diag(zr, zi, rlap, kx, ky, fast: bool = False):
@@ -263,12 +270,21 @@ def ka_quad_plain(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4):
         zr, zi, rlap, kx, ky, range(first, first + count), psi_first=True))
 
 
-def ka_quad(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4):
+def ka_quad_fast_plain(zr, zi, rlap, kx, ky, first: int = 0,
+                       count: int = 4):
+    """ka_quad_plain's fields through the fast tile's inverse x-DFT."""
+    return inverse_xstage_fast_plain(*diagonal_fields(
+        zr, zi, rlap, kx, ky, range(first, first + count), psi_first=True))
+
+
+def ka_quad(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4,
+            fast: bool = False):
     """Fields first .. first+count-1 of ka_diag's four, in the psi-first
     grouping, inverse x-DFT (unnormalized), written transposed: (wr, wi)
-    (count, hny, nx). Counterpart of pallas_fft._ka4_kernel (first 0,
-    count 4) and _ka2_kernel ("zderiv": 0, 2; "pderiv": 2, 2), whose
-    (hny, nx) planes are the stack's fields."""
+    (count, hny, nx); `fast`: on the fast column tile. Counterpart of
+    pallas_fft._ka4_kernel (first 0, count 4) and _ka2_kernel
+    ("zderiv": 0, 2; "pderiv": 2, 2), whose (hny, nx) planes are the
+    stack's fields."""
     n, hny = zr.shape
     if (first, count) not in ((0, 4), (0, 2), (2, 2)):
         raise ValueError(f"ka_quad: fields {first}..{first + count - 1} are "
@@ -279,11 +295,13 @@ def ka_quad(zr, zi, rlap, kx, ky, first: int = 0, count: int = 4):
     if kx.device != zr.device or ky.device != zr.device:
         raise ValueError("ka_quad: tables and state on different devices")
     if _takes_plain("ka_quad", zr, n):
-        return ka_quad_plain(zr, zi, rlap, kx, ky, first, count)
+        return (ka_quad_fast_plain if fast else ka_quad_plain)(
+            zr, zi, rlap, kx, ky, first, count)
     from ._build import lib
     wr = torch.empty((count, hny, n), dtype=torch.float32, device=zr.device)
     wi = torch.empty_like(wr)
-    _launch("ka_quad", lib().xfb_ka_quad,
+    name = "ka_quad_fast" if fast else "ka_quad"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(zr, zi, rlap, kx, ky, _twiddles(n, zr.device), wr, wi),
             n, hny, first, count, *_xtile_args(n, hny, 4), zr.device.index,
             _stream(zr))
@@ -322,13 +340,21 @@ def hermitian_planes(ar, ai, br, bi):
             torch.where(low, a_i + b_r, b_r - a_i))
 
 
-def kb_pair_fast_plain(wr, wi, fa: int, fb: int, scale: float):
-    """kb_pair's Hermitian load, the fast tile's inverse y-DFT, and
-    Re * scale, Im * scale (each one rounded product)."""
+def _hermitian_fast(ar, ai, br, bi, scale: float):
+    """The paired c2r y-stage's Hermitian load, the fast tile's inverse
+    y-DFT, and Re * scale, Im * scale (each one rounded product): y-major
+    (ny, nx) planes, not yet contiguous."""
     from .fast_tile import fast_dft
-    yr, yi = fast_dft(*hermitian_planes(wr[fa], wi[fa], wr[fb], wi[fb]), +1)
-    s = torch.tensor(scale, dtype=torch.float32, device=wr.device)
-    return (yr * s).contiguous(), (yi * s).contiguous()
+    yr, yi = fast_dft(*hermitian_planes(ar, ai, br, bi), +1)
+    s = torch.tensor(scale, dtype=torch.float32, device=ar.device)
+    return yr * s, yi * s
+
+
+def kb_pair_fast_plain(wr, wi, fa: int, fb: int, scale: float):
+    """kb_pair on the fast tile: the Hermitian load of fields fa, fb, the
+    fast inverse y-DFT, each part scaled, y-major."""
+    return tuple(x.contiguous() for x in _hermitian_fast(
+        wr[fa], wi[fa], wr[fb], wi[fb], scale))
 
 
 def kb_pair(wr, wi, fa: int, fb: int, scale: float, fast: bool = False):
@@ -359,11 +385,12 @@ def kb_pair(wr, wi, fa: int, fb: int, scale: float, fast: bool = False):
     return oa, ob
 
 
-def kb_stacked(wr, wi, fa: int, fb: int, scale: float):
+def kb_stacked(wr, wi, fa: int, fb: int, scale: float, fast: bool = False):
     """kb_pair's function written x-major: fields fa, fb of a stacked
     (F, hny, nx) x-stage output -> a, b (nx, ny), scaled by `scale`: one
-    kb on the stack's field planes (a launch of kb). Counterpart of
-    pallas_fft._kb_call_stacked(..., transpose_out=True)."""
+    kb on the stack's field planes (a launch of kb; `fast`: of its fast
+    form). Counterpart of pallas_fft._kb_call_stacked(...,
+    transpose_out=True)."""
     if wr.dim() != 3:
         raise ValueError(f"kb_stacked: expected (F, hny, nx), got "
                          f"{tuple(wr.shape)}")
@@ -372,7 +399,7 @@ def kb_stacked(wr, wi, fa: int, fb: int, scale: float):
     if not (0 <= fa < nf and 0 <= fb < nf):
         raise ValueError(f"kb_stacked: field indices {fa}, {fb} not in "
                          f"0..{nf - 1}")
-    return kb(wr[fa], wi[fa], wr[fb], wi[fb], scale)
+    return kb(wr[fa], wi[fa], wr[fb], wi[fb], scale, fast)
 
 
 # ----------------------------------------------------------------- ky_adv
@@ -393,13 +420,9 @@ def ky_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
 
 
 def ky_adv_fast_plain(u, zx, v, zy, src, beta: float = 0.0):
-    """The advection, then the fast tile's real forward y-DFT, rows
-    k <= ny/2 written transposed."""
-    from .fast_tile import fast_dft
+    """The advection, then kc_fast_plain of (adv, 0), as the kernel."""
     adv = advection(u, zx, v, zy, src, beta)
-    fr, fi = fast_dft(adv, torch.zeros_like(adv), -1)
-    hny = adv.shape[0] // 2 + 1
-    return fr[:hny].t().contiguous(), fi[:hny].t().contiguous()
+    return kc_fast_plain(adv, torch.zeros_like(adv))
 
 
 def ky_adv(u, zx, v, zy, src, beta: float = 0.0, fast: bool = False):
@@ -675,24 +698,42 @@ def ka_adv_plain(u, zx, v, zy, src, beta: float = 0.0):
     return ka_plain(advection(u, zx, v, zy, src, beta), None, True)
 
 
-def ka_adv(u, zx, v, zy, src, beta: float = 0.0):
+def real_forward_fast_plain(x):
+    """The fast tile's forward DFT along axis -2 of the real (..., n, m)
+    planes x, written transposed: (..., m, n) planes (ka_adv's and
+    ka_fwd's x-stage)."""
+    from .fast_tile import fast_dft
+    yr, yi = fast_dft(x, torch.zeros_like(x), -1, dim=-2)
+    return (yr.transpose(-1, -2).contiguous(),
+            yi.transpose(-1, -2).contiguous())
+
+
+def ka_adv_fast_plain(u, zx, v, zy, src, beta: float = 0.0):
+    """The advection, then the fast tile's real forward x-DFT, written
+    transposed."""
+    return real_forward_fast_plain(advection(u, zx, v, zy, src, beta))
+
+
+def ka_adv(u, zx, v, zy, src, beta: float = 0.0, fast: bool = False):
     """-u*zx - v*(zy + beta) + src on x-major (nx, ny) fields, real
-    forward x-DFT of each y column, written transposed: (ny, nx) planes.
-    Counterpart of pallas_fft.forward_tendency's first kernel
-    (_ka_adv_kernel). The kernel rounds the advection as `advection`
-    does, so it is ka (real forward, scale 1) of the advection formed in
-    torch, bit for bit."""
+    forward x-DFT of each y column, written transposed: (ny, nx) planes;
+    `fast`: on the fast column tile. Counterpart of
+    pallas_fft.forward_tendency's first kernel (_ka_adv_kernel). The
+    kernel rounds the advection as `advection` does, so it is ka (real
+    forward, scale 1) of the advection formed in torch, bit for bit."""
     if u.dim() != 2:
         raise ValueError(f"ka_adv: expected (nx, ny) fields, got "
                          f"{tuple(u.shape)}")
     nx, ny = u.shape
     _check("ka_adv", (nx, ny), u, zx, v, zy, src)
     if _takes_plain("ka_adv", u, nx):
-        return ka_adv_plain(u, zx, v, zy, src, beta)
+        return (ka_adv_fast_plain if fast else ka_adv_plain)(
+            u, zx, v, zy, src, beta)
     from ._build import lib
     yr = torch.empty((ny, nx), dtype=torch.float32, device=u.device)
     yi = torch.empty_like(yr)
-    _launch("ka_adv", lib().xfb_ka_adv,
+    name = "ka_adv_fast" if fast else "ka_adv"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(u, zx, v, zy, src, _twiddles(nx, u.device), yr, yi),
             nx, ny, float(beta), *_xtile_args(nx, ny, 4), u.device.index,
             _stream(u))
@@ -763,17 +804,31 @@ def kc(xr, xi):
 
 # ---------------------------------------------------------------- kc_visc
 
+def kc_fast_plain(xr, xi):
+    """kc_plain on the fast tile: the forward y-DFT of (..., ny, nx)
+    planes through ops/fast_tile.py, rows k <= ny/2 written transposed
+    (..., nx, hny)."""
+    from .fast_tile import fast_dft
+    hny = xr.shape[-2] // 2 + 1
+    yr, yi = fast_dft(xr, xi, -1, dim=-2)
+    return (yr[..., :hny, :].transpose(-1, -2).contiguous(),
+            yi[..., :hny, :].transpose(-1, -2).contiguous())
+
+
 def kc_visc_plain(xr, xi, lap, mask, zr, zi, nu: float):
-    yr, yi = kc_plain(xr, xi)
-    nulap = nu * lap
-    return mask * (yr + nulap * zr), mask * (yi + nulap * zi)
+    return visc_plain(*kc_plain(xr, xi), lap, mask, zr, zi, nu)
 
 
-def kc_visc(xr, xi, lap, mask, zr, zi, nu: float):
+def kc_visc_fast_plain(xr, xi, lap, mask, zr, zi, nu: float):
+    """The fast tile's kc, then kc_visc's epilogue."""
+    return visc_plain(*kc_fast_plain(xr, xi), lap, mask, zr, zi, nu)
+
+
+def kc_visc(xr, xi, lap, mask, zr, zi, nu: float, fast: bool = False):
     """kc of the (ny, nx) planes with the epilogue mask * (Y + nu*lap*Z)
-    on the (nx, hny) tables and current stage state -> (nx, hny) planes.
-    Counterpart of pallas_fft.forward_tendency's second kernel
-    (_kc_visc_kernel)."""
+    on the (nx, hny) tables and current stage state -> (nx, hny) planes;
+    `fast`: on the fast column tile. Counterpart of
+    pallas_fft.forward_tendency's second kernel (_kc_visc_kernel)."""
     if xr.dim() != 2:
         raise ValueError(f"kc_visc: expected (ny, nx) planes, got "
                          f"{tuple(xr.shape)}")
@@ -784,11 +839,13 @@ def kc_visc(xr, xi, lap, mask, zr, zi, nu: float):
     if lap.device != xr.device:
         raise ValueError("kc_visc: tables and planes on different devices")
     if _takes_plain("kc_visc", xr, ny):
-        return kc_visc_plain(xr, xi, lap, mask, zr, zi, nu)
+        return (kc_visc_fast_plain if fast else kc_visc_plain)(
+            xr, xi, lap, mask, zr, zi, nu)
     from ._build import lib
     yr = torch.empty((nx, hny), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    _launch("kc_visc", lib().xfb_kc_visc,
+    name = "kc_visc_fast" if fast else "kc_visc"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(xr, xi, lap, mask, zr, zi, _twiddles(ny, xr.device), yr,
                    yi), ny, nx, float(nu), *_xtile_args(ny, nx, 4),
             xr.device.index, _stream(xr))
@@ -810,13 +867,22 @@ def kb_plain(war, wai, wbr, wbi, scale: float):
     return out[0].t().contiguous(), out[1].t().contiguous()
 
 
-def kb(war, wai, wbr, wbi, scale: float):
+def kb_fast_plain(war, wai, wbr, wbi, scale: float):
+    """kb_pair_fast_plain's function on two (hny, nx) pairs (a zero
+    partner for wbr None), written x-major (nx, ny)."""
+    if wbr is None:
+        wbr, wbi = torch.zeros_like(war), torch.zeros_like(wai)
+    return tuple(x.t().contiguous() for x in _hermitian_fast(
+        war, wai, wbr, wbi, scale))
+
+
+def kb(war, wai, wbr, wbi, scale: float, fast: bool = False):
     """Paired c2r y-stage of two (hny, nx) x-stage outputs (war + i wai,
     wbr + i wbi), rows 0..ny/2, the self-conjugate rows 0 and ny/2
     projected to their real part -> a, b x-major (nx, ny), scaled by
-    `scale`. wbr = wbi = None is a zero partner: b is neither read nor
-    computed, and None is returned in its place. Counterpart of
-    pallas_fft._kb_call (_kb_kernel)."""
+    `scale`; `fast`: on the fast column tile. wbr = wbi = None is a zero
+    partner: b is neither read nor computed, and None is returned in its
+    place. Counterpart of pallas_fft._kb_call (_kb_kernel)."""
     if war.dim() != 2:
         raise ValueError(f"kb: expected (hny, nx) planes, got "
                          f"{tuple(war.shape)}")
@@ -826,12 +892,14 @@ def kb(war, wai, wbr, wbi, scale: float):
     ny = 2 * (hny - 1)
     _check("kb", (hny, nx), war, wai, *(() if wbr is None else (wbr, wbi)))
     if _takes_plain("kb", war, ny):
-        a, b = kb_plain(war, wai, wbr, wbi, scale)
+        a, b = (kb_fast_plain if fast else kb_plain)(war, wai, wbr, wbi,
+                                                      scale)
         return a, (None if wbr is None else b)
     from ._build import lib
     oa = torch.empty((nx, ny), dtype=torch.float32, device=war.device)
     ob = None if wbr is None else torch.empty_like(oa)
-    _launch("kb", lib().xfb_kb, *_ptrs(war, wai),
+    name = "kb_fast" if fast else "kb"
+    _launch(name, getattr(lib(), "xfb_" + name), *_ptrs(war, wai),
             *((None, None) if wbr is None else _ptrs(wbr, wbi)),
             *_ptrs(_twiddles(ny, war.device), oa),
             None if ob is None else ob.data_ptr(), ny, nx, float(scale),
@@ -878,8 +946,8 @@ def irfft2(spec: torch.Tensor, grid_shape) -> torch.Tensor:
 def derivative_quad_planes(zr, zi, kx, ky, rlap, ymajor: bool = True,
                            quad_mode: str = "grid", fast: bool = False):
     """(zeta_x, zeta_y, u, v) from the spectral state planes, y-major
-    (ny, nx) with `ymajor` (ka_diag + two kb_pair; `fast`: their fast
-    forms), else x-major (nx, ny) (the x-stage + two kb_stacked).
+    (ny, nx) with `ymajor` (ka_diag + two kb_pair), else x-major (nx, ny)
+    (the x-stage + two kb_stacked); `fast`: every kernel's fast form.
     quad_mode "grid" takes ka_diag for the x-stage; "quad" one ka_quad,
     "split" two, both x-major only. Counterpart of
     pallas_fft.derivative_quad_planes with QUAD_MODE = quad_mode."""
@@ -888,30 +956,30 @@ def derivative_quad_planes(zr, zi, kx, ky, rlap, ymajor: bool = True,
                          f"{QUAD_MODES}")
     if ymajor and quad_mode != "grid":
         raise NotImplementedError("ymajor requires quad_mode='grid'")
-    if fast and not ymajor:
-        raise ValueError("fast mode's derivative planes are y-major (the "
-                         "x-first order: ROADMAP.md queue A, item 4.4)")
     nx, hny = zr.shape
     scale = 1.0 / (nx * 2 * (hny - 1))
     if quad_mode == "split":
-        zx, zy = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 0, 2), 0, 1,
-                            scale)
-        u, v = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 2, 2), 0, 1, scale)
+        zx, zy = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 0, 2, fast), 0,
+                            1, scale, fast)
+        u, v = kb_stacked(*ka_quad(zr, zi, rlap, kx, ky, 2, 2, fast), 0, 1,
+                          scale, fast)
         return zx, zy, u, v
     wr, wi = (ka_diag(zr, zi, rlap, kx, ky, fast=fast) if quad_mode == "grid"
-              else ka_quad(zr, zi, rlap, kx, ky))
-    pair = functools.partial(kb_pair, fast=fast) if ymajor else kb_stacked
-    zx, zy = pair(wr, wi, 0, 1, scale)
-    u, v = pair(wr, wi, 2, 3, scale)
+              else ka_quad(zr, zi, rlap, kx, ky, fast=fast))
+    pair = kb_pair if ymajor else kb_stacked
+    zx, zy = pair(wr, wi, 0, 1, scale, fast=fast)
+    u, v = pair(wr, wi, 2, 3, scale, fast=fast)
     return zx, zy, u, v
 
 
 def forward_tendency(u, zx, v, zy, src, lap, mask, zr, zi, nu: float,
-                     beta: float = 0.0):
+                     beta: float = 0.0, fast: bool = False):
     """dealias(rfft2(-u*zx - v*(zy+beta) + src) + nu*lap*Z) as (re, im)
-    planes from x-major (nx, ny) fields: ka_adv + kc_visc. Counterpart
-    of pallas_fft.forward_tendency (the x-first order)."""
-    return kc_visc(*ka_adv(u, zx, v, zy, src, beta), lap, mask, zr, zi, nu)
+    planes from x-major (nx, ny) fields: ka_adv + kc_visc (`fast`: their
+    fast forms). Counterpart of pallas_fft.forward_tendency (the x-first
+    order)."""
+    return kc_visc(*ka_adv(u, zx, v, zy, src, beta, fast), lap, mask, zr,
+                   zi, nu, fast)
 
 
 def forward_tail(fr, fi, lap, mask, zr, zi, nu: float, axpy=None,

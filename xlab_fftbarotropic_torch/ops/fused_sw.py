@@ -49,7 +49,11 @@ rounds its five product spectra once to bf16 and sw_combine and
 sw_combine_mv read them widened exactly (their _bf16 forms), or "f32".
 On the CPU each fast form takes its plain version: the strict plain
 version's load and store around ops/fast_tile.py's emulation of the
-fast transform, and `.to(torch.bfloat16)` for the bf16 store.
+fast transform, and `.to(torch.bfloat16)` for the bf16 store. The
+x-first order's fast mode runs ka_sw, the two kb, ka_fwd and kc_sw on
+the fast tile; its kc_sw stores float32 whatever `pstore` says, and the
+float32 combines read it, as in the JAX package, whose product store
+lives on the y-first branch alone.
 
 Same dispatch rule as ops/fused_fft.py: CPU tensors take the plain
 version beside each wrapper, CUDA tensors launch the kernel or raise;
@@ -59,13 +63,13 @@ launches count in fused_fft.LAUNCHES.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
-                        _twiddles, _xtile_args, inverse_xstage_plain, ka,
-                        kb_pair, kb_stacked, kc)
+                        _twiddles, _xtile_args, inverse_xstage_fast_plain,
+                        inverse_xstage_plain, ka, kb_pair, kb_stacked, kc,
+                        kc_fast_plain, real_forward_fast_plain)
 
 MAX_PLANES = 8   # csrc/rk4_combine.cu kMaxPlanes
 N_PRODUCTS = 5   # q*u, q*v, eta*u, eta*v, phi
@@ -171,10 +175,8 @@ def ka_sw_plain(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float):
 def ka_sw_fast_plain(zr, zi, dr, di, er, ei, rlap, kx, ky,
                      eta_scale: float):
     """ka_sw_plain's fields through the fast tile's inverse x-DFT."""
-    from .fast_tile import fast_dft
-    re, im = sw_fields(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale)
-    yr, yi = fast_dft(torch.stack(re), torch.stack(im), +1, dim=1)
-    return yr.transpose(1, 2).contiguous(), yi.transpose(1, 2).contiguous()
+    return inverse_xstage_fast_plain(*sw_fields(zr, zi, dr, di, er, ei,
+                                                rlap, kx, ky, eta_scale))
 
 
 def ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale: float,
@@ -210,19 +212,16 @@ def inverse_quad_planes(zr, zi, dr, di, er, ei, kx, ky, rlap,
                         fast: bool = False):
     """(u, v, zeta, eta_scale*eta) from the SW state planes: ka_sw + two
     kb_pair, y-major (ny, nx), or with yfirst False ka_sw + two
-    kb_stacked, x-major (nx, ny); `fast` (y-first only): ka_sw and
-    kb_pair on the fast column tile. Counterpart of
-    pallas_sw.inverse_quad_planes (YFIRST = yfirst)."""
-    if fast and not yfirst:
-        raise ValueError("fast mode runs the y-first order (the x-first "
-                         "one: ROADMAP.md queue A, item 4)")
+    kb_stacked, x-major (nx, ny); `fast`: ka_sw and kb_pair (kb) on the
+    fast column tile. Counterpart of pallas_sw.inverse_quad_planes
+    (YFIRST = yfirst)."""
     nx, hny = zr.shape
     scale = 1.0 / (nx * 2 * (hny - 1))
-    pair = functools.partial(kb_pair, fast=fast) if yfirst else kb_stacked
+    pair = kb_pair if yfirst else kb_stacked
     wr, wi = ka_sw(zr, zi, dr, di, er, ei, rlap, kx, ky, eta_scale,
                    fast=fast)
-    u, v = pair(wr, wi, 0, 1, scale)
-    zeta, eta_s = pair(wr, wi, 2, 3, scale)
+    u, v = pair(wr, wi, 0, 1, scale, fast=fast)
+    zeta, eta_s = pair(wr, wi, 2, 3, scale, fast=fast)
     return u, v, zeta, eta_s
 
 
@@ -252,15 +251,10 @@ def ky_all_plain(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
 
 def ky_all_fast_plain(u, v, zeta, eta_s, ies: float, f0: float,
                       grav: float, split: bool = False):
-    """ky_all_plain's products through the fast tile's forward y-DFT,
-    rows k <= ny/2 written transposed."""
-    from .fast_tile import fast_dft
+    """ky_all_plain's products, then kc_fast_plain of (products, 0)."""
     prods = torch.stack(sw_products(u, v, zeta, eta_s, ies, f0, grav,
                                     split))
-    fr, fi = fast_dft(prods, torch.zeros_like(prods), -1, dim=1)
-    hny = u.shape[0] // 2 + 1
-    return (fr[:, :hny].transpose(1, 2).contiguous(),
-            fi[:, :hny].transpose(1, 2).contiguous())
+    return kc_fast_plain(prods, torch.zeros_like(prods))
 
 
 def ky_all(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
@@ -356,24 +350,35 @@ def ka_fwd_plain(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
     return f.real.contiguous(), f.imag.contiguous()
 
 
+def ka_fwd_fast_plain(u, v, zeta, eta_s, ies: float, f0: float,
+                      grav: float, split: bool = False):
+    """ka_fwd_plain's products through the fast tile's real forward
+    x-DFT, written transposed."""
+    return real_forward_fast_plain(torch.stack(sw_products(
+        u, v, zeta, eta_s, ies, f0, grav, split)))
+
+
 def ka_fwd(u, v, zeta, eta_s, ies: float, f0: float, grav: float,
-           split: bool = False):
+           split: bool = False, fast: bool = False):
     """The five SW products (ky_all's) of the x-major (nx, ny) fields,
     each through the real forward x-DFT of every y column, written
-    transposed: stacked (5, ny, nx) planes. Counterpart of
-    pallas_sw.forward_tendencies' KA_FWD stage (_ka_fwd_kernel)."""
+    transposed: stacked (5, ny, nx) planes; `fast`: on the fast column
+    tile. Counterpart of pallas_sw.forward_tendencies' KA_FWD stage
+    (_ka_fwd_kernel)."""
     if u.dim() != 2:
         raise ValueError(f"ka_fwd: expected (nx, ny) fields, got "
                          f"{tuple(u.shape)}")
     nx, ny = u.shape
     _check("ka_fwd", (nx, ny), u, v, zeta, eta_s)
     if _takes_plain("ka_fwd", u, nx):
-        return ka_fwd_plain(u, v, zeta, eta_s, ies, f0, grav, split)
+        return (ka_fwd_fast_plain if fast else ka_fwd_plain)(
+            u, v, zeta, eta_s, ies, f0, grav, split)
     from ._build import lib
     yr = torch.empty((N_PRODUCTS, ny, nx), dtype=torch.float32,
                      device=u.device)
     yi = torch.empty_like(yr)
-    _launch("ka_fwd", lib().xfb_ka_fwd,
+    name = "ka_fwd_fast" if fast else "ka_fwd"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(u, v, zeta, eta_s, _twiddles(nx, u.device), yr, yi),
             nx, ny, float(ies), float(f0), float(grav), int(split),
             *_xtile_args(nx, ny, 4), u.device.index, _stream(u))
@@ -389,9 +394,11 @@ def kc_sw_plain(xr, xi):
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def kc_sw(xr, xi):
+def kc_sw(xr, xi, fast: bool = False):
     """kc over a stack: the forward DFT along y of (F, ny, nx) planes,
-    rows k <= ny/2, written transposed: (F, nx, hny). Counterpart of
+    rows k <= ny/2, written transposed: (F, nx, hny), stored float32 in
+    either mode (pallas_sw's KC_SW store); `fast`: on the fast column
+    tile (kc_fast_plain on the CPU). Counterpart of
     pallas_sw.forward_tendencies' KC_SW stage (_kc_sw_kernel)."""
     if xr.dim() != 3:
         raise ValueError(f"kc_sw: expected (F, ny, nx), got "
@@ -399,12 +406,13 @@ def kc_sw(xr, xi):
     nf, ny, nx = xr.shape
     _check("kc_sw", (nf, ny, nx), xr, xi)
     if _takes_plain("kc_sw", xr, ny):
-        return kc_sw_plain(xr, xi)
+        return (kc_fast_plain if fast else kc_sw_plain)(xr, xi)
     from ._build import lib
     yr = torch.empty((nf, nx, ny // 2 + 1), dtype=torch.float32,
                      device=xr.device)
     yi = torch.empty_like(yr)
-    _launch("kc_sw", lib().xfb_kc_sw,
+    name = "kc_sw_fast" if fast else "kc_sw"
+    _launch(name, getattr(lib(), "xfb_" + name),
             *_ptrs(xr, xi, _twiddles(ny, xr.device), yr, yi), nf, ny, nx,
             *_xtile_args(ny, nx, 4), xr.device.index, _stream(xr))
     return yr, yi
@@ -590,24 +598,22 @@ def forward_tendencies(u, v, zeta, eta_s, state, src, kx, ky, lap, mask,
     yfirst False x-major, ka_fwd + kc_sw + sw_combine (with axpy: also
     the next stage state). mv_axpy=(z0, q, scale, emit_tend) takes
     sw_combine_mv instead and returns (tend or None, z0 + scale *
-    (q @ tend)); it does not combine with axpy. y-first only: `fast`
-    runs ky_all and kx_fwd on the fast column tile, and `pstore` is
-    kx_fwd's product store (the x-first kc_sw stores float32, as in the
-    JAX package). Counterpart of pallas_sw.forward_tendencies (YFIRST =
-    yfirst)."""
+    (q @ tend)); it does not combine with axpy. `fast` runs ky_all and
+    kx_fwd (ka_fwd and kc_sw) on the fast column tile. `pstore` is the
+    y-first kx_fwd's product store; the x-first kc_sw stores float32 in
+    either mode, and the float32 combines read it, as in the JAX package
+    (pallas_sw.py's KC_SW out_shape). Counterpart of
+    pallas_sw.forward_tendencies (YFIRST = yfirst)."""
     if axpy is not None and mv_axpy is not None:
         raise ValueError("forward_tendencies: axpy and mv_axpy are "
                          "mutually exclusive")
-    if fast and not yfirst:
-        raise ValueError("fast mode runs the y-first order (the x-first "
-                         "one: ROADMAP.md queue A, item 4)")
     if yfirst:
         pr, pi = kx_fwd(*ky_all(u, v, zeta, eta_s, 1.0 / eta_scale, f0,
                                 grav, split, fast=fast),
                         fast=fast, pstore=pstore)
     else:
         pr, pi = kc_sw(*ka_fwd(u, v, zeta, eta_s, 1.0 / eta_scale, f0,
-                               grav, split))
+                               grav, split, fast), fast)
     if mv_axpy is not None:
         z0, q, scale, emit_tend = mv_axpy
         return sw_combine_mv(pr, pi, state, src, kx, ky, lap, mask, f0,

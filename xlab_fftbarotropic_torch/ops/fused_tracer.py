@@ -36,8 +36,9 @@ import torch
 
 from .fused_fft import (_check, _launch, _ptrs, _stream, _takes_plain,
                         _twiddles, _xtile_args, advection, diagonal_fields,
-                        inverse_xstage_plain, kb_pair, kb_pair_fast_plain,
-                        kb_pair_plain, kx_visc)
+                        inverse_xstage_fast_plain, inverse_xstage_plain,
+                        kb_pair, kb_pair_fast_plain, kb_pair_plain,
+                        kc_fast_plain, kx_visc)
 from .fused_sw import plane_rk4_combine
 
 # field f of the six reads state f // 4 and takes diagonal kind f % 4
@@ -58,10 +59,7 @@ def ka6_plain(sr2, si2, rlap, kx, ky):
 
 def ka6_fast_plain(sr2, si2, rlap, kx, ky):
     """ka6_plain's fields through the fast tile's inverse x-DFT."""
-    from .fast_tile import fast_dft
-    re, im = _ka6_fields(sr2, si2, rlap, kx, ky)
-    yr, yi = fast_dft(torch.stack(re), torch.stack(im), +1, dim=1)
-    return yr.transpose(1, 2).contiguous(), yi.transpose(1, 2).contiguous()
+    return inverse_xstage_fast_plain(*_ka6_fields(sr2, si2, rlap, kx, ky))
 
 
 def tracer_xstage_planes(sr2, si2, kx, ky, rlap, fast: bool = False):
@@ -111,18 +109,14 @@ def kb_adv_tracer_fast_plain(zx, zy, qx, qy, wr, wi, src,
                              beta: float = 0.0):
     """kb_pair_fast_plain's u, v, the two advection products (a zero src
     and no beta for q, as the kernel adds them), and the fast tile's real
-    forward y-DFT of each, rows k <= ny/2 written transposed."""
-    from .fast_tile import fast_dft
+    forward y-DFT of each (kc_fast_plain of (adv, 0))."""
     ny, nx = zx.shape
     u, v = kb_pair_fast_plain(wr, wi, 2, 3, 1.0 / (nx * ny))
     zero = torch.zeros_like(zx)
     adv = torch.stack([advection(u, zx, v, zy,
                                  zero if src is None else src, beta),
                        advection(u, qx, v, qy, zero)])
-    fr, fi = fast_dft(adv, torch.zeros_like(adv), -1, dim=1)
-    hny = ny // 2 + 1
-    return (fr[:, :hny].transpose(1, 2).contiguous(),
-            fi[:, :hny].transpose(1, 2).contiguous())
+    return kc_fast_plain(adv, torch.zeros_like(adv))
 
 
 def kb_adv_tracer(zx, zy, qx, qy, wr, wi, src, beta: float = 0.0,
