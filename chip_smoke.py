@@ -564,6 +564,38 @@ KERNELS = {
                        "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:212",
                        "xstage_scatter", ("shard-xpencil-overlap",
                                           "shard4-xpencil-overlap")),
+    # phase 5q: the per-transform pipeline's fast forms (the SW drag
+    # path, the fast adjoint, the forcing spectrum of the fast SW plane
+    # stepper) and the overlap x-stages' (the fast sharded paths)
+    "ka_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
+                "ka_fast", ("sw-drag-fast", "adjoint-fast") + FAST_SW),
+    "ka_inverse_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                        "xlab_fftbarotropic_tpu/ops/pallas_fft.py:549",
+                        "ka_fast", ("sw-drag-fast", "adjoint-fast")),
+    "kc_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
+                "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1349",
+                "kc_fast", ("sw-drag-fast", "adjoint-fast") + FAST_SW),
+    "kb_single_fast": ("xlab_fftbarotropic_torch/csrc/kb_pair.cu",
+                       "xlab_fftbarotropic_tpu/ops/pallas_fft.py:1043",
+                       "kb_fast", ("adjoint-fast",)),
+    "xstage_fast": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
+                    "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:61",
+                    "xstage_fast", ("shard-slab-overlap-fast",
+                                    "shard4-slab-overlap-fast",
+                                    "shard4-slab-overlap-fast-etdrk4")),
+    "xstage_gather_fast": (
+        "xlab_fftbarotropic_torch/csrc/xstage.cu",
+        "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:148",
+        "xstage_gather_fast", ("shard-xpencil-overlap-fast",
+                               "shard4-xpencil-overlap-fast",
+                               "shard4-xpencil-overlap-fast-etdrk4")),
+    "xstage_scatter_fast": (
+        "xlab_fftbarotropic_torch/csrc/xstage.cu",
+        "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:212",
+        "xstage_scatter_fast", ("shard-xpencil-overlap-fast",
+                                "shard4-xpencil-overlap-fast",
+                                "shard4-xpencil-overlap-fast-etdrk4")),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -659,6 +691,8 @@ PER_STEP = {
     "sw-xfirst-fast-etdrk4": {"ka_sw_fast": 4, "kb_fast": 8,
                               "ka_fwd_fast": 4, "kc_sw_fast": 4,
                               "sw_combine_mv": 4},
+    # phase 5q: the SW drag path on the fast per-transform kernels
+    "sw-drag-fast": {"ka_fast": 40, "kb_fast": 8, "kc_fast": 24},
 }
 # and per segment: the shallow-water forcing spectrum (the runner always
 # passes a forcing field, zero when the run is unforced)
@@ -667,9 +701,11 @@ PER_SEGMENT = {"shallow-water": {"ka": 1, "kc": 1},
                "sw-unfused": {"ka": 1, "kc": 1},
                "sw-xfirst": {"ka": 1, "kc": 1},
                "sw-xfirst-etdrk4": {"ka": 1, "kc": 1},
-               **{k: {"ka": 1, "kc": 1} for k in (
-                   "sw-fast", "sw-fast-etdrk4", "sw-fast-f32",
-                   "sw-pstore-bf16") + XFIRST_FAST_SW}}
+               "sw-pstore-bf16": {"ka": 1, "kc": 1},
+               # fast mode takes the forcing spectrum on the fast ka, kc
+               **{k: {"ka_fast": 1, "kc_fast": 1} for k in (
+                   "sw-fast", "sw-fast-etdrk4", "sw-fast-f32")
+                  + XFIRST_FAST_SW}}
 # the sharded paths; through the CLI, the records' diagnostics add their
 # inverse transforms once per segment
 PER_STEP.update({f"shard{k}-{d}-{i}": v
@@ -677,6 +713,16 @@ PER_STEP.update({f"shard{k}-{d}-{i}": v
 PER_STEP["shard4-slab-overlap-etdrk4"] = SHARD_PER_STEP[("slab", "overlap")]
 PER_SEGMENT.update({f"shard-{d}-{i}": v
                     for (d, i), v in SHARD_PER_RECORD.items()})
+# the overlap impl in fast mode (phase 5q): the same counts under the
+# fast x-stages' names, under RK4 and ETDRK4
+for _d in SHARD_DECOMPS:
+    _fast = {f"{k}_fast": v
+             for k, v in SHARD_PER_STEP[(_d, "overlap")].items()}
+    for _name in (f"shard-{_d}-overlap-fast", f"shard4-{_d}-overlap-fast",
+                  f"shard4-{_d}-overlap-fast-etdrk4"):
+        PER_STEP[_name] = _fast
+    PER_SEGMENT[f"shard-{_d}-overlap-fast"] = {
+        f"{k}_fast": v for k, v in SHARD_PER_RECORD[(_d, "overlap")].items()}
 # the main paths driven through cli.run.main, and the environment each
 # runs under (the x-first order, as the JAX package reads it)
 BT_ARM_ENV = {"bt-fusekb-full": {"XFB_BT_FUSEKB": "full"},
@@ -719,7 +765,7 @@ SW_MODEL_PATHS = {"sw-unfused": dict(fused_rk=False),
 # the SW fast mode through the CLI (phase 5o)
 FAST_SW_CLI = ("sw-fast", "sw-fast-etdrk4")
 SW_FAMILIES = ("shallow-water", "sw-etdrk4", "sw-drag") + XFIRST_SW + (
-    FAST_SW_CLI) + XFIRST_FAST_SW
+    FAST_SW_CLI) + XFIRST_FAST_SW + ("sw-drag-fast",)
 # the SW drag path's drag (examples/09-drag-spindown)
 SW_R_DRAG = 2e-4
 # and its time step's cap: 0.9 of the 1 s RK4 viscous bound of example
@@ -1179,8 +1225,9 @@ FAST_KERNELS = {"ka_diag_fast": "ka_diag", "kb_pair_fast": "kb_pair",
                 "kx_visc_fast": "kx_visc"}
 FAST_SHAPES = ((64, None), (256, None), (4096, None), (256, 200),
                (1024, 33))
-# the __global__ templates' flags in order (phase_xtile's tags name the
-# fast and bf16 ones set; the combines' product type bf16 tags "bf16")
+# the __global__ templates' arguments in order (phase_xtile's tags name
+# the fast and bf16 flags set; the combines' product type bf16 tags
+# "bf16")
 TEMPLATE_FLAGS = {"ka_fields_kernel": ("psi_first", "fast"),
                   "kb_pair_kernel": ("fast",),
                   "kb_adv_kernel": ("full", "fast"),
@@ -1189,7 +1236,8 @@ TEMPLATE_FLAGS = {"ka_fields_kernel": ("psi_first", "fast"),
                   "ky_adv_kernel": ("fast",),
                   "kb_adv_tracer_kernel": ("fast",), "kb_kernel": ("fast",),
                   "kc_kernel": ("fast",), "ka_adv_kernel": ("fast",),
-                  "ka_fwd_kernel": ("fast",)}
+                  "ka_fwd_kernel": ("fast",), "ka_kernel": ("sign", "fast"),
+                  "xstage_kernel": ("sign", "src", "dst", "fast")}
 # the fast path's bars: a fast kernel against its plain version on random
 # inputs (the plain versions form the tensor cores' measured sum,
 # ops/fast_tile.py dot16, for all but 0.01-0.1 % of the outputs, and a
@@ -2678,6 +2726,531 @@ def phase_fast_xfirst(n: int, steps: int, dev, profile: bool = False) -> dict:
     return out
 
 
+# phase 5q: the last fast forms (rows 12, 13 single, 14, 21, 22 on the
+# fast column tile) and the strict rows they are held against
+FAST_REST_KERNELS = {"ka_fast": "ka", "ka_inverse_fast": "ka_complex_inverse",
+                     "kc_fast": "kc", "kb_single_fast": "kb_single",
+                     "xstage_fast": "xstage",
+                     "xstage_gather_fast": "xstage_gather",
+                     "xstage_scatter_fast": "xstage_scatter"}
+FAST_XSTAGES = ("xstage_fast", "xstage_gather_fast", "xstage_scatter_fast")
+# the fast paths' bars: the sharded overlap run's vorticity against the
+# strict overlap run after `steps` steps (a stage's rounding enters
+# through dt times the tendency, as on the plane steppers), and the fast
+# adjoint gradient against the strict one at the twin's first guess:
+# its misfit is a tenth of the field, so the two end transforms' bf16
+# error (about 3e-3 each) shows about ten times in the gradient (the JAX
+# fast mode's gradient is in the same class at 64^2,
+# tests/test_torch_fast_transforms.py)
+FAST_SHARD_BAR = 1e-4
+FAST_GRAD_BAR = 1e-1
+# the fast paths driven through the CLI in phase 5q, and the models
+FAST_REST_CLI = ("sw-drag-fast", "shard-slab-overlap-fast",
+                 "shard-xpencil-overlap-fast")
+FAST_SHARD_MODELS = ("shard4-slab-overlap-fast",
+                     "shard4-xpencil-overlap-fast",
+                     "shard4-slab-overlap-fast-etdrk4",
+                     "shard4-xpencil-overlap-fast-etdrk4")
+FAST_ENS_MEMBERS = 4
+
+
+def fast_rest_cases(n: int, cols, dev, seed: int, p: int = 4) -> dict:
+    """name -> FastCase of the per-transform pipeline's and the overlap
+    x-stages' fast forms (FAST_REST_KERNELS) for a length-n transform over
+    `cols` columns (None: the n x n grid's: ny = n for ka's real forward
+    and kc, hny for ka's complex inverse, kb and the x-stages),
+    numpy-seeded: ka's real forward at scale 1 (rfft2's) and complex
+    inverse at scale 0.37, kc, kb's single form (irfft2's, a zero
+    partner), and on p shards the x-stage's inverse at 1/n (the form 16
+    of a step's 20 take), the gather (forward) and the scatter (inverse
+    at 1/n) of an (n, hny) half spectrum. The exact inputs are small
+    integers on exact_rows (kb's on the Hermitian rows 0, n/16, .., n/2)."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.parallel import dfft
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel.pencil import padded_half
+
+    rng = np.random.default_rng(seed)
+    hny = n // 2 + 1
+    cx, cy = (hny, n) if cols is None else (cols, cols)
+    planes, ints = _makers(rng, dev)
+    rows = exact_rows(n)
+    herm = np.zeros(hny, bool)
+    herm[::n // 16] = True
+    xr, xi = planes((n, cy), 2)
+    exr, exi = ints((n, cy), 2, rows=rows)
+    zr, zi = planes((n, cx), 2)
+    ezr, ezi = ints((n, cx), 2, rows=rows)
+    wr, wi = planes((hny, cy), 2, n * math.sqrt(cy))
+    ewr, ewi = ints((hny, cy), 2, rows=herm)
+    scale = 1.0 / (n * cy)
+    # the x-stages: row shards of an (n, cx) half spectrum, and x-pencil
+    # shards of another (its pad columns zero)
+    w = padded_half(cx, p) // p
+
+    def pencil(a):
+        full = torch.zeros((n, p * w), dtype=a.dtype, device=dev)
+        full[:, :cx] = a
+        return full.reshape(n, p, w).permute(1, 0, 2).contiguous()
+
+    g, gc = (torch.complex(*planes((n, cx), 2)) for _ in range(2))
+    eg, egc = (torch.complex(*ints((n, cx), 2, rows=rows)) for _ in range(2))
+    srows, esrows = (dfft.shard_rows(a, p).contiguous() for a in (g, eg))
+    scols, escols = pencil(gc), pencil(egc)
+    s = 1.0 / n
+
+    def kb1(*a, fast=True):
+        return ff.kb(*a, None, None, scale, fast=fast)[:1]
+
+    def cplx(out):
+        return [torch.view_as_real(out)]
+
+    return {
+        "ka_fast": FastCase(
+            lambda: ff.ka(xr, None, True, fast=True),
+            lambda: ff.ka_fast_plain(xr, None, True),
+            lambda: ff.ka(xr, None, True),
+            lambda: ff.ka(exr, None, True, fast=True),
+            lambda: ff.ka_fast_plain(exr, None, True),
+            list, (xr,), cy),
+        "ka_inverse_fast": FastCase(
+            lambda: ff.ka(zr, zi, False, 0.37, fast=True),
+            lambda: ff.ka_fast_plain(zr, zi, False, 0.37),
+            lambda: ff.ka(zr, zi, False, 0.37),
+            lambda: ff.ka(ezr, ezi, False, 0.37, fast=True),
+            lambda: ff.ka_fast_plain(ezr, ezi, False, 0.37),
+            list, (zr, zi), cx),
+        "kc_fast": FastCase(
+            lambda: ff.kc(xr, xi, fast=True),
+            lambda: ff.kc_fast_plain(xr, xi),
+            lambda: ff.kc(xr, xi),
+            lambda: ff.kc(exr, exi, fast=True),
+            lambda: ff.kc_fast_plain(exr, exi),
+            list, (xr, xi), cy),
+        "kb_single_fast": FastCase(
+            lambda: kb1(wr, wi),
+            lambda: ff.kb_fast_plain(wr, wi, None, None, scale)[:1],
+            lambda: kb1(wr, wi, fast=False),
+            lambda: kb1(ewr, ewi),
+            lambda: ff.kb_fast_plain(ewr, ewi, None, None, scale)[:1],
+            list, (wr, wi), cy),
+        "xstage_fast": FastCase(
+            lambda: fo.xstage(srows, False, s, fast=True),
+            lambda: fo.xstage_plain(srows, False, s, fast=True),
+            lambda: fo.xstage(srows, False, s),
+            lambda: fo.xstage(esrows, False, s, fast=True),
+            lambda: fo.xstage_plain(esrows, False, s, fast=True),
+            cplx, (srows,), cx),
+        "xstage_gather_fast": FastCase(
+            lambda: fo.xstage_gather(srows, fast=True),
+            lambda: fo.xstage_gather_plain(srows, fast=True),
+            lambda: fo.xstage_gather(srows),
+            lambda: fo.xstage_gather(esrows, fast=True),
+            lambda: fo.xstage_gather_plain(esrows, fast=True),
+            cplx, (srows,), cx),
+        "xstage_scatter_fast": FastCase(
+            lambda: fo.xstage_scatter(scols, cx, False, s, fast=True),
+            lambda: fo.xstage_scatter_plain(scols, cx, False, s, fast=True),
+            lambda: fo.xstage_scatter(scols, cx, False, s),
+            lambda: fo.xstage_scatter(escols, cx, False, s, fast=True),
+            lambda: fo.xstage_scatter_plain(escols, cx, False, s,
+                                            fast=True),
+            cplx, (scols,), cx),
+    }
+
+
+def fast_rest_library(name: str, case: FastCase, n: int):
+    """The one torch.fft call that computes a fast form's transform on its
+    inputs (complex64 where the input is complex): ka's fft or ifft along
+    x, kc's fft along y (its rows k <= n/2 and the transpose aside, as the
+    strict row), kb's irfft along y, the x-stages' fft or ifft along x of
+    the global array padded to the x-pencil's P w columns (the transposes
+    aside; shard_cases' figure for the strict rows)."""
+    if name == "ka_fast":
+        x = case.reads[0]
+        return lambda: torch.fft.fft(x, dim=0)
+    if name in ("ka_inverse_fast", "kc_fast", "kb_single_fast"):
+        x = torch.complex(*case.reads[:2])
+        if name == "kb_single_fast":
+            return lambda: torch.fft.irfft(x, n=n, dim=0)
+        return ((lambda: torch.fft.ifft(x, dim=0)) if name ==
+                "ka_inverse_fast" else (lambda: torch.fft.fft(x, dim=0)))
+    from xlab_fftbarotropic_torch.parallel.pencil import padded_half
+
+    x = case.reads[0]
+    if name == "xstage_scatter_fast":
+        g = x.permute(1, 0, 2).reshape(x.shape[1], -1)
+    else:
+        p, _, cx = x.shape
+        g = torch.cat([x, x.new_zeros((p, x.shape[1],
+                                       padded_half(cx, p) - cx))], -1)
+        g = g.reshape(n, -1)
+    if name == "xstage_gather_fast":
+        return lambda: torch.fft.fft(g, dim=0)
+    return lambda: torch.fft.ifft(g, dim=0)
+
+
+def _shard_vort(m, z, n: int) -> torch.Tensor:
+    """A sharded state's physical vorticity through the library inverse
+    (the model's own diags run its distributed inverse, fast or not)."""
+    return torch.fft.irfft2(m.unshard_spectral(z), s=(n, n))
+
+
+def _records_equal(a: Path, b: Path) -> bool:
+    names = sorted(p.name for p in a.glob("*.bin"))
+    return bool(names) and names == sorted(p.name for p in b.glob(
+        "*.bin")) and all((a / k).read_bytes() == (b / k).read_bytes()
+                          for k in names)
+
+
+def phase_fast_rest(n: int, steps: int, dev, profile: bool = False) -> dict:
+    """Phase 5q, the last fast forms: each of FAST_REST_KERNELS against
+    its plain version (bit for bit on exact inputs, FAST_TOL on random
+    ones) and its strict form (FAST_CLASS) at 64^2, 256^2, n^2, 256 x 200
+    and 1024 x 33 (the x-stages on 4 shards, and at 256^2 on 1, 2 and
+    8), timed at n^2 beside its bound, plain version, strict form and
+    torch call; the CLI's -m sw --fast-transforms with --r-drag and --nu4
+    (phase 5c's configuration: exactly 40 ka_fast, 8 kb_fast and 24
+    kc_fast per step) and --shard --shard-fft overlap --fast-transforms
+    on one shard, slab and x-pencil; the forcing spectrum once per
+    segment on ka_fast and kc_fast on the plane stepper, and the fast
+    rfft2's bits; the fast SW drag path through ShallowWaterModel.build
+    with torch.fft.* and torch.matmul raising, zeta and eta within
+    FAST_SW_BARS' 20-step RK4 bars of the strict drag path, above
+    FAST_FLOOR; cli.assimilate.main --fast-transforms (phase 5e's twin
+    experiment: exact fast launches, the cost falling), its gradient at
+    the first guess against the strict kernels' (FAST_GRAD_BAR, above
+    FAST_FLOOR); the four-shard overlap models in fast mode (slab and
+    x-pencil, RK4 and ETDRK4: exact launches, vorticity within
+    FAST_SHARD_BAR of the strict overlap run after `steps` steps, above
+    FAST_FLOOR), the pallas and xla impls with fast=True bit for bit
+    their strict runs; --ensemble 4 --ensemble-width 1 --ensemble-amp 0
+    --fast-transforms, every member's records the solo fast run's byte
+    for byte, and width 2 with --fast-transforms the strict width-2
+    run's; -m fd --fast-transforms byte for byte -m fd, and the FD
+    core's cold-start Jacobi solve on the card against the CPU's
+    (logged); ms/step of each new path beside its strict one, in turns;
+    with `profile` the breakdowns of the fast SW drag path, the fast
+    adjoint gradient and the fast slab overlap path."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.cli import assimilate
+    from xlab_fftbarotropic_torch.cli import run as cli_run
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.io.fieldio import write_field
+    from xlab_fftbarotropic_torch.models.fd_core import FDBarotropicModel
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
+                                                   make_mesh)
+
+    t_phase = time.perf_counter()
+    out = {"checks": {}, "kernels": {}, "main_paths": {}}
+    # -- the kernels
+    shapes = [(64, None), (256, None), (n, None)] + [
+        s for s in FAST_SHAPES if s[1] is not None]
+    for size, cols in dict.fromkeys(shapes):
+        cases = fast_rest_cases(size, cols, dev, size + (cols or 0) + 8)
+        where = f"{size}^2" if cols is None else f"{size} x {cols}"
+        for name, case in cases.items():
+            out["checks"][f"{name} {where}"] = fast_check(name, case, where)
+            if (size, cols) != (n, None):
+                continue
+            raw = case.plain()
+            got, want = case.fields(case.kern()), case.fields(raw)
+            bound_ms, bound_by, parts = fast_bound(case, want, size)
+            out["kernels"][name] = time_row(
+                name, case.kern, case.plain, case.strict,
+                fast_rest_library(name, case, size), bound_ms, bound_by,
+                size, max(float((g - w).abs().max())
+                          for g, w in zip(got, want)),
+                plain_iters=3, parts=parts)
+            out["kernels"][name]["rel_l2"] = \
+                out["checks"][f"{name} {where}"]["rel_l2_plain"]
+    for p in (1, 2, 8):
+        cases = fast_rest_cases(256, None, dev, 300 + p, p)
+        for name in FAST_XSTAGES:
+            out["checks"][f"{name} 256^2 P={p}"] = fast_check(
+                name, cases[name], f"256^2 on {p} shards")
+    log(f"phase 5q: kernels done at {time.perf_counter() - t_phase:.1f} s")
+    # -- the fast paths through the CLI
+    for family in FAST_REST_CLI:
+        out["main_paths"][family] = phase_main_path(family, n, steps)
+    # -- the forcing spectrum: the fast rfft2's bits, once per segment
+    cfg = ModelConfig(nx=n, ny=n)
+    scfg = cfg.replace(dt=min(3.0, max_stable_dt(cfg)))
+    src = 1e-9 * torch.from_numpy(makefields.gaussian(cfg)).to(dev)
+    spec = torch.complex(*fs.forward_planes(src, True))
+    same = bool(torch.equal(spec, ff.rfft2(src, fast=True)))
+    strict_spec = ff.rfft2(src)
+    check(same and not torch.equal(spec, strict_spec),
+          "the fast forcing spectrum is not the fast rfft2's bits")
+    plane = ShallowWaterModel.build(scfg, dev, fast=True)
+    s0 = plane.geostrophic_init(makefields.gaussian(scfg, zeta0=1e-5))
+    ff.reset_launches()
+    plane.segment(s0, src, 1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    want = {k: v for k, v in PER_STEP["sw-fast"].items()}
+    want.update(ka_fast=1, kc_fast=1)
+    log(f"forcing spectrum in fast mode: forward_planes(src, fast) is the "
+        f"fast rfft2 bit for bit ({same}), rel-L2 "
+        f"{rel_l2(spec, strict_spec):.3e} from the strict one; a forced "
+        f"plane-stepper step launches {launches}")
+    check(launches == want, f"forced fast SW step launches {launches} != "
+                            f"{want}")
+    # -- the fast SW drag path against the strict one
+    dcfg = cfg.replace(dt=min(SW_DRAG_DT_MAX, max_stable_dt(cfg)),
+                       r_drag=SW_R_DRAG, nu4=example12_nu4(n))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        drag = {"sw-drag-fast": ShallowWaterModel.build(dcfg, dev,
+                                                        fast=True)}
+        drag["sw-drag"] = ShallowWaterModel.build(
+            dcfg, dev, drag["sw-drag-fast"].tables)
+    check(all(m.per_transform for m in drag.values())
+          and drag["sw-drag-fast"].fast and drag["sw-drag-fast"].split,
+          "the fast SW drag path's selection")
+    ds0 = drag["sw-drag"].geostrophic_init(makefields.gaussian(dcfg,
+                                                               zeta0=1e-5))
+    dsrc = drag["sw-drag"].zero_source()
+    with _refusing_library():
+        z = drag["sw-drag-fast"].segment(ds0, dsrc, 2)
+        torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(torch.view_as_real(x)).all()) for x in z),
+          "fast SW drag state not finite")
+    bz, be = FAST_SW_BARS[(20, "rk4")]
+    a, b = (sw_fields_of(drag[k].segment(ds0, dsrc, 20), n)
+            for k in ("sw-drag-fast", "sw-drag"))
+    e = {f: rel_l2(a[f], b[f]) for f in a}
+    log(f"fast SW drag trajectory: 20 steps at {n}^2 (dt {dcfg.dt:.4f} s, "
+        f"r_drag {SW_R_DRAG:g}, nu4 {dcfg.nu4:.4g}), rel-L2 vs the strict "
+        f"drag path: zeta {e['zeta']:.3e}, eta {e['eta']:.3e}, div "
+        f"{e['div']:.3e} (div: no bar)")
+    for f, bar in (("zeta", bz), ("eta", be)):
+        check(bool(torch.isfinite(a[f]).all()), f"fast SW drag {f}")
+        check(FAST_FLOOR < e[f] <= bar, f"fast SW drag {f} rel-L2 "
+                                        f"{e[f]:.3e} outside ({FAST_FLOOR:g},"
+                                        f" {bar:g}]")
+    out["sw_drag_fast_vs_strict_20_steps"] = e
+    # -- the adjoint in fast mode
+    w = ADJ_WINDOW
+    truth = torch.from_numpy(makefields.gaussian(cfg)).to(dev)
+    zsrc = torch.zeros(cfg.grid_shape, device=dev)
+    with torch.no_grad():
+        target = adjoint.make_rollout(cfg, w, device=dev)(truth, zsrc)
+    guess = 0.9 * truth
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_adj_") as tmp:
+        tmp = Path(tmp)
+        write_field(tmp / "target.bin", target.cpu().numpy())
+        write_field(tmp / "guess.bin", guess.cpu().numpy())
+        rc, _, err, launches = _cli_main(assimilate.main, [
+            "--nx", str(n), "--ny", str(n), "--target",
+            str(tmp / "target.bin"), "--guess", str(tmp / "guess.bin"),
+            "--out", str(tmp / "rec.bin"), "--steps", str(w), "--iters",
+            str(ADJ_ITERS), "--lr", repr(ADJ_LR), "--device", "cuda",
+            "--fast-transforms"])
+        check(rc == 0, f"cli.assimilate.main --fast-transforms returned {rc}")
+        check("# fast transforms:" in err, "no fast banner")
+        losses = np.loadtxt(tmp / "rec.bin.loss.txt")
+    want = {**dict.fromkeys(ff.LAUNCHES, 0),
+            **{f"{k}_fast": v for k, v in adjoint_launches(
+                w, gradients=ADJ_ITERS, forwards=2).items()}}
+    log(f"adjoint-fast main path: cli.assimilate.main --fast-transforms at "
+        f"{n}^2 (window {w}), {ADJ_ITERS} Adam iterations: cost "
+        f"{losses[0]:.6e} -> {losses[-1]:.6e} (ratio "
+        f"{losses[-1] / losses[0]:.4e}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check(launches == want, f"fast adjoint launches {launches} != {want}")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"fast cost history {losses}")
+    out["main_paths"]["adjoint-fast"] = dict(launches=launches,
+                                             losses=losses.tolist())
+    vg = {f: adjoint.loss_and_grad(adjoint.final_state_misfit(
+        cfg, target, w, device=dev, fast=f), device=dev)
+        for f in (True, False)}
+    with _refusing_library():
+        _, g_fast = vg[True](guess, zsrc)
+        torch.cuda.synchronize()
+    _, g_strict = vg[False](guess, zsrc)
+    grel = rel_l2(g_fast, g_strict)
+    log(f"fast adjoint gradient at {n}^2, window {w}: rel-L2 {grel:.3e} "
+        f"against the strict kernels' (bar {FAST_GRAD_BAR:g}); the fast "
+        f"loss and backward() ran with torch.fft.* and torch.matmul "
+        f"raising")
+    check(FAST_FLOOR < grel <= FAST_GRAD_BAR,
+          f"fast adjoint gradient rel-L2 {grel:.3e}")
+    out["adjoint_grad_fast_vs_strict"] = grel
+    gtimes = {True: [], False: []}
+    for f in (True, False, False, True):
+        vg[f](guess, zsrc)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vg[f](guess, zsrc)
+        end.record()
+        end.synchronize()
+        gtimes[f].append(start.elapsed_time(end) / w)
+    for f, ts in gtimes.items():
+        k = "fast" if f else "strict"
+        out[f"adjoint_grad_ms_per_window_step_{k}"] = sum(ts) / len(ts)
+        log(f"time adjoint gradient {k:6s}: {sum(ts) / len(ts):.3f} ms per "
+            f"window step ({', '.join(f'{t:.3f}' for t in ts)})")
+    # -- the sharded overlap impl in fast mode on four shards
+    mesh = make_mesh(4, dev)
+    ecfg = cfg.replace(time_scheme="etdrk4", nu4=example12_nu4(n))
+    v0 = makefields.gaussian(cfg)
+    shard = {}
+    for name in FAST_SHARD_MODELS:
+        _, decomp, _, _, *etd = name.split("-")
+        c = ecfg if etd else cfg
+        m = ShardedBarotropicModel.build(c, mesh, "overlap", decomp,
+                                         fast=True)
+        ref = ShardedBarotropicModel.build(c, mesh, "overlap", decomp)
+        check(m.fast and not ref.fast, f"{name} selection")
+        z0, src4 = m.init_state(v0), m.zero_source()
+        torch.cuda.synchronize()
+        ff.reset_launches()
+        with _refusing(shard_refused("overlap")):
+            z = m.segment(z0, src4, steps)
+            torch.cuda.synchronize()
+        launches = dict(ff.LAUNCHES)
+        want = {k: PER_STEP[name].get(k, 0) * steps for k in ff.LAUNCHES}
+        check(launches == want, f"{name} launches {launches} != {want}")
+        zr = ref.segment(z0, src4, steps)
+        a, b = _shard_vort(m, z, n), _shard_vort(ref, zr, n)
+        check(bool(torch.isfinite(a).all()), f"{name} vort not finite")
+        rel = rel_l2(a, b)
+        log(f"{name}: {steps} steps at {n}^2 on 4 shards, launches "
+            f"{ {k: v for k, v in launches.items() if v} }; rel-L2 of vort "
+            f"vs the strict overlap run {rel:.3e} (bar {FAST_SHARD_BAR:g})")
+        check(FAST_FLOOR < rel <= FAST_SHARD_BAR,
+              f"{name} rel-L2 {rel:.3e} outside ({FAST_FLOOR:g}, "
+              f"{FAST_SHARD_BAR:g}]")
+        out["main_paths"][name] = dict(launches=launches)
+        out[f"{name}_vs_strict"] = rel
+        shard[name] = (m, z0, src4)
+        if not etd:
+            shard[name.replace("-fast", "")] = (ref, z0, src4)
+    for decomp in SHARD_DECOMPS:
+        for impl in ("xla", "pallas"):
+            runs = [ShardedBarotropicModel.build(cfg, mesh, impl, decomp,
+                                                 fast=f) for f in (True,
+                                                                   False)]
+            z0 = runs[0].init_state(v0)
+            za, zb = (r.segment(z0, runs[0].zero_source(), 2) for r in runs)
+            same = bool(torch.equal(za, zb)) and not runs[0].fast
+            log(f"shard4-{decomp}-{impl} with fast=True: 2 steps bit for "
+                f"bit the strict run: {same}")
+            check(same, f"shard4-{decomp}-{impl}: fast=True changed bits")
+    # -- the ensemble and the FD core through the CLI
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "input").mkdir()
+        write_field(tmp / "input" / cfg.init_file, v0)
+
+        def run(name, *extra):
+            rc, _, err, launches = _cli_main(cli_run.main, _bt_argv(
+                n, steps, tmp / "input", tmp / name, tmp / f"{name}.log",
+                *extra))
+            check(rc == 0, f"cli.run.main {' '.join(extra)} returned {rc}")
+            return launches, err
+
+        solo, _ = run("solo", "--fast-transforms")
+        ens = ("--ensemble", str(FAST_ENS_MEMBERS), "--ensemble-amp", "0")
+        launches, _ = run("ens1", *ens, "--ensemble-width", "1",
+                          "--fast-transforms")
+        want = {k: FAST_ENS_MEMBERS * v for k, v in solo.items()}
+        check(launches == want, f"fast ensemble launches {launches} != "
+                                f"{want}")
+        members = [f"m{k:02d}" for k in range(FAST_ENS_MEMBERS)]
+        same = all(_records_equal(tmp / "solo", tmp / "ens1" / k)
+                   for k in members)
+        log(f"fast ensemble: {FAST_ENS_MEMBERS} members x {steps} steps at "
+            f"{n}^2, width 1, amp 0: every member's records the solo fast "
+            f"run's byte for byte: {same}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check(same, "a fast width-1 member is not the solo fast run")
+        out["main_paths"]["ensemble-fast"] = dict(launches=launches)
+        run("ens2-fast", *ens, "--ensemble-width", "2", "--fast-transforms")
+        run("ens2", *ens, "--ensemble-width", "2")
+        same = all(_records_equal(tmp / "ens2-fast" / k, tmp / "ens2" / k)
+                   for k in members)
+        log(f"fast ensemble width 2 (batched chunks on torch.fft): records "
+            f"the strict width-2 run's byte for byte: {same}")
+        check(same, "a fast width-2 chunk is not its strict run")
+        run("fd", "-m", "fd")
+        launches, err = run("fd-fast", "-m", "fd", "--fast-transforms")
+        same = _records_equal(tmp / "fd", tmp / "fd-fast")
+        log(f"-m fd --fast-transforms: {steps} steps at {n}^2, records "
+            f"byte for byte -m fd's: {same}; no launch: "
+            f"{not any(launches.values())}")
+        check(same and not any(launches.values())
+              and "runs torch.fft" in err, "-m fd in fast mode")
+    # the FD core's cold-start Jacobi solve, card against CPU (logged:
+    # an open check, not a bar)
+    small = ModelConfig(nx=64, ny=64)
+    z_small = makefields.gaussian(small)
+    cold = []
+    for where in (dev, torch.device("cpu")):
+        fm = FDBarotropicModel.build(small, where, tol=1e-3, max_iter=2000,
+                                     solver="jacobi")
+        z = torch.from_numpy(z_small).to(where)
+        zz, pp = fm.segment(z, torch.zeros_like(z), fm.zero_source(), 3)
+        cold.append((zz.cpu(), pp.cpu(), [int(s) for s in fm.sweeps]))
+    out["fd_cold_start"] = dict(
+        zeta_rel_l2=rel_l2(cold[0][0], cold[1][0]),
+        psi_rel_l2=rel_l2(cold[0][1], cold[1][1]),
+        sweeps_card=cold[0][2], sweeps_cpu=cold[1][2])
+    log(f"fd cold start (psi guess 0) at 64^2, 3 steps, Jacobi tol 1e-3, "
+        f"max 2000 sweeps: card vs CPU rel-L2 zeta "
+        f"{out['fd_cold_start']['zeta_rel_l2']:.3e}, psi "
+        f"{out['fd_cold_start']['psi_rel_l2']:.3e} (the FD core's bar "
+        f"{TOL:g}); sweeps card {cold[0][2]}, CPU {cold[1][2]}")
+    # -- time, in turns
+    paths = {"sw-drag-fast": drag["sw-drag-fast"], "sw-drag": drag["sw-drag"]}
+    s0 = dict.fromkeys(paths, ds0)
+    for k in ("shard4-slab-overlap-fast", "shard4-slab-overlap",
+              "shard4-xpencil-overlap-fast", "shard4-xpencil-overlap"):
+        paths[k] = shard[k][0]
+        s0[k] = shard[k][1]
+    srcs = {k: (dsrc if k.startswith("sw") else shard[k][2]) for k in paths}
+    times = {k: [] for k in paths}
+    for k in list(paths) + list(reversed(list(paths))):
+        m = paths[k]
+        m.segment(s0[k], srcs[k], 2)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m.segment(s0[k], srcs[k], steps)
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end) / steps)
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[f"ms_per_step_{k}"] = ms
+        log(f"time {k:28s}: {ms:.3f} ms/step "
+            f"({', '.join(f'{x:.3f}' for x in ts)})")
+    if profile:
+        m = drag["sw-drag-fast"]
+        sm, sz, ss = shard["shard4-slab-overlap-fast"]
+        out["profile"] = {
+            "sw-drag-fast": profile_run(
+                "sw-drag-fast", lambda: m.segment(ds0, dsrc, 5), 5),
+            "adjoint-gradient-fast": profile_run(
+                "adjoint-gradient-fast", lambda: vg[True](guess, zsrc), w),
+            "shard4-slab-overlap-fast": profile_run(
+                "shard4-slab-overlap-fast", lambda: sm.segment(sz, ss, 5),
+                5)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5q: {out['wall_s']:.1f} s")
+    return out
+
+
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -2784,10 +3357,10 @@ def ptxas_tag(name: str, fn: str) -> str:
     """A kernel instance's name in the ptxas lines: the kernel's, and
     "fast" and "bf16" where those template flags are set (the combines:
     "bf16" for the bf16 product type)."""
-    flags = re.search(rf"\d{name}I((?:Lb[01]E)+)E", fn)
-    bits = re.findall(r"Lb([01])E", flags.group(1)) if flags else []
-    set_ = [f for f, b in zip(TEMPLATE_FLAGS.get(name, ()), bits)
-            if b == "1" and f in ("fast", "bf16")]
+    args = re.search(rf"\d{name}I((?:L[a-z]+n?\d+E)+)E", fn)
+    vals = re.findall(r"L([a-z]+)(n?\d+)E", args.group(1)) if args else []
+    set_ = [f for f, (t, v) in zip(TEMPLATE_FLAGS.get(name, ()), vals)
+            if t == "b" and v == "1" and f in ("fast", "bf16")]
     if re.search(rf"\d{name}I\d+__nv_bfloat16E", fn):
         set_.append("bf16")
     return " ".join([name] + set_)
@@ -3053,10 +3626,17 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
                            sw_rk4 + ["--fast-transforms"]),
         "sw-xfirst-fast-etdrk4": (["vort", "div", "h"],
                                   sw_etd + ["--fast-transforms"]),
-        # the sharded model on one shard: shard-<decomp>-<impl>
+        # the sharded model on one shard: shard-<decomp>-<impl>[-fast]
         **{f: (["vort"], ["--shard", "--decomp", f.split("-")[1],
-                          "--shard-fft", f.split("-")[2]])
-           for f in SHARD_CLI},
+                          "--shard-fft", f.split("-")[2]]
+               + (["--fast-transforms"] if f.endswith("-fast") else []))
+           for f in SHARD_CLI + FAST_REST_CLI[1:]},
+        # phase 5q: the SW drag path in fast mode
+        "sw-drag-fast": (["vort", "div", "h"],
+                         ["-m", "sw", "--dt",
+                          repr(min(SW_DRAG_DT_MAX, max_stable_dt(cfg))),
+                          "--r-drag", repr(SW_R_DRAG), "--nu4",
+                          repr(example12_nu4(n)), "--fast-transforms"]),
     }[family]
     if family in SW_FAMILIES:
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
@@ -4472,6 +5052,10 @@ def main(argv=None) -> int:
                                               args.profile)
     report["kernels"].update(report["fast_xfirst"]["kernels"])
     report["main_paths"].update(report["fast_xfirst"]["main_paths"])
+    report["fast_rest"] = phase_fast_rest(args.n, args.steps, dev,
+                                          args.profile)
+    report["kernels"].update(report["fast_rest"]["kernels"])
+    report["main_paths"].update(report["fast_rest"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

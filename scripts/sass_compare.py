@@ -11,7 +11,8 @@ function. A function is keyed by its name and template arguments, with
 the flags its template gained for fast mode and the shallow-water bf16
 product store taken off (FAST on ka_fields_kernel, kb_pair_kernel,
 kb_adv_kernel, kx_visc_kernel, ka_sw_kernel, ky_all_kernel,
-ky_adv_kernel and kb_adv_tracer_kernel; BF16 on
+ky_adv_kernel, kb_adv_tracer_kernel, kb_kernel, kc_kernel,
+ka_adv_kernel, ka_fwd_kernel, ka_kernel and xstage_kernel; BF16 on
 kx_visc_kernel; the product type of sw_combine_kernel and
 sw_combine_mv_kernel), and the instances with a gained flag set or a
 bf16 product type (no counterpart in a checkout without them) left out.
@@ -37,7 +38,8 @@ from pathlib import Path
 OWN_FLAGS = {"ka_fields_kernel": 1, "kb_pair_kernel": 0, "kb_adv_kernel": 1,
              "kx_visc_kernel": 0, "ka_sw_kernel": 0, "ky_all_kernel": 0,
              "ky_adv_kernel": 0, "kb_adv_tracer_kernel": 0, "kb_kernel": 0,
-             "kc_kernel": 0, "ka_adv_kernel": 0, "ka_fwd_kernel": 0}
+             "kc_kernel": 0, "ka_adv_kernel": 0, "ka_fwd_kernel": 0,
+             "ka_kernel": 1, "xstage_kernel": 3}
 # the templates on the product type: float (the first form) or bf16
 PRODUCT_TEMPLATES = ("sw_combine_kernel", "sw_combine_mv_kernel")
 

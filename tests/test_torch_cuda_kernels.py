@@ -1116,7 +1116,9 @@ FAST_NAMES = ["ka_diag_fast", "kb_pair_fast", "kb_adv_half_fast",
               "kx_visc_tracer_fast", "ky_adv_fast", "kb_adv_full_fast",
               "kx_visc_tail_fast", "kx_fwd_bt_fast", "kx_visc_none_fast",
               "ka_quad_fast", "ka_quad_split_fast", "kb_xmajor_fast",
-              "ka_adv_fast", "kc_visc_fast", "ka_fwd_fast", "kc_sw_fast"]
+              "ka_adv_fast", "kc_visc_fast", "ka_fwd_fast", "kc_sw_fast",
+              "ka_fast", "ka_inverse_fast", "kc_fast", "kb_single_fast",
+              "xstage_fast", "xstage_gather_fast", "xstage_scatter_fast"]
 # (transform length, columns): None the n x n grid's (chip_smoke.py
 # FAST_SHAPES); 200 and 33 columns end in ragged tiles
 FAST_SHAPES = [(64, None), (256, None), (4096, None), (256, 200),
@@ -1134,6 +1136,7 @@ def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
     really rounds to bf16, and stays in class): chip_smoke.py's
     fast_check on its fast_cases."""
     from chip_smoke import FAST_ARM_KERNELS, FAST_SW_KERNELS, fast_cases
+    from chip_smoke import FAST_REST_KERNELS, fast_rest_cases
     from chip_smoke import FAST_XFIRST_KERNELS, fast_xfirst_cases
     from chip_smoke import fast_arm_cases, fast_check, fast_sw_cases
 
@@ -1141,6 +1144,7 @@ def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
     cases = (fast_sw_cases if name in FAST_SW_KERNELS
              else fast_arm_cases if name in FAST_ARM_KERNELS
              else fast_xfirst_cases if name in FAST_XFIRST_KERNELS
+             else fast_rest_cases if name in FAST_REST_KERNELS
              else fast_cases)
     fast_check(name, cases(n, cols, cuda, n)[name], f"{shape}")
 
@@ -1181,8 +1185,8 @@ def test_bf16_forms_are_their_float32_forms(cuda, name, n):
 def test_fast_sw_launches_and_error_class(cuda, scheme):
     """Three steps of shallow-water fast mode at 256^2 (the balanced
     vortex, zero forcing) launch exactly the fast forms and the
-    bf16-product combine per step (and ka, kc once for the forcing
-    spectrum); the unfused RK form gives the fused one's bits (ETDRK4's
+    bf16-product combine per step (and ka_fast, kc_fast once for the
+    forcing spectrum); the unfused RK form gives the fused one's bits (ETDRK4's
     unfused form, which reorders its stage sums, is within rel-L2 1e-5);
     zeta and eta stay within rel-L2 1e-7 .. 1e-2 of the strict kernel
     path (div has no bar)."""
@@ -1207,7 +1211,7 @@ def test_fast_sw_launches_and_error_class(cuda, scheme):
     comb = ({"sw_combine_mv_bf16": 12} if etd
             else {"sw_combine_bf16": 12, "rk4_combine": 3})
     want = {"ka_sw_fast": 12, "kb_pair_fast": 24, "ky_all_fast": 12,
-            "kx_fwd_fast": 12, "ka": 1, "kc": 1, **comb}
+            "kx_fwd_fast": 12, "ka_fast": 1, "kc_fast": 1, **comb}
     assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
     def rel(x, y):
         fx, fy = (torch.fft.irfft2(z, s=(256, 256)) for z in (x, y))
@@ -1316,11 +1320,13 @@ def _poisoned(rng, shape, dev):
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("name", ["kb_pair", "kb", "kb_stacked",
                                   "kb_adv_half", "kb_adv_full",
-                                  "kb_adv_tracer"])
+                                  "kb_adv_tracer", "kb_single"])
 def test_fast_leak_guard(cuda, name, n):
     """The fast forms of the paired c2r y-stages project the junk in the
     imaginary parts of the self-conjugate rows 0 and ny/2 out, as the
-    strict ones do: the poisoned stack gives the clean stack's bits."""
+    strict ones do: the poisoned stack gives the clean stack's bits;
+    kb_single is kb's single form as the fast irfft2 runs it, on the
+    x-stage planes of ka_fast's complex inverse of a half spectrum."""
     rng = np.random.default_rng(n + 71)
     fields = 6 if name == "kb_adv_tracer" else 4
     wr, clean, poisoned = _poisoned(rng, (fields, n // 2 + 1, n), cuda)
@@ -1336,7 +1342,17 @@ def test_fast_leak_guard(cuda, name, n):
         "kb_adv_full": lambda w: ff.kb_adv_full(wr, w, src, 0.3, fast=True),
         "kb_adv_tracer": lambda w: ft.kb_adv_tracer(zx, zy, qx, qy, wr, w,
                                                     src, 0.3, fast=True),
+        "kb_single": lambda w: ff.kb(xr, w, None, None, scale,
+                                     fast=True)[:1],
     }[name]
+    if name == "kb_single":
+        spec = torch.complex(*_planes(rng, (n, n // 2 + 1), 2, cuda))
+        xr, xi = ff.ka(spec.real.contiguous(), spec.imag.contiguous(), False,
+                       fast=True)
+        clean, poisoned = xi.clone(), xi.clone()
+        clean[0], clean[-1] = 0.0, 0.0
+        poisoned[0], poisoned[-1] = 10.0 * xi[0] + 1.0, -7.0 * xi[-1]
+        assert torch.equal(run(clean)[0], run(xi)[0])
     a, b = run(clean), run(poisoned)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -1398,7 +1414,8 @@ def test_fast_sw_xfirst_launches_and_error_class(cuda, scheme):
     """Three steps of shallow-water fast mode in the x-first order at
     256^2 launch per stage 1 ka_sw, 2 kb, 1 ka_fwd and 1 kc_sw, all fast,
     and the float32 combine of the scheme (the product store is float32,
-    as in the JAX package), and ka, kc once for the forcing spectrum;
+    as in the JAX package), and ka_fast, kc_fast once for the forcing
+    spectrum;
     zeta and eta stay within rel-L2 1e-7 .. 1e-2 of the strict x-first
     kernel path and within 1e-2 of the y-first fast path."""
     from xlab_fftbarotropic_torch.config import ModelConfig
@@ -1421,7 +1438,7 @@ def test_fast_sw_xfirst_launches_and_error_class(cuda, scheme):
     comb = ({"sw_combine_mv": 12} if etd
             else {"sw_combine": 12, "rk4_combine": 3})
     want = {"ka_sw_fast": 12, "kb_fast": 24, "ka_fwd_fast": 12,
-            "kc_sw_fast": 12, "ka": 1, "kc": 1, **comb}
+            "kc_sw_fast": 12, "ka_fast": 1, "kc_fast": 1, **comb}
     assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
 
     def rel(x, y):
@@ -1548,14 +1565,53 @@ def test_a2a_call_allocates_its_output_and_launches_once(cuda, to_cols):
     assert after - before == 1
     name = "a2a_cols" if to_cols else "a2a_rows"
     assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), name: 1}
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        again = call()
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.equal(call(), out)
+    # the device's view: one kernel queued per call, seen by a
+    # torch.profiler session alone in its own process (a second session
+    # in one process has seen no device events)
+    kernels = _device_kernels_of_one_call(to_cols)
     assert len(kernels) == 1 and "a2a_kernel" in kernels[0], kernels
-    assert torch.equal(again, out)
+
+
+_ONE_CALL = """
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+to_cols = sys.argv[2] == "1"
+p, n = 4, 256
+hny = n // 2 + 1
+rng = np.random.default_rng(11)
+shape = (p, n // p, hny) if to_cols else (p, n, -(-hny // p))
+x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(
+    shape)).astype(np.complex64)).cuda()
+def call():
+    return ftr.a2a_cols(x) if to_cols else ftr.a2a_rows(x, hny)
+call()
+torch.cuda.synchronize()
+with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def _device_kernels_of_one_call(to_cols: bool) -> list:
+    """The device kernels torch.profiler sees for one a2a call, traced in
+    a process of its own."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    done = subprocess.run([sys.executable, "-c", _ONE_CALL, root,
+                           "1" if to_cols else "0"], capture_output=True,
+                          text=True, timeout=600, check=True)
+    return json.loads(done.stdout.strip().splitlines()[-1])
 
 
 def test_a2a_refuses_more_shards_than_its_cap(cuda):
@@ -2439,3 +2495,122 @@ def test_jacobi_stops_at_the_cpus_sweep(cuda, tol):
                           for d in (cuda, torch.device("cpu")))
     assert 1 < int(kc) < 10_000 and abs(int(kd) - int(kc)) <= 1
     assert _rel(xd.cpu(), xc) <= TOL
+
+
+# ----- fast mode, the last forms: rows 12, 13 single, 14, 21 and 22 -----
+
+@pytest.mark.parametrize("p", [1, 2, 8])
+def test_fast_xstages_on_other_shard_counts(cuda, p):
+    """The fast x-stage's three modes at 256^2 on 1, 2 and 8 shards,
+    held as test_fast_kernel_matches_plain_and_strict holds them on 4."""
+    from chip_smoke import FAST_XSTAGES, fast_check, fast_rest_cases
+
+    cases = fast_rest_cases(256, None, cuda, 300 + p, p)
+    for name in FAST_XSTAGES:
+        fast_check(name, cases[name], f"256^2 on {p} shards")
+
+
+def test_fast_sw_drag_launches_and_error_class(cuda):
+    """Two SW RK4 steps with drag and hyperviscosity in fast mode at 256^2
+    launch 4 stages x (10 ka_fast, 2 kb_fast, 6 kc_fast) per step and
+    nothing else, and stay within rel-L2 1e-7 .. 1e-2 of the strict drag
+    path in zeta and eta (div has no bar)."""
+    import warnings
+
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel, max_stable_dt)
+
+    cfg = ModelConfig(nx=256, ny=256)
+    drag = cfg.replace(dt=max_stable_dt(cfg), r_drag=2e-4, nu4=1e9)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fast = ShallowWaterModel.build(drag, cuda, fast=True)
+        strict = ShallowWaterModel.build(drag, cuda, fast.tables)
+    assert fast.per_transform and fast.fast and fast.split
+    s0 = fast.geostrophic_init(makefields.gaussian(cfg, zeta0=1e-5))
+    ff.reset_launches()
+    a = fast.segment(s0, fast.zero_source(), 2)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), "ka_fast": 80,
+                           "kb_fast": 16, "kc_fast": 48}
+    b = strict.segment(s0, strict.zero_source(), 2)
+    for x, y in ((a.zeta_hat, b.zeta_hat), (a.eta_hat, b.eta_hat)):
+        fx, fy = (torch.fft.irfft2(z, s=(256, 256)) for z in (x, y))
+        rel = float(torch.linalg.vector_norm(fx - fy)
+                    / torch.linalg.vector_norm(fy))
+        assert 1e-7 < rel < 1e-2, rel
+
+
+def test_fast_adjoint_gradient_launches_and_bar(cuda):
+    """A 3-step barotropic rollout gradient at 256^2 in fast mode launches
+    the strict gradient's counts under the fast names (60n + 4 ka_fast,
+    20n + 2 kb_fast, 24n + 2 kc_fast) and lies within rel-L2 1e-1 of the
+    strict kernels' gradient, above 1e-7 (chip_smoke.py FAST_GRAD_BAR)."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+
+    n = 3
+    cfg = ModelConfig(nx=256, ny=256)
+    truth = makefields.gaussian(cfg)
+    src = torch.zeros(cfg.grid_shape, device=cuda)
+    with torch.no_grad():
+        target = adjoint.make_rollout(cfg, n, device=cuda)(truth, src)
+    grads = {}
+    for fast in (False, True):
+        loss = adjoint.final_state_misfit(cfg, target, n, device=cuda,
+                                          fast=fast)
+        ff.reset_launches()
+        _, grads[fast] = adjoint.loss_and_grad(loss, device=cuda)(
+            0.9 * truth, src)
+        torch.cuda.synchronize()
+        sfx = "_fast" if fast else ""
+        assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0),
+                               "ka" + sfx: 60 * n + 4, "kb" + sfx: 20 * n + 2,
+                               "kc" + sfx: 24 * n + 2}
+    rel = float(torch.linalg.vector_norm(grads[True] - grads[False])
+                / torch.linalg.vector_norm(grads[False]))
+    assert 1e-7 < rel <= 1e-1, rel
+
+
+@pytest.mark.parametrize("decomp", ["slab", "xpencil"])
+def test_fast_sharded_overlap_launches_and_error_class(cuda, decomp):
+    """Three RK4 steps of the overlap impl in fast mode on four shards at
+    256^2 launch the strict overlap path's x-stages under their fast
+    names (slab: 20 xstage_fast per step; x-pencil: 4 xstage_gather_fast
+    and 16 xstage_scatter_fast), and the vorticity (the state through the
+    library inverse) lies within rel-L2 1e-7 .. 1e-4 of the strict
+    overlap run's; the xla and pallas impls with fast=True step bit for
+    bit as without."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
+                                                   make_mesh)
+
+    n = 256
+    cfg = ModelConfig(nx=n, ny=n)
+    mesh = make_mesh(4, cuda)
+    fast = ShardedBarotropicModel.build(cfg, mesh, "overlap", decomp,
+                                        fast=True)
+    strict = ShardedBarotropicModel.build(cfg, mesh, "overlap", decomp)
+    z0 = fast.init_state(makefields.gaussian(cfg))
+    src = fast.zero_source()
+    ff.reset_launches()
+    a = fast.segment(z0, src, 3)
+    torch.cuda.synchronize()
+    want = ({"xstage_fast": 60} if decomp == "slab"
+            else {"xstage_gather_fast": 12, "xstage_scatter_fast": 48})
+    assert ff.LAUNCHES == {**dict.fromkeys(ff.LAUNCHES, 0), **want}
+    b = strict.segment(z0, src, 3)
+    va, vb = (torch.fft.irfft2(m.unshard_spectral(z), s=(n, n))
+              for m, z in ((fast, a), (strict, b)))
+    rel = float(torch.linalg.vector_norm(va - vb)
+                / torch.linalg.vector_norm(vb))
+    assert 1e-7 < rel <= 1e-4, rel
+    for impl in ("xla", "pallas"):
+        runs = [ShardedBarotropicModel.build(cfg, mesh, impl, decomp,
+                                             fast=f) for f in (True, False)]
+        assert not runs[0].fast
+        assert torch.equal(*(r.segment(z0, src, 2) for r in runs))

@@ -10,8 +10,8 @@ own strict run; every other y-first arm (FUSEKB "" and full, FUSEKX=0,
 FUSETAIL, the unfused RK form) bit for bit the fast half arm, and
 ETDRK4's fast error against the JAX package's; the converters carrying a
 JAX state into the port's fast run; the model's and the CLI's fast
-selection, each arm's banner, and the refusals of what waits (ROADMAP.md
-queue A, item 4).
+selection, each arm's banner, and the flag sets fast mode once refused
+(ROADMAP.md queue A, item 4), which run now.
 
 Bars: a fast transform's rel-L2 against float64 lies in 1e-4 .. 1e-2
 (it rounds to bf16, and stays in class), within a factor of 5 either way
@@ -38,7 +38,6 @@ HNY = N // 2 + 1
 # "pallas": the JAX package's "auto" takes its library path on the CPU
 CFG = ModelConfig(nx=N, ny=N, fft_backend="pallas")
 CPU = torch.device("cpu")
-ITEM = "queue A, item 4"
 FACTOR = 5.0
 
 
@@ -473,38 +472,69 @@ def test_cli_fast_mode_runs_every_arm(tmp_path, monkeypatch, capsys, extra,
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_cli_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
                                           extra, env):
-    """What waits stops with the item named; the x-first order of either
-    family (XFB_BT_YFIRST=0, -m sw XFB_SW_YFIRST=0), which waited for item
-    4.4, now runs, with the fast banner and the x-first kernels named."""
+    """Every flag set fast mode once refused runs now (the x-first order,
+    -m fd, --shard, --ensemble, for the tracer too), with the banner of
+    what it runs on the fast tile or of what fast mode leaves as it is,
+    and writes its records; the sharded tracer still stops, naming item
+    5.1 (the sharded families, which wait in strict mode too)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if extra == ["-m", "tracer", "--shard"]:
+        with pytest.raises(SystemExit) as e:
+            _run_cli(tmp_path, *extra)
+        assert e.value.code == 2
+        assert "queue A, item 5.1" in capsys.readouterr().err
+        assert not (tmp_path / "out").exists()
+        return
+    sw = "XFB_SW_YFIRST" in env
+    assert _run_cli(tmp_path, *extra, *(["--dt", "1"] if sw else [])) == 0
+    err = capsys.readouterr().err
     if "0" in (env.get("XFB_BT_YFIRST"), env.get("XFB_SW_YFIRST")):
-        sw = "XFB_SW_YFIRST" in env
-        assert _run_cli(tmp_path, *extra, *(["--dt", "1"] if sw else [])) \
-            == 0
-        err = capsys.readouterr().err
         assert "# fast transforms: bf16 tensor-core sub-DFTs" in err
         assert "Transform order       : x-first" in err
         assert ("SW formulation        : fast" if sw else
                 "Fusion arm            : fast: ka_diag, kb x2, ka_adv, "
                 "kc_visc, torch stage updates") in err
-        assert (tmp_path / "out" / "vort_step_0.bin").stat().st_size \
-            == N * N * 4
-        return
-    with pytest.raises(SystemExit) as e:
-        _run_cli(tmp_path, *extra)
-    assert e.value.code == 2
-    assert ITEM in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()
+    elif "--ensemble" in extra:
+        # 64^2 takes one batched chunk of both members (auto width)
+        assert "batched ensemble chunks (width > 1) run the torch.fft" in err
+    elif "--shard" in extra:
+        assert "--shard-fft xla runs torch.fft x-stages" in err
+    else:
+        assert "# fast transforms: bf16 tensor-core sub-DFTs" in err
+        assert "the FD core (Arakawa Jacobian, FFT Poisson solve) runs " \
+               "torch.fft" in err
+    out = tmp_path / "out"
+    records = ([out / k / "vort_step_0.bin" for k in ("m00", "m01")]
+               if "--ensemble" in extra else [out / "vort_step_0.bin"])
+    for f in records:
+        assert f.stat().st_size == N * N * 4
 
 
 def test_assimilate_refuses_fast_mode(tmp_path, capsys):
+    """xfb-torch-assimilate --fast-transforms, which waited for item 4.5,
+    runs: the JAX CLI's banner, the recovered field and a finite cost
+    history whose last cost is below the first (a 64^2 twin problem on
+    the fast plain versions, 2 steps, 3 Adam iterations)."""
+    from xlab_fftbarotropic_torch import adjoint as tadj
     from xlab_fftbarotropic_torch.cli import assimilate
+    from xlab_fftbarotropic_torch.io.fieldio import read_field, write_field
 
-    with pytest.raises(SystemExit) as e:
-        assimilate.main(["--nx", "32", "--ny", "32", "--target", "t.bin",
-                         "--guess", "g.bin", "--out", str(tmp_path / "o"),
-                         "--steps", "2", "--device", "cpu",
-                         "--fast-transforms"])
-    assert e.value.code == 2
-    assert ITEM in capsys.readouterr().err
+    truth = makefields.gaussian(CFG)
+    target = tadj.make_rollout(CFG, 2, device=CPU)(truth, np.zeros(
+        (N, N), np.float32)).detach().numpy()
+    write_field(tmp_path / "t.bin", target)
+    write_field(tmp_path / "g.bin", 0.9 * truth)
+    out = tmp_path / "o.bin"
+    assert assimilate.main(["--nx", str(N), "--ny", str(N), "--dt", "3",
+                            "--target", str(tmp_path / "t.bin"), "--guess",
+                            str(tmp_path / "g.bin"), "--out", str(out),
+                            "--steps", "2", "--iters", "3", "--lr", "1e-5",
+                            "--device", "cpu", "--fast-transforms"]) == 0
+    err = capsys.readouterr().err
+    assert "# fast transforms: bf16 tensor-core sub-DFTs" in err
+    assert "in both sweeps" in err
+    assert read_field(out, (N, N)).shape == (N, N)
+    losses = np.loadtxt(f"{out}.loss.txt")
+    assert losses.shape == (4,) and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]

@@ -8,9 +8,9 @@ monkeypatch, as tests/test_torch_fast.py does, under which
 pallas_sw.split_linear() and pstore_dtype() resolve to on and bf16);
 fast RK4 and ETDRK4 segments of each package against its own strict
 run; the split and pstore resolution; the converters; the model's and
-the CLI's fast selection and their refusals of what waits (ROADMAP.md
-queue A, item 4). 64^2, zero forcing (the port's forcing spectrum stays
-on the strict ka and kc), a few steps.
+the CLI's fast selection, and the flag sets fast mode once refused
+(ROADMAP.md queue A, item 4), which run now. 64^2, zero forcing, a few
+steps.
 
 Bars: a fast stage's rel-L2 against float64 lies in 1e-4 .. 1e-2 and
 within a factor of 5 either way of the JAX package's; a fast segment's
@@ -44,7 +44,6 @@ N = 64
 CFG = ModelConfig(nx=N, ny=N, dt=1.0, fft_backend="pallas")
 ETD = CFG.replace(time_scheme="etdrk4", dt=7.5)
 CPU = torch.device("cpu")
-ITEM = "queue A, item 4"
 FACTOR = 5.0
 RK4_STEPS, ETD_STEPS = 3, 2
 
@@ -378,24 +377,28 @@ def test_converters_carry_a_jax_state_into_the_fast_run():
 @pytest.mark.parametrize("kw", [dict(yfirst=False), dict(r_drag=2e-4),
                                 dict(nu4=1e-10)], ids=str)
 def test_fast_model_refuses_what_waits(kw):
-    """RK4 with drag or hyperviscosity (the per-transform kernels, item
-    4.5) waits; the x-first order, which waited for item 4.4, now runs:
-    one step, fast, split-linear, the float32 product store."""
+    """Nothing waits: the x-first order (item 4.4) runs fast, split-linear,
+    on the float32 product store; RK4 with drag or hyperviscosity (item
+    4.5) runs fast on the per-transform path, split-linear, one finite
+    step on the fast ka, kb and kc; ETDRK4 carries drag and nu4 in its
+    tables and runs the fast plane stepper."""
     kw = dict(kw)
     yfirst = kw.pop("yfirst", True)
+    v0 = makefields.gaussian(CFG)
     if not yfirst:
         m = _port_model(CFG, fast=True, yfirst=False)
         assert (m.fast, m.yfirst, m.split, m.pstore) == (True, False, True,
                                                          "f32")
-        s = m.segment(m.geostrophic_init(makefields.gaussian(CFG)),
-                      m.zero_source(), 1)
-        assert all(bool(torch.isfinite(torch.view_as_real(z)).all())
-                   for z in s)
-        return
-    with pytest.raises(ValueError, match=ITEM):
-        _port_model(CFG.replace(**kw), fast=True, yfirst=yfirst)
-    # ETDRK4 carries drag and nu4 in its tables: fast runs
-    assert _port_model(ETD.replace(**kw), fast=True).fast
+    else:
+        with pytest.warns(UserWarning, match="per-transform"):
+            m = _port_model(CFG.replace(**kw), fast=True)
+        assert (m.fast, m.per_transform, m.split) == (True, True, True)
+        assert _port_model(ETD.replace(**kw), fast=True).fast
+    ff.reset_launches()
+    s = m.segment(m.geostrophic_init(v0), m.zero_source(), 1)
+    assert all(bool(torch.isfinite(torch.view_as_real(z)).all())
+               for z in s)
+    assert sum(ff.LAUNCHES.values()) == 0      # CPU: the plain versions
 
 
 def _run_cli(tmp_path, *extra):
@@ -454,22 +457,41 @@ def test_cli_runs_sw_fast_mode_and_prints_its_banner(tmp_path, monkeypatch,
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v))
 def test_cli_sw_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
                                              extra, env):
-    """What waits stops with the item named; XFB_SW_YFIRST=0 (item 4.4)
-    now runs, with the x-first banner and the float32 product store."""
+    """What fast mode once refused runs now, each with its banner and
+    records: XFB_SW_YFIRST=0 (the x-first banner, the float32 product
+    store), --r-drag and --nu4 (the per-transform pipeline's fast ka, kb
+    and kc, split-linear, no product store), --ensemble 2 (one batched
+    chunk at 64^2, float32 on torch.fft) and -m fd (the last -m wins: the
+    FD core on torch.fft); -m sw --shard still stops, naming item 5.1
+    (the sharded shallow-water model, which waits in strict mode too)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if env.get("XFB_SW_YFIRST") == "0":
-        monkeypatch.setenv("XFB_ETD_CACHE", "0")
-        assert _run_cli(tmp_path, *extra) == 0
-        err = capsys.readouterr().err
+    if extra == ["--shard"]:
+        with pytest.raises(SystemExit) as e:
+            _run_cli(tmp_path, *extra)
+        assert e.value.code == 2
+        assert "queue A, item 5.1" in capsys.readouterr().err
+        assert not (tmp_path / "out").exists()
+        return
+    monkeypatch.setenv("XFB_ETD_CACHE", "0")
+    assert _run_cli(tmp_path, *extra) == 0
+    err = capsys.readouterr().err
+    out = tmp_path / "out"
+    if extra == ["-m", "fd"]:
+        assert "the FD core (Arakawa Jacobian, FFT Poisson solve)" in err
+        assert (out / "vort_step_0.bin").stat().st_size == N * N * 4
+        return
+    if extra == ["--ensemble", "2"]:
+        assert "batched ensemble chunks (width > 1)" in err
+        assert (out / "m01" / "h_step_0.bin").stat().st_size == N * N * 4
+        return
+    if env:
         assert "in ka_sw, kb, ka_fwd and kc_sw (the x-first order)" in err
         assert "Transform order       : x-first" in err
-        assert "SW formulation        : fast" in err
         assert "product store" not in err
-        assert (tmp_path / "out" / "h_step_0.bin").stat().st_size == N * N * 4
-        return
-    with pytest.raises(SystemExit) as e:
-        _run_cli(tmp_path, *extra)
-    assert e.value.code == 2
-    assert ITEM in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()
+    else:
+        assert "in ka, kb and kc of the per-transform pipeline" in err
+        assert "SW formulation        : fast (bf16 tensor-core sub-DFTs), " \
+               "split-linear on\n" in err
+    assert "SW formulation        : fast" in err
+    assert (out / "h_step_0.bin").stat().st_size == N * N * 4

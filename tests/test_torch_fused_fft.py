@@ -157,7 +157,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                            "kb_adv_full_fast": 0, "kx_visc_tail_fast": 0,
                            "ka_quad_fast": 0, "kb_fast": 0,
                            "ka_adv_fast": 0, "kc_visc_fast": 0,
-                           "ka_fwd_fast": 0, "kc_sw_fast": 0}
+                           "ka_fwd_fast": 0, "kc_sw_fast": 0,
+                           "ka_fast": 0, "kc_fast": 0, "xstage_fast": 0,
+                           "xstage_gather_fast": 0,
+                           "xstage_scatter_fast": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

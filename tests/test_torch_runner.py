@@ -190,8 +190,8 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fast-transforms", "-m", "sw", "--r-drag", "2e-4", "--nx", "64",
-     "--ny", "64"],
+    ["-m", "sw", "--fast-transforms", "--shard", "--nx", "64", "--ny",
+     "64"],
     ["--shard", "--decomp", "pencil"],
     ["--ensemble", "4", "--shard"],
     ["-m", "sw", "--time-scheme", "etdrk4", "--beta", "1e-11"],
@@ -199,7 +199,7 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
      "--shard"],
     ["-m", "fd", "--ensemble", "2"], ["-m", "jacobian", "--shard"],
     ["-m", "tracer", "--time-scheme", "etdrk4", "--shard"], ["-m", "climate"],
-    ["-m", "tracer", "--fast-transforms", "--ensemble", "2"],
+    ["-m", "tracer", "--fast-transforms", "--shard"],
     ["--fft-backend", "mxu"],
     ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"],
     ["-m", "sw", "--beta", "1e-11"]])

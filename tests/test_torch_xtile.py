@@ -982,13 +982,13 @@ def _cut(n: int, columns: int) -> int:
     return min(columns, 2 * c + columns % c)
 
 
-def emulate_ka(xr, xi, forward: bool, scale: float):
+def emulate_ka(xr, xi, forward: bool, scale: float, fast: bool = False):
     """ka_kernel: the tile of the (n, m) planes (xi None: zero imaginary
-    parts), the transform, the full transposed store of Re * scale and
-    Im * scale: (m, n) planes."""
+    parts), the transform (`fast`: the fast tile's), the full transposed
+    store of Re * scale and Im * scale: (m, n) planes."""
     n, m = xr.shape
     x = torch.complex(xr, torch.zeros_like(xr) if xi is None else xi)
-    got = emulate(_dense(x), n, m, forward, transposed=True)
+    got = emulate(_dense(x), n, m, forward, transposed=True, fast=fast)
     return _scaled(got, scale)
 
 
@@ -1748,3 +1748,89 @@ def test_fast_xfirst_entries_agree_with_the_kernel_source():
         assert "int tile_c, int cluster_k" in " ".join(sig.group(1).split())
         assert entry in _build.SIGNATURES
         assert kernel in _body(_source(name), rf'extern "C" int {entry}\(')
+
+
+# ----- the per-transform pipeline's and the overlap x-stage's fast forms:
+# rows 12, 14 and 21-22 (ka_kernel<SIGN, true>, kc_kernel<true> through
+# xfb_kc_fast, xstage_kernel<SIGN, SRC, DST, true>) -----
+
+def emulate_xstage(g, hrow: int, columns: int, forward: bool, scale: float,
+                   fast: bool):
+    """xstage_kernel on the global (nx, hrow) half spectrum g (the shards
+    only address it): the natural store of `columns` columns (hrow, or
+    the gather's P w) on the plan of 8-byte elements, columns past hrow
+    loading zero and storing zeros (the gather's pad), the others times
+    `scale` in one rounded product per part: (nx, columns)."""
+    nx = g.shape[0]
+
+    def load(rows, cols):
+        return torch.where(cols < hrow, g[rows, cols.clamp(max=hrow - 1)],
+                           torch.zeros((), dtype=torch.complex64))
+    z = emulate(load, nx, columns, forward, elem=8, fast=fast)
+    re, im = _scaled(z, scale)
+    pad = torch.arange(columns) >= hrow
+    return torch.complex(torch.where(pad, 0.0, re), torch.where(pad, 0.0,
+                                                                 im))
+
+
+@pytest.mark.parametrize("shape", FAST_SHAPES, ids=str)
+def test_emulated_fast_ka_and_xstage_are_their_plain_versions(shape):
+    """ka's four modes at scale 0.37 on (n, cols) planes and the three
+    x-stage modes (forward; inverse at scale 1/n; the gather at P = 4
+    with its pad) on an (n, cols) half spectrum, on the fast tile,
+    emulated lane for lane on ragged last tiles, every output starting
+    NaN and written exactly once: ka_fast_plain's and the fast x-stage
+    plain versions' bits; the xstage plan's (8-byte elements) C, K and
+    passes are the 4-byte plan's."""
+    from xlab_fftbarotropic_torch.parallel import dfft
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+
+    n, cols = shape
+    rng = np.random.default_rng(n + cols + 9)
+    xr, xi = _float_planes(rng, (n, cols), 2)
+    for forward in (True, False):
+        for im in (None, xi):
+            got = emulate_ka(xr, im, forward, 0.37, fast=True)
+            want = ff.ka(xr, im, forward, 0.37, fast=True)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    p4, p8 = xtile.xtile_plan(n, cols, 4), xtile.xtile_plan(n, cols, 8)
+    assert (p8.c, p8.k, p8.threads, p8.smem, p8.fast_radices) == (
+        p4.c, p4.k, p4.threads, p4.smem, p4.fast_radices)
+    g = torch.complex(xr, xi)
+    p = 4
+    w = padded_half(cols, p) // p
+    rows = dfft.shard_rows(g, p).contiguous()
+    for forward, scale in ((True, 1.0), (False, 1.0 / n)):
+        got = emulate_xstage(g, cols, cols, forward, scale, True)
+        want = dfft.unshard_rows(fo.xstage(rows, forward, scale, fast=True))
+        assert torch.equal(got, want)
+    got = emulate_xstage(g, cols, p * w, True, 1.0, True)
+    want = fo.xstage_gather(rows, True, fast=True)
+    assert torch.equal(got, want.permute(1, 0, 2).reshape(n, p * w))
+    scattered = fo.xstage_scatter(want, cols, False, 1.0 / n, fast=True)
+    x = want.permute(1, 0, 2).reshape(n, p * w)[:, :cols].contiguous()
+    assert torch.equal(emulate_xstage(x, cols, cols, False, 1.0 / n, True),
+                       dfft.unshard_rows(scattered))
+
+
+def test_fast_per_transform_and_xstage_entries_agree_with_the_source():
+    """xfb_ka_fast, xfb_kc_fast and xfb_xstage_fast exist with the plan's
+    arguments and their ctypes signatures (each its strict entry's), each
+    an instance of its strict form's kernel with FAST set; ka_kernel and
+    xstage_kernel pass FAST on to the tile's store."""
+    for name, entry, kernel in (
+            ("ka_kc.cu", "xfb_ka_fast", "launch_ka<-1, true>"),
+            ("ka_kc.cu", "xfb_kc_fast", "launch_kc<true>"),
+            ("xstage.cu", "xfb_xstage_fast", "entry<true>")):
+        sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                        _source(name))
+        assert "int tile_c, int cluster_k" in " ".join(sig.group(1).split())
+        assert kernel in _body(_source(name), rf'extern "C" int {entry}\(')
+        strict = entry[:-len("_fast")]
+        assert _build.SIGNATURES[entry] == _build.SIGNATURES[strict]
+    assert "xt::finish_transposed<SIGN, FAST>(" in _body(
+        _source("ka_kc.cu"), r"ka_kernel\(")
+    assert "xt::finish<SIGN, FAST>(" in _body(_source("xstage.cu"),
+                                              r"xstage_kernel\(")
+

@@ -18,9 +18,11 @@ The transforms follow cfg.fft_backend (models/barotropic.py:
 resolve_fft_backend): on "pallas" ("auto" on the square power-of-two
 grids the kernels take) they are the per-transform kernels with their
 adjoints (ops/fused_diff.py), so both sweeps run ka, kb and kc and no
-library transform; on "xla", torch.fft and its autograd. Gradients are
-taken with respect to physical (real float32) inputs; the spectral
-transform sits inside the differentiated function.
+library transform; on "xla", torch.fft and its autograd. `fast` (the
+JAX package's assimilate --fast-transforms) runs both sweeps on the fast
+column tile, ka_fast, kb_fast and kc_fast; on "xla" it changes nothing.
+Gradients are taken with respect to physical (real float32) inputs; the
+spectral transform sits inside the differentiated function.
 
 The three families:
 
@@ -46,6 +48,7 @@ from .models import barotropic as bt
 from .models import shallow_water as sw
 from .models import tracer as tr
 from .models.barotropic import resolve_device, resolve_fft_backend
+from .ops import fused_sw as fs
 from .ops import spectral as sp
 from .ops.spectral import SpectralTables
 
@@ -84,13 +87,14 @@ def _checkpointed_loop(step: Callable, state: tuple, n_steps: int,
 
 def make_rollout(cfg, n_steps: int, model_kind: str = "barotropic",
                  segment: Optional[int] = None, tracer_kappa: float = 0.0,
-                 device="cuda") -> Callable:
+                 device="cuda", fast: bool = False) -> Callable:
     """A differentiable n_steps RK4 rollout of one model family:
     ``rollout(ic_phys, src)`` maps physical inputs to the final physical
     fields (module docstring). `src` is the vorticity source held over
     the window (zeros for a free run). Both arguments are
     differentiable; numpy arrays and tensors are taken, as float32 on
-    `device`."""
+    `device`. `fast`: the transforms on the fast column tile in both
+    sweeps."""
     dev = resolve_device(device)
     t = SpectralTables.from_config(cfg, dev)
     g = cfg.grid_shape
@@ -100,7 +104,7 @@ def make_rollout(cfg, n_steps: int, model_kind: str = "barotropic",
         raise NotImplementedError("beta-plane is barotropic/tracer-only "
                                   "(config.py beta note)")
     fwd, inv, inv_pair = resolve_fft_backend(cfg.fft_backend, g,
-                                             differentiable=True)
+                                             differentiable=True, fast=fast)
     kw = dict(fwd=fwd, inv=inv, inv_pair=inv_pair, r_drag=r_drag)
 
     def phys(a):
@@ -124,9 +128,17 @@ def make_rollout(cfg, n_steps: int, model_kind: str = "barotropic",
             zh = fwd(phys(vort0))
             s0 = (zh, torch.zeros_like(zh),
                   (f / grav) * sp.invert_laplacian(t, zh) * mean_mask)
+            # fast mode pairs (zeta, eta) at one magnitude, as the model's
+            # per-transform path does (models/shallow_water.py: tendency)
+            es = 1.0
+            if fast:
+                with torch.no_grad():
+                    es = float(fs.eta_pair_scale(sw.state_to_planes(
+                        sw.SWState(*(z.detach() for z in s0)))))
             s = _checkpointed_loop(
                 lambda s: tuple(sw.rk4_step(t, sw.SWState(*s), src, dt, f,
-                                            grav, nu, H, g, nu4=nu4, **kw)),
+                                            grav, nu, H, g, nu4=nu4,
+                                            eta_scale=es, **kw)),
                 s0, n_steps, segment)
             return tuple(inv(z, g) for z in s)
     elif model_kind == "tracer":
@@ -160,16 +172,17 @@ def _leaves(x) -> list:
 def final_state_misfit(cfg, target, n_steps: int,
                        model_kind: str = "barotropic",
                        segment: Optional[int] = None,
-                       tracer_kappa: float = 0.0, device="cuda") -> Callable:
+                       tracer_kappa: float = 0.0, device="cuda",
+                       fast: bool = False) -> Callable:
     """``loss(ic_phys, src) -> scalar``: half the mean-square misfit of
     the rollout's final physical field(s) against `target` (the
     rollout's structure), summed over the fields: the strong-constraint
     4DVar cost with one observation time and the identity observation
-    operator."""
+    operator. `fast` as make_rollout's."""
     dev = resolve_device(device)
     roll = make_rollout(cfg, n_steps, model_kind=model_kind,
                         segment=segment, tracer_kappa=tracer_kappa,
-                        device=dev)
+                        device=dev, fast=fast)
     tgt = [torch.as_tensor(a, dtype=torch.float32, device=dev)
            for a in _leaves(target)]
 
@@ -216,7 +229,8 @@ def fit_initial_condition(cfg, target, n_steps: int, ic0, src=None,
                           learning_rate: float = 0.2,
                           segment: Optional[int] = None,
                           tracer_kappa: float = 0.0,
-                          normalize_cost: bool = True, device="cuda"):
+                          normalize_cost: bool = True, device="cuda",
+                          fast: bool = False):
     """4DVar initial-condition estimation: Adam (optax's defaults: b1
     0.9, b2 0.999, eps 1e-8) on the final-state misfit with respect to
     the physical initial condition, from the first guess `ic0`. Returns
@@ -229,14 +243,15 @@ def fit_initial_condition(cfg, target, n_steps: int, ic0, src=None,
     and at large grids with small fields Adam's eps then swamps the
     update (the JAX package's finding at 4096²). A first guess already
     at the optimum (a cost under 1e-9 of the target's own) is not
-    normalized."""
+    normalized. `fast`: the rollout's transforms on the fast column tile
+    in both sweeps (make_rollout)."""
     dev = resolve_device(device)
     if src is None:
         src = torch.zeros(cfg.grid_shape, dtype=torch.float32, device=dev)
     src = torch.as_tensor(src, dtype=torch.float32, device=dev)
     raw = final_state_misfit(cfg, target, n_steps, model_kind=model_kind,
                              segment=segment, tracer_kappa=tracer_kappa,
-                             device=dev)
+                             device=dev, fast=fast)
     pair = isinstance(ic0, (tuple, list))
     ics = [torch.as_tensor(a, dtype=torch.float32, device=dev).clone()
            .requires_grad_(True) for a in _leaves(ic0)]

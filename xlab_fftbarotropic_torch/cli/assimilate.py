@@ -18,13 +18,22 @@ vorticity source of a forced run (default zero). `--device cuda` (the
 default) runs the per-transform CUDA kernels in both sweeps (on the
 square power-of-two grids they take; elsewhere torch.fft) and stops with
 an error when no GPU is visible; `--device cpu` runs the kernels' plain
-torch versions.
+torch versions. `--fast-transforms` runs both sweeps on the fast forms of
+those kernels (bf16 tensor-core sub-DFTs, float32 accumulate), as the
+JAX package's flag runs its custom-VJP transforms on bf16 matmuls.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+# the fast mode's banner: the JAX CLI's (xlab_fftbarotropic_tpu/cli/
+# assimilate.py), with the port's kernels
+FAST_BANNER = ("# fast transforms: bf16 tensor-core sub-DFTs (mma.sync "
+               "m16n8k16, float32 accumulate) in ka, kb and kc of the "
+               "differentiable rollout, in both sweeps (fp32 default keeps "
+               "parity)")
 
 
 def main(argv=None):
@@ -56,16 +65,18 @@ def main(argv=None):
                          "error if no GPU is visible; cpu: their plain "
                          "torch versions")
     ap.add_argument("--fast-transforms", action="store_true",
-                    help="not ported yet")
+                    help="the rollout's transforms (ka, kb, kc) on bf16 "
+                         "tensor-core sub-DFTs, float32 accumulate, in "
+                         "both sweeps (the JAX package's fast mode); the "
+                         "float32 default keeps reference-parity "
+                         "gradients")
     args = ap.parse_args(argv)
-    if args.fast_transforms:
-        ap.error("--fast-transforms is not ported yet (ROADMAP.md queue A, "
-                 "item 4.5: the per-transform kernels and the adjoint); "
-                 "the port runs the strict float32 mode")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is visible; pass --device "
                  "cpu to run the kernels' plain torch versions on the CPU")
     cfg = config_from_args(args)
+    if args.fast_transforms:
+        print(FAST_BANNER, file=sys.stderr)
 
     from .. import adjoint
     from ..io.fieldio import read_field, write_field
@@ -77,7 +88,8 @@ def main(argv=None):
 
     ic, losses = adjoint.fit_initial_condition(
         cfg, target, args.steps, guess, src=src, iters=args.iters,
-        learning_rate=args.lr, segment=args.segment, device=args.device)
+        learning_rate=args.lr, segment=args.segment, device=args.device,
+        fast=args.fast_transforms)
 
     write_field(args.out, ic.cpu().numpy())
     np.savetxt(f"{args.out}.loss.txt", losses)

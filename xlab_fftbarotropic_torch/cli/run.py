@@ -51,10 +51,17 @@ XFB_SW_PSTORE=auto resolve to the split-linear formulation and the bf16
 product store (the y-first kx_fwd's: the x-first kc_sw stores float32,
 as in the JAX package); the CLI reads XFB_SW_SPLIT (auto, or 0, off or
 empty: off; anything else on) and XFB_SW_PSTORE (auto, bf16 or
-bfloat16; anything else f32) as pallas_sw.py does, in strict mode too.
---fft-backend xla keeps the float32 library path. -m fd, --shard,
---ensemble and shallow-water RK4 with --r-drag or --nu4 stop with an
-error naming ROADMAP.md queue A, item 4.
+bfloat16; anything else f32) as pallas_sw.py does, in strict mode too;
+shallow-water RK4 with --r-drag or --nu4 runs the per-transform
+pipeline's ka, kb and kc on the fast tile (split-linear; the forcing
+spectrum too). --shard (the barotropic family): --shard-fft overlap runs
+the fast x-stages (xstage, or xstage_gather and xstage_scatter with
+--decomp xpencil); xla and pallas have torch.fft x-stages and copy
+transposes, which fast mode leaves as they are, as in the JAX package.
+--ensemble: width-1 members run the fast plane stepper, each the solo
+fast run; batched chunks stay on the float32 library path. -m fd runs
+its torch.fft core unchanged, as the JAX package's does. --fft-backend
+xla keeps the float32 library path.
 """
 
 from __future__ import annotations
@@ -101,11 +108,65 @@ SW_FAST_BANNER = (
     "float32 accumulate) in ka_sw, kb_pair, ky_all and kx_fwd, the "
     "product spectra stored in bf16 (XFB_SW_PSTORE=auto)\n"
     + SW_FAST_NOTE.format("13.63", "12.45", "7.5e-5", "4.5e-4"))
+# the SW per-transform path's: RK4 with drag or hyperviscosity (chip_smoke.py
+# phase 5q: phase 5c's configuration, 20 steps at 4096^2 at dt 0.847 s,
+# against the strict per-transform kernels)
+SW_DRAG_FAST_BANNER = (
+    "# fast transforms: bf16 tensor-core sub-DFTs (mma.sync m16n8k16, "
+    "float32 accumulate) in ka, kb and kc of the per-transform pipeline "
+    "(shallow-water RK4 with --r-drag/--nu4) and of the forcing spectrum\n"
+    + SW_FAST_NOTE.format("37.12", "31.59", "1.3e-5", "5.2e-4"))
+# the sharded model's (chip_smoke.py phase 5q: 20 steps at 4096^2 on four
+# shards, against the strict overlap path)
+SHARD_FAST_BANNER = (
+    "# fast transforms: bf16 tensor-core sub-DFTs (mma.sync m16n8k16, "
+    "float32 accumulate) in the overlap x-stages ({}); the y-stage stays "
+    "torch.fft, as the JAX overlap impl's jnp.fft (20-step vorticity "
+    "rel-L2 1.2e-5 at 4096^2 on four shards of an H100 against the strict "
+    "overlap path)")
+SHARD_FAST_NONE = (
+    "# fast transforms: --shard-fft {} runs torch.fft x-stages and copy "
+    "transposes, which hold no matmul: fast mode changes nothing there, "
+    "as in the JAX package")
+# -m fd: the JAX CLI's banner, then what the FD core runs
+FD_FAST_NOTE = (
+    "# fast transforms: the FD core (Arakawa Jacobian, FFT Poisson solve) "
+    "runs torch.fft, which fast mode leaves float32, as the JAX package's "
+    "core runs jnp.fft: its records are the strict run's")
+ENSEMBLE_FAST_NOTE = (
+    "# fast transforms: batched ensemble chunks (width > 1) run the "
+    "torch.fft library path in float32, as the JAX package's batched "
+    "chunks run XLA's FFT")
 SW_XFIRST_FAST_BANNER = (
     "# fast transforms: bf16 tensor-core sub-DFTs (mma.sync m16n8k16, "
     "float32 accumulate) in ka_sw, kb, ka_fwd and kc_sw (the x-first "
     "order), the product spectra stored in float32\n"
     + SW_FAST_NOTE.format("16.35", "13.64", "7.4e-5", "4.5e-4"))
+
+
+def fast_banner(args, sw: bool, fd: bool, yfirst: bool, backend: str,
+                width, drag: bool) -> str:
+    """The lines --fast-transforms prints: the JAX CLI's banner with the
+    kernels this run takes on the fast tile, or what fast mode leaves as
+    it is (the library path, -m fd, the sharded xla and pallas impls)."""
+    library = ("# fast transforms: --fft-backend xla keeps the torch.fft "
+               "library path in float32, as the JAX package's XLA path")
+    if fd:
+        return FAST_BANNER + "\n" + FD_FAST_NOTE
+    if args.shard:
+        if args.shard_fft != "overlap":
+            return SHARD_FAST_NONE.format(args.shard_fft)
+        halves = ("xstage_gather, xstage_scatter" if args.decomp == "xpencil"
+                  else "xstage")
+        return SHARD_FAST_BANNER.format(halves)
+    if backend != "pallas":
+        return ENSEMBLE_FAST_NOTE if width not in (None, 1) else library
+    if sw:
+        return (SW_DRAG_FAST_BANNER if drag else SW_FAST_BANNER if yfirst
+                else SW_XFIRST_FAST_BANNER)
+    if args.model == "tracer":
+        return FAST_BANNER + "\n" + TRACER_FAST_BANNER
+    return FAST_BANNER
 
 
 def sw_form_from_env(fast: bool = False) -> dict:
@@ -150,13 +211,11 @@ def main(argv=None):
     import torch
 
     from ..config import add_config_args, config_from_args
-    from ..models.barotropic import (FAST_ITEM, fast_refusal, fusion_arm,
-                                     resolve_device,
+    from ..models.barotropic import (fusion_arm, resolve_device,
                                      resolve_fft_backend_name)
     from ..models.ensemble import _resolve_member_backend, auto_vmap_width
     from ..models.shallow_water import (per_transform, resolve_pstore,
-                                        resolve_split, resolve_sw_backend,
-                                        sw_fast_refusal)
+                                        resolve_split, resolve_sw_backend)
     from ..parallel import make_mesh
     from ..runner import run
 
@@ -253,22 +312,17 @@ def main(argv=None):
                         "XFB_BT_FUSEKB=auto resolves to half; shallow "
                         "water: split-linear, and the bf16 product store "
                         "on the y-first order (the x-first one stores "
-                        "float32). Not with -m fd, --shard, --ensemble or "
-                        "shallow-water RK4 with --r-drag/--nu4 (ROADMAP.md "
-                        "queue A, item 4)")
+                        "float32); shallow-water RK4 with --r-drag/--nu4: "
+                        "the per-transform ka, kb, kc; --shard: the "
+                        "overlap x-stages (--shard-fft xla and pallas "
+                        "hold no matmul and stay as they are); "
+                        "--ensemble: width-1 members (batched chunks stay "
+                        "float32 on torch.fft); -m fd runs its torch.fft "
+                        "core unchanged")
     args = p.parse_args(argv)
 
     fd = args.model in ("fd", "jacobian")
     sw = args.model in ("shallow-water", "sw")
-    if args.fast_transforms:
-        what = (f"-m {args.model} ({FAST_ITEM})" if fd
-                else f"--shard ({FAST_ITEM}.6)" if args.shard
-                else f"--ensemble ({FAST_ITEM}.6)" if args.ensemble > 1
-                else None)
-        if what:
-            p.error(f"--fast-transforms with {what} is not ported yet: "
-                    f"fast mode runs the barotropic, tracer and "
-                    f"shallow-water plane steppers")
     if args.ensemble > 1 and (args.shard or fd):
         p.error(f"--ensemble does not combine with "
                 f"{'--shard' if args.shard else '-m ' + args.model}: "
@@ -283,7 +337,7 @@ def main(argv=None):
                 f"device")
     if args.shard and args.model not in ("barotropic", "bt"):
         p.error(f"--shard with -m {args.model} is not ported yet "
-                f"(ROADMAP.md queue A, item 5): the barotropic family "
+                f"(ROADMAP.md queue A, item 5.1): the barotropic family "
                 f"shards")
     if args.model not in ("barotropic", "bt", "tracer", "shallow-water",
                           "sw", "fd", "jacobian"):
@@ -311,10 +365,6 @@ def main(argv=None):
             bt_fusion = bt_fusion_from_env(args.fast_transforms)
         except ValueError as e:
             p.error(str(e))
-        if args.fast_transforms:
-            why = fast_refusal(yfirst)
-            if why:
-                p.error(f"--fast-transforms: {why}")
     if sw and cfg.beta != 0.0:
         p.error("--beta: the beta-plane is barotropic/tracer-only")
     sw_form = sw_form_from_env(args.fast_transforms) if sw else None
@@ -332,10 +382,6 @@ def main(argv=None):
                                             cfg.grid_shape))
     except (NotImplementedError, ValueError) as e:
         p.error(str(e))
-    if sw and args.fast_transforms and backend == "pallas":
-        why = sw_fast_refusal(per_transform(member_cfg, backend))
-        if why:
-            p.error(f"--fast-transforms: {why}")
     recipe, src_path = "empty", None
     if args.script:
         recipe, src_path = "script", args.script
@@ -343,13 +389,9 @@ def main(argv=None):
         recipe, src_path = "fifo", args.fifo
 
     if args.fast_transforms:
-        sw_banner = SW_FAST_BANNER if yfirst else SW_XFIRST_FAST_BANNER
-        print((sw_banner if sw else FAST_BANNER) if backend == "pallas"
-              else "# fast transforms: --fft-backend xla keeps the torch.fft "
-                   "library path in float32, as the JAX package's XLA path",
+        print(fast_banner(args, sw, fd, yfirst, backend, width,
+                          per_transform(member_cfg, backend)),
               file=sys.stderr)
-        if args.model == "tracer" and backend == "pallas":
-            print(TRACER_FAST_BANNER, file=sys.stderr)
     device = resolve_device(args.device)
     if args.shard:
         try:
@@ -364,6 +406,8 @@ def main(argv=None):
     shard_how = {"xla": "library transposes",
                  "pallas": "all-to-all transpose kernels",
                  "overlap": "fused transpose + x-DFT kernels"}[args.shard_fft]
+    if args.shard_fft == "overlap" and args.fast_transforms:
+        shard_how = f"fast {shard_how}"
     if args.shard_fft != "xla" and device.type == "cpu":
         shard_how = f"plain torch versions of the {shard_how}"
 

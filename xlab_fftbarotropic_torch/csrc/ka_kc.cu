@@ -55,14 +55,18 @@
 // run together and all but the first to read a plane's columns find
 // them in L2; each reads only the planes its product needs.
 //
-// The x-first order's fast mode (the JAX package's --fast-transforms)
-// runs ka_adv, kc_visc, ka_fwd and kc_sw on the fast column tile
-// (xtile.cuh FAST: the radix-16 sub-DFT passes as bf16 tensor-core
-// products, float32 accumulate): ka_adv_kernel<true>, ka_fwd_kernel<true>
-// and kc_kernel<true> (xfb_ka_adv_fast, xfb_ka_fwd_fast, xfb_kc_visc_fast,
-// xfb_kc_sw_fast), loads, stores and epilogues unchanged. kc_kernel<true>
-// is the first fast form of the transposed half store (k <= n/2, rank
-// 0's k = n/2); the per-transform ka and kc keep their strict forms.
+// Fast mode (the JAX package's --fast-transforms) runs every kernel here
+// on the fast column tile (xtile.cuh FAST: the radix-16 sub-DFT passes as
+// bf16 tensor-core products, float32 accumulate), loads, stores and
+// epilogues unchanged: the x-first order's ka_adv_kernel<true>,
+// ka_fwd_kernel<true> and kc_kernel<true> (xfb_ka_adv_fast,
+// xfb_ka_fwd_fast, xfb_kc_visc_fast, xfb_kc_sw_fast; kc_kernel<true> is
+// the fast form of the transposed half store, k <= n/2, rank 0's k = n/2),
+// and the per-transform ka_kernel<SIGN, true> and kc_kernel<true>
+// (xfb_ka_fast, xfb_kc_fast: the fast rfft2, irfft2 and inverse_pair of
+// shallow-water drag and hyperviscosity, the forcing spectrum and the
+// adjoint). ka's scale stays one rounded product after the fast
+// transform, where the TPU kernel folds it into its bf16 DFT matrix.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -71,7 +75,7 @@ namespace {
 // cluster tile: columns j0 .. j0 + C of the (n, m) planes; block r of it
 // loads rows r + k jj of the tile (xi NULL: zero imaginary parts),
 // consecutive lanes on consecutive columns
-template <int SIGN>
+template <int SIGN, bool FAST>
 __global__ void __launch_bounds__(512, 2)
     ka_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
               const float2* __restrict__ tw, xfb::xtile::RowOut out, int n,
@@ -104,7 +108,7 @@ __global__ void __launch_bounds__(512, 2)
   __syncthreads();
   xt::RowOut o = out;
   o.j0 = j0;
-  xt::finish_transposed<SIGN>(t, tw, false, o);
+  xt::finish_transposed<SIGN, FAST>(t, tw, false, o);
 }
 
 // cluster tile: columns j0 .. j0 + C of the x-major (nx, ny) fields;
@@ -226,7 +230,7 @@ __global__ void __launch_bounds__(512, 2)
   xt::finish_transposed<-1, FAST>(t, tw, true, o);
 }
 
-template <int SIGN>
+template <int SIGN, bool FAST>
 int launch_ka(const float* xr, const float* xi, const void* tw, float* yr,
               float* yi, int n, int m, float scale, int tile_c,
               int cluster_k, int threads, int smem, int device,
@@ -236,7 +240,7 @@ int launch_ka(const float* xr, const float* xi, const void* tw, float* yr,
   }
   const int tiles = (m + tile_c - 1) / tile_c;
   return static_cast<int>(xfb::xtile::launch(
-      ka_kernel<SIGN>, tiles, 1, cluster_k, threads, smem, device,
+      ka_kernel<SIGN, FAST>, tiles, 1, cluster_k, threads, smem, device,
       static_cast<cudaStream_t>(stream), xr, xi,
       static_cast<const float2*>(tw),
       xfb::xtile::RowOut{yr, yi, 0, 0, m, n, scale}, n, cluster_k,
@@ -302,10 +306,24 @@ extern "C" int xfb_ka(const float* xr, const float* xi, const void* tw,
                       float* yr, float* yi, int n, int m, int forward,
                       float scale, int tile_c, int cluster_k, int threads,
                       int smem, int device, void* stream) {
-  return forward ? launch_ka<-1>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
-                                 cluster_k, threads, smem, device, stream)
-                 : launch_ka<+1>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
-                                 cluster_k, threads, smem, device, stream);
+  return forward
+             ? launch_ka<-1, false>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
+                                    cluster_k, threads, smem, device, stream)
+             : launch_ka<+1, false>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
+                                    cluster_k, threads, smem, device,
+                                    stream);
+}
+
+// ka on the fast column tile: arguments as xfb_ka's
+extern "C" int xfb_ka_fast(const float* xr, const float* xi, const void* tw,
+                           float* yr, float* yi, int n, int m, int forward,
+                           float scale, int tile_c, int cluster_k,
+                           int threads, int smem, int device, void* stream) {
+  return forward
+             ? launch_ka<-1, true>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
+                                   cluster_k, threads, smem, device, stream)
+             : launch_ka<+1, true>(xr, xi, tw, yr, yi, n, m, scale, tile_c,
+                                   cluster_k, threads, smem, device, stream);
 }
 
 // xr, xi: (ny, nx) -> yr, yi: (nx, ny/2 + 1). tile_c, cluster_k,
@@ -319,6 +337,18 @@ extern "C" int xfb_kc(const float* xr, const float* xi, const void* tw,
                                 0, 0, nx, ny / 2 + 1, 0.f},
                           1, ny, tile_c, cluster_k, threads, smem, device,
                           stream);
+}
+
+// kc on the fast column tile: arguments as xfb_kc's
+extern "C" int xfb_kc_fast(const float* xr, const float* xi, const void* tw,
+                           float* yr, float* yi, int ny, int nx, int tile_c,
+                           int cluster_k, int threads, int smem, int device,
+                           void* stream) {
+  return launch_kc<true>(xr, xi, tw,
+                         KcOut{nullptr, nullptr, nullptr, nullptr, yr, yi,
+                               0, 0, nx, ny / 2 + 1, 0.f},
+                         1, ny, tile_c, cluster_k, threads, smem, device,
+                         stream);
 }
 
 // xr, xi: (nfields, ny, nx) -> yr, yi: (nfields, nx, ny/2 + 1)

@@ -38,6 +38,14 @@
 // sides are read and written in row segments of C complex64 values (128
 // bytes at C = 16; a block per column would move 8 bytes per 32-byte
 // sector).
+//
+// Fast mode (the JAX package's --fast-transforms, whose overlap x-stages
+// run their four-step DFT as bf16 matmuls) takes xstage_kernel<..., true>
+// (xfb_xstage_fast, every mode): the sub-DFT's radix-16 passes as bf16
+// tensor-core products, float32 accumulate (xtile.cuh FAST), the loads,
+// the scale and the pad's zeros unchanged. The tile in shared memory is
+// float2 whatever the layout, so the fast pass runs as on the 4-byte
+// planes: the 8-byte elements change only the sector check of the plan.
 #include "shards.cuh"
 #include "xtile.cuh"
 
@@ -76,7 +84,7 @@ struct Store {
   }
 };
 
-template <int SIGN, int SRC, int DST>
+template <int SIGN, int SRC, int DST, bool FAST>
 __global__ void __launch_bounds__(512, 2)
     xstage_kernel(const __grid_constant__ xfb::Shards sh,
                   const float2* __restrict__ tw, int nx, int k, int logc,
@@ -102,10 +110,10 @@ __global__ void __launch_bounds__(512, 2)
   xt::cp_async_wait_all();
   __syncthreads();
   Store<DST> out{sh.dst, j0, rows_l, hrow, w, columns, scale};
-  xt::finish<SIGN>(t, tw, out);
+  xt::finish<SIGN, FAST>(t, tw, out);
 }
 
-template <int SRC, int DST>
+template <int SRC, int DST, bool FAST>
 cudaError_t launch(const xfb::Shards& sh, const float2* tw, int nx,
                    int rows_l, int hrow, int w, int columns, int forward,
                    float scale, int tile_c,
@@ -117,14 +125,41 @@ cudaError_t launch(const xfb::Shards& sh, const float2* tw, int nx,
   const int tiles = (columns + tile_c - 1) / tile_c;
   const int logc = xfb::xtile::log2i(tile_c);
   return forward
-             ? xfb::xtile::launch(xstage_kernel<-1, SRC, DST>, tiles, 1,
+             ? xfb::xtile::launch(xstage_kernel<-1, SRC, DST, FAST>, tiles, 1,
                                   cluster_k, threads, smem, device, stream,
                                   sh, tw, nx, cluster_k, logc, rows_l,
                                   hrow, w, columns, scale)
-             : xfb::xtile::launch(xstage_kernel<1, SRC, DST>, tiles, 1,
+             : xfb::xtile::launch(xstage_kernel<1, SRC, DST, FAST>, tiles, 1,
                                   cluster_k, threads, smem, device, stream,
                                   sh, tw, nx, cluster_k, logc, rows_l,
                                   hrow, w, columns, scale);
+}
+
+// The entry's mode switch, strict or on the fast column tile.
+template <bool FAST>
+int entry(const void* const* ptrs, const float2* tw, int p, int rows_l,
+          int hrow, int w, int mode, int forward, float scale, int tile_c,
+          int cluster_k, int threads, int smem, int device,
+          cudaStream_t stream) {
+  xfb::Shards sh;
+  if (!xfb::load_shards(ptrs, p, &sh)) return cudaErrorInvalidValue;
+  const int nx = p * rows_l;
+  switch (mode) {
+    case 0:
+      return launch<kRows, kRows, FAST>(sh, tw, nx, rows_l, hrow, w, hrow,
+                                        forward, scale, tile_c, cluster_k,
+                                        threads, smem, device, stream);
+    case 1:
+      return launch<kRows, kPencil, FAST>(sh, tw, nx, rows_l, hrow, w, p * w,
+                                          forward, scale, tile_c, cluster_k,
+                                          threads, smem, device, stream);
+    case 2:
+      return launch<kPencil, kRows, FAST>(sh, tw, nx, rows_l, hrow, w, hrow,
+                                          forward, scale, tile_c, cluster_k,
+                                          threads, smem, device, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -140,23 +175,16 @@ extern "C" int xfb_xstage(const void* const* ptrs, const float2* tw, int p,
                           int rows_l, int hrow, int w, int mode, int forward,
                           float scale, int tile_c, int cluster_k, int threads,
                           int smem, int device, cudaStream_t stream) {
-  xfb::Shards sh;
-  if (!xfb::load_shards(ptrs, p, &sh)) return cudaErrorInvalidValue;
-  const int nx = p * rows_l;
-  switch (mode) {
-    case 0:
-      return launch<kRows, kRows>(sh, tw, nx, rows_l, hrow, w, hrow,
-                                  forward, scale, tile_c, cluster_k, threads,
-                                  smem, device, stream);
-    case 1:
-      return launch<kRows, kPencil>(sh, tw, nx, rows_l, hrow, w, p * w,
-                                    forward, scale, tile_c, cluster_k,
-                                    threads, smem, device, stream);
-    case 2:
-      return launch<kPencil, kRows>(sh, tw, nx, rows_l, hrow, w, hrow,
-                                    forward, scale, tile_c, cluster_k,
-                                    threads, smem, device, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return entry<false>(ptrs, tw, p, rows_l, hrow, w, mode, forward, scale,
+                      tile_c, cluster_k, threads, smem, device, stream);
+}
+
+// xstage on the fast column tile, every mode: arguments as xfb_xstage's
+extern "C" int xfb_xstage_fast(const void* const* ptrs, const float2* tw,
+                               int p, int rows_l, int hrow, int w, int mode,
+                               int forward, float scale, int tile_c,
+                               int cluster_k, int threads, int smem,
+                               int device, cudaStream_t stream) {
+  return entry<true>(ptrs, tw, p, rows_l, hrow, w, mode, forward, scale,
+                     tile_c, cluster_k, threads, smem, device, stream);
 }

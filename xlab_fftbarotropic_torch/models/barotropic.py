@@ -28,8 +28,9 @@ Two stepping paths, chosen by cfg.fft_backend:
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 tendency / rk4_step also run on the per-transform kernels
-(resolve_fft_backend): the differentiable rollout (adjoint.py) takes
-them there.
+(resolve_fft_backend, strict or fast): the differentiable rollout
+(adjoint.py) takes them there, and so does the shallow-water model under
+RK4 with drag or hyperviscosity.
 
 "auto" takes "pallas" for power-of-two square grids the kernels take
 (64..8192), else "xla". The diagnostics always use the library path.
@@ -44,7 +45,8 @@ resolves "auto" in fast mode): ka_diag, kb_pair, ky_adv, kb_adv_half,
 kb_adv_full, kx_visc, kx_visc_tail, kx_fwd, each arm giving the fast
 "half" arm's bits; x-first, in each quad_mode: ka_diag or ka_quad, kb,
 ka_adv, kc_visc. The library path ("xla") stays float32 under
-fast=True, as in the JAX package.
+fast=True, as in the JAX package. Fast mode runs every plane-stepper
+combination; nothing refuses it.
 
 cfg.time_scheme "etdrk4" swaps RK4 for the exponential scheme of
 models/etdrk4.py: nu lap - r_drag - nu4 lap^2 (and the beta term, in
@@ -117,21 +119,29 @@ def state_shape_ok(z: torch.Tensor, cfg, backend: str) -> bool:
         and shape[1:] == tuple(cfg.spectral_shape))
 
 
-def resolve_fft_backend(name: str, grid_shape, differentiable: bool = False):
+def resolve_fft_backend(name: str, grid_shape, differentiable: bool = False,
+                        fast: bool = False):
     """The transform triple (forward, inverse, inverse_pair) of the
     library tendencies for a fft_backend name: 'xla' is torch.fft
     (ops/fft.py), 'pallas' the per-transform kernels (ops/fused_fft.py:
     rfft2, irfft2, inverse_pair), with their adjoints when
-    `differentiable` (ops/fused_diff.py); 'auto' as
-    resolve_fft_backend_name. Counterpart of the JAX package's
+    `differentiable` (ops/fused_diff.py), and with `fast` on the fast
+    column tile (on 'xla' fast changes nothing, as in the JAX package);
+    'auto' as resolve_fft_backend_name. Counterpart of the JAX package's
     resolve_fft_backend without its derivative_quad (the plane steppers
     are picked by the models)."""
     if resolve_fft_backend_name(name, grid_shape) == "xla":
         return fft.forward, fft.inverse, fft.inverse_pair
     if differentiable:
         from ..ops import fused_diff as fd
-        return fd.forward, fd.inverse, fd.inverse_pair
-    return ff.rfft2, ff.irfft2, ff.inverse_pair
+        fwd, inv, pair = fd.forward, fd.inverse, fd.inverse_pair
+    else:
+        fwd, inv, pair = ff.rfft2, ff.irfft2, ff.inverse_pair
+    if not fast:
+        return fwd, inv, pair
+    return (lambda x: fwd(x, fast=True),
+            lambda spec, grid_shape: inv(spec, grid_shape, fast=True),
+            lambda a, b, grid_shape: pair(a, b, grid_shape, fast=True))
 
 
 class DiagFields(NamedTuple):
@@ -217,20 +227,6 @@ def rk4_step(t: SpectralTables, zeta_hat: torch.Tensor, src: torch.Tensor,
     return zeta_hat + (rk1 + 2.0 * rk2 + 2.0 * rk3 + rk4) * (dt / 6.0)
 
 
-# what fast mode runs so far; the refusal of everything else names this
-FAST_ITEM = "ROADMAP.md queue A, item 4"
-
-
-def fast_refusal(yfirst: bool = True,
-                 quad_mode: str = "grid") -> Optional[str]:
-    """Why fast mode does not run this plane-stepper combination yet, or
-    None: it runs both orders (every y-first fusion arm, every x-first
-    quad_mode; RK4 and ETDRK4), so nothing here waits. What still waits
-    (the sharded model, ensembles, the adjoint: FAST_ITEM's 4.5-4.6) is
-    refused where those are built (cli/run.py, cli/assimilate.py)."""
-    return None
-
-
 def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
                    beta: float = 0.0, yfirst: bool = True,
                    quad_mode: str = "grid", fusekb: str = "",
@@ -247,13 +243,7 @@ def plane_tendency(t: SpectralTables, src_l: torch.Tensor, nu: float,
     (ka_diag or ka_quad + 2 kb) and forward_tendency (ka_adv + kc_visc),
     `src_l` x-major (nx, ny), no axpy or tail, fusekb and fusekx
     ignored (as in the JAX package). `fast`: the stage on the fast
-    kernels, either order, any arm or quad_mode (fast_refusal names what
-    raises)."""
-    if fast:
-        why = fast_refusal(yfirst, quad_mode)
-        if why:
-            raise ValueError(why)
-
+    kernels, either order, any arm or quad_mode."""
     def d(sr, si, axpy=None, tail=None):
         if yfirst and fusekb:
             return ff.tendency_yfirst_fusedkb(
@@ -437,11 +427,10 @@ class BarotropicModel(nn.Module):
     y-first fusion arm, defaults as the JAX package's in strict float32;
     the x-first order ignores them. `fast` is the JAX package's fast mode
     on the plane stepper, RK4 and ETDRK4, either order, any y-first arm
-    or quad_mode (fusekb None, the default, then resolves to "half";
-    fast_refusal names the combinations that raise); None resolves to ""
-    in strict float32, and on the library path fast changes nothing. On the RK4 plane
-    stepper, drag and hyperviscosity fold into the stepping lap:
-    lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
+    or quad_mode (fusekb None, the default, then resolves to "half");
+    None resolves to "" in strict float32, and on the library path fast
+    changes nothing. On the RK4 plane stepper, drag and hyperviscosity
+    fold into the stepping lap: lap := nu*lap - r_drag - nu4*lap^2 with nu := 1, since the kernels'
     only linear term is nu*lap*Z (models/barotropic.py:526-539 of the JAX
     package); the diagnostics keep the original tables. Under ETDRK4
     they live in `etd_tables` instead, and nothing folds.
@@ -475,10 +464,6 @@ class BarotropicModel(nn.Module):
         # fast mode lives on the plane stepper; the library path stays
         # float32 (the JAX package's torch.fft counterpart, XLA's FFT)
         self.fast = fast and self.backend == "pallas"
-        if self.fast:
-            why = fast_refusal(yfirst, quad_mode)
-            if why:
-                raise ValueError(why)
         self.fused_rk = fused_rk
         self.yfirst = yfirst and quad_mode == "grid"
         self.quad_mode = quad_mode

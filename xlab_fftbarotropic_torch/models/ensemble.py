@@ -16,6 +16,11 @@ width):
     _resolve_member_backend does in the JAX package. The kernels take
     one field per launch, so a chunk on an explicit "pallas" backend
     runs member by member.
+  * fast mode (build_kw fast=True, the JAX package's --fast-transforms):
+    width-1 members build the plane stepper with it, so each is the solo
+    fast run bit for bit; a batched chunk stays float32 on torch.fft, as
+    the library path does (and the JAX package's batched chunks on XLA's
+    FFT).
 
 Forcing is shared across members (one source field per step, the
 reference's one-stream protocol, SURVEY.md §3.2). The IC spread comes
@@ -154,7 +159,7 @@ def _member_model(cfg: ModelConfig, device, model_kind: str,
         return ShallowWaterModel.build(cfg, device, **build_kw)
     if model_kind == "tracer":
         from .tracer import TracerModel
-        return TracerModel.build(cfg, device, kappa=tracer_kappa)
+        return TracerModel.build(cfg, device, kappa=tracer_kappa, **build_kw)
     raise ValueError(
         f"ensemble is not supported for model kind {model_kind!r}")
 
@@ -199,7 +204,9 @@ class EnsembleModel:
               **build_kw) -> "EnsembleModel":
         """`build_kw` goes to the family's build (the barotropic
         family's yfirst and fusion arm, the shallow-water family's
-        yfirst)."""
+        yfirst, split and pstore, and each family's fast: width-1
+        members then run the fast plane stepper, batched chunks stay on
+        the float32 library path)."""
         return cls(cfg, device, n_members, model_kind, tracer_kappa,
                    vmap_width, **build_kw)
 

@@ -38,7 +38,11 @@ Three stepping paths, chosen once when the model is built:
   kernels (ops/fused_fft.py rfft2, irfft2, inverse_pair: ka, kb, kc),
   as the JAX package falls back to its per-transform pipeline there,
   with the same warning: per stage two inverse_pair and six forward
-  transforms (five products and the forcing), 10 ka, 2 kb and 6 kc.
+  transforms (five products and the forcing), 10 ka, 2 kb and 6 kc (in
+  fast mode ka_fast, kb_fast and kc_fast, with eta paired at zeta's
+  magnitude through the plane stepper's equalizer eta_scale: the fast kb
+  rounds the pair a + i b to bf16 as one value, where the TPU kernel
+  keeps the two fields apart until its last matmul).
 * "xla", the library path (tendency / rk4_step) on torch.fft.
 
 "auto" takes "pallas" on the square power-of-two grids the kernels take
@@ -51,18 +55,19 @@ fast=True is the JAX package's fast mode (--fast-transforms,
 pallas_fft.MM_MODE "default") on the plane stepper, under RK4 (both RK
 forms) and ETDRK4 (both etd_fuse forms): y-first, ka_sw, kb_pair, ky_all
 and kx_fwd on the fast column tile (bf16 tensor-core sub-DFTs, float32
-accumulate); x-first, ka_sw, kb, ka_fwd and kc_sw. `split` is
-pallas_sw.split_linear and `pstore` pallas_sw.pstore_dtype: None (auto)
-resolves to the split-linear formulation and the bf16 product store
-exactly in fast mode; explicit values win, in strict mode too. split
-reaches the plane stepper and the per-transform path, never the library
-path; pstore is the y-first kx_fwd's store (the x-first kc_sw stores
-float32 in either mode, as in the JAX package, so `self.pstore` is "f32"
-there). sw_fast_refusal names what fast mode does not run yet
-(ROADMAP.md queue A, item 4): RK4 with drag or hyperviscosity (the
-per-transform kernels); the library path stays float32 under
-fast=True, as in the barotropic model. The forcing spectrum stays on
-the strict ka and kc (item 4.5).
+accumulate); x-first, ka_sw, kb, ka_fwd and kc_sw; and RK4 with drag or
+hyperviscosity, the per-transform path, on ka_fast, kb_fast and kc_fast.
+`split` is pallas_sw.split_linear and `pstore` pallas_sw.pstore_dtype:
+None (auto) resolves to the split-linear formulation and the bf16
+product store exactly in fast mode; explicit values win, in strict mode
+too. split reaches the plane stepper and the per-transform path, never
+the library path; pstore is the y-first kx_fwd's store (the x-first
+kc_sw stores float32 in either mode, as in the JAX package, so
+`self.pstore` is "f32" there; the per-transform path stores none). The
+forcing spectrum is taken on the fast ka and kc in fast mode (the JAX
+fast mode's bf16 rfft2), once per segment on the plane stepper and in
+each stage's forward transforms on the per-transform path; the library
+path stays float32 under fast=True, as in the barotropic model.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ from ..ops import fused_sw as fs
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
 from . import etdrk4 as etd
-from .barotropic import (FAST_ITEM, DebugFields, _paired,
+from .barotropic import (DebugFields, _paired,
                          check_time_scheme, resolve_device,
                          resolve_fft_backend, resolve_fft_backend_name,
                          state_shape_ok)
@@ -129,7 +134,8 @@ def tendency(t: SpectralTables, s: SWState, src, f: float, g: float,
              fwd: Callable = fft.forward, inv: Callable = fft.inverse,
              inv_pair: Optional[Callable] = fft.inverse_pair,
              fwd_pair: bool = False, split: bool = False,
-             r_drag: float = 0.0, nu4: float = 0.0) -> SWState:
+             r_drag: float = 0.0, nu4: float = 0.0,
+             eta_scale: float = 1.0) -> SWState:
     """Un-dealiased spectral tendencies of (zeta, delta, eta): the four
     inverse transforms paired into two, through `fwd`, `inv`, `inv_pair`
     (torch.fft by default, or the per-transform kernels); with fwd_pair
@@ -137,11 +143,19 @@ def tendency(t: SpectralTables, s: SWState, src, f: float, g: float,
     through one complex fft2 each. split applies the exactly linear
     f0/gravity terms as spectral multiplies instead of through the
     transforms. Zero r_drag and nu4 skip their terms; src None skips the
-    forcing."""
+    forcing. eta_scale (a power of two, 1: none) is the pairing
+    equalizer: eta_hat enters the (zeta, eta) pair times eta_scale and
+    comes out times its inverse, both exact, so zeta and eta share the
+    pair's rounding at one magnitude (the fast kb rounds a + i b to bf16
+    together, and eta is about 1e4 times zeta)."""
     pair = _paired(inv, inv_pair)
     u_hat, v_hat = sw_velocities(t, s.zeta_hat, s.div_hat)
     u, v = pair(u_hat, v_hat, grid_shape)
-    zeta, eta = pair(s.zeta_hat, s.eta_hat, grid_shape)
+    if eta_scale == 1.0:
+        zeta, eta = pair(s.zeta_hat, s.eta_hat, grid_shape)
+    else:
+        zeta, eta = pair(s.zeta_hat, s.eta_hat * eta_scale, grid_shape)
+        eta = eta * (1.0 / eta_scale)
     q = zeta if split else zeta + f
     if fwd_pair:
         qu_hat, qv_hat = fft.forward_pair(q * u, q * v)
@@ -189,14 +203,16 @@ def rk4_step(t: SpectralTables, s: SWState, src, dt: float, f: float,
              inv: Callable = fft.inverse,
              inv_pair: Optional[Callable] = fft.inverse_pair,
              fwd_pair: bool = False, split: bool = False,
-             r_drag: float = 0.0, nu4: float = 0.0) -> SWState:
+             r_drag: float = 0.0, nu4: float = 0.0,
+             eta_scale: float = 1.0) -> SWState:
     """Classic RK4 with per-stage dealiased tendencies (main.cpp:286-317)
-    on `tendency`, the library path or the per-transform kernels."""
+    on `tendency`, the library path or the per-transform kernels;
+    eta_scale the pairing equalizer, fixed across the stages."""
     def d(x):
         return _dealias_state(t, tendency(
             t, x, src, f, g, nu, mean_depth, grid_shape, fwd=fwd, inv=inv,
             inv_pair=inv_pair, fwd_pair=fwd_pair, split=split,
-            r_drag=r_drag, nu4=nu4))
+            r_drag=r_drag, nu4=nu4, eta_scale=eta_scale))
 
     k1 = d(s)
     k2 = d(_axpy(s, k1, dt * 0.5))
@@ -289,18 +305,6 @@ def resolve_pstore(pstore: Optional[str], fast: bool) -> str:
     return pstore
 
 
-def sw_fast_refusal(per_transform_path: bool = False) -> Optional[str]:
-    """Why shallow-water fast mode does not run this combination yet, or
-    None: it runs the plane stepper in both orders (RK4 in both forms,
-    ETDRK4 in both etd_fuse forms); the per-transform path (RK4 with
-    r_drag or nu4) waits (item 4.5)."""
-    if per_transform_path:
-        return (f"shallow-water fast mode does not run RK4 with r_drag or "
-                f"nu4 (the per-transform kernels) yet ({FAST_ITEM}.5); it "
-                f"runs the plane stepper under RK4 and ETDRK4")
-    return None
-
-
 def resolve_sw_backend(cfg, warn: bool = True) -> str:
     """The stepping backend for a SW configuration, decided once: the
     barotropic shape gate. Under RK4 with r_drag or nu4 != 0 the kernel
@@ -335,9 +339,8 @@ class ShallowWaterModel(nn.Module):
     XFB_SW_YFIRST=1). `fast`, `split` and `pstore` are the fast mode,
     the split-linear formulation and the product store (module note;
     on "pallas" only, `self.fast`, `self.split` and `self.pstore` what
-    runs; sw_fast_refusal's combinations raise). beta != 0
-    raises; under RK4 dt above max_stable_dt warns, as in the JAX
-    package.
+    runs). beta != 0 raises; under RK4 dt above max_stable_dt warns, as
+    in the JAX package.
 
     time_scheme "etdrk4": `etd_tables` (models/etdrk4.py, through its
     disk cache, built on `device`) and a step of etdrk4_step_planes
@@ -380,16 +383,12 @@ class ShallowWaterModel(nn.Module):
                 "the run will blow up; reduce dt (verified NaN at 4096^2 "
                 "with dt=3), or use --time-scheme etdrk4 (exact linear "
                 "waves; only the advective CFL remains)", stacklevel=2)
-        self.backend = resolve_sw_backend(cfg, warn=not fast)
+        self.backend = resolve_sw_backend(cfg)
         self.per_transform = per_transform(cfg, self.backend)
         # fast mode, split and the product store live on the kernels; the
         # library path stays the float32 default formulation
         kernels = self.backend == "pallas"
         self.fast = fast and kernels
-        if self.fast:
-            why = sw_fast_refusal(self.per_transform)
-            if why:
-                raise ValueError(why)
         self.split = resolve_split(split, self.fast) and kernels
         # the product store runs on the y-first kx_fwd alone
         self.pstore = (resolve_pstore(pstore, self.fast)
@@ -429,16 +428,21 @@ class ShallowWaterModel(nn.Module):
         self._check_state(s)
         t, et = self.tables, self.etd_tables
         if self.per_transform:
-            fwd, inv, inv_pair = resolve_fft_backend("pallas",
-                                                     self.cfg.grid_shape)
+            fwd, inv, inv_pair = resolve_fft_backend(
+                "pallas", self.cfg.grid_shape, fast=self.fast)
+            # fast mode pairs (zeta, eta) at one magnitude, as the plane
+            # stepper does; strict float32 keeps the JAX package's pair
+            es = (float(fs.eta_pair_scale(state_to_planes(s)))
+                  if self.fast else 1.0)        # once per segment
             for _ in range(n_steps):
                 s = rk4_step(t, s, src, self.dt, self.f, self.g, self.nu,
                              self.H, self.cfg.grid_shape, fwd=fwd, inv=inv,
                              inv_pair=inv_pair, split=self.split,
-                             r_drag=self.r_drag, nu4=self.nu4)
+                             r_drag=self.r_drag, nu4=self.nu4, eta_scale=es)
             return s
         if self.backend == "pallas":
-            src_planes = None if src is None else fs.forward_planes(src)
+            src_planes = (None if src is None
+                          else fs.forward_planes(src, self.fast))
             p = state_to_planes(s)
             eta_scale = float(fs.eta_pair_scale(p))   # once per segment
             form = dict(yfirst=self.yfirst, fast=self.fast,

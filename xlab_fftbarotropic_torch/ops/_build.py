@@ -111,6 +111,10 @@ SIGNATURES = {
     "xfb_ka_fwd_fast": [_P] * 7 + [_I, _I, _F, _F, _F, _I] + [_I] * 5
     + [_P],
     "xfb_kc_sw_fast": [_P] * 5 + [_I] * 8 + [_P],
+    # the per-transform pipeline's and the overlap x-stage's fast forms
+    "xfb_ka_fast": [_P] * 5 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
+    "xfb_kc_fast": [_P] * 5 + [_I] * 7 + [_P],
+    "xfb_xstage_fast": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
     # kx_fwd with the bf16 product store (csrc/kx_visc.cu), fast and
     # strict tile: fr, fi, tw, rr, ri, nfields, nx, hny, tile_c,
     # cluster_k, threads, smem, device, stream

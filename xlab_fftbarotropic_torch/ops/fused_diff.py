@@ -29,7 +29,12 @@ intermediate gradients may leave the Hermitian subspace and differ from
 those of torch.fft's autograd there; composed gradients (with respect to
 physical fields) agree to float32 round-off (tests/test_torch_adjoint.py).
 
-The Functions save no tensors: ctx holds the grid as Python ints only.
+The Functions save no tensors: ctx holds the grid as Python ints and
+`fast` as a Python bool. fast=True runs both sweeps on the fast column
+tile (ka_fast, kb_fast, kc_fast), as the JAX package's --fast-transforms
+runs pallas_diff's custom VJPs on bf16 matmuls in both sweeps; each rule
+is then the transpose of the float32 map, applied through the fast
+transforms.
 """
 
 from __future__ import annotations
@@ -59,57 +64,63 @@ def _col_weights(ny: int, device: torch.device):
 
 class _Forward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, fast: bool):
         ctx.grid = tuple(x.shape)
-        return ff.rfft2(x)
+        ctx.fast = fast
+        return ff.rfft2(x, fast)
 
     @staticmethod
     def backward(ctx, g):
         nx, ny = ctx.grid
         w, _ = _col_weights(ny, g.device)
-        return (nx * ny) * ff.irfft2(g * w, (nx, ny))
+        return (nx * ny) * ff.irfft2(g * w, (nx, ny), ctx.fast), None
 
 
 class _Inverse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, spec, nx: int, ny: int):
+    def forward(ctx, spec, nx: int, ny: int, fast: bool):
         ctx.grid = (nx, ny)
-        return ff.irfft2(spec, (nx, ny))
+        ctx.fast = fast
+        return ff.irfft2(spec, (nx, ny), fast)
 
     @staticmethod
     def backward(ctx, u):
         nx, ny = ctx.grid
         _, c = _col_weights(ny, u.device)
-        return ff.rfft2(u) * (c / (nx * ny)), None, None
+        return ff.rfft2(u, ctx.fast) * (c / (nx * ny)), None, None, None
 
 
 class _InversePair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, spec_a, spec_b, nx: int, ny: int):
+    def forward(ctx, spec_a, spec_b, nx: int, ny: int, fast: bool):
         ctx.grid = (nx, ny)
-        return ff.inverse_pair(spec_a, spec_b, (nx, ny))
+        ctx.fast = fast
+        return ff.inverse_pair(spec_a, spec_b, (nx, ny), fast)
 
     @staticmethod
     def backward(ctx, ua, ub):
         nx, ny = ctx.grid
         _, c = _col_weights(ny, ua.device)
         c = c / (nx * ny)
-        return ff.rfft2(ua) * c, ff.rfft2(ub) * c, None, None
+        return (ff.rfft2(ua, ctx.fast) * c, ff.rfft2(ub, ctx.fast) * c,
+                None, None, None)
 
 
-def forward(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable rfft2 on the kernels (ops/fft.py contract)."""
-    return _Forward.apply(x)
+def forward(x: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """Differentiable rfft2 on the kernels (ops/fft.py contract); `fast`:
+    on the fast column tile in both sweeps."""
+    return _Forward.apply(x, bool(fast))
 
 
-def inverse(spec: torch.Tensor, grid_shape) -> torch.Tensor:
+def inverse(spec: torch.Tensor, grid_shape, fast: bool = False
+            ) -> torch.Tensor:
     """Differentiable irfft2 on the kernels, scaled by 1/(nx*ny)."""
     nx, ny = grid_shape
-    return _Inverse.apply(spec, int(nx), int(ny))
+    return _Inverse.apply(spec, int(nx), int(ny), bool(fast))
 
 
 def inverse_pair(spec_a: torch.Tensor, spec_b: torch.Tensor,
-                 grid_shape) -> tuple:
+                 grid_shape, fast: bool = False) -> tuple:
     """Differentiable pair inverse on the kernels (two ka, one kb)."""
     nx, ny = grid_shape
-    return _InversePair.apply(spec_a, spec_b, int(nx), int(ny))
+    return _InversePair.apply(spec_a, spec_b, int(nx), int(ny), bool(fast))

@@ -47,7 +47,9 @@ products, float32 accumulate): each wrapper's `fast=True` launches that
 form, counted under its own name (ka_diag_fast, ...), and on the CPU
 takes its plain version, the strict plain version's load and epilogue
 around ops/fast_tile.py's emulation of the fast transform. Every y-first
-arm of it gives the FUSEKB=half arm's bits, as in strict float32.
+arm of it gives the FUSEKB=half arm's bits, as in strict float32. The
+per-transform pipeline below takes `fast` too (ka_fast, kc_fast and
+kb_fast), and so do the distributed x-stages (parallel/fused_overlap.py).
 
 The per-transform pipeline, the counterpart of pallas_fft.rfft2,
 inverse_pair and irfft2, is three kernels: ka, the x-stage of any mode
@@ -57,7 +59,9 @@ written x-major. rfft2 is ka + kc, inverse_pair two ka + one kb, irfft2
 one ka + one kb (the zero partner is left out). They serve the
 shallow-water forcing spectrum (ops/fused_sw.py:forward_planes), the
 shallow-water RK4 step with drag or hyperviscosity, and, with their
-adjoints (ops/fused_diff.py), the differentiable rollout (adjoint.py).
+adjoints (ops/fused_diff.py), the differentiable rollout (adjoint.py);
+with `fast`, each on the fast column tile, as the JAX package's fast mode
+runs pallas_fft.rfft2, irfft2 and inverse_pair on bf16 matmuls.
 
 Layouts are the TPU kernels' public ones, so the tests compare like with
 like: spectral planes (nx, hny) or stacks (F, nx, hny), the stacked
@@ -92,7 +96,9 @@ LAUNCHES = {"ka_diag": 0, "kb_pair": 0, "ky_adv": 0, "kx_visc": 0,
             "ka6_fast": 0, "kb_adv_tracer_fast": 0, "ky_adv_fast": 0,
             "kb_adv_full_fast": 0, "kx_visc_tail_fast": 0,
             "ka_quad_fast": 0, "kb_fast": 0, "ka_adv_fast": 0,
-            "kc_visc_fast": 0, "ka_fwd_fast": 0, "kc_sw_fast": 0}
+            "kc_visc_fast": 0, "ka_fwd_fast": 0, "kc_sw_fast": 0,
+            "ka_fast": 0, "kc_fast": 0, "xstage_fast": 0,
+            "xstage_gather_fast": 0, "xstage_scatter_fast": 0}
 
 # the KB + advection fusion's arms (pallas_fft.fusekb_mode): "" none
 FUSEKB_MODES = ("", "half", "full")
@@ -750,21 +756,33 @@ def ka_plain(xr, xi, forward: bool, scale: float = 1.0):
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def ka(xr, xi, forward: bool, scale: float = 1.0):
+def ka_fast_plain(xr, xi, forward: bool, scale: float = 1.0):
+    """ka_plain on the fast tile: the DFT along axis 0 through
+    ops/fast_tile.py (zero imaginary parts for xi None), each part times
+    `scale` in one rounded product, written transposed."""
+    from .fast_tile import fast_dft
+    yr, yi = fast_dft(xr, torch.zeros_like(xr) if xi is None else xi,
+                      -1 if forward else 1)
+    return ((yr * scale).t().contiguous(), (yi * scale).t().contiguous())
+
+
+def ka(xr, xi, forward: bool, scale: float = 1.0, fast: bool = False):
     """scale * the unnormalized DFT along axis 0 (exp(-2 pi i jk/n) when
     `forward`, exp(+...) else) of (n, m) planes xr + i xi, or of the real
-    plane xr when xi is None, written transposed: (m, n) planes (yr, yi).
-    Counterpart of pallas_fft._ka_call (_ka_kernel), every mode."""
+    plane xr when xi is None, written transposed: (m, n) planes (yr, yi);
+    `fast`: on the fast column tile. Counterpart of pallas_fft._ka_call
+    (_ka_kernel), every mode."""
     if xr.dim() != 2:
         raise ValueError(f"ka: expected (n, m) planes, got {tuple(xr.shape)}")
     n, m = xr.shape
     _check("ka", (n, m), *((xr,) if xi is None else (xr, xi)))
     if _takes_plain("ka", xr, n):
-        return ka_plain(xr, xi, forward, scale)
+        return (ka_fast_plain if fast else ka_plain)(xr, xi, forward, scale)
     from ._build import lib
     yr = torch.empty((m, n), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    _launch("ka", lib().xfb_ka, xr.data_ptr(),
+    name = "ka_fast" if fast else "ka"
+    _launch(name, getattr(lib(), "xfb_" + name), xr.data_ptr(),
             None if xi is None else xi.data_ptr(),
             *_ptrs(_twiddles(n, xr.device), yr, yi), n, m,
             1 if forward else 0, float(scale), *_xtile_args(n, m, 4),
@@ -781,23 +799,25 @@ def kc_plain(xr, xi):
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def kc(xr, xi):
+def kc(xr, xi, fast: bool = False):
     """Forward DFT along y of the y-major (ny, nx) planes xr + i xi, rows
-    k <= ny/2 kept and written transposed: (nx, hny) planes. Counterpart
-    of pallas_fft._kc_call (_kc_kernel)."""
+    k <= ny/2 kept and written transposed: (nx, hny) planes; `fast`: on
+    the fast column tile. Counterpart of pallas_fft._kc_call
+    (_kc_kernel)."""
     if xr.dim() != 2:
         raise ValueError(f"kc: expected (ny, nx) planes, got "
                          f"{tuple(xr.shape)}")
     ny, nx = xr.shape
     _check("kc", (ny, nx), xr, xi)
     if _takes_plain("kc", xr, ny):
-        return kc_plain(xr, xi)
+        return (kc_fast_plain if fast else kc_plain)(xr, xi)
     from ._build import lib
     hny = ny // 2 + 1
     yr = torch.empty((nx, hny), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    _launch("kc", lib().xfb_kc, *_ptrs(xr, xi, _twiddles(ny, xr.device),
-                                       yr, yi),
+    name = "kc_fast" if fast else "kc"
+    _launch(name, getattr(lib(), "xfb_" + name),
+            *_ptrs(xr, xi, _twiddles(ny, xr.device), yr, yi),
             ny, nx, *_xtile_args(ny, nx, 4), xr.device.index, _stream(xr))
     return yr, yi
 
@@ -913,32 +933,35 @@ def _planes(spec: torch.Tensor):
     return spec.real.contiguous(), spec.imag.contiguous()
 
 
-def rfft2(x: torch.Tensor) -> torch.Tensor:
+def rfft2(x: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """Real (nx, ny) float32 -> half-spectrum (nx, ny//2+1) complex64,
-    unnormalized (ops/fft.py contract): ka (forward, real input) + kc.
-    Counterpart of pallas_fft.rfft2."""
-    return torch.complex(*kc(*ka(x.contiguous(), None, forward=True)))
+    unnormalized (ops/fft.py contract): ka (forward, real input) + kc;
+    `fast`: both on the fast column tile. Counterpart of
+    pallas_fft.rfft2."""
+    return torch.complex(*kc(*ka(x.contiguous(), None, forward=True,
+                                 fast=fast), fast=fast))
 
 
 def inverse_pair(spec_a: torch.Tensor, spec_b: torch.Tensor,
-                 grid_shape) -> tuple:
+                 grid_shape, fast: bool = False) -> tuple:
     """Two half-spectra -> two real (nx, ny) fields, each scaled by
-    1/(nx*ny): two ka (inverse, complex input) + one kb. Counterpart of
-    pallas_fft.inverse_pair."""
+    1/(nx*ny): two ka (inverse, complex input) + one kb; `fast`: each on
+    the fast column tile. Counterpart of pallas_fft.inverse_pair."""
     nx, ny = grid_shape
-    wa = ka(*_planes(spec_a), forward=False)
-    wb = ka(*_planes(spec_b), forward=False)
-    return kb(*wa, *wb, 1.0 / (nx * ny))
+    wa = ka(*_planes(spec_a), forward=False, fast=fast)
+    wb = ka(*_planes(spec_b), forward=False, fast=fast)
+    return kb(*wa, *wb, 1.0 / (nx * ny), fast=fast)
 
 
-def irfft2(spec: torch.Tensor, grid_shape) -> torch.Tensor:
+def irfft2(spec: torch.Tensor, grid_shape, fast: bool = False
+           ) -> torch.Tensor:
     """One half-spectrum -> real (nx, ny), scaled by 1/(nx*ny): one ka +
-    one kb with no partner. pallas_fft.irfft2 runs inverse_pair with a
-    zero partner (two ka); the port leaves the zero partner's ka out,
-    with the same result."""
+    one kb with no partner; `fast`: both on the fast column tile.
+    pallas_fft.irfft2 runs inverse_pair with a zero partner (two ka); the
+    port leaves the zero partner's ka out, with the same result."""
     nx, ny = grid_shape
-    return kb(*ka(*_planes(spec), forward=False), None, None,
-              1.0 / (nx * ny))[0]
+    return kb(*ka(*_planes(spec), forward=False, fast=fast), None, None,
+              1.0 / (nx * ny), fast=fast)[0]
 
 
 # ------------------------------------------------------- stage composites

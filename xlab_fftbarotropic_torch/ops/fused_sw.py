@@ -622,8 +622,9 @@ def forward_tendencies(u, v, zeta, eta_s, state, src, kx, ky, lap, mask,
                       H, split, axpy)
 
 
-def forward_planes(src):
+def forward_planes(src, fast: bool = False):
     """Forward rfft2 (unnormalized) of the physical (nx, ny) forcing as
-    (re, im) planes (nx, hny): ka (real input) + kc. Counterpart of
-    pallas_sw.forward_planes; computed once per segment."""
-    return kc(*ka(src, None, forward=True))
+    (re, im) planes (nx, hny): ka (real input) + kc; `fast`: both on the
+    fast column tile. Counterpart of pallas_sw.forward_planes; computed
+    once per segment."""
+    return kc(*ka(src, None, forward=True, fast=fast), fast=fast)

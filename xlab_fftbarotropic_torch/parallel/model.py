@@ -15,7 +15,11 @@ transforms:
                     (parallel/xpencil.py);
 
 and fft_impl 'xla' (library transposes), 'pallas' (the a2a kernels, TPU
-row 23) or 'overlap' (the xstage kernels, rows 21 and 22). Every spectral
+row 23) or 'overlap' (the xstage kernels, rows 21 and 22). fast=True (the
+JAX package's fast mode) runs the overlap x-stages on their fast forms;
+on 'xla' and 'pallas' the x-stage is torch.fft and the transposes hold no
+matmul, so fast mode changes nothing there, as in the JAX package (its
+jnp.fft x-stage and DMA all-to-all). Every spectral
 operator is pointwise and broadcasts over the shard axis. The inverse
 transforms run unpaired (inv_pair=None): the single-device paired inverse
 (ops/fft.py:inverse_pair) is not a distributed transform, so a stage
@@ -85,16 +89,18 @@ def _slab_tables(t: SpectralTables, n: int) -> SpectralTables:
     return SpectralTables({**out, "ky": t.ky}, t.lap.device)
 
 
-def _slab_pair(fft_impl: str):
+def _slab_pair(fft_impl: str, fast: bool):
     if fft_impl == "overlap":
         from . import fused_overlap
-        return fused_overlap.make_fft_pair()
+        return fused_overlap.make_fft_pair(fast)
     return dfft.make_fft_pair(use_pallas=fft_impl == "pallas")
 
 
-def _decomp_setup(cfg, mesh: ShardGroup, fft_impl: str, decomp: str):
+def _decomp_setup(cfg, mesh: ShardGroup, fft_impl: str, decomp: str,
+                  fast: bool = False):
     """(sharded tables, fwd, inv, hpad) of a decomposition; hpad None for
-    the slab, whose spectral state is not padded."""
+    the slab, whose spectral state is not padded; `fast`: the overlap
+    x-stages' fast forms."""
     if decomp == "pencil":
         raise NotImplementedError(
             f"decomp='pencil' (the 2-D pencil decomposition) is not ported "
@@ -110,9 +116,9 @@ def _decomp_setup(cfg, mesh: ShardGroup, fft_impl: str, decomp: str):
     if decomp == "xpencil":
         hny = cfg.ny // 2 + 1
         return (xpencil.shard_tables(t, n),
-                *xpencil.make_fft_pair(hny, fft_impl),
+                *xpencil.make_fft_pair(hny, fft_impl, fast),
                 xpencil.hpad_for(hny, n))
-    return (_slab_tables(t, n), *_slab_pair(fft_impl), None)
+    return (_slab_tables(t, n), *_slab_pair(fft_impl, fast), None)
 
 
 class ShardedBarotropicModel(nn.Module):
@@ -127,21 +133,26 @@ class ShardedBarotropicModel(nn.Module):
     unshard_spectral carry it from and to the global (nx, hny)). Under
     ETDRK4 the scalar tables (nu lap - r_drag - nu4 lap^2, and beta in
     complex tables) shard like lap, the x-pencil pad with identity
-    propagators and zero weights, so the pad stays zero.
+    propagators and zero weights, so the pad stays zero. `fast`: the
+    fast mode, `self.fast` whether it changes what runs (the overlap
+    impl's fast x-stages; module note).
     """
 
     def __init__(self, cfg, mesh: ShardGroup, fft_impl: str = "xla",
-                 decomp: str = "slab"):
+                 decomp: str = "slab", fast: bool = False):
         super().__init__()
         check_time_scheme(cfg)
+        if not isinstance(fast, bool):
+            raise TypeError(f"fast must be a bool, got {fast!r}")
         self.cfg = cfg
         self.mesh = mesh
         self.device = mesh.device
         self.n_shards = mesh.n_shards
         self.fft_impl = fft_impl
         self.decomp = decomp
+        self.fast = fast and fft_impl == "overlap"
         (self.tables, self._fwd, self._inv,
-         self.hpad) = _decomp_setup(cfg, mesh, fft_impl, decomp)
+         self.hpad) = _decomp_setup(cfg, mesh, fft_impl, decomp, self.fast)
         self.dt = float(cfg.dt)
         self.nu = float(cfg.nu)
         self.r_drag = float(cfg.r_drag)
@@ -157,8 +168,9 @@ class ShardedBarotropicModel(nn.Module):
 
     @classmethod
     def build(cls, cfg, mesh: ShardGroup, fft_impl: str = "xla",
-              decomp: str = "slab") -> "ShardedBarotropicModel":
-        return cls(cfg, mesh, fft_impl, decomp)
+              decomp: str = "slab",
+              fast: bool = False) -> "ShardedBarotropicModel":
+        return cls(cfg, mesh, fft_impl, decomp, fast)
 
     @property
     def spectral_shape(self) -> tuple:

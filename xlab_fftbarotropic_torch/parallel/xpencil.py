@@ -17,7 +17,10 @@ Three impls of the transpose and x-stage, as the JAX package's:
 kernels (fused_transpose.a2a_*), both with torch.fft along x; 'overlap'
 the x-stage halves xstage_gather / xstage_scatter (fused_overlap). The
 pad is the same for the three (the JAX overlap impl's 128-lane chunk
-plan is a TPU tiling rule, not carried over).
+plan is a TPU tiling rule, not carried over). `fast` takes the overlap
+halves' fast forms (the JAX fast mode's bf16 x-stage); the other impls'
+x-stage is torch.fft, which fast mode leaves float32, as the JAX
+package's jnp.fft.
 """
 
 from __future__ import annotations
@@ -66,20 +69,21 @@ def shard_tables(t: SpectralTables, n_shards: int) -> SpectralTables:
     return SpectralTables(out, t.lap.device)
 
 
-def rfft2_local(field: torch.Tensor, fft_impl: str) -> torch.Tensor:
+def rfft2_local(field: torch.Tensor, fft_impl: str,
+                fast: bool = False) -> torch.Tensor:
     """Row shards (P, nx/P, ny) float32 -> x-pencil (P, nx, hpad/P)
     complex64, unnormalized."""
     spec = torch.fft.rfft(field, dim=-1)
     if fft_impl == "overlap":
         from . import fused_overlap as fo
-        return fo.xstage_gather(spec, forward=True)
+        return fo.xstage_gather(spec, forward=True, fast=fast)
     to_cols, _ = dfft._transposes(fft_impl == "pallas")
     return torch.fft.fft(to_cols(spec), dim=1)
 
 
 def irfft2_local(spec_cols: torch.Tensor,
                  grid_shape: Optional[Tuple[int, int]], hny: int,
-                 fft_impl: str) -> torch.Tensor:
+                 fft_impl: str, fast: bool = False) -> torch.Tensor:
     """x-pencil (P, nx, hpad/P) complex64 -> row shards (P, nx/P, ny)
     float32, scaled by 1/(nx*ny)."""
     nx = spec_cols.shape[1]
@@ -87,23 +91,24 @@ def irfft2_local(spec_cols: torch.Tensor,
     if fft_impl == "overlap":
         from . import fused_overlap as fo
         rows = fo.xstage_scatter(spec_cols, hny, forward=False,
-                                 scale=1.0 / nx)
+                                 scale=1.0 / nx, fast=fast)
     else:
         _, to_rows = dfft._transposes(fft_impl == "pallas")
         rows = to_rows(torch.fft.ifft(spec_cols, dim=1), hny)
     return dfft.irfft_rows(rows, ny)
 
 
-def make_fft_pair(hny: int, fft_impl: str = "xla"):
+def make_fft_pair(hny: int, fft_impl: str = "xla", fast: bool = False):
     """(forward, inverse) with the ops/fft.py signatures for the x-pencil
-    layout."""
+    layout; `fast`: the overlap halves' fast forms (no change on the
+    other impls)."""
     if fft_impl not in IMPLS:
         raise ValueError(f"unknown fft_impl: {fft_impl!r}")
 
     def fwd(field):
-        return rfft2_local(field, fft_impl)
+        return rfft2_local(field, fft_impl, fast)
 
     def inv(spec, grid_shape=None):
-        return irfft2_local(spec, grid_shape, hny, fft_impl)
+        return irfft2_local(spec, grid_shape, hny, fft_impl, fast)
 
     return fwd, inv

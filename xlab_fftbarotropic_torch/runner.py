@@ -339,10 +339,6 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  ensemble_amp: float = 0.05, ensemble_seed: int = 0,
                  ensemble_width=None, sw_form: Optional[dict] = None,
                  tracer_fast: bool = False):
-    if tracer_fast and ((ensemble and ensemble > 1) or shard):
-        raise NotImplementedError(
-            "the tracer's fast mode with an ensemble or shards is not "
-            "ported yet (ROADMAP.md queue A, item 4.6)")
     if ensemble and ensemble > 1:
         if shard:
             raise ValueError("--ensemble and --shard are mutually "
@@ -353,7 +349,9 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
             build_kw = dict(yfirst=yfirst, **(bt_fusion or {}))
         elif model_kind in ("shallow-water", "sw"):
             build_kw = dict(yfirst=yfirst, **(sw_form or {}))
-        elif model_kind != "tracer":
+        elif model_kind == "tracer":
+            build_kw = dict(fast=tracer_fast)
+        else:
             raise ValueError(f"ensemble is not supported for model kind "
                              f"{model_kind!r}")
         return _EnsembleAdapter(cfg, device, model_kind, ensemble,
@@ -362,16 +360,18 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                                 vmap_width=ensemble_width, **build_kw)
     if shard:
         # the barotropic family over the visible card (one shard; the CPU
-        # too); make_mesh and build refuse what waits (item 5)
+        # too); make_mesh and build refuse what waits (item 5); fast mode
+        # is bt_fusion's "fast"
         from .parallel import ShardedBarotropicModel, make_mesh
         if model_kind not in ("barotropic", "bt"):
             raise NotImplementedError(
                 f"--shard for model kind {model_kind!r} is not ported yet "
-                f"(ROADMAP.md queue A, item 5): the barotropic family "
+                f"(ROADMAP.md queue A, item 5.1): the barotropic family "
                 f"shards")
         return _BarotropicAdapter(cfg, device, model=(
-            ShardedBarotropicModel.build(cfg, make_mesh(None, device),
-                                         fft_impl=shard_fft, decomp=decomp)))
+            ShardedBarotropicModel.build(
+                cfg, make_mesh(None, device), fft_impl=shard_fft,
+                decomp=decomp, fast=(bt_fusion or {}).get("fast", False))))
     if model_kind in ("barotropic", "bt"):
         return _BarotropicAdapter(cfg, device, yfirst, **(bt_fusion or {}))
     if model_kind == "tracer":
@@ -429,11 +429,12 @@ def run(cfg: ModelConfig,
     fusetail (None: the defaults). sw_form: the shallow-water plane
     stepper's fast, split and pstore (ShallowWaterModel.build's; None:
     the defaults). tracer_fast: the tracer plane stepper in fast mode
-    (TracerModel.build's fast). shard: the barotropic family on the
-    sharded model (parallel/model.py) over the visible card, with
-    shard_fft its transform impl ('xla', 'pallas', 'overlap') and decomp
-    its decomposition ('slab', 'xpencil'). model_kind 'fd' (or
-    'jacobian'): the finite-difference core. ensemble M > 1: M members
+    (TracerModel.build's fast; each width-1 ensemble member's too). shard:
+    the barotropic family on the sharded model (parallel/model.py) over
+    the visible card, with shard_fft its transform impl ('xla', 'pallas',
+    'overlap'), decomp its decomposition ('slab', 'xpencil') and
+    bt_fusion's "fast" its fast mode (the overlap x-stages'). model_kind
+    'fd' (or 'jacobian'): the finite-difference core. ensemble M > 1: M members
     (barotropic, tracer or shallow-water; not with shard) from vort0
     perturbed by ensemble_amp * rms(vort0) of band-limited noise drawn
     from ensemble_seed, member 0 the control, ensemble_width members per
