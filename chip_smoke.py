@@ -228,6 +228,22 @@ exits non-zero and prints no result):
    kc_sw held to their plain versions and strict kernels as in 5o and
    timed at n^2. The script's total wall time is printed before the
    JSON lines.
+5r. The sharded shallow-water and tracer families (phase_sharded_families):
+   --shard -m sw (slab, overlap) and --shard -m tracer (x-pencil,
+   pallas) through cli.run.main on one shard, records finite, launches
+   exact per step and per record; ShardedShallowWaterModel and
+   ShardedTracerModel.build(cfg, make_mesh(4, dev), ...) at n^2 for
+   `steps` steps, every decomp x impl under RK4, slab/overlap under
+   ETDRK4 and slab and x-pencil overlap in fast mode, with shard_refused
+   raising: exact launches (SW 40 transforms a step, the tracer 32:
+   shard_transform_launches), the fields within rel-L2 1e-5 of the
+   single-device torch.fft path (unpaired for SW; SW div's max abs error
+   over max(|div|, |zeta|)), pallas bit for bit xla, the fast paths
+   within FAST_SHARD_FAMILY_BARS of the strict overlap path; ms/step of
+   each in turns with the single-device library and kernel paths;
+   make_sharded_rollout's gradient at 1024^2 against the single-device
+   gradient (max |d| <= 1e-5 of its max). `--phase 5r` runs the
+   toolchain phase and this phase alone.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -357,6 +373,70 @@ SHARD_PER_RECORD = {("slab", "pallas"): {"a2a_cols": 4, "a2a_rows": 4},
                     ("slab", "overlap"): {"xstage": 4},
                     ("xpencil", "pallas"): {"a2a_rows": 4},
                     ("xpencil", "overlap"): {"xstage_scatter": 4}}
+# phase 5r: the sharded shallow-water and tracer families, through
+# ShardedShallowWaterModel / ShardedTracerModel.build on four shards
+# (shard4-<family>-<decomp>-<impl>, slab/overlap under ETDRK4, slab and
+# x-pencil overlap in fast mode) and through the CLI on one shard
+SHARD_FAMILIES = ("sw", "tracer")
+SHARD_FAMILY_MODELS = tuple(
+    f"shard4-{f}-{d}-{i}" for f in SHARD_FAMILIES for d in SHARD_DECOMPS
+    for i in SHARD_IMPLS) + tuple(
+    f"shard4-{f}-{k}" for f in SHARD_FAMILIES
+    for k in ("slab-overlap-etdrk4", "slab-overlap-fast",
+              "xpencil-overlap-fast"))
+SHARD_FAMILY_CLI = ("shard-sw-slab-overlap", "shard-tracer-xpencil-pallas")
+# inverse and forward transforms per step (4 stages): SW u, v, zeta, eta
+# and qu, qv, eu, ev, phi, the zero forcing; tracer the zeta and q
+# gradients, u, v and the two advections; and per record (the diags)
+SHARD_FAMILY_TRANSFORMS = {"sw": (16, 24), "tracer": (24, 8)}
+SHARD_FAMILY_RECORD = {"sw": 6, "tracer": 5}
+# the fast overlap paths against the strict overlap path after the
+# phase's steps: tracer zeta and q; SW zeta and eta (no split-linear
+# formulation, as the JAX sharded model: the f0/gravity terms ride the
+# bf16 x-stages)
+FAST_SHARD_FAMILY_BARS = {"tracer": {"vort": 1e-4, "q": 1e-4},
+                          "sw": {"vort": 2e-4, "eta": 1e-2}}
+# make_sharded_rollout's gradient against the single-device one: its
+# grid, steps, and the bar on max |d| over the single-device max
+SHARD_ROLLOUT_N, SHARD_ROLLOUT_STEPS, SHARD_ROLLOUT_BAR = 1024, 3, 1e-5
+
+
+def shard_transform_launches(decomp: str, impl: str, inverse: int,
+                             forward: int) -> dict:
+    """The kernels `inverse` inverse and `forward` forward distributed
+    transforms launch: two transposes (slab) or one (x-pencil) each on
+    'pallas', one xstage or one x-stage half on 'overlap', none on
+    'xla'."""
+    if impl == "xla":
+        return {}
+    if decomp == "slab":
+        t = inverse + forward
+        return ({"a2a_cols": t, "a2a_rows": t} if impl == "pallas"
+                else {"xstage": t})
+    cols, rows = (("a2a_cols", "a2a_rows") if impl == "pallas"
+                  else ("xstage_gather", "xstage_scatter"))
+    return {k: v for k, v in ((cols, forward), (rows, inverse)) if v}
+
+
+def family_path_step(path: str) -> dict:
+    """The launches per step of a phase 5r path
+    (shard[4]-<family>-<decomp>-<impl>[-etdrk4|-fast]): ETDRK4 has the
+    transforms of RK4 (4 N per step); fast mode the same counts under
+    the fast x-stages' names."""
+    _, family, decomp, impl, *mode = path.split("-")
+    out = shard_transform_launches(decomp, impl,
+                                   *SHARD_FAMILY_TRANSFORMS[family])
+    return {f"{k}_fast": v for k, v in out.items()} if mode == ["fast"] \
+        else out
+
+
+def _family_paths(*kernels) -> tuple:
+    """Phase 5r's paths (models and CLI runs) that launch any of
+    `kernels`."""
+    return tuple(p for p in SHARD_FAMILY_MODELS + SHARD_FAMILY_CLI
+                 if any(family_path_step(p).get(k) for k in kernels))
+
+
 KERNELS = {
     "ka_diag": ("xlab_fftbarotropic_torch/csrc/ka_diag.cu",
                 "xlab_fftbarotropic_tpu/ops/pallas_fft.py:694",
@@ -548,22 +628,25 @@ KERNELS = {
     # four-shard model runs
     "a2a_cols": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
                  "xlab_fftbarotropic_tpu/parallel/pallas_transpose.py:39",
-                 "a2a_cols", SHARD_PALLAS),
+                 "a2a_cols", SHARD_PALLAS + _family_paths("a2a_cols")),
     "a2a_rows": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
                  "xlab_fftbarotropic_tpu/parallel/pallas_transpose.py:78",
-                 "a2a_rows", SHARD_PALLAS),
+                 "a2a_rows", SHARD_PALLAS + _family_paths("a2a_rows")),
     "xstage": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
                "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:61",
                "xstage", ("shard-slab-overlap", "shard4-slab-overlap",
-                          "shard4-slab-overlap-etdrk4")),
+                          "shard4-slab-overlap-etdrk4")
+               + _family_paths("xstage")),
     "xstage_gather": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
                       "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:148",
                       "xstage_gather", ("shard-xpencil-overlap",
-                                        "shard4-xpencil-overlap")),
+                                        "shard4-xpencil-overlap")
+                      + _family_paths("xstage_gather")),
     "xstage_scatter": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
                        "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:212",
                        "xstage_scatter", ("shard-xpencil-overlap",
-                                          "shard4-xpencil-overlap")),
+                                          "shard4-xpencil-overlap")
+                       + _family_paths("xstage_scatter")),
     # phase 5q: the per-transform pipeline's fast forms (the SW drag
     # path, the fast adjoint, the forcing spectrum of the fast SW plane
     # stepper) and the overlap x-stages' (the fast sharded paths)
@@ -583,19 +666,22 @@ KERNELS = {
                     "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:61",
                     "xstage_fast", ("shard-slab-overlap-fast",
                                     "shard4-slab-overlap-fast",
-                                    "shard4-slab-overlap-fast-etdrk4")),
+                                    "shard4-slab-overlap-fast-etdrk4")
+                    + _family_paths("xstage_fast")),
     "xstage_gather_fast": (
         "xlab_fftbarotropic_torch/csrc/xstage.cu",
         "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:148",
         "xstage_gather_fast", ("shard-xpencil-overlap-fast",
                                "shard4-xpencil-overlap-fast",
-                               "shard4-xpencil-overlap-fast-etdrk4")),
+                               "shard4-xpencil-overlap-fast-etdrk4")
+        + _family_paths("xstage_gather_fast")),
     "xstage_scatter_fast": (
         "xlab_fftbarotropic_torch/csrc/xstage.cu",
         "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:212",
         "xstage_scatter_fast", ("shard-xpencil-overlap-fast",
                                 "shard4-xpencil-overlap-fast",
-                                "shard4-xpencil-overlap-fast-etdrk4")),
+                                "shard4-xpencil-overlap-fast-etdrk4")
+        + _family_paths("xstage_scatter_fast")),
 }
 # expected launches per step on each main path (every other kernel: 0)
 PER_STEP = {
@@ -723,6 +809,13 @@ for _d in SHARD_DECOMPS:
         PER_STEP[_name] = _fast
     PER_SEGMENT[f"shard-{_d}-overlap-fast"] = {
         f"{k}_fast": v for k, v in SHARD_PER_RECORD[(_d, "overlap")].items()}
+# phase 5r's paths; through the CLI the records' diagnostics add their
+# inverse transforms once per segment
+PER_STEP.update({p: family_path_step(p)
+                 for p in SHARD_FAMILY_MODELS + SHARD_FAMILY_CLI})
+PER_SEGMENT.update({p: shard_transform_launches(
+    p.split("-")[2], p.split("-")[3], SHARD_FAMILY_RECORD[p.split("-")[1]],
+    0) for p in SHARD_FAMILY_CLI})
 # the main paths driven through cli.run.main, and the environment each
 # runs under (the x-first order, as the JAX package reads it)
 BT_ARM_ENV = {"bt-fusekb-full": {"XFB_BT_FUSEKB": "full"},
@@ -3631,6 +3724,11 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
                           "--shard-fft", f.split("-")[2]]
                + (["--fast-transforms"] if f.endswith("-fast") else []))
            for f in SHARD_CLI + FAST_REST_CLI[1:]},
+        # phase 5r: the sharded SW and tracer families on one shard
+        "shard-sw-slab-overlap": (["vort", "div", "h"], sw_rk4 + [
+            "--shard", "--decomp", "slab", "--shard-fft", "overlap"]),
+        "shard-tracer-xpencil-pallas": (["vort", "q"], tracer + [
+            "--shard", "--decomp", "xpencil", "--shard-fft", "pallas"]),
         # phase 5q: the SW drag path in fast mode
         "sw-drag-fast": (["vort", "div", "h"],
                          ["-m", "sw", "--dt",
@@ -3638,7 +3736,7 @@ def phase_main_path(family: str, n: int, steps: int) -> dict:
                           "--r-drag", repr(SW_R_DRAG), "--nu4",
                           repr(example12_nu4(n)), "--fast-transforms"]),
     }[family]
-    if family in SW_FAMILIES:
+    if family in SW_FAMILIES + ("shard-sw-slab-overlap",):
         vort0 = makefields.gaussian(cfg, zeta0=1e-5)
     with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
         inp, out = Path(tmp) / "input", Path(tmp) / "output"
@@ -3885,6 +3983,249 @@ def phase_sharded(n: int, steps: int, dev, profile: bool) -> dict:
                                         *runs[name][1:])}, name)
             for name in SHARD_MODELS if "xla" not in name
             and "etdrk4" not in name}
+    return out
+
+
+def _family_state_fields(family: str, state, n: int) -> dict:
+    """A global spectral state's physical fields through torch.fft
+    (irfft2): SW vort, div, eta (eta from its own spectrum: h - H rounds
+    it at H's float32 spacing); tracer vort, q."""
+    names = ("vort", "div", "eta") if family == "sw" else ("vort", "q")
+    return {k: torch.fft.irfft2(z, s=(n, n)) for k, z in zip(names, state)}
+
+
+def _family_errors(family: str, got: dict, want: dict) -> dict:
+    """rel-L2 of each field; for SW also each field's max abs error over
+    the JAX package's norms (div over max(|div|, |zeta|), sw_errors)."""
+    out = {f"{k}_rel_l2": rel_l2(got[k], want[k]) for k in want}
+    if family == "sw":
+        nz = float(want["vort"].abs().max())
+        norms = {"vort": nz, "div": max(float(want["div"].abs().max()), nz),
+                 "eta": float(want["eta"].abs().max())}
+        out.update({f"{k}_max_abs_err": float((got[k] - want[k]).abs().max())
+                    / m for k, m in norms.items()})
+    return out
+
+
+def phase_sharded_families(n: int, steps: int, dev) -> dict:
+    """Phase 5r: the sharded shallow-water and tracer families. Each
+    family's ShardedShallowWaterModel / ShardedTracerModel.build(cfg,
+    make_mesh(4, dev), impl, decomp) at n^2 for `steps` steps, every
+    decomp x impl under RK4, slab/overlap under ETDRK4 and slab and
+    x-pencil overlap in fast mode (bench.py's SW configuration at the RK4
+    bound and at dt 7.5 s under ETDRK4; its tracer configuration, kappa =
+    50), each segment with the launch counters set to 0 just before it
+    and read just after, with shard_refused raising: exact launches, the
+    fields against the single-device torch.fft path (unpaired for SW:
+    the paired library inverse puts eps max|eta| into zeta) within
+    rel-L2 TOL (SW div: max abs error over max(|div|, |zeta|)), pallas
+    bit for bit xla, the fast paths within FAST_SHARD_FAMILY_BARS of the
+    strict overlap path; ms/step of each in turns with the single-device
+    library and kernel paths; --shard -m sw and -m tracer through
+    cli.run.main on one shard; make_sharded_rollout's gradient at
+    SHARD_ROLLOUT_N^2 against the single-device library and kernel
+    gradients. The SW ETD tables go through the disk cache (built once,
+    loaded by the second model)."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models import etdrk4 as etd
+    from xlab_fftbarotropic_torch.models import shallow_water as sw
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+    from xlab_fftbarotropic_torch.ops import fft
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.parallel import (ShardedShallowWaterModel,
+                                                   ShardedTracerModel,
+                                                   make_mesh)
+
+    t_phase = time.perf_counter()
+    out = {"main_paths": {}, "trajectories": {}, "time": {}}
+    for family in SHARD_FAMILY_CLI:
+        out["main_paths"][family] = phase_main_path(family, n, steps)
+    cfg = ModelConfig(nx=n, ny=n)
+    src = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    mesh = make_mesh(4, dev)
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        os.environ["XFB_ETD_CACHE"] = tmp
+        try:
+            for family in SHARD_FAMILIES:
+                if family == "sw":
+                    rcfg = cfg.replace(dt=min(3.0, sw.max_stable_dt(cfg)))
+                    cfgs = {"rk4": rcfg, "etdrk4": cfg.replace(
+                        time_scheme="etdrk4", dt=SW_ETD_DT)}
+                    v0 = makefields.gaussian(cfg, zeta0=1e-5)
+                    libs = {k: sw.ShallowWaterModel.build(
+                        c.replace(fft_backend="xla"), dev)
+                        for k, c in cfgs.items()}
+                    s0 = libs["rk4"].geostrophic_init(v0)
+                    g = cfg.grid_shape
+                    ref = {}
+                    for scheme, m in libs.items():
+                        s = s0
+                        for _ in range(steps):
+                            s = (etd.etdrk4_step(m.tables, m.etd_tables, s,
+                                                 src, g, fwd=fft.forward,
+                                                 inv=fft.inverse)
+                                 if scheme == "etdrk4" else
+                                 sw.rk4_step(m.tables, s, src, m.dt, m.f,
+                                             m.g, m.nu, m.H, g,
+                                             inv_pair=None))
+                        ref[scheme] = _family_state_fields(family, s, n)
+                    single = {"library": libs["rk4"],
+                              "kernels": sw.ShallowWaterModel.build(rcfg,
+                                                                    dev)}
+
+                    def build(c, impl, decomp, fast):
+                        return ShardedShallowWaterModel.build(
+                            c, mesh, impl, decomp, fast=fast)
+
+                    def init(m):
+                        return m.geostrophic_init(v0)
+                else:
+                    cfgs = {"rk4": cfg, "etdrk4": cfg.replace(
+                        time_scheme="etdrk4")}
+                    v0 = makefields.gaussian(cfg)
+                    q0 = tracer_ic(cfg, "gaussian")
+                    libs = {k: TracerModel.build(
+                        c.replace(fft_backend="xla"), dev, kappa=50.0)
+                        for k, c in cfgs.items()}
+                    s0 = libs["rk4"].init_state(v0, q0)
+                    ref = {k: _family_state_fields(
+                        family, m.segment(s0, src, steps), n)
+                        for k, m in libs.items()}
+                    single = {"library": libs["rk4"],
+                              "kernels": TracerModel.build(cfg, dev,
+                                                           kappa=50.0)}
+
+                    def build(c, impl, decomp, fast):
+                        return ShardedTracerModel.build(
+                            c, mesh, impl, decomp, fast=fast, kappa=50.0)
+
+                    def init(m):
+                        return m.init_state(v0, q0)
+                runs = {f"single-{family}-{k}": m for k, m in single.items()}
+                starts = {f"single-{family}-{k}": s0 for k in single}
+                fields = {}
+                for name in (p for p in SHARD_FAMILY_MODELS
+                             if p.split("-")[1] == family):
+                    _, _, decomp, impl, *mode = name.split("-")
+                    scheme = "etdrk4" if mode == ["etdrk4"] else "rk4"
+                    m = build(cfgs[scheme], impl, decomp, mode == ["fast"])
+                    s = init(m)
+                    torch.cuda.synchronize()
+                    ff.reset_launches()
+                    with _refusing(shard_refused(impl)):
+                        z = m.segment(s, src, steps)
+                        torch.cuda.synchronize()
+                    launches = dict(ff.LAUNCHES)
+                    want = {k: PER_STEP[name].get(k, 0) * steps
+                            for k in ff.LAUNCHES}
+                    log(f"{name} main path: {steps} steps at {n}^2 on 4 "
+                        f"shards through {type(m).__name__}.build(..., "
+                        f"{impl!r}, {decomp!r}, fast={m.fast}).segment "
+                        f"({scheme}); launches "
+                        f"{ {k: v for k, v in launches.items() if v} }")
+                    check(launches == want,
+                          f"{name} launch counts {launches} != {want}")
+                    got = _family_state_fields(family, m.unshard_state(z),
+                                               n)
+                    for k, f in got.items():
+                        check(bool(torch.isfinite(f).all()),
+                              f"{name} {k} not finite")
+                    fields[name] = got
+                    out["main_paths"][name] = dict(launches=launches)
+                    runs[name], starts[name] = m, s
+                    if mode == ["fast"]:
+                        continue
+                    err = _family_errors(family, got, ref[scheme])
+                    log(f"{name} trajectory: {steps} steps at {n}^2 vs the "
+                        f"single-device torch.fft path"
+                        f"{' (unpaired)' if family == 'sw' else ''}: "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+                    bars = {k: v for k, v in err.items()
+                            if not k.startswith("div_rel")}
+                    check(max(bars.values()) <= TOL,
+                          f"{name} against the library path: {err}")
+                    out["trajectories"][name] = err
+                for decomp in SHARD_DECOMPS:
+                    a, b = (fields[f"shard4-{family}-{decomp}-{i}"]
+                            for i in ("pallas", "xla"))
+                    same = all(torch.equal(a[k], b[k]) for k in a)
+                    log(f"shard4-{family}-{decomp}: pallas vs xla after "
+                        f"{steps} steps bit-identical: {same}")
+                    check(same, f"shard4-{family}-{decomp}: pallas is not "
+                                f"xla's bits")
+                    out["trajectories"][
+                        f"shard4-{family}-{decomp}_pallas_bit_identical"] = (
+                        same)
+                    name = f"shard4-{family}-{decomp}-overlap-fast"
+                    err = _family_errors(
+                        family, fields[name],
+                        fields[f"shard4-{family}-{decomp}-overlap"])
+                    log(f"{name}: {steps} steps at {n}^2 vs the strict "
+                        f"overlap path: "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+                    for k, bar in FAST_SHARD_FAMILY_BARS[family].items():
+                        check(1e-7 < err[f"{k}_rel_l2"] <= bar,
+                              f"{name} {k} rel-L2 {err[f'{k}_rel_l2']:.3e} "
+                              f"not in (1e-7, {bar}]")
+                    out["trajectories"][name] = err
+                times = _timed_turns(runs, starts, src, steps)
+                for k, ts in times.items():
+                    ms = sum(ts) / len(ts)
+                    out["time"][k] = dict(ms_per_step=ms, runs_ms=ts)
+                    log(f"time sharded {k:33s}: {ms:.3f} ms/step "
+                        f"({', '.join(f'{t:.3f}' for t in ts)})")
+                del runs, starts, libs, single, fields, ref
+                torch.cuda.empty_cache()
+        finally:
+            os.environ["XFB_ETD_CACHE"] = "0"
+    out["rollout"] = shard_rollout_gradient(dev)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5r: {out['wall_s']:.1f} s")
+    return out
+
+
+def shard_rollout_gradient(dev) -> dict:
+    """make_sharded_rollout (slab and x-pencil, 4 shards, the library
+    transposes) at SHARD_ROLLOUT_N^2 for SHARD_ROLLOUT_STEPS steps: the
+    gradient of a final-state misfit in vort0 against the single-device
+    make_rollout's on torch.fft (bar SHARD_ROLLOUT_BAR of its max) and on
+    the kernels (logged)."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.parallel import make_mesh
+
+    n, steps = SHARD_ROLLOUT_N, SHARD_ROLLOUT_STEPS
+    cfg = ModelConfig(nx=n, ny=n)
+    v0 = torch.as_tensor(makefields.gaussian(cfg), device=dev)
+    src = torch.zeros_like(v0)
+    target = 0.9 * adjoint.make_rollout(cfg, steps, device=dev)(v0, src)
+
+    def grad(roll):
+        x = v0.clone().requires_grad_(True)
+        loss = 0.5 * torch.mean(torch.square(roll(x, src) - target))
+        (g,) = torch.autograd.grad(loss, [x])
+        return g
+
+    singles = {"library": grad(adjoint.make_rollout(
+        cfg.replace(fft_backend="xla"), steps, device=dev)),
+        "kernels": grad(adjoint.make_rollout(cfg, steps, device=dev))}
+    out = {}
+    for decomp in SHARD_DECOMPS:
+        g = grad(adjoint.make_sharded_rollout(cfg, steps, make_mesh(4, dev),
+                                              decomp))
+        check(bool(torch.isfinite(g).all()), f"rollout {decomp} gradient")
+        for k, ref in singles.items():
+            err = float((g - ref).abs().max() / ref.abs().max())
+            log(f"make_sharded_rollout {decomp}: {steps} steps at {n}^2, "
+                f"gradient vs the single-device {k} gradient: max |d| / "
+                f"max = {err:.3e}, rel-L2 {rel_l2(g, ref):.3e}")
+            if k == "library":
+                check(err <= SHARD_ROLLOUT_BAR,
+                      f"make_sharded_rollout {decomp} gradient {err:.3e} > "
+                      f"{SHARD_ROLLOUT_BAR}")
+            out[f"{decomp}_vs_{k}"] = err
     return out
 
 
@@ -4985,6 +5326,9 @@ def main(argv=None) -> int:
                     "gradient and the sharded kernel paths with "
                     "torch.profiler (the breakdown of where their time "
                     "goes)")
+    ap.add_argument("--phase", choices=["5r"], default=None,
+                    help="run the toolchain phase and this phase alone (a "
+                    "quick check of it; no result lines)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     check(args.steps >= 2 and args.steps % 2 == 0, "--steps must be even")
@@ -5017,6 +5361,14 @@ def main(argv=None) -> int:
     report = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   nvcc=nvcc_version.strip().splitlines()[-1],
                   build_s=build_s, n=args.n, steps=args.steps)
+    if args.phase == "5r":
+        report["sharded_families"] = phase_sharded_families(
+            args.n, args.steps, dev)
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(report, indent=1))
+        log(f"phase 5r alone: {time.perf_counter() - t_start:.1f} s; {smi}")
+        return 0
     report["xtile"] = phase_xtile(args.n)
     report["kernels"] = phase_kernels(args.n, dev)
     report["main_paths"] = {family: phase_main_path(family, args.n,
@@ -5056,6 +5408,9 @@ def main(argv=None) -> int:
                                           args.profile)
     report["kernels"].update(report["fast_rest"]["kernels"])
     report["main_paths"].update(report["fast_rest"]["main_paths"])
+    report["sharded_families"] = phase_sharded_families(args.n, args.steps,
+                                                        dev)
+    report["main_paths"].update(report["sharded_families"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

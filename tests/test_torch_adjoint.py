@@ -279,8 +279,13 @@ def test_assimilate_cli_on_the_cpu(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tadj.make_sharded_rollout(_cfg(), 3, None)
+    from xlab_fftbarotropic_torch.parallel import make_mesh
+
+    # make_sharded_rollout runs (tests/test_torch_shard_adjoint.py); the
+    # 2-D pencil decomposition waits
+    with pytest.raises(NotImplementedError, match="item 5.3"):
+        tadj.make_sharded_rollout(_cfg(), 3, make_mesh(4, CPU),
+                                  decomp="pencil")
     with pytest.raises(NotImplementedError, match="beta-plane"):
         tadj.make_rollout(_cfg(beta=1e-11), 3, "sw", device=CPU)
     with pytest.raises(ValueError, match="model_kind"):

@@ -475,16 +475,18 @@ def test_cli_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
     """Every flag set fast mode once refused runs now (the x-first order,
     -m fd, --shard, --ensemble, for the tracer too), with the banner of
     what it runs on the fast tile or of what fast mode leaves as it is,
-    and writes its records; the sharded tracer still stops, naming item
-    5.1 (the sharded families, which wait in strict mode too)."""
+    and writes its records; the sharded tracer, which once stopped
+    naming item 5.1, runs too: on the overlap impl with the fast
+    x-stages' banner and the sharded tracer's line."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if extra == ["-m", "tracer", "--shard"]:
-        with pytest.raises(SystemExit) as e:
-            _run_cli(tmp_path, *extra)
-        assert e.value.code == 2
-        assert "queue A, item 5.1" in capsys.readouterr().err
-        assert not (tmp_path / "out").exists()
+        assert _run_cli(tmp_path, *extra, "--shard-fft", "overlap") == 0
+        err = capsys.readouterr().err
+        assert "in the overlap x-stages (xstage)" in err
+        assert "# sharded tracer: 20-step rel-L2" in err
+        f = tmp_path / "out" / "q_step_0.bin"
+        assert f.stat().st_size == N * N * 4
         return
     sw = "XFB_SW_YFIRST" in env
     assert _run_cli(tmp_path, *extra, *(["--dt", "1"] if sw else [])) == 0

@@ -462,16 +462,19 @@ def test_cli_sw_fast_mode_refuses_what_waits(tmp_path, monkeypatch, capsys,
     store), --r-drag and --nu4 (the per-transform pipeline's fast ka, kb
     and kc, split-linear, no product store), --ensemble 2 (one batched
     chunk at 64^2, float32 on torch.fft) and -m fd (the last -m wins: the
-    FD core on torch.fft); -m sw --shard still stops, naming item 5.1
-    (the sharded shallow-water model, which waits in strict mode too)."""
+    FD core on torch.fft); -m sw --shard, which once stopped naming item
+    5.1, runs too: on the overlap impl with the fast x-stages' banner and
+    the note that the sharded model has no split-linear formulation."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if extra == ["--shard"]:
-        with pytest.raises(SystemExit) as e:
-            _run_cli(tmp_path, *extra)
-        assert e.value.code == 2
-        assert "queue A, item 5.1" in capsys.readouterr().err
-        assert not (tmp_path / "out").exists()
+        assert _run_cli(tmp_path, *extra, "--shard-fft", "overlap") == 0
+        err = capsys.readouterr().err
+        assert "in the overlap x-stages (xstage)" in err
+        assert "runs without the split-linear formulation" in err
+        for name in ("vort", "div", "h"):
+            f = tmp_path / "out" / f"{name}_step_0.bin"
+            assert f.stat().st_size == N * N * 4
         return
     monkeypatch.setenv("XFB_ETD_CACHE", "0")
     assert _run_cli(tmp_path, *extra) == 0

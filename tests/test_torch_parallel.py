@@ -9,7 +9,9 @@ kernels) rel-L2 of the physical vorticity <= 1e-6 after 3 RK4 steps and
 2 ETDRK4 steps at 64^2; also P = 1 against P = 4, the distributed
 transform pair against the JAX one (with a non-Hermitian ky = 0 and ny/2
 column), the transforms per step (the unpaired inverses), the CLI's
---shard run against its unsharded run, and the refusals."""
+--shard run against its unsharded run (and its -m sw and -m tracer runs,
+held to their unsharded runs in tests/test_torch_shard_sw.py and
+test_torch_shard_tracer.py), and the refusals."""
 
 import os
 
@@ -217,11 +219,22 @@ def test_cli_shard_run_matches_the_unsharded_run(tmp_path, decomp, impl):
     ["--shard", "-m", "sw"], ["--shard", "-m", "tracer"],
     ["--shard", "--decomp", "pencil"], ["--shard", "--mesh-shape", "2x2"]])
 def test_cli_refuses_what_waits(tmp_path, flags, capsys):
+    """--decomp pencil and --mesh-shape (the 2-D pencil decomposition,
+    item 5.3) stop before anything runs; --shard with -m sw and -m
+    tracer, refused until the sharded families were ported (item 5.1),
+    run now and write their family's records."""
+    if "-m" in flags:
+        out = _cli(tmp_path, "shard", flags + ["--shard-fft", "overlap"])
+        assert "Sharding              : 1 shard(s)" in capsys.readouterr().err
+        name = "div" if "sw" in flags else "q"
+        f = np.fromfile(out / f"{name}_step_3.bin", np.float32)
+        assert f.size == 64 * 64 and np.isfinite(f).all()
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(["-O", str(tmp_path / "o"), "--device", "cpu",
                    "--total-steps", "1"] + flags)
     assert e.value.code != 0
-    assert "item 5" in capsys.readouterr().err
+    assert "item 5.3" in capsys.readouterr().err
 
 
 def test_more_than_one_card_is_refused(monkeypatch, tmp_path, capsys):

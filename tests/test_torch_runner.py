@@ -176,10 +176,13 @@ def test_debug_fields_and_record_subset(tmp_path):
 def test_runner_refuses_what_is_not_ported(tmp_path):
     cfg = _cfg(tmp_path)
     v0 = makefields.gaussian(cfg)
-    for kw in (dict(shard=True, decomp="pencil"),
-               dict(shard=True, model_kind="sw")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trunner.run(cfg, CPU, v0, record=False, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trunner.run(cfg, CPU, v0, record=False, shard=True, decomp="pencil")
+    # the sharded shallow-water model, refused before it was ported, runs
+    res = trunner.run(cfg, CPU, v0, record=False, shard=True,
+                      model_kind="sw")
+    assert res.steps_run == 10 and res.stats_history == []
+    assert all(torch.isfinite(z).all() for z in res.zeta_hat)
     # what the JAX runner refuses too (runner.py:348-352 there)
     for kw, match in ((dict(ensemble=4, shard=True), "mutually exclusive"),
                       (dict(ensemble=4, model_kind="fd"), "not supported"),
@@ -204,6 +207,22 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     ["--fft-backend", "pallas", "--nx", "96", "--ny", "96"],
     ["-m", "sw", "--beta", "1e-11"]])
 def test_cli_stops_on_flags_outside_the_slice(tmp_path, flags):
+    """Each flag set stops before the run, but --shard with -m sw or -m
+    tracer, which stopped until the sharded families were ported: those
+    run now (at 64^2) and write their family's records."""
+    if "--shard" in flags and ("sw" in flags or "tracer" in flags):
+        inp = tmp_path / "in"
+        inp.mkdir()
+        cfg = ModelConfig(nx=64, ny=64)
+        write_field(str(inp / cfg.init_file), makefields.gaussian(cfg))
+        assert tcli.main(["-I", str(inp), "-O", str(tmp_path / "o"),
+                          "--device", "cpu", "--total-steps", "1",
+                          "--manifest", str(tmp_path / "log")] + flags
+                         + ["--nx", "64", "--ny", "64"]) == 0
+        name = "div" if "sw" in flags else "q"
+        assert (tmp_path / "o" / f"{name}_step_0.bin").stat().st_size == (
+            64 * 64 * 4)
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(["-O", str(tmp_path / "o"), "--device", "cpu",
                    "--total-steps", "1"] + flags)

@@ -32,7 +32,9 @@ The three families:
 - ``tracer``: rollout((vort0, q0), src) -> final physical (zeta, q).
 
 Entry points run on the card (device "cuda") unless the caller passes
-device="cpu", where the kernels' plain versions run.
+device="cpu", where the kernels' plain versions run. make_sharded_rollout
+is the barotropic rollout on a shard group (parallel/model.py), the
+device that of the group.
 """
 
 from __future__ import annotations
@@ -120,8 +122,7 @@ def make_rollout(cfg, n_steps: int, model_kind: str = "barotropic",
             return inv(z, g)
     elif model_kind == "sw":
         f, grav, H = float(cfg.f), float(cfg.gravity), float(cfg.mean_depth)
-        mean_mask = torch.ones(cfg.spectral_shape, device=dev)
-        mean_mask[0, 0] = 0.0           # the mean mode carries no tilt
+        mean_mask = sw.mean_mode_mask(cfg, dev)   # no tilt of the mean
 
         def rollout(vort0, src):
             src = phys(src)
@@ -158,11 +159,40 @@ def make_rollout(cfg, n_steps: int, model_kind: str = "barotropic",
     return rollout
 
 
-def make_sharded_rollout(*args, **kwargs):
-    """The multi-device rollout waits for the distributed path."""
-    raise NotImplementedError(
-        "make_sharded_rollout is not ported yet: it needs the distributed "
-        "path (ROADMAP.md queue A, item 5)")
+def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
+                         segment: Optional[int] = None) -> Callable:
+    """The differentiable n_steps RK4 rollout of the barotropic family on
+    a shard group (parallel/model.py make_mesh): make_rollout's contract,
+    ``rollout(vort0, src)`` from the global physical (nx, ny) inputs to
+    the global final physical vorticity, differentiable in both, with the
+    decomposition's distributed forward transform, the checkpointed RK4
+    loop (inverses unpaired, as the sharded model's) and the distributed
+    inverse. The transforms are the library impl ('xla'), as in the JAX
+    package: autograd runs through torch.fft and the transposes' copies
+    (the a2a and xstage kernels have no backward). decomp 'slab' or
+    'xpencil'; 'pencil' raises (ROADMAP.md queue A, item 5.3)."""
+    from .parallel import dfft
+    from .parallel.model import _decomp_setup
+
+    t, fwd, inv, _ = _decomp_setup(cfg, mesh, "xla", decomp)
+    g = cfg.grid_shape
+    dt, nu = float(cfg.dt), float(cfg.nu)
+    r_drag, beta, nu4 = float(cfg.r_drag), float(cfg.beta), float(cfg.nu4)
+
+    def shards(a):
+        a = torch.as_tensor(a, dtype=torch.float32, device=mesh.device)
+        return dfft.shard_rows(a, mesh.n_shards)
+
+    def rollout(vort0, src):
+        src = shards(src)
+        (z,) = _checkpointed_loop(
+            lambda s: (bt.rk4_step(t, s[0], src, dt, nu, g, fwd=fwd,
+                                   inv=inv, inv_pair=None, r_drag=r_drag,
+                                   beta=beta, nu4=nu4),),
+            (fwd(shards(vort0)),), n_steps, segment)
+        return dfft.unshard_rows(inv(z, g))
+
+    return rollout
 
 
 def _leaves(x) -> list:

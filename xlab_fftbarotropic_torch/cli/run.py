@@ -11,8 +11,8 @@ and shallow-water (-m sw or -m shallow-water; --coriolis-f, --gravity,
 families, each with --time-scheme rk4 (default) or etdrk4 (the linear
 terms integrated exactly from phi-function tables, models/etdrk4.py), the
 -s script / -f fifo forcing, records, checkpoints and resume, for
-the barotropic family the sharded model (--shard, with --shard-fft and
---decomp slab or xpencil; every shard on the one visible card), the
+each of the three families the sharded model (--shard, with --shard-fft
+and --decomp slab or xpencil; every shard on the one visible card), the
 perturbed-IC ensemble (--ensemble M, --ensemble-amp, --ensemble-seed,
 --ensemble-width; each member's records in output/mNN/), the
 finite-difference core (-m fd, or -m jacobian) and a torch.profiler
@@ -54,10 +54,12 @@ empty: off; anything else on) and XFB_SW_PSTORE (auto, bf16 or
 bfloat16; anything else f32) as pallas_sw.py does, in strict mode too;
 shallow-water RK4 with --r-drag or --nu4 runs the per-transform
 pipeline's ka, kb and kc on the fast tile (split-linear; the forcing
-spectrum too). --shard (the barotropic family): --shard-fft overlap runs
-the fast x-stages (xstage, or xstage_gather and xstage_scatter with
---decomp xpencil); xla and pallas have torch.fft x-stages and copy
-transposes, which fast mode leaves as they are, as in the JAX package.
+spectrum too). --shard (each family): --shard-fft overlap runs the fast
+x-stages (xstage, or xstage_gather and xstage_scatter with --decomp
+xpencil) and nothing else fast: the sharded shallow-water model has no
+split-linear formulation, as the JAX package's; xla and pallas have
+torch.fft x-stages and copy transposes, which fast mode leaves as they
+are, as in the JAX package.
 --ensemble: width-1 members run the fast plane stepper, each the solo
 fast run; batched chunks stay on the float32 library path. -m fd runs
 its torch.fft core unchanged, as the JAX package's does. --fft-backend
@@ -124,6 +126,18 @@ SHARD_FAST_BANNER = (
     "torch.fft, as the JAX overlap impl's jnp.fft (20-step vorticity "
     "rel-L2 1.2e-5 at 4096^2 on four shards of an H100 against the strict "
     "overlap path)")
+# and the sharded shallow-water and tracer families' lines (chip_smoke.py
+# phase 5r: bench.py's SW and tracer configurations, 20 steps at 4096^2
+# on four shards, against the strict overlap path)
+SHARD_SW_FAST_NOTE = (
+    "# NOTE: the sharded shallow-water model runs without the split-"
+    "linear formulation in fast mode too, as the JAX package's: the "
+    "f0/gravity terms ride the bf16 x-stages (20-step rel-L2 against "
+    "the strict overlap path: zeta 1.9e-4, eta 3.3e-3 at 4096^2 on four "
+    "shards of an H100)")
+SHARD_TRACER_FAST_NOTE = (
+    "# sharded tracer: 20-step rel-L2 zeta 1.2e-5, q 1.1e-5 at 4096^2 on "
+    "four shards of an H100 against the strict overlap path")
 SHARD_FAST_NONE = (
     "# fast transforms: --shard-fft {} runs torch.fft x-stages and copy "
     "transposes, which hold no matmul: fast mode changes nothing there, "
@@ -158,7 +172,10 @@ def fast_banner(args, sw: bool, fd: bool, yfirst: bool, backend: str,
             return SHARD_FAST_NONE.format(args.shard_fft)
         halves = ("xstage_gather, xstage_scatter" if args.decomp == "xpencil"
                   else "xstage")
-        return SHARD_FAST_BANNER.format(halves)
+        note = (SHARD_SW_FAST_NOTE if sw else SHARD_TRACER_FAST_NOTE
+                if args.model == "tracer" else None)
+        return SHARD_FAST_BANNER.format(halves) + (
+            "\n" + note if note else "")
     if backend != "pallas":
         return ENSEMBLE_FAST_NOTE if width not in (None, 1) else library
     if sw:
@@ -262,9 +279,10 @@ def main(argv=None):
     p.add_argument("--step-banners", action="store_true",
                    help="print the '# Step N' banner for every step")
     p.add_argument("--shard", action="store_true",
-                   help="run the sharded model (barotropic only): the "
-                        "grid's shards stacked on the one visible card "
-                        "(or the CPU with --device cpu), one shard")
+                   help="run the family's sharded model (barotropic, "
+                        "tracer or sw): the grid's shards stacked on the "
+                        "one visible card (or the CPU with --device cpu), "
+                        "one shard")
     p.add_argument("--shard-fft", default="xla",
                    choices=["xla", "pallas", "overlap"],
                    help="distributed-FFT implementation for --shard runs: "
@@ -331,14 +349,10 @@ def main(argv=None):
     if args.decomp == "pencil" or args.mesh_shape:
         p.error("--decomp pencil and --mesh-shape (the 2-D pencil "
                 "decomposition) are not ported yet (ROADMAP.md queue A, "
-                "item 5)")
+                "item 5.3)")
     if args.shard and fd:
         p.error(f"--shard with -m {args.model}: the FD core runs on one "
                 f"device")
-    if args.shard and args.model not in ("barotropic", "bt"):
-        p.error(f"--shard with -m {args.model} is not ported yet "
-                f"(ROADMAP.md queue A, item 5.1): the barotropic family "
-                f"shards")
     if args.model not in ("barotropic", "bt", "tracer", "shallow-water",
                           "sw", "fd", "jacobian"):
         p.error(f"-m {args.model}: unknown model family")

@@ -104,3 +104,48 @@ def sharded_state_to_numpy(zeta_hat: torch.Tensor, model,
     if hpad > z.shape[1]:
         z = np.pad(z, ((0, 0), (0, hpad - z.shape[1])))
     return z
+
+
+def _packed(packed: np.ndarray, fields: int, what: str) -> np.ndarray:
+    p = np.asarray(packed)
+    if p.dtype != np.complex64 or p.ndim != 3 or p.shape[0] != fields:
+        raise ValueError(f"expected a complex64 ({fields}, nx, hny[pad]) "
+                         f"{what} state, got {p.dtype} {p.shape}")
+    return p
+
+
+def _padded(arrays, hpad: int) -> np.ndarray:
+    p = np.stack([a.detach().cpu().numpy() for a in arrays])
+    if hpad > p.shape[-1]:
+        p = np.pad(p, ((0, 0), (0, 0), (0, hpad - p.shape[-1])))
+    return p
+
+
+def sharded_sw_state_from_numpy(packed: np.ndarray, model) -> SWState:
+    """The JAX sharded shallow-water model's global state, packed
+    complex64 (3, nx, hny[pad]) = [zeta_hat, div_hat, eta_hat] (for
+    x-pencil padded to the JAX pad) -> the port's sharded SWState for
+    `model` (a ShardedShallowWaterModel), re-padded to the port's pad."""
+    return model.shard_state(SWState(*_packed(packed, 3, "shallow-water")))
+
+
+def sharded_sw_state_to_numpy(state: SWState, model,
+                              hpad: int = 0) -> np.ndarray:
+    """The port's sharded SWState -> packed complex64 (3, nx, hny), or
+    (3, nx, hpad) zero-padded for a JAX x-pencil model of that pad."""
+    return _padded(model.unshard_state(state), hpad)
+
+
+def sharded_tracer_state_from_numpy(packed: np.ndarray,
+                                    model) -> TracerState:
+    """The JAX sharded tracer model's global state, packed complex64
+    (2, nx, hny[pad]) = [zeta_hat, q_hat] -> the port's sharded
+    TracerState for `model` (a ShardedTracerModel)."""
+    return model.shard_state(TracerState(*_packed(packed, 2, "tracer")))
+
+
+def sharded_tracer_state_to_numpy(state: TracerState, model,
+                                  hpad: int = 0) -> np.ndarray:
+    """The port's sharded TracerState -> packed complex64 (2, nx, hny),
+    or (2, nx, hpad) zero-padded for a JAX x-pencil model."""
+    return _padded(model.unshard_state(state), hpad)

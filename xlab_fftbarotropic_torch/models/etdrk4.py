@@ -286,16 +286,24 @@ def _add(a, b):
 
 
 def etdrk4_step(t, tabs: EtdTables, s, src, grid_shape,
-                fwd_pair: bool = False):
+                fwd_pair: bool = False, fwd=None, inv=None):
     """One SW ETDRK4 step on the library path (torch.fft): N is
     models/shallow_water.py:tendency with every linear coefficient zero
-    and split=True, dealiased."""
+    and split=True, dealiased. `fwd` and `inv` (the sharded model's
+    distributed transforms) replace torch.fft's, and N then runs its
+    inverses unpaired, as the JAX package's etdrk4_step does."""
     from . import shallow_water as swm
+
+    kw = {}
+    if fwd is not None:
+        kw["fwd"] = fwd
+    if inv is not None:
+        kw.update(inv=inv, inv_pair=None)
 
     def N(state):
         return swm._dealias_state(t, swm.tendency(
             t, state, src, 0.0, 0.0, 0.0, 0.0, grid_shape,
-            fwd_pair=fwd_pair, split=True))
+            fwd_pair=fwd_pair, split=True, **kw))
 
     n1 = N(s)
     e2u = _matvec(tabs.E2, s)

@@ -76,7 +76,6 @@ import math
 import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -270,6 +269,40 @@ def planes_to_state(p) -> SWState:
                    torch.complex(p[4], p[5]))
 
 
+def _physical(a, device) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def initial_state(cfg, device, vort0, div0=None, h0=None) -> SWState:
+    """Physical fields -> the global spectral state on `device`, through
+    torch.fft. Defaults: no divergence, flat depth; h0 (if given) is the
+    FULL depth."""
+    z = _physical(vort0, device)
+    d = torch.zeros_like(z) if div0 is None else _physical(div0, device)
+    eta = (torch.zeros_like(z) if h0 is None
+           else _physical(h0, device) - cfg.mean_depth)
+    return SWState(fft.forward(z), fft.forward(d), fft.forward(eta))
+
+
+def geostrophic_state(t: SpectralTables, cfg, device, vort0,
+                      mean_mask: torch.Tensor) -> SWState:
+    """Balanced start: zero divergence and eta_hat = (f/g) psi_hat with
+    the mean mode zeroed by mean_mask (g grad(eta) = -f z x u_vec), on
+    the global tables `t`."""
+    zeta_hat = fft.forward(_physical(vort0, device))
+    psi_hat = sp.invert_laplacian(t, zeta_hat)
+    fg = float(cfg.f) / float(cfg.gravity)
+    return SWState(zeta_hat, torch.zeros_like(zeta_hat),
+                   fg * psi_hat * mean_mask)
+
+
+def mean_mode_mask(cfg, device) -> torch.Tensor:
+    """Ones (nx, hny) float32 with the mean mode zero."""
+    m = torch.ones(cfg.spectral_shape, dtype=torch.float32, device=device)
+    m[0, 0] = 0.0
+    return m
+
+
 def max_stable_dt(cfg) -> float:
     """The RK4 gravity-wave bound with a 0.9 safety factor:
     |omega_max dt| <= 2 sqrt(2) for omega_max = sqrt(g H) k_max,
@@ -397,10 +430,7 @@ class ShallowWaterModel(nn.Module):
                          and max(cfg.grid_shape) <= FORWARD_PAIR_MAX)
         self.tables = (tables if tables is not None
                        else SpectralTables.from_config(cfg, self.device))
-        mean_mask = np.ones(cfg.spectral_shape, np.float32)
-        mean_mask[0, 0] = 0.0
-        self.register_buffer("mean_mask",
-                             torch.from_numpy(mean_mask).to(self.device))
+        self.register_buffer("mean_mask", mean_mode_mask(cfg, self.device))
         self.etd_tables = (etd.build_tables_cached(cfg, self.dt, self.device)
                            if cfg.time_scheme == "etdrk4" else None)
 
@@ -507,26 +537,14 @@ class ShallowWaterModel(nn.Module):
                            dvortdy=fft.inverse(sp.grady(t, s.zeta_hat), g),
                            dvortdt=fft.inverse(dz, g))
 
-    def _physical(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
-
     def init_state(self, vort0, div0=None, h0=None) -> SWState:
-        """Physical fields -> spectral state. Defaults: no divergence,
-        flat depth; h0 (if given) is the FULL depth."""
-        z = self._physical(vort0)
-        d = torch.zeros_like(z) if div0 is None else self._physical(div0)
-        eta = (torch.zeros_like(z) if h0 is None
-               else self._physical(h0) - self.cfg.mean_depth)
-        return SWState(fft.forward(z), fft.forward(d), fft.forward(eta))
+        """Physical fields -> spectral state (initial_state)."""
+        return initial_state(self.cfg, self.device, vort0, div0, h0)
 
     def geostrophic_init(self, vort0) -> SWState:
-        """Balanced start: zero divergence and eta_hat = (f/g) psi_hat
-        with the mean mode zeroed (g grad(eta) = -f z x u_vec)."""
-        zeta_hat = fft.forward(self._physical(vort0))
-        psi_hat = sp.invert_laplacian(self.tables, zeta_hat)
-        fg = self.f / self.g
-        return SWState(zeta_hat, torch.zeros_like(zeta_hat),
-                       fg * psi_hat * self.mean_mask)
+        """The balanced start of vort0 (geostrophic_state)."""
+        return geostrophic_state(self.tables, self.cfg, self.device, vort0,
+                                 self.mean_mask)
 
     def zero_source(self) -> torch.Tensor:
         return torch.zeros(self.cfg.grid_shape, dtype=torch.float32,

@@ -144,11 +144,17 @@ def rk4_step(t: SpectralTables, state: TracerState, src: torch.Tensor,
 
 
 def etd_step(t: SpectralTables, tabs, state: TracerState,
-             src: torch.Tensor, grid_shape: Tuple[int, int]) -> TracerState:
+             src: torch.Tensor, grid_shape: Tuple[int, int],
+             fwd: Callable = fft.forward, inv: Callable = fft.inverse,
+             inv_pair: Optional[Callable] = fft.inverse_pair
+             ) -> TracerState:
     """One ETDRK4 step on the library path: N is the joint dealiased
-    advection-only tendency, the stacked tables apply per field."""
+    advection-only tendency through `fwd`, `inv`, `inv_pair` (torch.fft
+    by default; the sharded model's distributed transforms, unpaired),
+    the stacked tables apply per field."""
     def N(s):
-        d = tendency(t, s, src, 0.0, 0.0, grid_shape)
+        d = tendency(t, s, src, 0.0, 0.0, grid_shape, fwd=fwd, inv=inv,
+                     inv_pair=inv_pair)
         return TracerState(sp.dealias(t, d.zeta_hat), sp.dealias(t, d.q_hat))
 
     def mul(T, s):
@@ -170,6 +176,15 @@ def etd_step_planes(t: SpectralTables, tabs, sr2: torch.Tensor,
                                          t.rlap, lap2z, t.mask, fast=fast)
     return etd.etd_scheme(N, lambda T, q: etd.smul_planes(T, *q), tabs,
                           (sr2, si2))
+
+
+def initial_state(device, vort0, q0) -> TracerState:
+    """Physical initial vorticity and tracer -> the global spectral state
+    on `device`, through torch.fft."""
+    def spec(a):
+        return fft.forward(torch.as_tensor(a, dtype=torch.float32,
+                                           device=device))
+    return TracerState(spec(vort0), spec(q0))
 
 
 def tracer_ic(cfg, kind: str, vort0: Optional[np.ndarray] = None
@@ -317,10 +332,7 @@ class TracerModel(nn.Module):
 
     def init_state(self, vort0, q0) -> TracerState:
         """Physical initial vorticity and tracer -> spectral state."""
-        def spec(a):
-            return fft.forward(torch.as_tensor(a, dtype=torch.float32,
-                                               device=self.device))
-        return TracerState(spec(vort0), spec(q0))
+        return initial_state(self.device, vort0, q0)
 
     def zero_source(self) -> torch.Tensor:
         return torch.zeros(self.cfg.grid_shape, dtype=torch.float32,

@@ -37,12 +37,16 @@ import torch
 from .pencil import padded_half
 
 
-def shard_rows(a: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """(nx, ...) -> (P, nx/P, ...): the row shards, a view."""
-    if a.shape[0] % n_shards:
-        raise ValueError(f"{a.shape[0]} rows do not split into {n_shards} "
-                         f"shards")
-    return a.reshape((n_shards, a.shape[0] // n_shards) + a.shape[1:])
+def shard_rows(a: torch.Tensor, n_shards: int, lead: int = 0
+               ) -> torch.Tensor:
+    """(nx, ...) -> (P, nx/P, ...): the row shards, a view; with `lead`
+    leading axes kept, (L..., nx, ...) -> (L..., P, nx/P, ...) (a stack
+    of tables that broadcasts against a sharded state)."""
+    nx = a.shape[lead]
+    if nx % n_shards:
+        raise ValueError(f"{nx} rows do not split into {n_shards} shards")
+    return a.reshape(a.shape[:lead] + (n_shards, nx // n_shards)
+                     + a.shape[lead + 1:])
 
 
 def unshard_rows(a: torch.Tensor) -> torch.Tensor:

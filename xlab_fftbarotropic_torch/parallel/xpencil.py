@@ -43,12 +43,13 @@ def hpad_for(hny: int, n_shards: int) -> int:
 
 def shard_state(z: torch.Tensor, n_shards: int) -> torch.Tensor:
     """A global (nx, hny) or (nx, hpad) half-spectrum -> (P, nx, hpad/P)
-    x-pencil shards (padded with zeros)."""
-    nx, h = z.shape
+    x-pencil shards (padded with zeros); leading axes are kept, (L...,
+    nx, h) -> (L..., P, nx, hpad/P) (a stack of tables)."""
+    *lead, nx, h = z.shape
     hpad = hpad_for(h, n_shards)
     z = pad_spectral(z, hpad)
-    return z.reshape(nx, n_shards, hpad // n_shards).permute(
-        1, 0, 2).contiguous()
+    return z.reshape(*lead, nx, n_shards, hpad // n_shards).movedim(
+        -2, -3).contiguous()
 
 
 def unshard_state(z: torch.Tensor, hny: int) -> torch.Tensor:

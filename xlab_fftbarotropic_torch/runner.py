@@ -10,9 +10,9 @@ of the JAX package's numpy-only modules (io/, forcing/), so the output
 files are byte-compatible with its runner's and a checkpoint from either
 resumes in the other. Under ETDRK4 each record's cfl stat is held to the
 scheme's advective limit (utils/guards.py:check_etd_cfl), as the JAX
-runner does. A --shard run steps the barotropic family on the sharded
-model (parallel/model.py), whose records and checkpoints are the global
-fields; it has no per-record stats, as in the JAX runner. An --ensemble
+runner does. A --shard run steps any of the three families on its
+sharded model (parallel/model.py), whose records and checkpoints are the
+global fields; it has no per-record stats, as in the JAX runner. An --ensemble
 run steps M perturbed members (models/ensemble.py) and records each
 into its own tree (output/m00/...); -m fd (or jacobian) steps the
 finite-difference core (models/fd_core.py).
@@ -68,6 +68,15 @@ def _gather_fields(fields: dict, only=None) -> dict:
     return {k: _host(v) for k, v in fields.items()}
 
 
+def _global(model, diags) -> dict:
+    """A model's diagnostic fields by name, a sharded model's as global
+    fields."""
+    d = diags._asdict()
+    if hasattr(model, "unshard_physical"):
+        d = {k: model.unshard_physical(v) for k, v in d.items()}
+    return d
+
+
 class _BarotropicAdapter:
     """The facade the run loop drives: step/segment/diags/stats and state
     (de)hydration for checkpoints (complex64 numpy, as in the JAX
@@ -97,10 +106,8 @@ class _BarotropicAdapter:
         return self.model.segment(state, src, n)
 
     def record_fields(self, state, only=None):
-        d = self.model.diags(state)._asdict()
-        if self.sharded:
-            d = {k: self.model.unshard_physical(v) for k, v in d.items()}
-        return _gather_fields(d, only)
+        return _gather_fields(_global(self.model, self.model.diags(state)),
+                              only)
 
     def debug_record_fields(self, state, src):
         """--debug-fields dumps (main.cpp OUTPUT_GRAD_VORT/OUTPUT_DVORTDT)."""
@@ -133,15 +140,20 @@ class _TracerAdapter:
     """Passive-tracer family (models/tracer.py): barotropic dynamics plus
     a co-advected scalar q with its own diffusivity; records q_step_N.bin
     beside the reference field set. The checkpoint state is the stacked
-    complex64 (2, nx, hny) [zeta_hat, q_hat], as in the JAX package."""
+    complex64 (2, nx, hny) [zeta_hat, q_hat], as in the JAX package.
+    `model` a ShardedTracerModel in place of the single-device one:
+    records and checkpoints go through its global fields, and it has no
+    stats (as the JAX runner's sharded models)."""
 
     kind = "tracer"
 
     def __init__(self, cfg: ModelConfig, device, kappa: float = 0.0,
-                 ic: str = "vorticity", fast: bool = False):
+                 ic: str = "vorticity", fast: bool = False, model=None):
         self.cfg = cfg
         self.ic = ic
-        self.model = TracerModel.build(cfg, device, kappa=kappa, fast=fast)
+        self.model = (model if model is not None else
+                      TracerModel.build(cfg, device, kappa=kappa, fast=fast))
+        self.sharded = hasattr(self.model, "unshard_state")
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -155,33 +167,43 @@ class _TracerAdapter:
         return self.model.segment(state, src, n)
 
     def record_fields(self, state, only=None):
-        return _gather_fields(self.model.diags(state)._asdict(), only)
+        return _gather_fields(_global(self.model, self.model.diags(state)),
+                              only)
 
     def stats(self, state):
+        if self.sharded:
+            return {}
         return {k: float(v) for k, v in
                 self.model.stats(state)._asdict().items()}
 
     def pack(self, state):
+        if self.sharded:
+            state = self.model.unshard_state(state)
         return convert.tracer_state_to_numpy(state)
 
     def unpack(self, packed):
-        return convert.tracer_state_from_numpy(
+        state = convert.tracer_state_from_numpy(
             np.asarray(packed, np.complex64), self.device)
+        return self.model.shard_state(state) if self.sharded else state
 
 
 class _ShallowWaterAdapter:
     """Rotating shallow water (models/shallow_water.py): starts from the
     geostrophically balanced state, records vort, psi, u, v, div and
     h = H + eta. The checkpoint state is the stacked complex64
-    (3, nx, hny) [zeta_hat, div_hat, eta_hat], as in the JAX package."""
+    (3, nx, hny) [zeta_hat, div_hat, eta_hat], as in the JAX package.
+    `model` a ShardedShallowWaterModel as the tracer adapter's: no stats
+    and no debug fields (as the JAX runner's sharded models)."""
 
     kind = "shallow-water"
 
     def __init__(self, cfg: ModelConfig, device, yfirst: bool = True,
-                 **form):
+                 model=None, **form):
         self.cfg = cfg
-        self.model = ShallowWaterModel.build(cfg, device, yfirst=yfirst,
-                                             **form)
+        self.model = (model if model is not None else
+                      ShallowWaterModel.build(cfg, device, yfirst=yfirst,
+                                              **form))
+        self.sharded = hasattr(self.model, "unshard_state")
         self.device = self.model.device
 
     def init_from_physical(self, vort0):
@@ -194,26 +216,34 @@ class _ShallowWaterAdapter:
         return self.model.segment(state, src, n)
 
     def record_fields(self, state, only=None):
-        d = self.model.diags(state)
-        return _gather_fields(dict(vort=d.vort, psi=d.psi, u=d.u, v=d.v,
-                                   div=d.div, h=d.h), only)
+        d = _global(self.model, self.model.diags(state))
+        return _gather_fields({k: d[k] for k in ("vort", "psi", "u", "v",
+                                                 "div", "h")}, only)
 
     def debug_record_fields(self, state, src):
         """--debug-fields dumps: step-start zeta gradients and the full
         vorticity tendency (models/shallow_water.py:debug)."""
+        if self.sharded:
+            raise ValueError("--debug-fields is not supported with --shard "
+                             "(the sharded model has no debug diagnostics)")
         return {k: _host(v) for k, v in
                 self.model.debug(state, src)._asdict().items()}
 
     def stats(self, state):
+        if self.sharded:
+            return {}
         return {k: float(v) for k, v in
                 self.model.stats(state)._asdict().items()}
 
     def pack(self, state):
+        if self.sharded:
+            state = self.model.unshard_state(state)
         return convert.sw_state_to_numpy(state)
 
     def unpack(self, packed):
-        return convert.sw_state_from_numpy(np.asarray(packed, np.complex64),
-                                           self.device)
+        state = convert.sw_state_from_numpy(np.asarray(packed, np.complex64),
+                                            self.device)
+        return self.model.shard_state(state) if self.sharded else state
 
 
 class _EnsembleAdapter:
@@ -359,19 +389,30 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                                 tracer_kappa=tracer_kappa,
                                 vmap_width=ensemble_width, **build_kw)
     if shard:
-        # the barotropic family over the visible card (one shard; the CPU
-        # too); make_mesh and build refuse what waits (item 5); fast mode
-        # is bt_fusion's "fast"
-        from .parallel import ShardedBarotropicModel, make_mesh
-        if model_kind not in ("barotropic", "bt"):
-            raise NotImplementedError(
-                f"--shard for model kind {model_kind!r} is not ported yet "
-                f"(ROADMAP.md queue A, item 5.1): the barotropic family "
-                f"shards")
-        return _BarotropicAdapter(cfg, device, model=(
-            ShardedBarotropicModel.build(
-                cfg, make_mesh(None, device), fft_impl=shard_fft,
-                decomp=decomp, fast=(bt_fusion or {}).get("fast", False))))
+        # each family over the visible card (one shard; the CPU too);
+        # make_mesh and build refuse what waits (items 5.2, 5.3); fast
+        # mode is the family's fast flag (the overlap x-stages')
+        from .parallel import (ShardedBarotropicModel,
+                               ShardedShallowWaterModel, ShardedTracerModel,
+                               make_mesh)
+        mesh = make_mesh(None, device)
+        how = dict(fft_impl=shard_fft, decomp=decomp)
+        if model_kind in ("barotropic", "bt"):
+            return _BarotropicAdapter(cfg, device, model=(
+                ShardedBarotropicModel.build(
+                    cfg, mesh, **how,
+                    fast=(bt_fusion or {}).get("fast", False))))
+        if model_kind in ("shallow-water", "sw"):
+            return _ShallowWaterAdapter(cfg, device, model=(
+                ShardedShallowWaterModel.build(
+                    cfg, mesh, **how,
+                    fast=bool((sw_form or {}).get("fast", False)))))
+        if model_kind == "tracer":
+            return _TracerAdapter(cfg, device, ic=tracer_ic, model=(
+                ShardedTracerModel.build(cfg, mesh, **how, fast=tracer_fast,
+                                         kappa=tracer_kappa)))
+        raise ValueError(
+            f"--shard is not supported for model kind {model_kind!r}")
     if model_kind in ("barotropic", "bt"):
         return _BarotropicAdapter(cfg, device, yfirst, **(bt_fusion or {}))
     if model_kind == "tracer":
@@ -430,10 +471,11 @@ def run(cfg: ModelConfig,
     stepper's fast, split and pstore (ShallowWaterModel.build's; None:
     the defaults). tracer_fast: the tracer plane stepper in fast mode
     (TracerModel.build's fast; each width-1 ensemble member's too). shard:
-    the barotropic family on the sharded model (parallel/model.py) over
-    the visible card, with shard_fft its transform impl ('xla', 'pallas',
+    the family on its sharded model (parallel/model.py) over the visible
+    card, with shard_fft its transform impl ('xla', 'pallas',
     'overlap'), decomp its decomposition ('slab', 'xpencil') and
-    bt_fusion's "fast" its fast mode (the overlap x-stages'). model_kind
+    bt_fusion's "fast", sw_form's "fast" or tracer_fast its fast mode
+    (the overlap x-stages'). model_kind
     'fd' (or 'jacobian'): the finite-difference core. ensemble M > 1: M members
     (barotropic, tracer or shallow-water; not with shard) from vort0
     perturbed by ensemble_amp * rms(vort0) of band-limited noise drawn
