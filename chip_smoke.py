@@ -244,6 +244,24 @@ exits non-zero and prints no result):
    make_sharded_rollout's gradient at 1024^2 against the single-device
    gradient (max |d| <= 1e-5 of its max). `--phase 5r` runs the
    toolchain phase and this phase alone.
+5s. The 2-D pencil decomposition (phase_pencil; xla only, no kernel):
+   --shard --decomp pencil for the barotropic, SW and tracer families
+   through cli.run.main on the 1x1 mesh at 256^2, records finite and
+   within rel-L2 1e-6 of the one-shard slab run's (bit for bit or not,
+   printed); the three families on make_pencil_mesh((2, 2)) at n^2 for
+   `steps` steps (RK4; SW and barotropic also ETDRK4) from the
+   single-device library state, with the launch counters still and
+   every kernel's plain twin and the slab's library transposes raising:
+   against the x-pencil xla model at P = 4 (bit for bit or not, and the
+   max difference, printed) and within rel-L2 1e-5 of the single-device
+   torch.fft path (SW unpaired; div's max abs error over max(|div|,
+   |zeta|)); the barotropic model on the (1, 4), (4, 1) and (2, 4)
+   meshes at 256^2 (the last pads hny = 129 to 136); make_sharded_rollout
+   (decomp="pencil") on (2, 2) at SHARD_ROLLOUT_N^2, its gradient against
+   the single-device library gradient (max |d| <= 1e-5 of its max);
+   ms/step of each family on (2, 2) in turns with the x-pencil xla and
+   slab overlap models at P = 4. `--phase 5s` runs the toolchain phase
+   and this phase alone.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -399,6 +417,15 @@ FAST_SHARD_FAMILY_BARS = {"tracer": {"vort": 1e-4, "q": 1e-4},
 # make_sharded_rollout's gradient against the single-device one: its
 # grid, steps, and the bar on max |d| over the single-device max
 SHARD_ROLLOUT_N, SHARD_ROLLOUT_STEPS, SHARD_ROLLOUT_BAR = 1024, 3, 1e-5
+# phase 5s: the 2-D pencil decomposition. The families' runs at n^2 on
+# PENCIL_MESH (family-scheme), the CLI runs on the 1x1 mesh and the other
+# mesh shapes at PENCIL_SMALL_N^2, the bar of the CLI records against the
+# one-shard slab run's
+PENCIL_MESH = (2, 2)
+PENCIL_RUNS = ("barotropic-rk4", "barotropic-etdrk4", "sw-rk4",
+               "sw-etdrk4", "tracer-rk4")
+PENCIL_SHAPES = ((1, 4), (4, 1), (2, 4))
+PENCIL_SMALL_N, PENCIL_CLI_BAR = 256, 1e-6
 
 
 def shard_transform_launches(decomp: str, impl: str, inverse: int,
@@ -4007,6 +4034,26 @@ def _family_errors(family: str, got: dict, want: dict) -> dict:
     return out
 
 
+def sw_unpaired_fields(m, s0, src, steps: int, n: int) -> dict:
+    """`steps` steps of a single-device library SW model `m` (its
+    scheme's RK4 or ETDRK4 step) from s0 with every inverse unpaired, as
+    the sharded models' are (the paired library inverse puts eps
+    max|eta| into zeta), and the physical fields (_family_state_fields)
+    of the result."""
+    from xlab_fftbarotropic_torch.models import etdrk4 as etd
+    from xlab_fftbarotropic_torch.models import shallow_water as sw
+    from xlab_fftbarotropic_torch.ops import fft
+
+    g, s = m.cfg.grid_shape, s0
+    for _ in range(steps):
+        s = (etd.etdrk4_step(m.tables, m.etd_tables, s, src, g,
+                             fwd=fft.forward, inv=fft.inverse)
+             if m.etd_tables is not None else
+             sw.rk4_step(m.tables, s, src, m.dt, m.f, m.g, m.nu, m.H, g,
+                         inv_pair=None))
+    return _family_state_fields("sw", s, n)
+
+
 def phase_sharded_families(n: int, steps: int, dev) -> dict:
     """Phase 5r: the sharded shallow-water and tracer families. Each
     family's ShardedShallowWaterModel / ShardedTracerModel.build(cfg,
@@ -4028,10 +4075,8 @@ def phase_sharded_families(n: int, steps: int, dev) -> dict:
     loaded by the second model)."""
     from xlab_fftbarotropic_torch.config import ModelConfig
     from xlab_fftbarotropic_torch.ic import makefields
-    from xlab_fftbarotropic_torch.models import etdrk4 as etd
     from xlab_fftbarotropic_torch.models import shallow_water as sw
     from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
-    from xlab_fftbarotropic_torch.ops import fft
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
     from xlab_fftbarotropic_torch.parallel import (ShardedShallowWaterModel,
                                                    ShardedTracerModel,
@@ -4057,19 +4102,8 @@ def phase_sharded_families(n: int, steps: int, dev) -> dict:
                         c.replace(fft_backend="xla"), dev)
                         for k, c in cfgs.items()}
                     s0 = libs["rk4"].geostrophic_init(v0)
-                    g = cfg.grid_shape
-                    ref = {}
-                    for scheme, m in libs.items():
-                        s = s0
-                        for _ in range(steps):
-                            s = (etd.etdrk4_step(m.tables, m.etd_tables, s,
-                                                 src, g, fwd=fft.forward,
-                                                 inv=fft.inverse)
-                                 if scheme == "etdrk4" else
-                                 sw.rk4_step(m.tables, s, src, m.dt, m.f,
-                                             m.g, m.nu, m.H, g,
-                                             inv_pair=None))
-                        ref[scheme] = _family_state_fields(family, s, n)
+                    ref = {k: sw_unpaired_fields(m, s0, src, steps, n)
+                           for k, m in libs.items()}
                     single = {"library": libs["rk4"],
                               "kernels": sw.ShallowWaterModel.build(rcfg,
                                                                     dev)}
@@ -4226,6 +4260,280 @@ def shard_rollout_gradient(dev) -> dict:
                       f"make_sharded_rollout {decomp} gradient {err:.3e} > "
                       f"{SHARD_ROLLOUT_BAR}")
             out[f"{decomp}_vs_{k}"] = err
+    return out
+
+
+def pencil_refused() -> list:
+    """What must not run on a pencil path: every kernel's plain twin (the
+    kernels themselves are read from the launch counters) and the slab's
+    library transposes; the pencil's own stages and torch.fft run."""
+    from xlab_fftbarotropic_torch.ops import fused_fft, fused_sw, fused_tracer
+    from xlab_fftbarotropic_torch.parallel import dfft
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+
+    return [(dfft, "transpose_to_columns"), (dfft, "transpose_to_rows")] + [
+        (mod, k) for mod in (fused_fft, fused_sw, fused_tracer, fo, ftr)
+        for k in dir(mod) if k.endswith("_plain") and not k.startswith("_")
+        and callable(getattr(mod, k))]
+
+
+def _pencil_cli(family: str, n: int, steps: int, extra: list) -> tuple:
+    """A --shard run of `family` through cli.run.main at n^2 for `steps`
+    steps (records every steps/2), with the launch counters set to 0
+    just before it and read just after, and with pencil_refused raising
+    on a pencil run: (records by file name, launches, wall s)."""
+    from xlab_fftbarotropic_torch.cli import run as cli_run
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.io.fieldio import read_field, write_field
+    from xlab_fftbarotropic_torch.models.shallow_water import max_stable_dt
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+
+    cfg = ModelConfig(nx=n, ny=n)
+    args = {"barotropic": [],
+            "sw": ["-m", "sw", "--dt", repr(min(3.0, max_stable_dt(cfg)))],
+            "tracer": ["-m", "tracer", "--tracer-kappa", "50",
+                       "--tracer-ic", "gaussian"]}[family]
+    with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
+        inp, out = Path(tmp) / "input", Path(tmp) / "output"
+        inp.mkdir()
+        write_field(inp / cfg.init_file, makefields.gaussian(
+            cfg, zeta0=1e-5) if family == "sw" else makefields.gaussian(cfg))
+        argv = ["-I", str(inp), "-O", str(out), "--nx", str(n), "--ny",
+                str(n), "--total-steps", str(steps), "--record-step",
+                str(steps // 2), "--manifest", str(Path(tmp) / "log"),
+                "--device", "cuda", "--shard"] + args + extra
+        ff.reset_launches()
+        t0 = time.perf_counter()
+        with _refusing(pencil_refused() if "pencil" in extra else []):
+            rc = cli_run.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(ff.LAUNCHES)
+        check(rc == 0, f"cli.run.main {' '.join(argv)} returned {rc}")
+        records = {p.name: read_field(p, cfg.grid_shape)
+                   for p in sorted(out.glob("*_step_*.bin"))}
+    return records, launches, wall
+
+
+def phase_pencil(n: int, steps: int, dev) -> dict:
+    """Phase 5s: the 2-D pencil decomposition on the card (module note,
+    5s): the CLI on the 1x1 mesh, the three families on PENCIL_MESH at
+    n^2 against the x-pencil xla model and the single-device torch.fft
+    path, the other mesh shapes, make_sharded_rollout's gradient, and
+    ms/step in turns with the x-pencil xla and slab overlap models; no
+    kernel launches and no plain twin runs (pencil_refused raises) on
+    any pencil path."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models import shallow_water as sw
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
+                                                   ShardedShallowWaterModel,
+                                                   ShardedTracerModel,
+                                                   make_mesh)
+    from xlab_fftbarotropic_torch.parallel.pencil import (make_pencil_mesh,
+                                                          padded_half)
+
+    t_phase = time.perf_counter()
+    out = {"main_paths": {}, "trajectories": {}, "time": {}, "cli": {}}
+    still = {k: 0 for k in ff.LAUNCHES}
+
+    # the CLI on the 1x1 mesh against the one-shard slab run
+    for family in ("barotropic", "sw", "tracer"):
+        pen, launches, wall = _pencil_cli(family, PENCIL_SMALL_N, steps, [
+            "--decomp", "pencil", "--mesh-shape", "1x1"])
+        check(launches == still, f"pencil CLI {family} launched {launches}")
+        slab, _, _ = _pencil_cli(family, PENCIL_SMALL_N, steps, [])
+        check(sorted(pen) == sorted(slab) and pen,
+              f"pencil CLI {family} records {sorted(pen)}")
+        worst, same = 0.0, True
+        for name, a in slab.items():
+            b = pen[name]
+            check(bool(np.isfinite(b).all()), f"{name} not finite")
+            same = same and np.array_equal(a, b)
+            if a.any():
+                worst = max(worst, float(np.linalg.norm(
+                    (b - a).astype(np.float64)) / np.linalg.norm(a)))
+        log(f"pencil CLI -m {family}: {steps} steps at {PENCIL_SMALL_N}^2 "
+            f"on the 1x1 mesh through cli.run.main in {wall:.2f} s, "
+            f"launches none; its {len(pen)} records against the one-shard "
+            f"slab run's: bit-identical {same}, max rel-L2 {worst:.3e}")
+        check(worst <= PENCIL_CLI_BAR, f"pencil CLI {family} records "
+              f"{worst:.3e} > {PENCIL_CLI_BAR}")
+        out["cli"][family] = dict(bit_identical=same, rel_l2=worst,
+                                  wall_s=wall)
+        out["main_paths"][f"pencil-cli-{family}"] = dict(launches=launches)
+    log(f"phase 5s CLI runs: {time.perf_counter() - t_phase:.1f} s in")
+
+    # the three families on PENCIL_MESH at n^2
+    cfg = ModelConfig(nx=n, ny=n)
+    src = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    pmesh, xmesh = make_pencil_mesh(PENCIL_MESH, dev), make_mesh(4, dev)
+    # the ETD tables are built on the card for each model (XFB_ETD_CACHE
+    # is "0": the SW stack is 1.7 GB, which a disk cache would write out
+    # and read back slower than the card builds it)
+    for family in ("barotropic", "sw", "tracer"):
+        if family == "barotropic":
+            cfgs = {"rk4": cfg, "etdrk4": cfg.replace(
+                time_scheme="etdrk4", nu4=example12_nu4(n))}
+            v0 = makefields.gaussian(cfg)
+            libs = {k: BarotropicModel.build(c.replace(fft_backend="xla"),
+                                             dev) for k, c in cfgs.items()}
+            s0 = libs["rk4"].init_state(v0)
+            ref = {k: {"vort": m.diags(m.segment(s0, src, steps)).vort}
+                   for k, m in libs.items()}
+
+            def build(c, mesh, impl, decomp):
+                return ShardedBarotropicModel.build(c, mesh, impl, decomp)
+        elif family == "sw":
+            cfgs = {"rk4": cfg.replace(dt=min(3.0, sw.max_stable_dt(cfg))),
+                    "etdrk4": cfg.replace(time_scheme="etdrk4",
+                                          dt=SW_ETD_DT)}
+            v0 = makefields.gaussian(cfg, zeta0=1e-5)
+            libs = {k: sw.ShallowWaterModel.build(
+                c.replace(fft_backend="xla"), dev) for k, c in cfgs.items()}
+            s0 = libs["rk4"].geostrophic_init(v0)
+            ref = {k: sw_unpaired_fields(m, s0, src, steps, n)
+                   for k, m in libs.items()}
+
+            def build(c, mesh, impl, decomp):
+                return ShardedShallowWaterModel.build(c, mesh, impl, decomp)
+        else:
+            cfgs = {"rk4": cfg}
+            v0, q0 = makefields.gaussian(cfg), tracer_ic(cfg, "gaussian")
+            libs = {"rk4": TracerModel.build(cfg.replace(fft_backend="xla"),
+                                             dev, kappa=50.0)}
+            s0 = libs["rk4"].init_state(v0, q0)
+            ref = {"rk4": _family_state_fields(
+                "tracer", libs["rk4"].segment(s0, src, steps), n)}
+
+            def build(c, mesh, impl, decomp):
+                return ShardedTracerModel.build(c, mesh, impl, decomp,
+                                                kappa=50.0)
+
+        def shard(m):
+            return (m.shard_spectral(s0) if family == "barotropic"
+                    else m.shard_state(s0))
+
+        def fields(m, z):
+            if family == "barotropic":
+                return {"vort": m.unshard_physical(m.diags(z).vort)}
+            return _family_state_fields(family, m.unshard_state(z), n)
+
+        turns, starts = {}, {}
+        for scheme, c in cfgs.items():
+            name = f"pencil-{family}-{scheme}"
+            m = build(c, pmesh, "xla", "pencil")
+            x = build(c, xmesh, "xla", "xpencil")
+            torch.cuda.synchronize()
+            ff.reset_launches()
+            with _refusing(pencil_refused()):
+                z = m.segment(shard(m), m.zero_source(), steps)
+                torch.cuda.synchronize()
+            launches = dict(ff.LAUNCHES)
+            check(launches == still, f"{name} launched {launches}")
+            got = fields(m, z)
+            for k, f in got.items():
+                check(bool(torch.isfinite(f).all()), f"{name} {k} not finite")
+            zx = x.segment(shard(x), x.zero_source(), steps)
+            same = all(torch.equal(a, b) for a, b in zip(
+                z if isinstance(z, tuple) else (z,),
+                zx if isinstance(zx, tuple) else (zx,)))
+            xf = fields(x, zx)
+            dmax = max(float((got[k] - xf[k]).abs().max()
+                             / xf[k].abs().max()) for k in got)
+            err = _family_errors(family, got, ref[scheme])
+            log(f"{name} main path: {steps} steps at {n}^2 on the "
+                f"{PENCIL_MESH} mesh through {type(m).__name__}.build(..., "
+                f"'xla', 'pencil').segment, launches none, plain twins "
+                f"refused; vs the x-pencil xla model at P = 4: "
+                f"bit-identical {same}, max |d| / max {dmax:.3e}; vs the "
+                f"single-device torch.fft path"
+                f"{' (unpaired)' if family == 'sw' else ''}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+            bars = {k: v for k, v in err.items()
+                    if not k.startswith("div_rel")}
+            check(max(bars.values()) <= TOL,
+                  f"{name} against the library path: {err}")
+            out["main_paths"][name] = dict(launches=launches)
+            out["trajectories"][name] = dict(err, xpencil_bit_identical=same,
+                                             xpencil_max_rel=dmax)
+            if scheme == "rk4":
+                turns[name] = m
+                turns[f"xpencil-{family}-xla"] = x
+                turns[f"slab-{family}-overlap"] = build(c, xmesh, "overlap",
+                                                        "slab")
+                for k in list(turns)[-3:]:
+                    starts[k] = shard(turns[k])
+            del m, x, z, zx
+        times = _timed_turns(turns, starts, src, steps)
+        for k, ts in times.items():
+            ms = sum(ts) / len(ts)
+            out["time"][k] = dict(ms_per_step=ms, runs_ms=ts)
+            log(f"time pencil {k:27s}: {ms:.3f} ms/step "
+                f"({', '.join(f'{t:.3f}' for t in ts)})")
+        del turns, starts, libs, ref
+        torch.cuda.empty_cache()
+        log(f"phase 5s {family}: {time.perf_counter() - t_phase:.1f} s in")
+
+    # the other mesh shapes, barotropic, at PENCIL_SMALL_N^2
+    m_n = PENCIL_SMALL_N
+    scfg = ModelConfig(nx=m_n, ny=m_n)
+    lib = BarotropicModel.build(scfg.replace(fft_backend="xla"), dev)
+    z0 = lib.init_state(makefields.gaussian(scfg))
+    ref = lib.diags(lib.segment(z0, lib.zero_source(), steps)).vort
+    for shape in PENCIL_SHAPES:
+        m = ShardedBarotropicModel.build(scfg, make_pencil_mesh(shape, dev),
+                                         decomp="pencil")
+        check(m.hpad == padded_half(m_n // 2 + 1, shape[0] * shape[1]),
+              f"pencil {shape} pads to {m.hpad}")
+        ff.reset_launches()
+        with _refusing(pencil_refused()):
+            z = m.segment(m.shard_spectral(z0), m.zero_source(), steps)
+            torch.cuda.synchronize()
+        check(dict(ff.LAUNCHES) == still, f"pencil {shape} launched")
+        rel = rel_l2(m.unshard_physical(m.diags(z).vort), ref)
+        log(f"pencil mesh {shape}: {steps} steps at {m_n}^2 (hny "
+            f"{m_n // 2 + 1} padded to {m.hpad}), rel-L2 of vort vs the "
+            f"single-device torch.fft path = {rel:.3e}")
+        check(rel <= TOL, f"pencil {shape} rel-L2 {rel:.3e} > {TOL}")
+        out["trajectories"][f"pencil-{shape[0]}x{shape[1]}"] = rel
+    log(f"phase 5s mesh shapes: {time.perf_counter() - t_phase:.1f} s in")
+
+    # make_sharded_rollout on the pencil
+    rn, rsteps = SHARD_ROLLOUT_N, SHARD_ROLLOUT_STEPS
+    rcfg = ModelConfig(nx=rn, ny=rn)
+    v0 = torch.as_tensor(makefields.gaussian(rcfg), device=dev)
+    target = 0.9 * adjoint.make_rollout(rcfg, rsteps, device=dev)(
+        v0, torch.zeros_like(v0))
+
+    def grad(roll):
+        x = v0.clone().requires_grad_(True)
+        loss = 0.5 * torch.mean(torch.square(roll(x, torch.zeros_like(v0))
+                                             - target))
+        (gr,) = torch.autograd.grad(loss, [x])
+        return gr
+
+    want = grad(adjoint.make_rollout(rcfg.replace(fft_backend="xla"),
+                                     rsteps, device=dev))
+    ff.reset_launches()
+    with _refusing(pencil_refused()):
+        got = grad(adjoint.make_sharded_rollout(
+            rcfg, rsteps, make_pencil_mesh(PENCIL_MESH, dev), "pencil"))
+    check(dict(ff.LAUNCHES) == still, "pencil rollout launched")
+    check(bool(torch.isfinite(got).all()), "pencil rollout gradient")
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"make_sharded_rollout pencil {PENCIL_MESH}: {rsteps} steps at "
+        f"{rn}^2, gradient vs the single-device library gradient: max |d| "
+        f"/ max = {err:.3e}, rel-L2 {rel_l2(got, want):.3e}")
+    check(err <= SHARD_ROLLOUT_BAR, f"pencil rollout gradient {err:.3e}")
+    out["rollout"] = err
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5s: {out['wall_s']:.1f} s")
     return out
 
 
@@ -5326,7 +5634,7 @@ def main(argv=None) -> int:
                     "gradient and the sharded kernel paths with "
                     "torch.profiler (the breakdown of where their time "
                     "goes)")
-    ap.add_argument("--phase", choices=["5r"], default=None,
+    ap.add_argument("--phase", choices=["5r", "5s"], default=None,
                     help="run the toolchain phase and this phase alone (a "
                     "quick check of it; no result lines)")
     args = ap.parse_args(argv)
@@ -5361,13 +5669,17 @@ def main(argv=None) -> int:
     report = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   nvcc=nvcc_version.strip().splitlines()[-1],
                   build_s=build_s, n=args.n, steps=args.steps)
-    if args.phase == "5r":
-        report["sharded_families"] = phase_sharded_families(
-            args.n, args.steps, dev)
+    if args.phase:
+        if args.phase == "5r":
+            report["sharded_families"] = phase_sharded_families(
+                args.n, args.steps, dev)
+        else:
+            report["pencil"] = phase_pencil(args.n, args.steps, dev)
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps(report, indent=1))
-        log(f"phase 5r alone: {time.perf_counter() - t_start:.1f} s; {smi}")
+        log(f"phase {args.phase} alone: {time.perf_counter() - t_start:.1f} "
+            f"s; {smi}")
         return 0
     report["xtile"] = phase_xtile(args.n)
     report["kernels"] = phase_kernels(args.n, dev)
@@ -5411,6 +5723,8 @@ def main(argv=None) -> int:
     report["sharded_families"] = phase_sharded_families(args.n, args.steps,
                                                         dev)
     report["main_paths"].update(report["sharded_families"]["main_paths"])
+    report["pencil"] = phase_pencil(args.n, args.steps, dev)
+    report["main_paths"].update(report["pencil"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

@@ -3,7 +3,9 @@
 shards stacked on the card (parallel/model.py ShardedBarotropicModel,
 make_mesh(4)), slab and x-pencil, each with the library transposes
 (xla), the a2a transpose kernels (pallas, csrc/a2a.cu) and the fused
-x-stage kernels (overlap, csrc/xstage.cu), at n^2 from the gaussian IC.
+x-stage kernels (overlap, csrc/xstage.cu), and the 2-D pencil on a 2x2
+mesh (pencil.make_pencil_mesh((2, 2)), xla only; where the checkout has
+it), at n^2 from the gaussian IC.
 
     python3 scripts/shard_steps.py [--root DIR] [--n 4096] [--steps 20]
         [--rounds 2]
@@ -29,7 +31,7 @@ from pathlib import Path
 import torch
 
 PATHS = tuple(f"{d}-{i}" for d in ("slab", "xpencil")
-              for i in ("xla", "pallas", "overlap"))
+              for i in ("xla", "pallas", "overlap")) + ("pencil-xla",)
 
 
 def main(argv=None) -> int:
@@ -57,10 +59,20 @@ def main(argv=None) -> int:
     cfg = ModelConfig(nx=args.n, ny=args.n)
     mesh = make_mesh(4, dev)
     v0 = makefields.gaussian(cfg)
+    try:
+        from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+    except ImportError:           # a checkout from before the pencil
+        make_pencil_mesh = None
     runs = {}
     for name in PATHS:
         decomp, impl = name.split("-")
-        m = ShardedBarotropicModel.build(cfg, mesh, impl, decomp)
+        if decomp == "pencil":
+            if make_pencil_mesh is None:
+                continue
+            m = ShardedBarotropicModel.build(
+                cfg, make_pencil_mesh((2, 2), dev), impl, decomp)
+        else:
+            m = ShardedBarotropicModel.build(cfg, mesh, impl, decomp)
         runs[name] = (m, m.init_state(v0), m.zero_source())
     times = {k: [] for k in runs}
     for _ in range(args.rounds):

@@ -281,9 +281,10 @@ def test_assimilate_cli_on_the_cpu(tmp_path):
 def test_what_is_not_ported_raises(tmp_path):
     from xlab_fftbarotropic_torch.parallel import make_mesh
 
-    # make_sharded_rollout runs (tests/test_torch_shard_adjoint.py); the
-    # 2-D pencil decomposition waits
-    with pytest.raises(NotImplementedError, match="item 5.3"):
+    # make_sharded_rollout runs (tests/test_torch_shard_adjoint.py,
+    # test_torch_pencil_run.py); the pencil refuses a 1-D group, as the
+    # JAX package does
+    with pytest.raises(ValueError, match="needs a 2-D mesh"):
         tadj.make_sharded_rollout(_cfg(), 3, make_mesh(4, CPU),
                                   decomp="pencil")
     with pytest.raises(NotImplementedError, match="beta-plane"):

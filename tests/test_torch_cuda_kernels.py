@@ -1714,6 +1714,60 @@ def test_sharded_segment_matches_the_library_path(cuda, decomp, impl):
         assert torch.equal(z, run("xla")[1])
 
 
+@pytest.mark.parametrize("family", ["barotropic", "sw", "tracer"])
+def test_pencil_runs_no_kernel(cuda, family, monkeypatch):
+    """The 2-D pencil (xla only) on a 2x2 group at 256^2, 4 steps: no
+    kernel launches and no kernel's plain twin runs (each raises), and
+    the vorticity lies within rel-L2 1e-5 of the single-device torch.fft
+    path."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.models.shallow_water import (
+        ShallowWaterModel)
+    from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
+    from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
+                                                   ShardedShallowWaterModel,
+                                                   ShardedTracerModel)
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+    from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+    from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+
+    cfg = ModelConfig(nx=256, ny=256, dt=0.5 if family == "sw" else 3.0)
+    v0 = makefields.gaussian(cfg, zeta0=1e-5 if family == "sw" else 1e-4)
+    lib_cfg = cfg.replace(fft_backend="xla")
+    mesh = make_pencil_mesh((2, 2), cuda)
+    if family == "barotropic":
+        lib = BarotropicModel.build(lib_cfg, cuda)
+        m = ShardedBarotropicModel.build(cfg, mesh, decomp="pencil")
+        s0, z0 = lib.init_state(v0), m.init_state(v0)
+    elif family == "sw":
+        lib = ShallowWaterModel.build(lib_cfg, cuda)
+        m = ShardedShallowWaterModel.build(cfg, mesh, decomp="pencil")
+        s0, z0 = lib.geostrophic_init(v0), m.geostrophic_init(v0)
+    else:
+        q0 = tracer_ic(cfg, "gaussian")
+        lib = TracerModel.build(lib_cfg, cuda, kappa=50.0)
+        m = ShardedTracerModel.build(cfg, mesh, decomp="pencil", kappa=50.0)
+        s0, z0 = lib.init_state(v0, q0), m.init_state(v0, q0)
+    ref = lib.diags(lib.segment(s0, lib.zero_source(), 4)).vort
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain twin ran on the pencil path")
+
+    for mod in (ff, fs, ft, fo, ftr):
+        for name in dir(mod):
+            if (name.endswith("_plain") and not name.startswith("_")
+                    and callable(getattr(mod, name))):
+                monkeypatch.setattr(mod, name, refuse)
+    ff.reset_launches()
+    z = m.segment(z0, m.zero_source(), 4)
+    torch.cuda.synchronize()
+    assert not any(ff.LAUNCHES.values()), ff.LAUNCHES
+    vort = m.unshard_physical(m.diags(z).vort)
+    assert float((vort - ref).norm() / ref.norm()) <= TOL
+
+
 # ----- the column-tile x-stages (csrc/xtile.cuh: kx_visc.cu, xstage.cu) -----
 
 XTILE_LENGTHS = [64, 128, 256, 512, 1024, 2048, 4096, 8192]

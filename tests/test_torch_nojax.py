@@ -5,8 +5,8 @@ twice on the CPU in both time schemes (RK4 and ETDRK4), on the plane
 stepper and on the library path, the SW model with drag on the
 per-transform path, takes a gradient through the adjoint rollout on
 both transform triples, steps the sharded barotropic model in every
-decomposition and transform impl, runs the post-processing pipeline's
-four commands (makefield, vort_src_input, invert_pres, find_min), the
+decomposition and transform impl (the 2-D pencil on a 2x2 group), runs
+the post-processing pipeline's four commands (makefield, vort_src_input, invert_pres, find_min), the
 diagnose and draw commands, -m fd, two ensembles, fast mode (also
 through the model) and a --profile-dir run through the run command, and
 ends with no jax and no xlab_fftbarotropic_tpu module loaded; and its
@@ -101,6 +101,11 @@ for scheme in ("rk4", "etdrk4"):
             z = m.segment(m.init_state(makefields.gaussian(cfg)),
                           m.zero_source(), 2)
             assert bool(torch.isfinite(m.diags(z).vort).all())
+    # the 2-D pencil decomposition (xla only)
+    m = model.ShardedBarotropicModel.build(
+        cfg, pencil.make_pencil_mesh((2, 2), cpu), decomp="pencil")
+    z = m.segment(m.init_state(makefields.gaussian(cfg)), m.zero_source(), 2)
+    assert bool(torch.isfinite(m.unshard_physical(m.diags(z).vort)).all())
 # the post-processing pipeline through its four commands
 import io, os, tempfile
 from xlab_fftbarotropic_torch.cli import (find_min, invert_pres, makefield,
@@ -232,3 +237,20 @@ def test_assimilate_cli_without_gpu_stops(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not out.exists()
+
+
+def test_port_files_and_scripts_import_no_jax():
+    """No module of the port, no port script of the examples and not
+    chip_smoke.py imports jax or the JAX package, or runs one of its
+    commands."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|xlab_fftbarotropic_"
+                         r"tpu)\b|-m\s+xlab_fftbarotropic_tpu\b", re.M)
+    files = (sorted((REPO / "xlab_fftbarotropic_torch").rglob("*.py"))
+             + sorted((REPO / "examples").glob("*/*_torch.*"))
+             + [REPO / "chip_smoke.py"])
+    assert len([f for f in files if f.parent.parent.name == "examples"]
+               ) >= 13
+    for f in files:
+        assert not pattern.search(f.read_text()), f

@@ -35,6 +35,7 @@ from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel, dfft,
                                                fused_overlap, make_mesh)
 from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
 
 try:
     shard_map = jax.shard_map
@@ -217,16 +218,25 @@ def test_cli_shard_run_matches_the_unsharded_run(tmp_path, decomp, impl):
 
 @pytest.mark.parametrize("flags", [
     ["--shard", "-m", "sw"], ["--shard", "-m", "tracer"],
-    ["--shard", "--decomp", "pencil"], ["--shard", "--mesh-shape", "2x2"]])
+    ["--shard", "--decomp", "pencil"], ["--shard", "--mesh-shape", "2x2"],
+    ["--shard", "--decomp", "pencil", "--mesh-shape", "2x2"]])
 def test_cli_refuses_what_waits(tmp_path, flags, capsys):
-    """--decomp pencil and --mesh-shape (the 2-D pencil decomposition,
-    item 5.3) stop before anything runs; --shard with -m sw and -m
-    tracer, refused until the sharded families were ported (item 5.1),
-    run now and write their family's records."""
-    if "-m" in flags:
-        out = _cli(tmp_path, "shard", flags + ["--shard-fft", "overlap"])
-        assert "Sharding              : 1 shard(s)" in capsys.readouterr().err
-        name = "div" if "sw" in flags else "q"
+    """--shard with -m sw and -m tracer (refused until the sharded
+    families were ported, item 5.1) and --decomp pencil (until item 5.3)
+    run now and write their records: the pencil on its default 1x1 mesh;
+    --mesh-shape without the pencil runs the slab, as the JAX CLI does. A
+    pencil mesh of more shards than the one visible card stops before
+    anything runs (the one-process-per-card executor, item 5.2)."""
+    if flags[-1] != "2x2" or "pencil" not in flags:
+        extra = ["--shard-fft", "overlap"] if "-m" in flags else []
+        out = _cli(tmp_path, "shard", flags + extra)
+        err = capsys.readouterr().err
+        assert "Sharding              : 1 shard(s)" in err
+        assert ("1x1 mesh" in err) == ("pencil" in flags)
+        assert (f"decomp {'pencil' if 'pencil' in flags else 'slab'}"
+                in err)
+        name = ("div" if "sw" in flags else "q" if "tracer" in flags
+                else "vort")
         f = np.fromfile(out / f"{name}_step_3.bin", np.float32)
         assert f.size == 64 * 64 and np.isfinite(f).all()
         return
@@ -234,7 +244,9 @@ def test_cli_refuses_what_waits(tmp_path, flags, capsys):
         tcli.main(["-O", str(tmp_path / "o"), "--device", "cpu",
                    "--total-steps", "1"] + flags)
     assert e.value.code != 0
-    assert "item 5.3" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "item 5.2" in err and "needs 4 devices, got 1" in err
+    assert not (tmp_path / "o").exists()
 
 
 def test_more_than_one_card_is_refused(monkeypatch, tmp_path, capsys):
@@ -243,9 +255,20 @@ def test_more_than_one_card_is_refused(monkeypatch, tmp_path, capsys):
         make_mesh(None, "cuda")
     assert make_mesh(None, CPU).n_shards == 1
     assert make_mesh(3, CPU).n_shards == 3
-    with pytest.raises(NotImplementedError, match="item 5"):
+    assert make_mesh(3, CPU).shape == (3,)
+    # the pencil builds on a 2-D group and is refused on a 1-D one (the
+    # JAX text); slab and x-pencil wait for item 5.2 on a 2-D group
+    pm = make_pencil_mesh((2, 2), CPU)
+    assert pm.n_shards == 4 and pm.shape == (2, 2)
+    assert ShardedBarotropicModel.build(ModelConfig(**_cfg()), pm,
+                                        decomp="pencil").hpad == 36
+    with pytest.raises(ValueError, match="needs a 2-D mesh"):
         ShardedBarotropicModel.build(ModelConfig(**_cfg()),
                                      make_mesh(NS, CPU), decomp="pencil")
+    for decomp in ("slab", "xpencil"):
+        with pytest.raises(NotImplementedError, match="item 5.2"):
+            ShardedBarotropicModel.build(ModelConfig(**_cfg()), pm,
+                                         decomp=decomp)
     with pytest.raises(ValueError):
         ShardedBarotropicModel.build(ModelConfig(**_cfg()),
                                      make_mesh(NS, CPU), fft_impl="mpi")

@@ -176,8 +176,18 @@ def test_debug_fields_and_record_subset(tmp_path):
 def test_runner_refuses_what_is_not_ported(tmp_path):
     cfg = _cfg(tmp_path)
     v0 = makefields.gaussian(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trunner.run(cfg, CPU, v0, record=False, shard=True, decomp="pencil")
+    # the 2-D pencil decomposition, refused before it was ported, runs on
+    # the 1x1 mesh; a mesh of more shards than the one device waits for
+    # the one-process-per-card executor (item 5.2); its impl is xla only
+    res = trunner.run(cfg, CPU, v0, record=False, shard=True,
+                      decomp="pencil")
+    assert res.steps_run == 10 and bool(torch.isfinite(res.zeta_hat).all())
+    with pytest.raises(NotImplementedError, match="item 5.2"):
+        trunner.run(cfg, CPU, v0, record=False, shard=True, decomp="pencil",
+                    mesh_shape=(2, 2))
+    with pytest.raises(ValueError, match="fft_impl='xla' only"):
+        trunner.run(cfg, CPU, v0, record=False, shard=True, decomp="pencil",
+                    shard_fft="pallas")
     # the sharded shallow-water model, refused before it was ported, runs
     res = trunner.run(cfg, CPU, v0, record=False, shard=True,
                       model_kind="sw")
@@ -208,9 +218,11 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     ["-m", "sw", "--beta", "1e-11"]])
 def test_cli_stops_on_flags_outside_the_slice(tmp_path, flags):
     """Each flag set stops before the run, but --shard with -m sw or -m
-    tracer, which stopped until the sharded families were ported: those
-    run now (at 64^2) and write their family's records."""
-    if "--shard" in flags and ("sw" in flags or "tracer" in flags):
+    tracer, which stopped until the sharded families were ported, and
+    --shard --decomp pencil, until the pencil was: those run now (at
+    64^2) and write their family's records."""
+    if "--shard" in flags and ("sw" in flags or "tracer" in flags
+                               or "pencil" in flags):
         inp = tmp_path / "in"
         inp.mkdir()
         cfg = ModelConfig(nx=64, ny=64)
@@ -219,7 +231,8 @@ def test_cli_stops_on_flags_outside_the_slice(tmp_path, flags):
                           "--device", "cpu", "--total-steps", "1",
                           "--manifest", str(tmp_path / "log")] + flags
                          + ["--nx", "64", "--ny", "64"]) == 0
-        name = "div" if "sw" in flags else "q"
+        name = ("div" if "sw" in flags else "q" if "tracer" in flags
+                else "vort")
         assert (tmp_path / "o" / f"{name}_step_0.bin").stat().st_size == (
             64 * 64 * 4)
         return
@@ -443,8 +456,8 @@ def test_etd_cli_matches_jax_cli(tmp_path, capsys, family):
     write_field(inp / "init.bin",
                 makefields.gaussian(cfg, zeta0=1e-5 if sw else 1e-3))
     common = ["-I", str(inp), "-O", str(out), "-i", "init.bin", "--nx",
-              "64", "--ny", "64", "--total-steps", "20", "--record-step",
-              "10", "--time-scheme", "etdrk4"] + family
+              "64", "--ny", "64", "--total-steps", "10", "--record-step",
+              "5", "--time-scheme", "etdrk4"] + family
     assert jcli.main(common + ["--cpu", "--manifest",
                                str(tmp_path / "log_jax")]) == 0
     want = _records(out)

@@ -93,6 +93,14 @@ def test_segments_and_one_shard_give_the_same_gradient():
 
 
 def test_pencil_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5.3"):
+    """On a 1-D group, as in the JAX package (the pencil's rollout on a
+    2-D group: tests/test_torch_pencil_run.py); slab and x-pencil on a
+    2-D group wait for item 5.2."""
+    from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+
+    with pytest.raises(ValueError, match="needs a 2-D mesh"):
         tadj.make_sharded_rollout(ModelConfig(**KW), STEPS,
                                   make_mesh(NS, CPU), decomp="pencil")
+    with pytest.raises(NotImplementedError, match="item 5.2"):
+        tadj.make_sharded_rollout(ModelConfig(**KW), STEPS,
+                                  make_pencil_mesh((2, 2), CPU))

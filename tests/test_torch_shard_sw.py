@@ -35,6 +35,7 @@ from xlab_fftbarotropic_torch.ops import fft
 from xlab_fftbarotropic_torch.parallel import (ShardedShallowWaterModel,
                                                fused_overlap, make_mesh)
 from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
 
 CPU = torch.device("cpu")
 NS, N = 4, 32
@@ -221,9 +222,15 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="beta-plane"):
         ShardedShallowWaterModel.build(ModelConfig(nx=N, ny=N, beta=1e-11),
                                        mesh)
-    with pytest.raises(NotImplementedError, match="item 5.3"):
+    # the pencil (ported since) refuses a 1-D group and the kernel impls,
+    # with the JAX package's texts
+    with pytest.raises(ValueError, match="needs a 2-D mesh"):
         ShardedShallowWaterModel.build(ModelConfig(nx=N, ny=N), mesh,
                                        decomp="pencil")
+    with pytest.raises(ValueError, match="fft_impl='xla' only"):
+        ShardedShallowWaterModel.build(ModelConfig(nx=N, ny=N),
+                                       make_pencil_mesh((2, 2), CPU),
+                                       "overlap", "pencil")
     m = ShardedShallowWaterModel.build(ModelConfig(nx=N, ny=N), mesh)
     s = m.geostrophic_init(np.ones((N, N), np.float32))
     with pytest.raises(ValueError, match="complex64"):

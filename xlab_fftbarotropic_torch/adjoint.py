@@ -170,18 +170,31 @@ def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
     inverse. The transforms are the library impl ('xla'), as in the JAX
     package: autograd runs through torch.fft and the transposes' copies
     (the a2a and xstage kernels have no backward). decomp 'slab' or
-    'xpencil'; 'pencil' raises (ROADMAP.md queue A, item 5.3)."""
-    from .parallel import dfft
+    'xpencil' on a 1-D group (make_mesh), 'pencil' on a 2-D one
+    (parallel/pencil.py make_pencil_mesh: the inputs go to tiles, the
+    output comes back from them)."""
+    from .parallel import dfft, pencil
     from .parallel.model import _decomp_setup
 
     t, fwd, inv, _ = _decomp_setup(cfg, mesh, "xla", decomp)
     g = cfg.grid_shape
     dt, nu = float(cfg.dt), float(cfg.nu)
     r_drag, beta, nu4 = float(cfg.r_drag), float(cfg.beta), float(cfg.nu4)
+    if decomp == "pencil":
+        def to_shards(a):
+            return pencil.shard_tiles(a, mesh.shape)
+
+        def unshard(a):
+            return pencil.unshard_tiles(a, mesh.shape)
+    else:
+        def to_shards(a):
+            return dfft.shard_rows(a, mesh.n_shards)
+
+        unshard = dfft.unshard_rows
 
     def shards(a):
-        a = torch.as_tensor(a, dtype=torch.float32, device=mesh.device)
-        return dfft.shard_rows(a, mesh.n_shards)
+        return to_shards(torch.as_tensor(a, dtype=torch.float32,
+                                         device=mesh.device))
 
     def rollout(vort0, src):
         src = shards(src)
@@ -190,7 +203,7 @@ def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
                                    inv=inv, inv_pair=None, r_drag=r_drag,
                                    beta=beta, nu4=nu4),),
             (fwd(shards(vort0)),), n_steps, segment)
-        return dfft.unshard_rows(inv(z, g))
+        return unshard(inv(z, g))
 
     return rollout
 

@@ -12,9 +12,10 @@ families, each with --time-scheme rk4 (default) or etdrk4 (the linear
 terms integrated exactly from phi-function tables, models/etdrk4.py), the
 -s script / -f fifo forcing, records, checkpoints and resume, for
 each of the three families the sharded model (--shard, with --shard-fft
-and --decomp slab or xpencil; every shard on the one visible card), the
-perturbed-IC ensemble (--ensemble M, --ensemble-amp, --ensemble-seed,
---ensemble-width; each member's records in output/mNN/), the
+and --decomp slab, xpencil or pencil with --mesh-shape; every shard on
+the one visible card), the perturbed-IC ensemble (--ensemble M,
+--ensemble-amp, --ensemble-seed, --ensemble-width; each member's
+records in output/mNN/), the
 finite-difference core (-m fd, or -m jacobian) and a torch.profiler
 trace of the run (--profile-dir). `--device
 cuda` (the default) runs the plane stepper's hand-written CUDA kernels
@@ -59,7 +60,7 @@ x-stages (xstage, or xstage_gather and xstage_scatter with --decomp
 xpencil) and nothing else fast: the sharded shallow-water model has no
 split-linear formulation, as the JAX package's; xla and pallas have
 torch.fft x-stages and copy transposes, which fast mode leaves as they
-are, as in the JAX package.
+are, as in the JAX package, and so has --decomp pencil (xla only).
 --ensemble: width-1 members run the fast plane stepper, each the solo
 fast run; batched chunks stay on the float32 library path. -m fd runs
 its torch.fft core unchanged, as the JAX package's does. --fft-backend
@@ -142,6 +143,10 @@ SHARD_FAST_NONE = (
     "# fast transforms: --shard-fft {} runs torch.fft x-stages and copy "
     "transposes, which hold no matmul: fast mode changes nothing there, "
     "as in the JAX package")
+PENCIL_FAST_NONE = (
+    "# fast transforms: --decomp pencil runs its torch.fft x- and y-stages "
+    "and copy transposes (--shard-fft xla only), which fast mode leaves "
+    "float32, as in the JAX package")
 # -m fd: the JAX CLI's banner, then what the FD core runs
 FD_FAST_NOTE = (
     "# fast transforms: the FD core (Arakawa Jacobian, FFT Poisson solve) "
@@ -168,6 +173,8 @@ def fast_banner(args, sw: bool, fd: bool, yfirst: bool, backend: str,
     if fd:
         return FAST_BANNER + "\n" + FD_FAST_NOTE
     if args.shard:
+        if args.decomp == "pencil":
+            return PENCIL_FAST_NONE
         if args.shard_fft != "overlap":
             return SHARD_FAST_NONE.format(args.shard_fft)
         halves = ("xstage_gather, xstage_scatter" if args.decomp == "xpencil"
@@ -233,8 +240,8 @@ def main(argv=None):
     from ..models.ensemble import _resolve_member_backend, auto_vmap_width
     from ..models.shallow_water import (per_transform, resolve_pstore,
                                         resolve_split, resolve_sw_backend)
-    from ..parallel import make_mesh
-    from ..runner import run
+    from ..parallel.model import check_decomp
+    from ..runner import run, shard_mesh
 
     p = argparse.ArgumentParser(
         prog="xfb-torch-run",
@@ -282,7 +289,7 @@ def main(argv=None):
                    help="run the family's sharded model (barotropic, "
                         "tracer or sw): the grid's shards stacked on the "
                         "one visible card (or the CPU with --device cpu), "
-                        "one shard")
+                        "one shard (--decomp pencil: a 1x1 mesh)")
     p.add_argument("--shard-fft", default="xla",
                    choices=["xla", "pallas", "overlap"],
                    help="distributed-FFT implementation for --shard runs: "
@@ -295,10 +302,16 @@ def main(argv=None):
                         "(rows, default), xpencil (row-sharded physical + "
                         "column-sharded x-pencil spectral state: one "
                         "transpose per transform instead of two), or 2-D "
-                        "pencil (not ported yet)")
+                        "pencil (tiles over a PxQ mesh, three transposes "
+                        "per transform within mesh rows or columns; "
+                        "--shard-fft xla only; see --mesh-shape)")
     p.add_argument("--mesh-shape", default=None, metavar="PxQ",
-                   help="2-D mesh shape for --decomp pencil (not ported "
-                        "yet)")
+                   help="2-D mesh shape for --decomp pencil, e.g. 2x4 "
+                        "(default 1x1); its P*Q must be the visible "
+                        "card's one shard (more needs the one-process-"
+                        "per-card executor, ROADMAP.md queue A item 5.2). "
+                        "Ignored without --decomp pencil, as in the JAX "
+                        "package")
     p.add_argument("--ensemble", type=int, default=0, metavar="M",
                    help="run an M-member perturbed-IC ensemble "
                         "(barotropic, tracer or sw): member 0 is the "
@@ -346,10 +359,16 @@ def main(argv=None):
                 f"{'--shard' if args.shard else '-m ' + args.model}: "
                 f"ensembles batch members on one card (barotropic, "
                 f"tracer or sw)")
-    if args.decomp == "pencil" or args.mesh_shape:
-        p.error("--decomp pencil and --mesh-shape (the 2-D pencil "
-                "decomposition) are not ported yet (ROADMAP.md queue A, "
-                "item 5.3)")
+    mesh_shape = None
+    if args.mesh_shape:
+        try:
+            mesh_shape = tuple(int(v) for v in
+                               args.mesh_shape.lower().split("x"))
+        except ValueError:
+            mesh_shape = ()
+        if len(mesh_shape) != 2:
+            p.error(f"--mesh-shape must look like 2x4, got "
+                    f"{args.mesh_shape!r}")
     if args.shard and fd:
         p.error(f"--shard with -m {args.model}: the FD core runs on one "
                 f"device")
@@ -409,8 +428,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.shard:
         try:
-            n_shards = make_mesh(None, device).n_shards
-        except NotImplementedError as e:
+            mesh = shard_mesh(device, args.decomp, mesh_shape)
+            check_decomp(cfg, mesh, args.shard_fft, args.decomp)
+        except (NotImplementedError, ValueError) as e:
             p.error(str(e))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -455,9 +475,11 @@ def main(argv=None):
               f"{width} ({chunks}), amplitude {args.ensemble_amp:g}, "
               f"seed {args.ensemble_seed}", file=sys.stderr)
     if args.shard:
-        print(f"Sharding              : {n_shards} shard(s), decomp "
-              f"{args.decomp}, shard-fft {args.shard_fft} ({shard_how})",
-              file=sys.stderr)
+        grid = ("x".join(map(str, mesh.shape)) + " mesh, "
+                if args.decomp == "pencil" else "")
+        print(f"Sharding              : {mesh.n_shards} shard(s), decomp "
+              f"{args.decomp}, {grid}shard-fft {args.shard_fft} "
+              f"({shard_how})", file=sys.stderr)
     elif not fd:
         print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
         if backend == "pallas" and args.model != "tracer":
@@ -495,7 +517,7 @@ def main(argv=None):
                      tracer_ic=args.tracer_ic, yfirst=yfirst,
                      bt_fusion=bt_fusion, shard=args.shard,
                      shard_fft=args.shard_fft, decomp=args.decomp,
-                     ensemble=args.ensemble,
+                     mesh_shape=mesh_shape, ensemble=args.ensemble,
                      ensemble_amp=args.ensemble_amp,
                      ensemble_seed=args.ensemble_seed,
                      ensemble_width=width, sw_form=sw_form,

@@ -1,8 +1,8 @@
 """Distributed execution on stacked shards: the counterpart of
 xlab_fftbarotropic_tpu/parallel/ for the barotropic, shallow-water and
-tracer families (slab and x-pencil decompositions, the library
-collectives and the kernels of TPU rows 21-23). The 2-D pencil
-decomposition and the multi-process executor are not ported yet."""
+tracer families (slab, x-pencil and 2-D pencil decompositions, the
+library collectives and the kernels of TPU rows 21-23). The
+multi-process executor is not ported yet."""
 
 from .dfft import irfft2_local, make_fft_pair, rfft2_local  # noqa: F401
 from .model import (  # noqa: F401

@@ -14,9 +14,13 @@ etdrk4_step) on the decomposition's distributed transforms:
   decomp 'xpencil'  spectral (P, nx, hpad/P) column shards, physical row
                     shards; kx whole, ky column-sharded
                     (parallel/xpencil.py);
+  decomp 'pencil'   on a 2-D (Px, Py) group (pencil.make_pencil_mesh):
+                    the x-pencil's spectral shards at P = Px Py, physical
+                    tiles (P, nx/Px, ny/Py) (parallel/pencil.py);
 
 and fft_impl 'xla' (library transposes), 'pallas' (the a2a kernels, TPU
-row 23) or 'overlap' (the xstage kernels, rows 21 and 22). fast=True (the
+row 23) or 'overlap' (the xstage kernels, rows 21 and 22); the pencil
+takes 'xla' only, as the JAX package's. fast=True (the
 JAX package's fast mode) runs the overlap x-stages on their fast forms;
 on 'xla' and 'pallas' the x-stage is torch.fft and the transposes hold no
 matmul, so fast mode changes nothing there, as in the JAX package (its
@@ -33,13 +37,21 @@ runs without the split-linear formulation in either mode, as the JAX
 one does.
 
 The one-process-per-card executor (torch.distributed ranks, the kernels
-given peer-mapped pointer tables; ROADMAP.md queue A, item 5.2) and the
-2-D pencil decomposition (item 5.3) are not ported.
+given peer-mapped pointer tables; ROADMAP.md queue A, item 5.2) is not
+ported; with it go the JAX package's tuple-axis meshes (make_mesh2d),
+which place the slab and x-pencil on several hosts, so slab and x-pencil
+take a 1-D group here.
+
+On the CPU: build(cfg, make_mesh(4, "cpu"), ...) or build(cfg,
+pencil.make_pencil_mesh((2, 4), "cpu"), decomp="pencil"); on the card
+`python3 chip_smoke.py --phase 5r` (slab and x-pencil) and `--phase 5s`
+(the pencil).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -53,26 +65,36 @@ from ..models import tracer as tr
 from ..models.barotropic import check_time_scheme, resolve_device
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
-from . import dfft, xpencil
+from . import dfft, pencil, xpencil
 
-DECOMPS = ("slab", "xpencil")
+DECOMPS = ("slab", "xpencil", "pencil")
 IMPLS = ("xla", "pallas", "overlap")
 _LATER = "ROADMAP.md queue A, item 5"
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardGroup:
-    """A 1-D group of shards: how many, and the card that holds them all
-    (the counterpart of a 1-D jax.sharding.Mesh)."""
+    """A group of shards: how many, the card that holds them all and the
+    mesh shape, (n_shards,) for a 1-D group (the counterpart of a 1-D
+    jax.sharding.Mesh) or (Px, Py) for a 2-D one (pencil.make_pencil_mesh:
+    the JAX package's pencil mesh)."""
     n_shards: int
     device: torch.device
+    shape: tuple = ()
+
+    def __post_init__(self):
+        if not self.shape:
+            object.__setattr__(self, "shape", (self.n_shards,))
+        if math.prod(self.shape) != self.n_shards:
+            raise ValueError(f"mesh shape {self.shape} does not hold "
+                             f"{self.n_shards} shards")
 
 
 def make_mesh(n_shards: Optional[int] = None, device=None) -> ShardGroup:
-    """The shard group: n_shards shards on `device` (default: the current
-    CUDA device). n_shards None takes one shard per visible card, which
-    is one: more than one card needs the one-process-per-card executor,
-    which is not ported."""
+    """The 1-D shard group: n_shards shards on `device` (default: the
+    current CUDA device). n_shards None takes one shard per visible
+    card, which is one: more than one card needs the one-process-per-card
+    executor, which is not ported."""
     device = "cuda" if device is None else device
     if n_shards is None:
         if (torch.device(device).type == "cuda"
@@ -104,25 +126,53 @@ def _slab_pair(fft_impl: str, fast: bool):
     return dfft.make_fft_pair(use_pallas=fft_impl == "pallas")
 
 
+def check_decomp(cfg, mesh: ShardGroup, fft_impl: str, decomp: str) -> None:
+    """Raise what a decomposition refuses, with the JAX package's texts
+    (parallel/model.py:_decomp_setup there): the pencil takes 'xla' and a
+    2-D group whose grid passes pencil.check_grid; slab and x-pencil a
+    1-D group (a 2-D one places them on several hosts: item 5.2)."""
+    if decomp not in DECOMPS:
+        raise ValueError(f"unknown decomp: {decomp!r}")
+    if decomp == "pencil":
+        if fft_impl != "xla":
+            raise ValueError(
+                "decomp='pencil' currently supports fft_impl='xla' only "
+                "(the a2a and xstage kernels serve the slab and x-pencil "
+                "layouts, as the JAX package's Pallas DMA kernels do)")
+        if len(mesh.shape) != 2:
+            raise ValueError(
+                f"decomp='pencil' needs a 2-D mesh, got shape {mesh.shape} "
+                f"(pencil.make_pencil_mesh((Px, Py)))")
+        pencil.check_grid(cfg.nx, cfg.ny, *mesh.shape)
+        return
+    if fft_impl not in IMPLS:
+        raise ValueError(f"unknown fft_impl: {fft_impl!r}")
+    if len(mesh.shape) != 1:
+        raise NotImplementedError(
+            f"decomp={decomp!r} on the {mesh.shape} mesh: the JAX package's "
+            f"tuple-axis meshes (make_mesh2d) place the slab and x-pencil "
+            f"on several hosts, which needs the one-process-per-card "
+            f"executor ({_LATER}.2); use make_mesh(n_shards), or "
+            f"decomp='pencil' on this mesh")
+    if cfg.nx % mesh.n_shards:
+        raise ValueError(f"nx={cfg.nx} not divisible by {mesh.n_shards} "
+                         f"shards")
+
+
 def _decomp_setup(cfg, mesh: ShardGroup, fft_impl: str, decomp: str,
                   fast: bool = False):
     """(sharded tables, fwd, inv, hpad) of a decomposition; hpad None for
     the slab, whose spectral state is not padded; `fast`: the overlap
     x-stages' fast forms."""
-    if decomp == "pencil":
-        raise NotImplementedError(
-            f"decomp='pencil' (the 2-D pencil decomposition) is not ported "
-            f"yet ({_LATER}.3); use 'slab' or 'xpencil'")
-    if decomp not in DECOMPS:
-        raise ValueError(f"unknown decomp: {decomp!r}")
-    if fft_impl not in IMPLS:
-        raise ValueError(f"unknown fft_impl: {fft_impl!r}")
+    check_decomp(cfg, mesh, fft_impl, decomp)
     n = mesh.n_shards
-    if cfg.nx % n:
-        raise ValueError(f"nx={cfg.nx} not divisible by {n} shards")
     t = SpectralTables.from_config(cfg, mesh.device)
+    hny = cfg.ny // 2 + 1
+    if decomp == "pencil":
+        return (xpencil.shard_tables(t, n),
+                *pencil.make_fft_pair(mesh.shape, hny),
+                xpencil.hpad_for(hny, n))
     if decomp == "xpencil":
-        hny = cfg.ny // 2 + 1
         return (xpencil.shard_tables(t, n),
                 *xpencil.make_fft_pair(hny, fft_impl, fast),
                 xpencil.hpad_for(hny, n))
@@ -159,9 +209,19 @@ class _ShardedModel(nn.Module):
     @property
     def spectral_shape(self) -> tuple:
         n, (nx, ny) = self.n_shards, self.cfg.grid_shape
-        if self.decomp == "xpencil":
+        if self.hpad is not None:
             return (n, nx, self.hpad // n)
         return (n, nx // n, ny // 2 + 1)
+
+    @property
+    def physical_shape(self) -> tuple:
+        """The physical shards: tiles (P, nx/Px, ny/Py) for the pencil,
+        else row shards (P, nx/P, ny)."""
+        n, (nx, ny) = self.n_shards, self.cfg.grid_shape
+        if self.decomp == "pencil":
+            px, py = self.mesh.shape
+            return (n, nx // px, ny // py)
+        return (n, nx // n, ny)
 
     def _etd_hpad(self) -> int:
         """The ETD tables' pad: hpad where the x-pencil pads, else 0 (the
@@ -172,7 +232,7 @@ class _ShardedModel(nn.Module):
     def _shard_table(self, a: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """A global spectral table (L..., nx, hny[pad]) with `lead`
         leading axes -> the state's layout, leading axes kept."""
-        if self.decomp == "xpencil":
+        if self.hpad is not None:
             return xpencil.shard_state(a, self.n_shards)
         return dfft.shard_rows(a, self.n_shards, lead)
 
@@ -190,12 +250,16 @@ class _ShardedModel(nn.Module):
 
     def segment(self, state, src: torch.Tensor, n_steps: int):
         """n_steps of the family's step from `state` (the sharded spectrum,
-        or a tuple of them), the forcing fixed: global (nx, ny) or its row
-        shards."""
+        or a tuple of them), the forcing fixed: global (nx, ny) or its
+        physical shards (physical_shape)."""
         for z in (state if isinstance(state, tuple) else (state,)):
             self._check_field(z)
         if tuple(src.shape) == self.cfg.grid_shape:
             src = self.shard_physical(src)
+        elif tuple(src.shape) != self.physical_shape:
+            raise ValueError(
+                f"forcing must be global {self.cfg.grid_shape} or its "
+                f"shards {self.physical_shape}, got {tuple(src.shape)}")
         for _ in range(n_steps):
             state = self._step(state, src)
         return state
@@ -212,27 +276,31 @@ class _ShardedModel(nn.Module):
             zeta_hat = torch.from_numpy(np.array(zeta_hat, np.complex64))
         z = zeta_hat.to(self.device, torch.complex64)[:, :self.cfg.ny // 2
                                                       + 1]
-        if self.decomp == "xpencil":
+        if self.hpad is not None:
             return xpencil.shard_state(z, self.n_shards)
         return dfft.shard_rows(z, self.n_shards).contiguous()
 
     def unshard_spectral(self, zeta_hat: torch.Tensor) -> torch.Tensor:
         """The sharded state -> the global (nx, hny) on the card."""
-        if self.decomp == "xpencil":
+        if self.hpad is not None:
             return xpencil.unshard_state(zeta_hat, self.cfg.ny // 2 + 1)
         return dfft.unshard_rows(zeta_hat)
 
     def shard_physical(self, field) -> torch.Tensor:
-        """A global (nx, ny) field -> its row shards (P, nx/P, ny)."""
+        """A global (nx, ny) field -> its physical shards: tiles for the
+        pencil, else row shards."""
         f = torch.as_tensor(field, dtype=torch.float32, device=self.device)
+        if self.decomp == "pencil":
+            return pencil.shard_tiles(f, self.mesh.shape)
         return dfft.shard_rows(f, self.n_shards).contiguous()
 
     def unshard_physical(self, field: torch.Tensor) -> torch.Tensor:
+        if self.decomp == "pencil":
+            return pencil.unshard_tiles(field, self.mesh.shape)
         return dfft.unshard_rows(field)
 
     def zero_source(self) -> torch.Tensor:
-        n, (nx, ny) = self.n_shards, self.cfg.grid_shape
-        return torch.zeros((n, nx // n, ny), dtype=torch.float32,
+        return torch.zeros(self.physical_shape, dtype=torch.float32,
                            device=self.device)
 
     def _global_tables(self) -> SpectralTables:
@@ -246,8 +314,8 @@ class ShardedBarotropicModel(_ShardedModel):
 
     `step`:    (zeta_hat, src) -> zeta_hat after one step (RK4 or ETDRK4);
     `segment`: (zeta_hat, src, n_steps) -> zeta_hat after n_steps, the
-               forcing fixed (src global (nx, ny) or its row shards);
-    `diags`:   zeta_hat -> DiagFields, each as physical row shards.
+               forcing fixed (src global (nx, ny) or its physical shards);
+    `diags`:   zeta_hat -> DiagFields, each as physical shards.
 
     The state is the decomposition's sharded spectrum (shard_spectral /
     unshard_spectral carry it from and to the global (nx, hny)). Under
@@ -294,6 +362,8 @@ class ShardedBarotropicModel(_ShardedModel):
         """Physical IC -> the sharded state, through the library transform
         of the decomposition (a one-time cost, as in the JAX package)."""
         f = self.shard_physical(vort0)
+        if self.decomp == "pencil":
+            return self._fwd(f)
         if self.decomp == "xpencil":
             return xpencil.rfft2_local(f, "xla")
         return dfft.rfft2_local(f)
@@ -304,12 +374,12 @@ class ShardedShallowWaterModel(_ShardedModel):
     parallel/model.py:389-575).
 
     `step`, `segment`: an SWState of sharded spectra and the forcing
-    (global (nx, ny) or its row shards, fixed across the segment) -> the
-    SWState after one step or n_steps, RK4 (drag and hyperviscosity
+    (global (nx, ny) or its physical shards, fixed across the segment) ->
+    the SWState after one step or n_steps, RK4 (drag and hyperviscosity
     through rk4_step) or ETDRK4 (the (3, 3, ...) tables sharded like lap
-    with two leading axes; the x-pencil pad gets identity propagators,
-    so the pad stays zero); `diags`: SWDiagFields, each as physical row
-    shards. shard_state / unshard_state carry an SWState of global
+    with two leading axes; the x-pencil and pencil pad gets identity
+    propagators, so the pad stays zero); `diags`: SWDiagFields, each as
+    physical shards. shard_state / unshard_state carry an SWState of global
     (nx, hny) spectra to and from the shards; init_state and
     geostrophic_init build it through the single-device model's
     functions on unpadded tables, then shard it. No split-linear form,
@@ -379,7 +449,7 @@ class ShardedTracerModel(_ShardedModel):
     parallel/model.py:578-743): the joint state (zeta_hat, q_hat), two
     identically sharded spectra; RK4 (drag, beta, hyperviscosity on the
     flow, kappa on q) or ETDRK4 (the stacked (2, ...) tables sharded like
-    lap with one leading axis). `diags`: TracerDiagFields as physical row
+    lap with one leading axis). `diags`: TracerDiagFields as physical
     shards; shard_state, unshard_state, init_state as the shallow-water
     model's.
     """

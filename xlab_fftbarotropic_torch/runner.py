@@ -361,6 +361,30 @@ class _FDAdapter:
         return tuple(torch.from_numpy(a).to(self.device) for a in packed)
 
 
+def shard_mesh(device, decomp: str = "slab", mesh_shape=None):
+    """The shard group of a --shard run on the visible card (or the CPU):
+    one shard (parallel/model.py make_mesh; more than one visible card
+    is refused there), or for decomp 'pencil' the (Px, Py) group of
+    `mesh_shape` ((1, 1) when None, the JAX runner's default on one
+    process with one device), whose Px Py must be that one shard.
+    mesh_shape is ignored outside the pencil, as in the JAX runner."""
+    from .parallel import make_mesh
+    from .parallel.pencil import make_pencil_mesh
+
+    mesh = make_mesh(None, device)
+    if decomp != "pencil":
+        return mesh
+    pencil = make_pencil_mesh(tuple(mesh_shape or (1, 1)), device)
+    if pencil.n_shards != mesh.n_shards:
+        raise NotImplementedError(
+            f"mesh shape {pencil.shape} needs {pencil.n_shards} devices, got "
+            f"{mesh.n_shards}: one shard per card needs the one-process-"
+            f"per-card executor (ROADMAP.md queue A, item 5.2); "
+            f"parallel.pencil.make_pencil_mesh({pencil.shape}) stacks the "
+            f"shards on one card")
+    return pencil
+
+
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard: bool = False, ensemble: int = 0,
                  tracer_kappa: float = 0.0, tracer_ic: str = "vorticity",
@@ -368,7 +392,7 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                  shard_fft: str = "xla", decomp: str = "slab",
                  ensemble_amp: float = 0.05, ensemble_seed: int = 0,
                  ensemble_width=None, sw_form: Optional[dict] = None,
-                 tracer_fast: bool = False):
+                 tracer_fast: bool = False, mesh_shape=None):
     if ensemble and ensemble > 1:
         if shard:
             raise ValueError("--ensemble and --shard are mutually "
@@ -389,13 +413,13 @@ def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
                                 tracer_kappa=tracer_kappa,
                                 vmap_width=ensemble_width, **build_kw)
     if shard:
-        # each family over the visible card (one shard; the CPU too);
-        # make_mesh and build refuse what waits (items 5.2, 5.3); fast
-        # mode is the family's fast flag (the overlap x-stages')
+        # each family over the visible card (one shard, or the pencil's
+        # 1 x 1 group; the CPU too); shard_mesh refuses more cards (item
+        # 5.2); fast mode is the family's fast flag (the overlap
+        # x-stages')
         from .parallel import (ShardedBarotropicModel,
-                               ShardedShallowWaterModel, ShardedTracerModel,
-                               make_mesh)
-        mesh = make_mesh(None, device)
+                               ShardedShallowWaterModel, ShardedTracerModel)
+        mesh = shard_mesh(device, decomp, mesh_shape)
         how = dict(fft_impl=shard_fft, decomp=decomp)
         if model_kind in ("barotropic", "bt"):
             return _BarotropicAdapter(cfg, device, model=(
@@ -450,7 +474,8 @@ def run(cfg: ModelConfig,
         ensemble_seed: int = 0,
         ensemble_width=None,
         sw_form: Optional[dict] = None,
-        tracer_fast: bool = False) -> RunResult:
+        tracer_fast: bool = False,
+        mesh_shape=None) -> RunResult:
     """Integrate cfg.total_steps of the chosen model family on `device`
     (runner.py:399 of the JAX package): model_kind 'barotropic',
     'tracer' (tracer_kappa: its diffusivity; tracer_ic: its initial
@@ -473,7 +498,9 @@ def run(cfg: ModelConfig,
     (TracerModel.build's fast; each width-1 ensemble member's too). shard:
     the family on its sharded model (parallel/model.py) over the visible
     card, with shard_fft its transform impl ('xla', 'pallas',
-    'overlap'), decomp its decomposition ('slab', 'xpencil') and
+    'overlap'; 'xla' only for the pencil), decomp its decomposition
+    ('slab', 'xpencil', 'pencil'; mesh_shape the pencil's (Px, Py), see
+    shard_mesh) and
     bt_fusion's "fast", sw_form's "fast" or tracer_fast its fast mode
     (the overlap x-stages'). model_kind
     'fd' (or 'jacobian'): the finite-difference core. ensemble M > 1: M members
@@ -489,7 +516,7 @@ def run(cfg: ModelConfig,
                            decomp=decomp, ensemble_amp=ensemble_amp,
                            ensemble_seed=ensemble_seed,
                            ensemble_width=ensemble_width, sw_form=sw_form,
-                           tracer_fast=tracer_fast)
+                           tracer_fast=tracer_fast, mesh_shape=mesh_shape)
     if debug_fields and not hasattr(adapter, "debug_record_fields"):
         raise ValueError(
             f"--debug-fields is not supported for model kind {model_kind!r}")
