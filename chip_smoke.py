@@ -262,6 +262,20 @@ exits non-zero and prints no result):
    ms/step of each family on (2, 2) in turns with the x-pencil xla and
    slab overlap models at P = 4. `--phase 5s` runs the toolchain phase
    and this phase alone.
+5t. The one-process-per-card executor (phase_ranks): RANKS processes
+   (rank_worker, this script with --rank-worker, on the XFB_* contract;
+   gloo when they share the card, NCCL with a card each) run RANK_CASES
+   for RANK_STEPS steps: the barotropic slab pallas, overlap and overlap
+   fast at n^2, SW x-pencil overlap, tracer slab pallas and the
+   barotropic 2x2 pencil (xla) at RANK_SMALL_N^2. Each against the
+   stacked model at P = RANKS in this process: the gathered state bit
+   for bit, each rank's launches exactly the stacked model's, rank 0's
+   torch.profiler trace holding its kernels with its own grid only (a2a
+   runs of its shard, xstage tiles of its columns); the slowest rank's
+   ms/step beside the stacked model's, the host barriers' share of the
+   wall, and whether gloo's all_to_all_single takes CUDA tensors. Every
+   rank is ended once one fails. `--phase 5t` runs the toolchain phase
+   and this phase alone.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -426,6 +440,23 @@ PENCIL_RUNS = ("barotropic-rk4", "barotropic-etdrk4", "sw-rk4",
                "sw-etdrk4", "tracer-rk4")
 PENCIL_SHAPES = ((1, 4), (4, 1), (2, 4))
 PENCIL_SMALL_N, PENCIL_CLI_BAR = 256, 1e-6
+# phase 5t: the one-process-per-card executor, RANKS ranks sharing the
+# card (parallel/multihost.py, peer.py): (path, family, decomp, impl,
+# fast, grid), grid "n" the main path's, "small" RANK_SMALL_N; each for
+# RANK_STEPS steps from a numpy-seeded state, against the stacked model
+# at P = RANKS in the same call
+RANKS, RANK_STEPS, RANK_SMALL_N, RANK_SEED, RANK_KAPPA = 4, 5, 256, 11, 50.0
+RANK_TIMEOUT = 600
+RANK_CASES = (
+    ("ranks-bt-slab-pallas", "barotropic", "slab", "pallas", False, "n"),
+    ("ranks-bt-slab-overlap", "barotropic", "slab", "overlap", False, "n"),
+    ("ranks-bt-slab-overlap-fast", "barotropic", "slab", "overlap", True,
+     "n"),
+    ("ranks-sw-xpencil-overlap", "sw", "xpencil", "overlap", False,
+     "small"),
+    ("ranks-tracer-slab-pallas", "tracer", "slab", "pallas", False,
+     "small"),
+    ("ranks-bt-pencil-xla", "barotropic", "pencil", "xla", False, "small"))
 
 
 def shard_transform_launches(decomp: str, impl: str, inverse: int,
@@ -455,6 +486,17 @@ def family_path_step(path: str) -> dict:
                                    *SHARD_FAMILY_TRANSFORMS[family])
     return {f"{k}_fast": v for k, v in out.items()} if mode == ["fast"] \
         else out
+
+
+def _rank_paths(*kernels) -> tuple:
+    """Phase 5t's paths that launch any of `kernels` (each rank the
+    stacked model's transforms: shard_transform_launches's kernels)."""
+    out = []
+    for name, _, decomp, impl, fast, _ in RANK_CASES:
+        keys = shard_transform_launches(decomp, impl, 1, 1)
+        if {f"{k}_fast" if fast else k for k in keys} & set(kernels):
+            out.append(name)
+    return tuple(out)
 
 
 def _family_paths(*kernels) -> tuple:
@@ -651,29 +693,33 @@ KERNELS = {
     "kc_sw_fast": ("xlab_fftbarotropic_torch/csrc/ka_kc.cu",
                    "xlab_fftbarotropic_tpu/ops/pallas_sw.py:581",
                    "kc_sw_fast", XFIRST_FAST_SW),
-    # the distributed path (rows 21-23): the CLI's one-shard runs and the
-    # four-shard model runs
+    # the distributed path (rows 21-23): the CLI's one-shard runs, the
+    # four-shard model runs and (phase 5t) rank 0's runs over four ranks
     "a2a_cols": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
                  "xlab_fftbarotropic_tpu/parallel/pallas_transpose.py:39",
-                 "a2a_cols", SHARD_PALLAS + _family_paths("a2a_cols")),
+                 "a2a_cols", SHARD_PALLAS + _family_paths("a2a_cols")
+                 + _rank_paths("a2a_cols")),
     "a2a_rows": ("xlab_fftbarotropic_torch/csrc/a2a.cu",
                  "xlab_fftbarotropic_tpu/parallel/pallas_transpose.py:78",
-                 "a2a_rows", SHARD_PALLAS + _family_paths("a2a_rows")),
+                 "a2a_rows", SHARD_PALLAS + _family_paths("a2a_rows")
+                 + _rank_paths("a2a_rows")),
     "xstage": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
                "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:61",
                "xstage", ("shard-slab-overlap", "shard4-slab-overlap",
                           "shard4-slab-overlap-etdrk4")
-               + _family_paths("xstage")),
+               + _family_paths("xstage") + _rank_paths("xstage")),
     "xstage_gather": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
                       "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:148",
                       "xstage_gather", ("shard-xpencil-overlap",
                                         "shard4-xpencil-overlap")
-                      + _family_paths("xstage_gather")),
+                      + _family_paths("xstage_gather")
+                      + _rank_paths("xstage_gather")),
     "xstage_scatter": ("xlab_fftbarotropic_torch/csrc/xstage.cu",
                        "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:212",
                        "xstage_scatter", ("shard-xpencil-overlap",
                                           "shard4-xpencil-overlap")
-                       + _family_paths("xstage_scatter")),
+                       + _family_paths("xstage_scatter")
+                       + _rank_paths("xstage_scatter")),
     # phase 5q: the per-transform pipeline's fast forms (the SW drag
     # path, the fast adjoint, the forcing spectrum of the fast SW plane
     # stepper) and the overlap x-stages' (the fast sharded paths)
@@ -694,7 +740,8 @@ KERNELS = {
                     "xstage_fast", ("shard-slab-overlap-fast",
                                     "shard4-slab-overlap-fast",
                                     "shard4-slab-overlap-fast-etdrk4")
-                    + _family_paths("xstage_fast")),
+                    + _family_paths("xstage_fast")
+                    + _rank_paths("xstage_fast")),
     "xstage_gather_fast": (
         "xlab_fftbarotropic_torch/csrc/xstage.cu",
         "xlab_fftbarotropic_tpu/parallel/pallas_overlap.py:148",
@@ -1302,7 +1349,7 @@ def shard_cases(n: int, p: int, dev, seed: int) -> dict:
         ptrs = ftr.shard_pointers("a2a", x, out)
 
         def kern():
-            rc = lib().xfb_a2a(ptrs, p, n // p, hny, w, int(to_cols),
+            rc = lib().xfb_a2a(ptrs, p, n // p, hny, w, int(to_cols), -1,
                                dev.index, ff._stream(out))
             check(rc == 0, f"xfb_a2a returned {rc}")
             return out
@@ -5618,6 +5665,305 @@ def profile_run(family: str, run, steps: int) -> dict:
                 wall_ms_per_step=wall * 1e3 / steps)
 
 
+
+
+def _rank_cfg(case, n: int):
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    size = n if case[5] == "n" else RANK_SMALL_N
+    return ModelConfig(nx=size, ny=size)
+
+
+def _rank_model(case, cfg, mesh):
+    from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
+                                                   ShardedShallowWaterModel,
+                                                   ShardedTracerModel)
+    _, family, decomp, impl, fast, _ = case
+    kw = dict(fft_impl=impl, decomp=decomp, fast=fast)
+    if family == "sw":
+        return ShardedShallowWaterModel.build(cfg, mesh, **kw)
+    if family == "tracer":
+        return ShardedTracerModel.build(cfg, mesh, kappa=RANK_KAPPA, **kw)
+    return ShardedBarotropicModel.build(cfg, mesh, **kw)
+
+
+def _rank_state0(case, m):
+    """The numpy-seeded initial state: a gaussian vortex with seeded
+    noise (SW: balanced; the tracer: a gaussian q)."""
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.tracer import tracer_ic
+    family, cfg = case[1], m.cfg
+    zeta0 = 1e-5 if family == "sw" else 1e-4
+    v = np.asarray(makefields.gaussian(cfg, zeta0=zeta0), np.float32)
+    rng = np.random.default_rng(RANK_SEED)
+    v = (v + 0.05 * zeta0 * rng.standard_normal(v.shape)).astype(
+        np.float32)
+    if family == "sw":
+        return m.geostrophic_init(v)
+    if family == "tracer":
+        return m.init_state(v, tracer_ic(cfg, "gaussian", v))
+    return m.init_state(v)
+
+
+def _rank_global(case, m, s) -> list:
+    """The global state on the host (on a distributed group, a gather on
+    every rank)."""
+    if case[1] == "barotropic":
+        return [m.unshard_spectral(s).cpu()]
+    return [a.cpu() for a in m.unshard_state(s)]
+
+
+def _rank_grids(trace: Path) -> tuple:
+    """From a chrome trace: kernel name -> the grid x sizes of its
+    launches, and -> its mean device ms per launch."""
+    grids, us = {}, {}
+    for e in json.loads(trace.read_text()).get("traceEvents", []):
+        if e.get("cat") != "kernel":
+            continue
+        for k in ("a2a_kernel", "xstage_kernel"):
+            if re.search(rf"(\b|\d){k}(\b|E|<)", e.get("name", "")):
+                grid = e.get("args", {}).get("grid", [None])[0]
+                grids.setdefault(k, set()).add(grid)
+                us.setdefault(k, []).append(float(e.get("dur", 0.0)))
+    return ({k: sorted(v) for k, v in grids.items()},
+            {k: sum(v) / len(v) / 1e3 for k, v in us.items()})
+
+
+def _rank_own_grids(case, m) -> dict:
+    """The grid x sizes rank 0's launches must have: its own a2a runs
+    (P rows_l), or the tiles of its own w columns times the cluster."""
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+    p, nx, hny = RANKS, m.cfg.nx, m.cfg.ny // 2 + 1
+    w = -(-hny // p)
+    if case[3] == "pallas":
+        return {"a2a_kernel": [p * (nx // p)]}
+    sizes = set()
+    for columns in ((p * w, hny) if case[2] == "xpencil" else (hny,)):
+        plan = xtile_plan(nx, columns, 8)
+        tiles = min(-(-w // plan.c), -(-columns // plan.c))
+        sizes.add(tiles * plan.k)
+    return {"xstage_kernel": sorted(sizes)}
+
+
+def _probe_gloo_cuda(dev) -> dict:
+    """Whether the gloo backend takes CUDA tensors in all_to_all_single
+    (ranks sharing a card run gloo)."""
+    from xlab_fftbarotropic_torch.parallel import multihost
+    if multihost.backend() != "gloo":
+        return dict(ok=True, backend=multihost.backend())
+    p, r = multihost.world_size(), multihost.rank()
+    x = torch.arange(2 * p, dtype=torch.float32, device=dev) + 100 * r
+    try:
+        y = multihost.all_to_all(x.reshape(p, 2))
+        want = torch.stack([torch.arange(2 * r, 2 * r + 2, device=dev)
+                            + 100 * q for q in range(p)]).float()
+        return dict(ok=bool(torch.equal(y, want)), backend="gloo",
+                    device=str(y.device))
+    except RuntimeError as e:
+        return dict(ok=False, backend="gloo", error=str(e)[:400])
+
+
+def rank_worker(workdir: Path, n: int) -> int:
+    """One rank of phase 5t (chip_smoke.py --rank-worker DIR, started by
+    phase_ranks with the XFB_* contract): each case of RANK_CASES over the
+    ranks, one JSON line each (its launches, ms/step, the host barrier's
+    share, rank 0's traced kernel grids); rank 0 saves the gathered
+    state as DIR/<path>.pt."""
+    import_port()
+    from torch.profiler import ProfilerActivity, profile
+
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.parallel import (make_mesh, make_mesh2d,
+                                                   multihost)
+
+    check(multihost.initialize(device="cuda"), "the runtime did not start")
+    rank = multihost.rank()
+    dev = multihost.rank_device("cuda")
+    torch.cuda.set_device(dev)
+    gloo = _probe_gloo_cuda(dev)
+    print(f"rank {rank}: gloo all_to_all_single on CUDA tensors: {gloo}",
+          file=sys.stderr, flush=True)
+    for case in RANK_CASES:
+        name, family, decomp, impl = case[:4]
+        cfg = _rank_cfg(case, n)
+        mesh = (make_mesh2d((2, 2), "cuda") if decomp == "pencil"
+                else make_mesh(None, "cuda"))
+        check(mesh.distributed and mesh.device == dev, f"{name}: {mesh}")
+        m = _rank_model(case, cfg, mesh)
+        s0 = _rank_state0(case, m)
+        src = m.zero_source()
+        torch.cuda.synchronize()
+        ff.reset_launches()
+        s = m.segment(s0, src, RANK_STEPS)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        state = _rank_global(case, m, s)
+        if rank == 0:
+            torch.save(state, workdir / f"{name}.pt")
+        del s, state
+        stats = dict(m.exchange.stats) if m.exchange else None
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.segment(s0, src, RANK_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        line = dict(rank=rank, case=name, launches=launches,
+                    ms=wall * 1e3 / RANK_STEPS, n=cfg.nx)
+        if stats is not None:
+            b = m.exchange.stats
+            line.update(barriers=b["barriers"] - stats["barriers"],
+                        barrier_share=(b["barrier_s"] - stats["barrier_s"])
+                        / wall)
+            if rank == 0:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    m.segment(s0, src, 1)
+                    torch.cuda.synchronize()
+                trace = workdir / f"{name}.trace.json"
+                prof.export_chrome_trace(str(trace))
+                grids, kernel_ms = _rank_grids(trace)
+                line.update(grids=grids, kernel_ms=kernel_ms,
+                            own_grids=_rank_own_grids(case, m))
+                trace.unlink()
+            else:
+                m.segment(s0, src, 1)
+                torch.cuda.synchronize()
+            m.exchange.close()
+        print(json.dumps(line), flush=True)
+        del m, s0, src
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(rank=rank, backend=multihost.backend(),
+                          gloo_cuda=gloo, device=str(dev))), flush=True)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(workdir: Path, n: int) -> list:
+    """RANKS processes of rank_worker on the one card; each rank's
+    (exit code, stdout, stderr). Every process is ended by the deadline."""
+    sock = __import__("socket").socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for r in range(RANKS):
+        env = dict(os.environ, XFB_COORDINATOR=f"127.0.0.1:{port}",
+                   XFB_NUM_PROCESSES=str(RANKS), XFB_PROCESS_ID=str(r),
+                   XFB_ETD_CACHE="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--rank-worker",
+             str(workdir), "--n", str(n)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    # the ranks wait on each other: once one fails or the deadline
+    # passes, the others are ended at once
+    deadline = time.perf_counter() + RANK_TIMEOUT
+    while any(p.poll() is None for p in procs):
+        if (time.perf_counter() > deadline
+                or any(p.poll() not in (None, 0) for p in procs)):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(0.2)
+    return [(p.wait(), *p.communicate()) for p in procs]
+
+
+def phase_ranks(n: int, dev) -> dict:
+    """Phase 5t: RANK_CASES over RANKS ranks sharing the card (module
+    note, 5t): each against the stacked model at P = RANKS (bit for bit,
+    launches per rank exactly the stacked model's), rank 0's kernels in
+    its own device trace with its own grid, ms/step of each beside the
+    stacked model's, and the host barrier's share."""
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.parallel import make_mesh, make_mesh2d
+
+    t_phase = time.perf_counter()
+    out = {"main_paths": {}, "time": {}}
+    ref = {}
+    for case in RANK_CASES:
+        cfg = _rank_cfg(case, n)
+        mesh = (make_mesh2d((2, 2), dev) if case[2] == "pencil"
+                else make_mesh(RANKS, dev))
+        m = _rank_model(case, cfg, mesh)
+        s0 = _rank_state0(case, m)
+        src = m.zero_source()
+        torch.cuda.synchronize()
+        ff.reset_launches()
+        s = m.segment(s0, src, RANK_STEPS)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        state = _rank_global(case, m, s)
+        t0 = time.perf_counter()
+        m.segment(s0, src, RANK_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / RANK_STEPS
+        ref[case[0]] = dict(state=state, launches=launches, ms=ms)
+        del m, s, s0, src
+        torch.cuda.empty_cache()
+    log(f"phase 5t stacked references: {time.perf_counter() - t_phase:.1f} "
+        f"s in")
+    with tempfile.TemporaryDirectory(prefix="xfb_ranks_") as tmp:
+        outs = _spawn_ranks(Path(tmp), n)
+        for r, (rc, o, e) in enumerate(outs):
+            check(rc == 0, f"phase 5t rank {r} exited {rc}:\n{e[-3000:]}")
+        lines = [json.loads(x) for _, o, _ in outs for x in o.splitlines()
+                 if x.startswith("{")]
+        ends = [x for x in lines if "backend" in x]
+        check(len(ends) == RANKS, f"phase 5t: {len(ends)} ranks ended")
+        gloo = ends[0]["gloo_cuda"]
+        devices = sorted({x["device"] for x in ends})
+        where = ("sharing one card" if len(devices) == 1
+                 else f"one card each ({', '.join(devices)})")
+        log(f"phase 5t: {RANKS} ranks {where}, backend "
+            f"{ends[0]['backend']}; gloo all_to_all_single on CUDA "
+            f"tensors: {gloo}")
+        out["gloo_cuda"] = gloo
+        for case in RANK_CASES:
+            name = case[0]
+            per = sorted((x for x in lines if x.get("case") == name),
+                         key=lambda x: x["rank"])
+            check(len(per) == RANKS, f"{name}: {len(per)} ranks reported")
+            want = ref[name]
+            got = torch.load(Path(tmp) / f"{name}.pt")
+            same = all(torch.equal(a, b) for a, b in zip(got, want["state"]))
+            worst = max(float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(got, want["state"]))
+            check(all(bool(torch.isfinite(a).all()) for a in got),
+                  f"{name} not finite")
+            for x in per:
+                check(x["launches"] == want["launches"],
+                      f"{name} rank {x['rank']} launched {x['launches']}, "
+                      f"the stacked model {want['launches']}")
+            r0 = per[0]
+            if "grids" in r0:
+                check(r0["grids"] == r0["own_grids"],
+                      f"{name}: rank 0 traced {r0['grids']}, its own "
+                      f"blocks are {r0['own_grids']}")
+            ms = max(x["ms"] for x in per)
+            share = (sum(x["barrier_share"] for x in per) / RANKS
+                     if "barrier_share" in r0 else 0.0)
+            log(f"{name}: {RANK_STEPS} steps at {r0['n']}^2 on {RANKS} ranks "
+                f"{where}: state bit for bit the stacked P = "
+                f"{RANKS} model {same} (max |d| {worst:.3e} of max); "
+                f"launches per rank {r0['launches']} (the stacked "
+                f"model's); rank 0's device trace {r0.get('grids', {})}, "
+                f"ms per launch {r0.get('kernel_ms', {})}; "
+                f"{ms:.3f} ms/step (slowest rank; stacked "
+                f"{want['ms']:.3f}), host barriers "
+                f"{r0.get('barriers', 0) // RANK_STEPS}/step, "
+                f"{100.0 * share:.1f} % of the wall")
+            check(same, f"{name}: not bit for bit the stacked model "
+                  f"({worst:.3e})")
+            out["main_paths"][name] = dict(launches=r0["launches"])
+            out["time"][name] = dict(ms=ms, stacked_ms=want["ms"],
+                                     where=where, barrier_share=share,
+                                     kernel_ms=r0.get("kernel_ms", {}),
+                                     per_rank_ms=[x["ms"] for x in per])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5t: {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=4096,
@@ -5634,7 +5980,9 @@ def main(argv=None) -> int:
                     "gradient and the sharded kernel paths with "
                     "torch.profiler (the breakdown of where their time "
                     "goes)")
-    ap.add_argument("--phase", choices=["5r", "5s"], default=None,
+    ap.add_argument("--rank-worker", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--phase", choices=["5r", "5s", "5t"], default=None,
                     help="run the toolchain phase and this phase alone (a "
                     "quick check of it; no result lines)")
     args = ap.parse_args(argv)
@@ -5643,6 +5991,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible (torch.cuda."
                  "is_available() is False)")
+    if args.rank_worker:
+        return rank_worker(Path(args.rank_worker), args.n)
     import_port()
     from xlab_fftbarotropic_torch.ops import _build
 
@@ -5673,8 +6023,10 @@ def main(argv=None) -> int:
         if args.phase == "5r":
             report["sharded_families"] = phase_sharded_families(
                 args.n, args.steps, dev)
-        else:
+        elif args.phase == "5s":
             report["pencil"] = phase_pencil(args.n, args.steps, dev)
+        else:
+            report["ranks"] = phase_ranks(args.n, dev)
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps(report, indent=1))
@@ -5725,6 +6077,8 @@ def main(argv=None) -> int:
     report["main_paths"].update(report["sharded_families"]["main_paths"])
     report["pencil"] = phase_pencil(args.n, args.steps, dev)
     report["main_paths"].update(report["pencil"]["main_paths"])
+    report["ranks"] = phase_ranks(args.n, dev)
+    report["main_paths"].update(report["ranks"]["main_paths"])
     report["etd_tables"] = phase_tables(args.n, dev)
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)

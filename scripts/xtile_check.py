@@ -202,9 +202,12 @@ def cases(n: int, dev):
         x, out = (rows, a2a_out[0]) if to_cols else (cols, a2a_out[1])
         ptrs = ftr.shard_pointers("a2a launch", x, out)
 
+        # a checkout from before the rank argument takes one less
+        ranked = (-1,) * (len(lib().xfb_a2a.argtypes) == 9)
+
         def kern():
-            lib().xfb_a2a(ptrs, p, n // p, hny, w, int(to_cols), dev.index,
-                          ff._stream(out))
+            lib().xfb_a2a(ptrs, p, n // p, hny, w, int(to_cols), *ranked,
+                          dev.index, ff._stream(out))
             return out
         return kern
 

@@ -29,6 +29,7 @@ from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.ic.makefields import gaussian
 from xlab_fftbarotropic_tpu.models.tracer import tracer_ic
 from xlab_fftbarotropic_torch import adjoint as tadj
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = "cpu"
 N = 64

@@ -21,6 +21,7 @@ from xlab_fftbarotropic_tpu.models import barotropic as jbt
 from xlab_fftbarotropic_tpu.oracle.reference_cpu import OracleBarotropic
 from xlab_fftbarotropic_torch import convert
 from xlab_fftbarotropic_torch.models import barotropic as tbt
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -16,6 +16,7 @@ from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.ic import makefields
 from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+from torch_threads import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 ORACLE = REPO / "native" / "ref_oracle.out"

@@ -1632,7 +1632,7 @@ def test_a2a_refuses_more_shards_than_its_cap(cuda):
                                  device=cuda), 40)
     ff.reset_launches()
     ptrs = (ctypes.c_void_p * (2 * p))(*[x.data_ptr()] * (2 * p))
-    assert lib().xfb_a2a(ptrs, p, 1, 40, 2, 1, cuda.index,
+    assert lib().xfb_a2a(ptrs, p, 1, 40, 2, 1, -1, cuda.index,
                          ff._stream(x)) == 1   # cudaErrorInvalidValue
     assert ff.LAUNCHES["a2a_cols"] == ff.LAUNCHES["a2a_rows"] == 0
 

@@ -51,6 +51,7 @@ from xlab_fftbarotropic_torch.models.barotropic import (BarotropicModel,
                                                         step_stats)
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables
+from torch_threads import _one_thread  # noqa: F401
 
 N = 64
 TOL = 1e-5

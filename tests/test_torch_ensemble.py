@@ -39,6 +39,7 @@ from xlab_fftbarotropic_torch.models import ensemble as ens
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.models.shallow_water import ShallowWaterModel
 from xlab_fftbarotropic_torch.models.tracer import TracerModel
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 64

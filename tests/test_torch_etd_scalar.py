@@ -32,6 +32,7 @@ from xlab_fftbarotropic_torch.models import etdrk4 as tetd
 from xlab_fftbarotropic_torch.models import tracer as ttr
 from xlab_fftbarotropic_torch.ops import spectral as tsp
 from xlab_fftbarotropic_torch.utils import guards as tguards
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 64

@@ -32,6 +32,7 @@ from xlab_fftbarotropic_tpu.ops import pallas_fft as pf
 from xlab_fftbarotropic_torch import convert
 from xlab_fftbarotropic_torch.models import barotropic as tbt
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
+from torch_threads import _one_thread  # noqa: F401
 
 N = 64
 HNY = N // 2 + 1
@@ -39,17 +40,6 @@ HNY = N // 2 + 1
 CFG = ModelConfig(nx=N, ny=N, fft_backend="pallas")
 CPU = torch.device("cpu")
 FACTOR = 5.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The fast plain versions run many small torch ops: one intra-op
-    thread for them (test workers share the cores), the count restored
-    after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel(got, want) -> float:

@@ -45,6 +45,7 @@ from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel, dfft,
                                                make_mesh)
 from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+from torch_threads import _one_thread  # noqa: F401
 
 try:
     shard_map = jax.shard_map
@@ -57,14 +58,6 @@ CPU = torch.device("cpu")
 FACTOR = 5.0
 CLASS = (1e-4, 1e-2)
 FLOOR = 1e-7
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from xlab_fftbarotropic_torch.models import shallow_water as tsw
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops import fused_sw as fs
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables as TT
+from torch_threads import _one_thread  # noqa: F401
 
 N = 64
 # "pallas": the JAX package's "auto" takes its library path on the CPU
@@ -46,17 +47,6 @@ ETD = CFG.replace(time_scheme="etdrk4", dt=7.5)
 CPU = torch.device("cpu")
 FACTOR = 5.0
 RK4_STEPS, ETD_STEPS = 3, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The fast plain versions run many small torch ops: one intra-op
-    thread for them (test workers share the cores), the count restored
-    after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel(got, want) -> float:

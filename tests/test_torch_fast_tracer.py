@@ -30,6 +30,7 @@ from xlab_fftbarotropic_torch import convert
 from xlab_fftbarotropic_torch.models import tracer as ttr
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops import fused_tracer as ft
+from torch_threads import _one_thread  # noqa: F401
 
 N = 64
 HNY = N // 2 + 1
@@ -41,17 +42,6 @@ KAPPA = 50.0
 CPU = torch.device("cpu")
 FACTOR = 5.0
 RK4_STEPS, ETD_STEPS = 3, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The fast plain versions run many small torch ops: one intra-op
-    thread for them (test workers share the cores), the count restored
-    after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel(got, want) -> float:

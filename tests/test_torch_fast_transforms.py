@@ -45,6 +45,7 @@ from xlab_fftbarotropic_torch import adjoint as tadj
 from xlab_fftbarotropic_torch.models import shallow_water as tsw
 from xlab_fftbarotropic_torch.ops import fused_diff as fd
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
+from torch_threads import _one_thread  # noqa: F401
 
 N = 64
 G = (N, N)
@@ -54,18 +55,18 @@ CLASS = (1e-4, 1e-2)
 FLOOR = 1e-7
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture
 def bf16(monkeypatch):
-    """The JAX package in fast mode's bf16 rounding (interpret mode)."""
+    """The JAX package in fast mode's bf16 rounding (interpret mode). MM_MODE
+    is read at trace time, and pallas_diff jits at import: the caches are
+    cleared on both sides, so no strict trace made earlier in the process
+    serves this mode, nor this mode's a later strict call."""
+    import jax
+
+    jax.clear_caches()
     monkeypatch.setattr(pf, "MM_MODE", "bf16")
+    yield
+    jax.clear_caches()
 
 
 def _rel(got, want) -> float:

@@ -36,6 +36,7 @@ from xlab_fftbarotropic_torch.config import ModelConfig
 from xlab_fftbarotropic_torch.ic import makefields
 from xlab_fftbarotropic_torch.io.fieldio import read_field, write_field
 from xlab_fftbarotropic_torch.models import fd_core as fd
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 1e-6

@@ -11,6 +11,7 @@ from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.ic import makefields
 from xlab_fftbarotropic_tpu.ops import fft as jfft
 from xlab_fftbarotropic_torch.ops import fft as tfft
+from torch_threads import _one_thread  # noqa: F401
 
 BAR = 2e-6
 

@@ -19,6 +19,7 @@ from xlab_fftbarotropic_tpu.ops import pallas_fft as pf
 from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables as JT
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables as TT
+from torch_threads import _one_thread  # noqa: F401
 
 SIZES = [64, 128]
 

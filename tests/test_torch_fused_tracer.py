@@ -24,6 +24,7 @@ from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops import fused_sw as fs
 from xlab_fftbarotropic_torch.ops import fused_tracer as ft
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables as TT
+from torch_threads import _one_thread  # noqa: F401
 
 SIZES = [64, 128]
 

@@ -26,6 +26,7 @@ from xlab_fftbarotropic_tpu.ops.spectral import SpectralTables as JT
 from xlab_fftbarotropic_torch.models import barotropic as tbt
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables as TT
+from torch_threads import _one_thread  # noqa: F401
 
 N = 64
 HNY = N // 2 + 1

@@ -5,7 +5,11 @@ twice on the CPU in both time schemes (RK4 and ETDRK4), on the plane
 stepper and on the library path, the SW model with drag on the
 per-transform path, takes a gradient through the adjoint rollout on
 both transform triples, steps the sharded barotropic model in every
-decomposition and transform impl (the 2-D pencil on a 2x2 group), runs
+decomposition and transform impl (the 2-D pencil on a 2x2 group) and,
+on a one-rank torch.distributed runtime (parallel/multihost.py, gloo),
+the sharded model of each impl on the ranked transposes (the exchange
+buffers of parallel/peer.py for the kernel impls) within rel-L2 1e-7
+of its stacked one-shard form, imports the multi-process tests' worker, runs
 the post-processing pipeline's four commands (makefield, vort_src_input, invert_pres, find_min), the
 diagnose and draw commands, -m fd, two ensembles, fast mode (also
 through the model) and a --profile-dir run through the run command, and
@@ -152,6 +156,34 @@ for extra in (["-m", "fd"], ["--ensemble", "2", "--ensemble-width", "1"],
                             "--manifest", os.path.join(tmp, "log")]
                     + extra) == 0
 assert os.path.exists(os.path.join(tmp, "prof", run.TRACE_NAME))
+# one rank of the one-process-per-card runtime, and the multi-process
+# tests' worker script
+import socket
+from xlab_fftbarotropic_torch.parallel import multihost, peer
+sys.path.insert(0, "tests")
+import torch_multihost_worker
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+port = sock.getsockname()[1]
+sock.close()
+assert multihost.initialize(f"127.0.0.1:{port}", 1, 0, "cpu") is False
+group = model.make_mesh(None, cpu)
+assert group.distributed and group.rank == 0 and group.local_shards == 1
+cfg = ModelConfig(nx=64, ny=64)
+for decomp in ("slab", "xpencil"):
+    for impl in ("xla", "pallas", "overlap"):
+        ms = [model.ShardedBarotropicModel.build(cfg, g, impl, decomp)
+              for g in (group, model.make_mesh(1, cpu))]
+        zs = [m.unshard_spectral(m.segment(
+            m.init_state(makefields.gaussian(cfg)), m.zero_source(), 2))
+            for m in ms]
+        # the rank's x-DFT runs on contiguous rows (dfft.fft_x ranked),
+        # the stacked one shard's strided: equal up to round-off
+        rel = float((zs[0] - zs[1]).norm() / zs[1].norm())
+        print("ONE-RANK", decomp, impl, rel)
+        assert rel <= 1e-7, (decomp, impl, rel)
+        assert (ms[0].exchange is None) == (impl == "xla")
+torch.distributed.destroy_process_group()
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
 tpu = sorted(k for k in sys.modules if k.startswith("xlab_fftbarotropic_tpu"))
 assert not tpu, tpu
@@ -172,7 +204,7 @@ def test_port_imports_and_steps_without_jax():
                           env=_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "NOJAX-OK" in proc.stdout
+    assert "NOJAX-OK" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("family", [[], ["-m", "tracer"], ["-m", "sw"],
@@ -240,16 +272,17 @@ def test_assimilate_cli_without_gpu_stops(tmp_path):
 
 
 def test_port_files_and_scripts_import_no_jax():
-    """No module of the port, no port script of the examples and not
-    chip_smoke.py imports jax or the JAX package, or runs one of its
-    commands."""
+    """No module of the port, no port script of the examples, not
+    chip_smoke.py and not the multi-process tests' worker imports jax or
+    the JAX package, or runs one of its commands."""
     import re
 
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|xlab_fftbarotropic_"
                          r"tpu)\b|-m\s+xlab_fftbarotropic_tpu\b", re.M)
     files = (sorted((REPO / "xlab_fftbarotropic_torch").rglob("*.py"))
              + sorted((REPO / "examples").glob("*/*_torch.*"))
-             + [REPO / "chip_smoke.py"])
+             + [REPO / "chip_smoke.py",
+                REPO / "tests" / "torch_multihost_worker.py"])
     assert len([f for f in files if f.parent.parent.name == "examples"]
                ) >= 13
     for f in files:

@@ -30,12 +30,15 @@ from xlab_fftbarotropic_tpu.parallel.model import (
 from xlab_fftbarotropic_torch import convert
 from xlab_fftbarotropic_torch.cli import run as tcli
 from xlab_fftbarotropic_torch.config import ModelConfig
+from xlab_fftbarotropic_torch.ic import makefields
 from xlab_fftbarotropic_torch.io.checkpoint import load_checkpoint
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
 from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel, dfft,
-                                               fused_overlap, make_mesh)
+                                               fused_overlap, make_mesh,
+                                               make_mesh2d)
 from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
 from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+from torch_threads import _one_thread  # noqa: F401
 
 try:
     shard_map = jax.shard_map
@@ -225,8 +228,9 @@ def test_cli_refuses_what_waits(tmp_path, flags, capsys):
     families were ported, item 5.1) and --decomp pencil (until item 5.3)
     run now and write their records: the pencil on its default 1x1 mesh;
     --mesh-shape without the pencil runs the slab, as the JAX CLI does. A
-    pencil mesh of more shards than the one visible card stops before
-    anything runs (the one-process-per-card executor, item 5.2)."""
+    pencil mesh of more shards than the one process stops before anything
+    runs, naming how to start one process per shard (torchrun or the
+    XFB_* contract, item 5.2)."""
     if flags[-1] != "2x2" or "pencil" not in flags:
         extra = ["--shard-fft", "overlap"] if "-m" in flags else []
         out = _cli(tmp_path, "shard", flags + extra)
@@ -245,19 +249,20 @@ def test_cli_refuses_what_waits(tmp_path, flags, capsys):
                    "--total-steps", "1"] + flags)
     assert e.value.code != 0
     err = capsys.readouterr().err
-    assert "item 5.2" in err and "needs 4 devices, got 1" in err
+    assert "torchrun" in err and "needs 4 ranks, got 1" in err
     assert not (tmp_path / "o").exists()
 
 
 def test_more_than_one_card_is_refused(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="torchrun"):
         make_mesh(None, "cuda")
     assert make_mesh(None, CPU).n_shards == 1
     assert make_mesh(3, CPU).n_shards == 3
     assert make_mesh(3, CPU).shape == (3,)
     # the pencil builds on a 2-D group and is refused on a 1-D one (the
-    # JAX text); slab and x-pencil wait for item 5.2 on a 2-D group
+    # JAX text); slab and x-pencil run on a 2-D group over the flattened
+    # pair (the JAX make_mesh2d), the 1-D group's model bit for bit
     pm = make_pencil_mesh((2, 2), CPU)
     assert pm.n_shards == 4 and pm.shape == (2, 2)
     assert ShardedBarotropicModel.build(ModelConfig(**_cfg()), pm,
@@ -266,9 +271,14 @@ def test_more_than_one_card_is_refused(monkeypatch, tmp_path, capsys):
         ShardedBarotropicModel.build(ModelConfig(**_cfg()),
                                      make_mesh(NS, CPU), decomp="pencil")
     for decomp in ("slab", "xpencil"):
-        with pytest.raises(NotImplementedError, match="item 5.2"):
-            ShardedBarotropicModel.build(ModelConfig(**_cfg()), pm,
-                                         decomp=decomp)
+        flat, flat2 = (ShardedBarotropicModel.build(
+            ModelConfig(**_cfg()), g, decomp=decomp)
+            for g in (make_mesh(NS, CPU), make_mesh2d((2, 2), CPU)))
+        ic = makefields.gaussian(flat.cfg)
+        assert torch.equal(flat2.segment(flat2.init_state(ic),
+                                         flat2.zero_source(), 2),
+                           flat.segment(flat.init_state(ic),
+                                        flat.zero_source(), 2))
     with pytest.raises(ValueError):
         ShardedBarotropicModel.build(ModelConfig(**_cfg()),
                                      make_mesh(NS, CPU), fft_impl="mpi")
@@ -281,5 +291,5 @@ def test_more_than_one_card_is_refused(monkeypatch, tmp_path, capsys):
     with pytest.raises(SystemExit):
         tcli.main(["-O", str(tmp_path / "o"), "--total-steps", "1",
                    "--shard"])
-    assert "item 5" in capsys.readouterr().err
+    assert "torchrun" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "o")

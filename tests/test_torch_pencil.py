@@ -38,6 +38,7 @@ from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel,
                                                ShardedShallowWaterModel,
                                                ShardedTracerModel, dfft,
                                                make_mesh, pencil)
+from torch_threads import _one_thread  # noqa: F401
 
 try:
     shard_map = jax.shard_map
@@ -52,14 +53,6 @@ KAPPA = 50.0
 FAMILIES = {"barotropic": (ShardedBarotropicModel, JBarotropic),
             "sw": (ShardedShallowWaterModel, JShallowWater),
             "tracer": (ShardedTracerModel, JTracer)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jmesh(shape):

@@ -25,6 +25,7 @@ from xlab_fftbarotropic_torch.ic import makefields
 from xlab_fftbarotropic_torch.io.checkpoint import load_checkpoint
 from xlab_fftbarotropic_torch.io.fieldio import write_field
 from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SHAPE, N, STEPS = (2, 4), 32, 3
@@ -39,14 +40,6 @@ FAMILY_ARGS = {"barotropic": (),
 RECORDS = {"barotropic": ("vort", "psi", "u", "v"),
            "sw": ("vort", "psi", "u", "v", "h", "div"),
            "tracer": ("vort", "psi", "u", "v", "q")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs():

@@ -34,6 +34,7 @@ from xlab_fftbarotropic_torch.ops import fused_diff as fd
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops import fused_sw as fs
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables as TT
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SIZES = [64, 128]

@@ -49,6 +49,7 @@ from xlab_fftbarotropic_torch.diagnostics.invert_pres import (
     LAUNCHES_PER_FIELD, PressureInverter, invert_pressure)
 from xlab_fftbarotropic_torch.io.fieldio import read_field, write_field
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
+from torch_threads import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 N = 64

@@ -31,6 +31,7 @@ from xlab_fftbarotropic_torch.models import shallow_water as tsw
 from xlab_fftbarotropic_torch.ops import fft as tfft
 from xlab_fftbarotropic_torch.ops import fused_sw as fs
 from xlab_fftbarotropic_torch.ops.spectral import SpectralTables as TT
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 128

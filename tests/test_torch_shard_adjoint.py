@@ -20,19 +20,12 @@ from xlab_fftbarotropic_tpu.config import ModelConfig as JConfig
 from xlab_fftbarotropic_torch import adjoint as tadj
 from xlab_fftbarotropic_torch.config import ModelConfig
 from xlab_fftbarotropic_torch.parallel import make_mesh
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 NS, N, STEPS = 4, 32, 3
 DECOMPS = ["slab", "xpencil"]
 KW = dict(nx=N, ny=N, dt=3.0, nu=6.5, r_drag=2e-5, beta=1.6e-11)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs():
@@ -95,12 +88,20 @@ def test_segments_and_one_shard_give_the_same_gradient():
 def test_pencil_is_refused():
     """On a 1-D group, as in the JAX package (the pencil's rollout on a
     2-D group: tests/test_torch_pencil_run.py); slab and x-pencil on a
-    2-D group wait for item 5.2."""
+    stacked 2-D group run over the flattened pair (the JAX make_mesh2d),
+    the 1-D group's rollout bit for bit (over ranks the rollout is
+    refused: tests/test_torch_multihost_model.py)."""
     from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
 
     with pytest.raises(ValueError, match="needs a 2-D mesh"):
         tadj.make_sharded_rollout(ModelConfig(**KW), STEPS,
                                   make_mesh(NS, CPU), decomp="pencil")
-    with pytest.raises(NotImplementedError, match="item 5.2"):
-        tadj.make_sharded_rollout(ModelConfig(**KW), STEPS,
-                                  make_pencil_mesh((2, 2), CPU))
+    rng = np.random.default_rng(5)
+    v0, src = (torch.from_numpy(rng.standard_normal((N, N)).astype(
+        np.float32) * s) for s in (1e-5, 1e-9))
+    for decomp in DECOMPS:
+        got, want = (tadj.make_sharded_rollout(ModelConfig(**KW), STEPS, g,
+                                               decomp=decomp)(v0, src)
+                     for g in (make_pencil_mesh((2, 2), CPU),
+                               make_mesh(NS, CPU)))
+        assert torch.equal(got, want)

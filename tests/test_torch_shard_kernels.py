@@ -25,6 +25,7 @@ from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.parallel import dfft
 from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
 from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+from torch_threads import _one_thread  # noqa: F401
 
 try:
     shard_map = jax.shard_map

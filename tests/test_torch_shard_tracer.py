@@ -28,6 +28,7 @@ from xlab_fftbarotropic_torch.models.tracer import TracerModel, tracer_ic
 from xlab_fftbarotropic_torch.parallel import (ShardedTracerModel,
                                                fused_overlap, make_mesh)
 from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 NS, N = 4, 32
@@ -36,14 +37,6 @@ IMPLS = ["xla", "pallas", "overlap"]
 CASES = [("rk4", "slab"), ("rk4", "xpencil"), ("etdrk4", "slab")]
 STEPS = {"rk4": 3, "etdrk4": 2}
 TOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _kw(scheme, n=N, **extra):

@@ -9,6 +9,7 @@ import torch
 
 from xlab_fftbarotropic_tpu.ops import spectral as jsp
 from xlab_fftbarotropic_torch.ops import spectral as tsp
+from torch_threads import _one_thread  # noqa: F401
 
 L = 600_000.0
 

@@ -20,6 +20,7 @@ from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.models import tracer as jtr
 from xlab_fftbarotropic_torch import convert
 from xlab_fftbarotropic_torch.models import tracer as ttr
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 128

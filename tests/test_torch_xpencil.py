@@ -25,6 +25,7 @@ from xlab_fftbarotropic_torch.parallel import (ShardedBarotropicModel, dfft,
                                                fused_overlap, make_mesh,
                                                xpencil)
 from xlab_fftbarotropic_torch.parallel import fused_transpose as ftr
+from torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 NS = 4

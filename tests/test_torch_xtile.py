@@ -81,20 +81,11 @@ from xlab_fftbarotropic_torch.ops import fast_tile as fst
 from xlab_fftbarotropic_torch.ops import fused_fft as ff
 from xlab_fftbarotropic_torch.ops import xtile
 from xlab_fftbarotropic_torch.parallel.pencil import padded_half
+from torch_threads import _one_thread  # noqa: F401
 
 LENGTHS = [64, 128, 256, 512, 1024, 2048, 4096, 8192]
 SHARDS = [1, 2, 4, 8]
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The emulation runs many small torch ops: one intra-op thread for
-    them (test workers share the cores), the count restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _column_counts(n):

@@ -172,11 +172,20 @@ def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
     (the a2a and xstage kernels have no backward). decomp 'slab' or
     'xpencil' on a 1-D group (make_mesh), 'pencil' on a 2-D one
     (parallel/pencil.py make_pencil_mesh: the inputs go to tiles, the
-    output comes back from them)."""
+    output comes back from them). The stacked form only: a distributed
+    group (one shard per torch.distributed rank) needs the collectives
+    under autograd, and is refused (ROADMAP.md queue A, item 5.5)."""
     from .parallel import dfft, pencil
     from .parallel.model import _decomp_setup
 
-    t, fwd, inv, _ = _decomp_setup(cfg, mesh, "xla", decomp)
+    if mesh.distributed:
+        raise NotImplementedError(
+            "make_sharded_rollout over torch.distributed ranks needs the "
+            "transposes' collectives under autograd, which are not ported "
+            "yet (ROADMAP.md queue A, item 5.5); build it on a stacked "
+            "group, in one process (make_mesh(n_shards), "
+            "make_pencil_mesh(shape))")
+    t, fwd, inv, _, _ = _decomp_setup(cfg, mesh, "xla", decomp)
     g = cfg.grid_shape
     dt, nu = float(cfg.dt), float(cfg.nu)
     r_drag, beta, nu4 = float(cfg.r_drag), float(cfg.beta), float(cfg.nu4)

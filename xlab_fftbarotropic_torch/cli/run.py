@@ -12,8 +12,10 @@ families, each with --time-scheme rk4 (default) or etdrk4 (the linear
 terms integrated exactly from phi-function tables, models/etdrk4.py), the
 -s script / -f fifo forcing, records, checkpoints and resume, for
 each of the three families the sharded model (--shard, with --shard-fft
-and --decomp slab, xpencil or pencil with --mesh-shape; every shard on
-the one visible card), the perturbed-IC ensemble (--ensemble M,
+and --decomp slab, xpencil or pencil with --mesh-shape: one shard on the
+one visible card, or one shard per process when the XFB_COORDINATOR,
+XFB_NUM_PROCESSES and XFB_PROCESS_ID contract or torchrun starts several,
+parallel/multihost.py), the perturbed-IC ensemble (--ensemble M,
 --ensemble-amp, --ensemble-seed, --ensemble-width; each member's
 records in output/mNN/), the
 finite-difference core (-m fd, or -m jacobian) and a torch.profiler
@@ -240,6 +242,7 @@ def main(argv=None):
     from ..models.ensemble import _resolve_member_backend, auto_vmap_width
     from ..models.shallow_water import (per_transform, resolve_pstore,
                                         resolve_split, resolve_sw_backend)
+    from ..parallel import initialize_multihost
     from ..parallel.model import check_decomp
     from ..runner import run, shard_mesh
 
@@ -287,9 +290,13 @@ def main(argv=None):
                    help="print the '# Step N' banner for every step")
     p.add_argument("--shard", action="store_true",
                    help="run the family's sharded model (barotropic, "
-                        "tracer or sw): the grid's shards stacked on the "
-                        "one visible card (or the CPU with --device cpu), "
-                        "one shard (--decomp pencil: a 1x1 mesh)")
+                        "tracer or sw): one shard on the one visible card "
+                        "(or the CPU with --device cpu; --decomp pencil: a "
+                        "1x1 mesh), or one shard per process when several "
+                        "run (XFB_COORDINATOR, XFB_NUM_PROCESSES, "
+                        "XFB_PROCESS_ID, or torchrun --nproc-per-node N: "
+                        "gloo on the CPU and for ranks sharing a card, "
+                        "NCCL for one card each); rank 0 writes the files")
     p.add_argument("--shard-fft", default="xla",
                    choices=["xla", "pallas", "overlap"],
                    help="distributed-FFT implementation for --shard runs: "
@@ -306,12 +313,11 @@ def main(argv=None):
                         "per transform within mesh rows or columns; "
                         "--shard-fft xla only; see --mesh-shape)")
     p.add_argument("--mesh-shape", default=None, metavar="PxQ",
-                   help="2-D mesh shape for --decomp pencil, e.g. 2x4 "
-                        "(default 1x1); its P*Q must be the visible "
-                        "card's one shard (more needs the one-process-"
-                        "per-card executor, ROADMAP.md queue A item 5.2). "
-                        "Ignored without --decomp pencil, as in the JAX "
-                        "package")
+                   help="2-D mesh shape for --decomp pencil, e.g. 2x4; "
+                        "its P*Q is the number of processes (default: "
+                        "hosts x processes per host, 1x1 for one "
+                        "process). Ignored without --decomp pencil, as in "
+                        "the JAX package")
     p.add_argument("--ensemble", type=int, default=0, metavar="M",
                    help="run an M-member perturbed-IC ensemble "
                         "(barotropic, tracer or sw): member 0 is the "
@@ -427,6 +433,8 @@ def main(argv=None):
               file=sys.stderr)
     device = resolve_device(args.device)
     if args.shard:
+        # a no-op unless the XFB_* contract or torchrun's env is set
+        initialize_multihost(device=args.device)
         try:
             mesh = shard_mesh(device, args.decomp, mesh_shape)
             check_decomp(cfg, mesh, args.shard_fft, args.decomp)
@@ -477,9 +485,11 @@ def main(argv=None):
     if args.shard:
         grid = ("x".join(map(str, mesh.shape)) + " mesh, "
                 if args.decomp == "pencil" else "")
-        print(f"Sharding              : {mesh.n_shards} shard(s), decomp "
-              f"{args.decomp}, {grid}shard-fft {args.shard_fft} "
-              f"({shard_how})", file=sys.stderr)
+        where_shards = (f"one per rank, this rank {mesh.rank} on "
+                        f"{mesh.device}, " if mesh.distributed else "")
+        print(f"Sharding              : {mesh.n_shards} shard(s), "
+              f"{where_shards}decomp {args.decomp}, {grid}shard-fft "
+              f"{args.shard_fft} ({shard_how})", file=sys.stderr)
     elif not fd:
         print(f"FFT backend           : {backend} ({how})", file=sys.stderr)
         if backend == "pallas" and args.model != "tracer":

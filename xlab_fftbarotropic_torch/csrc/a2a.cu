@@ -14,14 +14,17 @@
 //
 // The shards are reached through their P source and P destination base
 // pointers, passed by value in the kernel's __grid_constant__ parameter
-// (shards.cuh), never through one tensor's strides: here every pointer
-// points into one stacked tensor on one card, and a call queues this
-// kernel and nothing else. A later executor with one process per card
-// passes peer-mapped pointers the same way, with a barrier across the
-// cards before the launch (the sources are written) and after it (the
-// destinations are complete); each card then launches only the blocks
-// whose destination rows (to columns) or source rows (to rows) are its
-// own.
+// (shards.cuh), never through one tensor's strides. With rank -1 every
+// pointer points into one stacked tensor on one card, a call queues this
+// kernel and nothing else, and the grid covers every shard. The
+// one-process-per-card executor (parallel/peer.py) passes the ranks'
+// peer-mapped exchange buffers the same way, with a barrier across the
+// ranks before the launch (the sources are written) and after it (the
+// destinations are complete), and each rank launches only its own
+// blocks: to columns, the runs g P + t with t = rank (its column shard,
+// pulled from every row shard); to rows, those with s = rank (its row
+// shard, pulled from every column shard). Every rank writes locally and
+// reads its peers.
 //
 // Block g P + t moves one run: global row g = s rows_l + r, columns
 // [t w, t w + w) of the row side (row r of shard s), against row g of
@@ -45,9 +48,19 @@ constexpr int kMaxThreads = 256;
 template <bool TO_COLS>
 __global__ void __launch_bounds__(kMaxThreads)
     a2a_kernel(const __grid_constant__ xfb::Shards sh, int p, int rows_l,
-               int hrow, int w) {
-  const int g = blockIdx.x / p;
-  const int t = blockIdx.x - g * p;
+               int hrow, int w, int rank) {
+  // the run's global row g and column shard t: every run with rank -1,
+  // else the rank's own (to columns: t = rank; to rows: g / rows_l = rank)
+  int g = blockIdx.x / p;
+  int t = blockIdx.x - g * p;
+  if (rank >= 0) {
+    if (TO_COLS) {
+      g = blockIdx.x;
+      t = rank;
+    } else {
+      g += rank * rows_l;
+    }
+  }
   const int s = g / rows_l;
   const size_t row = static_cast<size_t>(g - s * rows_l) * hrow + t * w;
   const size_t col = static_cast<size_t>(g) * w;
@@ -76,13 +89,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // ptrs: host array of 2 p device pointers (the p source shards, then the
 // p destination shards); p shards of rows_l rows; hrow the row side's
-// width, w the column side's; to_cols picks the direction. p outside [1,
+// width, w the column side's; to_cols picks the direction; rank -1 moves
+// every run, a rank in [0, p) its own (p rows_l of them). p outside [1,
 // kMaxShards] is refused (cudaErrorInvalidValue).
 extern "C" int xfb_a2a(const void* const* ptrs, int p, int rows_l, int hrow,
-                       int w, int to_cols, int device, cudaStream_t stream) {
+                       int w, int to_cols, int rank, int device,
+                       cudaStream_t stream) {
   xfb::Shards sh;
   if (!xfb::load_shards(ptrs, p, &sh) || rows_l < 1 || w < 1 ||
-      hrow > p * w) {
+      hrow > p * w || rank < -1 || rank >= p) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -90,12 +105,14 @@ extern "C" int xfb_a2a(const void* const* ptrs, int p, int rows_l, int hrow,
   // one thread per kUnroll values of a run, in whole warps
   int threads = ((w + kUnroll - 1) / kUnroll + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  const unsigned blocks = static_cast<unsigned>(p) * p * rows_l;
+  const unsigned blocks =
+      static_cast<unsigned>(rank < 0 ? p : 1) * p * rows_l;
   if (to_cols) {
-    a2a_kernel<true><<<blocks, threads, 0, stream>>>(sh, p, rows_l, hrow, w);
+    a2a_kernel<true><<<blocks, threads, 0, stream>>>(sh, p, rows_l, hrow, w,
+                                                     rank);
   } else {
     a2a_kernel<false><<<blocks, threads, 0, stream>>>(sh, p, rows_l, hrow,
-                                                      w);
+                                                      w, rank);
   }
   return cudaGetLastError();
 }

@@ -27,11 +27,15 @@
 //
 // The shards are reached through their P source and P destination base
 // pointers, passed by value in the kernel's __grid_constant__ parameter
-// (shards.cuh), never through one tensor's strides: here every pointer
-// points into one stacked tensor on one card. A later executor with one
-// process per card passes peer-mapped pointers to the same kernel, with a
-// barrier across the cards before the launch and after it, and each card
-// launches the blocks of its own w columns.
+// (shards.cuh), never through one tensor's strides. With rank -1 every
+// pointer points into one stacked tensor on one card and the grid covers
+// every tile. The one-process-per-card executor (parallel/peer.py) passes
+// the ranks' peer-mapped exchange buffers to the same kernel, with a
+// barrier across the ranks before the launch and after it, and each rank
+// launches the tiles of its own w columns, in every mode: those whose
+// first column j0 lies in [rank w, (rank + 1) w), an offset of the tile
+// index (tile0) and a shorter grid, the kernel's body unchanged. A tile
+// may reach into the next rank's columns; each is computed once.
 //
 // Bound: bytes (at 4096^2, P = 4: 67 MB read, 67 MB written; the DFT's
 // 0.5 GFLOP are under a tenth of that time at the float32 rate). Both
@@ -88,11 +92,12 @@ template <int SIGN, int SRC, int DST, bool FAST>
 __global__ void __launch_bounds__(512, 2)
     xstage_kernel(const __grid_constant__ xfb::Shards sh,
                   const float2* __restrict__ tw, int nx, int k, int logc,
-                  int rows_l, int hrow, int w, int columns, float scale) {
+                  int rows_l, int hrow, int w, int columns, float scale,
+                  int tile0) {
   extern __shared__ float2 smem[];
   namespace xt = xfb::xtile;
   const xt::Tile t = xt::begin(smem, tw, nx, k, logc);
-  const int j0 = (blockIdx.x / k) << logc;
+  const int j0 = (tile0 + blockIdx.x / k) << logc;
   const int cmask = (1 << logc) - 1;
   // rows rank + k * gg, consecutive lanes on consecutive columns
 #pragma unroll
@@ -117,46 +122,58 @@ template <int SRC, int DST, bool FAST>
 cudaError_t launch(const xfb::Shards& sh, const float2* tw, int nx,
                    int rows_l, int hrow, int w, int columns, int forward,
                    float scale, int tile_c,
-                   int cluster_k, int threads, int smem, int device,
-                   cudaStream_t stream) {
+                   int cluster_k, int threads, int smem, int rank,
+                   int device, cudaStream_t stream) {
   if (!xfb::xtile::plan_ok(nx, tile_c, cluster_k, threads, smem)) {
     return cudaErrorInvalidValue;
   }
-  const int tiles = (columns + tile_c - 1) / tile_c;
+  int tiles = (columns + tile_c - 1) / tile_c;
+  int tile0 = 0;
+  if (rank >= 0) {
+    // the tiles whose first column lies in the rank's w columns
+    const int end = ((rank + 1) * w + tile_c - 1) / tile_c;
+    tile0 = (rank * w + tile_c - 1) / tile_c;
+    tiles = (end < tiles ? end : tiles) - tile0;
+    if (tiles <= 0) return cudaSuccess;
+  }
   const int logc = xfb::xtile::log2i(tile_c);
   return forward
              ? xfb::xtile::launch(xstage_kernel<-1, SRC, DST, FAST>, tiles, 1,
                                   cluster_k, threads, smem, device, stream,
                                   sh, tw, nx, cluster_k, logc, rows_l,
-                                  hrow, w, columns, scale)
+                                  hrow, w, columns, scale, tile0)
              : xfb::xtile::launch(xstage_kernel<1, SRC, DST, FAST>, tiles, 1,
                                   cluster_k, threads, smem, device, stream,
                                   sh, tw, nx, cluster_k, logc, rows_l,
-                                  hrow, w, columns, scale);
+                                  hrow, w, columns, scale, tile0);
 }
 
 // The entry's mode switch, strict or on the fast column tile.
 template <bool FAST>
 int entry(const void* const* ptrs, const float2* tw, int p, int rows_l,
           int hrow, int w, int mode, int forward, float scale, int tile_c,
-          int cluster_k, int threads, int smem, int device,
+          int cluster_k, int threads, int smem, int rank, int device,
           cudaStream_t stream) {
   xfb::Shards sh;
-  if (!xfb::load_shards(ptrs, p, &sh)) return cudaErrorInvalidValue;
+  if (!xfb::load_shards(ptrs, p, &sh) || rank < -1 || rank >= p) {
+    return cudaErrorInvalidValue;
+  }
   const int nx = p * rows_l;
   switch (mode) {
     case 0:
       return launch<kRows, kRows, FAST>(sh, tw, nx, rows_l, hrow, w, hrow,
                                         forward, scale, tile_c, cluster_k,
-                                        threads, smem, device, stream);
+                                        threads, smem, rank, device, stream);
     case 1:
       return launch<kRows, kPencil, FAST>(sh, tw, nx, rows_l, hrow, w, p * w,
                                           forward, scale, tile_c, cluster_k,
-                                          threads, smem, device, stream);
+                                          threads, smem, rank, device,
+                                          stream);
     case 2:
       return launch<kPencil, kRows, FAST>(sh, tw, nx, rows_l, hrow, w, hrow,
                                           forward, scale, tile_c, cluster_k,
-                                          threads, smem, device, stream);
+                                          threads, smem, rank, device,
+                                          stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -170,13 +187,14 @@ int entry(const void* const* ptrs, const float2* tw, int p, int rows_l,
 // gather (rows -> x-pencil), 2 scatter (x-pencil -> rows); p shards of
 // rows_l rows, hrow the half axis, w the x-pencil width; tile_c,
 // cluster_k, threads, smem: the plan of ops/xtile.py for nx and the mode's
-// columns.
+// columns; rank -1 launches every tile, a rank in [0, p) its own.
 extern "C" int xfb_xstage(const void* const* ptrs, const float2* tw, int p,
                           int rows_l, int hrow, int w, int mode, int forward,
                           float scale, int tile_c, int cluster_k, int threads,
-                          int smem, int device, cudaStream_t stream) {
+                          int smem, int rank, int device,
+                          cudaStream_t stream) {
   return entry<false>(ptrs, tw, p, rows_l, hrow, w, mode, forward, scale,
-                      tile_c, cluster_k, threads, smem, device, stream);
+                      tile_c, cluster_k, threads, smem, rank, device, stream);
 }
 
 // xstage on the fast column tile, every mode: arguments as xfb_xstage's
@@ -184,7 +202,7 @@ extern "C" int xfb_xstage_fast(const void* const* ptrs, const float2* tw,
                                int p, int rows_l, int hrow, int w, int mode,
                                int forward, float scale, int tile_c,
                                int cluster_k, int threads, int smem,
-                               int device, cudaStream_t stream) {
+                               int rank, int device, cudaStream_t stream) {
   return entry<true>(ptrs, tw, p, rows_l, hrow, w, mode, forward, scale,
-                     tile_c, cluster_k, threads, smem, device, stream);
+                     tile_c, cluster_k, threads, smem, rank, device, stream);
 }

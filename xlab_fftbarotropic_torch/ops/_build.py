@@ -33,7 +33,7 @@ HEADERS = ("epilogue.cuh", "shards.cuh", "xtile.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
            "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu", "a2a.cu",
-           "xstage.cu")
+           "xstage.cu", "ipc.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                      "-v")
@@ -41,6 +41,8 @@ LIB_NAME = "libxfb_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+_S, _C = ctypes.c_size_t, ctypes.c_char_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     # zr, zi, rlap, kx, ky, tw, wr, wi, n, hny, tile_c, cluster_k,
     # threads, smem (the ops/xtile.py plan), device, stream
@@ -114,7 +116,7 @@ SIGNATURES = {
     # the per-transform pipeline's and the overlap x-stage's fast forms
     "xfb_ka_fast": [_P] * 5 + [_I, _I, _I, _F] + [_I] * 5 + [_P],
     "xfb_kc_fast": [_P] * 5 + [_I] * 7 + [_P],
-    "xfb_xstage_fast": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "xfb_xstage_fast": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     # kx_fwd with the bf16 product store (csrc/kx_visc.cu), fast and
     # strict tile: fr, fi, tw, rr, ri, nfields, nx, hny, tile_c,
     # cluster_k, threads, smem, device, stream
@@ -159,12 +161,20 @@ SIGNATURES = {
     # cluster_k, threads, smem, device, stream
     "xfb_kb_adv_half": [_P] * 8 + [_I, _I, _F, _F] + [_I] * 5 + [_P],
     # host array of 2 p pointers (sources, destinations), p, rows_l, hrow,
-    # w, to_cols, device, stream
-    "xfb_a2a": [_P] + [_I] * 6 + [_P],
+    # w, to_cols, rank (-1: every shard's blocks), device, stream
+    "xfb_a2a": [_P] + [_I] * 7 + [_P],
     # host array of 2 p pointers (sources, destinations), tw, p, rows_l,
     # hrow, w, mode, forward, scale, tile_c, cluster_k, threads, smem,
-    # device, stream
-    "xfb_xstage": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # rank (-1: every tile), device, stream
+    "xfb_xstage": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    # the exchange buffers (csrc/ipc.cu): bytes, device, out pointer;
+    # pointer, out handle[64]; handle[64], device, out pointer; pointer;
+    # pointer, device
+    "xfb_ipc_alloc": [_S, _I, _PP],
+    "xfb_ipc_handle": [_P, _C],
+    "xfb_ipc_open": [_C, _I, _PP],
+    "xfb_ipc_close": [_P],
+    "xfb_ipc_free": [_P, _I],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

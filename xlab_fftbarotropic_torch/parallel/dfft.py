@@ -21,6 +21,15 @@ use_pallas=True the pair runs the a2a kernels instead
 torch.fft.fft either way, as jnp.fft.fft is in the JAX package, so the
 two give the same bits.
 
+On a distributed group (one shard per torch.distributed rank,
+parallel/model.py ShardGroup with a rank) each rank holds the stacked
+layout's shard of its rank with a leading axis of 1, and the transposes
+are collectives: dist.all_to_all_single over the group (xla), or the a2a
+kernels' ranked launches on the exchange buffers' pointer tables
+(pallas, parallel/peer.py). fft_x transforms a rank's shard as rows of
+a contiguous copy, the layout torch's FFT takes for two or more stacked
+shards, so a rank's bits are its stacked shard's.
+
 Before the y c2r the self-conjugate bins ky = 0 and ky = ny/2 of every
 row get their imaginary parts zeroed (the positive-Nyquist convention
 leaves content there, ops/fft.py): pocketfft drops it, cuFFT is not
@@ -34,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import multihost
 from .pencil import padded_half
 
 
@@ -75,13 +85,62 @@ def transpose_to_rows(spec_cols: torch.Tensor, hny: int) -> torch.Tensor:
     return rows.reshape(p, nx // p, p * w)[..., :hny].contiguous()
 
 
-def _transposes(use_pallas: bool):
+def all_to_all_columns(spec_rows: torch.Tensor, group) -> torch.Tensor:
+    """transpose_to_columns over a distributed group: the rank's row
+    shard (1, nx/P, hny) -> its column shard (1, nx, hpad/P), one
+    dist.all_to_all_single."""
+    p = group.n_shards
+    _, rows_l, hny = spec_rows.shape
+    w = padded_half(hny, p) // p
+    x = spec_rows[0]
+    if p * w != hny:
+        x = torch.cat([x, x.new_zeros((rows_l, p * w - hny))], dim=-1)
+    got = multihost.all_to_all(x.reshape(rows_l, p, w).transpose(0, 1),
+                               group.process_group)
+    return got.reshape(1, p * rows_l, w)
+
+
+def all_to_all_rows(spec_cols: torch.Tensor, hny: int,
+                    group) -> torch.Tensor:
+    """transpose_to_rows over a distributed group: the rank's column
+    shard (1, nx, hpad/P) -> its row shard (1, nx/P, hny)."""
+    p = group.n_shards
+    _, nx, w = spec_cols.shape
+    got = multihost.all_to_all(spec_cols.reshape(p, nx // p, w),
+                               group.process_group)
+    return got.transpose(0, 1).reshape(1, nx // p, p * w)[..., :hny
+                                                          ].contiguous()
+
+
+def _transposes(use_pallas: bool, group=None, exchange=None):
     """(to_columns, to_rows): the library copies or the a2a kernels,
-    looked up at each call."""
+    looked up at each call; on a distributed group (group.rank set) the
+    collectives or the a2a kernels' ranked launches on `exchange`."""
+    from . import fused_transpose as ft
+    if group is not None and group.rank is not None:
+        if use_pallas:
+            return (lambda x: ft.a2a_cols_ranked(x, exchange),
+                    lambda x, hny: ft.a2a_rows_ranked(x, hny, exchange))
+        return (lambda x: all_to_all_columns(x, group),
+                lambda x, hny: all_to_all_rows(x, hny, group))
     if use_pallas:
-        from . import fused_transpose as ft
         return ft.a2a_cols, ft.a2a_rows
     return transpose_to_columns, transpose_to_rows
+
+
+def fft_x(x: torch.Tensor, inverse: bool = False,
+          ranked: bool = False) -> torch.Tensor:
+    """The unnormalized length-nx DFT along axis 1 of (P, nx, w) shards
+    (inverse: ifft, scaled 1/nx). `ranked`: x is a rank's one shard on a
+    distributed group, whose columns torch would transform in place with
+    a stride; it is transformed as the contiguous rows of its transpose,
+    as torch lays out two or more stacked shards, so the ranks give the
+    stacked model's bits. A stacked group (one shard too) takes torch's
+    own layout."""
+    fn = torch.fft.ifft if inverse else torch.fft.fft
+    if not ranked:
+        return fn(x, dim=1)
+    return fn(x.transpose(1, 2).contiguous(), dim=-1).transpose(1, 2)
 
 
 def irfft_rows(rows: torch.Tensor, ny: int) -> torch.Tensor:
@@ -94,35 +153,42 @@ def irfft_rows(rows: torch.Tensor, ny: int) -> torch.Tensor:
     return torch.fft.irfft(rows, n=ny, dim=-1)
 
 
-def rfft2_local(field: torch.Tensor, use_pallas: bool = False
-                ) -> torch.Tensor:
+def _ranked(group) -> bool:
+    return group is not None and group.rank is not None
+
+
+def rfft2_local(field: torch.Tensor, use_pallas: bool = False,
+                group=None, exchange=None) -> torch.Tensor:
     """Row shards (P, nx/P, ny) float32 -> (P, nx/P, ny//2+1) complex64,
-    unnormalized: the distributed counterpart of ops/fft.py:forward."""
-    to_cols, to_rows = _transposes(use_pallas)
+    unnormalized: the distributed counterpart of ops/fft.py:forward (on a
+    distributed group, the rank's shard, P = 1 locally)."""
+    to_cols, to_rows = _transposes(use_pallas, group, exchange)
     hny = field.shape[-1] // 2 + 1
     spec = torch.fft.rfft(field, dim=-1)
-    return to_rows(torch.fft.fft(to_cols(spec), dim=1), hny)
+    return to_rows(fft_x(to_cols(spec), ranked=_ranked(group)), hny)
 
 
 def irfft2_local(spec: torch.Tensor,
                  grid_shape: Optional[Tuple[int, int]] = None,
-                 use_pallas: bool = False) -> torch.Tensor:
+                 use_pallas: bool = False, group=None,
+                 exchange=None) -> torch.Tensor:
     """(P, nx/P, hny) complex64 -> (P, nx/P, ny) float32, scaled by
     1/(nx*ny); grid_shape is the global (nx, ny), as ops/fft.py:inverse
     takes it (None: ny = 2 (hny - 1))."""
-    to_cols, to_rows = _transposes(use_pallas)
+    to_cols, to_rows = _transposes(use_pallas, group, exchange)
     hny = spec.shape[-1]
     ny = grid_shape[1] if grid_shape is not None else 2 * (hny - 1)
-    rows = to_rows(torch.fft.ifft(to_cols(spec), dim=1), hny)
+    rows = to_rows(fft_x(to_cols(spec), True, _ranked(group)), hny)
     return irfft_rows(rows, ny)
 
 
-def make_fft_pair(use_pallas: bool = False):
-    """(forward, inverse) with the ops/fft.py signatures on row shards."""
+def make_fft_pair(use_pallas: bool = False, group=None, exchange=None):
+    """(forward, inverse) with the ops/fft.py signatures on row shards
+    (on a distributed group and its exchange buffers, the rank's)."""
     def fwd(field):
-        return rfft2_local(field, use_pallas)
+        return rfft2_local(field, use_pallas, group, exchange)
 
     def inv(spec, grid_shape=None):
-        return irfft2_local(spec, grid_shape, use_pallas)
+        return irfft2_local(spec, grid_shape, use_pallas, group, exchange)
 
     return fwd, inv

@@ -36,16 +36,26 @@ tracer six inverses and two forwards. The sharded shallow-water model
 runs without the split-linear formulation in either mode, as the JAX
 one does.
 
-The one-process-per-card executor (torch.distributed ranks, the kernels
-given peer-mapped pointer tables; ROADMAP.md queue A, item 5.2) is not
-ported; with it go the JAX package's tuple-axis meshes (make_mesh2d),
-which place the slab and x-pencil on several hosts, so slab and x-pencil
-take a 1-D group here.
+The same models run one shard per process: on an initialized
+torch.distributed runtime (parallel/multihost.py) make_mesh(None) and
+make_mesh2d(shape) give a distributed group, one rank per shard. A rank's
+tensors keep the stacked layout with a leading shard axis of 1 and hold
+the shard the stacked model holds at the rank's index (tiles in mesh
+order d = i Py + j, pencil spectra in block order b = j Px + i), so every
+pointwise operator, table and step function runs unchanged; only the
+transposes (collectives for 'xla'; the a2a and xstage kernels' ranked
+launches on the exchange buffers of parallel/peer.py for 'pallas' and
+'overlap'), shard/unshard (the rank's slice; multihost.gather_to_host)
+and the gathered diagnostics differ. make_mesh2d's tuple-axis group
+places the slab and the x-pencil over the flattened pair, as the JAX
+package's make_mesh2d, and is the pencil's (Px, Py) mesh.
 
 On the CPU: build(cfg, make_mesh(4, "cpu"), ...) or build(cfg,
-pencil.make_pencil_mesh((2, 4), "cpu"), decomp="pencil"); on the card
-`python3 chip_smoke.py --phase 5r` (slab and x-pencil) and `--phase 5s`
-(the pencil).
+pencil.make_pencil_mesh((2, 4), "cpu"), decomp="pencil"); over ranks,
+`XFB_COORDINATOR=... XFB_NUM_PROCESSES=4 XFB_PROCESS_ID=r` or torchrun
+with make_mesh(None, "cpu") (tests/test_torch_multihost_model.py); on
+the card `python3 chip_smoke.py --phase 5r` (slab and x-pencil), `--phase
+5s` (the pencil) and `--phase 5t` (4 ranks sharing the card).
 """
 
 from __future__ import annotations
@@ -65,22 +75,32 @@ from ..models import tracer as tr
 from ..models.barotropic import check_time_scheme, resolve_device
 from ..ops import spectral as sp
 from ..ops.spectral import SpectralTables
-from . import dfft, pencil, xpencil
+from . import dfft, multihost, pencil, xpencil
 
 DECOMPS = ("slab", "xpencil", "pencil")
 IMPLS = ("xla", "pallas", "overlap")
-_LATER = "ROADMAP.md queue A, item 5"
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardGroup:
-    """A group of shards: how many, the card that holds them all and the
+    """A group of shards: how many, the device that holds them and the
     mesh shape, (n_shards,) for a 1-D group (the counterpart of a 1-D
-    jax.sharding.Mesh) or (Px, Py) for a 2-D one (pencil.make_pencil_mesh:
-    the JAX package's pencil mesh)."""
+    jax.sharding.Mesh) or (Px, Py) for a 2-D one (make_mesh2d: the JAX
+    package's tuple-axis and pencil meshes).
+
+    rank None: the stacked one-process form, every shard on `device`.
+    Otherwise the distributed form: this process is rank `rank` of the
+    torch.distributed `process_group` (None: the default group), holds
+    shard `rank` on `device` (its card, or the CPU), and on a 2-D group
+    reaches its mesh row (same i, the py axis) and mesh column (same j,
+    px) through `row_group` and `col_group`."""
     n_shards: int
     device: torch.device
     shape: tuple = ()
+    rank: Optional[int] = None
+    process_group: object = dataclasses.field(default=None, compare=False)
+    row_group: object = dataclasses.field(default=None, compare=False)
+    col_group: object = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if not self.shape:
@@ -89,26 +109,81 @@ class ShardGroup:
             raise ValueError(f"mesh shape {self.shape} does not hold "
                              f"{self.n_shards} shards")
 
+    @property
+    def distributed(self) -> bool:
+        return self.rank is not None
+
+    @property
+    def local_shards(self) -> int:
+        """The shards this process holds: 1 on a distributed group."""
+        return 1 if self.distributed else self.n_shards
+
+
+def _distributed_group(device, shape: tuple) -> ShardGroup:
+    """One shard per rank of the initialized runtime, on the rank's card
+    (or the CPU); a 2-D shape also makes every mesh row's and column's
+    sub-group (a collective of every rank, in the same order)."""
+    world, r = multihost.world_size(), multihost.rank()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} "
+                         f"ranks, the runtime has {world}")
+    dev = multihost.rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rows = cols = None
+    if len(shape) == 2:
+        px, py = shape
+        rows = [multihost.subgroup(tuple(i * py + j for j in range(py)))
+                for i in range(px)]
+        cols = [multihost.subgroup(tuple(i * py + j for i in range(px)))
+                for j in range(py)]
+        rows, cols = rows[r // py], cols[r % py]
+    return ShardGroup(world, dev, tuple(shape), r, None, rows, cols)
+
 
 def make_mesh(n_shards: Optional[int] = None, device=None) -> ShardGroup:
-    """The 1-D shard group: n_shards shards on `device` (default: the
-    current CUDA device). n_shards None takes one shard per visible
-    card, which is one: more than one card needs the one-process-per-card
-    executor, which is not ported."""
+    """The 1-D shard group: n_shards shards stacked on `device` (default:
+    the current CUDA device). n_shards None takes one shard per process
+    on an initialized torch.distributed runtime (parallel/multihost.py:
+    the distributed group), else the one visible card's one shard; more
+    than one visible card without the runtime is refused: start one
+    process per card (torchrun, or the XFB_* contract of
+    multihost.initialize)."""
     device = "cuda" if device is None else device
     if n_shards is None:
+        if multihost.is_initialized():
+            return _distributed_group(device, (multihost.world_size(),))
         if (torch.device(device).type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError(
-                f"{torch.cuda.device_count()} CUDA devices are visible: "
-                f"sharding over several cards needs the one-process-per-"
-                f"card executor, which is not ported yet ({_LATER}.2); "
-                f"make one card visible (CUDA_VISIBLE_DEVICES) to hold "
-                f"every shard on it")
+                f"{torch.cuda.device_count()} CUDA devices are visible and "
+                f"no torch.distributed runtime is up: run one process per "
+                f"card (torchrun --nproc-per-node N, or XFB_COORDINATOR, "
+                f"XFB_NUM_PROCESSES and XFB_PROCESS_ID with "
+                f"multihost.initialize), or make one card visible "
+                f"(CUDA_VISIBLE_DEVICES) to hold every shard on it")
         n_shards = 1
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     return ShardGroup(int(n_shards), resolve_device(device))
+
+
+def make_mesh2d(shape, device=None) -> ShardGroup:
+    """The 2-D (A, B) shard group (the JAX package's make_mesh2d, hosts x
+    chips, and its pencil mesh): on an initialized torch.distributed
+    runtime one shard per rank (A B ranks, with the mesh-row and
+    mesh-column sub-groups), else A B shards stacked on `device`. Slab
+    and x-pencil run their transposes over the flattened pair; the
+    pencil over its rows and columns (pencil.py)."""
+    shape = tuple(shape)
+    if (len(shape) != 2 or not all(isinstance(s, int) for s in shape)
+            or min(shape) < 1):
+        raise ValueError(f"a 2-D mesh shape is two positive ints "
+                         f"(Px, Py), got {shape!r}")
+    device = "cuda" if device is None else device
+    if multihost.is_initialized():
+        return _distributed_group(device, shape)
+    return ShardGroup(shape[0] * shape[1], resolve_device(device), shape)
 
 
 def _slab_tables(t: SpectralTables, n: int) -> SpectralTables:
@@ -119,18 +194,22 @@ def _slab_tables(t: SpectralTables, n: int) -> SpectralTables:
     return SpectralTables({**out, "ky": t.ky}, t.lap.device)
 
 
-def _slab_pair(fft_impl: str, fast: bool):
+def _slab_pair(fft_impl: str, fast: bool, group=None, exchange=None):
     if fft_impl == "overlap":
         from . import fused_overlap
-        return fused_overlap.make_fft_pair(fast)
-    return dfft.make_fft_pair(use_pallas=fft_impl == "pallas")
+        return fused_overlap.make_fft_pair(fast, exchange)
+    return dfft.make_fft_pair(fft_impl == "pallas", group, exchange)
 
 
 def check_decomp(cfg, mesh: ShardGroup, fft_impl: str, decomp: str) -> None:
     """Raise what a decomposition refuses, with the JAX package's texts
     (parallel/model.py:_decomp_setup there): the pencil takes 'xla' and a
-    2-D group whose grid passes pencil.check_grid; slab and x-pencil a
-    1-D group (a 2-D one places them on several hosts: item 5.2)."""
+    2-D group whose grid passes pencil.check_grid; slab and x-pencil any
+    group (a 2-D one over the flattened pair, as the JAX make_mesh2d).
+    The kernel impls over ranks take the ranks of one host (their
+    exchange buffers are mapped by CUDA IPC or /dev/shm, and their
+    barrier is in shared memory), at most MAX_SHARDS of them (the pointer
+    table the kernels take by value)."""
     if decomp not in DECOMPS:
         raise ValueError(f"unknown decomp: {decomp!r}")
     if decomp == "pencil":
@@ -147,36 +226,96 @@ def check_decomp(cfg, mesh: ShardGroup, fft_impl: str, decomp: str) -> None:
         return
     if fft_impl not in IMPLS:
         raise ValueError(f"unknown fft_impl: {fft_impl!r}")
-    if len(mesh.shape) != 1:
-        raise NotImplementedError(
-            f"decomp={decomp!r} on the {mesh.shape} mesh: the JAX package's "
-            f"tuple-axis meshes (make_mesh2d) place the slab and x-pencil "
-            f"on several hosts, which needs the one-process-per-card "
-            f"executor ({_LATER}.2); use make_mesh(n_shards), or "
-            f"decomp='pencil' on this mesh")
+    if mesh.distributed and fft_impl != "xla":
+        from .fused_transpose import MAX_SHARDS
+        hosts = multihost.host_count()
+        if hosts > 1:
+            raise ValueError(
+                f"fft_impl={fft_impl!r} over ranks on {hosts} hosts: the "
+                f"kernels reach their peers' buffers by CUDA IPC (or "
+                f"/dev/shm) and a shared-memory barrier, within one host "
+                f"only; use fft_impl='xla'")
+        if mesh.n_shards > MAX_SHARDS:
+            raise ValueError(
+                f"fft_impl={fft_impl!r} over {mesh.n_shards} ranks: the "
+                f"kernels take 1..{MAX_SHARDS} shards (csrc/shards.cuh "
+                f"kMaxShards); use fft_impl='xla'")
     if cfg.nx % mesh.n_shards:
         raise ValueError(f"nx={cfg.nx} not divisible by {mesh.n_shards} "
                          f"shards")
 
 
+def spectral_index(mesh: ShardGroup, decomp: str) -> Optional[int]:
+    """The stacked index of the spectral shard a distributed group's rank
+    holds (None on a stacked group): its rank, or for the pencil its
+    block b = j Px + i at mesh position (i, j)."""
+    if not mesh.distributed:
+        return None
+    if decomp == "pencil":
+        px, py = mesh.shape
+        return (mesh.rank % py) * px + mesh.rank // py
+    return mesh.rank
+
+
+def _local(a: torch.Tensor, k: Optional[int], lead: int = 0
+           ) -> torch.Tensor:
+    """The stacked shards a (L..., P, ...) -> the rank's (L..., 1, ...)
+    at index k, a copy of its own; a itself when k is None."""
+    if k is None:
+        return a
+    return a.narrow(lead, k, 1).clone()
+
+
+def _local_tables(t: SpectralTables, mesh: ShardGroup, decomp: str
+                  ) -> SpectralTables:
+    """A stacked group's sharded tables -> the rank's, every sharded
+    table sliced to its shard (kx of the x-pencil and pencil and ky of
+    the slab are whole)."""
+    k = spectral_index(mesh, decomp)
+    if k is None:
+        return t
+    whole = "ky" if decomp == "slab" else "kx"
+    out = {name: getattr(t, name) if name == whole else
+           _local(getattr(t, name), k) for name in SpectralTables.NAMES}
+    return SpectralTables(out, t.lap.device)
+
+
+def exchange_shapes(cfg, n_shards: int) -> dict:
+    """The exchange buffers' shapes of the kernel impls over ranks: the
+    row shards (nx/P, hny) and the column shards (nx, hpad/P)."""
+    hny = cfg.ny // 2 + 1
+    return {"rows": (cfg.nx // n_shards, hny),
+            "cols": (cfg.nx, xpencil.hpad_for(hny, n_shards) // n_shards)}
+
+
 def _decomp_setup(cfg, mesh: ShardGroup, fft_impl: str, decomp: str,
                   fast: bool = False):
-    """(sharded tables, fwd, inv, hpad) of a decomposition; hpad None for
-    the slab, whose spectral state is not padded; `fast`: the overlap
-    x-stages' fast forms."""
+    """(sharded tables, fwd, inv, hpad, exchange) of a decomposition; hpad
+    None for the slab, whose spectral state is not padded; `fast`: the
+    overlap x-stages' fast forms. On a distributed group the tables are
+    the rank's, the pair its collectives or ranked kernels, and exchange
+    the kernel impls' buffers (parallel/peer.py; else None)."""
     check_decomp(cfg, mesh, fft_impl, decomp)
     n = mesh.n_shards
     t = SpectralTables.from_config(cfg, mesh.device)
     hny = cfg.ny // 2 + 1
+    group = mesh if mesh.distributed else None
+    ex = None
+    if group is not None and fft_impl != "xla":
+        from .peer import Exchange
+        ex = Exchange(mesh, exchange_shapes(cfg, n))
     if decomp == "pencil":
-        return (xpencil.shard_tables(t, n),
-                *pencil.make_fft_pair(mesh.shape, hny),
-                xpencil.hpad_for(hny, n))
-    if decomp == "xpencil":
-        return (xpencil.shard_tables(t, n),
-                *xpencil.make_fft_pair(hny, fft_impl, fast),
-                xpencil.hpad_for(hny, n))
-    return (_slab_tables(t, n), *_slab_pair(fft_impl, fast), None)
+        out = (xpencil.shard_tables(t, n),
+               *pencil.make_fft_pair(mesh.shape, hny, group),
+               xpencil.hpad_for(hny, n))
+    elif decomp == "xpencil":
+        out = (xpencil.shard_tables(t, n),
+               *xpencil.make_fft_pair(hny, fft_impl, fast, group, ex),
+               xpencil.hpad_for(hny, n))
+    else:
+        out = (_slab_tables(t, n), *_slab_pair(fft_impl, fast, group, ex),
+               None)
+    return (_local_tables(out[0], mesh, decomp), *out[1:], ex)
 
 
 class _ShardedModel(nn.Module):
@@ -198,8 +337,13 @@ class _ShardedModel(nn.Module):
         self.fft_impl = fft_impl
         self.decomp = decomp
         self.fast = fast and fft_impl == "overlap"
-        (self.tables, self._fwd, self._inv,
-         self.hpad) = _decomp_setup(cfg, mesh, fft_impl, decomp, self.fast)
+        (self.tables, self._fwd, self._inv, self.hpad,
+         self.exchange) = _decomp_setup(cfg, mesh, fft_impl, decomp,
+                                        self.fast)
+        # the stacked indices of this rank's spectral and physical shards
+        # (None on a stacked group)
+        self._k = spectral_index(mesh, decomp)
+        self._d = mesh.rank
         self.dt = float(cfg.dt)
         self.nu = float(cfg.nu)
         self.r_drag = float(cfg.r_drag)
@@ -208,20 +352,25 @@ class _ShardedModel(nn.Module):
 
     @property
     def spectral_shape(self) -> tuple:
+        """The spectral shards this process holds: P stacked, or the
+        rank's one on a distributed group."""
         n, (nx, ny) = self.n_shards, self.cfg.grid_shape
+        lead = self.mesh.local_shards
         if self.hpad is not None:
-            return (n, nx, self.hpad // n)
-        return (n, nx // n, ny // 2 + 1)
+            return (lead, nx, self.hpad // n)
+        return (lead, nx // n, ny // 2 + 1)
 
     @property
     def physical_shape(self) -> tuple:
         """The physical shards: tiles (P, nx/Px, ny/Py) for the pencil,
-        else row shards (P, nx/P, ny)."""
+        else row shards (P, nx/P, ny); the rank's one on a distributed
+        group."""
         n, (nx, ny) = self.n_shards, self.cfg.grid_shape
+        lead = self.mesh.local_shards
         if self.decomp == "pencil":
             px, py = self.mesh.shape
-            return (n, nx // px, ny // py)
-        return (n, nx // n, ny)
+            return (lead, nx // px, ny // py)
+        return (lead, nx // n, ny)
 
     def _etd_hpad(self) -> int:
         """The ETD tables' pad: hpad where the x-pencil pads, else 0 (the
@@ -233,8 +382,10 @@ class _ShardedModel(nn.Module):
         """A global spectral table (L..., nx, hny[pad]) with `lead`
         leading axes -> the state's layout, leading axes kept."""
         if self.hpad is not None:
-            return xpencil.shard_state(a, self.n_shards)
-        return dfft.shard_rows(a, self.n_shards, lead)
+            return _local(xpencil.shard_state(a, self.n_shards), self._k,
+                          lead)
+        return _local(dfft.shard_rows(a, self.n_shards, lead), self._k,
+                      lead)
 
     def _shard_etd(self, tabs: etd.EtdTables, lead: int) -> etd.EtdTables:
         return etd.EtdTables(*(self._shard_table(a, lead) for a in tabs))
@@ -259,7 +410,8 @@ class _ShardedModel(nn.Module):
         elif tuple(src.shape) != self.physical_shape:
             raise ValueError(
                 f"forcing must be global {self.cfg.grid_shape} or its "
-                f"shards {self.physical_shape}, got {tuple(src.shape)}")
+                f"{'rank' if self.mesh.distributed else 'stacked'} shards "
+                f"{self.physical_shape}, got {tuple(src.shape)}")
         for _ in range(n_steps):
             state = self._step(state, src)
         return state
@@ -277,24 +429,43 @@ class _ShardedModel(nn.Module):
         z = zeta_hat.to(self.device, torch.complex64)[:, :self.cfg.ny // 2
                                                       + 1]
         if self.hpad is not None:
-            return xpencil.shard_state(z, self.n_shards)
-        return dfft.shard_rows(z, self.n_shards).contiguous()
+            return _local(xpencil.shard_state(z, self.n_shards), self._k)
+        return _local(dfft.shard_rows(z, self.n_shards).contiguous(),
+                      self._k)
+
+    def _gather(self, shard: torch.Tensor, spectral: bool) -> torch.Tensor:
+        """The stacked shards from every rank's (a collective,
+        multihost.gather_to_host), in the stacked order: the pencil's
+        spectra from mesh order to block order."""
+        got = multihost.gather_to_host(shard).to(self.device)
+        if spectral and self.decomp == "pencil":
+            px, py = self.mesh.shape
+            got = got.unflatten(0, (px, py)).transpose(0, 1).flatten(0, 1)
+        return got
 
     def unshard_spectral(self, zeta_hat: torch.Tensor) -> torch.Tensor:
-        """The sharded state -> the global (nx, hny) on the card."""
+        """The sharded state -> the global (nx, hny) on the card; on a
+        distributed group a collective, every rank getting it."""
+        if self.mesh.distributed:
+            zeta_hat = self._gather(zeta_hat, True)
         if self.hpad is not None:
             return xpencil.unshard_state(zeta_hat, self.cfg.ny // 2 + 1)
         return dfft.unshard_rows(zeta_hat)
 
     def shard_physical(self, field) -> torch.Tensor:
         """A global (nx, ny) field -> its physical shards: tiles for the
-        pencil, else row shards."""
+        pencil, else row shards (the rank's on a distributed group)."""
         f = torch.as_tensor(field, dtype=torch.float32, device=self.device)
         if self.decomp == "pencil":
-            return pencil.shard_tiles(f, self.mesh.shape)
-        return dfft.shard_rows(f, self.n_shards).contiguous()
+            return _local(pencil.shard_tiles(f, self.mesh.shape), self._d)
+        return _local(dfft.shard_rows(f, self.n_shards).contiguous(),
+                      self._d)
 
     def unshard_physical(self, field: torch.Tensor) -> torch.Tensor:
+        """The physical shards -> the global (nx, ny); on a distributed
+        group a collective."""
+        if self.mesh.distributed:
+            field = self._gather(field, False)
         if self.decomp == "pencil":
             return pencil.unshard_tiles(field, self.mesh.shape)
         return dfft.unshard_rows(field)
@@ -362,11 +533,12 @@ class ShardedBarotropicModel(_ShardedModel):
         """Physical IC -> the sharded state, through the library transform
         of the decomposition (a one-time cost, as in the JAX package)."""
         f = self.shard_physical(vort0)
+        group = self.mesh if self.mesh.distributed else None
         if self.decomp == "pencil":
             return self._fwd(f)
         if self.decomp == "xpencil":
-            return xpencil.rfft2_local(f, "xla")
-        return dfft.rfft2_local(f)
+            return xpencil.rfft2_local(f, "xla", group=group)
+        return dfft.rfft2_local(f, group=group)
 
 
 class ShardedShallowWaterModel(_ShardedModel):

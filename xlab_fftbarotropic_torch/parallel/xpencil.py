@@ -71,45 +71,60 @@ def shard_tables(t: SpectralTables, n_shards: int) -> SpectralTables:
 
 
 def rfft2_local(field: torch.Tensor, fft_impl: str,
-                fast: bool = False) -> torch.Tensor:
+                fast: bool = False, group=None,
+                exchange=None) -> torch.Tensor:
     """Row shards (P, nx/P, ny) float32 -> x-pencil (P, nx, hpad/P)
-    complex64, unnormalized."""
+    complex64, unnormalized (on a distributed group, the rank's shard,
+    with the exchange buffers of the kernel impls)."""
     spec = torch.fft.rfft(field, dim=-1)
+    ranked = dfft._ranked(group)
     if fft_impl == "overlap":
         from . import fused_overlap as fo
+        if ranked:
+            return fo.xstage_gather_ranked(spec, exchange, forward=True,
+                                           fast=fast)
         return fo.xstage_gather(spec, forward=True, fast=fast)
-    to_cols, _ = dfft._transposes(fft_impl == "pallas")
-    return torch.fft.fft(to_cols(spec), dim=1)
+    to_cols, _ = dfft._transposes(fft_impl == "pallas", group, exchange)
+    return dfft.fft_x(to_cols(spec), ranked=ranked)
 
 
 def irfft2_local(spec_cols: torch.Tensor,
                  grid_shape: Optional[Tuple[int, int]], hny: int,
-                 fft_impl: str, fast: bool = False) -> torch.Tensor:
+                 fft_impl: str, fast: bool = False, group=None,
+                 exchange=None) -> torch.Tensor:
     """x-pencil (P, nx, hpad/P) complex64 -> row shards (P, nx/P, ny)
     float32, scaled by 1/(nx*ny)."""
     nx = spec_cols.shape[1]
     ny = grid_shape[1] if grid_shape is not None else 2 * (hny - 1)
+    ranked = dfft._ranked(group)
     if fft_impl == "overlap":
         from . import fused_overlap as fo
-        rows = fo.xstage_scatter(spec_cols, hny, forward=False,
-                                 scale=1.0 / nx, fast=fast)
+        if ranked:
+            rows = fo.xstage_scatter_ranked(spec_cols, hny, exchange,
+                                            forward=False, scale=1.0 / nx,
+                                            fast=fast)
+        else:
+            rows = fo.xstage_scatter(spec_cols, hny, forward=False,
+                                     scale=1.0 / nx, fast=fast)
     else:
-        _, to_rows = dfft._transposes(fft_impl == "pallas")
-        rows = to_rows(torch.fft.ifft(spec_cols, dim=1), hny)
+        _, to_rows = dfft._transposes(fft_impl == "pallas", group, exchange)
+        rows = to_rows(dfft.fft_x(spec_cols, True, ranked), hny)
     return dfft.irfft_rows(rows, ny)
 
 
-def make_fft_pair(hny: int, fft_impl: str = "xla", fast: bool = False):
+def make_fft_pair(hny: int, fft_impl: str = "xla", fast: bool = False,
+                  group=None, exchange=None):
     """(forward, inverse) with the ops/fft.py signatures for the x-pencil
     layout; `fast`: the overlap halves' fast forms (no change on the
-    other impls)."""
+    other impls); on a distributed group, the rank's shard."""
     if fft_impl not in IMPLS:
         raise ValueError(f"unknown fft_impl: {fft_impl!r}")
 
     def fwd(field):
-        return rfft2_local(field, fft_impl, fast)
+        return rfft2_local(field, fft_impl, fast, group, exchange)
 
     def inv(spec, grid_shape=None):
-        return irfft2_local(spec, grid_shape, hny, fft_impl, fast)
+        return irfft2_local(spec, grid_shape, hny, fft_impl, fast, group,
+                            exchange)
 
     return fwd, inv

@@ -12,10 +12,15 @@ resumes in the other. Under ETDRK4 each record's cfl stat is held to the
 scheme's advective limit (utils/guards.py:check_etd_cfl), as the JAX
 runner does. A --shard run steps any of the three families on its
 sharded model (parallel/model.py), whose records and checkpoints are the
-global fields; it has no per-record stats, as in the JAX runner. An --ensemble
-run steps M perturbed members (models/ensemble.py) and records each
-into its own tree (output/m00/...); -m fd (or jacobian) steps the
-finite-difference core (models/fd_core.py).
+global fields; it has no per-record stats, as in the JAX runner. On an
+initialized torch.distributed runtime (parallel/multihost.py) a --shard
+run holds one shard per rank: every rank gathers the records and the
+checkpoint state (collectives), and rank 0 alone writes the manifest,
+the records and the checkpoints (the JAX runner's multi-process rule); a
+checkpoint holds the global state, so any number of ranks resumes it.
+An --ensemble run steps M perturbed members (models/ensemble.py) and
+records each into its own tree (output/m00/...); -m fd (or jacobian)
+steps the finite-difference core (models/fd_core.py).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from .forcing.source import SourceReader, make_reader
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.fieldio import FieldRecorder, Manifest, read_field
 from .models.tracer import TracerModel, TracerState, tracer_ic
+from .parallel.multihost import is_primary
 from .utils.guards import check_etd_cfl, check_finite
 
 
@@ -362,27 +368,38 @@ class _FDAdapter:
 
 
 def shard_mesh(device, decomp: str = "slab", mesh_shape=None):
-    """The shard group of a --shard run on the visible card (or the CPU):
-    one shard (parallel/model.py make_mesh; more than one visible card
-    is refused there), or for decomp 'pencil' the (Px, Py) group of
-    `mesh_shape` ((1, 1) when None, the JAX runner's default on one
-    process with one device), whose Px Py must be that one shard.
-    mesh_shape is ignored outside the pencil, as in the JAX runner."""
-    from .parallel import make_mesh
-    from .parallel.pencil import make_pencil_mesh
+    """The shard group of a --shard run. On an initialized torch.distributed
+    runtime (parallel/multihost.py) one shard per rank: the 1-D group, or
+    for decomp 'pencil' the (Px, Py) group of `mesh_shape` (None: hosts
+    on px, the ranks of a host on py, as the JAX runner's default).
+    Without it one shard on the visible card (or the CPU; more than one
+    visible card is refused by make_mesh), or the pencil's (1, 1) group;
+    a pencil mesh_shape of more shards is refused. mesh_shape is ignored
+    outside the pencil, as in the JAX runner."""
+    from .parallel import make_mesh, make_mesh2d, multihost
 
+    if multihost.is_initialized():
+        if decomp != "pencil":
+            return make_mesh(None, device)
+        if mesh_shape is None:
+            hosts = multihost.host_count()
+            mesh_shape = (hosts, multihost.world_size() // hosts)
+        return make_mesh2d(tuple(mesh_shape), device)
     mesh = make_mesh(None, device)
     if decomp != "pencil":
         return mesh
-    pencil = make_pencil_mesh(tuple(mesh_shape or (1, 1)), device)
-    if pencil.n_shards != mesh.n_shards:
+    shape = tuple(mesh_shape or (1, 1))
+    n = math.prod(shape)
+    if n != mesh.n_shards:
         raise NotImplementedError(
-            f"mesh shape {pencil.shape} needs {pencil.n_shards} devices, got "
-            f"{mesh.n_shards}: one shard per card needs the one-process-"
-            f"per-card executor (ROADMAP.md queue A, item 5.2); "
-            f"parallel.pencil.make_pencil_mesh({pencil.shape}) stacks the "
-            f"shards on one card")
-    return pencil
+            f"mesh shape {shape} needs {n} ranks, got {mesh.n_shards}: run "
+            f"one process per shard (torchrun --nproc-per-node {n} -m "
+            f"xlab_fftbarotropic_torch.cli.run --shard ..., or "
+            f"XFB_COORDINATOR, XFB_NUM_PROCESSES and XFB_PROCESS_ID; "
+            f"ROADMAP.md queue A, item 5.2); "
+            f"parallel.pencil.make_pencil_mesh({shape}) stacks the shards "
+            f"in one process")
+    return make_mesh2d(shape, device)
 
 
 def make_adapter(cfg: ModelConfig, device, model_kind: str = "barotropic",
@@ -537,8 +554,12 @@ def run(cfg: ModelConfig,
     src = torch.tensor(src_np, device=device)
     reader: SourceReader = make_reader(cfg, recipe, src_path)
 
-    manifest = Manifest(manifest_path) if record else None
-    recorder = FieldRecorder(cfg.output_dir, manifest) if record else None
+    # host file I/O belongs to rank 0 alone; the gathers (record fields,
+    # the checkpoint state) are collectives and run on every rank
+    primary = is_primary()
+    manifest = Manifest(manifest_path) if (record and primary) else None
+    recorder = (FieldRecorder(cfg.output_dir, manifest)
+                if (record and primary) else None)
 
     stats_history = []
     t0 = _time.perf_counter()
@@ -547,6 +568,8 @@ def run(cfg: ModelConfig,
     def do_record(step, state, src_np, src):
         fields = adapter.record_fields(state, only=record_only)
         check_finite(step, **fields)
+        if recorder is None:
+            return
         want_src = record_only is None or "vort_src" in record_only
         recorder.record(step, vort_src=src_np if want_src else None,
                         **fields)
@@ -567,20 +590,22 @@ def run(cfg: ModelConfig,
                     # the first violating later one
                     check_etd_cfl(step, st["cfl"], cfg,
                                   at_start=(step == start_step))
-                if progress or step_banners:
+                if (progress or step_banners) and primary:
                     print(f"# Step {step}, time = {step * cfg.dt:.2f}, "
                           f"record now!", file=sys.stderr)
                 if progress and "spread" in st:
                     print(f"# Ensemble spread = {st['spread']:.6e}",
                           file=sys.stderr)
-            elif step_banners:
+            elif step_banners and primary:
                 print(f"# Step {step}, time = {step * cfg.dt:.2f}",
                       file=sys.stderr)
             if cfg.checkpoint_step and step % cfg.checkpoint_step == 0 and \
                     step > start_step:
-                save_checkpoint(
-                    Path(cfg.output_dir) / f"ckpt_step_{step}.npz",
-                    cfg, adapter.pack(state), step, kind=adapter.kind)
+                packed = adapter.pack(state)   # a gather: every rank
+                if primary:
+                    save_checkpoint(
+                        Path(cfg.output_dir) / f"ckpt_step_{step}.npz",
+                        cfg, packed, step, kind=adapter.kind)
 
             if per_step:
                 # main-shallow-water.cpp:304: the source read precedes
@@ -609,7 +634,7 @@ def run(cfg: ModelConfig,
                         boundaries.append(nxt)
                 n = max(1, min(boundaries) - step)
                 state = adapter.segment(state, src, n)
-                if step_banners:
+                if step_banners and primary:
                     for k in range(step + 1, step + n):
                         print(f"# Step {k}, time = {k * cfg.dt:.2f}",
                               file=sys.stderr)
