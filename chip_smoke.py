@@ -265,17 +265,34 @@ exits non-zero and prints no result):
 5t. The one-process-per-card executor (phase_ranks): RANKS processes
    (rank_worker, this script with --rank-worker, on the XFB_* contract;
    gloo when they share the card, NCCL with a card each) run RANK_CASES
-   for RANK_STEPS steps: the barotropic slab pallas, overlap and overlap
-   fast at n^2, SW x-pencil overlap, tracer slab pallas and the
+   for RANK_STEPS steps: the barotropic slab pallas and overlap at n^2,
+   the overlap fast, SW x-pencil overlap, tracer slab pallas and the
    barotropic 2x2 pencil (xla) at RANK_SMALL_N^2. Each against the
    stacked model at P = RANKS in this process: the gathered state bit
    for bit, each rank's launches exactly the stacked model's, rank 0's
    torch.profiler trace holding its kernels with its own grid only (a2a
    runs of its shard, xstage tiles of its columns); the slowest rank's
    ms/step beside the stacked model's, the host barriers' share of the
-   wall, and whether gloo's all_to_all_single takes CUDA tensors. Every
+   wall, and whether gloo's all_to_all_single takes CUDA tensors. Then
+   adjoint.make_sharded_rollout over the ranks (RANK_ROLLOUTS: the slab
+   and x-pencil on make_mesh(None), the 2x2 pencil; xla) at
+   SHARD_ROLLOUT_N^2 for SHARD_ROLLOUT_STEPS steps from numpy-seeded
+   inputs, every rank running the backward sweep of its part of a
+   final-state misfit: the gathered value bit for bit the stacked
+   rollout's at P = RANKS in this process, the gathered gradients wrt
+   vort0 and src bit for bit or within max |d| <= RANK_GRAD_BAR of its
+   max (printed which), within SHARD_ROLLOUT_BAR of the single-device
+   library gradient, each rank's zero off its own shard, and the slowest
+   rank's ms per gradient window step beside the stacked one's. Every
    rank is ended once one fails. `--phase 5t` runs the toolchain phase
    and this phase alone.
+5u. Reference parity on the card (phase_parity): the barotropic kernel
+   path, strict and y-first, in its default arm and FUSEKB=full (exact
+   launches), from the gaussian IC at PARITY_N^2 for PARITY_STEPS RK4
+   steps against the port's numpy oracle (oracle/reference_cpu.py, the
+   transcription of the reference code) on the same IC: rel-L2 of the
+   physical vorticity < PARITY_BAR; the library path's printed.
+   `--phase 5u` runs the toolchain phase and this phase alone.
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -445,18 +462,31 @@ PENCIL_SMALL_N, PENCIL_CLI_BAR = 256, 1e-6
 # fast, grid), grid "n" the main path's, "small" RANK_SMALL_N; each for
 # RANK_STEPS steps from a numpy-seeded state, against the stacked model
 # at P = RANKS in the same call
-RANKS, RANK_STEPS, RANK_SMALL_N, RANK_SEED, RANK_KAPPA = 4, 5, 256, 11, 50.0
+RANKS, RANK_STEPS, RANK_SMALL_N, RANK_SEED, RANK_KAPPA = 4, 3, 256, 11, 50.0
 RANK_TIMEOUT = 600
 RANK_CASES = (
     ("ranks-bt-slab-pallas", "barotropic", "slab", "pallas", False, "n"),
     ("ranks-bt-slab-overlap", "barotropic", "slab", "overlap", False, "n"),
     ("ranks-bt-slab-overlap-fast", "barotropic", "slab", "overlap", True,
-     "n"),
+     "small"),
     ("ranks-sw-xpencil-overlap", "sw", "xpencil", "overlap", False,
      "small"),
     ("ranks-tracer-slab-pallas", "tracer", "slab", "pallas", False,
      "small"),
     ("ranks-bt-pencil-xla", "barotropic", "pencil", "xla", False, "small"))
+# phase 5t's rollouts over the ranks (adjoint.make_sharded_rollout, xla):
+# the slab and x-pencil on make_mesh(None), the pencil on the 2x2 mesh, at
+# SHARD_ROLLOUT_N^2 for SHARD_ROLLOUT_STEPS steps; the ranks' gradient
+# against the stacked one: bit for bit, or max |d| <= RANK_GRAD_BAR of its
+# max
+RANK_ROLLOUTS = ("slab", "xpencil", "pencil")
+RANK_GRAD_BAR = 1e-6
+# the reference-parity bar on the card: the barotropic kernel path
+# (strict, y-first; the default arm and FUSEKB=full) against the port's
+# numpy oracle, from the gaussian IC at PARITY_N^2 for PARITY_STEPS RK4
+# steps, rel-L2 of the physical vorticity
+PARITY_N, PARITY_STEPS, PARITY_BAR = 256, 20, 1e-6
+PARITY_ARMS = {"barotropic": {}, "bt-fusekb-full": dict(fusekb="full")}
 
 
 def shard_transform_launches(decomp: str, impl: str, inverse: int,
@@ -5762,6 +5792,99 @@ def _probe_gloo_cuda(dev) -> dict:
         return dict(ok=False, backend="gloo", error=str(e)[:400])
 
 
+def _rollout_mesh(decomp: str, dev, ranked: bool):
+    """The rollout's group: the ranks (make_mesh(None), or the 2x2 pencil
+    mesh on the runtime) or RANKS stacked shards on `dev`."""
+    from xlab_fftbarotropic_torch.parallel import make_mesh
+    from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+    if decomp == "pencil":
+        return make_pencil_mesh((2, 2), dev)
+    return make_mesh(None if ranked else RANKS, dev)
+
+
+def _rollout_inputs(dev) -> tuple:
+    """The numpy-seeded (vort0, src, target) of phase 5t's rollouts at
+    SHARD_ROLLOUT_N^2: the gaussian vortex with seeded noise, a seeded
+    source, 0.9 vort0 with seeded noise."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    n = SHARD_ROLLOUT_N
+    rng = np.random.default_rng(RANK_SEED)
+    v = np.asarray(makefields.gaussian(ModelConfig(nx=n, ny=n)), np.float32)
+    v = (v + 5e-6 * rng.standard_normal(v.shape)).astype(np.float32)
+    src = (1e-9 * rng.standard_normal(v.shape)).astype(np.float32)
+    tgt = (0.9 * v + 1e-6 * rng.standard_normal(v.shape)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (v, src, tgt))
+
+
+def _rollout_gradient(roll, inputs, own) -> tuple:
+    """(value, grad wrt vort0, grad wrt src) of half the mean-square
+    misfit of the final vorticity; `own` the rank's shard of a global
+    field (the identity when stacked), the loss its part of the global
+    one."""
+    v0, src, tgt = inputs
+    x, s = (a.clone().requires_grad_(True) for a in (v0, src))
+    out = roll(x, s)
+    loss = 0.5 * torch.sum(torch.square(out - own(tgt))) / tgt.numel()
+    gx, gs = torch.autograd.grad(loss, [x, s])
+    return out.detach(), gx, gs
+
+
+def _timed_gradient(roll, inputs, own, barrier=None) -> float:
+    """ms per window step of one gradient (forward and backward sweeps),
+    after one more untimed one (over ranks the first few run slower)."""
+    _rollout_gradient(roll, inputs, own)
+    if barrier is not None:
+        barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _rollout_gradient(roll, inputs, own)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / SHARD_ROLLOUT_STEPS
+
+
+def rank_rollouts(workdir: Path, dev) -> None:
+    """Phase 5t's rollouts on one rank: for each of RANK_ROLLOUTS the
+    rank's value and gradients, gathered (rank 0 saves them as
+    DIR/rollout-<decomp>.pt), whether its gradients are zero off its own
+    shard, and its ms per gradient window step; one JSON line each."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.parallel import dfft, multihost, pencil
+
+    rank = multihost.rank()
+    n = SHARD_ROLLOUT_N
+    cfg = ModelConfig(nx=n, ny=n)
+    inputs = _rollout_inputs(dev)
+    for decomp in RANK_ROLLOUTS:
+        mesh = _rollout_mesh(decomp, "cuda", True)
+        check(mesh.distributed and mesh.rank == rank, f"{decomp}: {mesh}")
+        split, join = ((lambda a: pencil.shard_tiles(a, (2, 2)),
+                        lambda a: pencil.unshard_tiles(a, (2, 2)))
+                       if decomp == "pencil" else
+                       (lambda a: dfft.shard_rows(a, RANKS),
+                        dfft.unshard_rows))
+
+        def own(a):
+            return split(a)[rank:rank + 1]
+
+        roll = adjoint.make_sharded_rollout(cfg, SHARD_ROLLOUT_STEPS, mesh,
+                                            decomp)
+        out = _rollout_gradient(roll, inputs, own)
+        off = all(int(torch.count_nonzero(g)) == int(torch.count_nonzero(
+            own(g))) for g in out[1:])
+        gathered = [join(multihost.gather_to_host(a if i == 0 else own(a)))
+                    for i, a in enumerate(out)]
+        if rank == 0:
+            torch.save(gathered, workdir / f"rollout-{decomp}.pt")
+        ms = _timed_gradient(roll, inputs, own, torch.distributed.barrier)
+        print(json.dumps(dict(rank=rank, case=f"rollout-{decomp}", ms=ms,
+                              shape=list(out[0].shape),
+                              off_shard_zero=off)), flush=True)
+        del roll, out, gathered
+        torch.cuda.empty_cache()
+
+
 def rank_worker(workdir: Path, n: int) -> int:
     """One rank of phase 5t (chip_smoke.py --rank-worker DIR, started by
     phase_ranks with the XFB_* contract): each case of RANK_CASES over the
@@ -5831,6 +5954,7 @@ def rank_worker(workdir: Path, n: int) -> int:
         print(json.dumps(line), flush=True)
         del m, s0, src
         torch.cuda.empty_cache()
+    rank_rollouts(workdir, dev)
     print(json.dumps(dict(rank=rank, backend=multihost.backend(),
                           gloo_cuda=gloo, device=str(dev))), flush=True)
     torch.distributed.barrier()
@@ -5900,6 +6024,7 @@ def phase_ranks(n: int, dev) -> dict:
         ref[case[0]] = dict(state=state, launches=launches, ms=ms)
         del m, s, s0, src
         torch.cuda.empty_cache()
+    rollouts = stacked_rollouts(dev)
     log(f"phase 5t stacked references: {time.perf_counter() - t_phase:.1f} "
         f"s in")
     with tempfile.TemporaryDirectory(prefix="xfb_ranks_") as tmp:
@@ -5959,8 +6084,134 @@ def phase_ranks(n: int, dev) -> dict:
                                      where=where, barrier_share=share,
                                      kernel_ms=r0.get("kernel_ms", {}),
                                      per_rank_ms=[x["ms"] for x in per])
+        out["rollouts"] = check_rank_rollouts(Path(tmp), lines, rollouts,
+                                              where)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 5t: {out['wall_s']:.1f} s")
+    return out
+
+
+def stacked_rollouts(dev) -> dict:
+    """Phase 5t's references of the rollouts: for each of RANK_ROLLOUTS
+    the stacked make_sharded_rollout's value and gradients at P = RANKS
+    and its ms per gradient window step, and the single-device library
+    gradients (make_rollout on torch.fft)."""
+    from xlab_fftbarotropic_torch import adjoint
+    from xlab_fftbarotropic_torch.config import ModelConfig
+
+    n, steps = SHARD_ROLLOUT_N, SHARD_ROLLOUT_STEPS
+    cfg = ModelConfig(nx=n, ny=n)
+    inputs = _rollout_inputs(dev)
+    out = {"single": _rollout_gradient(adjoint.make_rollout(
+        cfg.replace(fft_backend="xla"), steps, device=dev), inputs,
+        lambda a: a)}
+    for decomp in RANK_ROLLOUTS:
+        roll = adjoint.make_sharded_rollout(
+            cfg, steps, _rollout_mesh(decomp, dev, False), decomp)
+        out[decomp] = dict(
+            state=[a.cpu() for a in _rollout_gradient(roll, inputs,
+                                                      lambda a: a)],
+            ms=_timed_gradient(roll, inputs, lambda a: a))
+    out["single"] = [a.cpu() for a in out["single"]]
+    return out
+
+
+def check_rank_rollouts(tmp: Path, lines: list, ref: dict,
+                        where: str) -> dict:
+    """Phase 5t's rollouts over the ranks against the stacked and the
+    single-device references (stacked_rollouts; module note, 5t)."""
+    out = {}
+    for decomp in RANK_ROLLOUTS:
+        name = f"rollout-{decomp}"
+        per = sorted((x for x in lines if x.get("case") == name),
+                     key=lambda x: x["rank"])
+        check(len(per) == RANKS, f"{name}: {len(per)} ranks reported")
+        check(all(x["off_shard_zero"] for x in per),
+              f"{name}: a rank's gradient is nonzero off its own shard")
+        value, *grads = torch.load(tmp / f"{name}.pt")
+        want, *want_grads = ref[decomp]["state"]
+        check(all(bool(torch.isfinite(a).all()) for a in [value] + grads),
+              f"{name} not finite")
+        check(torch.equal(value, want), f"{name}: the value is not bit "
+              f"for bit the stacked rollout's (max |d| "
+              f"{float((value - want).abs().max()):.3e})")
+        row = dict(ms=max(x["ms"] for x in per), stacked_ms=ref[decomp]["ms"],
+                   per_rank_ms=[x["ms"] for x in per])
+        for what, g, w, single in zip(("vort0", "src"), grads, want_grads,
+                                      ref["single"][1:]):
+            same = torch.equal(g, w)
+            err = float((g - w).abs().max() / w.abs().max())
+            err1 = float((g - single).abs().max() / single.abs().max())
+            log(f"{name}: {SHARD_ROLLOUT_STEPS} steps at {SHARD_ROLLOUT_N}^2 "
+                f"on {RANKS} ranks {where}: gradient wrt {what} "
+                f"{'bit for bit' if same else 'not bit for bit'} the "
+                f"stacked P = {RANKS} rollout's (max |d| / max {err:.3e}, "
+                f"rel-L2 {rel_l2(g, w):.3e}); against the single-device "
+                f"library gradient max |d| / max {err1:.3e}")
+            check(same or err <= RANK_GRAD_BAR,
+                  f"{name}: gradient wrt {what} {err:.3e} > {RANK_GRAD_BAR} "
+                  f"of the stacked one's max")
+            check(err1 <= SHARD_ROLLOUT_BAR,
+                  f"{name}: gradient wrt {what} {err1:.3e} > "
+                  f"{SHARD_ROLLOUT_BAR} of the single-device one's max")
+            row[what] = dict(bit_for_bit=same, vs_stacked=err,
+                             vs_single=err1)
+        log(f"{name}: value bit for bit the stacked rollout's; "
+            f"{row['ms']:.3f} ms per gradient window step (slowest rank; "
+            f"stacked {row['stacked_ms']:.3f}; per rank "
+            f"{', '.join(f'{m:.3f}' for m in row['per_rank_ms'])})")
+        out[decomp] = row
+    return out
+
+
+def phase_parity(dev) -> dict:
+    """The reference-parity bar on the card: the barotropic kernel path
+    (strict, y-first) in each arm of PARITY_ARMS, and the library path
+    (logged), from the gaussian IC at PARITY_N^2 for PARITY_STEPS RK4
+    steps against the port's numpy oracle (oracle/reference_cpu.py) on
+    the same IC: rel-L2 of the physical vorticity < PARITY_BAR."""
+    from xlab_fftbarotropic_torch.config import ModelConfig
+    from xlab_fftbarotropic_torch.ic import makefields
+    from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.oracle.reference_cpu import (
+        OracleBarotropic)
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig(nx=PARITY_N, ny=PARITY_N)
+    v0 = makefields.gaussian(cfg)
+    want = torch.from_numpy(OracleBarotropic(cfg).run(v0, PARITY_STEPS)
+                            ).double()
+    out = {}
+    runs = dict(PARITY_ARMS, library=None)
+    for arm, kw in runs.items():
+        c = cfg.replace(fft_backend="xla") if kw is None else cfg
+        m = BarotropicModel.build(c, dev, **(kw or {}))
+        check(m.backend == ("xla" if kw is None else "pallas"),
+              f"parity {arm}: backend {m.backend}")
+        s0 = m.init_state(v0)
+        torch.cuda.synchronize()
+        ff.reset_launches()
+        z = m.segment(s0, m.zero_source(), PARITY_STEPS)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+        got = m.diags(z).vort.double().cpu()
+        check(bool(torch.isfinite(got).all()), f"parity {arm} not finite")
+        err = rel_l2(got, want)
+        log(f"reference parity, {arm}: {PARITY_STEPS} RK4 steps at "
+            f"{PARITY_N}^2 from the gaussian IC, rel-L2 of the vorticity "
+            f"against the numpy oracle {err:.3e} (max |d| / max "
+            f"{float((got - want).abs().max() / want.abs().max()):.3e}); "
+            f"launches {launches}")
+        per_step = PER_STEP.get(arm, {})
+        check(launches == {k: v * PARITY_STEPS for k, v in per_step.items()},
+              f"parity {arm}: launched {launches}, not {per_step} a step")
+        if kw is not None:
+            check(err < PARITY_BAR, f"reference parity {arm}: rel-L2 "
+                  f"{err:.3e} >= {PARITY_BAR}")
+        out[arm] = dict(rel_l2=err, launches=launches)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 5u: {out['wall_s']:.1f} s")
     return out
 
 
@@ -5982,7 +6233,8 @@ def main(argv=None) -> int:
                     "goes)")
     ap.add_argument("--rank-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--phase", choices=["5r", "5s", "5t"], default=None,
+    ap.add_argument("--phase", choices=["5r", "5s", "5t", "5u"],
+                    default=None,
                     help="run the toolchain phase and this phase alone (a "
                     "quick check of it; no result lines)")
     args = ap.parse_args(argv)
@@ -6025,6 +6277,8 @@ def main(argv=None) -> int:
                 args.n, args.steps, dev)
         elif args.phase == "5s":
             report["pencil"] = phase_pencil(args.n, args.steps, dev)
+        elif args.phase == "5u":
+            report["parity"] = phase_parity(dev)
         else:
             report["ranks"] = phase_ranks(args.n, dev)
         if args.json:
@@ -6033,19 +6287,29 @@ def main(argv=None) -> int:
         log(f"phase {args.phase} alone: {time.perf_counter() - t_start:.1f} "
             f"s; {smi}")
         return 0
+
+    def at(what):
+        log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+
     report["xtile"] = phase_xtile(args.n)
     report["kernels"] = phase_kernels(args.n, dev)
+    at("kernels")
     report["main_paths"] = {family: phase_main_path(family, args.n,
                                                     args.steps)
                             for family in CLI_FAMILIES}
+    at("main paths")
     for path in MODEL_PATHS:
         report["main_paths"][path] = phase_model_path(path, args.n,
                                                       args.steps)
+    at("model paths")
     report["main_paths"]["adjoint"] = phase_adjoint(args.n, dev,
                                                     args.profile)
+    at("5e adjoint")
     report["sharded"] = phase_sharded(args.n, args.steps, dev, args.profile)
     report["main_paths"].update(report["sharded"]["main_paths"])
+    at("5j sharded")
     report["main_paths"]["postproc"] = phase_postproc(args.n, dev)
+    at("5k postproc")
     with tempfile.TemporaryDirectory(prefix="xfb_smoke_") as tmp:
         spectral = spectral_run(args.n, args.steps, Path(tmp))
         report["main_paths"]["diagnose"] = phase_diagnose(
@@ -6054,36 +6318,50 @@ def main(argv=None) -> int:
                                               spectral)
         report["main_paths"]["ensemble"] = phase_ensemble(
             args.n, args.steps, dev, spectral)
+    at("5l-5n")
     report["fast"] = phase_fast(args.n, args.steps, dev, args.profile)
     report["kernels"].update(report["fast"]["kernels"])
     report["main_paths"]["barotropic-fast"] = report["fast"]["main_path"]
+    at("5o fast")
     report["fast_sw"] = phase_fast_sw(args.n, args.steps, dev, args.profile)
     report["kernels"].update(report["fast_sw"]["kernels"])
     report["main_paths"].update(report["fast_sw"]["main_paths"])
+    at("5o fast sw")
     report["fast_arms"] = phase_fast_arms(args.n, args.steps, dev,
                                           args.profile)
     report["kernels"].update(report["fast_arms"]["kernels"])
     report["main_paths"].update(report["fast_arms"]["main_paths"])
+    at("5o fast arms")
     report["fast_xfirst"] = phase_fast_xfirst(args.n, args.steps, dev,
                                               args.profile)
     report["kernels"].update(report["fast_xfirst"]["kernels"])
     report["main_paths"].update(report["fast_xfirst"]["main_paths"])
+    at("5p")
     report["fast_rest"] = phase_fast_rest(args.n, args.steps, dev,
                                           args.profile)
     report["kernels"].update(report["fast_rest"]["kernels"])
     report["main_paths"].update(report["fast_rest"]["main_paths"])
+    at("5q")
     report["sharded_families"] = phase_sharded_families(args.n, args.steps,
                                                         dev)
     report["main_paths"].update(report["sharded_families"]["main_paths"])
+    at("5r")
     report["pencil"] = phase_pencil(args.n, args.steps, dev)
     report["main_paths"].update(report["pencil"]["main_paths"])
+    at("5s")
     report["ranks"] = phase_ranks(args.n, dev)
     report["main_paths"].update(report["ranks"]["main_paths"])
+    at("5t")
+    report["parity"] = phase_parity(dev)
+    at("5u")
     report["etd_tables"] = phase_tables(args.n, dev)
+    at("5f tables")
     models = build_models(args.n, dev)
     phase_no_library(args.n, models)
     report["trajectories"] = phase_trajectories(args.n, args.steps, models)
+    at("6-9 trajectories")
     report["time"] = phase_time(args.n, args.steps, models)
+    at("10 time")
     if args.profile:
         report["profile"] = {f: phase_profile(models, f)
                              for f in ("barotropic", "tracer",

@@ -1,8 +1,9 @@
 """The port against the independent C++ oracle (native/ref_oracle.cpp: its
 own radix-2 float32 FFT, nothing shared with numpy, torch or XLA) on
 BASELINE config #1: 256^2 gaussian, 100 RK4 steps, both stepping paths of
-the port on the CPU. Bar: rel-L2 < 3e-6 on the final vorticity, the bar
-tests/test_c_oracle.py holds the JAX model to."""
+the port on the CPU, and the port's numpy oracle (oracle/reference_cpu.py).
+Bar: rel-L2 < 3e-6 on the final vorticity, the bar tests/test_c_oracle.py
+holds the JAX model to."""
 
 import shutil
 import subprocess
@@ -15,7 +16,9 @@ import torch
 from xlab_fftbarotropic_tpu.config import ModelConfig
 from xlab_fftbarotropic_tpu.ic import makefields
 from xlab_fftbarotropic_tpu.io.fieldio import read_field, write_field
+from xlab_fftbarotropic_torch import config as tconfig
 from xlab_fftbarotropic_torch.models.barotropic import BarotropicModel
+from xlab_fftbarotropic_torch.oracle.reference_cpu import OracleBarotropic
 from torch_threads import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -49,12 +52,16 @@ def c_final(tmp_path_factory):
                                   cfg.grid_shape)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("backend", ["pallas", "xla", "oracle"])
 def test_port_matches_c_oracle(c_final, backend):
     cfg, vort0, want = c_final
-    m = BarotropicModel.build(cfg.replace(fft_backend=backend),
-                              torch.device("cpu"))
-    z = m.segment(m.init_state(vort0), m.zero_source(), 100)
-    got = m.diags(z).vort.numpy()
+    if backend == "oracle":
+        got = OracleBarotropic(tconfig.ModelConfig(
+            nx=256, ny=256, dt=3.0)).run(vort0, 100)
+    else:
+        m = BarotropicModel.build(cfg.replace(fft_backend=backend),
+                                  torch.device("cpu"))
+        z = m.segment(m.init_state(vort0), m.zero_source(), 100)
+        got = m.diags(z).vort.numpy()
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel < 3e-6, rel

@@ -12,9 +12,10 @@ package's sharded model (slab, xla) on 4 of the 8 virtual CPU devices
 from the same numpy-seeded initial fields (SW: zeta and eta rel-L2, div
 within 1e-6 of max |zeta|, as tests/test_torch_shard_sw.py; fast mode:
 within the fast class, 1e-4, of the strict JAX run). Also the refusals:
-the pencil with a kernel impl, make_sharded_rollout over ranks, more
-ranks than the kernels' pointer table holds, a kernel impl over ranks on
-more than one host."""
+the pencil with a kernel impl, more ranks than the kernels' pointer
+table holds, a kernel impl over ranks on more than one host; and
+make_sharded_rollout, which runs over ranks and returns the rank's
+shard."""
 
 import jax
 import numpy as np
@@ -152,8 +153,9 @@ def test_refusals(ranks):
     got = ranks["refusals"]["refusals"]
     assert got["pencil-pallas"].startswith("ValueError") and (
         "fft_impl='xla' only" in got["pencil-pallas"])
-    assert got["rollout"].startswith("NotImplementedError") and (
-        "item 5.5" in got["rollout"])
+    # make_sharded_rollout builds over ranks: the rank's shard of the
+    # final vorticity (tests/test_torch_multihost_rollout.py)
+    assert got["rollout"] == [1, worker.N // NS, worker.N]
     assert got["max-shards"].startswith("ValueError") and (
         "kMaxShards" in got["max-shards"])
     assert got["hosts"].startswith("ValueError") and (

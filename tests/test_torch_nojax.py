@@ -1,5 +1,6 @@
 """The port runs without jax and without the JAX package: in a fresh
-interpreter (no GPU visible), it imports every module, steps the
+interpreter (no GPU visible), it imports every module, runs the numpy
+oracle and holds the barotropic model to it, steps the
 barotropic (also in a fusion arm), tracer and shallow-water models
 twice on the CPU in both time schemes (RK4 and ETDRK4), on the plane
 stepper and on the library path, the SW model with drag on the
@@ -50,9 +51,18 @@ from xlab_fftbarotropic_torch.parallel import (dfft, fused_overlap,
                                                pencil, xpencil)
 from xlab_fftbarotropic_torch.config import ModelConfig
 from xlab_fftbarotropic_torch.ic import makefields
+from xlab_fftbarotropic_torch.oracle import reference_cpu
 from xlab_fftbarotropic_torch.utils import guards
 
 cpu = torch.device("cpu")
+# the numpy oracle, and the model on its trajectory
+cfg = ModelConfig(nx=64, ny=64)
+want = reference_cpu.OracleBarotropic(cfg).run(makefields.gaussian(cfg), 2)
+m = BarotropicModel.build(cfg, cpu)
+got = m.diags(m.segment(m.init_state(makefields.gaussian(cfg)),
+                        m.zero_source(), 2)).vort.numpy()
+assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6
+assert np.isfinite(reference_cpu.oracle_invert_pressure(cfg, want)).all()
 for scheme in ("rk4", "etdrk4"):
     for backend in ("pallas", "xla"):
         cfg = ModelConfig(nx=64, ny=64, time_scheme=scheme,

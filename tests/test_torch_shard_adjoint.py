@@ -6,7 +6,8 @@ package's make_sharded_rollout on 4 of the 8 virtual CPU devices (rel-L2
 <= 1e-6), and the gradient of a final-state misfit in both arguments
 against the port's single-device make_rollout gradient, within 1e-5 of
 its largest entry (the JAX package holds its own sharded gradient at
-1e-4, tests/test_adjoint.py:133-162); segments and the refusal."""
+1e-4, tests/test_adjoint.py:133-162); segments and the pencil's refusal
+on a 1-D group."""
 
 import jax
 import jax.numpy as jnp
@@ -89,8 +90,8 @@ def test_pencil_is_refused():
     """On a 1-D group, as in the JAX package (the pencil's rollout on a
     2-D group: tests/test_torch_pencil_run.py); slab and x-pencil on a
     stacked 2-D group run over the flattened pair (the JAX make_mesh2d),
-    the 1-D group's rollout bit for bit (over ranks the rollout is
-    refused: tests/test_torch_multihost_model.py)."""
+    the 1-D group's rollout bit for bit (over ranks:
+    tests/test_torch_multihost_rollout.py)."""
     from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
 
     with pytest.raises(ValueError, match="needs a 2-D mesh"):

@@ -7,6 +7,7 @@ It imports no jax and runs torch on one intra-op thread.
 
     python tests/torch_multihost_worker.py smoke WORKDIR
     python tests/torch_multihost_worker.py models WORKDIR
+    python tests/torch_multihost_worker.py rollout WORKDIR
     python tests/torch_multihost_worker.py cli WORKDIR -- ARGS...
 
 smoke   is_primary, gather_to_host, the /dev/shm exchange buffers (each
@@ -18,6 +19,12 @@ models  every case of CASES: the sharded model of a family, decomposition
         initial_fields, its global state after the steps saved by rank 0
         as WORKDIR/<case>.npy (the JSON line says where), and the
         refusals (the two-host one with the ranks' host count set to 2);
+rollout adjoint.make_sharded_rollout over the ranks, every case of
+        ROLLOUT_CASES: the gathered final vorticity and gradients of the
+        summed final-state misfit saved by rank 0 as
+        WORKDIR/<case>-<what>.npy, whether each rank's gradient is zero
+        off its own shard; and the adjoint identity of
+        multihost.all_to_all on integer-valued float32 and complex64;
 cli     xlab_fftbarotropic_torch.cli.run.main(ARGS) on every rank.
 """
 
@@ -59,6 +66,40 @@ CASES = ([(f, d, i, "rk4", "1d", False) for f in FAMILIES
             ("barotropic", "slab", "xla", "rk4", "2d", False),
             ("barotropic", "xpencil", "pallas", "rk4", "2d", False),
             ("barotropic", "slab", "overlap", "rk4", "1d", True)])
+
+
+# make_sharded_rollout over the ranks: (decomp, wrt, segment), 3 steps at
+# N^2 from rollout_inputs (segment None: round(sqrt(3)) = 2 and a
+# remainder of 1)
+ROLLOUT_STEPS = 3
+ROLLOUT_KW = dict(nx=N, ny=N, dt=3.0, nu=6.5, r_drag=2e-5, beta=1.6e-11)
+ROLLOUT_CASES = [(d, w, s) for d in ("slab", "xpencil", "pencil")
+                 for w, s in (("ic", None), ("src", None), ("both", None),
+                              ("both", 1))]
+
+
+def rollout_name(case) -> str:
+    decomp, wrt, segment = case
+    return f"{decomp}-{wrt}-seg{segment or 'auto'}"
+
+
+def rollout_inputs() -> tuple:
+    """The numpy-seeded (vort0, src, target) of the rollout cases."""
+    rng = np.random.default_rng(5)
+    x = np.arange(N) / N
+    smooth = (np.sin(2 * np.pi * x)[:, None] * np.cos(4 * np.pi * x)[None]
+              + 0.1 * rng.standard_normal((N, N)))
+    v0 = (1e-4 * smooth).astype(np.float32)
+    src = (1e-9 * rng.standard_normal((N, N))).astype(np.float32)
+    target = (0.9 * v0 + 1e-6 * rng.standard_normal((N, N))).astype(
+        np.float32)
+    return v0, src, target
+
+
+def misfit(out, target) -> "torch.Tensor":
+    """Half the squared misfit over the global point count: on a rank's
+    shard, its part of the stacked rollout's misfit (the ranks' sum)."""
+    return 0.5 * torch.sum(torch.square(out - target)) / (N * N)
 
 
 def case_name(case) -> str:
@@ -156,8 +197,6 @@ def refusals(workdir: Path) -> None:
         "pencil-pallas": lambda: build("barotropic", cfg,
                                        make_mesh2d((2, 2), "cpu"),
                                        "pallas", "pencil", False),
-        "rollout": lambda: adjoint.make_sharded_rollout(
-            cfg, 2, make_mesh(None, "cpu")),
     }
     cap = fused_transpose.MAX_SHARDS
     hosts = multihost._STATE["hosts"]
@@ -174,6 +213,9 @@ def refusals(workdir: Path) -> None:
               "xpencil", False)
 
     tries.update({"max-shards": capped, "hosts": two_hosts})
+    # the rollout over ranks runs: the rank's shard of the final vorticity
+    got["rollout"] = list(adjoint.make_sharded_rollout(
+        cfg, 2, make_mesh(None, "cpu"))(*rollout_inputs()[:2]).shape)
     for name, fn in tries.items():
         try:
             fn()
@@ -184,6 +226,97 @@ def refusals(workdir: Path) -> None:
             fused_transpose.MAX_SHARDS = cap
             multihost._STATE["hosts"] = hosts
     say(refusals=got)
+
+
+def _rollout_mesh(decomp: str):
+    from xlab_fftbarotropic_torch.parallel.pencil import make_pencil_mesh
+
+    return (make_pencil_mesh((2, 2), "cpu") if decomp == "pencil"
+            else make_mesh(None, "cpu"))
+
+
+def _own(a: torch.Tensor, decomp: str, rank: int) -> torch.Tensor:
+    """The rank's shard (1, ...) of a global (N, N) field."""
+    from xlab_fftbarotropic_torch.parallel import dfft, pencil
+
+    s = (pencil.shard_tiles(a, (2, 2)) if decomp == "pencil"
+         else dfft.shard_rows(a, multihost.world_size()))
+    return s[rank:rank + 1]
+
+
+def _unshard(a: torch.Tensor, decomp: str) -> torch.Tensor:
+    from xlab_fftbarotropic_torch.parallel import dfft, pencil
+
+    return (pencil.unshard_tiles(a, (2, 2)) if decomp == "pencil"
+            else dfft.unshard_rows(a))
+
+
+def run_rollout(workdir: Path) -> None:
+    from xlab_fftbarotropic_torch import adjoint
+
+    rank = multihost.rank()
+    cfg = ModelConfig(**ROLLOUT_KW)
+    v0, src, target = (torch.from_numpy(a) for a in rollout_inputs())
+    for case in ROLLOUT_CASES:
+        decomp, wrt, segment = case
+        roll = adjoint.make_sharded_rollout(cfg, ROLLOUT_STEPS,
+                                            _rollout_mesh(decomp), decomp,
+                                            segment)
+        x, s = (a.clone().requires_grad_(wrt in (w, "both"))
+                for a, w in ((v0, "ic"), (src, "src")))
+        out = roll(x, s)
+        loss = misfit(out, _own(target, decomp, rank))
+        inputs = [a for a in (x, s) if a.requires_grad]
+        grads = torch.autograd.grad(loss, inputs)
+        saved = {"value": out.detach()}
+        off_zero = True
+        for a, g in zip(inputs, grads):
+            mine = _own(g, decomp, rank)
+            off_zero &= int(torch.count_nonzero(g)) == int(
+                torch.count_nonzero(mine))
+            saved["grad_ic" if a is x else "grad_src"] = mine
+        paths = {}
+        for what, a in saved.items():
+            full = _unshard(multihost.gather_to_host(a), decomp).numpy()
+            paths[what] = str(workdir / f"{rollout_name(case)}-{what}.npy")
+            if multihost.is_primary():
+                np.save(paths[what], full)
+        zeros = [None] * multihost.world_size()
+        torch.distributed.all_gather_object(zeros, off_zero)
+        say(case=rollout_name(case), paths=paths, shape=list(out.shape),
+            off_shard_zero=zeros)
+    a2a_identity()
+
+
+def a2a_identity() -> None:
+    """multihost.all_to_all's backward is its transpose: for integer-valued
+    x and y (every product and sum exact) the ranks' summed <a2a(x), y>
+    equals their summed <x, a2a^T(y)>, and a2a^T(y) is the permutation
+    back (rank j's chunk r is rank r's chunk j of y)."""
+    rank, n = multihost.rank(), multihost.world_size()
+    for dtype in (torch.float32, torch.complex64):
+        rng = np.random.default_rng(100 + rank)
+
+        def draw():
+            a = rng.integers(-8, 9, (n, 3, 5)).astype(np.float32)
+            if dtype.is_complex:
+                a = a + 1j * rng.integers(-8, 9, (n, 3, 5))
+            return torch.from_numpy(a).to(dtype)
+
+        x, y = draw().requires_grad_(True), draw()
+        out = multihost.all_to_all(x)
+        (back,) = torch.autograd.grad(out, x, grad_outputs=y)
+        lhs = torch.sum(out.detach().conj() * y).real.double()
+        rhs = torch.sum(x.detach().conj() * back).real.double()
+        sums = torch.stack([lhs, rhs])
+        torch.distributed.all_reduce(sums)
+        ys = multihost.gather_to_host(y[None])
+        backs = multihost.gather_to_host(back[None])
+        perm = all(torch.equal(backs[j, r], ys[r, j])
+                   for j in range(n) for r in range(n))
+        say(case=f"a2a-{str(dtype).split('.')[-1]}", lhs=float(sums[0]),
+            rhs=float(sums[1]), permutation=perm,
+            grad_dtype=str(back.dtype))
 
 
 def run_smoke(workdir: Path) -> None:
@@ -208,6 +341,9 @@ def run_smoke(workdir: Path) -> None:
     w = -(-hny // n)
     ex = peer.Exchange(mesh, {"rows": (rows_l, hny), "cols": (n * rows_l,
                                                               w)})
+    # each rank unlinks its own names once every rank has mapped them;
+    # wait for every rank to have done so before looking
+    torch.distributed.barrier()
     left = sorted(p.name for p in peer.SHM_DIR.glob(f"{ex.tag}*"))
     mine = torch.complex(torch.full((1, rows_l, hny), float(rank + 1)),
                          torch.full((1, rows_l, hny), -float(rank)))
@@ -282,6 +418,8 @@ def main(argv) -> int:
         run_smoke(workdir)
     elif mode == "models":
         run_models(workdir)
+    elif mode == "rollout":
+        run_rollout(workdir)
     elif mode == "cli":
         from xlab_fftbarotropic_torch.cli import run as cli_run
         cli_run.main(argv[argv.index("--") + 1:])

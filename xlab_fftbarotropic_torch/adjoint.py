@@ -34,7 +34,8 @@ The three families:
 Entry points run on the card (device "cuda") unless the caller passes
 device="cpu", where the kernels' plain versions run. make_sharded_rollout
 is the barotropic rollout on a shard group (parallel/model.py), the
-device that of the group.
+device that of the group; over torch.distributed ranks it is rank-local
+(its docstring).
 """
 
 from __future__ import annotations
@@ -162,29 +163,39 @@ def make_rollout(cfg, n_steps: int, model_kind: str = "barotropic",
 def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
                          segment: Optional[int] = None) -> Callable:
     """The differentiable n_steps RK4 rollout of the barotropic family on
-    a shard group (parallel/model.py make_mesh): make_rollout's contract,
+    a shard group (parallel/model.py make_mesh): the decomposition's
+    distributed forward transform, the checkpointed RK4 loop (inverses
+    unpaired, as the sharded model's) and the distributed inverse. The
+    transforms are the library impl ('xla'), as in the JAX package:
+    autograd runs through torch.fft and the transposes' copies or
+    collectives (the a2a and xstage kernels have no backward). decomp
+    'slab' or 'xpencil' on a 1-D group (make_mesh) or over the flattened
+    pair of a 2-D one, 'pencil' on a 2-D one (parallel/pencil.py
+    make_pencil_mesh).
+
+    Stacked group (one process): make_rollout's contract,
     ``rollout(vort0, src)`` from the global physical (nx, ny) inputs to
-    the global final physical vorticity, differentiable in both, with the
-    decomposition's distributed forward transform, the checkpointed RK4
-    loop (inverses unpaired, as the sharded model's) and the distributed
-    inverse. The transforms are the library impl ('xla'), as in the JAX
-    package: autograd runs through torch.fft and the transposes' copies
-    (the a2a and xstage kernels have no backward). decomp 'slab' or
-    'xpencil' on a 1-D group (make_mesh), 'pencil' on a 2-D one
-    (parallel/pencil.py make_pencil_mesh: the inputs go to tiles, the
-    output comes back from them). The stacked form only: a distributed
-    group (one shard per torch.distributed rank) needs the collectives
-    under autograd, and is refused (ROADMAP.md queue A, item 5.5)."""
+    the global final physical vorticity, differentiable in both.
+
+    Distributed group (one shard per torch.distributed rank:
+    make_mesh(None) or make_pencil_mesh on an initialized runtime):
+    rank-local.
+    Every rank passes the same global physical (nx, ny) inputs; the
+    rollout takes the rank's shard of them (its rows, or for the pencil
+    its tile in mesh order) and returns the rank's shard of the final
+    physical vorticity with a leading axis of 1: (1, nx/P, ny), or
+    (1, nx/Px, ny/Py) for the pencil. The transposes are collectives
+    whose backward is the same all_to_all (multihost.all_to_all), and
+    torch.utils.checkpoint recomputes a segment's collectives inside the
+    backward sweep: every rank runs the rollout and calls backward
+    together, on the same graph. A loss is the sum over ranks of each
+    rank's loss on its shard; the gradient with respect to a global
+    input on rank r is then nonzero on rank r's rows or tile only, and
+    the sum of the ranks' gradients is the stacked rollout's gradient of
+    the summed loss."""
     from .parallel import dfft, pencil
     from .parallel.model import _decomp_setup
 
-    if mesh.distributed:
-        raise NotImplementedError(
-            "make_sharded_rollout over torch.distributed ranks needs the "
-            "transposes' collectives under autograd, which are not ported "
-            "yet (ROADMAP.md queue A, item 5.5); build it on a stacked "
-            "group, in one process (make_mesh(n_shards), "
-            "make_pencil_mesh(shape))")
     t, fwd, inv, _, _ = _decomp_setup(cfg, mesh, "xla", decomp)
     g = cfg.grid_shape
     dt, nu = float(cfg.dt), float(cfg.nu)
@@ -200,10 +211,13 @@ def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
             return dfft.shard_rows(a, mesh.n_shards)
 
         unshard = dfft.unshard_rows
+    # the physical shard a rank holds: its rows, or its tile in mesh order
+    k = mesh.rank
 
     def shards(a):
-        return to_shards(torch.as_tensor(a, dtype=torch.float32,
-                                         device=mesh.device))
+        s = to_shards(torch.as_tensor(a, dtype=torch.float32,
+                                      device=mesh.device))
+        return s if k is None else s[k:k + 1]
 
     def rollout(vort0, src):
         src = shards(src)
@@ -212,7 +226,8 @@ def make_sharded_rollout(cfg, n_steps: int, mesh, decomp: str = "slab",
                                    inv=inv, inv_pair=None, r_drag=r_drag,
                                    beta=beta, nu4=nu4),),
             (fwd(shards(vort0)),), n_steps, segment)
-        return unshard(inv(z, g))
+        out = inv(z, g)
+        return out if mesh.distributed else unshard(out)
 
     return rollout
 

@@ -128,6 +128,18 @@ def _transposes(use_pallas: bool, group=None, exchange=None):
     return transpose_to_columns, transpose_to_rows
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on its cotangent contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 def fft_x(x: torch.Tensor, inverse: bool = False,
           ranked: bool = False) -> torch.Tensor:
     """The unnormalized length-nx DFT along axis 1 of (P, nx, w) shards
@@ -136,11 +148,17 @@ def fft_x(x: torch.Tensor, inverse: bool = False,
     a stride; it is transformed as the contiguous rows of its transpose,
     as torch lays out two or more stacked shards, so the ranks give the
     stacked model's bits. A stacked group (one shard too) takes torch's
-    own layout."""
+    own layout. Under autograd the backward transforms its cotangent
+    made contiguous in the forward's layout, whatever layout it came in:
+    so a rank's gradient has its stacked shard's bits too."""
     fn = torch.fft.ifft if inverse else torch.fft.fft
-    if not ranked:
-        return fn(x, dim=1)
-    return fn(x.transpose(1, 2).contiguous(), dim=-1).transpose(1, 2)
+    if ranked:
+        y = fn(x.transpose(1, 2).contiguous(), dim=-1)
+    else:
+        y = fn(x, dim=1)
+    if y.requires_grad:
+        y = _ContiguousGrad.apply(y)
+    return y.transpose(1, 2) if ranked else y
 
 
 def irfft_rows(rows: torch.Tensor, ny: int) -> torch.Tensor:
