@@ -293,6 +293,19 @@ exits non-zero and prints no result):
    transcription of the reference code) on the same IC: rel-L2 of the
    physical vorticity < PARITY_BAR; the library path's printed.
    `--phase 5u` runs the toolchain phase and this phase alone.
+5v. The fast natural-store x-stages alone (phase_fast_xstages; `--phase
+   5v` only, not in the full run): every fast form of kx_visc.cu's
+   kernel (kx_fwd at one field, the viscosity epilogue with and without
+   the stage axpy, the RK4 tail, two stacked fields, five with the bf16
+   and the float32 store) and of xstage.cu's (modes 0 inverse and
+   forward, 1 and 2 on four stacked shards) held to its plain version
+   as in 5o at FAST_XSTAGE_SHAPES, then timed at n^2 in turns with its
+   strict form (fast, strict, strict, fast), beside the one torch.fft
+   call of its transform and its bound; the parts of the one-field x-
+   stage from csrc/xtile_parts.cu's cuts (loads; first pass; sub-DFT;
+   exchange; store), fast and strict, on float planes and complex64;
+   the resident clusters, registers and spills of the cuts and the
+   registers and spills of both kernels' instances (the build log).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -347,6 +360,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -6215,6 +6229,190 @@ def phase_parity(dev) -> dict:
     return out
 
 
+# the fast x-stages of phase 5v: name -> (case family, its PERF.md row)
+FAST_XSTAGE_FORMS = {
+    "kx_fwd_bt_fast": ("arm", "6 fast"),
+    "kx_visc_fast": ("fast", "4 fast"),
+    "kx_visc_none_fast": ("arm", "4 fast none"),
+    "kx_visc_tail_fast": ("arm", "5 fast"),
+    "kx_visc_tracer_fast": ("arm", "20 fast"),
+    "kx_fwd_fast": ("sw", "17b fast"),
+    "kx_fwd_fast_f32": ("sw", "17b fast f32"),
+    "xstage_fast": ("rest", "21 fast"),
+    "xstage_forward_fast": ("rest", "21 fast forward"),
+    "xstage_gather_fast": ("rest", "22 fast gather"),
+    "xstage_scatter_fast": ("rest", "22 fast scatter"),
+}
+# the shapes phase 5v checks the fast x-stages at (ragged last tiles,
+# K = 1 .. 8)
+FAST_XSTAGE_SHAPES = ((256, 200), (1024, 33), (4096, 70))
+# the cuts of csrc/xtile_parts.cu and the part each adds
+XTILE_CUTS = ("loads", "first pass", "rest of the sub-DFT", "exchange",
+              "store")
+
+
+def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
+    """The FastCases of FAST_XSTAGE_FORMS at (n, cols), and each one's
+    torch.fft call at n^2 (cols None) or None."""
+    from xlab_fftbarotropic_torch.parallel import dfft
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+
+    fam = {"arm": fast_arm_cases(n, cols, dev, seed),
+           "fast": fast_cases(n, cols, dev, seed),
+           "sw": fast_sw_cases(n, cols, dev, seed),
+           "rest": fast_rest_cases(n, cols, dev, seed)}
+    # mode 0 forward at scale 1 on the inverse case's shards, and on
+    # small integers on exact_rows (every tensor-core sum exact)
+    x = fam["rest"]["xstage_fast"].reads[0]
+    rng = np.random.default_rng(seed + 1)
+    _, ints = _makers(rng, dev)
+    ex = dfft.shard_rows(torch.complex(*ints(
+        (n, x.shape[-1]), 2, rows=exact_rows(n))), x.shape[0]).contiguous()
+    fam["rest"]["xstage_forward_fast"] = FastCase(
+        lambda: fo.xstage(x, True, fast=True),
+        lambda: fo.xstage_plain(x, True, fast=True),
+        lambda: fo.xstage(x, True),
+        lambda: fo.xstage(ex, True, fast=True),
+        lambda: fo.xstage_plain(ex, True, fast=True),
+        fam["rest"]["xstage_fast"].fields, (x,), x.shape[-1])
+    cases = {name: fam[kind][name]
+             for name, (kind, _) in FAST_XSTAGE_FORMS.items()}
+    libs = {}
+    if cols is None:
+        for name, (kind, _) in FAST_XSTAGE_FORMS.items():
+            case = cases[name]
+            if kind == "arm":
+                libs[name] = fast_arm_library(name, case)
+            elif kind == "fast":
+                libs[name] = fast_library(name, case, n)
+            elif kind == "sw":
+                libs[name] = fast_sw_library(name, n, dev)
+            elif name == "xstage_forward_fast":
+                libs[name] = fast_rest_library("xstage_gather_fast", case,
+                                               n)
+            else:
+                libs[name] = fast_rest_library(name, case, n)
+    return cases, libs
+
+
+def _turns(kern, strict, rounds: int = 2) -> tuple:
+    """The mean CUDA-event times of kern and strict, in turns (kern,
+    strict, strict, kern, ...)."""
+    a, b = [], []
+    for r in range(rounds):
+        for fn, acc in ((kern, a), (strict, b))[::1 if r % 2 == 0 else -1]:
+            acc.append(cuda_ms(fn))
+    return sum(a) / len(a), sum(b) / len(b)
+
+
+def xtile_parts(n: int, dev) -> dict:
+    """The cuts of csrc/xtile_parts.cu at n^2 (the one-field x-stage over
+    hny columns): ms of each cut, fast and strict, on two float planes
+    (kx_fwd's load and store) and on complex64 (xstage's), in turns, and
+    the part each cut adds; the resident clusters of the full cut."""
+    from xlab_fftbarotropic_torch.ops import _build
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+    from xlab_fftbarotropic_torch.parallel import fused_overlap as fo
+
+    lib = _build.lib()
+    hny = n // 2 + 1
+    rng = np.random.default_rng(n + 5)
+    xr, xi = (torch.from_numpy(rng.standard_normal((n, hny)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    xc = torch.complex(xr, xi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+    yc = torch.empty_like(xc)
+    tw = ff._twiddles(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for cplx in (0, 1):
+        p = xtile_plan(n, hny, 8 if cplx else 4)
+        args = ((xc.data_ptr(), None, yc.data_ptr(), None) if cplx else
+                (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
+                 yi.data_ptr()))
+        where = "complex64" if cplx else "float planes"
+
+        def cut(fast, stop):
+            def go():
+                rc = lib.xfb_xtile_parts(fast, cplx, stop, *args,
+                                         tw.data_ptr(), n, hny, p.c, p.k,
+                                         p.threads, p.smem, dev.index,
+                                         stream)
+                check(rc == 0, f"xfb_xtile_parts: {torch.cuda.CudaError(rc)}")
+            return go
+        ms = {f: [0.0] * len(XTILE_CUTS) for f in (1, 0)}
+        for stop in range(len(XTILE_CUTS)):
+            ms[1][stop], ms[0][stop] = _turns(cut(1, stop), cut(0, stop))
+        # the full cuts are the kernels: their bits against the wrappers'
+        for fast in (1, 0):
+            cut(fast, 4)()
+            if cplx:
+                want = [fo.xstage(xc[None], True, fast=bool(fast))[0]]
+                got = [yc]
+            else:
+                want = list(fs.kx_fwd(xr[None], xi[None], fast=bool(fast)))
+                got = [yr[None], yi[None]]
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"the full {where} cut (fast {fast}) is not its kernel")
+        for fast in (1, 0):
+            tag = "fast" if fast else "strict"
+            adds = [ms[fast][0]] + [ms[fast][i] - ms[fast][i - 1]
+                                    for i in range(1, len(XTILE_CUTS))]
+            log(f"parts {where:12s} {tag:6s} {n}^2: " + ", ".join(
+                f"{name} {t:.4f} ms (+{d:.4f})" for name, t, d in
+                zip(XTILE_CUTS, ms[fast], adds)))
+            occ = (ctypes.c_int * 4)()
+            rc = lib.xfb_xtile_occupancy(fast, p.tiles, p.k, p.threads,
+                                         p.smem, dev.index, occ)
+            check(rc == 0, f"xfb_xtile_occupancy: {rc}")
+            log(f"parts {where:12s} {tag:6s} {n}^2: {occ[0]} clusters of "
+                f"{p.k} resident, {occ[1]} blocks per SM, {occ[2]} "
+                f"registers, {occ[3]} local bytes; {p.tiles} tiles = "
+                f"{p.tiles / max(occ[0], 1):.2f} waves")
+            out[f"{where} {tag}"] = dict(
+                cuts_ms=ms[fast], adds_ms=adds, clusters=occ[0],
+                blocks_per_sm=occ[1], registers=occ[2],
+                local_bytes=occ[3], tiles=p.tiles)
+    return out
+
+
+def phase_fast_xstages(n: int, dev) -> dict:
+    """Phase 5v (see the module docstring)."""
+    report = {"checks": {}, "forms": {}}
+    for shape in FAST_XSTAGE_SHAPES:
+        size, cols = shape
+        cases, _ = _xstage_forms(size, cols, dev, size + cols)
+        for name, case in cases.items():
+            report["checks"][f"{name} {shape}"] = fast_check(
+                name, case, f"{size} x {cols}")
+    cases, libs = _xstage_forms(n, None, dev, n)
+    for name, (_, row) in FAST_XSTAGE_FORMS.items():
+        case = cases[name]
+        outputs = case.fields(case.kern())
+        bound_ms, bound_by, parts = fast_bound(case, outputs, n)
+        ms, strict_ms = _turns(case.kern, case.strict)
+        lib = libs[name]
+        library_ms = None if lib is None else cuda_ms(lib)
+        libtxt = ("no one torch call" if library_ms is None else
+                  f"torch call {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
+        log(f"fast x-stage {name:22s} (row {row}) {n}^2: {ms:.4f} ms, "
+            f"strict {strict_ms:.4f} ms ({ms / strict_ms:.3f}x), {libtxt}; "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} "
+            f"% of it, strict {100 * bound_ms / strict_ms:.1f} %)")
+        report["forms"][name] = dict(row=row, ms=ms, strict_ms=strict_ms,
+                                     library_ms=library_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     **parts)
+    report["parts"] = xtile_parts(n, dev)
+    report["ptxas"] = {k: v for k, v in phase_xtile(n)["ptxas"].items()
+                       if k.split()[0] in ("kx_visc_kernel", "xstage_kernel")
+                       or "parts_kernel" in k}
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=4096,
@@ -6233,7 +6431,7 @@ def main(argv=None) -> int:
                     "goes)")
     ap.add_argument("--rank-worker", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--phase", choices=["5r", "5s", "5t", "5u"],
+    ap.add_argument("--phase", choices=["5r", "5s", "5t", "5u", "5v"],
                     default=None,
                     help="run the toolchain phase and this phase alone (a "
                     "quick check of it; no result lines)")
@@ -6279,6 +6477,8 @@ def main(argv=None) -> int:
             report["pencil"] = phase_pencil(args.n, args.steps, dev)
         elif args.phase == "5u":
             report["parity"] = phase_parity(dev)
+        elif args.phase == "5v":
+            report["fast_xstages"] = phase_fast_xstages(args.n, dev)
         else:
             report["ranks"] = phase_ranks(args.n, dev)
         if args.json:

@@ -53,14 +53,19 @@ ka_adv_plain, and pinned bit for bit: ky_all's product p is kc of
 (sw_products' product p, 0), ka_adv is ka of the advection formed in
 torch.
 
-The fast tile (csrc/xtile.cuh FAST, fast mode): pass16 emulated lane
-for lane, its A, B and D fragments placed by the PTX ISA's m16n8k16
-layouts, on NaN-started tiles whose every slot must be written once and
-none past the tile; bit for bit ops/fast_tile.py's fast_dft and the fast
-plain versions of ka_diag, kb_pair, kb_adv_half and kx_visc on
-non-square grids with ragged last tiles, and of the x-first order's
-ka_quad, x-major kb, ka_adv, kc (its transposed half store, under
-kc_visc's epilogue and over kc_sw's stack) and ka_fwd.
+The fast tile (csrc/xtile.cuh FAST, fast mode): its tensor-core passes
+(pass16_first, pass16_second with m = 512's radix-2 pass folded in)
+emulated lane for lane, with the kernel's lane maps, swizzled layout
+between the passes and rotated B loads, the A, B and D fragments
+placed by the PTX ISA's m16n8k16 layouts, on NaN-started tiles whose
+every slot must be written once and none past the tile; bit for bit
+ops/fast_tile.py's fast_dft at every length and the fast plain versions
+of ka_diag, kb_pair, kb_adv_half and kx_visc on non-square grids with
+ragged last tiles, and of the x-first order's ka_quad, x-major kb,
+ka_adv, kc (its transposed half store, under kc_visc's epilogue and
+over kc_sw's stack) and ka_fwd; and the shared-memory banks each half
+warp's loads and stores of the passes hit, from the emulated addresses
+(test_fast_passes_hit_distinct_banks).
 
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
@@ -353,7 +358,10 @@ class _Cluster:
         ub = torch.arange(self.mk * self.c)
         col = ub & (self.c - 1)
         k2 = rank * self.mk + (ub >> self.logc)
-        z = blocks[:, k2 * self.c + col].clone()
+        if self.fast:                         # gather<K, true>
+            z = blocks[:, k2 * self.c + (col ^ _out_swizzle(self, k2))]
+        else:
+            z = blocks[:, k2 * self.c + col].clone()
         if self.fast:
             v = [(z[r].real, z[r].imag) for r in range(self.k)]
             for r in range(1, self.k):
@@ -365,89 +373,53 @@ class _Cluster:
             z[r] = z[r] * self.twiddle(r * k2, forward)
         return k2, col, _dft_matrix(self.k, -1 if forward else 1) @ z
 
-    def subdft_fast(self, s: torch.Tensor, forward: bool) -> torch.Tensor:
-        """subdft<SIGN, true>(): pass16() while 16 divides what is left,
-        lane for lane (warp w, group h: butterflies 32 w + 8 h + 0..7; the
-        kernel's A, B and D fragments placed where the PTX ISA's
-        m16n8k16 layouts put them, each product exact and summed as the
-        plain version's dot16 sums it), every slot of the new tile
-        written exactly once and none past the tile; then the float32
-        pass of the rest, op for op."""
-        c, m, logc = self.c, self.m, self.logc
+    def subdft_fast(self, s: torch.Tensor, forward: bool,
+                    log: list = None) -> torch.Tensor:
+        """subdft<SIGN, true>(): the tensor-core passes lane for lane
+        (pass16_first, then pass16_second for m >= 256, with m = 512's
+        radix-2 pass folded in; the kernel's lane maps, layouts and
+        rotated B loads; A, B and D fragments placed where the PTX
+        ISA's m16n8k16 layouts put them, each product exact and summed as
+        the plain version's dot16 sums it), every slot of each pass's
+        output written exactly once and none past the tile, and left in
+        out_swizzle's layout at m = 256, 512 (combine reads it back as
+        gather<K, true> does); then the float32 pass of the rest (m = 64,
+        128, 1024), op for op. `log`
+        collects each shared-memory access instruction: (pass, what,
+        slot addresses (warps, 32)), what in "load", "store", "table"."""
         sign = -1 if forward else 1
-        lane = torch.arange(32)
-        g, q = lane >> 2, lane & 3
-        mats = [_lane_matrix(g, q, 0, False), _lane_matrix(g, q, 4, False),
-                _lane_matrix(g, q, 4, True)]        # C, S, -S (dft16())
-        cm, wi, mwi = ((mats[0], mats[2], mats[1]) if sign < 0
-                       else (mats[0], mats[1], mats[2]))
+        fl = _FastLanes(self, sign, log)
         x = (s.real.clone(), s.imag.clone())
-        warps = m * c // 16 // 32
-        w = torch.arange(warps).view(-1, 1, 1)
-        h = torch.arange(4).view(1, -1, 1)
-        nan = float("nan")
-        p = 1
-        while m // p >= 16:
-            stride, twstep = m // 16, m // (p * 16)
-            u = 32 * w + 8 * h + g                  # (warp, group, lane)
-            col, i = u & (c - 1), u >> logc
-            k = i & (p - 1)
-            br, bi = (torch.full((16, warps, 4, 8), nan, dtype=torch.float64)
-                      for _ in range(2))
-            for e in range(4):
-                tt = 2 * q + (e & 1) + 8 * (e >> 1)
-                idx = ((i + tt * stride) << logc) + col
-                v = (x[0][idx], x[1][idx])
-                if p > 1:
-                    tw = self.sw[tt * k * twstep]
-                    tw = tw if forward else tw.conj()
-                    t = fst.mul(v, (tw.real, tw.imag))
-                    v = tuple(torch.where(tt > 0, a, b) for a, b in zip(t, v))
-                row, cl = _frag_b(g, q, e >> 1, e & 1)
-                br[row, w, h, cl] = v[0].to(torch.bfloat16).double()
-                bi[row, w, h, cl] = v[1].to(torch.bfloat16).double()
-            assert not (br.isnan().any() or bi.isnan().any())
-            yr = fst.dot16(cm, br.view(16, -1), mwi,
-                           bi.view(16, -1)).view(16, warps, 4, 8)
-            yi = fst.dot16(wi, br.view(16, -1), cm,
-                           bi.view(16, -1)).view(16, warps, 4, 8)
-            new = torch.full((2, m * c), nan)
-            writes = torch.zeros(m * c, dtype=torch.int64)
-            for e in range(4):
-                f = g + 8 * (e >> 1)
-                uo = 32 * w + 8 * h + 2 * q + (e & 1)
-                co, io = uo & (c - 1), uo >> logc
-                ko = io & (p - 1)
-                idx = ((((io - ko) * 16 + ko) + f * p) << logc) + co
-                assert (idx < m * c).all()         # nothing past the tile
-                row, cl = _frag_d(g, q, e)
-                new[0, idx] = yr[row, w, h, cl]
-                new[1, idx] = yi[row, w, h, cl]
-                writes.index_put_((idx.flatten(),),
-                                  torch.ones(idx.numel(), dtype=torch.int64),
-                                  accumulate=True)
-            assert (writes == 1).all()
-            x = (new[0], new[1])
-            p *= 16
-        if p < m:                                   # the float32 pass
-            r = m // p
-            ub = torch.arange(m * c // r)
-            col, i = ub & (c - 1), ub >> logc
-            kk = i & (p - 1)
-            v = [(x[0][(i + t * (m // r)) * c + col],
-                  x[1][(i + t * (m // r)) * c + col]) for t in range(r)]
-            for t in range(1, r):
-                tw = self.sw[t * kk * (m // (p * r))]
-                tw = tw if forward else tw.conj()
-                v[t] = fst.mul(v[t], (tw.real, tw.imag))
-            v = fst.dft(v, sign)
-            j = (i - kk) * r + kk
-            new = torch.full((2, m * c), float("nan"))
-            for t in range(r):
-                new[0, (j + t * p) * c + col] = v[t][0]
-                new[1, (j + t * p) * c + col] = v[t][1]
-            x = (new[0], new[1])
+        m = self.m
+        if m >= 256:
+            x = fl.first(x, swizzled=True)
+            x = fl.second(x, fold=m == 512)
+            if m == 1024:
+                x = self._float_pass(x, 4, 256, sign)
+        else:
+            x = fl.first(x, swizzled=False)
+            x = self._float_pass(x, m // 16, 16, sign)
         return torch.complex(*x)
+
+    def _float_pass(self, x, r: int, p: int, sign: int):
+        """pass<R, SIGN>(t, p) of the (re, im) tile, op for op."""
+        c, m, logc = self.c, self.m, self.logc
+        ub = torch.arange(m * c // r)
+        col, i = ub & (c - 1), ub >> logc
+        kk = i & (p - 1)
+        v = [(x[0][(i + t * (m // r)) * c + col],
+              x[1][(i + t * (m // r)) * c + col]) for t in range(r)]
+        for t in range(1, r):
+            tw = self.sw[t * kk * (m // (p * r))]
+            tw = tw if sign < 0 else tw.conj()
+            v[t] = fst.mul(v[t], (tw.real, tw.imag))
+        v = fst.dft(v, sign)
+        j = (i - kk) * r + kk
+        new = torch.full((2, m * c), float("nan"))
+        for t in range(r):
+            new[0, (j + t * p) * c + col] = v[t][0]
+            new[1, (j + t * p) * c + col] = v[t][1]
+        return new[0], new[1]
 
     def transform(self, load, tile: int, forward: bool) -> torch.Tensor:
         """Every block's loaded tile after its sub-DFT: (K, m C)."""
@@ -523,6 +495,216 @@ def _lane_matrix(g, q, shift: int, negate: bool) -> torch.Tensor:
             a[_frag_a(g, q, r, h)] = -v if negate else v
     assert not a.isnan().any()
     return a
+
+
+def _out_swizzle(cl, row):
+    """out_swizzle(): the layout of the fast sub-DFT's outputs where its
+    second pass is its last (m = 256, 512)."""
+    if cl.m not in (256, 512):
+        return torch.zeros_like(row)
+    if cl.logc == 4:
+        return ((row >> 4) & 3) << 2
+    if cl.logc == 3:
+        return ((row >> 4) & 3) << 1
+    return torch.zeros_like(row)
+
+
+class _FastLanes:
+    """csrc/xtile.cuh's fast passes on one block's tile, lane for lane:
+    warp w (of m C / 512), lane (g, q) as index tensors (warps, 32)."""
+
+    def __init__(self, cl, sign: int, log):
+        self.cl, self.sign, self.log = cl, sign, log
+        self.lq = cl.logc - 2
+        warps = cl.m * cl.c // 512
+        lane = torch.arange(32).view(1, 32)
+        self.w = torch.arange(warps).view(warps, 1).expand(warps, 32)
+        self.g = (lane >> 2).expand(warps, 32)
+        self.q = (lane & 3).expand(warps, 32)
+        self.warps = warps
+        cm, s_, ns = (_lane_matrix(lane[0] >> 2, lane[0] & 3, 0, False),
+                      _lane_matrix(lane[0] >> 2, lane[0] & 3, 4, False),
+                      _lane_matrix(lane[0] >> 2, lane[0] & 3, 4, True))
+        # dft16_group: Wi = -SIGN S
+        self.cm, self.wi, self.mwi = ((cm, ns, s_) if sign < 0
+                                      else (cm, s_, ns))
+
+    def plain(self, h, n):                   # plain_butterfly(): (i, col)
+        cl, lq = self.cl, self.lq
+        i = (self.w << (5 - cl.logc)) + (h >> lq) + (n >> 2) * (4 >> lq)
+        return i, 4 * (h & ((1 << lq) - 1)) + ((n & 3) ^ (n >> 2))
+
+    def fold(self, h, n):                    # fold_butterfly(): (i, col)
+        cl, lq, x = self.cl, self.lq, n >> 1
+        if cl.logc == 3:
+            k = 2 * self.w + (x & 1)
+            c = 4 * (h & 1) + 2 * (h >> 1) + (x >> 1)
+        else:
+            k = (self.w << (4 - cl.logc)) + (h >> lq)
+            c = 4 * (h & ((1 << lq) - 1)) + x
+        return k + (n & 1) * (cl.m // 32), c
+
+    def swizzle(self, row):
+        logc = self.cl.logc
+        if logc == 4:
+            return ((row & 3) << 2) | (((row >> 4) & 1) << 1)
+        if logc == 3:
+            return (((row >> 1) & 1) << 2) | ((row >> 4) & 1)
+        return torch.zeros_like(row)
+
+    def out_swizzle(self, row):
+        return _out_swizzle(self.cl, row)
+
+    def note(self, what: str, addr) -> None:
+        if self.log is not None:
+            self.log.append((self.step, what, addr))
+
+    def table(self, idx):
+        """W_m^idx of the staged table, conjugated for sign +1."""
+        self.note("table", self.cl.m * self.cl.c + idx)
+        w = self.cl.sw[idx]
+        return w if self.sign < 0 else w.conj()
+
+    @staticmethod
+    def put_slots(loaded: list, slots: list) -> list:
+        """put_slot() at each step s: the fragment loaded for group
+        slots[s] (per lane) into that group's registers, each written
+        exactly once."""
+        out = [None] * 4
+        for x, slot in zip(loaded, slots):
+            for h in range(4):
+                on = (slot == h).unsqueeze(-1)
+                out[h] = torch.where(on, x, out[h] if out[h] is not None
+                                     else torch.full_like(x, float("nan")))
+        assert not any(o.isnan().any() for o in out)
+        return out
+
+    def load_b(self, x, i, col, swz: bool, tw):
+        """load_b(): (warps, 32, 8): the bf16 (re x4, im x4) of inputs t
+        = 2q, 2q + 1, 2q + 8, 2q + 9, each times tw[e] for t > 0."""
+        cl = self.cl
+        re, im = [], []
+        for e in range(4):
+            tt = 2 * self.q + (e & 1) + 8 * (e >> 1)
+            row = i + tt * (cl.m // 16)
+            c = col ^ self.swizzle(row) if swz else col
+            addr = (row << cl.logc) + c
+            assert (addr < cl.m * cl.c).all()
+            self.note("load", addr)
+            v = (x[0][addr], x[1][addr])
+            if tw is not None:
+                w = tw[e]
+                t = fst.mul(v, (w.real, w.imag))
+                v = tuple(torch.where(tt > 0, a, b) for a, b in zip(t, v))
+            re.append(v[0].to(torch.bfloat16).double())
+            im.append(v[1].to(torch.bfloat16).double())
+        return torch.stack(re + im, dim=-1)
+
+    def mma(self, b):
+        """dft16_group() of one group whose B values b (warps, 32, 8) the
+        lanes hold: D (yr, yi), each (warps, 32, 4) in the lane's e order."""
+        nan = float("nan")
+        br, bi = (torch.full((16, self.warps, 8), nan, dtype=torch.float64)
+                  for _ in range(2))
+        wv = self.w
+        for e in range(4):
+            row, cl = _frag_b(self.g, self.q, e >> 1, e & 1)
+            br[row, wv, cl] = b[..., e]
+            bi[row, wv, cl] = b[..., 4 + e]
+        assert not (br.isnan().any() or bi.isnan().any())
+        yr = fst.dot16(self.cm, br.view(16, -1), self.mwi,
+                       bi.view(16, -1)).view(16, self.warps, 8)
+        yi = fst.dot16(self.wi, br.view(16, -1), self.cm,
+                       bi.view(16, -1)).view(16, self.warps, 8)
+        out = []
+        for y in (yr, yi):
+            out.append(torch.stack([y[_frag_d(self.g, self.q, e)[0], wv,
+                                      _frag_d(self.g, self.q, e)[1]]
+                                    for e in range(4)], dim=-1))
+        return out
+
+    def _new(self):
+        n = self.cl.m * self.cl.c
+        return (torch.full((2, n), float("nan")),
+                torch.zeros(n, dtype=torch.int64))
+
+    def _store(self, new, writes, addr, re, im) -> None:
+        assert (addr < self.cl.m * self.cl.c).all()   # nothing past it
+        self.note("store", addr)
+        new[0, addr] = re
+        new[1, addr] = im
+        writes.index_put_((addr.flatten(),),
+                          torch.ones(addr.numel(), dtype=torch.int64),
+                          accumulate=True)
+
+    def first(self, x, swizzled: bool):
+        """pass16_first(): p = 1, the plain map."""
+        self.step = "first"
+        b = []
+        for s in range(4):
+            i, col = self.plain((self.q + s) & 3, self.g)
+            b.append(self.load_b(x, i, col, False, None))
+        b = self.put_slots(b, [(self.q + s) & 3 for s in range(4)])
+        new, writes = self._new()
+        for h in range(4):
+            yr, yi = self.mma(b[h])
+            for e in range(4):
+                i, col = self.plain(torch.full_like(self.g, h),
+                                    2 * self.q + (e & 1))
+                row = 16 * i + self.g + 8 * (e >> 1)
+                c = col ^ self.swizzle(row) if swizzled else col
+                self._store(new, writes, (row << self.cl.logc) + c,
+                            yr[..., e].float(), yi[..., e].float())
+        assert (writes == 1).all()
+        return new[0], new[1]
+
+    def second(self, x, fold: bool):
+        """pass16_second<SIGN, FOLD>(): p = 16, from the swizzled layout
+        to the tile's rows; FOLD: pass<2> at p = m/2 on the D values."""
+        cl, p = self.cl, 16
+        self.step = "second"
+        b = []
+        for s in range(4):
+            h = (self.q + s) & 3
+            if fold:
+                i, col = self.fold(h, self.g)
+            else:
+                i, col = self.plain(h, self.g)
+            kk = i & (p - 1)
+            tw = [self.table((2 * self.q + (e & 1) + 8 * (e >> 1)) * kk
+                             * (cl.m // 256)) for e in range(4)]
+            b.append(self.load_b(x, i, col, True, tw))
+        b = self.put_slots(b, [(self.q + s) & 3 for s in range(4)])
+        new, writes = self._new()
+        for h in range(4):
+            yr, yi = self.mma(b[h])
+            yr, yi = yr.float(), yi.float()
+            if fold:
+                k, c = self.fold(torch.full_like(self.g, h), 2 * self.q)
+                for fe in range(2):
+                    r = k + p * (self.g + 8 * fe)
+                    w = self.table(r)
+                    x0 = (yr[..., 2 * fe], yi[..., 2 * fe])
+                    x1 = fst.mul((yr[..., 2 * fe + 1], yi[..., 2 * fe + 1]),
+                                 (w.real, w.imag))
+                    r2 = r + cl.m // 2
+                    self._store(new, writes, (r << cl.logc)
+                                + (c ^ self.out_swizzle(r)),
+                                x0[0] + x1[0], x0[1] + x1[1])
+                    self._store(new, writes, (r2 << cl.logc)
+                                + (c ^ self.out_swizzle(r2)),
+                                x0[0] - x1[0], x0[1] - x1[1])
+            else:
+                for e in range(4):
+                    i, col = self.plain(torch.full_like(self.g, h),
+                                        2 * self.q + (e & 1))
+                    k = i & (p - 1)
+                    row = (i - k) * 16 + k + p * (self.g + 8 * (e >> 1))
+                    self._store(new, writes, (row << cl.logc)
+                                + (col ^ self.out_swizzle(row)),
+                                yr[..., e], yi[..., e])
+        assert (writes == 1).all()
+        return new[0], new[1]
 
 
 def _put(out, writes, idx, values) -> None:
@@ -1359,8 +1541,9 @@ def test_emulated_ky_all_and_ka_adv_pins(n):
         assert torch.equal(emulate_ka_adv(*f, beta), ka), beta
 
 
-# ----- the fast column tile (csrc/xtile.cuh FAST: pass16 on the tensor
-# cores), emulated lane for lane: rows 1, 2, 9, 4 of fast mode -----
+# ----- the fast column tile (csrc/xtile.cuh FAST: the radix-16 passes on
+# the tensor cores), emulated lane for lane: rows 1, 2, 9, 4 of fast
+# mode -----
 
 # (transform length, columns): ragged last tiles, non-square grids
 FAST_SHAPES = [(64, 44), (256, 200), (1024, 33)]
@@ -1418,7 +1601,7 @@ def test_fast_fragments_hold_the_dft16_matrix():
 
 @pytest.mark.parametrize("forward", [True, False],
                          ids=["forward", "inverse"])
-@pytest.mark.parametrize("n", LENGTHS[:5] + [4096])
+@pytest.mark.parametrize("n", LENGTHS[:5] + [4096, 8192])
 def test_emulated_fast_transform_is_the_fast_plain_transform(n, forward):
     """The fast tile, lane for lane (every slot of each radix-16 pass
     written once, none past the tile), on a ragged tile: ops/fast_tile.py
@@ -1437,6 +1620,59 @@ def test_emulated_fast_transform_is_the_fast_plain_transform(n, forward):
     ref = np.fft.fft(x, axis=0) if forward else np.fft.ifft(x, axis=0) * n
     rel = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
     assert 1e-4 < rel < 1e-2, rel
+
+
+def _bank_degree(addr: torch.Tensor) -> int:
+    """The worst bank conflict of one 8-byte shared-memory access
+    instruction, addr (warps, 32) its float2 slots: per half warp (16
+    lanes, 128 bytes, one wavefront without conflict), the most distinct
+    slots that fall on one of the 16 bank pairs (a slot read by several
+    lanes is one broadcast)."""
+    worst = 0
+    for half in addr.reshape(-1, 2, 16).reshape(-1, 16):
+        slots = torch.unique(half)
+        worst = max(worst, int(torch.bincount(slots % 16, minlength=16)
+                               .max()))
+    return worst
+
+
+@pytest.mark.parametrize("narrow", [False, True], ids=["plan", "narrow"])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_fast_passes_hit_distinct_banks(n, narrow):
+    """The fast passes' shared-memory accesses, read from the emulated
+    word addresses of every half warp's loads and stores (the plan's C,
+    and kb_adv's tiles of C/2): where two radix-16 passes run (m >= 256,
+    n >= 256) every tile load of both and every store of the first hits
+    16 distinct bank pairs, and so does every store of the second at C =
+    16 and at m = 512 (n = 512..4096: the main paths' lengths, kb_adv's
+    C = 8 too); the second pass's stores at m = 256, C = 8 (kb_adv at
+    n = 256) meet 2 lanes on a bank pair, at m = 1024 (n = 8192) 4; the
+    only pass of m < 256 reads so and writes its rows C/4 ways deep (the
+    radix-16 pass before the redesign: 4 ways at every length); the W_m
+    table reads (each lane's four input twiddles, the folded radix-2
+    pass's two) at most 5 ways deep."""
+    p = xtile.xtile_plan(n, 1, 4)
+    cl = _Cluster(n, p.c, 4, narrow=narrow, fast=True)
+    rng = np.random.default_rng(n + narrow)
+    x = torch.from_numpy((rng.standard_normal(cl.m * cl.c) + 1j
+                          * rng.standard_normal(cl.m * cl.c))
+                         .astype(np.complex64))
+    log = []
+    cl.subdft_fast(x, True, log)
+    worst = {}
+    for step, what, addr in log:
+        worst[step, what] = max(worst.get((step, what), 0),
+                                _bank_degree(addr))
+    if cl.m >= 256:
+        last = (1 if cl.c == 16 or cl.m == 512 else
+                2 if cl.m == 256 else 4)
+        assert {k: v for k, v in worst.items() if k[1] != "table"} == {
+            ("first", "load"): 1, ("first", "store"): 1,
+            ("second", "load"): 1, ("second", "store"): last}
+        assert 1 <= worst["second", "table"] <= 5
+    else:
+        assert worst == {("first", "load"): 1,
+                         ("first", "store"): cl.c // 4}
 
 
 @pytest.mark.parametrize("shape", FAST_SHAPES, ids=str)

@@ -54,7 +54,7 @@ namespace xt = xfb::xtile;
 // Steps 1 (from the combine on) to 3 for a cluster of K blocks: the tile
 // of u + i v in t.s, of zx + i zy in zz (full), both after their inverse
 // sub-DFT; on return t.s holds (adv, 0) at ky_adv's load slots.
-template <int K, bool FULL>
+template <int K, bool FULL, bool FAST>
 __device__ __forceinline__ void advect(const xt::Tile& t, float2* zz,
                                        const float2* __restrict__ tw,
                                        const float* __restrict__ zx,
@@ -72,8 +72,8 @@ __device__ __forceinline__ void advect(const xt::Tile& t, float2* zz,
     const int c = i & cmask;
     const int k2 = t.rank * mk + (i >> t.logc);
     float2 p[K], q[K];
-    xt::gather<K>(t, t.s, k2, c, p);
-    if constexpr (FULL) xt::gather<K>(t, zz, k2, c, q);
+    xt::gather<K, FAST>(t, t.s, k2, c, p);
+    if constexpr (FULL) xt::gather<K, FAST>(t, zz, k2, c, q);
     if (b == B - 1) xt::cluster_arrive();
     xt::twiddle_dft<K, +1>(t, tw, k2, p);
     if constexpr (FULL) xt::twiddle_dft<K, +1>(t, tw, k2, q);
@@ -143,16 +143,16 @@ __global__ void __launch_bounds__(256, FULL ? 3 : 4)
   }
   switch (k) {
     case 1:
-      advect<1, FULL>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
+      advect<1, FULL, FAST>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
       break;
     case 2:
-      advect<2, FULL>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
+      advect<2, FULL, FAST>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
       break;
     case 4:
-      advect<4, FULL>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
+      advect<4, FULL, FAST>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
       break;
     default:
-      advect<8, FULL>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
+      advect<8, FULL, FAST>(t, zz, tw, zx, zy, src, j0, nx, scale, beta);
       break;
   }
   xt::HalfOut o = out;

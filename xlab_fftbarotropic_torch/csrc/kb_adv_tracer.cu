@@ -68,7 +68,7 @@ constexpr int kPad = 16;
 // Steps 1 (from the combine on) to 3 for a cluster of K blocks: the tile
 // of u + i v in t.s after its inverse sub-DFT; on return t.s holds
 // (adv_z, 0) and qq (adv_q, 0) at ky_adv's load slots.
-template <int K>
+template <int K, bool FAST>
 __device__ __forceinline__ void advect(
     const xt::Tile& t, float2* qq, const float2* __restrict__ tw,
     const float* __restrict__ zx, const float* __restrict__ zy,
@@ -86,7 +86,7 @@ __device__ __forceinline__ void advect(
     const int c = i & cmask;
     const int k2 = t.rank * mk + (i >> t.logc);
     float2 p[K];
-    xt::gather<K>(t, t.s, k2, c, p);
+    xt::gather<K, FAST>(t, t.s, k2, c, p);
     if (b == B - 1) xt::cluster_arrive();
     xt::twiddle_dft<K, +1>(t, tw, k2, p);
     const int x = j0 + c;
@@ -148,16 +148,16 @@ __global__ void __launch_bounds__(256, 3)
   xt::subdft<+1, FAST>(t);
   switch (k) {
     case 1:
-      advect<1>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
+      advect<1, FAST>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
       break;
     case 2:
-      advect<2>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
+      advect<2, FAST>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
       break;
     case 4:
-      advect<4>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
+      advect<4, FAST>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
       break;
     default:
-      advect<8>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
+      advect<8, FAST>(t, qq, tw, zx, zy, qx, qy, src, j0, nx, scale, beta);
       break;
   }
   xt::Tile tq = t;

@@ -46,10 +46,16 @@
 // Fast mode (the JAX package's --fast-transforms, whose overlap x-stages
 // run their four-step DFT as bf16 matmuls) takes xstage_kernel<..., true>
 // (xfb_xstage_fast, every mode): the sub-DFT's radix-16 passes as bf16
-// tensor-core products, float32 accumulate (xtile.cuh FAST), the loads,
-// the scale and the pad's zeros unchanged. The tile in shared memory is
-// float2 whatever the layout, so the fast pass runs as on the 4-byte
-// planes: the 8-byte elements change only the sector check of the plan.
+// tensor-core products, float32 accumulate (xtile.cuh FAST: two passes
+// at nx = 4096, the radix-2 rest folded into the second, no bank
+// conflict on the tile), the loads, the scale and the pad's zeros
+// unchanged. The tile in shared memory is float2 whatever the layout, so
+// the fast passes run as on the 4-byte planes: the 8-byte elements change
+// only the sector check of the plan. At 4096^2 on an H100 the fast modes
+// run 1.05-1.10x their strict forms (0.124-0.129 ms against 0.113-0.123,
+// 31-32 % of the 0.040 ms bound; they ran 1.16-1.19x before the passes'
+// redesign): the sub-DFT costs about 0.012 ms more than the strict one,
+// the exchange and the store no less (PERF.md §6).
 #include "shards.cuh"
 #include "xtile.cuh"
 

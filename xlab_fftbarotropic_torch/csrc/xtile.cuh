@@ -47,10 +47,10 @@
 //
 // The fast form (FAST = true on subdft, finish and finish_transposed;
 // the JAX package's --fast-transforms, pallas_fft.MM_MODE "default":
-// one bf16 product per stage, float32 accumulate) runs step 2 as
-// radix-16 passes on the tensor cores while 16 divides what is left
-// (ops/xtile.py fast_radices), then the float32 radix-8/4/2 pass of the
-// rest. A radix-16 pass twiddles its inputs in float32 (mul, as the
+// one bf16 product per stage, float32 accumulate) runs step 2 as the
+// passes of ops/xtile.py fast_radices: radix 16 on the tensor cores
+// while 16 divides what is left, then the float32 radix-8/4/2 pass of
+// the rest. A radix-16 pass twiddles its inputs in float32 (mul, as the
 // strict pass), rounds each to bf16 (round to nearest even), and forms
 // the 16-point DFT as the real block product
 //   [Yr; Yi] = [[C, -Wi], [Wi, C]] [xr; xi]
@@ -64,12 +64,24 @@
 // (twiddle_dft) and every load and epilogue stay float32: at n = 4096
 // (K = 8, m = 512: passes 16, 16, 2) two bf16-rounded stages per
 // transform, as the JAX fast mode's two bf16 matmul stages there.
-// The fast pass reads and writes only the tile's m C slots, and takes
-// no more shared memory than the strict one. Its kernels stay bound by
-// their float32 bytes (the DFT-16 products are under 0.01 ms of bf16
-// work per call at 4096^2); its B loads meet a 4-way bank conflict (a
-// butterfly's four q lanes read rows m/16 apart), and the fast kernels
-// ran 1.06-1.21x their strict forms on an H100 (PERF.md).
+//
+// The data movement is the fast form's own (pass16_first,
+// pass16_second): at m = 512 (n = 512..4096) the float32 radix-2 pass
+// runs on the second radix-16 pass's D registers (each lane holds both
+// partners of its outputs), so the sub-DFT is two shared-memory round
+// trips and four barriers where the strict one takes three and six;
+// a lane map, a swizzled layout between the passes and one for their
+// outputs (read back by gather<K, true>) put every tile load and store
+// of a half warp on 16 bank pairs at C = 16 (and C = 8 at m = 512),
+// where the radix-16 pass before them met 4-way conflicts on both. The
+// passes are calls, not inlined (their registers are their own). They
+// read and write only the tile's m C slots, and take no more shared
+// memory than the strict passes. The kernels stay bound by their
+// float32 bytes (the DFT-16 products are under 0.01 ms of bf16 work
+// per call at 4096^2); on an H100 the fast x-stages now run within a
+// few per cent of their strict forms, the sub-DFT no dearer than the
+// strict one, and the exchange and store of step 3 hold them back
+// (PERF.md §6).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -289,11 +301,12 @@ __device__ __forceinline__ unsigned cos16(int x) {
 }
 
 // The A fragments (16 x 16, row-major, of mma m16n8k16) of C = cos and
-// S = sin of 2 pi f t / 16 and of -S, f the row: this lane holds rows
-// g, g + 8 and columns 2q, 2q + 1, 2q + 8, 2q + 9 (g = lane / 4,
-// q = lane mod 4), the lower column in the lower half of each register.
+// S = sin of 2 pi f t / 16, f the row (-S is S with both sign bits
+// flipped, formed where it is used): this lane holds rows g, g + 8 and
+// columns 2q, 2q + 1, 2q + 8, 2q + 9 (g = lane / 4, q = lane mod 4), the
+// lower column in the lower half of each register.
 struct Dft16 {
-  unsigned c[4], s[4], ns[4];
+  unsigned c[4], s[4];
 };
 
 __device__ __forceinline__ Dft16 dft16() {
@@ -304,7 +317,6 @@ __device__ __forceinline__ Dft16 dft16() {
     const int f = g + 8 * (r & 1), t = 2 * q + 8 * (r >> 1);
     a.c[r] = cos16(f * t) | cos16(f * (t + 1)) << 16;
     a.s[r] = cos16(f * t - 4) | cos16(f * (t + 1) - 4) << 16;
-    a.ns[r] = a.s[r] ^ 0x80008000u;
   }
   return a;
 }
@@ -325,62 +337,209 @@ __device__ __forceinline__ void mma16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One self-sorting radix-16 pass on the tensor cores, pass<16>'s
-// indices: warp w takes butterflies u = 32 w .. 32 w + 31 (column
-// u mod C, i = u / C), as four groups of 8 (the B and D columns). For
-// group h this lane loads butterfly 32 w + 8 h + g's inputs t = 2q,
-// 2q + 1, 2q + 8, 2q + 9 (the B fragment's rows), twiddled in float32,
-// and after the four products holds outputs f = g, g + 8 of butterflies
-// 2q, 2q + 1 of the group (the D fragment).
-template <int SIGN>
-__device__ __forceinline__ void pass16(const Tile& t, int p,
-                                       const Dft16& a) {
-  const int stride = t.m >> 4;
-  const int cmask = (1 << t.logc) - 1;
-  const int twstep = t.m / (p * 16);
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int warp0 = threadIdx.x - lane;
-  unsigned br[4][2], bi[4][2];
+// The fast passes' lane map. Lane (g, q) of warp w holds B column n = g
+// (inputs t = 2q, 2q + 1, 2q + 8, 2q + 9) and D columns n = 2q, 2q + 1
+// (outputs f = g, g + 8) of the mma groups h = 0..3; group h takes
+// column quad h mod Q (Q = C/4, lq = log2 Q) and, by the pass,
+//   plain (the first pass; the second one where nothing is folded in):
+//     butterfly i = 32 w / C + (h >> lq) + (n >> 2) (4 >> lq) of column
+//     4 (h mod Q) + ((n & 3) ^ (n >> 2));
+//   fold (the second pass of m = 512, fold_butterfly): butterfly i = k +
+//     (n & 1) p of one column per class n >> 1, so a lane's D columns
+//     are the radix-2 partners i, i + p (rows r, r + m/2 of a column).
+// Each lane loads its B fragments rotated over the groups (group (q + s)
+// mod 4 at step s; selects between registers put them back in group
+// order). The first pass (p = 1) writes the second one's input in a
+// layout of its own (row x, column c at x C + (c ^ swizzle(x))), the
+// second pass its outputs in another (out_swizzle). Every tile load and
+// store of both passes then hits 16 bank pairs per half warp at C = 16,
+// and at C = 8 where m = 512 (tests/test_torch_xtile.py counts them).
+__device__ __forceinline__ int swizzle(const Tile& t, int x) {
+  if (t.logc == 4) return ((x & 3) << 2) | (((x >> 4) & 1) << 1);
+  if (t.logc == 3) return (((x >> 1) & 1) << 2) | ((x >> 4) & 1);
+  return 0;
+}
+
+// The layout the fast sub-DFT leaves its outputs in where the second
+// pass is its last (m = 256, 512): row x, column c at x C + (c ^
+// out_swizzle(x)), so that pass's stores need no rotation; gather<K,
+// true> reads it back. m = 1024 (its float32 radix-4 pass reads the
+// tile's rows) and the one-pass lengths: the rows as they are.
+__device__ __forceinline__ int out_swizzle(const Tile& t, int x) {
+  if (t.m != 256 && t.m != 512) return 0;
+  if (t.logc == 4) return ((x >> 4) & 3) << 2;
+  if (t.logc == 3) return ((x >> 4) & 3) << 1;
+  return 0;
+}
+
+// b[h] <- x where h == slot, for every h: the selects that put a B
+// fragment loaded for group `slot` (which differs between the lanes) into
+// that group's registers
+__device__ __forceinline__ void put_slot(unsigned (&b)[4][4], int slot,
+                                         const unsigned* x) {
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
-    const int u = warp0 + 8 * h + g;
-    const int c = u & cmask, i = u >> t.logc;
-    const int k = i & (p - 1);
-    float2 x[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int tt = 2 * q + (e & 1) + 8 * (e >> 1);
-      x[e] = t.s[((i + tt * stride) << t.logc) + c];
-      if (p > 1 && tt > 0) {
-        float2 w = t.sw[tt * k * twstep];
-        if (SIGN > 0) w.y = -w.y;
-        x[e] = mul(x[e], w);
-      }
+    for (int r = 0; r < 4; ++r) b[h][r] = h == slot ? x[r] : b[h][r];
+  }
+}
+
+// The plain map's butterfly of group h, fragment column n: (i, column).
+__device__ __forceinline__ int2 plain_butterfly(const Tile& t, int h, int n) {
+  const int lq = t.logc - 2;
+  return make_int2(((threadIdx.x >> 5) << (5 - t.logc)) + (h >> lq) +
+                       (n >> 2) * (4 >> lq),
+                   4 * (h & ((1 << lq) - 1)) + ((n & 3) ^ (n >> 2)));
+}
+
+// The fold map's butterfly of group h, fragment column n: (i, column);
+// at C = 8 the class x = n >> 1 sets k's parity, so that the row parity
+// (a bank bit at C = 8) runs across the lanes.
+__device__ __forceinline__ int2 fold_butterfly(const Tile& t, int h, int n) {
+  const int w = threadIdx.x >> 5, x = n >> 1;
+  int k, c;
+  if (t.logc == 3) {
+    k = 2 * w + (x & 1);
+    c = 4 * (h & 1) + 2 * (h >> 1) + (x >> 1);
+  } else {
+    const int lq = t.logc - 2;
+    k = (w << (4 - t.logc)) + (h >> lq);
+    c = 4 * (h & ((1 << lq) - 1)) + x;
+  }
+  return make_int2(k + (n & 1) * (t.m >> 5), c);
+}
+
+// Yr = C xr - Wi xi, Yi = Wi xr + C xi (Wi = -SIGN S) of one group: four
+// mma.sync products, C xr then -Wi xi into Yr, Wi xr then C xi into Yi
+// (each sum's order is part of its bits).
+template <int SIGN>
+__device__ __forceinline__ void dft16_group(const Dft16& a,
+                                            const unsigned* b, float* yr,
+                                            float* yi) {
+  unsigned ns[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) ns[r] = a.s[r] ^ 0x80008000u;
+  const unsigned* wi = SIGN < 0 ? ns : a.s;
+  const unsigned* mwi = SIGN < 0 ? a.s : ns;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) yr[e] = yi[e] = 0.f;
+  mma16(yr, a.c, b);
+  mma16(yr, mwi, b + 2);
+  mma16(yi, wi, b);
+  mma16(yi, a.c, b + 2);
+}
+
+// This lane's B fragment of one butterfly: inputs t = 2q, 2q + 1, 2q + 8,
+// 2q + 9 from rows i + t m/16 of column c (`swz`: of the second pass's
+// input layout), each times its twiddle W_(16 p)^(t k) for t > 0 where
+// k >= 0 (the second pass: p = 16, k = i mod 16; conjugated for SIGN =
+// +1), rounded to bf16: b = {re t, t + 1; re t + 8, t + 9; im ..; im ..}.
+template <int SIGN>
+__device__ __forceinline__ void load_b(const Tile& t, int i, int c, bool swz,
+                                       int k, unsigned* b) {
+  const int stride = t.m >> 4, twstep = t.m >> 8, q = threadIdx.x & 3;
+  float2 x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int tt = 2 * q + (e & 1) + 8 * (e >> 1);
+    const int row = i + tt * stride;
+    x[e] = t.s[(row << t.logc) + (swz ? c ^ swizzle(t, row) : c)];
+    if (k >= 0 && tt > 0) {
+      float2 w = t.sw[tt * k * twstep];
+      if (SIGN > 0) w.y = -w.y;
+      x[e] = mul(x[e], w);
     }
-    br[h][0] = bf16x2(x[0].x, x[1].x);
-    br[h][1] = bf16x2(x[2].x, x[3].x);
-    bi[h][0] = bf16x2(x[0].y, x[1].y);
-    bi[h][1] = bf16x2(x[2].y, x[3].y);
+  }
+  b[0] = bf16x2(x[0].x, x[1].x);
+  b[1] = bf16x2(x[2].x, x[3].x);
+  b[2] = bf16x2(x[0].y, x[1].y);
+  b[3] = bf16x2(x[2].y, x[3].y);
+}
+
+// The first radix-16 pass (p = 1: no twiddles) on the tensor cores, the
+// plain map: the tile's rows in, out in the second pass's layout
+// (`to_swizzled`) or the tile's rows (the only radix-16 pass, m < 256).
+// Both passes are calls, not inlined: their registers are their own, so
+// the state of the kernel around them (kb_adv's second tile and
+// advection, the epilogues' pointers) is saved once around the call
+// instead of spilled inside their loops.
+template <int SIGN>
+__device__ __noinline__ void pass16_first(const Tile t, const Dft16 a,
+                                          bool to_swizzled) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  unsigned b[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int h = (q + s) & 3;
+    const int2 bc = plain_butterfly(t, h, g);
+    unsigned x[4];
+    load_b<SIGN>(t, bc.x, bc.y, false, -1, x);
+    put_slot(b, h, x);
   }
   __syncthreads();
-  // Yr = C xr - Wi xi, Yi = Wi xr + C xi with Wi = -SIGN S
-  const unsigned* wi = SIGN < 0 ? a.ns : a.s;
-  const unsigned* mwi = SIGN < 0 ? a.s : a.ns;
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
-    float yr[4] = {0.f, 0.f, 0.f, 0.f}, yi[4] = {0.f, 0.f, 0.f, 0.f};
-    mma16(yr, a.c, br[h]);
-    mma16(yr, mwi, bi[h]);
-    mma16(yi, wi, br[h]);
-    mma16(yi, a.c, bi[h]);
+    float yr[4], yi[4];
+    dft16_group<SIGN>(a, b[h], yr, yi);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int f = g + 8 * (e >> 1);
-      const int u = warp0 + 8 * h + 2 * q + (e & 1);
-      const int c = u & cmask, i = u >> t.logc;
-      const int k = i & (p - 1);
-      const int j = (i - k) * 16 + k;
-      t.s[((j + f * p) << t.logc) + c] = make_float2(yr[e], yi[e]);
+      const int2 bc = plain_butterfly(t, h, 2 * q + (e & 1));
+      const int row = 16 * bc.x + g + 8 * (e >> 1);
+      const int c = to_swizzled ? bc.y ^ swizzle(t, row) : bc.y;
+      t.s[(row << t.logc) + c] = make_float2(yr[e], yi[e]);
+    }
+  }
+  __syncthreads();
+}
+
+// The second radix-16 pass (p = 16) on the tensor cores, from the first
+// pass's layout to out_swizzle's (the tile's rows at m = 1024, whose
+// float32 pass follows); FOLD (m = 512): the plain map's radix-2
+// pass<2> at p = m/2 folded in, op for op, on the D registers (each lane
+// holds both partners).
+template <int SIGN, bool FOLD>
+__device__ __noinline__ void pass16_second(const Tile t, const Dft16 a) {
+  constexpr int p = 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  unsigned b[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int h = (q + s) & 3;
+    const int2 bc = FOLD ? fold_butterfly(t, h, g) : plain_butterfly(t, h, g);
+    unsigned x[4];
+    load_b<SIGN>(t, bc.x, bc.y, true, bc.x & (p - 1), x);
+    put_slot(b, h, x);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    float yr[4], yi[4];
+    dft16_group<SIGN>(a, b[h], yr, yi);
+    if constexpr (FOLD) {
+      // pass<2> at p = m/2: rows r = k + p f and r + m/2 from partners
+      // i = k (e even) and k + p (e odd), the second twiddled by W_m^r
+      const int2 kc = fold_butterfly(t, h, 2 * q);
+#pragma unroll
+      for (int fe = 0; fe < 2; ++fe) {
+        const int r = kc.x + p * (g + 8 * fe);
+        float2 w = t.sw[r];
+        if (SIGN > 0) w.y = -w.y;
+        const float2 x0 = make_float2(yr[2 * fe], yi[2 * fe]);
+        const float2 x1 =
+            mul(make_float2(yr[2 * fe + 1], yi[2 * fe + 1]), w);
+        const int r2 = r + (t.m >> 1);
+        t.s[(r << t.logc) + (kc.y ^ out_swizzle(t, r))] = add(x0, x1);
+        t.s[(r2 << t.logc) + (kc.y ^ out_swizzle(t, r2))] = sub(x0, x1);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int2 bc = plain_butterfly(t, h, 2 * q + (e & 1));
+        const int k = bc.x & (p - 1);
+        const int row = (bc.x - k) * 16 + k + p * (g + 8 * (e >> 1));
+        t.s[(row << t.logc) + (bc.y ^ out_swizzle(t, row))] =
+            make_float2(yr[e], yi[e]);
+      }
     }
   }
   __syncthreads();
@@ -388,21 +547,30 @@ __device__ __forceinline__ void pass16(const Tile& t, int p,
 
 // The length-m sub-DFT of every column of the tile, in place, natural
 // order out: radix 8 while 8 divides what is left, then 4 or 2
-// (ops/xtile.py sub_radices); FAST: radix 16 on the tensor cores while
-// 16 divides what is left, then one float32 pass of the rest
-// (fast_radices).
+// (ops/xtile.py sub_radices); FAST: the passes fast_radices names (radix
+// 16 on the tensor cores while 16 divides what is left, then one float32
+// pass of the rest), as one or two tensor-core passes: m = 512's radix-2
+// rest runs inside the second one, m = 64, 128 and 1024 keep their
+// float32 pass.
 template <int SIGN, bool FAST = false>
 __device__ __forceinline__ void subdft(const Tile& t) {
   if constexpr (FAST) {
     const Dft16 a = dft16();
-    int p = 1;
-    for (; t.m / p >= 16; p *= 16) pass16<SIGN>(t, p, a);
-    if (t.m / p == 8) {
-      pass<8, SIGN>(t, p);
-    } else if (t.m / p == 4) {
-      pass<4, SIGN>(t, p);
-    } else if (t.m / p == 2) {
-      pass<2, SIGN>(t, p);
+    if (t.m >= 256) {
+      pass16_first<SIGN>(t, a, true);
+      if (t.m == 512) {
+        pass16_second<SIGN, true>(t, a);
+      } else {
+        pass16_second<SIGN, false>(t, a);
+        if (t.m == 1024) pass<4, SIGN>(t, 256);
+      }
+    } else {
+      pass16_first<SIGN>(t, a, false);
+      if (t.m == 128) {
+        pass<8, SIGN>(t, 16);
+      } else {
+        pass<4, SIGN>(t, 16);
+      }
     }
   } else {
     for (int p = 1; p < t.m;) {
@@ -421,10 +589,11 @@ __device__ __forceinline__ void subdft(const Tile& t) {
 
 // Y_r[k2] of tile column c from every block r of the cluster, through
 // distributed shared memory (s: the tile at the same offset in every
-// block).
-template <int K>
+// block); FAST: from the fast sub-DFT's output layout (out_swizzle).
+template <int K, bool FAST = false>
 __device__ __forceinline__ void gather(const Tile& t, float2* s, int k2,
                                        int c, float2* x) {
+  if constexpr (FAST) c ^= out_swizzle(t, k2);
 #pragma unroll
   for (int r = 0; r < K; ++r) x[r] = map_rank(s, r)[(k2 << t.logc) + c];
 }
@@ -447,7 +616,7 @@ __device__ __forceinline__ void twiddle_dft(const Tile& t,
 // blocks' shared memory between two cluster barriers: the arrival after
 // the last read, the wait before the block exits (its tile stays alive
 // until every block has read it).
-template <int K, int SIGN, class Out>
+template <int K, int SIGN, bool FAST = false, class Out>
 __device__ __forceinline__ void combine(const Tile& t,
                                         const float2* __restrict__ tw,
                                         Out& out) {
@@ -461,7 +630,7 @@ __device__ __forceinline__ void combine(const Tile& t,
     const int c = u & cmask;
     const int k2 = t.rank * mk + (u >> t.logc);
     float2 x[K];
-    gather<K>(t, t.s, k2, c, x);
+    gather<K, FAST>(t, t.s, k2, c, x);
     if (b == B - 1) cluster_arrive();
     twiddle_dft<K, SIGN>(t, tw, k2, x);
 #pragma unroll
@@ -479,16 +648,16 @@ __device__ __forceinline__ void finish(const Tile& t,
   subdft<SIGN, FAST>(t);
   switch (t.k) {
     case 1:
-      combine<1, SIGN>(t, tw, out);
+      combine<1, SIGN, FAST>(t, tw, out);
       break;
     case 2:
-      combine<2, SIGN>(t, tw, out);
+      combine<2, SIGN, FAST>(t, tw, out);
       break;
     case 4:
-      combine<4, SIGN>(t, tw, out);
+      combine<4, SIGN, FAST>(t, tw, out);
       break;
     default:
-      combine<8, SIGN>(t, tw, out);
+      combine<8, SIGN, FAST>(t, tw, out);
       break;
   }
 }
@@ -504,7 +673,7 @@ __device__ __forceinline__ int staged_stride(const Tile& t) {
 // block's tile), then X[k2 + m k1] of tile column c staged at
 // s[c stride + k1 m/K + k2 - q m/K]. The W_m table behind the tile is
 // dead by now: the padding of the C columns (16 values) takes part of it.
-template <int K, int SIGN>
+template <int K, int SIGN, bool FAST = false>
 __device__ __forceinline__ void combine_staged(const Tile& t,
                                                const float2* __restrict__ tw) {
   constexpr int B = kElems / K;
@@ -518,7 +687,7 @@ __device__ __forceinline__ void combine_staged(const Tile& t,
     const int c = u & cmask;
     const int k2 = t.rank * mk + (u >> t.logc);
     float2* x = v + b * K;
-    gather<K>(t, t.s, k2, c, x);
+    gather<K, FAST>(t, t.s, k2, c, x);
     if (b == B - 1) cluster_arrive();
     twiddle_dft<K, SIGN>(t, tw, k2, x);
   }
@@ -547,16 +716,16 @@ __device__ __forceinline__ void finish_transposed(
   subdft<SIGN, FAST>(t);
   switch (t.k) {
     case 1:
-      combine_staged<1, SIGN>(t, tw);
+      combine_staged<1, SIGN, FAST>(t, tw);
       break;
     case 2:
-      combine_staged<2, SIGN>(t, tw);
+      combine_staged<2, SIGN, FAST>(t, tw);
       break;
     case 4:
-      combine_staged<4, SIGN>(t, tw);
+      combine_staged<4, SIGN, FAST>(t, tw);
       break;
     default:
-      combine_staged<8, SIGN>(t, tw);
+      combine_staged<8, SIGN, FAST>(t, tw);
       break;
   }
   const int stride = staged_stride(t);

@@ -33,7 +33,7 @@ HEADERS = ("epilogue.cuh", "shards.cuh", "xtile.cuh")
 SOURCES = ("ka_diag.cu", "kb_pair.cu", "ky_adv.cu", "kx_visc.cu",
            "kb_adv_tracer.cu", "rk4_combine.cu", "ka_sw.cu", "ky_all.cu",
            "sw_combine.cu", "ka_kc.cu", "kb_adv.cu", "visc.cu", "a2a.cu",
-           "xstage.cu", "ipc.cu")
+           "xstage.cu", "ipc.cu", "xtile_parts.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                      "-v")
@@ -167,6 +167,12 @@ SIGNATURES = {
     # hrow, w, mode, forward, scale, tile_c, cluster_k, threads, smem,
     # rank (-1: every tile), device, stream
     "xfb_xstage": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    # the cut x-stage of csrc/xtile_parts.cu (chip_smoke.py phase 5v):
+    # fast, cplx, stop, xr, xi, yr, yi, tw, n, hny, tile_c, cluster_k,
+    # threads, smem, device, stream; and its resident clusters: fast,
+    # tiles, cluster_k, threads, smem, device, out[4]
+    "xfb_xtile_parts": [_I] * 3 + [_P] * 5 + [_I] * 7 + [_P],
+    "xfb_xtile_occupancy": [_I] * 6 + [_P],
     # the exchange buffers (csrc/ipc.cu): bytes, device, out pointer;
     # pointer, out handle[64]; handle[64], device, out pointer; pointer;
     # pointer, device
