@@ -293,19 +293,24 @@ exits non-zero and prints no result):
    transcription of the reference code) on the same IC: rel-L2 of the
    physical vorticity < PARITY_BAR; the library path's printed.
    `--phase 5u` runs the toolchain phase and this phase alone.
-5v. The fast natural-store x-stages alone (phase_fast_xstages; `--phase
-   5v` only, not in the full run): every fast form of kx_visc.cu's
-   kernel (kx_fwd at one field, the viscosity epilogue with and without
-   the stage axpy, the RK4 tail, two stacked fields, five with the bf16
-   and the float32 store) and of xstage.cu's (modes 0 inverse and
-   forward, 1 and 2 on four stacked shards) held to its plain version
-   as in 5o at FAST_XSTAGE_SHAPES, then timed at n^2 in turns with its
-   strict form (fast, strict, strict, fast), beside the one torch.fft
-   call of its transform and its bound; the parts of the one-field x-
-   stage from csrc/xtile_parts.cu's cuts (loads; first pass; sub-DFT;
-   exchange; store), fast and strict, on float planes and complex64;
-   the resident clusters, registers and spills of the cuts and the
-   registers and spills of both kernels' instances (the build log).
+5v. The fast natural-store x-stages and the fast per-transform pair
+   alone (phase_fast_xstages; `--phase 5v` only, not in the full run):
+   every fast form of kx_visc.cu's kernel (kx_fwd at one field, the
+   viscosity epilogue with and without the stage axpy, the RK4 tail, two
+   stacked fields, five with the bf16 and the float32 store), of
+   xstage.cu's (modes 0 inverse and forward, 1 and 2 on four stacked
+   shards), of ka_kc.cu's kc_kernel (kc, kc_visc, kc_sw's five stacked
+   planes) and ka_kernel (real forward, complex inverse) held to its
+   plain version as in 5o at FAST_XSTAGE_SHAPES, then timed at n^2 in
+   turns with its strict form (fast, strict, strict, fast), beside the
+   one torch.fft call of its transform and its bound; the parts of the
+   one-field x-stage from csrc/xtile_parts.cu's cuts (loads; first pass;
+   sub-DFT; exchange; store), fast and strict, on float planes and
+   complex64, and of the transposed store (loads; sub-DFT; exchange;
+   staging; store), fast and strict, of kc's half store and ka's real
+   forward; the resident clusters, registers and spills of the cuts and
+   the registers and spills of the four kernels' instances (the build
+   log).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -6242,6 +6247,11 @@ FAST_XSTAGE_FORMS = {
     "xstage_forward_fast": ("rest", "21 fast forward"),
     "xstage_gather_fast": ("rest", "22 fast gather"),
     "xstage_scatter_fast": ("rest", "22 fast scatter"),
+    "kc_fast": ("rest", "14 fast"),
+    "kc_visc_fast": ("xfirst", "15 fast kc_visc"),
+    "kc_sw_fast": ("xfirst", "17d fast kc_sw"),
+    "ka_fast": ("rest", "12 fast"),
+    "ka_inverse_fast": ("rest", "12 fast inverse"),
 }
 # the shapes phase 5v checks the fast x-stages at (ragged last tiles,
 # K = 1 .. 8)
@@ -6249,6 +6259,9 @@ FAST_XSTAGE_SHAPES = ((256, 200), (1024, 33), (4096, 70))
 # the cuts of csrc/xtile_parts.cu and the part each adds
 XTILE_CUTS = ("loads", "first pass", "rest of the sub-DFT", "exchange",
               "store")
+# the cuts of the transposed store (xfb_xtile_tparts) and the part each
+# adds
+XTILE_TCUTS = ("loads", "sub-DFT", "exchange", "staging", "store")
 
 
 def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
@@ -6260,7 +6273,8 @@ def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
     fam = {"arm": fast_arm_cases(n, cols, dev, seed),
            "fast": fast_cases(n, cols, dev, seed),
            "sw": fast_sw_cases(n, cols, dev, seed),
-           "rest": fast_rest_cases(n, cols, dev, seed)}
+           "rest": fast_rest_cases(n, cols, dev, seed),
+           "xfirst": fast_xfirst_cases(n, cols, dev, seed)}
     # mode 0 forward at scale 1 on the inverse case's shards, and on
     # small integers on exact_rows (every tensor-core sum exact)
     x = fam["rest"]["xstage_fast"].reads[0]
@@ -6287,6 +6301,8 @@ def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
                 libs[name] = fast_library(name, case, n)
             elif kind == "sw":
                 libs[name] = fast_sw_library(name, n, dev)
+            elif kind == "xfirst":
+                libs[name] = fast_xfirst_library(name, case, n)
             elif name == "xstage_forward_fast":
                 libs[name] = fast_rest_library("xstage_gather_fast", case,
                                                n)
@@ -6379,6 +6395,61 @@ def xtile_parts(n: int, dev) -> dict:
     return out
 
 
+def xtile_tparts(n: int, dev) -> dict:
+    """The cuts of the transposed store (csrc/xtile_parts.cu
+    xfb_xtile_tparts) at n^2: ms of each cut, fast and strict, in turns,
+    and the part each adds, of kc's form (two (n, n) float planes in, the
+    half store) and ka's real forward (one plane in, the full store); the
+    full cuts' outputs are the strict kernels' bit for bit, and the fast
+    kernels' (whose data movement is their own)."""
+    from xlab_fftbarotropic_torch.ops import _build
+    from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
+
+    lib = _build.lib()
+    rng = np.random.default_rng(n + 6)
+    xr, xi = (torch.from_numpy(rng.standard_normal((n, n)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    tw = ff._twiddles(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = xtile_plan(n, n, 4)
+    out = {}
+    for ka, where in ((0, "kc"), (1, "ka real forward")):
+        width = n if ka else n // 2 + 1
+        yr = torch.empty((n, width), dtype=torch.float32, device=dev)
+        yi = torch.empty_like(yr)
+
+        def cut(fast, stop):
+            def go():
+                rc = lib.xfb_xtile_tparts(fast, ka, stop, xr.data_ptr(),
+                                          xi.data_ptr(), yr.data_ptr(),
+                                          yi.data_ptr(), tw.data_ptr(), n,
+                                          n, p.c, p.k, p.threads, p.smem,
+                                          dev.index, stream)
+                check(rc == 0,
+                      f"xfb_xtile_tparts: {torch.cuda.CudaError(rc)}")
+            return go
+        ms = {f: [0.0] * len(XTILE_TCUTS) for f in (1, 0)}
+        for stop in range(len(XTILE_TCUTS)):
+            ms[1][stop], ms[0][stop] = _turns(cut(1, stop), cut(0, stop))
+        for fast in (1, 0):
+            cut(fast, 4)()
+            want = (ff.ka(xr, None, True, fast=bool(fast)) if ka else
+                    ff.kc(xr, xi, fast=bool(fast)))
+            torch.cuda.synchronize()
+            check(torch.equal(yr, want[0]) and torch.equal(yi, want[1]),
+                  f"the full {where} cut (fast {fast}) is not its kernel")
+        for fast in (1, 0):
+            tag = "fast" if fast else "strict"
+            adds = [ms[fast][0]] + [ms[fast][i] - ms[fast][i - 1]
+                                    for i in range(1, len(XTILE_TCUTS))]
+            log(f"transposed parts {where:15s} {tag:6s} {n}^2: " +
+                ", ".join(f"{name} {t:.4f} ms (+{d:.4f})" for name, t, d in
+                          zip(XTILE_TCUTS, ms[fast], adds)))
+            out[f"{where} {tag}"] = dict(cuts_ms=ms[fast], adds_ms=adds)
+    return out
+
+
 def phase_fast_xstages(n: int, dev) -> dict:
     """Phase 5v (see the module docstring)."""
     report = {"checks": {}, "forms": {}}
@@ -6407,8 +6478,10 @@ def phase_fast_xstages(n: int, dev) -> dict:
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      **parts)
     report["parts"] = xtile_parts(n, dev)
+    report["transposed_parts"] = xtile_tparts(n, dev)
     report["ptxas"] = {k: v for k, v in phase_xtile(n)["ptxas"].items()
-                       if k.split()[0] in ("kx_visc_kernel", "xstage_kernel")
+                       if k.split()[0] in ("kx_visc_kernel", "xstage_kernel",
+                                           "ka_kernel", "kc_kernel")
                        or "parts_kernel" in k}
     return report
 

@@ -2,7 +2,7 @@
 """Time every fast column-tile form against its strict form on one card,
 for one checkout, and list the fast kernels' registers and spills.
 
-    python3 scripts/fast_forms.py [--root DIR] [--n 4096]
+    python3 scripts/fast_forms.py [--root DIR] [--n 4096] [--only REGEX]
 
 --root names the checkout whose port (DIR/xlab_fftbarotropic_torch) is
 built from its own csrc/ and run; the inputs come from this repository's
@@ -12,7 +12,8 @@ fast_sw_cases, fast_arm_cases, fast_xfirst_cases, fast_rest_cases) at
 n^2, each with CUDA events in turns with its strict form (fast, strict,
 strict, fast: chip_smoke._turns), and the sum over the forms. To compare
 two checkouts, run it for each in one call, in turns (parent, change,
-change, parent). Needs one CUDA device and nvcc.
+change, parent). --only times the forms whose names match REGEX alone.
+Needs one CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--n", type=int, default=4096)
+    ap.add_argument("--only", default=None, metavar="REGEX")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     import torch
@@ -53,6 +55,8 @@ def main(argv=None) -> int:
     for family in FAMILIES:
         cases = getattr(smoke, family)(args.n, None, dev, args.n)
         for name, case in cases.items():
+            if args.only and not re.search(args.only, name):
+                continue
             fast, strict = smoke._turns(case.kern, case.strict)
             total_fast += fast
             total_strict += strict

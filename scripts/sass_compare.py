@@ -3,7 +3,7 @@
 checkouts: whether a change to a shared header left the kernels it was
 not meant to touch compiled to the same instructions.
 
-    python3 scripts/sass_compare.py --root _parent --root .
+    python3 scripts/sass_compare.py --root _parent --root . [--all]
 
 Each --root builds its own kernel library (ops/_build.py, in its own
 tree) in a process of its own; `cuobjdump -sass` lists every __global__
@@ -18,7 +18,10 @@ sw_combine_mv_kernel), and the instances with a gained flag set or a
 bf16 product type (no counterpart in a checkout without them) left out.
 Prints, per key, whether the instructions (encodings
 included) are identical in the two checkouts; exits non-zero if any
-differs or is missing in one. --dump DIR writes the two SASS listings of
+differs or is missing in the second; one only in the second (a kernel
+the change adds) is listed as new. --all compares every instance by its
+full template arguments, the fast and bf16 ones too (for a change that
+means to leave them alone as well). --dump DIR writes the two SASS listings of
 each function that differs. Needs the CUDA toolkit (nvcc, cuobjdump).
 """
 
@@ -62,10 +65,11 @@ def cuobjdump() -> str:
     sys.exit("sass_compare: cuobjdump not found")
 
 
-def key(name: str):
+def key(name: str, every: bool = False):
     """(kernel, template arguments) of a mangled name, the gained flags
     and the float product type taken off; None for an instance with a
-    gained flag set or a bf16 product type."""
+    gained flag set or a bf16 product type. `every`: (kernel, all its
+    template arguments), never None."""
     # the length prefix of the kernel's name may follow the digits of a
     # file hash: try every tail of every run of digits
     for m in re.finditer(r"\d+", name):
@@ -79,6 +83,9 @@ def key(name: str):
     else:
         return (name, "")
     rest = name[m.end() + len(base):]
+    if every:
+        t = re.match(r"I(.*?)Ev", rest)
+        return (base, t.group(1) if t else "")
     if base in PRODUCT_TEMPLATES:
         return None if "bfloat16" in rest[:24] else (base, "")
     t = re.match(r"I((?:L[a-z]+n?\d+E)+)E", rest)
@@ -89,7 +96,7 @@ def key(name: str):
     return (base, "".join(flags[:own]))
 
 
-def functions(lib: str) -> dict:
+def functions(lib: str, every: bool = False) -> dict:
     """key -> the function's SASS lines: instructions with their
     encodings (the lines that hold one), white space collapsed (its
     column widths depend on the other functions), the offset comments
@@ -100,7 +107,7 @@ def functions(lib: str) -> dict:
     out = {}
     for block in re.split(r"\n\s*Function : ", text)[1:]:
         name, _, body = block.partition("\n")
-        k = key(name.strip())
+        k = key(name.strip(), every)
         if k is None:
             continue
         labels = {}
@@ -121,15 +128,20 @@ def main(argv=None) -> int:
     ap.add_argument("--dump", default=None, metavar="DIR",
                     help="write the SASS of each function that differs, "
                          "one file per checkout, into DIR")
+    ap.add_argument("--all", action="store_true",
+                    help="compare every instance, the fast and bf16 ones "
+                         "too")
     args = ap.parse_args(argv)
     if len(args.root) != 2:
         sys.exit("sass_compare: give two --root")
-    a, b = (functions(library(r)) for r in args.root)
+    a, b = (functions(library(r), args.all) for r in args.root)
     bad = 0
     for k in sorted(set(a) | set(b)):
-        if k not in a or k not in b:
-            state = f"only in {args.root[0] if k in a else args.root[1]}"
+        if k not in b:
+            state = f"only in {args.root[0]}"
             bad += 1
+        elif k not in a:
+            state = f"new in {args.root[1]}"
         elif a[k] == b[k]:
             state = f"identical ({len(a[k])} lines)"
         else:
@@ -146,8 +158,8 @@ def main(argv=None) -> int:
                     (Path(args.dump) / f"{k[0]}{k[1]}.{tag}.sass").write_text(
                         "\n".join(code) + "\n")
         print(f"{k[0]}{'<' + k[1] + '>' if k[1] else ''}: {state}")
-    print(f"{len(set(a) & set(b)) - bad} of {len(set(a) | set(b))} "
-          f"functions identical")
+    print(f"{len(set(a) & set(b)) - bad} of {len(set(a))} functions "
+          f"identical, {len(set(b) - set(a))} new")
     return 1 if bad else 0
 
 

@@ -217,11 +217,16 @@ def _c_declaration(source: str, fn: str) -> list:
 
 
 @pytest.mark.parametrize("source, fn", [("a2a.cu", "xfb_a2a"),
-                                        ("xstage.cu", "xfb_xstage")])
+                                        ("xstage.cu", "xfb_xstage"),
+                                        ("xtile_parts.cu", "xfb_xtile_parts"),
+                                        ("xtile_parts.cu",
+                                         "xfb_xtile_tparts")])
 def test_ctypes_signatures_agree_with_the_sources(source, fn):
-    """ops/_build.py's ctypes argtypes of the distributed launchers are the
-    extern "C" declarations' parameters, one for one: a host array of
-    shard pointers first, then the scalars, the device and the stream."""
+    """ops/_build.py's ctypes argtypes of the distributed launchers and
+    of the column tile's cuts are the extern "C" declarations'
+    parameters, one for one: a host array of shard pointers first (the
+    cuts: their flags and planes), then the scalars, the device and the
+    stream."""
     from xlab_fftbarotropic_torch.ops import _build
 
     assert _build.SIGNATURES[fn] == _c_declaration(source, fn)

@@ -65,7 +65,13 @@ ragged last tiles, and of the x-first order's ka_quad, x-major kb,
 ka_adv, kc (its transposed half store, under kc_visc's epilogue and
 over kc_sw's stack) and ka_fwd; and the shared-memory banks each half
 warp's loads and stores of the passes hit, from the emulated addresses
-(test_fast_passes_hit_distinct_banks).
+(test_fast_passes_hit_distinct_banks). The fast ka and kc run on the
+plane tile (plane_transposed: rows of a multiple of 4 floats load as
+two float planes by 16-byte copies and the first pass reads them, kc's
+half store stages only the outputs it keeps), emulated in the kernel's
+order with every shared word tagged with its last writer
+(emulate_planes): bit for bit the fast plain versions at every length,
+aligned and not, and the banks of its own accesses.
 
 The plan: for every length 64..8192 and the column counts the kernels
 see (hny = n/2 + 1 for kx_visc and xstage, the x-pencil's P w for the
@@ -160,13 +166,15 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 
 
 # __global__ functions on the column tile, each with the store it ends in
-# (the natural finish, or the transposed one of the y-stages)
+# (the natural finish, or the transposed one of the y-stages; the fast ka
+# and kc: the plane tile's, the strict ones finish_transposed)
+PLANES = ("xt::finish_transposed<", "xt::plane_transposed<")
 TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "xstage.cu": {"xstage_kernel": "xt::finish<"},
-                "ka_kc.cu": {"ka_kernel": "xt::finish_transposed<",
+                "ka_kc.cu": {"ka_kernel": PLANES,
                              "ka_adv_kernel": "xt::finish_transposed<",
                              "ka_fwd_kernel": "xt::finish_transposed<",
-                             "kc_kernel": "xt::finish_transposed<"},
+                             "kc_kernel": PLANES},
                 "ka_diag.cu": {"ka_fields_kernel": "xt::finish_transposed<"},
                 "ka_sw.cu": {"ka_sw_kernel": "xt::finish_transposed<"},
                 "kb_pair.cu": {"kb_pair_kernel": "xt::finish<",
@@ -193,7 +201,7 @@ HERMITIAN_KERNELS = ("kb_pair_kernel", "kb_kernel", "kb_adv_kernel",
 # the kernels whose tile is formed by the computing load of load_rows
 LOAD_ROWS_KERNELS = ("ka_fields_kernel", "ka_sw_kernel", "ka_adv_kernel",
                      "ka_fwd_kernel", "ky_all_kernel")
-STORES = ("xt::finish<", "xt::finish_transposed<")
+STORES = ("xt::finish<", "xt::finish_transposed<", "xt::plane_transposed<")
 
 
 def _body(text: str, opener: str) -> str:
@@ -218,7 +226,9 @@ def test_plan_agrees_with_the_kernel_source():
     column tile, each ending in its own store (kb_pair's natural one, the
     transposed one of ka, ka_adv, ka_fwd, the field x-stages, ka_sw, kb,
     kc, ky_adv, ky_all, kb_adv and kb_adv_tracer); every tile entry point
-    takes the plan; the paired c2r y-stages share the tile's Hermitian
+    takes the plan; the fast ka and kc (FAST, the first branch) end in
+    the plane tile's store (plane_transposed), the strict ones in
+    finish_transposed; the paired c2r y-stages share the tile's Hermitian
     load, the computing x-stages and ky_all load_rows; the one-column
     transform colfft.cuh is gone: not built, not on disk, included by no
     source."""
@@ -236,9 +246,14 @@ def test_plan_agrees_with_the_kernel_source():
             body = _body(text, rf"__global__\s+void\s+(__launch_bounds__"
                                rf"\([^)]*\)\s+)?{fn}\s*\(")
             assert "xt::begin(" in body and "colfft" not in body, fn
-            assert store in body, fn
+            stores = store if isinstance(store, tuple) else (store,)
+            assert all(one in body for one in stores), fn
             assert all(other not in body for other in STORES
-                       if other != store), fn
+                       if other not in stores), fn
+            if isinstance(store, tuple):
+                fast, strict = body.split("} else {", 1)
+                assert "if constexpr (FAST)" in fast and store[1] in fast
+                assert store[0] in strict and store[1] not in strict
             if fn in HERMITIAN_KERNELS:
                 assert "xt::load_hermitian(" in body, fn
             if fn in LOAD_ROWS_KERNELS:
@@ -389,17 +404,23 @@ class _Cluster:
         slot addresses (warps, 32)), what in "load", "store", "table"."""
         sign = -1 if forward else 1
         fl = _FastLanes(self, sign, log)
-        x = (s.real.clone(), s.imag.clone())
-        m = self.m
+        x = fl.first((s.real.clone(), s.imag.clone()),
+                     swizzled=self.m >= 256)
+        return torch.complex(*self.subdft_rest(fl, x))
+
+    def subdft_rest(self, fl, x):
+        """subdft<SIGN, true>() (and xtile.cuh subdft_planes) after the
+        first pass: the second tensor-core pass (m >= 256), then the
+        float32 pass of the rest (m = 64, 128, 1024), on the (re, im)
+        tile x."""
+        m, sign = self.m, fl.sign
         if m >= 256:
-            x = fl.first(x, swizzled=True)
             x = fl.second(x, fold=m == 512)
             if m == 1024:
                 x = self._float_pass(x, 4, 256, sign)
         else:
-            x = fl.first(x, swizzled=False)
             x = self._float_pass(x, m // 16, 16, sign)
-        return torch.complex(*x)
+        return x
 
     def _float_pass(self, x, r: int, p: int, sign: int):
         """pass<R, SIGN>(t, p) of the (re, im) tile, op for op."""
@@ -588,10 +609,13 @@ class _FastLanes:
             tt = 2 * self.q + (e & 1) + 8 * (e >> 1)
             row = i + tt * (cl.m // 16)
             c = col ^ self.swizzle(row) if swz else col
-            addr = (row << cl.logc) + c
-            assert (addr < cl.m * cl.c).all()
-            self.note("load", addr)
-            v = (x[0][addr], x[1][addr])
+            if callable(x):                   # the plane tile's reads
+                v = x(row, c)
+            else:
+                addr = (row << cl.logc) + c
+                assert (addr < cl.m * cl.c).all()
+                self.note("load", addr)
+                v = (x[0][addr], x[1][addr])
             if tw is not None:
                 w = tw[e]
                 t = fst.mul(v, (w.real, w.imag))
@@ -754,6 +778,194 @@ def emulate(load, n: int, columns: int, forward: bool,
         return _written_once(out, writes, columns,
                              n // 2 + 1 if half else n)
     return _written_once(out, writes, n, columns)
+
+
+# the writer of each shared word of the plane tile (_Planes.tag): none
+# yet, the loads, a pass's output, the staged outputs
+FREE, LOADED, PASS, STAGED = range(4)
+
+
+class _Planes:
+    """One block's shared memory in csrc/xtile.cuh plane_transposed (the
+    fast ka_kernel and kc_kernel), as float words: the tile's m C values
+    and the W_m table behind them, each word NaN until written and tagged
+    with its last writer, so that every read is held to it: the first
+    pass reads only loads, the store only staged outputs. `vec` (rows of
+    a multiple of 4 floats): the loads land as planes, the tile's m C
+    real parts (row j, column c at word j C + c), then (not real) its m C
+    imaginary parts; else in the tile's layout (value j C + c, 0
+    imaginary parts for the real input). `log` collects the
+    shared-memory access instructions: (step, what, addresses (warps,
+    32)): words for "copy" (each 16-byte copy's first word), "word store"
+    and "word load", values else."""
+
+    def __init__(self, cl, real: bool, vec: bool, log=None):
+        m, c = cl.m, cl.c
+        self.cl, self.real, self.vec, self.log = cl, real, vec, log
+        self.plane = m * c
+        self.words = torch.full((2 * (m * c + m),), float("nan"))
+        self.tag = torch.full(self.words.shape, FREE, dtype=torch.int64)
+
+    def note(self, step, what, addr) -> None:
+        if self.log is not None:
+            self.log.append((step, what, addr.reshape(-1, 32)))
+
+    def load(self, load, tile: int, rank: int) -> None:
+        """load_planes(): block `rank`'s rows rank + K j of columns j0 ..
+        j0 + C from load(rows, columns), 0 past the columns; `vec`: thread
+        v's 16-byte copy of the four columns of quad v mod C/4 of row v
+        div C/4, each plane in turn; else thread v's float (re, then im)
+        of column v mod C of row v div C."""
+        cl, lq = self.cl, self.cl.logc - 2
+        threads = cl.m * cl.c // 16
+        if not self.vec:
+            for e in range(16):
+                v = e * threads + torch.arange(threads)
+                rows = rank + cl.k * (v >> cl.logc)
+                cols = tile * cl.c + (v & (cl.c - 1))
+                x = torch.where(cols < cl.columns,
+                                load(rows, cols.clamp(max=cl.columns - 1)),
+                                torch.zeros((), dtype=torch.complex64))
+                self.note("load", "word store", 2 * v)
+                if not self.real:
+                    self.note("load", "word store", 2 * v + 1)
+                self.words[2 * v] = x.real
+                self.words[2 * v + 1] = 0.0 if self.real else x.imag
+                self.tag[2 * v] = self.tag[2 * v + 1] = LOADED
+            return
+        for pl in range(1 if self.real else 2):
+            for e in range(4):
+                v = e * threads + torch.arange(threads)
+                quad, j = v & ((1 << lq) - 1), v >> lq
+                cols = tile * cl.c + 4 * quad
+                at = pl * self.plane + (j << cl.logc) + 4 * quad
+                self.note("load", "copy", at)
+                rows = rank + cl.k * j
+                for w in range(4):
+                    x = torch.where(
+                        cols + w < cl.columns,
+                        load(rows, (cols + w).clamp(max=cl.columns - 1)),
+                        torch.zeros((), dtype=torch.complex64))
+                    self.words[at + w] = x.imag if pl else x.real
+                    self.tag[at + w] = LOADED
+
+    def __call__(self, row, c):
+        """The first pass's read of a B fragment's input (row, column):
+        PlaneIn's words from the planes (`vec`), else load_b's value of
+        the tile: (re, im)."""
+        at = (row << self.cl.logc) + c
+        if not self.vec:
+            self.note("first", "load", at)
+            words = [2 * at, 2 * at + 1]
+        elif self.real:
+            words = [at]
+        else:
+            words = [at, at + self.plane]
+        for w in words:
+            if self.vec:
+                self.note("first", "word load", w)
+            assert (self.tag[w] == LOADED).all()
+        re = self.words[words[0]]
+        im = (torch.zeros_like(re) if self.vec and self.real
+              else self.words[words[1]])
+        return re, im
+
+    def put_tile(self, x) -> None:
+        """A pass's (re, im) output into the tile's m C values."""
+        n = self.plane
+        self.words[0:2 * n:2], self.words[1:2 * n:2] = x
+        self.tag[:2 * n] = PASS
+
+    def tile(self) -> torch.Tensor:
+        n = self.plane
+        assert (self.tag[:2 * n] == PASS).all()
+        return torch.complex(self.words[0:2 * n:2], self.words[1:2 * n:2])
+
+    def stage(self, k2, col, z, rank: int, half: bool) -> None:
+        """combine_staged (full: every X[k2 + m k1] at c (m + 16/C) + k1
+        m/K + k2 - q m/K) or combine_staged_half (half: stride m/2 +
+        16/C, only the outputs the half store keeps: staged index < m/2,
+        and m/2 on rank 0), thread u = (kk, c) storing its K values in k1
+        order; inside the tile and the 16 values of the (dead) table
+        behind it."""
+        cl = self.cl
+        stride = (cl.m // 2 if half else cl.m) + 16 // cl.c
+        i0 = k2 - rank * cl.mk
+        for k1 in range(cl.k):
+            i = k1 * cl.mk + i0
+            keep = ((i < cl.m // 2) | ((i == cl.m // 2) & (rank == 0))
+                    if half else torch.ones_like(i, dtype=torch.bool))
+            slot = col * stride + i
+            self.note("stage", "store", torch.where(keep, slot, -1))
+            at = 2 * slot[keep]
+            assert (at < 2 * (self.plane + 16)).all()
+            self.words[at] = z[k1][keep].real
+            self.words[at + 1] = z[k1][keep].imag
+            self.tag[at] = self.tag[at + 1] = STAGED
+
+    def store(self, tile: int, rank: int, half: bool, out, writes,
+              plane: int) -> None:
+        """store_staged(): the staged column c's first m/2 values (half;
+        and rank 0's at m/2 to k = n/2) or all m, in k order, to out[plane
+        + j0 + c, k]; columns past the last skipped."""
+        cl = self.cl
+        stride = (cl.m // 2 if half else cl.m) + 16 // cl.c
+        length = cl.m // 2 if half else cl.m
+        u = torch.arange(length * cl.c)
+        co, i = u // length, u % length
+        kout = rank * cl.mk + i % cl.mk + cl.m * (i // cl.mk)
+        slots = [(co, co * stride + i, kout)]
+        if half and rank == 0:
+            co = torch.arange(cl.c)
+            slots.append((co, co * stride + cl.m // 2,
+                          torch.full_like(co, cl.n // 2)))
+        j0 = tile * cl.c
+        for co, slot, kout in slots:
+            at = 2 * slot
+            assert (self.tag[at] == STAGED).all()
+            assert (self.tag[at + 1] == STAGED).all()
+            live = j0 + co < cl.columns
+            _put(out, writes, (plane + j0 + co[live], kout[live]),
+                 torch.complex(self.words[at], self.words[at + 1])[live])
+
+
+def emulate_planes(load, n: int, columns: int, forward: bool, half: bool,
+                   real: bool, out=None, writes=None, plane: int = 0,
+                   log=None):
+    """plane_transposed<SIGN, HALF>() (the fast ka_kernel, kc_kernel) over
+    the `columns` columns of a length-n transform whose tile rows come
+    from load(rows, columns) (`real`: their real parts alone), in the
+    kernel's order: the loads (as planes by 16-byte copies where the
+    columns are a multiple of 4, else into the tile's layout), the first
+    pass from them (its B fragments as PlaneIn or load_b reads them), the
+    rest of the sub-DFT, the exchange over the
+    K blocks' tiles, the staging (half: only the outputs kept) and the
+    store. Written into out, writes (new ones when None): (columns, n/2 +
+    1) with `half`, else (columns, n); every output kept is written
+    exactly once."""
+    cl = _Cluster(n, columns, 4, fast=True)
+    width = n // 2 + 1 if half else n
+    fresh = out is None
+    if fresh:
+        out, writes = _outputs(cl.tiles * cl.c, width)
+    for tile in range(cl.tiles):
+        blocks = [_Planes(cl, real, columns % 4 == 0, log)
+                  for _ in range(cl.k)]
+        for rank, b in enumerate(blocks):
+            b.load(load, tile, rank)
+            fl = _FastLanes(cl, -1 if forward else 1, log)
+            b.put_tile(fl.first(b, swizzled=cl.m >= 256))
+            t = b.tile()
+            b.put_tile(cl.subdft_rest(fl, (t.real, t.imag)))
+        tiles = torch.stack([b.tile() for b in blocks])
+        combined = [cl.combine(tiles, rank, forward)
+                    for rank in range(cl.k)]
+        for rank, b in enumerate(blocks):
+            b.stage(*combined[rank], rank, half)
+            b.store(tile, rank, half, out, writes, plane)
+    if fresh:
+        return _written_once(out, writes, columns, width)
+    return None
 
 
 def _advection(u, zx, v, zy, src, beta: float):
@@ -1157,12 +1369,31 @@ def _cut(n: int, columns: int) -> int:
 
 def emulate_ka(xr, xi, forward: bool, scale: float, fast: bool = False):
     """ka_kernel: the tile of the (n, m) planes (xi None: zero imaginary
-    parts), the transform (`fast`: the fast tile's), the full transposed
-    store of Re * scale and Im * scale: (m, n) planes."""
+    parts), the transform, the full transposed store of Re * scale and Im
+    * scale: (m, n) planes; `fast`: ka_kernel<SIGN, true>, the plane tile
+    (emulate_planes)."""
     n, m = xr.shape
     x = torch.complex(xr, torch.zeros_like(xr) if xi is None else xi)
-    got = emulate(_dense(x), n, m, forward, transposed=True, fast=fast)
+    if fast:
+        got = emulate_planes(_dense(x), n, m, forward, False, xi is None)
+    else:
+        got = emulate(_dense(x), n, m, forward, transposed=True)
     return _scaled(got, scale)
+
+
+def emulate_kc_fast(xr, xi):
+    """kc_kernel<true> on (F, ny, nx) planes (kc_sw's stack; F = 1: kc,
+    kc_visc before its epilogue): each field's plane tiles
+    (emulate_planes) with the half store into flat (F nx, ny/2 + 1)
+    planes: (F, nx, ny/2 + 1), every output written exactly once."""
+    count, n, cols = xr.shape
+    width = n // 2 + 1
+    out, writes = _outputs(count * cols, width)
+    for f in range(count):
+        emulate_planes(_dense(torch.complex(xr[f], xi[f])), n, cols, True,
+                       True, False, out, writes, plane=f * cols)
+    return _written_once(out, writes, count * cols, width).reshape(
+        count, cols, width)
 
 
 @pytest.mark.parametrize("mode", list(KA_MODES))
@@ -1939,17 +2170,14 @@ def test_emulated_fast_xfirst_kernels_are_their_plain_versions(shape):
     # kc's half store on y-major (n, cols) planes, under kc_visc's
     # epilogue, and over kc_sw's stack of five
     xr, xi = _float_planes(rng, (n, cols), 2)
-    got = _emulate_stack([_dense(torch.complex(xr, xi))], n, cols, True,
-                         half=True, fast=True)[0]
+    got = emulate_kc_fast(xr[None], xi[None])[0]
     assert got.shape == (cols, n // 2 + 1)
     lap, mask, zr, zi = _float_planes(rng, (cols, n // 2 + 1), 4)
     want = ff.kc_visc(xr, xi, lap, mask, zr, zi, 6.5, fast=True)
     visc = ff.visc_plain(got.real, got.imag, lap, mask, zr, zi, 6.5)
     assert torch.equal(visc[0], want[0]) and torch.equal(visc[1], want[1])
     gr, gi = _float_planes(rng, (5, n, cols), 2)
-    got = _emulate_stack([_dense(torch.complex(gr[f], gi[f]))
-                          for f in range(5)], n, cols, True, half=True,
-                         fast=True)
+    got = emulate_kc_fast(gr, gi)
     assert torch.equal(got, torch.complex(*fs.kc_sw(gr, gi, fast=True)))
     # ka_fwd: the five products of x-major (n, cols) fields
     fields = [a * p for a, p in zip((3.0, 3.0, 1e-4, 1e-4),
@@ -2039,6 +2267,111 @@ def test_emulated_fast_ka_and_xstage_are_their_plain_versions(shape):
     x = want.permute(1, 0, 2).reshape(n, p * w)[:, :cols].contiguous()
     assert torch.equal(emulate_xstage(x, cols, cols, False, 1.0 / n, True),
                        dfft.unshard_rows(scattered))
+
+
+@pytest.mark.parametrize("extra", [4, 3], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_emulated_plane_tile_is_the_fast_plain_transform(n, extra):
+    """The plane tile of the fast ka_kernel and kc_kernel (emulate_planes)
+    on two whole tiles and a ragged third at every length, their rows a
+    multiple of 4 floats (16-byte copies) or not (one float each): kc's
+    half store kc_fast_plain's bits, ka's real forward and complex
+    inverse ka_fast_plain's, every output NaN-started and written exactly
+    once; every read of the loads and of the staged outputs held to its
+    writer (_Planes)."""
+    c = xtile.xtile_plan(n, 1, 4).c
+    cols = 2 * c + extra
+    rng = np.random.default_rng(n + extra)
+    xr, xi = _float_planes(rng, (n, cols), 2)
+    got = emulate_kc_fast(xr[None], xi[None])[0]
+    assert torch.equal(got, torch.complex(*ff.kc_fast_plain(xr, xi)))
+    for forward, im, scale in ((True, None, 1.0), (False, xi, 0.37)):
+        got = emulate_ka(xr, im, forward, scale, fast=True)
+        want = ff.ka_fast_plain(xr, im, forward, scale)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def test_plane_tile_agrees_with_the_kernel_source():
+    """The plane tile's layout in csrc/xtile.cuh is the emulation's
+    (_Planes): the imaginary plane m C words behind the real one, in the
+    first pass's reads (PlaneIn) and the 16-byte loads, the tile's own
+    layout in the one-float loads; the half staging's
+    stride m/2 + 16/C, whose C columns fit the tile's first half and 16
+    values at every length (the full staging: the tile and 16 values, of
+    the W_m table, dead by then); the fast ka_kernel and kc_kernel keep
+    the plan's shared bytes and grid (the strict forms' launch)."""
+    src = _source("xtile.cuh")
+    assert src.count("const int plane = t.m << t.logc;") == 2
+    assert "s[plane + off]" in src
+    assert "(e >> 2) * plane + (j << t.logc) + 4 * quad" in src
+    load = _body(src, r"void load_planes\(")
+    assert "cp_async16(" in load and "cp_async4(&d->x, xr + off);" in load
+    assert "return (t.m >> 1) + (16 >> t.logc);" in src
+    for n in LENGTHS:
+        p = xtile.xtile_plan(n, 1, 4)
+        assert p.c * (p.m // 2 + 16 // p.c) <= p.m * p.c // 2 + 16
+        assert p.c * (p.m + 16 // p.c) <= p.m * p.c + 16 <= p.smem // 8
+    for launcher, kernel in (("launch_ka", "ka_kernel<SIGN, FAST>"),
+                             ("launch_kc", "kc_kernel<FAST>")):
+        body = " ".join(_body(_source("ka_kc.cu"),
+                              rf"int {launcher}\(").split())
+        assert f"xfb::xtile::launch( {kernel}, tiles," in body
+        assert "smem" in body
+
+
+def _word_bank_degree(addr: torch.Tensor) -> int:
+    """The worst bank conflict of one 4-byte shared-memory access
+    instruction, addr (warps, 32) its words: per warp (32 lanes, one
+    wavefront without conflict), the most distinct words on one of the
+    32 banks."""
+    return max(int(torch.bincount(torch.unique(w) % 32, minlength=32).max())
+               for w in addr)
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_plane_tile_hits_distinct_banks(n):
+    """The plane tile's own shared-memory accesses, from the emulated
+    addresses of kc's half store and ka's real forward and complex
+    inverse: on rows of a multiple of 4 floats each 16-byte copy of the
+    loads lands on four banks of its own in every quarter warp (8 lanes,
+    one wavefront) and the first pass's word reads of the planes
+    (PlaneIn) hit 32 distinct banks per warp; on other rows the one-float
+    copies into the tile's layout meet 2 lanes on a bank, as every other
+    kernel's loads do (their real or imaginary parts, a word apart), and
+    the first pass's reads of it (load_b) hit 16 bank pairs per half
+    warp; the half staging's and the full staging's stores hit 16
+    distinct bank pairs per half warp (the lanes that store)."""
+    c = xtile.xtile_plan(n, 1, 4).c
+    worst = {}
+    for cols in (2 * c, 2 * c - 1):
+        rng = np.random.default_rng(n + cols)
+        x = torch.complex(*_float_planes(rng, (n, cols), 2))
+        for half, real in ((True, False), (False, True), (False, False)):
+            log = []
+            emulate_planes(_dense(x), n, cols, True, half, real, log=log)
+            for step, what, addr in log:
+                if what == "copy":
+                    quads = addr.reshape(-1, 8)          # quarter warps
+                    banks = (quads.unsqueeze(-1) + torch.arange(4)) % 32
+                    degree = max(int(torch.bincount(b.flatten(),
+                                                    minlength=32).max())
+                                 for b in banks)
+                elif what in ("word load", "word store"):
+                    degree = _word_bank_degree(addr)
+                elif step == "stage":
+                    degree = max(int(torch.bincount(
+                        torch.unique(h[h >= 0]) % 16, minlength=16).max())
+                        for h in addr.reshape(-1, 16))
+                elif (step, what) == ("first", "load"):
+                    degree = _bank_degree(addr)
+                else:
+                    continue
+                key = (cols % 4 == 0, "stage" if step == "stage" else what)
+                worst[key] = max(worst.get(key, 0), degree)
+    assert worst == {(True, "copy"): 1, (True, "word load"): 1,
+                     (True, "stage"): 1, (False, "word store"): 2,
+                     (False, "load"): 1, (False, "stage"): 1}, worst
 
 
 def test_fast_per_transform_and_xstage_entries_agree_with_the_source():

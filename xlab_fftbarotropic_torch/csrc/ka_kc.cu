@@ -57,16 +57,26 @@
 //
 // Fast mode (the JAX package's --fast-transforms) runs every kernel here
 // on the fast column tile (xtile.cuh FAST: the radix-16 sub-DFT passes as
-// bf16 tensor-core products, float32 accumulate), loads, stores and
-// epilogues unchanged: the x-first order's ka_adv_kernel<true>,
-// ka_fwd_kernel<true> and kc_kernel<true> (xfb_ka_adv_fast,
-// xfb_ka_fwd_fast, xfb_kc_visc_fast, xfb_kc_sw_fast; kc_kernel<true> is
-// the fast form of the transposed half store, k <= n/2, rank 0's k = n/2),
-// and the per-transform ka_kernel<SIGN, true> and kc_kernel<true>
-// (xfb_ka_fast, xfb_kc_fast: the fast rfft2, irfft2 and inverse_pair of
-// shallow-water drag and hyperviscosity, the forcing spectrum and the
-// adjoint). ka's scale stays one rounded product after the fast
-// transform, where the TPU kernel folds it into its bf16 DFT matrix.
+// bf16 tensor-core products, float32 accumulate): the x-first order's
+// ka_adv_kernel<true> and ka_fwd_kernel<true> (xfb_ka_adv_fast,
+// xfb_ka_fwd_fast) with loads, stores and epilogues unchanged, and the
+// fast per-transform pair ka_kernel<SIGN, true> and kc_kernel<true>
+// (xfb_ka_fast, xfb_kc_fast, and kc_kernel<true>'s epilogues
+// xfb_kc_visc_fast, xfb_kc_sw_fast: the fast rfft2, irfft2 and
+// inverse_pair of shallow-water drag and hyperviscosity, the forcing
+// spectrum, the adjoint, and the x-first steps' kc_visc and kc_sw) on
+// xtile.cuh's plane tile (plane_transposed): where the rows are 16-byte
+// aligned (kc's (ny, nx) planes at every grid the models run, ka's real
+// forward) the tile loads as two float planes, four columns per 16-byte
+// cp.async instead of one float, and the first pass reads them inlined;
+// kc's half store (k <= n/2, rank 0's k = n/2) stages only the outputs
+// it stores. Their bits are finish_transposed<SIGN, true>'s. They stay
+// bound by their float32 bytes, and by their steps in series: the loads,
+// the sub-DFT, the cluster exchange and the store of a block never
+// overlap, and two blocks share an SM (xtile_parts.cu's cuts; PERF.md
+// §6).
+// ka's scale stays one rounded product after the fast transform, where
+// the TPU kernel folds it into its bf16 DFT matrix.
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -82,33 +92,38 @@ __global__ void __launch_bounds__(512, 2)
               int k, int logc) {
   extern __shared__ float2 smem[];
   namespace xt = xfb::xtile;
-  const xt::Tile t = xt::begin(smem, tw, n, k, logc);
-  const int m = out.m;
-  const int j0 = (blockIdx.x / k) << logc;
-  const int cmask = (1 << logc) - 1;
+  if constexpr (FAST) {
+    xt::plane_transposed<SIGN, false>(smem, tw, n, k, logc, xr, xi, out.m,
+                                      out);
+  } else {
+    const xt::Tile t = xt::begin(smem, tw, n, k, logc);
+    const int m = out.m;
+    const int j0 = (blockIdx.x / k) << logc;
+    const int cmask = (1 << logc) - 1;
 #pragma unroll
-  for (int b = 0; b < xt::kElems; ++b) {
-    const int u = b * blockDim.x + threadIdx.x;
-    const int x = j0 + (u & cmask);
-    float2* d = t.s + u;
-    if (x < m) {
-      const size_t off =
-          static_cast<size_t>(t.rank + k * (u >> logc)) * m + x;
-      xt::cp_async4(&d->x, xr + off);
-      if (xi != nullptr) {
-        xt::cp_async4(&d->y, xi + off);
+    for (int b = 0; b < xt::kElems; ++b) {
+      const int u = b * blockDim.x + threadIdx.x;
+      const int x = j0 + (u & cmask);
+      float2* d = t.s + u;
+      if (x < m) {
+        const size_t off =
+            static_cast<size_t>(t.rank + k * (u >> logc)) * m + x;
+        xt::cp_async4(&d->x, xr + off);
+        if (xi != nullptr) {
+          xt::cp_async4(&d->y, xi + off);
+        } else {
+          d->y = 0.f;
+        }
       } else {
-        d->y = 0.f;
+        *d = make_float2(0.f, 0.f);
       }
-    } else {
-      *d = make_float2(0.f, 0.f);
     }
+    xt::cp_async_wait_all();
+    __syncthreads();
+    xt::RowOut o = out;
+    o.j0 = j0;
+    xt::finish_transposed<SIGN, FAST>(t, tw, false, o);
   }
-  xt::cp_async_wait_all();
-  __syncthreads();
-  xt::RowOut o = out;
-  o.j0 = j0;
-  xt::finish_transposed<SIGN, FAST>(t, tw, false, o);
 }
 
 // cluster tile: columns j0 .. j0 + C of the x-major (nx, ny) fields;
@@ -203,31 +218,40 @@ __global__ void __launch_bounds__(512, 2)
               int logc) {
   extern __shared__ float2 smem[];
   namespace xt = xfb::xtile;
-  const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
-  const int nx = out.nx;
-  const int j0 = (blockIdx.x / k) << logc;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * ny * nx;
-  const int cmask = (1 << logc) - 1;
+  if constexpr (FAST) {
+    const int nx = out.nx;
+    const size_t plane = static_cast<size_t>(blockIdx.y) * ny * nx;
+    KcOut o = out;
+    o.plane = static_cast<size_t>(blockIdx.y) * nx * out.hny;
+    xt::plane_transposed<-1, true>(smem, tw, ny, k, logc, xr + plane,
+                                   xi + plane, nx, o);
+  } else {
+    const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
+    const int nx = out.nx;
+    const int j0 = (blockIdx.x / k) << logc;
+    const size_t plane = static_cast<size_t>(blockIdx.y) * ny * nx;
+    const int cmask = (1 << logc) - 1;
 #pragma unroll
-  for (int b = 0; b < xt::kElems; ++b) {
-    const int u = b * blockDim.x + threadIdx.x;
-    const int x = j0 + (u & cmask);
-    float2* d = t.s + u;
-    if (x < nx) {
-      const size_t off =
-          plane + static_cast<size_t>(t.rank + k * (u >> logc)) * nx + x;
-      xt::cp_async4(&d->x, xr + off);
-      xt::cp_async4(&d->y, xi + off);
-    } else {
-      *d = make_float2(0.f, 0.f);
+    for (int b = 0; b < xt::kElems; ++b) {
+      const int u = b * blockDim.x + threadIdx.x;
+      const int x = j0 + (u & cmask);
+      float2* d = t.s + u;
+      if (x < nx) {
+        const size_t off =
+            plane + static_cast<size_t>(t.rank + k * (u >> logc)) * nx + x;
+        xt::cp_async4(&d->x, xr + off);
+        xt::cp_async4(&d->y, xi + off);
+      } else {
+        *d = make_float2(0.f, 0.f);
+      }
     }
+    xt::cp_async_wait_all();
+    __syncthreads();
+    KcOut o = out;
+    o.plane = static_cast<size_t>(blockIdx.y) * nx * out.hny;
+    o.j0 = j0;
+    xt::finish_transposed<-1, FAST>(t, tw, true, o);
   }
-  xt::cp_async_wait_all();
-  __syncthreads();
-  KcOut o = out;
-  o.plane = static_cast<size_t>(blockIdx.y) * nx * out.hny;
-  o.j0 = j0;
-  xt::finish_transposed<-1, FAST>(t, tw, true, o);
 }
 
 template <int SIGN, bool FAST>

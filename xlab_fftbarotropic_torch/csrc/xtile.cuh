@@ -36,7 +36,10 @@
 //      half warp's 16 stores hit 16 banks) and hands them to the
 //      epilogue column by column, consecutive lanes on consecutive k:
 //      each column's outputs are K runs of m/K contiguous k (64 at 4096,
-//      256 bytes per plane).
+//      256 bytes per plane). The fast ka and kc run it on the plane tile
+//      (plane_transposed, below): 16-byte loads into two float planes
+//      where the rows are aligned, the first pass inlined, and kc's half
+//      store staging only the outputs it keeps (columns of m/2 + 16/C).
 //
 // X[k2 + m k1] = sum_r W_K^(r k1) W_n^(r k2) sum_j x[r + K j] W_m^(j k2):
 // one pass over device memory whatever n. Each thread holds kElems
@@ -74,7 +77,8 @@
 // outputs (read back by gather<K, true>) put every tile load and store
 // of a half warp on 16 bank pairs at C = 16 (and C = 8 at m = 512),
 // where the radix-16 pass before them met 4-way conflicts on both. The
-// passes are calls, not inlined (their registers are their own). They
+// passes are calls, not inlined (their registers are their own), but
+// for the plane tile's first pass (its reads are its own). They
 // read and write only the tile's m C slots, and take no more shared
 // memory than the strict passes. The kernels stay bound by their
 // float32 bytes (the DFT-16 products are under 0.01 ms of bf16 work
@@ -457,15 +461,15 @@ __device__ __forceinline__ void load_b(const Tile& t, int i, int c, bool swz,
 }
 
 // The first radix-16 pass (p = 1: no twiddles) on the tensor cores, the
-// plain map: the tile's rows in, out in the second pass's layout
-// (`to_swizzled`) or the tile's rows (the only radix-16 pass, m < 256).
-// Both passes are calls, not inlined: their registers are their own, so
-// the state of the kernel around them (kb_adv's second tile and
-// advection, the epilogues' pointers) is saved once around the call
-// instead of spilled inside their loops.
-template <int SIGN>
-__device__ __noinline__ void pass16_first(const Tile t, const Dft16 a,
-                                          bool to_swizzled) {
+// plain map: in(i, column, b) loads the B fragment of butterfly i (the
+// tile's rows: load_b; the plane tile's: PlaneIn), out in the
+// second pass's layout (`to_swizzled`) or the tile's rows (the only
+// radix-16 pass, m < 256). The tile is written only after every lane has
+// read its inputs, so they may lie in the tile itself.
+template <int SIGN, class In>
+__device__ __forceinline__ void pass16_first_body(const Tile& t,
+                                                  const Dft16& a,
+                                                  bool to_swizzled, In in) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   unsigned b[4][4];
 #pragma unroll
@@ -473,7 +477,7 @@ __device__ __noinline__ void pass16_first(const Tile t, const Dft16 a,
     const int h = (q + s) & 3;
     const int2 bc = plain_butterfly(t, h, g);
     unsigned x[4];
-    load_b<SIGN>(t, bc.x, bc.y, false, -1, x);
+    in(bc.x, bc.y, x);
     put_slot(b, h, x);
   }
   __syncthreads();
@@ -490,6 +494,19 @@ __device__ __noinline__ void pass16_first(const Tile t, const Dft16 a,
     }
   }
   __syncthreads();
+}
+
+// pass16_first_body on the tile's rows, as a call, not inlined (so is
+// pass16_second): the registers of the passes are their own, so the
+// state of the kernel around them (kb_adv's second tile and advection,
+// the epilogues' pointers) is saved once around the call instead of
+// spilled inside their loops.
+template <int SIGN>
+__device__ __noinline__ void pass16_first(const Tile t, const Dft16 a,
+                                          bool to_swizzled) {
+  pass16_first_body<SIGN>(t, a, to_swizzled, [&](int i, int c, unsigned* x) {
+    load_b<SIGN>(t, i, c, false, -1, x);
+  });
 }
 
 // The second radix-16 pass (p = 16) on the tensor cores, from the first
@@ -743,6 +760,260 @@ __device__ __forceinline__ void finish_transposed(
       out(t.n >> 1, c, t.s[c * stride + (t.m >> 1)]);
     }
   }
+}
+
+// ---- the fast per-transform pair: the plane tile ----
+//
+// ka_kernel<SIGN, true> and kc_kernel<true> (ka_kc.cu) load their tile as
+// two float planes where the rows are 16-byte aligned (kc's (ny, nx)
+// planes, ka's real forward (n, ny) planes: the tile's m C real parts,
+// row j, column c at word j C + c, then its m C imaginary parts; the real
+// input: the first plane alone), so that one 16-byte cp.async moves four
+// columns of a row; elsewhere (ka's complex inverse on hny columns, any
+// row of a width not a multiple of 4) the tile's own layout, one float
+// per cp.async, as the other kernels load. The first pass reads its B fragments from either
+// (PlaneIn, load_b) inlined, and writes the tile's usual layout: the
+// rest of the transform is the tile's, the second pass a call. kc's half
+// store stages only the outputs it stores (combine_staged_half). Every
+// output keeps finish_transposed's bits: only the data movement differs.
+
+// The plane tile's reader: input (row, column) of the first pass.
+struct PlaneIn {
+  const float* s;
+  bool real;
+
+  // The first pass's B fragment of butterfly i of column c: load_b's
+  // (inputs t = 2q, 2q + 1, 2q + 8, 2q + 9 from rows i + t m/16; no
+  // twiddle), read as words from the two planes.
+  __device__ __forceinline__ void operator()(const Tile& t, int i, int c,
+                                             unsigned* b) const {
+    const int stride = t.m >> 4, q = threadIdx.x & 3;
+    const int plane = t.m << t.logc;
+    float2 x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tt = 2 * q + (e & 1) + 8 * (e >> 1);
+      const int off = ((i + tt * stride) << t.logc) + c;
+      x[e] = make_float2(s[off], real ? 0.f : s[plane + off]);
+    }
+    b[0] = bf16x2(x[0].x, x[1].x);
+    b[1] = bf16x2(x[2].x, x[3].x);
+    b[2] = bf16x2(x[0].y, x[1].y);
+    b[3] = bf16x2(x[2].y, x[3].y);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// The plane tile's load: block r's rows r + K j (j < m) of columns j0 ..
+// j0 + C of the (rows, cols) planes xr, xi (xi NULL: the real plane
+// alone; 0 past cols). `vec` (cols a multiple of 4, xr and xi 16-byte
+// aligned): as planes, one 16-byte copy of four columns per thread and
+// instruction, consecutive lanes on consecutive quads of a row; else
+// into the tile's layout (row j, column c at value j C + c; 0 imaginary
+// parts for the real input), one float each, consecutive lanes on
+// consecutive columns.
+__device__ __forceinline__ void load_planes(const Tile& t,
+                                            const float* __restrict__ xr,
+                                            const float* __restrict__ xi,
+                                            int cols, int j0, bool vec) {
+  if (vec) {
+    float* d = reinterpret_cast<float*>(t.s);
+    const int plane = t.m << t.logc;
+    const int planes = xi == nullptr ? 1 : 2;
+    const int lq = t.logc - 2;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if ((e >> 2) >= planes) break;
+      const int v = (e & 3) * blockDim.x + threadIdx.x;
+      const int quad = v & ((1 << lq) - 1), j = v >> lq;
+      const int x = j0 + 4 * quad;
+      float* to = d + (e >> 2) * plane + (j << t.logc) + 4 * quad;
+      if (x < cols) {
+        const size_t row = t.rank + t.k * j;
+        cp_async16(to, (e >> 2 ? xi : xr) + row * cols + x);
+      } else {
+        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    const int cmask = (1 << t.logc) - 1;
+#pragma unroll
+    for (int b = 0; b < kElems; ++b) {
+      const int u = b * blockDim.x + threadIdx.x;
+      const int x = j0 + (u & cmask);
+      float2* d = t.s + u;
+      if (x < cols) {
+        const size_t off =
+            static_cast<size_t>(t.rank + t.k * (u >> t.logc)) * cols + x;
+        cp_async4(&d->x, xr + off);
+        if (xi != nullptr) {
+          cp_async4(&d->y, xi + off);
+        } else {
+          d->y = 0.f;
+        }
+      } else {
+        *d = make_float2(0.f, 0.f);
+      }
+    }
+  }
+}
+
+// subdft<SIGN, true> of the plane tile: the first pass inlined, from the
+// planes (`vec`) or the tile's rows, then the tile's own passes.
+template <int SIGN>
+__device__ __forceinline__ void subdft_planes(const Tile& t, bool vec,
+                                              bool real) {
+  const Dft16 a = dft16();
+  const PlaneIn in{reinterpret_cast<const float*>(t.s), real};
+  if (vec) {
+    pass16_first_body<SIGN>(t, a, t.m >= 256,
+                            [&](int i, int c, unsigned* b) { in(t, i, c, b); });
+  } else {
+    pass16_first_body<SIGN>(t, a, t.m >= 256,
+                            [&](int i, int c, unsigned* b) {
+                              load_b<SIGN>(t, i, c, false, -1, b);
+                            });
+  }
+  if (t.m >= 256) {
+    if (t.m == 512) {
+      pass16_second<SIGN, true>(t, a);
+    } else {
+      pass16_second<SIGN, false>(t, a);
+      if (t.m == 1024) pass<4, SIGN>(t, 256);
+    }
+  } else if (t.m == 128) {
+    pass<8, SIGN>(t, 16);
+  } else {
+    pass<4, SIGN>(t, 16);
+  }
+}
+
+// The staged half column's stride: m/2 + 16 / C values (k <= n/2 is the
+// first m/2 staged values of a column and rank 0's one at m/2).
+__device__ __forceinline__ int half_stride(const Tile& t) {
+  return (t.m >> 1) + (16 >> t.logc);
+}
+
+// combine_staged<K, SIGN, true> for the half store: the same exchange and
+// K-point step, each output X[k2 + m k1] that the half store keeps (k1 <
+// K/2, and k1 = K/2 at k2 = 0 on rank 0; at K = 1 k2 <= m/2) staged at
+// s[c half_stride + k1 m/K + k2 - q m/K], the rest never formed.
+template <int K, int SIGN>
+__device__ __forceinline__ void combine_staged_half(
+    const Tile& t, const float2* __restrict__ tw) {
+  constexpr int B = kElems / K;
+  const int mk = t.m / K;
+  const int cmask = (1 << t.logc) - 1;
+  float2 v[kElems];
+  cluster_sync();
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int k2 = t.rank * mk + (u >> t.logc);
+    float2* x = v + b * K;
+    gather<K, true>(t, t.s, k2, u & cmask, x);
+    if (b == B - 1) cluster_arrive();
+    twiddle_dft<K, SIGN>(t, tw, k2, x);
+  }
+  cluster_wait();
+  const int stride = half_stride(t);
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int c = u & cmask, kk = u >> t.logc;
+    float2* col = t.s + c * stride;
+    if constexpr (K == 1) {
+      if (kk <= (t.m >> 1)) col[kk] = v[b];
+    } else {
+#pragma unroll
+      for (int k1 = 0; k1 < K / 2; ++k1) col[k1 * mk + kk] = v[b * K + k1];
+      if (t.rank == 0 && kk == 0) col[t.m >> 1] = v[b * K + K / 2];
+    }
+  }
+  __syncthreads();
+}
+
+// The staged outputs to the epilogue: out(k, column in tile, value),
+// consecutive lanes on consecutive k of one column; half: the first m/2
+// of each column (stride half_stride) and rank 0's k = n/2, else all m
+// (stride staged_stride).
+template <class Out>
+__device__ __forceinline__ void store_staged(const Tile& t, bool half,
+                                             Out& out) {
+  const int stride = half ? half_stride(t) : staged_stride(t);
+  const int logmk = (__ffs(t.m) - 1) - (__ffs(t.k) - 1);
+  const int len = half ? t.m >> 1 : t.m;
+  const int loglen = __ffs(len) - 1;
+  for (int u = threadIdx.x; u < (len << t.logc); u += blockDim.x) {
+    const int c = u >> loglen, i = u & (len - 1);
+    const int k = t.rank * (t.m / t.k) + (i & ((1 << logmk) - 1)) +
+                  t.m * (i >> logmk);
+    out(k, c, t.s[c * stride + i]);
+  }
+  if (half && t.rank == 0) {
+    for (int c = threadIdx.x; c < (1 << t.logc); c += blockDim.x) {
+      out(t.n >> 1, c, t.s[c * stride + (t.m >> 1)]);
+    }
+  }
+}
+
+// The fast per-transform pair's tile: block `rank` of the cluster of
+// tile blockIdx.x / K loads its rows of the (n, cols) planes xr, xi (xi
+// NULL: real input; load_planes), runs the length-n transform
+// (SIGN) of every column on the fast tile and stores it transposed
+// through `out` (HALF: k <= n/2), out.j0 set to the tile's first column.
+template <int SIGN, bool HALF, class Out>
+__device__ __forceinline__ void plane_transposed(
+    float2* smem, const float2* __restrict__ tw, int n, int k, int logc,
+    const float* __restrict__ xr, const float* __restrict__ xi, int cols,
+    Out out) {
+  const Tile t = begin(smem, tw, n, k, logc);
+  const bool vec = (cols & 3) == 0 &&
+                   (reinterpret_cast<size_t>(xr) & 15) == 0 &&
+                   (reinterpret_cast<size_t>(xi) & 15) == 0;
+  out.j0 = (blockIdx.x / k) << logc;
+  load_planes(t, xr, xi, cols, out.j0, vec);
+  cp_async_wait_all();
+  __syncthreads();
+  subdft_planes<SIGN>(t, vec, xi == nullptr);
+  if constexpr (HALF) {
+    switch (t.k) {
+      case 1:
+        combine_staged_half<1, SIGN>(t, tw);
+        break;
+      case 2:
+        combine_staged_half<2, SIGN>(t, tw);
+        break;
+      case 4:
+        combine_staged_half<4, SIGN>(t, tw);
+        break;
+      default:
+        combine_staged_half<8, SIGN>(t, tw);
+        break;
+    }
+  } else {
+    switch (t.k) {
+      case 1:
+        combine_staged<1, SIGN, true>(t, tw);
+        break;
+      case 2:
+        combine_staged<2, SIGN, true>(t, tw);
+        break;
+      case 4:
+        combine_staged<4, SIGN, true>(t, tw);
+        break;
+      default:
+        combine_staged<8, SIGN, true>(t, tw);
+        break;
+    }
+  }
+  store_staged(t, HALF, out);
 }
 
 // The Hermitian load of the paired c2r y-stages (kb_pair.cu, kb_adv.cu,

@@ -15,6 +15,16 @@
 //   stop 3: + the cluster exchange and the K-point step (combine), no
 //           store;
 //   stop 4: all of it, with the natural store (finish).
+// The transposed store (finish_transposed) has its own cuts
+// (xfb_xtile_tparts), of kc_kernel's form (two (n, cols) float planes in,
+// the half store k <= n/2 to (cols, n/2 + 1) planes) and ka_kernel's
+// real forward (one float plane in, the full store to (cols, n) planes):
+//   stop 0: the loads (as above);
+//   stop 1: + the whole sub-DFT;
+//   stop 2: + the cluster exchange and the K-point step, the outputs held
+//           in registers;
+//   stop 3: + the staging of the outputs in the tile (combine_staged);
+//   stop 4: all of it, with the transposed store (finish_transposed).
 #include "xtile.cuh"
 
 namespace {
@@ -185,7 +195,182 @@ int run_stop(int stop, const float* xr, const float* xi, float* yr,
   }
 }
 
+// The exchange and K-point step of combine_staged, its outputs kept alive
+// in registers and never staged.
+template <int K, bool FAST>
+__device__ __forceinline__ void exchange(const xt::Tile& t,
+                                         const float2* __restrict__ tw,
+                                         float* y, float sentinel) {
+  constexpr int B = xt::kElems / K;
+  const int mk = t.m / K;
+  const int cmask = (1 << t.logc) - 1;
+  float2 v[xt::kElems];
+  xt::cluster_sync();
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int k2 = t.rank * mk + (u >> t.logc);
+    float2* x = v + b * K;
+    xt::gather<K, FAST>(t, t.s, k2, u & cmask, x);
+    if (b == B - 1) xt::cluster_arrive();
+    xt::twiddle_dft<K, -1>(t, tw, k2, x);
+  }
+  xt::cluster_wait();
+#pragma unroll
+  for (int e = 0; e < xt::kElems; ++e) {
+    if (v[e].x == sentinel) y[0] = v[e].y;
+  }
+}
+
+// kc_kernel's cut (KA false: xr, xi (n, cols) planes -> yr, yi (cols,
+// n/2 + 1)) or ka_kernel's real forward (KA true: xr (n, cols) -> yr, yi
+// (cols, n)), up to stop STOP
+template <bool FAST, bool KA, int STOP>
+__global__ void __launch_bounds__(512, 2)
+    tparts_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  float* yr, float* yi, const float2* __restrict__ tw, int n,
+                  int cols, int k, int logc, float sentinel) {
+  extern __shared__ float2 smem[];
+  const xt::Tile t = xt::begin(smem, tw, n, k, logc);
+  const int j0 = (blockIdx.x / k) << logc;
+  const int cmask = (1 << logc) - 1;
+  // ka_kernel's and kc_kernel's load: rows rank + k * jj, consecutive
+  // lanes on consecutive columns
+#pragma unroll
+  for (int b = 0; b < xt::kElems; ++b) {
+    const int u = b * blockDim.x + threadIdx.x;
+    const int x = j0 + (u & cmask);
+    float2* d = t.s + u;
+    if (x < cols) {
+      const size_t off =
+          static_cast<size_t>(t.rank + k * (u >> logc)) * cols + x;
+      xt::cp_async4(&d->x, xr + off);
+      if constexpr (KA) {
+        d->y = 0.f;
+      } else {
+        xt::cp_async4(&d->y, xi + off);
+      }
+    } else {
+      *d = make_float2(0.f, 0.f);
+    }
+  }
+  xt::cp_async_wait_all();
+  __syncthreads();
+  if constexpr (STOP == 4) {
+    if constexpr (KA) {
+      xt::RowOut o{yr, yi, 0, j0, cols, n, 1.f};
+      xt::finish_transposed<-1, FAST>(t, tw, false, o);
+    } else {
+      xt::HalfOut o{yr, yi, 0, j0, cols, n / 2 + 1};
+      xt::finish_transposed<-1, FAST>(t, tw, true, o);
+    }
+    return;
+  }
+  if constexpr (STOP > 0) xt::subdft<-1, FAST>(t);
+  if constexpr (STOP == 2) {
+    switch (t.k) {
+      case 1:
+        exchange<1, FAST>(t, tw, yr, sentinel);
+        break;
+      case 2:
+        exchange<2, FAST>(t, tw, yr, sentinel);
+        break;
+      case 4:
+        exchange<4, FAST>(t, tw, yr, sentinel);
+        break;
+      default:
+        exchange<8, FAST>(t, tw, yr, sentinel);
+        break;
+    }
+    return;
+  }
+  if constexpr (STOP == 3) {
+    switch (t.k) {
+      case 1:
+        xt::combine_staged<1, -1, FAST>(t, tw);
+        break;
+      case 2:
+        xt::combine_staged<2, -1, FAST>(t, tw);
+        break;
+      case 4:
+        xt::combine_staged<4, -1, FAST>(t, tw);
+        break;
+      default:
+        xt::combine_staged<8, -1, FAST>(t, tw);
+        break;
+    }
+  }
+  const float2 v = t.s[threadIdx.x];
+  if (v.x == sentinel) yr[0] = v.y;
+}
+
+template <bool FAST, bool KA, int STOP>
+int trun(const float* xr, const float* xi, float* yr, float* yi,
+         const void* tw, int n, int cols, int tile_c, int cluster_k,
+         int threads, int smem, int device, void* stream) {
+  const int tiles = (cols + tile_c - 1) / tile_c;
+  return static_cast<int>(xt::launch(
+      tparts_kernel<FAST, KA, STOP>, tiles, 1, cluster_k, threads, smem,
+      device, static_cast<cudaStream_t>(stream), xr, xi, yr, yi,
+      static_cast<const float2*>(tw), n, cols, cluster_k, xt::log2i(tile_c),
+      __builtin_nanf("")));
+}
+
+template <bool FAST, bool KA>
+int trun_stop(int stop, const float* xr, const float* xi, float* yr,
+              float* yi, const void* tw, int n, int cols, int tile_c,
+              int cluster_k, int threads, int smem, int device,
+              void* stream) {
+  switch (stop) {
+    case 0:
+      return trun<FAST, KA, 0>(xr, xi, yr, yi, tw, n, cols, tile_c,
+                               cluster_k, threads, smem, device, stream);
+    case 1:
+      return trun<FAST, KA, 1>(xr, xi, yr, yi, tw, n, cols, tile_c,
+                               cluster_k, threads, smem, device, stream);
+    case 2:
+      return trun<FAST, KA, 2>(xr, xi, yr, yi, tw, n, cols, tile_c,
+                               cluster_k, threads, smem, device, stream);
+    case 3:
+      return trun<FAST, KA, 3>(xr, xi, yr, yi, tw, n, cols, tile_c,
+                               cluster_k, threads, smem, device, stream);
+    case 4:
+      return trun<FAST, KA, 4>(xr, xi, yr, yi, tw, n, cols, tile_c,
+                               cluster_k, threads, smem, device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// The cut transposed store: ka 0: kc's (xr, xi two (n, cols) float planes
+// -> yr, yi (cols, n/2 + 1)), 1: ka's real forward (xr (n, cols), xi
+// unused -> yr, yi (cols, n)); fast 0 or 1; stop 0..4 (above); tile_c,
+// cluster_k, threads, smem: the plan of ops/xtile.py for n.
+extern "C" int xfb_xtile_tparts(int fast, int ka, int stop, const float* xr,
+                                const float* xi, float* yr, float* yi,
+                                const void* tw, int n, int cols, int tile_c,
+                                int cluster_k, int threads, int smem,
+                                int device, void* stream) {
+  if (!xt::plan_ok(n, tile_c, cluster_k, threads, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (fast) {
+    return ka ? trun_stop<true, true>(stop, xr, xi, yr, yi, tw, n, cols,
+                                      tile_c, cluster_k, threads, smem,
+                                      device, stream)
+              : trun_stop<true, false>(stop, xr, xi, yr, yi, tw, n, cols,
+                                       tile_c, cluster_k, threads, smem,
+                                       device, stream);
+  }
+  return ka ? trun_stop<false, true>(stop, xr, xi, yr, yi, tw, n, cols,
+                                     tile_c, cluster_k, threads, smem,
+                                     device, stream)
+            : trun_stop<false, false>(stop, xr, xi, yr, yi, tw, n, cols,
+                                      tile_c, cluster_k, threads, smem,
+                                      device, stream);
+}
 
 // The cut x-stage: xr, xi (cplx 0: two (n, hny) float planes; 1: xr one
 // (n, hny) complex64 array, xi unused) -> yr, yi the same way; fast 0 or
