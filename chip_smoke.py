@@ -300,17 +300,20 @@ exits non-zero and prints no result):
    stacked fields, five with the bf16 and the float32 store), of
    xstage.cu's (modes 0 inverse and forward, 1 and 2 on four stacked
    shards), of ka_kc.cu's kc_kernel (kc, kc_visc, kc_sw's five stacked
-   planes) and ka_kernel (real forward, complex inverse) held to its
-   plain version as in 5o at FAST_XSTAGE_SHAPES, then timed at n^2 in
-   turns with its strict form (fast, strict, strict, fast), beside the
-   one torch.fft call of its transform and its bound; the parts of the
-   one-field x-stage from csrc/xtile_parts.cu's cuts (loads; first pass;
-   sub-DFT; exchange; store), fast and strict, on float planes and
-   complex64, and of the transposed store (loads; sub-DFT; exchange;
-   staging; store), fast and strict, of kc's half store and ka's real
-   forward; the resident clusters, registers and spills of the cuts and
-   the registers and spills of the four kernels' instances (the build
-   log).
+   planes) and ka_kernel (real forward, complex inverse), of kb_pair.cu's
+   kb_kernel (the x-major pair, the single inverse) and of ky_all.cu's
+   ky_all_kernel (split on and off) held to its plain version as in 5o at
+   FAST_XSTAGE_SHAPES, then timed at n^2 in turns with its strict form
+   (fast, strict, strict, fast), beside the one torch.fft call of its
+   transform (ky_all: the products formed in torch, then fft.rfft) and
+   its bound; the parts of the one-field x-stage from
+   csrc/xtile_parts.cu's cuts (loads; first pass; sub-DFT; exchange;
+   store), fast and strict, on float planes and complex64, and of the
+   transposed store (loads; sub-DFT; exchange; staging; store), fast and
+   strict, of kc's half store, ka's real forward, kb's pair and single
+   inverse and ky_all's products; the resident clusters, registers and
+   spills of the cuts and the registers and spills of the six kernels'
+   instances (the build log).
 6. No library transform on the kernel paths: torch.fft.* and torch.matmul
    raise while a barotropic, a tracer and a shallow-water segment run,
    the three families' ETDRK4 segments, the SW drag segment, the
@@ -1713,6 +1716,36 @@ def fast_sw_cases(n: int, cols, dev, seed: int) -> dict:
         "kx_fwd_fast": kx_case("bf16"),
         "kx_fwd_fast_f32": kx_case("f32"),
     }
+
+
+# the bench's ies (the pairing equalizer's inverse), f0 and g of the SW
+# products (fast_sw_cases' ky_all, phase 5v)
+SW_BENCH = (2.0 ** 15, 1e-4, 9.81)
+
+
+def fast_split_off_cases(n: int, cols, dev, seed: int) -> dict:
+    """name -> FastCase of ky_all's fast form with split off
+    (XFB_SW_SPLIT=0 in fast mode; fast_sw_cases holds it split on, as
+    fast mode runs it) for a length-n transform over `cols` columns
+    (None: the n x n grid's), numpy-seeded as fast_sw_cases makes
+    ky_all's. The exact inputs are small integers on exact_rows with ies
+    0.5, f0 0 and g 2 (q = zeta + f0 and phi = g eta + ke stay exact)."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    rng = np.random.default_rng(seed)
+    cy = n if cols is None else cols
+    planes, ints = _makers(rng, dev)
+    fields = [a * p for a, p in zip((3.0, 3.0, 1e-4, 1e-4),
+                                    planes((n, cy), 4))]
+    args = (*fields, *SW_BENCH, False)
+    eargs = (*ints((n, cy), 4, rows=exact_rows(n)), 0.5, 0.0, 2.0, False)
+    return {"ky_all_nosplit_fast": FastCase(
+        lambda: fs.ky_all(*args, fast=True),
+        lambda: fs.ky_all_fast_plain(*args),
+        lambda: fs.ky_all(*args),
+        lambda: fs.ky_all(*eargs, fast=True),
+        lambda: fs.ky_all_fast_plain(*eargs),
+        _fields_f32, tuple(fields), 2.5 * cy)}
 
 
 def fast_check(name: str, case: FastCase, where: str) -> dict:
@@ -6252,6 +6285,10 @@ FAST_XSTAGE_FORMS = {
     "kc_sw_fast": ("xfirst", "17d fast kc_sw"),
     "ka_fast": ("rest", "12 fast"),
     "ka_inverse_fast": ("rest", "12 fast inverse"),
+    "kb_xmajor_fast": ("xfirst", "2 fast x-major"),
+    "kb_single_fast": ("rest", "13 fast"),
+    "ky_all_fast": ("sw", "17a fast"),
+    "ky_all_nosplit_fast": ("split_off", "17a fast, split off"),
 }
 # the shapes phase 5v checks the fast x-stages at (ragged last tiles,
 # K = 1 .. 8)
@@ -6262,6 +6299,13 @@ XTILE_CUTS = ("loads", "first pass", "rest of the sub-DFT", "exchange",
 # the cuts of the transposed store (xfb_xtile_tparts) and the part each
 # adds
 XTILE_TCUTS = ("loads", "sub-DFT", "exchange", "staging", "store")
+# its forms: name -> (form of xfb_xtile_tparts, kb's single inverse)
+XTILE_TFORMS = {"kc": (0, False), "ka real forward": (1, False),
+                "kb pair": (2, False), "kb single": (2, True),
+                "ky_all": (3, False)}
+# the shallow-water constants of ky_all's cut (xtile_parts.cu): the
+# bench's, split on
+TPARTS_SW = (*SW_BENCH, True)
 
 
 def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
@@ -6274,7 +6318,8 @@ def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
            "fast": fast_cases(n, cols, dev, seed),
            "sw": fast_sw_cases(n, cols, dev, seed),
            "rest": fast_rest_cases(n, cols, dev, seed),
-           "xfirst": fast_xfirst_cases(n, cols, dev, seed)}
+           "xfirst": fast_xfirst_cases(n, cols, dev, seed),
+           "split_off": fast_split_off_cases(n, cols, dev, seed)}
     # mode 0 forward at scale 1 on the inverse case's shards, and on
     # small integers on exact_rows (every tensor-core sum exact)
     x = fam["rest"]["xstage_fast"].reads[0]
@@ -6295,7 +6340,9 @@ def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
     if cols is None:
         for name, (kind, _) in FAST_XSTAGE_FORMS.items():
             case = cases[name]
-            if kind == "arm":
+            if name.startswith("ky_all"):
+                libs[name] = ky_all_yardstick(case, kind == "sw")
+            elif kind == "arm":
                 libs[name] = fast_arm_library(name, case)
             elif kind == "fast":
                 libs[name] = fast_library(name, case, n)
@@ -6309,6 +6356,18 @@ def _xstage_forms(n: int, cols, dev, seed: int) -> dict:
             else:
                 libs[name] = fast_rest_library(name, case, n)
     return cases, libs
+
+
+def ky_all_yardstick(case: FastCase, split: bool):
+    """ky_all's yardstick (no one torch call forms the products): the
+    five products of its fields formed in torch (fused_sw.sw_products, the
+    bench's ies, f0 and g), then one fft.rfft of them along y."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    def go():
+        prods = torch.stack(fs.sw_products(*case.reads, *SW_BENCH, split))
+        return torch.fft.rfft(prods, dim=1)
+    return go
 
 
 def _turns(kern, strict, rounds: int = 2) -> tuple:
@@ -6398,34 +6457,49 @@ def xtile_parts(n: int, dev) -> dict:
 def xtile_tparts(n: int, dev) -> dict:
     """The cuts of the transposed store (csrc/xtile_parts.cu
     xfb_xtile_tparts) at n^2: ms of each cut, fast and strict, in turns,
-    and the part each adds, of kc's form (two (n, n) float planes in, the
-    half store) and ka's real forward (one plane in, the full store); the
-    full cuts' outputs are the strict kernels' bit for bit, and the fast
-    kernels' (whose data movement is their own)."""
+    and the part each adds, of each form of XTILE_TFORMS: kc's (two (n,
+    n) float planes in, the half store), ka's real forward (one plane in,
+    the full store), kb's (the Hermitian load of two (n/2 + 1, n) pairs,
+    or one for the single inverse, the full x-major store) and ky_all's
+    (the five products of four (n, n) planes, the half store); the full
+    cuts' outputs are their kernels' bit for bit, strict and fast."""
     from xlab_fftbarotropic_torch.ops import _build
     from xlab_fftbarotropic_torch.ops import fused_fft as ff
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
     from xlab_fftbarotropic_torch.ops.xtile import xtile_plan
 
     lib = _build.lib()
     rng = np.random.default_rng(n + 6)
-    xr, xi = (torch.from_numpy(rng.standard_normal((n, n)).astype(
-        np.float32)).to(dev) for _ in range(2))
+    hny = n // 2 + 1
+    planes, _ = _makers(rng, dev)
+    xr, xi = planes((n, n), 2)
+    w = planes((hny, n), 4, n * math.sqrt(n))
+    sw = [a * f for a, f in zip((3.0, 3.0, 1e-4, 1e-4), planes((n, n), 4))]
+    scale = 1.0 / (n * n)
     tw = ff._twiddles(n, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = xtile_plan(n, n, 4)
     out = {}
-    for ka, where in ((0, "kc"), (1, "ka real forward")):
-        width = n if ka else n // 2 + 1
-        yr = torch.empty((n, width), dtype=torch.float32, device=dev)
-        yi = torch.empty_like(yr)
+    for where, (form, single) in XTILE_TFORMS.items():
+        if form == 2:
+            ins = w[:2] + [None, None] if single else w
+            shape = (n, n)
+        elif form == 3:
+            ins, shape = sw, (5, n, hny)
+        else:
+            ins = [xr, xi, None, None]
+            shape = (n, n if form == 1 else hny)
+        yr = torch.empty(shape, dtype=torch.float32, device=dev)
+        yi = None if single else torch.empty_like(yr)
+        ptrs = [None if a is None else a.data_ptr() for a in ins]
 
         def cut(fast, stop):
             def go():
-                rc = lib.xfb_xtile_tparts(fast, ka, stop, xr.data_ptr(),
-                                          xi.data_ptr(), yr.data_ptr(),
-                                          yi.data_ptr(), tw.data_ptr(), n,
-                                          n, p.c, p.k, p.threads, p.smem,
-                                          dev.index, stream)
+                rc = lib.xfb_xtile_tparts(
+                    fast, form, stop, *ptrs, yr.data_ptr(),
+                    None if yi is None else yi.data_ptr(), tw.data_ptr(), n,
+                    n, scale, p.c, p.k, p.threads, p.smem, dev.index,
+                    stream)
                 check(rc == 0,
                       f"xfb_xtile_tparts: {torch.cuda.CudaError(rc)}")
             return go
@@ -6434,10 +6508,17 @@ def xtile_tparts(n: int, dev) -> dict:
             ms[1][stop], ms[0][stop] = _turns(cut(1, stop), cut(0, stop))
         for fast in (1, 0):
             cut(fast, 4)()
-            want = (ff.ka(xr, None, True, fast=bool(fast)) if ka else
-                    ff.kc(xr, xi, fast=bool(fast)))
+            if form == 0:
+                want = ff.kc(xr, xi, fast=bool(fast))
+            elif form == 1:
+                want = ff.ka(xr, None, True, fast=bool(fast))
+            elif form == 2:
+                want = ff.kb(*ins, scale, fast=bool(fast))
+            else:
+                want = fs.ky_all(*sw, *TPARTS_SW, fast=bool(fast))
             torch.cuda.synchronize()
-            check(torch.equal(yr, want[0]) and torch.equal(yi, want[1]),
+            check(torch.equal(yr, want[0]) and
+                  (yi is None or torch.equal(yi, want[1])),
                   f"the full {where} cut (fast {fast}) is not its kernel")
         for fast in (1, 0):
             tag = "fast" if fast else "strict"
@@ -6447,6 +6528,7 @@ def xtile_tparts(n: int, dev) -> dict:
                 ", ".join(f"{name} {t:.4f} ms (+{d:.4f})" for name, t, d in
                           zip(XTILE_TCUTS, ms[fast], adds)))
             out[f"{where} {tag}"] = dict(cuts_ms=ms[fast], adds_ms=adds)
+        del yr, yi
     return out
 
 
@@ -6481,7 +6563,8 @@ def phase_fast_xstages(n: int, dev) -> dict:
     report["transposed_parts"] = xtile_tparts(n, dev)
     report["ptxas"] = {k: v for k, v in phase_xtile(n)["ptxas"].items()
                        if k.split()[0] in ("kx_visc_kernel", "xstage_kernel",
-                                           "ka_kernel", "kc_kernel")
+                                           "ka_kernel", "kc_kernel",
+                                           "kb_kernel", "ky_all_kernel")
                        or "parts_kernel" in k}
     return report
 

@@ -7,11 +7,14 @@ one card.
     python3 scripts/fast_bits.py --compare A.json B.json   # exit 1 if any
                                                            # output differs
 
+--only REGEX fingerprints the forms whose names match REGEX alone.
+
 --root names the checkout whose port (DIR/xlab_fftbarotropic_torch) is
 built from its own csrc/ and run. The inputs come from the case functions
 of this repository's chip_smoke.py (numpy-seeded), so two checkouts run
 on the same inputs: every fast form of phases 5o-5q (fast_cases,
-fast_sw_cases, fast_arm_cases, fast_xfirst_cases, fast_rest_cases) on
+fast_sw_cases, fast_arm_cases, fast_xfirst_cases, fast_rest_cases) and
+ky_all's with split off (fast_split_off_cases, phase 5v) on
 its random inputs, its exact-integer inputs and its strict form, at
 SHAPES. Each output tensor is recorded as the sha256 of its bytes. Needs
 one CUDA device and nvcc.
@@ -22,6 +25,7 @@ import argparse
 import hashlib
 import importlib.util
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -32,7 +36,7 @@ HERE = Path(__file__).resolve().parent.parent
 # and m = 1024 (8192, C = 8)
 SHAPES = ((4096, None), (1024, 33), (256, 200), (8192, 24))
 FAMILIES = ("fast_cases", "fast_sw_cases", "fast_arm_cases",
-            "fast_xfirst_cases", "fast_rest_cases")
+            "fast_xfirst_cases", "fast_rest_cases", "fast_split_off_cases")
 
 
 def _digest(tensors) -> list:
@@ -62,7 +66,7 @@ def load(root: Path):
     return smoke, _build
 
 
-def fingerprint(root: Path) -> dict:
+def fingerprint(root: Path, only=None) -> dict:
     import torch
     t0 = time.perf_counter()
     smoke, _ = load(root)
@@ -73,6 +77,8 @@ def fingerprint(root: Path) -> dict:
         for family in FAMILIES:
             cases = getattr(smoke, family)(n, cols, dev, n + (cols or 0))
             for name, case in cases.items():
+                if only and not re.search(only, name):
+                    continue
                 for kind in ("kern", "exact_kern", "strict"):
                     outs = case.fields(getattr(case, kind)())
                     out["outputs"][f"{n} {cols} {name} {kind}"] = _digest(
@@ -101,6 +107,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--compare", nargs=2, type=Path, metavar="JSON")
+    ap.add_argument("--only", default=None, metavar="REGEX")
     args = ap.parse_args(argv)
     if args.compare:
         a, b = (json.loads(p.read_text()) for p in args.compare)
@@ -108,7 +115,7 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("fast_bits: no CUDA device")
-    result = fingerprint(args.root)
+    result = fingerprint(args.root, args.only)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

@@ -8,7 +8,8 @@ for one checkout, and list the fast kernels' registers and spills.
 built from its own csrc/ and run; the inputs come from this repository's
 chip_smoke.py case functions (numpy-seeded), so two checkouts time the
 same inputs: every fast form of phases 5o-5q (fast_cases,
-fast_sw_cases, fast_arm_cases, fast_xfirst_cases, fast_rest_cases) at
+fast_sw_cases, fast_arm_cases, fast_xfirst_cases, fast_rest_cases) and
+ky_all's with split off (fast_split_off_cases) at
 n^2, each with CUDA events in turns with its strict form (fast, strict,
 strict, fast: chip_smoke._turns), and the sum over the forms. To compare
 two checkouts, run it for each in one call, in turns (parent, change,

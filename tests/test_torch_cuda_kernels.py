@@ -1118,7 +1118,8 @@ FAST_NAMES = ["ka_diag_fast", "kb_pair_fast", "kb_adv_half_fast",
               "ka_quad_fast", "ka_quad_split_fast", "kb_xmajor_fast",
               "ka_adv_fast", "kc_visc_fast", "ka_fwd_fast", "kc_sw_fast",
               "ka_fast", "ka_inverse_fast", "kc_fast", "kb_single_fast",
-              "xstage_fast", "xstage_gather_fast", "xstage_scatter_fast"]
+              "xstage_fast", "xstage_gather_fast", "xstage_scatter_fast",
+              "ky_all_nosplit_fast"]
 # (transform length, columns): None the n x n grid's (chip_smoke.py
 # FAST_SHAPES); 200 and 33 columns end in ragged tiles
 FAST_SHAPES = [(64, None), (256, None), (4096, None), (256, 200),
@@ -1139,9 +1140,11 @@ def test_fast_kernel_matches_plain_and_strict(cuda, name, shape):
     from chip_smoke import FAST_REST_KERNELS, fast_rest_cases
     from chip_smoke import FAST_XFIRST_KERNELS, fast_xfirst_cases
     from chip_smoke import fast_arm_cases, fast_check, fast_sw_cases
+    from chip_smoke import fast_split_off_cases
 
     n, cols = shape
     cases = (fast_sw_cases if name in FAST_SW_KERNELS
+             else fast_split_off_cases if name == "ky_all_nosplit_fast"
              else fast_arm_cases if name in FAST_ARM_KERNELS
              else fast_xfirst_cases if name in FAST_XFIRST_KERNELS
              else fast_rest_cases if name in FAST_REST_KERNELS

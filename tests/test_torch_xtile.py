@@ -65,10 +65,12 @@ ragged last tiles, and of the x-first order's ka_quad, x-major kb,
 ka_adv, kc (its transposed half store, under kc_visc's epilogue and
 over kc_sw's stack) and ka_fwd; and the shared-memory banks each half
 warp's loads and stores of the passes hit, from the emulated addresses
-(test_fast_passes_hit_distinct_banks). The fast ka and kc run on the
-plane tile (plane_transposed: rows of a multiple of 4 floats load as
-two float planes by 16-byte copies and the first pass reads them, kc's
-half store stages only the outputs it keeps), emulated in the kernel's
+(test_fast_passes_hit_distinct_banks). The fast ka, kc, kb and ky_all
+run on the plane tile (plane_transposed: rows of a multiple of 4 floats
+load as two float planes, by 16-byte copies for ka and kc and by
+16-byte stores of four values formed in registers for kb's Hermitian
+load and ky_all's products, and the first pass reads them; the half
+stores stage only the outputs they keep), emulated in the kernel's
 order with every shared word tagged with its last writer
 (emulate_planes): bit for bit the fast plain versions at every length,
 aligned and not, and the banks of its own accesses.
@@ -166,8 +168,8 @@ def test_plan_refuses_what_the_kernels_do_not_take():
 
 
 # __global__ functions on the column tile, each with the store it ends in
-# (the natural finish, or the transposed one of the y-stages; the fast ka
-# and kc: the plane tile's, the strict ones finish_transposed)
+# (the natural finish, or the transposed one of the y-stages; the fast ka,
+# kc, kb and ky_all: the plane tile's, the strict ones finish_transposed)
 PLANES = ("xt::finish_transposed<", "xt::plane_transposed<")
 TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "xstage.cu": {"xstage_kernel": "xt::finish<"},
@@ -178,9 +180,9 @@ TILE_KERNELS = {"kx_visc.cu": {"kx_visc_kernel": "xt::finish<"},
                 "ka_diag.cu": {"ka_fields_kernel": "xt::finish_transposed<"},
                 "ka_sw.cu": {"ka_sw_kernel": "xt::finish_transposed<"},
                 "kb_pair.cu": {"kb_pair_kernel": "xt::finish<",
-                               "kb_kernel": "xt::finish_transposed<"},
+                               "kb_kernel": PLANES},
                 "ky_adv.cu": {"ky_adv_kernel": "xt::finish_transposed<"},
-                "ky_all.cu": {"ky_all_kernel": "xt::finish_transposed<"},
+                "ky_all.cu": {"ky_all_kernel": PLANES},
                 "kb_adv.cu": {"kb_adv_kernel": "xt::finish_transposed<"},
                 "kb_adv_tracer.cu": {
                     "kb_adv_tracer_kernel": "xt::finish_transposed<"}}
@@ -226,10 +228,13 @@ def test_plan_agrees_with_the_kernel_source():
     column tile, each ending in its own store (kb_pair's natural one, the
     transposed one of ka, ka_adv, ka_fwd, the field x-stages, ka_sw, kb,
     kc, ky_adv, ky_all, kb_adv and kb_adv_tracer); every tile entry point
-    takes the plan; the fast ka and kc (FAST, the first branch) end in
-    the plane tile's store (plane_transposed), the strict ones in
-    finish_transposed; the paired c2r y-stages share the tile's Hermitian
-    load, the computing x-stages and ky_all load_rows; the one-column
+    takes the plan; the fast ka, kc, kb and ky_all (FAST, the first
+    branch) end in the plane tile's store (plane_transposed), the strict
+    ones in finish_transposed; the paired c2r y-stages share the tile's
+    Hermitian load, the computing x-stages and ky_all load_rows (the
+    strict kb and ky_all; their fast forms through the plane tile's
+    loads, HermitianLoad and SwProductLoad, which fall back to them off
+    16-byte rows); the one-column
     transform colfft.cuh is gone: not built, not on disk, included by no
     source."""
     src = (_build.CSRC / "xtile.cuh").read_text()
@@ -787,21 +792,27 @@ FREE, LOADED, PASS, STAGED = range(4)
 
 class _Planes:
     """One block's shared memory in csrc/xtile.cuh plane_transposed (the
-    fast ka_kernel and kc_kernel), as float words: the tile's m C values
-    and the W_m table behind them, each word NaN until written and tagged
-    with its last writer, so that every read is held to it: the first
-    pass reads only loads, the store only staged outputs. `vec` (rows of
-    a multiple of 4 floats): the loads land as planes, the tile's m C
-    real parts (row j, column c at word j C + c), then (not real) its m C
-    imaginary parts; else in the tile's layout (value j C + c, 0
-    imaginary parts for the real input). `log` collects the
-    shared-memory access instructions: (step, what, addresses (warps,
-    32)): words for "copy" (each 16-byte copy's first word), "word store"
-    and "word load", values else."""
+    fast ka_kernel, kc_kernel, kb_kernel and ky_all_kernel), as float
+    words: the tile's m C values and the W_m table behind them, each word
+    NaN until written and tagged with its last writer, so that every read
+    is held to it: the first pass reads only loads, the store only staged
+    outputs. `vec` (rows of a multiple of 4 floats): the loads land as
+    planes, the tile's m C real parts (row j, column c at word j C + c),
+    then (not real) its m C imaginary parts; else in the tile's layout
+    (value j C + c, 0 imaginary parts for the real input). `computed`:
+    the load forms its values (kb's Hermitian load, ky_all's products:
+    load_quads' 16-byte stores of four columns into each plane, or one
+    8-byte store per value into the tile's layout) where the others copy
+    them (load_planes' cp.async). `log` collects the shared-memory access
+    instructions: (step, what, addresses (warps, 32)): words for "copy"
+    and "quad store" (each 16-byte access's first word), "word store" and
+    "word load", values else."""
 
-    def __init__(self, cl, real: bool, vec: bool, log=None):
+    def __init__(self, cl, real: bool, vec: bool, log=None,
+                 computed: bool = False):
         m, c = cl.m, cl.c
         self.cl, self.real, self.vec, self.log = cl, real, vec, log
+        self.computed = computed
         self.plane = m * c
         self.words = torch.full((2 * (m * c + m),), float("nan"))
         self.tag = torch.full(self.words.shape, FREE, dtype=torch.int64)
@@ -811,11 +822,14 @@ class _Planes:
             self.log.append((step, what, addr.reshape(-1, 32)))
 
     def load(self, load, tile: int, rank: int) -> None:
-        """load_planes(): block `rank`'s rows rank + K j of columns j0 ..
-        j0 + C from load(rows, columns), 0 past the columns; `vec`: thread
-        v's 16-byte copy of the four columns of quad v mod C/4 of row v
-        div C/4, each plane in turn; else thread v's float (re, then im)
-        of column v mod C of row v div C."""
+        """load_planes(), or the computing loads (`computed`): block
+        `rank`'s rows rank + K j of columns j0 .. j0 + C from load(rows,
+        columns), 0 past the columns; `vec`: thread v's four columns of
+        quad v mod C/4 of row v div C/4 (v = e threads + thread, e = 0..3)
+        in one 16-byte access per plane (load_planes: a copy, each plane
+        in turn; load_quads: a store into each plane); else thread v's
+        value of column v mod C of row v div C (load_planes: a float copy
+        of re, then of im; load_hermitian, load_rows: one 8-byte store)."""
         cl, lq = self.cl, self.cl.logc - 2
         threads = cl.m * cl.c // 16
         if not self.vec:
@@ -826,28 +840,34 @@ class _Planes:
                 x = torch.where(cols < cl.columns,
                                 load(rows, cols.clamp(max=cl.columns - 1)),
                                 torch.zeros((), dtype=torch.complex64))
-                self.note("load", "word store", 2 * v)
-                if not self.real:
-                    self.note("load", "word store", 2 * v + 1)
+                if self.computed:
+                    self.note("load", "store", v)
+                else:
+                    self.note("load", "word store", 2 * v)
+                    if not self.real:
+                        self.note("load", "word store", 2 * v + 1)
                 self.words[2 * v] = x.real
                 self.words[2 * v + 1] = 0.0 if self.real else x.imag
                 self.tag[2 * v] = self.tag[2 * v + 1] = LOADED
             return
-        for pl in range(1 if self.real else 2):
-            for e in range(4):
-                v = e * threads + torch.arange(threads)
-                quad, j = v & ((1 << lq) - 1), v >> lq
-                cols = tile * cl.c + 4 * quad
-                at = pl * self.plane + (j << cl.logc) + 4 * quad
-                self.note("load", "copy", at)
-                rows = rank + cl.k * j
-                for w in range(4):
-                    x = torch.where(
-                        cols + w < cl.columns,
-                        load(rows, (cols + w).clamp(max=cl.columns - 1)),
-                        torch.zeros((), dtype=torch.complex64))
-                    self.words[at + w] = x.imag if pl else x.real
-                    self.tag[at + w] = LOADED
+        planes = 1 if self.real else 2
+        steps = ([(e, pl) for e in range(4) for pl in range(planes)]
+                 if self.computed else
+                 [(e, pl) for pl in range(planes) for e in range(4)])
+        for e, pl in steps:
+            v = e * threads + torch.arange(threads)
+            quad, j = v & ((1 << lq) - 1), v >> lq
+            cols = tile * cl.c + 4 * quad
+            at = pl * self.plane + (j << cl.logc) + 4 * quad
+            self.note("load", "quad store" if self.computed else "copy", at)
+            rows = rank + cl.k * j
+            for w in range(4):
+                x = torch.where(
+                    cols + w < cl.columns,
+                    load(rows, (cols + w).clamp(max=cl.columns - 1)),
+                    torch.zeros((), dtype=torch.complex64))
+                self.words[at + w] = x.imag if pl else x.real
+                self.tag[at + w] = LOADED
 
     def __call__(self, row, c):
         """The first pass's read of a B fragment's input (row, column):
@@ -931,12 +951,14 @@ class _Planes:
 
 def emulate_planes(load, n: int, columns: int, forward: bool, half: bool,
                    real: bool, out=None, writes=None, plane: int = 0,
-                   log=None):
-    """plane_transposed<SIGN, HALF>() (the fast ka_kernel, kc_kernel) over
-    the `columns` columns of a length-n transform whose tile rows come
-    from load(rows, columns) (`real`: their real parts alone), in the
-    kernel's order: the loads (as planes by 16-byte copies where the
-    columns are a multiple of 4, else into the tile's layout), the first
+                   log=None, computed: bool = False):
+    """plane_transposed<SIGN, HALF>() (the fast ka_kernel, kc_kernel;
+    `computed`: kb_kernel's Hermitian load, ky_all_kernel's product load)
+    over the `columns` columns of a length-n transform whose tile rows
+    come from load(rows, columns) (`real`: their real parts alone), in the
+    kernel's order: the loads (as planes by 16-byte copies or stores
+    where the columns are a multiple of 4, else into the tile's layout),
+    the first
     pass from them (its B fragments as PlaneIn or load_b reads them), the
     rest of the sub-DFT, the exchange over the
     K blocks' tiles, the staging (half: only the outputs kept) and the
@@ -949,7 +971,7 @@ def emulate_planes(load, n: int, columns: int, forward: bool, half: bool,
     if fresh:
         out, writes = _outputs(cl.tiles * cl.c, width)
     for tile in range(cl.tiles):
-        blocks = [_Planes(cl, real, columns % 4 == 0, log)
+        blocks = [_Planes(cl, real, columns % 4 == 0, log, computed)
                   for _ in range(cl.k)]
         for rank, b in enumerate(blocks):
             b.load(load, tile, rank)
@@ -2292,31 +2314,141 @@ def test_emulated_plane_tile_is_the_fast_plain_transform(n, extra):
         assert torch.equal(got[1], want[1])
 
 
+def emulate_kb_fast(war, wai, wbr, wbi, scale: float):
+    """kb_kernel<true> on (n/2 + 1, nx) plane pairs (wbr None: the single
+    inverse): the plane tile (emulate_planes) with the Hermitian load
+    (computed), the inverse, the full transposed store of Re * scale and
+    Im * scale: x-major (nx, n) planes."""
+    n = 2 * (war.shape[0] - 1)
+    got = emulate_planes(_hermitian(war, wai, wbr, wbi), n, war.shape[1],
+                         False, False, False, computed=True)
+    return _scaled(got, scale)
+
+
+def emulate_ky_all_fast(fields, ies: float, f0: float, grav: float,
+                        split: bool):
+    """ky_all_kernel<true> on the y-major (ny, nx) u, v, zeta, eta_s: each
+    product's plane tiles (emulate_planes) with the product load into the
+    real plane (computed), the forward transform and the half store into
+    flat (5 nx, ny/2 + 1) planes: (5, nx, ny/2 + 1), every output written
+    exactly once (a store past nx would land in the next product's)."""
+    ny, nx = fields[0].shape
+    width = ny // 2 + 1
+    out, writes = _outputs(5 * nx, width)
+    for p in range(5):
+        emulate_planes(_product_load(p, *fields, ies, f0, grav, split), ny,
+                       nx, True, True, True, out, writes, plane=p * nx,
+                       computed=True)
+    return _written_once(out, writes, 5 * nx, width).reshape(5, nx, width)
+
+
+# the forms of the fast kb and ky_all on the plane tile, and the lengths
+# each is emulated at (ky_all's five products up to K = 2: its half store
+# at K = 4, 8 is kc's, held at every length above)
+PLANE_FORMS = ["kb_pair", "kb_single", "ky_all_split", "ky_all_full"]
+PLANE_CASES = [(n, form) for form in PLANE_FORMS for n in LENGTHS
+               if form.startswith("kb") or n <= 1024]
+
+
+@pytest.mark.parametrize("extra", [4, 3], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n, form", PLANE_CASES,
+                         ids=[f"{n}-{f}" for n, f in PLANE_CASES])
+def test_emulated_plane_kb_and_ky_all_are_their_fast_plain_versions(
+        n, form, extra):
+    """The fast kb_kernel and ky_all_kernel on the plane tile
+    (emulate_planes with their computing loads) on two whole tiles and a
+    ragged third at every length, the rows a multiple of 4 floats (16-byte
+    reads and stores) or not (the tile's own layout): kb, paired and
+    single, kb_fast_plain's bits and exactly the emulated fast kb_pair's
+    output transposed, junk in the imaginary parts of rows 0 and n/2 (the
+    leak guard) changing no bit; ky_all, split on and off,
+    ky_all_fast_plain's bits, and product p exactly the emulated fast kc
+    of (product p, 0); every output NaN-started and written exactly once,
+    every read of the loads and of the staged outputs held to its writer
+    (_Planes)."""
+    from xlab_fftbarotropic_torch.ops import fused_sw as fs
+
+    c = xtile.xtile_plan(n, 1, 4).c
+    cols = 2 * c + extra
+    rng = np.random.default_rng(n + extra + PLANE_FORMS.index(form))
+    if form.startswith("kb"):
+        w = [cols * n ** 0.5 * t for t in _float_planes(
+            rng, (n // 2 + 1, cols), 4)]
+        if form == "kb_single":
+            w[2:] = [None, None]
+        scale = 1.0 / (n * cols)
+        a, b = emulate_kb_fast(*w, scale)
+        want = ff.kb_fast_plain(*w, scale)
+        assert torch.equal(a, want[0])
+        part = [torch.zeros_like(w[0]) if x is None else x for x in w]
+        pa, pb = _emulated_kb_pair(torch.stack(part[0::2]),
+                                   torch.stack(part[1::2]), 0, 1, scale,
+                                   fast=True)
+        assert torch.equal(a, pa.t())
+        if form == "kb_pair":
+            assert torch.equal(b, want[1]) and torch.equal(b, pb.t())
+            dirty = [x.clone() for x in w]
+            dirty[1][0], dirty[1][n // 2], dirty[3][n // 2] = 10.0, -7.0, 3.0
+            da, db = emulate_kb_fast(*dirty, scale)
+            assert torch.equal(da, a) and torch.equal(db, b)
+        return
+    fields, ies, f0, grav = _sw_fields_at((n, cols), n + cols + 47)
+    split = form == "ky_all_split"
+    got = emulate_ky_all_fast(fields, ies, f0, grav, split)
+    want = fs.ky_all_fast_plain(*fields, ies, f0, grav, split)
+    assert got.shape == (5, cols, n // 2 + 1)
+    assert torch.equal(got, torch.complex(*want))
+    prods = torch.stack(fs.sw_products(*fields, ies, f0, grav, split))
+    assert torch.equal(got, emulate_kc_fast(prods, torch.zeros_like(prods)))
+
+
 def test_plane_tile_agrees_with_the_kernel_source():
     """The plane tile's layout in csrc/xtile.cuh is the emulation's
     (_Planes): the imaginary plane m C words behind the real one, in the
-    first pass's reads (PlaneIn) and the 16-byte loads, the tile's own
-    layout in the one-float loads; the half staging's
-    stride m/2 + 16/C, whose C columns fit the tile's first half and 16
-    values at every length (the full staging: the tile and 16 values, of
-    the W_m table, dead by then); the fast ka_kernel and kc_kernel keep
-    the plan's shared bytes and grid (the strict forms' launch)."""
+    first pass's reads (PlaneIn), the 16-byte copies and the 16-byte
+    stores of the computing loads (load_quads: kb's Hermitian load, both
+    planes; ky_all's products, the real plane alone; their fallbacks
+    load_hermitian and load_rows), the tile's own layout in the one-float
+    loads; ky_all's tile the cluster's (tile, product) decoding, product
+    fastest; the half staging's stride m/2 + 16/C, whose C columns fit the
+    tile's first half and 16 values at every length (the full staging:
+    the tile and 16 values, of the W_m table, dead by then); the fast
+    ka_kernel, kc_kernel, kb_kernel and ky_all_kernel keep the plan's
+    shared bytes and grid (the strict forms' launch)."""
     src = _source("xtile.cuh")
-    assert src.count("const int plane = t.m << t.logc;") == 2
+    assert src.count("const int plane = t.m << t.logc;") == 3
     assert "s[plane + off]" in src
     assert "(e >> 2) * plane + (j << t.logc) + 4 * quad" in src
     load = _body(src, r"void load_planes\(")
     assert "cp_async16(" in load and "cp_async4(&d->x, xr + off);" in load
+    # the computing loads: a quad v mod C/4 of row v div C/4 per thread
+    # and e, one 16-byte store into each plane (the real one alone for
+    # ky_all), else load_hermitian's and load_rows' tile layout
+    quads = _body(src, r"void load_quads\(")
+    assert "float* to = d + (j << t.logc) + 4 * q4;" in quads
+    assert "*reinterpret_cast<float4*>(to) = re;" in quads
+    assert "if (!real) *reinterpret_cast<float4*>(to + plane) = im;" in quads
+    for loader, fallback, real in (("HermitianLoad", "load_hermitian(",
+                                    "false"),
+                                   ("SwProductLoad", "load_rows(", "true")):
+        body = _body(src, rf"struct {loader} ")
+        assert "load_quads(t, j0, nx, " + real in body, loader
+        assert fallback in body and f"return {real};" in body, loader
+    assert "sw_product4(" in _body(src, r"struct SwProductLoad ")
+    assert "(blockIdx.x / k) / kSwProducts) << logc" in src
     assert "return (t.m >> 1) + (16 >> t.logc);" in src
     for n in LENGTHS:
         p = xtile.xtile_plan(n, 1, 4)
         assert p.c * (p.m // 2 + 16 // p.c) <= p.m * p.c // 2 + 16
         assert p.c * (p.m + 16 // p.c) <= p.m * p.c + 16 <= p.smem // 8
-    for launcher, kernel in (("launch_ka", "ka_kernel<SIGN, FAST>"),
-                             ("launch_kc", "kc_kernel<FAST>")):
-        body = " ".join(_body(_source("ka_kc.cu"),
-                              rf"int {launcher}\(").split())
-        assert f"xfb::xtile::launch( {kernel}, tiles," in body
+    for name, launcher, kernel in (
+            ("ka_kc.cu", "launch_ka", "ka_kernel<SIGN, FAST>, tiles,"),
+            ("ka_kc.cu", "launch_kc", "kc_kernel<FAST>, tiles,"),
+            ("kb_pair.cu", "launch_kb", "kb_kernel<FAST>, tiles,"),
+            ("ky_all.cu", "launch",
+             "ky_all_kernel<FAST>, tiles * xfb::kSwProducts,")):
+        body = " ".join(_body(_source(name), rf"int {launcher}\(").split())
+        assert f"xfb::xtile::launch( {kernel}" in body
         assert "smem" in body
 
 
@@ -2332,26 +2464,35 @@ def _word_bank_degree(addr: torch.Tensor) -> int:
 @pytest.mark.parametrize("n", LENGTHS)
 def test_plane_tile_hits_distinct_banks(n):
     """The plane tile's own shared-memory accesses, from the emulated
-    addresses of kc's half store and ka's real forward and complex
-    inverse: on rows of a multiple of 4 floats each 16-byte copy of the
-    loads lands on four banks of its own in every quarter warp (8 lanes,
-    one wavefront) and the first pass's word reads of the planes
-    (PlaneIn) hit 32 distinct banks per warp; on other rows the one-float
-    copies into the tile's layout meet 2 lanes on a bank, as every other
-    kernel's loads do (their real or imaginary parts, a word apart), and
-    the first pass's reads of it (load_b) hit 16 bank pairs per half
-    warp; the half staging's and the full staging's stores hit 16
-    distinct bank pairs per half warp (the lanes that store)."""
+    addresses of kc's half store, ka's real forward and complex inverse,
+    and the computing loads of kb (both planes, the full store) and
+    ky_all (the real plane, the half store): on rows of a multiple of 4
+    floats each 16-byte copy of the loads and each 16-byte store of the
+    computing loads lands on four banks of its own in every quarter warp
+    (8 lanes, one wavefront) and the first pass's word reads of the
+    planes (PlaneIn) hit 32 distinct banks per warp; on other rows the
+    one-float copies into the tile's layout meet 2 lanes on a bank, as
+    every other kernel's loads do (their real or imaginary parts, a word
+    apart), the computing loads' 8-byte stores of whole values hit 16
+    bank pairs per half warp, and the first pass's reads of it (load_b)
+    too; the half staging's and the full staging's stores hit 16 distinct
+    bank pairs per half warp (the lanes that store)."""
     c = xtile.xtile_plan(n, 1, 4).c
     worst = {}
     for cols in (2 * c, 2 * c - 1):
         rng = np.random.default_rng(n + cols)
         x = torch.complex(*_float_planes(rng, (n, cols), 2))
-        for half, real in ((True, False), (False, True), (False, False)):
+        # kc, ka real, ka complex; kb's and ky_all's computing loads
+        for half, real, computed in ((True, False, False),
+                                     (False, True, False),
+                                     (False, False, False),
+                                     (False, False, True),
+                                     (True, True, True)):
             log = []
-            emulate_planes(_dense(x), n, cols, True, half, real, log=log)
+            emulate_planes(_dense(x), n, cols, True, half, real, log=log,
+                           computed=computed)
             for step, what, addr in log:
-                if what == "copy":
+                if what in ("copy", "quad store"):
                     quads = addr.reshape(-1, 8)          # quarter warps
                     banks = (quads.unsqueeze(-1) + torch.arange(4)) % 32
                     degree = max(int(torch.bincount(b.flatten(),
@@ -2363,14 +2504,15 @@ def test_plane_tile_hits_distinct_banks(n):
                     degree = max(int(torch.bincount(
                         torch.unique(h[h >= 0]) % 16, minlength=16).max())
                         for h in addr.reshape(-1, 16))
-                elif (step, what) == ("first", "load"):
+                elif (step, what) in (("first", "load"), ("load", "store")):
                     degree = _bank_degree(addr)
                 else:
                     continue
                 key = (cols % 4 == 0, "stage" if step == "stage" else what)
                 worst[key] = max(worst.get(key, 0), degree)
-    assert worst == {(True, "copy"): 1, (True, "word load"): 1,
-                     (True, "stage"): 1, (False, "word store"): 2,
+    assert worst == {(True, "copy"): 1, (True, "quad store"): 1,
+                     (True, "word load"): 1, (True, "stage"): 1,
+                     (False, "word store"): 2, (False, "store"): 1,
                      (False, "load"): 1, (False, "stage"): 1}, worst
 
 

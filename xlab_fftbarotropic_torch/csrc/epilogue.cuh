@@ -77,4 +77,36 @@ __device__ __forceinline__ float sw_product(int p, const float* __restrict__ u,
   return __fadd_rn(__fmul_rn(grav, __fmul_rn(__ldg(eta_s + off), ies)), ke);
 }
 
+// sw_product at off .. off + 3 (16-byte aligned, ky_all's plane tile):
+// one 16-byte read of each plane product p needs, each of the four
+// values rounded as sw_product rounds it.
+__device__ __forceinline__ float4 sw_product4(
+    int p, const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ zeta, const float* __restrict__ eta_s,
+    size_t off, float ies, float f0, float grav, bool split) {
+  const auto ld = [off](const float* x) {
+    return __ldg(reinterpret_cast<const float4*>(x + off));
+  };
+  const auto each = [](float4 a, float4 b, auto f) {
+    return make_float4(f(a.x, b.x), f(a.y, b.y), f(a.z, b.z), f(a.w, b.w));
+  };
+  if (p < 2) {
+    return each(ld(zeta), ld(p == 0 ? u : v), [&](float z, float w) {
+      return __fmul_rn(split ? z : __fadd_rn(z, f0), w);
+    });
+  }
+  if (p < 4) {
+    return each(ld(eta_s), ld(p == 2 ? u : v), [&](float e, float w) {
+      return __fmul_rn(__fmul_rn(e, ies), w);
+    });
+  }
+  const float4 ke = each(ld(u), ld(v), [](float a, float b) {
+    return __fmul_rn(0.5f, __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
+  });
+  if (split) return ke;
+  return each(ke, ld(eta_s), [&](float k, float e) {
+    return __fadd_rn(__fmul_rn(grav, __fmul_rn(e, ies)), k);
+  });
+}
+
 }  // namespace xfb

@@ -36,7 +36,12 @@
 // radix-16 passes, the barotropic fast mode), load and store unchanged;
 // kb_adv_half's fast form shares its inverse. xfb_kb_fast is kb on the
 // fast tile (kb_kernel<true>), the x-first order's fast mode, whose
-// output is kb_pair's fast form's transposed bit for bit.
+// output is kb_pair's fast form's transposed bit for bit: on the plane
+// tile (xtile.cuh plane_transposed, HermitianLoad), where nx is a
+// multiple of 4 a thread reads four columns of row h of each half plane
+// with one 16-byte load, forms the Hermitian sums in registers and stores
+// them 16 bytes at a time into the tile's two float planes, and the
+// first pass runs inlined from them; other widths load_hermitian's tile.
 #include "xtile.cuh"
 
 namespace {
@@ -105,13 +110,19 @@ __global__ void __launch_bounds__(512, 2)
               const float2* __restrict__ tw, KbOut out, int k, int logc) {
   extern __shared__ float2 smem[];
   namespace xt = xfb::xtile;
-  const xt::Tile t = xt::begin(smem, tw, out.ny, k, logc);
-  const int j0 = (blockIdx.x / k) << logc;
-  xt::load_hermitian(t, t.s, war, wai, wbr, wbi, j0, out.nx);
-  __syncthreads();
-  KbOut o = out;
-  o.j0 = j0;
-  xt::finish_transposed<+1, FAST>(t, tw, false, o);
+  if constexpr (FAST) {
+    xt::plane_transposed<+1, false>(
+        smem, tw, out.ny, k, logc,
+        xt::HermitianLoad{war, wai, wbr, wbi, out.nx}, out);
+  } else {
+    const xt::Tile t = xt::begin(smem, tw, out.ny, k, logc);
+    const int j0 = (blockIdx.x / k) << logc;
+    xt::load_hermitian(t, t.s, war, wai, wbr, wbi, j0, out.nx);
+    __syncthreads();
+    KbOut o = out;
+    o.j0 = j0;
+    xt::finish_transposed<+1, FAST>(t, tw, false, o);
+  }
 }
 
 template <bool FAST>

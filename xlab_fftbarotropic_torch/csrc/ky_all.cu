@@ -38,8 +38,14 @@
 // _ky_all_kernel, :513, under the JAX package's MM_MODE "default"), with
 // `split` passed as in the strict form. Its bound is the strict form's,
 // 604 MB (0.180 ms at 3.35 TB/s), plus the bf16 products (under 0.01 ms
-// at 4096^2); the product load, the plan and the half store are the
-// strict form's, whose code is unchanged (ky_all_kernel<false>).
+// at 4096^2). It runs on the plane tile (xtile.cuh plane_transposed,
+// SwProductLoad): where nx is a multiple of 4 a thread forms four
+// columns of its product from one 16-byte read of each plane the product
+// needs (epilogue.cuh sw_product4, sw_product's rounding) and stores them
+// 16 bytes at a time into the tile's real plane, the first pass runs
+// inlined from it, and the half store stages only the outputs it keeps;
+// other widths load_rows' tile. The plan and the grid are the strict
+// form's, whose code is unchanged (ky_all_kernel<false>).
 #include "epilogue.cuh"
 #include "xtile.cuh"
 
@@ -58,21 +64,33 @@ __global__ void __launch_bounds__(512, 2)
                   int split) {
   extern __shared__ float2 smem[];
   namespace xt = xfb::xtile;
-  const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
-  const int nx = out.nx;
-  const int cluster = blockIdx.x / k;
-  const int p = cluster % xfb::kSwProducts;
-  const int j0 = (cluster / xfb::kSwProducts) << logc;
-  xt::load_rows(t, j0, nx, [&](int, int, size_t off) {
-    return make_float2(
-        xfb::sw_product(p, u, v, zeta, eta_s, off, ies, f0, grav, split != 0),
-        0.f);
-  });
-  __syncthreads();
-  xt::HalfOut o = out;
-  o.j0 = j0;
-  o.plane = static_cast<size_t>(p) * nx * out.hny;
-  xt::finish_transposed<-1, FAST>(t, tw, true, o);
+  if constexpr (FAST) {
+    const int nx = out.nx;
+    const int p = static_cast<int>(blockIdx.x / k) % xfb::kSwProducts;
+    xt::HalfOut o = out;
+    o.plane = static_cast<size_t>(p) * nx * out.hny;
+    xt::plane_transposed<-1, true>(
+        smem, tw, ny, k, logc,
+        xt::SwProductLoad{u, v, zeta, eta_s, nx, p, ies, f0, grav,
+                          split != 0},
+        o);
+  } else {
+    const xt::Tile t = xt::begin(smem, tw, ny, k, logc);
+    const int nx = out.nx;
+    const int cluster = blockIdx.x / k;
+    const int p = cluster % xfb::kSwProducts;
+    const int j0 = (cluster / xfb::kSwProducts) << logc;
+    xt::load_rows(t, j0, nx, [&](int, int, size_t off) {
+      return make_float2(xfb::sw_product(p, u, v, zeta, eta_s, off, ies, f0,
+                                         grav, split != 0),
+                         0.f);
+    });
+    __syncthreads();
+    xt::HalfOut o = out;
+    o.j0 = j0;
+    o.plane = static_cast<size_t>(p) * nx * out.hny;
+    xt::finish_transposed<-1, FAST>(t, tw, true, o);
+  }
 }
 
 template <bool FAST>

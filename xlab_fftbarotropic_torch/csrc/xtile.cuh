@@ -36,10 +36,13 @@
 //      half warp's 16 stores hit 16 banks) and hands them to the
 //      epilogue column by column, consecutive lanes on consecutive k:
 //      each column's outputs are K runs of m/K contiguous k (64 at 4096,
-//      256 bytes per plane). The fast ka and kc run it on the plane tile
-//      (plane_transposed, below): 16-byte loads into two float planes
-//      where the rows are aligned, the first pass inlined, and kc's half
-//      store staging only the outputs it keeps (columns of m/2 + 16/C).
+//      256 bytes per plane). The fast ka, kc, kb and ky_all run it on
+//      the plane tile (plane_transposed, below): their tile loaded as two
+//      float planes where the rows are aligned, by 16-byte copies (ka,
+//      kc) or 16-byte stores of four values formed in registers (kb's
+//      Hermitian load, ky_all's products), the first pass inlined, and
+//      the half stores (kc, ky_all) staging only the outputs they keep
+//      (columns of m/2 + 16/C).
 //
 // X[k2 + m k1] = sum_r W_K^(r k1) W_n^(r k2) sum_j x[r + K j] W_m^(j k2):
 // one pass over device memory whatever n. Each thread holds kElems
@@ -90,6 +93,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "epilogue.cuh"
 
 namespace xfb {
 namespace xtile {
@@ -762,20 +767,29 @@ __device__ __forceinline__ void finish_transposed(
   }
 }
 
-// ---- the fast per-transform pair: the plane tile ----
+// ---- the plane tile: the fast ka, kc, kb and ky_all ----
 //
-// ka_kernel<SIGN, true> and kc_kernel<true> (ka_kc.cu) load their tile as
-// two float planes where the rows are 16-byte aligned (kc's (ny, nx)
-// planes, ka's real forward (n, ny) planes: the tile's m C real parts,
-// row j, column c at word j C + c, then its m C imaginary parts; the real
-// input: the first plane alone), so that one 16-byte cp.async moves four
-// columns of a row; elsewhere (ka's complex inverse on hny columns, any
-// row of a width not a multiple of 4) the tile's own layout, one float
-// per cp.async, as the other kernels load. The first pass reads its B fragments from either
-// (PlaneIn, load_b) inlined, and writes the tile's usual layout: the
-// rest of the transform is the tile's, the second pass a call. kc's half
-// store stages only the outputs it stores (combine_staged_half). Every
-// output keeps finish_transposed's bits: only the data movement differs.
+// ka_kernel<SIGN, true> and kc_kernel<true> (ka_kc.cu), kb_kernel<true>
+// (kb_pair.cu) and ky_all_kernel<true> (ky_all.cu) load their tile as two
+// float planes where the rows are 16-byte aligned (kc's (ny, nx) planes,
+// ka's real forward (n, ny) planes, kb's (ny/2 + 1, nx) half planes,
+// ky_all's (ny, nx) fields: the tile's m C real parts, row j, column c at
+// word j C + c, then its m C imaginary parts; a real input, ka's real
+// forward and ky_all's products: the first plane alone): one 16-byte
+// cp.async moves four columns of a row (load_planes), or a thread forms
+// four columns in registers from one 16-byte read of each input and
+// stores them 16 bytes at a time (load_quads: kb's Hermitian load,
+// ky_all's products); elsewhere (ka's complex inverse on hny columns,
+// any row of a width not a multiple of 4) the tile's own layout, one
+// float per cp.async or one value per store, as the other kernels load.
+// The load is plane_transposed's: ka's and kc's copies (load_planes) or a
+// load object of the caller's (HermitianLoad, SwProductLoad). The first
+// pass reads its B fragments from either layout (PlaneIn, load_b)
+// inlined, and writes the tile's usual layout: the rest of the transform
+// is the tile's, the second pass a call (plane_finish). The half stores
+// (kc, ky_all) stage only the outputs they store (combine_staged_half).
+// Every output keeps finish_transposed's bits: only the data movement
+// differs.
 
 // The plane tile's reader: input (row, column) of the first pass.
 struct PlaneIn {
@@ -963,25 +977,16 @@ __device__ __forceinline__ void store_staged(const Tile& t, bool half,
   }
 }
 
-// The fast per-transform pair's tile: block `rank` of the cluster of
-// tile blockIdx.x / K loads its rows of the (n, cols) planes xr, xi (xi
-// NULL: real input; load_planes), runs the length-n transform
-// (SIGN) of every column on the fast tile and stores it transposed
-// through `out` (HALF: k <= n/2), out.j0 set to the tile's first column.
+// The plane tile's steps after its load has landed: the sub-DFT (the
+// first pass inlined from the planes, `vec`, or the tile's rows; `real`:
+// the real plane alone), the exchange and K-point step with the staging
+// (HALF: only the outputs the half store keeps) and the transposed store
+// through `out` (out.j0 set).
 template <int SIGN, bool HALF, class Out>
-__device__ __forceinline__ void plane_transposed(
-    float2* smem, const float2* __restrict__ tw, int n, int k, int logc,
-    const float* __restrict__ xr, const float* __restrict__ xi, int cols,
-    Out out) {
-  const Tile t = begin(smem, tw, n, k, logc);
-  const bool vec = (cols & 3) == 0 &&
-                   (reinterpret_cast<size_t>(xr) & 15) == 0 &&
-                   (reinterpret_cast<size_t>(xi) & 15) == 0;
-  out.j0 = (blockIdx.x / k) << logc;
-  load_planes(t, xr, xi, cols, out.j0, vec);
-  cp_async_wait_all();
-  __syncthreads();
-  subdft_planes<SIGN>(t, vec, xi == nullptr);
+__device__ __forceinline__ void plane_finish(const Tile& t,
+                                             const float2* __restrict__ tw,
+                                             bool vec, bool real, Out& out) {
+  subdft_planes<SIGN>(t, vec, real);
   if constexpr (HALF) {
     switch (t.k) {
       case 1:
@@ -1014,6 +1019,45 @@ __device__ __forceinline__ void plane_transposed(
     }
   }
   store_staged(t, HALF, out);
+}
+
+// The plane tile of the fast ka and kc: block `rank` of the cluster of
+// tile blockIdx.x / K loads its rows of the (n, cols) planes xr, xi (xi
+// NULL: real input; load_planes' copies), runs the length-n transform
+// (SIGN) of every column on the fast tile and stores it transposed
+// through `out` (HALF: k <= n/2), out.j0 set to the tile's first column.
+template <int SIGN, bool HALF, class Out>
+__device__ __forceinline__ void plane_transposed(
+    float2* smem, const float2* __restrict__ tw, int n, int k, int logc,
+    const float* __restrict__ xr, const float* __restrict__ xi, int cols,
+    Out out) {
+  const Tile t = begin(smem, tw, n, k, logc);
+  const bool vec = (cols & 3) == 0 &&
+                   (reinterpret_cast<size_t>(xr) & 15) == 0 &&
+                   (reinterpret_cast<size_t>(xi) & 15) == 0;
+  out.j0 = (blockIdx.x / k) << logc;
+  load_planes(t, xr, xi, cols, out.j0, vec);
+  cp_async_wait_all();
+  __syncthreads();
+  plane_finish<SIGN, HALF>(t, tw, vec, xi == nullptr, out);
+}
+
+// The plane tile of the fast kb and ky_all, whose loads compute the
+// tile: `load` (HermitianLoad, SwProductLoad) says whether the tile
+// lands as planes (load.vec()) and as the real plane alone
+// (load.real()), gives the tile's first column (load.first_column(K,
+// log2 C)) and loads block t.rank's rows (load(t, j0, vec)); the rest is
+// the fast ka's and kc's (plane_finish).
+template <int SIGN, bool HALF, class Load, class Out>
+__device__ __forceinline__ void plane_transposed(
+    float2* smem, const float2* __restrict__ tw, int n, int k, int logc,
+    const Load& load, Out out) {
+  const Tile t = begin(smem, tw, n, k, logc);
+  const bool vec = load.vec();
+  out.j0 = load.first_column(k, logc);
+  load(t, out.j0, vec);
+  __syncthreads();
+  plane_finish<SIGN, HALF>(t, tw, vec, load.real(), out);
 }
 
 // The Hermitian load of the paired c2r y-stages (kb_pair.cu, kb_adv.cu,
@@ -1070,6 +1114,139 @@ __device__ __forceinline__ void load_rows(const Tile& t, int j0, int m,
                    : make_float2(0.f, 0.f);
   }
 }
+
+// The computing load of the plane tile (kb_kernel<true>'s Hermitian
+// load, ky_all_kernel<true>'s products): block r's rows r + K j (j < m)
+// of columns j0 .. j0 + C, cols a multiple of 4 (and the inputs 16-byte
+// aligned): thread v forms the four columns x .. x + 3 of quad v mod C/4
+// of row j = v div C/4 (e = 0..3: v = e threads + thread) as
+// quad(row, x, re, im) and stores them with one 16-byte store into each
+// plane (real: the real plane alone, re), as load_planes' copies land;
+// 0 past cols.
+template <class Quad>
+__device__ __forceinline__ void load_quads(const Tile& t, int j0, int cols,
+                                           bool real, Quad quad) {
+  float* d = reinterpret_cast<float*>(t.s);
+  const int plane = t.m << t.logc;
+  const int lq = t.logc - 2;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int v = e * blockDim.x + threadIdx.x;
+    const int q4 = v & ((1 << lq) - 1), j = v >> lq;
+    const int x = j0 + 4 * q4;
+    float4 re = make_float4(0.f, 0.f, 0.f, 0.f), im = re;
+    if (x < cols) quad(t.rank + t.k * j, x, re, im);
+    float* to = d + (j << t.logc) + 4 * q4;
+    *reinterpret_cast<float4*>(to) = re;
+    if (!real) *reinterpret_cast<float4*>(to + plane) = im;
+  }
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The Hermitian load of the fast kb (kb_kernel<true>) on the plane tile:
+// load_hermitian's values (rows y from input row h = min(y, n - y) of the
+// (n/2 + 1, nx) planes ar, ai, br, bi; a + i b up to n/2, conj(a) + i
+// conj(b) past it; the imaginary parts of rows 0 and n/2 never read; br
+// NULL a zero partner), the same sums, four columns at a time: one
+// 16-byte read of each plane, one 16-byte store into each float plane
+// (load_quads) where nx is a multiple of 4 and the planes are 16-byte
+// aligned; else load_hermitian into the tile's own layout.
+struct HermitianLoad {
+  const float* ar;
+  const float* ai;
+  const float* br;
+  const float* bi;
+  int nx;
+
+  __device__ __forceinline__ bool vec() const {
+    return (nx & 3) == 0 &&
+           ((reinterpret_cast<size_t>(ar) | reinterpret_cast<size_t>(ai) |
+             reinterpret_cast<size_t>(br) | reinterpret_cast<size_t>(bi)) &
+            15) == 0;
+  }
+  __device__ __forceinline__ bool real() const { return false; }
+  __device__ __forceinline__ int first_column(int k, int logc) const {
+    return (blockIdx.x / k) << logc;
+  }
+  __device__ __forceinline__ void operator()(const Tile& t, int j0,
+                                             bool vec) const {
+    if (!vec) {
+      load_hermitian(t, t.s, ar, ai, br, bi, j0, nx);
+      return;
+    }
+    const int half = t.n >> 1;
+    load_quads(t, j0, nx, false, [&](int y, int x, float4& re, float4& im) {
+      const int h = y <= half ? y : t.n - y;
+      const size_t off = static_cast<size_t>(h) * nx + x;
+      const bool selfconj = (h == 0) || (h == half);
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 a_r = ldg4(ar + off);
+      const float4 a_i = selfconj ? zero : ldg4(ai + off);
+      const float4 b_r = br == nullptr ? zero : ldg4(br + off);
+      const float4 b_i = (selfconj || bi == nullptr) ? zero : ldg4(bi + off);
+      if (y <= half) {
+        re = make_float4(a_r.x - b_i.x, a_r.y - b_i.y, a_r.z - b_i.z,
+                         a_r.w - b_i.w);
+        im = make_float4(a_i.x + b_r.x, a_i.y + b_r.y, a_i.z + b_r.z,
+                         a_i.w + b_r.w);
+      } else {
+        re = make_float4(a_r.x + b_i.x, a_r.y + b_i.y, a_r.z + b_i.z,
+                         a_r.w + b_i.w);
+        im = make_float4(b_r.x - a_i.x, b_r.y - a_i.y, b_r.z - a_i.z,
+                         b_r.w - a_i.w);
+      }
+    });
+  }
+};
+
+// The product load of the fast ky_all (ky_all_kernel<true>) on the plane
+// tile: cluster (tile, p) of product p = cluster mod 5 forms product p of
+// the y-major (ny, nx) planes u, v, zeta, eta_s (epilogue.cuh
+// sw_product's rounding) into the real plane alone, four columns at a
+// time (sw_product4, load_quads) where nx is a multiple of 4 and the
+// planes are 16-byte aligned; else load_rows into the tile's own layout,
+// zero imaginary parts. Either way the tile holds (product, 0), as kc of
+// (product, 0) loads it.
+struct SwProductLoad {
+  const float* u;
+  const float* v;
+  const float* zeta;
+  const float* eta_s;
+  int nx, p;
+  float ies, f0, grav;
+  bool split;
+
+  __device__ __forceinline__ bool vec() const {
+    return (nx & 3) == 0 &&
+           ((reinterpret_cast<size_t>(u) | reinterpret_cast<size_t>(v) |
+             reinterpret_cast<size_t>(zeta) |
+             reinterpret_cast<size_t>(eta_s)) &
+            15) == 0;
+  }
+  __device__ __forceinline__ bool real() const { return true; }
+  __device__ __forceinline__ int first_column(int k, int logc) const {
+    return (static_cast<int>(blockIdx.x / k) / kSwProducts) << logc;
+  }
+  __device__ __forceinline__ void operator()(const Tile& t, int j0,
+                                             bool vec) const {
+    if (!vec) {
+      load_rows(t, j0, nx, [&](int, int, size_t off) {
+        return make_float2(
+            sw_product(p, u, v, zeta, eta_s, off, ies, f0, grav, split),
+            0.f);
+      });
+      return;
+    }
+    load_quads(t, j0, nx, true, [&](int i, int x, float4& re, float4&) {
+      re = sw_product4(p, u, v, zeta, eta_s,
+                       static_cast<size_t>(i) * nx + x, ies, f0, grav,
+                       split);
+    });
+  }
+};
 
 // The store of a forward y-stage's half spectrum (ky_adv.cu, kb_adv.cu,
 // kb_adv_tracer.cu, ky_all.cu): X[k] of tile column c to yr, yi at [j0 + c, k] of the

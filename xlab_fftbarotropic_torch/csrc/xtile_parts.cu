@@ -17,14 +17,18 @@
 //   stop 4: all of it, with the natural store (finish).
 // The transposed store (finish_transposed) has its own cuts
 // (xfb_xtile_tparts), of kc_kernel's form (two (n, cols) float planes in,
-// the half store k <= n/2 to (cols, n/2 + 1) planes) and ka_kernel's
-// real forward (one float plane in, the full store to (cols, n) planes):
-//   stop 0: the loads (as above);
+// the half store k <= n/2 to (cols, n/2 + 1) planes), ka_kernel's real
+// forward (one float plane in, the full store to (cols, n) planes),
+// kb_kernel's (the Hermitian load, the inverse, the full x-major store;
+// paired and single) and ky_all_kernel's (the product load, five products
+// a tile, the half store):
+//   stop 0: the loads (each form's own);
 //   stop 1: + the whole sub-DFT;
 //   stop 2: + the cluster exchange and the K-point step, the outputs held
 //           in registers;
 //   stop 3: + the staging of the outputs in the tile (combine_staged);
 //   stop 4: all of it, with the transposed store (finish_transposed).
+#include "epilogue.cuh"
 #include "xtile.cuh"
 
 namespace {
@@ -197,7 +201,7 @@ int run_stop(int stop, const float* xr, const float* xi, float* yr,
 
 // The exchange and K-point step of combine_staged, its outputs kept alive
 // in registers and never staged.
-template <int K, bool FAST>
+template <int K, int SIGN, bool FAST>
 __device__ __forceinline__ void exchange(const xt::Tile& t,
                                          const float2* __restrict__ tw,
                                          float* y, float sentinel) {
@@ -213,7 +217,7 @@ __device__ __forceinline__ void exchange(const xt::Tile& t,
     float2* x = v + b * K;
     xt::gather<K, FAST>(t, t.s, k2, u & cmask, x);
     if (b == B - 1) xt::cluster_arrive();
-    xt::twiddle_dft<K, -1>(t, tw, k2, x);
+    xt::twiddle_dft<K, SIGN>(t, tw, k2, x);
   }
   xt::cluster_wait();
 #pragma unroll
@@ -222,64 +226,183 @@ __device__ __forceinline__ void exchange(const xt::Tile& t,
   }
 }
 
-// kc_kernel's cut (KA false: xr, xi (n, cols) planes -> yr, yi (cols,
-// n/2 + 1)) or ka_kernel's real forward (KA true: xr (n, cols) -> yr, yi
-// (cols, n)), up to stop STOP
-template <bool FAST, bool KA, int STOP>
-__global__ void __launch_bounds__(512, 2)
-    tparts_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                  float* yr, float* yi, const float2* __restrict__ tw, int n,
-                  int cols, int k, int logc, float sentinel) {
-  extern __shared__ float2 smem[];
+// The forms of the cut transposed store: kc's (two (n, cols) float
+// planes in, the half store to (cols, n/2 + 1) planes), ka's real forward
+// (one (n, cols) plane in, the full store to (cols, n) planes), kb's (the
+// Hermitian load of two (n/2 + 1, cols) plane pairs, the inverse, the
+// full x-major store of Re and Im times the scale to (cols, n) planes;
+// the third plane NULL: the single inverse, Re alone) and ky_all's (the
+// five shallow-water products of the (n, cols) planes u, v, zeta, eta_s,
+// product fastest in the grid, the half store to (5, cols, n/2 + 1)
+// planes; the bench's constants below, split on as fast mode runs it).
+enum Form { kKc = 0, kKaReal = 1, kKb = 2, kKyAll = 3 };
+constexpr float kIes = 32768.f, kF0 = 1e-4f, kGrav = 9.81f;
+
+// kb_pair.cu KbOut: Re * scale to oa[x, y], Im * scale to ob[x, y] (ob
+// NULL: not written)
+struct KbStore {
+  float* oa;
+  float* ob;
+  int j0, nx, ny;
+  float scale;
+
+  __device__ __forceinline__ void operator()(int y, int c, float2 v) const {
+    const int x = j0 + c;
+    if (x >= nx) return;
+    const size_t off = static_cast<size_t>(x) * ny + y;
+    oa[off] = __fmul_rn(v.x, scale);
+    if (ob != nullptr) ob[off] = __fmul_rn(v.y, scale);
+  }
+};
+
+// The plane tile's cut (the fast kb_kernel and ky_all_kernel: SIGN, HALF
+// and the load theirs): xtile.cuh plane_transposed's steps up to stop
+// STOP, the same calls in its order.
+template <int SIGN, bool HALF, int STOP, class Load, class Out>
+__device__ __forceinline__ void plane_cut(float2* smem,
+                                          const float2* __restrict__ tw,
+                                          int n, int k, int logc,
+                                          const Load& load, Out out,
+                                          float* y, float sentinel) {
+  if constexpr (STOP == 4) {
+    xt::plane_transposed<SIGN, HALF>(smem, tw, n, k, logc, load, out);
+    return;
+  }
   const xt::Tile t = xt::begin(smem, tw, n, k, logc);
-  const int j0 = (blockIdx.x / k) << logc;
-  const int cmask = (1 << logc) - 1;
-  // ka_kernel's and kc_kernel's load: rows rank + k * jj, consecutive
-  // lanes on consecutive columns
-#pragma unroll
-  for (int b = 0; b < xt::kElems; ++b) {
-    const int u = b * blockDim.x + threadIdx.x;
-    const int x = j0 + (u & cmask);
-    float2* d = t.s + u;
-    if (x < cols) {
-      const size_t off =
-          static_cast<size_t>(t.rank + k * (u >> logc)) * cols + x;
-      xt::cp_async4(&d->x, xr + off);
-      if constexpr (KA) {
-        d->y = 0.f;
-      } else {
-        xt::cp_async4(&d->y, xi + off);
-      }
-    } else {
-      *d = make_float2(0.f, 0.f);
+  const bool vec = load.vec();
+  load(t, load.first_column(k, logc), vec);
+  __syncthreads();
+  if constexpr (STOP > 0) xt::subdft_planes<SIGN>(t, vec, load.real());
+  if constexpr (STOP == 2) {
+    switch (t.k) {
+      case 1:
+        exchange<1, SIGN, true>(t, tw, y, sentinel);
+        break;
+      case 2:
+        exchange<2, SIGN, true>(t, tw, y, sentinel);
+        break;
+      case 4:
+        exchange<4, SIGN, true>(t, tw, y, sentinel);
+        break;
+      default:
+        exchange<8, SIGN, true>(t, tw, y, sentinel);
+        break;
+    }
+    return;
+  }
+  if constexpr (STOP == 3 && HALF) {
+    switch (t.k) {
+      case 1:
+        xt::combine_staged_half<1, SIGN>(t, tw);
+        break;
+      case 2:
+        xt::combine_staged_half<2, SIGN>(t, tw);
+        break;
+      case 4:
+        xt::combine_staged_half<4, SIGN>(t, tw);
+        break;
+      default:
+        xt::combine_staged_half<8, SIGN>(t, tw);
+        break;
+    }
+  } else if constexpr (STOP == 3) {
+    switch (t.k) {
+      case 1:
+        xt::combine_staged<1, SIGN, true>(t, tw);
+        break;
+      case 2:
+        xt::combine_staged<2, SIGN, true>(t, tw);
+        break;
+      case 4:
+        xt::combine_staged<4, SIGN, true>(t, tw);
+        break;
+      default:
+        xt::combine_staged<8, SIGN, true>(t, tw);
+        break;
     }
   }
-  xt::cp_async_wait_all();
+  const float2 v = t.s[threadIdx.x];
+  if (v.x == sentinel) y[0] = v.y;
+}
+
+// The column tile's cut of form FORM up to stop STOP: each form's own
+// load, then finish_transposed's steps (kc_kernel, ka_kernel, and the
+// strict kb_kernel and ky_all_kernel)
+template <bool FAST, int FORM, int STOP>
+__device__ __forceinline__ void tile_cut(
+    float2* smem, const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ x2, const float* __restrict__ x3, float* yr,
+    float* yi, const float2* __restrict__ tw, int n, int cols, float scale,
+    int k, int logc, float sentinel) {
+  constexpr int SIGN = FORM == kKb ? +1 : -1;
+  const xt::Tile t = xt::begin(smem, tw, n, k, logc);
+  int cluster = blockIdx.x / k, p = 0;
+  if constexpr (FORM == kKyAll) {
+    p = cluster % xfb::kSwProducts;
+    cluster /= xfb::kSwProducts;
+  }
+  const int j0 = cluster << logc;
+  const int cmask = (1 << logc) - 1;
+  if constexpr (FORM == kKb) {
+    xt::load_hermitian(t, t.s, x0, x1, x2, x3, j0, cols);
+  } else if constexpr (FORM == kKyAll) {
+    xt::load_rows(t, j0, cols, [&](int, int, size_t off) {
+      return make_float2(xfb::sw_product(p, x0, x1, x2, x3, off, kIes, kF0,
+                                         kGrav, true),
+                         0.f);
+    });
+  } else {
+    // ka_kernel's and kc_kernel's load: rows rank + k * jj, consecutive
+    // lanes on consecutive columns
+#pragma unroll
+    for (int b = 0; b < xt::kElems; ++b) {
+      const int u = b * blockDim.x + threadIdx.x;
+      const int x = j0 + (u & cmask);
+      float2* d = t.s + u;
+      if (x < cols) {
+        const size_t off =
+            static_cast<size_t>(t.rank + k * (u >> logc)) * cols + x;
+        xt::cp_async4(&d->x, x0 + off);
+        if constexpr (FORM == kKaReal) {
+          d->y = 0.f;
+        } else {
+          xt::cp_async4(&d->y, x1 + off);
+        }
+      } else {
+        *d = make_float2(0.f, 0.f);
+      }
+    }
+    xt::cp_async_wait_all();
+  }
   __syncthreads();
   if constexpr (STOP == 4) {
-    if constexpr (KA) {
+    if constexpr (FORM == kKaReal) {
       xt::RowOut o{yr, yi, 0, j0, cols, n, 1.f};
       xt::finish_transposed<-1, FAST>(t, tw, false, o);
+    } else if constexpr (FORM == kKb) {
+      KbStore o{yr, yi, j0, cols, n, scale};
+      xt::finish_transposed<+1, FAST>(t, tw, false, o);
     } else {
-      xt::HalfOut o{yr, yi, 0, j0, cols, n / 2 + 1};
+      const size_t plane = static_cast<size_t>(p) * cols * (n / 2 + 1);
+      xt::HalfOut o{yr, yi, plane, j0, cols, n / 2 + 1};
       xt::finish_transposed<-1, FAST>(t, tw, true, o);
     }
     return;
   }
-  if constexpr (STOP > 0) xt::subdft<-1, FAST>(t);
+  if constexpr (STOP > 0) xt::subdft<SIGN, FAST>(t);
   if constexpr (STOP == 2) {
     switch (t.k) {
       case 1:
-        exchange<1, FAST>(t, tw, yr, sentinel);
+        exchange<1, SIGN, FAST>(t, tw, yr, sentinel);
         break;
       case 2:
-        exchange<2, FAST>(t, tw, yr, sentinel);
+        exchange<2, SIGN, FAST>(t, tw, yr, sentinel);
         break;
       case 4:
-        exchange<4, FAST>(t, tw, yr, sentinel);
+        exchange<4, SIGN, FAST>(t, tw, yr, sentinel);
         break;
       default:
-        exchange<8, FAST>(t, tw, yr, sentinel);
+        exchange<8, SIGN, FAST>(t, tw, yr, sentinel);
         break;
     }
     return;
@@ -287,16 +410,16 @@ __global__ void __launch_bounds__(512, 2)
   if constexpr (STOP == 3) {
     switch (t.k) {
       case 1:
-        xt::combine_staged<1, -1, FAST>(t, tw);
+        xt::combine_staged<1, SIGN, FAST>(t, tw);
         break;
       case 2:
-        xt::combine_staged<2, -1, FAST>(t, tw);
+        xt::combine_staged<2, SIGN, FAST>(t, tw);
         break;
       case 4:
-        xt::combine_staged<4, -1, FAST>(t, tw);
+        xt::combine_staged<4, SIGN, FAST>(t, tw);
         break;
       default:
-        xt::combine_staged<8, -1, FAST>(t, tw);
+        xt::combine_staged<8, SIGN, FAST>(t, tw);
         break;
     }
   }
@@ -304,39 +427,95 @@ __global__ void __launch_bounds__(512, 2)
   if (v.x == sentinel) yr[0] = v.y;
 }
 
-template <bool FAST, bool KA, int STOP>
-int trun(const float* xr, const float* xi, float* yr, float* yi,
-         const void* tw, int n, int cols, int tile_c, int cluster_k,
-         int threads, int smem, int device, void* stream) {
-  const int tiles = (cols + tile_c - 1) / tile_c;
-  return static_cast<int>(xt::launch(
-      tparts_kernel<FAST, KA, STOP>, tiles, 1, cluster_k, threads, smem,
-      device, static_cast<cudaStream_t>(stream), xr, xi, yr, yi,
-      static_cast<const float2*>(tw), n, cols, cluster_k, xt::log2i(tile_c),
-      __builtin_nanf("")));
+// The cut of form FORM (above) up to stop STOP: the fast kb and ky_all on
+// the plane tile (plane_cut), the others on the column tile (tile_cut)
+template <bool FAST, int FORM, int STOP>
+__global__ void __launch_bounds__(512, 2)
+    tparts_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
+                  const float* __restrict__ x2, const float* __restrict__ x3,
+                  float* yr, float* yi, const float2* __restrict__ tw, int n,
+                  int cols, float scale, int k, int logc, float sentinel) {
+  extern __shared__ float2 smem[];
+  if constexpr (FAST && FORM == kKb) {
+    plane_cut<+1, false, STOP>(smem, tw, n, k, logc,
+                               xt::HermitianLoad{x0, x1, x2, x3, cols},
+                               KbStore{yr, yi, 0, cols, n, scale}, yr,
+                               sentinel);
+  } else if constexpr (FAST && FORM == kKyAll) {
+    const int p = static_cast<int>(blockIdx.x / k) % xfb::kSwProducts;
+    const int hny = n / 2 + 1;
+    plane_cut<-1, true, STOP>(
+        smem, tw, n, k, logc,
+        xt::SwProductLoad{x0, x1, x2, x3, cols, p, kIes, kF0, kGrav, true},
+        xt::HalfOut{yr, yi, static_cast<size_t>(p) * cols * hny, 0, cols,
+                    hny},
+        yr, sentinel);
+  } else {
+    tile_cut<FAST, FORM, STOP>(smem, x0, x1, x2, x3, yr, yi, tw, n, cols,
+                               scale, k, logc, sentinel);
+  }
 }
 
-template <bool FAST, bool KA>
-int trun_stop(int stop, const float* xr, const float* xi, float* yr,
-              float* yi, const void* tw, int n, int cols, int tile_c,
+template <bool FAST, int FORM, int STOP>
+int trun(const float* const* x, float* yr, float* yi, const void* tw, int n,
+         int cols, float scale, int tile_c, int cluster_k, int threads,
+         int smem, int device, void* stream) {
+  const int tiles = (cols + tile_c - 1) / tile_c;
+  return static_cast<int>(xt::launch(
+      tparts_kernel<FAST, FORM, STOP>,
+      tiles * (FORM == kKyAll ? xfb::kSwProducts : 1), 1, cluster_k, threads,
+      smem, device, static_cast<cudaStream_t>(stream), x[0], x[1], x[2],
+      x[3], yr, yi, static_cast<const float2*>(tw), n, cols, scale,
+      cluster_k, xt::log2i(tile_c), __builtin_nanf("")));
+}
+
+template <bool FAST, int FORM>
+int trun_stop(int stop, const float* const* x, float* yr, float* yi,
+              const void* tw, int n, int cols, float scale, int tile_c,
               int cluster_k, int threads, int smem, int device,
               void* stream) {
   switch (stop) {
     case 0:
-      return trun<FAST, KA, 0>(xr, xi, yr, yi, tw, n, cols, tile_c,
-                               cluster_k, threads, smem, device, stream);
+      return trun<FAST, FORM, 0>(x, yr, yi, tw, n, cols, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream);
     case 1:
-      return trun<FAST, KA, 1>(xr, xi, yr, yi, tw, n, cols, tile_c,
-                               cluster_k, threads, smem, device, stream);
+      return trun<FAST, FORM, 1>(x, yr, yi, tw, n, cols, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream);
     case 2:
-      return trun<FAST, KA, 2>(xr, xi, yr, yi, tw, n, cols, tile_c,
-                               cluster_k, threads, smem, device, stream);
+      return trun<FAST, FORM, 2>(x, yr, yi, tw, n, cols, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream);
     case 3:
-      return trun<FAST, KA, 3>(xr, xi, yr, yi, tw, n, cols, tile_c,
-                               cluster_k, threads, smem, device, stream);
+      return trun<FAST, FORM, 3>(x, yr, yi, tw, n, cols, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream);
     case 4:
-      return trun<FAST, KA, 4>(xr, xi, yr, yi, tw, n, cols, tile_c,
-                               cluster_k, threads, smem, device, stream);
+      return trun<FAST, FORM, 4>(x, yr, yi, tw, n, cols, scale, tile_c,
+                                 cluster_k, threads, smem, device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool FAST>
+int tform(int form, int stop, const float* const* x, float* yr, float* yi,
+          const void* tw, int n, int cols, float scale, int tile_c,
+          int cluster_k, int threads, int smem, int device, void* stream) {
+  switch (form) {
+    case kKc:
+      return trun_stop<FAST, kKc>(stop, x, yr, yi, tw, n, cols, scale,
+                                  tile_c, cluster_k, threads, smem, device,
+                                  stream);
+    case kKaReal:
+      return trun_stop<FAST, kKaReal>(stop, x, yr, yi, tw, n, cols, scale,
+                                      tile_c, cluster_k, threads, smem,
+                                      device, stream);
+    case kKb:
+      return trun_stop<FAST, kKb>(stop, x, yr, yi, tw, n, cols, scale,
+                                  tile_c, cluster_k, threads, smem, device,
+                                  stream);
+    case kKyAll:
+      return trun_stop<FAST, kKyAll>(stop, x, yr, yi, tw, n, cols, scale,
+                                     tile_c, cluster_k, threads, smem,
+                                     device, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -344,32 +523,29 @@ int trun_stop(int stop, const float* xr, const float* xi, float* yr,
 
 }  // namespace
 
-// The cut transposed store: ka 0: kc's (xr, xi two (n, cols) float planes
-// -> yr, yi (cols, n/2 + 1)), 1: ka's real forward (xr (n, cols), xi
-// unused -> yr, yi (cols, n)); fast 0 or 1; stop 0..4 (above); tile_c,
+// The cut transposed store of form `form` (0 kc: x0, x1 two (n, cols)
+// float planes -> yr, yi (cols, n/2 + 1); 1 ka's real forward: x0 (n,
+// cols) -> yr, yi (cols, n); 2 kb: x0..x3 two (n/2 + 1, cols) plane pairs
+// (x2, x3, yi NULL: the single inverse) -> yr, yi x-major (cols, n) times
+// `scale`; 3 ky_all: x0..x3 the (n, cols) planes u, v, zeta, eta_s -> yr,
+// yi (5, cols, n/2 + 1)); fast 0 or 1; stop 0..4 (above); tile_c,
 // cluster_k, threads, smem: the plan of ops/xtile.py for n.
-extern "C" int xfb_xtile_tparts(int fast, int ka, int stop, const float* xr,
-                                const float* xi, float* yr, float* yi,
-                                const void* tw, int n, int cols, int tile_c,
-                                int cluster_k, int threads, int smem,
-                                int device, void* stream) {
+extern "C" int xfb_xtile_tparts(int fast, int form, int stop,
+                                const float* x0, const float* x1,
+                                const float* x2, const float* x3, float* yr,
+                                float* yi, const void* tw, int n, int cols,
+                                float scale, int tile_c, int cluster_k,
+                                int threads, int smem, int device,
+                                void* stream) {
   if (!xt::plan_ok(n, tile_c, cluster_k, threads, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (fast) {
-    return ka ? trun_stop<true, true>(stop, xr, xi, yr, yi, tw, n, cols,
-                                      tile_c, cluster_k, threads, smem,
-                                      device, stream)
-              : trun_stop<true, false>(stop, xr, xi, yr, yi, tw, n, cols,
-                                       tile_c, cluster_k, threads, smem,
-                                       device, stream);
-  }
-  return ka ? trun_stop<false, true>(stop, xr, xi, yr, yi, tw, n, cols,
-                                     tile_c, cluster_k, threads, smem,
-                                     device, stream)
-            : trun_stop<false, false>(stop, xr, xi, yr, yi, tw, n, cols,
-                                      tile_c, cluster_k, threads, smem,
-                                      device, stream);
+  const float* const x[4] = {x0, x1, x2, x3};
+  return fast ? tform<true>(form, stop, x, yr, yi, tw, n, cols, scale,
+                            tile_c, cluster_k, threads, smem, device, stream)
+              : tform<false>(form, stop, x, yr, yi, tw, n, cols, scale,
+                             tile_c, cluster_k, threads, smem, device,
+                             stream);
 }
 
 // The cut x-stage: xr, xi (cplx 0: two (n, hny) float planes; 1: xr one

@@ -169,12 +169,13 @@ SIGNATURES = {
     "xfb_xstage": [_P] * 2 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     # the cut x-stage of csrc/xtile_parts.cu (chip_smoke.py phase 5v):
     # fast, cplx, stop, xr, xi, yr, yi, tw, n, hny, tile_c, cluster_k,
-    # threads, smem, device, stream; the cut transposed store: fast, ka,
-    # stop, xr, xi, yr, yi, tw, n, cols, tile_c, cluster_k, threads, smem,
-    # device, stream; and the resident clusters of the x-stage's: fast,
-    # tiles, cluster_k, threads, smem, device, out[4]
+    # threads, smem, device, stream; the cut transposed store: fast, form,
+    # stop, x0, x1, x2, x3, yr, yi, tw, n, cols, scale, tile_c, cluster_k,
+    # threads, smem, device, stream; and the resident clusters of the
+    # x-stage's: fast, tiles, cluster_k, threads, smem, device, out[4]
     "xfb_xtile_parts": [_I] * 3 + [_P] * 5 + [_I] * 7 + [_P],
-    "xfb_xtile_tparts": [_I] * 3 + [_P] * 5 + [_I] * 7 + [_P],
+    "xfb_xtile_tparts": [_I] * 3 + [_P] * 7 + [_I] * 2 + [_F] + [_I] * 5
+    + [_P],
     "xfb_xtile_occupancy": [_I] * 6 + [_P],
     # the exchange buffers (csrc/ipc.cu): bytes, device, out pointer;
     # pointer, out handle[64]; handle[64], device, out pointer; pointer;
